@@ -1,0 +1,248 @@
+"""Model configuration for the PyTorch port.
+
+A copy of `megatron_tpu.config.ModelConfig`, its derivations and the model
+presets, with dtypes mapped to torch. The JAX package stays the reference;
+the port keeps its own copy so that it never imports it.
+
+`MegatronConfig.from_dict` reads the `model` section of a checkpoint's
+`config.json`. The other sections (parallel layout, optimizer, training,
+data, serving, resilience) belong to later slices of the port and are
+ignored here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "fp32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
+    "float16": torch.float16,
+    "fp16": torch.float16,
+}
+
+
+def as_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Transformer architecture config (megatron_tpu/config.py ModelConfig);
+    the fields and their defaults are the reference's."""
+
+    num_layers: int = 2
+    hidden_size: int = 128
+    ffn_hidden_size: Optional[int] = None  # derived: 4h, or 8/3 h for GLU
+    num_attention_heads: int = 4
+    num_kv_heads: Optional[int] = None  # GQA/MQA; None -> MHA
+    kv_channels: Optional[int] = None  # head dim; derived h / n_heads
+    seq_length: int = 512
+    max_position_embeddings: Optional[int] = None
+    vocab_size: int = 32000
+    make_vocab_size_divisible_by: int = 128
+
+    use_rotary_emb: bool = True
+    rope_theta: float = 10000.0
+    rope_scaling_factor: float = 1.0
+    use_position_embedding: bool = False
+
+    norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    norm_epsilon: float = 1e-5
+    # swiglu | geglu | reglu | liglu | gelu | relu | squared_relu
+    activation: str = "swiglu"
+    use_bias: bool = False
+    use_post_ln: bool = False
+    parallel_attn: bool = False
+    parallel_layernorm: bool = False
+    tie_embed_logits: bool = False
+
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    lima_dropout: bool = False
+    drop_path_rate: float = 0.0
+
+    params_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    softmax_compute_fp32: bool = True
+    apply_query_key_layer_scaling: bool = False
+    attention_softmax_in_fp32: bool = True
+    init_method_std: float = 0.02
+    use_scaled_init: bool = True
+
+    attention_impl: str = "dot"  # "flash" | "dot" | "ring" | "ulysses"
+    sliding_window: Optional[int] = None
+    recompute_granularity: str = "none"
+    quantized_gemm: str = "none"  # "none" | "int8"
+
+    num_experts: int = 1
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coeff: float = 1e-2
+    moe_dispatch: str = "sort"
+
+    @property
+    def is_glu(self) -> bool:
+        return self.activation in ("swiglu", "geglu", "reglu", "liglu")
+
+    def derived(self) -> "ModelConfig":
+        """Fill derived fields (ffn size, kv heads, head dim, max positions)."""
+        if self.attention_impl not in ("dot", "flash", "ring", "ulysses"):
+            raise ValueError(
+                f"attention_impl must be 'dot', 'flash', 'ring' or "
+                f"'ulysses', got {self.attention_impl!r}")
+        if self.quantized_gemm not in ("none", "int8"):
+            raise ValueError(f"quantized_gemm must be 'none' or 'int8', "
+                             f"got {self.quantized_gemm!r}")
+        d: dict[str, Any] = {}
+        if self.num_kv_heads is None:
+            d["num_kv_heads"] = self.num_attention_heads
+        elif self.num_attention_heads % self.num_kv_heads:
+            raise ValueError(
+                f"num_attention_heads={self.num_attention_heads} must be a "
+                f"multiple of num_kv_heads={self.num_kv_heads} (GQA groups)")
+        if self.kv_channels is None:
+            if self.hidden_size % self.num_attention_heads:
+                raise ValueError("hidden_size must be a multiple of "
+                                 "num_attention_heads")
+            d["kv_channels"] = self.hidden_size // self.num_attention_heads
+        if self.ffn_hidden_size is None:
+            if self.is_glu:
+                # llama convention: 2/3 * 4h rounded to multiple of 256
+                ffn = int(8 * self.hidden_size / 3)
+                d["ffn_hidden_size"] = 256 * ((ffn + 255) // 256)
+            else:
+                d["ffn_hidden_size"] = 4 * self.hidden_size
+        if self.max_position_embeddings is None:
+            d["max_position_embeddings"] = self.seq_length
+        return dataclasses.replace(self, **d)
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.make_vocab_size_divisible_by
+        return m * ((self.vocab_size + m - 1) // m)
+
+
+@dataclass(frozen=True)
+class MegatronConfig:
+    """The part of the reference's MegatronConfig that a checkpoint's
+    `config.json` needs to rebuild the model."""
+
+    model: ModelConfig
+
+    @staticmethod
+    def from_dict(d: dict) -> "MegatronConfig":
+        fields = {f.name for f in dataclasses.fields(ModelConfig)}
+        sub = d.get("model", {})
+        return MegatronConfig(
+            model=ModelConfig(**{k: v for k, v in sub.items()
+                                 if k in fields}))
+
+
+# ---------------------------------------------------------------------------
+# Model presets (megatron_tpu/config.py llama2_config .. MODEL_PRESETS)
+# ---------------------------------------------------------------------------
+
+def llama2_config(size: str = "7b", **overrides) -> ModelConfig:
+    presets = {
+        "tiny": dict(num_layers=2, hidden_size=256, num_attention_heads=4,
+                     vocab_size=32000, seq_length=512,
+                     attention_impl="dot"),
+        "7b": dict(num_layers=32, hidden_size=4096, num_attention_heads=32,
+                   ffn_hidden_size=11008, vocab_size=32000, seq_length=4096),
+        "13b": dict(num_layers=40, hidden_size=5120, num_attention_heads=40,
+                    ffn_hidden_size=13824, vocab_size=32000, seq_length=4096),
+        "70b": dict(num_layers=80, hidden_size=8192, num_attention_heads=64,
+                    num_kv_heads=8, ffn_hidden_size=28672, vocab_size=32000,
+                    seq_length=4096),
+    }
+    base = dict(
+        use_rotary_emb=True, norm_type="rmsnorm", norm_epsilon=1e-5,
+        activation="swiglu", use_bias=False, use_post_ln=False,
+        parallel_attn=False, tie_embed_logits=False,
+        # real-model presets take the flash path; the "tiny" presets keep
+        # dot, as in the reference
+        attention_impl="flash",
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return ModelConfig(**base).derived()
+
+
+def falcon_config(size: str = "7b", **overrides) -> ModelConfig:
+    presets = {
+        "tiny": dict(num_layers=2, hidden_size=256, num_attention_heads=4,
+                     num_kv_heads=1, vocab_size=65024, seq_length=512,
+                     attention_impl="dot"),
+        "7b": dict(num_layers=32, hidden_size=4544, num_attention_heads=71,
+                   num_kv_heads=1, vocab_size=65024, seq_length=2048),
+        "40b": dict(num_layers=60, hidden_size=8192, num_attention_heads=128,
+                    num_kv_heads=8, vocab_size=65024, seq_length=2048,
+                    parallel_layernorm=True),
+    }
+    base = dict(
+        use_rotary_emb=True, norm_type="layernorm", norm_epsilon=1e-5,
+        activation="gelu", use_bias=False, use_post_ln=False,
+        parallel_attn=True, tie_embed_logits=True,
+        attention_impl="flash",
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return ModelConfig(**base).derived()
+
+
+def mixtral_config(size: str = "8x7b", **overrides) -> ModelConfig:
+    presets = {
+        "tiny": dict(num_layers=2, hidden_size=256, num_attention_heads=8,
+                     num_kv_heads=2, ffn_hidden_size=512, vocab_size=32000,
+                     seq_length=512, num_experts=4, attention_impl="dot"),
+        "8x7b": dict(num_layers=32, hidden_size=4096,
+                     num_attention_heads=32, num_kv_heads=8,
+                     ffn_hidden_size=14336, vocab_size=32000,
+                     seq_length=4096, max_position_embeddings=32768,
+                     num_experts=8),
+    }
+    if size not in presets:
+        raise ValueError(f"unknown mixtral size {size!r}; "
+                         f"valid: {sorted(presets)}")
+    base = dict(
+        use_rotary_emb=True, rope_theta=1e6, norm_type="rmsnorm",
+        norm_epsilon=1e-5, activation="swiglu", use_bias=False,
+        use_post_ln=False, tie_embed_logits=False, moe_top_k=2,
+        attention_impl="flash",
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    base.setdefault("moe_capacity_factor",
+                    base["num_experts"] / base["moe_top_k"])
+    return ModelConfig(**base).derived()
+
+
+def gpt_config(**overrides) -> ModelConfig:
+    base = dict(
+        num_layers=12, hidden_size=768, num_attention_heads=12,
+        vocab_size=50257, seq_length=1024, use_rotary_emb=False,
+        use_position_embedding=True, norm_type="layernorm",
+        activation="gelu", use_bias=True, tie_embed_logits=True,
+    )
+    base.update(overrides)
+    return ModelConfig(**base).derived()
+
+
+MODEL_PRESETS = {
+    "llama2-tiny": lambda: llama2_config("tiny"),
+    "llama2-7b": lambda: llama2_config("7b"),
+    "llama2-13b": lambda: llama2_config("13b"),
+    "llama2-70b": lambda: llama2_config("70b"),
+    "falcon-tiny": lambda: falcon_config("tiny"),
+    "falcon-7b": lambda: falcon_config("7b"),
+    "falcon-40b": lambda: falcon_config("40b"),
+    "mixtral-tiny": lambda: mixtral_config("tiny"),
+    "mixtral-8x7b": lambda: mixtral_config("8x7b"),
+    "gpt2": gpt_config,
+}

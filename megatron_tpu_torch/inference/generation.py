@@ -1,0 +1,236 @@
+"""Autoregressive generation with a KV cache
+(megatron_tpu/inference/generation.py).
+
+One prefill pass over the common prompt prefix, then a per-token decode
+loop on the host where the reference scans. Rows still inside their prompt
+feed their prompt token; finished rows emit pad. The shapes follow the
+reference: the prefill length rounds down to PREFILL_BUCKET and the cache
+length up to a multiple of 64. The decode loop stops at the longest
+requested length instead of running on to the bucketed cache end, which
+changes no token or logprob inside any row's requested span.
+
+Rolling sliding-window caches, int8 caches, chunked prefill, the slot-grid
+verify path and sharded serving belong to later slices.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from megatron_tpu_torch.config import ModelConfig
+from megatron_tpu_torch.inference.sampling import sample
+from megatron_tpu_torch.models import language_model as lm
+from megatron_tpu_torch.models.attention import KVCache
+from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+class SamplingParams(NamedTuple):
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 0.0
+
+
+# Generator.generate rounds the prefill length DOWN to this multiple, as the
+# reference does for its jit-cache buckets
+PREFILL_BUCKET = 16
+
+
+def kv_region_cap(cfg: ModelConfig, max_len: int,
+                  prefill_len: Optional[int] = None) -> int:
+    """Token capacity of one sequence's KV region (the reference's rolling
+    decision: with a sliding window the region holds only the window)."""
+    if cfg.sliding_window is not None and (
+            cfg.attention_impl == "flash"
+            or (prefill_len is not None
+                and prefill_len <= cfg.sliding_window)):
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, prefill_len: Optional[int] = None,
+                   *, device=None) -> KVCache:
+    """Stacked-over-layers cache [L, b, max_len, nkv, hd] with one offset
+    shared by every row and layer."""
+    if kv_region_cap(cfg, max_len, prefill_len) < max_len:
+        raise NotImplementedError(
+            "rolling sliding-window KV caches are ported in a later slice")
+    if dtype == torch.int8:
+        raise NotImplementedError("int8 KV caches are ported in a later slice")
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.kv_channels)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def _decode_fn(params, tokens, lengths, generator, *, cfg: ModelConfig,
+               max_len: int, min_prompt: int, end: int, sp: SamplingParams,
+               eos_id: int, pad_id: int, rope, kv_dtype=torch.bfloat16):
+    """tokens: [b, max_len] prompts right-padded (written in place);
+    lengths: [b] prompt lengths. Prefill [0, min_prompt), then decode
+    positions min_prompt..end-1. Returns (tokens, logprobs [b, max_len])."""
+    b = tokens.shape[0]
+    caches = init_kv_caches(cfg, b, max_len, dtype=kv_dtype,
+                            prefill_len=min_prompt, device=tokens.device)
+    logits, caches = lm.model_forward(params, tokens[:, :min_prompt], cfg,
+                                      kv_caches=caches, rope=rope)
+    last = logits[:, -1]
+    done = torch.zeros(b, dtype=torch.bool, device=tokens.device)
+    logprobs = torch.zeros(b, max_len, dtype=torch.float32,
+                           device=tokens.device)
+    for pos in range(min_prompt, end):
+        sampled = sample(generator, last, top_k=sp.top_k, top_p=sp.top_p,
+                         temperature=sp.temperature,
+                         vocab_size=cfg.vocab_size)
+        # rows still inside their prompt keep their prompt token
+        in_prompt = pos < lengths
+        cur = torch.where(in_prompt, tokens[:, pos], sampled)
+        cur = torch.where(done, pad_id, cur)
+        tokens[:, pos] = cur
+        logprobs[:, pos] = torch.log_softmax(last, dim=-1).gather(
+            -1, cur[:, None])[:, 0]
+        done = done | ((cur == eos_id) & ~in_prompt)
+        if pos + 1 < end:
+            logits, caches = lm.model_forward(params, cur[:, None], cfg,
+                                              kv_caches=caches, rope=rope)
+            last = logits[:, 0]
+    return tokens, logprobs
+
+
+class Generator:
+    """Generation over one model on one device.
+
+    `model` is a LanguageModel whose weights lie on `device` (the current
+    CUDA device when None; raises without one)."""
+
+    def __init__(self, model: lm.LanguageModel, cfg: ModelConfig, eos_id: int,
+                 pad_id: Optional[int] = None, *,
+                 kv_cache_dtype=torch.bfloat16, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model weights lie on {model.device}, the "
+                             f"generator runs on {self.device}")
+        self.params = model
+        self.cfg = cfg
+        self.eos_id = eos_id
+        self.pad_id = pad_id if pad_id is not None else eos_id
+        self.kv_cache_dtype = kv_cache_dtype
+        self.rope = lm.make_rope(cfg, max_len=cfg.max_position_embeddings,
+                                 device=self.device)
+
+    @torch.inference_mode()
+    def generate(self, prompts: list[list[int]], max_new_tokens: int,
+                 sampling: SamplingParams = SamplingParams(), seed: int = 0):
+        """prompts: lists of token ids. Returns numpy (tokens [b, max_len],
+        lengths [b] up to and including a first eos, logprobs [b, max_len])."""
+        b = len(prompts)
+        lengths = np.array([len(p) for p in prompts], np.int64)
+        max_len = int(lengths.max()) + max_new_tokens
+        max_pos = self.cfg.max_position_embeddings
+        if max_len > max_pos:
+            raise ValueError(
+                f"prompt ({int(lengths.max())}) + max_new_tokens "
+                f"({max_new_tokens}) = {max_len} exceeds "
+                f"max_position_embeddings={max_pos}; positions past the RoPE "
+                "table would silently clamp")
+        end = max_len
+        max_len = min(-(-max_len // 64) * 64, max_pos)
+        min_prompt = max(
+            (int(lengths.min()) // PREFILL_BUCKET) * PREFILL_BUCKET, 1)
+        toks = np.full((b, max_len), self.pad_id, np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        tokens, logprobs = _decode_fn(
+            self.params, torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(lengths).to(self.device), gen, cfg=self.cfg,
+            max_len=max_len, min_prompt=min_prompt, end=end, sp=sampling,
+            eos_id=self.eos_id, pad_id=self.pad_id, rope=self.rope,
+            kv_dtype=self.kv_cache_dtype)
+        tokens = tokens.cpu().numpy()
+        logprobs = logprobs.cpu().numpy()
+        out_lens = []
+        for i in range(b):
+            requested = int(lengths[i]) + max_new_tokens
+            hits = np.where(tokens[i, lengths[i]:requested] == self.eos_id)[0]
+            out_lens.append(int(lengths[i]) + int(hits[0]) + 1 if len(hits)
+                            else requested)
+        return tokens, np.asarray(out_lens, np.int64), logprobs
+
+    @torch.inference_mode()
+    def score(self, token_rows: list[list[int]]) -> np.ndarray:
+        """Per-token logprobs [b, max_len - 1] of the given sequences."""
+        b = len(token_rows)
+        max_len = max(len(t) for t in token_rows)
+        toks = np.full((b, max_len), self.pad_id, np.int64)
+        for i, t in enumerate(token_rows):
+            toks[i, :len(t)] = t
+        tokens = torch.from_numpy(toks).to(self.device)
+        logits, _ = lm.model_forward(self.params, tokens, self.cfg,
+                                     rope=self.rope)
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        return lp.gather(-1, tokens[:, 1:, None])[..., 0].cpu().numpy()
+
+
+@torch.inference_mode()
+def beam_search(generator: Generator, prompt: list[int], beam_width: int,
+                max_new_tokens: int, length_penalty: float = 1.0):
+    """Beam search: the `beam_width` hypotheses run as one batch; each step
+    expands to beam_width * vocab candidates and keeps the best beam_width
+    by cumulative logprob (finished beams stay as single candidates), and
+    the final ranking is length-penalized. Returns numpy (tokens, lengths,
+    scores), best first."""
+    cfg, eos, params, rope = (generator.cfg, generator.eos_id,
+                              generator.params, generator.rope)
+    dev = generator.device
+    prompt_len = len(prompt)
+    max_len = prompt_len + max_new_tokens
+    bw = beam_width
+
+    toks = np.full((bw, max_len), generator.pad_id, np.int64)
+    toks[:, :prompt_len] = prompt
+    tokens = torch.from_numpy(toks).to(dev)
+    caches = init_kv_caches(cfg, bw, max_len, dtype=generator.kv_cache_dtype,
+                            prefill_len=prompt_len, device=dev)
+    logits, caches = lm.model_forward(params, tokens[:, :prompt_len], cfg,
+                                      kv_caches=caches, rope=rope)
+    last = logits[:, -1]
+    scores = torch.tensor([0.0] + [-1e9] * (bw - 1), dtype=torch.float32,
+                          device=dev)
+    done = torch.zeros(bw, dtype=torch.bool, device=dev)
+    for pos in range(prompt_len, max_len):
+        lp = torch.log_softmax(last, dim=-1)
+        V = lp.shape[-1]
+        lp[:, cfg.vocab_size:] = float("-inf")
+        cand = (lp.masked_fill(done[:, None], float("-inf"))
+                + scores[:, None]).reshape(-1)
+        keep_done = scores.masked_fill(~done, float("-inf"))
+        all_scores = torch.cat([cand, keep_done])
+        top = torch.topk(all_scores, bw).indices
+        is_kept_done = top >= bw * V
+        parent = torch.where(is_kept_done, top - bw * V, top // V)
+        token = torch.where(is_kept_done, generator.pad_id, top % V)
+        scores = all_scores[top]
+        tokens = tokens[parent]
+        caches = KVCache(caches.k[:, parent], caches.v[:, parent],
+                         caches.offset)
+        tokens[:, pos] = token
+        done = done[parent] | (token == eos)
+        if pos + 1 == max_len or bool(done.all()):
+            break
+        logits, caches = lm.model_forward(params, tokens[:, pos, None], cfg,
+                                          kv_caches=caches, rope=rope)
+        last = logits[:, 0]
+    tokens = tokens.cpu().numpy()
+    scores = scores.cpu().numpy()
+    out_len = np.full((bw,), max_len)
+    for i in range(bw):
+        hits = np.where(tokens[i, prompt_len:] == eos)[0]
+        if len(hits):
+            out_len[i] = prompt_len + hits[0] + 1
+    gen_len = np.maximum(out_len - prompt_len, 1)
+    final = scores / (gen_len ** length_penalty)
+    order = np.argsort(-final)
+    return tokens[order], out_len[order], final[order]

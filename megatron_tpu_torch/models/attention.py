@@ -1,0 +1,158 @@
+"""Multi-head / grouped-query / multi-query self-attention
+(megatron_tpu/models/attention.py).
+
+Parameters keep the reference's layout: wq [h, nq*hd], a fused wkv
+[h, 2*nkv*hd] whose output splits as [.., 2, nkv, hd] (k at index 0, v at
+index 1), and wo [nq*hd, h].
+
+The KV cache holds its offset as a host int shared by every row and layer
+(the serial serving path's layout), so the reference's `lax.cond` on
+"offset == 0" is a plain branch here: an offset-0 multi-token prefill takes
+the flash kernel over the fresh k/v, and decode steps and offset > 0 chunks
+take the dot path over the cache's live region. Cache writes are in place.
+
+Left for later slices, and raising: per-row (slot-grid) offsets, the
+block-native cache, rolling sliding-window caches, int8 caches, LoRA
+adapters, cross-attention, segment ids, dropout, and the ring / ulysses
+implementations.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from megatron_tpu_torch.config import ModelConfig
+from megatron_tpu_torch.models.rope import apply_rotary
+from megatron_tpu_torch.ops.flash_attention import flash_attention
+from megatron_tpu_torch.ops.quantized import qdense, wcast
+
+
+@dataclass
+class KVCache:
+    """KV cache: k/v [batch, max_seq, n_kv, head_dim] for one layer, or with
+    a leading layers dim for the whole stack; `offset` tokens are filled."""
+    k: torch.Tensor
+    v: torch.Tensor
+    offset: int = 0
+
+
+def attention_init(cfg: ModelConfig) -> dict:
+    """Parameter specs (attention.py attention_init): name -> (shape, init)."""
+    h, hd = cfg.hidden_size, cfg.kv_channels
+    nq, nkv = cfg.num_attention_heads, cfg.num_kv_heads
+    std = cfg.init_method_std
+    out_std = (std / math.sqrt(2.0 * cfg.num_layers) if cfg.use_scaled_init
+               else std)
+    specs = {"wq": ((h, nq * hd), ("normal", std)),
+             "wkv": ((h, 2 * nkv * hd), ("normal", std)),
+             "wo": ((nq * hd, h), ("normal", out_std))}
+    if cfg.use_bias:
+        specs["bq"] = ((nq * hd,), ("fill", 0.0))
+        specs["bkv"] = ((2 * nkv * hd,), ("fill", 0.0))
+        specs["bo"] = ((h,), ("fill", 0.0))
+    return specs
+
+
+def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
+                   scale: float, q_offset: int = 0,
+                   sliding_window: Optional[int] = None):
+    """Unfused attention: QK^T -> mask -> softmax -> AV.
+
+    q: [b, s, nq, hd]; k, v: [b, t, nkv, hd]. GQA reshapes q into
+    [b, s, nkv, g, hd]. `q_offset` shifts the causal mask for queries that
+    continue a cache."""
+    b, s, nq, hd = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    qg = q.reshape(b, s, nkv, g, hd)
+    scores = torch.einsum("bsngd,btnd->bngst", qg, k) * scale
+    if softmax_fp32:
+        scores = scores.float()
+    if causal:
+        q_pos = torch.arange(s, device=q.device) + q_offset
+        kv_pos = torch.arange(t, device=q.device)
+        win = q_pos[:, None] >= kv_pos[None, :]
+        if sliding_window is not None:
+            win = win & (q_pos[:, None] - kv_pos[None, :] < sliding_window)
+        scores = scores.masked_fill(~win, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bngst,btnd->bsngd", probs, v)
+    return out.reshape(b, s, nq, hd)
+
+
+def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
+                    rope_cos=None, rope_sin=None, position_ids=None,
+                    kv_cache: Optional[KVCache] = None):
+    """Causal self-attention. x: [b, s, h]. Returns (out [b, s, h], the
+    per-layer cache advanced by s, or None without a cache)."""
+    b, s, _ = x.shape
+    hd, nq, nkv = cfg.kv_channels, cfg.num_attention_heads, cfg.num_kv_heads
+    dtype = x.dtype
+    if cfg.attention_impl not in ("flash", "dot"):
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} (context parallelism) is "
+            "ported with the multi-device slice")
+
+    q = qdense(x, wcast(params["wq"], dtype), cfg.quantized_gemm)
+    kv = qdense(x, wcast(params["wkv"], dtype), cfg.quantized_gemm)
+    if cfg.use_bias:
+        q = q + params["bq"].to(dtype)
+        kv = kv + params["bkv"].to(dtype)
+    q = q.reshape(b, s, nq, hd)
+    kv = kv.reshape(b, s, 2, nkv, hd)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+
+    offset = 0
+    if kv_cache is not None:
+        offset = kv_cache.offset
+        if position_ids is None:
+            position_ids = (offset + torch.arange(s, device=x.device)
+                            ).expand(b, s)
+    if cfg.use_rotary_emb:
+        if rope_cos is None or rope_sin is None:
+            raise ValueError("cfg.use_rotary_emb=True requires rope_cos/"
+                             "rope_sin tables (language_model.make_rope)")
+        q = apply_rotary(q, rope_cos, rope_sin, position_ids)
+        k = apply_rotary(k, rope_cos, rope_sin, position_ids)
+
+    scale = 1.0 / math.sqrt(hd)
+    window = cfg.sliding_window
+    if kv_cache is not None:
+        end = offset + s
+        if end > kv_cache.k.shape[1]:
+            raise ValueError(f"KV cache overflow: {end} positions into a "
+                             f"cache of {kv_cache.k.shape[1]}")
+        kv_cache.k[:, offset:end] = k.to(kv_cache.k.dtype)
+        kv_cache.v[:, offset:end] = v.to(kv_cache.v.dtype)
+        new_cache = KVCache(kv_cache.k, kv_cache.v, end)
+        if cfg.attention_impl == "flash" and s > 1 and offset == 0:
+            # offset-0 prefill: causal attention over the cache equals
+            # causal attention over the fresh k/v, so take the kernel on
+            # the raw (not cache-rounded) tensors
+            out = flash_attention(q, k, v, causal=True, scale=scale,
+                                  sliding_window=window)
+        else:
+            out = _dot_attention(
+                q, kv_cache.k[:, :end].to(dtype),
+                kv_cache.v[:, :end].to(dtype), causal=True,
+                softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
+                q_offset=offset, sliding_window=window)
+    else:
+        new_cache = None
+        if cfg.attention_impl == "flash":
+            out = flash_attention(q, k, v, causal=True, scale=scale,
+                                  sliding_window=window)
+        else:
+            out = _dot_attention(
+                q, k, v, causal=True,
+                softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
+                sliding_window=window)
+
+    out = qdense(out.reshape(b, s, nq * hd), wcast(params["wo"], dtype),
+                 cfg.quantized_gemm)
+    if cfg.use_bias:
+        out = out + params["bo"].to(dtype)
+    return out, new_cache

@@ -1,0 +1,167 @@
+"""Embedding, LM head and the causal language model
+(megatron_tpu/models/language_model.py).
+
+`LanguageModel` holds the reference's parameter tree under the same names,
+with the stacked [L, ...] layer layout, so its state_dict keys are the
+reference's flattened paths with "." for "/" ("transformer.attention.wq").
+`model_forward` and `head_logits` are plain functions over that tree, as in
+the reference; the head runs in the compute dtype and is cast up to fp32
+logits.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from megatron_tpu_torch.config import ModelConfig, as_dtype
+from megatron_tpu_torch.models import transformer as tfm
+from megatron_tpu_torch.models.attention import KVCache
+from megatron_tpu_torch.models.norms import apply_norm, norm_init
+from megatron_tpu_torch.models.rope import precompute_freqs
+from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def model_init(cfg: ModelConfig) -> dict:
+    """Parameter specs of the whole model (language_model.py model_init):
+    a nested dict whose leaves are (shape, init), init being
+    ("normal", std) or ("fill", value)."""
+    v, h = cfg.padded_vocab_size, cfg.hidden_size
+    specs = {
+        "embedding": {"word_embeddings": ((v, h),
+                                          ("normal", cfg.init_method_std))},
+        "transformer": tfm.stack_init(cfg),
+        "final_norm": norm_init(cfg.norm_type, h),
+    }
+    if cfg.use_position_embedding:
+        specs["embedding"]["position_embeddings"] = (
+            (cfg.max_position_embeddings, h), ("normal", cfg.init_method_std))
+    if not cfg.tie_embed_logits:
+        specs["lm_head"] = ((h, v), ("normal", cfg.init_method_std))
+    return specs
+
+
+class LanguageModel(nn.Module):
+    """The reference's parameter tree as a module.
+
+    Weights are drawn from a `torch.Generator` seeded with `seed`, on
+    `device` (the current CUDA device when None; raises without one), in
+    `dtype` (cfg.params_dtype when None). On the "meta" device nothing is
+    allocated, for loading a state_dict with `assign=True`."""
+
+    def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        device = resolve_device(device)
+        dtype = dtype or as_dtype(cfg.params_dtype)
+        gen = (None if device.type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
+
+        def make(spec):
+            shape, (kind, value) = spec
+            if gen is None:
+                t = torch.empty(shape, dtype=dtype, device=device)
+            elif kind == "normal":
+                t = torch.randn(shape, generator=gen, dtype=dtype,
+                                device=device).mul_(value)
+            else:
+                t = torch.full(shape, value, dtype=dtype, device=device)
+            return nn.Parameter(t, requires_grad=False)
+
+        def module(tree):
+            if all(isinstance(v, tuple) for v in tree.values()):
+                return nn.ParameterDict({k: make(v) for k, v in tree.items()})
+            return nn.ModuleDict({k: module(v) for k, v in tree.items()})
+
+        specs = model_init(cfg)
+        self.embedding = module(specs["embedding"])
+        self.transformer = module(specs["transformer"])
+        self.final_norm = module(specs["final_norm"])
+        self.lm_head = make(specs["lm_head"]) if "lm_head" in specs else None
+
+    @classmethod
+    def from_state_dict(cls, cfg: ModelConfig, state_dict: dict):
+        """A model holding exactly these tensors (no copy, no init)."""
+        model = cls(cfg, device="meta")
+        model.load_state_dict(state_dict, strict=True, assign=True)
+        return model
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding["word_embeddings"].device
+
+    def tree(self) -> dict:
+        """The parameter tree in the reference's nesting."""
+        t = {"embedding": self.embedding, "transformer": self.transformer,
+             "final_norm": self.final_norm}
+        if self.lm_head is not None:
+            t["lm_head"] = self.lm_head
+        return t
+
+    def forward(self, tokens, **kwargs):
+        return model_forward(self, tokens, self.cfg, **kwargs)
+
+
+class RopeTables(NamedTuple):
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def make_rope(cfg: ModelConfig, max_len: Optional[int] = None, *,
+              device=None) -> Optional[RopeTables]:
+    if not cfg.use_rotary_emb:
+        return None
+    cos, sin = precompute_freqs(
+        cfg.kv_channels, max_len or cfg.max_position_embeddings,
+        theta=cfg.rope_theta, scaling_factor=cfg.rope_scaling_factor,
+        device=device)
+    return RopeTables(cos, sin)
+
+
+def _tree(params):
+    return params.tree() if isinstance(params, LanguageModel) else params
+
+
+def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  position_ids=None, kv_caches: Optional[KVCache] = None,
+                  rope: Optional[RopeTables] = None,
+                  logits_dtype=torch.float32):
+    """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches).
+    `params` is a LanguageModel or its tree. With `kv_caches`, positions
+    continue from the cache offset and the caches are written in place."""
+    params = _tree(params)
+    compute_dtype = as_dtype(cfg.compute_dtype)
+    emb = params["embedding"]["word_embeddings"]
+    x = emb[tokens].to(compute_dtype)
+    if cfg.use_position_embedding:
+        if position_ids is None:
+            pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+            if kv_caches is not None:
+                pos = pos + kv_caches.offset
+        else:
+            pos = position_ids
+        x = x + params["embedding"]["position_embeddings"][pos].to(
+            compute_dtype)
+    if rope is None:
+        rope = make_rope(cfg, device=tokens.device)
+    x, kv_caches = tfm.stack_apply(
+        params["transformer"], x, cfg,
+        rope_cos=rope.cos if rope else None,
+        rope_sin=rope.sin if rope else None,
+        position_ids=position_ids, kv_caches=kv_caches)
+    return head_logits(params, x, cfg, logits_dtype=logits_dtype), kv_caches
+
+
+def head_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
+                logits_dtype=torch.float32) -> torch.Tensor:
+    """Final norm + tied/untied LM head in the compute dtype, cast up."""
+    params = _tree(params)
+    compute_dtype = as_dtype(cfg.compute_dtype)
+    x = apply_norm(cfg.norm_type, params["final_norm"], x, cfg.norm_epsilon)
+    if cfg.tie_embed_logits:
+        w_out = params["embedding"]["word_embeddings"].T
+    else:
+        w_out = params["lm_head"]
+    return (x @ w_out.to(compute_dtype)).to(logits_dtype)

@@ -1,0 +1,109 @@
+"""Transformer layer and the layer stack (megatron_tpu/models/transformer.py).
+
+Parameters keep the reference's stacked layout: every leaf of the stack has
+a leading [num_layers] dim. `stack_apply` is a host loop over the layers
+where the reference scans. Covers pre- and post-LN and Falcon's
+`parallel_attn` / `parallel_layernorm`. Dropout, stochastic depth,
+activation recompute and MoE belong to later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from megatron_tpu_torch.config import ModelConfig
+from megatron_tpu_torch.models.attention import (KVCache, attention_apply,
+                                                 attention_init)
+from megatron_tpu_torch.models.mlp import mlp_apply, mlp_init
+from megatron_tpu_torch.models.norms import apply_norm, norm_init
+
+
+def layer_init(cfg: ModelConfig) -> dict:
+    """Parameter specs of one layer (transformer.py layer_init): pre-LN has
+    input_norm + post_attn_norm, post-LN output_norm + post_attn_norm,
+    parallel_attn drops post_attn_norm, parallel_layernorm adds mlp_norm."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError("MoE layers are ported in a later slice")
+    specs = {"attention": attention_init(cfg), "mlp": mlp_init(cfg)}
+    norm = norm_init(cfg.norm_type, cfg.hidden_size)
+    specs["output_norm" if cfg.use_post_ln else "input_norm"] = norm
+    if not cfg.parallel_attn:
+        specs["post_attn_norm"] = dict(norm)
+    if cfg.parallel_layernorm:
+        specs["mlp_norm"] = dict(norm)
+    return specs
+
+
+def stack_init(cfg: ModelConfig, num_layers: Optional[int] = None) -> dict:
+    """Stacked specs: every leaf gains a leading layers dim."""
+    n = cfg.num_layers if num_layers is None else num_layers
+
+    def stack(tree):
+        if isinstance(tree, dict):
+            return {k: stack(v) for k, v in tree.items()}
+        shape, init = tree
+        return ((n, *shape), init)
+    return stack(layer_init(cfg))
+
+
+def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
+                rope_cos=None, rope_sin=None, position_ids=None,
+                kv_cache: Optional[KVCache] = None):
+    """One transformer layer. x: [b, s, h]. Returns (x, kv_cache).
+
+      ln_out = input_norm(x)                (identity when post-LN)
+      attn   = attention(ln_out)
+      parallel_attn: out = x + mlp(mlp_in) + attn
+      else:          ln_in = x + attn; out = ln_in + mlp(post_attn_norm(ln_in))
+      out = output_norm(out)                (identity when pre-LN)
+    """
+    eps = cfg.norm_epsilon
+    residual = x
+    if cfg.use_post_ln:
+        ln_out = x
+    else:
+        ln_out = apply_norm(cfg.norm_type, params["input_norm"], x, eps)
+    attn_out, kv_cache = attention_apply(
+        params["attention"], ln_out, cfg, rope_cos=rope_cos,
+        rope_sin=rope_sin, position_ids=position_ids, kv_cache=kv_cache)
+    if cfg.parallel_attn:
+        if cfg.parallel_layernorm:
+            mlp_in = apply_norm(cfg.norm_type, params["mlp_norm"], residual,
+                                eps)
+        else:
+            mlp_in = ln_out
+        out = residual + (mlp_apply(params["mlp"], mlp_in, cfg) + attn_out)
+    else:
+        ln_in = residual + attn_out
+        ln2 = apply_norm(cfg.norm_type, params["post_attn_norm"], ln_in, eps)
+        out = ln_in + mlp_apply(params["mlp"], ln2, cfg)
+    if cfg.use_post_ln:
+        out = apply_norm(cfg.norm_type, params["output_norm"], out, eps)
+    return out, kv_cache
+
+
+def layer_params(stacked, i: int):
+    """Layer i's parameters: every leaf of the stacked tree indexed at i."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked[i]
+    return {k: layer_params(v, i) for k, v in stacked.items()}
+
+
+def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
+                rope_cos=None, rope_sin=None, position_ids=None,
+                kv_caches: Optional[KVCache] = None):
+    """Apply every layer in order. `kv_caches` holds [L, b, T, nkv, hd]
+    tensors and one offset for all layers. Returns (x, kv_caches advanced
+    by the step's length, or None)."""
+    num_layers = stacked_params["attention"]["wq"].shape[0]
+    for i in range(num_layers):
+        cache = (None if kv_caches is None else
+                 KVCache(kv_caches.k[i], kv_caches.v[i], kv_caches.offset))
+        x, _ = layer_apply(layer_params(stacked_params, i), x, cfg,
+                           rope_cos=rope_cos, rope_sin=rope_sin,
+                           position_ids=position_ids, kv_cache=cache)
+    if kv_caches is None:
+        return x, None
+    return x, KVCache(kv_caches.k, kv_caches.v,
+                      kv_caches.offset + x.shape[1])

@@ -1,0 +1,120 @@
+"""The weight bridge and the port's package boundaries.
+
+- `params_from_numpy` keeps the JAX parameter tree's names and shapes;
+- a checkpoint the JAX package saved with backend="npz" loads without JAX
+  and gives the same logits;
+- no module of the port (nor chip_smoke.py) imports jax or megatron_tpu;
+- the entry points refuse to fall back to the CPU when no device is named.
+"""
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from megatron_tpu import config as jconfig
+from megatron_tpu.models import language_model as jlm
+from megatron_tpu.training.checkpointing import _flatten, save_checkpoint
+from megatron_tpu.training.train_step import TrainState
+from megatron_tpu_torch import config as tconfig
+from megatron_tpu_torch.convert.from_jax import (load_npz_checkpoint,
+                                                 params_from_numpy)
+from megatron_tpu_torch.inference.generation import Generator
+from megatron_tpu_torch.inference.server import MegatronServer
+from megatron_tpu_torch.models.language_model import (LanguageModel,
+                                                      model_forward)
+
+torch.set_num_threads(2)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SMALL = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
+             vocab_size=300, seq_length=64)
+
+
+def _cfgs(name, **kw):
+    if name == "gpt":
+        return jconfig.gpt_config(**SMALL, **kw), tconfig.gpt_config(
+            **SMALL, **kw)
+    fn = {"llama": "llama2_config", "falcon": "falcon_config"}[name]
+    return (getattr(jconfig, fn)("tiny", **SMALL, **kw),
+            getattr(tconfig, fn)("tiny", **SMALL, **kw))
+
+
+@pytest.mark.parametrize("name", ["llama", "falcon", "gpt"])
+def test_params_from_numpy_keeps_tree_names_and_shapes(name):
+    jcfg, tcfg = _cfgs(name)
+    params = jlm.model_init(jax.random.PRNGKey(0), jcfg)
+    flat = _flatten(params)
+    state = params_from_numpy(params, tcfg, device="cpu")
+    assert sorted(state) == sorted(k.replace("/", ".") for k in flat)
+    for key, arr in flat.items():
+        t = state[key.replace("/", ".")]
+        assert tuple(t.shape) == arr.shape
+        np.testing.assert_array_equal(t.numpy(), arr)
+    # the model built on the meta device declares the same tree
+    meta = LanguageModel(tcfg, device="meta").state_dict()
+    assert {k: tuple(v.shape) for k, v in meta.items()} == {
+        k: tuple(v.shape) for k, v in state.items()}
+
+
+def test_params_from_numpy_rejects_mismatch():
+    jcfg, tcfg = _cfgs("llama")
+    flat = _flatten(jlm.model_init(jax.random.PRNGKey(0), jcfg))
+    with pytest.raises(ValueError):
+        params_from_numpy({**flat, "lm_head": flat["lm_head"][:, :8]}, tcfg,
+                          device="cpu")
+    with pytest.raises(KeyError):
+        params_from_numpy({k: v for k, v in flat.items() if k != "lm_head"},
+                          tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["llama", "gpt"])
+def test_npz_checkpoint_loads_with_same_logits(tmp_path, name):
+    jcfg, _ = _cfgs(name, compute_dtype="float32")
+    params = jlm.model_init(jax.random.PRNGKey(1), jcfg)
+    save_checkpoint(str(tmp_path), TrainState(params, None, jnp.int32(3)),
+                    jconfig.MegatronConfig(model=jcfg), iteration=3,
+                    backend="npz")
+    model, cfg = load_npz_checkpoint(str(tmp_path), device="cpu")
+    assert cfg.hidden_size == jcfg.hidden_size and cfg.num_layers == 2
+    toks = np.random.RandomState(0).randint(0, 300, (2, 16))
+    want, _ = jlm.model_forward(params, jnp.asarray(toks), jcfg)
+    with torch.no_grad():
+        got, _ = model_forward(model, torch.from_numpy(toks), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "megatron_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "megatron_tpu", "flax",
+                               "optax", "orbax"), f"{path}: imports {mod}"
+
+
+def test_entry_points_raise_without_gpu_and_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfgs("llama")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LanguageModel(tcfg)
+    model = LanguageModel(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Generator(model, tcfg, eos_id=0)
+    gen = Generator(model, tcfg, eos_id=0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MegatronServer(gen, tokenizer=None)
+    MegatronServer(gen, tokenizer=None, device="cpu")
