@@ -5,20 +5,38 @@ GPU. Run from the root of a checkout: `python3 chip_smoke.py`.
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. device: prints `nvidia-smi --query-gpu=name,power.limit` on its own line;
-2. build: compiles every kernel of the serving path from the checkout's
-   sources (nvcc, sm_90a) and prints the build time;
-3. kernels: holds each kernel against its plain PyTorch version on the card
-   at the main path's shapes and the edge shapes of KERNEL_CASES, with the
-   stated tolerances, and times kernel, plain version and the PyTorch
-   library call for the same function (scaled_dot_product_attention, a
-   yardstick the port never calls);
-4. main path: Llama-2-7B at full width (32 layers, random bf16 weights from
-   a fixed seed) behind the port's serial MegatronServer on 127.0.0.1,
-   answering requests (a)-(e) over HTTP; every kernel's launch count is
-   zeroed just before and read just after, and each request must launch the
-   flash kernel at least once per layer. A 2-layer slice of the same width
-   checks the flash path's logits against the kernel-free dot path in fp32.
-   Prefill time, decode tokens/s and peak memory are printed.
+2. build: compiles every kernel source from the checkout (nvcc, sm_90a, one
+   process per source, in parallel) and prints the build time and ptxas's
+   register and spill lines;
+3. kernels: holds each kernel against its plain PyTorch version on the card,
+   with the stated tolerances, and times kernel, plain version and the
+   PyTorch library call for the same function where there is one
+   (scaled_dot_product_attention and its backward, yardsticks the port
+   never calls): the forward at the serving shapes of KERNEL_CASES, and
+   forward plus the dQ and dK/dV backward kernels at the training shapes of
+   TRAIN_CASES (segment ids, dropout, an lse cotangent, GQA, MQA, ragged,
+   fp32 with a window), each backward run twice and required bit-identical;
+   the forward kernel's dropout keep bits, read off its output, must equal
+   the plain hash bit for bit;
+4. serving main path: Llama-2-7B at full width (32 layers, random bf16
+   weights from a fixed seed) behind the port's serial MegatronServer on
+   127.0.0.1, answering requests (a)-(e) over HTTP; every kernel's launch
+   count is zeroed just before and read just after, and each request must
+   launch the flash kernel at least once per layer. A 2-layer slice of the
+   same width checks the flash path's logits against the kernel-free dot
+   path in fp32. Prefill time, decode tokens/s and peak memory are printed;
+5. training main path: the serving model is freed, then `init_train_state`
+   and `make_train_step` train Llama-2-7B at full width with 8 of its 32
+   layers (fp32 master weights, Adam and its moments do not fit 32 layers
+   in 80 GB), seq 4096, global batch 2 of micro-batch 1, bf16 compute, for
+   3 steps on one fixed random batch (step 2's batch carries segment ids).
+   Launch counts are zeroed before the steps: each step must launch each of
+   the three kernels layers x microbatches times; the loss must start near
+   ln(32000) and fall every step, with found_inf 0 and a finite grad norm.
+   Step time, tokens/s, the model-FLOP share of 989 TFLOP/s and peak memory
+   are printed. A 2-layer slice of the same width, fp32 compute with TF32
+   off, checks the flash path's loss and grads (kernels) against the dot
+   path (no kernel).
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
@@ -56,6 +74,40 @@ KERNEL_CASES = [
 ]
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}  # (out, lse)
 MAIN_SHAPE = "llama2_7b_prefill"
+
+# (label, b, s, nq, nkv, d, dtype name, sliding_window, segment ids, dropout
+# rate, lse cotangent): the training path's attention. The first is the
+# main path's call (Llama-2-7B, s 4096); the others are the features and
+# layouts the kernels take (segment ids give two documents a row; Falcon-7B
+# trains at its 2048 positions).
+TRAIN_CASES = [
+    ("llama2_7b_train", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.0,
+     False),
+    ("train_segments", 1, 4096, 32, 32, 128, "bfloat16", None, True, 0.0,
+     False),
+    ("train_dropout", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.1,
+     False),
+    ("train_dlse", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.0, True),
+    ("gqa_64q_8kv_train", 1, 4096, 64, 8, 128, "bfloat16", None, False, 0.0,
+     False),
+    ("falcon7b_mqa_train", 1, 2048, 71, 1, 64, "bfloat16", None, False, 0.0,
+     False),
+    ("ragged_s200_train", 1, 200, 32, 32, 128, "bfloat16", None, False, 0.0,
+     False),
+    ("fp32_window128_train", 1, 2048, 32, 8, 128, "float32", 128, False, 0.0,
+     False),
+]
+TRAIN_MAIN_SHAPE = "llama2_7b_train"
+DROPOUT_SEED = 4321
+# gradient tolerance: bf16 within 2^-7 of the reference's largest magnitude
+# (the kernels round their outputs to bf16 once, 2^-8 relative, on top of
+# fp32 sums taken in another order); fp32 within 1e-4
+GRAD_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+TRAIN_LAYERS = 8
+# the fp32 training slice: loss and grads of the flash path (kernels) and
+# the dot path (no kernel) agree within this share of each leaf's largest
+# magnitude (fp32 on both, the same arithmetic in another order)
+SLICE_TOL = 1e-4
 
 
 class ByteTokenizer:
@@ -114,6 +166,57 @@ def attention_bound(b, sq, sk, nq, nkv, d, itemsize, dtype_name, causal,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_ms(flops: float, nbytes: float, dtype_name: str):
+    """The least time on the card: the larger of the operations over the
+    dtype's peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def visible_pairs(s: int, window, seg) -> int:
+    """(query, key) pairs a causal call sees, over the batch: the window
+    and segment masks of this run's data included."""
+    import torch
+    pos = torch.arange(s, device="cuda")
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask = mask & (pos[:, None] - pos[None, :] < window)
+    if seg is None:
+        return int(mask.sum())
+    return int((mask[None] & (seg[:, :, None] == seg[:, None, :])).sum())
+
+
+def sdpa_calls(q, k, v, dout, scale, window):
+    """(forward, backward) of scaled_dot_product_attention on the same
+    inputs: the library yardstick for causal attention without segment
+    ids or dropout."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    kw = dict(scale=scale, enable_gqa=True)
+    if window:
+        pos = torch.arange(q.shape[1], device="cuda")
+        kw["attn_mask"] = ((pos[:, None] >= pos[None, :])
+                           & (pos[:, None] - pos[None, :] < window))
+    else:
+        kw["is_causal"] = True
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dout_t = dout.transpose(1, 2)
+
+    def bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dout_t,
+                                   retain_graph=True)
+    return fwd, bwd
+
+
 def phase_device() -> str:
     import torch
     smi = subprocess.run(
@@ -129,12 +232,18 @@ def phase_device() -> str:
 def phase_build() -> None:
     from megatron_tpu_torch.ops import flash_attention_cuda
     t0 = time.perf_counter()
-    path = flash_attention_cuda.build()
-    flash_attention_cuda._library()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    paths = flash_attention_cuda.build()
+    for name in paths:
+        flash_attention_cuda._library(name)
+    log(f"build: {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        kernel = "?"
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
 
 
 def phase_kernels() -> list[dict]:
@@ -205,6 +314,160 @@ def phase_kernels() -> list[dict]:
     return results
 
 
+def check_dropout_bits() -> int:
+    """The forward kernel's dropout keep bits against the plain hash, bit
+    for bit, on a slice (2 batch rows, 4 heads, 256 queries, 128 keys):
+    with q = k = 0 every weight is 1/128, and with v the identity,
+    out[b, i, h, j] = z_ij / 128, which is 0 exactly where a key is
+    dropped. Returns the number of bits compared."""
+    import torch
+    from megatron_tpu_torch.ops.flash_attention import _dropout_keep
+    from megatron_tpu_torch.ops.flash_attention_cuda import flash_fwd_cuda
+    b, sq, nq, d = 2, 256, 4, 128
+    bh = (torch.arange(b, device="cuda")[:, None, None, None] * nq
+          + torch.arange(nq, device="cuda")[None, None, :, None])
+    want = _dropout_keep(DROPOUT_SEED, bh,
+                         torch.arange(sq, device="cuda")[None, :, None, None],
+                         torch.arange(d, device="cuda")[None, None, None, :],
+                         0.1)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(b, sq, nq, d, dtype=dtype, device="cuda")
+        k = torch.zeros(b, d, nq, d, dtype=dtype, device="cuda")
+        v = torch.eye(d, dtype=dtype, device="cuda")[None, :, None, :].expand(
+            b, d, nq, d).contiguous()
+        out, _ = flash_fwd_cuda(q, k, v, causal=False, scale=d ** -0.5,
+                                dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+        torch.cuda.synchronize()
+        check(torch.equal(out != 0, want),
+              f"dropout keep bits differ from the plain hash ({dtype}): "
+              f"{int(((out != 0) != want).sum())} of {want.numel()}")
+    return int(want.numel())
+
+
+def phase_training_kernels() -> list[dict]:
+    """The forward and both backward kernels against the plain versions at
+    TRAIN_CASES, with times and bounds; each backward runs twice and must
+    give bit-identical grads."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    results = []
+    for (label, b, s, nq, nkv, d, dname, window, use_seg, rate,
+         use_dlse) in TRAIN_CASES:
+        dtype = getattr(torch, dname)
+        q = torch.randn(b, s, nq, d, generator=gen, device="cuda").to(dtype)
+        # k and v as the strided halves of one fused projection
+        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+                         device="cuda").to(dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        dout = torch.randn(b, s, nq, d, generator=gen,
+                           device="cuda").to(dtype)
+        seg = None
+        if use_seg:  # two documents a row
+            seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+            seg[:, s // 2:] = 1
+        dlse = (torch.randn(b, nq, s, generator=gen, device="cuda")
+                if use_dlse else None)
+        kw = dict(causal=True, scale=d ** -0.5, sliding_window=window,
+                  segment_ids=seg, dropout_rate=rate,
+                  dropout_seed=DROPOUT_SEED)
+        bkw = dict(kw, dlse=dlse)
+
+        out, lse = fc.flash_fwd_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.blockwise_attention(q, k, v, **kw)
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        tol_out, tol_lse = TOL[dname]
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite out")
+        check(err_out <= tol_out and err_lse <= tol_lse,
+              f"{label}: forward vs plain out err {err_out} (tol "
+              f"{tol_out}), lse err {err_lse} (tol {tol_lse})")
+
+        # the backward's inputs are the plain forward's, for both versions
+        delta = fa.attention_delta(ref_out, dout)
+
+        def dq_kernel():
+            return fc.flash_bwd_dq_cuda(q, k, v, dout, ref_lse, delta, **bkw)
+
+        def dkv_kernel():
+            return fc.flash_bwd_dkv_cuda(q, k, v, dout, ref_lse, delta,
+                                         **bkw)
+
+        def plain_bwd():
+            return fa.blockwise_attention_bwd(q, k, v, dout, ref_lse, delta,
+                                              **bkw)
+
+        grads = (dq_kernel(), *dkv_kernel())
+        torch.cuda.synchronize()
+        again = (dq_kernel(), *dkv_kernel())
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in zip(grads, again)),
+              f"{label}: two backward runs differ")
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, plain_bwd()):
+            err = (got.float() - want.float()).abs().max().item()
+            ref_max = want.float().abs().max().item()
+            tol = (GRAD_TOL[dname] * ref_max if dname == "bfloat16"
+                   else GRAD_TOL[dname])
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"{label}: {name} err {err} (tol {tol}, max |{name}| "
+                  f"{ref_max})")
+            errs[name] = dict(max_abs_err=err, max_abs_ref=ref_max, tol=tol)
+        del grads, again
+
+        pairs = visible_pairs(s, window, seg) * b * nq
+        item = q.element_size()
+        seg_bytes = 0 if seg is None else 4 * b * s
+        stat_bytes = 4 * b * nq * s
+        qo_bytes = item * b * s * nq * d  # one [b, s, nq, d] tensor
+        kv_bytes = item * b * s * nkv * d  # one [b, s, nkv, d] tensor
+        n_stats = 2 + (dlse is not None)  # lse, delta (, dlse)
+        fwd_bound = bound_ms(4 * d * pairs, 2 * qo_bytes + 2 * kv_bytes
+                             + stat_bytes + seg_bytes, str(dtype))
+        dq_bound = bound_ms(6 * d * pairs, 3 * qo_bytes + 2 * kv_bytes
+                            + n_stats * stat_bytes + seg_bytes, str(dtype))
+        dkv_bound = bound_ms(8 * d * pairs, 2 * qo_bytes + 4 * kv_bytes
+                             + n_stats * stat_bytes + seg_bytes, str(dtype))
+        same_as_sdpa = seg is None and not rate
+        lib_fwd = lib_bwd = None
+        if same_as_sdpa:
+            sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, d ** -0.5, window)
+            lib_fwd = cuda_time_ms(sdpa_fwd, 10, 2)
+            if dlse is None:
+                lib_bwd = cuda_time_ms(sdpa_bwd, 10, 2)
+        plain_bwd_ms = cuda_time_ms(plain_bwd, 3, 1)
+        r = dict(
+            shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d, dtype=dname,
+            causal=True, sliding_window=window, segments=use_seg,
+            dropout=rate, dlse=use_dlse, visible_pairs=pairs,
+            fwd=dict(max_abs_err=err_out, max_abs_err_lse=err_lse,
+                     ms=cuda_time_ms(lambda: fc.flash_fwd_cuda(q, k, v,
+                                                               **kw), 10, 2),
+                     plain_ms=cuda_time_ms(
+                         lambda: fa.blockwise_attention(q, k, v, **kw), 3, 1),
+                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                     library_ms=lib_fwd),
+            dq=dict(**errs["dq"], ms=cuda_time_ms(dq_kernel, 10, 2),
+                    plain_ms=plain_bwd_ms, bound_ms=dq_bound[0],
+                    bound_by=dq_bound[1], library_ms=lib_bwd),
+            dkv=dict(max_abs_err=max(errs["dk"]["max_abs_err"],
+                                     errs["dv"]["max_abs_err"]),
+                     dk=errs["dk"], dv=errs["dv"],
+                     ms=cuda_time_ms(dkv_kernel, 10, 2),
+                     plain_ms=plain_bwd_ms, bound_ms=dkv_bound[0],
+                     bound_by=dkv_bound[1], library_ms=lib_bwd),
+            bitwise_repeat=True)
+        log("training kernel check: " + json.dumps(r))
+        results.append(r)
+        del q, kv, k, v, dout, out, lse, ref_out, ref_lse, delta
+        torch.cuda.empty_cache()
+    return results
+
+
 def put(port: int, payload: dict, timeout: float = 600.0):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api", data=json.dumps(payload).encode(),
@@ -248,6 +511,7 @@ def phase_main_path(smi: str) -> dict:
                                                          SamplingParams)
     from megatron_tpu_torch.inference.server import MegatronServer
     from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
     from megatron_tpu_torch.ops.flash_attention_cuda import flash_fwd_cuda
 
     slice_err = check_reference_slice()
@@ -289,7 +553,7 @@ def phase_main_path(smi: str) -> dict:
     stats = {}
     try:
         torch.cuda.reset_peak_memory_stats()
-        flash_fwd_cuda.launches = 0
+        fc.reset_launch_counts()
         per_request = {}
         bodies = {}
         for name, payload in (("a", req_a), ("b", req_b), ("c", req_a),
@@ -304,7 +568,10 @@ def phase_main_path(smi: str) -> dict:
             log(f"request ({name}): 200 in {secs:.2f} s, flash launches "
                 f"{per_request[name]}")
         status, body = put(port, {})
-        total_launches = flash_fwd_cuda.launches
+        counts = fc.launch_counts()
+        total_launches = counts["flash_fwd_cuda"]
+        check(counts["flash_bwd_dq_cuda"] == counts["flash_bwd_dkv_cuda"] == 0,
+              f"serving launched a backward kernel: {counts}")
         check(status == 400 and body == {"message":
                                          "prompts argument required"},
               f"request (e): {status} {body}")
@@ -367,6 +634,163 @@ def phase_main_path(smi: str) -> dict:
     return stats
 
 
+def train_flops(cfg, n_seqs: int) -> float:
+    """Model FLOPs of one training step over `n_seqs` causal sequences of
+    cfg.seq_length: 6 per parameter of every matrix product per token
+    (forward 2, backward 4), and 12 d per visible (q, k) pair per q-head per
+    layer for attention (forward 4 d); the embedding lookup is no product."""
+    h, s, hd = cfg.hidden_size, cfg.seq_length, cfg.kv_channels
+    nq, nkv, ffn = cfg.num_attention_heads, cfg.num_kv_heads, \
+        cfg.ffn_hidden_size
+    glu = 2 if cfg.is_glu else 1
+    per_layer = h * nq * hd + h * 2 * nkv * hd + nq * hd * h + \
+        h * glu * ffn + ffn * h
+    matmul = cfg.num_layers * per_layer + h * cfg.padded_vocab_size
+    pairs = s * (s + 1) // 2
+    return (6 * matmul * s * n_seqs
+            + 12 * hd * pairs * nq * cfg.num_layers * n_seqs)
+
+
+def check_training_slice() -> dict:
+    """Loss and grads of a 2-layer slice of the 7B width, fp32 weights and
+    compute, TF32 off, through the flash kernels against the kernel-free
+    dot path, with two documents a row."""
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.models.language_model import (LanguageModel,
+                                                          loss_fn)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1, trainable=True)
+    gen = torch.Generator("cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, 513), device="cuda",
+                         generator=gen)
+    seg = torch.zeros(1, 512, dtype=torch.int32, device="cuda")
+    seg[:, 200:] = 1
+    results = {}
+    for impl in ("flash", "dot"):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, toks, dataclasses.replace(
+            cfg, attention_impl=impl), segment_ids=seg)
+        loss.backward()
+        results[impl] = (loss.item(), {k: p.grad.clone() for k, p in
+                                       model.named_parameters()})
+    (l_flash, g_flash), (l_dot, g_dot) = results["flash"], results["dot"]
+    loss_err = abs(l_flash - l_dot) / abs(l_dot)
+    grad_err = max((g_flash[k] - g_dot[k]).abs().max().item()
+                   / g_dot[k].abs().max().item() for k in g_dot)
+    del model, results, g_flash, g_dot
+    torch.cuda.empty_cache()
+    check(loss_err <= SLICE_TOL and grad_err <= SLICE_TOL,
+          f"2-layer 7B fp32 slice: flash vs dot loss rel err {loss_err}, "
+          f"grad err {grad_err} of the leaf's largest (tol {SLICE_TOL})")
+    return dict(loss_flash=l_flash, loss_dot=l_dot, loss_rel_err=loss_err,
+                grad_err_of_leaf_max=grad_err, tol=SLICE_TOL,
+                allow_tf32=False)
+
+
+def phase_training(smi: str) -> dict:
+    import gc
+    import math
+    import statistics
+
+    import torch
+    from megatron_tpu_torch.config import (MegatronConfig, OptimizerConfig,
+                                           TrainingConfig, llama2_config)
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.training import init_train_state, make_train_step
+
+    mcfg = llama2_config("7b", num_layers=TRAIN_LAYERS)
+    check(mcfg.hidden_size == 4096 and mcfg.num_attention_heads == 32
+          and mcfg.ffn_hidden_size == 11008 and mcfg.vocab_size == 32000
+          and mcfg.seq_length == 4096 and mcfg.attention_impl == "flash"
+          and mcfg.params_dtype == "float32"
+          and mcfg.compute_dtype == "bfloat16",
+          "llama2_config('7b') is not Llama-2-7B's width")
+    cfg = MegatronConfig(
+        model=mcfg, optimizer=OptimizerConfig(lr=3e-4, clip_grad=1.0),
+        training=TrainingConfig(micro_batch_size=1, global_batch_size=2))
+    n_micro, s = cfg.num_microbatches, mcfg.seq_length
+    # the serving model (held in reference cycles through its HTTP server)
+    # must be gone before training takes the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "training: the serving model was not freed")
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seed=0)
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30 - base_gib
+    log(f"training model: Llama-2-7B width, {TRAIN_LAYERS} layers, "
+        f"{n_params} fp32 parameters, state {state_gib:.2f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator("cuda").manual_seed(5)
+    tokens = torch.randint(0, mcfg.vocab_size, (n_micro, 1, s + 1),
+                           device="cuda", generator=gen)
+    seg = torch.zeros(n_micro, 1, s, dtype=torch.int32, device="cuda")
+    seg[..., s // 2:] = 1
+    batches = [{"tokens": tokens}, {"tokens": tokens, "segment_ids": seg},
+               {"tokens": tokens}]
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    steps = []
+    for i, batch in enumerate(batches):
+        before = fc.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = fc.launch_counts()
+        rec = dict(step=i + 1, seconds=secs, lm_loss=float(m["lm_loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   found_inf=int(m["found_inf"]), lr=m["lr"],
+                   segments="segment_ids" in batch,
+                   launches={k: after[k] - before[k] for k in after})
+        log("training step: " + json.dumps(rec))
+        steps.append(rec)
+    counts = fc.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    per_step = TRAIN_LAYERS * n_micro
+    for rec in steps:
+        check(all(n == per_step for n in rec["launches"].values()),
+              f"step {rec['step']} launches {rec['launches']}, expected "
+              f"{per_step} of each kernel")
+        check(rec["found_inf"] == 0 and math.isfinite(rec["grad_norm"]),
+              f"step {rec['step']}: found_inf {rec['found_inf']}, grad norm "
+              f"{rec['grad_norm']}")
+    losses = [rec["lm_loss"] for rec in steps]
+    check(abs(losses[0] - math.log(mcfg.vocab_size)) < 1.0,
+          f"first loss {losses[0]} is not near ln(32000)")
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"loss did not fall every step: {losses}")
+    step_s = statistics.median(rec["seconds"] for rec in steps[1:])
+    tokens_per_step = n_micro * s
+    flops = train_flops(mcfg, n_micro)
+    stats = dict(
+        layers=TRAIN_LAYERS, seq_length=s, micro_batch_size=1,
+        microbatches=n_micro, parameters=n_params, losses=losses,
+        step_seconds=[rec["seconds"] for rec in steps],
+        step_s_median_last2=step_s, tokens_per_s=tokens_per_step / step_s,
+        model_flops_per_step=flops,
+        model_flop_share_of_989tflops=flops / step_s / 989e12,
+        peak_memory_gib=peak / 2 ** 30, state_gib=state_gib,
+        allocated_before_gib=base_gib,
+        launches=counts, card=smi)
+    log("training: " + json.dumps(stats))
+    stats["slice"] = check_training_slice()
+    log("training slice (fp32, 2 layers, flash vs dot): "
+        + json.dumps(stats["slice"]))
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -387,23 +811,54 @@ def main() -> int:
         smi = phase_device()
         phase_build()
         cases = phase_kernels()
+        train_cases = phase_training_kernels()
+        bits = check_dropout_bits()
+        log(f"dropout: the forward kernel's keep bits equal the plain hash "
+            f"on {bits} (query, key) pairs, fp32 and bf16")
         main_stats = phase_main_path(smi)
+        train_stats = phase_training(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    main_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
-    kernel = dict(
-        name="flash_fwd", route="cuda",
-        source="megatron_tpu_torch/csrc/flash_fwd.cu",
-        replaces="megatron_tpu/ops/flash_attention_pallas.py:98",
-        launches=main_stats["launches"],
-        max_abs_err=main_case["max_abs_err"],
-        max_abs_err_lse=main_case["max_abs_err_lse"], ms=main_case["ms"],
-        kernel_ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=main_case["library_ms"], shape=MAIN_SHAPE, cases=cases)
-    log(json.dumps({"kernels": [kernel]}))
+    serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
+    train_case = next(c for c in train_cases
+                      if c["shape"] == TRAIN_MAIN_SHAPE)
+    train_counts = train_stats["launches"]
+
+    def entry(name, source, replaces, launches, part, extra):
+        main = train_case[part]
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, max_abs_err=main["max_abs_err"],
+            ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], shape=TRAIN_MAIN_SHAPE,
+            cases=[dict(shape=c["shape"], **c[part]) for c in train_cases],
+            **extra)
+
+    pallas = "megatron_tpu/ops/flash_attention_pallas.py"
+    kernels = [
+        entry("flash_fwd", "megatron_tpu_torch/csrc/flash_fwd.cu",
+              f"{pallas}:98",
+              main_stats["launches"] + train_counts["flash_fwd_cuda"], "fwd",
+              dict(launches_by_path=dict(
+                  serving=main_stats["launches"],
+                  training=train_counts["flash_fwd_cuda"]),
+                   max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
+                   serving_shape=dict(shape=MAIN_SHAPE, **{
+                       k: serving_case[k] for k in (
+                           "max_abs_err", "max_abs_err_lse", "ms",
+                           "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}),
+                   serving_cases=cases)),
+        entry("flash_bwd_dq", "megatron_tpu_torch/csrc/flash_bwd.cu",
+              f"{pallas}:191", train_counts["flash_bwd_dq_cuda"], "dq", {}),
+        entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
+              f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"], "dkv",
+              {}),
+    ]
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,15 +4,17 @@ A copy of `megatron_tpu.config.ModelConfig`, its derivations and the model
 presets, with dtypes mapped to torch. The JAX package stays the reference;
 the port keeps its own copy so that it never imports it.
 
-`MegatronConfig.from_dict` reads the `model` section of a checkpoint's
-`config.json`. The other sections (parallel layout, optimizer, training,
-data, serving, resilience) belong to later slices of the port and are
-ignored here.
+`OptimizerConfig` is copied in full, `TrainingConfig` with the fields the
+training step reads. `MegatronConfig.from_dict` reads the `model`,
+`optimizer` and `training` sections of a checkpoint's `config.json`; the
+other sections (parallel layout, data, serving, resilience) belong to later
+slices of the port and are ignored here. With one device and no data
+parallelism, `num_microbatches` is global_batch_size / micro_batch_size.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
@@ -129,19 +131,76 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
-class MegatronConfig:
-    """The part of the reference's MegatronConfig that a checkpoint's
-    `config.json` needs to rebuild the model."""
+class OptimizerConfig:
+    """Adam/SGD, the lr/wd schedule, clipping and loss scaling
+    (megatron_tpu/config.py OptimizerConfig, all fields)."""
 
-    model: ModelConfig
+    optimizer: str = "adam"
+    lr: float = 3e-4
+    min_lr: float = 0.0
+    lr_decay_style: str = "cosine"  # constant|linear|cosine|inverse-square-root
+    lr_decay_iters: Optional[int] = None
+    lr_warmup_iters: int = 0
+    lr_warmup_fraction: Optional[float] = None
+    weight_decay: float = 0.01
+    start_weight_decay: Optional[float] = None
+    end_weight_decay: Optional[float] = None
+    weight_decay_incr_style: str = "constant"
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    sgd_momentum: float = 0.9
+    clip_grad: float = 1.0
+    # loss scaling (needed only for fp16; bf16 trains unscaled)
+    loss_scale: Optional[float] = None  # None -> dynamic if fp16
+    initial_loss_scale: float = 2.0 ** 32
+    min_loss_scale: float = 1.0
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    log_num_zeros_in_grad: bool = False
+    override_opt_param_scheduler: bool = False
+    use_checkpoint_opt_param_scheduler: bool = False
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """The training-loop fields the step reads (megatron_tpu/config.py
+    TrainingConfig); the loop's own fields come with the loop's slice."""
+
+    micro_batch_size: int = 1
+    global_batch_size: Optional[int] = None
+    rampup_batch_size: Optional[tuple[int, int, int]] = None  # (start, incr, samples)
+    train_iters: int = 100
+    seed: int = 1234
+    log_params_norm: bool = False
+
+
+@dataclass(frozen=True)
+class MegatronConfig:
+    """The part of the reference's MegatronConfig that the model and the
+    training step read."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+
+    @property
+    def num_microbatches(self) -> int:
+        gbs = self.training.global_batch_size or self.training.micro_batch_size
+        if gbs % self.training.micro_batch_size:
+            raise ValueError(f"global batch {gbs} must be divisible by "
+                             f"micro batch {self.training.micro_batch_size}")
+        return gbs // self.training.micro_batch_size
 
     @staticmethod
     def from_dict(d: dict) -> "MegatronConfig":
-        fields = {f.name for f in dataclasses.fields(ModelConfig)}
-        sub = d.get("model", {})
+        def build(cls, sub):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: v for k, v in sub.items() if k in names})
         return MegatronConfig(
-            model=ModelConfig(**{k: v for k, v in sub.items()
-                                 if k in fields}))
+            model=build(ModelConfig, d.get("model", {})),
+            optimizer=build(OptimizerConfig, d.get("optimizer", {})),
+            training=build(TrainingConfig, d.get("training", {})))
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,10 @@ layout, so moving weights across is a renaming ("a/b/c" -> "a.b.c") plus
 config describes. Nothing is reordered: the fused wkv splits into k and v
 inside attention exactly as in the reference.
 
+`train_state_from_numpy` carries a JAX training state across: the params,
+the optimizer's mu, nu and step, the loss-scaler automaton and the
+iteration. `train_state_to_numpy` is its inverse, under the JAX names.
+
 `load_npz_checkpoint` reads a checkpoint the JAX package saved with
 `backend="npz"` (training/checkpointing.py): the tracker file, then
 `config.json`, then `params.npz`. It needs no JAX. Orbax checkpoints are
@@ -22,6 +26,8 @@ import torch
 
 from megatron_tpu_torch.config import MegatronConfig, ModelConfig
 from megatron_tpu_torch.models.language_model import LanguageModel
+from megatron_tpu_torch.training.optimizer import OptState, ScalerState
+from megatron_tpu_torch.training.train_step import TrainState
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 TRACKER = "latest_checkpointed_iteration.txt"
@@ -64,6 +70,63 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
         t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
         state[key] = t.to(device=device, dtype=dtype or t.dtype)
     return state
+
+
+def train_state_from_numpy(params: Mapping, opt_state, iteration,
+                           cfg: MegatronConfig,
+                           device: DeviceLike = None) -> TrainState:
+    """A JAX training state -> the port's. `params` is the parameter tree
+    (nested or flat), `opt_state` the JAX OptState or anything with its
+    fields `step`, `mu`, `nu` (None for SGD) and `scaler` = (scale,
+    growth_tracker, hysteresis), holding arrays; `iteration` an int or a
+    0-d array."""
+    device = resolve_device(device)
+    model = LanguageModel.from_state_dict(
+        cfg.model, params_from_numpy(params, cfg.model, device),
+        trainable=True)
+
+    def moments(tree):
+        if tree is None:
+            return None
+        return params_from_numpy(tree, cfg.model, device, torch.float32)
+
+    scale, tracker, hysteresis = opt_state.scaler
+    scaler = ScalerState(
+        scale=torch.tensor(float(np.asarray(scale)), dtype=torch.float32,
+                           device=device),
+        growth_tracker=torch.tensor(int(np.asarray(tracker)),
+                                    dtype=torch.int32, device=device),
+        hysteresis=torch.tensor(int(np.asarray(hysteresis)),
+                                dtype=torch.int32, device=device))
+    return TrainState(
+        params=model,
+        opt_state=OptState(
+            step=torch.tensor(int(np.asarray(opt_state.step)),
+                              dtype=torch.int32, device=device),
+            mu=moments(opt_state.mu), nu=moments(opt_state.nu),
+            scaler=scaler),
+        iteration=int(np.asarray(iteration)))
+
+
+def train_state_to_numpy(state: TrainState):
+    """The inverse of `train_state_from_numpy`: (params, opt_state,
+    iteration) with params, mu and nu as flat {"a/b/c": array} dicts under
+    the JAX names and opt_state a dict of step, mu, nu and scaler =
+    {scale, growth_tracker, hysteresis}."""
+    def flat(tensors):
+        if tensors is None:
+            return None
+        return {k.replace(".", "/"): t.detach().cpu().numpy()
+                for k, t in tensors.items()}
+
+    o = state.opt_state
+    scaler = {"scale": o.scaler.scale.item(),
+              "growth_tracker": int(o.scaler.growth_tracker.item()),
+              "hysteresis": int(o.scaler.hysteresis.item())}
+    return (flat(state.params.state_dict()),
+            {"step": int(o.step.item()), "mu": flat(o.mu), "nu": flat(o.nu),
+             "scaler": scaler},
+            state.iteration)
 
 
 def read_tracker(root: str) -> Optional[str]:

@@ -4,8 +4,10 @@
 // (megatron_tpu/ops/flash_attention_pallas.py, launched by `_flash_fwd`).
 // It computes the same function: out = softmax(q k^T * scale) v with the
 // online softmax in fp32, causal masking aligned top-left (q_pos >= kv_pos),
-// an optional sliding-window band (q_pos - kv_pos < window), GQA with q-head
-// h reading kv-head h / group, and the per-row logsumexp.
+// an optional sliding-window band (q_pos - kv_pos < window), optional
+// segment ids (q and k in different documents never attend), optional
+// attention dropout (the TPU kernel's counter hash, flash_common.cuh), GQA
+// with q-head h reading kv-head h / group, and the per-row logsumexp.
 //
 // Design. One thread block owns one (batch, q-head, 64-row q tile) and walks
 // its kv tiles in a loop: the TPU's sequential kv grid axis becomes that
@@ -17,45 +19,47 @@
 // the ragged tails of q and kv are masked, so any sequence length runs.
 // Two kernels share that shape and differ in the arithmetic:
 //
-// - bf16 (`flash_fwd_mma_kernel`, the serving path): four warps, each
-//   owning 16 q rows. Both products run on the tensor cores as mma.sync
-//   m16n8k16 with fp32 accumulation; Q stays in registers as A fragments,
-//   the score fragments are rescaled, masked and exponentiated in
-//   registers and become the A fragments of P V directly, as in
-//   FlashAttention-2. P is
-//   split into bf16 hi + lo parts (two products) so that it keeps the TPU
-//   kernel's fp32 precision instead of FlashAttention-2's bf16 rounding.
+// - bf16 (`flash_fwd_mma_kernel`): four warps, each owning 16 q rows. Both
+//   products run on the tensor cores as mma.sync m16n8k16 with fp32
+//   accumulation; Q stays in registers as A fragments, the score fragments
+//   are rescaled, masked and exponentiated in registers and become the A
+//   fragments of P V directly, as in FlashAttention-2. P is split into bf16
+//   hi + lo parts (two products) so that it keeps the TPU kernel's fp32
+//   precision instead of FlashAttention-2's bf16 rounding.
 // - fp32 (`flash_fwd_fma_kernel`): a 16 x 16 thread grid computes 4x4
 //   blocks of the score tile and 4 x HD/16 blocks of the output with fp32
 //   FMAs, so fp32 callers keep fp32 products (tensor-core tf32 would not
 //   hold 1e-4).
 //
+// Segment ids and dropout are the training path's; both kernels take them
+// only in their EXTRA instantiation, so the serving path's inner loop is
+// the one it had without them. Segment ids are int32 [b, s], one row for q
+// and k: a block keeps its q rows' ids in registers and stages each kv
+// tile's ids in shared memory. With dropout, l keeps the undropped sum and
+// only P V sees z = keep / (1 - rate), as in the TPU kernel; the lse is the
+// undropped one.
+//
 // Bound. Causal attention does 2 s^2 d FLOPs per head against 8 s d bytes
-// of bf16 q, k, v and out, i.e. s / 4 FLOP per byte. At the main path's
+// of bf16 q, k, v and out, i.e. s / 4 FLOP per byte. At the serving
 // prefill (Llama-2-7B, s = 512, d = 128) that is 128 FLOP/byte, under the
 // H100's ~295 FLOP/byte balance point, so the least time is set by device
-// memory; from s ~ 1200 on it is set by the tensor cores. The design keeps
-// every intermediate (scores, probabilities, running statistics) on chip,
-// so device memory sees only the minimum traffic plus K/V tiles re-read
-// (mostly from L2) once per q tile. What it leaves on the table: loads are
-// synchronous (no cp.async/TMA pipeline overlapping the next tile's load
-// with this tile's math) and mma.sync runs at a fraction of wgmma's rate;
-// those are the next kernel PR's work.
+// memory; from s ~ 1200 on, as at the training shape s = 4096, it is set by
+// the tensor cores. The design keeps every intermediate (scores,
+// probabilities, running statistics) on chip, so device memory sees only
+// the minimum traffic plus K/V tiles re-read (mostly from L2) once per q
+// tile. What it leaves on the table: loads are synchronous (no cp.async/TMA
+// pipeline overlapping the next tile's load with this tile's math) and
+// mma.sync runs at a fraction of wgmma's rate; those are a later PR's work.
 //
 // Numerics follow the TPU kernel: masked scores are NEG_INF = -1e30, the
 // exponent is clamped at MASK_CLAMP = -1e20 so a fully masked row adds
 // nothing, and a row whose l stays 0 divides by 1 (out 0, lse NEG_INF).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // q rows per block
-constexpr int BN = 64;  // kv rows per tile
-constexpr float NEG_INF = -1e30f;
-constexpr float MASK_CLAMP = -1e20f;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -63,6 +67,8 @@ struct Params {
   const void* v;
   void* o;
   float* lse;
+  const int* seg;  // [b, s] int32 segment ids, or null
+  long long seg_sb;
   int b, sq, sk, nq, group;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -70,6 +76,7 @@ struct Params {
   float scale;
   int causal;
   int window;  // <= 0: no band
+  Dropout drop;
 };
 
 // kv tiles [kv_begin, kv_end) that the q tile starting at q0 can see
@@ -92,6 +99,18 @@ __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
   return keep;
 }
 
+// the segment id of query row qi (-1 past the end)
+__device__ __forceinline__ int q_segment(const Params& p, int bi, int qi) {
+  return qi < p.sq ? p.seg[bi * p.seg_sb + qi] : -1;
+}
+
+// a kv tile's segment ids into shared memory (-2 past the end)
+__device__ __forceinline__ void load_kv_segments(const Params& p, int bi,
+                                                 int k0, int* dst) {
+  for (int r = threadIdx.x; r < BN; r += blockDim.x)
+    dst[r] = k0 + r < p.sk ? p.seg[bi * p.seg_sb + k0 + r] : -2;
+}
+
 // ---------------------------------------------------------------------------
 // fp32: FMA kernel
 // ---------------------------------------------------------------------------
@@ -100,13 +119,13 @@ constexpr int FMA_THREADS = 256;
 
 template <int HD>
 constexpr size_t fma_smem_bytes() {
-  // Q [BM][HD+1], K [BN][HD+1], V [BN][HD], P [BM][BN+1]; the odd pitches
-  // keep the column-wise reads free of bank conflicts
+  // Q [BM][HD+1], K [BN][HD+1], V [BN][HD], P [BM][BN+1], kv segment ids
+  // [BN]; the odd pitches keep the column-wise reads free of bank conflicts
   return sizeof(float) *
-         (BM * (HD + 1) + BN * (HD + 1) + BN * HD + BM * (BN + 1));
+         (BM * (HD + 1) + BN * (HD + 1) + BN * HD + BM * (BN + 1) + BN);
 }
 
-template <int HD>
+template <int HD, bool EXTRA>
 __global__ void __launch_bounds__(FMA_THREADS)
     flash_fwd_fma_kernel(Params p) {
   constexpr int QP = HD + 1;
@@ -118,6 +137,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   float* Ks = Qs + BM * QP;
   float* Vs = Ks + BN * KP;
   float* Ps = Vs + BN * HD;
+  int* Ss = reinterpret_cast<int*>(Ps + BM * PP);
 
   const int tid = threadIdx.x;
   const int tr = tid >> 4;  // rows tr + 16 i of the tile
@@ -140,12 +160,19 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 
   float m[4], l[4], acc[4][CPT];
+  int qseg[4];
+  uint32_t qrow[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+    if constexpr (EXTRA) {
+      const int qi = q0 + tr + 16 * i;
+      qseg[i] = p.seg ? q_segment(p, bi, qi) : 0;
+      qrow[i] = dropout_row(p.drop.seed, bi * p.nq + h, qi);
+    }
   }
 
   int kv_begin, kv_end;
@@ -158,6 +185,9 @@ __global__ void __launch_bounds__(FMA_THREADS)
       const bool ok = kj < p.sk;
       Ks[r * KP + c] = ok ? kg[kj * p.k_ss + c] : 0.f;
       Vs[r * HD + c] = ok ? vg[kj * p.v_ss + c] : 0.f;
+    }
+    if constexpr (EXTRA) {
+      if (p.seg) load_kv_segments(p, bi, k0, Ss);
     }
     __syncthreads();
 
@@ -185,7 +215,11 @@ __global__ void __launch_bounds__(FMA_THREADS)
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (!visible(p, qi, k0 + tc + 16 * j)) s[i][j] = NEG_INF;
+        bool vis = visible(p, qi, k0 + tc + 16 * j);
+        if constexpr (EXTRA) {
+          if (p.seg) vis = vis && qseg[i] == Ss[tc + 16 * j];
+        }
+        if (!vis) s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       // a row's 16 threads are 16 consecutive lanes of one warp
@@ -209,8 +243,16 @@ __global__ void __launch_bounds__(FMA_THREADS)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(tr + 16 * i) * PP + tc + 16 * j] = s[i][j];
+      for (int j = 0; j < 4; ++j) {
+        float pv = s[i][j];
+        if constexpr (EXTRA) {
+          if (p.drop.scale != 0.f)
+            pv *= dropout_keep(qrow[i], k0 + tc + 16 * j, p.drop.thresh)
+                      ? p.drop.scale
+                      : 0.f;
+        }
+        Ps[(tr + 16 * i) * PP + tc + 16 * j] = pv;
+      }
     }
     __syncthreads();
 
@@ -252,70 +294,12 @@ __global__ void __launch_bounds__(FMA_THREADS)
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 q rows
 
 template <int HD>
-__host__ __device__ constexpr int mma_pitch() {
-  // bf16 elements per shared-memory row: +8 makes the fragment reads of 8
-  // rows at one column fall into distinct banks and keeps rows 16-byte
-  // aligned
-  return HD + 8;
-}
-
-template <int HD>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 3 * BM * mma_pitch<HD>();  // Q, K, V
+  // Q, K, V tiles, then the kv tile's segment ids
+  return sizeof(__nv_bfloat16) * 3 * BM * mma_pitch<HD>() + sizeof(int) * BN;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x as hi + lo, both bf16 pairs: hi carries x's top 8 mantissa bits, lo the
-// next 8, so a product through both keeps P at ~fp32 precision
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
-                                           uint32_t* lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  *hi = *reinterpret_cast<const uint32_t*>(&h);
-  *lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [row0, row0 + 64) of a [s, HD] head slice (row stride `ss`) into a
-// shared tile, 16 bytes at a time; rows at or past `limit` are zero
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int row0, int limit) {
-  constexpr int P = mma_pitch<HD>();
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < BM * CHUNKS; e += MMA_THREADS) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = val;
-  }
-}
-
-template <int HD>
+template <int HD, bool EXTRA>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_fwd_mma_kernel(Params p) {
   constexpr int P = mma_pitch<HD>();
@@ -326,6 +310,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BM * P;
   __nv_bfloat16* Vs = Ks + BN * P;
+  int* Ss = reinterpret_cast<int*>(Vs + BN * P);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -343,19 +328,13 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const __nv_bfloat16* vg =
       static_cast<const __nv_bfloat16*>(p.v) + bi * p.v_sb + hk * p.v_sh;
 
-  load_tile<HD>(Qs, qg, p.q_ss, q0, p.sq);
+  load_tile<HD, MMA_THREADS>(Qs, qg, p.q_ss, q0, p.sq);
   __syncthreads();
   // this warp's 16 q rows as A fragments, one per k-step
   const int wr = warp * 16;
   uint32_t qa[KSTEPS][4];
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const __nv_bfloat16* base = Qs + (wr + g) * P + kk * 16 + 2 * t4;
-    qa[kk][0] = ld32(base);
-    qa[kk][1] = ld32(base + 8 * P);
-    qa[kk][2] = ld32(base + 8);
-    qa[kk][3] = ld32(base + 8 * P + 8);
-  }
+  for (int kk = 0; kk < KSTEPS; ++kk) load_a<P>(qa[kk], Qs + wr * P + kk * 16, g, t4);
 
   // this thread's two rows: fragment rows g and g + 8
   const int row_a = q0 + wr + g;
@@ -366,13 +345,26 @@ __global__ void __launch_bounds__(MMA_THREADS)
   for (int t = 0; t < NT_O; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  int seg_a = 0, seg_b = 0;
+  uint32_t hrow_a = 0, hrow_b = 0;
+  if constexpr (EXTRA) {
+    if (p.seg) {
+      seg_a = q_segment(p, bi, row_a);
+      seg_b = q_segment(p, bi, row_b);
+    }
+    hrow_a = dropout_row(p.drop.seed, bi * p.nq + h, row_a);
+    hrow_b = dropout_row(p.drop.seed, bi * p.nq + h, row_b);
+  }
 
   int kv_begin, kv_end;
   kv_range(p, q0, &kv_begin, &kv_end);
   for (int k0 = kv_begin; k0 < kv_end; k0 += BN) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Ks, kg, p.k_ss, k0, p.sk);
-    load_tile<HD>(Vs, vg, p.v_ss, k0, p.sk);
+    load_tile<HD, MMA_THREADS>(Ks, kg, p.k_ss, k0, p.sk);
+    load_tile<HD, MMA_THREADS>(Vs, vg, p.v_ss, k0, p.sk);
+    if constexpr (EXTRA) {
+      if (p.seg) load_kv_segments(p, bi, k0, Ss);
+    }
     __syncthreads();
 
     // S = Q K^T: B is K^T, i.e. K rows read as columns
@@ -396,9 +388,13 @@ __global__ void __launch_bounds__(MMA_THREADS)
     for (int t = 0; t < NT_S; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + t * 8 + 2 * t4 + (e & 1);
+        const int col = t * 8 + 2 * t4 + (e & 1);
         const int qi = e < 2 ? row_a : row_b;
-        s[t][e] = visible(p, qi, kj) ? s[t][e] * p.scale : NEG_INF;
+        bool vis = visible(p, qi, k0 + col);
+        if constexpr (EXTRA) {
+          if (p.seg) vis = vis && (e < 2 ? seg_a : seg_b) == Ss[col];
+        }
+        s[t][e] = vis ? s[t][e] * p.scale : NEG_INF;
       }
       mx_a = fmaxf(mx_a, fmaxf(s[t][0], s[t][1]));
       mx_b = fmaxf(mx_b, fmaxf(s[t][2], s[t][3]));
@@ -438,6 +434,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
       o[t][1] *= alpha_a;
       o[t][2] *= alpha_b;
       o[t][3] *= alpha_b;
+    }
+    if constexpr (EXTRA) {
+      // dropout after the sums: l keeps the undropped probabilities
+      if (p.drop.scale != 0.f) {
+#pragma unroll
+        for (int t = 0; t < NT_S; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + t * 8 + 2 * t4 + (e & 1);
+            s[t][e] *= dropout_keep(e < 2 ? hrow_a : hrow_b, kj,
+                                    p.drop.thresh)
+                           ? p.drop.scale
+                           : 0.f;
+          }
+      }
     }
 
     // O += P V: the score fragments of n-tiles 2j and 2j+1 are the A
@@ -489,16 +500,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int threads, size_t smem,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+template <int HD, bool EXTRA>
+cudaError_t dispatch(int dtype, const Params& p, cudaStream_t st) {
   const dim3 grid((p.sq + BM - 1) / BM, p.nq, p.b);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (dtype == 0)
+    return launch(flash_fwd_fma_kernel<HD, EXTRA>, p, grid, FMA_THREADS,
+                  fma_smem_bytes<HD>(), st);
+  return launch(flash_fwd_mma_kernel<HD, EXTRA>, p, grid, MMA_THREADS,
+                mma_smem_bytes<HD>(), st);
 }
 
 }  // namespace
@@ -507,22 +516,31 @@ cudaError_t launch(Kernel kernel, const Params& p, int threads, size_t smem,
 // For bf16, q, k and v must start 16-byte aligned and every stride must be
 // a multiple of 8 elements: tiles load 16 bytes at a time.
 // out is a contiguous [b, sq, nq, hd] tensor of the input dtype, lse a
-// contiguous [b, nq, sq] fp32 tensor. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for an unsupported dtype or head dim).
+// contiguous [b, nq, sq] fp32 tensor. seg is null or a contiguous [b, sq]
+// int32 tensor (requires sq == sk). drop_scale == 0 turns dropout off;
+// otherwise drop_scale = 1 / (1 - rate) and drop_thresh = rate * 2^31.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for an
+// unsupported dtype or head dim).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, float* lse, int dtype, int hd, int b,
-                         int sq, int sk, int nq, int nkv, long long q_sb,
-                         long long q_ss, long long q_sh, long long k_sb,
-                         long long k_ss, long long k_sh, long long v_sb,
-                         long long v_ss, long long v_sh, float scale,
-                         int causal, int window, void* stream) {
-  if (nkv <= 0 || nq % nkv != 0) return cudaErrorInvalidValue;
+                         void* out, float* lse, const int* seg, int dtype,
+                         int hd, int b, int sq, int sk, int nq, int nkv,
+                         long long q_sb, long long q_ss, long long q_sh,
+                         long long k_sb, long long k_ss, long long k_sh,
+                         long long v_sb, long long v_ss, long long v_sh,
+                         float scale, int causal, int window,
+                         unsigned int drop_seed, unsigned int drop_thresh,
+                         float drop_scale, void* stream) {
+  if (nkv <= 0 || nq % nkv != 0 || (dtype != 0 && dtype != 1) ||
+      (seg && sq != sk))
+    return cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = out;
   p.lse = lse;
+  p.seg = seg;
+  p.seg_sb = sq;
   p.b = b;
   p.sq = sq;
   p.sk = sk;
@@ -540,18 +558,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.causal = causal;
   p.window = window;
+  p.drop = Dropout{drop_seed, drop_thresh, drop_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch(flash_fwd_fma_kernel<64>, p, FMA_THREADS,
-                  fma_smem_bytes<64>(), st);
-  if (dtype == 0 && hd == 128)
-    return launch(flash_fwd_fma_kernel<128>, p, FMA_THREADS,
-                  fma_smem_bytes<128>(), st);
-  if (dtype == 1 && hd == 64)
-    return launch(flash_fwd_mma_kernel<64>, p, MMA_THREADS,
-                  mma_smem_bytes<64>(), st);
-  if (dtype == 1 && hd == 128)
-    return launch(flash_fwd_mma_kernel<128>, p, MMA_THREADS,
-                  mma_smem_bytes<128>(), st);
+  const bool extra = seg != nullptr || drop_scale != 0.f;
+  if (hd == 64)
+    return extra ? dispatch<64, true>(dtype, p, st)
+                 : dispatch<64, false>(dtype, p, st);
+  if (hd == 128)
+    return extra ? dispatch<128, true>(dtype, p, st)
+                 : dispatch<128, false>(dtype, p, st);
   return cudaErrorInvalidValue;
 }

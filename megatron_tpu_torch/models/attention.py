@@ -11,10 +11,14 @@ The KV cache holds its offset as a host int shared by every row and layer
 the flash kernel over the fresh k/v, and decode steps and offset > 0 chunks
 take the dot path over the cache's live region. Cache writes are in place.
 
+The uncached (training) forward passes segment ids, and attention dropout
+with its generator, to the flash path (ops/flash_attention.py, kernels on
+the card); the dot path takes the segment mask too.
+
 Left for later slices, and raising: per-row (slot-grid) offsets, the
 block-native cache, rolling sliding-window caches, int8 caches, LoRA
-adapters, cross-attention, segment ids, dropout, and the ring / ulysses
-implementations.
+adapters, cross-attention, attention dropout on the dot path, and the
+ring / ulysses implementations.
 """
 from __future__ import annotations
 
@@ -58,12 +62,13 @@ def attention_init(cfg: ModelConfig) -> dict:
 
 def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
                    scale: float, q_offset: int = 0,
-                   sliding_window: Optional[int] = None):
+                   sliding_window: Optional[int] = None, segment_ids=None):
     """Unfused attention: QK^T -> mask -> softmax -> AV.
 
     q: [b, s, nq, hd]; k, v: [b, t, nkv, hd]. GQA reshapes q into
     [b, s, nkv, g, hd]. `q_offset` shifts the causal mask for queries that
-    continue a cache."""
+    continue a cache. `segment_ids` [b, s] (s == t) masks attention
+    block-diagonally across documents."""
     b, s, nq, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -78,6 +83,10 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
         if sliding_window is not None:
             win = win & (q_pos[:, None] - kv_pos[None, :] < sliding_window)
         scores = scores.masked_fill(~win, torch.finfo(scores.dtype).min)
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]  # [b, s, t]
+        scores = scores.masked_fill(~same[:, None, None],
+                                    torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngst,btnd->bsngd", probs, v)
     return out.reshape(b, s, nq, hd)
@@ -85,9 +94,13 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
 
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     rope_cos=None, rope_sin=None, position_ids=None,
-                    kv_cache: Optional[KVCache] = None):
+                    kv_cache: Optional[KVCache] = None, segment_ids=None,
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None):
     """Causal self-attention. x: [b, s, h]. Returns (out [b, s, h], the
-    per-layer cache advanced by s, or None without a cache)."""
+    per-layer cache advanced by s, or None without a cache). Attention
+    dropout runs when `deterministic` is False and a `generator` is given,
+    as the reference runs it only with an rng."""
     b, s, _ = x.shape
     hd, nq, nkv = cfg.kv_channels, cfg.num_attention_heads, cfg.num_kv_heads
     dtype = x.dtype
@@ -120,6 +133,15 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     scale = 1.0 / math.sqrt(hd)
     window = cfg.sliding_window
+    dropout_rate = (cfg.attention_dropout
+                    if not deterministic and generator is not None else 0.0)
+    if kv_cache is not None and (segment_ids is not None or dropout_rate):
+        raise ValueError("segment ids and attention dropout take the "
+                         "uncached (training) forward")
+    if dropout_rate and cfg.attention_impl != "flash":
+        raise NotImplementedError(
+            "attention dropout on the dot path is ported with the dropout "
+            "module in a later slice; the flash path carries it")
     if kv_cache is not None:
         end = offset + s
         if end > kv_cache.k.shape[1]:
@@ -144,12 +166,15 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         new_cache = None
         if cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=True, scale=scale,
-                                  sliding_window=window)
+                                  sliding_window=window,
+                                  segment_ids=segment_ids,
+                                  dropout_rate=dropout_rate,
+                                  generator=generator)
         else:
             out = _dot_attention(
                 q, k, v, causal=True,
                 softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
-                sliding_window=window)
+                sliding_window=window, segment_ids=segment_ids)
 
     out = qdense(out.reshape(b, s, nq * hd), wcast(params["wo"], dtype),
                  cfg.quantized_gemm)

@@ -4,9 +4,10 @@
 `LanguageModel` holds the reference's parameter tree under the same names,
 with the stacked [L, ...] layer layout, so its state_dict keys are the
 reference's flattened paths with "." for "/" ("transformer.attention.wq").
-`model_forward` and `head_logits` are plain functions over that tree, as in
-the reference; the head runs in the compute dtype and is cast up to fp32
-logits.
+`model_forward`, `head_logits` and `loss_fn` are plain functions over that
+tree, as in the reference; the head runs in the compute dtype and is cast
+up to fp32 logits, and `loss_fn` is the masked-mean cross-entropy the
+training step differentiates.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from megatron_tpu_torch.models import transformer as tfm
 from megatron_tpu_torch.models.attention import KVCache
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
 from megatron_tpu_torch.models.rope import precompute_freqs
+from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -48,10 +50,12 @@ class LanguageModel(nn.Module):
     Weights are drawn from a `torch.Generator` seeded with `seed`, on
     `device` (the current CUDA device when None; raises without one), in
     `dtype` (cfg.params_dtype when None). On the "meta" device nothing is
-    allocated, for loading a state_dict with `assign=True`."""
+    allocated, for loading a state_dict with `assign=True`. Parameters
+    require grad only when `trainable`: serving builds frozen models."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
-                 dtype: Optional[torch.dtype] = None, seed: int = 0):
+                 dtype: Optional[torch.dtype] = None, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
@@ -68,7 +72,7 @@ class LanguageModel(nn.Module):
                                 device=device).mul_(value)
             else:
                 t = torch.full(shape, value, dtype=dtype, device=device)
-            return nn.Parameter(t, requires_grad=False)
+            return nn.Parameter(t, requires_grad=trainable)
 
         def module(tree):
             if all(isinstance(v, tuple) for v in tree.values()):
@@ -82,9 +86,10 @@ class LanguageModel(nn.Module):
         self.lm_head = make(specs["lm_head"]) if "lm_head" in specs else None
 
     @classmethod
-    def from_state_dict(cls, cfg: ModelConfig, state_dict: dict):
+    def from_state_dict(cls, cfg: ModelConfig, state_dict: dict, *,
+                        trainable: bool = False):
         """A model holding exactly these tensors (no copy, no init)."""
-        model = cls(cfg, device="meta")
+        model = cls(cfg, device="meta", trainable=trainable)
         model.load_state_dict(state_dict, strict=True, assign=True)
         return model
 
@@ -127,10 +132,14 @@ def _tree(params):
 def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   position_ids=None, kv_caches: Optional[KVCache] = None,
                   rope: Optional[RopeTables] = None,
-                  logits_dtype=torch.float32):
+                  logits_dtype=torch.float32, segment_ids=None,
+                  deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None):
     """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches).
     `params` is a LanguageModel or its tree. With `kv_caches`, positions
-    continue from the cache offset and the caches are written in place."""
+    continue from the cache offset and the caches are written in place.
+    `segment_ids` [b, s] mask attention across documents; with
+    `deterministic` False, `generator` seeds attention dropout."""
     params = _tree(params)
     compute_dtype = as_dtype(cfg.compute_dtype)
     emb = params["embedding"]["word_embeddings"]
@@ -150,7 +159,9 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         params["transformer"], x, cfg,
         rope_cos=rope.cos if rope else None,
         rope_sin=rope.sin if rope else None,
-        position_ids=position_ids, kv_caches=kv_caches)
+        position_ids=position_ids, kv_caches=kv_caches,
+        segment_ids=segment_ids, deterministic=deterministic,
+        generator=generator)
     return head_logits(params, x, cfg, logits_dtype=logits_dtype), kv_caches
 
 
@@ -165,3 +176,35 @@ def head_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         w_out = params["lm_head"]
     return (x @ w_out.to(compute_dtype)).to(logits_dtype)
+
+
+def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
+            rope: Optional[RopeTables] = None,
+            generator: Optional[torch.Generator] = None,
+            deterministic: bool = True, position_ids=None, segment_ids=None):
+    """Causal LM loss (language_model.py loss_fn): the mean cross-entropy
+    over unmasked positions. `tokens` is [b, s+1] (inputs and labels
+    shifted by one; a [b, s+1] loss_mask drops its first column) or an
+    (inputs, labels) pair of [b, s]. The MoE aux term, LoRA adapters and
+    the context-parallel zigzag are not ported (MoE and cp raise where the
+    model builds them)."""
+    if cfg.recompute_granularity != "none":
+        raise NotImplementedError(
+            f"recompute_granularity={cfg.recompute_granularity!r}: "
+            "activation recompute is ported in a later slice")
+    if isinstance(tokens, tuple):
+        inputs, labels = tokens
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        if loss_mask is not None and loss_mask.shape[1] == tokens.shape[1]:
+            loss_mask = loss_mask[:, 1:]
+    logits, _ = model_forward(params, inputs, cfg, rope=rope,
+                              position_ids=position_ids,
+                              segment_ids=segment_ids,
+                              deterministic=deterministic,
+                              generator=generator)
+    losses = cross_entropy_loss(logits, labels, vocab_size=cfg.vocab_size)
+    if loss_mask is None:
+        return losses.mean()
+    loss_mask = loss_mask.to(losses.dtype)
+    return (losses * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)

@@ -2,9 +2,12 @@
 
 Parameters keep the reference's stacked layout: every leaf of the stack has
 a leading [num_layers] dim. `stack_apply` is a host loop over the layers
-where the reference scans. Covers pre- and post-LN and Falcon's
-`parallel_attn` / `parallel_layernorm`. Dropout, stochastic depth,
-activation recompute and MoE belong to later slices.
+where the reference scans; it takes each stacked leaf apart once per
+forward with `unbind(0)`, whose backward is one `stack`, so a layer's
+gradient never allocates the whole stack. Covers pre- and post-LN and
+Falcon's `parallel_attn` / `parallel_layernorm`, segment ids and the flash
+path's attention dropout. Hidden dropout (and its LIMA ramp), stochastic
+depth, activation recompute and MoE belong to later slices and raise.
 """
 from __future__ import annotations
 
@@ -49,8 +52,12 @@ def stack_init(cfg: ModelConfig, num_layers: Optional[int] = None) -> dict:
 
 def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
-                kv_cache: Optional[KVCache] = None):
+                kv_cache: Optional[KVCache] = None, segment_ids=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
     """One transformer layer. x: [b, s, h]. Returns (x, kv_cache).
+    `generator` draws the flash path's attention-dropout seed when
+    `deterministic` is False.
 
       ln_out = input_norm(x)                (identity when post-LN)
       attn   = attention(ln_out)
@@ -58,6 +65,11 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
       else:          ln_in = x + attn; out = ln_in + mlp(post_attn_norm(ln_in))
       out = output_norm(out)                (identity when pre-LN)
     """
+    if not deterministic and (cfg.hidden_dropout > 0.0
+                              or cfg.drop_path_rate > 0.0):
+        raise NotImplementedError(
+            "hidden dropout, LIMA dropout and drop-path are ported with the "
+            "dropout module in a later slice")
     eps = cfg.norm_epsilon
     residual = x
     if cfg.use_post_ln:
@@ -66,7 +78,9 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         ln_out = apply_norm(cfg.norm_type, params["input_norm"], x, eps)
     attn_out, kv_cache = attention_apply(
         params["attention"], ln_out, cfg, rope_cos=rope_cos,
-        rope_sin=rope_sin, position_ids=position_ids, kv_cache=kv_cache)
+        rope_sin=rope_sin, position_ids=position_ids, kv_cache=kv_cache,
+        segment_ids=segment_ids, deterministic=deterministic,
+        generator=generator)
     if cfg.parallel_attn:
         if cfg.parallel_layernorm:
             mlp_in = apply_norm(cfg.norm_type, params["mlp_norm"], residual,
@@ -83,26 +97,32 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     return out, kv_cache
 
 
-def layer_params(stacked, i: int):
-    """Layer i's parameters: every leaf of the stacked tree indexed at i."""
+def unstack_layers(stacked) -> list:
+    """Every layer's parameters: one `unbind(0)` per stacked leaf. Indexing
+    the stack per layer instead would, under autograd, give each layer's
+    grad a zero-filled buffer of the whole [L, ...] leaf."""
     if isinstance(stacked, torch.Tensor):
-        return stacked[i]
-    return {k: layer_params(v, i) for k, v in stacked.items()}
+        return list(stacked.unbind(0))
+    per_key = {k: unstack_layers(v) for k, v in stacked.items()}
+    num_layers = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(num_layers)]
 
 
 def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
-                kv_caches: Optional[KVCache] = None):
+                kv_caches: Optional[KVCache] = None, segment_ids=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
     """Apply every layer in order. `kv_caches` holds [L, b, T, nkv, hd]
     tensors and one offset for all layers. Returns (x, kv_caches advanced
     by the step's length, or None)."""
-    num_layers = stacked_params["attention"]["wq"].shape[0]
-    for i in range(num_layers):
+    for i, layer in enumerate(unstack_layers(stacked_params)):
         cache = (None if kv_caches is None else
                  KVCache(kv_caches.k[i], kv_caches.v[i], kv_caches.offset))
-        x, _ = layer_apply(layer_params(stacked_params, i), x, cfg,
-                           rope_cos=rope_cos, rope_sin=rope_sin,
-                           position_ids=position_ids, kv_cache=cache)
+        x, _ = layer_apply(layer, x, cfg, rope_cos=rope_cos,
+                           rope_sin=rope_sin, position_ids=position_ids,
+                           kv_cache=cache, segment_ids=segment_ids,
+                           deterministic=deterministic, generator=generator)
     if kv_caches is None:
         return x, None
     return x, KVCache(kv_caches.k, kv_caches.v,

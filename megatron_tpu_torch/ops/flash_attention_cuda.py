@@ -1,16 +1,19 @@
-"""Build and binding of the Hopper flash-attention forward kernel.
+"""Build and binding of the Hopper flash-attention kernels.
 
-The kernel (csrc/flash_fwd.cu) replaces the Pallas TPU kernel `_fwd_kernel`
-of megatron_tpu/ops/flash_attention_pallas.py; its source note says what
-bounds it on the card and what the design does about that.
+The kernels replace the Pallas TPU kernels of
+megatron_tpu/ops/flash_attention_pallas.py: csrc/flash_fwd.cu the forward
+`_fwd_kernel`, csrc/flash_bwd.cu the backward `_bwd_dq_kernel` and
+`_bwd_dkv_kernel`. Each source's note says what bounds it on the card and
+what its design does about that.
 
-`build()` compiles the source with nvcc for sm_90a into a shared library
-under `build/` at the repository root, named by the source's hash, so a
-changed source is rebuilt and an unchanged one is reused. `flash_fwd_cuda`
-loads it through ctypes at first use, checks its inputs, launches on
-PyTorch's current stream and raises on any launch error; it never falls
-back to another implementation. `flash_fwd_cuda.launches` counts its
-launches.
+`build()` compiles every source with nvcc for sm_90a, one nvcc process per
+source, all started together, into shared libraries under `build/` at the
+repository root, each named by the hash of its source, the shared header
+and the flags, so a changed source is rebuilt and an unchanged one reused.
+The wrappers load their library through ctypes at first use, check their
+inputs, launch on PyTorch's current stream and raise on any launch error;
+none falls back to another implementation. Each wrapper counts its launches
+in its `launches` attribute.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
+HEADERS = (CSRC / "flash_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,107 +45,280 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the flash kernel is built on a "
+    raise RuntimeError("nvcc not found: the flash kernels are built on a "
                        "machine with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_fwd_{digest}.so"
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel unless this source's library exists. The
-    compiler's output (ptxas register and shared-memory use) is kept
-    beside the library as `<name>.log`."""
-    out = library_path()
-    if out.exists():
-        return out
+def build() -> dict:
+    """Compile every kernel source whose library does not exist yet, all in
+    parallel. The compiler's output (ptxas register, shared-memory and
+    spill lines) is kept beside each library as `<name>.log`. Returns
+    {source name: library path}."""
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = {}
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        for name, out in todo.items():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+                 str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, out)
+        failures = []
+        for name, (proc, tmp, out) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc {name} failed ({proc.returncode}):\n"
+                                f"{log}")
+                continue
+            out.with_suffix(".log").write_text(log)
+            os.replace(tmp, out)
+        if failures:
+            raise RuntimeError("\n".join(failures))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for proc, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[name]))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_fwd.argtypes = ([p] * 5 + [i] * 7 + [ll] * 9
-                              + [ctypes.c_float, i, i, p])
-    lib.flash_fwd.restype = i
+    u, f = ctypes.c_uint32, ctypes.c_float
+    if name == "flash_fwd":
+        lib.flash_fwd.argtypes = ([p] * 6 + [i] * 7 + [ll] * 9
+                                  + [f, i, i, u, u, f, p])
+        lib.flash_fwd.restype = i
+    else:
+        head = [p] * 8  # q, k, v, dout, lse, delta, dlse, seg
+        tail = [i] * 7 + [p, f, i, i, u, u, f, p]
+        lib.flash_bwd_dq.argtypes = head + [p] + tail
+        lib.flash_bwd_dkv.argtypes = head + [p, p] + tail
+        lib.flash_bwd_dq.restype = i
+        lib.flash_bwd_dkv.restype = i
     return lib
+
+
+def _check_inputs(where: str, tensors: dict):
+    """Device, dtype, layout and alignment checks shared by the wrappers:
+    every tensor [b, s, n, d] on the first one's CUDA device, one dtype
+    (bf16 or fp32), unit stride on d, and for bf16 16-byte aligned rows."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != first.device:
+            raise ValueError(f"{where}: {name} must lie on q's CUDA device, "
+                             f"got {t.device}")
+        if t.dtype != first.dtype:
+            raise ValueError(f"{where}: q, k, v (and dout) must share a "
+                             "dtype")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{where}: {name} must be [b, s, n, d] with "
+                             "unit stride on d")
+    if first.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{where}: dtype {first.dtype} not supported "
+                         "(bfloat16, float32)")
+    q, k, v = tensors["q"], tensors["k"], tensors["v"]
+    b, _, nq, d = q.shape
+    nkv = k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{where}: head dim {d} not in {_HEAD_DIMS}")
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or nq % nkv):
+        raise ValueError(f"{where}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not form "
+                         "GQA attention")
+    if first.dtype == torch.bfloat16:
+        # bf16 tiles load 16 bytes at a time, so every row must start on a
+        # 16-byte boundary
+        for name, t in tensors.items():
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"{where}: bf16 {name} must start 16-byte aligned with "
+                    f"strides in multiples of 8, got strides {t.stride()}")
+
+
+def _segments(where: str, segment_ids, q, k) -> Optional[torch.Tensor]:
+    if segment_ids is None:
+        return None
+    if q.shape[1] != k.shape[1] or tuple(segment_ids.shape) != (
+            q.shape[0], q.shape[1]):
+        raise ValueError(f"{where}: segment_ids must be [b, s] with "
+                         "sq == sk")
+    return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _dropout_args(rate: float, seed: int):
+    """(seed, threshold, scale) as the kernels take them; scale 0 is off."""
+    if not rate:
+        return 0, 0, 0.0
+    return int(seed) & 0xFFFFFFFF, int(rate * float(2 ** 31)), 1.0 / (1.0 - rate)
+
+
+def _window(sliding_window) -> int:
+    if sliding_window is not None and sliding_window <= 0:
+        raise ValueError("flash kernels: sliding_window must be > 0")
+    return int(sliding_window or 0)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int, where: str):
+    if rc != 0:
+        raise RuntimeError(f"{where}: launch failed with CUDA error {rc}")
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float,
-                   sliding_window: Optional[int] = None):
+                   sliding_window: Optional[int] = None,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   dropout_rate: float = 0.0, dropout_seed: int = 0):
     """q [b, sq, nq, d], k/v [b, sk, nkv, d] on one CUDA device, bf16 or
-    fp32, d in (64, 128), unit stride on d. Returns (out [b, sq, nq, d] in
-    q's dtype, lse [b, nq, sq] fp32)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_fwd_cuda: {name} must lie on q's CUDA "
-                             f"device, got {t.device}")
-        if t.dtype != q.dtype:
-            raise ValueError("flash_fwd_cuda: q, k and v must share a dtype")
-        if t.dim() != 4 or t.stride(-1) != 1:
-            raise ValueError(f"flash_fwd_cuda: {name} must be [b, s, n, d] "
-                             "with unit stride on d")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_fwd_cuda: dtype {q.dtype} not supported "
-                         "(bfloat16, float32)")
+    fp32, d in (64, 128), unit stride on d; `segment_ids` [b, s] (sq == sk)
+    or None. Returns (out [b, sq, nq, d] in q's dtype, lse [b, nq, sq]
+    fp32)."""
+    where = "flash_fwd_cuda"
+    _check_inputs(where, {"q": q, "k": k, "v": v})
+    seg = _segments(where, segment_ids, q, k)
+    window = _window(sliding_window)
+    seed, thresh, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     b, sq, nq, d = q.shape
     _, sk, nkv, _ = k.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd_cuda: head dim {d} not in {_HEAD_DIMS}")
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or nq % nkv):
-        raise ValueError(f"flash_fwd_cuda: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} do not "
-                         "form GQA attention")
-    if sliding_window is not None and sliding_window <= 0:
-        raise ValueError("flash_fwd_cuda: sliding_window must be > 0")
-    if q.dtype == torch.bfloat16:
-        # bf16 tiles load 16 bytes at a time, so every row must start on a
-        # 16-byte boundary
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError(
-                    f"flash_fwd_cuda: bf16 {name} must start 16-byte aligned "
-                    f"with strides in multiples of 8, got strides "
-                    f"{t.stride()}")
     out = torch.empty(b, sq, nq, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, nq, sq, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _library()
+    lib = _library("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODES[q.dtype], d, b, sq, sk, nq, nkv,
-            q.stride(0), q.stride(1), q.stride(2),
+            lse.data_ptr(), _ptr(seg), _DTYPE_CODES[q.dtype], d, b, sq, sk,
+            nq, nkv, q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(causal), int(sliding_window or 0), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd_cuda: launch failed with CUDA error "
-                           f"{rc}")
+            float(scale), int(causal), window, seed, thresh, drop_scale,
+            stream)
+    _raise_on(rc, where)
     flash_fwd_cuda.launches += 1
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+
+
+def _bwd_args(where, q, k, v, dout, lse, delta, dlse, segment_ids,
+              sliding_window, dropout_rate, dropout_seed):
+    _check_inputs(where, {"q": q, "k": k, "v": v, "dout": dout})
+    if dout.shape != q.shape:
+        raise ValueError(f"{where}: dout must have q's shape")
+    b, sq, nq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
+        if t is None:
+            continue
+        if (t.dtype != torch.float32 or t.device != q.device
+                or tuple(t.shape) != (b, nq, sq) or not t.is_contiguous()):
+            raise ValueError(f"{where}: {name} must be a contiguous fp32 "
+                             f"[b, nq, sq] tensor on q's device")
+    seg = _segments(where, segment_ids, q, k)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *dout.stride()[:3])
+    return seg, strides, _window(sliding_window), _dropout_args(
+        dropout_rate, dropout_seed)
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool,
+                      scale: float, sliding_window: Optional[int] = None,
+                      segment_ids=None, dropout_rate: float = 0.0,
+                      dropout_seed: int = 0, dlse=None) -> torch.Tensor:
+    """dQ of flash attention. q, k, v as `flash_fwd_cuda` takes them, dout
+    [b, sq, nq, d] in their dtype, lse and delta (and `dlse`, or None)
+    contiguous fp32 [b, nq, sq]. Returns dq [b, sq, nq, d] in q's dtype."""
+    where = "flash_bwd_dq_cuda"
+    seg, strides, window, (seed, thresh, drop_scale) = _bwd_args(
+        where, q, k, v, dout, lse, delta, dlse, segment_ids, sliding_window,
+        dropout_rate, dropout_seed)
+    b, sq, nq, d = q.shape
+    dq = torch.empty(b, sq, nq, d, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    lib = _library("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(seg),
+            dq.data_ptr(), _DTYPE_CODES[q.dtype], d, b, sq, k.shape[1], nq,
+            k.shape[2], strides, float(scale), int(causal), window, seed,
+            thresh, drop_scale, stream)
+    _raise_on(rc, where)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
+                       scale: float, sliding_window: Optional[int] = None,
+                       segment_ids=None, dropout_rate: float = 0.0,
+                       dropout_seed: int = 0, dlse=None):
+    """dK and dV of flash attention, summed over each kv head's GQA group
+    inside the kernel. Arguments as `flash_bwd_dq_cuda`. Returns (dk, dv),
+    contiguous [b, sk, nkv, d] in k's dtype."""
+    where = "flash_bwd_dkv_cuda"
+    seg, strides, window, (seed, thresh, drop_scale) = _bwd_args(
+        where, q, k, v, dout, lse, delta, dlse, segment_ids, sliding_window,
+        dropout_rate, dropout_seed)
+    b, sq, nq, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    dk = torch.empty(b, sk, nkv, d, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = _library("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(seg),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], d, b, sq,
+            sk, nq, nkv, strides, float(scale), int(causal), window, seed,
+            thresh, drop_scale, stream)
+    _raise_on(rc, where)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+KERNELS = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

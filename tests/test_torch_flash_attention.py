@@ -90,15 +90,20 @@ def test_empty_rows_give_zero_output_and_neg_inf_lse():
 
 
 def test_cpu_tensors_take_the_plain_version_not_the_kernel():
-    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 2, 1, 64))
-    before = flash_attention_cuda.flash_fwd_cuda.launches
+    """Forward and backward, with segment ids and dropout too: CPU tensors
+    never reach a kernel, so no launch counter moves."""
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _inputs(1, 16, 2, 1, 64))
+    before = flash_attention_cuda.launch_counts()
     out = flash_attention(q, k, v, causal=True)
     assert out.shape == q.shape and out.dtype == q.dtype
-    assert flash_attention_cuda.flash_fwd_cuda.launches == before
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, segment_ids=torch.zeros(1, 16))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, dropout_rate=0.1)
+    seg = torch.zeros(1, 16, dtype=torch.int32)
+    seg[:, 9:] = 1
+    out2 = flash_attention(q, k, v, segment_ids=seg, dropout_rate=0.1,
+                           generator=torch.Generator().manual_seed(0))
+    (out.sum() + out2.sum()).backward()
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    assert flash_attention_cuda.launch_counts() == before
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
