@@ -17,15 +17,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    TRAIN_CASES (segment ids, dropout, an lse cotangent, GQA, MQA, ragged,
    fp32 with a window), each backward run twice and required bit-identical;
    the forward kernel's dropout keep bits, read off its output, must equal
-   the plain hash bit for bit;
+   the plain hash bit for bit; the block-native decode-attention kernel at
+   BLOCK_CASES (the engine's decode shape, 64-token blocks, a 4-query
+   verify window, 64/8 GQA, Falcon-7B's 71/1 heads at hd 64, fp32, int8
+   with scales, idle rows), each on a scattered block map and rerun with
+   NaN in every dead block (the same bits required: dead blocks are never
+   loaded), timed beside scaled_dot_product_attention on the gathered
+   view (gather not counted, its own time beside it);
 4. serving main path: Llama-2-7B at full width (32 layers, random bf16
-   weights from a fixed seed) behind the port's serial MegatronServer on
-   127.0.0.1, answering requests (a)-(e) over HTTP; every kernel's launch
+   weights from a fixed seed) behind the port's serial MegatronServer
+   (ServingConfig(serial_fallback=True)) on 127.0.0.1, answering requests
+   (a)-(e) over HTTP; every kernel's launch
    count is zeroed just before and read just after, and each request must
    launch the flash kernel at least once per layer. A 2-layer slice of the
    same width checks the flash path's logits against the kernel-free dot
    path in fp32. Prefill time, decode tokens/s and peak memory are printed;
-5. training main path: the serving model is freed, then `init_train_state`
+5. engine main path: the same model behind MegatronServer's continuous-
+   batching engine route (ENGINE_SERVING: 8 slots, 2048 positions,
+   16-token blocks, the block kernel), 16 concurrent requests from 16
+   threads, an empty payload and a /metrics read (`phase_engine`). Every
+   request must return 200 with finite logprobs; counts zeroed just before
+   the requests must show the block kernel once per layer per decode step
+   and the flash forward once per layer per prefill. The kernel is held
+   against its plain version on the engine's live state of one decode
+   step. Tokens/s, TTFT p50/p99, inter-token p50, peak memory and the share
+   of greedy requests equal to the serial route are printed. A 2-layer fp32
+   slice checks that the block-native engine, the whole-region engine and
+   the serial route give the same greedy tokens;
+6. training main path: the serving model is freed, then `init_train_state`
    and `make_train_step` train Llama-2-7B at full width with 8 of its 32
    layers (fp32 master weights, Adam and its moments do not fit 32 layers
    in 80 GB), seq 4096, global batch 2 of micro-batch 1, bf16 compute, for
@@ -46,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -56,7 +76,8 @@ import urllib.request
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
 # outside them, HBM3 bandwidth
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
+              "torch.int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 # (label, b, s, nq, nkv, d, dtype name, causal, sliding_window). The first
@@ -110,6 +131,46 @@ TRAIN_LAYERS = 8
 SLICE_TOL = 1e-4
 
 
+# Block-native decode attention (csrc/block_attn.cu): (label, S, w, nq, nkv,
+# hd, B, q dtype, arena dtype, idle rows). Every case reads a scattered
+# (permuted) block map over a region of BLOCK_CAP tokens, the engine phase's
+# max_len, with one slot per length of BLOCK_LENGTHS (mixed 37-1,200); idle
+# rows have length 0 and an all-trash map. The first is the engine's decode
+# shape: 8 slots of Llama-2-7B (32 heads of 128), 16-token blocks, bf16.
+BLOCK_CASES = [
+    ("engine_decode", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16", ()),
+    ("block_64", 8, 1, 32, 32, 128, 64, "bfloat16", "bfloat16", ()),
+    ("verify_w4", 8, 4, 32, 32, 128, 16, "bfloat16", "bfloat16", ()),
+    ("gqa_64q_8kv", 8, 1, 64, 8, 128, 16, "bfloat16", "bfloat16", ()),
+    ("falcon7b_mqa", 8, 1, 71, 1, 64, 16, "bfloat16", "bfloat16", ()),
+    ("fp32", 8, 1, 32, 8, 128, 16, "float32", "float32", ()),
+    ("int8_scales", 8, 1, 32, 32, 128, 16, "bfloat16", "int8", ()),
+    ("scattered_idle", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     (1, 4, 6)),
+]
+BLOCK_LENGTHS = [37, 64, 100, 200, 300, 515, 700, 1200]
+BLOCK_CAP = 2048
+BLOCK_MAIN = "engine_decode"
+# max-abs tolerance by output (q) dtype. The random cases' outputs are
+# softmax averages of randn values over 37-1,200 keys: a typical output is
+# 0.05-0.3, the largest of a case 1-4. The bf16 limit is 4x the largest
+# error seen (9.8e-4), so it still catches a dropped 32-key slice or a
+# mis-masked key of a long slot; fp32 sums in another order only
+BLOCK_TOL = {"bfloat16": 4e-3, "float32": 1e-4}
+# the engine's live state: real activations, outputs up to ~4 (error seen:
+# 3.9e-3, one bf16 rounding at 0.5-1)
+BLOCK_LIVE_TOL = 1e-2
+
+# The engine phase: Llama-2-7B at full width and depth behind the engine
+# route. 16 concurrent requests: each prompt length twice, new tokens from
+# 64 to 256, even requests greedy, odd ones seeded at temperature 0.8,
+# top_p 0.9.
+ENGINE_SERVING = dict(num_slots=8, max_len=2048, kv_block_size=16,
+                      block_native_attn=True, prefill_max_batch=8)
+ENGINE_PROMPTS = [37, 64, 100, 200, 300, 515, 700, 1000]
+ENGINE_REQUESTS = 16
+
+
 class ByteTokenizer:
     """Stand-in tokenizer: one id per UTF-8 byte (3 + byte); eod 0, bos 1."""
     eod = 0
@@ -122,6 +183,13 @@ class ByteTokenizer:
     def detokenize(self, ids) -> str:
         return bytes(i - 3 for i in ids if 3 <= i < 259).decode(
             "utf-8", errors="replace")
+
+
+def prompt_text(n: int, seed: int) -> str:
+    """A deterministic n-character prompt (n tokens for ByteTokenizer)."""
+    alphabet = "abcdefghijklmnopqrstuvwxyz ,."
+    return "".join(alphabet[(seed * 7 + i * 13 + i * i) % len(alphabet)]
+                   for i in range(n))
 
 
 def log(msg: str) -> None:
@@ -230,11 +298,13 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from megatron_tpu_torch.ops import flash_attention_cuda
+    from megatron_tpu_torch.ops import (block_attention_cuda, cuda_build,
+                                        flash_attention_cuda)
     t0 = time.perf_counter()
-    paths = flash_attention_cuda.build()
-    for name in paths:
-        flash_attention_cuda._library(name)
+    paths = cuda_build.build()
+    flash_attention_cuda._library("flash_fwd")
+    flash_attention_cuda._library("flash_bwd")
+    block_attention_cuda._library()
     log(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
@@ -468,6 +538,170 @@ def phase_training_kernels() -> list[dict]:
     return results
 
 
+def block_case_inputs(gen, S, w, nq, nkv, hd, B, qname, kvname, idle):
+    """Random q, arena (with scales for int8), a permuted block map with
+    the last block as trash, and the lengths of BLOCK_LENGTHS, on the
+    card."""
+    import torch
+    nb = BLOCK_CAP // B
+    T = S * nb + 1
+    q = torch.randn(S, w, nq, hd, generator=gen, device="cuda").to(
+        getattr(torch, qname))
+    ks = vs = None
+    if kvname == "int8":
+        ka, va = (torch.randint(-127, 128, (T, B, nkv, hd), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(T, B, nkv, 1, generator=gen, device="cuda")
+                  * 0.02 for _ in range(2))
+    else:
+        ka, va = (torch.randn(T, B, nkv, hd, generator=gen,
+                              device="cuda").to(getattr(torch, kvname))
+                  for _ in range(2))
+    perm = torch.randperm(T - 1, generator=gen, device="cuda")
+    bmap = perm[:S * nb].reshape(S, nb).to(torch.int32)
+    lengths = torch.tensor(BLOCK_LENGTHS[:S], dtype=torch.int32,
+                           device="cuda")
+    for s in idle:
+        bmap[s] = T - 1
+        lengths[s] = 0
+    return q, ka, va, bmap, lengths, ks, vs
+
+
+def block_bound(q, ka, bmap, lengths, ks):
+    """Bytes: each live key's K and V rows (and int8 scales) once, q and
+    out, the live map entries and the lengths; operations: 4 hd per (query
+    row, visible key). Peak by the arena's type."""
+    S, w, nq, hd = q.shape
+    _, B, nkv, _ = ka.shape
+    cap = bmap.shape[1] * B
+    keys = [min(int(n) + w, cap) for n in lengths.tolist()]
+    live = sum(keys)
+    nbytes = 2 * live * nkv * hd * ka.element_size()
+    if ks is not None:
+        nbytes += 2 * live * nkv * 4
+    nbytes += 2 * q.numel() * q.element_size()
+    nbytes += 4 * sum(-(-k // B) for k in keys) + 4 * S
+    visible = sum(min(int(n) + j + 1, cap) for n in lengths.tolist()
+                  for j in range(w))
+    return bound_ms(4 * hd * visible * nq, nbytes, str(ka.dtype))
+
+
+def poison_dead_blocks(ka, va, ks, vs, bmap, lengths, w):
+    """Copies of the arena with NaN in every block no slot's live prefix
+    maps (for int8, NaN scales): a kernel that loads none of them returns
+    the same bits."""
+    import torch
+    B = ka.shape[1]
+    live = torch.zeros(ka.shape[0], dtype=torch.bool, device=ka.device)
+    for s, n in enumerate(lengths.tolist()):
+        last = (min(n + w, bmap.shape[1] * B) - 1) // B
+        live[bmap[s, :last + 1].long()] = True
+    dead = ~live
+    if ks is not None:
+        ks2, vs2 = ks.clone(), vs.clone()
+        ks2[dead] = float("nan")
+        vs2[dead] = float("nan")
+        return ka, va, ks2, vs2
+    ka2, va2 = ka.clone(), va.clone()
+    ka2[dead] = float("nan")
+    va2[dead] = float("nan")
+    return ka2, va2, ks, vs
+
+
+def gathered_sdpa(q, ka, va, bmap, lengths, ks, vs, scale):
+    """(gather, sdpa): the contiguous [S, cap] view of each slot's blocks
+    (dequantized for int8) and scaled_dot_product_attention on it with the
+    per-slot causal mask: the library yardstick, which reads no block map
+    itself, so its time is reported with the gather not counted."""
+    import torch
+    import torch.nn.functional as F
+    S, w, nq, hd = q.shape
+    _, B, nkv, _ = ka.shape
+    cap = bmap.shape[1] * B
+    idx = bmap.long()
+
+    def gather():
+        k = ka[idx].reshape(S, cap, nkv, hd)
+        v = va[idx].reshape(S, cap, nkv, hd)
+        if ks is not None:
+            k = k.to(q.dtype) * ks[idx].reshape(S, cap, nkv, 1).to(q.dtype)
+            v = v.to(q.dtype) * vs[idx].reshape(S, cap, nkv, 1).to(q.dtype)
+        return k.to(q.dtype).transpose(1, 2), v.to(q.dtype).transpose(1, 2)
+
+    kt, vt = gather()
+    qt = q.transpose(1, 2)
+    pos = lengths.long()[:, None] + torch.arange(w, device=q.device)
+    mask = (torch.arange(cap, device=q.device)[None, None, :]
+            <= pos[:, :, None])[:, None]  # [S, 1, w, cap]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+    return gather, sdpa
+
+
+def phase_block_kernels() -> list[dict]:
+    """The block kernel against its plain version at BLOCK_CASES, with
+    times, bounds and the gathered-SDPA yardstick; every case also reruns
+    on an arena whose dead blocks are NaN and must give the same bits."""
+    import torch
+    from megatron_tpu_torch.ops.block_attention import (
+        block_attention_reference)
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    results = []
+    for (label, S, w, nq, nkv, hd, B, qname, kvname, idle) in BLOCK_CASES:
+        q, ka, va, bmap, lengths, ks, vs = block_case_inputs(
+            gen, S, w, nq, nkv, hd, B, qname, kvname, idle)
+        scale = hd ** -0.5
+        kw = dict(scale=scale, k_scale=ks, v_scale=vs)
+
+        def kernel(ka=ka, va=va, kw=kw):
+            return block_attention_cuda(q, ka, va, bmap, lengths,
+                                        block_size=B, **kw)
+
+        def plain():
+            return block_attention_reference(q, ka, va, bmap, lengths, **kw)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = BLOCK_TOL[qname]
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite out")
+        check(err <= tol, f"{label}: block kernel vs plain err {err} "
+              f"(tol {tol})")
+        ka2, va2, ks2, vs2 = poison_dead_blocks(ka, va, ks, vs, bmap,
+                                                lengths, w)
+        again = kernel(ka2, va2, dict(kw, k_scale=ks2, v_scale=vs2))
+        torch.cuda.synchronize()
+        check(torch.equal(out, again),
+              f"{label}: NaN in dead blocks changed the output")
+        del ka2, va2, ks2, vs2, again
+        gather, sdpa = gathered_sdpa(q, ka, va, bmap, lengths, ks, vs,
+                                     scale)
+        bms, bby = block_bound(q, ka, bmap, lengths, ks)
+        r = dict(shape=label, S=S, w=w, nq=nq, nkv=nkv, hd=hd,
+                 block_size=B, q_dtype=qname, kv_dtype=kvname,
+                 lengths=lengths.tolist(), cap=BLOCK_CAP,
+                 max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
+                 tol=tol, dead_blocks_nan_same_bits=True,
+                 ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain, 5, 1),
+                 library_ms=cuda_time_ms(sdpa),
+                 library="scaled_dot_product_attention on the gathered "
+                         "view, gather not counted",
+                 gather_ms=cuda_time_ms(gather), bound_ms=bms, bound_by=bby)
+        log("block kernel check: " + json.dumps(r))
+        results.append(r)
+        del q, ka, va, bmap, lengths, ks, vs, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
 def put(port: int, payload: dict, timeout: float = 600.0):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api", data=json.dumps(payload).encode(),
@@ -506,7 +740,7 @@ def check_reference_slice() -> float:
 
 def phase_main_path(smi: str) -> dict:
     import torch
-    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.config import ServingConfig, llama2_config
     from megatron_tpu_torch.inference.generation import (Generator,
                                                          SamplingParams)
     from megatron_tpu_torch.inference.server import MegatronServer
@@ -531,17 +765,14 @@ def phase_main_path(smi: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     tok = ByteTokenizer()
     gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
-    server = MegatronServer(gen, tok)
+    server = MegatronServer(gen, tok,
+                            serving=ServingConfig(serial_fallback=True))
     httpd = server.make_http_server("127.0.0.1", 0)
     port = httpd.server_address[1]
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
 
-    def text(n: int, seed: int) -> str:
-        alphabet = "abcdefghijklmnopqrstuvwxyz ,."
-        return "".join(alphabet[(seed * 7 + i * 13 + i * i) % len(alphabet)]
-                       for i in range(n))
-
+    text = prompt_text
     n_new = 32
     req_a = {"prompts": [text(512, 1)], "tokens_to_generate": n_new,
              "temperature": 0.0}
@@ -631,6 +862,234 @@ def phase_main_path(smi: str) -> dict:
         httpd.server_close()
         thread.join(timeout=30)
     stats["launches"] = total_launches
+    return stats
+
+
+def check_engine_slice() -> dict:
+    """A 2-layer slice of the 7B width in fp32 (fp32 weights, compute and
+    KV cache, TF32 off): the block-native engine (block kernel), the
+    whole-region engine (dot path) and the serial route must give the same
+    greedy tokens for 4 requests."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig, llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.float32)
+    payload = {"prompts": [prompt_text(n, 40 + i) for i, n in
+                           enumerate((37, 100, 300, 515))],
+               "tokens_to_generate": 32, "temperature": 0.0}
+    outs = {}
+    for name, serving in (("block", ServingConfig(**ENGINE_SERVING)),
+                          ("region", ServingConfig(num_slots=8,
+                                                   max_len=2048))):
+        server = MegatronServer(gen, tok, serving=serving)
+        try:
+            status, body = server.handle(payload)
+            check(status == 200, f"fp32 slice {name}: {status} {body}")
+            outs[name] = body["segments"]
+            if name == "block":
+                status, body = server.handle(dict(payload, serial=True))
+                check(status == 200, f"fp32 slice serial: {status} {body}")
+                outs["serial"] = body["segments"]
+        finally:
+            server.close()
+    del server, gen, model
+    torch.cuda.empty_cache()
+    check(outs["block"] == outs["region"] == outs["serial"],
+          "fp32 slice: block-native engine, whole-region engine and serial "
+          "route disagree on greedy tokens")
+    return dict(requests=4, new_tokens=32, agree=True, allow_tf32=False,
+                prompt_lengths=[37, 100, 300, 515])
+
+
+def phase_engine(smi: str) -> dict:
+    """Llama-2-7B (32 layers, random bf16 weights from a fixed seed) behind
+    MegatronServer's engine route on 127.0.0.1, ServingConfig
+    ENGINE_SERVING: 16 concurrent PUT /api requests from 16 threads, an
+    empty payload and a /metrics read. Launch counts are zeroed just before
+    the requests: every decode step must launch the block kernel once per
+    layer and every prefill the flash forward once per layer. The kernel is
+    then held against its plain version on the live arena, map, lengths
+    and q of a real decode step of the run, and the greedy requests are
+    replayed on the serial route (their agreement in bf16 is reported, not
+    required)."""
+    import gc
+    import torch
+    from megatron_tpu_torch.config import ServingConfig, llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama2_config("7b")
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
+    server = MegatronServer(gen, tok,
+                            serving=ServingConfig(**ENGINE_SERVING))
+    engine = server.engine
+    torch.cuda.synchronize()
+    log(f"engine: Llama-2-7B, {cfg.num_layers} layers bf16, pool "
+        f"{engine.pool.nbytes() / 2 ** 30:.2f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    httpd = server.make_http_server("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    # capture the kernel's inputs at one decode step with >= 6 live slots
+    captured = {}
+
+    def recording(q, k_arena, v_arena, block_map, lengths, **kw):
+        if not captured and int(engine._active.sum()) >= 6:
+            captured.update(q=q.clone(), k=k_arena.clone(),
+                            v=v_arena.clone(), map=block_map.clone(),
+                            lengths=lengths.clone(), kw=kw)
+        return block_attention_cuda(q, k_arena, v_arena, block_map,
+                                    lengths, **kw)
+
+    requests = []
+    for i in range(ENGINE_REQUESTS):
+        n = ENGINE_PROMPTS[i % len(ENGINE_PROMPTS)]
+        payload = {"prompts": [prompt_text(n, 100 + i)],
+                   "tokens_to_generate": 64 + (192 * i) // (
+                       ENGINE_REQUESTS - 1),
+                   "logprobs": True}
+        if i % 2:
+            payload.update(temperature=0.8, top_p=0.9, random_seed=1000 + i)
+        else:
+            payload.update(temperature=0.0)
+        requests.append(payload)
+    try:
+        status, _ = put(port, {"prompts": ["warm up"],
+                               "tokens_to_generate": 4,
+                               "temperature": 0.0})
+        check(status == 200, f"warm-up request: {status}")
+        engine.metrics = ServingMetrics()  # the traffic's numbers only
+        ba.block_attention_cuda = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        block_attention_cuda.launches = 0
+        bodies = [None] * ENGINE_REQUESTS
+
+        def send(i):
+            bodies[i] = put(port, requests[i])
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(ENGINE_REQUESTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        empty = put(port, {})
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=60) as resp:
+            mid_metrics = json.loads(resp.read())
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        # the loop records a window's step after its requests return
+        settled, snap = None, None
+        while True:
+            snap = engine.metrics.snapshot()
+            now = (snap["decode_steps"], block_attention_cuda.launches,
+                   fc.launch_counts()["flash_fwd_cuda"])
+            if now == settled:
+                break
+            settled = now
+            time.sleep(0.3)
+        steps, block_launches, flash_launches = settled
+        ba.block_attention_cuda = block_attention_cuda
+        peak = torch.cuda.max_memory_allocated()
+        check(empty == (400, {"message": "prompts argument required"}),
+              f"empty payload: {empty}")
+        check("requests_received" in mid_metrics, "/metrics answer")
+        generated = 0
+        for i, (status, body) in enumerate(bodies):
+            check(status == 200, f"engine request {i}: {status} {body}")
+            seg, lps = body["segments"][0], body["logprobs"][0]
+            n_prompt = ENGINE_PROMPTS[i % len(ENGINE_PROMPTS)]
+            n_new = requests[i]["tokens_to_generate"]
+            check(n_prompt < len(seg) <= n_prompt + n_new
+                  and (len(seg) == n_prompt + n_new or seg[-1] == tok.eod),
+                  f"engine request {i}: output length {len(seg)}")
+            check(all(math.isfinite(x) for x in lps),
+                  f"engine request {i}: non-finite logprob")
+            generated += len(seg) - n_prompt
+        L = cfg.num_layers
+        check(steps > 0 and block_launches == L * steps,
+              f"block kernel launched {block_launches} times in "
+              f"{steps} decode steps of {L} layers")
+        check(snap["prefill_calls"] > 0
+              and flash_launches == L * snap["prefill_calls"],
+              f"flash forward launched {flash_launches} times in "
+              f"{snap['prefill_calls']} prefills of {L} layers")
+        check(bool(captured), "no decode step ran with >= 6 live slots")
+
+        # the kernel on the run's own state
+        c = captured
+        got = block_attention_cuda(c["q"], c["k"], c["v"], c["map"],
+                                   c["lengths"], **c["kw"])
+        ref = ba.block_attention_reference(
+            c["q"], c["k"], c["v"], c["map"], c["lengths"],
+            scale=c["kw"]["scale"])
+        live_err = (got.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(got).all())
+              and live_err <= BLOCK_LIVE_TOL,
+              f"block kernel on the engine's live state: err {live_err}")
+        live = dict(max_abs_err=live_err, lengths=c["lengths"].tolist(),
+                    max_abs_ref=ref.float().abs().max().item(),
+                    tol=BLOCK_LIVE_TOL)
+        captured.clear()
+        del c, got, ref
+
+        same = 0
+        greedy = [i for i in range(ENGINE_REQUESTS) if i % 2 == 0]
+        for i in greedy:
+            status, body = put(port, dict(requests[i], serial=True))
+            check(status == 200, f"serial replay {i}: {status}")
+            same += body["segments"] == bodies[i][1]["segments"]
+        stats = dict(
+            requests=ENGINE_REQUESTS, generated_tokens=generated,
+            wall_s=wall, tokens_per_s=generated / wall,
+            ttft_p50_ms=snap["ttft_p50_ms"], ttft_p99_ms=snap["ttft_p99_ms"],
+            itl_p50_ms=snap["itl_p50_ms"], itl_p99_ms=snap["itl_p99_ms"],
+            decode_steps=steps, prefill_calls=snap["prefill_calls"],
+            prompts_per_prefill=snap["prompts_per_prefill"],
+            slot_occupancy=snap["slot_occupancy"],
+            peak_memory_gib=peak / 2 ** 30,
+            launches=dict(block_attn=block_launches,
+                          flash_fwd=flash_launches),
+            launches_per_decode_step=block_launches / steps,
+            launches_per_prefill=flash_launches / snap["prefill_calls"],
+            live_state_check=live,
+            greedy_equal_to_serial=f"{same}/{len(greedy)}", card=smi)
+        log("engine serving: " + json.dumps(stats))
+    finally:
+        ba.block_attention_cuda = block_attention_cuda
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        server.close()
+    del server, engine, gen, model, httpd, thread
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["slice"] = check_engine_slice()
+    log("engine slice (fp32, 2 layers): " + json.dumps(stats["slice"]))
     return stats
 
 
@@ -815,7 +1274,9 @@ def main() -> int:
         bits = check_dropout_bits()
         log(f"dropout: the forward kernel's keep bits equal the plain hash "
             f"on {bits} (query, key) pairs, fp32 and bf16")
+        block_cases = phase_block_kernels()
         main_stats = phase_main_path(smi)
+        engine_stats = phase_engine(smi)
         train_stats = phase_training(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
@@ -838,12 +1299,15 @@ def main() -> int:
             **extra)
 
     pallas = "megatron_tpu/ops/flash_attention_pallas.py"
+    engine_flash = engine_stats["launches"]["flash_fwd"]
     kernels = [
         entry("flash_fwd", "megatron_tpu_torch/csrc/flash_fwd.cu",
               f"{pallas}:98",
-              main_stats["launches"] + train_counts["flash_fwd_cuda"], "fwd",
+              main_stats["launches"] + engine_flash
+              + train_counts["flash_fwd_cuda"], "fwd",
               dict(launches_by_path=dict(
                   serving=main_stats["launches"],
+                  engine_prefill=engine_flash,
                   training=train_counts["flash_fwd_cuda"]),
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
                    serving_shape=dict(shape=MAIN_SHAPE, **{
@@ -858,6 +1322,20 @@ def main() -> int:
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"], "dkv",
               {}),
     ]
+    block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
+    kernels.append(dict(
+        name="block_attn", route="cuda",
+        source="megatron_tpu_torch/csrc/block_attn.cu",
+        replaces="megatron_tpu/ops/block_attention_pallas.py:82",
+        launches=engine_stats["launches"]["block_attn"],
+        launches_per_decode_step=engine_stats["launches_per_decode_step"],
+        max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
+        kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
+        bound_ms=block_main["bound_ms"], bound_by=block_main["bound_by"],
+        library_ms=block_main["library_ms"], library=block_main["library"],
+        gather_ms=block_main["gather_ms"], shape=BLOCK_MAIN,
+        live_state_check=engine_stats["live_state_check"],
+        cases=block_cases))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,11 @@ presets, with dtypes mapped to torch. The JAX package stays the reference;
 the port keeps its own copy so that it never imports it.
 
 `OptimizerConfig` is copied in full, `TrainingConfig` with the fields the
-training step reads. `MegatronConfig.from_dict` reads the `model`,
-`optimizer` and `training` sections of a checkpoint's `config.json`; the
-other sections (parallel layout, data, serving, resilience) belong to later
-slices of the port and are ignored here. With one device and no data
+training step reads, `ServingConfig` (the serving engine's) with every field
+and the checks on those the engine runs. `MegatronConfig.from_dict` reads
+the `model`, `optimizer` and `training` sections of a checkpoint's
+`config.json`; the other sections (parallel layout, data, serving,
+resilience) are ignored here. With one device and no data
 parallelism, `num_microbatches` is global_batch_size / micro_batch_size.
 """
 from __future__ import annotations
@@ -173,6 +174,180 @@ class TrainingConfig:
     train_iters: int = 100
     seed: int = 1234
     log_params_norm: bool = False
+
+
+SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                     "int8": torch.int8}
+
+# ServingConfig fields the continuous-batching engine does not run yet,
+# each with the later slice that brings it (ROADMAP Queue 1 items 5-7)
+_LATER_SERVING = {
+    "enable_prefix_cache": "the prefix cache (Queue 1 item 6)",
+    "prefill_chunk": "chunked prefill (Queue 1 item 6)",
+    "retained_slots": "the prefix cache (Queue 1 item 6)",
+    "speculative_k": "speculative decoding (Queue 1 item 6)",
+    "degrade_ladder": "the degrade ladder (Queue 1 item 6)",
+    "degrade_raise_at": "the degrade ladder (Queue 1 item 6)",
+    "degrade_hysteresis": "the degrade ladder (Queue 1 item 6)",
+    "degrade_dwell_up": "the degrade ladder (Queue 1 item 6)",
+    "degrade_dwell_down": "the degrade ladder (Queue 1 item 6)",
+    "degrade_max_new_tokens": "the degrade ladder (Queue 1 item 6)",
+    "slo_ttft_ms": "the degrade ladder (Queue 1 item 6)",
+    "slo_itl_p99_ms": "the degrade ladder (Queue 1 item 6)",
+    "preemption": "preemption (Queue 1 item 6)",
+    "engine_step_timeout_s": "the watchdog (Queue 1 item 5)",
+    "num_replicas": "the router (Queue 1 item 6)",
+    "router_max_retries": "the router (Queue 1 item 6)",
+    "router_heartbeat_timeout_s": "the router (Queue 1 item 6)",
+    "host_kv_bytes": "the host KV tier (Queue 1 item 6)",
+    "stream_ttl_s": "SSE streaming (Queue 1 item 6)",
+    "serving_tp": "the serving topology (Queue 1 item 7)",
+    "disaggregate_prefill": "the serving topology (Queue 1 item 7)",
+    "prefill_tp": "the serving topology (Queue 1 item 7)",
+    "decode_tp": "the serving topology (Queue 1 item 7)",
+    "serving_pp": "the serving topology (Queue 1 item 7)",
+    "pp_waves": "the serving topology (Queue 1 item 7)",
+    "placement_auto": "the serving topology (Queue 1 item 7)",
+    "placement_budget": "the serving topology (Queue 1 item 7)",
+    "adapter_slots": "LoRA adapters (Queue 1 item 6)",
+    "adapter_rank": "LoRA adapters (Queue 1 item 6)",
+    "adapter_host_bytes": "LoRA adapters (Queue 1 item 6)",
+    "adapter_max_bank_bytes": "LoRA adapters (Queue 1 item 6)",
+    "swap_timeout_s": "live weights (Queue 1 item 6)",
+    "watch_checkpoints": "live weights (Queue 1 item 6)",
+    "watch_interval_s": "live weights (Queue 1 item 6)",
+    "replica_mode": "remote replicas (Queue 1 item 6)",
+    "fleet": "remote replicas (Queue 1 item 6)",
+    "remote_connect_timeout_s": "remote replicas (Queue 1 item 6)",
+    "remote_read_timeout_s": "remote replicas (Queue 1 item 6)",
+    "remote_max_retries": "remote replicas (Queue 1 item 6)",
+    "remote_digest_interval_s": "remote replicas (Queue 1 item 6)",
+}
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Continuous-batching engine config (megatron_tpu/config.py
+    ServingConfig): every field keeps the reference's name and default.
+
+    The engine runs `num_slots`, `max_queue`, `max_len`, `kv_dtype`
+    (bfloat16 or float32; int8 pools come later), `prefill_bucket`,
+    `serial_fallback`, `request_deadline_s`, `decode_sync_interval`,
+    `prefill_max_batch`, `kv_block_size` (with `block_native_attn`: the
+    block arena read through the map by the Hopper kernel),
+    `priority_levels`, `shed_on_overload` (early shedding of a request whose
+    estimated queue delay already exceeds its deadline) and
+    `max_engine_restarts` (the loop does not restart
+    yet; a crashed step fails the slotted requests and marks the engine
+    unhealthy). `validate()` raises NotImplementedError for any other
+    field set away from its default, naming the later slice."""
+
+    num_slots: int = 8
+    max_queue: int = 64
+    max_len: Optional[int] = None
+    kv_dtype: Optional[str] = None
+    prefill_bucket: int = 16
+    serial_fallback: bool = False
+    request_deadline_s: Optional[float] = None
+    decode_sync_interval: int = 1
+    prefill_max_batch: int = 8
+    enable_prefix_cache: bool = False
+    prefill_chunk: Optional[int] = None
+    retained_slots: Optional[int] = None
+    kv_block_size: Optional[int] = None
+    block_native_attn: bool = False
+    speculative_k: int = 0
+    priority_levels: int = 1
+    shed_on_overload: bool = False
+    degrade_ladder: int = 0
+    degrade_raise_at: Optional[tuple] = None
+    degrade_hysteresis: float = 0.5
+    degrade_dwell_up: int = 2
+    degrade_dwell_down: int = 4
+    degrade_max_new_tokens: int = 64
+    slo_ttft_ms: Optional[float] = None
+    slo_itl_p99_ms: Optional[float] = None
+    preemption: bool = False
+    max_engine_restarts: int = 2
+    engine_step_timeout_s: Optional[float] = None
+    num_replicas: int = 1
+    router_max_retries: int = 2
+    router_heartbeat_timeout_s: float = 5.0
+    host_kv_bytes: int = 0
+    stream_ttl_s: float = 600.0
+    serving_tp: int = 1
+    disaggregate_prefill: bool = False
+    prefill_tp: Optional[int] = None
+    decode_tp: Optional[int] = None
+    serving_pp: int = 1
+    pp_waves: int = 1
+    placement_auto: bool = False
+    placement_budget: Optional[int] = None
+    adapter_slots: int = 0
+    adapter_rank: int = 8
+    adapter_host_bytes: int = 0
+    adapter_max_bank_bytes: Optional[int] = None
+    swap_timeout_s: float = 120.0
+    watch_checkpoints: Optional[str] = None
+    watch_interval_s: float = 5.0
+    replica_mode: bool = False
+    fleet: Optional[str] = None
+    remote_connect_timeout_s: float = 2.0
+    remote_read_timeout_s: float = 30.0
+    remote_max_retries: int = 2
+    remote_digest_interval_s: float = 2.0
+
+    def validate(self, model: Optional[ModelConfig] = None
+                 ) -> "ServingConfig":
+        """The reference's checks on the fields the engine runs, and a
+        NotImplementedError for each field of a later slice that is set."""
+        defaults = ServingConfig()
+        for name, slice_name in _LATER_SERVING.items():
+            if getattr(self, name) != getattr(defaults, name):
+                raise NotImplementedError(
+                    f"ServingConfig.{name}={getattr(self, name)!r}: "
+                    f"{slice_name} is ported in a later slice")
+        if self.kv_dtype == "int8":
+            raise NotImplementedError(
+                "ServingConfig.kv_dtype='int8': int8 KV pools are ported "
+                "in a later slice (Queue 1 item 5)")
+        if self.kv_dtype is not None and self.kv_dtype not in \
+                SERVING_KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of "
+                             f"{sorted(SERVING_KV_DTYPES)}, got "
+                             f"{self.kv_dtype!r}")
+        for name in ("num_slots", "max_queue", "prefill_bucket",
+                     "decode_sync_interval", "prefill_max_batch",
+                     "priority_levels"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"ServingConfig.{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        if self.max_engine_restarts < 0:
+            raise ValueError("max_engine_restarts must be >= 0")
+        if self.request_deadline_s is not None and \
+                self.request_deadline_s <= 0.0:
+            raise ValueError("request_deadline_s must be > 0")
+        if self.kv_block_size is not None:
+            if self.kv_block_size < 1:
+                raise ValueError("kv_block_size must be >= 1")
+            if model is not None:
+                cap = self.max_len or model.max_position_embeddings
+                if cap % self.kv_block_size and self.kv_block_size < cap:
+                    raise ValueError(
+                        f"kv_block_size={self.kv_block_size} must divide "
+                        f"the slot capacity ({cap})")
+            if not self.block_native_attn:
+                raise NotImplementedError(
+                    "kv_block_size without block_native_attn (the "
+                    "resolve_view/scatter_view bracket) is ported in a "
+                    "later slice (Queue 1 item 5); set "
+                    "block_native_attn=True")
+        if self.block_native_attn and model is not None \
+                and model.sliding_window is not None:
+            raise ValueError(
+                "block_native_attn is unsupported on sliding-window "
+                "models: the block kernel has no window-band mask")
+        return self
 
 
 @dataclass(frozen=True)

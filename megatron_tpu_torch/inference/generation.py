@@ -51,9 +51,13 @@ def kv_region_cap(cfg: ModelConfig, max_len: int,
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16, prefill_len: Optional[int] = None,
-                   *, device=None) -> KVCache:
-    """Stacked-over-layers cache [L, b, max_len, nkv, hd] with one offset
-    shared by every row and layer."""
+                   per_slot_offsets: bool = False, *,
+                   device=None) -> KVCache:
+    """Stacked-over-layers cache [L, b, max_len, nkv, hd]. The offset is
+    one host int shared by every row and layer, or with
+    `per_slot_offsets` an int32 [b] tensor on the cache's device, shared by
+    the layers: the serving engine's slot grid, where every row is a
+    request at its own position."""
     if kv_region_cap(cfg, max_len, prefill_len) < max_len:
         raise NotImplementedError(
             "rolling sliding-window KV caches are ported in a later slice")
@@ -61,8 +65,10 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
         raise NotImplementedError("int8 KV caches are ported in a later slice")
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.kv_channels)
+    offset = (torch.zeros(batch, dtype=torch.int32, device=device)
+              if per_slot_offsets else 0)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+                   torch.zeros(shape, dtype=dtype, device=device), offset)
 
 
 def _decode_fn(params, tokens, lengths, generator, *, cfg: ModelConfig,

@@ -1,16 +1,24 @@
-"""REST text-generation server, serial and beam routes
-(megatron_tpu/inference/server.py).
+"""REST text-generation server (megatron_tpu/inference/server.py).
 
 The `/api` PUT contract is the reference's: {"prompts": [...],
 "tokens_to_generate": N, "temperature", "top_k", "top_p", "logprobs",
-"random_seed", "add_BOS", "beam_width", "length_penalty"} -> {"text",
-"segments", "logprobs"} or, for beam search, {"text", "score"}. Requests
-run one at a time under a lock: the reference's serial route
-(`ServingConfig(serial_fallback=True)`). Status codes and messages are the
-reference server's in that mode; a payload that needs the continuous-
-batching engine (`stream`, `n`/`best_of`, `response_format`, `adapter_id`,
-`prompt_tokens`, `cancel`) gets the same 400 it gives there. The engine
-itself is ported in a later slice.
+"random_seed", "add_BOS", "beam_width", "length_penalty", "priority",
+"deadline_s", "serial"} -> {"text", "segments", "logprobs"} or, for beam
+search, {"text", "score"}.
+
+By default the server builds one continuous-batching `ServingEngine`
+(serving/engine.py) and every prompt of a payload becomes an engine request
+interleaved with all other traffic; prompt i of a seeded payload uses seed
++ i. Statuses follow the reference: 429 with Retry-After on a full queue
+or a draining engine, 504 on a deadline, 503 when the engine is unhealthy,
+400 on admission errors. A payload with `"serial": true`, and beam search,
+take the serial route: one request at a time under a lock
+(`Generator.generate`, `beam_search`). With
+`ServingConfig(serial_fallback=True)` there is no engine and every payload
+takes the serial route, with the reference's statuses and messages in that
+mode. On the engine route, `stream`, `n`/`best_of`, `response_format`,
+`adapter_id`, `prompt_tokens` and `cancel` get a 400 saying which later
+slice brings them.
 
 The transport is the standard library's threading HTTP server.
 """
@@ -21,19 +29,36 @@ import json
 import math
 import secrets
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
+from megatron_tpu_torch.config import ServingConfig
 from megatron_tpu_torch.inference.api import (beam_search_and_post_process,
                                               generate_and_post_process)
 from megatron_tpu_torch.inference.generation import Generator
+from megatron_tpu_torch.serving.engine import ServingEngine
+from megatron_tpu_torch.serving.request import (DeadlineExceededError,
+                                                SamplingOptions,
+                                                ServiceUnavailableError)
+from megatron_tpu_torch.serving.scheduler import (AdmissionError,
+                                                  EngineUnhealthyError,
+                                                  OverloadShedError,
+                                                  QueueFullError)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MAX_PROMPTS = 128
 
-
-class AdmissionError(ValueError):
-    """A request that can never be served (empty or oversize prompt): 400."""
+# what the engine route refuses, and the slice that brings it
+_LATER_ON_ENGINE = (
+    ("prompt_tokens", "prompt_tokens (the replica-mode wire format) comes "
+                      "with remote replicas in a later slice"),
+    ("cancel", "cancel comes with SSE streaming in a later slice"),
+    ("stream", "streaming comes with SSE in a later slice"),
+    ("adapter_id", "adapter_id comes with LoRA adapters in a later slice"),
+    ("response_format", "response_format comes with structured output in "
+                        "a later slice"),
+)
 
 
 def validate_response_format(rf) -> Optional[str]:
@@ -146,21 +171,32 @@ def validate_generate_payload(payload) -> Optional[str]:
 
 
 class MegatronServer:
-    """Serial text-generation server over one Generator.
+    """Text-generation server over one Generator: the continuous-batching
+    engine route, unless `serving.serial_fallback`, plus the serial route.
 
     `device` must name the generator's device; None means the current CUDA
     device and raises without one."""
 
     def __init__(self, generator: Generator, tokenizer, *,
-                 device: DeviceLike = None):
+                 serving: Optional[ServingConfig] = None,
+                 device: DeviceLike = None, request_timeout: float = 600.0):
         device = resolve_device(device)
         if generator.device != device:
             raise ValueError(f"generator runs on {generator.device}, the "
                              f"server on {device}")
         self.generator = generator
         self.tokenizer = tokenizer
-        self._lock = threading.Lock()  # one request at a time
+        self.serving = (serving if serving is not None
+                        else ServingConfig()).validate(generator.cfg)
+        self._lock = threading.Lock()  # the serial route: one at a time
         self._request_counter = itertools.count()
+        self._timeout = request_timeout
+        self.engine = (None if self.serving.serial_fallback else
+                       ServingEngine(generator, self.serving, device=device))
+
+    def close(self):
+        if self.engine is not None:
+            self.engine.close()
 
     def _seed_for(self, payload) -> int:
         """An explicit random_seed stays deterministic; unseeded requests
@@ -172,6 +208,46 @@ class MegatronServer:
 
     def handle(self, payload) -> Tuple[int, dict]:
         """Returns (http_status, JSON-able body)."""
+        if self.engine is None:
+            return self._handle_serial_mode(payload)
+        try:
+            if isinstance(payload, dict):
+                for field, msg in _LATER_ON_ENGINE:
+                    if payload.get(field) not in (None, False):
+                        return 400, {"message": msg}
+                if any(isinstance(payload.get(f), int)
+                       and payload[f] > 1 for f in ("n", "best_of")):
+                    return 400, {"message": "n/best_of parallel sampling "
+                                            "comes with fan-out in a later "
+                                            "slice"}
+            err = validate_generate_payload(payload)
+            if err is not None:
+                return 400, {"message": err}
+            if payload.get("beam_width"):
+                return 200, self._handle_beam(payload)
+            if payload.get("serial"):
+                return 200, self._handle_serial(payload)
+            return 200, self._handle_engine(payload)
+        except EngineUnhealthyError as e:
+            return 503, self._backoff_body(str(e), retry_after=30)
+        except QueueFullError as e:
+            # a full queue, early shedding (a subclass) or a draining
+            # engine: retryable, with the backoff hint
+            return 429, self._backoff_body(
+                str(e), retry_after=e.retry_after,
+                queue_depth=e.queue_depth)
+        except DeadlineExceededError as e:
+            return 504, {"message": str(e)}
+        except ServiceUnavailableError as e:
+            return 503, self._backoff_body(str(e), retry_after=5)
+        except AdmissionError as e:
+            return 400, {"message": str(e)}
+        except Exception as e:  # noqa: BLE001 — a server fault is a 500
+            return 500, {"message": str(e)}
+
+    def _handle_serial_mode(self, payload) -> Tuple[int, dict]:
+        """Every payload on the serial route (`serial_fallback`), with the
+        reference's statuses and messages in that mode."""
         try:
             if isinstance(payload, dict) \
                     and payload.get("prompt_tokens") is not None:
@@ -207,16 +283,45 @@ class MegatronServer:
         except Exception as e:  # noqa: BLE001 — a server fault is a 500
             return 500, {"message": str(e)}
 
+    def _backoff_body(self, message: str,
+                      retry_after: Optional[int] = None,
+                      queue_depth: Optional[int] = None) -> dict:
+        """429/503 body: the message, the backoff hint in whole seconds
+        (>= 1, also sent as the Retry-After header) and the queue depth."""
+        if queue_depth is None:
+            queue_depth = (self.engine.queue_depth()
+                           if self.engine is not None else 0)
+        hint = (1 if retry_after is None
+                else max(1, int(math.ceil(float(retry_after)))))
+        return {"message": message, "retry_after": hint,
+                "queue_depth": int(queue_depth)}
+
+    @staticmethod
+    def response_headers(body: dict) -> dict:
+        """A `retry_after` hint in the body becomes the Retry-After header."""
+        if isinstance(body, dict) and body.get("retry_after"):
+            return {"Retry-After": str(int(body["retry_after"]))}
+        return {}
+
     def handle_admin(self, payload) -> Tuple[int, dict]:
-        return 400, {"message": "admin ops require the serving "
-                                "engine (serial_fallback has no "
-                                "control plane)"}
+        return 400, {"message": "admin ops (weight swap, adapter "
+                                "registration) come with live weights in a "
+                                "later slice" if self.engine is not None
+                     else "admin ops require the serving engine "
+                          "(serial_fallback has no control plane)"}
 
     def healthz(self) -> Tuple[int, dict]:
-        return 200, {"healthy": True, "serving": "serial"}
+        """200 while the engine accepts work, else 503, with the engine's
+        health snapshot; the serial mode has no loop to probe."""
+        if self.engine is None:
+            return 200, {"healthy": True, "serving": "serial"}
+        h = self.engine.health()
+        return (200 if h["accepting"] else 503), h
 
     def metrics_snapshot(self) -> dict:
-        return {"serving": "serial"}
+        if self.engine is None:
+            return {"serving": "serial"}
+        return self.engine.metrics.snapshot()
 
     def _preflight_lengths(self, payload: dict, max_total: int, what: str):
         """Tokenize and check lengths before generating, so empty or
@@ -274,6 +379,71 @@ class MegatronServer:
             out["logprobs"] = logprobs
         return out
 
+    def _handle_engine(self, payload: dict) -> dict:
+        """The continuous-batching route: each prompt is an independent
+        engine request (prompt i with seed + i). Every prompt is tokenized
+        and checked before any is submitted. A payload with more prompts
+        than the queue holds drains its own finished rows to make room; a
+        429 fires only when other traffic fills the queue before this
+        payload served a row."""
+        n = int(payload.get("tokens_to_generate", 64))
+        sampling = SamplingOptions(
+            temperature=float(payload.get("temperature", 1.0)),
+            top_k=int(payload.get("top_k", 0)),
+            top_p=float(payload.get("top_p", 0.0)))
+        seed = self._seed_for(payload)
+        priority = int(payload.get("priority", 0) or 0)
+        deadline_s = payload.get("deadline_s")
+        deadline_s = None if deadline_s is None else float(deadline_s)
+        prompt_ids = self._preflight_lengths(payload, self.engine.max_len,
+                                             "max_len")
+        give_up = time.monotonic() + self._timeout
+        reqs: dict = {}
+        results: dict = {}
+        pending: list = []
+        try:
+            for i, ids in enumerate(prompt_ids):
+                while True:
+                    try:
+                        reqs[i] = self.engine.submit(
+                            ids, n, sampling, seed=seed + i,
+                            priority=priority, deadline_s=deadline_s)
+                        pending.append(i)
+                        break
+                    except OverloadShedError:
+                        raise
+                    except QueueFullError:
+                        if pending:  # make room by draining our oldest row
+                            j = pending.pop(0)
+                            results[j] = reqs[j].result(self._timeout)
+                        elif results:
+                            if time.monotonic() > give_up:
+                                raise RuntimeError(
+                                    "timed out waiting for queue space "
+                                    f"after serving {len(results)} of "
+                                    f"{len(prompt_ids)} prompts")
+                            time.sleep(0.05)
+                        else:
+                            raise  # backpressure: nothing served yet
+            for j in pending:
+                results[j] = reqs[j].result(self._timeout)
+        except Exception:
+            # the payload failed: stop decoding its rows nobody will read
+            for r in reqs.values():
+                self.engine.cancel(r)
+            raise
+        texts, tokens, logprobs = [], [], []
+        for i in range(len(prompt_ids)):
+            toks, gen_lps = results[i]
+            texts.append(self.tokenizer.detokenize(toks))
+            tokens.append(toks)
+            # one value per output token; prompt positions are zero
+            logprobs.append([0.0] * len(reqs[i].prompt) + gen_lps)
+        out = {"text": texts, "segments": tokens}
+        if payload.get("logprobs"):
+            out["logprobs"] = logprobs
+        return out
+
     def make_http_server(self, host: str, port: int) -> ThreadingHTTPServer:
         """The HTTP front end, bound but not yet serving: PUT /api and
         /admin, GET /healthz and /metrics. The caller runs
@@ -286,6 +456,8 @@ class MegatronServer:
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in server.response_headers(body).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 

@@ -5,31 +5,38 @@ Parameters keep the reference's layout: wq [h, nq*hd], a fused wkv
 [h, 2*nkv*hd] whose output splits as [.., 2, nkv, hd] (k at index 0, v at
 index 1), and wo [nq*hd, h].
 
-The KV cache holds its offset as a host int shared by every row and layer
-(the serial serving path's layout), so the reference's `lax.cond` on
-"offset == 0" is a plain branch here: an offset-0 multi-token prefill takes
-the flash kernel over the fresh k/v, and decode steps and offset > 0 chunks
-take the dot path over the cache's live region. Cache writes are in place.
+The serial serving path's KV cache holds its offset as a host int shared by
+every row and layer, so the reference's `lax.cond` on "offset == 0" is a
+plain branch here: an offset-0 multi-token prefill takes the flash kernel
+over the fresh k/v, and decode steps and offset > 0 chunks take the dot path
+over the cache's live region. The serving engine's slot grid gives the
+cache a per-row int32 [b] offset tensor instead: row i writes its k/v at its
+own offset and its causal mask starts there (the dot path over the whole
+region). A `BlockKVCache` (the engine's block arena and per-slot block map)
+takes the block-native path: the step's k/v land in the touched arena
+blocks only and attention reads each slot's block chain through the map
+(ops/block_attention.py, the Hopper kernel on the card). Cache writes are
+in place.
 
 The uncached (training) forward passes segment ids, and attention dropout
 with its generator, to the flash path (ops/flash_attention.py, kernels on
 the card); the dot path takes the segment mask too.
 
-Left for later slices, and raising: per-row (slot-grid) offsets, the
-block-native cache, rolling sliding-window caches, int8 caches, LoRA
-adapters, cross-attention, attention dropout on the dot path, and the
-ring / ulysses implementations.
+Left for later slices, and raising: rolling sliding-window caches, int8
+caches, LoRA adapters, cross-attention, attention dropout on the dot path,
+and the ring / ulysses implementations.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.rope import apply_rotary
+from megatron_tpu_torch.ops.block_attention import block_native_attention
 from megatron_tpu_torch.ops.flash_attention import flash_attention
 from megatron_tpu_torch.ops.quantized import qdense, wcast
 
@@ -37,10 +44,57 @@ from megatron_tpu_torch.ops.quantized import qdense, wcast
 @dataclass
 class KVCache:
     """KV cache: k/v [batch, max_seq, n_kv, head_dim] for one layer, or with
-    a leading layers dim for the whole stack; `offset` tokens are filled."""
+    a leading layers dim for the whole stack; `offset` tokens are filled:
+    a host int shared by the rows, or an int32 [batch] tensor of per-row
+    offsets (the serving engine's slot grid)."""
     k: torch.Tensor
     v: torch.Tensor
-    offset: int = 0
+    offset: Union[int, torch.Tensor] = 0
+
+
+@dataclass
+class BlockKVCache:
+    """Block-native serving cache (attention.py BlockKVCache): the flat
+    block arena and the per-slot block map, read in place by the block
+    attention kernel; no contiguous [S, cap, ...] view exists.
+
+      k/v:    [total_blocks, B, nkv, hd] for one layer, or with a leading
+              layers dim for the whole stack
+      offset: [num_slots] int32 per-slot live lengths
+      map:    [num_slots, cap/B] int32, logical -> physical block (one map
+              serves every layer)
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    offset: torch.Tensor
+    map: torch.Tensor
+
+
+def _block_native_update_attend(q, k, v, cache: BlockKVCache, *,
+                                scale: float):
+    """Block-native KV append and attention for one layer.
+
+    Append: row i's s tokens land at positions offset[i]..offset[i]+s-1, in
+    physical block map[i, pos // B] at row pos % B. Positions at or past the
+    region's capacity (idle rows parked at the length clamp) are dropped
+    from the index, never clamped onto a real block. Idle rows, whose map
+    points every entry at the shared trash block, write their garbage
+    there. Read: the kernel walks each slot's block chain from its own
+    offset over the post-append arena (write-before-read)."""
+    S, s = q.shape[:2]
+    _, B = cache.k.shape[:2]
+    nb = cache.map.shape[1]
+    offset = cache.offset
+    pos = offset[:, None].long() + torch.arange(s, device=q.device)[None]
+    live = pos < nb * B
+    rows = torch.arange(S, device=q.device)[:, None].expand(S, s)[live]
+    pos = pos[live]
+    phys = cache.map[rows, pos // B].long()
+    cache.k[phys, pos % B] = k[live].to(cache.k.dtype)
+    cache.v[phys, pos % B] = v[live].to(cache.v.dtype)
+    out = block_native_attention(q, cache.k, cache.v, cache.map, offset,
+                                 scale=scale, block_size=B)
+    return out, BlockKVCache(cache.k, cache.v, offset + s, cache.map)
 
 
 def attention_init(cfg: ModelConfig) -> dict:
@@ -61,14 +115,15 @@ def attention_init(cfg: ModelConfig) -> dict:
 
 
 def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
-                   scale: float, q_offset: int = 0,
+                   scale: float, q_offset=0,
                    sliding_window: Optional[int] = None, segment_ids=None):
     """Unfused attention: QK^T -> mask -> softmax -> AV.
 
     q: [b, s, nq, hd]; k, v: [b, t, nkv, hd]. GQA reshapes q into
     [b, s, nkv, g, hd]. `q_offset` shifts the causal mask for queries that
-    continue a cache. `segment_ids` [b, s] (s == t) masks attention
-    block-diagonally across documents."""
+    continue a cache: a host int, or an int [b] tensor of per-row offsets
+    (the serving engine's slot grid). `segment_ids` [b, s] (s == t) masks
+    attention block-diagonally across documents."""
     b, s, nq, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -77,12 +132,17 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
     if softmax_fp32:
         scores = scores.float()
     if causal:
-        q_pos = torch.arange(s, device=q.device) + q_offset
+        q_pos = torch.arange(s, device=q.device)
+        if isinstance(q_offset, torch.Tensor):
+            q_pos = q_offset.long()[:, None] + q_pos[None]  # [b, s]
+        else:
+            q_pos = (q_pos + q_offset)[None]  # [1, s]
         kv_pos = torch.arange(t, device=q.device)
-        win = q_pos[:, None] >= kv_pos[None, :]
+        win = q_pos[:, :, None] >= kv_pos
         if sliding_window is not None:
-            win = win & (q_pos[:, None] - kv_pos[None, :] < sliding_window)
-        scores = scores.masked_fill(~win, torch.finfo(scores.dtype).min)
+            win = win & (q_pos[:, :, None] - kv_pos < sliding_window)
+        scores = scores.masked_fill(~win[:, None, None],
+                                    torch.finfo(scores.dtype).min)
     if segment_ids is not None:
         same = segment_ids[:, :, None] == segment_ids[:, None, :]  # [b, s, t]
         scores = scores.masked_fill(~same[:, None, None],
@@ -119,11 +179,14 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     k, v = kv[:, :, 0], kv[:, :, 1]
 
     offset = 0
+    per_slot = False
     if kv_cache is not None:
         offset = kv_cache.offset
+        per_slot = isinstance(offset, torch.Tensor)
         if position_ids is None:
-            position_ids = (offset + torch.arange(s, device=x.device)
-                            ).expand(b, s)
+            steps = torch.arange(s, device=x.device)
+            position_ids = (offset.long()[:, None] + steps[None] if per_slot
+                            else (offset + steps).expand(b, s))
     if cfg.use_rotary_emb:
         if rope_cos is None or rope_sin is None:
             raise ValueError("cfg.use_rotary_emb=True requires rope_cos/"
@@ -142,7 +205,28 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError(
             "attention dropout on the dot path is ported with the dropout "
             "module in a later slice; the flash path carries it")
-    if kv_cache is not None:
+    if isinstance(kv_cache, BlockKVCache):
+        if window is not None:
+            raise ValueError("block-native attention has no sliding-window "
+                             "mask (ServingConfig.validate refuses it)")
+        out, new_cache = _block_native_update_attend(q, k, v, kv_cache,
+                                                     scale=scale)
+    elif per_slot:
+        # slot grid: row i writes its tokens at offset[i].. (positions past
+        # the region are dropped) and attends the whole region causally
+        # from its own offset
+        cap = kv_cache.k.shape[1]
+        pos = offset.long()[:, None] + torch.arange(s, device=x.device)
+        live = pos < cap
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
+        kv_cache.k[rows[live], pos[live]] = k[live].to(kv_cache.k.dtype)
+        kv_cache.v[rows[live], pos[live]] = v[live].to(kv_cache.v.dtype)
+        new_cache = KVCache(kv_cache.k, kv_cache.v, offset + s)
+        out = _dot_attention(
+            q, kv_cache.k.to(dtype), kv_cache.v.to(dtype), causal=True,
+            softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
+            q_offset=offset, sliding_window=window)
+    elif kv_cache is not None:
         end = offset + s
         if end > kv_cache.k.shape[1]:
             raise ValueError(f"KV cache overflow: {end} positions into a "

@@ -11,14 +11,14 @@ training step differentiates.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
 from megatron_tpu_torch.config import ModelConfig, as_dtype
 from megatron_tpu_torch.models import transformer as tfm
-from megatron_tpu_torch.models.attention import KVCache
+from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
 from megatron_tpu_torch.models.rope import precompute_freqs
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
@@ -130,14 +130,21 @@ def _tree(params):
 
 
 def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                  position_ids=None, kv_caches: Optional[KVCache] = None,
+                  position_ids=None,
+                  kv_caches: Union[KVCache, BlockKVCache, None] = None,
                   rope: Optional[RopeTables] = None,
                   logits_dtype=torch.float32, segment_ids=None,
                   deterministic: bool = True,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  head_positions: Optional[torch.Tensor] = None):
     """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches).
-    `params` is a LanguageModel or its tree. With `kv_caches`, positions
-    continue from the cache offset and the caches are written in place.
+    With `head_positions` [b], only row i's position head_positions[i]
+    reaches the LM head and the logits are [b, 1, padded_vocab] (a
+    prefill needs only each prompt's last position).
+    `params` is a LanguageModel or its tree. With `kv_caches` (a KVCache,
+    whose offset may be per row, or the serving engine's BlockKVCache),
+    positions continue from the cache offset and the caches are written in
+    place.
     `segment_ids` [b, s] mask attention across documents; with
     `deterministic` False, `generator` seeds attention dropout."""
     params = _tree(params)
@@ -148,7 +155,9 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         if position_ids is None:
             pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
             if kv_caches is not None:
-                pos = pos + kv_caches.offset
+                off = kv_caches.offset
+                pos = pos + (off.long()[:, None]
+                             if isinstance(off, torch.Tensor) else off)
         else:
             pos = position_ids
         x = x + params["embedding"]["position_embeddings"][pos].to(
@@ -162,6 +171,9 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         position_ids=position_ids, kv_caches=kv_caches,
         segment_ids=segment_ids, deterministic=deterministic,
         generator=generator)
+    if head_positions is not None:
+        x = x[torch.arange(x.shape[0], device=x.device),
+              head_positions.long()][:, None]
     return head_logits(params, x, cfg, logits_dtype=logits_dtype), kv_caches
 
 

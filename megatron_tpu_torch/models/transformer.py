@@ -11,12 +11,14 @@ depth, activation recompute and MoE belong to later slices and raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
-from megatron_tpu_torch.models.attention import (KVCache, attention_apply,
+from megatron_tpu_torch.models.attention import (BlockKVCache, KVCache,
+                                                 attention_apply,
                                                  attention_init)
 from megatron_tpu_torch.models.mlp import mlp_apply, mlp_init
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
@@ -110,20 +112,24 @@ def unstack_layers(stacked) -> list:
 
 def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
-                kv_caches: Optional[KVCache] = None, segment_ids=None,
-                deterministic: bool = True,
+                kv_caches: Union[KVCache, BlockKVCache, None] = None,
+                segment_ids=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-    """Apply every layer in order. `kv_caches` holds [L, b, T, nkv, hd]
-    tensors and one offset for all layers. Returns (x, kv_caches advanced
-    by the step's length, or None)."""
+    """Apply every layer in order. `kv_caches` is a KVCache of
+    [L, b, T, nkv, hd] tensors or a BlockKVCache of [L, total_blocks, B,
+    nkv, hd] arenas; either way one offset (host int or per-row tensor)
+    and, for the arena, one block map serve all layers. Each layer gets
+    its slice of the stacked tensors. Returns (x, kv_caches advanced by the
+    step's length, or None)."""
     for i, layer in enumerate(unstack_layers(stacked_params)):
         cache = (None if kv_caches is None else
-                 KVCache(kv_caches.k[i], kv_caches.v[i], kv_caches.offset))
+                 dataclasses.replace(kv_caches, k=kv_caches.k[i],
+                                     v=kv_caches.v[i]))
         x, _ = layer_apply(layer, x, cfg, rope_cos=rope_cos,
                            rope_sin=rope_sin, position_ids=position_ids,
                            kv_cache=cache, segment_ids=segment_ids,
                            deterministic=deterministic, generator=generator)
     if kv_caches is None:
         return x, None
-    return x, KVCache(kv_caches.k, kv_caches.v,
-                      kv_caches.offset + x.shape[1])
+    return x, dataclasses.replace(kv_caches,
+                                  offset=kv_caches.offset + x.shape[1])

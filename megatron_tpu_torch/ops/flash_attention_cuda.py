@@ -1,4 +1,4 @@
-"""Build and binding of the Hopper flash-attention kernels.
+"""Binding of the Hopper flash-attention kernels.
 
 The kernels replace the Pallas TPU kernels of
 megatron_tpu/ops/flash_attention_pallas.py: csrc/flash_fwd.cu the forward
@@ -6,102 +6,30 @@ megatron_tpu/ops/flash_attention_pallas.py: csrc/flash_fwd.cu the forward
 `_bwd_dkv_kernel`. Each source's note says what bounds it on the card and
 what its design does about that.
 
-`build()` compiles every source with nvcc for sm_90a, one nvcc process per
-source, all started together, into shared libraries under `build/` at the
-repository root, each named by the hash of its source, the shared header
-and the flags, so a changed source is rebuilt and an unchanged one reused.
-The wrappers load their library through ctypes at first use, check their
-inputs, launch on PyTorch's current stream and raise on any launch error;
-none falls back to another implementation. Each wrapper counts its launches
-in its `launches` attribute.
+The kernels are built by ops/cuda_build.py (nvcc for sm_90a, every
+source in parallel, into `build/`). The wrappers load their library through
+ctypes at first use, check their inputs, launch on PyTorch's current stream
+and raise on any launch error; none falls back to another implementation.
+Each wrapper counts its launches in its `launches` attribute.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
-HEADERS = (CSRC / "flash_common.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from megatron_tpu_torch.ops import cuda_build
+from megatron_tpu_torch.ops.cuda_build import raise_on as _raise_on
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the flash kernels are built on a "
-                       "machine with the CUDA toolkit")
-
-
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    for header in HEADERS:
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
-
-
-def build() -> dict:
-    """Compile every kernel source whose library does not exist yet, all in
-    parallel. The compiler's output (ptxas register, shared-memory and
-    spill lines) is kept beside each library as `<name>.log`. Returns
-    {source name: library path}."""
-    paths = {name: library_path(name) for name in SOURCES}
-    todo = {name: path for name, path in paths.items() if not path.exists()}
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = {}
-    try:
-        for name, out in todo.items():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-                 str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs[name] = (proc, tmp, out)
-        failures = []
-        for name, (proc, tmp, out) in jobs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"nvcc {name} failed ({proc.returncode}):\n"
-                                f"{log}")
-                continue
-            out.with_suffix(".log").write_text(log)
-            os.replace(tmp, out)
-        if failures:
-            raise RuntimeError("\n".join(failures))
-    finally:
-        for proc, tmp, _ in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return paths
-
-
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[name]))
+    lib = cuda_build.library(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     u, f = ctypes.c_uint32, ctypes.c_float
     if name == "flash_fwd":
@@ -181,11 +109,6 @@ def _window(sliding_window) -> int:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _raise_on(rc: int, where: str):
-    if rc != 0:
-        raise RuntimeError(f"{where}: launch failed with CUDA error {rc}")
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

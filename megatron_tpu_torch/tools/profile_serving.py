@@ -1,24 +1,34 @@
-"""Where the time goes on the serial serving path, on one GPU.
+"""Where the time goes on the serving paths, on one GPU.
 
-Builds Llama-2-7B at full width (random bf16 weights from a fixed seed),
-then runs under torch.profiler (CPU + CUDA activities):
+Builds Llama-2-7B at full width and depth (random bf16 weights from a fixed
+seed), then runs under torch.profiler (CPU + CUDA activities). The default
+mode profiles the serial path:
 
 - prefill: one 512-token prompt through the cached forward (the flash
   kernel path);
 - decode: 16 single-token steps through the same cache (the dot path).
 
-For each phase it prints one JSON line, times per forward: the host wall of
+`--engine` profiles the continuous-batching engine instead: one decode step
+of an 8-slot ServingEngine on the block arena (ServingConfig(num_slots=8,
+max_len=2048, kv_block_size=16, block_native_attn=True)), every slot live
+at prompt lengths 37-1,000, the step being the engine's own `_step` (the
+grid's sampling, the forward with the block kernel once per layer, and the
+window's one host sync), driven from this thread with the engine loop not
+started.
+
+For each phase it prints one JSON line, times per call: the host wall of
 five unprofiled repeats (all taken before any profiler session) and of the
 profiled run, the device busy time (the sum of kernel times; kernels run on
 one stream, so they do not overlap), the idle share against the fastest
 unprofiled repeat, the kernel count, and the device time by kernel class
-(GEMM, the port's flash kernel, the rest) with the five largest kernels by
-name. Run from the root of a checkout:
+(GEMM, the port's flash and block kernels, the rest) with the five largest
+kernels by name. Run from the root of a checkout:
 
-    python -m megatron_tpu_torch.tools.profile_serving
+    python -m megatron_tpu_torch.tools.profile_serving [--engine]
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -35,12 +45,15 @@ PROMPT_LEN = 512
 DECODE_STEPS = 16
 REPEATS = 5
 CALLS = {"prefill": 1, "decode": DECODE_STEPS}  # forwards a call
+ENGINE_PROMPTS = [37, 64, 100, 200, 300, 515, 700, 1000]
 
 
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "flash_fwd"
+    if "block_attn" in low:
+        return "block_attn"
     if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "cublas")):
         return "gemm"
@@ -67,11 +80,77 @@ def device_breakdown(prof, calls: int) -> dict:
                      for n, (t, _) in top])
 
 
-def main() -> None:
-    card = subprocess.run(
+def card_name() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def report(phase: str, card: str, calls: int, walls: list,
+           profiled_ms: float, prof) -> None:
+    rec = dict(phase=phase, card=card, calls=calls,
+               profiled_wall_ms_per_call=profiled_ms,
+               unprofiled_wall_ms_per_call=walls,
+               **device_breakdown(prof, calls))
+    busy = rec["device_ms_per_call"]
+    # idle share against the fastest unprofiled repeat: the least idle
+    # the host allowed
+    rec["device_idle_share"] = (1.0 - busy / min(walls) if busy > 0
+                                else None)
+    print(json.dumps(rec), flush=True)
+
+
+def engine_step() -> None:
+    """One 8-slot decode step of the engine on the block arena."""
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.serving import SamplingOptions, ServingEngine
+    card = card_name()
+    cfg = llama2_config("7b")
+    model = lm.LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
+    gen = Generator(model, cfg, eos_id=-1, pad_id=0)
+    engine = ServingEngine(gen, ServingConfig(
+        num_slots=8, max_len=2048, kv_block_size=16, block_native_attn=True),
+        start=False)
+    rs = torch.Generator().manual_seed(0)
+    for i, n in enumerate(ENGINE_PROMPTS):
+        prompt = torch.randint(3, cfg.vocab_size, (n,), generator=rs)
+        sampling = SamplingOptions(temperature=0.0 if i % 2 else 0.8,
+                                   top_p=0.9)
+        engine.submit(prompt.tolist(), 2048 - n, sampling, seed=i)
+
+    def step(profiled=False):
+        torch.cuda.synchronize()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        with ctx as prof:
+            t0 = time.perf_counter()
+            engine._step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return ms, prof
+
+    with torch.inference_mode():
+        engine._admit()
+        assert engine._active.all(), "every slot must be live"
+        for _ in range(3):  # warm-up
+            step()
+        walls = [step()[0] for _ in range(REPEATS)]
+        profiled_ms, prof = step(profiled=True)
+    report("engine_decode_step", card, 1, walls, profiled_ms, prof)
+    engine.close()
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--engine", action="store_true",
+                        help="profile one 8-slot decode step of the engine")
+    if parser.parse_args().engine:
+        engine_step()
+        return
+    card = card_name()
     cfg = llama2_config("7b")
     model = lm.LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
     dev = model.device
@@ -118,16 +197,7 @@ def main() -> None:
                  for phase in CALLS}
         for phase, calls in CALLS.items():
             profiled_ms, prof = run(phase, profiled=True)
-            rec = dict(phase=phase, card=card, calls=calls,
-                       profiled_wall_ms_per_call=profiled_ms,
-                       unprofiled_wall_ms_per_call=walls[phase],
-                       **device_breakdown(prof, calls))
-            busy = rec["device_ms_per_call"]
-            # idle share against the fastest unprofiled repeat: the least
-            # idle the host allowed
-            rec["device_idle_share"] = (1.0 - busy / min(walls[phase])
-                                        if busy > 0 else None)
-            print(json.dumps(rec), flush=True)
+            report(phase, card, calls, walls[phase], profiled_ms, prof)
 
 
 if __name__ == "__main__":

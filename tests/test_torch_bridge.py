@@ -4,7 +4,8 @@
 - a checkpoint the JAX package saved with backend="npz" loads without JAX
   and gives the same logits;
 - no module of the port (nor chip_smoke.py) imports jax or megatron_tpu;
-- the entry points refuse to fall back to the CPU when no device is named.
+- the entry points refuse to fall back to the CPU when no device is named,
+  and the block-attention kernel's wrapper refuses a CPU tensor.
 """
 import ast
 import pathlib
@@ -23,9 +24,13 @@ from megatron_tpu_torch import config as tconfig
 from megatron_tpu_torch.convert.from_jax import (load_npz_checkpoint,
                                                  params_from_numpy)
 from megatron_tpu_torch.inference.generation import Generator
+from megatron_tpu_torch.config import ServingConfig
 from megatron_tpu_torch.inference.server import MegatronServer
 from megatron_tpu_torch.models.language_model import (LanguageModel,
                                                       model_forward)
+from megatron_tpu_torch.ops.block_attention import block_native_attention
+from megatron_tpu_torch.ops.block_attention_cuda import block_attention_cuda
+from megatron_tpu_torch.serving import ServingEngine
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -98,7 +103,13 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "megatron_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ("serving/engine.py", "serving/kv_pool.py",
+                   "serving/request.py", "serving/scheduler.py",
+                   "serving/metrics.py", "serving/__init__.py",
+                   "ops/block_attention.py", "ops/block_attention_cuda.py",
+                   "ops/cuda_build.py"):
+        assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -117,4 +128,25 @@ def test_entry_points_raise_without_gpu_and_device(monkeypatch):
     gen = Generator(model, tcfg, eos_id=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MegatronServer(gen, tokenizer=None)
-    MegatronServer(gen, tokenizer=None, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(gen, ServingConfig(num_slots=1, max_len=64))
+    MegatronServer(gen, tokenizer=None, device="cpu").close()
+    ServingEngine(gen, ServingConfig(num_slots=1, max_len=64),
+                  device="cpu").close()
+
+
+def test_block_attention_launches_the_kernel_or_raises():
+    """A CUDA tensor never reaches the plain version: without a card the
+    kernel's wrapper refuses it rather than fall back."""
+    q = torch.zeros(1, 1, 4, 64)
+    arena = torch.zeros(3, 16, 4, 64)
+    bmap = torch.zeros(1, 2, dtype=torch.int32)
+    lengths = torch.zeros(1, dtype=torch.int32)
+    out = block_native_attention(q, arena, arena, bmap, lengths, scale=0.1,
+                                 block_size=16)
+    assert out.shape == q.shape
+    before = block_attention_cuda.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        block_attention_cuda(q, arena, arena, bmap, lengths, scale=0.1,
+                             block_size=16)
+    assert block_attention_cuda.launches == before

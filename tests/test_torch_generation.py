@@ -80,7 +80,9 @@ def test_top_k_filter_matches_jax(k):
     logits = np.random.RandomState(k).standard_normal((3, 64)).astype(
         np.float32)
     want = np.asarray(jsampling.top_k_filter(jnp.asarray(logits), k))
-    got = tsampling.top_k_filter(torch.from_numpy(logits), k).numpy()
+    # the port keeps only the per-row filter; k on every row is the scalar
+    got = tsampling._top_k_filter_rows(torch.from_numpy(logits),
+                                       torch.full((3,), k)).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -89,7 +91,8 @@ def test_top_p_filter_matches_jax(p):
     logits = 3 * np.random.RandomState(7).standard_normal((3, 64)).astype(
         np.float32)
     want = np.asarray(jsampling.top_p_filter(jnp.asarray(logits), p))
-    got = tsampling.top_p_filter(torch.from_numpy(logits), p).numpy()
+    got = tsampling._top_p_filter_rows(torch.from_numpy(logits),
+                                       torch.full((3,), p)).numpy()
     np.testing.assert_array_equal(got, want)
 
 

@@ -1,6 +1,7 @@
-"""The port's serial server against the JAX package's server in serial mode
-(ServingConfig(serial_fallback=True)): the same statuses and messages for
-the same payloads, and the same greedy text, over the same weights."""
+"""The port's server in serial mode against the JAX package's
+(ServingConfig(serial_fallback=True) on both): the same statuses and
+messages for the same payloads, and the same greedy text, over the same
+weights. The engine route is tests/test_torch_engine_server.py's."""
 import json
 import threading
 import urllib.request
@@ -50,7 +51,8 @@ def servers():
                       serving=ServingConfig(serial_fallback=True))
     tserver = MegatronServer(
         Generator(model, tcfg, eos_id=0, pad_id=0, device="cpu"),
-        FakeTokenizer(), device="cpu")
+        FakeTokenizer(), serving=tconfig.ServingConfig(serial_fallback=True),
+        device="cpu")
     yield jserver, tserver
     jserver.close()
 
