@@ -12,7 +12,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    with the stated tolerances, and times kernel, plain version and the
    PyTorch library call for the same function where there is one
    (scaled_dot_product_attention and its backward, yardsticks the port
-   never calls): the forward at the serving shapes of KERNEL_CASES, and
+   never calls): the forward at the serving shapes of KERNEL_CASES (and
+   tools/bench_kernels.py's three flash shapes, up to s 32768), and
    forward plus the dQ and dK/dV backward kernels at the training shapes of
    TRAIN_CASES (segment ids, dropout, an lse cotangent, GQA, MQA, ragged,
    fp32 with a window), each backward run twice and required bit-identical;
@@ -23,7 +24,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    with scales, idle rows), each on a scattered block map and rerun with
    NaN in every dead block (the same bits required: dead blocks are never
    loaded), timed beside scaled_dot_product_attention on the gathered
-   view (gather not counted, its own time beside it);
+   view (gather not counted, its own time beside it); the four fused-norm
+   kernels (csrc/fused_norms.cu) forward and backward at NORM_CASES, each
+   backward run twice and required bit-identical, timed beside torch's
+   rms_norm / layer_norm and their autograd backward on input copies that
+   span 4x the L2 (NORM_ROTATION_BYTES);
+3b. bench_kernels path: the ported tools/bench_kernels.py at its full
+   shapes (5 iterations): no arm may fail, and the launch counts of the four
+   norm kernels and the flash forward, zeroed just before, must advance;
 4. serving main path: Llama-2-7B at full width (32 layers, random bf16
    weights from a fixed seed) behind the port's serial MegatronServer
    (ServingConfig(serial_fallback=True)) on 127.0.0.1, answering requests
@@ -44,7 +52,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    of greedy requests equal to the serial route are printed. A 2-layer fp32
    slice checks that the block-native engine, the whole-region engine and
    the serial route give the same greedy tokens;
-6. training main path: the serving model is freed, then `init_train_state`
+6. int8 serving: Llama-2-7B at full width and depth with int8-resident
+   weights (`quantize_weights` of the random bf16 weights) behind the
+   engine route with an int8 block pool (INT8_SERVING), 12 concurrent
+   requests (`phase_int8`). Every request must return 200 with finite
+   logprobs; the block kernel must run once per layer per decode step, on
+   the int8 arena with its scales, and the flash forward 0 times (an int8
+   cache prefills on the dot path). Tokens/s, TTFT p50/p99, inter-token
+   p50, peak memory and the weight and pool bytes are printed. Then the
+   ported tools/bench_decode.py at Llama-2-7B's width (batch 8, prompt
+   512, 16 new tokens), all four arms; and a 2-layer fp32 slice where the
+   int8-KV engine gives the same greedy tokens as the int8-KV serial route,
+   the W8 + int8-KV engine's logprobs agree with its tokens fed through the
+   serial route (every generated token, W8_LOGPROB_TOL) while two faults
+   planted in its k scales must not, and the block kernel is held against
+   its plain version on that engine's live int8 arena. The int8 GEMM
+   (`torch._int_mm`, padded as ops/quantized.py pads it) is first checked
+   exact at the decode and prefill shapes;
+7. training main path: the serving model is freed, then `init_train_state`
    and `make_train_step` train Llama-2-7B at full width with 8 of its 32
    layers (fp32 master weights, Adam and its moments do not fit 32 layers
    in 80 GB), seq 4096, global batch 2 of micro-batch 1, bf16 compute, for
@@ -57,7 +82,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    off, checks the flash path's loss and grads (kernels) against the dot
    path (no kernel).
 
-Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
+that a main path's run counted, zeroed just before it and read just after,
+the norm kernels' on every path above) and, last, {"ok": true, "device":
+...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 """
@@ -83,7 +111,9 @@ PEAK_BYTES = 3.35e12
 # (label, b, s, nq, nkv, d, dtype name, causal, sliding_window). The first
 # three are the prefills the main path runs: request (a) at b 1, s 512;
 # request (b) at b 3, s 32 (its shortest prompt, 37, rounded down to the
-# prefill bucket); request (d)'s beam search at b 4, s 24.
+# prefill bucket); request (d)'s beam search at b 4, s 24. The bench_ cases
+# are tools/bench_kernels.py's flash shapes (FLASH_SHAPES), which the
+# bench_kernels path launches.
 KERNEL_CASES = [
     ("llama2_7b_prefill", 1, 512, 32, 32, 128, "bfloat16", True, None),
     ("request_b_prefill", 3, 32, 32, 32, 128, "bfloat16", True, None),
@@ -92,6 +122,9 @@ KERNEL_CASES = [
     ("gqa_64q_8kv", 1, 512, 64, 8, 128, "bfloat16", True, None),
     ("falcon7b_mqa", 1, 512, 71, 1, 64, "bfloat16", True, None),
     ("fp32_window128", 1, 512, 32, 8, 128, "float32", True, 128),
+    ("bench_2x2048x16", 2, 2048, 16, 16, 128, "bfloat16", True, None),
+    ("bench_1x8192x8", 1, 8192, 8, 8, 128, "bfloat16", True, None),
+    ("bench_1x32768x4", 1, 32768, 4, 4, 128, "bfloat16", True, None),
 ]
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}  # (out, lse)
 MAIN_SHAPE = "llama2_7b_prefill"
@@ -171,6 +204,73 @@ ENGINE_PROMPTS = [37, 64, 100, 200, 300, 515, 700, 1000]
 ENGINE_REQUESTS = 16
 
 
+# Fused norms (csrc/fused_norms.cu): (label, shape, x dtype, scale/bias
+# dtype, norms). The first three are tools/bench_kernels.py's shapes (the
+# first is the kernels line's headline); then Llama-2-7B's and Falcon-7B's
+# training rows, fp32, a row count no block's row group divides with fp32
+# scales on bf16 rows, h 64, and h 100 (rows of 200 bytes: scalar loads).
+NORM_CASES = [
+    ("bench_4x2048x2048", (4, 2048, 2048), "bfloat16", "bfloat16",
+     ("rms", "ln")),
+    ("bench_2x4096x4096", (2, 4096, 4096), "bfloat16", "bfloat16",
+     ("rms", "ln")),
+    ("bench_8x1024x8192", (8, 1024, 8192), "bfloat16", "bfloat16",
+     ("rms", "ln")),
+    ("llama2_7b_train", (1, 4096, 4096), "bfloat16", "bfloat16", ("rms",)),
+    ("falcon7b_train", (1, 2048, 4544), "bfloat16", "bfloat16", ("ln",)),
+    ("fp32_1000x4096", (1000, 4096), "float32", "float32", ("rms", "ln")),
+    ("ragged_1001x1536_fp32_scale", (1001, 1536), "bfloat16", "float32",
+     ("rms", "ln")),
+    ("h64_4099_rows", (4099, 64), "bfloat16", "bfloat16", ("rms", "ln")),
+    ("h100_scalar_loads", (333, 100), "bfloat16", "bfloat16", ("rms", "ln")),
+]
+NORM_MAIN = "bench_4x2048x2048"
+NORM_EPS = 1e-5
+# max-abs tolerance as a share of the plain version's largest |value|: bf16
+# one step (2^-7; both round the same fp32 result once, so only an fp32
+# sum-order difference at a rounding boundary moves an element), fp32 1e-5
+# (the same fp32 formulas, summed in another order). In bf16 at most
+# NORM_MISMATCH of the elements may differ at all (another cast order would
+# move a large share).
+NORM_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+NORM_MISMATCH = 1e-3
+# ~30 ms of spinning at the H100's clock: longer than the host takes to
+# enqueue 20 calls of any norm variant (see cuda_time_ms)
+QUEUE_SLEEP_CYCLES = 50_000_000
+# The timed norm calls take their inputs in turn from copies of x and dy
+# that hold at least this many bytes in all, 4x the H100's 50 MB L2, and
+# keep each output until its copy comes round again: no call reads an
+# input or writes an output that a recent call left in L2 (`rotating`)
+NORM_ROTATION_BYTES = 4 * 50 * 2 ** 20
+# operations per element, for the bound (fp32, outside the tensor cores)
+NORM_FLOPS = {("rms", "fwd"): 4, ("ln", "fwd"): 8, ("rms", "bwd"): 11,
+              ("ln", "bwd"): 16}
+
+# The int8 serving phase: Llama-2-7B with int8-resident weights behind the
+# engine route with an int8 block pool; 12 concurrent requests.
+INT8_SERVING = dict(ENGINE_SERVING, kv_dtype="int8")
+INT8_REQUESTS = 12
+# the engine's live int8 state: bf16 queries against dequantized keys, as
+# BLOCK_LIVE_TOL
+INT8_LIVE_TOL = 1e-2
+# the W8 slice: the logprob of every token of the W8 engine's greedy
+# streams, against the same tokens fed through the serial route
+# (`teacher_forced_logprobs`), agree within this. A W8 activation that
+# rounds the other way (its fp32 input differs by an ulp between the block
+# kernel and the dot path) moves later logprobs by a few hundredths: up to
+# 0.071 up to the first different token in an earlier run on the card.
+# W8_FAULTS, each planted in the engine's cache reads, must exceed it
+W8_LOGPROB_TOL = 0.25
+# faults planted in the k scales the W8 engine's block kernel reads: the
+# scales left at 1.0, and each block's scales taken from the block before
+W8_FAULTS = ("k_scale_one", "k_scale_wrong_block")
+# bench_decode at Llama-2-7B's width, all four arms
+BENCH_DECODE_ARGS = ["--layers", "32", "--hidden", "4096", "--heads", "32",
+                     "--ffn", "11008", "--vocab", "32000", "--batch", "8",
+                     "--prompt", "512", "--new", "16", "--int8_weights",
+                     "--int8_kv"]
+
+
 class ByteTokenizer:
     """Stand-in tokenizer: one id per UTF-8 byte (3 + byte); eod 0, bos 1."""
     eod = 0
@@ -201,12 +301,20 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
+                 queued: bool = False) -> float:
+    """ms per call of fn between CUDA events. With `queued`, the card first
+    spins for QUEUE_SLEEP_CYCLES, so the host enqueues every call before the
+    first one starts: the events then time the device's work alone, not the
+    host's launch rate (for kernels of tens of microseconds, which a Python
+    wrapper launches no faster than the card runs them)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -299,12 +407,15 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from megatron_tpu_torch.ops import (block_attention_cuda, cuda_build,
-                                        flash_attention_cuda)
+                                        flash_attention_cuda,
+                                        fused_norms_cuda)
     t0 = time.perf_counter()
     paths = cuda_build.build()
+    check(len(paths) == 4, f"expected 4 kernel sources, built {list(paths)}")
     flash_attention_cuda._library("flash_fwd")
     flash_attention_cuda._library("flash_bwd")
     block_attention_cuda._library()
+    fused_norms_cuda._library()
     log(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
@@ -702,6 +813,207 @@ def phase_block_kernels() -> list[dict]:
     return results
 
 
+def norm_calls(kind, x2, dy2, scale, bias):
+    """(kernel fwd, plain fwd, library fwd, kernel bwd, plain bwd, library
+    bwd) of one norm on rows x2 [rows, h]. The backward calls return (dx,
+    dscale[, dbias]) with the partials summed and cast as the autograd
+    Function does; the library calls are torch's rms_norm / layer_norm and
+    their autograd backward, with the parameters in x's dtype."""
+    import torch
+    import torch.nn.functional as F
+    from megatron_tpu_torch.ops import fused_norms as fn
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    h = x2.shape[1]
+    ln = kind == "ln"
+    params = (scale, bias) if ln else (scale,)
+    k_fwd = getattr(fnc, f"{kind}_fwd_cuda")
+    k_bwd = getattr(fnc, f"{kind}_bwd_cuda")
+    p_fwd = getattr(fn, f"{kind}_fwd_reference")
+    p_bwd = getattr(fn, f"{kind}_bwd_reference")
+
+    def summed(parts):
+        dx, *partials = parts
+        return (dx, *(t.sum(0).to(scale.dtype) for t in partials))
+
+    leaves = [t.detach().to(x2.dtype).requires_grad_(True)
+              for t in (x2, *params)]
+    if ln:
+        lib_out = F.layer_norm(leaves[0], (h,), leaves[1], leaves[2],
+                               NORM_EPS)
+    else:
+        lib_out = F.rms_norm(leaves[0], (h,), leaves[1], NORM_EPS)
+
+    def lib_fwd():
+        with torch.no_grad():
+            if ln:
+                return F.layer_norm(x2, (h,), leaves[1], leaves[2], NORM_EPS)
+            return F.rms_norm(x2, (h,), leaves[1], NORM_EPS)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, leaves, dy2, retain_graph=True)
+
+    return (lambda: k_fwd(x2, *params, NORM_EPS),
+            lambda: p_fwd(x2, *params, NORM_EPS), lib_fwd,
+            lambda: summed(k_bwd(x2, scale, dy2, NORM_EPS)),
+            lambda: summed(p_bwd(x2, scale, dy2, NORM_EPS)), lib_bwd,
+            lambda: k_bwd(x2, scale, dy2, NORM_EPS))
+
+
+def rotating(fns, turn, keep):
+    """One callable that calls fns[i] for the next i of the counter `turn`
+    (shared by every rotating call of a case, so each call takes the next
+    copy of the inputs, whatever arm it times) and keeps the result in
+    keep[i] until i comes round again."""
+    def call():
+        i = next(turn) % len(fns)
+        keep[i] = fns[i]()
+    return call
+
+
+def norm_compare(got, want, dtype_name, what, per_row=True):
+    """Max-abs error of got against want within NORM_TOL of want's largest
+    |value| and, for a bf16 per-row result (y, dx), at most NORM_MISMATCH
+    of the elements differing; dscale and dbias are sums over every row in
+    another order, so any of their elements may move by one step. Returns
+    the record."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    ref_max = w.abs().max().item()
+    tol = NORM_TOL[dtype_name] * ref_max
+    share = (g != w).float().mean().item()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(err <= tol, f"{what}: err {err} (tol {tol}, max |ref| {ref_max})")
+    if dtype_name == "bfloat16" and per_row:
+        check(share <= NORM_MISMATCH, f"{what}: {share:.5f} of the elements "
+              f"differ (limit {NORM_MISMATCH})")
+    return dict(max_abs_err=err, max_abs_ref=ref_max, tol=tol,
+                differing_share=share)
+
+
+def phase_norm_kernels() -> list[dict]:
+    """The four fused-norm kernels against their plain versions at
+    NORM_CASES, forward and backward (dx, dscale, dbias), with times, bounds
+    and torch's rms_norm / layer_norm (and their autograd backward) as the
+    library yardstick. Every timed call rotates through NORM_ROTATION_BYTES
+    of input copies, so the times are of HBM, not of L2."""
+    import itertools
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    results = []
+    for label, shape, xname, pname, kinds in NORM_CASES:
+        xd, pd = getattr(torch, xname), getattr(torch, pname)
+        h = shape[-1]
+        x = (torch.randn(*shape, generator=gen, device="cuda") * 2
+             + 0.5).to(xd)
+        dy = torch.randn(*shape, generator=gen, device="cuda").to(xd)
+        scale = (1 + 0.2 * torch.randn(h, generator=gen,
+                                       device="cuda")).to(pd)
+        bias = (0.3 * torch.randn(h, generator=gen, device="cuda")).to(pd)
+        x2, dy2 = x.reshape(-1, h), dy.reshape(-1, h)
+        rows = x2.shape[0]
+        item, pitem = x.element_size(), scale.element_size()
+        n_copies = max(2, -(-NORM_ROTATION_BYTES // (x2.nbytes + dy2.nbytes)))
+        copies = [(x2, dy2)] + [(x2.clone(), dy2.clone())
+                                for _ in range(n_copies - 1)]
+        for kind in kinds:
+            per_copy = [norm_calls(kind, xc, dyc, scale, bias)
+                        for xc, dyc in copies]
+            (k_fwd, p_fwd, l_fwd, k_bwd, p_bwd, l_bwd,
+             k_bwd_raw) = per_copy[0]
+            turn, keep = itertools.count(), [None] * n_copies
+            timed = [rotating([c[j] for c in per_copy], turn, keep)
+                     for j in range(7)]
+            n_params = 2 if kind == "ln" else 1
+            got = k_fwd()
+            torch.cuda.synchronize()
+            fwd = norm_compare(got, p_fwd(), xname, f"{label} {kind} fwd")
+            got_b = k_bwd()
+            torch.cuda.synchronize()
+            again = k_bwd()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got_b, again)),
+                  f"{label} {kind}: two backward runs differ")
+            want_b = p_bwd()
+            bwd = {name: norm_compare(g, w, xname if name == "dx" else pname,
+                                      f"{label} {kind} {name}",
+                                      per_row=name == "dx")
+                   for name, g, w in zip(("dx", "dscale", "dbias"), got_b,
+                                         want_b)}
+            del got, got_b, again, want_b
+            fwd_bytes = 2 * rows * h * item + n_params * h * pitem
+            bwd_bytes = 3 * rows * h * item + (1 + n_params) * h * pitem
+            fb = bound_ms(NORM_FLOPS[(kind, "fwd")] * rows * h, fwd_bytes,
+                          "torch.float32")
+            bb = bound_ms(NORM_FLOPS[(kind, "bwd")] * rows * h, bwd_bytes,
+                          "torch.float32")
+            (t_k_fwd, t_p_fwd, t_l_fwd, t_k_bwd, t_p_bwd, t_l_bwd,
+             t_k_bwd_raw) = timed
+            r = dict(
+                shape=label, norm=kind, rows=rows, h=h, x_dtype=xname,
+                param_dtype=pname, input_copies=n_copies,
+                fwd=dict(**fwd, ms=cuda_time_ms(t_k_fwd, queued=True),
+                         plain_ms=cuda_time_ms(t_p_fwd, 5, 1, queued=True),
+                         library_ms=cuda_time_ms(t_l_fwd, queued=True),
+                         bound_ms=fb[0],
+                         bound_by=fb[1], bytes=fwd_bytes),
+                bwd=dict(max_abs_err=max(v["max_abs_err"]
+                                         for v in bwd.values()),
+                         **bwd, ms=cuda_time_ms(t_k_bwd_raw, queued=True),
+                         with_partial_sum_ms=cuda_time_ms(t_k_bwd,
+                                                          queued=True),
+                         plain_ms=cuda_time_ms(t_p_bwd, 5, 1, queued=True),
+                         library_ms=cuda_time_ms(t_l_bwd, queued=True),
+                         bound_ms=bb[0],
+                         bound_by=bb[1], bytes=bwd_bytes),
+                bitwise_repeat=True)
+            log("norm kernel check: " + json.dumps(r))
+            results.append(r)
+            del per_copy, timed, keep
+        del x, dy, x2, dy2, copies
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_bench_kernels() -> dict:
+    """The ported tools/bench_kernels.py on the card at its full shapes
+    with a few iterations: every arm must pass, and the launch counts
+    (zeroed just before) of the four norm kernels and the flash forward
+    must advance."""
+    import contextlib
+    import io
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    from megatron_tpu_torch.tools import bench_kernels
+    fnc.reset_launch_counts()
+    fc.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_kernels.main(["--iters", "5"])
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log("bench_kernels: " + line)
+    counts = {**fnc.launch_counts(), **fc.launch_counts()}
+    check(rc == 0 and "FAILED" not in text,
+          f"bench_kernels exited {rc} or printed a FAILED line")
+    for name in ("rms_fwd_cuda", "rms_bwd_cuda", "ln_fwd_cuda",
+                 "ln_bwd_cuda", "flash_fwd_cuda"):
+        check(counts[name] > 0, f"bench_kernels launched {name} no time")
+    held = {(b, s, nq, d) for (_, b, s, nq, nkv, d, dname, causal, window)
+            in KERNEL_CASES if dname == "bfloat16" and causal
+            and window is None and nkv == nq}
+    check(all(tuple(shape) in held for shape in bench_kernels.FLASH_SHAPES),
+          "a bench_kernels flash shape is not among KERNEL_CASES, where the "
+          "kernel is held against its plain version")
+    stats = dict(seconds=secs, launches=counts,
+                 lines=[ln for ln in text.splitlines() if "|" in ln])
+    log("bench_kernels path: " + json.dumps(stats))
+    return stats
+
+
 def put(port: int, payload: dict, timeout: float = 600.0):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api", data=json.dumps(payload).encode(),
@@ -746,6 +1058,7 @@ def phase_main_path(smi: str) -> dict:
     from megatron_tpu_torch.inference.server import MegatronServer
     from megatron_tpu_torch.models.language_model import LanguageModel
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
     from megatron_tpu_torch.ops.flash_attention_cuda import flash_fwd_cuda
 
     slice_err = check_reference_slice()
@@ -785,6 +1098,7 @@ def phase_main_path(smi: str) -> dict:
     try:
         torch.cuda.reset_peak_memory_stats()
         fc.reset_launch_counts()
+        fnc.reset_launch_counts()
         per_request = {}
         bodies = {}
         for name, payload in (("a", req_a), ("b", req_b), ("c", req_a),
@@ -800,6 +1114,7 @@ def phase_main_path(smi: str) -> dict:
                 f"{per_request[name]}")
         status, body = put(port, {})
         counts = fc.launch_counts()
+        norm_launches = fnc.launch_counts()
         total_launches = counts["flash_fwd_cuda"]
         check(counts["flash_bwd_dq_cuda"] == counts["flash_bwd_dkv_cuda"] == 0,
               f"serving launched a backward kernel: {counts}")
@@ -862,6 +1177,7 @@ def phase_main_path(smi: str) -> dict:
         httpd.server_close()
         thread.join(timeout=30)
     stats["launches"] = total_launches
+    stats["norm_launches"] = norm_launches
     return stats
 
 
@@ -928,6 +1244,7 @@ def phase_engine(smi: str) -> dict:
     from megatron_tpu_torch.models.language_model import LanguageModel
     from megatron_tpu_torch.ops import block_attention as ba
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
     from megatron_tpu_torch.ops.block_attention_cuda import \
         block_attention_cuda
     from megatron_tpu_torch.serving.metrics import ServingMetrics
@@ -984,6 +1301,7 @@ def phase_engine(smi: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fc.reset_launch_counts()
+        fnc.reset_launch_counts()
         block_attention_cuda.launches = 0
         bodies = [None] * ENGINE_REQUESTS
 
@@ -1013,6 +1331,7 @@ def phase_engine(smi: str) -> dict:
             settled = now
             time.sleep(0.3)
         steps, block_launches, flash_launches = settled
+        norm_launches = fnc.launch_counts()
         ba.block_attention_cuda = block_attention_cuda
         peak = torch.cuda.max_memory_allocated()
         check(empty == (400, {"message": "prompts argument required"}),
@@ -1074,6 +1393,7 @@ def phase_engine(smi: str) -> dict:
             peak_memory_gib=peak / 2 ** 30,
             launches=dict(block_attn=block_launches,
                           flash_fwd=flash_launches),
+            norm_launches=norm_launches,
             launches_per_decode_step=block_launches / steps,
             launches_per_prefill=flash_launches / snap["prefill_calls"],
             live_state_check=live,
@@ -1090,6 +1410,409 @@ def phase_engine(smi: str) -> dict:
     torch.cuda.empty_cache()
     stats["slice"] = check_engine_slice()
     log("engine slice (fp32, 2 layers): " + json.dumps(stats["slice"]))
+    return stats
+
+
+def check_int_mm() -> list[dict]:
+    """torch._int_mm as the W8 GEMM pads it (ops/quantized.py) against the
+    float64 product of the same int8 values (exact at these sizes): it must
+    be exact at the decode and prefill row counts of Llama-2-7B's
+    projections; at Falcon-7B's (k 4544, its fused kv projection n 128),
+    whether cuBLASLt takes the shape is recorded, not required."""
+    import torch
+    from megatron_tpu_torch.ops.quantized import _int_mm_padded
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = []
+    for model, m, k, n in (("llama2_7b", 1, 4096, 12288),
+                           ("llama2_7b", 8, 4096, 22016),
+                           ("llama2_7b", 16, 11008, 4096),
+                           ("llama2_7b", 17, 4096, 4096),
+                           ("llama2_7b", 520, 4096, 8192),
+                           ("falcon7b", 8, 4544, 4544),
+                           ("falcon7b", 8, 4544, 128),
+                           ("falcon7b", 8, 18176, 4544)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        try:
+            got = _int_mm_padded(a, b)
+        except RuntimeError as e:
+            check(model != "llama2_7b", f"_int_mm [{m}x{k}x{n}]: {e}")
+            out.append(dict(model=model, m=m, k=k, n=n, taken=False,
+                            error=str(e)[:200]))
+            continue
+        want = (a.double() @ b.double()).to(torch.int32)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"_int_mm [{m}x{k}x{n}] differs from the exact product")
+        out.append(dict(model=model, m=m, k=k, n=n, taken=True, exact=True))
+    log("int8 GEMM: torch._int_mm padded: " + json.dumps(out))
+    return out
+
+
+def teacher_forced_logprobs(gen, segments, prompt_lengths,
+                            new_tokens: int) -> list[list[float]]:
+    """The logprob of each token after its prompt in `segments`, with those
+    tokens fed (not sampled) through the serial route's own prefill and
+    decode steps (`_decode_fn`): the batch, prefill length and cache length
+    that Generator.generate takes for these prompts, and its int8 cache."""
+    import torch
+    from megatron_tpu_torch.inference import generation as g
+    lengths = [len(seg) for seg in segments]
+    end = max(prompt_lengths) + new_tokens
+    max_len = min(-(-end // 64) * 64, gen.cfg.max_position_embeddings)
+    min_prompt = max(min(prompt_lengths) // g.PREFILL_BUCKET
+                     * g.PREFILL_BUCKET, 1)
+    toks = torch.full((len(segments), max_len), gen.pad_id, dtype=torch.int64)
+    for i, seg in enumerate(segments):
+        toks[i, :len(seg)] = torch.tensor(seg)
+    with torch.inference_mode():
+        _, lps = g._decode_fn(
+            gen.params, toks.to(gen.device),
+            torch.tensor(lengths, device=gen.device),
+            torch.Generator(device=gen.device), cfg=gen.cfg,
+            max_len=max_len, min_prompt=min_prompt, end=end,
+            sp=g.SamplingParams(temperature=0.0), eos_id=gen.eos_id,
+            pad_id=gen.pad_id, rope=gen.rope, kv_dtype=gen.kv_cache_dtype)
+    lps = lps.cpu()
+    return [lps[i, n:len(seg)].tolist()
+            for i, (n, seg) in enumerate(zip(prompt_lengths, segments))]
+
+
+def w8_logprob_diff(engine: dict, forced: list[list[float]],
+                    prompt_lengths: list[int]) -> float:
+    """The largest |logprob| difference over every generated token of every
+    stream between the engine's answer and `forced`."""
+    return max(abs(a - b) for n, lp, f in zip(prompt_lengths,
+                                               engine["logprobs"], forced)
+               for a, b in zip(lp[n:], f))
+
+
+def first_differences(engine: dict, serial: dict,
+                      prompt_lengths: list[int]) -> list:
+    """Each stream's first generated position where the engine's and the
+    serial route's greedy tokens differ (None where they are equal)."""
+    return [next((i for i, (a, b) in enumerate(zip(e[n:], s_[n:]))
+                  if a != b), None)
+            for n, e, s_ in zip(prompt_lengths, engine["segments"],
+                                serial["segments"])]
+
+
+def check_int8_slice() -> dict:
+    """A 2-layer slice of the 7B width in fp32, TF32 off, 4 greedy requests
+    through the block-native int8 engine and the serial route: with fp32
+    weights and an int8 KV cache the streams must be equal; with int8
+    weights (W8) and an int8 KV cache, every generated token's logprob must
+    agree within W8_LOGPROB_TOL with that token fed through the serial
+    route (`teacher_forced_logprobs`: a W8 activation that rounds the other
+    way between the kernel and the dot path moves later logprobs by a few
+    hundredths, which swaps near-tied greedy choices of a random model, so
+    the streams themselves may part). Each of W8_FAULTS, planted in the W8
+    engine's cache reads, must move that difference past the tolerance.
+    The block kernel is held against its plain version on a decode step's
+    live int8 arena."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig, llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.models import attention as att
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.ops.quantized import quantize_weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1)
+    tok = ByteTokenizer()
+    new_tokens = 32
+    payload = {"prompts": [prompt_text(n, 40 + i) for i, n in
+                           enumerate((37, 100, 300, 515))],
+               "tokens_to_generate": new_tokens, "temperature": 0.0,
+               "logprobs": True}
+    n_prompt = [len(tok.tokenize(t)) for t in payload["prompts"]]
+    captured = {}
+
+    def recording(q, k_arena, v_arena, block_map, lengths, **kw):
+        if not captured and int((lengths > 0).sum()) >= 2:
+            captured.update(q=q.clone(), k=k_arena.clone(),
+                            v=v_arena.clone(), map=block_map.clone(),
+                            lengths=lengths.clone(),
+                            kw={k: (v.clone() if isinstance(v, torch.Tensor)
+                                    else v) for k, v in kw.items()})
+        return block_attention_cuda(q, k_arena, v_arena, block_map, lengths,
+                                    **kw)
+
+    attend = att.block_native_attention
+    wrong = dict(k_scale_one=torch.ones_like,
+                 k_scale_wrong_block=lambda ks: ks.roll(1, 0))
+
+    def planted(fault):
+        def call(*args, k_scale=None, **kw):
+            return attend(*args, k_scale=wrong[fault](k_scale), **kw)
+        return call
+
+    def serve(gen, fault=None):
+        server = MegatronServer(gen, tok,
+                                serving=ServingConfig(**INT8_SERVING))
+        ba.block_attention_cuda = recording
+        if fault:
+            att.block_native_attention = planted(fault)
+        try:
+            status, engine = server.handle(payload)
+            check(status == 200, f"int8 slice engine ({fault}): {status} "
+                  f"{engine}")
+            if fault:
+                return engine, None
+            status, serial = server.handle(dict(payload, serial=True))
+            check(status == 200, f"int8 slice serial: {status} {serial}")
+            return engine, serial
+        finally:
+            ba.block_attention_cuda = block_attention_cuda
+            att.block_native_attention = attend
+            server.close()
+
+    out = {}
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.int8)
+    engine, serial = serve(gen)
+    check(engine["segments"] == serial["segments"],
+          "int8 KV slice: the int8 engine and the int8 serial route "
+          "disagree on greedy tokens")
+    out["int8_kv"] = dict(equal_streams=len(payload["prompts"]))
+
+    params = quantize_weights(model)
+    gen = Generator(params, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.int8)
+    engine, serial = serve(gen)
+    forced = teacher_forced_logprobs(gen, engine["segments"], n_prompt,
+                                     new_tokens)
+    diff = w8_logprob_diff(engine, forced, n_prompt)
+    firsts = first_differences(engine, serial, n_prompt)
+    check(diff <= W8_LOGPROB_TOL,
+          f"W8 slice: the engine's logprobs and its tokens fed through the "
+          f"serial route differ by {diff} (tol {W8_LOGPROB_TOL})")
+    faults = {}
+    for fault in W8_FAULTS:
+        bad, _ = serve(gen, fault)
+        bad_forced = teacher_forced_logprobs(gen, bad["segments"], n_prompt,
+                                             new_tokens)
+        faults[fault] = w8_logprob_diff(bad, bad_forced, n_prompt)
+        check(faults[fault] > W8_LOGPROB_TOL,
+              f"W8 slice: planted fault {fault} moves the logprobs by only "
+              f"{faults[fault]}, within the tolerance {W8_LOGPROB_TOL}")
+    out["w8_int8_kv"] = dict(
+        tokens_compared=sum(len(f) for f in forced),
+        max_logprob_diff=diff, tol=W8_LOGPROB_TOL,
+        first_difference_from_serial=firsts,
+        equal_streams=sum(d is None for d in firsts),
+        planted_fault_diff=faults)
+    del gen, params
+    c = captured
+    check(bool(c) and c["k"].dtype == torch.int8
+          and c["kw"].get("k_scale") is not None,
+          "int8 slice: the block kernel never saw the int8 arena")
+    got = block_attention_cuda(c["q"], c["k"], c["v"], c["map"],
+                               c["lengths"], **c["kw"])
+    ref = ba.block_attention_reference(
+        c["q"], c["k"], c["v"], c["map"], c["lengths"],
+        scale=c["kw"]["scale"], k_scale=c["kw"]["k_scale"],
+        v_scale=c["kw"]["v_scale"])
+    err = (got - ref).abs().max().item()
+    check(err <= BLOCK_TOL["float32"],
+          f"int8 slice: block kernel vs plain on the live arena err {err}")
+    del model, captured, c, got, ref
+    torch.cuda.empty_cache()
+    return dict(requests=4, new_tokens=new_tokens, allow_tf32=False, **out,
+                live_state_max_abs_err=err, tol=BLOCK_TOL["float32"])
+
+
+def phase_int8(smi: str) -> dict:
+    """Llama-2-7B at full width and depth with int8-resident weights
+    (`quantize_weights` of random bf16 weights) behind MegatronServer's
+    engine route with an int8 block pool (INT8_SERVING), INT8_REQUESTS
+    concurrent requests. Launch counts are zeroed just before the requests:
+    every decode step must launch the block kernel once per layer, on the
+    int8 arena, and no prefill may launch the flash forward (an int8 cache
+    prefills on the dot path). Then bench_decode's four arms at 7B width and
+    the 2-layer fp32 int8 slice."""
+    import contextlib
+    import gc
+    import io
+    import torch
+    from megatron_tpu_torch.config import ServingConfig, llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.ops.quantized import quantize_weights
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    from megatron_tpu_torch.tools import bench_decode
+    from megatron_tpu_torch.tools.bench_decode import tree_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before the "
+          "int8 phase: the earlier model was not freed")
+    int_mm = check_int_mm()
+    cfg = llama2_config("7b")
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
+    bf16_bytes = tree_bytes(model.tree())
+    params = quantize_weights(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_bytes = tree_bytes(params)
+    tok = ByteTokenizer()
+    gen = Generator(params, cfg, eos_id=tok.eod, pad_id=tok.eod)
+    server = MegatronServer(gen, tok, serving=ServingConfig(**INT8_SERVING))
+    engine = server.engine
+    arena = engine.pool.caches.arena
+    check(arena.k.dtype == torch.int8 and arena.k_scale is not None,
+          "the int8 engine's pool is not an int8 arena with scales")
+    torch.cuda.synchronize()
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"int8 engine: Llama-2-7B, weights {bf16_bytes / 1e9:.2f} GB bf16 -> "
+        f"{int8_bytes / 1e9:.2f} GB with int8 projections, pool "
+        f"{engine.pool.nbytes() / 2 ** 30:.2f} GiB (scales included), "
+        f"{weights_gib:.2f} GiB allocated, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    httpd = server.make_http_server("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    arenas = []
+
+    def recording(q, k_arena, v_arena, block_map, lengths, **kw):
+        if not arenas:
+            arenas.append((k_arena.dtype, kw.get("k_scale") is not None))
+        return block_attention_cuda(q, k_arena, v_arena, block_map, lengths,
+                                    **kw)
+
+    requests = []
+    for i in range(INT8_REQUESTS):
+        n = ENGINE_PROMPTS[i % len(ENGINE_PROMPTS)]
+        payload = {"prompts": [prompt_text(n, 300 + i)],
+                   "tokens_to_generate": 32 + (96 * i) // (
+                       INT8_REQUESTS - 1),
+                   "logprobs": True}
+        if i % 2:
+            payload.update(temperature=0.8, top_p=0.9, random_seed=2000 + i)
+        else:
+            payload.update(temperature=0.0)
+        requests.append(payload)
+    try:
+        status, _ = put(port, {"prompts": ["warm up"],
+                               "tokens_to_generate": 4, "temperature": 0.0})
+        check(status == 200, f"int8 warm-up request: {status}")
+        engine.metrics = ServingMetrics()
+        ba.block_attention_cuda = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        fnc.reset_launch_counts()
+        block_attention_cuda.launches = 0
+        bodies = [None] * INT8_REQUESTS
+
+        def send(i):
+            bodies[i] = put(port, requests[i])
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(INT8_REQUESTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        settled = None
+        while True:
+            snap = engine.metrics.snapshot()
+            now = (snap["decode_steps"], block_attention_cuda.launches,
+                   fc.launch_counts()["flash_fwd_cuda"])
+            if now == settled:
+                break
+            settled = now
+            time.sleep(0.3)
+        steps, block_launches, flash_launches = settled
+        norm_launches = fnc.launch_counts()
+        ba.block_attention_cuda = block_attention_cuda
+        peak = torch.cuda.max_memory_allocated()
+        generated = 0
+        for i, (status, body) in enumerate(bodies):
+            check(status == 200, f"int8 request {i}: {status} {body}")
+            seg, lps = body["segments"][0], body["logprobs"][0]
+            n_prompt = ENGINE_PROMPTS[i % len(ENGINE_PROMPTS)]
+            n_new = requests[i]["tokens_to_generate"]
+            check(n_prompt < len(seg) <= n_prompt + n_new
+                  and (len(seg) == n_prompt + n_new or seg[-1] == tok.eod),
+                  f"int8 request {i}: output length {len(seg)}")
+            check(all(math.isfinite(x) for x in lps),
+                  f"int8 request {i}: non-finite logprob")
+            generated += len(seg) - n_prompt
+        L = cfg.num_layers
+        check(arenas == [(torch.int8, True)],
+              f"the block kernel did not read the int8 arena: {arenas}")
+        check(steps > 0 and block_launches == L * steps,
+              f"int8: block kernel launched {block_launches} times in "
+              f"{steps} decode steps of {L} layers")
+        check(snap["prefill_calls"] > 0 and flash_launches == 0,
+              f"int8: flash forward launched {flash_launches} times in "
+              f"{snap['prefill_calls']} prefills (an int8 cache prefills on "
+              "the dot path)")
+        stats = dict(
+            requests=INT8_REQUESTS, generated_tokens=generated, wall_s=wall,
+            tokens_per_s=generated / wall, ttft_p50_ms=snap["ttft_p50_ms"],
+            ttft_p99_ms=snap["ttft_p99_ms"], itl_p50_ms=snap["itl_p50_ms"],
+            itl_p99_ms=snap["itl_p99_ms"], decode_steps=steps,
+            prefill_calls=snap["prefill_calls"],
+            peak_memory_gib=peak / 2 ** 30,
+            weights_gb=dict(bf16=bf16_bytes / 1e9, int8=int8_bytes / 1e9),
+            pool_gib=engine.pool.nbytes() / 2 ** 30,
+            launches=dict(block_attn=block_launches, flash_fwd=flash_launches),
+            norm_launches=norm_launches,
+            launches_per_decode_step=block_launches / steps,
+            int_mm_checks=int_mm, card=smi)
+        log("int8 engine serving: " + json.dumps(stats))
+    finally:
+        ba.block_attention_cuda = block_attention_cuda
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        server.close()
+    del server, engine, gen, params, httpd, thread, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_decode.main(BENCH_DECODE_ARGS)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log("bench_decode: " + line)
+    check(rc == 0, f"bench_decode exited {rc}")
+    arms = {}
+    for line in text.splitlines():
+        if "generate(" in line:  # not the roofline lines
+            name = "bf16" if line.startswith("generate") else line.split()[0]
+            arms[name] = float(line.split("-> ")[1].split()[0])
+    check(set(arms) == {"bf16", "int8kv", "int8", "int8w+kv"},
+          f"bench_decode arms: {sorted(arms)}")
+    stats["bench_decode"] = dict(new_tokens_per_s=arms,
+                                 seconds=time.perf_counter() - t0,
+                                 args=BENCH_DECODE_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["slice"] = check_int8_slice()
+    log("int8 slice (fp32, 2 layers): " + json.dumps(stats["slice"]))
     return stats
 
 
@@ -1158,6 +1881,7 @@ def phase_training(smi: str) -> dict:
     from megatron_tpu_torch.config import (MegatronConfig, OptimizerConfig,
                                            TrainingConfig, llama2_config)
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
     from megatron_tpu_torch.training import init_train_state, make_train_step
 
     mcfg = llama2_config("7b", num_layers=TRAIN_LAYERS)
@@ -1196,6 +1920,7 @@ def phase_training(smi: str) -> dict:
                {"tokens": tokens}]
     torch.cuda.reset_peak_memory_stats()
     fc.reset_launch_counts()
+    fnc.reset_launch_counts()
     steps = []
     for i, batch in enumerate(batches):
         before = fc.launch_counts()
@@ -1213,6 +1938,7 @@ def phase_training(smi: str) -> dict:
         log("training step: " + json.dumps(rec))
         steps.append(rec)
     counts = fc.launch_counts()
+    norm_launches = fnc.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del state, step, m
     torch.cuda.empty_cache()
@@ -1242,7 +1968,7 @@ def phase_training(smi: str) -> dict:
         model_flop_share_of_989tflops=flops / step_s / 989e12,
         peak_memory_gib=peak / 2 ** 30, state_gib=state_gib,
         allocated_before_gib=base_gib,
-        launches=counts, card=smi)
+        launches=counts, norm_launches=norm_launches, card=smi)
     log("training: " + json.dumps(stats))
     stats["slice"] = check_training_slice()
     log("training slice (fp32, 2 layers, flash vs dot): "
@@ -1275,8 +2001,11 @@ def main() -> int:
         log(f"dropout: the forward kernel's keep bits equal the plain hash "
             f"on {bits} (query, key) pairs, fp32 and bf16")
         block_cases = phase_block_kernels()
+        norm_cases = phase_norm_kernels()
+        bench_stats = phase_bench_kernels()
         main_stats = phase_main_path(smi)
         engine_stats = phase_engine(smi)
+        int8_stats = phase_int8(smi)
         train_stats = phase_training(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
@@ -1300,15 +2029,19 @@ def main() -> int:
 
     pallas = "megatron_tpu/ops/flash_attention_pallas.py"
     engine_flash = engine_stats["launches"]["flash_fwd"]
+    bench_counts = bench_stats["launches"]
     kernels = [
         entry("flash_fwd", "megatron_tpu_torch/csrc/flash_fwd.cu",
               f"{pallas}:98",
               main_stats["launches"] + engine_flash
-              + train_counts["flash_fwd_cuda"], "fwd",
+              + train_counts["flash_fwd_cuda"]
+              + bench_counts["flash_fwd_cuda"], "fwd",
               dict(launches_by_path=dict(
                   serving=main_stats["launches"],
                   engine_prefill=engine_flash,
-                  training=train_counts["flash_fwd_cuda"]),
+                  int8_engine_prefill=int8_stats["launches"]["flash_fwd"],
+                  training=train_counts["flash_fwd_cuda"],
+                  bench_kernels=bench_counts["flash_fwd_cuda"]),
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
                    serving_shape=dict(shape=MAIN_SHAPE, **{
                        k: serving_case[k] for k in (
@@ -1327,7 +2060,11 @@ def main() -> int:
         name="block_attn", route="cuda",
         source="megatron_tpu_torch/csrc/block_attn.cu",
         replaces="megatron_tpu/ops/block_attention_pallas.py:82",
-        launches=engine_stats["launches"]["block_attn"],
+        launches=(engine_stats["launches"]["block_attn"]
+                  + int8_stats["launches"]["block_attn"]),
+        launches_by_path=dict(
+            engine=engine_stats["launches"]["block_attn"],
+            int8_engine=int8_stats["launches"]["block_attn"]),
         launches_per_decode_step=engine_stats["launches_per_decode_step"],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
@@ -1336,6 +2073,37 @@ def main() -> int:
         gather_ms=block_main["gather_ms"], shape=BLOCK_MAIN,
         live_state_check=engine_stats["live_state_check"],
         cases=block_cases))
+    norms = "megatron_tpu/ops/fused_norms.py"
+    # each main path's norm launch counts, zeroed just before it and read
+    # just after (0 where the models use models/norms.py, as the reference)
+    path_stats = dict(serving=main_stats, engine=engine_stats,
+                      int8_engine=int8_stats, training=train_stats)
+    for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
+                                   ("rms_bwd", "rms", "bwd", 62),
+                                   ("ln_fwd", "ln", "fwd", 137),
+                                   ("ln_bwd", "ln", "bwd", 146)):
+        head = next(c for c in norm_cases
+                    if c["shape"] == NORM_MAIN and c["norm"] == kind)[part]
+        by_path = dict(bench_kernels=bench_counts[f"{name}_cuda"], **{
+            path: st["norm_launches"][f"{name}_cuda"]
+            for path, st in path_stats.items()})
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="megatron_tpu_torch/csrc/fused_norms.cu",
+            replaces=f"{norms}:{line}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=head["max_abs_err"], ms=head["ms"],
+            kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            library=("torch.nn.functional.rms_norm" if kind == "rms" else
+                     "torch.nn.functional.layer_norm")
+            + (" and its autograd backward" if part == "bwd" else ""),
+            shape=NORM_MAIN,
+            cases=[dict(shape=c["shape"], x_dtype=c["x_dtype"],
+                        param_dtype=c["param_dtype"], rows=c["rows"],
+                        h=c["h"], **c[part])
+                   for c in norm_cases if c["norm"] == kind]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,7 +231,7 @@ class ServingConfig:
     ServingConfig): every field keeps the reference's name and default.
 
     The engine runs `num_slots`, `max_queue`, `max_len`, `kv_dtype`
-    (bfloat16 or float32; int8 pools come later), `prefill_bucket`,
+    (bfloat16, float32 or int8), `prefill_bucket`,
     `serial_fallback`, `request_deadline_s`, `decode_sync_interval`,
     `prefill_max_batch`, `kv_block_size` (with `block_native_attn`: the
     block arena read through the map by the Hopper kernel),
@@ -307,10 +307,6 @@ class ServingConfig:
                 raise NotImplementedError(
                     f"ServingConfig.{name}={getattr(self, name)!r}: "
                     f"{slice_name} is ported in a later slice")
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(
-                "ServingConfig.kv_dtype='int8': int8 KV pools are ported "
-                "in a later slice (Queue 1 item 5)")
         if self.kv_dtype is not None and self.kv_dtype not in \
                 SERVING_KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of "

@@ -26,6 +26,7 @@ import torch
 
 from megatron_tpu_torch.config import MegatronConfig, ModelConfig
 from megatron_tpu_torch.models.language_model import LanguageModel
+from megatron_tpu_torch.ops.quantized import QUANTIZABLE, W8
 from megatron_tpu_torch.training.optimizer import OptState, ScalerState
 from megatron_tpu_torch.training.train_step import TrainState
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -39,9 +40,26 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
         key = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
             flat.update(_flatten(v, key))
+        elif getattr(v, "_fields", None) == W8._fields:
+            # an int8-resident weight (the JAX W8 NamedTuple), flattened as
+            # checkpointing._flatten flattens it
+            flat[f"{key}/q"], flat[f"{key}/scale"] = v.q, v.scale
         else:
             flat[key] = v
     return flat
+
+
+def _take_w8(got: dict, expected: dict) -> dict:
+    """Pop the "<name>.q" / "<name>.scale" pairs of quantizable transformer
+    projections out of `got`: {name: {"q": array, "scale": array}}."""
+    w8: dict = {}
+    for key in list(got):
+        base, _, part = key.rpartition(".")
+        if (part in W8._fields and base in expected
+                and base.startswith("transformer.")
+                and base.rsplit(".", 1)[-1] in QUANTIZABLE):
+            w8.setdefault(base, {})[part] = got.pop(key)
+    return w8
 
 
 def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
@@ -50,18 +68,36 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
     """The JAX parameter tree (nested dict of arrays, or the flat "a/b/c"
     keys of checkpointing._flatten) -> the port's state_dict on `device`,
     cast to `dtype` when given. Raises on a missing, extra or misshapen
-    leaf."""
+    leaf.
+
+    A tree that `quantize_weights` made carries its W8 leaves (as W8
+    objects, or flat ".../q" and ".../scale" keys): they come across
+    unchanged, int8 values and fp32 scales, as the port's W8 under the
+    weight's own key. Such a state is no LanguageModel's state_dict:
+    `language_model.params_tree` nests it for `Generator`."""
     device = resolve_device(device)
     flat = _flatten(tree_or_flat)
     expected = {k: tuple(t.shape) for k, t in
                 LanguageModel(cfg, device="meta").state_dict().items()}
     got = {k.replace("/", "."): v for k, v in flat.items()}
-    missing = sorted(set(expected) - set(got))
+    w8 = _take_w8(got, expected)
+    missing = sorted(set(expected) - set(got) - set(w8))
     extra = sorted(set(got) - set(expected))
+    missing += sorted(f"{k}.{part}" for k, parts in w8.items()
+                      for part in W8._fields if part not in parts)
     if missing or extra:
         raise KeyError(f"parameter tree does not match the config: missing "
                        f"{missing}, unexpected {extra}")
     state = {}
+    for key, parts in w8.items():
+        q, scale = (np.asarray(parts[f]) for f in W8._fields)
+        want = expected[key]
+        if (tuple(q.shape) != want or q.dtype != np.int8
+                or tuple(scale.shape) != want[:1] + want[2:]):
+            raise ValueError(f"W8 leaf {key}: q {q.dtype} {q.shape}, scale "
+                             f"{scale.shape} for a weight of {want}")
+        state[key] = W8(*(torch.from_numpy(np.require(
+            a, requirements=["C", "W"])).to(device) for a in (q, scale)))
     for key, arr in got.items():
         arr = np.asarray(arr)
         if tuple(arr.shape) != expected[key]:

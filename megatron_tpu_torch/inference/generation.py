@@ -9,8 +9,11 @@ length up to a multiple of 64. The decode loop stops at the longest
 requested length instead of running on to the bucketed cache end, which
 changes no token or logprob inside any row's requested span.
 
-Rolling sliding-window caches, int8 caches, chunked prefill, the slot-grid
-verify path and sharded serving belong to later slices.
+`kv_cache_dtype=torch.int8` stores the cache int8 with fp32 scales per
+(token, head) (models/attention.py); the model may be int8-resident
+(`ops.quantized.quantize_weights`). Rolling sliding-window caches, chunked
+prefill, the slot-grid verify path and sharded serving belong to later
+slices.
 """
 from __future__ import annotations
 
@@ -57,18 +60,29 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
     one host int shared by every row and layer, or with
     `per_slot_offsets` an int32 [b] tensor on the cache's device, shared by
     the layers: the serving engine's slot grid, where every row is a
-    request at its own position."""
+    request at its own position. `dtype=torch.int8` adds fp32 scales
+    [L, b, max_len, nkv, 1] set to 1.0 (a zero scale would turn a garbage
+    read into NaN)."""
     if kv_region_cap(cfg, max_len, prefill_len) < max_len:
         raise NotImplementedError(
             "rolling sliding-window KV caches are ported in a later slice")
-    if dtype == torch.int8:
-        raise NotImplementedError("int8 KV caches are ported in a later slice")
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.kv_channels)
     offset = (torch.zeros(batch, dtype=torch.int32, device=device)
               if per_slot_offsets else 0)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), offset)
+                   torch.zeros(shape, dtype=dtype, device=device), offset,
+                   *kv_scales(shape, dtype, device))
+
+
+def kv_scales(shape, dtype, device):
+    """(k_scale, v_scale) of an int8 cache or arena of k/v `shape`: ones
+    [..., 1] in fp32; (None, None) for any other dtype."""
+    if dtype != torch.int8:
+        return None, None
+    sshape = (*shape[:-1], 1)
+    return (torch.ones(sshape, dtype=torch.float32, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device))
 
 
 def _decode_fn(params, tokens, lengths, generator, *, cfg: ModelConfig,
@@ -108,15 +122,18 @@ def _decode_fn(params, tokens, lengths, generator, *, cfg: ModelConfig,
 class Generator:
     """Generation over one model on one device.
 
-    `model` is a LanguageModel whose weights lie on `device` (the current
-    CUDA device when None; raises without one)."""
+    `model` is a LanguageModel, or a parameter tree such as
+    `quantize_weights` returns, whose weights lie on `device` (the current
+    CUDA device when None; raises without one). `kv_cache_dtype` may be
+    torch.int8."""
 
-    def __init__(self, model: lm.LanguageModel, cfg: ModelConfig, eos_id: int,
+    def __init__(self, model, cfg: ModelConfig, eos_id: int,
                  pad_id: Optional[int] = None, *,
                  kv_cache_dtype=torch.bfloat16, device: DeviceLike = None):
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model weights lie on {model.device}, the "
+        where = lm.params_device(model)
+        if where != self.device:
+            raise ValueError(f"model weights lie on {where}, the "
                              f"generator runs on {self.device}")
         self.params = model
         self.cfg = cfg
@@ -220,8 +237,10 @@ def beam_search(generator: Generator, prompt: list[int], beam_width: int,
         token = torch.where(is_kept_done, generator.pad_id, top % V)
         scores = all_scores[top]
         tokens = tokens[parent]
-        caches = KVCache(caches.k[:, parent], caches.v[:, parent],
-                         caches.offset)
+        caches = KVCache(
+            caches.k[:, parent], caches.v[:, parent], caches.offset,
+            *(None if sc is None else sc[:, parent]
+              for sc in (caches.k_scale, caches.v_scale)))
         tokens[:, pos] = token
         done = done[parent] | (token == eos)
         if pos + 1 == max_len or bool(done.all()):

@@ -18,18 +18,26 @@ blocks only and attention reads each slot's block chain through the map
 (ops/block_attention.py, the Hopper kernel on the card). Cache writes are
 in place.
 
+An int8 cache (k/v int8 with fp32 `k_scale`/`v_scale` per (token, head))
+quantizes the step's k/v over head_dim at write time (`quantize_rows`) and
+reads them dequantized in the compute dtype; the block arena hands its
+scales to the block kernel, which dequantizes inside. An int8 cache never
+takes the offset-0 flash prefill: every cached forward then reads the same
+dequantized values through the dot path, so a prefill and the decode steps
+after it see the same numbers (attention.py:488-504).
+
 The uncached (training) forward passes segment ids, and attention dropout
 with its generator, to the flash path (ops/flash_attention.py, kernels on
 the card); the dot path takes the segment mask too.
 
-Left for later slices, and raising: rolling sliding-window caches, int8
-caches, LoRA adapters, cross-attention, attention dropout on the dot path,
-and the ring / ulysses implementations.
+Left for later slices, and raising: rolling sliding-window caches, LoRA
+adapters, cross-attention, attention dropout on the dot path, and the ring
+/ ulysses implementations.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
@@ -38,22 +46,41 @@ from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.rope import apply_rotary
 from megatron_tpu_torch.ops.block_attention import block_native_attention
 from megatron_tpu_torch.ops.flash_attention import flash_attention
-from megatron_tpu_torch.ops.quantized import qdense, wcast
+from megatron_tpu_torch.ops.quantized import qdense, quantize_rows, wcast
 
 
-@dataclass
-class KVCache:
+class _Stacked:
+    """What both caches share: k/v (int8 with fp32 `k_scale`/`v_scale`)
+    stacked over layers."""
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
+
+    def layer(self, i: int):
+        """Layer i's slice of a stacked cache (views, written in place)."""
+        return dataclasses.replace(
+            self, k=self.k[i], v=self.v[i],
+            k_scale=None if self.k_scale is None else self.k_scale[i],
+            v_scale=None if self.v_scale is None else self.v_scale[i])
+
+
+@dataclasses.dataclass
+class KVCache(_Stacked):
     """KV cache: k/v [batch, max_seq, n_kv, head_dim] for one layer, or with
     a leading layers dim for the whole stack; `offset` tokens are filled:
     a host int shared by the rows, or an int32 [batch] tensor of per-row
-    offsets (the serving engine's slot grid)."""
+    offsets (the serving engine's slot grid). An int8 cache carries fp32
+    scales [batch, max_seq, n_kv, 1] (with the layers dim for the stack)."""
     k: torch.Tensor
     v: torch.Tensor
     offset: Union[int, torch.Tensor] = 0
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
-@dataclass
-class BlockKVCache:
+@dataclasses.dataclass
+class BlockKVCache(_Stacked):
     """Block-native serving cache (attention.py BlockKVCache): the flat
     block arena and the per-slot block map, read in place by the block
     attention kernel; no contiguous [S, cap, ...] view exists.
@@ -63,11 +90,36 @@ class BlockKVCache:
       offset: [num_slots] int32 per-slot live lengths
       map:    [num_slots, cap/B] int32, logical -> physical block (one map
               serves every layer)
+      k_scale/v_scale: [total_blocks, B, nkv, 1] fp32 for int8 arenas
     """
     k: torch.Tensor
     v: torch.Tensor
     offset: torch.Tensor
     map: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+def _cache_write(cache, index, k: torch.Tensor, v: torch.Tensor) -> None:
+    """cache.k[index] = k and cache.v[index] = v in place; an int8 cache
+    stores the values quantized per (token, head) with their scales."""
+    if cache.quantized:
+        (ki, ks), (vi, vs) = quantize_rows(k), quantize_rows(v)
+        cache.k[index], cache.k_scale[index] = ki, ks
+        cache.v[index], cache.v_scale[index] = vi, vs
+    else:
+        cache.k[index] = k.to(cache.k.dtype)
+        cache.v[index] = v.to(cache.v.dtype)
+
+
+def _cache_read(cache, index, dtype):
+    """cache.k[index] and cache.v[index] in the compute dtype; int8 entries
+    dequantized as k.astype(dtype) * k_scale.astype(dtype)."""
+    k, v = cache.k[index].to(dtype), cache.v[index].to(dtype)
+    if cache.quantized:
+        return (k * cache.k_scale[index].to(dtype),
+                v * cache.v_scale[index].to(dtype))
+    return k, v
 
 
 def _block_native_update_attend(q, k, v, cache: BlockKVCache, *,
@@ -90,11 +142,11 @@ def _block_native_update_attend(q, k, v, cache: BlockKVCache, *,
     rows = torch.arange(S, device=q.device)[:, None].expand(S, s)[live]
     pos = pos[live]
     phys = cache.map[rows, pos // B].long()
-    cache.k[phys, pos % B] = k[live].to(cache.k.dtype)
-    cache.v[phys, pos % B] = v[live].to(cache.v.dtype)
+    _cache_write(cache, (phys, pos % B), k[live], v[live])
     out = block_native_attention(q, cache.k, cache.v, cache.map, offset,
-                                 scale=scale, block_size=B)
-    return out, BlockKVCache(cache.k, cache.v, offset + s, cache.map)
+                                 scale=scale, block_size=B,
+                                 k_scale=cache.k_scale, v_scale=cache.v_scale)
+    return out, dataclasses.replace(cache, offset=offset + s)
 
 
 def attention_init(cfg: ModelConfig) -> dict:
@@ -219,11 +271,11 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         pos = offset.long()[:, None] + torch.arange(s, device=x.device)
         live = pos < cap
         rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
-        kv_cache.k[rows[live], pos[live]] = k[live].to(kv_cache.k.dtype)
-        kv_cache.v[rows[live], pos[live]] = v[live].to(kv_cache.v.dtype)
-        new_cache = KVCache(kv_cache.k, kv_cache.v, offset + s)
+        _cache_write(kv_cache, (rows[live], pos[live]), k[live], v[live])
+        new_cache = dataclasses.replace(kv_cache, offset=offset + s)
+        kc, vc = _cache_read(kv_cache, ..., dtype)
         out = _dot_attention(
-            q, kv_cache.k.to(dtype), kv_cache.v.to(dtype), causal=True,
+            q, kc, vc, causal=True,
             softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
             q_offset=offset, sliding_window=window)
     elif kv_cache is not None:
@@ -231,19 +283,21 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         if end > kv_cache.k.shape[1]:
             raise ValueError(f"KV cache overflow: {end} positions into a "
                              f"cache of {kv_cache.k.shape[1]}")
-        kv_cache.k[:, offset:end] = k.to(kv_cache.k.dtype)
-        kv_cache.v[:, offset:end] = v.to(kv_cache.v.dtype)
-        new_cache = KVCache(kv_cache.k, kv_cache.v, end)
-        if cfg.attention_impl == "flash" and s > 1 and offset == 0:
+        live = (slice(None), slice(offset, end))
+        _cache_write(kv_cache, live, k, v)
+        new_cache = dataclasses.replace(kv_cache, offset=end)
+        if (cfg.attention_impl == "flash" and s > 1 and offset == 0
+                and not kv_cache.quantized):
             # offset-0 prefill: causal attention over the cache equals
             # causal attention over the fresh k/v, so take the kernel on
             # the raw (not cache-rounded) tensors
             out = flash_attention(q, k, v, causal=True, scale=scale,
                                   sliding_window=window)
         else:
+            kc, vc = _cache_read(kv_cache, (slice(None), slice(None, end)),
+                                 dtype)
             out = _dot_attention(
-                q, kv_cache.k[:, :end].to(dtype),
-                kv_cache.v[:, :end].to(dtype), causal=True,
+                q, kc, vc, causal=True,
                 softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
                 q_offset=offset, sliding_window=window)
     else:

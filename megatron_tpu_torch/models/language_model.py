@@ -129,6 +129,25 @@ def _tree(params):
     return params.tree() if isinstance(params, LanguageModel) else params
 
 
+def params_device(params) -> torch.device:
+    """The device of a LanguageModel's or a parameter tree's weights."""
+    return _tree(params)["embedding"]["word_embeddings"].device
+
+
+def params_tree(state: dict) -> dict:
+    """A state dict ("a.b.c" keys, as `params_from_numpy` returns) as the
+    nested parameter tree `model_forward` takes. Use it for a state that
+    holds W8 (int8-resident) weights, which a LanguageModel cannot hold."""
+    tree: dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
 def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   position_ids=None,
                   kv_caches: Union[KVCache, BlockKVCache, None] = None,
@@ -141,7 +160,8 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     With `head_positions` [b], only row i's position head_positions[i]
     reaches the LM head and the logits are [b, 1, padded_vocab] (a
     prefill needs only each prompt's last position).
-    `params` is a LanguageModel or its tree. With `kv_caches` (a KVCache,
+    `params` is a LanguageModel or its tree (whose transformer weights may
+    be W8, `ops.quantized.quantize_weights`). With `kv_caches` (a KVCache,
     whose offset may be per row, or the serving engine's BlockKVCache),
     positions continue from the cache offset and the caches are written in
     place.

@@ -22,6 +22,7 @@ from megatron_tpu_torch.models.attention import (BlockKVCache, KVCache,
                                                  attention_init)
 from megatron_tpu_torch.models.mlp import mlp_apply, mlp_init
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
+from megatron_tpu_torch.ops.quantized import W8
 
 
 def layer_init(cfg: ModelConfig) -> dict:
@@ -105,6 +106,9 @@ def unstack_layers(stacked) -> list:
     grad a zero-filled buffer of the whole [L, ...] leaf."""
     if isinstance(stacked, torch.Tensor):
         return list(stacked.unbind(0))
+    if isinstance(stacked, W8):  # int8 values and scales split alike
+        return [W8(q, s) for q, s in zip(stacked.q.unbind(0),
+                                          stacked.scale.unbind(0))]
     per_key = {k: unstack_layers(v) for k, v in stacked.items()}
     num_layers = len(next(iter(per_key.values())))
     return [{k: v[i] for k, v in per_key.items()} for i in range(num_layers)]
@@ -122,9 +126,7 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
     its slice of the stacked tensors. Returns (x, kv_caches advanced by the
     step's length, or None)."""
     for i, layer in enumerate(unstack_layers(stacked_params)):
-        cache = (None if kv_caches is None else
-                 dataclasses.replace(kv_caches, k=kv_caches.k[i],
-                                     v=kv_caches.v[i]))
+        cache = None if kv_caches is None else kv_caches.layer(i)
         x, _ = layer_apply(layer, x, cfg, rope_cos=rope_cos,
                            rope_sin=rope_sin, position_ids=position_ids,
                            kv_cache=cache, segment_ids=segment_ids,

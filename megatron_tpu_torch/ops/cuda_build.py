@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu",
            "flash_bwd": CSRC / "flash_bwd.cu",
-           "block_attn": CSRC / "block_attn.cu"}
+           "block_attn": CSRC / "block_attn.cu",
+           "fused_norms": CSRC / "fused_norms.cu"}
 HEADERS = (CSRC / "flash_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,7 +8,9 @@ Orca-style iteration-level scheduling over a pooled KV cache:
   (`sample_batched`) and all slots forward one token together, each at its
   own position (per-row cache offsets and RoPE positions). Idle slots ride
   along and their outputs are discarded;
-- each slot owns a region of a pre-allocated pool (serving/kv_pool.py).
+- each slot owns a region of a pre-allocated pool (serving/kv_pool.py),
+  in `ServingConfig.kv_dtype`, else the generator's cache dtype (bf16,
+  fp32, or int8 with per-(token, head) scales).
   With `kv_block_size` and `block_native_attn` the pool is a block arena
   and the decode attention is the Hopper block kernel reading it through
   the per-slot block map; without, each slot owns a contiguous region and
@@ -17,8 +19,8 @@ Orca-style iteration-level scheduling over a pooled KV cache:
   gives backpressure; between decode steps the loop drains it into free
   slots, prefilling same-bucket prompts together (`prefill_max_batch`,
   prompts padded to `prefill_bucket`, the batch to a power of two) through
-  the flash kernel, so new requests join the running batch at token
-  granularity;
+  the flash kernel (the dot path for an int8 pool, as the serial route
+  takes it), so new requests join the running batch at token granularity;
 - `decode_sync_interval` K chains K decode steps on device state (lengths
   advance on the device) and fetches all K token grids in one transfer:
   one host sync per K tokens, at the cost of up to K-1 wasted steps for a
@@ -427,7 +429,9 @@ class ServingEngine:
             kv_caches=caches, rope=self.gen.rope,
             head_positions=self._upload(last))
         for i, (slot, plen, req) in enumerate(zip(slots, plens, reqs)):
-            sub = KVCache(caches.k[:, i:i + 1], caches.v[:, i:i + 1], 0)
+            sub = KVCache(caches.k[:, i:i + 1], caches.v[:, i:i + 1], 0,
+                          *(None if sc is None else sc[:, i:i + 1]
+                            for sc in (caches.k_scale, caches.v_scale)))
             if self._kernel_on:
                 insert_blocks(self.pool.caches, sub, slot, plen)
             else:

@@ -20,6 +20,11 @@ where nothing is ever read. The host map is the truth; `_sync_map` uploads
 a copy (never a view of the host buffer, which later host edits would
 change under a step in flight).
 
+An int8 pool (dtype torch.int8) stores k/v int8 with fp32 scales per
+(token, head) beside them, in either mode; the scales start at 1.0, never
+0, so a garbage read past a row's length stays finite, and the byte
+accounting counts them.
+
 Updates are in place on the pool's tensors (the reference replaces its
 arrays functionally). The prefill cache a request is prefilled into is
 sized to its padded prompt, not to the region: `insert_prefill` /
@@ -40,22 +45,29 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
-from megatron_tpu_torch.inference.generation import init_kv_caches
+from megatron_tpu_torch.inference.generation import init_kv_caches, kv_scales
 from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
 
 _RETENTION = ("prefix-cache retention is ported with the prefix cache in a "
               "later slice (ROADMAP Queue 1 item 6)")
 
 
+# the cache tensors a pool copies: k/v, and an int8 pool's scales
+_PARTS = ("k", "v", "k_scale", "v_scale")
+
+
 def insert_prefill(pool: KVCache, prefill: KVCache, slot: int,
                    plen: int) -> KVCache:
-    """Write a batch-1 prefill cache [L, 1, n, nkv, hd] into the first n
-    positions of `slot`'s region and set the row's offset to `plen`, the
-    true prompt length (bucket padding past it is garbage that decode
-    overwrites before reading). In place; returns `pool`."""
+    """Write a batch-1 prefill cache [L, 1, n, nkv, hd] (with its scales in
+    an int8 pool) into the first n positions of `slot`'s region and set the
+    row's offset to `plen`, the true prompt length (bucket padding past it
+    is garbage that decode overwrites before reading). In place; returns
+    `pool`."""
     n = prefill.k.shape[2]
-    pool.k[:, slot, :n] = prefill.k[:, 0].to(pool.k.dtype)
-    pool.v[:, slot, :n] = prefill.v[:, 0].to(pool.v.dtype)
+    for name in _PARTS:
+        dst = getattr(pool, name)
+        if dst is not None:
+            dst[:, slot, :n] = getattr(prefill, name)[:, 0].to(dst.dtype)
     pool.offset[slot] = plen
     return pool
 
@@ -63,8 +75,9 @@ def insert_prefill(pool: KVCache, prefill: KVCache, slot: int,
 @dataclasses.dataclass
 class BlockKV:
     """Device state of a block-granular pool: `arena` holds k/v as
-    [L, total_blocks, B, nkv, hd] and the per-slot offsets [S]; `map` is
-    the [S, cap / B] int32 block table on the device."""
+    [L, total_blocks, B, nkv, hd] (an int8 arena its scales [..., 1]) and
+    the per-slot offsets [S]; `map` is the [S, cap / B] int32 block table
+    on the device."""
     arena: KVCache
     map: torch.Tensor
 
@@ -73,29 +86,34 @@ def block_native_cache(bkv: BlockKV) -> BlockKVCache:
     """View a BlockKV as the model-facing BlockKVCache without moving any
     data; the one [S, nb] map serves every layer."""
     a = bkv.arena
-    return BlockKVCache(k=a.k, v=a.v, offset=a.offset, map=bkv.map)
+    return BlockKVCache(k=a.k, v=a.v, offset=a.offset, map=bkv.map,
+                        k_scale=a.k_scale, v_scale=a.v_scale)
 
 
 def pack_block_native(cache: BlockKVCache, map2d: torch.Tensor) -> BlockKV:
     """Inverse of `block_native_cache`: the forward's (updated in place)
     arena as the pool's BlockKV, with the pool's own map."""
-    return BlockKV(arena=KVCache(cache.k, cache.v, cache.offset), map=map2d)
+    return BlockKV(arena=KVCache(cache.k, cache.v, cache.offset,
+                                 cache.k_scale, cache.v_scale), map=map2d)
 
 
 def insert_blocks(bkv: BlockKV, sub: KVCache, slot: int,
                   plen: int) -> BlockKV:
-    """Land a batch-1 cache [L, 1, n, nkv, hd] in `slot`'s mapped blocks:
-    position p goes to block map[slot, p // B], row p % B, for every p < n
-    (the blocks covering the padded prompt), and the row's offset becomes
-    `plen`. (Skipping aliased shared-prefix blocks comes with the prefix
-    cache.) In place; returns `bkv`."""
+    """Land a batch-1 cache [L, 1, n, nkv, hd] (with its scales in an int8
+    pool) in `slot`'s mapped blocks: position p goes to block
+    map[slot, p // B], row p % B, for every p < n (the blocks covering the
+    padded prompt), and the row's offset becomes `plen`. (Skipping aliased
+    shared-prefix blocks comes with the prefix cache.) In place; returns
+    `bkv`."""
     a = bkv.arena
     n = sub.k.shape[2]
     B = a.k.shape[2]
     pos = torch.arange(n, device=a.k.device)
     phys = bkv.map[slot, pos // B].long()
-    a.k[:, phys, pos % B] = sub.k[:, 0].to(a.k.dtype)
-    a.v[:, phys, pos % B] = sub.v[:, 0].to(a.v.dtype)
+    for name in _PARTS:
+        dst = getattr(a, name)
+        if dst is not None:
+            dst[:, phys, pos % B] = getattr(sub, name)[:, 0].to(dst.dtype)
     a.offset[slot] = plen
     return bkv
 
@@ -120,9 +138,6 @@ class SlotKVPool:
                  device=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        if dtype == torch.int8:
-            raise NotImplementedError("int8 KV pools are ported with the "
-                                      "quantized path in a later slice")
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
@@ -150,7 +165,8 @@ class SlotKVPool:
         arena = KVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(num_slots, dtype=torch.int32,
-                                    device=device))
+                                    device=device),
+                        *kv_scales(shape, dtype, device))
         self._map = np.full((num_slots, self.blocks_per_slot), self.TRASH,
                             np.int32)
         self.caches = BlockKV(arena=arena,
@@ -276,15 +292,20 @@ class SlotKVPool:
         return len(self._free)
 
     def nbytes(self) -> int:
+        """Bytes of the pool's k/v (and int8 scales)."""
         c = self.caches.arena if self.blocks_enabled else self.caches
-        return (c.k.numel() * c.k.element_size()
-                + c.v.numel() * c.v.element_size())
+        return sum(t.numel() * t.element_size()
+                   for t in (getattr(c, name) for name in _PARTS)
+                   if t is not None)
 
     def bytes_per_token(self) -> int:
-        """k + v bytes one cached token costs across layers."""
-        return (2 * self.cfg.num_layers * self.cfg.num_kv_heads
-                * self.cfg.kv_channels * torch.empty(
-                    (), dtype=self.dtype).element_size())
+        """k + v (and int8 scale) bytes one cached token costs across
+        layers."""
+        heads = 2 * self.cfg.num_layers * self.cfg.num_kv_heads
+        n = heads * self.cfg.kv_channels * self.dtype.itemsize
+        if self.dtype == torch.int8:
+            n += heads * 4  # fp32 scales
+        return n
 
     def kv_gauges(self, lengths) -> Tuple[int, int, int]:
         """(kv_blocks_used, kv_blocks_retained, kv_bytes_wasted): blocks in

@@ -108,7 +108,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/request.py", "serving/scheduler.py",
                    "serving/metrics.py", "serving/__init__.py",
                    "ops/block_attention.py", "ops/block_attention_cuda.py",
-                   "ops/cuda_build.py"):
+                   "ops/cuda_build.py", "ops/fused_norms.py",
+                   "ops/fused_norms_cuda.py", "ops/quantized.py",
+                   "tools/bench_kernels.py", "tools/bench_decode.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):

@@ -197,7 +197,7 @@ def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
 
 def test_later_slice_fields_raise():
     for kw in (dict(enable_prefix_cache=True), dict(speculative_k=2),
-               dict(kv_block_size=16), dict(kv_dtype="int8"),
+               dict(kv_block_size=16), dict(preemption=True),
                dict(num_replicas=2)):
         with pytest.raises(NotImplementedError):
             ServingConfig(**kw).validate()
