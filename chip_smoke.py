@@ -12,8 +12,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    with the stated tolerances, and times kernel, plain version and the
    PyTorch library call for the same function where there is one
    (scaled_dot_product_attention and its backward, yardsticks the port
-   never calls): the forward at the serving shapes of KERNEL_CASES (and
-   tools/bench_kernels.py's three flash shapes, up to s 32768), and
+   never calls): the forward at the serving shapes of KERNEL_CASES (the
+   bf16 kernel's tile edges at s 129 and 255, the engine's longest prompt,
+   a bf16 window, Falcon-7B's MQA at s 2048, and
+   tools/bench_kernels.py's three flash shapes, up to s 32768; every
+   forward time queued behind a spin, so it is the device's alone), and
    forward plus the dQ and dK/dV backward kernels at the training shapes of
    TRAIN_CASES (segment ids, dropout, an lse cotangent, GQA, MQA, ragged,
    fp32 with a window), each backward run twice and required bit-identical;
@@ -111,16 +114,24 @@ PEAK_BYTES = 3.35e12
 # (label, b, s, nq, nkv, d, dtype name, causal, sliding_window). The first
 # three are the prefills the main path runs: request (a) at b 1, s 512;
 # request (b) at b 3, s 32 (its shortest prompt, 37, rounded down to the
-# prefill bucket); request (d)'s beam search at b 4, s 24. The bench_ cases
-# are tools/bench_kernels.py's flash shapes (FLASH_SHAPES), which the
+# prefill bucket); request (d)'s beam search at b 4, s 24. s 129 and s 255
+# sit one row past a 128-row tile of the bf16 kernel and one row short of
+# two; s 1000 is the engine phase's longest prompt; the bf16 window of 100
+# crosses the band's edge inside tiles. The bench_ cases are
+# tools/bench_kernels.py's flash shapes (FLASH_SHAPES), which the
 # bench_kernels path launches.
 KERNEL_CASES = [
     ("llama2_7b_prefill", 1, 512, 32, 32, 128, "bfloat16", True, None),
     ("request_b_prefill", 3, 32, 32, 32, 128, "bfloat16", True, None),
     ("beam_prefill", 4, 24, 32, 32, 128, "bfloat16", True, None),
     ("ragged_s200", 1, 200, 32, 32, 128, "bfloat16", True, None),
+    ("tile_edge_s129", 1, 129, 32, 32, 128, "bfloat16", True, None),
+    ("tile_edge_s255", 1, 255, 32, 32, 128, "bfloat16", True, None),
+    ("engine_prompt_s1000", 1, 1000, 32, 32, 128, "bfloat16", True, None),
     ("gqa_64q_8kv", 1, 512, 64, 8, 128, "bfloat16", True, None),
     ("falcon7b_mqa", 1, 512, 71, 1, 64, "bfloat16", True, None),
+    ("falcon7b_mqa_s2048", 1, 2048, 71, 1, 64, "bfloat16", True, None),
+    ("bf16_window100", 1, 1024, 32, 8, 128, "bfloat16", True, 100),
     ("fp32_window128", 1, 512, 32, 8, 128, "float32", True, 128),
     ("bench_2x2048x16", 2, 2048, 16, 16, 128, "bfloat16", True, None),
     ("bench_1x8192x8", 1, 8192, 8, 8, 128, "bfloat16", True, None),
@@ -423,7 +434,8 @@ def phase_build() -> None:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "arning" in line):
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
 
 
@@ -487,8 +499,10 @@ def phase_kernels() -> list[dict]:
         r = dict(shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d, dtype=dname,
                  causal=causal, sliding_window=window,
                  max_abs_err=err_out, max_abs_err_lse=err_lse,
-                 ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain, 5, 1),
-                 library_ms=cuda_time_ms(library), bound_ms=bound_ms,
+                 ms=cuda_time_ms(kernel, queued=True),
+                 plain_ms=cuda_time_ms(plain, 5, 1, queued=True),
+                 library_ms=cuda_time_ms(library, queued=True),
+                 bound_ms=bound_ms,
                  bound_by=bound_by)
         log("kernel check: " + json.dumps(r))
         results.append(r)
@@ -617,7 +631,7 @@ def phase_training_kernels() -> list[dict]:
         lib_fwd = lib_bwd = None
         if same_as_sdpa:
             sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, d ** -0.5, window)
-            lib_fwd = cuda_time_ms(sdpa_fwd, 10, 2)
+            lib_fwd = cuda_time_ms(sdpa_fwd, 10, 2, queued=True)
             if dlse is None:
                 lib_bwd = cuda_time_ms(sdpa_bwd, 10, 2)
         plain_bwd_ms = cuda_time_ms(plain_bwd, 3, 1)
@@ -627,9 +641,11 @@ def phase_training_kernels() -> list[dict]:
             dropout=rate, dlse=use_dlse, visible_pairs=pairs,
             fwd=dict(max_abs_err=err_out, max_abs_err_lse=err_lse,
                      ms=cuda_time_ms(lambda: fc.flash_fwd_cuda(q, k, v,
-                                                               **kw), 10, 2),
+                                                               **kw), 10, 2,
+                                     queued=True),
                      plain_ms=cuda_time_ms(
-                         lambda: fa.blockwise_attention(q, k, v, **kw), 3, 1),
+                         lambda: fa.blockwise_attention(q, k, v, **kw), 3, 1,
+                         queued=True),
                      bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                      library_ms=lib_fwd),
             dq=dict(**errs["dq"], ms=cuda_time_ms(dq_kernel, 10, 2),
@@ -974,6 +990,117 @@ def phase_norm_kernels() -> list[dict]:
         del x, dy, x2, dy2, copies
         torch.cuda.empty_cache()
     return results
+
+
+def forward_shapes():
+    """Every bf16 forward shape of KERNEL_CASES and TRAIN_CASES as (label,
+    b, s, nq, nkv, d, window, segment ids, dropout rate); training cases
+    that differ only in the backward (an lse cotangent) are left out."""
+    shapes = [(label, b, s, nq, nkv, d, window, False, 0.0)
+              for (label, b, s, nq, nkv, d, dname, _, window) in KERNEL_CASES
+              if dname == "bfloat16"]
+    shapes += [(label, b, s, nq, nkv, d, window, seg, rate)
+               for (label, b, s, nq, nkv, d, dname, window, seg, rate,
+                    dlse) in TRAIN_CASES
+               if dname == "bfloat16" and not dlse]
+    return shapes
+
+
+def compare_forward(old_source: str) -> int:
+    """Before and after of the bf16 flash forward on one card: builds
+    `old_source` (an earlier csrc/flash_fwd.cu with the same C interface)
+    into a temporary directory outside the checkout, and times it and the
+    current kernel through the same wrapper and the same queued timer at
+    every shape of `forward_shapes()`, in the order old, new, new, old.
+    Prints one JSON line a shape (both times, the bound, SDPA's time where
+    it computes the same function, the plain version's, and the new
+    kernel's error against the plain version) and exits 1 if any shape's
+    new output leaves TOL."""
+    import ctypes
+    import shutil
+    import tempfile
+    import torch
+    import torch.nn.functional as F
+    from megatron_tpu_torch.ops import cuda_build
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops.flash_attention import blockwise_attention
+    smi = phase_device()
+    new_lib = fc._library("flash_fwd")
+    tmp = tempfile.mkdtemp(prefix="flash_fwd_old_")
+    try:
+        old_so = f"{tmp}/libflash_fwd_old.so"
+        build = subprocess.run(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             str(cuda_build.CSRC), "-o", old_so, old_source],
+            capture_output=True, text=True)
+        check(build.returncode == 0, f"nvcc {old_source}: {build.stdout}"
+              f"{build.stderr}")
+        old_lib = ctypes.CDLL(old_so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    old_lib.flash_fwd.argtypes = new_lib.flash_fwd.argtypes
+    old_lib.flash_fwd.restype = new_lib.flash_fwd.restype
+    libs = {"old": old_lib, "new": new_lib}
+    original = fc._library
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    failed = []
+    for (label, b, s, nq, nkv, d, window, use_seg, rate) in forward_shapes():
+        q = torch.randn(b, s, nq, d, generator=gen,
+                        device="cuda").bfloat16()
+        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+                         device="cuda").bfloat16()
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        seg = None
+        if use_seg:
+            seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+            seg[:, s // 2:] = 1
+        kw = dict(causal=True, scale=d ** -0.5, sliding_window=window,
+                  segment_ids=seg, dropout_rate=rate,
+                  dropout_seed=DROPOUT_SEED)
+
+        def call(which):
+            fc._library = lambda name: libs[which]
+            try:
+                return fc.flash_fwd_cuda(q, k, v, **kw)
+            finally:
+                fc._library = original
+
+        out, lse = call("new")
+        torch.cuda.synchronize()
+        ref_out, ref_lse = blockwise_attention(q, k, v, **kw)
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        if not (err_out <= TOL["bfloat16"][0]
+                and err_lse <= TOL["bfloat16"][1]):
+            failed.append(label)
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(cuda_time_ms(lambda: call(which), 20, 3,
+                                             queued=True))
+        sdpa_ms = None
+        if seg is None and not rate:
+            sdpa_fwd, _ = sdpa_calls(q, k, v, q, d ** -0.5, window)
+            sdpa_ms = cuda_time_ms(sdpa_fwd, 20, 3, queued=True)
+        pairs = visible_pairs(s, window, seg) * b * nq
+        bound = bound_ms(4 * d * pairs, 2 * (2 * b * s * nq * d
+                                             + 2 * b * s * nkv * d)
+                         + 4 * b * nq * s, "torch.bfloat16")
+        old_ms = sum(times["old"]) / 2
+        new_ms = sum(times["new"]) / 2
+        r = dict(shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d,
+                 sliding_window=window, segments=use_seg, dropout=rate,
+                 old_ms=old_ms, new_ms=new_ms, old_runs=times["old"],
+                 new_runs=times["new"], speedup=old_ms / new_ms,
+                 bound_ms=bound[0], bound_by=bound[1], library_ms=sdpa_ms,
+                 plain_ms=cuda_time_ms(
+                     lambda: blockwise_attention(q, k, v, **kw), 5, 1,
+                     queued=True),
+                 max_abs_err=err_out, max_abs_err_lse=err_lse, card=smi)
+        log("forward before/after: " + json.dumps(r))
+        del q, kv, k, v, out, lse, ref_out, ref_lse
+        torch.cuda.empty_cache()
+    check(not failed, f"new forward outside TOL at {failed}")
+    return 0
 
 
 def phase_bench_kernels() -> dict:
@@ -1976,7 +2103,14 @@ def phase_training(smi: str) -> dict:
     return stats
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--compare-fwd", metavar="FLASH_FWD_CU",
+        help="instead of the smoke run, time this earlier csrc/flash_fwd.cu "
+             "beside the current one at every bf16 forward shape")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1992,6 +2126,12 @@ def main() -> int:
               "repository (megatron_tpu_torch not importable)",
               file=sys.stderr)
         return 2
+    if args.compare_fwd:
+        try:
+            return compare_forward(args.compare_fwd)
+        except Exception:  # noqa: BLE001 — any failure fails the run
+            traceback.print_exc()
+            return 1
     try:
         smi = phase_device()
         phase_build()

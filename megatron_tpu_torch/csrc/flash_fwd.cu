@@ -1,4 +1,4 @@
-// FlashAttention-2 forward for Hopper (sm_90a), plain C interface for ctypes.
+// FlashAttention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (megatron_tpu/ops/flash_attention_pallas.py, launched by `_flash_fwd`).
@@ -8,54 +8,73 @@
 // segment ids (q and k in different documents never attend), optional
 // attention dropout (the TPU kernel's counter hash, flash_common.cuh), GQA
 // with q-head h reading kv-head h / group, and the per-row logsumexp.
+// The TPU's sequential kv grid axis becomes a loop inside a block, with the
+// running (m, l, acc) in registers instead of VMEM scratch; kv tiles past
+// the causal diagonal or wholly behind the sliding-window band are never
+// loaded. Inputs are read through their strides ([b, s, n, d], unit stride
+// on d), so k and v may be the strided halves of a fused projection.
 //
-// Design. One thread block owns one (batch, q-head, 64-row q tile) and walks
-// its kv tiles in a loop: the TPU's sequential kv grid axis becomes that
-// loop, and the running (m, l, acc) stay in registers instead of VMEM
-// scratch. Tiles past the causal diagonal, and tiles wholly behind the
-// sliding-window band, are never loaded. The Q tile and each 64-row K/V
-// tile are staged in shared memory. Inputs are read through their strides
-// ([b, s, n, d] with unit stride on d), so no transpose copy is made, and
-// the ragged tails of q and kv are masked, so any sequence length runs.
-// Two kernels share that shape and differ in the arithmetic:
+// Bound. Causal attention does 2 s^2 d FLOPs per head against 8 s d bytes
+// of bf16 q, k, v and out, i.e. s / 4 FLOP per byte: device memory bounds
+// the serving prefill (s 512, 128 FLOP/byte, under the H100's ~295), the
+// tensor cores every s from ~1200 on (training, s 4096). Keeping P in fp32
+// precision (below) makes the tensor work 1.5x the bound's 4 d FLOPs a
+// visible pair.
 //
-// - bf16 (`flash_fwd_mma_kernel`): four warps, each owning 16 q rows. Both
-//   products run on the tensor cores as mma.sync m16n8k16 with fp32
-//   accumulation; Q stays in registers as A fragments, the score fragments
-//   are rescaled, masked and exponentiated in registers and become the A
-//   fragments of P V directly, as in FlashAttention-2. P is split into bf16
-//   hi + lo parts (two products) so that it keeps the TPU kernel's fp32
-//   precision instead of FlashAttention-2's bf16 rounding.
-// - fp32 (`flash_fwd_fma_kernel`): a 16 x 16 thread grid computes 4x4
-//   blocks of the score tile and 4 x HD/16 blocks of the output with fp32
-//   FMAs, so fp32 callers keep fp32 products (tensor-core tf32 would not
-//   hold 1e-4).
+// bf16 (`flash_fwd_wgmma_kernel`): a warp-specialised TMA + wgmma pipeline.
+// One block of three warpgroups owns one (batch, q-head, 128-row q tile):
+// - a producer warpgroup gives its registers away (setmaxnreg) and one of
+//   its threads issues every load as a TMA tile copy: Q once, then K and V
+//   tiles of 128 rows (64 at hd 128 with segment ids or dropout, whose
+//   registers would spill at 128) into a ring of as many stages as 160 KB
+//   hold (2-4), each with a `full` mbarrier (armed with the tile's bytes)
+//   and an `empty` one.
+//   Loads run ahead of the math by the ring's depth, and no thread spends
+//   registers or instructions on addresses; TMA zero-fills rows past sq
+//   and sk, so ragged tails need no masked loads;
+// - two consumer warpgroups, 64 q rows each, take the registers and run
+//   both products as wgmma, the only path to the card's tensor-core rate:
+//   S = Q K^T with both operands in shared memory (K-major, 128-byte
+//   swizzle, one 64-column box per 128 bytes of a row) into fp32
+//   registers; the online softmax on those registers (exp2 with the scale
+//   folded in as scale * log2 e); then O += P V with P from registers: the
+//   accumulator layout of S is the A-fragment layout of the register form
+//   once pairs are packed, so no shuffle is needed, and V is read as
+//   stored ([kv][d], MN-major, the transpose bit). A consumer arrives on a
+//   stage's empty barrier once its P V has retired, and the producer
+//   refills the stage.
+// - masks cost only where they act: the per-element causal, window,
+//   ragged and segment tests run on tiles that cross the diagonal, the
+//   window's edge or sk (any tile when segment ids are given); interior
+//   tiles skip them;
+// - under causal masking q tiles run longest first, so the short ones
+//   fill the tail;
+// - the epilogue stages O / l through the consumer's own rows of the Q
+//   tile (the 128-byte swizzle, no bank conflicts) and writes 16 bytes a
+//   thread; the thread that owns a row writes its lse.
+// P is split into bf16 hi + lo parts (two products into the same O), so it
+// keeps the TPU kernel's fp32 precision instead of a bf16 rounding; that
+// doubles the P V work. Left for later: a persistent schedule, the two
+// consumers' ping-pong and softmax overlapped with the products.
+//
+// fp32 (`flash_fwd_fma_kernel`): 64-row q tiles and 64-row kv tiles
+// staged in shared memory by all threads, a 16 x 16 thread grid computing
+// 4x4 blocks of the score tile and 4 x HD/16 blocks of the output with fp32
+// FMAs, so fp32 callers keep fp32 products (tensor-core tf32 would not hold
+// 1e-4).
 //
 // Segment ids and dropout are the training path's; both kernels take them
 // only in their EXTRA instantiation, so the serving path's inner loop is
 // the one it had without them. Segment ids are int32 [b, s], one row for q
-// and k: a block keeps its q rows' ids in registers and stages each kv
-// tile's ids in shared memory. With dropout, l keeps the undropped sum and
-// only P V sees z = keep / (1 - rate), as in the TPU kernel; the lse is the
-// undropped one.
-//
-// Bound. Causal attention does 2 s^2 d FLOPs per head against 8 s d bytes
-// of bf16 q, k, v and out, i.e. s / 4 FLOP per byte. At the serving
-// prefill (Llama-2-7B, s = 512, d = 128) that is 128 FLOP/byte, under the
-// H100's ~295 FLOP/byte balance point, so the least time is set by device
-// memory; from s ~ 1200 on, as at the training shape s = 4096, it is set by
-// the tensor cores. The design keeps every intermediate (scores,
-// probabilities, running statistics) on chip, so device memory sees only
-// the minimum traffic plus K/V tiles re-read (mostly from L2) once per q
-// tile. What it leaves on the table: loads are synchronous (no cp.async/TMA
-// pipeline overlapping the next tile's load with this tile's math) and
-// mma.sync runs at a fraction of wgmma's rate; those are a later PR's work.
+// and k. With dropout, l keeps the undropped sum and only P V sees z = keep
+// / (1 - rate), as in the TPU kernel; the lse is the undropped one.
 //
 // Numerics follow the TPU kernel: masked scores are NEG_INF = -1e30, the
 // exponent is clamped at MASK_CLAMP = -1e20 so a fully masked row adds
-// nothing, and a row whose l stays 0 divides by 1 (out 0, lse NEG_INF).
+// nothing, and a row whose l stays 0 gets out 0 and lse NEG_INF.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,14 +98,16 @@ struct Params {
   Dropout drop;
 };
 
-// kv tiles [kv_begin, kv_end) that the q tile starting at q0 can see
+// kv rows [begin, end) that a TM-row q tile starting at q0 can see; begin
+// is a multiple of TN
+template <int TM, int TN>
 __device__ __forceinline__ void kv_range(const Params& p, int q0,
                                          int* begin, int* end) {
   *end = p.sk;
   *begin = 0;
   if (p.causal) {
-    *end = min(p.sk, q0 + BM);
-    if (p.window > 0) *begin = max(0, q0 - p.window + 1) / BN * BN;
+    *end = min(p.sk, q0 + TM);
+    if (p.window > 0) *begin = max(0, q0 - p.window + 1) / TN * TN;
   }
 }
 
@@ -104,11 +125,16 @@ __device__ __forceinline__ int q_segment(const Params& p, int bi, int qi) {
   return qi < p.sq ? p.seg[bi * p.seg_sb + qi] : -1;
 }
 
+// the segment id of key row kj (-2 past the end)
+__device__ __forceinline__ int k_segment(const Params& p, int bi, int kj) {
+  return kj < p.sk ? __ldg(p.seg + bi * p.seg_sb + kj) : -2;
+}
+
 // a kv tile's segment ids into shared memory (-2 past the end)
 __device__ __forceinline__ void load_kv_segments(const Params& p, int bi,
                                                  int k0, int* dst) {
   for (int r = threadIdx.x; r < BN; r += blockDim.x)
-    dst[r] = k0 + r < p.sk ? p.seg[bi * p.seg_sb + k0 + r] : -2;
+    dst[r] = k_segment(p, bi, k0 + r);
 }
 
 // ---------------------------------------------------------------------------
@@ -176,7 +202,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 
   int kv_begin, kv_end;
-  kv_range(p, q0, &kv_begin, &kv_end);
+  kv_range<BM, BN>(p, q0, &kv_begin, &kv_end);
   for (int k0 = kv_begin; k0 < kv_end; k0 += BN) {
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BN * HD; e += FMA_THREADS) {
@@ -288,233 +314,404 @@ __global__ void __launch_bounds__(FMA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel (mma.sync m16n8k16, fp32 accumulation)
+// bf16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 q rows
+constexpr int WBM = 128;  // q rows a block: two consumers of 64
+constexpr int W_THREADS = 384;  // producer + two consumer warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-template <int HD>
-constexpr size_t mma_smem_bytes() {
-  // Q, K, V tiles, then the kv tile's segment ids
-  return sizeof(__nv_bfloat16) * 3 * BM * mma_pitch<HD>() + sizeof(int) * BN;
+// kv rows a tile: 128, or 64 where the registers of a 128-row tile do not
+// fit (hd 128 with segment ids or dropout: ptxas spills)
+template <int HD, bool EXTRA>
+__host__ __device__ constexpr int w_bn() {
+  return HD == 128 && EXTRA ? 64 : 128;
+}
+
+// K/V ring stages: as many as 160 KB of tiles hold, at most 4
+template <int HD, int TN>
+__host__ __device__ constexpr int w_stages() {
+  return (160 * 1024 - 2 * WBM * HD) / (4 * TN * HD) < 4
+             ? (160 * 1024 - 2 * WBM * HD) / (4 * TN * HD)
+             : 4;
+}
+
+template <int HD, int TN>
+constexpr size_t wgmma_smem_bytes() {
+  // 1024 bytes of slack to align the tiles for the swizzle, Q, the K and
+  // V rings, the barriers (Q, full and empty per stage), then two slots of
+  // kv segment ids for each consumer
+  return 1024 + 2 * (WBM * HD + 2 * w_stages<HD, TN>() * TN * HD) +
+         8 * (1 + 2 * w_stages<HD, TN>()) + 4 * 2 * 2 * TN;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD, int TN, bool EXTRA>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const Params p) {
+  using namespace hopper;
+  constexpr int ST = w_stages<HD, TN>();
+  constexpr int CB = HD / 64;              // 64-column boxes of a row
+  constexpr uint32_t Q_BOX = WBM * 128;    // bytes of one Q box
+  constexpr uint32_t KV_BOX = TN * 128;    // bytes of one K or V box
+  constexpr uint32_t KV_TILE = CB * KV_BOX;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* const Qs = smem;
+  unsigned char* const Ks = Qs + CB * Q_BOX;  // stage s at s * KV_TILE
+  unsigned char* const Vs = Ks + ST * KV_TILE;
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(Vs + ST * KV_TILE);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + ST;
+  int* const kv_segs = reinterpret_cast<int*>(empty + ST);
+
+  const int h = blockIdx.x % p.nq;
+  const int bi = blockIdx.x / p.nq;
+  const int hk = h / p.group;
+  // longest q tiles first under causal masking
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * WBM;
+  int kv_begin, kv_end;
+  kv_range<WBM, TN>(p, q0, &kv_begin, &kv_end);
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + TN - 1) / TN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, CB * Q_BOX);
+      for (int cb = 0; cb < CB; ++cb)
+        tma_load_4d(Qs + cb * Q_BOX, &tq, q_full, cb * 64, h, q0, bi);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        const int k0 = kv_begin + it * TN;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + s, 2 * KV_TILE);
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load_4d(Ks + s * KV_TILE + cb * KV_BOX, &tk, full + s, cb * 64,
+                      hk, k0, bi);
+          tma_load_4d(Vs + s * KV_TILE + cb * KV_BOX, &tv, full + s, cb * 64,
+                      hk, k0, bi);
+        }
+      }
+    }
+  } else {
+    // consumers: 64 q rows each
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    const int w = t / 32;
+    const int g = (t % 32) / 4;  // fragment row within 8
+    const int t4 = t % 4;        // fragment column pair
+    const int r0 = q0 + 64 * c;  // this consumer's first q row
+    const int row_a = r0 + 16 * w + g;
+    const int row_b = row_a + 8;
+    const float sl2 = p.scale * LOG2E;
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    // running max in log2 units (scores times scale * log2 e), and this
+    // thread's share of the row sums (its columns only, summed at the end)
+    float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+    int seg_a = 0, seg_b = 0;
+    uint32_t hrow_a = 0, hrow_b = 0;
+    if constexpr (EXTRA) {
+      if (p.seg) {
+        seg_a = q_segment(p, bi, row_a);
+        seg_b = q_segment(p, bi, row_b);
+      }
+      hrow_a = dropout_row(p.drop.seed, bi * p.nq + h, row_a);
+      hrow_b = dropout_row(p.drop.seed, bi * p.nq + h, row_b);
+    }
+    const uint32_t q_rows = smem_addr(Qs) + 64 * c * 128;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % ST;
+      const int k0 = kv_begin + it * TN;
+      mbar_wait(full + s, (it / ST) & 1);
+      const uint32_t k_tile = smem_addr(Ks + s * KV_TILE);
+      const uint32_t v_tile = smem_addr(Vs + s * KV_TILE);
+      // with segment ids, each consumer thread fetches one of the tile's
+      // kv ids, into a slot of two that the barrier of the next tile frees
+      // again
+      int my_kv_seg = 0;
+      int* const segs = kv_segs + (2 * c + (it & 1)) * TN;
+      if constexpr (EXTRA) {
+        if (p.seg && t < TN) my_kv_seg = k_segment(p, bi, k0 + t);
+      }
+
+      // S = Q K^T: k-steps of 16 walk 32 bytes along the 128-byte rows of
+      // each 64-column box. S is declared afresh a tile and left undefined
+      // (the first k-step ignores it), so last tile's P is dead once it is
+      // packed, not kept for the next tile's accumulator operands.
+      float sacc[TN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<TN>(sacc,
+                     desc_sw128(q_rows + (kk / 4) * Q_BOX + off, 16, 1024),
+                     desc_sw128(k_tile + (kk / 4) * KV_BOX + off, 16, 1024),
+                     kk > 0);
+      }
+      wgmma_commit();
+
+      // While S computes: the tile's visibility and dropout keep bits, one
+      // bit a score (score i = 4 j + e of this thread in bit i % 32 of word
+      // i / 32). Masks are tested only on a tile that crosses the
+      // diagonal, the window's edge or sk (any tile with segment ids).
+      bool need_mask = k0 + TN > p.sk;
+      if (p.causal) {
+        need_mask = need_mask || k0 + TN - 1 > r0;
+        if (p.window > 0) need_mask = need_mask || r0 + 63 - k0 >= p.window;
+      }
+      if constexpr (EXTRA) need_mask = need_mask || p.seg != nullptr;
+      uint32_t vis[TN / 64] = {};
+      if (need_mask) {
+        if constexpr (EXTRA) {
+          if (p.seg) {
+            if (t < TN) segs[t] = my_kv_seg;
+            named_barrier_sync(1 + c, 128);
+          }
+        }
+#pragma unroll
+        for (int wd = 0; wd < TN / 64; ++wd) {
+          uint32_t bits = 0;
+#pragma unroll 8
+          for (int i = 0; i < 32; ++i) {
+            const int j = 8 * wd + i / 4, e = i % 4;
+            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+            bool keep = visible(p, e < 2 ? row_a : row_b, kj);
+            if constexpr (EXTRA) {
+              if (p.seg)
+                keep = keep && (e < 2 ? seg_a : seg_b) ==
+                                   segs[8 * j + 2 * t4 + (e & 1)];
+            }
+            bits |= static_cast<uint32_t>(keep) << i;
+          }
+          vis[wd] = bits;
+        }
+      }
+      uint32_t kept[TN / 64] = {};
+      if constexpr (EXTRA) {
+        if (p.drop.scale != 0.f) {
+#pragma unroll
+          for (int wd = 0; wd < TN / 64; ++wd) {
+            uint32_t bits = 0;
+#pragma unroll 8
+            for (int i = 0; i < 32; ++i) {
+              const int j = 8 * wd + i / 4, e = i % 4;
+              const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+              bits |= static_cast<uint32_t>(dropout_keep(
+                          e < 2 ? hrow_a : hrow_b, kj, p.drop.thresh))
+                      << i;
+            }
+            kept[wd] = bits;
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // scores to log2 units, masked ones to NEG_INF
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < TN / 2; ++i)
+          sacc[i] = (vis[i / 32] >> (i % 32)) & 1 ? sacc[i] * sl2 : NEG_INF;
+      } else {
+#pragma unroll
+        for (int i = 0; i < TN / 2; ++i) sacc[i] *= sl2;
+      }
+
+      // online softmax; a row's values are spread over the 4 lanes of a
+      // group
+      float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float base_a = fmaxf(mn_a, MASK_CLAMP);
+      const float base_b = fmaxf(mn_b, MASK_CLAMP);
+      const float alpha_a = fast_exp2(m_a - mn_a);
+      const float alpha_b = fast_exp2(m_b - mn_b);
+      float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        sacc[4 * j] = fast_exp2(sacc[4 * j] - base_a);
+        sacc[4 * j + 1] = fast_exp2(sacc[4 * j + 1] - base_a);
+        sacc[4 * j + 2] = fast_exp2(sacc[4 * j + 2] - base_b);
+        sacc[4 * j + 3] = fast_exp2(sacc[4 * j + 3] - base_b);
+        rs_a += sacc[4 * j] + sacc[4 * j + 1];
+        rs_b += sacc[4 * j + 2] + sacc[4 * j + 3];
+      }
+      l_a = l_a * alpha_a + rs_a;
+      l_b = l_b * alpha_b + rs_b;
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= alpha_a;
+        o[4 * j + 1] *= alpha_a;
+        o[4 * j + 2] *= alpha_b;
+        o[4 * j + 3] *= alpha_b;
+      }
+      if constexpr (EXTRA) {
+        // dropout after the sums: l keeps the undropped probabilities
+        if (p.drop.scale != 0.f) {
+#pragma unroll
+          for (int i = 0; i < TN / 2; ++i)
+            sacc[i] *= (kept[i / 32] >> (i % 32)) & 1 ? p.drop.scale : 0.f;
+        }
+      }
+
+      // O += P V: the accumulators of column groups 2kk and 2kk + 1 are
+      // the A fragment of k-step kk, split into bf16 hi + lo parts
+      uint32_t ph[TN / 16][4], pl[TN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1],
+                     &ph[kk][r], &pl[kk][r]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TN / 16; ++kk) {
+        // 16 kv rows of V from row 16 kk; the next 64 columns of d lie one
+        // box (KV_BOX bytes) further on
+        const uint64_t dv = desc_sw128(v_tile + kk * 16 * 128, KV_BOX, 1024);
+        wgmma_rs<HD>(o, ph[kk], dv, 1);
+        wgmma_rs<HD>(o, pl[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < TN / 16; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+      }
+      mbar_arrive(empty + s);
+    }
+
+    // epilogue: the row sums across the group's 4 lanes, O / l into this
+    // consumer's rows of the Q tile (swizzled as TMA wrote Q), then rows
+    // of 16-byte chunks to device memory
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 1.f;
+    const float inv_b = l_b > 0.f ? 1.f / l_b : 1.f;
+    named_barrier_sync(1 + c, 128);  // every Q read of this consumer is done
+    unsigned char* const stage = Qs + 64 * c * 128;
+    const int ra = 16 * w + g;  // local rows ra and ra + 8; both % 8 == g
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      unsigned char* const box = stage + (j / 8) * Q_BOX;
+      const int chunk = ((j % 8) ^ g) * 16 + 4 * t4;
+      *reinterpret_cast<uint32_t*>(box + ra * 128 + chunk) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      *reinterpret_cast<uint32_t*>(box + (ra + 8) * 128 + chunk) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+    }
+    named_barrier_sync(1 + c, 128);
+    __nv_bfloat16* const og = static_cast<__nv_bfloat16*>(p.o);
+    constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
+#pragma unroll
+    for (int e = t; e < 64 * CHUNKS; e += 128) {
+      const int rr = e / CHUNKS, cc = e % CHUNKS;
+      const int qi = r0 + rr;
+      if (qi < p.sq) {
+        const uint4 val = *reinterpret_cast<const uint4*>(
+            stage + (cc / 8) * Q_BOX + rr * 128 + (((cc % 8) ^ (rr % 8)) * 16));
+        *reinterpret_cast<uint4*>(
+            og + ((static_cast<long long>(bi) * p.sq + qi) * p.nq + h) * HD +
+            cc * 8) = val;
+      }
+    }
+    if (t4 == 0) {
+      float* const lse = p.lse + (static_cast<long long>(bi) * p.nq + h) * p.sq;
+      if (row_a < p.sq)
+        lse[row_a] = l_a > 0.f ? m_a * LN2 + logf(l_a) : NEG_INF;
+      if (row_b < p.sq)
+        lse[row_b] = l_b > 0.f ? m_b * LN2 + logf(l_b) : NEG_INF;
+    }
+  }
 }
 
 template <int HD, bool EXTRA>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_fwd_mma_kernel(Params p) {
-  constexpr int P = mma_pitch<HD>();
-  constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
-  constexpr int NT_S = BN / 8;     // n-tiles of the score tile
-  constexpr int NT_O = HD / 8;     // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BM * P;
-  __nv_bfloat16* Vs = Ks + BN * P;
-  int* Ss = reinterpret_cast<int*>(Vs + BN * P);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row (and B column) within 8
-  const int t4 = lane & 3;  // fragment column pair
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int hk = h / p.group;
-
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + bi * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + bi * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + bi * p.v_sb + hk * p.v_sh;
-
-  load_tile<HD, MMA_THREADS>(Qs, qg, p.q_ss, q0, p.sq);
-  __syncthreads();
-  // this warp's 16 q rows as A fragments, one per k-step
-  const int wr = warp * 16;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) load_a<P>(qa[kk], Qs + wr * P + kk * 16, g, t4);
-
-  // this thread's two rows: fragment rows g and g + 8
-  const int row_a = q0 + wr + g;
-  const int row_b = row_a + 8;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-  float o[NT_O][4];
-#pragma unroll
-  for (int t = 0; t < NT_O; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
-  int seg_a = 0, seg_b = 0;
-  uint32_t hrow_a = 0, hrow_b = 0;
-  if constexpr (EXTRA) {
-    if (p.seg) {
-      seg_a = q_segment(p, bi, row_a);
-      seg_b = q_segment(p, bi, row_b);
-    }
-    hrow_a = dropout_row(p.drop.seed, bi * p.nq + h, row_a);
-    hrow_b = dropout_row(p.drop.seed, bi * p.nq + h, row_b);
+cudaError_t launch_wgmma(const Params& p, cudaStream_t st) {
+  constexpr int TN = w_bn<HD, EXTRA>();
+  CUtensorMap tq, tk, tv;
+  const int nkv = p.nq / p.group;
+  if (!hopper::bf16_rows_map(&tq, p.q, HD, p.nq, p.sq, p.b, p.q_sh, p.q_ss,
+                             p.q_sb, WBM))
+    return cudaErrorInvalidValue;
+  if (p.sk == 0) {
+    tk = tv = tq;  // no kv tile is ever loaded
+  } else if (!hopper::bf16_rows_map(&tk, p.k, HD, nkv, p.sk, p.b, p.k_sh,
+                                    p.k_ss, p.k_sb, TN) ||
+             !hopper::bf16_rows_map(&tv, p.v, HD, nkv, p.sk, p.b, p.v_sh,
+                                    p.v_ss, p.v_sb, TN)) {
+    return cudaErrorInvalidValue;
   }
-
-  int kv_begin, kv_end;
-  kv_range(p, q0, &kv_begin, &kv_end);
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD, MMA_THREADS>(Ks, kg, p.k_ss, k0, p.sk);
-    load_tile<HD, MMA_THREADS>(Vs, vg, p.v_ss, k0, p.sk);
-    if constexpr (EXTRA) {
-      if (p.seg) load_kv_segments(p, bi, k0, Ss);
-    }
-    __syncthreads();
-
-    // S = Q K^T: B is K^T, i.e. K rows read as columns
-    float s[NT_S][4];
-#pragma unroll
-    for (int t = 0; t < NT_S; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int t = 0; t < NT_S; ++t) {
-        const __nv_bfloat16* kb = Ks + (t * 8 + g) * P + kk * 16 + 2 * t4;
-        mma_bf16(s[t], qa[kk], ld32(kb), ld32(kb + 8));
-      }
-    }
-
-    // scale, mask, online softmax; s[t][0..1] is row a, s[t][2..3] row b
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-    for (int t = 0; t < NT_S; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t * 8 + 2 * t4 + (e & 1);
-        const int qi = e < 2 ? row_a : row_b;
-        bool vis = visible(p, qi, k0 + col);
-        if constexpr (EXTRA) {
-          if (p.seg) vis = vis && (e < 2 ? seg_a : seg_b) == Ss[col];
-        }
-        s[t][e] = vis ? s[t][e] * p.scale : NEG_INF;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[t][0], s[t][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[t][2], s[t][3]));
-    }
-    // a row's values are spread over the 4 lanes of one group
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float base_a = fmaxf(mn_a, MASK_CLAMP);
-    const float base_b = fmaxf(mn_b, MASK_CLAMP);
-    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
-    float rs_a = 0.f, rs_b = 0.f;
-#pragma unroll
-    for (int t = 0; t < NT_S; ++t) {
-      s[t][0] = expf(s[t][0] - base_a);
-      s[t][1] = expf(s[t][1] - base_a);
-      s[t][2] = expf(s[t][2] - base_b);
-      s[t][3] = expf(s[t][3] - base_b);
-      rs_a += s[t][0] + s[t][1];
-      rs_b += s[t][2] + s[t][3];
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      rs_a += __shfl_xor_sync(0xffffffffu, rs_a, off);
-      rs_b += __shfl_xor_sync(0xffffffffu, rs_b, off);
-    }
-    l_a = l_a * alpha_a + rs_a;
-    l_b = l_b * alpha_b + rs_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int t = 0; t < NT_O; ++t) {
-      o[t][0] *= alpha_a;
-      o[t][1] *= alpha_a;
-      o[t][2] *= alpha_b;
-      o[t][3] *= alpha_b;
-    }
-    if constexpr (EXTRA) {
-      // dropout after the sums: l keeps the undropped probabilities
-      if (p.drop.scale != 0.f) {
-#pragma unroll
-        for (int t = 0; t < NT_S; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kj = k0 + t * 8 + 2 * t4 + (e & 1);
-            s[t][e] *= dropout_keep(e < 2 ? hrow_a : hrow_b, kj,
-                                    p.drop.thresh)
-                           ? p.drop.scale
-                           : 0.f;
-          }
-      }
-    }
-
-    // O += P V: the score fragments of n-tiles 2j and 2j+1 are the A
-    // fragment of k-step j, split into bf16 hi + lo parts so that P keeps
-    // the TPU kernel's fp32 precision; B is V, two kv rows per register
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      uint32_t hi[4], lo[4];
-      split_bf16(s[2 * j][0], s[2 * j][1], &hi[0], &lo[0]);
-      split_bf16(s[2 * j][2], s[2 * j][3], &hi[1], &lo[1]);
-      split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], &hi[2], &lo[2]);
-      split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], &hi[3], &lo[3]);
-      const __nv_bfloat16* vr = Vs + (j * 16 + 2 * t4) * P + g;
-#pragma unroll
-      for (int t = 0; t < NT_O; ++t) {
-        const __nv_bfloat16* vb = vr + t * 8;
-        const uint32_t b0 = pack_bf16(vb[0], vb[P]);
-        const uint32_t b1 = pack_bf16(vb[8 * P], vb[9 * P]);
-        mma_bf16(o[t], hi, b0, b1);
-        mma_bf16(o[t], lo, b0, b1);
-      }
-    }
-  }
-
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o);
-  const float ls_a = l_a > 0.f ? l_a : 1.f;
-  const float ls_b = l_b > 0.f ? l_b : 1.f;
-  if (row_a < p.sq) {
-    __nv_bfloat16* orow =
-        og + ((static_cast<long long>(bi) * p.sq + row_a) * p.nq + h) * HD;
-#pragma unroll
-    for (int t = 0; t < NT_O; ++t)
-      *reinterpret_cast<uint32_t*>(orow + t * 8 + 2 * t4) =
-          pack_bf16(o[t][0] / ls_a, o[t][1] / ls_a);
-    if (t4 == 0)
-      p.lse[(static_cast<long long>(bi) * p.nq + h) * p.sq + row_a] =
-          m_a + logf(ls_a);
-  }
-  if (row_b < p.sq) {
-    __nv_bfloat16* orow =
-        og + ((static_cast<long long>(bi) * p.sq + row_b) * p.nq + h) * HD;
-#pragma unroll
-    for (int t = 0; t < NT_O; ++t)
-      *reinterpret_cast<uint32_t*>(orow + t * 8 + 2 * t4) =
-          pack_bf16(o[t][2] / ls_b, o[t][3] / ls_b);
-    if (t4 == 0)
-      p.lse[(static_cast<long long>(bi) * p.nq + h) * p.sq + row_b] =
-          m_b + logf(ls_b);
-  }
+  const auto kernel = flash_fwd_wgmma_kernel<HD, TN, EXTRA>;
+  const size_t smem = wgmma_smem_bytes<HD, TN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.nq * p.b, (p.sq + WBM - 1) / WBM);
+  kernel<<<grid, W_THREADS, smem, st>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 template <int HD, bool EXTRA>
 cudaError_t dispatch(int dtype, const Params& p, cudaStream_t st) {
-  const dim3 grid((p.sq + BM - 1) / BM, p.nq, p.b);
   if (dtype == 0)
-    return launch(flash_fwd_fma_kernel<HD, EXTRA>, p, grid, FMA_THREADS,
+    return launch(flash_fwd_fma_kernel<HD, EXTRA>, p,
+                  dim3((p.sq + BM - 1) / BM, p.nq, p.b), FMA_THREADS,
                   fma_smem_bytes<HD>(), st);
-  return launch(flash_fwd_mma_kernel<HD, EXTRA>, p, grid, MMA_THREADS,
-                mma_smem_bytes<HD>(), st);
+  return launch_wgmma<HD, EXTRA>(p, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; d has stride 1.
 // For bf16, q, k and v must start 16-byte aligned and every stride must be
-// a multiple of 8 elements: tiles load 16 bytes at a time.
+// a multiple of 8 elements: TMA's rules for the tensor maps built here.
 // out is a contiguous [b, sq, nq, hd] tensor of the input dtype, lse a
 // contiguous [b, nq, sq] fp32 tensor. seg is null or a contiguous [b, sq]
 // int32 tensor (requires sq == sk). drop_scale == 0 turns dropout off;

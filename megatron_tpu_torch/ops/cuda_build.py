@@ -25,7 +25,7 @@ SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu",
            "flash_bwd": CSRC / "flash_bwd.cu",
            "block_attn": CSRC / "block_attn.cu",
            "fused_norms": CSRC / "fused_norms.cu"}
-HEADERS = (CSRC / "flash_common.cuh",)
+HEADERS = (CSRC / "flash_common.cuh", CSRC / "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -111,3 +111,61 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 2, 1, 64))
     with pytest.raises(ValueError):
         flash_attention_cuda.flash_fwd_cuda(q, k, v, causal=True, scale=0.1)
+
+
+def _pad_rows(a, s):
+    return np.pad(a, ((0, 0), (0, s - a.shape[1]), (0, 0), (0, 0)))
+
+
+def _segment_ids(b, s):
+    """Three documents a row, with boundaries inside 128-row tiles."""
+    seg = np.zeros((b, s), np.int32)
+    seg[:, 77:] = 1
+    seg[:, 200:] = 2
+    return seg
+
+
+@pytest.mark.parametrize("case", ["s129_mqa_window100",
+                                  "segments_inside_tile"])
+def test_kernel_tile_edges_match_pallas_interpret(case):
+    """Where the Hopper kernel's 128-row tiles break: s 129 (one row past a
+    tile) with MQA and a window of 100, and segment boundaries inside a
+    tile. The Pallas kernel tiles s by multiples of 128, so at s 129 it runs
+    on k, v and q zero-padded to 256: under causal masking the first 129
+    rows never see a padded key, and those rows are compared."""
+    if case == "s129_mqa_window100":
+        q, k, v = _inputs(2, 129, 4, 1, 64, seed=4)
+        got, _ = _port(q, k, v, causal=True, sliding_window=100)
+        padded = [jnp.asarray(_pad_rows(a, 256)) for a in (q, k, v)]
+        want = pallas_flash_attention(*padded, True, None, 128, 128, True,
+                                      None, None, 100)[:, :129]
+        blockwise = _blockwise_attention(*map(jnp.asarray, (q, k, v)),
+                                         causal=True, scale=None,
+                                         block_kv=512, sliding_window=100)
+        np.testing.assert_allclose(got, np.asarray(blockwise), rtol=TOL,
+                                   atol=TOL)
+    else:
+        q, k, v = _inputs(2, 256, 4, 2, 64, seed=5)
+        seg = _segment_ids(2, 256)
+        got, _ = _port(q, k, v, causal=True,
+                       segment_ids=torch.from_numpy(seg))
+        fseg = jnp.asarray(seg, jnp.float32)
+        want = pallas_flash_attention(*map(jnp.asarray, (q, k, v)), True,
+                                      None, 128, 128, True, fseg, fseg)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_every_included_header_is_a_build_input():
+    """A library is named by the hash of its source and of
+    cuda_build.HEADERS: a header a source includes but HEADERS lacks would
+    leave a stale library in use after the header changed."""
+    import re
+    from megatron_tpu_torch.ops import cuda_build
+    listed = {h.name for h in cuda_build.HEADERS}
+    included = set()
+    for src in sorted(cuda_build.CSRC.glob("*.cu")):
+        included |= set(re.findall(r'#include\s+"([^"]+\.cuh)"',
+                                   src.read_text()))
+    assert included, "no source includes a local header"
+    assert included <= listed, f"not in HEADERS: {included - listed}"
+    assert all(h.exists() for h in cuda_build.HEADERS)
