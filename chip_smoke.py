@@ -7,7 +7,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. device: prints `nvidia-smi --query-gpu=name,power.limit` on its own line;
 2. build: compiles every kernel source from the checkout (nvcc, sm_90a, one
    process per source, in parallel) and prints the build time and ptxas's
-   register and spill lines;
+   register and spill lines; a wgmma kernel that spills fails the run;
 3. kernels: holds each kernel against its plain PyTorch version on the card,
    with the stated tolerances, and times kernel, plain version and the
    PyTorch library call for the same function where there is one
@@ -19,9 +19,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    forward time queued behind a spin, so it is the device's alone), and
    forward plus the dQ and dK/dV backward kernels at the training shapes of
    TRAIN_CASES (segment ids, dropout, an lse cotangent, GQA, MQA, ragged,
-   fp32 with a window), each backward run twice and required bit-identical;
-   the forward kernel's dropout keep bits, read off its output, must equal
-   the plain hash bit for bit; the block-native decode-attention kernel at
+   a bf16 window, Falcon-7B MQA with segment ids and dropout at a ragged
+   s 1000, fp32 with a window), each backward run twice and required
+   bit-identical, every time queued; the dropout keep bits of the forward,
+   dQ and dV kernels, read off their outputs, must equal the plain hash bit
+   for bit; the block-native decode-attention kernel at
    BLOCK_CASES (the engine's decode shape, 64-token blocks, a 4-query
    verify window, 64/8 GQA, Falcon-7B's 71/1 heads at hd 64, fp32, int8
    with scales, idle rows), each on a scattered block map and rerun with
@@ -91,12 +93,19 @@ the norm kernels' on every path above) and, last, {"ok": true, "device":
 ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
+
+`--compare-fwd OLD_CU` and `--compare-bwd OLD_CU` replace the smoke run:
+they build an earlier csrc/flash_fwd.cu or csrc/flash_bwd.cu (headers
+beside it first, e.g. an earlier commit's csrc/ unpacked with `git
+archive`) outside the checkout and time it beside the current kernels at
+every bf16 shape, old, new, new, old.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -144,7 +153,10 @@ MAIN_SHAPE = "llama2_7b_prefill"
 # rate, lse cotangent): the training path's attention. The first is the
 # main path's call (Llama-2-7B, s 4096); the others are the features and
 # layouts the kernels take (segment ids give two documents a row; Falcon-7B
-# trains at its 2048 positions).
+# trains at its 2048 positions). bf16_window100_train runs the bf16 backward
+# with a window; falcon7b_mqa_extra_train holds the d 64 EXTRA
+# instantiations (segment ids and dropout), the dK/dV head split of MQA
+# and a ragged tail (1000 rows) in one case.
 TRAIN_CASES = [
     ("llama2_7b_train", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.0,
      False),
@@ -161,6 +173,10 @@ TRAIN_CASES = [
      False),
     ("fp32_window128_train", 1, 2048, 32, 8, 128, "float32", 128, False, 0.0,
      False),
+    ("bf16_window100_train", 1, 1024, 32, 8, 128, "bfloat16", 100, False,
+     0.0, False),
+    ("falcon7b_mqa_extra_train", 1, 1000, 71, 1, 64, "bfloat16", None, True,
+     0.1, False),
 ]
 TRAIN_MAIN_SHAPE = "llama2_7b_train"
 DROPOUT_SEED = 4321
@@ -375,6 +391,24 @@ def visible_pairs(s: int, window, seg) -> int:
     return int((mask[None] & (seg[:, :, None] == seg[:, None, :])).sum())
 
 
+def training_bounds(b, s, nq, nkv, d, item, dtype_name, pairs, seg, dlse):
+    """(forward, dQ, dK/dV) bounds of one training call: each kernel's
+    operations on this run's visible pairs (4 d, 6 d and 8 d a pair) and
+    the bytes it must move (q, k, v, dout, out, dq, dk, dv, the [b, nq, s]
+    fp32 row stats and the segment ids, each read or written once)."""
+    seg_bytes = 4 * b * s if seg else 0
+    stat_bytes = 4 * b * nq * s
+    qo_bytes = item * b * s * nq * d  # one [b, s, nq, d] tensor
+    kv_bytes = item * b * s * nkv * d  # one [b, s, nkv, d] tensor
+    n_stats = 3 if dlse else 2  # lse, delta (, dlse)
+    return (bound_ms(4 * d * pairs, 2 * qo_bytes + 2 * kv_bytes
+                     + stat_bytes + seg_bytes, dtype_name),
+            bound_ms(6 * d * pairs, 3 * qo_bytes + 2 * kv_bytes
+                     + n_stats * stat_bytes + seg_bytes, dtype_name),
+            bound_ms(8 * d * pairs, 2 * qo_bytes + 4 * kv_bytes
+                     + n_stats * stat_bytes + seg_bytes, dtype_name))
+
+
 def sdpa_calls(q, k, v, dout, scale, window):
     """(forward, backward) of scaled_dot_product_attention on the same
     inputs: the library yardstick for causal attention without segment
@@ -429,6 +463,7 @@ def phase_build() -> None:
     fused_norms_cuda._library()
     log(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    spilled = []
     for name, path in paths.items():
         kernel = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -437,6 +472,13 @@ def phase_build() -> None:
             elif ("registers" in line or "spill" in line
                   or "arning" in line):
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
+                if "wgmma" in kernel and any(
+                        int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                   line)):
+                    spilled.append(kernel)
+    # a wgmma kernel that spills loses its registers' worth of accumulators
+    # to local memory: the design requires none
+    check(not spilled, f"wgmma kernels spill registers: {spilled}")
 
 
 def phase_kernels() -> list[dict]:
@@ -510,33 +552,69 @@ def phase_kernels() -> list[dict]:
 
 
 def check_dropout_bits() -> int:
-    """The forward kernel's dropout keep bits against the plain hash, bit
-    for bit, on a slice (2 batch rows, 4 heads, 256 queries, 128 keys):
-    with q = k = 0 every weight is 1/128, and with v the identity,
-    out[b, i, h, j] = z_ij / 128, which is 0 exactly where a key is
-    dropped. Returns the number of bits compared."""
+    """The dropout keep bits of the forward and of both backward kernels
+    against the plain hash, bit for bit, on slices of 2 batch rows and 4
+    heads, each read off an output that is 0 exactly where a key is
+    dropped:
+    - forward (256 queries, 128 keys, d 128): with q = k = 0 every weight
+      is 1/128, and with v the identity, out[b, i, h, j] = z_ij / 128;
+    - dQ (d queries and keys, d 64 and 128, non-causal): with q = 0 every p
+      is 1/d; with k the identity, v and dout all ones and delta 0, dS_ij =
+      p z_ij d and dq[b, i, h, j] = scale z_ij;
+    - dV (the same sizes): with q = k = 0 and dout the identity,
+      dv[b, j, h, i] = z_ij / d.
+    fp32 and bf16 each. Returns the number of bits compared."""
     import torch
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
     from megatron_tpu_torch.ops.flash_attention import _dropout_keep
-    from megatron_tpu_torch.ops.flash_attention_cuda import flash_fwd_cuda
-    b, sq, nq, d = 2, 256, 4, 128
+    b, nq = 2, 4
     bh = (torch.arange(b, device="cuda")[:, None, None, None] * nq
           + torch.arange(nq, device="cuda")[None, None, :, None])
-    want = _dropout_keep(DROPOUT_SEED, bh,
-                         torch.arange(sq, device="cuda")[None, :, None, None],
-                         torch.arange(d, device="cuda")[None, None, None, :],
-                         0.1)
+
+    def keep(sq, sk):  # [b, sq, nq, sk]
+        return _dropout_keep(
+            DROPOUT_SEED, bh,
+            torch.arange(sq, device="cuda")[None, :, None, None],
+            torch.arange(sk, device="cuda")[None, None, None, :], 0.1)
+
+    def differ(got, want, what):
+        check(torch.equal(got, want),
+              f"dropout keep bits of {what} differ from the plain hash: "
+              f"{int((got != want).sum())} of {want.numel()}")
+        return want.numel()
+
+    drop = dict(dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+    compared = 0
+    want = keep(256, 128)
+    d = 128
     for dtype in (torch.float32, torch.bfloat16):
-        q = torch.zeros(b, sq, nq, d, dtype=dtype, device="cuda")
+        q = torch.zeros(b, 256, nq, d, dtype=dtype, device="cuda")
         k = torch.zeros(b, d, nq, d, dtype=dtype, device="cuda")
         v = torch.eye(d, dtype=dtype, device="cuda")[None, :, None, :].expand(
             b, d, nq, d).contiguous()
-        out, _ = flash_fwd_cuda(q, k, v, causal=False, scale=d ** -0.5,
-                                dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+        out, _ = fc.flash_fwd_cuda(q, k, v, causal=False, scale=d ** -0.5,
+                                   **drop)
         torch.cuda.synchronize()
-        check(torch.equal(out != 0, want),
-              f"dropout keep bits differ from the plain hash ({dtype}): "
-              f"{int(((out != 0) != want).sum())} of {want.numel()}")
-    return int(want.numel())
+        compared += differ(out != 0, want, f"the forward ({dtype})")
+    for d in (64, 128):
+        want = keep(d, d)
+        lse = torch.full((b, nq, d), math.log(d), device="cuda")
+        delta = torch.zeros(b, nq, d, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            zeros = torch.zeros(b, d, nq, d, dtype=dtype, device="cuda")
+            ones = torch.ones_like(zeros)
+            eye = torch.eye(d, dtype=dtype, device="cuda")[
+                None, :, None, :].expand(b, d, nq, d).contiguous()
+            kw = dict(causal=False, scale=d ** -0.5, **drop)
+            dq = fc.flash_bwd_dq_cuda(zeros, eye, ones, ones, lse, delta,
+                                      **kw)
+            _, dv = fc.flash_bwd_dkv_cuda(zeros, zeros, zeros, eye, lse,
+                                          delta, **kw)
+            torch.cuda.synchronize()
+            compared += differ(dq != 0, want, f"dQ (d {d}, {dtype})")
+            compared += differ(dv.permute(0, 3, 2, 1) != 0, want,
+                               f"dV (d {d}, {dtype})")
+    return compared
 
 
 def phase_training_kernels() -> list[dict]:
@@ -615,25 +693,16 @@ def phase_training_kernels() -> list[dict]:
         del grads, again
 
         pairs = visible_pairs(s, window, seg) * b * nq
-        item = q.element_size()
-        seg_bytes = 0 if seg is None else 4 * b * s
-        stat_bytes = 4 * b * nq * s
-        qo_bytes = item * b * s * nq * d  # one [b, s, nq, d] tensor
-        kv_bytes = item * b * s * nkv * d  # one [b, s, nkv, d] tensor
-        n_stats = 2 + (dlse is not None)  # lse, delta (, dlse)
-        fwd_bound = bound_ms(4 * d * pairs, 2 * qo_bytes + 2 * kv_bytes
-                             + stat_bytes + seg_bytes, str(dtype))
-        dq_bound = bound_ms(6 * d * pairs, 3 * qo_bytes + 2 * kv_bytes
-                            + n_stats * stat_bytes + seg_bytes, str(dtype))
-        dkv_bound = bound_ms(8 * d * pairs, 2 * qo_bytes + 4 * kv_bytes
-                             + n_stats * stat_bytes + seg_bytes, str(dtype))
+        fwd_bound, dq_bound, dkv_bound = training_bounds(
+            b, s, nq, nkv, d, q.element_size(), str(dtype), pairs,
+            seg is not None, dlse is not None)
         same_as_sdpa = seg is None and not rate
         lib_fwd = lib_bwd = None
         if same_as_sdpa:
             sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, d ** -0.5, window)
             lib_fwd = cuda_time_ms(sdpa_fwd, 10, 2, queued=True)
             if dlse is None:
-                lib_bwd = cuda_time_ms(sdpa_bwd, 10, 2)
+                lib_bwd = cuda_time_ms(sdpa_bwd, 10, 2, queued=True)
         plain_bwd_ms = cuda_time_ms(plain_bwd, 3, 1)
         r = dict(
             shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d, dtype=dname,
@@ -648,13 +717,14 @@ def phase_training_kernels() -> list[dict]:
                          queued=True),
                      bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                      library_ms=lib_fwd),
-            dq=dict(**errs["dq"], ms=cuda_time_ms(dq_kernel, 10, 2),
+            dq=dict(**errs["dq"], ms=cuda_time_ms(dq_kernel, 10, 2,
+                                                  queued=True),
                     plain_ms=plain_bwd_ms, bound_ms=dq_bound[0],
                     bound_by=dq_bound[1], library_ms=lib_bwd),
             dkv=dict(max_abs_err=max(errs["dk"]["max_abs_err"],
                                      errs["dv"]["max_abs_err"]),
                      dk=errs["dk"], dv=errs["dv"],
-                     ms=cuda_time_ms(dkv_kernel, 10, 2),
+                     ms=cuda_time_ms(dkv_kernel, 10, 2, queued=True),
                      plain_ms=plain_bwd_ms, bound_ms=dkv_bound[0],
                      bound_by=dkv_bound[1], library_ms=lib_bwd),
             bitwise_repeat=True)
@@ -1006,6 +1076,34 @@ def forward_shapes():
     return shapes
 
 
+def build_old_library(old_source: str):
+    """An earlier kernel source built into a temporary directory outside
+    the checkout and loaded. Headers are looked up beside the source first
+    (an earlier tree's csrc/ unpacked whole keeps its own headers), then in
+    the current csrc/."""
+    import ctypes
+    import os
+    import shutil
+    import tempfile
+    from megatron_tpu_torch.ops import cuda_build
+    tmp = tempfile.mkdtemp(prefix="flash_old_")
+    try:
+        old_so = f"{tmp}/libflash_old.so"
+        build = subprocess.run(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             os.path.dirname(os.path.abspath(old_source)), "-I",
+             str(cuda_build.CSRC), "-o", old_so, old_source],
+            capture_output=True, text=True)
+        check(build.returncode == 0, f"nvcc {old_source}: {build.stdout}"
+              f"{build.stderr}")
+        for line in build.stdout.splitlines() + build.stderr.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas (old) {line.strip()}")
+        return ctypes.CDLL(old_so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def compare_forward(old_source: str) -> int:
     """Before and after of the bf16 flash forward on one card: builds
     `old_source` (an earlier csrc/flash_fwd.cu with the same C interface)
@@ -1016,28 +1114,12 @@ def compare_forward(old_source: str) -> int:
     it computes the same function, the plain version's, and the new
     kernel's error against the plain version) and exits 1 if any shape's
     new output leaves TOL."""
-    import ctypes
-    import shutil
-    import tempfile
     import torch
-    import torch.nn.functional as F
-    from megatron_tpu_torch.ops import cuda_build
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
     from megatron_tpu_torch.ops.flash_attention import blockwise_attention
     smi = phase_device()
     new_lib = fc._library("flash_fwd")
-    tmp = tempfile.mkdtemp(prefix="flash_fwd_old_")
-    try:
-        old_so = f"{tmp}/libflash_fwd_old.so"
-        build = subprocess.run(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-             str(cuda_build.CSRC), "-o", old_so, old_source],
-            capture_output=True, text=True)
-        check(build.returncode == 0, f"nvcc {old_source}: {build.stdout}"
-              f"{build.stderr}")
-        old_lib = ctypes.CDLL(old_so)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    old_lib = build_old_library(old_source)
     old_lib.flash_fwd.argtypes = new_lib.flash_fwd.argtypes
     old_lib.flash_fwd.restype = new_lib.flash_fwd.restype
     libs = {"old": old_lib, "new": new_lib}
@@ -1100,6 +1182,133 @@ def compare_forward(old_source: str) -> int:
         del q, kv, k, v, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
     check(not failed, f"new forward outside TOL at {failed}")
+    return 0
+
+
+class _OldBackward:
+    """An earlier flash_bwd library behind the current wrapper's calls:
+    where its flash_bwd_dkv predates the chunk and workspace arguments, they
+    are dropped (one block then sums a whole group, as it did)."""
+
+    def __init__(self, lib, new_lib, chunked: bool):
+        self.flash_bwd_dq = lib.flash_bwd_dq
+        self.flash_bwd_dq.argtypes = new_lib.flash_bwd_dq.argtypes
+        self.flash_bwd_dq.restype = new_lib.flash_bwd_dq.restype
+        self._dkv = lib.flash_bwd_dkv
+        types = new_lib.flash_bwd_dkv.argtypes
+        self._dkv.argtypes = types if chunked else types[:-3] + types[-1:]
+        self._dkv.restype = new_lib.flash_bwd_dkv.restype
+        self._chunked = chunked
+
+    def flash_bwd_dkv(self, *args):
+        if self._chunked:
+            return self._dkv(*args)
+        return self._dkv(*args[:-3], args[-1])
+
+
+def compare_backward(old_source: str) -> int:
+    """Before and after of the bf16 flash backward on one card: builds
+    `old_source` (an earlier csrc/flash_bwd.cu; bound with its own C
+    signature where that predates the dK/dV head chunks) outside the
+    checkout, and times its dQ and dK/dV and the current ones through the
+    same wrappers and the same queued timer at every bf16 shape of
+    TRAIN_CASES, in the order old, new, new, old. Prints one JSON line a
+    shape (both kernels' times old and new, their bounds, SDPA's backward
+    where it computes the same function, the new grads' errors against the
+    plain backward) and exits 1 if any new grad leaves GRAD_TOL."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = phase_device()
+    new_lib = fc._library("flash_bwd")
+    with open(old_source) as f:
+        chunked = "int chunks" in f.read()
+    libs = {"old": _OldBackward(build_old_library(old_source), new_lib,
+                                chunked),
+            "new": new_lib}
+    original = fc._library
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    failed = []
+    for (label, b, s, nq, nkv, d, dname, window, use_seg, rate,
+         use_dlse) in TRAIN_CASES:
+        if dname != "bfloat16":
+            continue
+        q = torch.randn(b, s, nq, d, generator=gen, device="cuda").bfloat16()
+        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+                         device="cuda").bfloat16()
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        dout = torch.randn(b, s, nq, d, generator=gen,
+                           device="cuda").bfloat16()
+        seg = None
+        if use_seg:
+            seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+            seg[:, s // 2:] = 1
+        dlse = (torch.randn(b, nq, s, generator=gen, device="cuda")
+                if use_dlse else None)
+        kw = dict(causal=True, scale=d ** -0.5, sliding_window=window,
+                  segment_ids=seg, dropout_rate=rate,
+                  dropout_seed=DROPOUT_SEED)
+        out, lse = fa.blockwise_attention(q, k, v, **kw)
+        delta = fa.attention_delta(out, dout)
+        bkw = dict(kw, dlse=dlse)
+
+        def call(which, fn):
+            fc._library = lambda name: libs[which]
+            try:
+                return fn(q, k, v, dout, lse, delta, **bkw)
+            finally:
+                fc._library = original
+
+        grads = (call("new", fc.flash_bwd_dq_cuda),
+                 *call("new", fc.flash_bwd_dkv_cuda))
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads,
+                                   fa.blockwise_attention_bwd(
+                                       q, k, v, dout, lse, delta, **bkw)):
+            err = (got.float() - want.float()).abs().max().item()
+            tol = GRAD_TOL[dname] * want.float().abs().max().item()
+            errs[name] = err
+            if not (bool(torch.isfinite(got).all()) and err <= tol):
+                failed.append(f"{label} {name}")
+        del grads
+        times = {(which, part): [] for which in ("old", "new")
+                 for part in ("dq", "dkv")}
+        for which in ("old", "new", "new", "old"):
+            for part, fn in (("dq", fc.flash_bwd_dq_cuda),
+                             ("dkv", fc.flash_bwd_dkv_cuda)):
+                times[which, part].append(cuda_time_ms(
+                    lambda: call(which, fn), 10, 2, queued=True))
+        sdpa_ms = None
+        if seg is None and not rate and dlse is None:
+            sdpa_ms = cuda_time_ms(
+                sdpa_calls(q, k, v, dout, d ** -0.5, window)[1], 10, 2,
+                queued=True)
+        pairs = visible_pairs(s, window, seg) * b * nq
+        _, dq_bound, dkv_bound = training_bounds(
+            b, s, nq, nkv, d, 2, "torch.bfloat16", pairs, seg is not None,
+            dlse is not None)
+        mean = {key: sum(v_) / len(v_) for key, v_ in times.items()}
+        r = dict(shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d,
+                 sliding_window=window, segments=use_seg, dropout=rate,
+                 dlse=use_dlse, visible_pairs=pairs,
+                 dkv_head_chunks=fc.dkv_head_chunks(
+                     b, s, nkv, nq // nkv, fc._sm_count(q.device.index)),
+                 old_dq_ms=mean["old", "dq"], new_dq_ms=mean["new", "dq"],
+                 old_dkv_ms=mean["old", "dkv"],
+                 new_dkv_ms=mean["new", "dkv"],
+                 old_pair_ms=mean["old", "dq"] + mean["old", "dkv"],
+                 new_pair_ms=mean["new", "dq"] + mean["new", "dkv"],
+                 runs={f"{w}_{p}": t for (w, p), t in times.items()},
+                 dq_bound_ms=dq_bound[0], dkv_bound_ms=dkv_bound[0],
+                 bound_by=[dq_bound[1], dkv_bound[1]],
+                 sdpa_bwd_ms=sdpa_ms, max_abs_err=errs, card=smi)
+        r["pair_speedup"] = r["old_pair_ms"] / r["new_pair_ms"]
+        log("backward before/after: " + json.dumps(r))
+        del q, kv, k, v, dout, out, lse, delta
+        torch.cuda.empty_cache()
+    check(not failed, f"new backward outside GRAD_TOL at {failed}")
     return 0
 
 
@@ -2110,6 +2319,11 @@ def main(argv=None) -> int:
         "--compare-fwd", metavar="FLASH_FWD_CU",
         help="instead of the smoke run, time this earlier csrc/flash_fwd.cu "
              "beside the current one at every bf16 forward shape")
+    parser.add_argument(
+        "--compare-bwd", metavar="FLASH_BWD_CU",
+        help="instead of the smoke run, time this earlier csrc/flash_bwd.cu "
+             "(headers beside it first) beside the current one at every "
+             "bf16 training shape")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2126,9 +2340,13 @@ def main(argv=None) -> int:
               "repository (megatron_tpu_torch not importable)",
               file=sys.stderr)
         return 2
-    if args.compare_fwd:
+    if args.compare_fwd or args.compare_bwd:
         try:
-            return compare_forward(args.compare_fwd)
+            if args.compare_fwd:
+                compare_forward(args.compare_fwd)
+            if args.compare_bwd:
+                compare_backward(args.compare_bwd)
+            return 0
         except Exception:  # noqa: BLE001 — any failure fails the run
             traceback.print_exc()
             return 1
@@ -2138,8 +2356,9 @@ def main(argv=None) -> int:
         cases = phase_kernels()
         train_cases = phase_training_kernels()
         bits = check_dropout_bits()
-        log(f"dropout: the forward kernel's keep bits equal the plain hash "
-            f"on {bits} (query, key) pairs, fp32 and bf16")
+        log(f"dropout: the keep bits of the forward, dQ and dV kernels "
+            f"equal the plain hash on {bits} (query, key) pairs, fp32 and "
+            f"bf16")
         block_cases = phase_block_kernels()
         norm_cases = phase_norm_kernels()
         bench_stats = phase_bench_kernels()
@@ -2176,7 +2395,10 @@ def main(argv=None) -> int:
               main_stats["launches"] + engine_flash
               + train_counts["flash_fwd_cuda"]
               + bench_counts["flash_fwd_cuda"], "fwd",
-              dict(launches_by_path=dict(
+              dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
+                                 "warp-specialised wgmma)",
+                                 "flash_fwd_fma_kernel (fp32)"],
+                   launches_by_path=dict(
                   serving=main_stats["launches"],
                   engine_prefill=engine_flash,
                   int8_engine_prefill=int8_stats["launches"]["flash_fwd"],
@@ -2190,10 +2412,18 @@ def main(argv=None) -> int:
                            "library_ms")}),
                    serving_cases=cases)),
         entry("flash_bwd_dq", "megatron_tpu_torch/csrc/flash_bwd.cu",
-              f"{pallas}:191", train_counts["flash_bwd_dq_cuda"], "dq", {}),
+              f"{pallas}:191", train_counts["flash_bwd_dq_cuda"], "dq",
+              dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
+                                 "ring, warp-specialised wgmma)",
+                                 "flash_bwd_dq_fma_kernel (fp32)"])),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"], "dkv",
-              {}),
+              dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
+                                 "ring, warp-specialised wgmma, q-head "
+                                 "chunks)",
+                                 "flash_bwd_dkv_sum_kernel (bf16, chunks "
+                                 "> 1)",
+                                 "flash_bwd_dkv_fma_kernel (fp32)"])),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     kernels.append(dict(

@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the TPU kernels' masking constants, the attention-dropout hash, and the
-// bf16 tensor-core helpers (mma.sync m16n8k16 fragments, 16-byte tile
-// loads into padded shared memory).
+// the TPU kernels' masking constants, the attention-dropout hash, exp2 for
+// the wgmma kernels' softmax, the bf16 packing and hi + lo split, and the
+// launch helper.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +14,7 @@ constexpr int BM = 64;  // q rows per tile
 constexpr int BN = 64;  // kv rows per tile
 constexpr float NEG_INF = -1e30f;
 constexpr float MASK_CLAMP = -1e20f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // murmur3 fmix32 and the dropout keep bit of flash_attention_pallas.py
 // `_fmix32` / `_dropout_keep`, in uint32: wrapping multiplies and logical
@@ -48,23 +49,17 @@ struct Dropout {
   float scale;
 };
 
-// --- bf16 tensor-core helpers ---------------------------------------------
+// --- arithmetic helpers -----------------------------------------------------
 
-// bf16 elements per shared-memory row: +8 makes the fragment reads of 8 rows
-// at one column fall into distinct banks and keeps rows 16-byte aligned
-template <int HD>
-__host__ __device__ constexpr int mma_pitch() {
-  return HD + 8;
+// 2^x on the special-function unit (scores are kept in log2 units)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -75,52 +70,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   *hi = *reinterpret_cast<const uint32_t*>(&h);
   *lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment (16 rows x 16 columns starting at `base`, row pitch P) of
-// a bf16 tile in shared memory, for the lane with fragment row g and
-// column pair t4
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t a[4],
-                                       const __nv_bfloat16* base, int g,
-                                       int t4) {
-  const __nv_bfloat16* r = base + g * P + 2 * t4;
-  a[0] = ld32(r);
-  a[1] = ld32(r + 8 * P);
-  a[2] = ld32(r + 8);
-  a[3] = ld32(r + 8 * P + 8);
-}
-
-// rows [row0, row0 + 64) of a [s, HD] head slice (row stride `ss`) into a
-// shared tile, 16 bytes at a time, by `threads` threads; rows at or past
-// `limit` are zero
-template <int HD, int THREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int row0, int limit) {
-  constexpr int P = mma_pitch<HD>();
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < BM * CHUNKS; e += THREADS) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = val;
-  }
 }
 
 // raise a kernel's dynamic shared-memory limit, then launch it on `stream`

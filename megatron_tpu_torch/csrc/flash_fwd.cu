@@ -319,7 +319,6 @@ __global__ void __launch_bounds__(FMA_THREADS)
 
 constexpr int WBM = 128;  // q rows a block: two consumers of 64
 constexpr int W_THREADS = 384;  // producer + two consumer warpgroups
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // kv rows a tile: 128, or 64 where the registers of a 128-row tile do not
@@ -344,12 +343,6 @@ constexpr size_t wgmma_smem_bytes() {
   // kv segment ids for each consumer
   return 1024 + 2 * (WBM * HD + 2 * w_stages<HD, TN>() * TN * HD) +
          8 * (1 + 2 * w_stages<HD, TN>()) + 4 * 2 * 2 * TN;
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int HD, int TN, bool EXTRA>

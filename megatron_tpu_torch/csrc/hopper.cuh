@@ -79,6 +79,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (global_ns() - t0 > 10000000000ull) __trap();
 }
 
+// The same wait with no time limit, for warps whose register budget the
+// trap above would cut: with a trap reachable from a consumer's waits,
+// ptxas holds the consumer under ~180 registers whatever setmaxnreg
+// grants, and serialises its wgmma. A block that spins so keeps one
+// producer thread in mbar_wait on a barrier the spinning warps arrive on
+// when done, which bounds their waits instead.
+__device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+
 // a barrier among `count` threads (whole warps) of the block, id 1-15
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -175,6 +187,23 @@ __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,

@@ -25,6 +25,10 @@ from megatron_tpu_torch.ops.cuda_build import raise_on as _raise_on
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+# kv rows a block of the bf16 dK/dV kernel owns (csrc/flash_bwd.cu DKV_ROWS)
+DKV_BLOCK_ROWS = 128
+# waves of blocks over the card's SMs that the dK/dV grid should reach
+DKV_TARGET_WAVES = 2
 
 
 @functools.cache
@@ -38,9 +42,10 @@ def _library(name: str) -> ctypes.CDLL:
         lib.flash_fwd.restype = i
     else:
         head = [p] * 8  # q, k, v, dout, lse, delta, dlse, seg
-        tail = [i] * 7 + [p, f, i, i, u, u, f, p]
-        lib.flash_bwd_dq.argtypes = head + [p] + tail
-        lib.flash_bwd_dkv.argtypes = head + [p, p] + tail
+        tail = [i] * 7 + [p, f, i, i, u, u, f]
+        lib.flash_bwd_dq.argtypes = head + [p] + tail + [p]
+        # ..., chunks, workspace, stream
+        lib.flash_bwd_dkv.argtypes = head + [p, p] + tail + [i, p, p]
         lib.flash_bwd_dq.restype = i
         lib.flash_bwd_dkv.restype = i
     return lib
@@ -75,8 +80,8 @@ def _check_inputs(where: str, tensors: dict):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not form "
                          "GQA attention")
     if first.dtype == torch.bfloat16:
-        # bf16 tiles load 16 bytes at a time, so every row must start on a
-        # 16-byte boundary
+        # bf16 tiles are TMA copies: a tensor map takes a 16-byte aligned
+        # base and strides in multiples of 16 bytes
         for name, t in tensors.items():
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(
@@ -109,6 +114,29 @@ def _window(sliding_window) -> int:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def dkv_head_chunks(b: int, sk: int, nkv: int, group: int, sms: int) -> int:
+    """How many chunks the bf16 dK/dV kernel splits each kv head's group of
+    q-heads into: one block a (batch, kv head, 128 kv rows) leaves an MQA
+    grid short of the card (Falcon-7B, 71/1 heads at s 2048: 16 blocks for
+    132 SMs), so the chunks multiply the grid up to DKV_TARGET_WAVES waves
+    of `sms` blocks, at most one chunk a q-head. One chunk needs no
+    workspace and no summing pass."""
+    blocks = b * nkv * -(-sk // DKV_BLOCK_ROWS)
+    return min(group, -(-DKV_TARGET_WAVES * sms // blocks)) if blocks else 1
+
+
+def head_chunk_bounds(group: int, chunks: int) -> list:
+    """The q-heads [begin, end) within a group that each chunk's blocks sum,
+    as the kernel computes them (chunk c: c * group // chunks onward)."""
+    return [(c * group // chunks, (c + 1) * group // chunks)
+            for c in range(chunks)]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -207,8 +235,11 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
                        segment_ids=None, dropout_rate: float = 0.0,
                        dropout_seed: int = 0, dlse=None):
     """dK and dV of flash attention, summed over each kv head's GQA group
-    inside the kernel. Arguments as `flash_bwd_dq_cuda`. Returns (dk, dv),
-    contiguous [b, sk, nkv, d] in k's dtype."""
+    without atomics: inside the kernel, or for bf16, where the group's
+    q-heads are split into chunks (`dkv_head_chunks`), over fp32 partials in
+    a workspace that a second kernel sums in a fixed order. Arguments as
+    `flash_bwd_dq_cuda`. Returns (dk, dv), contiguous [b, sk, nkv, d] in
+    k's dtype."""
     where = "flash_bwd_dkv_cuda"
     seg, strides, window, (seed, thresh, drop_scale) = _bwd_args(
         where, q, k, v, dout, lse, delta, dlse, segment_ids, sliding_window,
@@ -219,6 +250,13 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
+    chunks, workspace = 1, None
+    if q.dtype == torch.bfloat16:
+        chunks = dkv_head_chunks(b, sk, nkv, nq // nkv,
+                                 _sm_count(q.device.index))
+    if chunks > 1:
+        workspace = torch.empty(2, chunks, b, sk, nkv, d,
+                                dtype=torch.float32, device=q.device)
     lib = _library("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -227,7 +265,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(seg),
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], d, b, sq,
             sk, nq, nkv, strides, float(scale), int(causal), window, seed,
-            thresh, drop_scale, stream)
+            thresh, drop_scale, chunks, _ptr(workspace), stream)
     _raise_on(rc, where)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv

@@ -10,10 +10,10 @@ line: the host wall of each unprofiled step; the device busy time (the sum
 of kernel times; kernels run on one stream, so they do not overlap); the
 idle share against the fastest unprofiled step; the kernel count; the
 device time of the step's two spans (forward + backward over the
-microbatches, and the optimizer); the device time by kernel class (GEMM,
-the three flash kernels, elementwise, reductions, the rest) with the ten
-largest kernels by name; and the peak memory. Run from the root of a
-checkout:
+microbatches, and the optimizer); the device time and the launches by
+kernel class (GEMM, the three flash kernels, elementwise, reductions, the
+rest) with the ten largest kernels by name; and the peak memory. Run from
+the root of a checkout:
 
     python -m megatron_tpu_torch.tools.profile_training
 """
@@ -101,10 +101,11 @@ def main() -> None:
             k.time_range.elapsed_us() for k in kernels
             if any(r.start <= k.time_range.start < r.end for r in ranges)
         ) / 1e3 if ranges else None
-    classes = {}
-    for name, (t, _) in by_name.items():
+    classes, class_launches = {}, {}
+    for name, (t, n) in by_name.items():
         c = kernel_class(name)
         classes[c] = classes.get(c, 0.0) + t
+        class_launches[c] = class_launches.get(c, 0) + n
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     rec = dict(
@@ -115,6 +116,7 @@ def main() -> None:
         device_idle_share=1.0 - busy / min(walls) if busy > 0 else None,
         kernels=sum(n for _, n in by_name.values()),
         span_device_ms=spans, class_ms=classes,
+        class_launches=class_launches,
         top_kernels=[dict(name=n[:90], ms=t, launches=c)
                      for n, (t, c) in top],
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)

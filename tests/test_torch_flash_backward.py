@@ -17,6 +17,7 @@ from megatron_tpu.ops.flash_attention_pallas import (
     STAT_LANES, _dropout_keep, pallas_flash_attention,
     pallas_flash_attention_with_lse)
 from megatron_tpu_torch.ops import flash_attention as fa
+from megatron_tpu_torch.ops import flash_attention_cuda as fc
 
 torch.set_num_threads(2)
 TOL = 2e-5
@@ -41,11 +42,12 @@ def _segments():
 
 def _jax_fn(mode):
     """The reference call for a mask mode: causal alone, with a sliding
-    window, with segment ids, or with dropout."""
-    seg = jnp.asarray(_segments(), jnp.float32) if mode == "segments" else None
+    window, with segment ids, with dropout, or with both of those."""
+    seg = (jnp.asarray(_segments(), jnp.float32) if "segments" in mode
+           else None)
     window = 48 if mode == "window" else None
-    rate = RATE if mode == "dropout" else 0.0
-    seed = (jnp.full((1, STAT_LANES), float(SEED)) if mode == "dropout"
+    rate = RATE if "dropout" in mode else 0.0
+    seed = (jnp.full((1, STAT_LANES), float(SEED)) if "dropout" in mode
             else None)
     return lambda q, k, v: pallas_flash_attention(
         q, k, v, True, None, BLOCK, BLOCK, True, seg, seg, window, rate, seed)
@@ -55,8 +57,8 @@ def _port_kw(mode):
     return dict(causal=True, scale=D ** -0.5,
                 sliding_window=48 if mode == "window" else None,
                 segment_ids=(torch.from_numpy(_segments())
-                             if mode == "segments" else None),
-                dropout_rate=RATE if mode == "dropout" else 0.0,
+                             if "segments" in mode else None),
+                dropout_rate=RATE if "dropout" in mode else 0.0,
                 dropout_seed=SEED)
 
 
@@ -91,6 +93,60 @@ def test_plain_backward_matches_jax_vjp(nq, nkv, mode):
     for t, w in zip((tq, tk, tv), wants):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TOL)
+
+
+def test_plain_backward_with_segments_and_dropout_matches_jax_vjp():
+    """Segment ids and dropout together, at 4/1 heads: the path of the
+    kernels' EXTRA instantiations with the MQA group sum, against jax.vjp
+    of the Pallas kernel."""
+    q, k, v, do = _inputs(4, 1, seed=13)
+    mode = "segments_dropout"
+    want, vjp = jax.vjp(_jax_fn(mode), *map(jnp.asarray, (q, k, v)))
+    wants = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, **_port_kw(mode))
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    for t, w in zip((tq, tk, tv), wants):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL)
+
+
+H100_SMS = 132
+# (b, sk, nq, nkv): Llama-2-7B's training shape, GQA 64/8, Falcon-7B's MQA
+# at its 2048 positions and at the engine's 1,000, and a tiny grid
+CHUNK_SHAPES = [(1, 4096, 32, 32), (1, 4096, 64, 8), (1, 2048, 71, 1),
+                (1, 1000, 71, 1), (2, 256, 4, 1)]
+
+
+@pytest.mark.parametrize("b,sk,nq,nkv", CHUNK_SHAPES)
+def test_dkv_head_chunks_cover_every_head_once(b, sk, nq, nkv):
+    """The chunks the chooser takes split each group's q-heads into
+    non-empty, disjoint ranges that together hold every head once."""
+    group = nq // nkv
+    chunks = fc.dkv_head_chunks(b, sk, nkv, group, H100_SMS)
+    assert 1 <= chunks <= group
+    bounds = fc.head_chunk_bounds(group, chunks)
+    assert all(hi > lo for lo, hi in bounds)
+    assert [h for lo, hi in bounds for h in range(lo, hi)] == list(
+        range(group))
+
+
+def test_dkv_head_chunks_keep_llama_in_one_chunk():
+    """Llama-2-7B's training shape (b 1, s 4096, 32/32 heads) fills the card
+    with 1,024 blocks: no split, no workspace, no summing pass."""
+    assert fc.dkv_head_chunks(1, 4096, 32, 1, H100_SMS) == 1
+
+
+def test_dkv_head_chunks_fill_the_card_for_falcon_mqa():
+    """Falcon-7B (71/1 heads) at s 2048 has 16 kv tiles of 128 rows: the
+    chooser takes the fewest chunks that reach the target waves."""
+    blocks = 2048 // fc.DKV_BLOCK_ROWS
+    target = fc.DKV_TARGET_WAVES * H100_SMS
+    chunks = fc.dkv_head_chunks(1, 2048, 1, 71, H100_SMS)
+    assert chunks * blocks >= target > (chunks - 1) * blocks
+    assert chunks <= 71
 
 
 def test_lse_cotangent_matches_pallas_with_lse():
