@@ -7,7 +7,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. device: prints `nvidia-smi --query-gpu=name,power.limit` on its own line;
 2. build: compiles every kernel source from the checkout (nvcc, sm_90a, one
    process per source, in parallel) and prints the build time and ptxas's
-   register and spill lines; a wgmma kernel that spills fails the run;
+   register and spill lines; a wgmma or norm backward kernel that spills
+   fails the run;
 3. kernels: holds each kernel against its plain PyTorch version on the card,
    with the stated tolerances, and times kernel, plain version and the
    PyTorch library call for the same function where there is one
@@ -30,7 +31,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    NaN in every dead block (the same bits required: dead blocks are never
    loaded), timed beside scaled_dot_product_attention on the gathered
    view (gather not counted, its own time beside it); the four fused-norm
-   kernels (csrc/fused_norms.cu) forward and backward at NORM_CASES, each
+   kernels (csrc/fused_norms.cu) forward and backward at NORM_CASES (the
+   backward's launches summing dscale and dbias to [1, h] themselves), each
    backward run twice and required bit-identical, timed beside torch's
    rms_norm / layer_norm and their autograd backward on input copies that
    span 4x the L2 (NORM_ROTATION_BYTES);
@@ -94,15 +96,18 @@ the norm kernels' on every path above) and, last, {"ok": true, "device":
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
-`--compare-fwd OLD_CU` and `--compare-bwd OLD_CU` replace the smoke run:
-they build an earlier csrc/flash_fwd.cu or csrc/flash_bwd.cu (headers
-beside it first, e.g. an earlier commit's csrc/ unpacked with `git
-archive`) outside the checkout and time it beside the current kernels at
-every bf16 shape, old, new, new, old.
+`--compare-fwd OLD_CU`, `--compare-bwd OLD_CU` and `--compare-norms OLD_CU`
+replace the smoke run: they build an earlier csrc/flash_fwd.cu,
+csrc/flash_bwd.cu or csrc/fused_norms.cu (headers beside it first, e.g. an
+earlier commit's csrc/ unpacked with `git archive`) outside the checkout
+and time it beside the current kernels at every bf16 shape, old, new, new,
+old (the norm backward with the sum of its partials, as the autograd
+Functions of each tree ran it).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -235,7 +240,11 @@ ENGINE_REQUESTS = 16
 # dtype, norms). The first three are tools/bench_kernels.py's shapes (the
 # first is the kernels line's headline); then Llama-2-7B's and Falcon-7B's
 # training rows, fp32, a row count no block's row group divides with fp32
-# scales on bf16 rows, h 64, and h 100 (rows of 200 bytes: scalar loads).
+# scales on bf16 rows, h 64, h 100 (rows of 200 bytes: scalar loads), 7
+# rows (most of the backward's persistent blocks get no row, and their
+# zero partial rows must still sum right), and two rows too wide for the
+# backward's registers (its wide kernel): GPT-3 175B's h 12288, and h 4100
+# (8,200 bytes: scalar loads).
 NORM_CASES = [
     ("bench_4x2048x2048", (4, 2048, 2048), "bfloat16", "bfloat16",
      ("rms", "ln")),
@@ -250,6 +259,11 @@ NORM_CASES = [
      ("rms", "ln")),
     ("h64_4099_rows", (4099, 64), "bfloat16", "bfloat16", ("rms", "ln")),
     ("h100_scalar_loads", (333, 100), "bfloat16", "bfloat16", ("rms", "ln")),
+    ("rows7_4096", (7, 4096), "bfloat16", "bfloat16", ("rms", "ln")),
+    ("wide_2048x12288", (2048, 12288), "bfloat16", "bfloat16",
+     ("rms", "ln")),
+    ("wide_scalar_65x4100", (65, 4100), "bfloat16", "bfloat16",
+     ("rms", "ln")),
 ]
 NORM_MAIN = "bench_4x2048x2048"
 NORM_EPS = 1e-5
@@ -269,6 +283,15 @@ QUEUE_SLEEP_CYCLES = 50_000_000
 # keep each output until its copy comes round again: no call reads an
 # input or writes an output that a recent call left in L2 (`rotating`)
 NORM_ROTATION_BYTES = 4 * 50 * 2 ** 20
+# the CUDA kernels of each direction, for the kernels line
+NORM_CUDA_KERNELS = {
+    "fwd": ["norm_fwd_kernel (row in shared memory)"],
+    "bwd": ["norm_bwd_rows_kernel (rows in registers behind a cp.async "
+            "ring, persistent grid, per-block partial column sums)",
+            "norm_bwd_wide_kernel (rows over 16 values a thread, walked in "
+            "device memory)",
+            "norm_bwd_colsum_kernel (the partial rows summed in block "
+            "order)"]}
 # operations per element, for the bound (fp32, outside the tensor cores)
 NORM_FLOPS = {("rms", "fwd"): 4, ("ln", "fwd"): 8, ("rms", "bwd"): 11,
               ("ln", "bwd"): 16}
@@ -472,13 +495,15 @@ def phase_build() -> None:
             elif ("registers" in line or "spill" in line
                   or "arning" in line):
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
-                if "wgmma" in kernel and any(
+                if (("wgmma" in kernel or "norm_bwd" in kernel) and any(
                         int(n) for n in re.findall(r"(\d+) bytes spill",
-                                                   line)):
+                                                   line))):
                     spilled.append(kernel)
     # a wgmma kernel that spills loses its registers' worth of accumulators
-    # to local memory: the design requires none
-    check(not spilled, f"wgmma kernels spill registers: {spilled}")
+    # to local memory, a norm backward its rows and column sums: the
+    # designs require none
+    check(not spilled, f"wgmma or norm backward kernels spill registers: "
+          f"{spilled}")
 
 
 def phase_kernels() -> list[dict]:
@@ -901,10 +926,11 @@ def phase_block_kernels() -> list[dict]:
 
 def norm_calls(kind, x2, dy2, scale, bias):
     """(kernel fwd, plain fwd, library fwd, kernel bwd, plain bwd, library
-    bwd) of one norm on rows x2 [rows, h]. The backward calls return (dx,
-    dscale[, dbias]) with the partials summed and cast as the autograd
-    Function does; the library calls are torch's rms_norm / layer_norm and
-    their autograd backward, with the parameters in x's dtype."""
+    bwd, kernel bwd alone) of one norm on rows x2 [rows, h]. The backward
+    calls return (dx, dscale[, dbias]) with the [1, h] sums cast as the
+    autograd Function casts them (the last one leaves them fp32 [1, h]);
+    the library calls are torch's rms_norm / layer_norm and their autograd
+    backward, with the parameters in x's dtype."""
     import torch
     import torch.nn.functional as F
     from megatron_tpu_torch.ops import fused_norms as fn
@@ -918,8 +944,8 @@ def norm_calls(kind, x2, dy2, scale, bias):
     p_bwd = getattr(fn, f"{kind}_bwd_reference")
 
     def summed(parts):
-        dx, *partials = parts
-        return (dx, *(t.sum(0).to(scale.dtype) for t in partials))
+        dx, *sums = parts
+        return (dx, *(fn.param_grad(t, scale.dtype) for t in sums))
 
     leaves = [t.detach().to(x2.dtype).requires_grad_(True)
               for t in (x2, *params)]
@@ -1309,6 +1335,121 @@ def compare_backward(old_source: str) -> int:
         del q, kv, k, v, dout, out, lse, delta
         torch.cuda.empty_cache()
     check(not failed, f"new backward outside GRAD_TOL at {failed}")
+    return 0
+
+
+def old_norm_bwd(lib, kind, x2, scale, dy2):
+    """An earlier fused_norms.cu's backward (the signature that returned
+    fp32 partials [blocks, h], blocks = 2 an SM at most) launched as its
+    wrapper launched it, then its partials summed and cast as its autograd
+    Function did: (dx, dscale[, dbias])."""
+    import torch
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    ln = kind == "ln"
+    rows, h = x2.shape
+    dx = torch.empty_like(x2)
+    wpr = fnc.warps_per_row(h, x2.element_size())
+    groups = -(-rows // (fnc.WARPS // wpr))
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    blocks = max(1, min(groups, 2 * sms))
+    ds = torch.empty(blocks, h, dtype=torch.float32, device=x2.device)
+    db = torch.empty_like(ds) if ln else None
+    rc = lib.fused_norm_bwd(
+        x2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+        ds.data_ptr(), db.data_ptr() if ln else None,
+        fnc._DTYPES[x2.dtype], fnc._DTYPES[scale.dtype], int(ln),
+        fnc._vec(x2, dy2, dx), rows, h, wpr, blocks, NORM_EPS,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"old fused_norm_bwd: CUDA error {rc}")
+    return (dx, *(t.sum(0).to(scale.dtype) for t in ((ds, db) if ln
+                                                     else (ds,))))
+
+
+def compare_norms(old_source: str) -> int:
+    """Before and after of the norm backward (kernels 6 and 8) on one card:
+    builds `old_source` (an earlier csrc/fused_norms.cu whose
+    fused_norm_bwd returns [blocks, h] partials) outside the checkout and
+    times its backward plus the sum of its partials, as its autograd
+    Function ran them, against the current backward with its cast, at every
+    bf16 NORM_CASES shape, in the order old, new, new, old, each call on the
+    next copy of the inputs and queued. Prints one JSON line a case (both
+    times, torch's autograd backward, the bound, the new kernel's errors
+    against the plain version) and exits 1 if a new result leaves
+    NORM_TOL / NORM_MISMATCH."""
+    import ctypes
+    import itertools
+    import torch
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    smi = phase_device()
+    fnc._library()
+    old_lib = build_old_library(old_source)
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    old_lib.fused_norm_bwd.argtypes = [p] * 6 + [i] * 4 + [ll, i, i, i, f, p]
+    old_lib.fused_norm_bwd.restype = i
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    failed = []
+    for label, shape, xname, pname, kinds in NORM_CASES:
+        if xname != "bfloat16":
+            continue
+        xd, pd = torch.bfloat16, getattr(torch, pname)
+        h = shape[-1]
+        x2 = ((torch.randn(*shape, generator=gen, device="cuda") * 2 + 0.5)
+              .to(xd).reshape(-1, h))
+        dy2 = torch.randn(*shape, generator=gen,
+                          device="cuda").to(xd).reshape(-1, h)
+        scale = (1 + 0.2 * torch.randn(h, generator=gen,
+                                       device="cuda")).to(pd)
+        bias = (0.3 * torch.randn(h, generator=gen, device="cuda")).to(pd)
+        rows = x2.shape[0]
+        n_copies = max(2, -(-NORM_ROTATION_BYTES // (x2.nbytes + dy2.nbytes)))
+        copies = [(x2, dy2)] + [(x2.clone(), dy2.clone())
+                                for _ in range(n_copies - 1)]
+        for kind in kinds:
+            per_copy = [norm_calls(kind, xc, dyc, scale, bias)
+                        for xc, dyc in copies]
+            olds = [functools.partial(old_norm_bwd, old_lib, kind, xc, scale,
+                                      dyc) for xc, dyc in copies]
+            turn, keep = itertools.count(), [None] * n_copies
+            arms = {"new": rotating([c[3] for c in per_copy], turn, keep),
+                    "old": rotating(olds, turn, keep),
+                    "torch": rotating([c[5] for c in per_copy], turn, keep)}
+            got, want = per_copy[0][3](), per_copy[0][4]()
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w in zip(("dx", "dscale", "dbias"), got, want):
+                try:
+                    errs[name] = norm_compare(
+                        g, w, xname if name == "dx" else pname,
+                        f"{label} {kind} {name}", per_row=name == "dx")
+                except AssertionError as e:
+                    failed.append(str(e))
+            old_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(olds[0](), want))
+            del got, want
+            times = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                times[which].append(cuda_time_ms(arms[which], queued=True))
+            torch_ms = cuda_time_ms(arms["torch"], queued=True)
+            nbytes = 3 * rows * h * 2 + (2 if kind == "ln" else 1) * (
+                h * scale.element_size())
+            bound = bound_ms(NORM_FLOPS[(kind, "bwd")] * rows * h, nbytes,
+                             "torch.float32")
+            old_ms, new_ms = (sum(times["old"]) / 2, sum(times["new"]) / 2)
+            plan = fnc.bwd_plan(rows, h, 2, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            r = dict(shape=label, norm=kind, rows=rows, h=h, param_dtype=pname,
+                     old_ms=old_ms, new_ms=new_ms, old_runs=times["old"],
+                     new_runs=times["new"], speedup=old_ms / new_ms,
+                     torch_ms=torch_ms, bound_ms=bound[0],
+                     bound_by=bound[1], new_over_bound=new_ms / bound[0],
+                     plan=dataclasses.asdict(plan), input_copies=n_copies,
+                     max_abs_err=errs, old_max_abs_err=old_err, card=smi)
+            log("norm backward before/after: " + json.dumps(r))
+            del per_copy, olds, arms, keep
+        del x2, dy2, copies
+        torch.cuda.empty_cache()
+    check(not failed, f"new norm backward outside NORM_TOL: {failed}")
     return 0
 
 
@@ -2324,6 +2465,11 @@ def main(argv=None) -> int:
         help="instead of the smoke run, time this earlier csrc/flash_bwd.cu "
              "(headers beside it first) beside the current one at every "
              "bf16 training shape")
+    parser.add_argument(
+        "--compare-norms", metavar="FUSED_NORMS_CU",
+        help="instead of the smoke run, time this earlier "
+             "csrc/fused_norms.cu's backward (with the sum of its partials) "
+             "beside the current one at every bf16 NORM_CASES shape")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2340,12 +2486,14 @@ def main(argv=None) -> int:
               "repository (megatron_tpu_torch not importable)",
               file=sys.stderr)
         return 2
-    if args.compare_fwd or args.compare_bwd:
+    if args.compare_fwd or args.compare_bwd or args.compare_norms:
         try:
             if args.compare_fwd:
                 compare_forward(args.compare_fwd)
             if args.compare_bwd:
                 compare_backward(args.compare_bwd)
+            if args.compare_norms:
+                compare_norms(args.compare_norms)
             return 0
         except Exception:  # noqa: BLE001 — any failure fails the run
             traceback.print_exc()
@@ -2469,7 +2617,9 @@ def main(argv=None) -> int:
             library=("torch.nn.functional.rms_norm" if kind == "rms" else
                      "torch.nn.functional.layer_norm")
             + (" and its autograd backward" if part == "bwd" else ""),
-            shape=NORM_MAIN,
+            shape=NORM_MAIN, cuda_kernels=NORM_CUDA_KERNELS[part],
+            **({"with_partial_sum_ms": head["with_partial_sum_ms"]}
+               if part == "bwd" else {}),
             cases=[dict(shape=c["shape"], x_dtype=c["x_dtype"],
                         param_dtype=c["param_dtype"], rows=c["rows"],
                         h=c["h"], **c[part])

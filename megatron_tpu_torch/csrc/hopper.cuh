@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels that feed
 // warpgroup matrix multiplies (wgmma) from a ring of tiles that the Tensor
 // Memory Accelerator (TMA) loads into shared memory: mbarrier init, arrive,
-// expect_tx and wait; 4-d TMA tile loads; wgmma shared-memory descriptors
+// expect_tx and wait; 16-byte cp.async copies with their commit groups;
+// 4-d TMA tile loads; wgmma shared-memory descriptors
 // for the 128-byte swizzle; wgmma fence, commit and wait; operand fences;
 // setmaxnreg; and the host's tensor-map encoder, reached through the
 // runtime so that a library needs no -lcuda. Raw PTX instead of CuTe keeps
@@ -94,6 +95,28 @@ __device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity) {
 // a barrier among `count` threads (whole warps) of the block, id 1-15
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- cp.async ---------------------------------------------------------------
+
+// one 16-byte copy from device memory to shared memory that bypasses L1;
+// both addresses 16-byte aligned. It completes by the thread's own
+// commit groups: a thread that reads only what it copied needs no barrier.
+__device__ __forceinline__ void cp_async_cg16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- TMA --------------------------------------------------------------------

@@ -14,9 +14,11 @@ Statistics and the affine run in fp32 and the result is cast once to x's
 dtype: (x * r * scale_f32).astype(dtype), as the Pallas kernels do. This
 differs from the model norm (models/norms.py), which casts the normalised
 x to the input dtype before it multiplies by the scale. The backward
-recomputes the row statistics from x, gives dx in x's dtype, and sums the
-fp32 per-tile partials of dscale (and dbias) outside the kernel, cast to
-the scale's dtype, as `_rms_bwd` and `_ln_bwd` do.
+recomputes the row statistics from x and gives dx in x's dtype and fp32
+[1, h] sums of dscale (and dbias) over every row: the kernels sum them
+inside their launches, the plain versions as one tile. The Function casts
+them once to the scale's dtype, as `_rms_bwd` and `_ln_bwd` cast their
+summed partials.
 
 The models use models/norms.py, as the reference's models use its jnp
 norms; these are the explicit fused path that tools/bench_kernels.py times.
@@ -38,8 +40,8 @@ def rms_fwd_reference(x: torch.Tensor, scale: torch.Tensor,
 
 def rms_bwd_reference(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                       eps: float):
-    """Plain `_rms_bwd_kernel`: (dx in x's dtype, dscale partial [1, h]
-    fp32, the whole of x as one tile)."""
+    """Plain `_rms_bwd_kernel`: (dx in x's dtype, dscale [1, h] fp32, the
+    whole of x as one tile)."""
     xf, dyf = x.float(), dy.float()
     r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     xh = xf * r
@@ -59,8 +61,7 @@ def ln_fwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def ln_bwd_reference(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                      eps: float):
-    """Plain `_ln_bwd_kernel`: (dx, dscale partial [1, h], dbias partial
-    [1, h])."""
+    """Plain `_ln_bwd_kernel`: (dx, dscale [1, h], dbias [1, h])."""
     xf, dyf = x.float(), dy.float()
     xc = xf - xf.mean(-1, keepdim=True)
     r = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
@@ -90,6 +91,12 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1]).contiguous()
 
 
+def param_grad(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A backward's fp32 [1, h] sum as the parameter's grad [h] in its
+    dtype: one cast, no reduction."""
+    return total.reshape(-1).to(dtype)
+
+
 class _FusedRMSNorm(torch.autograd.Function):
 
     @staticmethod
@@ -102,9 +109,9 @@ class _FusedRMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, ds_part = _impl(x, "rms_bwd")(
+        dx, ds = _impl(x, "rms_bwd")(
             _rows(x), scale.contiguous(), _rows(dy.to(x.dtype)), ctx.eps)
-        return dx.reshape(x.shape), ds_part.sum(0).to(scale.dtype), None
+        return dx.reshape(x.shape), param_grad(ds, scale.dtype), None
 
 
 class _FusedLayerNorm(torch.autograd.Function):
@@ -119,11 +126,10 @@ class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, ds_part, db_part = _impl(x, "ln_bwd")(
-            _rows(x), scale.contiguous(),
-            _rows(dy.to(x.dtype)), ctx.eps)
-        return (dx.reshape(x.shape), ds_part.sum(0).to(scale.dtype),
-                db_part.sum(0).to(scale.dtype), None)
+        dx, ds, db = _impl(x, "ln_bwd")(
+            _rows(x), scale.contiguous(), _rows(dy.to(x.dtype)), ctx.eps)
+        return (dx.reshape(x.shape), param_grad(ds, scale.dtype),
+                param_grad(db, scale.dtype), None)
 
 
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,

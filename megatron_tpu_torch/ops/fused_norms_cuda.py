@@ -6,13 +6,16 @@ megatron_tpu/ops/fused_norms.py (`_rms_fwd_kernel`, `_rms_bwd_kernel`,
 card and what the design does about that. It is built with the other kernels
 by ops/cuda_build.py. Each wrapper takes rows x [rows, h] (and dy), checks
 its inputs, launches on PyTorch's current stream, raises on any launch
-error (a row too wide for a block's shared memory among them), and counts
-its launches in its `launches` attribute. The backward wrappers return fp32
-partial sums [blocks, h] of dscale (and dbias), which the caller sums.
+error (a forward row too wide for a block's shared memory among them),
+and counts its launches in its `launches` attribute. The backward wrappers
+return dx and fp32 [1, h] sums of dscale (and dbias) over every row,
+summed inside their launches in a fixed order; `bwd_plan` lays the
+backward out, for rows of any width.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -23,9 +26,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # warps of a block (csrc/fused_norms.cu THREADS / 32); a row takes 1, 2, 4
 # or 8 of them
 WARPS = 8
-# backward blocks per SM: the blocks stride over the row groups, so the
-# dscale/dbias partials are [blocks, h] for any row count
-BWD_BLOCKS_PER_SM = 2
+# The backward: chunks a thread may hold (the rows kernel's instantiations)
+# and the most values of x a thread may hold, so that a thread stays within
+# 128 registers and an SM holds 16 warps: two blocks of 8, or one of 16
+# when a row takes 16 warps. Wider rows take the wide kernel.
+BWD_CHUNKS = (2, 4, 8)
+BWD_MAX_VALUES = 16
+BWD_WARPS_PER_SM = 16
+# rows of the vector path's ring (csrc/fused_norms.cu RING)
+BWD_RING = 2
 
 
 @functools.cache
@@ -35,19 +44,89 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float
     lib.fused_norm_fwd.argtypes = [p] * 4 + [i] * 5 + [ll, i, i, f, p]
     lib.fused_norm_fwd.restype = i
-    lib.fused_norm_bwd.argtypes = [p] * 6 + [i] * 4 + [ll, i, i, i, f, p]
+    lib.fused_norm_bwd.argtypes = [p] * 6 + [i] * 4 + [ll] + [i] * 5 + [f, p]
     lib.fused_norm_bwd.restype = i
     return lib
 
 
 def warps_per_row(h: int, itemsize: int) -> int:
-    """Warps owning one row: the fewest (1, 2, 4, 8) that leave each thread
-    at most two 16-byte chunks, so a block holds 8 // wpr rows."""
+    """The forward's warps owning one row: the fewest (1, 2, 4, 8) that
+    leave each thread at most two 16-byte chunks, so a block holds
+    8 // wpr rows."""
     chunks = -(-h * itemsize // 16)
     wpr = 1
     while wpr < WARPS and 32 * wpr * 2 < chunks:
         wpr *= 2
     return wpr
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Launch plan of the backward (csrc/fused_norms.cu). A slot of `wpr`
+    warps owns a row; chunk c of it (`values` elements: 16 bytes on the
+    vector path, one element on the scalar one) belongs to thread
+    c % (32 * wpr) of the slot, at most `chunks` a thread. `blocks`
+    persistent blocks of `threads`, `resident` to an SM, stride over the
+    rows. The rows kernel holds a thread's chunks in registers and, on the
+    vector path, takes each slot's next row through a ring of BWD_RING
+    rows; `wide` rows (over 8 chunks or BWD_MAX_VALUES a thread) take the
+    wide kernel, which walks them in device memory. `smem` is a block's dynamic shared
+    bytes (the ring, and after it the column sums)."""
+    h: int
+    vec: bool
+    wide: bool
+    values: int
+    wpr: int
+    chunks: int
+    threads: int
+    rows_per_block: int
+    resident: int
+    blocks: int
+    smem: int
+    in_flight: int  # bytes of x and dy in flight per SM, the ring full
+
+    def columns(self, t: int) -> list:
+        """The columns thread t of a slot owns, in chunk order."""
+        tpr = 32 * self.wpr
+        return [c * self.values + i for j in range(self.chunks)
+                for c in [t + j * tpr] if c * self.values < self.h
+                for i in range(self.values)]
+
+
+def bwd_plan(rows: int, h: int, itemsize: int, sms: int,
+             aligned: bool = True) -> BwdPlan:
+    """The backward's plan for rows x [rows, h] of `itemsize` bytes on a
+    card of `sms` SMs. Vector path where the row's bytes are a multiple of
+    16 and `aligned` (every row base 16-byte aligned). Warps per row: the
+    fewest (1-16) that leave a thread at most 2 chunks, else 16 warps and 4
+    or 8 chunks, at most 16 values a thread; past that the wide kernel, 16
+    warps a row. Blocks of 8 warps, two an SM, or of 16 when a row takes
+    16, one an SM. Raises ValueError for arguments that describe no rows."""
+    if rows < 1 or h < 1 or itemsize not in (2, 4) or sms < 1:
+        raise ValueError(f"bwd_plan: no plan for rows {rows}, h {h}, "
+                         f"itemsize {itemsize}, {sms} SMs")
+    vec = aligned and (h * itemsize) % 16 == 0
+    values = 16 // itemsize if vec else 1
+    nch = h // values
+
+    def need(wpr):
+        return -(-nch // (32 * wpr))
+    wpr = next((w for w in (1, 2, 4, 8, 16) if need(w) <= 2), 16)
+    chunks = next((c for c in BWD_CHUNKS if need(wpr) <= c
+                   and c * values <= BWD_MAX_VALUES), None)
+    wide = chunks is None
+    if wide:
+        chunks = need(wpr)
+    warps = max(WARPS, wpr)
+    rpb = warps // wpr
+    resident = BWD_WARPS_PER_SM // warps
+    stage = rpb * 2 * h * itemsize if vec and not wide else 0
+    sums = 0 if wide else 2 * rpb * h * 4  # LayerNorm's, as fp32
+    return BwdPlan(h=h, vec=vec, wide=wide, values=values, wpr=wpr,
+                   chunks=chunks, threads=32 * warps, rows_per_block=rpb,
+                   resident=resident, blocks=resident * sms,
+                   smem=max(BWD_RING * stage, sums),
+                   in_flight=(BWD_RING - 1) * stage * resident)
 
 
 def _check(where: str, x: torch.Tensor, others: dict, params: dict):
@@ -98,26 +177,32 @@ def _bwd(wrapper, x, scale, dy, eps, layernorm):
     where = wrapper.__name__
     _check(where, x, {"dy": dy}, {"scale": scale})
     rows, h = x.shape
+    nsum = 2 if layernorm else 1
     dx = torch.empty_like(x)
     if x.numel() == 0:
-        zeros = x.new_zeros((1, h), dtype=torch.float32)
-        return dx, zeros, zeros.clone() if layernorm else None
-    wpr = warps_per_row(h, x.element_size())
-    groups = -(-rows // (WARPS // wpr))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(groups, BWD_BLOCKS_PER_SM * sms))
-    ds_part = torch.empty(blocks, h, dtype=torch.float32, device=x.device)
-    db_part = torch.empty_like(ds_part) if layernorm else None
+        sums = x.new_zeros((nsum, 1, h), dtype=torch.float32)
+        return dx, sums[0], sums[1] if layernorm else None
+    plan = bwd_plan(rows, h, x.element_size(), _sm_count(x.device),
+                    aligned=bool(_vec(x, dy, dx)))
+    ws = torch.empty(nsum, plan.blocks, h, dtype=torch.float32,
+                     device=x.device)
+    sums = torch.empty(nsum, 1, h, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().fused_norm_bwd(
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            ds_part.data_ptr(), db_part.data_ptr() if layernorm else None,
-            _DTYPES[x.dtype], _DTYPES[scale.dtype], int(layernorm),
-            _vec(x, dy, dx), rows, h, wpr, blocks, float(eps), stream)
+            ws.data_ptr(), sums.data_ptr(), _DTYPES[x.dtype],
+            _DTYPES[scale.dtype], int(layernorm), int(plan.vec), rows, h,
+            plan.wpr, 0 if plan.wide else plan.chunks, plan.blocks,
+            plan.smem, float(eps), stream)
     cuda_build.raise_on(rc, where)
     wrapper.launches += 1
-    return dx, ds_part, db_part
+    return dx, sums[0], sums[1] if layernorm else None
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rms_fwd_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -129,8 +214,8 @@ def rms_fwd_cuda(x: torch.Tensor, scale: torch.Tensor,
 
 def rms_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                  eps: float):
-    """Returns (dx [rows, h] in x's dtype, dscale partials [blocks, h]
-    fp32)."""
+    """Returns (dx [rows, h] in x's dtype, dscale [1, h] fp32 summed over
+    the rows)."""
     dx, ds_part, _ = _bwd(rms_bwd_cuda, x, scale, dy, eps, False)
     return dx, ds_part
 
@@ -144,8 +229,7 @@ def ln_fwd_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def ln_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 eps: float):
-    """Returns (dx, dscale partials, dbias partials), the partials fp32
-    [blocks, h]."""
+    """Returns (dx, dscale, dbias), the sums fp32 [1, h]."""
     return _bwd(ln_bwd_cuda, x, scale, dy, eps, True)
 
 

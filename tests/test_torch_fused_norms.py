@@ -16,6 +16,9 @@ plain versions by chip_smoke.py). Tolerances:
 - dscale / dbias: fp32 sums over rows in another order, cast to the
   scale's dtype: 1e-5 (fp32) or 2^-7 (bf16) of the largest value.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,13 +36,26 @@ TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 MISMATCH_SHARE = 1e-3
 
 # (shape, x dtype, scale/bias dtype): 2-D and 3-D, row counts that no
-# multiple of 8 divides, h 64-256
+# multiple of 8 divides, h 64-256; then the widths the backward kernels'
+# lane map must handle, with few rows: Falcon-7B's 4544 (568 16-byte chunks,
+# ragged over 32 lanes), 8192, 1-row and 7-row inputs, and rows past the
+# rows kernel's registers (the wide kernel's): GPT-3 175B's 12288 and 4100
+# (8,200-byte rows, scalar loads). Each case is seeded by its place in
+# sorted order, so new names sort after the earlier ones and leave their
+# inputs as they were.
 CASES = {
     "fp32_2d_h64": ((13, 64), "float32", "float32"),
     "fp32_3d_h256": ((3, 7, 256), "float32", "float32"),
     "bf16_2d_h128": ((37, 128), "bfloat16", "bfloat16"),
     "bf16_3d_h256": ((2, 45, 256), "bfloat16", "bfloat16"),
     "bf16_x_fp32_params_h192": ((5, 9, 192), "bfloat16", "float32"),
+    "rows_1_bf16_h4096": ((1, 4096), "bfloat16", "bfloat16"),
+    "rows_7_bf16_x_fp32_params_h4544": ((7, 4544), "bfloat16", "float32"),
+    "wide_bf16_h4544": ((3, 4544), "bfloat16", "bfloat16"),
+    "wide_bf16_h8192": ((2, 8192), "bfloat16", "bfloat16"),
+    "wide_fp32_h8192": ((2, 8192), "float32", "float32"),
+    "wide_rows_bf16_h12288": ((2, 12288), "bfloat16", "bfloat16"),
+    "wide_scalar_bf16_h4100": ((3, 4100), "bfloat16", "float32"),
 }
 
 
@@ -171,6 +187,133 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     (fn.fused_rmsnorm(tx, ts) * torch.from_numpy(dy)).sum().backward()
     (fn.fused_layernorm(tx, ts, tb) * torch.from_numpy(dy)).sum().backward()
     assert tx.grad is not None and tb.grad is not None
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+def test_autograd_casts_the_summed_params_once(kind, monkeypatch):
+    # the backward takes the [1, h] fp32 sums as they come and casts them
+    # once to the scale's dtype: no further reduction
+    x, dy, scale, bias, _, _ = _inputs("bf16_x_fp32_params_h192")
+    h = x.shape[-1]
+    sums = [torch.from_numpy(np.random.RandomState(3 + i).randn(1, h)
+                             .astype(np.float32)) for i in range(2)]
+    rows = int(np.prod(x.shape[:-1]))
+
+    def fake(xr, s, d, eps):
+        assert xr.shape == (rows, h) and d.shape == (rows, h)
+        return (torch.zeros_like(xr), *sums[:2 if kind == "ln" else 1])
+    monkeypatch.setitem(fn._CPU, f"{kind}_bwd", fake)
+    for pd in ("bfloat16", "float32"):
+        tx, ts, tb = (_t(x, "bfloat16", True), _t(scale, pd, True),
+                      _t(bias, pd, True))
+        out = (fn.fused_layernorm(tx, ts, tb, EPS) if kind == "ln"
+               else fn.fused_rmsnorm(tx, ts, EPS))
+        out.backward(torch.from_numpy(dy).to(torch.bfloat16))
+        grads = [ts.grad, tb.grad] if kind == "ln" else [ts.grad]
+        for got, want in zip(grads, sums):
+            assert got.dtype == ts.dtype and got.shape == (h,)
+            assert torch.equal(got, want[0].to(ts.dtype))
+
+
+def _norm_case_shapes():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return [(int(np.prod(shape[:-1])), shape[-1], 2 if xd == "bfloat16" else 4)
+            for _, shape, xd, _, _ in smoke.NORM_CASES]
+
+
+PLAN_SHAPES = [(rows, h, item) for rows in (4096,) for h in (4096, 4544,
+                                                             5120, 8192)
+               for item in (2, 4)]
+# rows past 16 values a thread: fp32 and bf16 just past 8192, GPT-3 175B's
+# 12288, the widest row the forward takes at 2 bytes (116,224), and rows of
+# 4097 and 4100 scalar values
+WIDE_SHAPES = [(16, 8196, 4), (16, 8200, 2), (2048, 12288, 2),
+               (2048, 12288, 4), (4, 116224, 2), (65, 4097, 2),
+               (65, 4100, 2)]
+
+
+def _check_plan(plan, rows, h, item, sms):
+    what = f"rows {rows} h {h} itemsize {item}: {plan}"
+    # sm_90's shared memory: a block's opt-in maximum, and an SM's whole
+    # with the runtime's 1 KB a resident block
+    assert plan.smem <= 232448, what
+    assert plan.blocks == sms * plan.resident, what
+    assert plan.resident * (plan.smem + 1024) <= 233472, what
+    assert plan.rows_per_block * plan.wpr == plan.threads // 32
+    # 16 warps an SM: two blocks of 8, or one of 16
+    assert plan.resident * plan.threads == 512, what
+    cols = [c for t in range(32 * plan.wpr) for c in plan.columns(t)]
+    assert sorted(cols) == list(range(h)), what
+    if plan.wide:
+        # one row a block of 16 warps, nothing in shared memory
+        assert plan.wpr == 16 and plan.smem == 0 and plan.in_flight == 0
+        # over 8 chunks or 16 values a thread
+        assert plan.chunks > 8 or plan.chunks * plan.values > 16, what
+        return
+    assert plan.chunks in (2, 4, 8), what
+    assert plan.chunks * plan.values <= 16, what
+    # the ring holds each slot's row in use and its next one; the column
+    # sums reuse its shared memory
+    stage = plan.rows_per_block * 2 * h * item if plan.vec else 0
+    assert plan.smem == max(2 * stage, 2 * plan.rows_per_block * h * 4)
+    assert plan.in_flight == stage * plan.resident, what
+    if h >= 2048:
+        # every SM has the next row of each of its slots in flight: 32 KB
+        # at the power-of-two widths, one row's x and dy at least
+        assert plan.vec and plan.in_flight >= max(
+            2 * h * item, 16 * 1024), what
+        if h & (h - 1) == 0:
+            assert plan.in_flight >= 32 * 1024, what
+
+
+@pytest.mark.parametrize("which", ["norm_cases", "wide_rows"])
+def test_bwd_plan_fits_the_card_and_owns_every_column(which):
+    shapes = _norm_case_shapes() if which == "norm_cases" else PLAN_SHAPES
+    assert shapes
+    for rows, h, item in shapes:
+        for sms in (132, 114):
+            plan = fused_norms_cuda.bwd_plan(rows, h, item, sms)
+            # the rows kernel takes 8192 values a row, 4096 scalar ones
+            assert plan.wide == (h > (8192 if plan.vec else 4096)), plan
+            _check_plan(plan, rows, h, item, sms)
+
+
+def test_bwd_plan_takes_rows_of_any_width():
+    # the forward takes rows up to a block's shared memory; the backward
+    # takes those and wider ones (the wide kernel), aligned or not
+    for rows, h, item in WIDE_SHAPES:
+        for aligned in (True, False):
+            plan = fused_norms_cuda.bwd_plan(rows, h, item, 132,
+                                             aligned=aligned)
+            assert plan.wide, plan
+            assert plan.vec == (aligned and h * item % 16 == 0), plan
+            _check_plan(plan, rows, h, item, 132)
+    assert fused_norms_cuda.warps_per_row(116224, 2) == 8  # forward's limit
+    assert not fused_norms_cuda.bwd_plan(8, 8192, 2, 132).wide
+    assert not fused_norms_cuda.bwd_plan(8, 4096, 2, 132,
+                                         aligned=False).wide
+
+
+def test_bwd_plan_refuses_rows_it_cannot_take():
+    plan = fused_norms_cuda.bwd_plan(100, 100, 2, 132)  # 200-byte rows
+    assert not plan.vec and plan.values == 1
+    assert not fused_norms_cuda.bwd_plan(8, 2048, 2, 132,
+                                         aligned=False).vec
+    for rows, h, item, sms in ((0, 4096, 2, 132), (8, 0, 2, 132),
+                               (8, 4096, 3, 132), (8, 4096, 2, 0)):
+        with pytest.raises(ValueError, match="bwd_plan"):
+            fused_norms_cuda.bwd_plan(rows, h, item, sms)
+
+
+def test_norm_bwd_profile_needs_the_card(monkeypatch, capsys):
+    from megatron_tpu_torch.tools import norm_bwd_profile
+    assert [s[0] for s in norm_bwd_profile.SHAPES][0] == "bench_4x2048x2048"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert norm_bwd_profile.main([]) == 2
+    assert "needs a CUDA device" in capsys.readouterr().err
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
