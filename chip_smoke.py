@@ -7,8 +7,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. device: prints `nvidia-smi --query-gpu=name,power.limit` on its own line;
 2. build: compiles every kernel source from the checkout (nvcc, sm_90a, one
    process per source, in parallel) and prints the build time and ptxas's
-   register and spill lines; a wgmma or norm backward kernel that spills
-   fails the run;
+   register and spill lines; a wgmma, norm or block kernel that spills
+   fails the run (SPILL_FREE);
 3. kernels: holds each kernel against its plain PyTorch version on the card,
    with the stated tolerances, and times kernel, plain version and the
    PyTorch library call for the same function where there is one
@@ -27,10 +27,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    for bit; the block-native decode-attention kernel at
    BLOCK_CASES (the engine's decode shape, 64-token blocks, a 4-query
    verify window, 64/8 GQA, Falcon-7B's 71/1 heads at hd 64, fp32, int8
-   with scales, idle rows), each on a scattered block map and rerun with
-   NaN in every dead block (the same bits required: dead blocks are never
-   loaded), timed beside scaled_dot_product_attention on the gathered
-   view (gather not counted, its own time beside it); the four fused-norm
+   with scales, idle rows, a slot whose keys reach the region's end), each
+   on a scattered block map, run twice (the same bits required) and rerun
+   with NaN in every dead block (the same bits again: dead blocks are never
+   loaded), timed queued on rotating arena copies beside
+   scaled_dot_product_attention on the gathered view (gather not counted,
+   its own time beside it); the four fused-norm
    kernels (csrc/fused_norms.cu) forward and backward at NORM_CASES (the
    backward's launches summing dscale and dbias to [1, h] themselves), each
    backward run twice and required bit-identical, timed beside torch's
@@ -96,13 +98,14 @@ the norm kernels' on every path above) and, last, {"ok": true, "device":
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
-`--compare-fwd OLD_CU`, `--compare-bwd OLD_CU` and `--compare-norms OLD_CU`
-replace the smoke run: they build an earlier csrc/flash_fwd.cu,
-csrc/flash_bwd.cu or csrc/fused_norms.cu (headers beside it first, e.g. an
-earlier commit's csrc/ unpacked with `git archive`) outside the checkout
-and time it beside the current kernels at every bf16 shape, old, new, new,
-old (the norm backward with the sum of its partials, as the autograd
-Functions of each tree ran it).
+`--compare-fwd OLD_CU`, `--compare-bwd OLD_CU`, `--compare-norms OLD_CU`
+and `--compare-block OLD_CU` replace the smoke run: they build an earlier
+csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/fused_norms.cu or
+csrc/block_attn.cu (headers beside it first, e.g. an earlier commit's
+csrc/ unpacked with `git archive`) outside the checkout and time it beside
+the current kernels at every bf16 shape (the block kernel at every
+BLOCK_CASES shape), old, new, new, old (the norm backward through the
+current wrapper with the autograd Function's cast).
 """
 from __future__ import annotations
 
@@ -197,25 +200,41 @@ SLICE_TOL = 1e-4
 
 
 # Block-native decode attention (csrc/block_attn.cu): (label, S, w, nq, nkv,
-# hd, B, q dtype, arena dtype, idle rows). Every case reads a scattered
+# hd, B, q dtype, arena dtype, lengths). Every case reads a scattered
 # (permuted) block map over a region of BLOCK_CAP tokens, the engine phase's
-# max_len, with one slot per length of BLOCK_LENGTHS (mixed 37-1,200); idle
-# rows have length 0 and an all-trash map. The first is the engine's decode
-# shape: 8 slots of Llama-2-7B (32 heads of 128), 16-token blocks, bf16.
-BLOCK_CASES = [
-    ("engine_decode", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16", ()),
-    ("block_64", 8, 1, 32, 32, 128, 64, "bfloat16", "bfloat16", ()),
-    ("verify_w4", 8, 4, 32, 32, 128, 16, "bfloat16", "bfloat16", ()),
-    ("gqa_64q_8kv", 8, 1, 64, 8, 128, 16, "bfloat16", "bfloat16", ()),
-    ("falcon7b_mqa", 8, 1, 71, 1, 64, 16, "bfloat16", "bfloat16", ()),
-    ("fp32", 8, 1, 32, 8, 128, 16, "float32", "float32", ()),
-    ("int8_scales", 8, 1, 32, 32, 128, 16, "bfloat16", "int8", ()),
-    ("scattered_idle", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16",
-     (1, 4, 6)),
-]
+# max_len, with one slot a length (mixed 37-1,200, BLOCK_LENGTHS); a slot
+# of length 0 is idle, its map all trash. The first is the engine's decode
+# shape: 8 slots of Llama-2-7B (32 heads of 128), 16-token blocks, bf16. In
+# the last one slot's live keys reach the region's last key, so every
+# split of the kernel's grid is live and the combine merges the most.
 BLOCK_LENGTHS = [37, 64, 100, 200, 300, 515, 700, 1200]
 BLOCK_CAP = 2048
+BLOCK_CASES = [
+    ("engine_decode", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
+    ("block_64", 8, 1, 32, 32, 128, 64, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
+    ("verify_w4", 8, 4, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
+    ("gqa_64q_8kv", 8, 1, 64, 8, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
+    ("falcon7b_mqa", 8, 1, 71, 1, 64, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
+    ("fp32", 8, 1, 32, 8, 128, 16, "float32", "float32", BLOCK_LENGTHS),
+    ("int8_scales", 8, 1, 32, 32, 128, 16, "bfloat16", "int8",
+     BLOCK_LENGTHS),
+    ("scattered_idle", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     [37, 0, 100, 200, 0, 515, 0, 1200]),
+    ("full_region", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS[:7] + [BLOCK_CAP - 1]),
+]
 BLOCK_MAIN = "engine_decode"
+# the CUDA kernels of the block path, for the kernels line
+BLOCK_CUDA_KERNELS = [
+    "block_attn_split_kernel (split-KV grid, per-warp cp.async rings of "
+    "8-key tiles, each split's (m, l, acc) to a workspace)",
+    "block_attn_combine_kernel (a row's splits merged in split order, a "
+    "programmatic dependent launch)"]
 # max-abs tolerance by output (q) dtype. The random cases' outputs are
 # softmax averages of randn values over 37-1,200 keys: a typical output is
 # 0.05-0.3, the largest of a case 1-4. The bf16 limit is 4x the largest
@@ -285,7 +304,10 @@ QUEUE_SLEEP_CYCLES = 50_000_000
 NORM_ROTATION_BYTES = 4 * 50 * 2 ** 20
 # the CUDA kernels of each direction, for the kernels line
 NORM_CUDA_KERNELS = {
-    "fwd": ["norm_fwd_kernel (row in shared memory)"],
+    "fwd": ["norm_fwd_rows_kernel (rows in registers behind a cp.async "
+            "ring, persistent grid)",
+            "norm_fwd_wide_kernel (rows over 16 values a thread, in shared "
+            "memory)"],
     "bwd": ["norm_bwd_rows_kernel (rows in registers behind a cp.async "
             "ring, persistent grid, per-block partial column sums)",
             "norm_bwd_wide_kernel (rows over 16 values a thread, walked in "
@@ -473,6 +495,11 @@ def phase_device() -> str:
     return smi
 
 
+# kernels (by a part of their names) whose ptxas lines must show 0 spill
+# bytes: the wgmma kernels, the norm kernels, and the block kernels
+SPILL_FREE = ("wgmma", "norm_bwd", "norm_fwd", "block_attn")
+
+
 def phase_build() -> None:
     from megatron_tpu_torch.ops import (block_attention_cuda, cuda_build,
                                         flash_attention_cuda,
@@ -495,14 +522,14 @@ def phase_build() -> None:
             elif ("registers" in line or "spill" in line
                   or "arning" in line):
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
-                if (("wgmma" in kernel or "norm_bwd" in kernel) and any(
+                if (any(t in kernel for t in SPILL_FREE) and any(
                         int(n) for n in re.findall(r"(\d+) bytes spill",
                                                    line))):
                     spilled.append(kernel)
     # a wgmma kernel that spills loses its registers' worth of accumulators
-    # to local memory, a norm backward its rows and column sums: the
-    # designs require none
-    check(not spilled, f"wgmma or norm backward kernels spill registers: "
+    # to local memory, a norm kernel its rows and column sums, the block
+    # kernel its running softmax state: the designs require none
+    check(not spilled, f"kernels that must not spill registers do: "
           f"{spilled}")
 
 
@@ -760,10 +787,10 @@ def phase_training_kernels() -> list[dict]:
     return results
 
 
-def block_case_inputs(gen, S, w, nq, nkv, hd, B, qname, kvname, idle):
+def block_case_inputs(gen, S, w, nq, nkv, hd, B, qname, kvname, lens):
     """Random q, arena (with scales for int8), a permuted block map with
-    the last block as trash, and the lengths of BLOCK_LENGTHS, on the
-    card."""
+    the last block as trash, and the slots' lengths `lens` (a slot of
+    length 0 idle, its map all trash), on the card."""
     import torch
     nb = BLOCK_CAP // B
     T = S * nb + 1
@@ -782,18 +809,18 @@ def block_case_inputs(gen, S, w, nq, nkv, hd, B, qname, kvname, idle):
                   for _ in range(2))
     perm = torch.randperm(T - 1, generator=gen, device="cuda")
     bmap = perm[:S * nb].reshape(S, nb).to(torch.int32)
-    lengths = torch.tensor(BLOCK_LENGTHS[:S], dtype=torch.int32,
-                           device="cuda")
-    for s in idle:
-        bmap[s] = T - 1
-        lengths[s] = 0
+    lengths = torch.tensor(lens[:S], dtype=torch.int32, device="cuda")
+    for s, n in enumerate(lens[:S]):
+        if n == 0:
+            bmap[s] = T - 1
     return q, ka, va, bmap, lengths, ks, vs
 
 
 def block_bound(q, ka, bmap, lengths, ks):
     """Bytes: each live key's K and V rows (and int8 scales) once, q and
     out, the live map entries and the lengths; operations: 4 hd per (query
-    row, visible key). Peak by the arena's type."""
+    row, visible key). Peak by the arena's type. Returns (ms, what bounds
+    it, bytes)."""
     S, w, nq, hd = q.shape
     _, B, nkv, _ = ka.shape
     cap = bmap.shape[1] * B
@@ -806,7 +833,18 @@ def block_bound(q, ka, bmap, lengths, ks):
     nbytes += 4 * sum(-(-k // B) for k in keys) + 4 * S
     visible = sum(min(int(n) + j + 1, cap) for n in lengths.tolist()
                   for j in range(w))
-    return bound_ms(4 * hd * visible * nq, nbytes, str(ka.dtype))
+    return (*bound_ms(4 * hd * visible * nq, nbytes, str(ka.dtype)), nbytes)
+
+
+def block_copies(ka, va, ks, vs, nbytes):
+    """The arena (with its scales) and copies of it, at most 16 in all,
+    whose live bytes together span NORM_ROTATION_BYTES (4x the L2): a
+    timed call on the next copy reads its keys from HBM, as each layer of
+    a decode step does."""
+    n = min(16, max(2, -(-NORM_ROTATION_BYTES // nbytes)))
+    return [(ka, va, ks, vs)] + [
+        tuple(None if t is None else t.clone() for t in (ka, va, ks, vs))
+        for _ in range(n - 1)]
 
 
 def poison_dead_blocks(ka, va, ks, vs, bmap, lengths, w):
@@ -865,29 +903,35 @@ def gathered_sdpa(q, ka, va, bmap, lengths, ks, vs, scale):
 
 def phase_block_kernels() -> list[dict]:
     """The block kernel against its plain version at BLOCK_CASES, with
-    times, bounds and the gathered-SDPA yardstick; every case also reruns
-    on an arena whose dead blocks are NaN and must give the same bits."""
+    times, bounds and the gathered-SDPA yardstick; every case runs twice
+    (the same bits required) and again on an arena whose dead blocks are
+    NaN (the same bits again). Kernel times are queued, each call on the
+    next arena copy (`block_copies`)."""
+    import itertools
     import torch
     from megatron_tpu_torch.ops.block_attention import (
         block_attention_reference)
-    from megatron_tpu_torch.ops.block_attention_cuda import \
-        block_attention_cuda
+    from megatron_tpu_torch.ops.block_attention_cuda import (
+        block_attention_cuda, split_plan)
+    from megatron_tpu_torch.ops.cuda_build import sm_count
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(77)
     results = []
-    for (label, S, w, nq, nkv, hd, B, qname, kvname, idle) in BLOCK_CASES:
+    for (label, S, w, nq, nkv, hd, B, qname, kvname, lens) in BLOCK_CASES:
         q, ka, va, bmap, lengths, ks, vs = block_case_inputs(
-            gen, S, w, nq, nkv, hd, B, qname, kvname, idle)
+            gen, S, w, nq, nkv, hd, B, qname, kvname, lens)
         scale = hd ** -0.5
-        kw = dict(scale=scale, k_scale=ks, v_scale=vs)
 
-        def kernel(ka=ka, va=va, kw=kw):
+        def kernel(ka=ka, va=va, ks=ks, vs=vs):
             return block_attention_cuda(q, ka, va, bmap, lengths,
-                                        block_size=B, **kw)
+                                        scale=scale, block_size=B,
+                                        k_scale=ks, v_scale=vs)
 
         def plain():
-            return block_attention_reference(q, ka, va, bmap, lengths, **kw)
+            return block_attention_reference(q, ka, va, bmap, lengths,
+                                             scale=scale, k_scale=ks,
+                                             v_scale=vs)
 
         out = kernel()
         torch.cuda.synchronize()
@@ -897,29 +941,38 @@ def phase_block_kernels() -> list[dict]:
         check(bool(torch.isfinite(out).all()), f"{label}: non-finite out")
         check(err <= tol, f"{label}: block kernel vs plain err {err} "
               f"(tol {tol})")
-        ka2, va2, ks2, vs2 = poison_dead_blocks(ka, va, ks, vs, bmap,
-                                                lengths, w)
-        again = kernel(ka2, va2, dict(kw, k_scale=ks2, v_scale=vs2))
+        check(torch.equal(out, kernel()), f"{label}: two runs differ")
+        again = kernel(*poison_dead_blocks(ka, va, ks, vs, bmap, lengths,
+                                           w))
         torch.cuda.synchronize()
         check(torch.equal(out, again),
               f"{label}: NaN in dead blocks changed the output")
-        del ka2, va2, ks2, vs2, again
+        del again
         gather, sdpa = gathered_sdpa(q, ka, va, bmap, lengths, ks, vs,
                                      scale)
-        bms, bby = block_bound(q, ka, bmap, lengths, ks)
+        bms, bby, nbytes = block_bound(q, ka, bmap, lengths, ks)
+        copies = block_copies(ka, va, ks, vs, nbytes)
+        timed = rotating([functools.partial(kernel, *c) for c in copies],
+                         itertools.count(), [None] * len(copies))
+        plan = split_plan(S, w, nq, nkv, bmap.shape[1], B,
+                          sm_count(q.device.index))
         r = dict(shape=label, S=S, w=w, nq=nq, nkv=nkv, hd=hd,
                  block_size=B, q_dtype=qname, kv_dtype=kvname,
                  lengths=lengths.tolist(), cap=BLOCK_CAP,
+                 split_plan=dataclasses.asdict(plan),
                  max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
-                 tol=tol, dead_blocks_nan_same_bits=True,
-                 ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain, 5, 1),
-                 library_ms=cuda_time_ms(sdpa),
+                 tol=tol, bitwise_repeat=True, dead_blocks_nan_same_bits=True,
+                 ms=cuda_time_ms(timed, queued=True),
+                 arena_copies=len(copies),
+                 plain_ms=cuda_time_ms(plain, 5, 1),
+                 library_ms=cuda_time_ms(sdpa, queued=True),
                  library="scaled_dot_product_attention on the gathered "
                          "view, gather not counted",
-                 gather_ms=cuda_time_ms(gather), bound_ms=bms, bound_by=bby)
+                 gather_ms=cuda_time_ms(gather, queued=True), bound_ms=bms,
+                 bound_by=bby)
         log("block kernel check: " + json.dumps(r))
         results.append(r)
-        del q, ka, va, bmap, lengths, ks, vs, out, ref
+        del q, ka, va, bmap, lengths, ks, vs, out, ref, copies, timed
         torch.cuda.empty_cache()
     return results
 
@@ -1245,6 +1298,7 @@ def compare_backward(old_source: str) -> int:
     import torch
     from megatron_tpu_torch.ops import flash_attention as fa
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops.cuda_build import sm_count
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
     new_lib = fc._library("flash_bwd")
@@ -1320,7 +1374,7 @@ def compare_backward(old_source: str) -> int:
                  sliding_window=window, segments=use_seg, dropout=rate,
                  dlse=use_dlse, visible_pairs=pairs,
                  dkv_head_chunks=fc.dkv_head_chunks(
-                     b, s, nkv, nq // nkv, fc._sm_count(q.device.index)),
+                     b, s, nkv, nq // nkv, sm_count(q.device.index)),
                  old_dq_ms=mean["old", "dq"], new_dq_ms=mean["new", "dq"],
                  old_dkv_ms=mean["old", "dkv"],
                  new_dkv_ms=mean["new", "dkv"],
@@ -1338,44 +1392,53 @@ def compare_backward(old_source: str) -> int:
     return 0
 
 
-def old_norm_bwd(lib, kind, x2, scale, dy2):
-    """An earlier fused_norms.cu's backward (the signature that returned
-    fp32 partials [blocks, h], blocks = 2 an SM at most) launched as its
-    wrapper launched it, then its partials summed and cast as its autograd
-    Function did: (dx, dscale[, dbias])."""
+def old_norm_bwd(lib, call):
+    """`call` (a norm_calls backward with its cast) with an earlier
+    fused_norms.cu's library in the current one's place: its
+    fused_norm_bwd has the current signature, and the current wrapper lays
+    it out and casts its sums as its autograd Function did."""
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    original = fnc._library
+    fnc._library = lambda: lib
+    try:
+        return call()
+    finally:
+        fnc._library = original
+
+
+def old_norm_fwd(lib, kind, x2, scale, bias):
+    """An earlier fused_norms.cu's forward (the signature without a launch
+    plan: one row group of 8 // wpr rows a block, in shared memory)
+    launched as its wrapper launched it."""
     import torch
     from megatron_tpu_torch.ops import fused_norms_cuda as fnc
     ln = kind == "ln"
-    rows, h = x2.shape
-    dx = torch.empty_like(x2)
-    wpr = fnc.warps_per_row(h, x2.element_size())
-    groups = -(-rows // (fnc.WARPS // wpr))
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    blocks = max(1, min(groups, 2 * sms))
-    ds = torch.empty(blocks, h, dtype=torch.float32, device=x2.device)
-    db = torch.empty_like(ds) if ln else None
-    rc = lib.fused_norm_bwd(
-        x2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
-        ds.data_ptr(), db.data_ptr() if ln else None,
-        fnc._DTYPES[x2.dtype], fnc._DTYPES[scale.dtype], int(ln),
-        fnc._vec(x2, dy2, dx), rows, h, wpr, blocks, NORM_EPS,
+    out = torch.empty_like(x2)
+    rc = lib.fused_norm_fwd(
+        x2.data_ptr(), scale.data_ptr(), bias.data_ptr() if ln else None,
+        out.data_ptr(), fnc._DTYPES[x2.dtype], fnc._DTYPES[scale.dtype],
+        fnc._DTYPES[bias.dtype] if ln else 0, int(ln), fnc._vec(x2, out),
+        x2.shape[0], x2.shape[1],
+        fnc.warps_per_row(x2.shape[1], x2.element_size()), NORM_EPS,
         torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"old fused_norm_bwd: CUDA error {rc}")
-    return (dx, *(t.sum(0).to(scale.dtype) for t in ((ds, db) if ln
-                                                     else (ds,))))
+    check(rc == 0, f"old fused_norm_fwd: CUDA error {rc}")
+    return out
 
 
 def compare_norms(old_source: str) -> int:
-    """Before and after of the norm backward (kernels 6 and 8) on one card:
-    builds `old_source` (an earlier csrc/fused_norms.cu whose
-    fused_norm_bwd returns [blocks, h] partials) outside the checkout and
-    times its backward plus the sum of its partials, as its autograd
-    Function ran them, against the current backward with its cast, at every
-    bf16 NORM_CASES shape, in the order old, new, new, old, each call on the
-    next copy of the inputs and queued. Prints one JSON line a case (both
-    times, torch's autograd backward, the bound, the new kernel's errors
-    against the plain version) and exits 1 if a new result leaves
-    NORM_TOL / NORM_MISMATCH."""
+    """Before and after of the fused norms on one card: builds `old_source`
+    (an earlier csrc/fused_norms.cu whose fused_norm_fwd takes no launch
+    plan, and whose fused_norm_bwd has the current signature) outside the
+    checkout and times, at every bf16 NORM_CASES shape, its forward
+    (kernels 5 and 7) against the current one, and its backward against
+    the current one (kernels 6 and 8), both through the current wrapper
+    and with the autograd Function's cast, each in the order
+    old, new, new, old, each call on the next copy of the inputs and
+    queued. Prints one JSON line a case and direction (both times, torch's
+    call, the bound, the new kernel's errors against the plain version;
+    for the forward also a device copy of x, the same bytes moved by
+    torch's copy kernel) and exits 1 if a new result leaves NORM_TOL /
+    NORM_MISMATCH."""
     import ctypes
     import itertools
     import torch
@@ -1385,8 +1448,11 @@ def compare_norms(old_source: str) -> int:
     old_lib = build_old_library(old_source)
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    old_lib.fused_norm_bwd.argtypes = [p] * 6 + [i] * 4 + [ll, i, i, i, f, p]
+    old_lib.fused_norm_bwd.argtypes = fnc._library().fused_norm_bwd.argtypes
     old_lib.fused_norm_bwd.restype = i
+    old_lib.fused_norm_fwd.argtypes = [p] * 4 + [i] * 5 + [ll, i, i, f, p]
+    old_lib.fused_norm_fwd.restype = i
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(55)
     failed = []
     for label, shape, xname, pname, kinds in NORM_CASES:
@@ -1408,12 +1474,56 @@ def compare_norms(old_source: str) -> int:
         for kind in kinds:
             per_copy = [norm_calls(kind, xc, dyc, scale, bias)
                         for xc, dyc in copies]
-            olds = [functools.partial(old_norm_bwd, old_lib, kind, xc, scale,
-                                      dyc) for xc, dyc in copies]
+            olds = [functools.partial(old_norm_bwd, old_lib, c[3])
+                    for c in per_copy]
+            old_fwds = [functools.partial(old_norm_fwd, old_lib, kind, xc,
+                                          scale, bias) for xc, _ in copies]
             turn, keep = itertools.count(), [None] * n_copies
             arms = {"new": rotating([c[3] for c in per_copy], turn, keep),
                     "old": rotating(olds, turn, keep),
-                    "torch": rotating([c[5] for c in per_copy], turn, keep)}
+                    "torch": rotating([c[5] for c in per_copy], turn, keep),
+                    "new_fwd": rotating([c[0] for c in per_copy], turn,
+                                        keep),
+                    "old_fwd": rotating(old_fwds, turn, keep),
+                    "torch_fwd": rotating([c[2] for c in per_copy], turn,
+                                          keep)}
+            # the forward
+            want_y = per_copy[0][1]()
+            try:
+                fwd_err = norm_compare(per_copy[0][0](), want_y, xname,
+                                       f"{label} {kind} fwd")
+            except AssertionError as e:
+                failed.append(str(e))
+                fwd_err = None
+            old_fwd_err = (old_fwds[0]().float()
+                           - want_y.float()).abs().max().item()
+            del want_y
+            fwd_times = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                fwd_times[which].append(
+                    cuda_time_ms(arms[f"{which}_fwd"], queued=True))
+            n_params = 2 if kind == "ln" else 1
+            fwd_bound = bound_ms(
+                NORM_FLOPS[(kind, "fwd")] * rows * h,
+                2 * rows * h * 2 + n_params * h * scale.element_size(),
+                "torch.float32")
+            old_ms, new_ms = (sum(fwd_times["old"]) / 2,
+                              sum(fwd_times["new"]) / 2)
+            copy = rotating([(lambda xc=xc: torch.empty_like(xc).copy_(xc))
+                             for xc, _ in copies], turn, keep)
+            r = dict(shape=label, norm=kind, rows=rows, h=h,
+                     param_dtype=pname, old_ms=old_ms, new_ms=new_ms,
+                     old_runs=fwd_times["old"], new_runs=fwd_times["new"],
+                     speedup=old_ms / new_ms,
+                     torch_ms=cuda_time_ms(arms["torch_fwd"], queued=True),
+                     copy_ms=cuda_time_ms(copy, queued=True),
+                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                     new_over_bound=new_ms / fwd_bound[0],
+                     plan=dataclasses.asdict(fnc.fwd_plan(rows, h, 2, sms)),
+                     input_copies=n_copies, max_abs_err=fwd_err,
+                     old_max_abs_err=old_fwd_err, card=smi)
+            log("norm forward before/after: " + json.dumps(r))
+            # the backward
             got, want = per_copy[0][3](), per_copy[0][4]()
             torch.cuda.synchronize()
             errs = {}
@@ -1436,8 +1546,7 @@ def compare_norms(old_source: str) -> int:
             bound = bound_ms(NORM_FLOPS[(kind, "bwd")] * rows * h, nbytes,
                              "torch.float32")
             old_ms, new_ms = (sum(times["old"]) / 2, sum(times["new"]) / 2)
-            plan = fnc.bwd_plan(rows, h, 2, torch.cuda.get_device_properties(
-                0).multi_processor_count)
+            plan = fnc.bwd_plan(rows, h, 2, sms)
             r = dict(shape=label, norm=kind, rows=rows, h=h, param_dtype=pname,
                      old_ms=old_ms, new_ms=new_ms, old_runs=times["old"],
                      new_runs=times["new"], speedup=old_ms / new_ms,
@@ -1449,7 +1558,113 @@ def compare_norms(old_source: str) -> int:
             del per_copy, olds, arms, keep
         del x2, dy2, copies
         torch.cuda.empty_cache()
-    check(not failed, f"new norm backward outside NORM_TOL: {failed}")
+    check(not failed, f"new norms outside NORM_TOL: {failed}")
+    return 0
+
+
+def compare_block(old_source: str) -> int:
+    """Before and after of the block decode-attention kernel (kernel 4) on
+    one card: builds `old_source` (an earlier csrc/block_attn.cu whose
+    block_attn takes no workspace and no split plan) outside the checkout
+    and times it, called as its wrapper called it, against the current
+    wrapper at every BLOCK_CASES shape, in the order old, new, new, old,
+    each call queued and on the next arena copy (`block_copies`). Prints
+    one JSON line a case (both times, SDPA on the gathered view, the bound,
+    the split plan and the new kernel's time on its neighbours, the new and
+    old kernels' errors against the plain version) and exits 1 if a new
+    result leaves BLOCK_TOL or differs between two runs."""
+    import ctypes
+    import itertools
+    import torch
+    from megatron_tpu_torch.ops.block_attention import (
+        block_attention_reference)
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    from megatron_tpu_torch.ops.block_attention_cuda import (
+        _KV_DTYPES, _Q_DTYPES, _library, block_attention_cuda, split_plan)
+    from megatron_tpu_torch.ops.cuda_build import sm_count
+    smi = phase_device()
+    _library()
+    old_lib = build_old_library(old_source)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    old_lib.block_attn.argtypes = ([p] * 8 + [i] * 9 + [ll] * 3
+                                   + [ctypes.c_float, p])
+    old_lib.block_attn.restype = i
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    failed = []
+    for (label, S, w, nq, nkv, hd, B, qname, kvname, lens) in BLOCK_CASES:
+        q, ka, va, bmap, lengths, ks, vs = block_case_inputs(
+            gen, S, w, nq, nkv, hd, B, qname, kvname, lens)
+        scale = hd ** -0.5
+        nb = bmap.shape[1]
+
+        def new(ka, va, ks, vs):
+            return block_attention_cuda(q, ka, va, bmap, lengths,
+                                        scale=scale, block_size=B,
+                                        k_scale=ks, v_scale=vs)
+
+        def old(ka, va, ks, vs):
+            out = torch.empty(S, w, nq, hd, dtype=q.dtype, device="cuda")
+            rc = old_lib.block_attn(
+                q.data_ptr(), ka.data_ptr(), va.data_ptr(),
+                None if ks is None else ks.data_ptr(),
+                None if vs is None else vs.data_ptr(), bmap.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), _Q_DTYPES[q.dtype],
+                _KV_DTYPES[ka.dtype], hd, S, w, nq, nkv, B, nb, q.stride(0),
+                q.stride(1), q.stride(2), scale,
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"old block_attn: CUDA error {rc}")
+            return out
+
+        got = new(ka, va, ks, vs)
+        torch.cuda.synchronize()
+        ref = block_attention_reference(q, ka, va, bmap, lengths,
+                                        scale=scale, k_scale=ks, v_scale=vs)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not (err <= BLOCK_TOL[qname] and torch.isfinite(got).all()):
+            failed.append(f"{label}: err {err}")
+        if not torch.equal(got, new(ka, va, ks, vs)):
+            failed.append(f"{label}: two runs differ")
+        old_err = (old(ka, va, ks, vs).float()
+                   - ref.float()).abs().max().item()
+        bms, bby, nbytes = block_bound(q, ka, bmap, lengths, ks)
+        copies = block_copies(ka, va, ks, vs, nbytes)
+        turn, keep = itertools.count(), [None] * len(copies)
+        arms = {name: rotating([functools.partial(fn, *c) for c in copies],
+                               turn, keep)
+                for name, fn in (("new", new), ("old", old))}
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(cuda_time_ms(arms[which], queued=True))
+        _, sdpa = gathered_sdpa(q, ka, va, bmap, lengths, ks, vs, scale)
+        old_ms, new_ms = sum(times["old"]) / 2, sum(times["new"]) / 2
+        plan = split_plan(S, w, nq, nkv, nb, B, sm_count(q.device.index))
+        # the new kernel on the plan's neighbours: half and twice the keys
+        # a split, where they are whole blocks
+        neighbours = {}
+        for keys in (plan.keys // 2, plan.keys * 2):
+            if keys % B or keys < B or keys > plan.cap:
+                continue
+            other = dataclasses.replace(plan, keys=keys,
+                                        splits=-(-plan.cap // keys))
+            arm = rotating([functools.partial(
+                bac._run, q, c[0], c[1], bmap, lengths, scale, c[2], c[3],
+                other) for c in copies], turn, keep)
+            neighbours[keys] = cuda_time_ms(arm, queued=True)
+        r = dict(shape=label, S=S, w=w, nq=nq, nkv=nkv, hd=hd, block_size=B,
+                 q_dtype=qname, kv_dtype=kvname, lengths=lengths.tolist(),
+                 old_ms=old_ms, new_ms=new_ms, old_runs=times["old"],
+                 new_runs=times["new"], speedup=old_ms / new_ms,
+                 library_ms=cuda_time_ms(sdpa, queued=True),
+                 bound_ms=bms, bound_by=bby, new_over_bound=new_ms / bms,
+                 split_plan=dataclasses.asdict(plan),
+                 new_ms_by_split_keys=neighbours,
+                 arena_copies=len(copies), max_abs_err=err,
+                 old_max_abs_err=old_err, card=smi)
+        log("block before/after: " + json.dumps(r))
+        del q, ka, va, bmap, lengths, ks, vs, got, ref, copies, arms, keep
+        torch.cuda.empty_cache()
+    check(not failed, f"new block kernel: {failed}")
     return 0
 
 
@@ -2468,8 +2683,13 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--compare-norms", metavar="FUSED_NORMS_CU",
         help="instead of the smoke run, time this earlier "
-             "csrc/fused_norms.cu's backward (with the sum of its partials) "
-             "beside the current one at every bf16 NORM_CASES shape")
+             "csrc/fused_norms.cu's forward and backward beside the current "
+             "ones at every bf16 NORM_CASES shape")
+    parser.add_argument(
+        "--compare-block", metavar="BLOCK_ATTN_CU",
+        help="instead of the smoke run, time this earlier "
+             "csrc/block_attn.cu beside the current one at every "
+             "BLOCK_CASES shape")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2486,14 +2706,15 @@ def main(argv=None) -> int:
               "repository (megatron_tpu_torch not importable)",
               file=sys.stderr)
         return 2
-    if args.compare_fwd or args.compare_bwd or args.compare_norms:
+    compares = [(fn, path) for fn, path in (
+        (compare_forward, args.compare_fwd),
+        (compare_backward, args.compare_bwd),
+        (compare_norms, args.compare_norms),
+        (compare_block, args.compare_block)) if path]
+    if compares:
         try:
-            if args.compare_fwd:
-                compare_forward(args.compare_fwd)
-            if args.compare_bwd:
-                compare_backward(args.compare_bwd)
-            if args.compare_norms:
-                compare_norms(args.compare_norms)
+            for fn, path in compares:
+                fn(path)
             return 0
         except Exception:  # noqa: BLE001 — any failure fails the run
             traceback.print_exc()
@@ -2589,6 +2810,7 @@ def main(argv=None) -> int:
         bound_ms=block_main["bound_ms"], bound_by=block_main["bound_by"],
         library_ms=block_main["library_ms"], library=block_main["library"],
         gather_ms=block_main["gather_ms"], shape=BLOCK_MAIN,
+        cuda_kernels=BLOCK_CUDA_KERNELS,
         live_state_check=engine_stats["live_state_check"],
         cases=block_cases))
     norms = "megatron_tpu/ops/fused_norms.py"

@@ -18,12 +18,30 @@
 // time is bytes over 3.35 TB/s: forward x read and y written once; backward
 // x and dy read and dx written once.
 //
-// Forward design. A row is owned by 1, 2, 4 or 8 warps of a 256-thread block
-// (`wpr`, chosen by the caller so that each thread holds a few 16-byte
-// chunks), so a block holds 8 / wpr rows. Each thread loads its chunks of x
-// with 16-byte vector loads where the row's bytes allow (scalar loads
-// otherwise) and keeps them in shared memory; row sums go through warp
-// shuffles, then shared memory across the row's warps.
+// Forward design (`norm_fwd_rows_kernel` or, for rows too wide for its
+// registers, `norm_fwd_wide_kernel`), the backward's layout:
+// - The row lives in registers. A slot of `wpr` warps owns a row, chunk c
+//   of it (16 bytes, or one element on the scalar path) belongs to thread
+//   c mod 32 * wpr of the slot, and a thread owns at most NC chunks, 16
+//   values at most; the caller's plan (ops/fused_norms_cuda.py `fwd_plan`)
+//   picks wpr and NC from h. The scale (and bias) stay in registers as
+//   fp32 over every row a thread handles.
+// - Slot-local sums: RMSNorm reduces sum x^2 once, LayerNorm sum x and
+//   then sum (x - mu)^2, each through warp shuffles and, with more than one
+//   warp a row, shared memory behind a named barrier of that slot's warps.
+// - Loads stay in flight. The grid is persistent and each slot strides over
+//   rows. On the vector path each thread copies its own chunks of the
+//   slot's rows with 16-byte cp.async into a ring of RING rows, waits on
+//   its own commit groups alone (no barrier guards the ring), and refills a
+//   stage as soon as its row is in registers: the next two rows are in
+//   flight while one is reduced and written. On the scalar path the next
+//   row is loaded into registers while the current one is reduced.
+// - Rows over 16 values a thread at 16 warps a row (wider than 8,192
+//   values, or 4,096 on the scalar path) take `norm_fwd_wide_kernel`: 1-8
+//   warps a row (`wpr`, so that a thread holds a few 16-byte chunks), the
+//   row kept in shared memory, sums through shared memory behind block
+//   barriers; it takes rows up to a block's shared memory.
+// - y keeps the reference's cast order (__fmul_rn, __fsub_rn, __fadd_rn).
 //
 // Backward design (`norm_bwd_rows_kernel` or, for rows too wide for its
 // registers, `norm_bwd_wide_kernel`; then `norm_bwd_colsum_kernel`).
@@ -70,6 +88,12 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+// a rows-kernel block: 8 warps, or 16 when one row takes 16
+constexpr int WARPS_MAX = 16;
+// rows of the vector path's ring, a slot: in the backward the row in use
+// and the next one (3 or 4 were no faster at any measured shape); in the
+// forward, which holds its row in registers, the next two
+constexpr int RING = 2;
 
 struct Params {
   const void* x;      // [rows, h] contiguous
@@ -78,7 +102,7 @@ struct Params {
   void* out;          // y: [rows, h] in x's dtype
   long long rows;
   int h;
-  int wpr;            // warps per row: 1, 2, 4 or 8
+  int wpr;            // warps per row: 1-16 (1-8 in the wide kernel)
   int s_dtype;        // 0 fp32, 1 bf16
   int b_dtype;
   float eps;
@@ -175,8 +199,203 @@ struct RowSum {
   }
 };
 
+// Sums of v[0..N) over the threads of one slot (row): warp shuffles, then,
+// with more than one warp a row, the warps' sums in warp order through
+// `red` behind a barrier of the slot's warps alone. `red` holds two
+// buffers taken in turn: a buffer is written again only after the next
+// barrier, which every reader of its last use has passed.
+template <int N>
+struct SlotSum {
+  float (*red)[WARPS_MAX][N];  // [2][WARPS_MAX][N]
+  int slot, wir, wpr, lane;
+  int buf;
+  __device__ __forceinline__ void operator()(float (&v)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = warp_sum(v[i]);
+    if (wpr == 1) return;
+    float(*r)[N] = red[buf];
+    buf ^= 1;
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[slot * wpr + wir][i] = v[i];
+    }
+    hopper::named_barrier_sync(1 + slot, 32 * wpr);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float s = 0.f;
+      // unrolled over the most warps a row may take: a loop to the
+      // run-time wpr costs more than the predicated loads
+#pragma unroll
+      for (int w = 0; w < WARPS_MAX; ++w)
+        if (w < wpr) s += r[slot * wpr + w][i];
+      v[i] = s;
+    }
+  }
+};
+
+// y for the rows of every slot of the grid. A slot of wpr warps owns a
+// row; chunk c of it (V elements: 16 bytes, or 1 on the scalar path)
+// belongs to thread c mod 32 * wpr of the slot, at most NC chunks a thread,
+// NC * V <= 16. The row, the scale and the bias stay in registers as fp32;
+// on the vector path each thread copies its own chunks of the slot's next
+// two rows with cp.async into a ring of RING rows and refills a stage as
+// soon as it holds the stage's row in registers.
+template <typename T, int V, int NC, bool LN>
+__global__ void __launch_bounds__(32 * WARPS_MAX, 1)
+    norm_fwd_rows_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][WARPS_MAX][1];
+  const int wpr = p.wpr;
+  const int tpr = 32 * wpr;
+  const int rpb = blockDim.x / tpr;
+  const int slot = threadIdx.x / tpr;
+  const int lt = threadIdx.x % tpr;
+  SlotSum<1> slot_sum{red, slot, lt / 32, wpr,
+                      static_cast<int>(threadIdx.x % 32), 0};
+  const int h = p.h;
+  const int nch = h / V;
+  const float hf = static_cast<float>(h);
+  const T* x = static_cast<const T*>(p.x);
+  T* y = static_cast<T*>(p.out);
+
+  // this thread's chunks
+  bool own[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) own[j] = lt + j * tpr < nch;
+
+  // the slot's rows: first, first + stride, ...; n of them
+  const long long first = static_cast<long long>(blockIdx.x) * rpb + slot;
+  const long long stride = static_cast<long long>(gridDim.x) * rpb;
+  const int n =
+      p.rows > first ? static_cast<int>((p.rows - 1 - first) / stride + 1) : 0;
+  // the vector path's ring: [stage][slot][h] in x's dtype; row k of the
+  // slot goes to stage k % RING
+  T* ring = reinterpret_cast<T*>(smem);
+  auto stage_at = [&](int st) {
+    return ring + (static_cast<size_t>(st) * rpb + slot) * h;
+  };
+  // copy the thread's chunks of row k of the slot into its stage, one
+  // commit group a row (empty past the slot's last row)
+  auto copy_row = [&](int k) {
+    if (k < n) {
+      const size_t off = static_cast<size_t>(first + k * stride) * h;
+      T* st = stage_at(k % RING);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        if (!own[j]) continue;
+        const int e = (lt + j * tpr) * V;
+        hopper::cp_async_cg16(st + e, x + off + e);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+  // the scalar path: row k of the slot straight into registers
+  auto load = [&](int k, float (&xf)[NC][V]) {
+    const size_t off = static_cast<size_t>(first + k * stride) * h;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int e = (lt + j * tpr) * V;
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        xf[j][i] = own[j] ? to_float(x[off + e + i]) : 0.f;
+    }
+  };
+
+  float nx[NC][V];  // the scalar path's next row
+  if constexpr (V > 1) {
+    for (int k = 0; k < RING; ++k) copy_row(k);
+  } else {
+    if (n > 0) load(0, nx);
+  }
+  // while the first rows arrive: the thread's scale (and bias) as fp32
+  float s[NC][V], b[NC][V];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int col = (lt + j * tpr) * V + i;
+      s[j][i] = own[j] ? param(p.scale, p.s_dtype, col) : 0.f;
+      b[j][i] = LN && own[j] ? param(p.bias, p.b_dtype, col) : 0.f;
+    }
+  }
+
+  for (int k = 0; k < n; ++k) {
+    float xf[NC][V];
+    if constexpr (V > 1) {
+      // rows 0..k + 1 committed; row k is complete once at most one group
+      // is in flight
+      hopper::cp_async_wait<RING - 1>();
+      const T* st = stage_at(k % RING);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        if (own[j]) {
+          Chunk<T, V>::read(st + (lt + j * tpr) * V, xf[j]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) xf[j][i] = 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) xf[j][i] = nx[j][i];
+      }
+      if (k + 1 < n) load(k + 1, nx);
+    }
+
+    // RMSNorm: sum x^2; LayerNorm: sum x (an unowned chunk holds 0)
+    float v[1] = {0.f};
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[0] += LN ? xf[j][i] : xf[j][i] * xf[j][i];
+    }
+    // the sum above has consumed the stage's values: row k + RING may
+    // overwrite them
+    if constexpr (V > 1) copy_row(k + RING);
+    slot_sum(v);
+    float mu = 0.f;
+    if constexpr (LN) {
+      // then sum (x - mu)^2 over the owned chunks
+      mu = v[0] / hf;
+      v[0] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        if (!own[j]) continue;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float d = xf[j][i] - mu;
+          v[0] += d * d;
+        }
+      }
+      slot_sum(v);
+    }
+    const float r = 1.f / sqrtf(v[0] / hf + p.eps);
+
+    const size_t off = static_cast<size_t>(first + k * stride) * h;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (!own[j]) continue;
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float xc = LN ? __fsub_rn(xf[j][i], mu) : xf[j][i];
+        o[i] = __fmul_rn(__fmul_rn(xc, r), s[j][i]);
+        if constexpr (LN) o[i] = __fadd_rn(o[i], b[j][i]);
+      }
+      Chunk<T, V>::store(y + off + (lt + j * tpr) * V, o);
+    }
+  }
+}
+
+// y for rows too wide for norm_fwd_rows_kernel's registers: a row is owned
+// by 1, 2, 4 or 8 warps of a 256-thread block (the caller's wpr), so a
+// block holds 8 / wpr rows, one each; each thread loads its chunks of x
+// once and keeps them in shared memory, and the row sums go through warp
+// shuffles, then shared memory across the row's warps.
 template <typename T, int V, bool LN>
-__global__ void __launch_bounds__(THREADS) norm_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(THREADS) norm_fwd_wide_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[2 * WARPS];
   const int tpr = 32 * p.wpr;
@@ -237,12 +456,6 @@ __global__ void __launch_bounds__(THREADS) norm_fwd_kernel(Params p) {
   }
 }
 
-// a backward block: 8 warps, or 16 when one row takes 16
-constexpr int BWD_WARPS_MAX = 16;
-// rows of the vector path's ring: the row in use and the next one (3 or 4
-// were no faster at any measured shape)
-constexpr int RING = 2;
-
 struct BwdParams {
   const void* x;      // [rows, h] contiguous
   const void* dy;     // [rows, h] contiguous, x's dtype
@@ -256,49 +469,15 @@ struct BwdParams {
   float eps;
 };
 
-// Sums of v[0..N) over the threads of one slot (row): warp shuffles, then,
-// with more than one warp a row, the warps' sums in warp order through
-// `red` behind a barrier of the slot's warps alone. `red` holds two
-// buffers taken in turn: a buffer is written again only after the next
-// barrier, which every reader of its last use has passed.
-template <int N>
-struct SlotSum {
-  float (*red)[BWD_WARPS_MAX][N];  // [2][BWD_WARPS_MAX][N]
-  int slot, wir, wpr, lane;
-  int buf;
-  __device__ __forceinline__ void operator()(float (&v)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = warp_sum(v[i]);
-    if (wpr == 1) return;
-    float(*r)[N] = red[buf];
-    buf ^= 1;
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[slot * wpr + wir][i] = v[i];
-    }
-    hopper::named_barrier_sync(1 + slot, 32 * wpr);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = 0.f;
-      // unrolled over the most warps a row may take: a loop to the
-      // run-time wpr costs more than the predicated loads
-#pragma unroll
-      for (int w = 0; w < BWD_WARPS_MAX; ++w)
-        if (w < wpr) s += r[slot * wpr + w][i];
-      v[i] = s;
-    }
-  }
-};
-
 // dx for the rows of every slot of the grid, and each block's partial
 // column sums of dy * xh (and dy). V elements a chunk (16 bytes, or 1 on
 // the scalar path), at most NC chunks a thread, NC * V <= 16: at most 128
 // registers a thread, so an SM holds two blocks of 8 warps or one of 16.
 template <typename T, int V, int NC, bool LN>
-__global__ void __launch_bounds__(32 * BWD_WARPS_MAX, 1)
+__global__ void __launch_bounds__(32 * WARPS_MAX, 1)
     norm_bwd_rows_kernel(BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2][BWD_WARPS_MAX][2];
+  __shared__ float red[2][WARPS_MAX][2];
   const int wpr = p.wpr;
   const int tpr = 32 * wpr;
   const int rpb = blockDim.x / tpr;
@@ -529,7 +708,7 @@ struct Floats {
 };
 
 // dx for rows too wide for norm_bwd_rows_kernel's registers, and each
-// block's partial column sums. One row a block of BWD_WARPS_MAX warps, the
+// block's partial column sums. One row a block of WARPS_MAX warps, the
 // blocks striding over rows; chunk c of a row (V elements) belongs to
 // thread c mod the block's threads, as in the rows kernel. Each pass walks
 // the thread's chunks of x and dy in device memory; dy * xh (and dy) go
@@ -537,12 +716,12 @@ struct Floats {
 // no other thread touches. A chunk's loads (x, dy, scale, its column sums)
 // all start before any of its stores.
 template <typename T, int V, bool LN>
-__global__ void __launch_bounds__(32 * BWD_WARPS_MAX, 1)
+__global__ void __launch_bounds__(32 * WARPS_MAX, 1)
     norm_bwd_wide_kernel(BwdParams p) {
-  __shared__ float red[2][BWD_WARPS_MAX][2];
-  constexpr int tpr = 32 * BWD_WARPS_MAX;
+  __shared__ float red[2][WARPS_MAX][2];
+  constexpr int tpr = 32 * WARPS_MAX;
   const int lt = threadIdx.x;
-  SlotSum<2> slot_sum{red, 0, lt / 32, BWD_WARPS_MAX, lt % 32, 0};
+  SlotSum<2> slot_sum{red, 0, lt / 32, WARPS_MAX, lt % 32, 0};
   const int h = p.h;
   const int nch = h / V;
   const float hf = static_cast<float>(h);
@@ -672,18 +851,39 @@ cudaError_t run(Kernel kernel, const P& p, size_t smem, unsigned blocks,
   return cudaGetLastError();
 }
 
-template <typename T, bool LN>
-cudaError_t fwd(const Params& p, bool vec, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const int rpb = WARPS / p.wpr;
-  const size_t smem = static_cast<size_t>(rpb) * p.h * sizeof(T);
-  const unsigned blocks = static_cast<unsigned>((p.rows + rpb - 1) / rpb);
-  if (vec) return run(norm_fwd_kernel<T, V, LN>, p, smem, blocks, stream);
-  return run(norm_fwd_kernel<T, 1, LN>, p, smem, blocks, stream);
+// the instantiations, NC * V <= 16, or nc 0 for the wide kernel; a rows
+// block of 8 warps, or of 16 when a row takes 16
+template <typename T, int V, bool LN>
+cudaError_t fwd_rows(const Params& p, int nc, size_t smem, unsigned blocks,
+                     cudaStream_t stream) {
+  if (nc == 0)
+    return run(norm_fwd_wide_kernel<T, V, LN>, p, smem, blocks, stream);
+  const int threads = 32 * (p.wpr > WARPS ? p.wpr : WARPS);
+  if (nc == 2)
+    return run(norm_fwd_rows_kernel<T, V, 2, LN>, p, smem, blocks, stream,
+               threads);
+  if constexpr (4 * V <= 16) {
+    if (nc == 4)
+      return run(norm_fwd_rows_kernel<T, V, 4, LN>, p, smem, blocks, stream,
+                 threads);
+  }
+  if constexpr (8 * V <= 16) {
+    if (nc == 8)
+      return run(norm_fwd_rows_kernel<T, V, 8, LN>, p, smem, blocks, stream,
+                 threads);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// the instantiations, NC * V <= 16, or nc 0 for the wide kernel; a block
-// of 8 warps, or of 16 when a row takes 16
+template <typename T, bool LN>
+cudaError_t fwd(const Params& p, bool vec, int nc, size_t smem,
+                unsigned blocks, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) return fwd_rows<T, V, LN>(p, nc, smem, blocks, stream);
+  return fwd_rows<T, 1, LN>(p, nc, smem, blocks, stream);
+}
+
+// as fwd_rows
 template <typename T, int V, bool LN>
 cudaError_t bwd_rows(const BwdParams& p, int nc, size_t smem,
                      unsigned blocks, cudaStream_t stream) {
@@ -726,13 +926,31 @@ bool valid(int x_dtype, int wpr, long long rows, int h,
 
 // Forward. x_dtype, s_dtype, b_dtype: 0 fp32, 1 bf16; layernorm 0 or 1
 // (bias is read only for LayerNorm); vec 1 when h * itemsize is a multiple
-// of 16 and x and out are 16-byte aligned. Returns the launch's cudaError_t.
+// of 16 and x and out are 16-byte aligned. The launch plan
+// (ops/fused_norms_cuda.py `fwd_plan`) gives wpr (1-16), nc (chunks a
+// thread holds: 2, 4 or 8; 0 for the wide kernel, at most 8 warps a row),
+// blocks and smem (dynamic shared bytes: the ring, or the wide kernel's
+// rows). Returns the launch's cudaError_t.
 extern "C" int fused_norm_fwd(const void* x, const void* scale,
                               const void* bias, void* out, int x_dtype,
                               int s_dtype, int b_dtype, int layernorm,
                               int vec, long long rows, int h, int wpr,
-                              float eps, void* stream) {
-  if (!valid(x_dtype, wpr, rows, h)) return cudaErrorInvalidValue;
+                              int nc, int blocks, int smem, float eps,
+                              void* stream) {
+  if (!valid(x_dtype, wpr, rows, h, nc == 0 ? WARPS : WARPS_MAX) ||
+      blocks < 1 || smem < 0)
+    return cudaErrorInvalidValue;
+  const size_t item = x_dtype == 0 ? 4 : 2;
+  const int v = vec ? static_cast<int>(16 / item) : 1;
+  const int rpb = wpr > WARPS ? 1 : WARPS / wpr;
+  const size_t rows_bytes = static_cast<size_t>(rpb) * h * item;
+  if (vec && (h * item) % 16 != 0) return cudaErrorInvalidValue;
+  // the wide kernel keeps its rows in shared memory; the rows kernel's
+  // chunks must fit its threads, and its ring the shared memory
+  if (nc == 0 ? static_cast<size_t>(smem) < rows_bytes
+              : (static_cast<long long>(nc) * 32 * wpr * v < h ||
+                 static_cast<size_t>(smem) < (vec ? RING * rows_bytes : 0)))
+    return cudaErrorInvalidValue;
   Params p{};
   p.x = x;
   p.scale = scale;
@@ -745,10 +963,12 @@ extern "C" int fused_norm_fwd(const void* x, const void* scale,
   p.b_dtype = b_dtype;
   p.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = static_cast<unsigned>(blocks);
   if (x_dtype == 0)
-    return layernorm ? fwd<float, true>(p, vec, st) : fwd<float, false>(p, vec, st);
-  return layernorm ? fwd<__nv_bfloat16, true>(p, vec, st)
-                   : fwd<__nv_bfloat16, false>(p, vec, st);
+    return layernorm ? fwd<float, true>(p, vec, nc, smem, nb, st)
+                     : fwd<float, false>(p, vec, nc, smem, nb, st);
+  return layernorm ? fwd<__nv_bfloat16, true>(p, vec, nc, smem, nb, st)
+                   : fwd<__nv_bfloat16, false>(p, vec, nc, smem, nb, st);
 }
 
 // Backward. dx [rows, h] in x's dtype; out fp32 [1 + layernorm][h]: dscale
@@ -765,8 +985,8 @@ extern "C" int fused_norm_bwd(const void* x, const void* scale,
                               int vec, long long rows, int h, int wpr,
                               int nc, int blocks, int smem, float eps,
                               void* stream) {
-  if (!valid(x_dtype, wpr, rows, h, BWD_WARPS_MAX) || blocks < 1 ||
-      smem < 0 || (nc == 0 && wpr != BWD_WARPS_MAX))
+  if (!valid(x_dtype, wpr, rows, h, WARPS_MAX) || blocks < 1 ||
+      smem < 0 || (nc == 0 && wpr != WARPS_MAX))
     return cudaErrorInvalidValue;
   const size_t item = x_dtype == 0 ? 4 : 2;
   const int v = vec ? static_cast<int>(16 / item) : 1;

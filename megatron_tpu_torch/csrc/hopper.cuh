@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels that feed
 // warpgroup matrix multiplies (wgmma) from a ring of tiles that the Tensor
 // Memory Accelerator (TMA) loads into shared memory: mbarrier init, arrive,
-// expect_tx and wait; 16-byte cp.async copies with their commit groups;
-// 4-d TMA tile loads; wgmma shared-memory descriptors
-// for the 128-byte swizzle; wgmma fence, commit and wait; operand fences;
-// setmaxnreg; and the host's tensor-map encoder, reached through the
-// runtime so that a library needs no -lcuda. Raw PTX instead of CuTe keeps
-// a build in seconds.
+// expect_tx and wait; the programmatic-dependent-launch controls; 16- and
+// 4-byte cp.async copies with their commit groups; 4-d TMA tile loads;
+// wgmma shared-memory descriptors for the 128-byte swizzle; wgmma fence,
+// commit and wait; operand fences; setmaxnreg; and the host's tensor-map
+// encoder, reached through the runtime so that a library needs no -lcuda.
+// Raw PTX instead of CuTe keeps a build in seconds.
 #pragma once
 
 #include <cuda.h>
@@ -97,6 +97,20 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// --- programmatic dependent launch ------------------------------------------
+
+// let the grid launched after this one with programmatic stream
+// serialisation start before this one ends (a no-op without one)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the grids this one depends on have completed and their
+// memory is visible (returns at once without one)
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // --- cp.async ---------------------------------------------------------------
 
 // one 16-byte copy from device memory to shared memory that bypasses L1;
@@ -104,6 +118,15 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
 // commit groups: a thread that reads only what it copied needs no barrier.
 __device__ __forceinline__ void cp_async_cg16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// one 4-byte copy from device memory to shared memory (through L1); both
+// addresses 4-byte aligned. It completes as cp_async_cg16 does.
+__device__ __forceinline__ void cp_async_ca4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
                : "memory");

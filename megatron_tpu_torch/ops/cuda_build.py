@@ -97,6 +97,14 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build()[name]))
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index` (the kernels'
+    persistent and split grids are sized by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def raise_on(rc: int, where: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{where}: launch failed with CUDA error {rc}")

@@ -134,11 +134,6 @@ def head_chunk_bounds(group: int, chunks: int) -> list:
             for c in range(chunks)]
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float,
                    sliding_window: Optional[int] = None,
@@ -253,7 +248,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
     chunks, workspace = 1, None
     if q.dtype == torch.bfloat16:
         chunks = dkv_head_chunks(b, sk, nkv, nq // nkv,
-                                 _sm_count(q.device.index))
+                                 cuda_build.sm_count(q.device.index))
     if chunks > 1:
         workspace = torch.empty(2, chunks, b, sk, nkv, d,
                                 dtype=torch.float32, device=q.device)

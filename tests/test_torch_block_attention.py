@@ -4,9 +4,14 @@ inputs, and the block pool that feeds it.
 
 On the CPU the port's `block_native_attention` is its plain version (the
 Hopper kernel runs on the card, held against the plain version by
-chip_smoke.py). Tolerances: fp32 1e-5 (the same fp32 softmax, summed in
+chip_smoke.py); the kernel's split-KV layout (`split_plan`) and the merge of
+its splits (an fp32 numpy emulation) are held here against the JAX kernel.
+Tolerances: fp32 1e-5 (the same fp32 softmax, summed in
 another order), bf16 1e-2 (one bf16 rounding of the output), int8 with
 scales 1e-5 (dequantized in fp32 on both sides, fp32 queries)."""
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ from megatron_tpu.ops.block_attention_pallas import \
     block_native_attention as jax_block_attention
 from megatron_tpu_torch import config as tconfig
 from megatron_tpu_torch.models.attention import KVCache
+from megatron_tpu_torch.ops import block_attention_cuda
 from megatron_tpu_torch.ops.block_attention import block_native_attention
 from megatron_tpu_torch.serving.kv_pool import (SlotKVPool,
                                                 block_native_cache,
@@ -187,3 +193,160 @@ def test_prefill_cache_is_sized_to_the_padded_prompt():
             assert pool.caches.offset[slot].item() == 40
             assert not pool.caches.k[:, slot, 48:].any()
         torch.testing.assert_close(got, one.k[:, 0], rtol=0, atol=0)
+
+
+# --- the Hopper kernel's split-KV layout (csrc/block_attn.cu) ---------------
+
+NEG_INF = -1e30
+MASK_CLAMP = -1e20  # the kernels' exponent clamp for fully masked rows
+
+
+def _smoke_block_shapes():
+    """(S, w, nq, nkv, nb, B) of chip_smoke.py's BLOCK_CASES, then the
+    engine's decode shape (8 slots of Llama-2-7B, 2,048 positions in blocks
+    of 16)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = [(S, w, nq, nkv, smoke.BLOCK_CAP // B, B)
+              for _, S, w, nq, nkv, _, B, _, _, _ in smoke.BLOCK_CASES]
+    return shapes + [(8, 1, 32, 32, 128, 16)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_split_plan_covers_every_key_once_and_fills_the_card(sms):
+    shapes = _smoke_block_shapes()
+    assert len(shapes) == 10
+    for S, w, nq, nkv, nb, B in shapes:
+        plan = block_attention_cuda.split_plan(S, w, nq, nkv, nb, B, sms)
+        what = f"S {S} w {w} nq {nq} nkv {nkv} nb {nb} B {B}: {plan}"
+        cap = nb * B
+        # whole blocks a split, every key of the region in exactly one
+        # split, in order
+        assert plan.keys % B == 0 and plan.cap == cap, what
+        keys = [k for i in range(plan.splits)
+                for k in range(i * plan.keys, min((i + 1) * plan.keys, cap))]
+        assert keys == list(range(cap)), what
+        assert plan.keys * (plan.splits - 1) < cap <= plan.keys * plan.splits
+        # the kernel's map entries a split (csrc/block_attn.cu MAP_MAX)
+        assert plan.keys // B <= 512, what
+        rows = nq // nkv * w
+        assert plan.rows == (1 if rows == 1 else 8), what
+        assert plan.chunks * plan.rows >= rows > (plan.chunks - 1) * plan.rows
+        assert plan.blocks == S * nkv * plan.chunks * plan.splits, what
+        # full-length slots would give the grid two blocks an SM at least
+        assert plan.blocks >= 2 * sms, what
+
+
+def test_split_plan_halves_splits_for_full_row_chunks():
+    plan = block_attention_cuda.split_plan
+    # MHA decode and a 4-query verify window: 256 keys; 8 GQA rows, 71 MQA
+    # rows: 128
+    assert plan(8, 1, 32, 32, 128, 16, 132).keys == 256
+    assert plan(8, 4, 32, 32, 128, 16, 132).keys == 256
+    assert plan(8, 1, 64, 8, 128, 16, 132).keys == 128
+    assert plan(8, 1, 71, 1, 128, 16, 132).keys == 128
+    # whole blocks: 256 keys of 48-key blocks round up to 288
+    assert plan(8, 1, 32, 32, 64, 48, 132).keys == 288
+    # one slot, one kv head: halved down to 64 keys to spread the region
+    one = plan(1, 1, 1, 1, 128, 16, 132)
+    assert one.keys == 64 and one.splits == 32
+    # a region shorter than a split is one split
+    assert plan(8, 1, 32, 32, 2, 16, 132).splits == 1
+    for bad in ((0, 1, 32, 32, 128, 16, 132), (8, 1, 30, 4, 128, 16, 132),
+                (8, 1, 32, 32, 128, 0, 132), (8, 1, 32, 32, 128, 16, 0)):
+        with pytest.raises(ValueError, match="split_plan"):
+            plan(*bad)
+
+
+def _split_merge(q, ka, va, bmap, lengths, scale, keys, ks=None, vs=None):
+    """The split kernel's arithmetic in numpy fp32: each split of `keys`
+    keys computes its own (m, l, acc) over its visible keys, masked scores
+    NEG_INF and the exponent clamped at MASK_CLAMP; the live splits are
+    merged in split order (block_attn_combine_kernel). Splits past a slot's
+    live keys are not read."""
+    S, w, nq, hd = q.shape
+    _, B, nkv, _ = ka.shape
+    cap = bmap.shape[1] * B
+    g = nq // nkv
+
+    def view(arena, sc):
+        x = arena[bmap].reshape(S, cap, nkv, hd).astype(np.float32)
+        if sc is not None:
+            x = x * sc[bmap].reshape(S, cap, nkv, 1)
+        return x
+
+    k, v = view(ka, ks), view(va, vs)
+    out = np.zeros((S, w, nq, hd), np.float32)
+    for s in range(S):
+        n_keys = min(int(lengths[s]) + w, cap)
+        for j in range(w):
+            q_pos = int(lengths[s]) + j
+            for qh in range(nq):
+                h = qh // g
+                qv = q[s, j, qh].astype(np.float32) * np.float32(scale)
+                parts = []
+                for lo in range(0, n_keys, keys):
+                    hi = min(lo + keys, n_keys)
+                    sc = k[s, lo:hi, h] @ qv
+                    sc = np.where(np.arange(lo, hi) <= q_pos, sc,
+                                  np.float32(NEG_INF))
+                    m = sc.max()
+                    p = np.exp(sc - max(m, np.float32(MASK_CLAMP)))
+                    parts.append((m, p.sum(), p @ v[s, lo:hi, h]))
+                mx = max(m for m, _, _ in parts)
+                l_sum, acc = np.float32(0), np.zeros(hd, np.float32)
+                for m, l_part, a in parts:
+                    f = np.exp(m - mx)
+                    l_sum += l_part * f
+                    acc += a * f
+                out[s, j, qh] = acc / (l_sum if l_sum > 0 else 1)
+    return out
+
+
+# lengths whose verify windows straddle a split's end for splits of B and
+# 2B keys (B 8 and 16, w 3), with an idle row
+STRADDLE = {
+    "straddle_w3_mqa_b8": ((3, 3, 4, 1, 8, 6, "float32", (2,)), [7, 14, 0]),
+    "straddle_w3_gqa_b16": ((3, 3, 4, 2, 16, 4, "float32", ()),
+                            [15, 30, 46]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(STRADDLE))
+def test_split_then_merge_matches_jax_kernel(name):
+    """Split-KV then the combine's merge, at every keys a split a CASES
+    shape can have (B, 2B and split_plan's), against the JAX kernel in
+    interpret mode: the merge's math holds, splits that end mid-window and
+    rows with no visible key in a split included."""
+    if name in CASES:
+        (S, w, nq, nkv, B, nb, dtype, idle), lens = CASES[name], None
+        seed = sorted(CASES).index(name)
+    else:
+        (S, w, nq, nkv, B, nb, dtype, idle), lens = STRADDLE[name]
+        seed = 100 + sorted(STRADDLE).index(name)
+    q, ka, va, bmap, lengths, ks, vs = _case(
+        seed, S=S, w=w, nq=nq, nkv=nkv, B=B, nb=nb, dtype=dtype, idle=idle,
+        lengths=lens)
+    scale = q.shape[-1] ** -0.5
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else None
+    want = np.asarray(jax_block_attention(
+        jnp.asarray(q, jdt), jnp.asarray(ka, jdt), jnp.asarray(va, jdt),
+        jnp.asarray(bmap), jnp.asarray(lengths), scale=scale, block_size=B,
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), interpret=True),
+        np.float32)
+    if dtype == "bfloat16":  # the values both sides see
+        q, ka, va = (torch.from_numpy(t).bfloat16().float().numpy()
+                     for t in (q, ka, va))
+    plan = block_attention_cuda.split_plan(S, w, nq, nkv, nb, B, 132)
+    straddles = 0
+    for keys in sorted({B, 2 * B, plan.keys}):
+        got = _split_merge(q, ka, va, bmap, lengths, scale, keys, ks, vs)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=0,
+                                   err_msg=f"{keys} keys a split")
+        straddles += sum(n // keys != (n + w - 1) // keys for n in lengths)
+    if name in STRADDLE:
+        assert straddles >= 2

@@ -322,3 +322,82 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fused_norms_cuda.rms_fwd_cuda(x, torch.ones(64), EPS)
     assert fused_norms_cuda.warps_per_row(4096, 2) == 8
     assert fused_norms_cuda.warps_per_row(64, 2) == 1
+
+
+def _check_fwd_plan(plan, rows, h, item, sms):
+    what = f"rows {rows} h {h} itemsize {item}: {plan}"
+    cols = [c for t in range(32 * plan.wpr) for c in plan.columns(t)]
+    assert sorted(cols) == list(range(h)), what
+    assert plan.smem <= 232448, what
+    if plan.wide:
+        # the wide kernel: 8 // wpr rows a block of 8 warps, each row in
+        # shared memory, one block a row group (not persistent)
+        assert plan.wpr == fused_norms_cuda.warps_per_row(h, item), what
+        assert plan.threads == 256 and plan.resident == 0, what
+        assert plan.rows_per_block * plan.wpr == 8, what
+        assert plan.blocks == -(-rows // plan.rows_per_block), what
+        assert plan.smem == plan.rows_per_block * h * item, what
+        assert plan.in_flight == 0, what
+        return
+    # the rows kernel: the backward's layout, a persistent grid of 16 warps
+    # an SM, the ring holding x alone (RING rows a slot)
+    bwd = fused_norms_cuda.bwd_plan(rows, h, item, sms,
+                                    aligned=plan.vec)
+    assert (plan.vec, plan.values, plan.wpr, plan.chunks, plan.threads,
+            plan.rows_per_block, plan.resident, plan.blocks) == (
+        bwd.vec, bwd.values, bwd.wpr, bwd.chunks, bwd.threads,
+        bwd.rows_per_block, bwd.resident, bwd.blocks), what
+    assert plan.chunks in (2, 4, 8) and plan.chunks * plan.values <= 16
+    assert plan.blocks == sms * plan.resident, what
+    assert plan.resident * (plan.smem + 1024) <= 233472, what
+    assert plan.resident * plan.threads == 512, what
+    stage = plan.rows_per_block * h * item if plan.vec else 0
+    assert plan.smem == 2 * stage, what
+    # the next two rows of every slot in flight while one is reduced
+    assert plan.in_flight == 2 * stage * plan.resident, what
+    if h >= 2048:
+        # two rows of x an SM at least; 32 KB at the power-of-two widths
+        assert plan.vec and plan.in_flight >= 2 * h * item, what
+        if h & (h - 1) == 0:
+            assert plan.in_flight >= 32 * 1024, what
+
+
+@pytest.mark.parametrize("which", ["norm_cases", "wide_rows"])
+def test_fwd_plan_fits_the_card_and_owns_every_column(which):
+    shapes = _norm_case_shapes() if which == "norm_cases" else PLAN_SHAPES
+    assert shapes
+    for rows, h, item in shapes:
+        for sms in (132, 114):
+            plan = fused_norms_cuda.fwd_plan(rows, h, item, sms)
+            # the rows kernel takes 8192 values a row, 4096 scalar ones
+            assert plan.wide == (h > (8192 if plan.vec else 4096)), plan
+            _check_fwd_plan(plan, rows, h, item, sms)
+
+
+def test_fwd_plan_takes_the_rows_the_forward_took():
+    # rows past the registers take the wide kernel, up to a block's shared
+    # memory: 116,224 values at 2 bytes, one row of 8 warps a block
+    for rows, h, item in WIDE_SHAPES:
+        for aligned in (True, False):
+            plan = fused_norms_cuda.fwd_plan(rows, h, item, 132,
+                                             aligned=aligned)
+            assert plan.wide, plan
+            assert plan.vec == (aligned and h * item % 16 == 0), plan
+            _check_fwd_plan(plan, rows, h, item, 132)
+    widest = fused_norms_cuda.fwd_plan(4, 116224, 2, 132)
+    assert widest.wpr == 8 and widest.smem == 232448
+    assert fused_norms_cuda.fwd_plan(4, 116232, 2, 132).smem > 232448
+    assert not fused_norms_cuda.fwd_plan(8, 8192, 2, 132).wide
+    assert not fused_norms_cuda.fwd_plan(8, 4096, 2, 132,
+                                         aligned=False).wide
+
+
+def test_fwd_plan_refuses_rows_it_cannot_take():
+    plan = fused_norms_cuda.fwd_plan(100, 100, 2, 132)  # 200-byte rows
+    assert not plan.vec and plan.values == 1 and plan.smem == 0
+    assert not fused_norms_cuda.fwd_plan(8, 2048, 2, 132,
+                                         aligned=False).vec
+    for rows, h, item, sms in ((0, 4096, 2, 132), (8, 0, 2, 132),
+                               (8, 4096, 3, 132), (8, 4096, 2, 0)):
+        with pytest.raises(ValueError, match="fwd_plan"):
+            fused_norms_cuda.fwd_plan(rows, h, item, sms)
