@@ -89,11 +89,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    Step time, tokens/s, the model-FLOP share of 989 TFLOP/s and peak memory
    are printed. A 2-layer slice of the same width, fp32 compute with TF32
    off, checks the flash path's loss and grads (kernels) against the dot
-   path (no kernel).
+   path (no kernel);
+8. pretrain entry point (`phase_pretrain`): phase 7's model is freed, then
+   a synthetic corpus (a GPT-2 byte-level vocab.json of exactly 32,000
+   entries with its merges.txt, PRETRAIN_DOCS random documents, each
+   shorter than a sequence) goes through the port's
+   tools/preprocess_data.py --append_eod, and `finetune.main` trains
+   Llama-2-7B's width with PRETRAIN_LAYERS layers (seq 4096, bf16 compute,
+   flash, global batch 2 of micro-batch 1, EOD resets so the segment-id
+   kernels run, eval every 2 iterations) three times, in process: U, 4
+   iterations; A, --save D --exit_interval 2; B, --load D, which resumes at
+   iteration 2. B's batches at iterations 3-4 must equal U's, its
+   iteration-3 loss U's within PRETRAIN_LOSS3_RTOL and its iteration-4 loss
+   within PRETRAIN_LOSS4_RTOL; U's loss starts near ln(32000) and falls;
+   found_inf 0; D's manifest verifies and its metadata holds
+   consumed_samples 4 and a data state; every iteration launches each
+   flash kernel layers x microbatches times and every evaluation the
+   forward alone (counts zeroed before each run); some row carries more
+   than one segment. Step time and tokens/s of U, the data path's host
+   seconds per batch, checkpoint bytes, save, manifest and load seconds and
+   peak memory are printed; D is deleted.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above) and, last, {"ok": true, "device":
+the norm kernels' on every path above, the flash kernels' on phase 8 too)
+and, last, {"ok": true, "device":
 ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
@@ -2668,6 +2688,338 @@ def phase_training(smi: str) -> dict:
     return stats
 
 
+# The pretraining entry point (phase 8): the port's preprocess tool and
+# finetune.main at Llama-2-7B's width with PRETRAIN_LAYERS layers (fp32
+# weights and Adam's two moments: a checkpoint of ~8.0 GB), on a synthetic
+# corpus from PRETRAIN_SEED whose documents are shorter than a sequence.
+PRETRAIN_LAYERS = 2
+PRETRAIN_ITERS = 4
+PRETRAIN_DOCS = 300
+PRETRAIN_SEED = 0
+PRETRAIN_VOCAB = 32000
+# a finetuning learning rate: at the default 3e-4 with no warmup, Adam's
+# first, sign-like steps on a batch of two sequences moved every logit by
+# ~1 and the training loss rose on every other batch (11.19, 12.49, 10.21,
+# 12.43 on the card; PERF.md §6)
+PRETRAIN_LR = "3e-5"
+# the resumed run's first step has the same fp32 state and batch as the
+# uninterrupted run's (bit-equality expected); its second follows one Adam
+# update of a state read back from the checkpoint, stated at 1e-5
+PRETRAIN_LOSS3_RTOL = 1e-6
+PRETRAIN_LOSS4_RTOL = 1e-5
+PRETRAIN_DATA_BATCHES = 8
+
+
+def pretrain_corpus(root: str) -> dict:
+    """vocab.json (exactly PRETRAIN_VOCAB entries), merges.txt, a jsonl of
+    PRETRAIN_DOCS random documents, and its .bin/.idx through the port's
+    tools/preprocess_data.py --append_eod."""
+    import os
+
+    from megatron_tpu_torch.tools import preprocess_data, synthetic_corpus
+    t0 = time.perf_counter()
+    vocab_file, merge_file = synthetic_corpus.write_gpt2_vocab(
+        root, PRETRAIN_VOCAB)
+    with open(vocab_file) as f:
+        n_vocab = len(json.load(f))
+    check(n_vocab == PRETRAIN_VOCAB, f"vocab.json holds {n_vocab} entries")
+    jsonl = synthetic_corpus.write_jsonl(os.path.join(root, "corpus.jsonl"),
+                                         PRETRAIN_DOCS, PRETRAIN_SEED)
+    t1 = time.perf_counter()
+    prefix = os.path.join(root, "corpus")
+    preprocess_data.main(["--input", jsonl, "--output_prefix", prefix,
+                          "--tokenizer_type", "GPT2BPETokenizer",
+                          "--vocab_file", vocab_file, "--merge_file",
+                          merge_file, "--append_eod"])
+    return dict(vocab=vocab_file, merges=merge_file,
+                data=prefix + "_document", write_s=t1 - t0,
+                preprocess_s=time.perf_counter() - t1)
+
+
+def pretrain_argv(corpus: dict, *extra) -> list:
+    return ["--model", "llama2-7b", "--num_layers", str(PRETRAIN_LAYERS),
+            "--bf16", "--use_flash_attn", "--micro_batch_size", "1",
+            "--global_batch_size", "2", "--reset_attention_mask",
+            "--reset_position_ids", "--eod_mask_loss", "--log_interval", "1",
+            "--eval_interval", "2", "--eval_iters", "1", "--train_iters",
+            str(PRETRAIN_ITERS), "--lr", PRETRAIN_LR, "--split", "90,8,2",
+            "--data_path",
+            corpus["data"], "--tokenizer_type", "GPT2BPETokenizer",
+            "--vocab_file", corpus["vocab"], "--merge_file",
+            corpus["merges"], *extra]
+
+
+def run_finetune(argv: list) -> dict:
+    """One in-process finetune.main(argv) on the card, its launch counts
+    zeroed just before. The loop's step and evaluate are wrapped to keep
+    each step's batch (on the card), metrics, launches and CUDA-event time;
+    nothing is synchronised until the run has ended."""
+    import torch
+    from megatron_tpu_torch import finetune
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.training import loop
+
+    steps, evals = [], []
+    make_step, evaluate = loop.make_train_step, loop.evaluate
+
+    def recording_make(*a, **k):
+        step = make_step(*a, **k)
+
+        def recorded(state, batch, gen):
+            it = state.iteration
+            before = fc.launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            wall = time.perf_counter()
+            start.record()
+            state, m = step(state, batch, gen)
+            stop.record()
+            after = fc.launch_counts()
+            steps.append(dict(iteration=it, wall=wall, start=start,
+                              stop=stop, metrics=m,
+                              batch={k: v.clone() for k, v in batch.items()},
+                              launches={k: after[k] - before[k]
+                                        for k in after}))
+            return state, m
+        return recorded
+
+    def recording_evaluate(*a, **k):
+        before = fc.launch_counts()
+        out = evaluate(*a, **k)
+        after = fc.launch_counts()
+        evals.append(dict(result=out, launches={k: after[k] - before[k]
+                                                for k in after}))
+        return out
+
+    loop.make_train_step, loop.evaluate = recording_make, recording_evaluate
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = finetune.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        loop.make_train_step, loop.evaluate = make_step, evaluate
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"finetune.main returned {rc}")
+    for i, rec in enumerate(steps):
+        m = rec.pop("metrics")
+        rec.update(lm_loss=float(m["lm_loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   found_inf=int(m["found_inf"]),
+                   device_ms=rec.pop("start").elapsed_time(rec.pop("stop")))
+        nxt = steps[i + 1]["wall"] if i + 1 < len(steps) else None
+        rec["wall_to_next_s"] = None if nxt is None else nxt - rec["wall"]
+    for rec in steps:
+        rec.pop("wall")
+    return dict(steps=steps, evals=evals, launches=fc.launch_counts(),
+                seconds=seconds)
+
+
+def data_seconds_per_batch(argv: list) -> float:
+    """Host seconds per batch of the data path finetune.main builds (index
+    mappings cached, tokenizer built): BatchIterator.__next__ alone."""
+    import dataclasses as dc
+
+    from megatron_tpu_torch.arguments import parse_cli
+    from megatron_tpu_torch.data import build_tokenizer
+    from megatron_tpu_torch.finetune import build_data
+    cfg, _ = parse_cli(argv)
+    tok = build_tokenizer(cfg.data.tokenizer_type,
+                          vocab_file=cfg.data.vocab_file,
+                          merge_file=cfg.data.merge_file)
+    cfg = dc.replace(cfg, model=dc.replace(cfg.model,
+                                           vocab_size=tok.vocab_size))
+    it = build_data(cfg, tok, 0)[0]
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(PRETRAIN_DATA_BATCHES):
+        next(it)
+    return (time.perf_counter() - t0) / PRETRAIN_DATA_BATCHES
+
+
+def segment_cost(seg) -> dict:
+    """ms of the flash forward, dQ and dK/dV kernels at the pretrain
+    shape (b 1, s 4096, 32 heads, d 128, bf16, causal, random q, k, v, dO)
+    with the segment ids of a real batch row `seg` [1, s] against none,
+    each timed queued; the visible pairs with those ids beside the causal
+    count."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    s = seg.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, dout = (torch.randn(1, s, 32, 128, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    out = {}
+    for name, ids in (("none", None), ("real", seg.to(torch.int32))):
+        kw = dict(causal=True, scale=128 ** -0.5, segment_ids=ids)
+        o, lse = fc.flash_fwd_cuda(q, k, v, **kw)
+        delta = fa.attention_delta(o, dout)
+        out[name] = dict(
+            fwd_ms=cuda_time_ms(lambda: fc.flash_fwd_cuda(q, k, v, **kw),
+                                10, 2, queued=True),
+            dq_ms=cuda_time_ms(lambda: fc.flash_bwd_dq_cuda(
+                q, k, v, dout, lse, delta, **kw), 10, 2, queued=True),
+            dkv_ms=cuda_time_ms(lambda: fc.flash_bwd_dkv_cuda(
+                q, k, v, dout, lse, delta, **kw), 10, 2, queued=True),
+            visible_pairs=visible_pairs(s, None, ids))
+    out["segments"] = int(seg.max()) + 1
+    return out
+
+
+def phase_pretrain(smi: str) -> dict:
+    """Phase 8: corpus -> preprocess -> finetune.main three times (U: 4
+    iterations; A: --save D --exit_interval 2; B: --load D, 4 iterations),
+    with the exact-resume and launch checks."""
+    import gc
+    import os
+    import shutil
+
+    import torch
+    from megatron_tpu_torch.arguments import parse_cli
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    from megatron_tpu_torch.resilience import integrity
+    from megatron_tpu_torch.training import checkpointing as ckpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before the "
+          "pretrain phase: the training model was not freed")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_pretrain")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ckpt_dir = os.path.join(root, "D")
+    try:
+        corpus = pretrain_corpus(root)
+        log(f"pretrain corpus: {PRETRAIN_DOCS} documents, vocab "
+            f"{PRETRAIN_VOCAB}, written in {corpus['write_s']:.2f} s, "
+            f"preprocessed in {corpus['preprocess_s']:.2f} s")
+        cfg, _ = parse_cli(pretrain_argv(corpus))
+        host_s = data_seconds_per_batch(pretrain_argv(corpus))
+        torch.cuda.reset_peak_memory_stats()
+        # the flash counts are zeroed before each run (run_finetune), the
+        # norm and block kernels' once before the three
+        fnc.reset_launch_counts()
+        bac.block_attention_cuda.launches = 0
+        runs = {}
+        for name, extra in (
+                ("U", ()),
+                ("A", ("--save", ckpt_dir, "--exit_interval", "2")),
+                ("B", ("--load", ckpt_dir))):
+            runs[name] = run_finetune(pretrain_argv(corpus, *extra))
+            gc.collect()
+            torch.cuda.empty_cache()
+            if name == "A":
+                save = dict(ckpt.last_save)
+                t0 = time.perf_counter()
+                ok, why = integrity.verify_checkpoint(save["dir"])
+                save["verify_s"] = time.perf_counter() - t0
+                check(ok and why == "ok", f"checkpoint manifest: {why}")
+                with open(os.path.join(save["dir"], "metadata.json")) as f:
+                    meta = json.load(f)
+                check(meta["consumed_samples"] == 4 and meta["iteration"] == 2
+                      and meta.get("data_state"),
+                      f"checkpoint metadata {meta}")
+            if name == "B":
+                load = dict(ckpt.last_load)
+            log(f"pretrain run {name}: " + json.dumps(dict(
+                seconds=runs[name]["seconds"],
+                launches=runs[name]["launches"],
+                steps=[{k: v for k, v in r.items() if k != "batch"}
+                       for r in runs[name]["steps"]],
+                evals=runs[name]["evals"])))
+        peak = torch.cuda.max_memory_allocated()
+        norm_launches = fnc.launch_counts()
+        block_launches = bac.block_attention_cuda.launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    per_step = cfg.model.num_layers * cfg.num_microbatches
+    for name, run in runs.items():
+        for rec in run["steps"]:
+            check(all(n == per_step for n in rec["launches"].values()),
+                  f"run {name} iteration {rec['iteration'] + 1} launches "
+                  f"{rec['launches']}, expected {per_step} of each kernel")
+            check(rec["found_inf"] == 0 and math.isfinite(rec["grad_norm"]),
+                  f"run {name}: found_inf {rec['found_inf']}, grad norm "
+                  f"{rec['grad_norm']}")
+        for ev in run["evals"]:
+            check(ev["launches"] == {"flash_fwd_cuda": per_step,
+                                     "flash_bwd_dq_cuda": 0,
+                                     "flash_bwd_dkv_cuda": 0},
+                  f"run {name} evaluation launches {ev['launches']}")
+        n_steps, n_evals = len(run["steps"]), len(run["evals"])
+        check(run["launches"] == {
+            "flash_fwd_cuda": per_step * (n_steps + n_evals),
+            "flash_bwd_dq_cuda": per_step * n_steps,
+            "flash_bwd_dkv_cuda": per_step * n_steps},
+            f"run {name} launches {run['launches']} over {n_steps} steps "
+            f"and {n_evals} evaluations")
+    u, a, b = runs["U"]["steps"], runs["A"]["steps"], runs["B"]["steps"]
+    check([r["iteration"] for r in u] == [0, 1, 2, 3]
+          and [r["iteration"] for r in a] == [0, 1]
+          and [r["iteration"] for r in b] == [2, 3],
+          "iterations run: U "
+          f"{[r['iteration'] for r in u]}, A {[r['iteration'] for r in a]}, "
+          f"B {[r['iteration'] for r in b]}")
+    for ru, rb in zip(u[2:], b):
+        check(sorted(ru["batch"]) == sorted(rb["batch"]) and all(
+            torch.equal(ru["batch"][k], rb["batch"][k]) for k in ru["batch"]),
+              f"resumed batch at iteration {rb['iteration'] + 1} differs "
+              "from the uninterrupted run's")
+    segments = max(int(r["batch"]["segment_ids"].max()) + 1 for r in u)
+    check(segments > 1, "no batch carried more than one segment per row")
+    losses = [r["lm_loss"] for r in u]
+    err3 = abs(b[0]["lm_loss"] - u[2]["lm_loss"]) / abs(u[2]["lm_loss"])
+    err4 = abs(b[1]["lm_loss"] - u[3]["lm_loss"]) / abs(u[3]["lm_loss"])
+    check(err3 <= PRETRAIN_LOSS3_RTOL, f"resumed iteration-3 loss "
+          f"{b[0]['lm_loss']} vs {u[2]['lm_loss']} (rel {err3})")
+    check(err4 <= PRETRAIN_LOSS4_RTOL, f"resumed iteration-4 loss "
+          f"{b[1]['lm_loss']} vs {u[3]['lm_loss']} (rel {err4})")
+    check(abs(losses[0] - math.log(PRETRAIN_VOCAB)) < 1.0,
+          f"first loss {losses[0]} is not near ln({PRETRAIN_VOCAB})")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    seg_row = max((r["batch"]["segment_ids"][0] for r in u),
+                   key=lambda t: int(t.max()))
+    seg_cost = segment_cost(seg_row)
+    for run in runs.values():
+        for rec in run["steps"]:
+            del rec["batch"]
+    # U's steps after the first (which pays the allocator's and cuBLAS's
+    # first-use costs); the events bracket the step alone, not evaluation
+    device_ms = [r["device_ms"] for r in u[1:]]
+    step_s = sorted(device_ms)[len(device_ms) // 2] / 1e3
+    tokens_per_step = cfg.training.global_batch_size * cfg.model.seq_length
+    stats = dict(
+        layers=PRETRAIN_LAYERS, iterations=PRETRAIN_ITERS,
+        u_losses=losses, b_losses=[r["lm_loss"] for r in b],
+        loss3_rel_err=err3, loss4_rel_err=err4,
+        loss_rtol=dict(iteration3=PRETRAIN_LOSS3_RTOL,
+                       iteration4=PRETRAIN_LOSS4_RTOL),
+        max_segments_per_row=segments,
+        u_step_device_ms=[r["device_ms"] for r in u],
+        u_step_wall_to_next_s=[r["wall_to_next_s"] for r in u],
+        u_step_s_median=step_s, u_tokens_per_s=tokens_per_step / step_s,
+        data_host_s_per_batch=host_s,
+        checkpoint=dict(bytes=save["bytes"], payload_s=save["payload_s"],
+                        manifest_s=save["manifest_s"],
+                        verify_s=save["verify_s"],
+                        load_verify_s=load["verify_s"],
+                        load_read_s=load["read_s"]),
+        run_seconds={k: v["seconds"] for k, v in runs.items()},
+        launches={k: v["launches"] for k, v in runs.items()},
+        norm_launches=norm_launches, block_launches=block_launches,
+        peak_memory_gib=peak / 2 ** 30,
+        segment_cost=seg_cost,
+        corpus_preprocess_s=corpus["preprocess_s"], card=smi)
+    log("pretrain: " + json.dumps(stats))
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2735,6 +3087,7 @@ def main(argv=None) -> int:
         engine_stats = phase_engine(smi)
         int8_stats = phase_int8(smi)
         train_stats = phase_training(smi)
+        pretrain_stats = phase_pretrain(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2743,6 +3096,10 @@ def main(argv=None) -> int:
     train_case = next(c for c in train_cases
                       if c["shape"] == TRAIN_MAIN_SHAPE)
     train_counts = train_stats["launches"]
+    # the three finetune.main runs of phase 8, each counted from zero
+    pretrain_counts = {k: sum(run[k] for run in
+                              pretrain_stats["launches"].values())
+                       for k in train_counts}
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -2763,6 +3120,7 @@ def main(argv=None) -> int:
               f"{pallas}:98",
               main_stats["launches"] + engine_flash
               + train_counts["flash_fwd_cuda"]
+              + pretrain_counts["flash_fwd_cuda"]
               + bench_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
@@ -2772,6 +3130,7 @@ def main(argv=None) -> int:
                   engine_prefill=engine_flash,
                   int8_engine_prefill=int8_stats["launches"]["flash_fwd"],
                   training=train_counts["flash_fwd_cuda"],
+                  pretrain=pretrain_counts["flash_fwd_cuda"],
                   bench_kernels=bench_counts["flash_fwd_cuda"]),
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
                    serving_shape=dict(shape=MAIN_SHAPE, **{
@@ -2781,18 +3140,26 @@ def main(argv=None) -> int:
                            "library_ms")}),
                    serving_cases=cases)),
         entry("flash_bwd_dq", "megatron_tpu_torch/csrc/flash_bwd.cu",
-              f"{pallas}:191", train_counts["flash_bwd_dq_cuda"], "dq",
+              f"{pallas}:191", train_counts["flash_bwd_dq_cuda"]
+              + pretrain_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
-                                 "flash_bwd_dq_fma_kernel (fp32)"])),
+                                 "flash_bwd_dq_fma_kernel (fp32)"],
+                   launches_by_path=dict(
+                       training=train_counts["flash_bwd_dq_cuda"],
+                       pretrain=pretrain_counts["flash_bwd_dq_cuda"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
-              f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"], "dkv",
+              f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
+              + pretrain_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
                                  "flash_bwd_dkv_sum_kernel (bf16, chunks "
                                  "> 1)",
-                                 "flash_bwd_dkv_fma_kernel (fp32)"])),
+                                 "flash_bwd_dkv_fma_kernel (fp32)"],
+                   launches_by_path=dict(
+                       training=train_counts["flash_bwd_dkv_cuda"],
+                       pretrain=pretrain_counts["flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     kernels.append(dict(
@@ -2800,10 +3167,12 @@ def main(argv=None) -> int:
         source="megatron_tpu_torch/csrc/block_attn.cu",
         replaces="megatron_tpu/ops/block_attention_pallas.py:82",
         launches=(engine_stats["launches"]["block_attn"]
-                  + int8_stats["launches"]["block_attn"]),
+                  + int8_stats["launches"]["block_attn"]
+                  + pretrain_stats["block_launches"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
-            int8_engine=int8_stats["launches"]["block_attn"]),
+            int8_engine=int8_stats["launches"]["block_attn"],
+            pretrain=pretrain_stats["block_launches"]),
         launches_per_decode_step=engine_stats["launches_per_decode_step"],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
@@ -2817,7 +3186,8 @@ def main(argv=None) -> int:
     # each main path's norm launch counts, zeroed just before it and read
     # just after (0 where the models use models/norms.py, as the reference)
     path_stats = dict(serving=main_stats, engine=engine_stats,
-                      int8_engine=int8_stats, training=train_stats)
+                      int8_engine=int8_stats, training=train_stats,
+                      pretrain=pretrain_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -4,19 +4,21 @@ A copy of `megatron_tpu.config.ModelConfig`, its derivations and the model
 presets, with dtypes mapped to torch. The JAX package stays the reference;
 the port keeps its own copy so that it never imports it.
 
-`OptimizerConfig` is copied in full, `TrainingConfig` with the fields the
-training step reads, `ServingConfig` (the serving engine's) with every field
-and the checks on those the engine runs. `MegatronConfig.from_dict` reads
-the `model`, `optimizer` and `training` sections of a checkpoint's
-`config.json`; the other sections (parallel layout, data, serving,
-resilience) are ignored here. With one device and no data
-parallelism, `num_microbatches` is global_batch_size / micro_batch_size.
+`OptimizerConfig`, `TrainingConfig`, `DataConfig` and `ResilienceConfig` are
+copied in full, `ServingConfig` (the serving engine's) with every field and
+the checks on those the engine runs. `MegatronConfig.to_json` and
+`from_dict` write and read the `model`, `optimizer`, `training`, `data` and
+`resilience` sections of a checkpoint's `config.json` under the reference's
+names; its parallel and serving sections are ignored here. With one device
+and no data parallelism, `num_microbatches` is global_batch_size /
+micro_batch_size.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -165,15 +167,125 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainingConfig:
-    """The training-loop fields the step reads (megatron_tpu/config.py
-    TrainingConfig); the loop's own fields come with the loop's slice."""
+    """Training-loop config (megatron_tpu/config.py TrainingConfig): every
+    field keeps the reference's name and default. `sync_metrics` fetches
+    the step's metrics every iteration instead of once per log window;
+    `profile` records a torch.profiler trace over
+    [profile_step_start, profile_step_end]."""
 
     micro_batch_size: int = 1
     global_batch_size: Optional[int] = None
     rampup_batch_size: Optional[tuple[int, int, int]] = None  # (start, incr, samples)
     train_iters: int = 100
+    eval_interval: int = 1000
+    eval_iters: int = 10
+    log_interval: int = 10
+    save_interval: Optional[int] = None
+    exit_interval: Optional[int] = None
+    exit_duration_in_mins: Optional[float] = None
     seed: int = 1234
+    checkpoint_dir: Optional[str] = None
+    load_dir: Optional[str] = None
+    finetune: bool = False  # load weights only, reset iteration/optimizer
+    no_load_optim: bool = False
+    no_load_rng: bool = False
+    wandb_logger: bool = False
+    tensorboard_dir: Optional[str] = None
+    sync_metrics: bool = False
+    profile: bool = False
+    profile_step_start: int = 10
+    profile_step_end: int = 12
+    profile_dir: Optional[str] = None
+    no_save_optim: bool = False
+    no_save_rng: bool = False
     log_params_norm: bool = False
+    log_timers_to_tensorboard: bool = False
+    log_validation_ppl_to_tensorboard: bool = False
+    wandb_project: Optional[str] = None
+    wandb_entity: Optional[str] = None
+    wandb_id: Optional[str] = None
+    wandb_resume: bool = False
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline config (megatron_tpu/config.py DataConfig), every
+    field with the reference's name and default. `data_path` is [prefix]
+    or [weight, prefix, ...]."""
+
+    data_path: Optional[Sequence[Any]] = None
+    split: str = "969,30,1"
+    tokenizer_type: str = "SentencePieceTokenizer"
+    vocab_file: Optional[str] = None
+    merge_file: Optional[str] = None
+    tokenizer_model: Optional[str] = None
+    dataloader_type: str = "single"  # single | cyclic
+    num_workers: int = 2
+    reset_position_ids: bool = False
+    reset_attention_mask: bool = False
+    eod_mask_loss: bool = False
+    vocab_extra_ids: int = 0
+    vocab_extra_ids_list: Optional[str] = None
+    masked_lm_prob: float = 0.15
+    short_seq_prob: float = 0.1
+    max_seq_length_dec: int = 128
+    train_data_path: Optional[Sequence[Any]] = None
+    valid_data_path: Optional[Sequence[Any]] = None
+    test_data_path: Optional[Sequence[Any]] = None
+    new_tokens: bool = True
+    data_impl: str = "mmap"
+    mmap_warmup: bool = False
+    strict_data: bool = False
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Fault-tolerance knobs (megatron_tpu/config.py ResilienceConfig).
+
+    SHA-256 manifests on save, verified on load with a fall-back to the
+    newest valid checkpoint (`checkpoint_integrity`); retention of the
+    newest `keep_last_k`; retried checkpoint I/O with jittered exponential
+    backoff; the divergence guard (`max_consecutive_nonfinite`,
+    `loss_spike_factor` over `loss_spike_window`, `max_rollbacks`). The
+    hung-step watchdog (`step_timeout_s`) is not ported yet and raises in
+    `validate`."""
+
+    checkpoint_integrity: bool = True
+    keep_last_k: Optional[int] = None
+    io_retries: int = 4
+    io_backoff_s: float = 0.5
+    io_backoff_max_s: float = 30.0
+    io_jitter: float = 0.25
+    max_consecutive_nonfinite: int = 3
+    loss_spike_factor: Optional[float] = None
+    loss_spike_window: int = 32
+    max_rollbacks: int = 2
+    step_timeout_s: Optional[float] = None
+    watchdog_exit_code: int = 43
+
+    def validate(self) -> "ResilienceConfig":
+        if self.step_timeout_s is not None:
+            raise NotImplementedError(
+                "step_timeout_s: the hung-step watchdog "
+                "(resilience/watchdog.py) is ported later (ROADMAP Queue 1 "
+                "item 8)")
+        if self.io_retries < 1 or self.io_backoff_s < 0.0 \
+                or self.io_backoff_max_s < self.io_backoff_s \
+                or not 0.0 <= self.io_jitter <= 1.0:
+            raise ValueError("io_retries >= 1, 0 <= io_backoff_s <= "
+                             "io_backoff_max_s and io_jitter in [0, 1]")
+        if self.keep_last_k is not None and self.keep_last_k < 1:
+            raise ValueError(f"keep_last_k={self.keep_last_k} must be >= 1 "
+                             "(None keeps all)")
+        if self.max_consecutive_nonfinite < 0 or self.max_rollbacks < 0 \
+                or self.loss_spike_window < 1:
+            raise ValueError("max_consecutive_nonfinite and max_rollbacks "
+                             "must be >= 0, loss_spike_window >= 1")
+        if self.loss_spike_factor is not None and \
+                self.loss_spike_factor <= 1.0:
+            raise ValueError(f"loss_spike_factor={self.loss_spike_factor} "
+                             "must exceed 1.0")
+        return self
 
 
 SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -348,12 +460,32 @@ class ServingConfig:
 
 @dataclass(frozen=True)
 class MegatronConfig:
-    """The part of the reference's MegatronConfig that the model and the
-    training step read."""
+    """The reference's MegatronConfig without its parallel and serving
+    sections: one device, no data parallelism. `to_json` writes, and
+    `from_dict` reads, the reference's section and field names, so a
+    checkpoint's `config.json` moves between the two packages; sections
+    and fields the port does not hold are ignored."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+
+    def validate(self) -> "MegatronConfig":
+        """Derive the model fields and the global batch (micro batch when
+        unset) and check the resilience knobs."""
+        tr = self.training
+        if tr.global_batch_size is None:
+            tr = dataclasses.replace(tr,
+                                     global_batch_size=tr.micro_batch_size)
+        if tr.global_batch_size % tr.micro_batch_size:
+            raise ValueError(f"global batch {tr.global_batch_size} must be "
+                             f"divisible by micro batch "
+                             f"{tr.micro_batch_size}")
+        self.resilience.validate()
+        return dataclasses.replace(self, model=self.model.derived(),
+                                   training=tr)
 
     @property
     def num_microbatches(self) -> int:
@@ -363,6 +495,9 @@ class MegatronConfig:
                              f"micro batch {self.training.micro_batch_size}")
         return gbs // self.training.micro_batch_size
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), default=str, indent=2)
+
     @staticmethod
     def from_dict(d: dict) -> "MegatronConfig":
         def build(cls, sub):
@@ -371,7 +506,9 @@ class MegatronConfig:
         return MegatronConfig(
             model=build(ModelConfig, d.get("model", {})),
             optimizer=build(OptimizerConfig, d.get("optimizer", {})),
-            training=build(TrainingConfig, d.get("training", {})))
+            training=build(TrainingConfig, d.get("training", {})),
+            data=build(DataConfig, d.get("data", {})),
+            resilience=build(ResilienceConfig, d.get("resilience", {})))
 
 
 # ---------------------------------------------------------------------------

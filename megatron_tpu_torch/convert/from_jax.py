@@ -10,10 +10,10 @@ inside attention exactly as in the reference.
 the optimizer's mu, nu and step, the loss-scaler automaton and the
 iteration. `train_state_to_numpy` is its inverse, under the JAX names.
 
-`load_npz_checkpoint` reads a checkpoint the JAX package saved with
-`backend="npz"` (training/checkpointing.py): the tracker file, then
-`config.json`, then `params.npz`. It needs no JAX. Orbax checkpoints are
-read in a later slice.
+`load_npz_checkpoint` reads the weights of a checkpoint either package saved
+in the npz format, through the port's training/checkpointing.py: the tracker
+file, then `config.json`, then `params.npz`. It needs no JAX. Orbax
+checkpoints raise there.
 """
 from __future__ import annotations
 
@@ -27,12 +27,10 @@ import torch
 from megatron_tpu_torch.config import MegatronConfig, ModelConfig
 from megatron_tpu_torch.models.language_model import LanguageModel
 from megatron_tpu_torch.ops.quantized import QUANTIZABLE, W8
+from megatron_tpu_torch.training import checkpointing
 from megatron_tpu_torch.training.optimizer import OptState, ScalerState
 from megatron_tpu_torch.training.train_step import TrainState
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
-
-TRACKER = "latest_checkpointed_iteration.txt"
-
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
     flat = {}
@@ -165,31 +163,14 @@ def train_state_to_numpy(state: TrainState):
             state.iteration)
 
 
-def read_tracker(root: str) -> Optional[str]:
-    path = os.path.join(root, TRACKER)
-    if not os.path.exists(path):
-        return None
-    with open(path) as f:
-        return f.read().strip() or None
-
-
 def load_npz_checkpoint(root: str, device: DeviceLike = None,
                         dtype: Optional[torch.dtype] = None):
-    """Load the checkpoint the tracker under `root` names. Returns
-    (LanguageModel, ModelConfig)."""
-    tag = read_tracker(root)
-    if tag is None:
-        raise FileNotFoundError(f"no checkpoint tracker {TRACKER} in {root}")
-    d = os.path.join(root, "release" if tag == "release"
-                     else f"iter_{int(tag):07d}")
+    """Load the parameters of the checkpoint the tracker under `root` names,
+    through training/checkpointing's reader. Returns (LanguageModel,
+    ModelConfig)."""
+    d = checkpointing.tracked_dir(root)
+    flat = checkpointing.read_params(d)
     with open(os.path.join(d, "config.json")) as f:
         cfg = MegatronConfig.from_dict(json.load(f)).model.derived()
-    params_path = os.path.join(d, "params.npz")
-    if not os.path.exists(params_path):
-        raise NotImplementedError(
-            f"{d} holds no params.npz: orbax checkpoints are read in a later "
-            "slice")
-    with np.load(params_path) as npz:
-        state = params_from_numpy({k: npz[k] for k in npz.files}, cfg,
-                                  device, dtype)
+    state = params_from_numpy(flat, cfg, device, dtype)
     return LanguageModel.from_state_dict(cfg, state), cfg

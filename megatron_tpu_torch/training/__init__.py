@@ -1,5 +1,6 @@
 """Training: the step, the optimizer, the schedules and the microbatch
-calculator (megatron_tpu/training)."""
+calculator (megatron_tpu/training); the loop and the checkpoints are the
+submodules `loop` and `checkpointing`."""
 from megatron_tpu_torch.training.microbatches import MicrobatchCalculator
 from megatron_tpu_torch.training.optimizer import (OptState, ScalerState,
                                                    apply_optimizer,

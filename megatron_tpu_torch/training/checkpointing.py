@@ -1,0 +1,440 @@
+"""Checkpoint save and load with Megatron's resume semantics
+(megatron_tpu/training/checkpointing.py, its npz backend).
+
+The layout and files are the JAX package's, so a checkpoint moves between the
+two packages with no converter:
+
+- `latest_checkpointed_iteration.txt` names the newest checkpoint (an
+  iteration number or "release"), written atomically;
+- `iter_{N:07d}/` (or `release/`) holds `params.npz`, `opt_state.npz`,
+  `metadata.json` (iteration, consumed_samples, `format_version` 1, the data
+  iterator's exact-resume `data_state` and the quarantined windows) and
+  `config.json` (`MegatronConfig.to_json`, the reference's section names);
+- a SHA-256 `manifest.json` seals the directory before the tracker names it
+  (resilience/integrity.py); a load verifies it and falls back to the newest
+  valid checkpoint; retention keeps the newest `keep_last_k`.
+
+The npz keys are exactly the names JAX's `_flatten` gives its trees: the
+parameter tree's paths ("transformer/attention/wq", the port's state_dict
+names with "/" for "."), and for the optimizer `step`, `mu/...`, `nu/...`,
+`scaler/scale`, `scaler/growth_tracker` and `scaler/hysteresis`. The
+iteration lives in `metadata.json`. A save copies one leaf at a time from the
+device into the zip, so the host never holds more than a leaf; a load checks
+every key and shape before it reads, then copies each leaf into the example
+state's tensors in place. The step's random draws derive from (seed,
+iteration) (training/loop.py), so no generator state is saved.
+
+Orbax checkpoints (`format_version` 2, a `state/` directory) exist only with
+JAX: reading one raises. Convert it on the JAX side with `load_params_host`
+and `save_checkpoint(backend="npz")`.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+import zipfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+from megatron_tpu_torch.config import MegatronConfig, ResilienceConfig
+from megatron_tpu_torch.resilience import integrity
+from megatron_tpu_torch.resilience.retry import RetryPolicy, policy_from, retry
+from megatron_tpu_torch.training.train_step import TrainState
+from megatron_tpu_torch.utils.logging import print_rank_0
+
+TRACKER = "latest_checkpointed_iteration.txt"
+STATE_DIR = "state"  # the orbax payload directory of a JAX checkpoint
+PARAMS_FILE = "params.npz"
+OPT_FILE = "opt_state.npz"
+
+# seconds and bytes of the last save and load in this process, for the
+# benchmarks and chip_smoke.py: {"payload_s", "manifest_s", "bytes", "dir"}
+# and {"verify_s", "read_s", "dir"}
+last_save: dict = {}
+last_load: dict = {}
+
+
+class LoadedCheckpoint:
+    """load_checkpoint's result: unpacks and indexes like the
+    (state, iteration, consumed_samples) 3-tuple, with `data_state` (the
+    data iterator's exact-resume state, None for fresh starts), `quarantine`
+    (the poison-batch windows divergence rollbacks skipped) and
+    `ckpt_dir`."""
+
+    __slots__ = ("state", "iteration", "consumed_samples", "data_state",
+                 "quarantine", "ckpt_dir")
+
+    def __init__(self, state, iteration: int, consumed_samples: int,
+                 data_state: Optional[dict] = None,
+                 quarantine: Optional[list] = None,
+                 ckpt_dir: Optional[str] = None):
+        self.state = state
+        self.iteration = iteration
+        self.consumed_samples = consumed_samples
+        self.data_state = data_state
+        self.quarantine = list(quarantine or [])
+        self.ckpt_dir = ckpt_dir
+
+    def _tuple(self):
+        return (self.state, self.iteration, self.consumed_samples)
+
+    def __iter__(self):
+        return iter(self._tuple())
+
+    def __getitem__(self, i):
+        return self._tuple()[i]
+
+    def __len__(self):
+        return 3
+
+    def __repr__(self):
+        return (f"LoadedCheckpoint(iteration={self.iteration}, "
+                f"consumed_samples={self.consumed_samples}, "
+                f"data_state={'yes' if self.data_state else 'no'}, "
+                f"quarantine={len(self.quarantine)} windows, "
+                f"ckpt_dir={self.ckpt_dir!r})")
+
+
+def _write_text_atomic(path: str, text: str,
+                       policy: RetryPolicy = RetryPolicy()) -> None:
+    """tmp + fsync + rename, retried: a torn tracker would strand every
+    restart."""
+
+    def _write():
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    retry(_write, policy, label=f"write:{os.path.basename(path)}")
+
+
+def _publish(root: str, tag: str, d: str, resil: ResilienceConfig) -> float:
+    """Manifest (integrity), then tracker (visibility), then retention.
+    Returns the manifest's seconds."""
+    policy = policy_from(resil)
+    t0 = time.perf_counter()
+    if resil.checkpoint_integrity:
+        retry(lambda: integrity.write_manifest(d), policy,
+              label="write_manifest")
+    manifest_s = time.perf_counter() - t0
+    _write_text_atomic(os.path.join(root, TRACKER), tag, policy)
+    if resil.keep_last_k:
+        integrity.apply_retention(root, resil.keep_last_k)
+    return manifest_s
+
+
+def _iter_dir(root: str, iteration: int, release: bool = False) -> str:
+    return os.path.join(root, "release" if release
+                        else f"iter_{iteration:07d}")
+
+
+def _jax_name(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def _param_leaves(state: TrainState) -> dict:
+    return {_jax_name(k): t for k, t in state.params.state_dict().items()}
+
+
+def _opt_leaves(state: TrainState) -> dict:
+    """The optimizer state under JAX's flattened OptState names."""
+    o = state.opt_state
+    leaves = {"step": o.step}
+    for group, tensors in (("mu", o.mu), ("nu", o.nu)):
+        if tensors is not None:
+            leaves.update({f"{group}/{_jax_name(k)}": t
+                           for k, t in tensors.items()})
+    leaves.update({"scaler/scale": o.scaler.scale,
+                   "scaler/growth_tracker": o.scaler.growth_tracker,
+                   "scaler/hysteresis": o.scaler.hysteresis})
+    return leaves
+
+
+def _write_npz(path: str, leaves: dict) -> int:
+    """The file np.savez writes, filled one leaf at a time (device -> host
+    -> zip member). Returns its bytes."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, t in leaves.items():
+            arr = t.detach().cpu().numpy()
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
+            del arr
+    return os.path.getsize(path)
+
+
+def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
+                    iteration: int, consumed_samples: int = 0,
+                    release: bool = False,
+                    data_state: Optional[dict] = None,
+                    quarantine: Optional[list] = None) -> str:
+    """Write `state` as iteration `iteration` under `root` in JAX's npz
+    format and publish it (manifest, tracker, retention). Every file write
+    is retried. `release` writes weights only, for conversion. Returns the
+    checkpoint directory."""
+    resil = cfg.resilience
+    policy = policy_from(resil)
+    d = _iter_dir(root, iteration, release)
+    os.makedirs(d, exist_ok=True)
+    tag = "release" if release else str(iteration)
+    save_opt = (state.opt_state is not None and not release
+                and not cfg.training.no_save_optim)
+    t0 = time.perf_counter()
+    nbytes = 0
+    for fname, leaves in ((PARAMS_FILE, _param_leaves(state)),
+                          (OPT_FILE, _opt_leaves(state) if save_opt
+                           else None)):
+        if leaves is None:
+            continue
+        path = os.path.join(d, fname)
+        nbytes += retry(lambda p=path, lv=leaves: _write_npz(p, lv), policy,
+                        label=f"write:{fname}")
+    meta = {
+        "iteration": int(iteration),
+        "consumed_samples": int(consumed_samples),
+        "release": release,
+        "has_opt_state": save_opt,
+        "format_version": 1,
+    }
+    if data_state is not None:
+        meta["data_state"] = data_state
+    if quarantine:
+        meta["quarantine"] = list(quarantine)
+    _write_text_atomic(os.path.join(d, "metadata.json"),
+                       json.dumps(meta, indent=2), policy)
+    _write_text_atomic(os.path.join(d, "config.json"), cfg.to_json(), policy)
+    payload_s = time.perf_counter() - t0
+    manifest_s = _publish(root, tag, d, resil)
+    last_save.clear()
+    last_save.update(dir=d, payload_s=payload_s, manifest_s=manifest_s,
+                     bytes=nbytes)
+    print_rank_0(f"saved checkpoint to {d} (iteration {iteration}, "
+                 f"{nbytes} bytes, payload {payload_s:.2f} s, manifest "
+                 f"{manifest_s:.2f} s)")
+    return d
+
+
+def read_tracker(root: str,
+                 policy: RetryPolicy = RetryPolicy()) -> Optional[str]:
+    """The tracker's tag (stripped), or None when there is no tracker."""
+    p = os.path.join(root, TRACKER)
+    if not os.path.exists(p):
+        return None
+
+    def _read():
+        with open(p) as f:
+            return f.read().strip()
+
+    return retry(_read, policy, label="tracker_read")
+
+
+def dir_for_tag(root: str, tag: Optional[str]) -> Optional[str]:
+    """Tracker tag -> checkpoint dir; None for a missing, empty or garbage
+    tag (read as "no checkpoint", not a crash on int())."""
+    if not tag:
+        return None
+    if tag == "release":
+        return os.path.join(root, "release")
+    try:
+        return os.path.join(root, f"iter_{int(tag):07d}")
+    except ValueError:
+        print_rank_0(f"warning: tracker in {root} holds garbage "
+                     f"({tag!r}); treating as no tracker and scanning "
+                     "for the newest valid iter_* checkpoint")
+        return None
+
+
+def _check_npz_format(d: str) -> None:
+    """Raise on a JAX orbax checkpoint, which only JAX can read."""
+    if os.path.isdir(os.path.join(d, STATE_DIR)):
+        raise NotImplementedError(
+            f"{d} is an orbax checkpoint (format_version 2), which exists "
+            "only with JAX: convert it on the JAX side with "
+            "checkpointing.load_params_host + save_checkpoint(backend='npz') "
+            "(orbax reads: ROADMAP Queue 1 item 2)")
+
+
+def _npz_shapes(path: str) -> dict:
+    """{key: shape} of an npz file, from the member headers alone."""
+    shapes = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            with zf.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0
+                        if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                shape, _, _ = read(f)
+            shapes[name[:-4] if name.endswith(".npy") else name] = shape
+    return shapes
+
+
+def _check_leaves(path: str, leaves: dict) -> None:
+    """Every key of `leaves` present in `path` with its shape, and no
+    other."""
+    shapes = _npz_shapes(path)
+    missing = sorted(set(leaves) - set(shapes))
+    extra = sorted(set(shapes) - set(leaves))
+    if missing or extra:
+        raise KeyError(f"{path} does not match the model: missing "
+                       f"{missing[:8]}, unexpected {extra[:8]}")
+    for key, t in leaves.items():
+        if tuple(shapes[key]) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(shapes[key])} vs model "
+                             f"{tuple(t.shape)}")
+
+
+@torch.no_grad()
+def _copy_into(path: str, leaves: dict) -> None:
+    with np.load(path) as npz:
+        for key, t in leaves.items():
+            t.copy_(torch.from_numpy(npz[key]))
+
+
+def load_checkpoint(root: str, example_state: TrainState, *,
+                    finetune: bool = False, no_load_optim: bool = False,
+                    resilience: Optional[ResilienceConfig] = None
+                    ) -> LoadedCheckpoint:
+    """Load the newest valid checkpoint under `root` into `example_state`
+    (its tensors are overwritten in place and it is returned as `.state`).
+
+    The tracker-named dir comes first, then every other `iter_*` dir newest
+    first; with `resilience.checkpoint_integrity` (the default) each is
+    verified against its manifest before any tensor is read and skipped
+    when torn or corrupt. `finetune` loads the weights only and resets
+    iteration, consumed samples and data state; `no_load_optim` keeps the
+    example's optimizer state. (None, 0, 0) when nothing valid exists."""
+    resil = resilience or ResilienceConfig()
+    policy = policy_from(resil)
+    tag = read_tracker(root, policy)
+    tracked = dir_for_tag(root, tag)
+    if tag is None and not integrity.list_iter_checkpoints(root):
+        print_rank_0(f"no checkpoint tracker in {root}; starting from scratch")
+        return LoadedCheckpoint(None, 0, 0)
+    candidates = [tracked] if tracked is not None else []
+    candidates += [d2 for _, d2 in integrity.list_iter_checkpoints(root)
+                   if d2 not in candidates]
+
+    for d in candidates:
+        if not os.path.isdir(d):
+            print_rank_0(f"warning: tracker names missing checkpoint "
+                         f"{d}; falling back")
+            continue
+        _check_npz_format(d)
+        verified = not resil.checkpoint_integrity
+        t0 = time.perf_counter()
+        if resil.checkpoint_integrity:
+            ok, why = integrity.verify_checkpoint(d)
+            if not ok:
+                print_rank_0(f"warning: checkpoint {d} failed integrity "
+                             f"verification ({why}); falling back to "
+                             "the previous valid checkpoint")
+                continue
+            verified = why == "ok"
+            if not verified:
+                print_rank_0(f"checkpoint {d}: {why}")
+        verify_s = time.perf_counter() - t0
+        try:
+            with open(os.path.join(d, "metadata.json")) as f:
+                meta = json.load(f)
+        except (OSError, ValueError) as e:
+            print_rank_0(f"warning: checkpoint {d} metadata unreadable "
+                         f"({e}); falling back")
+            continue
+        try:
+            t0 = time.perf_counter()
+            loaded = _restore_from_dir(d, meta, example_state,
+                                       finetune=finetune,
+                                       no_load_optim=no_load_optim)
+        except Exception as e:  # noqa: BLE001 — see below
+            if verified:
+                # the payload checksummed clean: a real error (a tree or
+                # shape mismatch, another model's config) must surface
+                raise
+            print_rank_0(f"warning: restore from unverified checkpoint "
+                         f"{d} failed ({type(e).__name__}: {e}); "
+                         "falling back")
+            continue
+        last_load.clear()
+        last_load.update(dir=d, verify_s=verify_s,
+                         read_s=time.perf_counter() - t0)
+        return loaded
+
+    print_rank_0(f"no valid checkpoint under {root}; starting from scratch")
+    return LoadedCheckpoint(None, 0, 0)
+
+
+def _restore_from_dir(d: str, meta: dict, example_state: TrainState, *,
+                      finetune: bool = False, no_load_optim: bool = False
+                      ) -> LoadedCheckpoint:
+    release = bool(meta.get("release", os.path.basename(d) == "release"))
+    load_optim = (not finetune and not no_load_optim and not release
+                  and example_state.opt_state is not None)
+    params_path = os.path.join(d, PARAMS_FILE)
+    opt_path = os.path.join(d, OPT_FILE)
+    load_optim = load_optim and os.path.exists(opt_path)
+    params = _param_leaves(example_state)
+    _check_leaves(params_path, params)
+    if load_optim:
+        opt = _opt_leaves(example_state)
+        _check_leaves(opt_path, opt)
+    # every key and shape checked: only now is the example overwritten
+    _copy_into(params_path, params)
+    if load_optim:
+        _copy_into(opt_path, opt)
+
+    if finetune or release:
+        # a fresh run: the data stream restarts too
+        iteration, consumed = 0, 0
+        data_state, quarantine = None, []
+    else:
+        iteration = int(meta["iteration"])
+        consumed = int(meta.get("consumed_samples", 0))
+        data_state = meta.get("data_state")
+        quarantine = meta.get("quarantine", [])
+    example_state.iteration = iteration
+    print_rank_0(f"loaded checkpoint {d} (iteration {iteration}, "
+                 f"consumed_samples {consumed}"
+                 + (", exact data-resume state" if data_state else "")
+                 + (f", {len(quarantine)} quarantined window(s)"
+                    if quarantine else "") + ")")
+    return LoadedCheckpoint(example_state, iteration, consumed,
+                            data_state=data_state, quarantine=quarantine,
+                            ckpt_dir=d)
+
+
+def tracked_dir(root: str) -> str:
+    """The directory the tracker under `root` names; raises without one."""
+    d = dir_for_tag(root, read_tracker(root))
+    if d is None:
+        raise FileNotFoundError(f"no checkpoint tracker {TRACKER} in {root}")
+    return d
+
+
+def read_params(d: str) -> dict:
+    """The flat {"a/b/c": array} parameters of one checkpoint dir."""
+    _check_npz_format(d)
+    with np.load(os.path.join(d, PARAMS_FILE)) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def load_config_from_checkpoint(root: str) -> Optional[MegatronConfig]:
+    """The config.json of the tracker-named checkpoint, or of the newest
+    iter_* dir whose config is readable (`--use_checkpoint_args`)."""
+    d = dir_for_tag(root, read_tracker(root))
+    candidates = ([d] if d is not None else []) + \
+        [d2 for _, d2 in integrity.list_iter_checkpoints(root) if d2 != d]
+    for c in candidates:
+        try:
+            with open(os.path.join(c, "config.json")) as f:
+                return MegatronConfig.from_dict(json.load(f))
+        except (OSError, ValueError):
+            continue
+    return None
