@@ -109,12 +109,41 @@ Phases, each fatal on failure (exit code 1, no result line):
    than one segment. Step time and tokens/s of U, the data path's host
    seconds per batch, checkpoint bytes, save, manifest and load seconds and
    peak memory are printed; D is deleted.
+9. weight toolchain (`phase_toolchain`): phase 8's model is freed, then
+   (a) the golden-logit fixture replays on the card (fp32, TF32 off,
+   average max-abs <= 1e-3) and the 100-step loss trajectory in fp32 and
+   fp16 through verify_correctness.trajectory_mode, which gates the fp32
+   losses and lr at the JAX package's tolerances and reports the other
+   series; the fixture model (head dim 16) launches no kernel. (b)
+   Llama-2-7B at full width and TOOLCHAIN_LAYERS layers: random bf16
+   weights from a numpy seed written as an HF directory in the
+   published layout (config.json, two safetensors shards, their index),
+   imported by tools/convert_hf_checkpoint.py into a fp32 release
+   checkpoint and exported back: every exported tensor equals the input
+   upcast bit for bit, and a re-import the import. (c) That checkpoint
+   served by tools/run_text_generation_server.main on 127.0.0.1 with phase
+   8's 32,000-entry vocabulary: with --serial, greedy requests give the
+   tokens of an in-process Generator on the imported model, and
+   tools/text_generation_cli gets an answer; on the engine route (16-token
+   blocks, num_slots from the card's free memory) TOOLCHAIN_ENGINE_REQUESTS
+   concurrent requests return 200 with finite logprobs, the flash forward
+   launching once per layer per prefill and the block kernel once per
+   layer per decode step. (d) finetune.main --load the release --finetune
+   --use_checkpoint_args --no_save_optim, TOOLCHAIN_FT_ITERS iterations at
+   lr 3e-5 on phase 8's corpus: finite losses, each flash kernel launched
+   layers x microbatches times an iteration, compare_loss_curves of the
+   run's log against itself exits 0, and the finetuned checkpoint's export
+   re-imports to its params bit for bit. (e) Falcon-7B at full width and
+   TOOLCHAIN_LAYERS layers (fused multi-query QKV, tied head): import,
+   serial greedy tokens equal to the in-process Generator's, an engine
+   burst (flash and block kernels at hd 64, one kv head) and the export
+   round trip. Bytes and seconds of each part are printed beside the card.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phase 8 too)
-and, last, {"ok": true, "device":
-...}.
+the norm kernels' on every path above, the flash kernels' on phases 8 and
+9 too, the block kernel's on phase 9 too) and, last, {"ok": true,
+"device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -3020,6 +3049,552 @@ def phase_pretrain(smi: str) -> dict:
     return stats
 
 
+# The weight toolchain (phase 9): HF directories in the published layouts of
+# Llama-2-7B and Falcon-7B at full width, cut to TOOLCHAIN_LAYERS layers (the
+# cut phase 8 makes, for bytes and time), with random bf16 weights from
+# TOOLCHAIN_SEED, imported, served, finetuned and exported by the port's
+# tools. The config.json of each is the published one (meta-llama/
+# Llama-2-7b-hf, tiiuae/falcon-7b) with the layer count cut and the dtype of
+# the random weights.
+TOOLCHAIN_LAYERS = 2
+TOOLCHAIN_SEED = 0
+TOOLCHAIN_NEW_TOKENS = 16
+TOOLCHAIN_ENGINE_REQUESTS = 8
+TOOLCHAIN_FT_ITERS = 2
+LLAMA2_7B_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 11008,
+    "max_position_embeddings": 4096, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": TOOLCHAIN_LAYERS,
+    "num_key_value_heads": 32, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000}
+FALCON_7B_HF_CONFIG = {
+    "alibi": False, "apply_residual_connection_post_layernorm": False,
+    "architectures": ["FalconForCausalLM"], "attention_dropout": 0.0,
+    "bias": False, "bos_token_id": 11, "eos_token_id": 11,
+    "hidden_dropout": 0.0, "hidden_size": 4544, "initializer_range": 0.02,
+    "layer_norm_epsilon": 1e-05, "model_type": "falcon",
+    "multi_query": True, "new_decoder_architecture": False,
+    "num_attention_heads": 71, "num_hidden_layers": TOOLCHAIN_LAYERS,
+    "parallel_attn": True, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 65024}
+TOOLCHAIN_PROMPTS = ["the quick brown fox jumps over the lazy dog",
+                     "one two three four five six seven eight nine ten "
+                     "eleven twelve thirteen fourteen fifteen",
+                     "a b c d e f g h i j k l m n o p q r s t u v w x y z "
+                     "and then the alphabet starts again with a b c"]
+
+
+def falcon_tensor_names(cfg) -> list:
+    """[(name, shape)] of FalconForCausalLM's checkpoint (7B layout: fused
+    multi-query QKV, one input_layernorm, the LM head tied and not
+    stored), in its order."""
+    h, hd, f = cfg.hidden_size, cfg.kv_channels, cfg.ffn_hidden_size
+    qkv = (cfg.num_attention_heads + 2 * cfg.num_kv_heads) * hd
+    names = [("transformer.word_embeddings.weight", (cfg.vocab_size, h))]
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        names += [(p + "self_attention.query_key_value.weight", (qkv, h)),
+                  (p + "self_attention.dense.weight", (h, h)),
+                  (p + "mlp.dense_h_to_4h.weight", (f, h)),
+                  (p + "mlp.dense_4h_to_h.weight", (h, f)),
+                  (p + "input_layernorm.weight", (h,)),
+                  (p + "input_layernorm.bias", (h,))]
+    return names + [("transformer.ln_f.weight", (h,)),
+                    ("transformer.ln_f.bias", (h,))]
+
+
+def write_hf_dir(out_dir: str, names: list, config: dict, seed: int) -> dict:
+    """An HF directory as the published 7B checkpoints ship: config.json,
+    model-0000{1,2}-of-00002.safetensors split at half the bytes, and
+    model.safetensors.index.json. Each tensor is drawn from one numpy
+    stream, uniform with a standard deviation of 0.02 (numpy draws it
+    faster than a normal; norm gains about 1), rounded to bf16 and streamed
+    to its shard. Returns bytes and seconds."""
+    import os
+    import struct
+
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    os.makedirs(out_dir)
+    sizes = [2 * math.prod(shape) for _, shape in names]
+    cut = next(i for i in range(len(sizes))
+               if 2 * sum(sizes[:i + 1]) >= sum(sizes)) + 1
+    rng = np.random.default_rng(seed)
+    weight_map = {}
+    for k, part in enumerate((names[:cut], names[cut:])):
+        file = f"model-{k + 1:05d}-of-00002.safetensors"
+        header, off = {}, 0
+        for name, shape in part:
+            n = 2 * math.prod(shape)
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + n]}
+            weight_map[name], off = file, off + n
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(out_dir, file), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)) + raw)
+            for name, shape in part:
+                x = rng.random(shape, dtype=np.float32)
+                x -= np.float32(0.5)
+                x *= np.float32(0.02 * 12 ** 0.5)
+                if name.endswith(("norm.weight", "ln_f.weight")):
+                    x += np.float32(1.0)
+                f.write(torch.from_numpy(x).to(torch.bfloat16)
+                        .view(torch.int16).numpy().tobytes())
+    with open(os.path.join(out_dir, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": sum(sizes)},
+                   "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return dict(bytes=sum(sizes), seconds=time.perf_counter() - t0)
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        out.update(flat_leaves(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def check_same_params(tree: dict, state: dict, what: str) -> None:
+    """A converter's tree against a state dict (tensors or arrays), leaf for
+    leaf, bit for bit."""
+    import numpy as np
+    got = flat_leaves(tree)
+    check(sorted(got) == sorted(state), f"{what}: leaves differ: "
+          f"{sorted(set(got) ^ set(state))[:4]}")
+    for k, want in state.items():
+        want = (want.detach().cpu().numpy() if hasattr(want, "detach")
+                else want)
+        check(got[k].dtype == want.dtype and np.array_equal(got[k], want),
+              f"{what}: {k} differs")
+
+
+def check_export(hf_dir: str, out_dir: str, family: str) -> int:
+    """Every exported tensor equals the input's, upcast to fp32, bit for
+    bit (a tied LM head equals the embedding). Returns the tensors
+    compared."""
+    import numpy as np
+    from megatron_tpu_torch.convert import hf_io
+    with hf_io.HFStateDict(hf_dir) as src, hf_io.HFStateDict(out_dir) as out:
+        names = set(src)
+        if family == "falcon":
+            names.add("lm_head.weight")
+        check(set(out) == names, f"{family} export holds "
+              f"{sorted(set(out) ^ names)[:4]} beside the input's tensors")
+        for name in out:
+            want = src[name if name in src
+                       else "transformer.word_embeddings.weight"]
+            got = out[name]
+            check(got.dtype == np.float32 and np.array_equal(got, want),
+                  f"{family} export: {name} is not the input upcast")
+    return len(names)
+
+
+def serve_tool(argv: list):
+    """run_text_generation_server.main(argv) on a thread; returns (server,
+    httpd, thread, seconds to bind) once it listens."""
+    from megatron_tpu_torch.tools import run_text_generation_server as srv
+    held, errors = {}, []
+    ready = threading.Event()
+
+    def on_ready(server, httpd):
+        held.update(server=server, httpd=httpd)
+        ready.set()
+
+    def run():
+        try:
+            srv.main(argv, ready=on_ready)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+            ready.set()
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    ready.wait(600)
+    if errors:
+        raise errors[0]
+    check(bool(held), "the server did not start in 600 s")
+    return held["server"], held["httpd"], thread, time.perf_counter() - t0
+
+
+def stop_tool(httpd, thread) -> None:
+    httpd.shutdown()
+    thread.join(60)
+    check(not thread.is_alive(), "the server thread did not stop")
+
+
+def zero_counts() -> None:
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    fc.reset_launch_counts()
+    fnc.reset_launch_counts()
+    bac.block_attention_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    return dict(fc.launch_counts(),
+                block_attention_cuda=bac.block_attention_cuda.launches,
+                **fnc.launch_counts())
+
+
+def serve_checkpoint(family: str, ckpt_dir: str, model, cfg, tok_files,
+                     tok) -> dict:
+    """Serve the release checkpoint through run_text_generation_server:
+    --serial (greedy requests equal to an in-process Generator on the
+    imported model, and one text_generation_cli request), then the engine
+    with a block pool (TOOLCHAIN_ENGINE_REQUESTS concurrent requests: all
+    200 with finite logprobs, the flash forward once per layer per prefill
+    and the block kernel once per layer per decode step)."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.inference.generation import (Generator,
+                                                         SamplingParams)
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    L = cfg.num_layers
+    argv = ["--load", ckpt_dir, "--tokenizer_type", "GPT2BPETokenizer",
+            "--vocab_file", tok_files[0], "--merge_file", tok_files[1],
+            "--host", "127.0.0.1", "--port", "0"]
+    stats = dict(launches={})
+    server, httpd, thread, stats["serial_start_s"] = serve_tool(
+        argv + ["--serial"])
+    port = httpd.server_address[1]
+    try:
+        check(server.engine is None, "--serial built an engine")
+        zero_counts()
+        served = []
+        for prompt in TOOLCHAIN_PROMPTS:
+            status, body = put(port, {"prompts": [prompt], "temperature": 0.0,
+                                      "tokens_to_generate":
+                                          TOOLCHAIN_NEW_TOKENS})
+            check(status == 200, f"{family} serial request: {status} {body}")
+            served.append(body["segments"][0])
+        counts = read_counts()
+        stats["launches"]["serial"] = counts
+        check(counts["flash_fwd_cuda"] >= L * len(TOOLCHAIN_PROMPTS),
+              f"{family} serial route: flash launches {counts}")
+        cli = subprocess.run(
+            [sys.executable, "-m",
+             "megatron_tpu_torch.tools.text_generation_cli",
+             f"127.0.0.1:{port}"], input=f"{TOOLCHAIN_PROMPTS[0]}\n8\n",
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(cli.returncode == 0 and "Megatron Response:" in cli.stdout,
+              f"text_generation_cli: rc {cli.returncode} {cli.stdout[-300:]}"
+              f" {cli.stderr[-300:]}")
+    finally:
+        stop_tool(httpd, thread)
+    gen = Generator(model, cfg, eos_id=tok.eod)
+    for prompt, seg in zip(TOOLCHAIN_PROMPTS, served):
+        toks, lens, _ = gen.generate([tok.tokenize(prompt)],
+                                     TOOLCHAIN_NEW_TOKENS,
+                                     SamplingParams(temperature=0.0))
+        check(seg == [int(t) for t in toks[0, :lens[0]]],
+              f"{family}: served greedy tokens differ from the in-process "
+              "Generator's")
+    del gen, server
+    torch.cuda.empty_cache()
+
+    server, httpd, thread, stats["engine_start_s"] = serve_tool(
+        argv + ["--kv_block_size", "16"])
+    port = httpd.server_address[1]
+    try:
+        engine = server.engine
+        check(engine is not None and server.serving.block_native_attn,
+              f"{family}: no block-native engine")
+        stats["num_slots"] = server.serving.num_slots
+        engine.metrics = ServingMetrics()
+        zero_counts()
+        bodies = [None] * TOOLCHAIN_ENGINE_REQUESTS
+
+        def send(i):
+            words = TOOLCHAIN_PROMPTS[i % 3].split()
+            bodies[i] = put(port, {
+                "prompts": [" ".join(words * (1 + 2 * i))],
+                "tokens_to_generate": 8 + 8 * i, "logprobs": True,
+                **({"temperature": 0.0} if i % 2 == 0 else
+                   {"temperature": 0.8, "top_p": 0.9,
+                    "random_seed": 100 + i})})
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(TOOLCHAIN_ENGINE_REQUESTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        stats["engine_wall_s"] = time.perf_counter() - t0
+        settled = None
+        while True:  # the loop records a step after its requests return
+            snap = engine.metrics.snapshot()
+            now = (snap["decode_steps"], snap["prefill_calls"],
+                   read_counts())
+            if now == settled:
+                break
+            settled = now
+            time.sleep(0.3)
+        steps, prefills, counts = settled
+        stats["launches"]["engine"] = counts
+        stats.update(decode_steps=steps, prefill_calls=prefills)
+        for i, answer in enumerate(bodies):
+            check(answer is not None and answer[0] == 200,
+                  f"{family} engine request {i}: {answer}")
+            check(all(math.isfinite(x) for x in answer[1]["logprobs"][0]),
+                  f"{family} engine request {i}: non-finite logprob")
+        check(steps > 0 and counts["block_attention_cuda"] == L * steps,
+              f"{family} engine: block kernel {counts} in {steps} decode "
+              f"steps of {L} layers")
+        check(prefills > 0 and counts["flash_fwd_cuda"] == L * prefills,
+              f"{family} engine: flash forward {counts} in {prefills} "
+              f"prefills of {L} layers")
+    finally:
+        stop_tool(httpd, thread)
+    return stats
+
+
+def import_release(family, hf_dir, out, cfg) -> tuple:
+    """tools/convert_hf_checkpoint import of `hf_dir` into `out`, then an
+    export beside it and its checks. Returns (model, stats)."""
+    import os
+    import shutil
+
+    from megatron_tpu_torch.tools import convert_hf_checkpoint as tool
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    _, model = tool.do_import(tool.parse_args(
+        ["import", "--hf_path", hf_dir, "--out", out, "--family", family]),
+        cfg)
+    stats = dict(tool.last_import, save=dict(ckpt.last_save))
+    stats.pop("dir")
+    export_dir = out + "_hf"
+    tool.do_export(tool.parse_args(["export", "--load", out, "--hf_out",
+                                    export_dir, "--family", family]))
+    stats["export"] = dict(tool.last_export)
+    t0 = time.perf_counter()
+    stats["export"]["tensors_equal"] = check_export(hf_dir, export_dir,
+                                                    family)
+    check_same_params(tool.read_hf_params(export_dir, family, cfg),
+                      model.state_dict(), f"{family} re-import")
+    stats["export"]["check_s"] = time.perf_counter() - t0
+    shutil.rmtree(export_dir)
+    stats["checkpoint_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, files in os.walk(out) for f in files)
+    return model, stats
+
+
+def finetune_release(ckpt_dir: str, root: str, corpus: dict, cfg) -> dict:
+    """finetune.main --load the release --finetune --use_checkpoint_args
+    --no_save_optim for TOOLCHAIN_FT_ITERS iterations; then its checkpoint
+    is exported, re-imported and compared, and compare_loss_curves reads
+    the run's log."""
+    import logging
+    import os
+    import shutil
+
+    from megatron_tpu_torch.tools import compare_loss_curves
+    from megatron_tpu_torch.tools import convert_hf_checkpoint as tool
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    ft_dir = os.path.join(root, "llama_ft")
+    log_file = os.path.join(root, "finetune.log")
+    argv = pretrain_argv(
+        corpus, "--load", ckpt_dir, "--finetune", "--use_checkpoint_args",
+        "--no_save_optim", "--save", ft_dir, "--save_interval",
+        str(TOOLCHAIN_FT_ITERS), "--train_iters", str(TOOLCHAIN_FT_ITERS),
+        "--eval_interval", "1000", "--lr", "3e-5")
+    handler = logging.FileHandler(log_file)
+    logger = logging.getLogger("megatron_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        run = run_finetune(argv)
+    finally:
+        logger.removeHandler(handler)
+        handler.close()
+    per_step = cfg.num_layers * 2  # global batch 2 of micro-batch 1
+    for rec in run["steps"]:
+        check(math.isfinite(rec["lm_loss"]) and rec["found_inf"] == 0,
+              f"finetune iteration {rec['iteration'] + 1}: loss "
+              f"{rec['lm_loss']}, found_inf {rec['found_inf']}")
+        check(all(n == per_step for n in rec["launches"].values()),
+              f"finetune iteration {rec['iteration'] + 1} launches "
+              f"{rec['launches']}, expected {per_step} of each kernel")
+    check(len(run["steps"]) == TOOLCHAIN_FT_ITERS and not run["evals"],
+          f"finetune ran {len(run['steps'])} steps, {len(run['evals'])} "
+          "evaluations")
+    check(compare_loss_curves.main([log_file, log_file, "--quiet"]) == 0,
+          "compare_loss_curves of the finetune log against itself")
+    save = dict(ckpt.last_save)
+    export_dir = os.path.join(root, "llama_ft_hf")
+    tool.do_export(tool.parse_args(["export", "--load", ft_dir, "--hf_out",
+                                    export_dir, "--family", "llama"]))
+    flat = ckpt.read_params(ckpt.tracked_dir(ft_dir))
+    check_same_params(tool.read_hf_params(export_dir, "llama", cfg),
+                      {k.replace("/", "."): v for k, v in flat.items()},
+                      "finetuned re-import")
+    export = dict(tool.last_export)
+    for d in (ft_dir, export_dir):
+        shutil.rmtree(d)
+    for rec in run["steps"]:
+        rec.pop("batch")
+    return dict(losses=[r["lm_loss"] for r in run["steps"]],
+                launches=read_counts(), seconds=run["seconds"],
+                steps=run["steps"], save=save, export=export)
+
+
+def phase_toolchain(smi: str) -> dict:
+    """Phase 9: the weight toolchain on Llama-2-7B and Falcon-7B at full
+    width and TOOLCHAIN_LAYERS layers: (a) both fixtures on the card, (b)
+    HF directory -> import -> export round trip, (c) the CLI server, (d) a
+    finetune from the release checkpoint and its export, (e) Falcon-7B's
+    import, serving and round trip. Launch counts are zeroed before each
+    drive and read after it; their sums are phase 9's."""
+    import gc
+    import os
+    import shutil
+
+    import torch
+    from megatron_tpu_torch import verify_correctness as vc
+    from megatron_tpu_torch.config import falcon_config, llama2_config
+    from megatron_tpu_torch.data import build_tokenizer
+    from megatron_tpu_torch.tools import synthetic_corpus
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before the "
+          "toolchain phase: the pretrain model was not freed")
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_toolchain")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stats = dict(card=smi)
+    t_phase = time.perf_counter()
+    try:
+        # (a) the fixtures, on the card
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: the fixtures are fp32")
+        zero_counts()
+        fixtures = os.path.join(here, "tests", "fixtures")
+        t0 = time.perf_counter()
+        golden = vc.golden_mode(os.path.join(
+            fixtures, "golden_logits_llama_synthetic.npz"))
+        check(golden["ok"], f"golden logits: {golden}")
+        trajectory = vc.trajectory_mode(os.path.join(
+            fixtures, "golden_loss_trajectory.npz"))
+        check(trajectory["ok"], "loss trajectory: a gated series "
+              f"({sorted(vc.GATED)}) failed: {trajectory['rows']}")
+        counts = read_counts()
+        check(not any(counts.values()), f"the fixtures launched {counts}")
+        stats["fixtures"] = dict(
+            golden_avg_max_abs_err=golden["avg_max_abs_err"],
+            trajectory={name: dict(ok=ok, max_abs_dev=worst, gated=gated)
+                        for name, ok, worst, gated in trajectory["rows"]},
+            seconds=time.perf_counter() - t0)
+        log("toolchain (a): the fixture model has head dim 16: its "
+            "attention takes the dot path and launches no kernel")
+
+        # (b) Llama-2-7B: HF directory -> release checkpoint -> HF
+        corpus = pretrain_corpus(root)
+        llama_tok = build_tokenizer("GPT2BPETokenizer",
+                                    vocab_file=corpus["vocab"],
+                                    merge_file=corpus["merges"])
+        lcfg = llama2_config("7b", num_layers=TOOLCHAIN_LAYERS)
+        hf_dir = os.path.join(root, "Llama-2-7b-hf")
+        stats["llama_write"] = write_hf_dir(
+            hf_dir, vc.synthetic_hf_llama_names(
+                vocab=lcfg.vocab_size, hidden=lcfg.hidden_size,
+                layers=lcfg.num_layers, heads=lcfg.num_attention_heads,
+                kv=lcfg.num_kv_heads, ffn=lcfg.ffn_hidden_size),
+            LLAMA2_7B_HF_CONFIG, TOOLCHAIN_SEED)
+        llama_ckpt = os.path.join(root, "llama")
+        model, stats["llama_import"] = import_release("llama", hf_dir,
+                                                      llama_ckpt, lcfg)
+        n_params = sum(t.numel() for t in model.state_dict().values())
+        log(f"toolchain (b): Llama-2-7B width, {TOOLCHAIN_LAYERS} layers, "
+            f"{n_params} parameters: " + json.dumps(
+                dict(write=stats["llama_write"],
+                     **stats["llama_import"])) + f" [{smi}]")
+        shutil.rmtree(hf_dir)
+
+        # (c) serve it
+        stats["llama_serving"] = serve_checkpoint(
+            "llama", llama_ckpt, model, lcfg,
+            (corpus["vocab"], corpus["merges"]), llama_tok)
+        log("toolchain (c): " + json.dumps(stats["llama_serving"])
+            + f" [{smi}]")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) finetune from the release checkpoint
+        zero_counts()
+        stats["llama_finetune"] = finetune_release(llama_ckpt, root, corpus,
+                                                   lcfg)
+        log("toolchain (d): " + json.dumps(stats["llama_finetune"])
+            + f" [{smi}]")
+        shutil.rmtree(llama_ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) Falcon-7B: HF directory -> import -> serving -> HF
+        fcfg = falcon_config("7b", num_layers=TOOLCHAIN_LAYERS)
+        falcon_files = synthetic_corpus.write_gpt2_vocab(
+            os.path.join(root, "falcon_vocab"), fcfg.vocab_size)
+        falcon_tok = build_tokenizer("GPT2BPETokenizer",
+                                     vocab_file=falcon_files[0],
+                                     merge_file=falcon_files[1])
+        hf_dir = os.path.join(root, "falcon-7b")
+        stats["falcon_write"] = write_hf_dir(
+            hf_dir, falcon_tensor_names(fcfg), FALCON_7B_HF_CONFIG,
+            TOOLCHAIN_SEED + 1)
+        falcon_ckpt = os.path.join(root, "falcon")
+        model, stats["falcon_import"] = import_release("falcon", hf_dir,
+                                                       falcon_ckpt, fcfg)
+        n_params = sum(t.numel() for t in model.state_dict().values())
+        log(f"toolchain (e): Falcon-7B width, {TOOLCHAIN_LAYERS} layers, "
+            f"{n_params} parameters: " + json.dumps(
+                dict(write=stats["falcon_write"],
+                     **stats["falcon_import"])) + f" [{smi}]")
+        shutil.rmtree(hf_dir)
+        stats["falcon_serving"] = serve_checkpoint(
+            "falcon", falcon_ckpt, model, fcfg, falcon_files, falcon_tok)
+        log("toolchain (e): " + json.dumps(stats["falcon_serving"])
+            + f" [{smi}]")
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    drives = [stats["llama_serving"]["launches"]["serial"],
+              stats["llama_serving"]["launches"]["engine"],
+              stats["llama_finetune"]["launches"],
+              stats["falcon_serving"]["launches"]["serial"],
+              stats["falcon_serving"]["launches"]["engine"]]
+    totals = {k: sum(d[k] for d in drives) for k in drives[0]}
+    attention = ("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
+                 "block_attention_cuda")
+    stats["launches"] = {k: totals[k] for k in attention}
+    stats["norm_launches"] = {k: v for k, v in totals.items()
+                              if k not in attention}
+    stats["seconds"] = time.perf_counter() - t_phase
+    log("toolchain: " + json.dumps(dict(
+        seconds=stats["seconds"], launches=stats["launches"],
+        norm_launches=stats["norm_launches"])) + f" [{smi}]")
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3088,6 +3663,7 @@ def main(argv=None) -> int:
         int8_stats = phase_int8(smi)
         train_stats = phase_training(smi)
         pretrain_stats = phase_pretrain(smi)
+        toolchain_stats = phase_toolchain(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3100,6 +3676,8 @@ def main(argv=None) -> int:
     pretrain_counts = {k: sum(run[k] for run in
                               pretrain_stats["launches"].values())
                        for k in train_counts}
+    # phase 9's drives, each counted from zero
+    tool_counts = toolchain_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -3121,7 +3699,8 @@ def main(argv=None) -> int:
               main_stats["launches"] + engine_flash
               + train_counts["flash_fwd_cuda"]
               + pretrain_counts["flash_fwd_cuda"]
-              + bench_counts["flash_fwd_cuda"], "fwd",
+              + bench_counts["flash_fwd_cuda"]
+              + tool_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -3131,7 +3710,8 @@ def main(argv=None) -> int:
                   int8_engine_prefill=int8_stats["launches"]["flash_fwd"],
                   training=train_counts["flash_fwd_cuda"],
                   pretrain=pretrain_counts["flash_fwd_cuda"],
-                  bench_kernels=bench_counts["flash_fwd_cuda"]),
+                  bench_kernels=bench_counts["flash_fwd_cuda"],
+                  toolchain=tool_counts["flash_fwd_cuda"]),
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
                    serving_shape=dict(shape=MAIN_SHAPE, **{
                        k: serving_case[k] for k in (
@@ -3141,16 +3721,19 @@ def main(argv=None) -> int:
                    serving_cases=cases)),
         entry("flash_bwd_dq", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:191", train_counts["flash_bwd_dq_cuda"]
-              + pretrain_counts["flash_bwd_dq_cuda"], "dq",
+              + pretrain_counts["flash_bwd_dq_cuda"]
+              + tool_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
                    launches_by_path=dict(
                        training=train_counts["flash_bwd_dq_cuda"],
-                       pretrain=pretrain_counts["flash_bwd_dq_cuda"]))),
+                       pretrain=pretrain_counts["flash_bwd_dq_cuda"],
+                       toolchain=tool_counts["flash_bwd_dq_cuda"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
-              + pretrain_counts["flash_bwd_dkv_cuda"], "dkv",
+              + pretrain_counts["flash_bwd_dkv_cuda"]
+              + tool_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -3159,7 +3742,8 @@ def main(argv=None) -> int:
                                  "flash_bwd_dkv_fma_kernel (fp32)"],
                    launches_by_path=dict(
                        training=train_counts["flash_bwd_dkv_cuda"],
-                       pretrain=pretrain_counts["flash_bwd_dkv_cuda"]))),
+                       pretrain=pretrain_counts["flash_bwd_dkv_cuda"],
+                       toolchain=tool_counts["flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     kernels.append(dict(
@@ -3168,11 +3752,13 @@ def main(argv=None) -> int:
         replaces="megatron_tpu/ops/block_attention_pallas.py:82",
         launches=(engine_stats["launches"]["block_attn"]
                   + int8_stats["launches"]["block_attn"]
-                  + pretrain_stats["block_launches"]),
+                  + pretrain_stats["block_launches"]
+                  + tool_counts["block_attention_cuda"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
-            pretrain=pretrain_stats["block_launches"]),
+            pretrain=pretrain_stats["block_launches"],
+            toolchain=tool_counts["block_attention_cuda"]),
         launches_per_decode_step=engine_stats["launches_per_decode_step"],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
@@ -3187,7 +3773,7 @@ def main(argv=None) -> int:
     # just after (0 where the models use models/norms.py, as the reference)
     path_stats = dict(serving=main_stats, engine=engine_stats,
                       int8_engine=int8_stats, training=train_stats,
-                      pretrain=pretrain_stats)
+                      pretrain=pretrain_stats, toolchain=toolchain_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -12,8 +12,8 @@ iteration. `train_state_to_numpy` is its inverse, under the JAX names.
 
 `load_npz_checkpoint` reads the weights of a checkpoint either package saved
 in the npz format, through the port's training/checkpointing.py: the tracker
-file, then `config.json`, then `params.npz`. It needs no JAX. Orbax
-checkpoints raise there.
+file, the manifest's SHA-256 digests, then `config.json` and `params.npz`.
+It needs no JAX. Orbax checkpoints raise there.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 from megatron_tpu_torch.config import MegatronConfig, ModelConfig
 from megatron_tpu_torch.models.language_model import LanguageModel
 from megatron_tpu_torch.ops.quantized import QUANTIZABLE, W8
+from megatron_tpu_torch.resilience import integrity
 from megatron_tpu_torch.training import checkpointing
 from megatron_tpu_torch.training.optimizer import OptState, ScalerState
 from megatron_tpu_torch.training.train_step import TrainState
@@ -166,9 +167,14 @@ def train_state_to_numpy(state: TrainState):
 def load_npz_checkpoint(root: str, device: DeviceLike = None,
                         dtype: Optional[torch.dtype] = None):
     """Load the parameters of the checkpoint the tracker under `root` names,
-    through training/checkpointing's reader. Returns (LanguageModel,
-    ModelConfig)."""
+    through training/checkpointing's reader, once its files match their
+    manifest (as the JAX package's server and export load them). Returns
+    (LanguageModel, ModelConfig); raises on a torn or corrupt checkpoint."""
     d = checkpointing.tracked_dir(root)
+    ok, why = integrity.verify_checkpoint(d)
+    if not ok:
+        raise ValueError(f"checkpoint {d} failed integrity verification "
+                         f"({why})")
     flat = checkpointing.read_params(d)
     with open(os.path.join(d, "config.json")) as f:
         cfg = MegatronConfig.from_dict(json.load(f)).model.derived()

@@ -7,9 +7,11 @@ padded-vocab derivation, :254 GPT-2 BPE, :288 Falcon/HF, :326-499
 SentencePiece with special-token injection). The abstract contract —
 `tokenize/detokenize/vocab_size/eod` plus optional cls/sep/pad/bos/eos ids —
 is preserved. GPT2BPETokenizer and BertWordPieceTokenizer are
-self-contained; HFTokenizer and SentencePieceTokenizer import
-`transformers` / `sentencepiece` only when built, so the module imports
-without either package.
+self-contained; SentencePieceTokenizer imports `sentencepiece` only when
+built, so the module imports without it. The port never imports
+`transformers` (the card's machine has none): HFTokenizer, the JAX
+package's AutoTokenizer wrapper, raises, and SentencePieceTokenizer has no
+AutoTokenizer fallback when `sentencepiece` is missing.
 
 Vocab padding: `padded_vocab_size(vocab, multiple)` rounds up so the
 embedding shards cleanly (ref: tokenizer.py:42-62 pads to
@@ -19,7 +21,6 @@ ModelConfig.padded_vocab_size — so checkpoints are layout-free).
 from __future__ import annotations
 
 import json
-import os
 from typing import Optional, Sequence
 
 
@@ -61,50 +62,26 @@ class AbstractTokenizer:
 
 
 class HFTokenizer(AbstractTokenizer):
-    """Any HuggingFace tokenizer — covers the reference's FalconTokenizer
-    (ref: tokenizer.py:288-325, AutoTokenizer('tiiuae/falcon-40b')) and
-    arbitrary `--tokenizer_type HuggingFaceTokenizer` setups."""
+    """The reference's FalconTokenizer and `--tokenizer_type
+    HuggingFaceTokenizer` (ref: tokenizer.py:288-325): an AutoTokenizer,
+    which needs `transformers`. The port does not import it, so building
+    one raises."""
 
     name = "HFTokenizer"
 
     def __init__(self, path: str, **kwargs):
-        from transformers import AutoTokenizer
-        self._t = AutoTokenizer.from_pretrained(path, **kwargs)
-
-    @property
-    def vocab_size(self) -> int:
-        return len(self._t)
-
-    def tokenize(self, text: str) -> list[int]:
-        return self._t.encode(text, add_special_tokens=False)
-
-    def detokenize(self, ids) -> str:
-        return self._t.decode(ids)
-
-    @property
-    def eod(self) -> int:
-        t = self._t
-        return t.eos_token_id if t.eos_token_id is not None else t.pad_token_id
-
-    @property
-    def eos(self):
-        return self._t.eos_token_id
-
-    @property
-    def bos(self):
-        return self._t.bos_token_id
-
-    @property
-    def pad(self):
-        return self._t.pad_token_id
+        raise NotImplementedError(
+            f"HFTokenizer({path!r}) needs transformers' AutoTokenizer, which "
+            "the port does not import; use GPT2BPETokenizer (vocab.json + "
+            "merges.txt) or SentencePieceTokenizer")
 
 
 class SentencePieceTokenizer(AbstractTokenizer):
     """SentencePiece model with Megatron special-token injection
     (ref: tokenizer.py:326-499 _SentencePieceTokenizer: registers
     <CLS>/<SEP>/<EOD>/<MASK>/<PAD> plus `vocab_extra_ids_list` entries on top
-    of the base model, tracking an _extra_id map). Backed by HF
-    LlamaTokenizer(Fast) when the `sentencepiece` package is absent."""
+    of the base model, tracking an _extra_id map). Needs the
+    `sentencepiece` package."""
 
     name = "SentencePieceTokenizer"
     SPECIAL = ("<CLS>", "<SEP>", "<EOD>", "<MASK>", "<PAD>")
@@ -112,22 +89,11 @@ class SentencePieceTokenizer(AbstractTokenizer):
     def __init__(self, model_file: str, vocab_extra_ids: int = 0,
                  vocab_extra_ids_list: Optional[str] = None,
                  new_tokens: bool = True):
-        self._sp = None
-        try:
-            import sentencepiece as spm
-            self._sp = spm.SentencePieceProcessor(model_file=model_file)
-            base_vocab = self._sp.get_piece_size()
-            self._bos_id = self._sp.bos_id()
-            self._eos_id = self._sp.eos_id()
-        except ImportError:
-            # no sentencepiece package in this image: load the surrounding HF
-            # tokenizer directory (tokenizer.model usually ships with one)
-            from transformers import AutoTokenizer
-            self._hf = AutoTokenizer.from_pretrained(
-                os.path.dirname(model_file) or ".", use_fast=True)
-            base_vocab = len(self._hf)
-            self._bos_id = self._hf.bos_token_id
-            self._eos_id = self._hf.eos_token_id
+        import sentencepiece as spm
+        self._sp = spm.SentencePieceProcessor(model_file=model_file)
+        base_vocab = self._sp.get_piece_size()
+        self._bos_id = self._sp.bos_id()
+        self._eos_id = self._sp.eos_id()
         self._special: dict[str, int] = {}
         self._vocab_size = base_vocab
         if new_tokens:
@@ -148,15 +114,11 @@ class SentencePieceTokenizer(AbstractTokenizer):
         return self._vocab_size
 
     def tokenize(self, text: str) -> list[int]:
-        if self._sp is not None:
-            return self._sp.encode(text)
-        return self._hf.encode(text, add_special_tokens=False)
+        return self._sp.encode(text)
 
     def detokenize(self, ids) -> str:
         ids = [i for i in ids if i < self._vocab_size - len(self._special)]
-        if self._sp is not None:
-            return self._sp.decode(ids)
-        return self._hf.decode(ids)
+        return self._sp.decode(ids)
 
     @property
     def eod(self) -> int:

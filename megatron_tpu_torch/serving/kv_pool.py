@@ -34,6 +34,9 @@ nothing past a row's length is read before decode writes it.
 Retention for the prefix cache (`retain`, `retain_row`, `RetainedPrefix`,
 `on_reclaim`) raises NotImplementedError: it comes with the prefix-cache
 slice. So does the bracketed block mode (`resolve_view`/`scatter_view`).
+
+`fit_num_slots` sizes `num_slots` to the card's free memory (the CLI
+server's default).
 """
 from __future__ import annotations
 
@@ -45,8 +48,10 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
-from megatron_tpu_torch.inference.generation import init_kv_caches, kv_scales
+from megatron_tpu_torch.inference.generation import (init_kv_caches,
+                                                     kv_region_cap, kv_scales)
 from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
+from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _RETENTION = ("prefix-cache retention is ported with the prefix cache in a "
               "later slice (ROADMAP Queue 1 item 6)")
@@ -329,3 +334,38 @@ class SlotKVPool:
             live = int(lengths.sum())
             reserved = used * self.cap
         return used, 0, max(reserved - live, 0) * self.bytes_per_token()
+
+
+def slot_nbytes(cfg: ModelConfig, max_len: int, dtype=torch.bfloat16,
+                block_size: Optional[int] = None) -> int:
+    """Bytes one slot's cache region occupies (k + v, and an int8 pool's
+    fp32 scales), without allocating. The capacity comes from
+    `generation.kv_region_cap`, the helper `init_kv_caches` allocates
+    from; `block_size` rounds the region up to whole blocks."""
+    cap = kv_region_cap(cfg, max_len)
+    if block_size is not None and block_size < cap:
+        cap = -(-cap // block_size) * block_size
+    elems = cfg.num_layers * cap * cfg.num_kv_heads * cfg.kv_channels
+    n = 2 * elems * dtype.itemsize
+    if dtype == torch.int8:
+        n += 2 * (elems // cfg.kv_channels) * 4  # fp32 scales
+    return n
+
+
+def fit_num_slots(cfg: ModelConfig, max_len: int, dtype=torch.bfloat16,
+                  requested: int = 8, headroom: float = 0.8,
+                  block_size: Optional[int] = None,
+                  device: DeviceLike = None) -> int:
+    """Clamp `requested` slots to what the card's free memory holds once
+    the weights are resident: the free bytes CUDA reports plus what PyTorch's
+    allocator holds unused, times `headroom`, over `slot_nbytes`. On the
+    CPU, which has no such budget, `requested` is returned unchanged."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return requested
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    fit = int(free * headroom) // max(
+        slot_nbytes(cfg, max_len, dtype, block_size), 1)
+    return max(1, min(requested, fit))

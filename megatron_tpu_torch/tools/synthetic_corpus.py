@@ -39,6 +39,10 @@ def _merges():
                                                             letters))
     yield from ((SPACE + a + b, c) for a, b, c in itertools.product(
         letters, letters, letters))
+    # words of four letters: vocabularies past 36,788 entries (Falcon's
+    # 65,024)
+    yield from ((SPACE + a + b + c, d) for a, b, c, d in itertools.product(
+        letters, letters, letters, letters))
 
 
 def write_gpt2_vocab(out_dir: str, vocab_size: int = 32000) -> tuple:

@@ -3,7 +3,8 @@
 - `params_from_numpy` keeps the JAX parameter tree's names and shapes;
 - a checkpoint the JAX package saved with backend="npz" loads without JAX
   and gives the same logits;
-- no module of the port (nor chip_smoke.py) imports jax or megatron_tpu;
+- no module of the port (nor chip_smoke.py) imports jax or megatron_tpu,
+  nor transformers or safetensors, which the card's machine lacks;
 - the entry points refuse to fall back to the CPU when no device is named,
   and the block-attention kernel's wrapper refuses a CPU tensor.
 """
@@ -101,6 +102,8 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor transformers or safetensors: the weight toolchain reads and
+    writes HF directories itself."""
     files = sorted((ROOT / "megatron_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {p.relative_to(ROOT).as_posix() for p in files}
@@ -110,13 +113,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "ops/block_attention.py", "ops/block_attention_cuda.py",
                    "ops/cuda_build.py", "ops/fused_norms.py",
                    "ops/fused_norms_cuda.py", "ops/quantized.py",
-                   "tools/bench_kernels.py", "tools/bench_decode.py"):
+                   "tools/bench_kernels.py", "tools/bench_decode.py",
+                   "convert/hf.py", "convert/hf_io.py", "convert/meta.py",
+                   "convert/megatron.py", "verify_correctness.py",
+                   "tools/convert_hf_checkpoint.py",
+                   "tools/run_text_generation_server.py",
+                   "tools/text_generation_cli.py", "tools/merge_datasets.py",
+                   "tools/compare_loss_curves.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "megatron_tpu", "flax",
-                               "optax", "orbax"), f"{path}: imports {mod}"
+                               "optax", "orbax", "transformers",
+                               "safetensors"), f"{path}: imports {mod}"
 
 
 def test_entry_points_raise_without_gpu_and_device(monkeypatch):
