@@ -183,8 +183,9 @@ PEAK_BYTES = 3.35e12
 # prefill bucket); request (d)'s beam search at b 4, s 24. s 129 and s 255
 # sit one row past a 128-row tile of the bf16 kernel and one row short of
 # two; s 1000 is the engine phase's longest prompt; the bf16 window of 100
-# crosses the band's edge inside tiles. The bench_ cases are
-# tools/bench_kernels.py's flash shapes (FLASH_SHAPES), which the
+# crosses the band's edge inside tiles; mistral_window_prefill is phase 10's
+# rolling prefill (a 4608-token prompt past a 4096 window). The bench_ cases
+# are tools/bench_kernels.py's flash shapes (FLASH_SHAPES), which the
 # bench_kernels path launches.
 KERNEL_CASES = [
     ("llama2_7b_prefill", 1, 512, 32, 32, 128, "bfloat16", True, None),
@@ -198,6 +199,7 @@ KERNEL_CASES = [
     ("falcon7b_mqa", 1, 512, 71, 1, 64, "bfloat16", True, None),
     ("falcon7b_mqa_s2048", 1, 2048, 71, 1, 64, "bfloat16", True, None),
     ("bf16_window100", 1, 1024, 32, 8, 128, "bfloat16", True, 100),
+    ("mistral_window_prefill", 1, 4608, 32, 8, 128, "bfloat16", True, 4096),
     ("fp32_window128", 1, 512, 32, 8, 128, "float32", True, 128),
     ("bench_2x2048x16", 2, 2048, 16, 16, 128, "bfloat16", True, None),
     ("bench_1x8192x8", 1, 8192, 8, 8, 128, "bfloat16", True, None),
@@ -205,6 +207,9 @@ KERNEL_CASES = [
 ]
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}  # (out, lse)
 MAIN_SHAPE = "llama2_7b_prefill"
+# phase 10's rolling prefill: Mistral-7B's 32/8 heads, a prompt past its
+# 4096-token window
+WINDOW_SHAPE = "mistral_window_prefill"
 
 # (label, b, s, nq, nkv, d, dtype name, sliding_window, segment ids, dropout
 # rate, lse cotangent): the training path's attention. The first is the
@@ -3533,6 +3538,13 @@ def phase_toolchain(smi: str) -> dict:
             (corpus["vocab"], corpus["merges"]), llama_tok)
         log("toolchain (c): " + json.dumps(stats["llama_serving"])
             + f" [{smi}]")
+        # phase 10 (e) needs this checkpoint: the CLI server on an HF
+        # tokenizer.json
+        zero_counts()
+        stats["hf_tokenizer"] = serve_hf_tokenizer(llama_ckpt, corpus, root)
+        stats["hf_tokenizer"]["launches"] = read_counts()
+        log("window (e), in phase 9: " + json.dumps(stats["hf_tokenizer"])
+            + f" [{smi}]")
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3579,6 +3591,7 @@ def phase_toolchain(smi: str) -> dict:
 
     drives = [stats["llama_serving"]["launches"]["serial"],
               stats["llama_serving"]["launches"]["engine"],
+              stats["hf_tokenizer"]["launches"],
               stats["llama_finetune"]["launches"],
               stats["falcon_serving"]["launches"]["serial"],
               stats["falcon_serving"]["launches"]["engine"]]
@@ -3592,6 +3605,526 @@ def phase_toolchain(smi: str) -> dict:
     log("toolchain: " + json.dumps(dict(
         seconds=stats["seconds"], launches=stats["launches"],
         norm_launches=stats["norm_launches"])) + f" [{smi}]")
+    return stats
+
+
+# Phase 10: Mistral-7B-v0.1's published shape (32 layers, h 4096, 32/8
+# heads, ffn 14336, vocab 32000, window 4096, rope theta 1e4, RMSNorm eps
+# 1e-5, untied head) through llama2_config("7b", ...) overrides, with random
+# bf16 weights from a seed. max_len 8192: the region rolls at 4096 tokens.
+MISTRAL_7B = dict(num_kv_heads=8, ffn_hidden_size=14336, sliding_window=4096,
+                  seq_length=8192, max_position_embeddings=8192,
+                  rope_theta=1e4, norm_epsilon=1e-5)
+WINDOW_SEED = 0
+# (a) the serial route: one prompt longer than the window
+WINDOW_SERIAL_PROMPT = 4608
+WINDOW_SERIAL_NEW = 64
+# (a) bf16 logprobs of the cached decode against one uncached windowed
+# forward of prompt + output, the teacher-forced W8 check's tolerance
+WINDOW_LOGPROB_TOL = 0.25
+# (c) each engine arm: 8 concurrent requests, 37-4608 prompt tokens (3
+# longer than the window), 64-256 new tokens, even ones greedy, odd ones
+# sampled
+WINDOW_PROMPTS = [37, 100, 700, 1500, 3000, 4100, 4400, 4608]
+WINDOW_NEW = [64 + (192 * i) // 7 for i in range(8)]
+WINDOW_SERVING = dict(num_slots=8, max_len=8192)
+WINDOW_ARMS = {"rolling": dict(), "bracketed": dict(kv_block_size=16),
+               "int8": dict(kv_dtype="int8")}
+# (d) the supervisor drill on the rolling engine at full depth
+SUPERVISOR_SERVING = dict(num_slots=2, max_len=8192,
+                          engine_step_timeout_s=5.0, max_engine_restarts=2)
+SUPERVISOR_STALL_S = 8.0
+SUPERVISOR_MEMORY_SLACK = 64 * 2 ** 20
+# (f) the training watchdog drill
+WATCHDOG_STEP_TIMEOUT_S = 10
+WATCHDOG_EXIT_CODE = 43
+
+
+def window_prompts(seed: int, vocab: int) -> list:
+    """WINDOW_PROMPTS random token lists (ids 1..vocab-1) from `seed`."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [rs.randint(1, vocab, n).tolist() for n in WINDOW_PROMPTS]
+
+
+def window_sampling(i: int):
+    from megatron_tpu_torch.serving import SamplingOptions
+    return (SamplingOptions(temperature=0.0) if i % 2 == 0 else
+            SamplingOptions(temperature=0.8, top_p=0.9))
+
+
+def run_window_arm(gen, arm: dict, prompts: list) -> dict:
+    """One engine arm: the requests of `prompts` submitted at once (one
+    queue, 8 slots). Returns the outputs, counts and rates."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig
+    engine_kw = dict(WINDOW_SERVING, **arm)
+    from megatron_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(gen, ServingConfig(**engine_kw))
+    try:
+        check(eng.pool.rolling and eng.pool.cap == MISTRAL_7B[
+            "sliding_window"], f"arm {arm}: the pool does not roll")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, WINDOW_NEW[i], window_sampling(i),
+                           seed=500 + i) for i, p in enumerate(prompts)]
+        outs = [r.result(timeout=900) for r in reqs]
+        wall = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        for i, (toks, lps) in enumerate(outs):
+            n_new = len(toks) - len(prompts[i])
+            check(0 < n_new <= WINDOW_NEW[i],
+                  f"arm {arm} request {i}: {n_new} new tokens")
+            check(all(math.isfinite(x) for x in lps),
+                  f"arm {arm} request {i}: non-finite logprob")
+        generated = sum(len(t) - len(p) for (t, _), p in zip(outs, prompts))
+        return dict(outs=[t for t, _ in outs], wall_s=wall,
+                    generated_tokens=generated, tokens_per_s=generated / wall,
+                    pool_bytes=eng.pool.nbytes(),
+                    view_bytes=eng.pool.view_nbytes(),
+                    kv_attn_path=snap["kv_attn_path"],
+                    kv_gather_bytes_per_step=snap[
+                        "kv_gather_bytes_per_step"],
+                    decode_steps=snap["decode_steps"],
+                    prefill_calls=snap["prefill_calls"],
+                    ttft_p50_ms=snap["ttft_p50_ms"],
+                    itl_p50_ms=snap["itl_p50_ms"])
+    finally:
+        eng.close()
+
+
+def check_window_slice() -> dict:
+    """(b) and the fp32 half of (c): a 2-layer slice of the same width in
+    fp32 with TF32 off. The serial route's greedy tokens on the ring must
+    equal the argmax of one uncached windowed forward, token for token;
+    each engine arm's greedy tokens must equal the serial route's."""
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import (Generator,
+                                                         SamplingParams)
+    from megatron_tpu_torch.models import language_model as lm
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32",
+                        **MISTRAL_7B)
+    model = LanguageModel(cfg, dtype=torch.float32, seed=WINDOW_SEED + 1)
+    out = {}
+    gens = {kv: Generator(model, cfg, eos_id=0, pad_id=0,
+                          kv_cache_dtype=dt)
+            for kv, dt in (("float32", torch.float32), ("int8", torch.int8))}
+    prompt = window_prompts(WINDOW_SEED + 2, cfg.vocab_size)[-1]
+    toks, lens, _ = gens["float32"].generate(
+        [prompt], WINDOW_SERIAL_NEW, SamplingParams(temperature=0.0))
+    seq = [int(t) for t in toks[0, :lens[0]]]
+    with torch.inference_mode():
+        logits, _ = lm.model_forward(
+            model, torch.tensor([seq[:-1]], device=gens["float32"].device),
+            cfg, rope=gens["float32"].rope)
+    argmax = logits[0, len(prompt) - 1:].argmax(-1).tolist()
+    del logits
+    check(argmax == seq[len(prompt):],
+          "fp32 slice: the ring's greedy tokens differ from the uncached "
+          "windowed forward's argmax")
+    out["serial_vs_uncached"] = dict(prompt=len(prompt),
+                                     new_tokens=len(seq) - len(prompt),
+                                     agree=True)
+    prompts = window_prompts(WINDOW_SEED + 3, cfg.vocab_size)
+    greedy = [i for i in range(len(prompts)) if i % 2 == 0]
+    for name, arm in WINDOW_ARMS.items():
+        gen = gens["int8" if arm.get("kv_dtype") == "int8" else "float32"]
+        res = run_window_arm(gen, arm, prompts)
+        serial = []
+        for i in greedy:
+            t, n, _ = gen.generate([prompts[i]], WINDOW_NEW[i],
+                                   SamplingParams(temperature=0.0))
+            serial.append([int(x) for x in t[0, :n[0]]])
+        engine = [res["outs"][i] for i in greedy]
+        first = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                      None) for x, y in zip(engine, serial)]
+        check(engine == serial, f"fp32 slice arm {name}: greedy engine "
+              f"tokens differ from the serial route's (first differing "
+              f"positions {first})")
+        out[name] = dict(greedy_requests=len(greedy), agree=True,
+                         tokens_per_s=res["tokens_per_s"])
+    del gens, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def supervisor_drill(gen, smi: str) -> dict:
+    """(d) on the rolling engine at full depth, under one FaultInjector:
+    a crash (the slotted requests fail typed, the queued one is served with
+    a fault-free run's tokens), a stall past engine_step_timeout_s (the
+    watchdog fails the in-flight requests, the engine restarts and serves
+    the queued one), and a third fault, which opens the breaker.
+    Allocated device memory after each restart stays within
+    SUPERVISOR_MEMORY_SLACK of its reading before the faults; the seconds
+    from each fault to the next served token are printed."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.resilience import (FaultInjector,
+                                               use_fault_injector)
+    from megatron_tpu_torch.serving import (EngineUnhealthyError,
+                                            RequestFailedError,
+                                            SamplingOptions, ServingEngine)
+
+    class TimedInjector(FaultInjector):
+        """Notes the host time at which each serving fault fires."""
+
+        def __init__(self):
+            super().__init__()
+            self.fault_times = []
+
+        def check_serve_crash(self, call):
+            if call in self.serve_crash_calls:
+                self.fault_times.append(("crash", time.monotonic()))
+            super().check_serve_crash(call)
+
+        def maybe_serve_delay(self, call, sleep=time.sleep):
+            if self.serve_delay_calls.get(call, 0.0) > 0.0:
+                self.fault_times.append(("stall", time.monotonic()))
+            return super().maybe_serve_delay(call, sleep)
+
+    greedy = SamplingOptions(temperature=0.0)
+    prompts = window_prompts(WINDOW_SEED + 4, gen.cfg.vocab_size)
+    short = [p[:n] for p, n in zip(prompts, (37, 100, 150, 64, 80, 120))]
+    new = 16
+    eng = ServingEngine(gen, ServingConfig(**SUPERVISOR_SERVING))
+    stats = dict(card=smi)
+    try:
+        # the fault-free run of the requests that will wait in the queue;
+        # it also completes the iterations that arm the watchdog
+        clean = {i: eng.submit(short[i], new, greedy).result(timeout=600)[0]
+                 for i in (2, 5)}
+        check(eng._watchdog is not None and eng._watchdog.started,
+              "the watchdog is not armed after a full iteration")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        inj = TimedInjector()
+        readings = []
+        with use_fault_injector(inj):
+            # 1. a crash on the first step after two requests are slotted
+            inj.serve_crash_calls.add(inj._serve_steps + 2)
+            a, b, q = (eng.submit(short[i], new, greedy) for i in (0, 1, 2))
+            for r in (a, b):
+                try:
+                    r.result(timeout=600)
+                    check(False, "a slotted request survived the crash")
+                except RequestFailedError as e:
+                    check("engine step failed" in str(e),
+                          f"crash victim's error: {e}")
+            check(q.result(timeout=600)[0] == clean[2],
+                  "the queued request's tokens after the restart differ "
+                  "from the fault-free run's")
+            crash_t = inj.fault_times[-1][1]
+            stats["crash_to_next_token_s"] = q.first_token_time - crash_t
+            torch.cuda.synchronize()
+            readings.append(torch.cuda.memory_allocated())
+            # 2. a stall past the watchdog's deadline
+            inj.serve_delay_calls[inj._serve_steps + 2] = SUPERVISOR_STALL_S
+            a, b, q = (eng.submit(short[i], new, greedy) for i in (3, 4, 5))
+            for r in (a, b):
+                try:
+                    r.result(timeout=600)
+                    check(False, "a slotted request survived the stall")
+                except RequestFailedError as e:
+                    check("hung" in str(e), f"stall victim's error: {e}")
+            stats["stall_detected_after_s"] = (
+                max(a.finish_time, b.finish_time) - inj.fault_times[-1][1])
+            check(q.result(timeout=600)[0] == clean[5],
+                  "the queued request's tokens after the watchdog restart "
+                  "differ from the fault-free run's")
+            stats["stall_to_next_token_s"] = (q.first_token_time
+                                              - inj.fault_times[-1][1])
+            torch.cuda.synchronize()
+            readings.append(torch.cuda.memory_allocated())
+            health = eng.health()
+            check(health["healthy"] and health["engine_restarts"] == 2,
+                  f"after two restarts: {health}")
+            # 3. a third fault: the budget of 2 is spent, the breaker opens
+            inj.serve_crash_calls.add(inj._serve_steps + 1)
+            r = eng.submit(short[0], new, greedy)
+            try:
+                r.result(timeout=600)
+                check(False, "a request survived the third fault")
+            except RequestFailedError as e:
+                check("circuit breaker open" in str(e),
+                      f"third fault's error: {e}")
+            health = eng.health()
+            check(not health["healthy"] and health["circuit_breaker_open"]
+                  and health["state"] == "unhealthy",
+                  f"after the third fault: {health}")
+            try:
+                eng.submit(short[1], new, greedy)
+                check(False, "submit accepted with the breaker open")
+            except EngineUnhealthyError:
+                pass
+        drift = [x - base for x in readings]
+        check(all(abs(d) <= SUPERVISOR_MEMORY_SLACK for d in drift),
+              f"allocated memory after the restarts moved by {drift} bytes "
+              f"(slack {SUPERVISOR_MEMORY_SLACK})")
+        stats.update(fired=inj.fired, restarts=eng.metrics.snapshot()[
+            "engine_restarts"], memory_base_bytes=base,
+            memory_after_restart_drift_bytes=drift,
+            step_timeout_s=SUPERVISOR_SERVING["engine_step_timeout_s"],
+            stall_s=SUPERVISOR_STALL_S)
+    finally:
+        eng.close()
+    return stats
+
+
+def write_tokenizer_json(vocab_file: str, merge_file: str,
+                         out_dir: str) -> str:
+    """A byte-level BPE tokenizer.json (Falcon-7B's layout without its
+    Punctuation/Digits splits) holding a GPT-2 vocab.json and merges.txt,
+    with <|endoftext|> as its special end token; returns the directory."""
+    import os
+    with open(vocab_file, encoding="utf-8") as f:
+        vocab = json.load(f)
+    with open(merge_file, encoding="utf-8") as f:
+        merges = [line.split(" ") for line in f.read().split("\n")
+                  if line and not line.startswith("#version")]
+    level = {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": True}
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": vocab["<|endoftext|>"],
+                              "content": "<|endoftext|>",
+                              "single_word": False, "lstrip": False,
+                              "rstrip": False, "normalized": False,
+                              "special": True}],
+            "normalizer": None, "pre_tokenizer": level,
+            "post_processor": None, "decoder": level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "eos_token": "<|endoftext|>"}, f)
+    return out_dir
+
+
+HF_TOKENIZER_TEXTS = ["the quick brown fox jumps over the lazy dog",
+                      "x² + y½ = Ⅻ and 東京タワー, 中文字符串",
+                      "it's   spaced\n\ttabs 12345 🙂"]
+
+
+def serve_hf_tokenizer(ckpt_dir: str, corpus: dict, root: str) -> dict:
+    """Phase 10 (e), run inside phase 9 on its release checkpoint: the CLI
+    server with --tokenizer_type HuggingFaceTokenizer on a tokenizer.json
+    written from phase 8's vocabulary and merges (--serial, greedy). The
+    prompt ids it served must equal GPT2BPETokenizer's on the same texts,
+    and its text the prompt's."""
+    import os
+
+    from megatron_tpu_torch.data import build_tokenizer
+    tok_dir = write_tokenizer_json(corpus["vocab"], corpus["merges"],
+                                   os.path.join(root, "hf_tokenizer"))
+    gpt2 = build_tokenizer("GPT2BPETokenizer", vocab_file=corpus["vocab"],
+                           merge_file=corpus["merges"])
+    server, httpd, thread, start_s = serve_tool(
+        ["--load", ckpt_dir, "--tokenizer_type", "HuggingFaceTokenizer",
+         "--tokenizer_model", tok_dir, "--host", "127.0.0.1", "--port", "0",
+         "--serial"])
+    port = httpd.server_address[1]
+    try:
+        check(type(server.tokenizer).__name__ == "HFTokenizer",
+              f"served with {type(server.tokenizer).__name__}")
+        check(server.tokenizer.eod == gpt2.eod, "HF tokenizer eod")
+        for text in HF_TOKENIZER_TEXTS:
+            status, body = put(port, {"prompts": [text], "temperature": 0.0,
+                                      "tokens_to_generate": 4})
+            check(status == 200, f"HF tokenizer request: {status} {body}")
+            ids = gpt2.tokenize(text)
+            check(body["segments"][0][:len(ids)] == ids,
+                  f"HF tokenizer ids differ from GPT2BPETokenizer's on "
+                  f"{text!r}")
+            check(body["text"][0].startswith(text),
+                  f"HF tokenizer text: {body['text'][0]!r}")
+    finally:
+        stop_tool(httpd, thread)
+    return dict(texts=len(HF_TOKENIZER_TEXTS), start_s=start_s,
+                ids_equal_gpt2=True)
+
+
+def watchdog_drill(smi: str) -> dict:
+    """(f) python -m megatron_tpu_torch.finetune at phase 8's 2 layers in a
+    subprocess, with --step_timeout_s WATCHDOG_STEP_TIMEOUT_S and
+    MEGATRON_TPU_FAULTS=delay@3:<far longer>: it must exit with the
+    watchdog's code, and the checkpoint its final save leaves must
+    verify."""
+    import os
+    import shutil
+
+    from megatron_tpu_torch.resilience import integrity
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_watchdog")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        corpus = pretrain_corpus(root)
+        save = os.path.join(root, "ckpt")
+        argv = pretrain_argv(corpus, "--train_iters", "6", "--save", save,
+                             "--no_save_optim", "--step_timeout_s",
+                             str(WATCHDOG_STEP_TIMEOUT_S))
+        env = dict(os.environ, MEGATRON_TPU_FAULTS="delay@3:600")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "megatron_tpu_torch.finetune", *argv],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(run.returncode == WATCHDOG_EXIT_CODE,
+              f"finetune under a stalled step exited {run.returncode}, not "
+              f"{WATCHDOG_EXIT_CODE}: {run.stdout[-1500:]} "
+              f"{run.stderr[-1500:]}")
+        check("watchdog: no step progress" in run.stdout + run.stderr,
+              "the watchdog's firing line is missing")
+        tag = ckpt.read_tracker(save)
+        check(tag == "2", f"the final checkpoint's tracker names {tag!r}")
+        d = os.path.join(save, f"iter_{int(tag):07d}")
+        ok, why = integrity.verify_checkpoint(d)
+        check(ok, f"the watchdog's final checkpoint does not verify: {why}")
+        return dict(exit_code=run.returncode, seconds=seconds,
+                    checkpoint_iteration=int(tag),
+                    checkpoint_bytes=sum(
+                        os.path.getsize(os.path.join(d, f))
+                        for f in os.listdir(d)), card=smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_window_supervisor(smi: str) -> dict:
+    """Phase 10: Mistral-7B-v0.1's shape (MISTRAL_7B) with random bf16
+    weights: (a) the serial route on the bf16 and the int8 ring with a
+    prompt longer than the window; (b) + the fp32 half of (c) on a 2-layer
+    fp32 slice (check_window_slice); (c) the rolling, bracketed and int8
+    rolling engine arms; (d) the supervisor drill; (e) runs inside phase 9
+    (serve_hf_tokenizer); (f) the training watchdog drill. Kernel 1's
+    launches are counted from just before (a) to just after (d)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import (Generator,
+                                                         SamplingParams)
+    from megatron_tpu_torch.models.language_model import LanguageModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "phase 10: phase 9's model was not freed")
+    t_phase = time.perf_counter()
+    stats = dict(card=smi)
+    cfg = llama2_config("7b", **MISTRAL_7B)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=WINDOW_SEED)
+    torch.cuda.synchronize()
+    stats["model_build_s"] = time.perf_counter() - t0
+    zero_counts()
+    try:
+        # (a) the serial route, bf16 and int8 rings
+        prompt = window_prompts(WINDOW_SEED, cfg.vocab_size)[-1]
+        check(len(prompt) == WINDOW_SERIAL_PROMPT, "serial prompt length")
+        serial, gens = {}, {}
+        for kv, dt in (("bfloat16", torch.bfloat16), ("int8", torch.int8)):
+            gen = gens[kv] = Generator(model, cfg, eos_id=0, pad_id=0,
+                                       kv_cache_dtype=dt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, lens, lps = gen.generate([prompt], WINDOW_SERIAL_NEW,
+                                           SamplingParams(temperature=0.0))
+            seconds = time.perf_counter() - t0
+            n = int(lens[0])
+            seq = [int(t) for t in toks[0, :n]]
+            got = lps[0, len(prompt):n]
+            check(bool(np.isfinite(got).all()), f"{kv} ring: non-finite "
+                  "logprobs")
+            serial[kv] = dict(new_tokens=n - len(prompt), seconds=seconds,
+                              seq=seq, lps=got)
+        # the bf16 ring's logprobs against one uncached windowed forward
+        # of prompt + output (kernel 1 at s = prompt + output)
+        seq = serial["bfloat16"]["seq"]
+        forced = gens["bfloat16"].score([seq])[0, len(prompt) - 1:]
+        del gens
+        diff = float(np.abs(forced - serial["bfloat16"]["lps"]).max())
+        check(diff <= WINDOW_LOGPROB_TOL,
+              f"bf16 ring logprobs vs the uncached forward: {diff} > "
+              f"{WINDOW_LOGPROB_TOL}")
+        for kv in serial:
+            serial[kv].pop("seq")
+            serial[kv].pop("lps")
+        stats["serial"] = dict(serial, prompt=len(prompt),
+                               uncached_forward_tokens=len(seq),
+                               bf16_logprob_max_abs_diff=diff,
+                               tol=WINDOW_LOGPROB_TOL)
+        log("window (a): " + json.dumps(stats["serial"]) + f" [{smi}]")
+
+        # (c) the engine arms at full depth
+        prompts = window_prompts(WINDOW_SEED + 1, cfg.vocab_size)
+        check(sum(n > MISTRAL_7B["sliding_window"] for n in WINDOW_PROMPTS)
+              == 3, "three prompts must be longer than the window")
+        arms = {}
+        for name, arm in WINDOW_ARMS.items():
+            gen = Generator(model, cfg, eos_id=0, pad_id=0)
+            before = read_counts()["flash_fwd_cuda"]
+            res = run_window_arm(gen, arm, prompts)
+            res.pop("outs")
+            flash = read_counts()["flash_fwd_cuda"] - before
+            check(flash == L * res["prefill_calls"],
+                  f"arm {name}: flash forward launched {flash} times in "
+                  f"{res['prefill_calls']} prefills of {L} layers")
+            blocks = "kv_block_size" in arm
+            check(res["kv_attn_path"] == (1 if blocks else 0),
+                  f"arm {name}: attention path {res['kv_attn_path']}")
+            check(res["kv_gather_bytes_per_step"] == (
+                2 * res["view_bytes"] if blocks else 0),
+                f"arm {name}: bracket bytes a step "
+                f"{res['kv_gather_bytes_per_step']}")
+            arms[name] = dict(res, flash_launches=flash)
+            log(f"window (c) {name}: " + json.dumps(arms[name])
+                + f" [{smi}]")
+            gc.collect()
+            torch.cuda.empty_cache()
+        stats["engine_arms"] = arms
+
+        # (d) the supervisor drill on the rolling engine
+        gen = Generator(model, cfg, eos_id=0, pad_id=0)
+        stats["supervisor"] = supervisor_drill(gen, smi)
+        log("window (d): " + json.dumps(stats["supervisor"]))
+        counts = read_counts()
+    finally:
+        del model
+        gen = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(counts["flash_fwd_cuda"] > 0, "phase 10 launched no flash forward")
+    stats["launches"] = {k: counts[k] for k in (
+        "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
+        "block_attention_cuda")}
+    stats["norm_launches"] = {k: v for k, v in counts.items()
+                              if k not in stats["launches"]}
+    check(counts["block_attention_cuda"] == 0,
+          "a sliding-window engine launched the block kernel")
+
+    # (b) and the fp32 half of (c)
+    stats["fp32_slice"] = check_window_slice()
+    log("window (b, c fp32 slice): " + json.dumps(stats["fp32_slice"]))
+    # (f) the training watchdog
+    stats["watchdog"] = watchdog_drill(smi)
+    log("window (f): " + json.dumps(stats["watchdog"]))
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"window/supervisor phase: {stats['seconds']:.1f} s, launches "
+        f"{json.dumps(stats['launches'])} [{smi}]")
     return stats
 
 
@@ -3664,11 +4197,13 @@ def main(argv=None) -> int:
         train_stats = phase_training(smi)
         pretrain_stats = phase_pretrain(smi)
         toolchain_stats = phase_toolchain(smi)
+        window_stats = phase_window_supervisor(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
+    window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
                       if c["shape"] == TRAIN_MAIN_SHAPE)
     train_counts = train_stats["launches"]
@@ -3678,6 +4213,9 @@ def main(argv=None) -> int:
                        for k in train_counts}
     # phase 9's drives, each counted from zero
     tool_counts = toolchain_stats["launches"]
+    # phase 10's drives in process, counted from zero (kernels 2-3 run only
+    # in its finetune subprocess, whose counts are not read)
+    window_counts = window_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -3700,7 +4238,8 @@ def main(argv=None) -> int:
               + train_counts["flash_fwd_cuda"]
               + pretrain_counts["flash_fwd_cuda"]
               + bench_counts["flash_fwd_cuda"]
-              + tool_counts["flash_fwd_cuda"], "fwd",
+              + tool_counts["flash_fwd_cuda"]
+              + window_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -3711,7 +4250,13 @@ def main(argv=None) -> int:
                   training=train_counts["flash_fwd_cuda"],
                   pretrain=pretrain_counts["flash_fwd_cuda"],
                   bench_kernels=bench_counts["flash_fwd_cuda"],
-                  toolchain=tool_counts["flash_fwd_cuda"]),
+                  toolchain=tool_counts["flash_fwd_cuda"],
+                  window_supervisor=window_counts["flash_fwd_cuda"]),
+                   window_shape=dict(shape=WINDOW_SHAPE, **{
+                       k: window_case[k] for k in (
+                           "max_abs_err", "max_abs_err_lse", "ms",
+                           "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}),
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
                    serving_shape=dict(shape=MAIN_SHAPE, **{
                        k: serving_case[k] for k in (
@@ -3773,7 +4318,8 @@ def main(argv=None) -> int:
     # just after (0 where the models use models/norms.py, as the reference)
     path_stats = dict(serving=main_stats, engine=engine_stats,
                       int8_engine=int8_stats, training=train_stats,
-                      pretrain=pretrain_stats, toolchain=toolchain_stats)
+                      pretrain=pretrain_stats, toolchain=toolchain_stats,
+                      window_supervisor=window_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

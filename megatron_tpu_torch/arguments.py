@@ -8,8 +8,7 @@ the reference-compat aliases of this path. A flag whose feature the port
 does not run yet raises NotImplementedError naming its ROADMAP item:
 tensor, pipeline or context parallelism, sequence parallelism and the
 distributed optimizer (Queue 1 item 7), activation recompute (item 2),
-LoRA finetuning (item 6) and, through `ResilienceConfig.validate`, the
-hung-step watchdog (`--step_timeout_s`, item 8). The serving
+and LoRA finetuning (item 6). The serving
 flags belong to the serving entry point and are not parsed here; the
 reference's CUDA-mechanics flags are accepted and have no effect.
 """

@@ -246,9 +246,9 @@ class ResilienceConfig:
     newest valid checkpoint (`checkpoint_integrity`); retention of the
     newest `keep_last_k`; retried checkpoint I/O with jittered exponential
     backoff; the divergence guard (`max_consecutive_nonfinite`,
-    `loss_spike_factor` over `loss_spike_window`, `max_rollbacks`). The
-    hung-step watchdog (`step_timeout_s`) is not ported yet and raises in
-    `validate`."""
+    `loss_spike_factor` over `loss_spike_window`, `max_rollbacks`); the
+    hung-step watchdog (`step_timeout_s`, exiting with
+    `watchdog_exit_code`)."""
 
     checkpoint_integrity: bool = True
     keep_last_k: Optional[int] = None
@@ -264,11 +264,9 @@ class ResilienceConfig:
     watchdog_exit_code: int = 43
 
     def validate(self) -> "ResilienceConfig":
-        if self.step_timeout_s is not None:
-            raise NotImplementedError(
-                "step_timeout_s: the hung-step watchdog "
-                "(resilience/watchdog.py) is ported later (ROADMAP Queue 1 "
-                "item 8)")
+        if self.step_timeout_s is not None and self.step_timeout_s <= 0.0:
+            raise ValueError(f"step_timeout_s={self.step_timeout_s} must be "
+                             "> 0 (None disables the watchdog)")
         if self.io_retries < 1 or self.io_backoff_s < 0.0 \
                 or self.io_backoff_max_s < self.io_backoff_s \
                 or not 0.0 <= self.io_jitter <= 1.0:
@@ -292,7 +290,7 @@ SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                      "int8": torch.int8}
 
 # ServingConfig fields the continuous-batching engine does not run yet,
-# each with the later slice that brings it (ROADMAP Queue 1 items 5-7)
+# each with the later slice that brings it (ROADMAP Queue 1 items 6-7)
 _LATER_SERVING = {
     "enable_prefix_cache": "the prefix cache (Queue 1 item 6)",
     "prefill_chunk": "chunked prefill (Queue 1 item 6)",
@@ -307,7 +305,6 @@ _LATER_SERVING = {
     "slo_ttft_ms": "the degrade ladder (Queue 1 item 6)",
     "slo_itl_p99_ms": "the degrade ladder (Queue 1 item 6)",
     "preemption": "preemption (Queue 1 item 6)",
-    "engine_step_timeout_s": "the watchdog (Queue 1 item 5)",
     "num_replicas": "the router (Queue 1 item 6)",
     "router_max_retries": "the router (Queue 1 item 6)",
     "router_heartbeat_timeout_s": "the router (Queue 1 item 6)",
@@ -343,16 +340,18 @@ class ServingConfig:
     ServingConfig): every field keeps the reference's name and default.
 
     The engine runs `num_slots`, `max_queue`, `max_len`, `kv_dtype`
-    (bfloat16, float32 or int8), `prefill_bucket`,
-    `serial_fallback`, `request_deadline_s`, `decode_sync_interval`,
-    `prefill_max_batch`, `kv_block_size` (with `block_native_attn`: the
-    block arena read through the map by the Hopper kernel),
-    `priority_levels`, `shed_on_overload` (early shedding of a request whose
-    estimated queue delay already exceeds its deadline) and
-    `max_engine_restarts` (the loop does not restart
-    yet; a crashed step fails the slotted requests and marks the engine
-    unhealthy). `validate()` raises NotImplementedError for any other
-    field set away from its default, naming the later slice."""
+    (bfloat16, float32 or int8), `prefill_bucket` (rolling pools prefill
+    at the exact length instead), `serial_fallback`,
+    `request_deadline_s`, `decode_sync_interval`, `prefill_max_batch`,
+    `kv_block_size` (a block arena: with `block_native_attn` read through
+    the map by the Hopper kernel, without it bracketed by a gather into
+    the contiguous view and a scatter back), `priority_levels`,
+    `shed_on_overload` (early shedding of a request whose estimated queue
+    delay already exceeds its deadline), `max_engine_restarts` (the
+    supervisor's restart budget before the circuit breaker opens) and
+    `engine_step_timeout_s` (the hung-iteration watchdog). `validate()`
+    raises NotImplementedError for any other field set away from its
+    default, naming the later slice (ROADMAP Queue 1 items 6 and 7)."""
 
     num_slots: int = 8
     max_queue: int = 64
@@ -413,6 +412,29 @@ class ServingConfig:
                  ) -> "ServingConfig":
         """The reference's checks on the fields the engine runs, and a
         NotImplementedError for each field of a later slice that is set."""
+        if model is not None and model.sliding_window is not None:
+            # the reference's rolling exclusions: a rolling pool's ring
+            # writes evict history, so an offset > 0 multi-token chunk or
+            # a rejected verify draft cannot be undone, and whole-region
+            # rolling rows cannot retain or park (their idle writes wrap
+            # into the live ring)
+            max_len = self.max_len or model.max_position_embeddings
+            rolling = (model.attention_impl == "flash"
+                       and model.sliding_window < max_len)
+            blocks = self.kv_block_size is not None
+            for bad, what in (
+                    (self.enable_prefix_cache and not blocks,
+                     "enable_prefix_cache without kv_block_size"),
+                    (self.preemption and not blocks,
+                     "preemption without kv_block_size"),
+                    (self.prefill_chunk is not None, "prefill_chunk"),
+                    (self.speculative_k, "speculative_k")):
+                if rolling and bad:
+                    raise ValueError(
+                        f"{what} is unsupported on a rolling "
+                        "(sliding-window) KV pool: its ring writes evict "
+                        "history that a chunk, a rejected draft or an "
+                        "idle retained row would need")
         defaults = ServingConfig()
         for name, slice_name in _LATER_SERVING.items():
             if getattr(self, name) != getattr(defaults, name):
@@ -432,6 +454,9 @@ class ServingConfig:
                                  f"{getattr(self, name)}")
         if self.max_engine_restarts < 0:
             raise ValueError("max_engine_restarts must be >= 0")
+        if self.engine_step_timeout_s is not None and \
+                self.engine_step_timeout_s <= 0.0:
+            raise ValueError("engine_step_timeout_s must be > 0")
         if self.request_deadline_s is not None and \
                 self.request_deadline_s <= 0.0:
             raise ValueError("request_deadline_s must be > 0")
@@ -440,21 +465,22 @@ class ServingConfig:
                 raise ValueError("kv_block_size must be >= 1")
             if model is not None:
                 cap = self.max_len or model.max_position_embeddings
+                if (model.sliding_window is not None
+                        and model.attention_impl == "flash"):
+                    cap = min(cap, model.sliding_window)
                 if cap % self.kv_block_size and self.kv_block_size < cap:
                     raise ValueError(
                         f"kv_block_size={self.kv_block_size} must divide "
                         f"the slot capacity ({cap})")
-            if not self.block_native_attn:
-                raise NotImplementedError(
-                    "kv_block_size without block_native_attn (the "
-                    "resolve_view/scatter_view bracket) is ported in a "
-                    "later slice (Queue 1 item 5); set "
-                    "block_native_attn=True")
         if self.block_native_attn and model is not None \
                 and model.sliding_window is not None:
             raise ValueError(
                 "block_native_attn is unsupported on sliding-window "
-                "models: the block kernel has no window-band mask")
+                "models: the block kernel has no window-band mask, and "
+                "rolling layouts also break its contiguous position "
+                "arithmetic; sliding-window pools keep the "
+                "resolve_view/scatter_view bracket. Serve this model "
+                "without block_native_attn.")
         return self
 
 

@@ -6,12 +6,22 @@ megatron/tokenizer/tokenizer.py (:12-62 factory +
 padded-vocab derivation, :254 GPT-2 BPE, :288 Falcon/HF, :326-499
 SentencePiece with special-token injection). The abstract contract —
 `tokenize/detokenize/vocab_size/eod` plus optional cls/sep/pad/bos/eos ids —
-is preserved. GPT2BPETokenizer and BertWordPieceTokenizer are
-self-contained; SentencePieceTokenizer imports `sentencepiece` only when
-built, so the module imports without it. The port never imports
-`transformers` (the card's machine has none): HFTokenizer, the JAX
-package's AutoTokenizer wrapper, raises, and SentencePieceTokenizer has no
-AutoTokenizer fallback when `sentencepiece` is missing.
+is preserved. All of them are self-contained: the port imports none of
+`transformers`, `tokenizers`, `sentencepiece` and `regex` (the card's
+machine has none of them). HFTokenizer, the JAX package's AutoTokenizer
+wrapper, reads a local `tokenizer.json` with the stdlib reader of
+data/hf_tokenizer.py, and SentencePieceTokenizer reads the `tokenizer.json`
+beside its model file, the reference's fallback when `sentencepiece` is
+missing.
+
+GPT-2's pre-tokenizer pattern needs Unicode classes (`\\p{L}`, `\\p{N}`) that
+the stdlib `re` lacks. `gpt2_pretokenize` is a scanner that matches the
+pattern exactly, with the characters classified by `unicodedata.category`
+(letters L*, numbers N*) and whitespace by the Unicode White_Space
+property, so the CPU and the card run one code path. It agrees with the
+`regex` package on every character Python's `unicodedata` has assigned
+(Unicode 15.0 in Python 3.12); characters assigned in later Unicode
+versions count as "other" here.
 
 Vocab padding: `padded_vocab_size(vocab, multiple)` rounds up so the
 embedding shards cleanly (ref: tokenizer.py:42-62 pads to
@@ -21,6 +31,8 @@ ModelConfig.padded_vocab_size — so checkpoints are layout-free).
 from __future__ import annotations
 
 import json
+import os
+import unicodedata
 from typing import Optional, Sequence
 
 
@@ -61,27 +73,118 @@ class AbstractTokenizer:
         return None
 
 
+def _special_token_names(directory: str) -> dict:
+    """The configured special tokens (eos/bos/pad/unk: a string or
+    {"content": ...}) of `tokenizer_config.json`, else
+    `special_tokens_map.json`, and `clean_up_tokenization_spaces`."""
+    out: dict = {}
+    for name in ("special_tokens_map.json", "tokenizer_config.json"):
+        path = os.path.join(directory, name)
+        if not os.path.isfile(path):
+            continue
+        with open(path, encoding="utf-8") as f:
+            conf = json.load(f)
+        for key in ("eos_token", "bos_token", "pad_token", "unk_token"):
+            tok = conf.get(key)
+            if isinstance(tok, dict):
+                tok = tok.get("content")
+            if tok is not None:
+                out[key] = tok
+        for key in ("clean_up_tokenization_spaces", "add_prefix_space"):
+            if key in conf:
+                out[key] = bool(conf[key])
+    return out
+
+
+def _clean_up_tokenization(text: str) -> str:
+    """transformers' clean_up_tokenization (spaces before punctuation and
+    English contractions)."""
+    for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+                 (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"),
+                 (" 's", "'s"), (" 've", "'ve"), (" 're", "'re")):
+        text = text.replace(a, b)
+    return text
+
+
 class HFTokenizer(AbstractTokenizer):
     """The reference's FalconTokenizer and `--tokenizer_type
-    HuggingFaceTokenizer` (ref: tokenizer.py:288-325): an AutoTokenizer,
-    which needs `transformers`. The port does not import it, so building
-    one raises."""
+    HuggingFaceTokenizer` (ref: tokenizer.py:288-325): a published
+    tokenizer's `tokenizer.json`, read by data/hf_tokenizer.py. `path` is
+    a directory holding it or the file itself; the directory's
+    `tokenizer_config.json` or `special_tokens_map.json` names eos, bos
+    and pad (a configured one the file lacks becomes a special token at
+    the next id, as transformers adds it), `clean_up_tokenization_spaces`
+    (default False) and `add_prefix_space` (default False; as transformers
+    does, it overrides the file's own when the top-level pre-tokenizer
+    carries one). Ids are those of transformers' `encode(text,
+    add_special_tokens=False)` and text that of its `decode(ids)`."""
 
     name = "HFTokenizer"
 
     def __init__(self, path: str, **kwargs):
-        raise NotImplementedError(
-            f"HFTokenizer({path!r}) needs transformers' AutoTokenizer, which "
-            "the port does not import; use GPT2BPETokenizer (vocab.json + "
-            "merges.txt) or SentencePieceTokenizer")
+        from megatron_tpu_torch.data.hf_tokenizer import (TokenizerJSON,
+                                                          find_tokenizer_json)
+        if kwargs:
+            raise TypeError(f"HFTokenizer takes no AutoTokenizer options "
+                            f"in the port: {sorted(kwargs)}")
+        file = find_tokenizer_json(path)
+        conf = _special_token_names(os.path.dirname(file))
+        with open(file, encoding="utf-8") as f:
+            spec = json.load(f)
+        pre = spec.get("pre_tokenizer")
+        if isinstance(pre, dict) and "add_prefix_space" in pre:
+            spec["pre_tokenizer"] = dict(
+                pre, add_prefix_space=conf.get("add_prefix_space", False))
+        self._t = TokenizerJSON(spec)
+        self._clean_up = conf.get("clean_up_tokenization_spaces", False)
+        self._ids = {}
+        for key in ("eos_token", "bos_token", "pad_token", "unk_token"):
+            tok = conf.get(key)
+            if tok is None:
+                continue
+            tid = self._t.token_to_id(tok)
+            self._ids[key] = (tid if tid is not None
+                              else self._t.add_special_token(tok))
+
+    @property
+    def vocab_size(self) -> int:
+        return self._t.get_vocab_size(with_added_tokens=True)
+
+    def tokenize(self, text: str) -> list[int]:
+        return self._t.encode(text)
+
+    def detokenize(self, ids) -> str:
+        text = self._t.decode([int(i) for i in ids])
+        return _clean_up_tokenization(text) if self._clean_up else text
+
+    @property
+    def eod(self) -> int:
+        eos = self.eos
+        return eos if eos is not None else self.pad
+
+    @property
+    def eos(self):
+        return self._ids.get("eos_token")
+
+    @property
+    def bos(self):
+        return self._ids.get("bos_token")
+
+    @property
+    def pad(self):
+        return self._ids.get("pad_token")
 
 
 class SentencePieceTokenizer(AbstractTokenizer):
     """SentencePiece model with Megatron special-token injection
     (ref: tokenizer.py:326-499 _SentencePieceTokenizer: registers
     <CLS>/<SEP>/<EOD>/<MASK>/<PAD> plus `vocab_extra_ids_list` entries on top
-    of the base model, tracking an _extra_id map). Needs the
-    `sentencepiece` package."""
+    of the base model, tracking an _extra_id map). The base model is the
+    HF tokenizer of the model file's directory (its `tokenizer.json`, read
+    as HFTokenizer reads it): the reference's path when the
+    `sentencepiece` package is missing, as it is on the card's machine,
+    where it loads AutoTokenizer from the same directory. The port never
+    imports `sentencepiece`."""
 
     name = "SentencePieceTokenizer"
     SPECIAL = ("<CLS>", "<SEP>", "<EOD>", "<MASK>", "<PAD>")
@@ -89,11 +192,10 @@ class SentencePieceTokenizer(AbstractTokenizer):
     def __init__(self, model_file: str, vocab_extra_ids: int = 0,
                  vocab_extra_ids_list: Optional[str] = None,
                  new_tokens: bool = True):
-        import sentencepiece as spm
-        self._sp = spm.SentencePieceProcessor(model_file=model_file)
-        base_vocab = self._sp.get_piece_size()
-        self._bos_id = self._sp.bos_id()
-        self._eos_id = self._sp.eos_id()
+        self._hf = HFTokenizer(os.path.dirname(model_file) or ".")
+        base_vocab = self._hf.vocab_size
+        self._bos_id = self._hf.bos
+        self._eos_id = self._hf.eos
         self._special: dict[str, int] = {}
         self._vocab_size = base_vocab
         if new_tokens:
@@ -114,11 +216,11 @@ class SentencePieceTokenizer(AbstractTokenizer):
         return self._vocab_size
 
     def tokenize(self, text: str) -> list[int]:
-        return self._sp.encode(text)
+        return self._hf.tokenize(text)
 
     def detokenize(self, ids) -> str:
         ids = [i for i in ids if i < self._vocab_size - len(self._special)]
-        return self._sp.decode(ids)
+        return self._hf.detokenize(ids)
 
     @property
     def eod(self) -> int:
@@ -157,22 +259,8 @@ class GPT2BPETokenizer(AbstractTokenizer):
                   if l and not l.startswith("#version") and len(l.split()) == 2]
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self._bpe_cache: dict[str, tuple[str, ...]] = {}
-        self.byte_encoder = _bytes_to_unicode()
+        self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
-        # GPT-2's exact pre-tokenizer: separate letter / number / punct
-        # classes (underscore is punct, digits split from letters) — token
-        # ids must interchange with reference-tokenized corpora.
-        try:
-            import regex
-            self.pat = regex.compile(
-                r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"
-                r"| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
-        except ImportError:
-            import re
-            # \p-free approximation: [^\W\d_] = unicode letters
-            self.pat = re.compile(
-                r"'s|'t|'re|'ve|'m|'ll|'d| ?[^\W\d_]+| ?\d+"
-                r"| ?(?:[^\s\w]|_)+|\s+(?!\S)|\s+", re.UNICODE)
 
     def _bpe(self, token: str) -> tuple[str, ...]:
         # per-instance cache (an lru_cache on the method would pin every
@@ -180,23 +268,7 @@ class GPT2BPETokenizer(AbstractTokenizer):
         cached = self._bpe_cache.get(token)
         if cached is not None:
             return cached
-        word = tuple(token)
-        while len(word) > 1:
-            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
-            best = min(pairs, key=lambda p: self.bpe_ranks.get(p, 1 << 30))
-            if best not in self.bpe_ranks:
-                break
-            a, b = best
-            out = []
-            i = 0
-            while i < len(word):
-                if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
-                    out.append(a + b)
-                    i += 2
-                else:
-                    out.append(word[i])
-                    i += 1
-            word = tuple(out)
+        word = bpe_merge(tuple(token), self.bpe_ranks)
         if len(self._bpe_cache) < 65536:
             self._bpe_cache[token] = word
         return word
@@ -207,7 +279,7 @@ class GPT2BPETokenizer(AbstractTokenizer):
 
     def tokenize(self, text: str) -> list[int]:
         ids = []
-        for tok in self.pat.findall(text):
+        for tok in gpt2_pretokenize(text):
             mapped = "".join(self.byte_encoder[b]
                              for b in tok.encode("utf-8"))
             ids.extend(self.encoder[p] for p in self._bpe(mapped))
@@ -223,7 +295,86 @@ class GPT2BPETokenizer(AbstractTokenizer):
         return self.encoder["<|endoftext|>"]
 
 
-def _bytes_to_unicode():
+def bpe_merge(word: tuple, ranks: dict) -> tuple:
+    """Byte-pair merging of a symbol tuple: repeatedly join every
+    occurrence, left to right, of the adjacent pair with the lowest rank in
+    `ranks` ({(a, b): rank}) until no pair has one."""
+    while len(word) > 1:
+        pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+        best = min(pairs, key=lambda p: ranks.get(p, 1 << 30))
+        if best not in ranks:
+            break
+        a, b = best
+        out = []
+        i = 0
+        while i < len(word):
+            if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
+                out.append(a + b)
+                i += 2
+            else:
+                out.append(word[i])
+                i += 1
+        word = tuple(out)
+    return word
+
+
+# the Unicode White_Space property, which `\s` means in GPT-2's pattern
+_WHITE_SPACE = frozenset(
+    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2028\u2029\u202f\u205f\u3000"
+    + "".join(chr(c) for c in range(0x2000, 0x200B)))
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _char_class(c: str) -> str:
+    """'s' whitespace, 'L' a letter, 'N' a number, 'o' anything else."""
+    if c in _WHITE_SPACE:
+        return "s"
+    cat = unicodedata.category(c)[0]
+    return cat if cat in "LN" else "o"
+
+
+def gpt2_pretokenize(text: str) -> list[str]:
+    """The matches of GPT-2's pre-tokenizer pattern
+    `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+`
+    in order, by a scanner that tries its alternatives at each position as
+    the regex engine does."""
+    out = []
+    n = len(text)
+    cls = [_char_class(c) for c in text]
+    i = 0
+    while i < n:
+        if text[i] == "'":
+            con = next((c for c in _CONTRACTIONS if text.startswith(c, i)),
+                       None)
+            if con is not None:
+                out.append(con)
+                i += len(con)
+                continue
+        # ` ?X+` for X in letters, numbers, other: an optional U+0020, then
+        # a run of one class
+        start = i + 1 if (text[i] == " " and i + 1 < n
+                          and cls[i + 1] != "s") else i
+        c = cls[start]
+        if c != "s":
+            j = start + 1
+            while j < n and cls[j] == c:
+                j += 1
+            out.append(text[i:j])
+            i = j
+            continue
+        # `\s+(?!\S)`: a whitespace run, less its last character when a
+        # non-space follows it and it is longer than one; else `\s+`
+        j = i + 1
+        while j < n and cls[j] == "s":
+            j += 1
+        if j < n and j - i > 1:
+            j -= 1
+        out.append(text[i:j])
+        i = j
+    return out
+
+
+def bytes_to_unicode():
     """GPT-2's reversible byte<->printable-unicode map (public algorithm)."""
     bs = (list(range(ord("!"), ord("~") + 1))
           + list(range(ord("\xa1"), ord("\xac") + 1))
@@ -418,6 +569,8 @@ def build_tokenizer(tokenizer_type: str, *, vocab_file=None, merge_file=None,
             tokenizer_model, vocab_extra_ids=vocab_extra_ids,
             vocab_extra_ids_list=vocab_extra_ids_list, new_tokens=new_tokens)
     if t in ("FalconTokenizer", "HuggingFaceTokenizer", "HFTokenizer"):
+        # the reference's default names a hub repository; the port reads
+        # local files only, so that path raises FileNotFoundError
         path = tokenizer_model or vocab_file or "tiiuae/falcon-40b"
         return HFTokenizer(path, **kwargs)
     raise ValueError(f"unknown tokenizer_type {tokenizer_type!r}")

@@ -12,11 +12,17 @@ device; `main(argv, device="cpu")` runs it on the CPU, as the tests do, and
 without a GPU and a `device` it raises. `--save` writes npz checkpoints that
 the JAX package's `load_checkpoint` reads, and `--load` resumes from one
 either package wrote, at the exact batch the interrupted run would have
-taken next.
+taken next. `--step_timeout_s` arms the hung-step watchdog, which saves a
+best-effort checkpoint and exits with `--watchdog_exit_code` (43). A
+`MEGATRON_TPU_FAULTS` spec in the environment (resilience/faults.py
+`FaultInjector.from_env`, e.g. `delay@3:30`) is active for the run: the
+chaos drills of the resilience path run through this entry point.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -72,6 +78,8 @@ def build_data(cfg, tokenizer, consumed_samples: int):
 def main(argv=None, *, device: DeviceLike = None) -> int:
     from megatron_tpu_torch.arguments import parse_cli
     from megatron_tpu_torch.data import build_tokenizer, restore_data_state
+    from megatron_tpu_torch.resilience import (FaultInjector,
+                                               use_fault_injector)
     from megatron_tpu_torch.training import checkpointing as ckpt
     from megatron_tpu_torch.training import init_train_state
     from megatron_tpu_torch.training.loop import train
@@ -139,11 +147,17 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         restore_data_state(it, data_state)
         return it
 
-    state, consumed = train(
-        cfg, train_it, valid_it, state=state,
-        start_iteration=start_iteration, consumed_samples=consumed,
-        save_fn=save_fn, load_fn=load_fn, reset_data_fn=reset_data_fn,
-        quarantine_log=quarantine, device=device)
+    injector = FaultInjector.from_env()
+    if injector is not None:
+        print_rank_0(f"fault injection active: "
+                     f"{os.environ[FaultInjector.ENV_VAR]}")
+    with (use_fault_injector(injector) if injector is not None
+          else contextlib.nullcontext()):
+        state, consumed = train(
+            cfg, train_it, valid_it, state=state,
+            start_iteration=start_iteration, consumed_samples=consumed,
+            save_fn=save_fn, load_fn=load_fn, reset_data_fn=reset_data_fn,
+            quarantine_log=quarantine, device=device)
     print_rank_0(f"training done at consumed_samples={consumed}")
     return 0
 

@@ -11,7 +11,10 @@ changes no token or logprob inside any row's requested span.
 
 `kv_cache_dtype=torch.int8` stores the cache int8 with fp32 scales per
 (token, head) (models/attention.py); the model may be int8-resident
-(`ops.quantized.quantize_weights`). Rolling sliding-window caches, chunked
+(`ops.quantized.quantize_weights`). A model whose `sliding_window` W is
+below the cache length gets a rolling cache of W positions
+(`kv_region_cap`): position p lives at p % W and attention masks by the
+slot -> position map, so memory is O(W) for any stream length. Chunked
 prefill, the slot-grid verify path and sharded serving belong to later
 slices.
 """
@@ -42,8 +45,13 @@ PREFILL_BUCKET = 16
 
 def kv_region_cap(cfg: ModelConfig, max_len: int,
                   prefill_len: Optional[int] = None) -> int:
-    """Token capacity of one sequence's KV region (the reference's rolling
-    decision: with a sliding window the region holds only the window)."""
+    """Token capacity of one sequence's KV region, the one source of the
+    rolling decision (`init_kv_caches` allocates it, the serving pool
+    sizes from it). With `sliding_window` W < max_len the region rolls
+    (holds the last W positions) when the prefill can land in W slots: the
+    flash impl computes the prefill from the raw k/v, and a dot-impl
+    prefill of at most W tokens overwrites nothing. A longer dot-impl
+    prefill keeps the full-length region (correct, not memory-bounded)."""
     if cfg.sliding_window is not None and (
             cfg.attention_impl == "flash"
             or (prefill_len is not None
@@ -56,16 +64,15 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16, prefill_len: Optional[int] = None,
                    per_slot_offsets: bool = False, *,
                    device=None) -> KVCache:
-    """Stacked-over-layers cache [L, b, max_len, nkv, hd]. The offset is
-    one host int shared by every row and layer, or with
-    `per_slot_offsets` an int32 [b] tensor on the cache's device, shared by
-    the layers: the serving engine's slot grid, where every row is a
-    request at its own position. `dtype=torch.int8` adds fp32 scales
-    [L, b, max_len, nkv, 1] set to 1.0 (a zero scale would turn a garbage
-    read into NaN)."""
-    if kv_region_cap(cfg, max_len, prefill_len) < max_len:
-        raise NotImplementedError(
-            "rolling sliding-window KV caches are ported in a later slice")
+    """Stacked-over-layers cache [L, b, cap, nkv, hd], cap =
+    `kv_region_cap(cfg, max_len, prefill_len)`: max_len, or the window W
+    of a rolling cache. The offset is one host int shared by every row and
+    layer, or with `per_slot_offsets` an int32 [b] tensor on the cache's
+    device, shared by the layers: the serving engine's slot grid, where
+    every row is a request at its own position. `dtype=torch.int8` adds
+    fp32 scales [L, b, cap, nkv, 1] set to 1.0 (a zero scale would turn a
+    garbage read into NaN)."""
+    max_len = kv_region_cap(cfg, max_len, prefill_len)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.kv_channels)
     offset = (torch.zeros(batch, dtype=torch.int32, device=device)

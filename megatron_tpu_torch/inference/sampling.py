@@ -107,7 +107,9 @@ def sample_batched(generators: Sequence[Optional[torch.Generator]],
     masks one token of the processed distribution, `mask` [b, vocab]
     (True = allowed) a set of them; greedy rows obey `mask` but not
     `banned`, and a row whose mask allows nothing returns -1
-    (sampling.py sample_batched)."""
+    (sampling.py sample_batched). A drawing row whose logits are not
+    finite draws a token uniformly (the reference draws garbage there
+    too) instead of raising."""
     logits = logits.float()
     if vocab_size is not None and vocab_size < logits.shape[-1]:
         logits = logits.clone()
@@ -131,6 +133,11 @@ def sample_batched(generators: Sequence[Optional[torch.Generator]],
             x = x.masked_fill(~mask, float("-inf"))
         for i in rows:
             probs = torch.softmax(x[i:i + 1], dim=-1)
+            # a poisoned row (non-finite logits) draws from the uniform
+            # distribution instead of raising, with no host read; its
+            # non-finite logprob fails it in the engine
+            probs = torch.where(torch.isfinite(probs).all(), probs,
+                                torch.ones_like(probs))
             out[i] = torch.multinomial(probs, 1,
                                        generator=generators[i])[0, 0]
         is_greedy = temperature == 0.0

@@ -26,13 +26,26 @@ takes the offset-0 flash prefill: every cached forward then reads the same
 dequantized values through the dot path, so a prefill and the decode steps
 after it see the same numbers (attention.py:488-504).
 
+A rolling cache (a sliding-window model's cache of exactly W =
+`sliding_window` positions, generation.kv_region_cap) stores position p at
+ring slot p % W; RoPE keeps absolute positions, only storage wraps. A
+cached forward writes the last min(s, W) of its tokens, and attention masks
+the ring through the slot -> position map (slot j holds the largest
+p <= t_last with p % W == j; a never-written slot maps to a sentinel the
+causal mask rejects). Its offset-0 multi-token prefill takes the flash
+kernel with the window over the fresh k/v, which covers prompts longer than
+W; an int8 rolling cache feeds the kernel the quantize -> dequantize round
+trip of k/v, the values the ring holds. A multi-token step at offset > 0
+on a rolling cache raises: its ring writes would evict history its own
+queries need. The slot grid writes each row at offset % W (decode only:
+a multi-token verify window is undefined on a ring).
+
 The uncached (training) forward passes segment ids, and attention dropout
 with its generator, to the flash path (ops/flash_attention.py, kernels on
 the card); the dot path takes the segment mask too.
 
-Left for later slices, and raising: rolling sliding-window caches, LoRA
-adapters, cross-attention, attention dropout on the dot path, and the ring
-/ ulysses implementations.
+Left for later slices, and raising: LoRA adapters, cross-attention,
+attention dropout on the dot path, and the ring / ulysses implementations.
 """
 from __future__ import annotations
 
@@ -149,6 +162,21 @@ def _block_native_update_attend(q, k, v, cache: BlockKVCache, *,
     return out, dataclasses.replace(cache, offset=offset + s)
 
 
+# a never-written ring slot's position: past every query, so the causal
+# mask rejects it
+RING_SENTINEL = 2 ** 30
+
+
+def ring_positions(t_last: torch.Tensor, cap: int) -> torch.Tensor:
+    """The slot -> position map of rolling caches whose last written
+    position is `t_last` ([b, 1]): slot j holds the largest p <= t_last
+    with p % cap == j, or RING_SENTINEL where that p is negative.
+    Returns [b, cap]."""
+    j = torch.arange(cap, device=t_last.device)[None]
+    p = t_last - torch.remainder(t_last - j, cap)
+    return torch.where(p >= 0, p, RING_SENTINEL)
+
+
 def attention_init(cfg: ModelConfig) -> dict:
     """Parameter specs (attention.py attention_init): name -> (shape, init)."""
     h, hd = cfg.hidden_size, cfg.kv_channels
@@ -168,14 +196,17 @@ def attention_init(cfg: ModelConfig) -> dict:
 
 def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
                    scale: float, q_offset=0,
-                   sliding_window: Optional[int] = None, segment_ids=None):
+                   sliding_window: Optional[int] = None, segment_ids=None,
+                   kv_positions: Optional[torch.Tensor] = None):
     """Unfused attention: QK^T -> mask -> softmax -> AV.
 
     q: [b, s, nq, hd]; k, v: [b, t, nkv, hd]. GQA reshapes q into
     [b, s, nkv, g, hd]. `q_offset` shifts the causal mask for queries that
     continue a cache: a host int, or an int [b] tensor of per-row offsets
-    (the serving engine's slot grid). `segment_ids` [b, s] (s == t) masks
-    attention block-diagonally across documents."""
+    (the serving engine's slot grid). `kv_positions` is a rolling cache's
+    slot -> position map, [t] shared or [b, t] per row (default: slot j
+    holds position j). `segment_ids` [b, s] (s == t) masks attention
+    block-diagonally across documents."""
     b, s, nq, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -189,10 +220,12 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
             q_pos = q_offset.long()[:, None] + q_pos[None]  # [b, s]
         else:
             q_pos = (q_pos + q_offset)[None]  # [1, s]
-        kv_pos = torch.arange(t, device=q.device)
-        win = q_pos[:, :, None] >= kv_pos
+        kv_pos = (torch.arange(t, device=q.device)[None]
+                  if kv_positions is None else kv_positions.reshape(-1, t))
+        win = q_pos[:, :, None] >= kv_pos[:, None, :]
         if sliding_window is not None:
-            win = win & (q_pos[:, :, None] - kv_pos < sliding_window)
+            win = win & (q_pos[:, :, None] - kv_pos[:, None, :]
+                         < sliding_window)
         scores = scores.masked_fill(~win[:, None, None],
                                     torch.finfo(scores.dtype).min)
     if segment_ids is not None:
@@ -257,6 +290,8 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError(
             "attention dropout on the dot path is ported with the dropout "
             "module in a later slice; the flash path carries it")
+    rolling = (kv_cache is not None and window is not None
+               and kv_cache.k.shape[-3] == window)
     if isinstance(kv_cache, BlockKVCache):
         if window is not None:
             raise ValueError("block-native attention has no sliding-window "
@@ -264,42 +299,82 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         out, new_cache = _block_native_update_attend(q, k, v, kv_cache,
                                                      scale=scale)
     elif per_slot:
-        # slot grid: row i writes its tokens at offset[i].. (positions past
-        # the region are dropped) and attends the whole region causally
-        # from its own offset
+        # slot grid: row i writes its tokens at offset[i].. (through the
+        # ring on a rolling cache; positions past a flat region are
+        # dropped, never clamped onto a live slot) and attends the whole
+        # region causally from its own offset
         cap = kv_cache.k.shape[1]
+        if rolling and s > 1:
+            raise ValueError(
+                "a multi-token slot-grid append (speculative verify) is "
+                "undefined on a rolling cache: a rejected draft's ring "
+                "write already evicted history (ServingConfig.validate "
+                "refuses speculative_k on rolling pools)")
         pos = offset.long()[:, None] + torch.arange(s, device=x.device)
-        live = pos < cap
         rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
-        _cache_write(kv_cache, (rows[live], pos[live]), k[live], v[live])
+        kv_positions = None
+        if rolling:
+            _cache_write(kv_cache, (rows, pos % cap), k, v)
+            kv_positions = ring_positions(pos[:, -1:], cap)
+        else:
+            live = pos < cap
+            _cache_write(kv_cache, (rows[live], pos[live]), k[live],
+                         v[live])
         new_cache = dataclasses.replace(kv_cache, offset=offset + s)
         kc, vc = _cache_read(kv_cache, ..., dtype)
         out = _dot_attention(
             q, kc, vc, causal=True,
             softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
-            q_offset=offset, sliding_window=window)
+            q_offset=offset, sliding_window=window,
+            kv_positions=kv_positions)
     elif kv_cache is not None:
+        cap = kv_cache.k.shape[1]
         end = offset + s
-        if end > kv_cache.k.shape[1]:
-            raise ValueError(f"KV cache overflow: {end} positions into a "
-                             f"cache of {kv_cache.k.shape[1]}")
-        live = (slice(None), slice(offset, end))
-        _cache_write(kv_cache, live, k, v)
+        # the offset-0 flash prefill over the fresh k/v: causal attention
+        # over the cache equals causal attention over them. An int8 cache
+        # takes it only when rolling (a prompt longer than W has no dot
+        # path), on the round trip of k/v through the int8 format
+        flash_prefill = (cfg.attention_impl == "flash" and s > 1
+                         and offset == 0
+                         and (not kv_cache.quantized or rolling))
+        kv_positions = None
+        if rolling:
+            if s > 1 and offset > 0:
+                raise ValueError(
+                    f"a {s}-token step at offset {offset} on a rolling "
+                    "cache: its ring writes evict history its own queries "
+                    "need (rolling caches prefill at offset 0 only)")
+            if s > cap and not flash_prefill:
+                raise ValueError(f"a {s}-token dot-path prefill into a "
+                                 f"rolling cache of {cap}")
+            keep = min(s, cap)
+            slots = torch.arange(end - keep, end, device=x.device) % cap
+            _cache_write(kv_cache, (slice(None), slots), k[:, s - keep:],
+                         v[:, s - keep:])
+            kv_positions = ring_positions(
+                torch.tensor([[end - 1]], device=x.device), cap)
+        else:
+            if end > cap:
+                raise ValueError(f"KV cache overflow: {end} positions into "
+                                 f"a cache of {cap}")
+            _cache_write(kv_cache, (slice(None), slice(offset, end)), k, v)
         new_cache = dataclasses.replace(kv_cache, offset=end)
-        if (cfg.attention_impl == "flash" and s > 1 and offset == 0
-                and not kv_cache.quantized):
-            # offset-0 prefill: causal attention over the cache equals
-            # causal attention over the fresh k/v, so take the kernel on
-            # the raw (not cache-rounded) tensors
-            out = flash_attention(q, k, v, causal=True, scale=scale,
+        if flash_prefill:
+            kr, vr = k, v
+            if kv_cache.quantized:
+                kr, vr = (qi.to(dtype) * qs.to(dtype) for qi, qs in
+                          (quantize_rows(k), quantize_rows(v)))
+            out = flash_attention(q, kr, vr, causal=True, scale=scale,
                                   sliding_window=window)
         else:
-            kc, vc = _cache_read(kv_cache, (slice(None), slice(None, end)),
-                                 dtype)
+            kc, vc = _cache_read(
+                kv_cache, (slice(None), slice(None, cap if rolling else end)),
+                dtype)
             out = _dot_attention(
                 q, kc, vc, causal=True,
                 softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
-                q_offset=offset, sliding_window=window)
+                q_offset=offset, sliding_window=window,
+                kv_positions=kv_positions)
     else:
         new_cache = None
         if cfg.attention_impl == "flash":

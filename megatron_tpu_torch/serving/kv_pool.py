@@ -9,10 +9,21 @@ the prompt's KV into the region, and eviction returns the slot to the free
 list with no copying: stale entries past a row's offset are invisible to
 the causal mask and are overwritten write-before-read during decode.
 
+A sliding-window model whose window W is below max_len gets a rolling pool
+(`rolling`): each region holds exactly W positions in ring order
+(generation.kv_region_cap), so the pool costs O(W) a slot for any stream
+length. Its prefill caches share the ring layout (`make_prefill_caches`).
+
 Block mode (block_size B dividing cap): the storage is a flat arena of
 physical blocks [L, total_blocks, B, nkv, hd] plus a per-slot block map
-[num_slots, cap / B] int32 (logical block -> physical block), read in place
-by the block-native attention kernel. Physical blocks are refcounted; a row
+[num_slots, cap / B] int32 (logical block -> physical block). With
+`block_native_attn` the block kernel reads it in place; without, each
+dispatch is bracketed: `resolve_view` gathers the contiguous
+[L, S, cap, ...] slot-grid view through the map, the dot path runs on it,
+and `scatter_view` writes it back (`slice_blocks` reads an explicit block
+list as a batch-1 cache). A block size of cap or more means whole-region
+blocks, which ARE the regions, except on a rolling pool, where one block a
+slot stays a block pool. Physical blocks are refcounted; a row
 allocates its cap / B blocks at admission and releases them at eviction.
 The last physical block is the shared TRASH block: every map entry of an
 idle row points at it, so the grid's garbage writes for inactive rows land
@@ -33,7 +44,7 @@ nothing past a row's length is read before decode writes it.
 
 Retention for the prefix cache (`retain`, `retain_row`, `RetainedPrefix`,
 `on_reclaim`) raises NotImplementedError: it comes with the prefix-cache
-slice. So does the bracketed block mode (`resolve_view`/`scatter_view`).
+slice.
 
 `fit_num_slots` sizes `num_slots` to the card's free memory (the CLI
 server's default).
@@ -102,6 +113,58 @@ def pack_block_native(cache: BlockKVCache, map2d: torch.Tensor) -> BlockKV:
                                  cache.k_scale, cache.v_scale), map=map2d)
 
 
+def resolve_view(bkv: BlockKV) -> KVCache:
+    """Gather the arena through the block map into the contiguous
+    [L, S, cap, nkv, hd] slot-grid view (with the per-slot offsets) the
+    dot path consumes: the read half of the bracket. Idle rows see copies
+    of the TRASH block."""
+    S, nb = bkv.map.shape
+    flat = bkv.map.reshape(-1).long()
+    a = bkv.arena
+
+    def g(x):
+        y = x.index_select(1, flat)  # [L, S*nb, B, ...]
+        return y.reshape(x.shape[0], S, nb * x.shape[2], *x.shape[3:])
+
+    return KVCache(g(a.k), g(a.v), a.offset,
+                   *(None if t is None else g(t)
+                     for t in (a.k_scale, a.v_scale)))
+
+
+def scatter_view(bkv: BlockKV, view: KVCache) -> BlockKV:
+    """Write an updated contiguous view back through the block map, in
+    place: the write half of the bracket. A live row's blocks are its own;
+    the map entries of idle rows all name the TRASH block, which receives
+    one of their (garbage) copies and is never read."""
+    S, nb = bkv.map.shape
+    flat = bkv.map.reshape(-1).long()
+    a = bkv.arena
+    for name in _PARTS:
+        dst = getattr(a, name)
+        if dst is not None:
+            src = getattr(view, name)
+            dst[:, flat] = src.reshape(src.shape[0], S * nb, dst.shape[2],
+                                       *src.shape[3:]).to(dst.dtype)
+    a.offset = view.offset
+    return bkv
+
+
+def slice_blocks(bkv: BlockKV, blocks, offset: int) -> KVCache:
+    """Gather an explicit physical-block list ([cap / B]) into a batch-1
+    cache [L, 1, cap, nkv, hd] positioned at `offset` (a host int): a
+    row's, or a row-less retained prefix's, KV as one sequence."""
+    a = bkv.arena
+    idx = torch.as_tensor(blocks, dtype=torch.long, device=a.k.device)
+
+    def g(x):
+        y = x.index_select(1, idx)  # [L, nb, B, ...]
+        return y.reshape(x.shape[0], 1, -1, *x.shape[3:])
+
+    return KVCache(g(a.k), g(a.v), int(offset),
+                   *(None if t is None else g(t)
+                     for t in (a.k_scale, a.v_scale)))
+
+
 def insert_blocks(bkv: BlockKV, sub: KVCache, slot: int,
                   plen: int) -> BlockKV:
     """Land a batch-1 cache [L, 1, n, nkv, hd] (with its scales in an int8
@@ -148,9 +211,14 @@ class SlotKVPool:
         self.max_len = max_len
         self.dtype = dtype
         self.device = torch.device(device) if device is not None else None
-        self.cap = max_len
+        self.cap = kv_region_cap(cfg, max_len)  # a rolling pool holds W
+        self.rolling = (cfg.sliding_window is not None
+                        and self.cap == cfg.sliding_window
+                        and self.cap < max_len)
         if block_size is not None and block_size >= self.cap:
-            block_size = None  # whole-region blocks ARE the regions
+            # whole-region blocks ARE the regions, except on a rolling
+            # pool, where one block a slot is still a block pool
+            block_size = self.cap if self.rolling else None
         self.block_size = block_size
         self._free: collections.deque = collections.deque(range(num_slots))
         if block_size is None:
@@ -186,13 +254,16 @@ class SlotKVPool:
         return self.block_size is not None
 
     def make_prefill_caches(self, batch: int, length: int) -> KVCache:
-        """A fresh request-local cache [L, batch, length, nkv, hd] in the
-        pool's dtype for the prefill pass before `insert_prefill` /
-        `insert_blocks`. `length` is the padded prompt: the region beyond
-        it is never read before decode writes it, so a cache of the
-        region's full capacity would only cost memory."""
-        return init_kv_caches(self.cfg, batch, length, dtype=self.dtype,
-                              device=self.device)
+        """A fresh request-local cache in the pool's dtype for the prefill
+        pass before `insert_prefill` / `insert_blocks`: [L, batch, length,
+        nkv, hd] for the padded prompt `length` (the region beyond it is
+        never read before decode writes it, so a cache of the region's
+        full capacity would only cost memory), or on a rolling pool the
+        pool's own ring of W positions, so the prefill takes the same
+        rolling path and lands in ring order."""
+        return init_kv_caches(self.cfg, batch,
+                              self.max_len if self.rolling else length,
+                              dtype=self.dtype, device=self.device)
 
     # ---- retention: the prefix-cache slice -----------------------------
     @property
@@ -302,6 +373,12 @@ class SlotKVPool:
         return sum(t.numel() * t.element_size()
                    for t in (getattr(c, name) for name in _PARTS)
                    if t is not None)
+
+    def view_nbytes(self) -> int:
+        """Bytes of one contiguous [L, S, cap, ...] view (k + v and int8
+        scales): what one `resolve_view` gather or one `scatter_view`
+        write-back moves."""
+        return self.num_slots * self.cap * self.bytes_per_token()
 
     def bytes_per_token(self) -> int:
         """k + v (and int8 scale) bytes one cached token costs across

@@ -41,17 +41,18 @@ _BASE_COUNTERS = (
     "tokens_generated", "decode_steps", "host_syncs",
     "wasted_decode_steps", "sampling_uploads",
     "prefill_calls", "prefill_prompts", "prefill_forward_tokens",
-    "nonfinite_logit_fails",
+    "nonfinite_logit_fails", "engine_restarts",
 )
 
 # gauges a snapshot always carries, by the attribute each is stored under.
-# kv_attn_path: 0 = whole-region pool (dot path), 2 = block-native kernel
-# (1, the resolve/scatter bracket, and its kv_gather_bytes_per_step gauge
-# come with that mode).
+# kv_attn_path: 0 = whole-region pool (dot path), 1 = block pool through
+# the resolve/scatter bracket, 2 = block-native kernel;
+# kv_gather_bytes_per_step: the bytes the bracket moved per decode step
+# over the last sync window (0 on the other two paths).
 _BASE_GAUGES = (
     "queue_depth", "active_slots", "num_slots",
     "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted",
-    "kv_attn_path",
+    "kv_gather_bytes_per_step", "kv_attn_path",
 )
 
 
@@ -111,6 +112,12 @@ class ServingMetrics:
             self.kv_blocks_used = int(blocks_used)
             self.kv_blocks_retained = int(blocks_retained)
             self.kv_bytes_wasted = int(bytes_wasted)
+
+    def set_attn_gauges(self, gather_bytes_per_step: int, path: int):
+        """Engine-pushed attention-path gauges, once a sync window."""
+        with self._lock:
+            self.kv_gather_bytes_per_step = int(gather_bytes_per_step)
+            self.kv_attn_path = int(path)
 
     def record_step(self, active_slots: int, num_slots: int,
                     tokens_emitted: int, queue_depth: int):

@@ -12,7 +12,10 @@ Next to each rate it prints the decode roofline on an H100: every step
 streams the weights and the cache slice for the mean context (an int8
 cache its fp32 scales too) at 3.35 TB/s, so tok/s_ideal = batch / (bytes /
 rate). On a CPU (`--device cpu`) or another card there is no roofline
-line. `--sliding_window` (rolling caches) is not ported yet and raises.
+line. `--sliding_window W` gives the model a band of W positions; when W is
+below the generator's cache length (prompt + new rounded up to 64) every
+arm runs on a rolling cache of W positions, and the roofline's context is
+capped at W.
 
   python -m megatron_tpu_torch.tools.bench_decode [--batch N] [--prompt N]
       [--new N] [--layers N] [--hidden N] [--heads N] [--ffn N]
@@ -68,16 +71,13 @@ def main(argv=None) -> int:
                         "kv_cache_dtype=torch.int8); with --int8_weights a "
                         "combined arm runs too")
     p.add_argument("--sliding_window", type=int, default=None,
-                   help="rolling sliding-window caches: not ported yet")
+                   help="band of W positions; the caches roll when W is "
+                        "below the cache length")
     p.add_argument("--smoke", action="store_true",
                    help="a tiny model and batch (timings meaningless)")
     p.add_argument("--device", default=None,
                    help="cuda (the default; raises without a GPU) or cpu")
     args = p.parse_args(argv)
-    if args.sliding_window is not None:
-        raise NotImplementedError(
-            "bench_decode --sliding_window: rolling sliding-window caches "
-            "are ported in a later slice")
     if args.smoke:
         for k, v in SMOKE.items():
             setattr(args, k, v)
@@ -102,12 +102,20 @@ def main(argv=None) -> int:
         num_attention_heads=args.heads, num_kv_heads=args.heads,
         ffn_hidden_size=args.ffn, vocab_size=args.vocab,
         seq_length=args.prompt + args.new, compute_dtype="bfloat16",
-        attention_impl="flash")
+        attention_impl="flash", sliding_window=args.sliding_window)
     # serving layout: bf16 weights (the reference serves fp16)
     model = LanguageModel(cfg, device=device, dtype=torch.bfloat16, seed=0)
     n_params = sum(t.numel() for t in model.parameters())
+    # Generator.generate's cache length: the cache rolls only when the
+    # window is below it (generation.kv_region_cap)
+    bucketed = -(-(args.prompt + args.new) // 64) * 64
+    sw = ("" if args.sliding_window is None else
+          f" sliding_window={args.sliding_window}"
+          + (" (rolling cache)" if args.sliding_window < bucketed
+             else " (band only: window >= context, cache stays "
+                  "full-length)"))
     emit(f"model: {n_params / 1e9:.3f}B params, L={args.layers} "
-         f"h={args.hidden}")
+         f"h={args.hidden}{sw}")
 
     rs = np.random.RandomState(0)
     prompts = [rs.randint(0, args.vocab, args.prompt).tolist()
@@ -117,6 +125,8 @@ def main(argv=None) -> int:
     # per-decode-step device-memory streams: the weights and the cache slice
     # for the mean context (+ an int8 cache's fp32 scales, 1/hd of it)
     ctx = args.prompt + args.new / 2
+    if args.sliding_window is not None:
+        ctx = min(ctx, args.sliding_window)
     hd = args.hidden // args.heads
     bf16_cache = 2 * args.layers * args.batch * ctx * args.heads * hd * 2
     int8_cache = bf16_cache / 2 * (1 + 4 / hd)

@@ -22,7 +22,7 @@ import string
 
 import numpy as np
 
-from megatron_tpu_torch.data.tokenizers import _bytes_to_unicode
+from megatron_tpu_torch.data.tokenizers import bytes_to_unicode
 
 EOD = "<|endoftext|>"
 SPACE = "Ġ"  # GPT-2's printable stand-in for the space byte
@@ -48,7 +48,7 @@ def _merges():
 def write_gpt2_vocab(out_dir: str, vocab_size: int = 32000) -> tuple:
     """Write vocab.json (exactly `vocab_size` entries) and merges.txt under
     `out_dir`; returns their paths."""
-    byte_tokens = list(_bytes_to_unicode().values())
+    byte_tokens = list(bytes_to_unicode().values())
     n_merges = vocab_size - len(byte_tokens) - 1
     if n_merges < 0:
         raise ValueError(f"vocab_size {vocab_size} below the 257 byte and "

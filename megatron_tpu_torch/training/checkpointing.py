@@ -12,7 +12,10 @@ two packages with no converter:
   `config.json` (`MegatronConfig.to_json`, the reference's section names);
 - a SHA-256 `manifest.json` seals the directory before the tracker names it
   (resilience/integrity.py); a load verifies it and falls back to the newest
-  valid checkpoint; retention keeps the newest `keep_last_k`.
+  valid checkpoint; retention keeps the newest `keep_last_k`. Every file
+  write and the tracker read are retried, and each is a fault point
+  (`checkpoint_write`, `tracker_read`, resilience/faults.py) where an
+  active injector raises a transient error for the retry to absorb.
 
 The npz keys are exactly the names JAX's `_flatten` gives its trees: the
 parameter tree's paths ("transformer/attention/wq", the port's state_dict
@@ -41,6 +44,7 @@ import torch
 
 from megatron_tpu_torch.config import MegatronConfig, ResilienceConfig
 from megatron_tpu_torch.resilience import integrity
+from megatron_tpu_torch.resilience.faults import fault_point
 from megatron_tpu_torch.resilience.retry import RetryPolicy, policy_from, retry
 from megatron_tpu_torch.training.train_step import TrainState
 from megatron_tpu_torch.utils.logging import print_rank_0
@@ -104,6 +108,7 @@ def _write_text_atomic(path: str, text: str,
     restart."""
 
     def _write():
+        fault_point("checkpoint_write")
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             f.write(text)
@@ -193,8 +198,12 @@ def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
         if leaves is None:
             continue
         path = os.path.join(d, fname)
-        nbytes += retry(lambda p=path, lv=leaves: _write_npz(p, lv), policy,
-                        label=f"write:{fname}")
+
+        def _write(p=path, lv=leaves):
+            fault_point("checkpoint_write")
+            return _write_npz(p, lv)
+
+        nbytes += retry(_write, policy, label=f"write:{fname}")
     meta = {
         "iteration": int(iteration),
         "consumed_samples": int(consumed_samples),
@@ -228,6 +237,7 @@ def read_tracker(root: str,
         return None
 
     def _read():
+        fault_point("tracker_read")
         with open(p) as f:
             return f.read().strip()
 

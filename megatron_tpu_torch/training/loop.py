@@ -29,11 +29,21 @@
   [profile_step_start, profile_step_end] (a Chrome trace in
   `profile_dir`, else `tensorboard_dir`, else the temp directory).
 
-The hung-step watchdog and the fault-injection harness are ported later
-(ROADMAP Queue 1 item 8).
+- `step_timeout_s` arms a `StepWatchdog` after the first step's flush
+  (that step builds the kernels): a stall past the deadline dumps the
+  stacks, attempts a final checkpoint through `save_fn` and exits with
+  `watchdog_exit_code`. Metrics are fetched once a log window, and a
+  healthy flush may wait a whole window of device time, so the deadline is
+  `step_timeout_s` x `log_interval` unless `sync_metrics` fetches every
+  step (the reference's run-ahead rule). Evaluation and saves suspend it.
+- An active FaultInjector (resilience/faults.py) stalls (`maybe_delay`)
+  or poisons (`corrupt_batch`) the host batch of each step call before it
+  is copied to the device; the look-ahead copy is off while one is active,
+  so each batch meets the injector in step order.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import tempfile
@@ -47,7 +57,9 @@ from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.data.samplers import PrefetchIterator
 from megatron_tpu_torch.models import language_model as lm
 from megatron_tpu_torch.resilience import (DivergenceGuard, GuardAction,
-                                           TrainingDivergedError)
+                                           StepWatchdog,
+                                           TrainingDivergedError,
+                                           get_fault_injector)
 from megatron_tpu_torch.training.microbatches import MicrobatchCalculator
 from megatron_tpu_torch.training.train_step import (TrainState,
                                                     init_train_state,
@@ -330,10 +342,32 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
         max_rollbacks=res.max_rollbacks)
     base_seed = seed
     profile = _Profile(cfg, device) if tr.profile else None
+    injector = get_fault_injector()
+    watchdog = None
+    if res.step_timeout_s:
+        def _watchdog_checkpoint():
+            # best-effort final checkpoint from the monitor thread; the
+            # closure reads the loop's current state and iteration
+            if save_fn is not None:
+                save_fn(state, iteration, consumed_samples,
+                        data_state=data_state_now, quarantine=quarantine_log)
+        wd_timeout = res.step_timeout_s
+        if not sync_metrics:
+            # the host sees device progress only at window flushes, and a
+            # healthy flush may wait for a whole window of steps
+            wd_timeout = res.step_timeout_s * max(tr.log_interval, 1)
+            print_rank_0(
+                f"watchdog: windowed metrics scale the step deadline to one "
+                f"log window: {wd_timeout:.1f}s (step_timeout_s="
+                f"{res.step_timeout_s:.1f} x log_interval={tr.log_interval});"
+                f" use --sync_metrics for per-step hang detection")
+        watchdog = StepWatchdog(wd_timeout, on_timeout=_watchdog_checkpoint,
+                                exit_code=res.watchdog_exit_code)
 
     # batch N+1 is pulled and copied while step N runs (not under rampup:
-    # the look-ahead would use a stale microbatch count)
-    prefetch_ahead = tr.rampup_batch_size is None
+    # the look-ahead would use a stale microbatch count; not under an
+    # active injector, which acts on host batches in step-call order)
+    prefetch_ahead = tr.rampup_batch_size is None and injector is None
     pending_batch = None
     pending_stop: Optional[StopIteration] = None
 
@@ -354,6 +388,8 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
 
     try:
         while iteration < tr.train_iters:
+            if watchdog is not None:
+                watchdog.heartbeat()
             calc.update(consumed_samples)
             if hasattr(train_iterator, "num_microbatches"):
                 train_iterator.num_microbatches = calc.num_microbatches
@@ -364,11 +400,17 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
                 stop_exc, pending_stop = pending_stop, None
             else:
                 try:
-                    batch = _to_device(next(train_iterator), device)
+                    batch = next(train_iterator)
                 except StopIteration as stop:
                     # the steps already queued must still reach the guard
                     # and the counters: flush first, raise below
                     stop_exc = stop
+                else:
+                    if injector is not None:
+                        step_call = injector.next_step_call()
+                        injector.maybe_delay(step_call)
+                        batch = injector.corrupt_batch(batch, step_call)
+                    batch = _to_device(batch, device)
             if stop_exc is None and save_fn is not None:
                 # the iterator at THIS step's batch, before the look-ahead
                 # pull: a checkpoint at iteration N resumes with batch N+1
@@ -382,6 +424,8 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
                 state, metrics = step_fn(state, batch, gen)
                 if sync_metrics:
                     t_step.stop(sync_on=metrics["lm_loss"])
+                    if watchdog is not None and watchdog.started:
+                        watchdog.heartbeat()
                 if profile is not None:
                     profile.maybe_stop(iteration)
                 iteration += 1
@@ -437,6 +481,12 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
                             # would never have run them
                             rollback_at = it
                             break
+                if watchdog is not None:
+                    watchdog.heartbeat()
+                    if not watchdog.started:
+                        # armed only now: the first step (kernel builds)
+                        # is unrelated to the steady-state deadline
+                        watchdog.start()
                 if not memory_reported:
                     memory_reported = True
                     report_memory("after first step", device)
@@ -491,6 +541,8 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
                         iteration += 1
                         consumed_samples += calc.global_batch_size
                         q_count += 1
+                        if watchdog is not None:
+                            watchdog.heartbeat()
                     if q_count:
                         quarantined_total += q_count
                         q_samples = consumed_samples - q_consumed0
@@ -535,8 +587,10 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
             if eval_due:
                 if eval_step_fn is None:
                     eval_step_fn = _make_eval_step(cfg, device)
-                results = evaluate(state, valid_iterator, eval_step_fn,
-                                   tr.eval_iters, device)
+                with (watchdog.suspend() if watchdog is not None
+                      else contextlib.nullcontext()):
+                    results = evaluate(state, valid_iterator, eval_step_fn,
+                                       tr.eval_iters, device)
                 if results is not None:
                     print_rank_0(f"validation at iteration {iteration}: "
                                  f"{results}")
@@ -560,11 +614,17 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
             for msg in exit_msgs:
                 print_rank_0(msg)
             if save_due or (exiting and save_fn is not None):
-                save_fn(state, iteration, consumed_samples,
-                        data_state=data_state_now, quarantine=quarantine_log)
+                # a slow save is not a hung step
+                with (watchdog.suspend() if watchdog is not None
+                      else contextlib.nullcontext()):
+                    save_fn(state, iteration, consumed_samples,
+                            data_state=data_state_now,
+                            quarantine=quarantine_log)
             if exiting:
                 break
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         signals.restore()
         if profile is not None:
             profile.maybe_stop(iteration, force=True)

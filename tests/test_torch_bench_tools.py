@@ -43,6 +43,10 @@ def test_bench_decode_smoke_on_cpu(capsys):
               if "new-tok/s" in ln]
     assert labels == ["generate", "int8kv generate", "int8 generate",
                       "int8w+kv generate"]
-    with pytest.raises(NotImplementedError, match="rolling"):
-        bench_decode.main(["--smoke", "--device", "cpu",
-                           "--sliding_window", "8"])
+    # a window below the cache length runs every arm on rolling caches
+    assert bench_decode.main(["--smoke", "--device", "cpu", "--int8_kv",
+                              "--sliding_window", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "sliding_window=8 (rolling cache)" in out and "FAILED" not in out
+    assert [ln.split("(")[0] for ln in out.splitlines()
+            if "new-tok/s" in ln] == ["generate", "int8kv generate"]

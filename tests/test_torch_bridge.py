@@ -4,7 +4,8 @@
 - a checkpoint the JAX package saved with backend="npz" loads without JAX
   and gives the same logits;
 - no module of the port (nor chip_smoke.py) imports jax or megatron_tpu,
-  nor transformers or safetensors, which the card's machine lacks;
+  nor transformers, safetensors, tokenizers, sentencepiece or regex, which
+  the card's machine lacks;
 - the entry points refuse to fall back to the CPU when no device is named,
   and the block-attention kernel's wrapper refuses a CPU tensor.
 """
@@ -102,8 +103,10 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Nor transformers or safetensors: the weight toolchain reads and
-    writes HF directories itself."""
+    """Nor transformers, safetensors, tokenizers, sentencepiece or regex:
+    the weight toolchain reads and writes HF directories itself, and the
+    tokenizers read tokenizer.json and split GPT-2's pattern on the
+    standard library."""
     files = sorted((ROOT / "megatron_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {p.relative_to(ROOT).as_posix() for p in files}
@@ -119,14 +122,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/convert_hf_checkpoint.py",
                    "tools/run_text_generation_server.py",
                    "tools/text_generation_cli.py", "tools/merge_datasets.py",
-                   "tools/compare_loss_curves.py"):
+                   "tools/compare_loss_curves.py",
+                   "tools/validate_dataset.py", "data/hf_tokenizer.py",
+                   "data/tokenizers.py", "resilience/faults.py",
+                   "resilience/watchdog.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "megatron_tpu", "flax",
                                "optax", "orbax", "transformers",
-                               "safetensors"), f"{path}: imports {mod}"
+                               "safetensors", "tokenizers", "sentencepiece",
+                               "regex"), f"{path}: imports {mod}"
 
 
 def test_entry_points_raise_without_gpu_and_device(monkeypatch):

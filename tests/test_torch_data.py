@@ -63,8 +63,10 @@ def test_gpt2_tokenizer_ids_match_jax(vocab, monkeypatch, with_regex):
         monkeypatch.setitem(sys.modules, "regex", None)
     jt = j_tok.GPT2BPETokenizer(vocab["vocab"], vocab["merges"])
     tt = t_tok.GPT2BPETokenizer(vocab["vocab"], vocab["merges"])
-    assert ("regex" in type(tt.pat).__module__) == with_regex
-    assert type(jt.pat).__module__ == type(tt.pat).__module__
+    # the JAX package takes `regex` where it imports and a stdlib
+    # approximation where not; the port has one exact stdlib scanner
+    assert ("regex" in type(jt.pat).__module__) == with_regex
+    assert not hasattr(tt, "pat")
     assert tt.vocab_size == jt.vocab_size == 2000 and tt.eod == jt.eod
     for text in _texts(vocab) + ["it's 3.14 o'clock  _x\n\tend"]:
         ids = tt.tokenize(text)

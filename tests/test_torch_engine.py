@@ -182,7 +182,9 @@ def test_failure_paths(port_gen):
 
 
 def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
-    with ServingEngine(port_gen, ServingConfig(**BLOCK),
+    # no restart budget: the first crash opens the circuit breaker
+    with ServingEngine(port_gen, ServingConfig(**BLOCK,
+                                               max_engine_restarts=0),
                        device="cpu") as eng:
         def boom():
             raise RuntimeError("injected step failure")
@@ -197,7 +199,7 @@ def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
 
 def test_later_slice_fields_raise():
     for kw in (dict(enable_prefix_cache=True), dict(speculative_k=2),
-               dict(kv_block_size=16), dict(preemption=True),
+               dict(prefill_chunk=16), dict(preemption=True),
                dict(num_replicas=2)):
         with pytest.raises(NotImplementedError):
             ServingConfig(**kw).validate()
