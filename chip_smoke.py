@@ -138,12 +138,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    serial greedy tokens equal to the in-process Generator's, an engine
    burst (flash and block kernels at hd 64, one kv head) and the export
    round trip. Bytes and seconds of each part are printed beside the card.
+10. sliding window and supervisor (`phase_window_supervisor`): see its
+   docstring.
+11. engine throughput features (`phase_engine_features`): Llama-2-7B at
+   full width and depth (random bf16 weights, seed FEATURE_SEED) behind
+   the engine route, ENGINE_SERVING plus each arm's fields, launch counts
+   zeroed before each arm and read after it; every request returns 200
+   with finite logprobs. (a) prefix cache: a miss of FEATURE_PREFIX shared
+   tokens + 64 runs to its first token, then 7 hits (suffixes 64-200, each
+   starting with its own character): 7 hits, 7 x FEATURE_PREFIX tokens
+   saved, the flash forward once per layer (the miss only); a second wave
+   of 8 hits the retained entries. (b) chunked prefill (CHUNK_SIZE): a
+   CHUNK_LONG-token prompt arrives while 7 streams decode; 8 chunks with
+   decode steps between them; the streams' inter-token gaps during its
+   admission beside the unchunked engine's. (c) preemption: 8 priority-0
+   streams, then 2 priority-1 requests; every victim resumes and finishes,
+   and the allocated bytes after the arm equal those before it within
+   FEATURE_MEMORY_SLACK. (d) speculative decoding (SPEC_K) with the n-gram
+   drafter and with one proposing the k-0 arm's greedy streams, beside k 0,
+   on prompts repeating a span: the block kernel once per layer per verify
+   round or fallback step, one host read a round, and the kernel held
+   against its plain version on a live verify round (w 5). (e) a 2-layer fp32 slice (TF32 off): greedy tokens equal with
+   each feature on and off and on the serial route; preemption victims
+   parked, replayed and unpreempted equal; a seeded sampled stream under
+   speculative_k equal alone and among 7 others.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
 the norm kernels' on every path above, the flash kernels' on phases 8 and
-9 too, the block kernel's on phase 9 too) and, last, {"ok": true,
-"device": ...}.
+9 too, the block kernel's on phases 9 and 11 too, its verify rounds at
+w 5 on phase 11) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -270,6 +294,8 @@ BLOCK_CASES = [
      BLOCK_LENGTHS),
     ("verify_w4", 8, 4, 32, 32, 128, 16, "bfloat16", "bfloat16",
      BLOCK_LENGTHS),
+    ("spec_verify_w5", 8, 5, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
     ("gqa_64q_8kv", 8, 1, 64, 8, 128, 16, "bfloat16", "bfloat16",
      BLOCK_LENGTHS),
     ("falcon7b_mqa", 8, 1, 71, 1, 64, 16, "bfloat16", "bfloat16",
@@ -283,6 +309,8 @@ BLOCK_CASES = [
      BLOCK_LENGTHS[:7] + [BLOCK_CAP - 1]),
 ]
 BLOCK_MAIN = "engine_decode"
+# phase 11's speculative verify window (speculative_k 4)
+BLOCK_VERIFY = "spec_verify_w5"
 # the CUDA kernels of the block path, for the kernels line
 BLOCK_CUDA_KERNELS = [
     "block_attn_split_kernel (split-KV grid, per-warp cp.async rings of "
@@ -4128,6 +4156,720 @@ def phase_window_supervisor(smi: str) -> dict:
     return stats
 
 
+# Phase 11: the engine's throughput features on Llama-2-7B at full width and
+# depth (ENGINE_SERVING plus each arm's fields), random bf16 weights (seed
+# 0). (a) prefix cache: a miss of FEATURE_PREFIX shared tokens + 64, then 7
+# hits; a second wave on the retained entries. (b) chunked prefill: a
+# 1,900-token prompt arrives while 7 streams decode, beside the unchunked
+# engine. (c) preemption: 8 priority-0 streams fill the grid, 2
+# priority-1 requests arrive. (d) speculative decoding (k 4; the n-gram
+# drafter, and one proposing the k-0 arm's greedy streams) beside k 0 on 8
+# prompts that repeat a 32-token span.
+FEATURE_SEED = 0
+FEATURE_PREFIX = 1536
+FEATURE_SUFFIXES = [64] + [64 + (136 * i) // 6 for i in range(7)]
+FEATURE_NEW = 32
+CHUNK_STREAMS = 7
+CHUNK_STREAM_NEW = 256
+CHUNK_LONG = 1900
+CHUNK_SIZE = 256
+PREEMPT_LOW = (8, 300, 256)   # requests, prompt, new tokens
+PREEMPT_HIGH = (2, 200, 64)
+SPEC_K = 4
+SPEC_PROMPT, SPEC_SPAN, SPEC_NEW = 512, 32, 128
+# allocated bytes after an arm's traffic against before it
+FEATURE_MEMORY_SLACK = 2 ** 20
+
+
+def feature_text(first: str, n: int, seed: int) -> str:
+    """An n-character prompt piece whose first character is `first`."""
+    return first + prompt_text(n - 1, seed)
+
+
+def spec_prompt(i: int) -> str:
+    """SPEC_PROMPT characters repeating one SPEC_SPAN-character span."""
+    span = prompt_text(SPEC_SPAN, 900 + i)
+    return (span * (SPEC_PROMPT // SPEC_SPAN + 1))[:SPEC_PROMPT]
+
+
+def feature_server(gen, tok, **fields):
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.server import MegatronServer
+    return MegatronServer(gen, tok, serving=ServingConfig(
+        **dict(ENGINE_SERVING, **fields)))
+
+
+def serve_payloads(server, payloads):
+    """Each payload through the engine route on its own thread; returns
+    the (status, body) pairs in order."""
+    out = [None] * len(payloads)
+
+    def one(i):
+        out[i] = server.handle(payloads[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def check_bodies(what, results, prompt_lengths, news, eod):
+    generated = 0
+    for i, (status, body) in enumerate(results):
+        check(status == 200, f"{what} request {i}: {status} {body}")
+        seg, lps = body["segments"][0], body["logprobs"][0]
+        n_new = len(seg) - prompt_lengths[i]
+        check(0 < n_new <= news[i] and (n_new == news[i] or seg[-1] == eod),
+              f"{what} request {i}: {n_new} new tokens of {news[i]}")
+        check(all(math.isfinite(x) for x in lps),
+              f"{what} request {i}: non-finite logprob")
+        generated += n_new
+    return generated
+
+
+def capture_requests(engine) -> list:
+    """The GenRequests the server submits, in order (for their TTFTs,
+    priorities and chunk counts)."""
+    made = []
+    submit = engine.submit
+
+    def recording(*a, **kw):
+        req = submit(*a, **kw)
+        made.append(req)
+        return req
+
+    engine.submit = recording
+    return made
+
+
+def wait_idle(engine, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while engine._active.any() or engine._prefilling \
+            or engine.scheduler.depth():
+        check(time.monotonic() < deadline, "engine did not go idle")
+        time.sleep(0.05)
+
+
+def settle(engine) -> dict:
+    """The metrics once the loop has recorded its last window."""
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    last = None
+    while True:
+        snap = engine.metrics.snapshot()
+        now = (snap["decode_steps"], block_attention_cuda.launches)
+        if now == last:
+            return snap
+        last = now
+        time.sleep(0.3)
+
+
+def add_counts(out: dict, counts: dict) -> None:
+    """Add one zeroed-then-read window's launch counts into out["launches"]
+    (every kernel wrapper's count)."""
+    total = out.setdefault("launches", {})
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def feature_prefix(gen, tok, L) -> dict:
+    """(a): wave 1, the miss alone until its first token, then 7 hits of
+    exactly FEATURE_PREFIX tokens (every suffix starts with its own
+    character); wave 2, 8 more on the retained entries."""
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    prefix = prompt_text(FEATURE_PREFIX, 500)
+    server = feature_server(gen, tok, enable_prefix_cache=True)
+    engine = server.engine
+    made = capture_requests(engine)
+    out = {}
+    try:
+        # the engine's first forward of a shape pays one-time set-up that
+        # the miss's TTFT should not carry
+        status, _ = server.handle({"prompts": ["warm up"],
+                                   "tokens_to_generate": 4,
+                                   "temperature": 0.0})
+        check(status == 200, f"prefix warm-up: {status}")
+        wait_idle(engine)
+        for wave, firsts in ((1, "abcdefgh"), (2, "ijklmnop")):
+            prompts = [prefix + feature_text(firsts[i], n, 600 + 8 * wave + i)
+                       for i, n in enumerate(FEATURE_SUFFIXES)]
+            payloads = [{"prompts": [p], "tokens_to_generate": FEATURE_NEW,
+                         "temperature": 0.0, "logprobs": True}
+                        for p in prompts]
+            engine.metrics = ServingMetrics()
+            made.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            if wave == 1:
+                threads, res0 = serve_payloads(server, payloads[:1])
+                while not made or not made[0].generated:
+                    check(time.perf_counter() - t0 < 300, "miss: no token")
+                    time.sleep(0.005)
+                threads2, res1 = serve_payloads(server, payloads[1:])
+                threads += threads2
+            else:
+                threads, res = serve_payloads(server, payloads)
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            res = res0 + res1 if wave == 1 else res
+            generated = check_bodies(
+                f"prefix wave {wave}", res,
+                [len(p) for p in prompts], [FEATURE_NEW] * 8, tok.eod)
+            snap = settle(engine)
+            counts = read_counts()
+            ttft = {id(r): r.ttft for r in made}
+            w = dict(
+                wall_s=wall, generated_tokens=generated,
+                tokens_per_s=generated / wall,
+                prefix_hits=snap["prefix_hits"],
+                prefix_hit_tokens=snap["prefix_hit_tokens"],
+                prefill_tokens_saved=snap["prefill_tokens_saved"],
+                prefill_forward_tokens=snap["prefill_forward_tokens"],
+                prefill_chunks=snap["prefill_chunks"],
+                kv_blocks_retained=snap["kv_blocks_retained"],
+                decode_steps=snap["decode_steps"],
+                flash_launches=counts["flash_fwd_cuda"],
+                block_launches=counts["block_attention_cuda"],
+                ttft_ms=[ttft[id(r)] * 1e3 for r in made])
+            check(w["block_launches"] == L * w["decode_steps"],
+                  f"prefix wave {wave}: block kernel {w['block_launches']} "
+                  f"in {w['decode_steps']} steps")
+            if wave == 1:
+                check(w["prefix_hits"] == 7, f"wave 1: {w['prefix_hits']} "
+                      "hits, 7 expected")
+                check(w["prefill_tokens_saved"] == 7 * FEATURE_PREFIX,
+                      f"wave 1: {w['prefill_tokens_saved']} tokens saved")
+                check(w["flash_launches"] == L, f"wave 1: flash forward "
+                      f"{w['flash_launches']} times, {L} for the miss")
+                w["miss_ttft_ms"] = w["ttft_ms"][0]
+                w["hit_ttft_ms"] = w["ttft_ms"][1:]
+            else:
+                check(w["prefix_hits"] == 8 and w["kv_blocks_retained"] > 0,
+                      f"wave 2: {w['prefix_hits']} hits, "
+                      f"{w['kv_blocks_retained']} retained blocks")
+                check(w["flash_launches"] == 0, "wave 2 ran the flash "
+                      "forward")
+            out[f"wave{wave}"] = w
+            add_counts(out, counts)
+    finally:
+        server.close()
+    return out
+
+
+def feature_chunked(gen, tok, L) -> dict:
+    """(b): CHUNK_STREAMS streams decode; the CHUNK_LONG prompt arrives
+    once each has 16 tokens. With prefill_chunk it lands in 8 chunks with
+    decode steps between them; the streams' inter-token gaps between its
+    arrival and its first token, beside the unchunked engine's."""
+    out = {}
+    for arm, chunk in (("chunked", CHUNK_SIZE), ("unchunked", None)):
+        server = feature_server(gen, tok, prefill_chunk=chunk)
+        engine = server.engine
+        made = capture_requests(engine)
+        gaps = []
+        record = engine.metrics.record_inter_token
+
+        def recording(gap, record=record, gaps=gaps):
+            gaps.append((time.monotonic(), gap))
+            record(gap)
+
+        engine.metrics.record_inter_token = recording
+        marks = []
+        advance = engine._advance_prefill
+
+        def spying(engine=engine, advance=advance, marks=marks):
+            before = engine.metrics.snapshot()["prefill_chunks"]
+            steps = engine.metrics.snapshot()["decode_steps"]
+            advance()
+            if engine.metrics.snapshot()["prefill_chunks"] > before:
+                marks.append(steps)
+
+        engine._advance_prefill = spying
+        try:
+            zero_counts()
+            streams = [{"prompts": [prompt_text(100, 700 + i)],
+                        "tokens_to_generate": CHUNK_STREAM_NEW,
+                        "temperature": 0.0, "logprobs": True}
+                       for i in range(CHUNK_STREAMS)]
+            long = {"prompts": [prompt_text(CHUNK_LONG, 750)],
+                    "tokens_to_generate": 16, "temperature": 0.0,
+                    "logprobs": True}
+            t0 = time.perf_counter()
+            threads, res = serve_payloads(server, streams)
+            while len(made) < CHUNK_STREAMS or any(
+                    len(r.generated) < 16 for r in made[:CHUNK_STREAMS]):
+                check(time.perf_counter() - t0 < 300, "streams: no tokens")
+                time.sleep(0.005)
+            arrive = time.monotonic()
+            threads2, res2 = serve_payloads(server, [long])
+            for t in threads + threads2:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            snap = settle(engine)
+            counts = read_counts()
+            long_req = made[CHUNK_STREAMS]
+            first = long_req.first_token_time
+            check_bodies(f"chunked {arm}", res + res2,
+                         [100] * CHUNK_STREAMS + [CHUNK_LONG],
+                         [CHUNK_STREAM_NEW] * CHUNK_STREAMS + [16], tok.eod)
+            during = sorted(g for t, g in gaps if arrive <= t <= first)
+            check(len(during) > 0, f"{arm}: no inter-token gap while the "
+                  "long prompt was admitted")
+            a = dict(wall_s=wall, admission_s=first - arrive,
+                     long_ttft_ms=long_req.ttft * 1e3,
+                     prefill_chunks=snap["prefill_chunks"],
+                     long_prefill_chunks=long_req.prefill_chunks,
+                     itl_during_p50_ms=during[len(during) // 2] * 1e3,
+                     itl_during_p99_ms=during[min(len(during) - 1, int(
+                         0.99 * len(during)))] * 1e3,
+                     itl_during_samples=len(during),
+                     itl_p50_ms=snap["itl_p50_ms"],
+                     decode_steps=snap["decode_steps"],
+                     flash_launches=counts["flash_fwd_cuda"],
+                     block_launches=counts["block_attention_cuda"])
+            check(a["block_launches"] == L * a["decode_steps"],
+                  f"chunked {arm}: block kernel {a['block_launches']} in "
+                  f"{a['decode_steps']} steps")
+            if chunk is not None:
+                check(a["long_prefill_chunks"] == 8
+                      and a["prefill_chunks"] == 8,
+                      f"the {CHUNK_LONG}-token prompt took "
+                      f"{a['long_prefill_chunks']} chunks, 8 expected")
+                check(len(marks) == 8 and all(
+                    b > x for x, b in zip(marks, marks[1:])),
+                      f"decode steps between the chunks: {marks}")
+                a["decode_steps_at_chunks"] = marks
+            out[arm] = a
+            add_counts(out, counts)
+        finally:
+            server.close()
+    return out
+
+
+def parked_nbytes(parked) -> int:
+    sub, last = parked
+    return sum(t.numel() * t.element_size() for t in
+               (sub.k, sub.v, sub.k_scale, sub.v_scale, last)
+               if t is not None)
+
+
+def feature_preemption(gen, tok, L) -> dict:
+    """(c): PREEMPT_LOW priority-0 streams fill the grid, then the
+    PREEMPT_HIGH priority-1 requests arrive. Allocated bytes after the arm
+    (every request done) against before it."""
+    import gc
+    import torch
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    server = feature_server(gen, tok, preemption=True, priority_levels=2)
+    engine = server.engine
+    made = capture_requests(engine)
+    parked = []
+    preempt = engine._preempt
+
+    def spying(slot):
+        req = engine._slot_req[slot]
+        preempt(slot)
+        if req.parked is not None:
+            parked.append(parked_nbytes(req.parked))
+
+    engine._preempt = spying
+    try:
+        status, _ = server.handle({"prompts": ["warm up"],
+                                   "tokens_to_generate": 4,
+                                   "temperature": 0.0})
+        check(status == 200, f"preemption warm-up: {status}")
+        wait_idle(engine)
+        engine.metrics = ServingMetrics()  # the arm's numbers only
+        made.clear()
+        # earlier arms' engines sit in reference cycles until a collection
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        zero_counts()
+        n_low, p_low, new_low = PREEMPT_LOW
+        n_high, p_high, new_high = PREEMPT_HIGH
+        low = [{"prompts": [prompt_text(p_low, 800 + i)],
+                "tokens_to_generate": new_low, "logprobs": True,
+                "priority": 0,
+                **({"temperature": 0.0} if i % 2 == 0 else
+                   {"temperature": 0.8, "top_p": 0.9,
+                    "random_seed": 1100 + i})}
+               for i in range(n_low)]
+        high = [{"prompts": [prompt_text(p_high, 850 + i)],
+                 "tokens_to_generate": new_high, "temperature": 0.0,
+                 "logprobs": True, "priority": 1} for i in range(n_high)]
+        t0 = time.perf_counter()
+        threads, res = serve_payloads(server, low)
+        while len(made) < n_low or any(len(r.generated) < 8
+                                       for r in made[:n_low]):
+            check(time.perf_counter() - t0 < 300, "low streams: no tokens")
+            time.sleep(0.005)
+        threads2, res2 = serve_payloads(server, high)
+        for t in threads + threads2:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check_bodies("preemption", res + res2,
+                     [p_low] * n_low + [p_high] * n_high,
+                     [new_low] * n_low + [new_high] * n_high, tok.eod)
+        snap = settle(engine)
+        wait_idle(engine)
+        counts = read_counts()
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        victims = [r for r in made[:n_low] if r.preemptions]
+        out = dict(
+            wall_s=wall, preemptions=snap["preemptions"],
+            victims=len(victims),
+            victims_finished=sum(r.state.value == "finished"
+                                 for r in victims),
+            high_ttft_ms=[r.ttft * 1e3 for r in made[n_low:]],
+            low_ttft_p50_ms=sorted(r.ttft for r in made[:n_low])[
+                n_low // 2] * 1e3,
+            parked_bytes=parked, decode_steps=snap["decode_steps"],
+            allocated_before=before, allocated_after=after,
+            flash_launches=counts["flash_fwd_cuda"],
+            block_launches=counts["block_attention_cuda"])
+        add_counts(out, counts)
+        check(out["preemptions"] >= 1 and victims
+              and out["victims_finished"] == len(victims),
+              f"preemption: {out['preemptions']} preemptions, "
+              f"{out['victims_finished']}/{len(victims)} victims finished")
+        check(len(parked) == out["preemptions"], "a victim was not parked")
+        check(abs(after - before) <= FEATURE_MEMORY_SLACK,
+              f"allocated bytes after the preemption arm {after} vs "
+              f"{before} before")
+        check(out["block_launches"] == L * out["decode_steps"],
+              f"preemption: block kernel {out['block_launches']} in "
+              f"{out['decode_steps']} steps")
+    finally:
+        server.close()
+    return out
+
+
+class StreamDrafter:
+    """Proposes the continuation of known token streams (the plain arm's
+    greedy outputs): a random model seldom repeats a span, so the n-gram
+    drafter's proposals are few and rejected, and this drafter shows what
+    accepted rounds buy on the same traffic."""
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def propose(self, tokens, n):
+        for seq in self.streams:
+            if seq[:len(tokens)] == list(tokens):
+                return seq[len(tokens):len(tokens) + n]
+        return []
+
+
+def feature_spec(gen, tok, L) -> dict:
+    """(d): 8 requests of SPEC_PROMPT tokens repeating a SPEC_SPAN span,
+    SPEC_NEW new tokens, half greedy, with speculative_k 0, then SPEC_K with
+    the n-gram drafter, then SPEC_K with a drafter proposing the k-0 arm's
+    greedy streams. The block kernel is held against its plain version on
+    the live state of one verify round (w = SPEC_K + 1)."""
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    out = {}
+    payloads = [{"prompts": [spec_prompt(i)], "tokens_to_generate": SPEC_NEW,
+                 "logprobs": True,
+                 **({"temperature": 0.0} if i % 2 == 0 else
+                    {"temperature": 0.8, "top_p": 0.9,
+                     "random_seed": 1200 + i})} for i in range(8)]
+    captured = {}
+    live = {}
+
+    def recording(q, k_arena, v_arena, block_map, lengths, **kw):
+        if (not captured and q.shape[1] == SPEC_K + 1
+                and int(live["engine"]._active.sum()) >= 6):
+            captured.update(q=q.clone(), k=k_arena.clone(),
+                            v=v_arena.clone(), map=block_map.clone(),
+                            lengths=lengths.clone(), kw=kw)
+        return block_attention_cuda(q, k_arena, v_arena, block_map,
+                                    lengths, **kw)
+
+    streams = []
+    for arm, k in (("plain", 0), ("speculative", SPEC_K),
+                   ("speculative_streams", SPEC_K)):
+        server = feature_server(gen, tok, speculative_k=k)
+        engine = live["engine"] = server.engine
+        if arm == "speculative_streams":
+            engine.drafter = StreamDrafter(streams)
+        made = capture_requests(engine)
+        try:
+            status, _ = server.handle({"prompts": ["warm up"],
+                                       "tokens_to_generate": 4,
+                                       "temperature": 0.0})
+            check(status == 200, f"spec warm-up: {status}")
+            wait_idle(engine)
+            engine.metrics = ServingMetrics()
+            if k:
+                ba.block_attention_cuda = recording
+            zero_counts()
+            made.clear()
+            t0 = time.perf_counter()
+            threads, res = serve_payloads(server, payloads)
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            greedy = [r for r in made if r.sampling.temperature == 0.0]
+            decode_s = sorted(r.finish_time - r.first_token_time
+                              for r in greedy)
+            generated = check_bodies(f"spec {arm}", res, [SPEC_PROMPT] * 8,
+                                     [SPEC_NEW] * 8, tok.eod)
+            if arm == "plain":
+                streams = [body["segments"][0] for i, (_, body)
+                           in enumerate(res) if i % 2 == 0]
+            snap = settle(engine)
+            counts = read_counts()
+        finally:
+            ba.block_attention_cuda = block_attention_cuda
+            server.close()
+        steps = snap["spec_rounds"] + snap["spec_fallback_steps"]
+        a = dict(wall_s=wall, generated_tokens=generated,
+                 tokens_per_s=generated / wall,
+                 # the greedy requests' first token to last, the latency
+                 # accepted drafts shorten
+                 greedy_decode_s_median=decode_s[len(decode_s) // 2],
+                 greedy_tokens_per_s=sum(len(r.generated) - 1
+                                         for r in greedy) / sum(decode_s),
+                 itl_p50_ms=snap["itl_p50_ms"],
+                 itl_p99_ms=snap["itl_p99_ms"],
+                 spec_rounds=snap["spec_rounds"],
+                 spec_fallback_steps=snap["spec_fallback_steps"],
+                 draft_tokens=snap["draft_tokens"],
+                 accepted_tokens=snap["accepted_tokens"],
+                 host_syncs=snap["host_syncs"],
+                 decode_steps=snap["decode_steps"],
+                 flash_launches=counts["flash_fwd_cuda"],
+                 block_launches=counts["block_attention_cuda"])
+        if k:
+            a["acceptance"] = (a["accepted_tokens"] / a["draft_tokens"]
+                               if a["draft_tokens"] else 0.0)
+            a["syncs_per_round"] = a["host_syncs"] / max(steps, 1)
+            a["tokens_per_step"] = generated / max(steps, 1)
+            check(a["spec_rounds"] > 0, "no verify round ran")
+            if arm == "speculative_streams":
+                check(a["accepted_tokens"] > 0, "no draft of the known "
+                      "greedy streams was accepted")
+            check(a["block_launches"] == L * steps,
+                  f"block kernel {a['block_launches']} in {steps} rounds "
+                  f"and fallback steps of {L} layers")
+            check(a["syncs_per_round"] <= 1.0, "more than one host read a "
+                  "round")
+        else:
+            check(a["block_launches"] == L * a["decode_steps"],
+                  "plain arm: block kernel launches")
+        out[arm] = a
+        add_counts(out, counts)
+    live.clear()
+    check(bool(captured), "no verify round with >= 6 live slots ran")
+    c = captured
+    got = block_attention_cuda(c["q"], c["k"], c["v"], c["map"],
+                               c["lengths"], **c["kw"])
+    ref = ba.block_attention_reference(c["q"], c["k"], c["v"], c["map"],
+                                       c["lengths"], scale=c["kw"]["scale"])
+    err = (got.float() - ref.float()).abs().max().item()
+    import torch
+    check(bool(torch.isfinite(got).all()) and err <= BLOCK_LIVE_TOL,
+          f"block kernel on a live verify round: err {err}")
+    out["live_verify_check"] = dict(
+        w=int(c["q"].shape[1]), max_abs_err=err, tol=BLOCK_LIVE_TOL,
+        max_abs_ref=ref.float().abs().max().item(),
+        lengths=c["lengths"].tolist())
+    captured.clear()
+    return out
+
+
+def check_features_slice() -> dict:
+    """(e): a 2-layer fp32 slice of the 7B width (TF32 off). Greedy tokens
+    equal with each feature on, with each off, and on the serial route;
+    preemption victims (half sampled and seeded) equal their unpreempted
+    run when parked and when forced to replay; a seeded sampled request
+    under speculative_k equal alone and among 7 others."""
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.float32)
+    prefix = prompt_text(512, 1300)
+    first = {"prompts": [prefix + feature_text("a", 40, 1301)],
+             "tokens_to_generate": 24, "temperature": 0.0}
+    rest = [{"prompts": [p], "tokens_to_generate": 24, "temperature": 0.0}
+            for p in (prefix + feature_text("b", 100, 1302),
+                      spec_prompt(7)[:300], prompt_text(700, 1303))]
+    arms = dict(plain={}, prefix=dict(enable_prefix_cache=True),
+                chunked=dict(prefill_chunk=CHUNK_SIZE),
+                preemption=dict(preemption=True, priority_levels=2),
+                speculative=dict(speculative_k=SPEC_K))
+    outs, stats = {}, {}
+    for arm, fields in arms.items():
+        server = feature_server(gen, tok, **fields)
+        try:
+            status, body = server.handle(first)
+            check(status == 200, f"fp32 slice {arm}: {status}")
+            segs = body["segments"]
+            threads, res = serve_payloads(server, rest)
+            for t in threads:
+                t.join(timeout=300)
+            for status, body in res:
+                check(status == 200, f"fp32 slice {arm}: {status}")
+                segs += body["segments"]
+            outs[arm] = segs
+            stats[arm] = {k: v for k, v in server.engine.metrics.snapshot()
+                          .items() if k in ("prefix_hits", "prefill_chunks",
+                                            "spec_rounds", "accepted_tokens")}
+            if arm == "plain":
+                serial = []
+                for p in [first] + rest:
+                    status, body = server.handle(dict(p, serial=True))
+                    check(status == 200, f"fp32 slice serial: {status}")
+                    serial += body["segments"]
+                outs["serial"] = serial
+        finally:
+            server.close()
+    check(all(o == outs["plain"] for o in outs.values()),
+          "fp32 slice: greedy tokens differ between "
+          + ", ".join(a for a, o in outs.items() if o != outs["plain"]))
+    check(stats["prefix"]["prefix_hits"] >= 1
+          and stats["chunked"]["prefill_chunks"] >= 3
+          and stats["speculative"]["spec_rounds"] >= 1,
+          f"fp32 slice: a feature did not run: {stats}")
+
+    # preemption victims: parked, replayed and unpreempted
+    low = [{"prompts": [prompt_text(120, 1310 + i)], "tokens_to_generate": 48,
+            "priority": 0,
+            **({"temperature": 0.0} if i % 2 == 0 else
+               {"temperature": 0.8, "top_p": 0.9, "random_seed": 1400 + i})}
+           for i in range(8)]
+    high = [{"prompts": [prompt_text(60, 1320 + i)], "tokens_to_generate": 8,
+             "temperature": 0.0, "priority": 1} for i in range(2)]
+    victims = {}
+    for arm in ("unpreempted", "parked", "replay"):
+        server = feature_server(gen, tok, preemption=arm != "unpreempted",
+                                priority_levels=2)
+        engine = server.engine
+        made = capture_requests(engine)
+        if arm == "replay":
+            engine.scheduler.parked_count = lambda: engine.num_slots
+        try:
+            t0 = time.perf_counter()
+            threads, res = serve_payloads(server, low)
+            while len(made) < 8 or any(len(r.generated) < 4
+                                       for r in made[:8]):
+                check(time.perf_counter() - t0 < 120, "slice low streams")
+                time.sleep(0.002)
+            threads2, res2 = serve_payloads(server, high)
+            for t in threads + threads2:
+                t.join(timeout=300)
+            for status, body in res + res2:
+                check(status == 200, f"fp32 slice {arm}: {status}")
+            victims[arm] = [b["segments"] for _, b in res]
+            n = server.engine.metrics.snapshot()["preemptions"]
+            check((n >= 1) == (arm != "unpreempted"),
+                  f"fp32 slice {arm}: {n} preemptions")
+        finally:
+            server.close()
+    check(victims["parked"] == victims["unpreempted"] == victims["replay"],
+          "fp32 slice: preemption victims differ from their unpreempted run")
+
+    # a seeded sampled stream under speculative_k, alone and among 7
+    target = {"prompts": [spec_prompt(3)[:256]], "tokens_to_generate": 48,
+              "temperature": 0.8, "top_p": 0.9, "random_seed": 77}
+    others = [{"prompts": [spec_prompt(10 + i)[:200]],
+               "tokens_to_generate": 40,
+               **({"temperature": 0.0} if i % 2 else
+                  {"temperature": 0.9, "random_seed": 90 + i})}
+              for i in range(7)]
+    alone_among = []
+    for crowd in ([], others):
+        server = feature_server(gen, tok, speculative_k=SPEC_K)
+        try:
+            threads, res = serve_payloads(server, [target] + crowd)
+            for t in threads:
+                t.join(timeout=300)
+            for status, body in res:
+                check(status == 200, f"fp32 slice spec: {status}")
+            alone_among.append(res[0][1]["segments"])
+        finally:
+            server.close()
+    check(alone_among[0] == alone_among[1], "fp32 slice: a seeded sampled "
+          "stream under speculative_k depends on the other slots")
+    del gen, model
+    torch.cuda.empty_cache()
+    return dict(arms=sorted(outs), agree=True, feature_counts=stats,
+                victims_parked_replay_equal=True,
+                spec_stream_grid_independent=True, allow_tf32=False)
+
+
+def phase_engine_features(smi: str) -> dict:
+    """Phase 11: (a)-(d) on Llama-2-7B at full width and depth behind the
+    engine route, launch counts zeroed before each arm and read after it;
+    (e) the 2-layer fp32 slice."""
+    import gc
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "phase 11: phase 10's model was not freed")
+    t_phase = time.perf_counter()
+    cfg = llama2_config("7b")
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=FEATURE_SEED)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
+    L = cfg.num_layers
+    stats = dict(card=smi)
+    try:
+        for name, fn in (("prefix", feature_prefix),
+                         ("chunked", feature_chunked),
+                         ("preemption", feature_preemption),
+                         ("speculative", feature_spec)):
+            t0 = time.perf_counter()
+            stats[name] = fn(gen, tok, L)
+            stats[name]["seconds"] = time.perf_counter() - t0
+            log(f"engine features ({name}): " + json.dumps(stats[name]))
+    finally:
+        del gen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats["slice"] = check_features_slice()
+    stats["slice"]["seconds"] = time.perf_counter() - t0
+    log("engine features slice (fp32, 2 layers): "
+        + json.dumps(stats["slice"]))
+    total = {}
+    for arm in ("prefix", "chunked", "preemption", "speculative"):
+        add_counts(stats, stats[arm]["launches"])
+        total[arm] = stats[arm]["launches"]
+    launches = stats["launches"]
+    # the kernels line's keys: flash and block counts, and the norm
+    # kernels' under their wrappers' names
+    stats["launches"] = dict(flash_fwd=launches["flash_fwd_cuda"],
+                             block_attn=launches["block_attention_cuda"])
+    stats["norm_launches"] = {k: v for k, v in launches.items()
+                              if k.startswith(("rms_", "ln_"))}
+    stats["launches_by_arm"] = total
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4198,6 +4940,7 @@ def main(argv=None) -> int:
         pretrain_stats = phase_pretrain(smi)
         toolchain_stats = phase_toolchain(smi)
         window_stats = phase_window_supervisor(smi)
+        feature_stats = phase_engine_features(smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4216,6 +4959,8 @@ def main(argv=None) -> int:
     # phase 10's drives in process, counted from zero (kernels 2-3 run only
     # in its finetune subprocess, whose counts are not read)
     window_counts = window_stats["launches"]
+    # phase 11's arms, each counted from zero
+    feature_counts = feature_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -4239,7 +4984,8 @@ def main(argv=None) -> int:
               + pretrain_counts["flash_fwd_cuda"]
               + bench_counts["flash_fwd_cuda"]
               + tool_counts["flash_fwd_cuda"]
-              + window_counts["flash_fwd_cuda"], "fwd",
+              + window_counts["flash_fwd_cuda"]
+              + feature_counts["flash_fwd"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -4251,7 +4997,8 @@ def main(argv=None) -> int:
                   pretrain=pretrain_counts["flash_fwd_cuda"],
                   bench_kernels=bench_counts["flash_fwd_cuda"],
                   toolchain=tool_counts["flash_fwd_cuda"],
-                  window_supervisor=window_counts["flash_fwd_cuda"]),
+                  window_supervisor=window_counts["flash_fwd_cuda"],
+                  engine_features=feature_counts["flash_fwd"]),
                    window_shape=dict(shape=WINDOW_SHAPE, **{
                        k: window_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -4291,6 +5038,7 @@ def main(argv=None) -> int:
                        toolchain=tool_counts["flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
+    verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
     kernels.append(dict(
         name="block_attn", route="cuda",
         source="megatron_tpu_torch/csrc/block_attn.cu",
@@ -4298,13 +5046,22 @@ def main(argv=None) -> int:
         launches=(engine_stats["launches"]["block_attn"]
                   + int8_stats["launches"]["block_attn"]
                   + pretrain_stats["block_launches"]
-                  + tool_counts["block_attention_cuda"]),
+                  + tool_counts["block_attention_cuda"]
+                  + feature_counts["block_attn"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
             pretrain=pretrain_stats["block_launches"],
-            toolchain=tool_counts["block_attention_cuda"]),
+            toolchain=tool_counts["block_attention_cuda"],
+            engine_features=feature_counts["block_attn"],
+            engine_features_verify_rounds=sum(
+                feature_stats["speculative"][arm]["spec_rounds"]
+                for arm in ("speculative", "speculative_streams"))),
         launches_per_decode_step=engine_stats["launches_per_decode_step"],
+        verify_shape=dict(shape=BLOCK_VERIFY, **{
+            k: verify[k] for k in ("w", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}),
+        live_verify_check=feature_stats["speculative"]["live_verify_check"],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
         bound_ms=block_main["bound_ms"], bound_by=block_main["bound_by"],
@@ -4319,7 +5076,8 @@ def main(argv=None) -> int:
     path_stats = dict(serving=main_stats, engine=engine_stats,
                       int8_engine=int8_stats, training=train_stats,
                       pretrain=pretrain_stats, toolchain=toolchain_stats,
-                      window_supervisor=window_stats)
+                      window_supervisor=window_stats,
+                      engine_features=feature_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

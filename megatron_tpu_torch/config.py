@@ -292,10 +292,6 @@ SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # ServingConfig fields the continuous-batching engine does not run yet,
 # each with the later slice that brings it (ROADMAP Queue 1 items 6-7)
 _LATER_SERVING = {
-    "enable_prefix_cache": "the prefix cache (Queue 1 item 6)",
-    "prefill_chunk": "chunked prefill (Queue 1 item 6)",
-    "retained_slots": "the prefix cache (Queue 1 item 6)",
-    "speculative_k": "speculative decoding (Queue 1 item 6)",
     "degrade_ladder": "the degrade ladder (Queue 1 item 6)",
     "degrade_raise_at": "the degrade ladder (Queue 1 item 6)",
     "degrade_hysteresis": "the degrade ladder (Queue 1 item 6)",
@@ -304,7 +300,6 @@ _LATER_SERVING = {
     "degrade_max_new_tokens": "the degrade ladder (Queue 1 item 6)",
     "slo_ttft_ms": "the degrade ladder (Queue 1 item 6)",
     "slo_itl_p99_ms": "the degrade ladder (Queue 1 item 6)",
-    "preemption": "preemption (Queue 1 item 6)",
     "num_replicas": "the router (Queue 1 item 6)",
     "router_max_retries": "the router (Queue 1 item 6)",
     "router_heartbeat_timeout_s": "the router (Queue 1 item 6)",
@@ -348,8 +343,11 @@ class ServingConfig:
     the contiguous view and a scatter back), `priority_levels`,
     `shed_on_overload` (early shedding of a request whose estimated queue
     delay already exceeds its deadline), `max_engine_restarts` (the
-    supervisor's restart budget before the circuit breaker opens) and
-    `engine_step_timeout_s` (the hung-iteration watchdog). `validate()`
+    supervisor's restart budget before the circuit breaker opens),
+    `engine_step_timeout_s` (the hung-iteration watchdog) and the
+    throughput features: `enable_prefix_cache` with `retained_slots`,
+    `prefill_chunk`, `preemption` (with `priority_levels` >= 2) and
+    `speculative_k`. `validate()`
     raises NotImplementedError for any other field set away from its
     default, naming the later slice (ROADMAP Queue 1 items 6 and 7)."""
 
@@ -452,6 +450,34 @@ class ServingConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"ServingConfig.{name} must be >= 1, got "
                                  f"{getattr(self, name)}")
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1 (None: "
+                             f"unchunked), got {self.prefill_chunk}")
+        if self.retained_slots is not None and self.retained_slots < 0:
+            raise ValueError(f"retained_slots must be >= 0 (None: no "
+                             f"limit), got {self.retained_slots}")
+        if self.enable_prefix_cache and self.kv_block_size is not None \
+                and self.kv_block_size % self.prefill_bucket:
+            # a hit is block-aligned for aliasing and bucket-aligned so
+            # the suffix shapes are the unchunked engine's
+            raise ValueError(
+                f"kv_block_size={self.kv_block_size} must be a multiple of "
+                f"prefill_bucket={self.prefill_bucket} with "
+                "enable_prefix_cache")
+        if self.preemption and self.priority_levels < 2:
+            raise ValueError(
+                "preemption requires priority_levels >= 2: with one "
+                "priority class no arrival can outrank a running slot")
+        if self.speculative_k < 0:
+            raise ValueError(f"speculative_k must be >= 0, got "
+                             f"{self.speculative_k}")
+        if self.speculative_k:
+            max_len = self.max_len or (model.max_position_embeddings
+                                       if model is not None else None)
+            if max_len is not None and self.speculative_k >= max_len:
+                raise ValueError(
+                    f"speculative_k={self.speculative_k} must be smaller "
+                    f"than the slot capacity (max_len={max_len})")
         if self.max_engine_restarts < 0:
             raise ValueError("max_engine_restarts must be >= 0")
         if self.engine_step_timeout_s is not None and \

@@ -14,12 +14,17 @@ changes no token or logprob inside any row's requested span.
 (`ops.quantized.quantize_weights`). A model whose `sliding_window` W is
 below the cache length gets a rolling cache of W positions
 (`kv_region_cap`): position p lives at p % W and attention masks by the
-slot -> position map, so memory is O(W) for any stream length. Chunked
-prefill, the slot-grid verify path and sharded serving belong to later
-slices.
+slot -> position map, so memory is O(W) for any stream length.
+
+The serving engine's multi-token appends: `prefill_chunk` forwards one
+prompt chunk through a batch-1 cache at its offset (chunked prefill, a
+prefix hit's suffix, a preemption replay), `verify_tokens` a
+[slots, w]-token window through the slot grid at per-row offsets (the
+speculative verify round). Sharded serving belongs to a later slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -90,6 +95,44 @@ def kv_scales(shape, dtype, device):
     sshape = (*shape[:-1], 1)
     return (torch.ones(sshape, dtype=torch.float32, device=device),
             torch.ones(sshape, dtype=torch.float32, device=device))
+
+
+def prefill_chunk(params, tokens: torch.Tensor, cache: KVCache,
+                  cfg: ModelConfig, *, rope, last_idx: int,
+                  next_offset: int):
+    """Forward one [1, s] prompt chunk through a batch-1 cache at its
+    offset (generation.py prefill_chunk) and return (cache,
+    logits row [padded_vocab] of the chunk's token `last_idx`). Offset 0
+    is a whole prefill (the flash kernel); offset > 0 a continuation that
+    takes the dot path with the causal mask starting at the offset. The
+    cache's offset becomes `next_offset`, the real token count, so the
+    next chunk overwrites a padded chunk's pad positions
+    (write-before-read)."""
+    logits, cache = lm.model_forward(
+        params, tokens, cfg, kv_caches=cache, rope=rope,
+        head_positions=torch.tensor([last_idx], device=tokens.device))
+    cache.offset = int(next_offset)
+    return cache, logits[0, 0]
+
+
+def verify_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
+                  *, rope, lengths: torch.Tensor, max_len: int):
+    """Forward a [slots, w]-token window through the slot grid at per-row
+    offsets `lengths` (generation.py verify_tokens): row i's tokens land
+    at positions lengths[i]..lengths[i]+w-1, each query causally masked
+    from its row's own offset. `caches` is the slot-grid KVCache or the
+    block-native BlockKVCache (the block kernel at w > 1). Positions past
+    the region are dropped from the write and rope positions clamp at
+    max_len - 1: garbage logits for rows at the clamp, which the caller's
+    accept mask discards. The caller rewinds the offsets to the accepted
+    length. Returns (logits [slots, w, padded_vocab] fp32, caches)."""
+    w = tokens.shape[1]
+    caches = dataclasses.replace(caches, offset=lengths)
+    positions = torch.clamp(
+        lengths.long()[:, None] + torch.arange(w, device=tokens.device),
+        max=max_len - 1)
+    return lm.model_forward(params, tokens, cfg, kv_caches=caches,
+                            position_ids=positions, rope=rope)
 
 
 def _decode_fn(params, tokens, lengths, generator, *, cfg: ModelConfig,

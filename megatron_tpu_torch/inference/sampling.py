@@ -1,8 +1,8 @@
 """Token sampling: temperature / top-k / top-p
 (megatron_tpu/inference/sampling.py `sample`, the per-row filters
-`_top_k_filter_rows` / `_top_p_filter_rows`, and the serving engine's
-`sample_batched`; the reference's scalar filters are these at one k or p
-for every row).
+`_top_k_filter_rows` / `_top_p_filter_rows`, the serving engine's
+`sample_batched` and speculative decoding's `verify_draft_probs`; the
+reference's scalar filters are these at one k or p for every row).
 
 Random draws take an explicit `torch.Generator`; they cannot reproduce the
 reference's `jax.random` bits, so seeded sampling is deterministic within
@@ -147,3 +147,35 @@ def sample_batched(generators: Sequence[Optional[torch.Generator]],
     if live is not None:
         out = torch.where(live, out, torch.full_like(out, -1))
     return out
+
+
+def verify_draft_probs(logits: torch.Tensor, drafts: torch.Tensor, *,
+                       temperature: torch.Tensor,
+                       top_k: Optional[torch.Tensor],
+                       top_p: Optional[torch.Tensor],
+                       vocab_size: Optional[int] = None):
+    """Acceptance inputs of a speculative verify window
+    (sampling.py verify_draft_probs). logits [b, w, vocab]: position j
+    holds the model's distribution for the token drafts[:, j] claims;
+    drafts [b, w]; temperature / top_p [b], top_k [b] (None: off on every
+    row), one set of knobs a row. Returns (probs [b, w] fp32, targets
+    [b, w] int64): the processed probability of each draft under the
+    pipeline `sample_batched` draws from (`_processed`, with each row's
+    knobs repeated over its positions), which point-mass rejection
+    sampling accepts against, and the plain argmax, which greedy rows
+    accept by exact match. A negative draft (a filler) reads its row's
+    last vocabulary entry, as the reference's index wraps."""
+    b, w, V = logits.shape
+    x = logits.float().reshape(b * w, V)
+    if vocab_size is not None and vocab_size < V:
+        x = x.clone()
+        x[:, vocab_size:] = float("-inf")
+    targets = torch.argmax(x, dim=-1)
+    x = _processed(
+        x, temperature.repeat_interleave(w),
+        None if top_k is None else top_k.repeat_interleave(w),
+        None if top_p is None else top_p.repeat_interleave(w))
+    p = torch.softmax(x, dim=-1)
+    idx = drafts.reshape(b * w, 1).long().remainder(V)
+    return (p.gather(-1, idx)[:, 0].reshape(b, w),
+            targets.reshape(b, w))

@@ -141,21 +141,23 @@ def _block_native_update_attend(q, k, v, cache: BlockKVCache, *,
 
     Append: row i's s tokens land at positions offset[i]..offset[i]+s-1, in
     physical block map[i, pos // B] at row pos % B. Positions at or past the
-    region's capacity (idle rows parked at the length clamp) are dropped
-    from the index, never clamped onto a real block. Idle rows, whose map
-    points every entry at the shared trash block, write their garbage
-    there. Read: the kernel walks each slot's block chain from its own
-    offset over the post-append arena (write-before-read)."""
+    region's capacity (idle rows parked at the length clamp, a verify
+    window's tail at the clamp) go to the arena's last block, the pool's
+    shared trash block, never onto a real block; the redirect keeps the
+    index shape fixed, so the append reads nothing back to the host. Idle
+    rows, whose map points every entry at the trash block, write their
+    garbage there too. Read: the kernel walks each slot's block chain from
+    its own offset over the post-append arena (write-before-read)."""
     S, s = q.shape[:2]
-    _, B = cache.k.shape[:2]
+    T, B = cache.k.shape[:2]
     nb = cache.map.shape[1]
     offset = cache.offset
     pos = offset[:, None].long() + torch.arange(s, device=q.device)[None]
-    live = pos < nb * B
-    rows = torch.arange(S, device=q.device)[:, None].expand(S, s)[live]
-    pos = pos[live]
-    phys = cache.map[rows, pos // B].long()
-    _cache_write(cache, (phys, pos % B), k[live], v[live])
+    rows = torch.arange(S, device=q.device)[:, None].expand(S, s)
+    phys = torch.where(
+        pos < nb * B,
+        cache.map[rows, torch.clamp(pos // B, max=nb - 1)].long(), T - 1)
+    _cache_write(cache, (phys, pos % B), k, v)
     out = block_native_attention(q, cache.k, cache.v, cache.map, offset,
                                  scale=scale, block_size=B,
                                  k_scale=cache.k_scale, v_scale=cache.v_scale)

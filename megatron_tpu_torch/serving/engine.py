@@ -61,9 +61,44 @@ An active FaultInjector (resilience/faults.py) stalls, crashes or
 NaN-poisons one slot at scheduled steps (`serve_delay`, `serve_crash`,
 `serve_nan`).
 
-The prefix cache, chunked prefill, preemption, speculative decoding,
-adapters, structured output and fan-out come with later slices and raise
-when configured (ServingConfig.validate).
+Throughput features (engine.py, the same machinery): every request that
+does not take the batched prefill becomes a pending prefill
+(`_PendingPrefill`): it holds a slot (on a block pool its blocks, the map
+row left on TRASH until activation) and its KV accumulates in a batch-1
+cache outside the pool, which the grid's idle writes cannot reach; the
+loop runs one chunk of one pending request per iteration, between decode
+steps, and the last chunk lands it with one insert.
+
+- Prefix cache (`enable_prefix_cache`, `retained_slots`): a host trie
+  (serving/prefix_index.py) indexes each slot's prompt at activation and a
+  finished request's full sequence at retention (serving/kv_pool.py). A
+  hit, floored to whole blocks and capped at len - 1 so one suffix token
+  forwards for the logits, copies the prefix out of the pool (on a block
+  pool the prefix blocks are aliased into the new row, and the insert
+  skips them) and forwards only the suffix. A rolling block pool adds the
+  ring-validity gate and forwards the suffix one token an iteration.
+- Chunked prefill (`prefill_chunk`): a longer prompt forwards in chunks,
+  the first at offset 0 through the flash kernel, the rest through the dot
+  path at their offset.
+- Preemption (`preemption`): a queued request of higher priority with no
+  allocatable slot evicts the lowest-priority running slot. The victim's
+  KV is copied out (`slice_blocks` / `slice_slot`) with its carried logits
+  row, its generator state and its residual carry, and it is requeued; it
+  resumes with one insert. Beyond `num_slots` parked victims, or after a
+  restart, it replays its prompt plus generated tokens through prefill and
+  continues its saved generator: the same stream either way.
+- Speculative decoding (`speculative_k`, `drafter=`): each step proposes k
+  drafts a running slot on the host (serving/spec_decode.py) and verifies
+  every slot's window [t0, d1..dk] in one forward (the block kernel at
+  w = k + 1). Greedy rows accept by exact match, drawing rows by u < p
+  under the processed distribution; each drawing row draws t0 and then k
+  uniforms from its own generator every step, a fallback decode step too,
+  so a seeded stream does not depend on the other slots. Lengths rewind
+  to 1 + accepted, the carried logits are those after the last committed
+  token, and a stochastic rejection bans its draft from the next draw.
+
+Adapters, structured output, the host KV tier and fan-out come with later
+slices and raise when configured (ServingConfig.validate).
 """
 from __future__ import annotations
 
@@ -77,8 +112,11 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import SERVING_KV_DTYPES, ServingConfig
-from megatron_tpu_torch.inference.generation import PREFILL_BUCKET, Generator
-from megatron_tpu_torch.inference.sampling import sample, sample_batched
+from megatron_tpu_torch.inference.generation import (PREFILL_BUCKET,
+                                                     Generator, prefill_chunk,
+                                                     verify_tokens)
+from megatron_tpu_torch.inference.sampling import (sample, sample_batched,
+                                                   verify_draft_probs)
 from megatron_tpu_torch.models import language_model as lm
 from megatron_tpu_torch.models.attention import KVCache
 from megatron_tpu_torch.resilience.faults import get_fault_injector
@@ -86,21 +124,58 @@ from megatron_tpu_torch.resilience.watchdog import StepWatchdog
 from megatron_tpu_torch.serving.kv_pool import (SlotKVPool,
                                                 block_native_cache,
                                                 insert_blocks, insert_prefill,
-                                                resolve_view, scatter_view)
+                                                resolve_view, scatter_view,
+                                                slice_blocks, slice_slot)
 from megatron_tpu_torch.serving.metrics import ServingMetrics
+from megatron_tpu_torch.serving.prefix_index import PrefixIndex
 from megatron_tpu_torch.serving.request import (GenRequest, RequestState,
                                                 SamplingOptions)
 from megatron_tpu_torch.serving.scheduler import (AdmissionScheduler,
                                                   EngineUnhealthyError,
                                                   OverloadShedError,
                                                   QueueFullError)
+from megatron_tpu_torch.serving.spec_decode import (NGramDrafter,
+                                                    build_draft_rounds)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 from megatron_tpu_torch.utils.logging import print_rank_0
+
+# a preempted greedy row's saved generator state: it draws nothing
+_NO_RNG = torch.empty(0, dtype=torch.uint8)
 
 
 class EngineHungError(RuntimeError):
     """Raised by the loop when the watchdog flagged a wedged iteration that
     eventually returned: the supervisor treats it as a crash."""
+
+
+class _PendingPrefill:
+    """A request mid-prefill (engine.py _PendingPrefill). It owns a slot,
+    but its KV accumulates in `sub`, a batch-1 cache outside the pool that
+    the grid's idle writes cannot reach. `pos` counts the tokens whose KV
+    `sub` holds (the prefix length on a hit); `last` is the logits row of
+    the latest chunk's last real token; `tokens` is the sequence being
+    prefilled (the prompt, or prompt + generated for a preemption replay);
+    `rng` the generator the slot decodes with. On a block pool `blocks` are
+    the reserved physical blocks (the map row stays on TRASH until
+    activation installs them), `pfx_blocks` the aliased count the insert
+    skips, and `installed` whether the row was installed."""
+
+    __slots__ = ("req", "slot", "sub", "pos", "rng", "last", "tokens",
+                 "blocks", "pfx_blocks", "installed")
+
+    def __init__(self, req: GenRequest, slot: int, sub: KVCache, pos: int,
+                 rng: Optional[torch.Generator], tokens: List[int],
+                 blocks: Optional[List[int]] = None, pfx_blocks: int = 0):
+        self.req = req
+        self.slot = slot
+        self.sub = sub
+        self.pos = pos
+        self.rng = rng
+        self.last: Optional[torch.Tensor] = None
+        self.tokens = tokens
+        self.blocks = blocks
+        self.pfx_blocks = pfx_blocks
+        self.installed = False
 
 
 class ServingEngine:
@@ -116,7 +191,8 @@ class ServingEngine:
 
     def __init__(self, generator: Generator,
                  serving: Optional[ServingConfig] = None, *,
-                 device: DeviceLike = None, start: bool = True):
+                 device: DeviceLike = None, start: bool = True,
+                 drafter=None):
         self.device = resolve_device(device)
         if generator.device != self.device:
             raise ValueError(f"generator runs on {generator.device}, the "
@@ -147,12 +223,20 @@ class ServingEngine:
         # folds it into the window's per-step gauge (engine thread only)
         self._view_bytes = self.pool.view_nbytes()
         self._bracket_bytes = 0
+        self._prefix_on = self.serving.enable_prefix_cache
+        self._chunk = self.serving.prefill_chunk
+        self._preempt_on = self.serving.preemption
+        self._spec_k = self.serving.speculative_k
+        self.drafter = drafter if drafter is not None else NGramDrafter()
+        self._index = self._new_index()
+        self._prefilling: List[_PendingPrefill] = []
         self.scheduler = AdmissionScheduler(
             self.serving.max_queue, max_total_len=self.max_len,
             num_slots=S, shed_on_overload=self.serving.shed_on_overload,
             default_deadline_s=self.serving.request_deadline_s)
         self.scheduler.notify = self._wake
-        self.scheduler.active_fn = lambda: int(self._active.sum())
+        self.scheduler.active_fn = (
+            lambda: int(self._active.sum()) + len(self._prefilling))
         self.metrics = ServingMetrics()
         self.metrics.kv_attn_path = self._attn_path
         self._vp = cfg.padded_vocab_size
@@ -167,9 +251,14 @@ class ServingEngine:
         self._top_ks = np.zeros(S, np.int64)
         self._top_ps = np.zeros(S, np.float32)
         self._slot_req: List[Optional[GenRequest]] = [None] * S
+        # speculative residual carry: the token a stochastic rejection bans
+        # from the slot's next draw (-1: none); the host mirror is exact
+        # at window boundaries
+        self._reject = np.full(S, -1, np.int64)
         # device copies, re-uploaded only on slot churn; between churns the
         # lengths advance on the device through the chained decode steps
         self._d_lengths = self._upload(self._lengths)
+        self._d_reject = self._upload(self._reject)
         self._sampling_dirty = True
         self._lengths_dirty = True
         self._kv_dirty = True
@@ -205,9 +294,18 @@ class ServingEngine:
             self._thread.start()
 
     def _new_pool(self, dtype) -> SlotKVPool:
-        return SlotKVPool(self.cfg, self.num_slots, self.max_len,
+        pool = SlotKVPool(self.cfg, self.num_slots, self.max_len,
                           dtype=dtype, block_size=self.serving.kv_block_size,
+                          retained_limit=self.serving.retained_slots,
                           device=self.device)
+        # retained KV about to be overwritten leaves the index
+        pool.on_reclaim = lambda key: self._index.remove(key)
+        return pool
+
+    def _new_index(self) -> PrefixIndex:
+        # block pools index whole blocks, so a hit aliases them
+        return PrefixIndex(self.pool.block_size if self.pool.blocks_enabled
+                           else self.serving.prefill_bucket)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         # a copy: on the CPU torch.from_numpy would share the host array
@@ -299,6 +397,8 @@ class ServingEngine:
         for req in self._slot_req:
             if req is not None and req.state is RequestState.RUNNING:
                 req.fail("engine shut down")
+        for st in self._prefilling:
+            st.req.fail("engine shut down")
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Graceful shutdown: stop admitting (queued requests fail with a
@@ -338,10 +438,13 @@ class ServingEngine:
             "engine_restarts": self._restarts,
             "max_engine_restarts": self._max_restarts,
             "active_slots": int(self._active.sum()),
+            "prefilling": len(self._prefilling),
             "num_slots": self.num_slots,
             "queue_depth": self.scheduler.depth(),
             # the pool is None for the moment a restart rebuilds it
             "free_slots": int(pool.free_rows()) if pool is not None else 0,
+            "kv_blocks_retained": (int(pool.retained_count())
+                                   if pool is not None else 0),
             "service_time_ewma_ms":
                 self.scheduler.service_time_ewma() * 1e3,
             "kv_attn_path": self._attn_path,
@@ -351,6 +454,18 @@ class ServingEngine:
 
     def queue_depth(self) -> int:
         return self.scheduler.depth()
+
+    def prefix_peek(self, tokens: Sequence[int]) -> int:
+        """Longest cached prefix this engine could serve `tokens` with (0
+        without the prefix cache): a routing hint read from other threads,
+        so a racy read degrades to 0; admission resolves the real hit."""
+        if not self._prefix_on or not tokens:
+            return 0
+        try:
+            src, hit = self._index.lookup(list(tokens), len(tokens) - 1)
+            return int(hit) if src is not None else 0
+        except Exception:  # noqa: BLE001 — cross-thread peek
+            return 0
 
     def __enter__(self):
         return self
@@ -370,19 +485,22 @@ class ServingEngine:
         window, and keeps their indices in range. Returns (tokens [S],
         logprobs [S]) on the device."""
         lengths = self._d_lengths
+        k = self._spec_k
         toks = sample_batched(self._gens, self._last_logits,
                               temperature=self._d_temps,
                               top_k=self._d_top_ks, top_p=self._d_top_ps,
-                              vocab_size=self.cfg.vocab_size)
+                              vocab_size=self.cfg.vocab_size,
+                              banned=self._d_reject if k else None)
+        if k:
+            # a speculative engine's step: the residual carry is consumed,
+            # and each drawing row spends the k uniforms a verify round
+            # draws, so its stream does not depend on whether another slot
+            # proposed a draft this step
+            self._uniforms(k)
+            self._d_reject = torch.full_like(self._d_reject, -1)
         lps = torch.log_softmax(self._last_logits, dim=-1).gather(
             -1, toks[:, None])[:, 0]
-        if self._kernel_on:
-            caches = block_native_cache(self.pool.caches)
-        elif self._blocks_on:
-            caches = resolve_view(self.pool.caches)
-        else:
-            caches = self.pool.caches
-        caches = dataclasses.replace(caches, offset=lengths)
+        caches = dataclasses.replace(self._grid_caches(), offset=lengths)
         logits, caches = lm.model_forward(
             self.gen.params, toks[:, None], self.cfg, kv_caches=caches,
             position_ids=lengths[:, None].long(), rope=self.gen.rope)
@@ -391,6 +509,81 @@ class ServingEngine:
         self._last_logits = logits[:, 0]
         self._d_lengths = torch.clamp(lengths + 1, max=self.max_len - 1)
         return toks, lps
+
+    def _grid_caches(self):
+        """The slot grid's cache as the forward takes it: the block-native
+        view (path 2), the gathered contiguous view (path 1; the caller
+        scatters it back) or the whole-region pool (path 0)."""
+        if self._kernel_on:
+            return block_native_cache(self.pool.caches)
+        if self._blocks_on:
+            return resolve_view(self.pool.caches)
+        return self.pool.caches
+
+    def _uniforms(self, k: int) -> torch.Tensor:
+        """[S, k] accept uniforms: k draws from each drawing row's own
+        generator, zeros for greedy and idle rows (which accept by exact
+        match)."""
+        u = torch.zeros(self.num_slots, k, device=self.device)
+        for i, g in enumerate(self._gens):
+            if g is not None:
+                u[i] = torch.rand(k, generator=g, device=self.device)
+        return u
+
+    def _verify_fn(self, drafts: torch.Tensor):
+        """One speculative round for the whole grid (engine.py _verify_fn,
+        without the structured-output masks): sample each slot's t0 from
+        its carried logits (the residual distribution where last round's
+        rejection bans a draft), forward [t0, d1..dk] through the pool at
+        the per-slot lengths (`verify_tokens`; the block kernel at
+        w = k + 1), and accept each slot's drafts left to right: exact
+        match with the argmax for greedy rows, u < p(d) under the processed
+        distribution for drawing rows; NO_DRAFT fillers never, and no
+        draft whose position would pass max_len - 1. A slot commits
+        1 + accepted tokens; its length rewinds there (the rejected
+        positions' KV is overwritten write-before-read), its carried
+        logits become the row after its last committed token, and a real
+        stochastic rejection at the stop position becomes its residual
+        carry. Returns (window [S, k+1], logprobs [S, k+1] under the raw
+        logits, accepted [S]) on the device."""
+        S, k = drafts.shape
+        lengths = self._d_lengths
+        last = self._last_logits
+        toks0 = sample_batched(self._gens, last, temperature=self._d_temps,
+                               top_k=self._d_top_ks, top_p=self._d_top_ps,
+                               vocab_size=self.cfg.vocab_size,
+                               banned=self._d_reject)
+        u = self._uniforms(k)
+        lp0 = torch.log_softmax(last, dim=-1).gather(-1, toks0[:, None])
+        window = torch.cat([toks0[:, None], drafts], dim=1)
+        logits, caches = verify_tokens(
+            self.gen.params, window, self._grid_caches(), self.cfg,
+            rope=self.gen.rope, lengths=lengths, max_len=self.max_len)
+        if self._blocks_on and not self._kernel_on:
+            scatter_view(self.pool.caches, caches)
+        # logits[:, j]: the distribution of the token after window[:, j],
+        # which drafts[:, j] claims to be
+        ctx = logits[:, :k]
+        probs, targets = verify_draft_probs(
+            ctx, drafts, temperature=self._d_temps, top_k=self._d_top_ks,
+            top_p=self._d_top_ps, vocab_size=self.cfg.vocab_size)
+        accept = torch.where(self._d_greedy[:, None], drafts == targets,
+                             u < probs) & (drafts >= 0)
+        steps = torch.arange(k, device=self.device)
+        allow = lengths.long()[:, None] + 1 + steps <= self.max_len - 1
+        a = torch.cumprod((accept & allow).long(), dim=1).sum(dim=1)
+        draft_lp = torch.log_softmax(ctx, dim=-1).gather(
+            -1, drafts.clamp(min=0)[..., None])[..., 0]
+        rows = torch.arange(S, device=self.device)
+        self._last_logits = logits[rows, a]
+        a_idx = torch.clamp(a, max=k - 1)
+        d_stop = drafts[rows, a_idx]
+        self._d_reject = torch.where(
+            (a < k) & allow[rows, a_idx] & (d_stop >= 0), d_stop,
+            torch.full_like(d_stop, -1))
+        self._d_lengths = torch.clamp(lengths + 1 + a,
+                                      max=self.max_len - 1).int()
+        return window, torch.cat([lp0, draft_lp], dim=1), a
 
     def _prefill_bucket(self, plen: int) -> int:
         """Prompts pad up to a multiple of `prefill_bucket`; a rolling pool
@@ -408,6 +601,41 @@ class ServingEngine:
         while b < n:
             b *= 2
         return b
+
+    def _sub_len(self, plen: int) -> int:
+        """Positions of a pending prefill's batch-1 cache: room for the
+        padded chunks of a `plen`-token sequence (a chunk's tail pads by
+        less than one prefill bucket), in whole blocks on a block pool;
+        the ring of W on a rolling pool."""
+        if self.pool.rolling:
+            return self.pool.cap
+        n = plen + self.serving.prefill_bucket
+        if self._blocks_on:
+            B = self.pool.block_size
+            n = -(-n // B) * B
+        return min(n, self.pool.cap)
+
+    def _restore_rng(self, state: torch.Tensor
+                     ) -> Optional[torch.Generator]:
+        """A fresh generator on the engine's device carrying a saved
+        state (None for a greedy row's empty state)."""
+        if state.numel() == 0:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.set_state(state)
+        return gen
+
+    def _request_rng(self, req: GenRequest,
+                     plen: int) -> Optional[torch.Generator]:
+        """The generator a request decodes with: its saved state after a
+        preemption, a fresh seeded one for a drawing request, None for a
+        greedy one."""
+        if req.resume_rng is not None:
+            return self._restore_rng(req.resume_rng)
+        sp = req.sampling
+        if sp.temperature == 0.0 or sp.top_k == 1:
+            return None
+        return self._initial_rng(req.seed, plen)
 
     def _initial_rng(self, seed: int, plen: int) -> torch.Generator:
         """A request's generator, seeded and advanced past the draws the
@@ -490,12 +718,14 @@ class ServingEngine:
                 while (not self._stop and not self._draining
                        and not self._wedged
                        and self.scheduler.depth() == 0
-                       and not self._active.any()):
+                       and not self._active.any()
+                       and not self._prefilling):
                     self._cond.wait(timeout=self._idle_wait)
                     self._heartbeat()  # idleness is not a hang
                 if self._stop:
                     return True
-                if self._draining and not self._active.any():
+                if (self._draining and not self._active.any()
+                        and not self._prefilling):
                     return True
             if self._wedged:
                 raise EngineHungError(
@@ -505,7 +735,11 @@ class ServingEngine:
             self._maybe_decay_restarts()
             self._reap_cancelled()
             self._reap_expired()
+            self._preempt_for_priority()
             self._admit()
+            # one chunk an iteration, between decode steps, so running
+            # slots keep emitting while a long prompt lands
+            self._advance_prefill()
             self._heartbeat()  # admission may build kernels; decode is
             #                    the call the deadline protects
             if self._active.any():
@@ -548,6 +782,8 @@ class ServingEngine:
         for req in list(self._slot_req):
             if req is not None:
                 req.fail(msg)
+        for st in list(self._prefilling):
+            st.req.fail(msg)
         # pops wedged inside a prefill dispatch are in no slot yet
         for req in list(self._admitting):
             req.fail(msg)
@@ -564,30 +800,43 @@ class ServingEngine:
         for req in self._slot_req:
             if req is not None:
                 req.fail(self._broken)
+        for st in self._prefilling:
+            st.req.fail(self._broken)
         for req in self.scheduler.close():
             req.fail(self._broken, kind="unavailable")
 
     def _restart_session(self, msg: str):
         """Reset after a crashed or hung iteration. The slotted requests
-        fail (their streams rest on state no longer trusted); queued ones
-        stay queued. The device state is built anew: the port updates the
-        pool in place, so a step that raised mid-layer left it half
-        written, and every reference to the old tensors is dropped first
-        so that a full-size pool is never held twice. Host state the
-        restart does not touch survives: the scheduler and its
-        service-time estimate."""
+        fail (their streams rest on state no longer trusted); requests
+        mid-prefill requeue, and queued preemption victims drop their
+        parked KV and will replay (their generator state is on the host).
+        The device state is built anew: the port updates the pool in
+        place, so a step that raised mid-layer left it half written, and
+        every reference to the old tensors is dropped first so that a
+        full-size pool is never held twice. Host state the restart does
+        not touch survives: the scheduler and its service-time
+        estimate."""
         for req in self._slot_req:
             if req is not None:
                 req.fail(f"engine step failed while this request was "
                          f"slotted: {msg}")
+        for st in self._prefilling:
+            if not st.req.done():  # the watchdog may have failed it
+                st.req.state = RequestState.QUEUED
+                self.scheduler.requeue(st.req)
+        self._prefilling = []
+        self.scheduler.clear_parked()
         S = self.num_slots
         dtype = self.pool.dtype
         self._slot_req = [None] * S
         self._gens = [None] * S
         self.pool = self._last_logits = None
-        self._d_lengths = self._d_temps = None
-        self._d_top_ks = self._d_top_ps = None
+        self._d_lengths = self._d_temps = self._d_reject = None
+        self._d_top_ks = self._d_top_ps = self._d_greedy = None
         self.pool = self._new_pool(dtype)
+        self._index = self._new_index()
+        self._reject[:] = -1
+        self._d_reject = self._upload(self._reject)
         self._last_logits = torch.zeros(S, self._vp, dtype=torch.float32,
                                         device=self.device)
         self._lengths[:] = 0
@@ -601,6 +850,75 @@ class ServingEngine:
         if self._watchdog is not None:
             self._watchdog.rearm()
 
+    # ------------------------------------------------------------------
+    # priority preemption
+    # ------------------------------------------------------------------
+    def _preempt_for_priority(self):
+        """A queued request of higher priority with no allocatable slot
+        evicts the lowest-priority running slot, the youngest on a tie
+        (the least sunk work); one victim an iteration, since the next
+        `_admit` takes the freed slot."""
+        if not self._preempt_on or self.pool.free_count() > 0:
+            return
+        top = self.scheduler.peek_priority()
+        if top is None:
+            return
+        victim, vprio = None, None
+        for slot in np.nonzero(self._active)[0]:
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            if (vprio is None or req.priority < vprio
+                    or (req.priority == vprio
+                        and req.id > self._slot_req[victim].id)):
+                victim, vprio = int(slot), req.priority
+        if victim is None or vprio >= top:
+            return
+        self._preempt(victim)
+
+    def _preempt(self, slot: int):
+        """Evict `slot` without losing its stream: copy its KV out of the
+        pool (the live blocks, or the region's live prefix) with its
+        carried logits row, keep its generator state and residual carry on
+        the host, and requeue it; it resumes with one insert. Past
+        `num_slots` parked victims the copy is skipped and the request
+        replays its prompt plus generated tokens instead."""
+        req = self._slot_req[slot]
+        plen = int(self._lengths[slot])
+        if plen != len(req.effective_prompt()):
+            raise RuntimeError(f"slot {slot}: length {plen} but "
+                               f"{len(req.effective_prompt())} committed "
+                               "tokens")
+        gen = self._gens[slot]
+        req.resume_rng = gen.get_state() if gen is not None else _NO_RNG
+        req.resume_reject = int(self._reject[slot])
+        if self.scheduler.parked_count() < self.num_slots:
+            if self._blocks_on:
+                blocks = self.pool.map_row(slot)[:self.pool.live_blocks(plen)]
+                sub = slice_blocks(self.pool.caches, blocks, plen)
+            else:
+                sub = slice_slot(self.pool.caches, slot, plen, length=plen)
+            req.parked = (sub, self._last_logits[slot].clone())
+        else:
+            req.parked = None  # the replay fallback
+        req.preemptions += 1
+        self.metrics.count("preemptions")
+        self._slot_req[slot] = None
+        self._active[slot] = False
+        self._gens[slot] = None
+        self._reject[slot] = -1
+        self._sampling_dirty = True
+        self._kv_dirty = True
+        self._lengths_dirty = True
+        self._index.remove(slot)
+        self.pool.release(slot)
+        self._lengths[slot] = 0
+        req.state = RequestState.QUEUED
+        self.scheduler.requeue(req)
+
+    # ------------------------------------------------------------------
+    # admission: batched misses, pending prefills, resumes
+    # ------------------------------------------------------------------
     def _admit(self):
         popped = self.scheduler.pop_ready(self.pool.free_count())
         if not popped:
@@ -608,8 +926,25 @@ class ServingEngine:
         pending = list(popped)
         self._admitting = pending
         try:
+            groupable: List[GenRequest] = []
+            for r in popped:
+                if r.parked is not None:
+                    # a preemption victim with its KV intact: one insert,
+                    # no forward
+                    self._resume_parked(r)
+                    pending.remove(r)
+                    continue
+                # a replay prefills prompt + generated
+                toks = r.effective_prompt()
+                src, hit = self._lookup_prefix(toks)
+                if hit or r.resume_rng is not None or (
+                        self._chunk is not None and len(toks) > self._chunk):
+                    self._start_pending(r, src, hit)
+                    pending.remove(r)
+                else:
+                    groupable.append(r)
             for padded, reqs in AdmissionScheduler.group_by_bucket(
-                    popped, lambda r: self._prefill_bucket(len(r.prompt)),
+                    groupable, lambda r: self._prefill_bucket(len(r.prompt)),
                     self._prefill_max_batch):
                 self._prefill_group(reqs, padded)
                 for r in reqs:
@@ -620,6 +955,237 @@ class ServingEngine:
             raise
         finally:
             self._admitting = []
+
+    def _record_admission(self, req: GenRequest):
+        # a request admitted before (then requeued) records its queue wait
+        # once
+        first = req.admit_time is None
+        req.mark_admitted()  # no-op on a concurrently failed request
+        if first and req.admit_time is not None:
+            self.metrics.record_admitted(req.admit_time - req.submit_time)
+
+    def _lookup_prefix(self, toks: List[int]):
+        """The longest reusable cached prefix of `toks` and its source: a
+        running slot (an int) or a retained prefix's key. The match is
+        capped at len - 1 so one suffix token forwards for the logits.
+        Rolling pools (block mode) add the ring-validity gate: a retained
+        ring holds only its sequence's last W positions, so a copy is sound
+        when the prompt continues the retained sequence in full (the hit is
+        then its exact length) or the ring never wrapped; running rolling
+        slots are never indexed."""
+        if not self._prefix_on:
+            return None, 0
+        src, hit = self._index.lookup(toks, len(toks) - 1)
+        if src is None or not hit:
+            return None, 0
+        if self.pool.rolling:
+            ent = (None if isinstance(src, (int, np.integer))
+                   else self.pool.entry(src))
+            if ent is None:
+                return None, 0
+            f = ent.length
+            if f <= len(toks) - 1 and toks[:f] == ent.tokens:
+                return src, f  # a full continuation at the exact length
+            if f > self.pool.cap:
+                return None, 0  # wrapped: the prefix left the ring
+        return src, hit
+
+    def _src_blocks(self, src) -> List[int]:
+        """Physical blocks behind a prefix source: a running slot's map
+        row, or a retained prefix's pinned blocks."""
+        if isinstance(src, (int, np.integer)):
+            return self.pool.map_row(int(src))
+        return list(self.pool.entry(src).blocks)
+
+    def _resume_parked(self, req: GenRequest):
+        """Resume a preemption victim whose KV survived in its parked copy:
+        a slot, one insert of the copy, its logits row and its generator,
+        and it decodes on where it stopped."""
+        sub, last = req.parked
+        req.parked = None
+        tokens = req.effective_prompt()
+        blocks = None
+        if self._blocks_on:
+            got = self.pool.alloc_row(install=False)
+            if got is None:
+                raise RuntimeError("popped more requests than free slots")
+            slot, blocks = got
+        else:
+            slot = self.pool.alloc()
+            if slot is None:
+                raise RuntimeError("popped more requests than free slots")
+        st = None
+        try:
+            st = _PendingPrefill(req, slot, sub, len(tokens),
+                                 self._restore_rng(req.resume_rng), tokens,
+                                 blocks=blocks)
+            st.last = last
+            self._record_admission(req)
+            self._activate_pending(st)
+        except Exception:
+            if blocks is not None and not (st is not None and st.installed):
+                self.pool.drop_blocks(blocks)
+            self.pool.release(slot)
+            raise
+
+    def _start_pending(self, req: GenRequest, src, prefix_len: int):
+        """Reserve a slot and begin a suffix or chunked prefill. On a hit
+        the prefix is copied out of `src` (on a block pool through the new
+        row's own block list, whose first blocks alias the source's;
+        refs taken at alloc, the row installed at activation); otherwise
+        the batch-1 cache starts empty at offset 0. A preemption replay
+        prefills prompt + generated and continues its saved generator."""
+        tokens = req.effective_prompt()
+        plen = len(tokens)
+        if prefix_len:
+            # counted at the match, so hit_tokens - tokens_saved measures
+            # hits forfeited to pool pressure
+            self.metrics.count("prefix_hit_tokens", prefix_len)
+        blocks = None
+        pfx_blocks = 0
+        roll_src = None
+        if self._blocks_on:
+            alias = []
+            if prefix_len and self.pool.rolling:
+                # captured before alloc_row, which may evict the entry;
+                # its blocks keep their content until something writes
+                # them, and the copy below comes first. A ring is copied
+                # whole, never aliased: the new row's writes wrap into its
+                # early blocks
+                roll_src = list(self.pool.entry(src).blocks)
+            elif prefix_len:
+                pfx_blocks = prefix_len // self.pool.block_size
+                alias = self._src_blocks(src)[:pfx_blocks]
+            got = self.pool.alloc_row(alias=alias, install=False)
+            if got is None and prefix_len:
+                # block pressure: forfeit the hit, admit plain
+                src, prefix_len, pfx_blocks = None, 0, 0
+                got = self.pool.alloc_row(install=False)
+            if got is None:
+                raise RuntimeError("popped more requests than free slots")
+            slot, blocks = got
+        else:
+            slot = self.pool.alloc(exclude=(src,) if prefix_len else ())
+            if slot is None:
+                # the only allocatable slot is the source itself: forfeit
+                src, prefix_len = None, 0
+                slot = self.pool.alloc()
+            if slot is None:
+                raise RuntimeError("popped more requests than free slots")
+        try:
+            n = self._sub_len(plen)
+            if prefix_len:
+                if isinstance(src, (int, np.integer)):
+                    self.pool.touch(int(src))
+                else:
+                    self.pool.touch_key(src)
+                req.prefix_len = prefix_len
+                self.metrics.count("prefix_hits")
+                self.metrics.count("prefill_tokens_saved", prefix_len)
+                if not self._blocks_on:
+                    sub = slice_slot(self.pool.caches, int(src), prefix_len,
+                                     length=n)
+                elif roll_src is not None:
+                    sub = slice_blocks(self.pool.caches, roll_src,
+                                       prefix_len)
+                else:
+                    sub = slice_blocks(self.pool.caches,
+                                       blocks[:n // self.pool.block_size],
+                                       prefix_len)
+            else:
+                sub = self.pool.make_prefill_caches(1, n)
+            st = _PendingPrefill(req, slot, sub, prefix_len,
+                                 self._request_rng(req, plen), tokens,
+                                 blocks=blocks, pfx_blocks=pfx_blocks)
+            self._record_admission(req)
+            self._prefilling.append(st)
+        except Exception:
+            if blocks is not None:
+                self.pool.drop_blocks(blocks)  # the row was never installed
+            self.pool.release(slot)
+            raise
+
+    def _advance_prefill(self):
+        """One chunk of the oldest pending prefill; its last chunk lands it
+        in its slot. A chunk's tail pads up to the prefill bucket (at most
+        the chunk size, and never past the region); a rolling pool's
+        suffix after a hit forwards one token a step, since a multi-token
+        ring write at offset > 0 would evict history its own queries
+        need."""
+        if not self._prefilling:
+            return
+        st = self._prefilling[0]
+        plen = len(st.tokens)
+        n = plen - st.pos
+        if self._chunk is not None:
+            n = min(n, self._chunk)
+        if self.pool.rolling and st.pos > 0:
+            n = 1
+        b = self.serving.prefill_bucket
+        if self.pool.rolling or (self._chunk is not None
+                                 and n == self._chunk):
+            padded = n
+        else:
+            padded = -(-n // b) * b
+            if self._chunk is not None:
+                padded = min(padded, max(self._chunk, n))
+            padded = min(padded, self.max_len - st.pos)
+        toks = np.full((1, padded), self.gen.pad_id, np.int64)
+        toks[0, :n] = st.tokens[st.pos:st.pos + n]
+        st.sub, st.last = prefill_chunk(
+            self.gen.params, self._upload(toks), st.sub, self.cfg,
+            rope=self.gen.rope, last_idx=n - 1, next_offset=st.pos + n)
+        st.pos += n
+        st.req.prefill_chunks += 1
+        self.metrics.count("prefill_chunks")
+        self.metrics.count("prefill_forward_tokens", n)
+        if st.pos >= plen:
+            self._prefilling.pop(0)
+            self._activate_pending(st)
+
+    def _activate_pending(self, st: _PendingPrefill):
+        """Land a finished pending prefill: install its map row (only now,
+        so the decode steps between its chunks wrote nothing into its
+        blocks), insert its KV past the aliased prefix, and activate the
+        slot with its logits row, generator and residual carry."""
+        slot, req = st.slot, st.req
+        plen = len(st.tokens)
+        if self._blocks_on:
+            self.pool.install_row(slot, st.blocks)
+            st.installed = True
+            insert_blocks(self.pool.caches, st.sub, slot, plen,
+                          st.pfx_blocks)
+        else:
+            insert_prefill(self.pool.caches, st.sub, slot, plen)
+        self._last_logits[slot] = st.last
+        sp = req.sampling
+        self._gens[slot] = st.rng
+        self._lengths[slot] = plen
+        self._active[slot] = True
+        self._temps[slot] = sp.temperature
+        self._top_ks[slot] = sp.top_k
+        self._top_ps[slot] = sp.top_p
+        self._reject[slot] = req.resume_reject  # -1 unless resumed
+        self._slot_req[slot] = req
+        self._sampling_dirty = True
+        self._kv_dirty = True
+        self._lengths_dirty = True
+        if self._prefix_on and not self.pool.rolling:
+            # cloneable for the sequence it now holds; a running ring
+            # keeps wrapping over its prefix, so rolling slots are indexed
+            # only when retained
+            self._index.insert(slot, st.tokens)
+
+    def _drop_pending(self, st: _PendingPrefill, msg: str,
+                      kind: str = "error"):
+        self._prefilling.remove(st)
+        if st.blocks is not None:
+            # still pending: the row was never installed, so only the
+            # pending prefill holds its blocks
+            self.pool.drop_blocks(st.blocks)
+        self._kv_dirty = True
+        self.pool.release(st.slot)
+        st.req.fail(msg, kind=kind)
 
     def _prefill_group(self, reqs: List[GenRequest], padded: int):
         """One batched prefill for same-bucket admissions. The batch rounds
@@ -674,14 +1240,9 @@ class ServingEngine:
             self._temps[slot] = sp.temperature
             self._top_ks[slot] = sp.top_k
             self._top_ps[slot] = sp.top_p
+            self._reject[slot] = -1
             self._slot_req[slot] = req
-            # a request admitted before (then requeued) records its queue
-            # wait once
-            first = req.admit_time is None
-            req.mark_admitted()  # no-op on a concurrently failed request
-            if first and req.admit_time is not None:
-                self.metrics.record_admitted(req.admit_time
-                                             - req.submit_time)
+            self._record_admission(req)
             req.prefill_chunks = 1
         if view is not None:
             scatter_view(self.pool.caches, view)
@@ -692,16 +1253,23 @@ class ServingEngine:
         self.metrics.count("prefill_calls")
         self.metrics.count("prefill_prompts", B_real)
         self.metrics.count("prefill_forward_tokens", int(sum(plens)))
+        if self._prefix_on and not self.pool.rolling:
+            for slot, req in zip(slots, reqs):
+                self._index.insert(slot, req.prompt)
 
     def _reap_cancelled(self):
         for slot in np.nonzero(self._active)[0]:
             req = self._slot_req[slot]
             if req is not None and req.cancelled:
                 self._evict(slot, failed="cancelled")
+        for st in list(self._prefilling):
+            if st.req.cancelled:
+                self._drop_pending(st, "cancelled")
 
     def _reap_expired(self):
-        """Evict running slots and drop queued requests whose deadline
-        (request `deadline_s`, else request_deadline_s) ran out."""
+        """Evict running slots and drop pending and queued requests whose
+        deadline (request `deadline_s`, else request_deadline_s) ran
+        out."""
         now = time.monotonic()
         for slot in np.nonzero(self._active)[0]:
             req = self._slot_req[slot]
@@ -716,20 +1284,50 @@ class ServingEngine:
                             f"(deadline {ad - req.submit_time:.1f}s, "
                             f"{len(req.generated)} tokens generated)"),
                     kind="deadline")
+        for st in list(self._prefilling):
+            ad = st.req.absolute_deadline(self._deadline_s)
+            if ad is not None and now > ad:
+                self._drop_pending(
+                    st, f"deadline exceeded after "
+                    f"{now - st.req.submit_time:.1f}s "
+                    f"(deadline {ad - st.req.submit_time:.1f}s, "
+                    f"{st.pos} prompt tokens prefilled)", kind="deadline")
         self.scheduler.drop_expired(self._deadline_s, now)
 
     def _evict(self, slot: int, failed: Optional[str] = None,
                kind: str = "error"):
+        """Free a finished or failed slot. With the prefix cache a finished
+        request's KV is retained and indexed by its full sequence: on a
+        block pool as a row-less entry pinning the blocks it covers (the
+        row parks at 0 with an all-TRASH map); on a whole-region pool the
+        slot itself, which parks its decode position at its final length
+        so the grid's idle writes land past every cloneable prefix."""
         slot = int(slot)
         req = self._slot_req[slot]
         self._slot_req[slot] = None
         self._active[slot] = False
         self._gens[slot] = None
-        self._lengths[slot] = 0  # idle rows park at position 0
-        self.pool.release(slot)
+        self._reject[slot] = -1
         self._kv_dirty = True
         self._lengths_dirty = True
         self._sampling_dirty = True
+        tokens = req.prompt + req.generated
+        if failed is None and self._prefix_on and self._blocks_on:
+            self._index.remove(slot)
+            key = self.pool.retain_row(slot, int(self._lengths[slot]),
+                                       tokens)
+            if key is not None:
+                self._index.insert(key, tokens)
+            self._lengths[slot] = 0
+        elif failed is None and self._prefix_on:
+            # indexed before retain: a retain that reclaims this very slot
+            # (retained_slots=0) removes the entry again through on_reclaim
+            self._index.insert(slot, tokens)
+            self.pool.retain(slot)
+        else:
+            self._lengths[slot] = 0  # idle rows park at position 0
+            self.pool.release(slot)
+            self._index.remove(slot)
         if failed is not None:
             req.fail(failed, kind=kind)
             return
@@ -738,12 +1336,19 @@ class ServingEngine:
                 req.finish_time - (req.admit_time or req.submit_time))
 
     def _step(self):
-        """K chained decode steps, ONE host sync, then bookkeeping. A
-        request that hits EOS or its token budget at inner step r discards
-        the window's remaining K-1-r steps (`wasted_decode_steps`) and is
-        evicted at the boundary; per-request streams are the same for any
-        K, since no slot's logits, generator or KV cross slots or
-        windows."""
+        """K chained steps, ONE host read, then bookkeeping. A request that
+        hits EOS or its token budget at inner step r discards the window's
+        remaining K-1-r steps (`wasted_decode_steps`) and is evicted at the
+        boundary; per-request streams are the same for any K, since no
+        slot's logits, generator or KV cross slots or windows.
+
+        With `speculative_k` each step is a verify round: the window's
+        draft grids are proposed up front from the committed history
+        (`build_draft_rounds`), a round commits 1 + accepted tokens a live
+        slot, and the accept counts and residual carry chain on the device
+        between reads. A round in which no slot proposes a draft runs the
+        plain decode step (`spec_fallback_steps`), which consumes the
+        carry too."""
         K = self._sync_interval
         inj = get_fault_injector()
         if inj is not None:
@@ -769,26 +1374,64 @@ class ServingEngine:
                               else None)
             self._d_top_ps = (self._upload(self._top_ps)
                               if ((ps > 0) & (ps < 1)).any() else None)
+            self._d_greedy = self._upload(~draws)
             self._sampling_dirty = False
             self.metrics.count("sampling_uploads")
         if self._lengths_dirty or not self._active.all():
-            # churn re-syncs positions from the host; a partly idle grid
+            # churn re-syncs positions (and the residual carry, exact on
+            # the host at boundaries) from the host; a partly idle grid
             # also re-parks its idle rows each window
             self._d_lengths = self._upload(self._lengths)
+            self._d_reject = self._upload(self._reject)
             self._lengths_dirty = False
-        tok_steps, lp_steps = [], []
-        for _ in range(K):
-            toks, lps = self._decode_fn()
-            tok_steps.append(toks)
-            lp_steps.append(lps)
-        toks = torch.stack(tok_steps).cpu().numpy()  # the window's one sync
-        tok_lp = torch.stack(lp_steps).cpu().numpy()
+        k = self._spec_k
+        spec_round = [False] * K
+        grids = None
+        if k:
+            histories: List[Optional[List[int]]] = [None] * self.num_slots
+            win = getattr(self.drafter, "scan_window", None)
+            for slot in np.nonzero(self._active)[0]:
+                req = self._slot_req[slot]
+                hist = req.prompt + req.generated
+                histories[slot] = hist if win is None else hist[-win:]
+            grids, spec_round, _ = build_draft_rounds(histories,
+                                                      self.drafter, k, K)
+        W = k + 1
+        steps = []
+        for r in range(K):
+            if spec_round[r]:
+                window, lps, acc = self._verify_fn(
+                    self._upload(grids[r].astype(np.int64)))
+                self.metrics.count("spec_rounds")
+            else:
+                toks, tok_lp = self._decode_fn()
+                window = torch.zeros(self.num_slots, W, dtype=torch.int64,
+                                     device=self.device)
+                window[:, 0] = toks
+                lps = torch.zeros(self.num_slots, W, device=self.device)
+                lps[:, 0] = tok_lp
+                acc = torch.zeros(self.num_slots, dtype=torch.int64,
+                                  device=self.device)
+                if k:
+                    self.metrics.count("spec_fallback_steps")
+            steps.append(torch.cat([window.double(), lps.double(),
+                                    acc.double()[:, None]], dim=1))
+        # the window's one host read: tokens, logprobs and accept counts of
+        # every step, and the residual carry
+        packed = torch.cat([torch.stack(steps).reshape(-1),
+                            self._d_reject.double()]).cpu().numpy()
         self.metrics.count("host_syncs")
         if self._wedged:
             # the watchdog flagged this iteration in flight and already
             # failed its requests: its results rest on untrusted state
             raise EngineHungError("engine iteration exceeded the watchdog "
                                   "deadline mid-dispatch")
+        S = self.num_slots
+        grid = packed[:K * S * (2 * W + 1)].reshape(K, S, 2 * W + 1)
+        toks = grid[..., :W].astype(np.int64)
+        tok_lp = grid[..., W:2 * W]
+        accs = grid[..., 2 * W].astype(np.int64)
+        self._reject = packed[K * S * (2 * W + 1):].astype(np.int64)
         active_slots = np.nonzero(self._active)[0]
         n_active = len(active_slots)
         consumed = np.zeros(K, np.int64)
@@ -796,31 +1439,46 @@ class ServingEngine:
         for slot in active_slots:
             req = self._slot_req[slot]
             had = len(req.generated)
+            done = False
             for r in range(K):
-                lp = float(tok_lp[r, slot])
-                if not math.isfinite(lp):
-                    # a poisoned request fails; the engine continues
-                    self.metrics.count("nonfinite_logit_fails")
-                    if K - 1 - r:
-                        self.metrics.count("wasted_decode_steps", K - 1 - r)
-                    self._evict(slot, failed=(
-                        f"non-finite logits at position "
-                        f"{int(self._lengths[slot])} (after "
-                        f"{len(req.generated)} tokens)"))
+                if done:
                     break
-                tok = int(toks[r, slot])
-                first = not req.generated
-                req.append_token(tok, lp)
-                if first:
-                    self.metrics.record_first_token(req.ttft)
-                self._lengths[slot] += 1
-                consumed[r] += 1
-                if (tok == self.gen.eos_id
-                        or len(req.generated) >= req.max_new_tokens):
-                    if K - 1 - r:
-                        self.metrics.count("wasted_decode_steps", K - 1 - r)
-                    self._evict(slot)
-                    break
+                n = 1 + int(accs[r, slot])
+                if spec_round[r]:
+                    drafted = int((grids[r][slot] >= 0).sum())
+                    if drafted:
+                        self.metrics.count("draft_tokens", drafted)
+                for j in range(n):
+                    lp = float(tok_lp[r, slot, j])
+                    if not math.isfinite(lp):
+                        # a poisoned request fails; the engine continues
+                        self.metrics.count("nonfinite_logit_fails")
+                        if K - 1 - r:
+                            self.metrics.count("wasted_decode_steps",
+                                               K - 1 - r)
+                        self._evict(slot, failed=(
+                            f"non-finite logits at position "
+                            f"{int(self._lengths[slot])} (after "
+                            f"{len(req.generated)} tokens)"))
+                        done = True
+                        break
+                    tok = int(toks[r, slot, j])
+                    first = not req.generated
+                    req.append_token(tok, lp)
+                    if first:
+                        self.metrics.record_first_token(req.ttft)
+                    if j:
+                        self.metrics.count("accepted_tokens")
+                    self._lengths[slot] += 1
+                    consumed[r] += 1
+                    if (tok == self.gen.eos_id
+                            or len(req.generated) >= req.max_new_tokens):
+                        if K - 1 - r:
+                            self.metrics.count("wasted_decode_steps",
+                                               K - 1 - r)
+                        self._evict(slot)
+                        done = True
+                        break
             n_new = len(req.generated) - had
             prev = getattr(req, "_last_commit_t", None)
             if prev is not None and n_new:
@@ -835,9 +1493,9 @@ class ServingEngine:
             window_bracket += K * 2 * self._view_bytes
         self.metrics.set_attn_gauges(window_bracket // K, self._attn_path)
         depth = self.scheduler.depth()
-        for k in range(K):
+        for r in range(K):
             self.metrics.record_step(n_active, self.num_slots,
-                                     int(consumed[k]), depth)
+                                     int(consumed[r]), depth)
         if self._kv_dirty:
             self.metrics.set_kv_gauges(*self.pool.kv_gauges(self._lengths))
             self._kv_dirty = False

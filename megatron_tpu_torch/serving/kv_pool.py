@@ -42,9 +42,23 @@ sized to its padded prompt, not to the region: `insert_prefill` /
 `insert_blocks` write the positions it covers, and under write-before-read
 nothing past a row's length is read before decode writes it.
 
-Retention for the prefix cache (`retain`, `retain_row`, `RetainedPrefix`,
-`on_reclaim`) raises NotImplementedError: it comes with the prefix-cache
-slice.
+Retention for the prefix cache (kv_pool.py SlotKVPool): a finished
+request may be retained instead of freed. On a whole-region pool its slot
+moves to an LRU of retained slots (`retain`), reclaimed lazily when `alloc`
+runs out of free slots; the engine parks a retained row's decode position
+at its final length, so the grid's idle writes land past every cloneable
+prefix. On a block pool `retain_row` turns the row into a row-less
+`RetainedPrefix` pinning only the blocks its tokens cover; the row and its
+tail blocks free at once, and entries are evicted LRU-first under block
+pressure (`_ensure_free_blocks`). `on_reclaim(key)` fires when retained KV
+is about to be overwritten so the prefix index forgets it. A prefix hit on
+a block pool aliases the shared blocks into the new row's map
+(`alloc_row(alias=...)`, refcounted) and `insert_blocks` skips them
+(`pfx_blocks`); a whole-region hit copies the region (`slice_slot`).
+
+`slice_slot` and `slice_blocks` return copies, never views of the pool: a
+parked preemption victim or a pending prefill's prefix must not see the
+grid's later in-place writes.
 
 `fit_num_slots` sizes `num_slots` to the card's free memory (the CLI
 server's default).
@@ -53,7 +67,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import itertools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,10 +78,6 @@ from megatron_tpu_torch.inference.generation import (init_kv_caches,
                                                      kv_region_cap, kv_scales)
 from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
-
-_RETENTION = ("prefix-cache retention is ported with the prefix cache in a "
-              "later slice (ROADMAP Queue 1 item 6)")
-
 
 # the cache tensors a pool copies: k/v, and an int8 pool's scales
 _PARTS = ("k", "v", "k_scale", "v_scale")
@@ -86,6 +97,31 @@ def insert_prefill(pool: KVCache, prefill: KVCache, slot: int,
             dst[:, slot, :n] = getattr(prefill, name)[:, 0].to(dst.dtype)
     pool.offset[slot] = plen
     return pool
+
+
+def slice_slot(pool: KVCache, slot: int, offset: int,
+               length: Optional[int] = None) -> KVCache:
+    """A copy of `slot`'s region (its first `length` positions, the whole
+    region by default) as a batch-1 cache [L, 1, length, nkv, hd]
+    positioned at `offset` (a host int): the read half of `clone_prefix`
+    and a whole-region preemption park. Positions past `offset` are the
+    source's continuation or garbage, which the causal mask never reads
+    and appends overwrite."""
+    n = pool.k.shape[2] if length is None else int(length)
+    return KVCache(*(None if t is None else t[:, slot:slot + 1, :n].clone()
+                     for t in (pool.k, pool.v)), int(offset),
+                   *(None if t is None else t[:, slot:slot + 1, :n].clone()
+                     for t in (pool.k_scale, pool.v_scale)))
+
+
+def clone_prefix(pool: KVCache, src_slot: int, dst_slot: int,
+                 plen: int) -> KVCache:
+    """Copy `src_slot`'s region into `dst_slot` with its first `plen`
+    tokens live, bit for bit: the prefix-hit primitive of a whole-region
+    pool (the engine runs it split around the suffix forward). In place;
+    returns `pool`."""
+    return insert_prefill(pool, slice_slot(pool, src_slot, plen), dst_slot,
+                          plen)
 
 
 @dataclasses.dataclass
@@ -150,9 +186,10 @@ def scatter_view(bkv: BlockKV, view: KVCache) -> BlockKV:
 
 
 def slice_blocks(bkv: BlockKV, blocks, offset: int) -> KVCache:
-    """Gather an explicit physical-block list ([cap / B]) into a batch-1
-    cache [L, 1, cap, nkv, hd] positioned at `offset` (a host int): a
-    row's, or a row-less retained prefix's, KV as one sequence."""
+    """Gather an explicit physical-block list (nb blocks) into a batch-1
+    cache [L, 1, nb * B, nkv, hd] positioned at `offset` (a host int): a
+    row's, or a row-less retained prefix's, KV as one sequence. The gather
+    copies."""
     a = bkv.arena
     idx = torch.as_tensor(blocks, dtype=torch.long, device=a.k.device)
 
@@ -165,33 +202,46 @@ def slice_blocks(bkv: BlockKV, blocks, offset: int) -> KVCache:
                      for t in (a.k_scale, a.v_scale)))
 
 
-def insert_blocks(bkv: BlockKV, sub: KVCache, slot: int,
-                  plen: int) -> BlockKV:
+def insert_blocks(bkv: BlockKV, sub: KVCache, slot: int, plen: int,
+                  pfx_blocks: int = 0) -> BlockKV:
     """Land a batch-1 cache [L, 1, n, nkv, hd] (with its scales in an int8
     pool) in `slot`'s mapped blocks: position p goes to block
-    map[slot, p // B], row p % B, for every p < n (the blocks covering the
-    padded prompt), and the row's offset becomes `plen`. (Skipping aliased
-    shared-prefix blocks comes with the prefix cache.) In place; returns
+    map[slot, p // B], row p % B, for every pfx_blocks * B <= p < n, and
+    the row's offset becomes `plen`. The first `pfx_blocks` blocks are
+    aliased shared-prefix blocks whose content the arena already holds for
+    every holder (the copy-on-write boundary), so they are skipped; 0
+    writes every block (a miss, a preemption resume). In place; returns
     `bkv`."""
     a = bkv.arena
     n = sub.k.shape[2]
     B = a.k.shape[2]
-    pos = torch.arange(n, device=a.k.device)
+    lo = int(pfx_blocks) * B
+    pos = torch.arange(lo, n, device=a.k.device)
     phys = bkv.map[slot, pos // B].long()
     for name in _PARTS:
         dst = getattr(a, name)
         if dst is not None:
-            dst[:, phys, pos % B] = getattr(sub, name)[:, 0].to(dst.dtype)
+            dst[:, phys, pos % B] = getattr(sub, name)[:, 0, lo:].to(
+                dst.dtype)
     a.offset[slot] = plen
     return bkv
 
 
 class RetainedPrefix:
-    """A finished sequence's KV pinned at block granularity: comes with the
-    prefix cache."""
+    """A finished sequence's KV pinned at block granularity: the physical
+    blocks covering its first `length` tokens (all ring blocks on a rolling
+    pool, whose whole window is live) and its tokens. Holds no grid row;
+    `namespace` rides into the prefix index."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_RETENTION)
+    __slots__ = ("key", "blocks", "length", "tokens", "namespace")
+
+    def __init__(self, key, blocks: List[int], length: int,
+                 tokens: List[int], namespace=None):
+        self.key = key
+        self.blocks = blocks
+        self.length = length
+        self.tokens = tokens
+        self.namespace = namespace
 
 
 class SlotKVPool:
@@ -199,11 +249,21 @@ class SlotKVPool:
 
     `caches` is the live device state (a KVCache with per-slot offsets, or
     a BlockKV in block mode), updated in place by the engine's forwards.
-    Slot and block accounting runs on the engine thread only."""
+    Slot, block and retention accounting runs on the engine thread only.
+
+    Whole-region mode: `retain` moves a finished slot to the retained LRU
+    instead of the free list, and `alloc` reclaims free slots first, then
+    retained ones oldest first (`exclude` protects a prefix hit's source in
+    the same admission). Block mode: rows allocate their cap / B blocks
+    (`alloc_row`, optionally aliasing shared prefix blocks), release them
+    on eviction, and `retain_row` converts a finished row into a row-less
+    RetainedPrefix. `retained_limit` caps the retained slots or entries;
+    `on_reclaim(key)` fires with a slot or entry key when retained KV is
+    reclaimed."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  dtype=torch.bfloat16, block_size: Optional[int] = None, *,
-                 device=None):
+                 retained_limit: Optional[int] = None, device=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.cfg = cfg
@@ -217,10 +277,18 @@ class SlotKVPool:
                         and self.cap < max_len)
         if block_size is not None and block_size >= self.cap:
             # whole-region blocks ARE the regions, except on a rolling
-            # pool, where one block a slot is still a block pool
+            # pool, where one block a slot is still a block pool (and
+            # what lets a ring retain at all)
             block_size = self.cap if self.rolling else None
         self.block_size = block_size
         self._free: collections.deque = collections.deque(range(num_slots))
+        # retained state, oldest first (touch moves to the end, reclaim
+        # pops from the front): slots in whole-region mode, RetainedPrefix
+        # entries by key in block mode
+        self._retained: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self.retained_limit = retained_limit
+        self.on_reclaim: Optional[Callable] = None
         if block_size is None:
             self.caches = init_kv_caches(cfg, num_slots, max_len,
                                          dtype=dtype, per_slot_offsets=True,
@@ -248,6 +316,11 @@ class SlotKVPool:
         self._rc[self.TRASH] = 1 << 60  # never freed
         self._free_blocks: collections.deque = collections.deque(
             range(self.total_blocks - 1))
+        self._ret_ids = itertools.count()
+        # free_count memo: the reclaimable-block walk is O(retained
+        # blocks) and the engine asks every iteration
+        self._acct_dirty = True
+        self._free_count_cache = 0
 
     @property
     def blocks_enabled(self) -> bool:
@@ -265,37 +338,65 @@ class SlotKVPool:
                               self.max_len if self.rolling else length,
                               dtype=self.dtype, device=self.device)
 
-    # ---- retention: the prefix-cache slice -----------------------------
-    @property
-    def on_reclaim(self):
-        return None
-
-    @on_reclaim.setter
-    def on_reclaim(self, fn):
-        raise NotImplementedError(_RETENTION)
-
-    def retain(self, slot: int):
-        raise NotImplementedError(_RETENTION)
-
-    def retain_row(self, slot: int, length: int, tokens: List[int],
-                   namespace=None):
-        raise NotImplementedError(_RETENTION)
+    def live_blocks(self, length: int) -> int:
+        """Blocks a sequence of `length` tokens covers: all ring blocks on
+        a rolling pool (its whole window is live)."""
+        if self.rolling:
+            return self.blocks_per_slot
+        return min(-(-int(length) // self.block_size), self.blocks_per_slot)
 
     # ---- whole-region slot bookkeeping (engine thread only) ----------
-    def alloc(self) -> Optional[int]:
-        """A free slot (FIFO in release order), or None."""
+    def alloc(self, exclude=()) -> Optional[int]:
+        """A slot: free ones first (FIFO in release order), then the
+        least recently used retained one outside `exclude` (`on_reclaim`
+        fires for it). None when nothing is allocatable."""
         if self.blocks_enabled:
             raise RuntimeError("block pools allocate with alloc_row")
-        return self._free.popleft() if self._free else None
+        if self._free:
+            return self._free.popleft()
+        victim = next((s for s in self._retained if s not in exclude), None)
+        if victim is None:
+            return None
+        del self._retained[victim]
+        self._reclaim(victim)
+        return victim
+
+    def retain(self, slot: int):
+        """Keep a finished slot's KV for prefix reuse: the slot moves to
+        the retained LRU's recent end; past `retained_limit` the oldest
+        retained slot is reclaimed onto the free list."""
+        if self.blocks_enabled:
+            raise RuntimeError("block pools retain with retain_row")
+        slot = int(slot)
+        if slot in self._free or slot in self._retained:
+            raise RuntimeError(f"retain of non-busy slot {slot}")
+        self._retained[slot] = None
+        if (self.retained_limit is not None
+                and len(self._retained) > max(self.retained_limit, 0)):
+            old, _ = self._retained.popitem(last=False)
+            self._reclaim(old)
+            self._free.append(old)
+
+    def touch(self, slot: int):
+        """A prefix hit read `slot`'s KV: refresh its LRU position (no-op
+        for running slots)."""
+        if slot in self._retained:
+            self._retained.move_to_end(slot)
+
+    def _reclaim(self, key):
+        if self.on_reclaim is not None:
+            self.on_reclaim(key)
 
     def release(self, slot: int):
-        """Free a slot (in block mode: `release_row`)."""
+        """Free a slot without retaining it (in block mode:
+        `release_row`)."""
         if self.blocks_enabled:
             self.release_row(slot)
             return
         slot = int(slot)
         if slot in self._free:
             raise RuntimeError(f"double free of slot {slot}")
+        self._retained.pop(slot, None)
         self._free.append(slot)
 
     # ---- block-mode accounting (engine thread only) ------------------
@@ -307,32 +408,61 @@ class SlotKVPool:
                               torch.tensor(self._map, device=self.device))
 
     def _unref(self, block: int):
+        self._acct_dirty = True
         self._rc[block] -= 1
         if self._rc[block] < 0:
             raise RuntimeError(f"refcount underflow on block {block}")
         if self._rc[block] == 0:
             self._free_blocks.append(block)
 
+    def _evict_retained(self):
+        key, ent = self._retained.popitem(last=False)
+        for b in ent.blocks:
+            self._unref(b)
+        self._reclaim(key)
+
+    def _ensure_free_blocks(self, n: int) -> bool:
+        while len(self._free_blocks) < n and self._retained:
+            self._evict_retained()
+        return len(self._free_blocks) >= n
+
     def map_row(self, slot: int) -> List[int]:
         return [int(b) for b in self._map[slot]]
 
-    def alloc_row(self, sync: bool = True
-                  ) -> Optional[Tuple[int, List[int]]]:
-        """Allocate a grid row plus its cap / B physical blocks from the
-        free pool and install them in the row's map. Returns (slot, blocks)
-        or None. `sync=False` defers the device-map upload so a batched
-        caller pays one upload. (Aliasing shared prefix blocks comes with
-        the prefix cache.)"""
+    def alloc_row(self, alias: Sequence[int] = (), install: bool = True,
+                  sync: bool = True) -> Optional[Tuple[int, List[int]]]:
+        """Allocate a grid row plus its cap / B physical blocks. `alias`
+        (a prefix of shared blocks: a running row's or a RetainedPrefix's)
+        is referenced in place; only the rest come fresh from the free
+        pool, evicting retained entries LRU-first under pressure (the refs
+        taken here keep aliased blocks alive). Returns (slot, blocks) or
+        None. With `install=False` the map row stays on TRASH until the
+        caller's `install_row` at activation, so the grid's idle writes
+        never reach the blocks before the prefill lands. `sync=False`
+        defers the device-map upload so a batched caller pays one."""
         if not self.blocks_enabled:
             raise RuntimeError("whole-region pools allocate with alloc")
-        need = self.blocks_per_slot
-        if not self._free or len(self._free_blocks) < need:
+        if not self._free:
             return None
-        blocks = [self._free_blocks.popleft() for _ in range(need)]
-        for b in blocks:
+        alias = list(alias)
+        if len(alias) > self.blocks_per_slot:
+            raise ValueError(f"{len(alias)} aliased blocks exceed a row's "
+                             f"{self.blocks_per_slot}")
+        self._acct_dirty = True
+        for b in alias:
+            self._rc[b] += 1  # refs first: eviction-safe
+        need = self.blocks_per_slot - len(alias)
+        if not self._ensure_free_blocks(need):
+            for b in alias:
+                self._unref(b)
+            return None
+        fresh = [self._free_blocks.popleft() for _ in range(need)]
+        for b in fresh:
             self._rc[b] = 1
         slot = self._free.popleft()
-        self.install_row(slot, blocks, sync=sync)
+        blocks = alias + fresh
+        if install:
+            self.install_row(slot, blocks, sync=sync)
         return slot, blocks
 
     def install_row(self, slot: int, blocks: Sequence[int],
@@ -342,12 +472,19 @@ class SlotKVPool:
         if sync:
             self._sync_map()
 
+    def drop_blocks(self, blocks: Sequence[int]):
+        """Unref blocks held outside a map row (an aborted pending prefill
+        whose row was never installed)."""
+        for b in blocks:
+            self._unref(int(b))
+
     def release_row(self, slot: int):
         """Free a grid row: unref its mapped blocks, park the map on
         TRASH, return the row."""
         slot = int(slot)
         if slot in self._free:
             raise RuntimeError(f"double free of slot {slot}")
+        self._acct_dirty = True
         for b in self._map[slot]:
             if b != self.TRASH:
                 self._unref(int(b))
@@ -355,17 +492,120 @@ class SlotKVPool:
         self._sync_map()
         self._free.append(slot)
 
-    # ---- capacity / introspection ------------------------------------
-    def free_count(self) -> int:
-        """Allocatable slots: free rows, and in block mode no more than the
-        free blocks can back."""
+    def retain_row(self, slot: int, length: int, tokens: List[int],
+                   namespace=None):
+        """Convert a finished row into a row-less RetainedPrefix pinning
+        the blocks that cover `length` tokens; the tail blocks and the row
+        free at once. Returns the entry's key (for the prefix index), or
+        None when `retained_limit` is 0. Past the limit the oldest entry
+        is evicted (`on_reclaim` fires with its key)."""
         if not self.blocks_enabled:
-            return len(self._free)
-        return min(len(self._free),
-                   len(self._free_blocks) // self.blocks_per_slot)
+            raise RuntimeError("whole-region pools retain with retain")
+        if self.retained_limit is not None and self.retained_limit <= 0:
+            self.release_row(slot)
+            return None
+        blocks = [int(b) for b in self._map[slot][:self.live_blocks(length)]]
+        if self.TRASH in blocks:
+            raise RuntimeError(f"retain of an uninstalled row {slot}")
+        key = ("ret", next(self._ret_ids))
+        self._acct_dirty = True
+        for b in blocks:
+            self._rc[b] += 1  # the entry's refs, before the row drops its own
+        self.release_row(slot)
+        self._retained[key] = RetainedPrefix(key, blocks, int(length),
+                                             list(tokens),
+                                             namespace=namespace)
+        if (self.retained_limit is not None
+                and len(self._retained) > self.retained_limit):
+            self._evict_retained()
+        return key
+
+    def entry(self, key) -> Optional[RetainedPrefix]:
+        return self._retained.get(key)
+
+    def touch_key(self, key):
+        if key in self._retained:
+            self._retained.move_to_end(key)
+
+    def drop_retained(self) -> int:
+        """Reclaim every retained entry or slot (`on_reclaim` fires for
+        each). Returns the count."""
+        n = len(self._retained)
+        if self.blocks_enabled:
+            while self._retained:
+                self._evict_retained()
+        else:
+            while self._retained:
+                slot, _ = self._retained.popitem(last=False)
+                self._reclaim(slot)
+                self._free.append(slot)
+        return n
+
+    # ---- capacity / introspection ------------------------------------
+    def accounting(self) -> dict:
+        """A copy of the accounting state (free rows, retained entries,
+        and in block mode refcounts, map, free blocks): the conservation
+        laws refcount == row refs + retained refs + pending refs and
+        free + used == total are checked against it. Engine-thread state:
+        read it with the engine idle."""
+        out = {
+            "blocks_enabled": self.blocks_enabled,
+            "num_slots": self.num_slots,
+            "free_rows": [int(s) for s in self._free],
+            "retained": {
+                key: {"blocks": (list(ent.blocks)
+                                 if self.blocks_enabled else None),
+                      "length": (ent.length if self.blocks_enabled
+                                 else None)}
+                for key, ent in self._retained.items()},
+            "rolling": self.rolling,
+        }
+        if self.blocks_enabled:
+            out.update(rc=self._rc.copy(), map=self._map.copy(),
+                       free_blocks=[int(b) for b in self._free_blocks],
+                       total_blocks=self.total_blocks, trash=self.TRASH,
+                       blocks_per_slot=self.blocks_per_slot)
+        return out
+
+    def free_count(self) -> int:
+        """Allocatable slots. Whole-region: free plus retained. Block
+        mode: min(free rows, the fresh-row admissions the free plus
+        reclaimable blocks back). A block is reclaimable when every one of
+        its refs comes from retained entries; counting only rc == 1 blocks
+        would starve admission once retained entries alias each other's
+        blocks (multi-turn chains)."""
+        if not self.blocks_enabled:
+            return len(self._free) + len(self._retained)
+        if not self._acct_dirty:
+            return self._free_count_cache
+        retained_refs: collections.Counter = collections.Counter()
+        for ent in self._retained.values():
+            for b in ent.blocks:
+                retained_refs[b] += 1
+        avail = len(self._free_blocks) + sum(
+            1 for b, n in retained_refs.items() if self._rc[b] == n)
+        self._free_count_cache = min(len(self._free),
+                                     avail // self.blocks_per_slot)
+        self._acct_dirty = False
+        return self._free_count_cache
 
     def free_rows(self) -> int:
+        """Free grid rows: a race-free read for `health()` from HTTP
+        threads (`free_count`'s memo is engine-thread only)."""
         return len(self._free)
+
+    def retained_count(self) -> int:
+        return len(self._retained)
+
+    def shared_block_count(self) -> int:
+        """Physical blocks held by more than one owner (row maps, retained
+        entries, pending prefills): 0 on a whole-region pool."""
+        if not self.blocks_enabled:
+            return 0
+        return int(np.sum(self._rc[:self.TRASH] > 1))
+
+    def block_refcount(self, block: int) -> int:
+        return int(self._rc[int(block)])
 
     def nbytes(self) -> int:
         """Bytes of the pool's k/v (and int8 scales)."""
@@ -391,26 +631,37 @@ class SlotKVPool:
 
     def kv_gauges(self, lengths) -> Tuple[int, int, int]:
         """(kv_blocks_used, kv_blocks_retained, kv_bytes_wasted): blocks in
-        use (whole-region pools count regions), retained (0 until the
-        prefix cache), and reserved-minus-live bytes, the fragmentation the
-        block pool shrinks."""
+        use and pinned by retained entries (whole-region pools count
+        regions), and reserved-minus-live bytes, the fragmentation the
+        block pool shrinks. An aliased block counts once, at its largest
+        coverage."""
         lengths = np.minimum(np.asarray(lengths), self.cap)
         if self.blocks_enabled:
             used = int(self.total_blocks - 1 - len(self._free_blocks))
             B = self.block_size
             cover = np.zeros(self.total_blocks, np.int64)
+
+            def _cover(blocks, ntok):
+                for i, b in enumerate(blocks):
+                    cover[b] = max(cover[b], min(max(ntok - i * B, 0), B))
+
             for slot in range(self.num_slots):
-                n = int(lengths[slot])
-                for i, b in enumerate(self._map[slot]):
-                    cover[b] = max(cover[b], min(max(n - i * B, 0), B))
+                _cover(self._map[slot], int(lengths[slot]))
+            pinned = set()
+            for e in self._retained.values():
+                _cover(e.blocks, min(e.length, self.cap))
+                pinned.update(e.blocks)
+            retained = len(pinned)
             cover[self.TRASH] = 0
             live = int(cover.sum())
             reserved = used * B
         else:
             used = self.num_slots - len(self._free)
+            retained = len(self._retained)
             live = int(lengths.sum())
             reserved = used * self.cap
-        return used, 0, max(reserved - live, 0) * self.bytes_per_token()
+        return (used, retained,
+                max(reserved - live, 0) * self.bytes_per_token())
 
 
 def slot_nbytes(cfg: ModelConfig, max_len: int, dtype=torch.bfloat16,

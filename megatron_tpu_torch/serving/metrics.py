@@ -1,6 +1,7 @@
 """Serving metrics registry: queue depth, TTFT, tokens/s, occupancy
-(megatron_tpu/serving/metrics.py, with the counters and gauges the core
-engine sets).
+(megatron_tpu/serving/metrics.py, with the counters and gauges of the
+core engine, the prefix cache, chunked prefill, preemption and
+speculative decoding).
 
 Counters and latency reservoirs are updated from the engine loop and HTTP
 threads and snapshotted as plain floats for `/metrics`. Beside the
@@ -42,10 +43,23 @@ _BASE_COUNTERS = (
     "wasted_decode_steps", "sampling_uploads",
     "prefill_calls", "prefill_prompts", "prefill_forward_tokens",
     "nonfinite_logit_fails", "engine_restarts",
+    # prefix cache: prefix_hit_tokens counts tokens matched at lookup
+    # (with hits forfeited to pool pressure), prefill_tokens_saved those
+    # whose forward a KV copy replaced; prefill_chunks counts chunked and
+    # suffix forwards, preemptions the running slots evicted for a
+    # higher-priority arrival
+    "prefix_hits", "prefix_hit_tokens", "prefill_tokens_saved",
+    "prefill_chunks", "preemptions",
+    # speculative decoding: verify rounds, drafts proposed for live rows,
+    # drafts committed, and plain decode steps a speculative engine ran
+    # because no slot proposed a draft
+    "spec_rounds", "draft_tokens", "accepted_tokens", "spec_fallback_steps",
 )
 
 # gauges a snapshot always carries, by the attribute each is stored under.
-# kv_attn_path: 0 = whole-region pool (dot path), 1 = block pool through
+# kv_blocks_retained: blocks (regions on a whole-region pool) pinned by
+# retained prefixes; kv_attn_path: 0 = whole-region pool (dot path),
+# 1 = block pool through
 # the resolve/scatter bracket, 2 = block-native kernel;
 # kv_gather_bytes_per_step: the bytes the bracket moved per decode step
 # over the last sync window (0 on the other two paths).

@@ -4,10 +4,12 @@
 Requests enter and leave the persistent decode batch at token granularity,
 so each carries its own sampling state, seed and lifecycle timestamps, and
 signals completion through a threading.Event that HTTP handler threads
-block on. The fields of the features the port has not reached yet
-(preemption's parked state, LoRA adapters, structured output, n-best
-fan-out) stay present and inert, so that later slices keep one request
-type. The fan-out aggregate and the grammar error come with those slices.
+block on. A preempted request carries its resume state: `parked` (its
+KV copied out of the pool and its carried logits row), `resume_rng` and
+`resume_reject`. The fields of the features the port has not reached yet
+(LoRA adapters, structured output, n-best fan-out) stay present and inert,
+so that later slices keep one request type. The fan-out aggregate and the
+grammar error come with those slices.
 """
 from __future__ import annotations
 
@@ -138,9 +140,10 @@ class GenRequest:
         self.prefill_chunks = 0
         # preemption bookkeeping (engine thread): a preempted request
         # re-queues carrying its resumption state — `resume_rng` is the
-        # HOST copy of the slot's PRNG key at preemption (the decode
-        # chain continues exactly where it stopped), `parked` holds the
-        # (sub_cache, last_logits_row) device refs sliced out of the
+        # state of the slot's torch.Generator at preemption, a host
+        # uint8 tensor (empty for a greedy row, which draws nothing), so
+        # the stream continues exactly where it stopped; `parked` holds
+        # the (sub_cache, last_logits_row) copies taken out of the
         # victim slot (insert-only resume, no re-prefill). `parked` may
         # be dropped (engine restart, park budget) — the request then
         # replays its effective prompt through prefill, still
@@ -190,6 +193,12 @@ class GenRequest:
         # rather than deadlock). None/0 for plain requests.
         self.sample_index = 0
         self.fanout_leader: Optional["GenRequest"] = None
+
+    def effective_prompt(self) -> List[int]:
+        """Tokens whose KV must be slot-resident before the next decode
+        step: the prompt plus everything generated so far (the prompt
+        for a never-preempted request)."""
+        return self.prompt + self.generated
 
     def absolute_deadline(self, default_s: Optional[float] = None
                           ) -> Optional[float]:

@@ -9,8 +9,10 @@ by (priority desc, deadline asc, arrival), earliest deadline first within a
 priority level, and supports early load shedding (`shed_on_overload`):
 when the estimated queue delay (an EWMA of slot service time times the
 queue position over the slots) already exceeds a new request's deadline,
-it fails at once with a retryable OverloadShedError. Fan-out batches,
-preemption's requeue and the brownout hooks come with their slices.
+it fails at once with a retryable OverloadShedError. A preempted request
+re-enters through `requeue`, past the bound and at its original arrival
+position; `peek_priority` is preemption's trigger. Fan-out batches and
+the brownout hooks come with their slices.
 """
 from __future__ import annotations
 
@@ -185,6 +187,79 @@ class AdmissionScheduler:
                     continue
                 out.append(req)
         return out
+
+    def requeue(self, req: GenRequest) -> bool:
+        """Re-admit a preempted (or restart-requeued) request: no bound
+        check, a victim is never rejected by its own preemption, and its
+        request id keeps its arrival order. On a closed (draining)
+        scheduler the request fails with a retryable 503 instead; returns
+        False."""
+        with self._lock:
+            closed = self._closed
+            if not closed:
+                self._q.append(req)
+        if closed:
+            req.fail("engine draining (shutdown in progress); preempted "
+                     "work is not resumed; retry against another replica",
+                     kind="unavailable")
+            return False
+        self.notify()
+        return True
+
+    def peek_priority(self) -> Optional[int]:
+        """Priority of the request the next pop would serve first (None
+        when nothing live is queued), read without disturbing the queue:
+        preemption's trigger. Cancelled requests are skipped."""
+        with self._lock:
+            best = None
+            for r in self._q:
+                if r.cancelled:
+                    continue
+                k = self._key(r)
+                if best is None or k < best[0]:
+                    best = (k, r)
+            return None if best is None else best[1].priority
+
+    def parked_count(self) -> int:
+        """Queued requests holding parked preemption KV (the engine's park
+        budget)."""
+        with self._lock:
+            return sum(1 for r in self._q if r.parked is not None)
+
+    def clear_parked(self) -> int:
+        """Drop every queued request's parked KV (an engine restart: the
+        device state is rebuilt). They resume by replaying their effective
+        prompt, still token-exact since `resume_rng` lives on the host.
+        Returns the count."""
+        n = 0
+        with self._lock:
+            for r in self._q:
+                if r.parked is not None:
+                    r.parked = None
+                    n += 1
+        return n
+
+    def drop_resumed(self) -> List[GenRequest]:
+        """Remove and return the queued requests carrying mid-stream
+        resume state (parked KV, a saved generator state or committed
+        tokens); fresh requests stay queued."""
+        with self._lock:
+            keep: List[GenRequest] = []
+            out: List[GenRequest] = []
+            for r in self._q:
+                if (r.parked is not None or r.resume_rng is not None
+                        or r.generated):
+                    out.append(r)
+                else:
+                    keep.append(r)
+            self._q = keep
+        return out
+
+    def live_depth(self) -> int:
+        """Queued requests not already terminal (a cancelled request stays
+        queued, already counted, until the next pop drops it)."""
+        with self._lock:
+            return sum(1 for r in self._q if not r.done())
 
     @staticmethod
     def group_by_bucket(reqs: List[GenRequest], bucket_fn,

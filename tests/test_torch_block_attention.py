@@ -159,10 +159,19 @@ def test_block_pool_accounting_and_trash_map():
     assert pool.free_count() == 3
     with pytest.raises(RuntimeError, match="double free"):
         pool.release_row(slot)
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        pool.retain_row(slot, 4, [1, 2, 3, 4])
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        pool.on_reclaim = lambda key: None
+    # retention: a 20-token sequence pins its 2 covering blocks; the row
+    # and its other 2 blocks free at once, and eviction unrefs the rest
+    slot, blocks = pool.alloc_row()
+    reclaimed = []
+    pool.on_reclaim = reclaimed.append
+    key = pool.retain_row(slot, 20, list(range(20)))
+    assert [pool.block_refcount(b) for b in blocks] == [1, 1, 0, 0]
+    assert pool.entry(key).blocks == blocks[:2]
+    assert (pool.caches.map[slot] == pool.TRASH).all()
+    assert pool.kv_gauges([0, 0, 0])[1] == 2
+    assert pool.drop_retained() == 1 and reclaimed == [key]
+    assert [pool.block_refcount(b) for b in blocks] == [0, 0, 0, 0]
+    assert pool.free_count() == 3
 
 
 def test_prefill_cache_is_sized_to_the_padded_prompt():
@@ -217,7 +226,7 @@ def _smoke_block_shapes():
 @pytest.mark.parametrize("sms", [132, 114])
 def test_split_plan_covers_every_key_once_and_fills_the_card(sms):
     shapes = _smoke_block_shapes()
-    assert len(shapes) == 10
+    assert len(shapes) == 11
     for S, w, nq, nkv, nb, B in shapes:
         plan = block_attention_cuda.split_plan(S, w, nq, nkv, nb, B, sms)
         what = f"S {S} w {w} nq {nq} nkv {nkv} nb {nb} B {B}: {plan}"

@@ -125,7 +125,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/compare_loss_curves.py",
                    "tools/validate_dataset.py", "data/hf_tokenizer.py",
                    "data/tokenizers.py", "resilience/faults.py",
-                   "resilience/watchdog.py"):
+                   "resilience/watchdog.py", "serving/prefix_index.py",
+                   "serving/spec_decode.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):

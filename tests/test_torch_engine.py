@@ -198,9 +198,8 @@ def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
 
 
 def test_later_slice_fields_raise():
-    for kw in (dict(enable_prefix_cache=True), dict(speculative_k=2),
-               dict(prefill_chunk=16), dict(preemption=True),
-               dict(num_replicas=2)):
+    for kw in (dict(num_replicas=2), dict(host_kv_bytes=1 << 20),
+               dict(stream_ttl_s=60.0), dict(adapter_slots=2)):
         with pytest.raises(NotImplementedError):
             ServingConfig(**kw).validate()
     with pytest.raises(ValueError, match="divide"):

@@ -447,9 +447,7 @@ def test_rolling_writes_land_on_the_ring():
     dict(kv_block_size=16), dict(engine_step_timeout_s=2.0),
     dict(engine_step_timeout_s=0.0)])
 def test_validate_rolling_exclusions_match_jax(kw):
-    """Each config is refused by both packages or by neither (the port
-    may refuse a later slice's field with NotImplementedError where JAX
-    accepts it)."""
+    """Each config is refused by both packages or by neither."""
     jcfg = jconfig.llama2_config("tiny", attention_impl="flash",
                                  sliding_window=32)
     tcfg = tconfig.llama2_config("tiny", attention_impl="flash",
@@ -462,9 +460,6 @@ def test_validate_rolling_exclusions_match_jax(kw):
     try:
         ServingConfig(max_len=64, **kw).validate(tcfg)
         port = "ok"
-    except NotImplementedError:
-        port = "later"
     except ValueError:
         port = "refused"
-    assert port == ("later" if jax_ok and port == "later"
-                    else "ok" if jax_ok else "refused"), (kw, jax_ok, port)
+    assert port == ("ok" if jax_ok else "refused"), (kw, jax_ok, port)
