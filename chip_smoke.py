@@ -162,11 +162,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    each feature on and off and on the serial route; preemption victims
    parked, replayed and unpreempted equal; a seeded sampled stream under
    speculative_k equal alone and among 7 others.
+12. the front door (`phase_front_door`): Llama-2-7B at full width and
+   depth (random bf16, seed FRONT_SEED), ENGINE_SERVING with the prefix
+   cache. (a) two replicas behind the router (`num_replicas=2`) on HTTP:
+   16 requests over 4 groups of a FRONT_PREFIX-token prefix, in two waves
+   (wave 2 all prefix hits, routed by affinity); per replica picks, hits,
+   tokens/s, TTFT, beside one replica. (c) a serve_delay of WEDGE_STALL_S
+   past a WEDGE_TIMEOUT_S watchdog: the wedged work retried on the other
+   replica, the replica ejected, restarted and promoted by one canary. (d)
+   8 SSE streams of FRONT_STREAM_NEW tokens on HTTP: one dropped at event
+   SSE_DROP_AT and resumed with Last-Event-ID, one cancelled (its slot
+   free within a step, `requests_cancelled` 1, allocated bytes back);
+   the gaps clients see. (b) 8 requests in flight, the busier replica
+   closed: every future resolves, `router_failovers` 1, `router_retries`
+   its requests, /healthz degraded, the block kernel held against its
+   plain version on the survivor's live state. (b)-(d)'s tokens must
+   equal a one-replica run's bit for bit (each is a prefix hit on
+   prefixes prefilled alone). (e) one engine with retained_slots 2 and a
+   TIER_BYTES host tier: two demotions (= evictions) of 1,536-token
+   prefixes, a host restore, a device hit and a miss (their TTFTs), copy /
+   CRC / upload seconds and bytes, MemAvailable, and an entry corrupted
+   by serve_host_corrupt (a checksum miss with the miss path's tokens).
+   (f) a 2-layer fp32 slice (TF32 off): the router, one engine and the
+   serial route; a stream and its completion; a host restore, a miss and
+   the tier off: equal greedy tokens.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8 and
-9 too, the block kernel's on phases 9 and 11 too, its verify rounds at
+the norm kernels' on every path above, the flash kernels' on phases 8-12
+too, the block kernel's on phases 9, 11 and 12 too, its verify rounds at
 w 5 on phase 11) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
@@ -182,6 +206,7 @@ current wrapper with the autograd Function's cast).
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import functools
 import json
@@ -4870,6 +4895,892 @@ def phase_engine_features(smi: str) -> dict:
     return stats
 
 
+# Phase 12, the front door: Llama-2-7B at full width and depth (random bf16
+# weights, seed FRONT_SEED) behind MegatronServer, ENGINE_SERVING with the
+# prefix cache (`front_server`). Group prefixes of FRONT_PREFIX tokens; a
+# request is a group's prefix and its own suffix (each starting with its
+# own character, so a hit is exactly the prefix). The parts (b)-(d) send prefix hits on prefixes warmed alone
+# on every replica: a hit's suffix forwards at batch 1 and the decode grid
+# has a fixed shape, so a request's tokens do not depend on the other
+# requests it ran beside, and a failed-over request regenerates the
+# one-replica run's tokens bit for bit, sampled ones too (seeded).
+FRONT_SEED = 0
+FRONT_GROUPS = 4
+FRONT_PREFIX = 1024
+FRONT_NEW = 128
+FRONT_STREAM_NEW = 256
+# the wedge: the watchdog's deadline, the router's heartbeat and the stall
+WEDGE_TIMEOUT_S = 3.0
+WEDGE_HEARTBEAT_S = 2.0
+WEDGE_STALL_S = 8.0
+# the host tier: two retained entries on the card, 4 GiB of host RAM, four
+# distinct 1,536-token prefixes
+TIER_PREFIX = 1536
+TIER_BYTES = 4 << 30
+TIER_NEW = 16
+SSE_DROP_AT = 10
+SSE_CANCEL_AT = 20
+
+
+def front_payloads(prefixes, first: int, count: int, new: int,
+                   seed: int) -> list:
+    """`count` payloads over the groups in turn: the group's prefix and a
+    64-200-character suffix starting with the (first + j)-th letter (a set
+    of payloads takes letters no other set of the same prefixes takes, so
+    a hit is exactly the prefix), odd ones sampled (seeded)."""
+    out = []
+    for j in range(count):
+        first_char = "abcdefghijklmnopqrstuvwxyz"[first + j]
+        p = {"prompts": [prefixes[j % FRONT_GROUPS] + feature_text(
+                 first_char, 64 + (136 * j) // max(count - 1, 1),
+                 seed + j)],
+             "tokens_to_generate": new, "logprobs": True}
+        p.update({"temperature": 0.0} if j % 2 == 0 else
+                 {"temperature": 0.8, "top_p": 0.9,
+                  "random_seed": seed + 100 + j})
+        out.append(p)
+    return out
+
+
+def front_server(gen, tok, **fields):
+    """MegatronServer over `gen`: ENGINE_SERVING, the prefix cache and
+    `fields`."""
+    return feature_server(gen, tok, enable_prefix_cache=True, **fields)
+
+
+def warm_prefixes(engines, prefixes) -> None:
+    """Each group's prefix prefilled alone (batch 1) on every engine, the
+    same way in every run, and retained."""
+    from megatron_tpu_torch.serving import SamplingOptions
+    tok = ByteTokenizer()
+    for eng in engines:
+        for p in prefixes:
+            eng.generate(tok.tokenize(p + " "), 1,
+                         SamplingOptions(temperature=0.0))
+
+
+def http_waves(port, waves) -> tuple:
+    """Each wave's payloads over HTTP from one thread each, a wave after
+    the last one returned. Returns (results in order, wall seconds)."""
+    res = []
+    t0 = time.perf_counter()
+    for wave in waves:
+        out = [None] * len(wave)
+
+        def one(i, wave=wave, out=out):
+            out[i] = put(port, wave[i])
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(wave))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        res += out
+    return res, time.perf_counter() - t0
+
+
+def serve_http(server):
+    httpd = server.make_http_server("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread
+
+
+def new_tokens(payload, body) -> list:
+    """The generated tokens of a completion (ByteTokenizer: one token a
+    prompt character)."""
+    return body["segments"][0][len(payload["prompts"][0]):]
+
+
+def front_router_waves(server, port, payloads, L) -> dict:
+    """(a): the 16 payloads in two waves of 8 (two a group each), so each
+    group's second wave is routed by affinity. Per replica: picks, prefix
+    hits, tokens/s, TTFT p50/p99; the card's peak memory."""
+    import torch
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    router = server.engine
+    engines = getattr(router, "engines", [router])
+    made = capture_requests(router)
+    waves = [[p for j, p in enumerate(payloads) if (j // FRONT_GROUPS) % 2
+              == w] for w in (0, 1)]
+    for eng in engines:
+        eng.metrics = ServingMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = read_counts()
+    res1, wall1 = http_waves(port, waves[:1])
+    mid = [eng.metrics.snapshot() for eng in engines]
+    res2, wall2 = http_waves(port, waves[1:])
+    snaps = [settle(eng) for eng in engines]
+    counts = {k: v - start[k] for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    res = res1 + res2
+    prompts = [len(w["prompts"][0]) for w in waves[0] + waves[1]]
+    generated = check_bodies("front door (a)", res, prompts,
+                             [FRONT_NEW] * len(res), ByteTokenizer().eod)
+    wall = wall1 + wall2
+    hits2 = sum(s["prefix_hits"] - m["prefix_hits"]
+                for s, m in zip(snaps, mid))
+    saved2 = sum(s["prefill_tokens_saved"] - m["prefill_tokens_saved"]
+                 for s, m in zip(snaps, mid))
+    steps = sum(s["decode_steps"] for s in snaps)
+    out = dict(wall_s=wall, generated_tokens=generated,
+               tokens_per_s=generated / wall, peak_gib=peak / 2 ** 30,
+               wave2_prefix_hits=hits2, wave2_tokens_saved=saved2,
+               decode_steps=steps, launches=counts, replicas=[])
+    # a bare engine's requests are all its own
+    picked = [r.replica.idx if hasattr(r, "replica") else 0 for r in made]
+    for idx, (eng, s) in enumerate(zip(engines, snaps)):
+        out["replicas"].append(dict(
+            picks=picked.count(idx),
+            prefix_hits=s["prefix_hits"],
+            tokens_generated=s["tokens_generated"],
+            tokens_per_s=s["tokens_generated"] / wall,
+            ttft_p50_ms=s["ttft_p50_ms"], ttft_p99_ms=s["ttft_p99_ms"],
+            itl_p50_ms=s["itl_p50_ms"], decode_steps=s["decode_steps"],
+            pool_gib=eng.pool.nbytes() / 2 ** 30))
+    check(hits2 == len(waves[1]) and saved2 == len(waves[1]) * FRONT_PREFIX,
+          f"(a) wave 2: {hits2} prefix hits saving {saved2} tokens, "
+          f"{len(waves[1])} x {FRONT_PREFIX} expected")
+    check(counts["block_attention_cuda"] == L * steps,
+          f"(a): block kernel {counts['block_attention_cuda']} in {steps} "
+          f"steps of {L} layers")
+    return out
+
+
+def front_wedge(server, payloads) -> tuple:
+    """(c): the payloads decode on both replicas; then the next engine step
+    (on either) stalls for WEDGE_STALL_S, past the watchdog's
+    WEDGE_TIMEOUT_S. Its in-flight requests fail and the router retries
+    them on the other replica; the router ejects the wedged replica after
+    WEDGE_HEARTBEAT_S, its supervisor restarts it when the stall returns,
+    one canary promotes it and both replicas end UP. Returns (the stats,
+    the wedged replica)."""
+    from megatron_tpu_torch.resilience import faults
+    router = server.engine
+    before = router.metrics.snapshot()
+    made = capture_requests(router)
+    threads, res = serve_payloads(server, payloads)
+    t0 = time.monotonic()
+    while len(made) < len(payloads) or any(len(r.generated) < 8
+                                           for r in made):
+        check(time.monotonic() - t0 < 300, "(c): the payloads did not "
+              "start decoding")
+        time.sleep(0.005)
+    busy = {r.replica.idx for r in made}
+    inj = faults.FaultInjector(serve_delay_calls={1: WEDGE_STALL_S})
+    faults.activate(inj)
+    marks = {}
+    try:
+        while not inj.fired:
+            check(time.monotonic() - t0 < 300, "(c): no engine step ran")
+            time.sleep(0.001)
+        marks["fired"] = time.monotonic()
+        faults.deactivate()
+        wedged = None
+        while "up" not in marks:
+            now = time.monotonic()
+            check(now - marks["fired"] < WEDGE_STALL_S + 120,
+                  f"(c): no recovery: {marks}")
+            h = router.health()
+            for rep, rh in zip(router.replicas, h["replicas"]):
+                if wedged is None and rh["state"] == "wedged":
+                    wedged = rep
+                    marks["watchdog"] = now
+            if wedged is not None:
+                if wedged.state == "down" and "down" not in marks:
+                    marks["down"] = now
+                if "down" in marks and wedged.state == "probing" \
+                        and "probing" not in marks:
+                    marks["probing"] = now
+                    # the canary: the next request goes to the probing
+                    # replica
+                    status, _ = server.handle(
+                        {"prompts": ["canary"], "tokens_to_generate": 4,
+                         "temperature": 0.0})
+                    check(status == 200, f"(c) canary: {status}")
+                if "probing" in marks and wedged.state == "up" \
+                        and h["replicas_up"] == 2:
+                    marks["up"] = now
+            time.sleep(0.05)
+    finally:
+        faults.deactivate()
+    for t in threads:
+        t.join(timeout=600)
+    after = router.metrics.snapshot()
+    h = router.health()
+    retried = sum(1 for r in made if r.attempts)
+    check(all(status == 200 for status, _ in res),
+          f"(c): {[s for s, _ in res]}")
+    check(h["state"] == "running" and h["replicas_up"] == 2,
+          f"(c): router {h['state']}, {h['replicas_up']} up")
+    restarts = wedged.engine.health()["engine_restarts"]
+    check(restarts == 1, f"(c): the wedged replica restarted {restarts} "
+          "times")
+    check(retried >= 1 and after["router_retries"]
+          - before["router_retries"] == retried,
+          f"(c): {retried} requests retried, router_retries "
+          f"{after['router_retries'] - before['router_retries']}")
+    return dict(
+        busy_replicas=sorted(busy), wedged_replica=wedged.idx,
+        retried=retried, router_failovers=after["router_failovers"]
+        - before["router_failovers"],
+        watchdog_s=marks["watchdog"] - marks["fired"],
+        detect_s=marks["down"] - marks["fired"],
+        readmit_s=marks["up"] - marks["fired"],
+        readmit_after_stall_s=marks["up"] - marks["fired"] - WEDGE_STALL_S,
+        stall_s=WEDGE_STALL_S, engine_step_timeout_s=WEDGE_TIMEOUT_S,
+        heartbeat_s=WEDGE_HEARTBEAT_S,
+        bodies=[body for _, body in res]), wedged
+
+
+def sse_open(port, payload, headers=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("PUT", "/api", body=json.dumps(payload),
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
+    resp = conn.getresponse()
+    check(resp.status == 200
+          and resp.getheader("Content-Type") == "text/event-stream",
+          f"SSE: {resp.status} {resp.getheader('Content-Type')}")
+    return conn, resp
+
+
+def sse_frames(resp):
+    """(event, id, data, arrival time) per frame, as the frames arrive."""
+    fields = {}
+    while True:
+        line = resp.readline()
+        if not line:
+            return
+        line = line.decode().rstrip("\n")
+        if line:
+            k, _, v = line.partition(": ")
+            fields[k] = v
+            continue
+        if fields:
+            yield (fields.get("event"), fields.get("id"),
+                   json.loads(fields["data"]), time.perf_counter())
+            fields = {}
+
+
+def front_sse(server, port, payloads) -> dict:
+    """(d): one stream per payload over HTTP, all at once. Stream 0's
+    client drops after event SSE_DROP_AT and resumes with Last-Event-ID;
+    stream 1 is cancelled after event SSE_CANCEL_AT. The inter-event gaps
+    the clients see; the allocated bytes before and after."""
+    import gc
+    import torch
+    router = server.engine
+    before = router.aggregate_snapshot()
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc_before = torch.cuda.memory_allocated()
+    streams = [dict(tokens=[], times=[], events=[]) for _ in payloads]
+
+    def run(i):
+        st = streams[i]
+        conn, resp = sse_open(port, dict(payloads[i], stream=True))
+        try:
+            for event, eid, data, t in sse_frames(resp):
+                st["events"].append(event)
+                if event == "start":
+                    st["sid"] = data["stream_id"]
+                elif event == "token":
+                    check(int(eid) == len(st["tokens"]),
+                          f"stream {i}: event id {eid} after "
+                          f"{len(st['tokens'])} tokens")
+                    st["tokens"].append(data["token"])
+                    st["times"].append(t)
+                    if i == 0 and int(eid) == SSE_DROP_AT:
+                        break  # the client drops
+                    if i == 1 and int(eid) == SSE_CANCEL_AT:
+                        cancel(st)
+                else:
+                    st["end"] = (event, data)
+        finally:
+            conn.close()
+        if i == 0:
+            # the resume: the header names the last event seen
+            st["dropped_at"] = len(st["tokens"])
+            conn, resp = sse_open(port, {"stream": True,
+                                         "stream_id": st["sid"]},
+                                  headers={"Last-Event-ID":
+                                           str(SSE_DROP_AT)})
+            try:
+                for event, eid, data, t in sse_frames(resp):
+                    st["events"].append(event)
+                    if event == "start":
+                        check(data["resumed"] and data["next_index"]
+                              == SSE_DROP_AT + 1, f"resume start {data}")
+                    elif event == "token":
+                        check(int(eid) == len(st["tokens"]),
+                              f"resumed stream: event id {eid} after "
+                              f"{len(st['tokens'])} tokens")
+                        st["tokens"].append(data["token"])
+                        st["resumed_times"] = st.get("resumed_times", [])
+                        st["resumed_times"].append(t)
+                    else:
+                        st["end"] = (event, data)
+            finally:
+                conn.close()
+
+    def cancel(st):
+        rreq = server._streams[st["sid"]].req
+        eng = rreq.replica.engine
+        st["steps_at_cancel"] = eng.metrics.snapshot()["decode_steps"]
+        status, body = put(port, {"stream_id": st["sid"], "cancel": True})
+        check(status == 200 and body["cancelled"], f"cancel: {body}")
+        inner = rreq.inner
+        give_up = time.monotonic() + 60
+        while not inner.done() or inner in eng._slot_req:
+            check(time.monotonic() < give_up, "the cancelled slot stayed")
+            time.sleep(0.001)
+        st["steps_to_free"] = (eng.metrics.snapshot()["decode_steps"]
+                               - st["steps_at_cancel"])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    engines = router.engines
+    for eng in engines:
+        wait_idle(eng)
+    after = router.aggregate_snapshot()
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc_after = torch.cuda.memory_allocated()
+    gaps = sorted(b - a for st in streams
+                  for ts in (st["times"], st.get("resumed_times", []))
+                  for a, b in zip(ts, ts[1:]))
+    for i, st in enumerate(streams):
+        check("end" in st, f"stream {i}: no terminal event")
+        want = "error" if i == 1 else "done"
+        check(st["end"][0] == want, f"stream {i}: ended {st['end']}")
+    check(streams[1]["end"][1]["status"] == 500
+          and streams[1]["end"][1]["committed"] < FRONT_STREAM_NEW,
+          f"cancelled stream: {streams[1]['end']}")
+    check(streams[1]["steps_to_free"] <= 1,
+          f"the cancelled slot freed after {streams[1]['steps_to_free']} "
+          "decode steps")
+    check(after["requests_cancelled"] - before["requests_cancelled"] == 1,
+          "requests_cancelled did not move by 1")
+    check(after["stream_reconnects"] - before["stream_reconnects"] == 1,
+          "stream_reconnects did not move by 1")
+    check(abs(alloc_after - alloc_before) <= FEATURE_MEMORY_SLACK,
+          f"allocated bytes after the streams {alloc_after} vs "
+          f"{alloc_before} before")
+    return dict(
+        streams=len(payloads), wall_s=wall,
+        tokens=sum(len(st["tokens"]) for st in streams),
+        gap_p50_ms=gaps[len(gaps) // 2] * 1e3,
+        gap_p99_ms=gaps[min(len(gaps) - 1, int(0.99 * len(gaps)))] * 1e3,
+        gap_samples=len(gaps), dropped_at=streams[0]["dropped_at"],
+        cancelled_after=len(streams[1]["tokens"]),
+        cancel_steps_to_free=streams[1]["steps_to_free"],
+        allocated_before=alloc_before, allocated_after=alloc_after,
+        stream_tokens=[st["tokens"] for st in streams])
+
+
+def front_failover(server, payloads) -> dict:
+    """(b): the payloads in flight on both replicas, every one with 8
+    tokens; then the replica holding the most of them is closed. Every
+    future resolves; router_failovers moves by 1 and router_retries by the
+    killed replica's requests; /healthz reports degraded and a new request
+    succeeds. The block kernel is held against its plain version on the
+    survivor's state after the failover."""
+    import torch
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    router = server.engine
+    before = router.metrics.snapshot()
+    made = capture_requests(router)
+    captured, armed = {}, {}
+
+    def recording(q, k_arena, v_arena, block_map, lengths, **kw):
+        if armed and not captured and int(
+                armed["survivor"].engine._active.sum()) >= 6:
+            captured.update(q=q.clone(), k=k_arena.clone(),
+                            v=v_arena.clone(), map=block_map.clone(),
+                            lengths=lengths.clone(), kw=kw)
+        return block_attention_cuda(q, k_arena, v_arena, block_map,
+                                    lengths, **kw)
+
+    ba.block_attention_cuda = recording
+    try:
+        threads, res = serve_payloads(server, payloads)
+        t0 = time.monotonic()
+        while len(made) < len(payloads) or any(len(r.generated) < 8
+                                               for r in made):
+            check(time.monotonic() - t0 < 300, "(b): the payloads did not "
+                  "start decoding")
+            time.sleep(0.005)
+        victim = max(router.replicas, key=lambda rep: sum(
+            1 for r in made if r.replica is rep and not r.done()))
+        survivor = next(rep for rep in router.replicas if rep is not victim)
+        victims = [r for r in made if r.replica is victim and not r.done()]
+        armed["survivor"] = survivor
+        t_kill = time.monotonic()
+        victim.engine.close()
+        for t in threads:
+            t.join(timeout=600)
+        t_last = max(r.inner.finish_time for r in victims)
+        counts = read_counts()
+    finally:
+        ba.block_attention_cuda = block_attention_cuda
+    after = router.metrics.snapshot()
+    check(all(status == 200 for status, _ in res),
+          f"(b): {[s for s, _ in res]}")
+    check(after["router_failovers"] - before["router_failovers"] == 1,
+          "(b): router_failovers did not move by 1")
+    check(after["router_retries"] - before["router_retries"]
+          == len(victims), f"(b): router_retries moved by "
+          f"{after['router_retries'] - before['router_retries']}, "
+          f"{len(victims)} requests were on the killed replica")
+    status, h = server.healthz()
+    check(status == 200 and h["state"] == "degraded",
+          f"(b) /healthz: {status} {h['state']}")
+    status, _ = server.handle({"prompts": ["after the kill"],
+                               "tokens_to_generate": 8, "temperature": 0.0})
+    check(status == 200, f"(b): a request after the kill: {status}")
+    check(bool(captured), "(b): no decode step of the survivor captured")
+    c = captured
+    got = block_attention_cuda(c["q"], c["k"], c["v"], c["map"],
+                               c["lengths"], **c["kw"])
+    ref = ba.block_attention_reference(c["q"], c["k"], c["v"], c["map"],
+                                       c["lengths"], scale=c["kw"]["scale"])
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= BLOCK_LIVE_TOL,
+          f"block kernel on the survivor's live state: err {err}")
+    live = dict(max_abs_err=err, tol=BLOCK_LIVE_TOL,
+                max_abs_ref=ref.float().abs().max().item(),
+                lengths=c["lengths"].tolist())
+    captured.clear()
+    del c, got, ref
+    return dict(killed_replica=victim.idx, in_flight=len(payloads),
+                on_killed_replica=len(victims),
+                router_failovers=1, router_retries=len(victims),
+                kill_to_last_retried_s=t_last - t_kill,
+                health_state=h["state"], live_state_check=live,
+                launches=counts, bodies=[body for _, body in res])
+
+
+def front_tier(gen, tok) -> dict:
+    """(e): one engine with retained_slots 2 and TIER_BYTES of host RAM.
+    Four distinct TIER_PREFIX-token prefixes (each request alone) force two
+    demotions (demotions must equal evictions); a later hit on the first
+    prefix restores from the host; then a device hit and a miss, for their
+    TTFTs. Then the fault harness's serve_host_corrupt flips one demoted
+    entry, and the next hit on it is a checksum miss. Copy, checksum and
+    upload seconds and bytes, and MemAvailable."""
+    import torch
+    from megatron_tpu_torch.resilience import faults
+    from megatron_tpu_torch.serving import host_tier as ht
+    server = front_server(gen, tok, retained_slots=2,
+                          host_kv_bytes=TIER_BYTES)
+    engine = server.engine
+    pool, tier = engine.pool, engine._host_tier
+    timing = dict(evictions=0, demote_s=[], copy_s=[], copy_bytes=[],
+                  crc_s={"demote": [], "restore": []}, restore_s=[],
+                  upload_s=[], upload_bytes=[])
+    phase = {"now": None}
+    evict, on_evict = pool._evict_retained, pool.on_evict_entry
+    gather, to_sub = pool.gather_blocks_host, pool.host_blocks_to_sub
+    restore_host, checksum = engine._restore_host, ht._checksum
+    demote, restore = tier.demote, tier.restore
+
+    def timed(fn, key, label=None):
+        def wrapper(*a, **kw):
+            prev = phase["now"]
+            if label is not None:
+                phase["now"] = label
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                if key in ("upload_s", "restore_s"):
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                dt = time.perf_counter() - t
+                (timing[key][phase["now"]] if key == "crc_s"
+                 else timing[key]).append(dt)
+                phase["now"] = prev
+        return wrapper
+
+    def counting_evict():
+        timing["evictions"] += 1
+        return evict()
+
+    def copy(blocks):
+        out = timed(gather, "copy_s")(blocks)
+        timing["copy_bytes"].append(sum(a.nbytes for a in out.values()))
+        return out
+
+    def upload(arrays, plen, pad_to_cap=True):
+        timing["upload_bytes"].append(sum(a.nbytes
+                                          for a in arrays.values()))
+        return timed(to_sub, "upload_s")(arrays, plen, pad_to_cap)
+
+    pool._evict_retained = counting_evict
+    pool.on_evict_entry = timed(on_evict, "demote_s")
+    pool.gather_blocks_host = copy
+    pool.host_blocks_to_sub = upload
+    engine._restore_host = timed(restore_host, "restore_s")
+    ht._checksum = timed(checksum, "crc_s")
+    tier.demote = _labelled(demote, phase, "demote")
+    tier.restore = _labelled(restore, phase, "restore")
+    made = capture_requests(engine)
+    # prompt_text's seeds repeat mod 29: these four and the miss's (6400)
+    # share no residue with each other or with the groups' (7000-7003,
+    # 7100-7103), so no prompt here is a prefix of another
+    prefixes = [prompt_text(TIER_PREFIX, 6003 + i) for i in range(4)]
+    mem = [meminfo_available()]
+
+    def ask(prompt, what):
+        status, body = server.handle({"prompts": [prompt],
+                                      "tokens_to_generate": TIER_NEW,
+                                      "temperature": 0.0})
+        check(status == 200, f"(e) {what}: {status}")
+        return made[-1], body["segments"][0]
+
+    try:
+        for i, p in enumerate(prefixes):
+            ask(p + feature_text("a", 32, 6100 + i), f"prefix {i}")
+        mem.append(meminfo_available())
+        snap = engine.metrics.snapshot()
+        check(snap["host_tier_demotions"] == 2 == timing["evictions"],
+              f"(e): {snap['host_tier_demotions']} demotions, "
+              f"{timing['evictions']} evictions, 2 expected")
+        host, _ = ask(prefixes[0] + feature_text("b", 32, 6200), "host hit")
+        snap = engine.metrics.snapshot()
+        check(snap["host_tier_hits"] == 1, f"(e): {snap['host_tier_hits']} "
+              "host hits after a hit on a demoted prefix")
+        device, _ = ask(prefixes[3] + feature_text("c", 32, 6300),
+                        "device hit")
+        check(device.prefix_len > 0, "(e): no device hit")
+        # the corruption: one step of an unrelated request flips the
+        # largest demoted entry
+        inj = faults.FaultInjector(serve_host_corrupt_calls={1})
+        faults.activate(inj)
+        try:
+            ask("corrupt step", "the corrupting step")
+        finally:
+            faults.deactivate()
+        check(bool(inj.fired), "(e): serve_host_corrupt did not fire")
+        key = ast.literal_eval(inj.fired[0][1].split("@", 1)[1])
+        check(key in tier._entries, "(e): the corrupted entry left the tier")
+        target = tier._entries[key].tokens[:TIER_PREFIX]
+        corrupt_prefix = tok.detokenize(target)
+        corrupt_prompt = corrupt_prefix + feature_text("e", 32, 6500)
+        misses = engine.metrics.snapshot()["host_tier_checksum_misses"]
+        corrupt_req, corrupt_tokens = ask(corrupt_prompt, "corrupted hit")
+        miss, _ = ask(prompt_text(TIER_PREFIX, 6400)
+                      + feature_text("d", 32, 6401), "miss")
+        snap = settle(engine)
+        mem.append(meminfo_available())
+        check(snap["host_tier_checksum_misses"] == misses + 1
+              and corrupt_req.prefix_len == 0,
+              f"(e): the corrupted entry's hit: "
+              f"{snap['host_tier_checksum_misses'] - misses} checksum "
+              f"misses, prefix {corrupt_req.prefix_len}")
+        check(snap["host_tier_demotions"] == timing["evictions"],
+              f"(e): {snap['host_tier_demotions']} demotions of "
+              f"{timing['evictions']} evictions")
+    finally:
+        ht._checksum = checksum
+        server.close()
+    return dict(
+        demotions=snap["host_tier_demotions"],
+        evictions=timing["evictions"], host_tier_hits=snap["host_tier_hits"],
+        checksum_misses=snap["host_tier_checksum_misses"],
+        ttft_host_restore_ms=host.ttft * 1e3,
+        ttft_device_hit_ms=device.ttft * 1e3, ttft_miss_ms=miss.ttft * 1e3,
+        host_prefix_len=host.prefix_len, device_prefix_len=device.prefix_len,
+        demote_s=timing["demote_s"], copy_s=timing["copy_s"],
+        copy_bytes=timing["copy_bytes"],
+        crc_demote_s=timing["crc_s"]["demote"],
+        crc_restore_s=timing["crc_s"]["restore"],
+        restore_s=timing["restore_s"], upload_s=timing["upload_s"],
+        upload_bytes=timing["upload_bytes"],
+        host_bytes_used=tier.bytes_used, host_entries=len(tier),
+        mem_available_kib=mem,
+        corrupt_prompt=corrupt_prompt, corrupt_tokens=corrupt_tokens,
+        corrupted=inj.fired[0][1])
+
+
+def _labelled(fn, phase, label):
+    """fn run with `phase["now"]` set to label (for the checksum timer)."""
+    def wrapper(*a, **kw):
+        prev = phase["now"]
+        phase["now"] = label
+        try:
+            return fn(*a, **kw)
+        finally:
+            phase["now"] = prev
+    return wrapper
+
+
+def meminfo_available() -> int:
+    """MemAvailable of /proc/meminfo, in KiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1])
+    return -1
+
+
+def check_front_slice() -> dict:
+    """(f): a 2-layer fp32 slice of the 7B width (TF32 off). Greedy tokens
+    equal through the router, one engine and the serial route; a stream
+    equal to its completion; a host restore equal to a miss and to the
+    tier off."""
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.float32)
+    prefix = prompt_text(512, 1500)
+    payloads = [{"prompts": [prefix + feature_text(c, 60 + 20 * i,
+                                                   1501 + i)],
+                 "tokens_to_generate": 24, "temperature": 0.0}
+                for i, c in enumerate("abcd")]
+    outs = {}
+    for arm, fields in (("router", dict(num_replicas=2)), ("engine", {})):
+        server = front_server(gen, tok, **fields)
+        try:
+            threads, res = serve_payloads(server, payloads)
+            for t in threads:
+                t.join(timeout=300)
+            check(all(s == 200 for s, _ in res), f"(f) {arm}: {res}")
+            outs[arm] = [b["segments"][0] for _, b in res]
+            if arm == "router":
+                status, body = server.handle(dict(payloads[0], stream=True))
+                toks = [json.loads(f.split("data: ")[1])["token"]
+                        for f in body if f.startswith("id: ")]
+                check(toks == outs[arm][0][len(payloads[0]["prompts"][0]):],
+                      "(f): a stream differs from its completion")
+                serial = []
+                for p in payloads:
+                    status, body = server.handle(dict(p, serial=True))
+                    check(status == 200, f"(f) serial: {status}")
+                    serial.append(body["segments"][0])
+                outs["serial"] = serial
+        finally:
+            server.close()
+    check(outs["router"] == outs["engine"] == outs["serial"],
+          "(f): greedy tokens differ between the router, one engine and "
+          "the serial route")
+    # the host tier: a prefix demoted by two fillers, then a hit on it
+    tiers = {}
+    for arm, fields in (("restore", dict(enable_prefix_cache=True,
+                                         retained_slots=1,
+                                         host_kv_bytes=1 << 30)),
+                        ("tier_off", dict(enable_prefix_cache=True,
+                                          retained_slots=1)),
+                        ("miss", {})):
+        server = feature_server(gen, tok, **fields)
+        try:
+            for p in ([payloads[0]]
+                      + [{"prompts": [prompt_text(40, 1510 + i)],
+                          "tokens_to_generate": 4, "temperature": 0.0}
+                         for i in range(2)] + [payloads[1]]):
+                status, body = server.handle(p)
+                check(status == 200, f"(f) {arm}: {status}")
+            tiers[arm] = body["segments"][0]
+            if arm == "restore":
+                snap = server.engine.metrics.snapshot()
+                check(snap["host_tier_hits"] == 1
+                      and snap["host_tier_demotions"] >= 1,
+                      f"(f): host tier {snap['host_tier_hits']} hits, "
+                      f"{snap['host_tier_demotions']} demotions")
+        finally:
+            server.close()
+    check(tiers["restore"] == tiers["tier_off"] == tiers["miss"]
+          == outs["engine"][1],
+          "(f): a host restore's tokens differ from a miss's or the tier "
+          "off's")
+    del gen, model
+    torch.cuda.empty_cache()
+    return dict(agree=True, arms=sorted(outs) + sorted(tiers),
+                allow_tf32=False)
+
+
+def phase_front_door(smi: str) -> dict:
+    """Phase 12: (a)-(e) on Llama-2-7B at full width and depth behind
+    MegatronServer: two replicas behind the router (a)-(d), then one engine
+    with the host tier (e), then one replica with the same config for the
+    comparison and the completions the failed-over, wedged and streamed
+    requests must equal; (f) the 2-layer fp32 slice. Launch counts are
+    zeroed before the two-replica server's traffic and before (e), and read
+    after them."""
+    import gc
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "phase 12: phase 11's model was not freed")
+    t_phase = time.perf_counter()
+    cfg = llama2_config("7b")
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=FRONT_SEED)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
+    L = cfg.num_layers
+    # distinct mod 29 (prompt_text's period in the seed), and from (e)'s
+    groups_a = [prompt_text(FRONT_PREFIX, 7000 + g)
+                for g in range(FRONT_GROUPS)]
+    groups_b = [prompt_text(FRONT_PREFIX, 7100 + g)
+                for g in range(FRONT_GROUPS)]
+    waves = front_payloads(groups_a, 0, 16, FRONT_NEW, 7200)
+    wedge = front_payloads(groups_b, 0, 4, FRONT_NEW, 7300)
+    streams = front_payloads(groups_b, 1, 8, FRONT_STREAM_NEW, 7400)
+    failover = front_payloads(groups_b, 9, 8, FRONT_NEW, 7500)
+    stats = dict(card=smi)
+    windows = {}
+    try:
+        t0 = time.perf_counter()
+        server = front_server(gen, tok, num_replicas=2,
+                                engine_step_timeout_s=WEDGE_TIMEOUT_S,
+                                router_heartbeat_timeout_s=WEDGE_HEARTBEAT_S)
+        httpd, thread = serve_http(server)
+        port = httpd.server_address[1]
+        try:
+            router = server.engine
+            zero_counts()
+            status, _ = server.handle({"prompts": ["warm up"],
+                                       "tokens_to_generate": 4,
+                                       "temperature": 0.0})
+            check(status == 200, f"front door warm-up: {status}")
+            for eng in router.engines:
+                # each engine's first iteration arms its watchdog
+                eng.generate([7, 8, 9], 2)
+            stats["router"] = front_router_waves(server, port, waves, L)
+            log("front door (a) router: " + json.dumps(stats["router"]))
+            warm_prefixes(router.engines, groups_b)
+            stats["wedge"], wedged = front_wedge(server, wedge)
+            # the restarted replica's pool is new: warm it again
+            warm_prefixes([wedged.engine], groups_b)
+            log("front door (c) wedge: " + json.dumps(
+                {k: v for k, v in stats["wedge"].items() if k != "bodies"}))
+            stats["sse"] = front_sse(server, port, streams)
+            log("front door (d) sse: " + json.dumps(
+                {k: v for k, v in stats["sse"].items()
+                 if k != "stream_tokens"}))
+            stats["failover"] = front_failover(server, failover)
+            log("front door (b) failover: " + json.dumps(
+                {k: v for k, v in stats["failover"].items()
+                 if k != "bodies"}))
+            add_counts(windows, stats["failover"].pop("launches"))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            server.close()
+        del server, router
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["replicas_seconds"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        zero_counts()
+        stats["tier"] = front_tier(gen, tok)
+        add_counts(windows, read_counts())
+        stats["tier"]["seconds"] = time.perf_counter() - t0
+        log("front door (e) host tier: " + json.dumps(
+            {k: v for k, v in stats["tier"].items()
+             if k not in ("corrupt_prompt", "corrupt_tokens")}))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one replica, the same config: the comparison and the completions
+        t0 = time.perf_counter()
+        server = front_server(gen, tok)
+        httpd, thread = serve_http(server)
+        try:
+            status, _ = server.handle({"prompts": ["warm up"],
+                                       "tokens_to_generate": 4,
+                                       "temperature": 0.0})
+            check(status == 200, f"one replica warm-up: {status}")
+            stats["one_replica"] = front_router_waves(
+                server, httpd.server_address[1], waves, L)
+            log("front door (a) one replica: "
+                + json.dumps(stats["one_replica"]))
+            warm_prefixes([server.engine], groups_b)
+            refs = wedge + failover + streams
+            threads, res = serve_payloads(server, refs)
+            for t in threads:
+                t.join(timeout=900)
+            check(all(s == 200 for s, _ in res),
+                  f"one replica: {[s for s, _ in res]}")
+            want = [new_tokens(p, b) for p, (_, b) in zip(refs, res)]
+            status, body = server.handle({
+                "prompts": [stats["tier"]["corrupt_prompt"]],
+                "tokens_to_generate": TIER_NEW, "temperature": 0.0})
+            check(status == 200, f"one replica, the miss: {status}")
+            miss_ref = body["segments"][0]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            server.close()
+        stats["one_replica_seconds"] = time.perf_counter() - t0
+    finally:
+        del gen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    n_w, n_f = len(wedge), len(failover)
+    got_w = [new_tokens(p, b) for p, b in zip(wedge,
+                                              stats["wedge"].pop("bodies"))]
+    got_f = [new_tokens(p, b)
+             for p, b in zip(failover, stats["failover"].pop("bodies"))]
+    got_s = stats["sse"].pop("stream_tokens")
+    want_w, want_f, want_s = want[:n_w], want[n_w:n_w + n_f], want[n_w + n_f:]
+    check(got_w == want_w, "(c): a retried request's tokens differ from the "
+          "one-replica run's")
+    check(got_f == want_f, "(b): a failed-over request's tokens differ from "
+          "the one-replica run's")
+    for i, (g, w) in enumerate(zip(got_s, want_s)):
+        check(g == (w[:len(g)] if i == 1 else w),
+              f"(d): stream {i}'s tokens differ from its completion")
+    check(stats["tier"].pop("corrupt_tokens") == miss_ref,
+          "(e): the corrupted entry's request differs from the miss path")
+    stats["exact"] = dict(wedge=n_w, failover=n_f, streams=len(got_s),
+                          corrupt_miss=True)
+    t0 = time.perf_counter()
+    stats["slice"] = check_front_slice()
+    stats["slice"]["seconds"] = time.perf_counter() - t0
+    log("front door slice (fp32, 2 layers): " + json.dumps(stats["slice"]))
+    total = windows["launches"]
+    stats["launches"] = dict(flash_fwd=total["flash_fwd_cuda"],
+                             block_attn=total["block_attention_cuda"])
+    stats["norm_launches"] = {k: v for k, v in total.items()
+                              if k.startswith(("rms_", "ln_"))}
+    check(stats["launches"]["flash_fwd"] > 0
+          and stats["launches"]["block_attn"] > 0
+          and stats["launches"]["block_attn"] % L == 0,
+          f"front door launches: {stats['launches']}")
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4921,6 +5832,7 @@ def main(argv=None) -> int:
         except Exception:  # noqa: BLE001 — any failure fails the run
             traceback.print_exc()
             return 1
+    t_run = time.perf_counter()
     try:
         smi = phase_device()
         phase_build()
@@ -4941,6 +5853,8 @@ def main(argv=None) -> int:
         toolchain_stats = phase_toolchain(smi)
         window_stats = phase_window_supervisor(smi)
         feature_stats = phase_engine_features(smi)
+        front_stats = phase_front_door(smi)
+        log(f"front door: phase 12 took {front_stats['seconds']:.1f} s")
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4961,6 +5875,8 @@ def main(argv=None) -> int:
     window_counts = window_stats["launches"]
     # phase 11's arms, each counted from zero
     feature_counts = feature_stats["launches"]
+    # phase 12's two windows: the two replicas' traffic, and the host tier
+    front_counts = front_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -4985,7 +5901,8 @@ def main(argv=None) -> int:
               + bench_counts["flash_fwd_cuda"]
               + tool_counts["flash_fwd_cuda"]
               + window_counts["flash_fwd_cuda"]
-              + feature_counts["flash_fwd"], "fwd",
+              + feature_counts["flash_fwd"]
+              + front_counts["flash_fwd"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -4998,7 +5915,8 @@ def main(argv=None) -> int:
                   bench_kernels=bench_counts["flash_fwd_cuda"],
                   toolchain=tool_counts["flash_fwd_cuda"],
                   window_supervisor=window_counts["flash_fwd_cuda"],
-                  engine_features=feature_counts["flash_fwd"]),
+                  engine_features=feature_counts["flash_fwd"],
+                  front_door=front_counts["flash_fwd"]),
                    window_shape=dict(shape=WINDOW_SHAPE, **{
                        k: window_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -5047,13 +5965,15 @@ def main(argv=None) -> int:
                   + int8_stats["launches"]["block_attn"]
                   + pretrain_stats["block_launches"]
                   + tool_counts["block_attention_cuda"]
-                  + feature_counts["block_attn"]),
+                  + feature_counts["block_attn"]
+                  + front_counts["block_attn"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
             pretrain=pretrain_stats["block_launches"],
             toolchain=tool_counts["block_attention_cuda"],
             engine_features=feature_counts["block_attn"],
+            front_door=front_counts["block_attn"],
             engine_features_verify_rounds=sum(
                 feature_stats["speculative"][arm]["spec_rounds"]
                 for arm in ("speculative", "speculative_streams"))),
@@ -5062,6 +5982,7 @@ def main(argv=None) -> int:
             k: verify[k] for k in ("w", "max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}),
         live_verify_check=feature_stats["speculative"]["live_verify_check"],
+        live_failover_check=front_stats["failover"]["live_state_check"],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
         bound_ms=block_main["bound_ms"], bound_by=block_main["bound_by"],
@@ -5077,7 +5998,8 @@ def main(argv=None) -> int:
                       int8_engine=int8_stats, training=train_stats,
                       pretrain=pretrain_stats, toolchain=toolchain_stats,
                       window_supervisor=window_stats,
-                      engine_features=feature_stats)
+                      engine_features=feature_stats,
+                      front_door=front_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),
@@ -5106,6 +6028,7 @@ def main(argv=None) -> int:
                         param_dtype=c["param_dtype"], rows=c["rows"],
                         h=c["h"], **c[part])
                    for c in norm_cases if c["norm"] == kind]))
+    log(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

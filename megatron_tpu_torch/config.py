@@ -300,11 +300,6 @@ _LATER_SERVING = {
     "degrade_max_new_tokens": "the degrade ladder (Queue 1 item 6)",
     "slo_ttft_ms": "the degrade ladder (Queue 1 item 6)",
     "slo_itl_p99_ms": "the degrade ladder (Queue 1 item 6)",
-    "num_replicas": "the router (Queue 1 item 6)",
-    "router_max_retries": "the router (Queue 1 item 6)",
-    "router_heartbeat_timeout_s": "the router (Queue 1 item 6)",
-    "host_kv_bytes": "the host KV tier (Queue 1 item 6)",
-    "stream_ttl_s": "SSE streaming (Queue 1 item 6)",
     "serving_tp": "the serving topology (Queue 1 item 7)",
     "disaggregate_prefill": "the serving topology (Queue 1 item 7)",
     "prefill_tp": "the serving topology (Queue 1 item 7)",
@@ -347,7 +342,11 @@ class ServingConfig:
     `engine_step_timeout_s` (the hung-iteration watchdog) and the
     throughput features: `enable_prefix_cache` with `retained_slots`,
     `prefill_chunk`, `preemption` (with `priority_levels` >= 2) and
-    `speculative_k`. `validate()`
+    `speculative_k`; and the front door: `num_replicas` engines behind the
+    prefix-affinity router (`router_max_retries`,
+    `router_heartbeat_timeout_s`), the SSE stream registry's
+    `stream_ttl_s` and the host KV tier's byte budget `host_kv_bytes`
+    (with the prefix cache on a block pool). `validate()`
     raises NotImplementedError for any other field set away from its
     default, naming the later slice (ROADMAP Queue 1 items 6 and 7)."""
 
@@ -480,6 +479,30 @@ class ServingConfig:
                     f"than the slot capacity (max_len={max_len})")
         if self.max_engine_restarts < 0:
             raise ValueError("max_engine_restarts must be >= 0")
+        if self.num_replicas < 1:
+            raise ValueError(f"num_replicas must be >= 1, got "
+                             f"{self.num_replicas}")
+        if self.router_max_retries < 0:
+            raise ValueError(f"router_max_retries must be >= 0, got "
+                             f"{self.router_max_retries}")
+        if self.router_heartbeat_timeout_s <= 0.0:
+            raise ValueError("router_heartbeat_timeout_s must be > 0")
+        if self.stream_ttl_s <= 0.0:
+            raise ValueError("stream_ttl_s must be > 0")
+        if self.host_kv_bytes < 0:
+            raise ValueError(f"host_kv_bytes must be >= 0, got "
+                             f"{self.host_kv_bytes}")
+        if self.host_kv_bytes and not (self.enable_prefix_cache
+                                       and self.kv_block_size is not None):
+            # the tier demotes and restores retained block lists
+            raise ValueError(
+                "host_kv_bytes requires enable_prefix_cache and "
+                "kv_block_size: the host tier demotes retained prefix "
+                "block lists")
+        if self.num_replicas > 1 and self.serial_fallback:
+            raise ValueError(
+                "num_replicas > 1 routes through the continuous-batching "
+                "engine; serial_fallback has no replicas to route over")
         if self.engine_step_timeout_s is not None and \
                 self.engine_step_timeout_s <= 0.0:
             raise ValueError("engine_step_timeout_s must be > 0")

@@ -16,9 +16,25 @@ take the serial route: one request at a time under a lock
 (`Generator.generate`, `beam_search`). With
 `ServingConfig(serial_fallback=True)` there is no engine and every payload
 takes the serial route, with the reference's statuses and messages in that
-mode. On the engine route, `stream`, `n`/`best_of`, `response_format`,
-`adapter_id`, `prompt_tokens` and `cancel` get a 400 saying which later
-slice brings them.
+mode. On the engine route, `n`/`best_of`, `response_format`,
+`adapter_id` and `prompt_tokens` get a 400 saying which later slice brings
+them.
+
+The front door: `ServingConfig(num_replicas=N)` with N >= 2 puts N engine
+replicas over the one Generator (the weights held once, a block pool each)
+behind the prefix-affinity router (serving/router.py): health-driven
+failover, token-exact retries on survivors, and a /healthz that tells
+degraded from down; N = 1 is the bare engine. A payload with
+`"stream": true` (one prompt) is answered as server-sent events
+(`text/event-stream`): a `start` event carrying the `stream_id`, one
+`token` event per committed token with `id:` its index, then `done` or a
+typed `error` event carrying the HTTP `status` a whole-completion caller
+would have seen and the count of `committed` tokens. A dropped client
+resumes with `{"stream": true, "stream_id": ...}` and the `Last-Event-ID`
+header (the request holds every committed token, so the resume replays the
+tail: nothing duplicated, nothing missing); `{"stream_id": ...,
+"cancel": true}` evicts a stream's request and frees its slot. Finished
+streams stay resumable for `stream_ttl_s`.
 
 The transport is the standard library's threading HTTP server.
 """
@@ -30,6 +46,7 @@ import math
 import secrets
 import threading
 import time
+import types
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
@@ -41,6 +58,7 @@ from megatron_tpu_torch.serving.engine import ServingEngine
 from megatron_tpu_torch.serving.request import (DeadlineExceededError,
                                                 SamplingOptions,
                                                 ServiceUnavailableError)
+from megatron_tpu_torch.serving.router import EngineRouter
 from megatron_tpu_torch.serving.scheduler import (AdmissionError,
                                                   EngineUnhealthyError,
                                                   OverloadShedError,
@@ -53,12 +71,27 @@ MAX_PROMPTS = 128
 _LATER_ON_ENGINE = (
     ("prompt_tokens", "prompt_tokens (the replica-mode wire format) comes "
                       "with remote replicas in a later slice"),
-    ("cancel", "cancel comes with SSE streaming in a later slice"),
-    ("stream", "streaming comes with SSE in a later slice"),
     ("adapter_id", "adapter_id comes with LoRA adapters in a later slice"),
     ("response_format", "response_format comes with structured output in "
                         "a later slice"),
 )
+
+
+class _StreamEntry:
+    """A row of the SSE stream registry: the live request (its `generated`
+    list is the resume buffer) and the TTL bookkeeping."""
+
+    __slots__ = ("sid", "req", "created", "done_t")
+
+    def __init__(self, sid: str, req):
+        self.sid = sid
+        self.req = req
+        self.created = time.monotonic()
+        self.done_t = None  # set when first seen done; the TTL runs
+
+
+def _is_stream_body(body) -> bool:
+    return isinstance(body, types.GeneratorType)
 
 
 def validate_response_format(rf) -> Optional[str]:
@@ -191,8 +224,31 @@ class MegatronServer:
         self._lock = threading.Lock()  # the serial route: one at a time
         self._request_counter = itertools.count()
         self._timeout = request_timeout
-        self.engine = (None if self.serving.serial_fallback else
-                       ServingEngine(generator, self.serving, device=device))
+        # the SSE stream registry: stream_id -> live request, so that a
+        # dropped connection resumes through Last-Event-ID
+        self._streams: dict = {}
+        self._streams_lock = threading.Lock()
+        self.engine = None
+        if self.serving.serial_fallback:
+            return
+        if self.serving.num_replicas == 1:
+            self.engine = ServingEngine(generator, self.serving,
+                                        device=device)
+            return
+        # N replicas over the one Generator: its weights are held once,
+        # and each replica has its own pool, queue and supervisor
+        engines = []
+        try:
+            for _ in range(self.serving.num_replicas):
+                engines.append(ServingEngine(generator, self.serving,
+                                             device=device))
+        except BaseException:
+            for e in engines:
+                e.close()
+            raise
+        self.engine = EngineRouter(
+            engines, max_retries=self.serving.router_max_retries,
+            heartbeat_timeout_s=self.serving.router_heartbeat_timeout_s)
 
     def close(self):
         if self.engine is not None:
@@ -206,8 +262,12 @@ class MegatronServer:
         return (secrets.randbits(31)
                 ^ (next(self._request_counter) & 0x7FFFFFFF))
 
-    def handle(self, payload) -> Tuple[int, dict]:
-        """Returns (http_status, JSON-able body)."""
+    def handle(self, payload, headers: Optional[dict] = None
+               ) -> Tuple[int, object]:
+        """Returns (http_status, body): a JSON-able dict, or for a
+        `"stream": true` payload a generator of SSE frames (the transport
+        answers it as `text/event-stream`). `headers` carries the request's
+        headers (Last-Event-ID for a stream's resume)."""
         if self.engine is None:
             return self._handle_serial_mode(payload)
         try:
@@ -220,6 +280,11 @@ class MegatronServer:
                     return 400, {"message": "n/best_of parallel sampling "
                                             "comes with fan-out in a later "
                                             "slice"}
+                if payload.get("cancel"):
+                    return self._handle_cancel(payload)
+                if payload.get("stream"):
+                    # validated inside: a resume carries only a stream_id
+                    return self._handle_stream(payload, headers or {})
             err = validate_generate_payload(payload)
             if err is not None:
                 return 400, {"message": err}
@@ -311,16 +376,22 @@ class MegatronServer:
                           "(serial_fallback has no control plane)"}
 
     def healthz(self) -> Tuple[int, dict]:
-        """200 while the engine accepts work, else 503, with the engine's
-        health snapshot; the serial mode has no loop to probe."""
+        """200 while the engine (or the router: a degraded router, with
+        some replica still up, stays ready) accepts work, else 503, with
+        the health snapshot; the serial mode has no loop to probe."""
         if self.engine is None:
             return 200, {"healthy": True, "serving": "serial"}
+        self._gc_streams()  # probes double as the registry's sweeper
         h = self.engine.health()
         return (200 if h["accepting"] else 503), h
 
     def metrics_snapshot(self) -> dict:
         if self.engine is None:
             return {"serving": "serial"}
+        self._gc_streams()  # scrapes double as the registry's sweeper
+        if isinstance(self.engine, EngineRouter):
+            # counters summed across replicas, the router's own added
+            return self.engine.aggregate_snapshot()
         return self.engine.metrics.snapshot()
 
     def _preflight_lengths(self, payload: dict, max_total: int, what: str):
@@ -444,9 +515,180 @@ class MegatronServer:
             out["logprobs"] = logprobs
         return out
 
+    # ------------------------------------------------------------------
+    # SSE streaming
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _sse(data: dict, event: Optional[str] = None,
+             event_id: Optional[int] = None) -> str:
+        """One SSE frame. Token frames carry `id:` = the token's index,
+        which is what makes a Last-Event-ID resume exact."""
+        lines = []
+        if event_id is not None:
+            lines.append(f"id: {event_id}")
+        if event:
+            lines.append(f"event: {event}")
+        lines.append("data: " + json.dumps(data))
+        return "\n".join(lines) + "\n\n"
+
+    def _gc_streams(self):
+        """Sweep the stream registry; runs on every stream request and on
+        the /metrics and /healthz paths, so finished or abandoned entries
+        do not outlive their TTL on a server that gets no new streams."""
+        with self._streams_lock:
+            self._gc_streams_locked(time.monotonic())
+
+    def _gc_streams_locked(self, now: float):
+        ttl = float(self.serving.stream_ttl_s)
+        for sid in list(self._streams):
+            e = self._streams[sid]
+            if e.done_t is None and e.req.done():
+                e.done_t = now
+            if e.done_t is not None and now - e.done_t > ttl:
+                del self._streams[sid]
+            elif e.done_t is None and now - e.created > ttl + self._timeout:
+                # a router request settles only while a caller pumps it:
+                # past the request timeout and the TTL nobody can resume
+                # an abandoned stream, so cancel it and drop it
+                try:
+                    self.engine.cancel(e.req)
+                except Exception:  # noqa: BLE001 — the sweep is best-effort
+                    pass
+                del self._streams[sid]
+
+    def _handle_stream(self, payload: dict, headers) -> Tuple[int, object]:
+        """`"stream": true`: a fresh stream submits one request and returns
+        the frame generator; a resume (`stream_id`) re-attaches to the live
+        request and replays its committed tokens from Last-Event-ID + 1."""
+        last = headers.get("Last-Event-ID") if headers else None
+        if last is None:
+            last = payload.get("last_event_id")
+        try:
+            last = int(last) if last is not None else -1
+        except (TypeError, ValueError):
+            return 400, {"message": "Last-Event-ID must be an integer "
+                                    "token index"}
+        sid = payload.get("stream_id")
+        if sid is not None:
+            with self._streams_lock:
+                self._gc_streams_locked(time.monotonic())
+                entry = self._streams.get(sid)
+            if entry is None:
+                return 404, {"message": f"unknown or expired stream_id "
+                                        f"{sid!r}; start a new stream"}
+            self.engine.metrics.count("stream_reconnects")
+            return 200, self._stream_events(entry, start=last + 1,
+                                            resumed=True)
+        err = validate_generate_payload(payload)
+        if err is not None:
+            return 400, {"message": err}
+        if payload.get("beam_width"):
+            return 400, {"message": "beam search is whole-batch; it does "
+                                    "not stream"}
+        if len(payload["prompts"]) != 1:
+            return 400, {"message": "streaming supports exactly one prompt "
+                                    "per request"}
+        prompt_ids = self._preflight_lengths(payload, self.engine.max_len,
+                                             "max_len")
+        sampling = SamplingOptions(
+            temperature=float(payload.get("temperature", 1.0)),
+            top_k=int(payload.get("top_k", 0)),
+            top_p=float(payload.get("top_p", 0.0)))
+        deadline_s = payload.get("deadline_s")
+        aid = payload.get("arrival_id")
+        req = self.engine.submit(
+            prompt_ids[0], int(payload.get("tokens_to_generate", 64)),
+            sampling, seed=self._seed_for(payload),
+            priority=int(payload.get("priority", 0) or 0),
+            deadline_s=None if deadline_s is None else float(deadline_s),
+            arrival_id=None if aid is None else int(aid))
+        entry = _StreamEntry(secrets.token_hex(8), req)
+        with self._streams_lock:
+            self._gc_streams_locked(time.monotonic())
+            self._streams[entry.sid] = entry
+        return 200, self._stream_events(entry, start=0, resumed=False)
+
+    def _stream_events(self, entry: _StreamEntry, start: int,
+                       resumed: bool):
+        """The frame generator: `start` (the stream_id for a later resume),
+        one `token` frame per committed token with `id:` its index, then
+        one terminal frame: `done` with the whole completion, or `error`
+        with the status a whole-completion caller would have seen (a
+        replica's crash mid-stream ends here, never in a silent hang)."""
+        req = entry.req
+        # the port's engines serve one set of weights (no live swaps)
+        yield self._sse({"stream_id": entry.sid, "resumed": resumed,
+                         "next_index": max(start, 0),
+                         "weight_version": "unversioned"}, event="start")
+        i = max(start, 0)
+        # the budget the whole-completion route enforces through
+        # result(timeout): a stuck request ends in a terminal frame
+        give_up = time.monotonic() + self._timeout
+        while True:
+            gen = req.generated
+            if i < len(gen):
+                lps = req.gen_logprobs
+                data = {"index": i, "token": int(gen[i]),
+                        "text": self.tokenizer.detokenize([int(gen[i])])}
+                if i < len(lps):
+                    data["logprob"] = float(lps[i])
+                yield self._sse(data, event="token", event_id=i)
+                i += 1
+                continue
+            if req.done():
+                break
+            if time.monotonic() > give_up:
+                yield self._sse(
+                    {"message": f"stream timed out after "
+                                f"{self._timeout:.0f}s waiting for tokens",
+                     "status": 500, "retryable": True,
+                     "committed": len(req.generated)}, event="error")
+                return
+            # a router request's wait_token drives its retry pump, so a
+            # failed-over stream goes on from a survivor
+            req.wait_token(i, timeout=0.25)
+        try:
+            toks, _ = req.result(timeout=self._timeout)
+        except Exception as e:  # noqa: BLE001 — a typed terminal frame
+            if isinstance(e, DeadlineExceededError):
+                status = 504
+            elif isinstance(e, (ServiceUnavailableError,
+                                EngineUnhealthyError)):
+                status = 503
+            elif isinstance(e, QueueFullError):
+                status = 429
+            else:
+                status = 500
+            yield self._sse({"message": str(e), "status": status,
+                             "retryable": status in (429, 503),
+                             "committed": len(req.generated)},
+                            event="error")
+            return
+        yield self._sse({"text": self.tokenizer.detokenize(toks),
+                         "segments": toks,
+                         "generated": len(req.generated)}, event="done")
+
+    def _handle_cancel(self, payload: dict) -> Tuple[int, dict]:
+        """`{"stream_id": ..., "cancel": true}`: evict a live stream's
+        request, so its slot stops decoding tokens nobody will read.
+        Idempotent: an unknown or collected stream answers 200 with
+        `cancelled` false."""
+        sid = payload.get("stream_id")
+        if not isinstance(sid, str) or not sid:
+            return 400, {"message": "cancel requires a stream_id"}
+        with self._streams_lock:
+            self._gc_streams_locked(time.monotonic())
+            entry = self._streams.get(sid)
+        if entry is None:
+            return 200, {"cancelled": False, "stream_id": sid,
+                         "message": "unknown or already-expired stream"}
+        self.engine.cancel(entry.req)
+        return 200, {"cancelled": True, "stream_id": sid}
+
     def make_http_server(self, host: str, port: int) -> ThreadingHTTPServer:
-        """The HTTP front end, bound but not yet serving: PUT /api and
-        /admin, GET /healthz and /metrics. The caller runs
+        """The HTTP front end, bound but not yet serving: PUT /api (JSON,
+        or server-sent events for a stream) and /admin, GET /healthz and
+        /metrics. The caller runs
         `serve_forever()` and stops it with `shutdown()`."""
         server = self
 
@@ -460,6 +702,24 @@ class MegatronServer:
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _send_stream(self, status: int, gen):
+                """An SSE response: no Content-Length, one flushed write a
+                frame. A dropped client stops the writer only: the request
+                decodes on, and a resume replays its tail."""
+                self.send_response(status)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                try:
+                    for chunk in gen:
+                        self.wfile.write(chunk.encode())
+                        self.wfile.flush()
+                except OSError:
+                    pass  # the client is gone; the stream stays resumable
+                finally:
+                    gen.close()
 
             def do_PUT(self):
                 from urllib.parse import urlsplit
@@ -476,8 +736,12 @@ class MegatronServer:
                 if path == "/admin":
                     status, body = server.handle_admin(payload)
                 else:
-                    status, body = server.handle(payload)
-                self._send(status, body)
+                    status, body = server.handle(payload,
+                                                 headers=self.headers)
+                if _is_stream_body(body):
+                    self._send_stream(status, body)
+                else:
+                    self._send(status, body)
 
             def do_GET(self):
                 from urllib.parse import urlsplit

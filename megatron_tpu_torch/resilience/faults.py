@@ -22,9 +22,10 @@ every failure path testable on demand.
   guard, serving/engine.py) is proven through a real engine;
 - **serving state corruption** (`serve_host_corrupt` /
   `serve_adapter_corrupt`): flip bytes in a demoted host-tier KV entry or
-  a demoted host adapter copy. The hooks keep the reference's signatures;
-  the port's engine has no host tier or adapter bank yet, so nothing
-  calls them.
+  a demoted host adapter copy. The engine's step flips a host-tier entry
+  (serving/host_tier.py), whose CRC gate must turn it into a miss; the
+  adapter hook keeps the reference's signature and waits for the adapter
+  bank of a later slice.
 
 Activation is process-global (`activate`/`deactivate` or the
 `with use_fault_injector(...)` context) and off by default: production

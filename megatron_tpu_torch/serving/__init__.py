@@ -1,8 +1,10 @@
 """Continuous-batching serving (megatron_tpu/serving): the engine, its KV
-pool, the prefix index, the draft side of speculative decoding, the
-admission scheduler, request objects and metrics."""
+pool, the prefix index, the host KV tier, the draft side of speculative
+decoding, the admission scheduler, the prefix-affinity router over engine
+replicas, request objects and metrics."""
 from megatron_tpu_torch.serving.engine import (  # noqa: F401
     EngineHungError, ServingEngine)
+from megatron_tpu_torch.serving.host_tier import HostKVTier  # noqa: F401
 from megatron_tpu_torch.serving.kv_pool import (  # noqa: F401
     BlockKV, RetainedPrefix, SlotKVPool, block_native_cache, clone_prefix,
     insert_blocks, insert_prefill, pack_block_native, resolve_view,
@@ -12,6 +14,8 @@ from megatron_tpu_torch.serving.prefix_index import PrefixIndex  # noqa: F401
 from megatron_tpu_torch.serving.request import (  # noqa: F401
     DeadlineExceededError, GenRequest, RequestFailedError, RequestState,
     SamplingOptions, ServiceUnavailableError)
+from megatron_tpu_torch.serving.router import (  # noqa: F401
+    EngineRouter, NoReplicaAvailableError)
 from megatron_tpu_torch.serving.scheduler import (  # noqa: F401
     AdmissionError, AdmissionScheduler, EngineUnhealthyError,
     OverloadShedError, QueueFullError)

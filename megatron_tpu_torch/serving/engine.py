@@ -97,8 +97,18 @@ steps, and the last chunk lands it with one insert.
   to 1 + accepted, the carried logits are those after the last committed
   token, and a stochastic rejection bans its draft from the next draw.
 
-Adapters, structured output, the host KV tier and fan-out come with later
-slices and raise when configured (ServingConfig.validate).
+- Host KV tier (`host_kv_bytes`, serving/host_tier.py): a retained block
+  list evicted under block pressure demotes to host RAM (the pool's
+  `on_evict_entry` fires before the unref; the entry's blocks are copied to
+  host numpy arrays under a CRC32), and a later prompt whose longest cached
+  prefix lives only there restores it: the checksum is verified, the live
+  blocks are uploaded into a batch-1 cache of the region's length and the
+  suffix prefills on it like a device hit. Only a strictly longer host match beats a device hit;
+  a corrupt entry is a miss. `prefix_peek` reads both halves for the
+  router (serving/router.py).
+
+Adapters, structured output and fan-out come with later slices and raise
+when configured (ServingConfig.validate).
 """
 from __future__ import annotations
 
@@ -121,6 +131,7 @@ from megatron_tpu_torch.models import language_model as lm
 from megatron_tpu_torch.models.attention import KVCache
 from megatron_tpu_torch.resilience.faults import get_fault_injector
 from megatron_tpu_torch.resilience.watchdog import StepWatchdog
+from megatron_tpu_torch.serving.host_tier import HostKVTier
 from megatron_tpu_torch.serving.kv_pool import (SlotKVPool,
                                                 block_native_cache,
                                                 insert_blocks, insert_prefill,
@@ -146,6 +157,17 @@ _NO_RNG = torch.empty(0, dtype=torch.uint8)
 class EngineHungError(RuntimeError):
     """Raised by the loop when the watchdog flagged a wedged iteration that
     eventually returned: the supervisor treats it as a crash."""
+
+
+class _HostSrc:
+    """A prefix-lookup source in the host KV tier (not a slot or a
+    retained entry): carries the tier's key. `_start_pending` restores it
+    into a fresh batch-1 cache; nothing is aliased."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key):
+        self.key = key
 
 
 class _PendingPrefill:
@@ -210,6 +232,7 @@ class ServingEngine:
         self.num_slots = S = self.serving.num_slots
         kv_dtype = (generator.kv_cache_dtype if self.serving.kv_dtype is None
                     else SERVING_KV_DTYPES[self.serving.kv_dtype])
+        self._host_tier: Optional[HostKVTier] = None
         self.pool = self._new_pool(kv_dtype)
         # 2 = block kernel, 1 = block pool through the resolve/scatter
         # bracket, 0 = whole-region dot path
@@ -229,6 +252,12 @@ class ServingEngine:
         self._spec_k = self.serving.speculative_k
         self.drafter = drafter if drafter is not None else NGramDrafter()
         self._index = self._new_index()
+        if self.serving.host_kv_bytes > 0:
+            # the tier survives restarts (host RAM is not device state);
+            # _new_pool wires each pool's eviction hook to it
+            self._host_tier = HostKVTier(self.serving.host_kv_bytes,
+                                         self._index.granularity)
+            self.pool.on_evict_entry = self._demote_entry
         self._prefilling: List[_PendingPrefill] = []
         self.scheduler = AdmissionScheduler(
             self.serving.max_queue, max_total_len=self.max_len,
@@ -300,6 +329,8 @@ class ServingEngine:
                           device=self.device)
         # retained KV about to be overwritten leaves the index
         pool.on_reclaim = lambda key: self._index.remove(key)
+        if self._host_tier is not None:
+            pool.on_evict_entry = self._demote_entry
         return pool
 
     def _new_index(self) -> PrefixIndex:
@@ -317,14 +348,17 @@ class ServingEngine:
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
                sampling: SamplingOptions = SamplingOptions(),
                seed: int = 0, priority: int = 0,
-               deadline_s: Optional[float] = None) -> GenRequest:
+               deadline_s: Optional[float] = None,
+               arrival_id: Optional[int] = None) -> GenRequest:
         """Non-blocking: enqueue and return the request handle. Raises
         QueueFullError (-> 429) on a full queue or a draining engine,
         OverloadShedError (-> 429) when early shedding fires,
         EngineUnhealthyError (-> 503) when the circuit breaker is open, and
         AdmissionError (-> 400) when the request can never fit.
         `priority` clamps into [0, priority_levels); `deadline_s`
-        overrides the engine-wide request_deadline_s."""
+        overrides the engine-wide request_deadline_s; `arrival_id` (the
+        router's failover retries) keeps a request's original position in
+        the queue's order."""
         if self._broken:
             raise EngineUnhealthyError(
                 f"engine unhealthy (circuit breaker open): {self._broken}")
@@ -338,7 +372,8 @@ class ServingEngine:
             priority = max(0, min(int(priority),
                                   self.serving.priority_levels - 1))
             req = GenRequest(list(prompt), max_new_tokens, sampling, seed,
-                             priority=priority, deadline_s=deadline_s)
+                             priority=priority, deadline_s=deadline_s,
+                             arrival_id=arrival_id)
             req._on_terminal = self._count_terminal
             if max_new_tokens == 0:
                 # nothing to decode: the serial path returns the prompt
@@ -456,14 +491,20 @@ class ServingEngine:
         return self.scheduler.depth()
 
     def prefix_peek(self, tokens: Sequence[int]) -> int:
-        """Longest cached prefix this engine could serve `tokens` with (0
-        without the prefix cache): a routing hint read from other threads,
-        so a racy read degrades to 0; admission resolves the real hit."""
+        """Longest cached prefix (device index or host tier) this engine
+        could serve `tokens` with (0 without the prefix cache): the
+        router's affinity hint, read from other threads, so a racy read
+        degrades to 0; admission resolves the real hit."""
         if not self._prefix_on or not tokens:
             return 0
+        toks = list(tokens)
         try:
-            src, hit = self._index.lookup(list(tokens), len(tokens) - 1)
-            return int(hit) if src is not None else 0
+            src, hit = self._index.lookup(toks, len(toks) - 1)
+            best = hit if src is not None else 0
+            if self._host_tier is not None:
+                _, hhit = self._host_tier.lookup(toks, len(toks) - 1)
+                best = max(best, hhit)
+            return int(best)
         except Exception:  # noqa: BLE001 — cross-thread peek
             return 0
 
@@ -977,18 +1018,60 @@ class ServingEngine:
             return None, 0
         src, hit = self._index.lookup(toks, len(toks) - 1)
         if src is None or not hit:
-            return None, 0
-        if self.pool.rolling:
+            src, hit = None, 0
+        elif self.pool.rolling:
             ent = (None if isinstance(src, (int, np.integer))
                    else self.pool.entry(src))
             if ent is None:
-                return None, 0
-            f = ent.length
-            if f <= len(toks) - 1 and toks[:f] == ent.tokens:
-                return src, f  # a full continuation at the exact length
-            if f > self.pool.cap:
-                return None, 0  # wrapped: the prefix left the ring
+                src, hit = None, 0
+            elif ent.length <= len(toks) - 1 \
+                    and toks[:ent.length] == ent.tokens:
+                # a full continuation at the exact length
+                src, hit = src, ent.length
+            elif ent.length > self.pool.cap:
+                src, hit = None, 0  # wrapped: the prefix left the ring
+        # the host tier: only a strictly longer demoted match beats the
+        # device hit (a restore costs an upload; the on-card copy wins a
+        # tie)
+        if self._host_tier is not None:
+            hkey, hhit = self._host_tier.lookup(toks, len(toks) - 1)
+            if hkey is not None and hhit > hit:
+                return _HostSrc(hkey), hhit
         return src, hit
+
+    def _demote_entry(self, ent):
+        """SlotKVPool.on_evict_entry: a retained prefix is dying under block
+        pressure or the retained limit; copy its blocks to the host tier so
+        that a later hit restores instead of recomputing. Rolling rings
+        never demote (a ring restore is sound only as an exact-length
+        continuation). The pool prints and drops a failure (best-effort);
+        the size gate runs before the device copy, so an entry the budget
+        can never hold costs nothing."""
+        if self._host_tier is None or self.pool.rolling:
+            return
+        est = (len(ent.blocks) * self.pool.block_size
+               * self.pool.bytes_per_token())
+        if est > self._host_tier.budget_bytes:
+            return
+        arrays = self.pool.gather_blocks_host(ent.blocks)
+        if self._host_tier.demote(ent.key, ent.tokens, ent.length, arrays,
+                                  namespace=ent.namespace):
+            self.metrics.count("host_tier_demotions")
+
+    def _restore_host(self, key, plen: int):
+        """Checksum-verified host-tier restore: the batch-1 cache holding
+        the demoted prefix's blocks at offset `plen`, or None on a checksum
+        miss, when the entry is dropped and the caller prefills the whole
+        prompt."""
+        if not self._host_tier.has(key):
+            return None  # evicted from the tier since the lookup
+        ent = self._host_tier.restore(key)
+        if ent is None:
+            self.metrics.count("host_tier_checksum_misses")
+            return None
+        nb = -(-plen // self.pool.block_size)
+        return self.pool.host_blocks_to_sub(
+            {k: v[:, :nb] for k, v in ent.arrays.items()}, plen)
 
     def _src_blocks(self, src) -> List[int]:
         """Physical blocks behind a prefix source: a running slot's map
@@ -1034,9 +1117,16 @@ class ServingEngine:
         row's own block list, whose first blocks alias the source's;
         refs taken at alloc, the row installed at activation); otherwise
         the batch-1 cache starts empty at offset 0. A preemption replay
-        prefills prompt + generated and continues its saved generator."""
+        prefills prompt + generated and continues its saved generator. A
+        host-tier source is restored first (checksum-verified, into fresh
+        blocks): a corrupt entry makes the admission a plain miss."""
         tokens = req.effective_prompt()
         plen = len(tokens)
+        host_sub = None
+        if prefix_len and isinstance(src, _HostSrc):
+            host_sub = self._restore_host(src.key, prefix_len)
+            if host_sub is None:
+                src, prefix_len = None, 0
         if prefix_len:
             # counted at the match, so hit_tokens - tokens_saved measures
             # hits forfeited to pool pressure
@@ -1044,22 +1134,24 @@ class ServingEngine:
         blocks = None
         pfx_blocks = 0
         roll_src = None
+        device_hit = prefix_len and host_sub is None
         if self._blocks_on:
             alias = []
-            if prefix_len and self.pool.rolling:
+            if device_hit and self.pool.rolling:
                 # captured before alloc_row, which may evict the entry;
                 # its blocks keep their content until something writes
                 # them, and the copy below comes first. A ring is copied
                 # whole, never aliased: the new row's writes wrap into its
                 # early blocks
                 roll_src = list(self.pool.entry(src).blocks)
-            elif prefix_len:
+            elif device_hit:
                 pfx_blocks = prefix_len // self.pool.block_size
                 alias = self._src_blocks(src)[:pfx_blocks]
             got = self.pool.alloc_row(alias=alias, install=False)
             if got is None and prefix_len:
                 # block pressure: forfeit the hit, admit plain
                 src, prefix_len, pfx_blocks = None, 0, 0
+                host_sub = None
                 got = self.pool.alloc_row(install=False)
             if got is None:
                 raise RuntimeError("popped more requests than free slots")
@@ -1074,7 +1166,15 @@ class ServingEngine:
                 raise RuntimeError("popped more requests than free slots")
         try:
             n = self._sub_len(plen)
-            if prefix_len:
+            if prefix_len and host_sub is not None:
+                # restored from the host tier: the sub holds the prefix at
+                # offset prefix_len and the row's own blocks take it all
+                # at the insert (no aliasing, pfx_blocks 0)
+                req.prefix_len = prefix_len
+                self.metrics.count("host_tier_hits")
+                self.metrics.count("prefill_tokens_saved", prefix_len)
+                sub = host_sub
+            elif prefix_len:
                 if isinstance(src, (int, np.integer)):
                     self.pool.touch(int(src))
                 else:
@@ -1358,6 +1458,10 @@ class ServingEngine:
             call = inj.next_serve_step()
             inj.maybe_serve_delay(call)
             inj.check_serve_crash(call)
+            # flip bytes in a demoted host-tier entry: its CRC gate must
+            # turn the next restore into a miss, never wrong tokens
+            if inj.serve_host_corrupt(call) and self._host_tier is not None:
+                inj.corrupt_host_tier_entry(self._host_tier)
             ordinal = inj.serve_nan_slot(call)
             if ordinal is not None:
                 act = np.nonzero(self._active)[0]

@@ -55,6 +55,10 @@ is about to be overwritten so the prefix index forgets it. A prefix hit on
 a block pool aliases the shared blocks into the new row's map
 (`alloc_row(alias=...)`, refcounted) and `insert_blocks` skips them
 (`pfx_blocks`); a whole-region hit copies the region (`slice_slot`).
+With the host KV tier (serving/host_tier.py) `on_evict_entry(entry)` fires
+before an evicted entry's blocks are unreffed (never in `drop_retained`),
+`gather_blocks_host` copies them to host numpy arrays and
+`host_blocks_to_sub` brings them back as a batch-1 cache.
 
 `slice_slot` and `slice_blocks` return copies, never views of the pool: a
 parked preemption victim or a pending prefill's prefix must not see the
@@ -68,7 +72,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,9 +82,26 @@ from megatron_tpu_torch.inference.generation import (init_kv_caches,
                                                      kv_region_cap, kv_scales)
 from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+from megatron_tpu_torch.utils.logging import print_rank_0
 
 # the cache tensors a pool copies: k/v, and an int8 pool's scales
 _PARTS = ("k", "v", "k_scale", "v_scale")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host numpy array; bf16 as its int16 bits."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def _from_host(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Inverse of `_to_host`: int16 bits back to bf16, bit for bit, on
+    `device`."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype == torch.bfloat16 and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
 
 
 def insert_prefill(pool: KVCache, prefill: KVCache, slot: int,
@@ -289,6 +310,9 @@ class SlotKVPool:
             collections.OrderedDict()
         self.retained_limit = retained_limit
         self.on_reclaim: Optional[Callable] = None
+        # block mode: called with a dying RetainedPrefix before its blocks
+        # are unreffed (the host KV tier's demotion)
+        self.on_evict_entry: Optional[Callable] = None
         if block_size is None:
             self.caches = init_kv_caches(cfg, num_slots, max_len,
                                          dtype=dtype, per_slot_offsets=True,
@@ -417,6 +441,15 @@ class SlotKVPool:
 
     def _evict_retained(self):
         key, ent = self._retained.popitem(last=False)
+        if self.on_evict_entry is not None:
+            # demotion before the unref: the host tier copies the blocks
+            # while the entry still pins them. A failed demotion loses
+            # only the host copy; eviction proceeds
+            try:
+                self.on_evict_entry(ent)
+            except Exception as e:  # noqa: BLE001 — the tier is best-effort
+                print_rank_0(
+                    f"kv_pool: on_evict_entry failed for {key}: {e!r}")
         for b in ent.blocks:
             self._unref(b)
         self._reclaim(key)
@@ -527,13 +560,67 @@ class SlotKVPool:
         if key in self._retained:
             self._retained.move_to_end(key)
 
+    def gather_blocks_host(self, blocks: Sequence[int]
+                           ) -> Dict[str, np.ndarray]:
+        """Copy an explicit physical-block list's arena content to host
+        numpy arrays: the host tier's demotion read (engine thread, during
+        a retained entry's eviction, while the entry still pins the
+        blocks). Returns {"k", "v"[, "k_scale", "v_scale"]} shaped
+        [L, nb, B, nkv, *]; a bf16 arena's blocks come as their int16 bit
+        patterns (numpy has no bfloat16)."""
+        if not self.blocks_enabled:
+            raise RuntimeError("gather_blocks_host needs a block pool")
+        a = self.caches.arena
+        idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=a.k.device)
+        return {name: _to_host(getattr(a, name).index_select(1, idx))
+                for name in _PARTS if getattr(a, name) is not None}
+
+    def host_blocks_to_sub(self, arrays: Dict[str, np.ndarray], plen: int,
+                           pad_to_cap: bool = True) -> KVCache:
+        """Assemble host block arrays (`gather_blocks_host`'s layout) into
+        a batch-1 cache in the pool's dtype, positioned at `plen`: the host
+        tier's restore, which the engine hands to the normal suffix-prefill
+        and insert path. Only the live blocks' bytes are uploaded; the
+        positions past them are zeros built on the device (scales 1.0),
+        which sit at or after the offset, where appends overwrite them
+        before any read. `pad_to_cap=False` returns the [L, 1, nb * B, ...]
+        layout of the live blocks alone."""
+        if not self.blocks_enabled:
+            raise RuntimeError("host_blocks_to_sub needs a block pool")
+        L, nb, B = arrays["k"].shape[:3]
+        n = self.cap if pad_to_cap else nb * B
+        device = self.caches.arena.k.device
+
+        def fill(name, fill_value, dtype):
+            live = _from_host(arrays[name], dtype, device)
+            live = live.reshape(L, 1, nb * B, *live.shape[3:])
+            if not pad_to_cap:
+                return live
+            full = torch.full((L, 1, n) + tuple(live.shape[3:]), fill_value,
+                              dtype=dtype, device=live.device)
+            full[:, :, :nb * B] = live
+            return full
+
+        quant = "k_scale" in arrays
+        return KVCache(fill("k", 0, self.dtype), fill("v", 0, self.dtype),
+                       int(plen),
+                       *((fill("k_scale", 1.0, torch.float32),
+                          fill("v_scale", 1.0, torch.float32))
+                         if quant else (None, None)))
+
     def drop_retained(self) -> int:
         """Reclaim every retained entry or slot (`on_reclaim` fires for
-        each). Returns the count."""
+        each; `on_evict_entry` does not: a full drop invalidates the
+        retained KV, so nothing demotes). Returns the count."""
         n = len(self._retained)
         if self.blocks_enabled:
-            while self._retained:
-                self._evict_retained()
+            hook, self.on_evict_entry = self.on_evict_entry, None
+            try:
+                while self._retained:
+                    self._evict_retained()
+            finally:
+                self.on_evict_entry = hook
         else:
             while self._retained:
                 slot, _ = self._retained.popitem(last=False)

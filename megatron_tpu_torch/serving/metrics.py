@@ -1,7 +1,8 @@
 """Serving metrics registry: queue depth, TTFT, tokens/s, occupancy
 (megatron_tpu/serving/metrics.py, with the counters and gauges of the
-core engine, the prefix cache, chunked prefill, preemption and
-speculative decoding).
+core engine, the prefix cache, chunked prefill, preemption, speculative
+decoding and the front door: the router, SSE streams and the host KV
+tier).
 
 Counters and latency reservoirs are updated from the engine loop and HTTP
 threads and snapshotted as plain floats for `/metrics`. Beside the
@@ -54,6 +55,14 @@ _BASE_COUNTERS = (
     # drafts committed, and plain decode steps a speculative engine ran
     # because no slot proposed a draft
     "spec_rounds", "draft_tokens", "accepted_tokens", "spec_fallback_steps",
+    # front door: replicas the router ejected from rotation, attempts it
+    # resubmitted to a survivor, prefix restores served from the host-RAM
+    # KV tier, retained block lists demoted there on eviction, demoted
+    # entries dropped because their checksum no longer verified (a miss,
+    # never wrong tokens), and SSE streams resumed through Last-Event-ID
+    "router_failovers", "router_retries", "host_tier_hits",
+    "host_tier_demotions", "host_tier_checksum_misses",
+    "stream_reconnects",
 )
 
 # gauges a snapshot always carries, by the attribute each is stored under.
@@ -62,11 +71,14 @@ _BASE_COUNTERS = (
 # 1 = block pool through
 # the resolve/scatter bracket, 2 = block-native kernel;
 # kv_gather_bytes_per_step: the bytes the bracket moved per decode step
-# over the last sync window (0 on the other two paths).
+# over the last sync window (0 on the other two paths);
+# fleet_replicas_up: the router's replicas in rotation (router-pushed).
+# Every gauge here needs an aggregation rule in serving/router.py, or a
+# fleet scrape reads it as 0 (tests/test_torch_router.py pins that).
 _BASE_GAUGES = (
     "queue_depth", "active_slots", "num_slots",
     "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted",
-    "kv_gather_bytes_per_step", "kv_attn_path",
+    "kv_gather_bytes_per_step", "kv_attn_path", "fleet_replicas_up",
 )
 
 
@@ -132,6 +144,11 @@ class ServingMetrics:
         with self._lock:
             self.kv_gather_bytes_per_step = int(gather_bytes_per_step)
             self.kv_attn_path = int(path)
+
+    def set_fleet_gauge(self, replicas_up: int):
+        """Router-pushed: the replicas currently in rotation."""
+        with self._lock:
+            self.fleet_replicas_up = int(replicas_up)
 
     def record_step(self, active_slots: int, num_slots: int,
                     tokens_emitted: int, queue_depth: int):

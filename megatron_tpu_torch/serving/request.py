@@ -4,7 +4,9 @@
 Requests enter and leave the persistent decode batch at token granularity,
 so each carries its own sampling state, seed and lifecycle timestamps, and
 signals completion through a threading.Event that HTTP handler threads
-block on. A preempted request carries its resume state: `parked` (its
+block on, and each committed token through a condition that the SSE
+streaming cursor and the router's retry pump wait on (`wait_token`). A
+preempted request carries its resume state: `parked` (its
 KV copied out of the pool and its carried logits row), `resume_rng` and
 `resume_reject`. The fields of the features the port has not reached yet
 (LoRA adapters, structured output, n-best fan-out) stay present and inert,
@@ -115,6 +117,9 @@ class GenRequest:
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self._done = threading.Event()
+        # per-token progress (append_token and the terminal transitions
+        # notify): what `wait_token` blocks on
+        self._progress = threading.Condition()
         # terminal transitions are check-then-act (finish/fail race
         # between the engine loop, the watchdog thread, and HTTP
         # cancel paths); this lock makes first-wins ATOMIC so the
@@ -229,6 +234,29 @@ class GenRequest:
             self.first_token_time = time.monotonic()
         self.generated.append(int(token))
         self.gen_logprobs.append(float(logprob))
+        self._notify_progress()
+
+    def _notify_progress(self):
+        with self._progress:
+            self._progress.notify_all()
+
+    def wait_token(self, i: int, timeout: Optional[float] = None) -> bool:
+        """Block until token index `i` exists in `generated` or the request
+        is terminal (the SSE streaming cursor's wait). True in either case,
+        False on timeout: the caller tells "token ready" from "stream over"
+        by reading `len(generated)` and `done()` again."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        with self._progress:
+            while len(self.generated) <= i and not self._done.is_set():
+                if deadline is None:
+                    self._progress.wait()
+                    continue
+                rem = deadline - time.monotonic()
+                if rem <= 0:
+                    return False
+                self._progress.wait(rem)
+        return True
 
     def _fire_terminal(self, outcome: str):
         hook = self._on_terminal
@@ -257,6 +285,7 @@ class GenRequest:
                 self._fire_terminal("completed")
             finally:
                 self._done.set()
+        self._notify_progress()
         return True
 
     def fail(self, msg: str, kind: str = "error") -> bool:
@@ -288,6 +317,7 @@ class GenRequest:
                                     else "failed")
             finally:
                 self._done.set()
+        self._notify_progress()
         return True
 
     # ---- caller side -------------------------------------------------

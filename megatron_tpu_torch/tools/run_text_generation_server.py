@@ -13,7 +13,12 @@ block pool read by the block-native decode kernel, `--num_slots` defaults to
 what the card's free memory holds after the weights (up to 8,
 `serving.kv_pool.fit_num_slots`), and `--serial` serves every request on the
 serial route instead. `--int8_weights` and `--int8_kv` serve int8-resident
-weights and an int8 KV cache.
+weights and an int8 KV cache. The front door: `--num_replicas N` serves N
+engine replicas (the weights once, a pool each; the default slot count is
+then split between them) behind the prefix-affinity router,
+`--enable_prefix_cache` with `--kv_block_size` retains finished prefixes,
+and `--host_kv_bytes` demotes evicted ones to a host-RAM tier of that many
+bytes. `"stream": true` payloads are answered as server-sent events.
 
 The other flags of the JAX tool parse and raise NotImplementedError naming
 the ROADMAP item they wait for: `--fleet`, `--replica_mode` and the
@@ -62,6 +67,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv_block_size", type=int, default=None,
                    help="block-granular KV pool, read in place by the "
                         "block-native decode kernel")
+    p.add_argument("--enable_prefix_cache", action="store_true",
+                   help="retain finished requests' KV and reuse the "
+                        "longest cached prefix of a new prompt")
+    p.add_argument("--retained_slots", type=int, default=None,
+                   help="cap on retained prefixes (None: block pressure "
+                        "alone evicts)")
+    p.add_argument("--num_replicas", type=int, default=1,
+                   help="engine replicas behind the in-process "
+                        "prefix-affinity router: a request goes to the "
+                        "replica whose prefix cache holds the longest "
+                        "match (ties: least loaded); unhealthy replicas "
+                        "are ejected and their work retries on a survivor "
+                        "(1: no router)")
+    p.add_argument("--router_max_retries", type=int, default=2,
+                   help="failover retries a request before its error "
+                        "surfaces (503 only when every replica is down)")
+    p.add_argument("--router_heartbeat_timeout_s", type=float, default=5.0,
+                   help="seconds without a healthy snapshot before the "
+                        "router ejects a replica")
+    p.add_argument("--host_kv_bytes", type=int, default=0,
+                   help="host-RAM KV tier byte budget: retained prefix "
+                        "block lists evicted under block pressure demote "
+                        "to host memory (checksum-verified on restore) and "
+                        "restore on a later hit; needs "
+                        "--enable_prefix_cache and --kv_block_size "
+                        "(0 disables)")
+    p.add_argument("--stream_ttl_s", type=float, default=600.0,
+                   help="seconds a finished SSE stream stays resumable "
+                        "through Last-Event-ID")
     # flags of later slices: they parse and raise
     p.add_argument("--adapter_slots", type=int, default=0)
     p.add_argument("--adapter_rank", type=int, default=8)
@@ -91,6 +125,12 @@ def serving_config(args, num_slots: int):
         request_deadline_s=args.request_deadline_s,
         kv_block_size=args.kv_block_size,
         block_native_attn=args.kv_block_size is not None,
+        enable_prefix_cache=args.enable_prefix_cache,
+        retained_slots=args.retained_slots,
+        num_replicas=args.num_replicas,
+        router_max_retries=args.router_max_retries,
+        router_heartbeat_timeout_s=args.router_heartbeat_timeout_s,
+        host_kv_bytes=args.host_kv_bytes, stream_ttl_s=args.stream_ttl_s,
         adapter_slots=args.adapter_slots, adapter_rank=args.adapter_rank,
         adapter_host_bytes=args.adapter_host_bytes,
         serving_tp=args.serving_tp,
@@ -143,10 +183,12 @@ def build_server(argv=None, *, device: DeviceLike = None):
     if num_slots is None:
         num_slots = 8
         if not args.serial:
-            num_slots = fit_num_slots(
+            # each replica has its own pool: they share what fits
+            reps = max(args.num_replicas, 1)
+            num_slots = max(1, fit_num_slots(
                 mcfg, args.serving_max_len or mcfg.max_position_embeddings,
-                dtype=kv_dtype, block_size=args.kv_block_size,
-                device=device)
+                dtype=kv_dtype, requested=8 * reps,
+                block_size=args.kv_block_size, device=device) // reps)
             print_rank_0(f"serving: auto-sized num_slots={num_slots} "
                          "(override with --num_slots)")
     serving = serving_config(args, num_slots).validate(mcfg)

@@ -126,7 +126,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/validate_dataset.py", "data/hf_tokenizer.py",
                    "data/tokenizers.py", "resilience/faults.py",
                    "resilience/watchdog.py", "serving/prefix_index.py",
-                   "serving/spec_decode.py"):
+                   "serving/spec_decode.py", "serving/host_tier.py",
+                   "serving/router.py", "tools/chaos_common.py",
+                   "tools/chaos_router.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
@@ -135,6 +137,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                "optax", "orbax", "transformers",
                                "safetensors", "tokenizers", "sentencepiece",
                                "regex"), f"{path}: imports {mod}"
+
+
+FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
+              "serving/request.py", "serving/metrics.py",
+              "inference/server.py", "tools/chaos_common.py",
+              "tools/chaos_router.py",
+              "tools/run_text_generation_server.py")
+
+
+@pytest.mark.parametrize("module", FRONT_DOOR)
+def test_front_door_modules_import_no_jax(module):
+    """The front door's modules, imported in a fresh interpreter, load
+    neither jax nor the JAX package (directly or through what they
+    import)."""
+    import subprocess
+    import sys
+    name = "megatron_tpu_torch." + module[:-3].replace("/", ".")
+    code = (f"import sys, {name}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'megatron_tpu')); print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_entry_points_raise_without_gpu_and_device(monkeypatch):

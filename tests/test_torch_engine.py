@@ -198,8 +198,8 @@ def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
 
 
 def test_later_slice_fields_raise():
-    for kw in (dict(num_replicas=2), dict(host_kv_bytes=1 << 20),
-               dict(stream_ttl_s=60.0), dict(adapter_slots=2)):
+    for kw in (dict(degrade_ladder=2), dict(serving_tp=2),
+               dict(fleet="127.0.0.1:1"), dict(adapter_slots=2)):
         with pytest.raises(NotImplementedError):
             ServingConfig(**kw).validate()
     with pytest.raises(ValueError, match="divide"):

@@ -2,7 +2,9 @@
 127.0.0.1: the engine route equals the `"serial": true` route for greedy
 payloads, a short request sent after a long one returns first, a full
 queue and early shedding answer 429 with Retry-After, the fields of later slices get 400s,
-and /healthz and /metrics answer from the engine."""
+a `"stream": true` payload is answered as server-sent events with the
+engine route's tokens, a cancel over HTTP ends its stream and frees its
+slot, and /healthz and /metrics answer from the engine."""
 import json
 import threading
 import time
@@ -118,7 +120,6 @@ def test_short_request_returns_before_long(block_server):
 
 
 LATER = {
-    "stream": {"prompts": ["hi"], "stream": True},
     "n": {"prompts": ["hi"], "n": 2},
     "best_of": {"prompts": ["hi"], "best_of": 3},
     "response_format": {"prompts": ["hi"],
@@ -126,7 +127,6 @@ LATER = {
                                             "pattern": "a+"}},
     "adapter_id": {"prompts": ["hi"], "adapter_id": "a"},
     "prompt_tokens": {"prompt_tokens": [[5, 6]]},
-    "cancel": {"stream_id": "s", "cancel": True},
 }
 
 
@@ -135,6 +135,72 @@ def test_later_slice_fields_are_400(block_server, name):
     _, port = block_server
     status, body, _ = _put(port, LATER[name])
     assert status == 400 and "later slice" in body["message"]
+
+
+def _open_stream(port, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api", data=json.dumps(payload).encode(),
+        method="PUT", headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+def _read_frame(resp):
+    """The next SSE frame off the socket as (event, id, data)."""
+    fields = {}
+    while True:
+        line = resp.readline().decode()
+        if line in ("\n", ""):
+            break
+        k, _, v = line.rstrip("\n").partition(": ")
+        fields[k] = v
+    return (fields.get("event"), fields.get("id"),
+            json.loads(fields["data"]) if "data" in fields else None)
+
+
+def test_stream_over_http_equals_engine_route(block_server):
+    _, port = block_server
+    payload = {"prompts": ["stream me over http"], "tokens_to_generate": 12,
+               "temperature": 0.0}
+    with _open_stream(port, dict(payload, stream=True)) as resp:
+        assert resp.status == 200
+        assert resp.headers["Content-Type"] == "text/event-stream"
+        got = []
+        while True:
+            event, eid, data = _read_frame(resp)
+            got.append((event, eid, data))
+            if event in ("done", "error"):
+                break
+    assert got[0][0] == "start" and got[-1][0] == "done"
+    tokens = [d["token"] for e, _, d in got if e == "token"]
+    assert [int(i) for e, i, _ in got if e == "token"] == list(range(12))
+    status, body, _ = _put(port, payload)
+    assert status == 200
+    assert tokens == body["segments"][0][-12:]
+    assert got[-1][2]["segments"] == body["segments"][0]
+
+
+def test_cancel_over_http_ends_the_stream(block_server):
+    server, port = block_server
+    with _open_stream(port, {"prompts": ["cancel me"],
+                             "tokens_to_generate": 200,
+                             "temperature": 0.0, "stream": True}) as resp:
+        event, _, start = _read_frame(resp)
+        assert event == "start"
+        for _ in range(3):
+            assert _read_frame(resp)[0] == "token"
+        status, ack, _ = _put(port, {"stream_id": start["stream_id"],
+                                     "cancel": True})
+        assert status == 200 and ack["cancelled"] is True
+        while True:
+            event, _, data = _read_frame(resp)
+            if event != "token":
+                break
+    assert event == "error" and data["committed"] < 200
+    give_up = time.monotonic() + 30
+    while server.engine.health()["active_slots"]:
+        assert time.monotonic() < give_up
+        time.sleep(0.01)
+    assert _get(port, "/metrics")[1]["requests_cancelled"] >= 1
 
 
 def test_admission_errors_health_and_metrics(block_server):
