@@ -186,12 +186,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    (f) a 2-layer fp32 slice (TF32 off): the router, one engine and the
    serial route; a stream and its completion; a host restore, a miss and
    the tier off: equal greedy tokens.
+13. LoRA serving, LoRA finetuning and live weights (`phase_lora_live`):
+   (a) Llama-2-7B at full width and depth behind the engine with an
+   adapter bank of 8 rows at rank 16 (random fp32 factors): the three
+   bench_lora arms (base, one adapter, 16 requests round-robin over the
+   base model and 8 adapters), each request prefilled alone: tokens/s,
+   TTFT and inter-token p50, peak memory, the gather bytes of a decode
+   step; the mixed arm's base rows equal the base arm's; the block kernel
+   held on the live adapter state at w 1 and on a w 5 verify round with
+   adapters, the flash forward on an adapter request's prefill. (b) 4
+   adapters registered by path into a bank of 2 rows: evictions demote to
+   the host, a re-request is a host hit, serve_adapter_corrupt forces a
+   checksum miss and the reload from disk gives equal tokens. (c)
+   `finetune.main --lora_rank 16` at 7B width and 8 layers, 10 iterations:
+   the flash forward, dQ and dK/dV launch counts advance, the kernels are
+   held on the training's live inputs, the adapter lowers the first
+   batch's loss, and its export serves on an 8-layer engine. (d) 8-layer
+   checkpoints N and N+1 published by save_checkpoint; a swap to N+1 while
+   8 requests stream and 8 more wait in the hold: each wave equals an
+   engine holding only its version, nothing is rejected, old prefixes
+   miss, device memory returns to one copy; a corrupt N+2 is refused and
+   N+1 serves on (staging, apply and hold seconds, peak memory). (e) two
+   replicas behind the router upgraded under traffic from two threads:
+   every completion one version's tokens, at most one replica out of
+   rotation, a corrupt publish aborts and the fleet serves on. (f) a
+   2-layer fp32 slice: adapter rows on a fp32 and an int8 pool equal their
+   merged-weights serial Generators; a swap driven by
+   CheckpointWatcher.poll_once under load gives the serial N before it and
+   N+1 after; a corrupt publish is refused once and not retried.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-12
-too, the block kernel's on phases 9, 11 and 12 too, its verify rounds at
-w 5 on phase 11) and, last, {"ok": true, "device": ...}.
+the norm kernels' on every path above, the flash kernels' on phases 8-13
+too, the block kernel's on phases 9 and 11-13 too, its verify rounds at
+w 5 on phases 11 and 13) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -5781,6 +5809,999 @@ def phase_front_door(smi: str) -> dict:
     return stats
 
 
+# Phase 13, LoRA serving, LoRA finetuning and live weights. (a)-(b):
+# Llama-2-7B at full width and depth (random bf16 weights, seed LORA_SEED)
+# behind the engine with an adapter bank (LORA_RANK, random fp32 factors from
+# fixed seeds, 67.1 MB an adapter at 32 layers). Every request is prefilled
+# alone (prefill_max_batch 1) and the decode grid has a fixed shape, so a
+# request's tokens do not depend on the requests beside it, and a request
+# repeated alone reproduces them bit for bit. (c) a LoRA finetune through
+# finetune.main at 7B width and LIVE_LAYERS layers. (d)-(e) the hot swap and
+# the rolling upgrade at LIVE_LAYERS layers between checkpoints that the
+# port's save_checkpoint publishes (fp32 weights, SHA-256 manifests). (f)
+# the 2-layer fp32 slice.
+LORA_SEED = 0
+LORA_RANK = 16
+LORA_ALPHA = 32.0
+LORA_SLOTS = 8
+LORA_REQUESTS = 16
+LORA_PROMPT = 256
+LORA_NEW = 64
+LORA_SERVING = dict(ENGINE_SERVING, prefill_max_batch=1)
+LORA_SPEC_REQUESTS = 8
+LORA_SPEC_NEW = 32
+PRESSURE_ROWS = 2
+PRESSURE_ADAPTERS = 4
+PRESSURE_NEW = 16
+LORA_FT_ITERS = 10
+LORA_FT_LR = "1e-3"
+LIVE_LAYERS = 8
+LIVE_SEEDS = (13, 14)  # the weights of versions N and N+1
+LIVE_REQUESTS = 8
+LIVE_PROMPT = 200
+LIVE_NEW = 48
+LIVE_MEMORY_SLACK = 2 ** 20
+ROLL_PROMPTS = 6
+ROLL_NEW = 24
+
+
+class KernelTap:
+    """A stand-in for a kernel wrapper that calls `before(*args, **kw)`
+    and then the wrapper. The wrapper counts its launches on the module
+    global of its own name, which is this object while it is installed:
+    `launches` reads and writes the wrapper's own count."""
+
+    def __init__(self, fn, before):
+        self.fn = fn
+        self.before = before
+        self.__name__ = fn.__name__
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        self.before(*args, **kw)
+        return self.fn(*args, **kw)
+
+
+def live_tol(tol: float, ref_max: float) -> float:
+    """A bf16 output's tolerance on live activations: `tol` at magnitudes
+    up to 1, relative to the reference's largest magnitude above it (one
+    bf16 ulp at |x| in [4, 8) is 0.03125)."""
+    return tol * max(1.0, ref_max)
+
+
+def lora_factors(cfg, n: int, seed0: int) -> dict:
+    from megatron_tpu_torch.serving.adapters import random_adapter_factors
+    return {f"tenant-{a}": random_adapter_factors(cfg, LORA_RANK, seed0 + a)
+            for a in range(n)}
+
+
+def lora_engine(gen, **fields):
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.serving import ServingEngine
+    return ServingEngine(gen, ServingConfig(**dict(LORA_SERVING, **fields)))
+
+
+def greedy():
+    from megatron_tpu_torch.serving import SamplingOptions
+    return SamplingOptions(temperature=0.0)
+
+
+def submit_all(engine, prompts, assignment, new) -> list:
+    reqs = [engine.submit(p, new, greedy(), adapter_id=a)
+            for p, a in zip(prompts, assignment)]
+    return [r.result(timeout=1800)[0] for r in reqs]
+
+
+def lora_arm(gen, factors, prompts, assignment, L, captures=None) -> dict:
+    """One arm of (a): a fresh engine with a bank of LORA_SLOTS rows (none
+    for the base arm), its adapters registered, a warm-up, then every
+    request submitted at once; launch counts and metrics from zero."""
+    import gc
+
+    import torch
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    from megatron_tpu_torch.tools.bench_lora import gather_bytes_per_step
+    ids = sorted({a for a in assignment if a is not None})
+    gc.collect()  # the previous arm's pool goes before this one's comes
+    torch.cuda.empty_cache()
+    engine = lora_engine(gen, adapter_slots=LORA_SLOTS if ids else 0,
+                         adapter_rank=LORA_RANK)
+    try:
+        for aid in ids:
+            engine.register_adapter(aid, factors=factors[aid],
+                                    rank=LORA_RANK, alpha=LORA_ALPHA)
+        engine.generate(prompts[0][:32], 4, greedy(), timeout=600,
+                        adapter_id=ids[0] if ids else None)
+        wait_idle(engine)
+        engine.metrics = ServingMetrics()
+        if engine.adapters is not None:
+            engine.adapters.metrics = engine.metrics
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if captures is not None:
+            captures["engine"] = engine
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = submit_all(engine, prompts, assignment, LORA_NEW)
+        wall = time.perf_counter() - t0
+        snap = settle(engine)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        engine.close()
+        if captures is not None:
+            captures.pop("engine", None)
+    generated = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    check(generated == int(snap["tokens_generated"]),
+          f"lora arm: {generated} tokens, metrics {snap['tokens_generated']}")
+    check(counts["block_attention_cuda"] == L * snap["decode_steps"],
+          f"lora arm: {counts['block_attention_cuda']} block launches in "
+          f"{snap['decode_steps']} steps of {L} layers")
+    check(counts["flash_fwd_cuda"] == L * len(prompts),
+          f"lora arm: {counts['flash_fwd_cuda']} flash launches for "
+          f"{len(prompts)} prefills of {L} layers")
+    return dict(adapters=len(ids), requests=len(prompts),
+                generated_tokens=generated, wall_s=wall,
+                tokens_per_s=generated / wall,
+                ttft_p50_ms=snap["ttft_p50_ms"],
+                itl_p50_ms=snap["itl_p50_ms"], peak_gib=peak,
+                decode_steps=snap["decode_steps"],
+                adapter_loads=snap["adapter_loads"],
+                active_adapters=snap["active_adapters"],
+                gather_bytes_per_step=(gather_bytes_per_step(
+                    gen.cfg, LORA_RANK, LORA_SERVING["num_slots"])
+                    if ids else 0),
+                launches=counts, outputs=outs)
+
+
+def lora_serving(gen, tok, L) -> dict:
+    """(a): the three bench_lora arms at full width, the block kernel held
+    on the mixed arm's live state at w 1 and on a verify round at w 5 with
+    adapters, and the flash forward on an adapter request's prefill."""
+    import torch
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.tools.bench_lora import assignments
+    cfg = gen.cfg
+    factors = lora_factors(cfg, LORA_SLOTS, 1000)
+    prompts = [tok.tokenize(prompt_text(LORA_PROMPT, 1 + i))
+               for i in range(LORA_REQUESTS)]
+    captures = {}
+    flash_fwd = fc.flash_fwd_cuda
+
+    def recording_block(q, k_arena, v_arena, block_map, lengths, **kw):
+        eng = captures.get("engine")
+        key = f"w{q.shape[1]}"
+        if (eng is not None and key not in captures
+                and int(eng._active.sum()) >= 6
+                and len(set(eng._adapter_idx.tolist())) >= 3):
+            captures[key] = dict(q=q.clone(), k=k_arena.clone(),
+                                 v=v_arena.clone(), map=block_map.clone(),
+                                 lengths=lengths.clone(), kw=kw)
+        return block_attention_cuda(q, k_arena, v_arena, block_map,
+                                    lengths, **kw)
+
+    def record_flash(q, k, v, **kw):
+        eng = captures.get("engine")
+        if eng is not None and "prefill" not in captures:
+            captures["flash_calls"] = captures.get("flash_calls", 0) + 1
+            # the second prefill's first layer: the mixed arm's request 1,
+            # under tenant-0
+            if captures["flash_calls"] == L + 1:
+                captures["prefill"] = dict(q=q.clone(), k=k.clone(),
+                                           v=v.clone(), kw=kw)
+
+    recording_flash = KernelTap(flash_fwd, record_flash)
+
+    out = {}
+    outputs = {}
+    for label, assignment in assignments(sorted(factors),
+                                         LORA_REQUESTS).items():
+        mixed = label.startswith("mixed")
+        if mixed:
+            ba.block_attention_cuda = recording_block
+            fc.flash_fwd_cuda = recording_flash
+        try:
+            arm = lora_arm(gen, factors, prompts, assignment, L,
+                           captures if mixed else None)
+        finally:
+            ba.block_attention_cuda = block_attention_cuda
+            fc.flash_fwd_cuda = flash_fwd
+        if mixed:
+            check(assignment[1] == "tenant-0", "mixed arm: request 1")
+        outputs[label] = arm.pop("outputs")
+        out[label] = arm
+        add_counts(out, arm["launches"])
+    # the base rows of the mixed arm ride row 0's zero delta: the base
+    # arm's tokens
+    mixed_label = next(k for k in outputs if k.startswith("mixed"))
+    base_rows = [i for i, a in enumerate(assignments(
+        sorted(factors), LORA_REQUESTS)[mixed_label]) if a is None]
+    check(all(outputs[mixed_label][i] == outputs["base"][i]
+              for i in base_rows),
+          "mixed arm: a base row's tokens differ from the base arm's")
+    check(outputs["one_adapter"] != outputs["base"],
+          "one-adapter arm: the adapter changed no token")
+    out["mixed_base_rows_equal_base"] = len(base_rows)
+
+    # the w 5 verify round with adapters: the n-gram drafter on prompts
+    # repeating a span
+    spec_prompts = [tok.tokenize(spec_prompt(i)[:LORA_PROMPT])
+                    for i in range(LORA_SPEC_REQUESTS)]
+    spec_assign = [(["tenant-0", "tenant-1", None, "tenant-2"])[i % 4]
+                   for i in range(LORA_SPEC_REQUESTS)]
+    engine = lora_engine(gen, adapter_slots=LORA_SLOTS,
+                         adapter_rank=LORA_RANK, speculative_k=SPEC_K)
+    ba.block_attention_cuda = recording_block
+    try:
+        for aid in ("tenant-0", "tenant-1", "tenant-2"):
+            engine.register_adapter(aid, factors=factors[aid],
+                                    rank=LORA_RANK, alpha=LORA_ALPHA)
+        captures["engine"] = engine
+        zero_counts()
+        submit_all(engine, spec_prompts, spec_assign, LORA_SPEC_NEW)
+        snap = settle(engine)
+        counts = read_counts()
+    finally:
+        ba.block_attention_cuda = block_attention_cuda
+        captures.pop("engine", None)
+        engine.close()
+    steps = snap["spec_rounds"] + snap["spec_fallback_steps"]
+    check(snap["spec_rounds"] > 0, "lora verify: no verify round ran")
+    check(counts["block_attention_cuda"] == L * steps,
+          f"lora verify: {counts['block_attention_cuda']} block launches in "
+          f"{steps} rounds and fallback steps of {L} layers")
+    out["verify"] = dict(spec_rounds=snap["spec_rounds"],
+                         spec_fallback_steps=snap["spec_fallback_steps"],
+                         draft_tokens=snap["draft_tokens"],
+                         accepted_tokens=snap["accepted_tokens"],
+                         block_launches=counts["block_attention_cuda"])
+    add_counts(out, counts)
+
+    # the kernels on the live adapter state (not counted: the counts above
+    # were read)
+    for key, w in (("w1", 1), (f"w{SPEC_K + 1}", SPEC_K + 1)):
+        check(key in captures, f"no block call at w {w} with >= 6 live "
+              "slots over 3 bank rows")
+        c = captures.pop(key)
+        got = block_attention_cuda(c["q"], c["k"], c["v"], c["map"],
+                                   c["lengths"], **c["kw"])
+        ref = ba.block_attention_reference(c["q"], c["k"], c["v"], c["map"],
+                                           c["lengths"],
+                                           scale=c["kw"]["scale"])
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = live_tol(BLOCK_LIVE_TOL, ref_max)
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"block kernel on the live adapter state at w {w}: err {err} "
+              f"(tol {tol})")
+        out[f"live_block_{key}"] = dict(w=w, max_abs_err=err, tol=tol,
+                                        max_abs_ref=ref_max,
+                                        lengths=c["lengths"].tolist())
+    check("prefill" in captures, "no adapter prefill was captured")
+    c = captures.pop("prefill")
+    got, got_lse = flash_fwd(c["q"], c["k"], c["v"], **c["kw"])
+    ref, ref_lse = fa.blockwise_attention(c["q"], c["k"], c["v"], **c["kw"])
+    err = (got.float() - ref.float()).abs().max().item()
+    err_lse = (got_lse - ref_lse).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol_out, tol_lse = TOL["bfloat16"]
+    tol_out = live_tol(tol_out, ref_max)
+    check(bool(torch.isfinite(got).all()) and err <= tol_out
+          and err_lse <= tol_lse,
+          f"flash forward on an adapter prefill: err {err} (tol {tol_out}), "
+          f"lse {err_lse}")
+    out["live_flash_prefill"] = dict(shape=list(c["q"].shape),
+                                     max_abs_err=err, max_abs_ref=ref_max,
+                                     max_abs_err_lse=err_lse,
+                                     tol=[tol_out, tol_lse])
+    captures.clear()
+    return out
+
+
+def bank_pressure(gen, tok, root: str) -> dict:
+    """(b): PRESSURE_ADAPTERS adapters exported to .npz and registered by
+    path into a bank of PRESSURE_ROWS rows with a host budget for all of
+    them, each request alone: evictions demote to the host, a re-request is
+    a host hit, and a host copy corrupted by serve_adapter_corrupt reloads
+    from disk with the tokens of its first run."""
+    import os
+
+    from megatron_tpu_torch.resilience.faults import (FaultInjector,
+                                                      use_fault_injector)
+    from megatron_tpu_torch.serving.adapters import adapter_bank_nbytes
+    from megatron_tpu_torch.training.lora import export_adapter
+    cfg = gen.cfg
+    factors = lora_factors(cfg, PRESSURE_ADAPTERS, 2000)
+    per = adapter_bank_nbytes(cfg, 1, LORA_RANK) // 2
+    engine = lora_engine(gen, adapter_slots=PRESSURE_ROWS,
+                         adapter_rank=LORA_RANK,
+                         adapter_host_bytes=PRESSURE_ADAPTERS * per)
+    prompt = tok.tokenize(prompt_text(128, 3))
+    out = dict(adapter_mb=per / 1e6, rows=PRESSURE_ROWS,
+               adapters=PRESSURE_ADAPTERS)
+    runs = []
+
+    def one(aid):
+        req = engine.submit(prompt, PRESSURE_NEW, greedy(), adapter_id=aid)
+        toks, _ = req.result(timeout=600)
+        runs.append(dict(adapter=aid, ttft_ms=req.ttft * 1e3))
+        return toks
+
+    try:
+        t0 = time.perf_counter()
+        for aid, f in factors.items():
+            path = os.path.join(root, f"{aid}.npz")
+            export_adapter(path, f, rank=LORA_RANK, alpha=LORA_ALPHA)
+            engine.register_adapter(aid, path=path)
+        out["export_register_s"] = time.perf_counter() - t0
+        ids = sorted(factors)
+        zero_counts()
+        first = {aid: one(aid) for aid in ids}
+        one(ids[0])  # a host hit
+        inj = FaultInjector(serve_adapter_corrupt_calls={1})
+        with use_fault_injector(inj):
+            one(ids[0])  # resident: its first step corrupts a host copy
+        fired = [w for k, w in inj.fired if k == "serve_adapter_corrupt"]
+        check(len(fired) == 1, f"serve_adapter_corrupt fired {fired}")
+        victim = next(a for a in ids if repr(a) in fired[0])
+        again = one(victim)
+        snap = settle(engine)
+        out["launches"] = read_counts()
+    finally:
+        engine.close()
+    check(again == first[victim], f"{victim}: the reload from disk after a "
+          "corrupt host copy changed its tokens")
+    check(snap["adapter_evictions"] >= PRESSURE_ADAPTERS
+          and snap["adapter_host_hits"] >= 1
+          and snap["adapter_host_checksum_misses"] == 1,
+          f"bank pressure counters: {snap}")
+    out.update({k: snap[k] for k in ("adapter_loads", "adapter_evictions",
+                                     "adapter_host_hits",
+                                     "adapter_host_checksum_misses")},
+               corrupted=victim, runs=runs, tokens_equal_after_reload=True)
+    return out
+
+
+def lora_finetune(root: str, L: int) -> dict:
+    """(c): `finetune.main --lora_rank LORA_RANK` in process at 7B width
+    and LIVE_LAYERS layers on the synthetic corpus, launch counts zeroed
+    just before; the flash forward, dQ and dK/dV kernels held against their
+    plain versions on the first call's live inputs; the trained adapter
+    must lower the loss of the first batch; the export served on a
+    LIVE_LAYERS engine over the same base."""
+    import os
+
+    import torch
+    from megatron_tpu_torch import finetune
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models import language_model as lm
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.training import lora as tlora
+    os.makedirs(os.path.join(root, "corpus"))
+    corpus = pretrain_corpus(os.path.join(root, "corpus"))
+    export = os.path.join(root, "adapter.npz")
+    argv = ["--model", "llama2-7b", "--num_layers", str(LIVE_LAYERS),
+            "--bf16", "--use_flash_attn", "--micro_batch_size", "1",
+            "--global_batch_size", "2", "--train_iters", str(LORA_FT_ITERS),
+            "--lr", LORA_FT_LR, "--log_interval", "1", "--split",
+            "100,0,0", "--data_path", corpus["data"], "--tokenizer_type",
+            "GPT2BPETokenizer", "--vocab_file", corpus["vocab"],
+            "--merge_file", corpus["merges"], "--lora_rank",
+            str(LORA_RANK), "--lora_alpha", str(LORA_ALPHA),
+            "--lora_export", export]
+    rec = {}
+    make_step = tlora.make_lora_step
+    kernels = {name: getattr(fc, name) for name in (
+        "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda")}
+
+    def recording_make(base, cfg, rank, alpha, **kw):
+        step, init = make_step(base, cfg, rank, alpha, **kw)
+        rec.update(base=base, cfg=cfg)
+
+        def recorded(factors, opt, tokens, mask):
+            if "tokens" not in rec:
+                rec.update(tokens=tokens, mask=mask)
+            factors, opt, loss = step(factors, opt, tokens, mask)
+            rec.setdefault("losses", []).append(float(loss))
+            rec["factors"] = factors
+            return factors, opt, loss
+        return recorded, init
+
+    def capturing(name):
+        def keep(*a, **kw):
+            if name not in rec:
+                rec[name] = ([x.clone() if isinstance(x, torch.Tensor)
+                              else x for x in a],
+                             {k: (v.clone() if isinstance(v, torch.Tensor)
+                                  else v) for k, v in kw.items()})
+        return KernelTap(kernels[name], keep)
+
+    tlora.make_lora_step = recording_make
+    for name in kernels:
+        setattr(fc, name, capturing(name))
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = finetune.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        tlora.make_lora_step = make_step
+        for name, fn in kernels.items():
+            setattr(fc, name, fn)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check(rc == 0, f"finetune --lora_rank returned {rc}")
+    steps = tlora.last_run["step_ms"]
+    check(len(steps) == LORA_FT_ITERS, f"{len(steps)} LoRA steps")
+    for name in kernels:
+        want = L * LORA_FT_ITERS
+        check(counts[name] == want, f"lora finetune: {name} launched "
+              f"{counts[name]} times, {want} expected")
+    out = dict(seconds=seconds, iters=LORA_FT_ITERS, step_ms=steps,
+               step_ms_median=sorted(steps)[len(steps) // 2],
+               corpus_write_s=corpus["write_s"],
+               corpus_preprocess_s=corpus["preprocess_s"],
+               launches=counts, last_loss=tlora.last_run["last_loss"])
+    # the training loss falls: the last three steps' mean below the first
+    # three's (each step sees a new batch)
+    losses = rec["losses"]
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          f"lora finetune: the loss did not fall: {losses}")
+    # and the first batch's loss with the trained adapter (B starts at 0,
+    # so the first step's loss is the base model's), reported
+    base, cfg = rec["base"], rec["cfg"]
+    with torch.no_grad():
+        after = float(lm.loss_fn(
+            base, rec["tokens"], cfg, loss_mask=rec["mask"],
+            adapters=tlora.lora_adapters(rec["factors"], LORA_RANK,
+                                         LORA_ALPHA,
+                                         rec["tokens"].shape[0])))
+    out.update(losses=losses, first_batch_loss_before=losses[0],
+               first_batch_loss_after=after)
+    # the kernels on the LoRA training's live inputs
+    a, kw = rec["flash_fwd_cuda"]
+    got, got_lse = kernels["flash_fwd_cuda"](*a, **kw)
+    ref, ref_lse = fa.blockwise_attention(*a, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    err_lse = (got_lse - ref_lse).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = live_tol(TOL["bfloat16"][0], ref_max)
+    check(err <= tol and err_lse <= TOL["bfloat16"][1],
+          f"lora training: flash forward err {err} (tol {tol}), lse "
+          f"{err_lse}")
+    out["live_fwd"] = dict(shape=list(a[0].shape), max_abs_err=err,
+                           max_abs_ref=ref_max, tol=tol,
+                           max_abs_err_lse=err_lse)
+    a, kw = rec["flash_bwd_dq_cuda"]
+    dq = kernels["flash_bwd_dq_cuda"](*a, **kw)
+    a2, kw2 = rec["flash_bwd_dkv_cuda"]
+    dk, dv = kernels["flash_bwd_dkv_cuda"](*a2, **kw2)
+    plain = fa.blockwise_attention_bwd(*a, **kw)
+    for gname, g, w in (("dq", dq, plain[0]), ("dk", dk, plain[1]),
+                        ("dv", dv, plain[2])):
+        err = (g.float() - w.float()).abs().max().item()
+        tol = GRAD_TOL["bfloat16"] * w.float().abs().max().item()
+        check(bool(torch.isfinite(g).all()) and err <= tol,
+              f"lora training: {gname} err {err} (tol {tol})")
+        out[f"live_{gname}"] = dict(max_abs_err=err, tol=tol)
+    rec.clear()
+    # the export on an engine over the trained base
+    tok = ByteTokenizer()
+    gen = Generator(base, cfg, eos_id=tok.eod, pad_id=tok.eod)
+    engine = lora_engine(gen, adapter_slots=1, adapter_rank=LORA_RANK,
+                         max_len=1024)
+    try:
+        engine.register_adapter("finetuned", path=export)
+        prompts = [tok.tokenize(prompt_text(100, 7 + i)) for i in range(4)]
+        zero_counts()
+        outs = submit_all(engine, prompts, ["finetuned", None] * 2, 16)
+        snap = settle(engine)
+        serve_counts = read_counts()
+    finally:
+        engine.close()
+    check(all(len(o) == len(p) + 16 or o[-1] == tok.eod
+              for o, p in zip(outs, prompts)), "finetuned adapter: lengths")
+    check(snap["adapter_loads"] == 1, f"finetuned adapter: {snap}")
+    out["served"] = dict(requests=4, adapter_loads=snap["adapter_loads"])
+    out["serve_launches"] = serve_counts
+    del gen, base, engine
+    return out
+
+
+def live_model(cfg, seed: int, dtype):
+    """LIVE weights from `seed`: drawn in fp32 (as the checkpoint holds
+    them), then cast."""
+    import torch
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    model = LanguageModel(cfg, dtype=torch.float32, seed=seed)
+    if dtype == torch.float32:
+        return model
+    cast = LanguageModel.from_state_dict(cfg, {
+        k: t.to(dtype) for k, t in model.state_dict().items()})
+    del model
+    return cast
+
+
+def publish_live(root: str, cfg, seed: int, iteration: int) -> tuple:
+    """Publish the seed's fp32 weights as checkpoint `iteration` with the
+    port's save_checkpoint (no optimizer state). Returns (dir, stats)."""
+    import torch
+    from megatron_tpu_torch.config import MegatronConfig
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    from megatron_tpu_torch.training.train_step import TrainState
+    model = live_model(cfg, seed, torch.float32)
+    d = ckpt.save_checkpoint(root, TrainState(params=model, opt_state=None,
+                                              iteration=iteration),
+                             MegatronConfig(model=cfg), iteration)
+    stats = {k: ckpt.last_save[k] for k in ("payload_s", "manifest_s",
+                                            "bytes")}
+    del model
+    torch.cuda.empty_cache()
+    return d, stats
+
+
+def corrupt_copy(src: str, dst: str) -> None:
+    """A corrupt publish of `src` at `dst`: the payload hard-linked, the
+    small files copied, one byte of config.json flipped (its manifest
+    digest no longer matches)."""
+    import os
+    import shutil
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if name.endswith(".npz"):
+            os.link(os.path.join(src, name), os.path.join(dst, name))
+        else:
+            shutil.copy(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(dst, "config.json"), "r+b") as f:
+        b0 = f.read(1)
+        f.seek(0)
+        f.write(bytes([b0[0] ^ 0x01]))
+
+
+def hot_swap(cfg, tok, root: str, L: int) -> dict:
+    """(d): publish N and N+1, serve N on an engine with the prefix cache,
+    swap to N+1 while LIVE_REQUESTS stream, LIVE_REQUESTS more submitted
+    during the swap's hold; then a corrupt N+2."""
+    import gc
+    import os
+    import threading
+
+    import torch
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.serving.weights import (WeightSwapError,
+                                                    load_staged)
+    out = {}
+    d_n, out["publish_n"] = publish_live(root, cfg, LIVE_SEEDS[0], 1)
+    d_n1, out["publish_n1"] = publish_live(root, cfg, LIVE_SEEDS[1], 2)
+    prompts = [tok.tokenize(prompt_text(LIVE_PROMPT, 40 + i))
+               for i in range(2 * LIVE_REQUESTS)]
+    wave_a, wave_b = prompts[:LIVE_REQUESTS], prompts[LIVE_REQUESTS:]
+    none = [None] * LIVE_REQUESTS
+    gen = Generator(live_model(cfg, LIVE_SEEDS[0], torch.bfloat16), cfg,
+                    eos_id=tok.eod, pad_id=tok.eod)
+    ref = lora_engine(gen)
+    try:
+        ref_a = submit_all(ref, wave_a, none, LIVE_NEW)
+    finally:
+        ref.close()
+    engine = lora_engine(gen, enable_prefix_cache=True)
+    del gen, ref
+    try:
+        # a warm-up shorter than a block: no later prompt can hit it (a
+        # prompt_text seed shares its opening with every seed of its
+        # residue mod 29)
+        engine.generate(tok.tokenize("warm up"), 4, greedy(), timeout=600)
+        wait_idle(engine)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        # staged first (the host byte work a swap call does before its
+        # ticket), so that wave A is still streaming at the swap point
+        t0 = time.perf_counter()
+        staged = load_staged(d_n1, engine.gen.params)
+        out["staging"] = dict(seconds=time.perf_counter() - t0,
+                              verify_s=staged.verify_s,
+                              read_s=staged.read_s, bytes=staged.nbytes)
+        zero_counts()
+        reqs_a = [engine.submit(p, LIVE_NEW, greedy()) for p in wave_a]
+        t0 = time.perf_counter()
+        while not all(r.generated for r in reqs_a):
+            check(time.perf_counter() - t0 < 300, "wave A never ran")
+            time.sleep(0.005)
+        torch.cuda.reset_peak_memory_stats()
+        done = {}
+
+        def swap():
+            try:
+                done["version"] = engine.swap_weights(d_n1, staged=staged,
+                                                      timeout=600)
+            except Exception as e:  # noqa: BLE001 — checked below
+                done["error"] = e
+
+        th = threading.Thread(target=swap)
+        t_swap = time.perf_counter()
+        th.start()
+        while not engine.health()["weight_swap_pending"] \
+                and "version" not in done and "error" not in done:
+            time.sleep(0.001)
+        reqs_b = [engine.submit(p, LIVE_NEW, greedy()) for p in wave_b]
+        th.join(timeout=900)
+        swap_s = time.perf_counter() - t_swap
+        check("version" in done, f"the swap failed: {done.get('error')!r}")
+        got_a = [r.result(timeout=900)[0] for r in reqs_a]
+        got_b = [r.result(timeout=900)[0] for r in reqs_b]
+        snap = settle(engine)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        device_bytes = sum(t.numel() * t.element_size() for t in
+                           engine.gen.params.state_dict().values())
+        del staged
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(got_a == ref_a, "wave A (admitted before the swap) differs "
+              "from an engine holding only N")
+        check(snap["requests_rejected"] == 0 and snap["requests_failed"] == 0,
+              f"the swap rejected or failed requests: {snap}")
+        check(engine.prefix_peek(wave_a[0] + [5] * 20) == 0,
+              "an N-era prefix still hits after the swap")
+        check(abs(mem1 - mem0) <= LIVE_MEMORY_SLACK,
+              f"device memory {mem0} before the swap, {mem1} after")
+        # wave B against an engine holding only N+1 (the swapped weights)
+        # and one fresh prompt for after the refusal below
+        fresh = tok.tokenize(prompt_text(LIVE_PROMPT, 90))
+        ref = lora_engine(engine.gen)
+        try:
+            ref_b = submit_all(ref, wave_b + [fresh], none + [None],
+                               LIVE_NEW)
+        finally:
+            ref.close()
+        ref_fresh = ref_b.pop()
+        check(got_b == ref_b, "wave B (admitted after the swap) differs "
+              "from an engine holding only N+1")
+        hits0 = engine.metrics.snapshot()["prefix_hits"]
+        engine.generate(wave_a[0] + [7] * 20, 4, greedy(), timeout=600)
+        check(engine.metrics.snapshot()["prefix_hits"] == hits0,
+              "an N-era prefix hit after the swap")
+        # a corrupt N+2: refused before anything touches the card
+        d_n2 = os.path.join(root, "iter_0000003")
+        corrupt_copy(d_n1, d_n2)
+        t0 = time.perf_counter()
+        try:
+            engine.swap_weights(d_n2, timeout=60)
+            refused = False
+        except WeightSwapError:
+            refused = True
+        refuse_s = time.perf_counter() - t0
+        check(refused, "a corrupt N+2 was not refused")
+        check(engine.metrics.snapshot()["weight_swap_failures"] == 1,
+              "weight_swap_failures after the refusal")
+        again = submit_all(engine, [fresh], [None], LIVE_NEW)
+        check(again == [ref_fresh], "N+1 does not serve on after a "
+              "refusal")
+        out.update(
+            swap_s=swap_s, hold_s=engine.last_swap["hold_s"],
+            apply_s=engine.last_swap["apply_s"],
+            version=done["version"].label, peak_gib=peak / 2 ** 30,
+            before_gib=mem0 / 2 ** 30, after_minus_before_bytes=mem1 - mem0,
+            device_weight_bytes=device_bytes,
+            pre_swap_exact=len(got_a), post_swap_exact=len(got_b),
+            refused_s=refuse_s, weight_swaps=snap["weight_swaps"],
+            launches=counts)
+    finally:
+        engine.close()
+    return out
+
+
+def rolling_upgrade_drill(cfg, tok, root: str, L: int) -> dict:
+    """(e): two replicas of N behind the router, traffic from two threads,
+    `rolling_upgrade` to N+1 (staged once): no failed request, every
+    completion one version's tokens, at most one replica out of rotation,
+    the canaries passed; a corrupt publish aborts and the fleet serves on."""
+    import os
+    import threading
+
+    import torch
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.serving.router import (DOWN, EngineRouter,
+                                                   RollingUpgradeError)
+    d_n1 = os.path.join(root, "iter_0000002")
+    d_n2 = os.path.join(root, "iter_0000003")
+    prompts = [tok.tokenize(prompt_text(LIVE_PROMPT, 60 + i))
+               for i in range(ROLL_PROMPTS)]
+    none = [None] * ROLL_PROMPTS
+    gen = Generator(live_model(cfg, LIVE_SEEDS[0], torch.bfloat16), cfg,
+                    eos_id=tok.eod, pad_id=tok.eod)
+    engines = [lora_engine(gen) for _ in range(2)]
+    router = EngineRouter(engines, heartbeat_timeout_s=30.0,
+                          probe_backoff_s=0.2)
+    del gen
+    out = {}
+    try:
+        ref_n = submit_all(engines[0], prompts, none, ROLL_NEW)
+        zero_counts()
+        results, errors = [], []
+        stop = threading.Event()
+        max_down = [0]
+
+        def worker(w):
+            i = w
+            while not stop.is_set():
+                j = i % ROLL_PROMPTS
+                try:
+                    toks, _ = router.submit(prompts[j], ROLL_NEW,
+                                            greedy()).result(timeout=600)
+                    results.append((j, toks))
+                except Exception as e:  # noqa: BLE001 — checked below
+                    errors.append(repr(e))
+                i += 1
+
+        def monitor():
+            while not stop.is_set():
+                down = sum(r.state == DOWN for r in router.replicas)
+                max_down[0] = max(max_down[0], down)
+                time.sleep(0.01)
+
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(2)] + [threading.Thread(target=monitor)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        try:
+            version = router.rolling_upgrade(d_n1, swap_timeout_s=600)
+        finally:
+            upgrade_s = time.perf_counter() - t0
+            time.sleep(1.0)
+            stop.set()
+            for t in threads:
+                t.join(timeout=900)
+        counts = read_counts()
+        ref_n1 = submit_all(engines[0], prompts, none, ROLL_NEW)
+        check(not errors, f"rolling upgrade: failed requests {errors[:3]}")
+        at = {"N": 0, "N+1": 0}
+        for j, toks in results:
+            check(toks in (ref_n[j], ref_n1[j]), f"rolling upgrade: prompt "
+                  f"{j}'s completion is neither version's tokens")
+            at["N" if toks == ref_n[j] else "N+1"] += 1
+        check(max_down[0] <= 1, f"{max_down[0]} replicas out of rotation")
+        snap = router.aggregate_snapshot()
+        check(snap["rolling_upgrades"] == 1 and snap["weight_swaps"] == 2
+              and snap["weight_version_min"] == 2.0
+              and snap["weight_version_max"] == 2.0,
+              f"rolling upgrade counters: {snap}")
+        check(engines[0].gen.params is engines[1].gen.params,
+              "the replicas hold two copies of N+1")
+        try:
+            router.rolling_upgrade(d_n2, swap_timeout_s=60)
+            aborted = False
+        except RollingUpgradeError:
+            aborted = True
+        check(aborted, "a corrupt publish did not abort the rollout")
+        after = router.submit(prompts[0], ROLL_NEW,
+                              greedy()).result(timeout=600)[0]
+        check(after == ref_n1[0], "the fleet does not serve N+1 after the "
+              "aborted rollout")
+        h = router.health()
+        check(h["replicas_up"] == 2, f"after the abort: {h}")
+        out.update(upgrade_s=upgrade_s, version=version.label,
+                   completions=len(results), completions_by_version=at,
+                   max_replicas_out=max_down[0],
+                   replica_swaps=[dict(e.last_swap) for e in engines],
+                   weight_swap_failures=snap["weight_swap_failures"],
+                   launches=counts)
+    finally:
+        router.close()
+    return out
+
+
+def check_lora_live_slice(root: str) -> dict:
+    """(f): a 2-layer fp32 slice of the 7B width (TF32 off). Adapter rows
+    on a fp32 pool equal their merged-weights serial Generators token for
+    token; on an int8 pool each row's logprobs, its tokens fed through the
+    merged serial Generator's int8 cache, agree within W8_LOGPROB_TOL (the
+    factored and the merged projection differ in the last fp32 bits, and a
+    value at a quantization boundary moves one int8 step), and the rows
+    whose greedy tokens equal the serial ones are counted. A swap driven
+    by CheckpointWatcher.poll_once under load: admissions before it equal
+    the serial N, after it the serial N+1; a corrupt publish is refused
+    once and not retried."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import (Generator,
+                                                         SamplingParams)
+    from megatron_tpu_torch.serving.weights import CheckpointWatcher
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    from megatron_tpu_torch.training.lora import merge_lora
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    tok = ByteTokenizer()
+    model = live_model(cfg, 1, torch.float32)
+    factors = lora_factors(cfg, 4, 3000)
+    prompts = [tok.tokenize(prompt_text(120 + 40 * i, 70 + i))
+               for i in range(8)]
+    assign = [([None] + sorted(factors))[i % 5] for i in range(8)]
+
+    def serial(params, p, n, kv):
+        g = Generator(params, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                      kv_cache_dtype=kv)
+        t, lens, _ = g.generate([p], n,
+                                sampling=SamplingParams(temperature=0.0))
+        return t[0, :lens[0]].tolist()
+
+    out = {}
+    for kv in ("float32", "int8"):
+        kv_dtype = getattr(torch, kv)
+        gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                        kv_cache_dtype=torch.float32)
+        engine = lora_engine(gen, adapter_slots=4, adapter_rank=LORA_RANK,
+                             kv_dtype=kv, prefill_max_batch=8)
+        try:
+            for aid, f in factors.items():
+                engine.register_adapter(aid, factors=f, rank=LORA_RANK,
+                                        alpha=LORA_ALPHA)
+            reqs = [engine.submit(p, 24, greedy(), adapter_id=a)
+                    for p, a in zip(prompts, assign)]
+            got = [r.result(timeout=1800) for r in reqs]
+        finally:
+            engine.close()
+        merged, equal, diff = {}, 0, 0.0
+        for p, a, (toks, lps) in zip(prompts, assign, got):
+            if a not in merged:
+                merged[a] = (model if a is None else merge_lora(
+                    model, factors[a], cfg, LORA_RANK, LORA_ALPHA))
+            same = toks == serial(merged[a], p, 24, kv_dtype)
+            equal += same
+            if kv == "float32":
+                check(same, f"fp32 slice, fp32 pool: a row under {a} "
+                      "differs from its merged-weights serial Generator")
+            else:
+                g = Generator(merged[a], cfg, eos_id=tok.eod,
+                              pad_id=tok.eod, kv_cache_dtype=kv_dtype)
+                forced = teacher_forced_logprobs(g, [toks], [len(p)],
+                                                 24)[0]
+                diff = max([diff] + [abs(x - y)
+                                     for x, y in zip(lps, forced)])
+        if kv == "int8":
+            check(diff <= W8_LOGPROB_TOL,
+                  f"fp32 slice, int8 pool: adapter rows' logprobs and the "
+                  f"merged serial Generator's differ by {diff} (tol "
+                  f"{W8_LOGPROB_TOL})")
+            out["adapters_int8_max_logprob_diff"] = diff
+        out[f"adapters_{kv}_rows_token_equal"] = equal
+        del merged
+    # the swap through the watcher
+    slice_root = os.path.join(root, "slice")
+    d2, _ = publish_live(slice_root, cfg, 2, 2)
+    model2 = live_model(cfg, 2, torch.float32)
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.float32)
+    engine = lora_engine(gen, enable_prefix_cache=True)
+    try:
+        watcher = CheckpointWatcher(engine, slice_root)
+        reqs_a = [engine.submit(p, 40, greedy()) for p in prompts[:4]]
+        while not all(r.generated for r in reqs_a):
+            time.sleep(0.005)
+        check(watcher.poll_once() and watcher.applied == "2",
+              "the watcher did not apply the publish")
+        reqs_b = [engine.submit(p, 24, greedy()) for p in prompts[4:]]
+        got_a = [r.result(timeout=600)[0] for r in reqs_a]
+        got_b = [r.result(timeout=600)[0] for r in reqs_b]
+        check(got_a == [serial(model, p, 40, torch.float32)
+                        for p in prompts[:4]],
+              "fp32 slice: a pre-swap admission differs from the serial N")
+        check(got_b == [serial(model2, p, 24, torch.float32)
+                        for p in prompts[4:]],
+              "fp32 slice: a post-swap admission differs from the serial "
+              "N+1")
+        corrupt_copy(d2, os.path.join(slice_root, "iter_0000003"))
+        ckpt._write_text_atomic(os.path.join(slice_root, ckpt.TRACKER), "3",
+                                ckpt.RetryPolicy())
+        check(not watcher.poll_once() and watcher.failures == 1
+              and not watcher.poll_once() and watcher.failures == 1,
+              "the watcher retried a refused publish")
+        check(engine.health()["weight_iteration"] == 2,
+              "the refused publish moved the version")
+        out.update(swap_exact=dict(pre=len(got_a), post=len(got_b)),
+                   watcher_refusals=watcher.failures)
+    finally:
+        engine.close()
+    del gen, model, model2
+    torch.cuda.empty_cache()
+    out["allow_tf32"] = False
+    return out
+
+
+def phase_lora_live(smi: str) -> dict:
+    """Phase 13: (a) the three bench_lora arms on Llama-2-7B with a bank of
+    LORA_SLOTS adapters at rank LORA_RANK, the kernels held on the live
+    adapter state; (b) bank pressure with a host budget and a corrupted
+    host copy; (c) a LoRA finetune through finetune.main; (d) a hot swap
+    under load; (e) a rolling upgrade of two replicas; (f) the fp32 slice.
+    Launch counts are zeroed before each part's run and read after it."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "phase 13: phase 12's model was not freed")
+    t_phase = time.perf_counter()
+    cfg = llama2_config("7b")
+    tok = ByteTokenizer()
+    root = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    stats = dict(card=smi)
+    try:
+        model = LanguageModel(cfg, dtype=torch.bfloat16, seed=LORA_SEED)
+        gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
+        L = cfg.num_layers
+        try:
+            for name, fn in (("serving", lambda: lora_serving(gen, tok, L)),
+                             ("pressure", lambda: bank_pressure(gen, tok,
+                                                                root))):
+                t0 = time.perf_counter()
+                stats[name] = fn()
+                stats[name]["seconds"] = time.perf_counter() - t0
+                log(f"lora/live ({name}): " + json.dumps(stats[name]))
+        finally:
+            del gen, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        cfg_live = llama2_config("7b", num_layers=LIVE_LAYERS)
+        for name, fn in (
+                ("finetune", lambda: lora_finetune(root, LIVE_LAYERS)),
+                ("swap", lambda: hot_swap(cfg_live, tok, root, LIVE_LAYERS)),
+                ("rolling", lambda: rolling_upgrade_drill(
+                    cfg_live, tok, root, LIVE_LAYERS)),
+                ("slice", lambda: check_lora_live_slice(root))):
+            t0 = time.perf_counter()
+            stats[name] = fn()
+            stats[name]["seconds"] = time.perf_counter() - t0
+            log(f"lora/live ({name}): " + json.dumps(stats[name]))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {}
+    for part in ("serving", "pressure", "finetune", "swap", "rolling"):
+        for k, v in stats[part]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for k, v in stats["finetune"]["serve_launches"].items():
+        total[k] = total.get(k, 0) + v
+    stats["launches"] = dict(flash_fwd=total["flash_fwd_cuda"],
+                             flash_bwd_dq=total["flash_bwd_dq_cuda"],
+                             flash_bwd_dkv=total["flash_bwd_dkv_cuda"],
+                             block_attn=total["block_attention_cuda"])
+    stats["norm_launches"] = {k: v for k, v in total.items()
+                              if k.startswith(("rms_", "ln_"))}
+    check(all(v > 0 for v in stats["launches"].values()),
+          f"phase 13 launches: {stats['launches']}")
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5855,6 +6876,8 @@ def main(argv=None) -> int:
         feature_stats = phase_engine_features(smi)
         front_stats = phase_front_door(smi)
         log(f"front door: phase 12 took {front_stats['seconds']:.1f} s")
+        lora_stats = phase_lora_live(smi)
+        log(f"lora/live: phase 13 took {lora_stats['seconds']:.1f} s")
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5877,6 +6900,8 @@ def main(argv=None) -> int:
     feature_counts = feature_stats["launches"]
     # phase 12's two windows: the two replicas' traffic, and the host tier
     front_counts = front_stats["launches"]
+    # phase 13's parts, each counted from zero
+    lora_counts = lora_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -5902,7 +6927,8 @@ def main(argv=None) -> int:
               + tool_counts["flash_fwd_cuda"]
               + window_counts["flash_fwd_cuda"]
               + feature_counts["flash_fwd"]
-              + front_counts["flash_fwd"], "fwd",
+              + front_counts["flash_fwd"]
+              + lora_counts["flash_fwd"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -5916,7 +6942,8 @@ def main(argv=None) -> int:
                   toolchain=tool_counts["flash_fwd_cuda"],
                   window_supervisor=window_counts["flash_fwd_cuda"],
                   engine_features=feature_counts["flash_fwd"],
-                  front_door=front_counts["flash_fwd"]),
+                  front_door=front_counts["flash_fwd"],
+                  lora_live=lora_counts["flash_fwd"]),
                    window_shape=dict(shape=WINDOW_SHAPE, **{
                        k: window_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -5932,18 +6959,21 @@ def main(argv=None) -> int:
         entry("flash_bwd_dq", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:191", train_counts["flash_bwd_dq_cuda"]
               + pretrain_counts["flash_bwd_dq_cuda"]
-              + tool_counts["flash_bwd_dq_cuda"], "dq",
+              + tool_counts["flash_bwd_dq_cuda"]
+              + lora_counts["flash_bwd_dq"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
                    launches_by_path=dict(
                        training=train_counts["flash_bwd_dq_cuda"],
                        pretrain=pretrain_counts["flash_bwd_dq_cuda"],
-                       toolchain=tool_counts["flash_bwd_dq_cuda"]))),
+                       toolchain=tool_counts["flash_bwd_dq_cuda"],
+                       lora_live=lora_counts["flash_bwd_dq"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
-              + tool_counts["flash_bwd_dkv_cuda"], "dkv",
+              + tool_counts["flash_bwd_dkv_cuda"]
+              + lora_counts["flash_bwd_dkv"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -5953,7 +6983,8 @@ def main(argv=None) -> int:
                    launches_by_path=dict(
                        training=train_counts["flash_bwd_dkv_cuda"],
                        pretrain=pretrain_counts["flash_bwd_dkv_cuda"],
-                       toolchain=tool_counts["flash_bwd_dkv_cuda"]))),
+                       toolchain=tool_counts["flash_bwd_dkv_cuda"],
+                       lora_live=lora_counts["flash_bwd_dkv"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
@@ -5966,7 +6997,8 @@ def main(argv=None) -> int:
                   + pretrain_stats["block_launches"]
                   + tool_counts["block_attention_cuda"]
                   + feature_counts["block_attn"]
-                  + front_counts["block_attn"]),
+                  + front_counts["block_attn"]
+                  + lora_counts["block_attn"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
@@ -5974,6 +7006,9 @@ def main(argv=None) -> int:
             toolchain=tool_counts["block_attention_cuda"],
             engine_features=feature_counts["block_attn"],
             front_door=front_counts["block_attn"],
+            lora_live=lora_counts["block_attn"],
+            lora_live_verify_rounds=lora_stats["serving"]["verify"][
+                "spec_rounds"],
             engine_features_verify_rounds=sum(
                 feature_stats["speculative"][arm]["spec_rounds"]
                 for arm in ("speculative", "speculative_streams"))),
@@ -5983,6 +7018,8 @@ def main(argv=None) -> int:
                                    "bound_ms", "bound_by", "library_ms")}),
         live_verify_check=feature_stats["speculative"]["live_verify_check"],
         live_failover_check=front_stats["failover"]["live_state_check"],
+        live_adapter_checks=[lora_stats["serving"][k] for k in (
+            "live_block_w1", f"live_block_w{SPEC_K + 1}")],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
         bound_ms=block_main["bound_ms"], bound_by=block_main["bound_by"],
@@ -5999,7 +7036,7 @@ def main(argv=None) -> int:
                       pretrain=pretrain_stats, toolchain=toolchain_stats,
                       window_supervisor=window_stats,
                       engine_features=feature_stats,
-                      front_door=front_stats)
+                      front_door=front_stats, lora_live=lora_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -7,8 +7,9 @@ port parses the model, training, optimizer, data and resilience groups and
 the reference-compat aliases of this path. A flag whose feature the port
 does not run yet raises NotImplementedError naming its ROADMAP item:
 tensor, pipeline or context parallelism, sequence parallelism and the
-distributed optimizer (Queue 1 item 7), activation recompute (item 2),
-and LoRA finetuning (item 6). The serving
+distributed optimizer (Queue 1 item 7) and activation recompute (item 2).
+`--lora_rank` (with `--lora_alpha` and `--lora_export`) turns the run into
+a LoRA finetune (training/lora.py). The serving
 flags belong to the serving entry point and are not parsed here; the
 reference's CUDA-mechanics flags are accepted and have no effect.
 """
@@ -269,7 +270,6 @@ _UNPORTED = (
      "activation recompute (ROADMAP Queue 1 item 2)"),
     ("recompute_num_layers", None,
      "activation recompute (ROADMAP Queue 1 item 2)"),
-    ("lora_rank", 0, "LoRA finetuning (ROADMAP Queue 1 item 6)"),
 )
 
 

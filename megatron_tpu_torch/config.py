@@ -308,13 +308,6 @@ _LATER_SERVING = {
     "pp_waves": "the serving topology (Queue 1 item 7)",
     "placement_auto": "the serving topology (Queue 1 item 7)",
     "placement_budget": "the serving topology (Queue 1 item 7)",
-    "adapter_slots": "LoRA adapters (Queue 1 item 6)",
-    "adapter_rank": "LoRA adapters (Queue 1 item 6)",
-    "adapter_host_bytes": "LoRA adapters (Queue 1 item 6)",
-    "adapter_max_bank_bytes": "LoRA adapters (Queue 1 item 6)",
-    "swap_timeout_s": "live weights (Queue 1 item 6)",
-    "watch_checkpoints": "live weights (Queue 1 item 6)",
-    "watch_interval_s": "live weights (Queue 1 item 6)",
     "replica_mode": "remote replicas (Queue 1 item 6)",
     "fleet": "remote replicas (Queue 1 item 6)",
     "remote_connect_timeout_s": "remote replicas (Queue 1 item 6)",
@@ -346,7 +339,12 @@ class ServingConfig:
     prefix-affinity router (`router_max_retries`,
     `router_heartbeat_timeout_s`), the SSE stream registry's
     `stream_ttl_s` and the host KV tier's byte budget `host_kv_bytes`
-    (with the prefix cache on a block pool). `validate()`
+    (with the prefix cache on a block pool); LoRA serving: `adapter_slots`
+    adapters of rank `adapter_rank` in a device bank (within
+    `adapter_max_bank_bytes`) with `adapter_host_bytes` of checksummed
+    host overflow; and live weights: `swap_timeout_s` (the hot swap's
+    drain budget) and the checkpoint watcher (`watch_checkpoints`, polled
+    every `watch_interval_s`). `validate()`
     raises NotImplementedError for any other field set away from its
     default, naming the later slice (ROADMAP Queue 1 items 6 and 7)."""
 
@@ -438,6 +436,55 @@ class ServingConfig:
                 raise NotImplementedError(
                     f"ServingConfig.{name}={getattr(self, name)!r}: "
                     f"{slice_name} is ported in a later slice")
+        # live weights (serving/weights.py)
+        if self.swap_timeout_s <= 0.0:
+            raise ValueError(f"swap_timeout_s must be > 0, got "
+                             f"{self.swap_timeout_s}")
+        if self.watch_interval_s <= 0.0:
+            raise ValueError(f"watch_interval_s must be > 0, got "
+                             f"{self.watch_interval_s}")
+        if self.watch_checkpoints and self.serial_fallback:
+            raise ValueError(
+                "watch_checkpoints requires the continuous-batching engine: "
+                "the serial fallback path has no engine to hot-swap")
+        # multi-tenant LoRA serving (serving/adapters.py)
+        if self.adapter_slots < 0 or self.adapter_host_bytes < 0:
+            raise ValueError("adapter_slots and adapter_host_bytes must be "
+                             ">= 0")
+        if self.adapter_slots:
+            if self.adapter_rank < 1:
+                raise ValueError(
+                    f"adapter_slots={self.adapter_slots} requires "
+                    f"adapter_rank >= 1 (got {self.adapter_rank}): a rank-0 "
+                    "bank holds no delta")
+            if self.serial_fallback:
+                raise ValueError(
+                    "adapter_slots > 0 requires the continuous-batching "
+                    "engine: the serial fallback path threads no adapter "
+                    "bank")
+            if model is not None and model.quantized_gemm != "none":
+                # the int8 quantizer is not linear: quantize(W) x + A B x
+                # is not quantize(W + A B) x, so factored serving would
+                # drift from any merged reference
+                raise ValueError(
+                    "adapter_slots > 0 is unsupported with "
+                    "quantized_gemm='int8': the low-rank delta rides outside "
+                    "the quantized projection. int8 KV pools remain "
+                    "available")
+            if self.adapter_max_bank_bytes is not None and model is not None:
+                from megatron_tpu_torch.serving.adapters import \
+                    adapter_bank_nbytes
+                need = adapter_bank_nbytes(model, self.adapter_slots,
+                                           self.adapter_rank)
+                if need > self.adapter_max_bank_bytes:
+                    raise ValueError(
+                        f"adapter bank of {self.adapter_slots} slots at rank "
+                        f"{self.adapter_rank} needs {need} device bytes, "
+                        f"exceeding adapter_max_bank_bytes="
+                        f"{self.adapter_max_bank_bytes}")
+        elif self.adapter_host_bytes:
+            raise ValueError("adapter_host_bytes > 0 without adapter_slots: "
+                             "there is no bank to overflow")
         if self.kv_dtype is not None and self.kv_dtype not in \
                 SERVING_KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of "

@@ -17,6 +17,12 @@ best-effort checkpoint and exits with `--watchdog_exit_code` (43). A
 `MEGATRON_TPU_FAULTS` spec in the environment (resilience/faults.py
 `FaultInjector.from_env`, e.g. `delay@3:30`) is active for the run: the
 chaos drills of the resilience path run through this entry point.
+
+`--lora_rank R` runs a LoRA finetune instead (training/lora.py): the
+(possibly `--load`ed) base stays frozen, only rank-R adapter factors train
+for `--train_iters` steps at `--lr`, and the adapter is exported to
+`--lora_export` (default `<--save>/adapter.npz`, else `adapter.npz`) in the
+`.npz` the serving bank loads (`--adapter_dir` of the serving tool).
 """
 from __future__ import annotations
 
@@ -126,6 +132,20 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
     if train_it is None:
         raise ValueError("--data_path produced no training data")
     restore_data_state(train_it, data_state)
+
+    if args.lora_rank:
+        from megatron_tpu_torch.training.lora import run_lora_finetune
+        export = args.lora_export or (
+            os.path.join(cfg.training.checkpoint_dir, "adapter.npz")
+            if cfg.training.checkpoint_dir else "adapter.npz")
+        _, last_loss = run_lora_finetune(
+            cfg, state.params, train_it, rank=args.lora_rank,
+            alpha=args.lora_alpha, iters=cfg.training.train_iters,
+            lr=cfg.optimizer.lr, seed=cfg.training.seed,
+            export_path=export, log_interval=cfg.training.log_interval)
+        print_rank_0(f"lora finetune done: final loss {last_loss:.4f}, "
+                     f"adapter at {export}")
+        return 0
 
     save_fn = load_fn = None
     if cfg.training.checkpoint_dir:

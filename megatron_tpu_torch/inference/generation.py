@@ -99,7 +99,7 @@ def kv_scales(shape, dtype, device):
 
 def prefill_chunk(params, tokens: torch.Tensor, cache: KVCache,
                   cfg: ModelConfig, *, rope, last_idx: int,
-                  next_offset: int):
+                  next_offset: int, adapters=None):
     """Forward one [1, s] prompt chunk through a batch-1 cache at its
     offset (generation.py prefill_chunk) and return (cache,
     logits row [padded_vocab] of the chunk's token `last_idx`). Offset 0
@@ -107,16 +107,19 @@ def prefill_chunk(params, tokens: torch.Tensor, cache: KVCache,
     takes the dot path with the causal mask starting at the offset. The
     cache's offset becomes `next_offset`, the real token count, so the
     next chunk overwrites a padded chunk's pad positions
-    (write-before-read)."""
+    (write-before-read). `adapters` is the (bank, adapter_idx [1]) pair of
+    the request's LoRA adapter, or None."""
     logits, cache = lm.model_forward(
         params, tokens, cfg, kv_caches=cache, rope=rope,
-        head_positions=torch.tensor([last_idx], device=tokens.device))
+        head_positions=torch.tensor([last_idx], device=tokens.device),
+        adapters=adapters)
     cache.offset = int(next_offset)
     return cache, logits[0, 0]
 
 
 def verify_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
-                  *, rope, lengths: torch.Tensor, max_len: int):
+                  *, rope, lengths: torch.Tensor, max_len: int,
+                  adapters=None):
     """Forward a [slots, w]-token window through the slot grid at per-row
     offsets `lengths` (generation.py verify_tokens): row i's tokens land
     at positions lengths[i]..lengths[i]+w-1, each query causally masked
@@ -125,14 +128,17 @@ def verify_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
     the region are dropped from the write and rope positions clamp at
     max_len - 1: garbage logits for rows at the clamp, which the caller's
     accept mask discards. The caller rewinds the offsets to the accepted
-    length. Returns (logits [slots, w, padded_vocab] fp32, caches)."""
+    length. `adapters` is the (bank, per-slot adapter_idx [slots]) pair:
+    each row verifies under its own adapter. Returns (logits
+    [slots, w, padded_vocab] fp32, caches)."""
     w = tokens.shape[1]
     caches = dataclasses.replace(caches, offset=lengths)
     positions = torch.clamp(
         lengths.long()[:, None] + torch.arange(w, device=tokens.device),
         max=max_len - 1)
     return lm.model_forward(params, tokens, cfg, kv_caches=caches,
-                            position_ids=positions, rope=rope)
+                            position_ids=positions, rope=rope,
+                            adapters=adapters)
 
 
 def _decode_fn(params, tokens, lengths, generator, *, cfg: ModelConfig,

@@ -3,8 +3,8 @@
 The `/api` PUT contract is the reference's: {"prompts": [...],
 "tokens_to_generate": N, "temperature", "top_k", "top_p", "logprobs",
 "random_seed", "add_BOS", "beam_width", "length_penalty", "priority",
-"deadline_s", "serial"} -> {"text", "segments", "logprobs"} or, for beam
-search, {"text", "score"}.
+"deadline_s", "serial", "adapter_id"} -> {"text", "segments", "logprobs"}
+or, for beam search, {"text", "score"}.
 
 By default the server builds one continuous-batching `ServingEngine`
 (serving/engine.py) and every prompt of a payload becomes an engine request
@@ -16,9 +16,19 @@ take the serial route: one request at a time under a lock
 (`Generator.generate`, `beam_search`). With
 `ServingConfig(serial_fallback=True)` there is no engine and every payload
 takes the serial route, with the reference's statuses and messages in that
-mode. On the engine route, `n`/`best_of`, `response_format`,
-`adapter_id` and `prompt_tokens` get a 400 saying which later slice brings
-them.
+mode. A payload's `adapter_id` serves it under that registered LoRA
+adapter on the engine route (an unknown one, or one on the serial route, is
+a 400). On the engine route, `n`/`best_of`, `response_format` and
+`prompt_tokens` get a 400 saying which later slice brings them.
+
+The control plane, `PUT /admin` (`handle_admin`): `{"op": "swap_weights",
+"ckpt_dir": ...}` hot-swaps the engine (a router walks a rolling upgrade)
+and answers 409 when the checkpoint is refused, the old weights serving
+on; `{"op": "register_adapter", "adapter_id": ..., "path": ...}` registers
+an exported `.npz`; `{"op": "drain"}` drains. With
+`ServingConfig(watch_checkpoints=root)` a CheckpointWatcher polls the
+root's tracker and swaps to every new publish. After a swap the serial and
+beam routes, which run the server's original weights, answer 409.
 
 The front door: `ServingConfig(num_replicas=N)` with N >= 2 puts N engine
 replicas over the one Generator (the weights held once, a block pool each)
@@ -58,11 +68,15 @@ from megatron_tpu_torch.serving.engine import ServingEngine
 from megatron_tpu_torch.serving.request import (DeadlineExceededError,
                                                 SamplingOptions,
                                                 ServiceUnavailableError)
-from megatron_tpu_torch.serving.router import EngineRouter
+from megatron_tpu_torch.serving.router import (EngineRouter,
+                                               RollingUpgradeError)
 from megatron_tpu_torch.serving.scheduler import (AdmissionError,
                                                   EngineUnhealthyError,
                                                   OverloadShedError,
                                                   QueueFullError)
+from megatron_tpu_torch.serving.weights import (CheckpointWatcher,
+                                                WeightSwapError)
+from megatron_tpu_torch.training.checkpointing import read_tracker
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MAX_PROMPTS = 128
@@ -71,7 +85,6 @@ MAX_PROMPTS = 128
 _LATER_ON_ENGINE = (
     ("prompt_tokens", "prompt_tokens (the replica-mode wire format) comes "
                       "with remote replicas in a later slice"),
-    ("adapter_id", "adapter_id comes with LoRA adapters in a later slice"),
     ("response_format", "response_format comes with structured output in "
                         "a later slice"),
 )
@@ -208,11 +221,14 @@ class MegatronServer:
     engine route, unless `serving.serial_fallback`, plus the serial route.
 
     `device` must name the generator's device; None means the current CUDA
-    device and raises without one."""
+    device and raises without one. `weight_version` names the checkpoint
+    the generator's weights came from (the watcher then does not swap to
+    it again)."""
 
     def __init__(self, generator: Generator, tokenizer, *,
                  serving: Optional[ServingConfig] = None,
-                 device: DeviceLike = None, request_timeout: float = 600.0):
+                 device: DeviceLike = None, request_timeout: float = 600.0,
+                 weight_version=None):
         device = resolve_device(device)
         if generator.device != device:
             raise ValueError(f"generator runs on {generator.device}, the "
@@ -229,28 +245,48 @@ class MegatronServer:
         self._streams: dict = {}
         self._streams_lock = threading.Lock()
         self.engine = None
+        self._watcher = None
         if self.serving.serial_fallback:
             return
         if self.serving.num_replicas == 1:
             self.engine = ServingEngine(generator, self.serving,
-                                        device=device)
-            return
-        # N replicas over the one Generator: its weights are held once,
-        # and each replica has its own pool, queue and supervisor
-        engines = []
-        try:
-            for _ in range(self.serving.num_replicas):
-                engines.append(ServingEngine(generator, self.serving,
-                                             device=device))
-        except BaseException:
-            for e in engines:
-                e.close()
-            raise
-        self.engine = EngineRouter(
-            engines, max_retries=self.serving.router_max_retries,
-            heartbeat_timeout_s=self.serving.router_heartbeat_timeout_s)
+                                        device=device,
+                                        weight_version=weight_version)
+        else:
+            # N replicas over the one Generator: its weights are held
+            # once, and each replica has its own pool, queue and supervisor
+            engines = []
+            try:
+                for _ in range(self.serving.num_replicas):
+                    engines.append(ServingEngine(
+                        generator, self.serving, device=device,
+                        weight_version=weight_version))
+            except BaseException:
+                for e in engines:
+                    e.close()
+                raise
+            self.engine = EngineRouter(
+                engines, max_retries=self.serving.router_max_retries,
+                heartbeat_timeout_s=self.serving.router_heartbeat_timeout_s)
+        if self.serving.watch_checkpoints:
+            root = self.serving.watch_checkpoints
+            initial_tag = None
+            if weight_version is not None:
+                # the tracker still names what the weights came from: the
+                # first poll must not swap to it again
+                try:
+                    tag = read_tracker(root)
+                except Exception:  # noqa: BLE001 — racing a publish
+                    tag = None
+                if tag == str(weight_version.iteration):
+                    initial_tag = tag
+            self._watcher = CheckpointWatcher(
+                self.engine, root, interval_s=self.serving.watch_interval_s,
+                initial_tag=initial_tag).start()
 
     def close(self):
+        if self._watcher is not None:
+            self._watcher.close()
         if self.engine is not None:
             self.engine.close()
 
@@ -288,9 +324,22 @@ class MegatronServer:
             err = validate_generate_payload(payload)
             if err is not None:
                 return 400, {"message": err}
+            if payload.get("beam_width") or payload.get("serial"):
+                err = self._stale_fallback_error(
+                    "beam search" if payload.get("beam_width")
+                    else "the serial route")
+                if err is not None:
+                    return 409, {"message": err}
             if payload.get("beam_width"):
                 return 200, self._handle_beam(payload)
             if payload.get("serial"):
+                if payload.get("adapter_id") is not None:
+                    # the serial route has no adapter bank: it would decode
+                    # the base model
+                    return 400, {"message":
+                                 "adapter_id requires the serving-engine "
+                                 "path (drop 'serial': true / "
+                                 "serial_fallback)"}
                 return 200, self._handle_serial(payload)
             return 200, self._handle_engine(payload)
         except EngineUnhealthyError as e:
@@ -348,6 +397,25 @@ class MegatronServer:
         except Exception as e:  # noqa: BLE001 — a server fault is a 500
             return 500, {"message": str(e)}
 
+    def _stale_fallback_error(self, what: str) -> Optional[str]:
+        """The serial and beam routes forward through the server's
+        Generator, which a hot swap leaves alone (replicas share it): once
+        an engine has swapped they would serve the old weights under a
+        fleet reporting the new version, so they answer 409 instead."""
+        try:
+            snap = (self.engine.aggregate_snapshot()
+                    if isinstance(self.engine, EngineRouter)
+                    else self.engine.metrics.snapshot())
+            swapped = snap.get("weight_swaps", 0) > 0
+        except Exception:  # noqa: BLE001 — cannot tell: let it through
+            swapped = False
+        if not swapped:
+            return None
+        return (f"{what} is unavailable after a live-weight hot swap: it "
+                "forwards through the server's original startup weights, "
+                "not the engine's current version; restart the server on "
+                "the new checkpoint to use it")
+
     def _backoff_body(self, message: str,
                       retry_after: Optional[int] = None,
                       queue_depth: Optional[int] = None) -> dict:
@@ -369,11 +437,57 @@ class MegatronServer:
         return {}
 
     def handle_admin(self, payload) -> Tuple[int, dict]:
-        return 400, {"message": "admin ops (weight swap, adapter "
-                                "registration) come with live weights in a "
-                                "later slice" if self.engine is not None
-                     else "admin ops require the serving engine "
-                          "(serial_fallback has no control plane)"}
+        """`PUT /admin` (server.py handle_admin): `swap_weights` (a router
+        walks a rolling upgrade; 409 on a refusal, the old weights serving
+        on), `register_adapter` by path, and `drain`; 400 on a bad
+        request."""
+        if self.engine is None:
+            return 400, {"message": "admin ops require the serving engine "
+                                    "(serial_fallback has no control "
+                                    "plane)"}
+        if not isinstance(payload, dict):
+            return 400, {"message": "request body must be a JSON object"}
+        op = payload.get("op")
+        if op == "swap_weights":
+            ckpt = payload.get("ckpt_dir")
+            if not ckpt:
+                return 400, {"message": "swap_weights requires ckpt_dir"}
+            timeout = payload.get("timeout")
+            timeout = float(timeout) if timeout is not None else 120.0
+            try:
+                if isinstance(self.engine, EngineRouter):
+                    version = self.engine.rolling_upgrade(
+                        str(ckpt), swap_timeout_s=timeout)
+                else:
+                    version = self.engine.swap_weights(str(ckpt),
+                                                       timeout=timeout)
+            except (WeightSwapError, RollingUpgradeError) as e:
+                # a refusal leaves the old weights serving: a conflict
+                # with the current state, not a server fault
+                return 409, {"message": str(e)}
+            return 200, {"label": version.label,
+                         "iteration": int(version.iteration)}
+        if op == "register_adapter":
+            aid = payload.get("adapter_id")
+            if aid is None:
+                return 400, {"message": "register_adapter requires "
+                                        "adapter_id"}
+            try:
+                rank = payload.get("rank")
+                self.engine.register_adapter(
+                    aid, path=payload.get("path"),
+                    rank=None if rank is None else int(rank),
+                    alpha=float(payload.get("alpha", 1.0)))
+            except AdmissionError as e:
+                return 400, {"message": str(e)}
+            return 200, {"registered": aid}
+        if op == "drain":
+            timeout = payload.get("timeout")
+            drained = self.engine.drain(
+                float(timeout) if timeout is not None else 120.0)
+            return 200, {"drained": bool(drained)}
+        return 400, {"message": f"unknown admin op {op!r} (swap_weights | "
+                                "register_adapter | drain)"}
 
     def healthz(self) -> Tuple[int, dict]:
         """200 while the engine (or the router: a degraded router, with
@@ -478,7 +592,8 @@ class MegatronServer:
                     try:
                         reqs[i] = self.engine.submit(
                             ids, n, sampling, seed=seed + i,
-                            priority=priority, deadline_s=deadline_s)
+                            priority=priority, deadline_s=deadline_s,
+                            adapter_id=payload.get("adapter_id"))
                         pending.append(i)
                         break
                     except OverloadShedError:
@@ -601,7 +716,8 @@ class MegatronServer:
             sampling, seed=self._seed_for(payload),
             priority=int(payload.get("priority", 0) or 0),
             deadline_s=None if deadline_s is None else float(deadline_s),
-            arrival_id=None if aid is None else int(aid))
+            arrival_id=None if aid is None else int(aid),
+            adapter_id=payload.get("adapter_id"))
         entry = _StreamEntry(secrets.token_hex(8), req)
         with self._streams_lock:
             self._gc_streams_locked(time.monotonic())
@@ -616,10 +732,16 @@ class MegatronServer:
         with the status a whole-completion caller would have seen (a
         replica's crash mid-stream ends here, never in a silent hang)."""
         req = entry.req
-        # the port's engines serve one set of weights (no live swaps)
+        # the version of the replica serving the stream now (a failed-over
+        # stream reports the survivor's), on every start frame
+        rep = getattr(req, "replica", None)
+        eng = rep.engine if rep is not None else self.engine
+        version = getattr(eng, "weight_version", None)
         yield self._sse({"stream_id": entry.sid, "resumed": resumed,
                          "next_index": max(start, 0),
-                         "weight_version": "unversioned"}, event="start")
+                         "weight_version": (version.label if version
+                                            is not None else "unversioned")},
+                        event="start")
         i = max(start, 0)
         # the budget the whole-completion route enforces through
         # result(timeout): a stuck request ends in a terminal frame
@@ -733,11 +855,14 @@ class MegatronServer:
                 except json.JSONDecodeError as e:
                     self._send(400, {"message": f"invalid JSON: {e}"})
                     return
-                if path == "/admin":
-                    status, body = server.handle_admin(payload)
-                else:
-                    status, body = server.handle(payload,
-                                                 headers=self.headers)
+                try:
+                    if path == "/admin":
+                        status, body = server.handle_admin(payload)
+                    else:
+                        status, body = server.handle(payload,
+                                                     headers=self.headers)
+                except Exception as e:  # noqa: BLE001 — a fault is a 500
+                    status, body = 500, {"message": str(e)}
                 if _is_stream_body(body):
                     self._send_stream(status, body)
                 else:

@@ -44,14 +44,21 @@ The uncached (training) forward passes segment ids, and attention dropout
 with its generator, to the flash path (ops/flash_attention.py, kernels on
 the card); the dot path takes the segment mask too.
 
-Left for later slices, and raising: LoRA adapters, cross-attention,
-attention dropout on the dot path, and the ring / ulysses implementations.
+LoRA adapters (`adapters=`, the multi-tenant serving bank and the LoRA
+finetune) add each row's low-rank delta x @ A[idx] @ B[idx] to the q, k, v
+and o projections: the factors are gathered per row (`index_select`), cast
+to the activation dtype, and applied as two batched products (`torch.bmm`),
+as the reference computes them outside any Pallas kernel. The deltas join
+before the head reshape and RoPE.
+
+Left for later slices, and raising: cross-attention, attention dropout on
+the dot path, and the ring / ulysses implementations.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -111,6 +118,38 @@ class BlockKVCache(_Stacked):
     map: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+
+class LoraAdapter(NamedTuple):
+    """Batched LoRA factors of the q/k/v/o projections (attention.py
+    LoraAdapter). Stacked (the bank, the finetune's factors): every leaf
+    has a leading layers dim, [L, n, h, r] for A and [L, n, r, out] for B;
+    per layer: [n, h, r] / [n, r, out]. `n` is the bank's capacity; the
+    serving bank keeps row 0 all-zero, the identity adapter that base rows
+    gather. The alpha/rank scale is folded into B at load."""
+    aq: torch.Tensor  # [.., n, h, r]
+    bq: torch.Tensor  # [.., n, r, nq*hd]
+    ak: torch.Tensor  # [.., n, h, r]
+    bk: torch.Tensor  # [.., n, r, nkv*hd]
+    av: torch.Tensor  # [.., n, h, r]
+    bv: torch.Tensor  # [.., n, r, nkv*hd]
+    ao: torch.Tensor  # [.., n, nq*hd, r]
+    bo: torch.Tensor  # [.., n, r, h]
+
+    def layers(self) -> list:
+        """Every layer's factors: one `unbind(0)` per stacked leaf (whose
+        backward is one stack, as for the stacked weights)."""
+        return [LoraAdapter(*fs) for fs in zip(*(f.unbind(0) for f in self))]
+
+
+def _lora(inp: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+          aidx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-row low-rank delta (attention.py _lora): inp [b, s, d_in] ->
+    [b, s, d_out] through each row's gathered [d_in, r] and [r, d_out]
+    factors, cast to the activation dtype before the two products."""
+    at = a.index_select(0, aidx).to(dtype)      # [b, d_in, r]
+    bt = bmat.index_select(0, aidx).to(dtype)   # [b, r, d_out]
+    return torch.bmm(torch.bmm(inp.to(dtype), at), bt)
 
 
 def _cache_write(cache, index, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -243,11 +282,14 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     rope_cos=None, rope_sin=None, position_ids=None,
                     kv_cache: Optional[KVCache] = None, segment_ids=None,
                     deterministic: bool = True,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    adapters=None):
     """Causal self-attention. x: [b, s, h]. Returns (out [b, s, h], the
     per-layer cache advanced by s, or None without a cache). Attention
     dropout runs when `deterministic` is False and a `generator` is given,
-    as the reference runs it only with an rng."""
+    as the reference runs it only with an rng. `adapters` is a (per-layer
+    LoraAdapter, adapter_idx int [b]) pair: row i adds the delta of bank
+    row adapter_idx[i] to its projections; None runs no extra op."""
     b, s, _ = x.shape
     hd, nq, nkv = cfg.kv_channels, cfg.num_attention_heads, cfg.num_kv_heads
     dtype = x.dtype
@@ -261,9 +303,19 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.use_bias:
         q = q + params["bq"].to(dtype)
         kv = kv + params["bkv"].to(dtype)
+    lw = aidx = None
+    if adapters is not None:
+        lw, aidx = adapters
+        aidx = aidx.long()
+        # before the head reshape and RoPE: (W + A B) x, the merged-weights
+        # semantics
+        q = q + _lora(x, lw.aq, lw.bq, aidx, dtype)
     q = q.reshape(b, s, nq, hd)
     kv = kv.reshape(b, s, 2, nkv, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
+    if lw is not None:
+        k = k + _lora(x, lw.ak, lw.bk, aidx, dtype).reshape(b, s, nkv, hd)
+        v = v + _lora(x, lw.av, lw.bv, aidx, dtype).reshape(b, s, nkv, hd)
 
     offset = 0
     per_slot = False
@@ -391,8 +443,11 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
                 sliding_window=window, segment_ids=segment_ids)
 
-    out = qdense(out.reshape(b, s, nq * hd), wcast(params["wo"], dtype),
-                 cfg.quantized_gemm)
+    out = out.reshape(b, s, nq * hd)
+    proj = qdense(out, wcast(params["wo"], dtype), cfg.quantized_gemm)
+    if lw is not None:
+        proj = proj + _lora(out, lw.ao, lw.bo, aidx, dtype)
+    out = proj
     if cfg.use_bias:
         out = out + params["bo"].to(dtype)
     return out, new_cache

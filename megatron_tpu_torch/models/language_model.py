@@ -155,7 +155,8 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   logits_dtype=torch.float32, segment_ids=None,
                   deterministic: bool = True,
                   generator: Optional[torch.Generator] = None,
-                  head_positions: Optional[torch.Tensor] = None):
+                  head_positions: Optional[torch.Tensor] = None,
+                  adapters=None):
     """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches).
     With `head_positions` [b], only row i's position head_positions[i]
     reaches the LM head and the logits are [b, 1, padded_vocab] (a
@@ -166,7 +167,9 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions continue from the cache offset and the caches are written in
     place.
     `segment_ids` [b, s] mask attention across documents; with
-    `deterministic` False, `generator` seeds attention dropout."""
+    `deterministic` False, `generator` seeds attention dropout.
+    `adapters` is (a stacked LoraAdapter bank, adapter_idx int [b]): each
+    row adds its adapter's low-rank deltas to the attention projections."""
     params = _tree(params)
     compute_dtype = as_dtype(cfg.compute_dtype)
     emb = params["embedding"]["word_embeddings"]
@@ -190,7 +193,7 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         rope_sin=rope.sin if rope else None,
         position_ids=position_ids, kv_caches=kv_caches,
         segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator)
+        generator=generator, adapters=adapters)
     if head_positions is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
               head_positions.long()][:, None]
@@ -213,13 +216,15 @@ def head_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
 def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
             rope: Optional[RopeTables] = None,
             generator: Optional[torch.Generator] = None,
-            deterministic: bool = True, position_ids=None, segment_ids=None):
+            deterministic: bool = True, position_ids=None, segment_ids=None,
+            adapters=None):
     """Causal LM loss (language_model.py loss_fn): the mean cross-entropy
     over unmasked positions. `tokens` is [b, s+1] (inputs and labels
     shifted by one; a [b, s+1] loss_mask drops its first column) or an
-    (inputs, labels) pair of [b, s]. The MoE aux term, LoRA adapters and
-    the context-parallel zigzag are not ported (MoE and cp raise where the
-    model builds them)."""
+    (inputs, labels) pair of [b, s]. `adapters` threads LoRA factors into
+    the forward (training/lora.py differentiates through them). The MoE
+    aux term and the context-parallel zigzag are not ported (MoE and cp
+    raise where the model builds them)."""
     if cfg.recompute_granularity != "none":
         raise NotImplementedError(
             f"recompute_granularity={cfg.recompute_granularity!r}: "
@@ -234,7 +239,7 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
                               position_ids=position_ids,
                               segment_ids=segment_ids,
                               deterministic=deterministic,
-                              generator=generator)
+                              generator=generator, adapters=adapters)
     losses = cross_entropy_loss(logits, labels, vocab_size=cfg.vocab_size)
     if loss_mask is None:
         return losses.mean()

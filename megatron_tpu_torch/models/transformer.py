@@ -5,8 +5,9 @@ a leading [num_layers] dim. `stack_apply` is a host loop over the layers
 where the reference scans; it takes each stacked leaf apart once per
 forward with `unbind(0)`, whose backward is one `stack`, so a layer's
 gradient never allocates the whole stack. Covers pre- and post-LN and
-Falcon's `parallel_attn` / `parallel_layernorm`, segment ids and the flash
-path's attention dropout. Hidden dropout (and its LIMA ramp), stochastic
+Falcon's `parallel_attn` / `parallel_layernorm`, segment ids, the flash
+path's attention dropout and LoRA adapters (a stacked `LoraAdapter` bank
+with a per-row index, sliced per layer like the weights). Hidden dropout (and its LIMA ramp), stochastic
 depth, activation recompute and MoE belong to later slices and raise.
 """
 from __future__ import annotations
@@ -57,10 +58,12 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
                 kv_cache: Optional[KVCache] = None, segment_ids=None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                adapters=None):
     """One transformer layer. x: [b, s, h]. Returns (x, kv_cache).
     `generator` draws the flash path's attention-dropout seed when
-    `deterministic` is False.
+    `deterministic` is False; `adapters` is (this layer's LoraAdapter,
+    adapter_idx [b]) or None.
 
       ln_out = input_norm(x)                (identity when post-LN)
       attn   = attention(ln_out)
@@ -83,7 +86,7 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         params["attention"], ln_out, cfg, rope_cos=rope_cos,
         rope_sin=rope_sin, position_ids=position_ids, kv_cache=kv_cache,
         segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator)
+        generator=generator, adapters=adapters)
     if cfg.parallel_attn:
         if cfg.parallel_layernorm:
             mlp_in = apply_norm(cfg.norm_type, params["mlp_norm"], residual,
@@ -118,19 +121,27 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
                 kv_caches: Union[KVCache, BlockKVCache, None] = None,
                 segment_ids=None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                adapters=None):
     """Apply every layer in order. `kv_caches` is a KVCache of
     [L, b, T, nkv, hd] tensors or a BlockKVCache of [L, total_blocks, B,
     nkv, hd] arenas; either way one offset (host int or per-row tensor)
     and, for the arena, one block map serve all layers. Each layer gets
-    its slice of the stacked tensors. Returns (x, kv_caches advanced by the
-    step's length, or None)."""
+    its slice of the stacked tensors. `adapters` is (a stacked
+    LoraAdapter, adapter_idx [b]): each layer gets its slice of the factors
+    and the one index. Returns (x, kv_caches advanced by the step's length,
+    or None)."""
+    lora = None
+    if adapters is not None:
+        stacked, aidx = adapters
+        lora = [(lw, aidx) for lw in stacked.layers()]
     for i, layer in enumerate(unstack_layers(stacked_params)):
         cache = None if kv_caches is None else kv_caches.layer(i)
         x, _ = layer_apply(layer, x, cfg, rope_cos=rope_cos,
                            rope_sin=rope_sin, position_ids=position_ids,
                            kv_cache=cache, segment_ids=segment_ids,
-                           deterministic=deterministic, generator=generator)
+                           deterministic=deterministic, generator=generator,
+                           adapters=None if lora is None else lora[i])
     if kv_caches is None:
         return x, None
     return x, dataclasses.replace(kv_caches,

@@ -107,11 +107,35 @@ steps, and the last chunk lands it with one insert.
   a corrupt entry is a miss. `prefix_peek` reads both halves for the
   router (serving/router.py).
 
-Adapters, structured output and fan-out come with later slices and raise
-when configured (ServingConfig.validate).
+- LoRA adapters (`adapter_slots`, serving/adapters.py): a device bank of
+  stacked factors with the identity row 0, and a per-slot `adapter_idx`
+  beside the block map. `submit(adapter_id=...)` pins the adapter's row at
+  admission (loading it, evicting the LRU unpinned row under pressure;
+  every row pinned requeues the request), and every forward of the slot
+  (its prefill, decode steps and verify windows) adds its adapter's
+  low-rank delta. Base rows gather row 0's zeros; with `adapter_slots=0`
+  there is no bank and the forward is today's. Prefix lookups are
+  namespaced by (weight generation, adapter namespace), so a prefix never
+  hits across adapters, registrations or weight versions; a preempted
+  request re-acquires its adapter at resume.
+- Live weights (`swap_weights`, serving/weights.py): a checkpoint is
+  verified against its manifest and staged in host memory on the calling
+  thread; at the swap point admissions hold (nothing is rejected), the
+  slots and pending prefills in flight finish under the old weights, and
+  between two iterations the engine builds the new device tree and flips
+  its Generator to it. Then the prefix index is rebuilt, retained prefixes
+  and host-tier entries drop, the weight generation bumps, queued requests
+  carrying resume state fail typed and retryable, and every adapter's
+  generation bumps. A refused checkpoint raises `WeightSwapError` and the
+  engine serves on. The engine keeps its own Generator view, so replicas
+  that share a Generator swap one at a time.
+
+Structured output and fan-out come with later slices and raise when
+configured (ServingConfig.validate).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import threading
@@ -131,6 +155,9 @@ from megatron_tpu_torch.models import language_model as lm
 from megatron_tpu_torch.models.attention import KVCache
 from megatron_tpu_torch.resilience.faults import get_fault_injector
 from megatron_tpu_torch.resilience.watchdog import StepWatchdog
+from megatron_tpu_torch.serving.adapters import (AdapterBank,
+                                                 AdapterBankFullError,
+                                                 UnknownAdapterError)
 from megatron_tpu_torch.serving.host_tier import HostKVTier
 from megatron_tpu_torch.serving.kv_pool import (SlotKVPool,
                                                 block_native_cache,
@@ -147,6 +174,8 @@ from megatron_tpu_torch.serving.scheduler import (AdmissionScheduler,
                                                   QueueFullError)
 from megatron_tpu_torch.serving.spec_decode import (NGramDrafter,
                                                     build_draft_rounds)
+from megatron_tpu_torch.serving.weights import (WeightSwapError, load_staged,
+                                                place_params)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 from megatron_tpu_torch.utils.logging import print_rank_0
 
@@ -170,6 +199,24 @@ class _HostSrc:
         self.key = key
 
 
+class _SwapTicket:
+    """One pending weight swap: the staged checkpoint from the calling
+    thread, applied by the engine thread at the swap point. `taken` flips
+    (under the engine's condition) when the engine commits to applying, so
+    a caller that times out can tell a cancellable wait from an apply in
+    flight; `done` carries the verdict."""
+
+    __slots__ = ("staged", "done", "taken", "version", "error", "created")
+
+    def __init__(self, staged):
+        self.staged = staged
+        self.done = threading.Event()
+        self.taken = False
+        self.version = None
+        self.error: Optional[BaseException] = None
+        self.created = time.perf_counter()
+
+
 class _PendingPrefill:
     """A request mid-prefill (engine.py _PendingPrefill). It owns a slot,
     but its KV accumulates in `sub`, a batch-1 cache outside the pool that
@@ -180,10 +227,11 @@ class _PendingPrefill:
     `rng` the generator the slot decodes with. On a block pool `blocks` are
     the reserved physical blocks (the map row stays on TRASH until
     activation installs them), `pfx_blocks` the aliased count the insert
-    skips, and `installed` whether the row was installed."""
+    skips, and `installed` whether the row was installed. `aidx` is the
+    adapter bank row the chunks forward under (0: the base model)."""
 
     __slots__ = ("req", "slot", "sub", "pos", "rng", "last", "tokens",
-                 "blocks", "pfx_blocks", "installed")
+                 "blocks", "pfx_blocks", "installed", "aidx")
 
     def __init__(self, req: GenRequest, slot: int, sub: KVCache, pos: int,
                  rng: Optional[torch.Generator], tokens: List[int],
@@ -198,13 +246,15 @@ class _PendingPrefill:
         self.blocks = blocks
         self.pfx_blocks = pfx_blocks
         self.installed = False
+        self.aidx = int(req.bank_idx)
 
 
 class ServingEngine:
     """Drives generation for many concurrent requests through one decode
     grid. Built from a `Generator`, whose model, config and rope tables it
     reuses; `device` must name the generator's device (None: the current
-    CUDA device, raising without one)."""
+    CUDA device, raising without one). `weight_version` names the
+    checkpoint the generator's weights came from, when known."""
 
     # a restart this long ago no longer counts toward the crash-loop
     # breaker, which exists to catch a loop, not to add up isolated
@@ -214,7 +264,7 @@ class ServingEngine:
     def __init__(self, generator: Generator,
                  serving: Optional[ServingConfig] = None, *,
                  device: DeviceLike = None, start: bool = True,
-                 drafter=None):
+                 drafter=None, weight_version=None):
         self.device = resolve_device(device)
         if generator.device != self.device:
             raise ValueError(f"generator runs on {generator.device}, the "
@@ -268,6 +318,28 @@ class ServingEngine:
             lambda: int(self._active.sum()) + len(self._prefilling))
         self.metrics = ServingMetrics()
         self.metrics.kv_attn_path = self._attn_path
+        # the LoRA bank (None with adapter_slots=0: no extra op anywhere)
+        # and each slot's bank row, uploaded on churn like the lengths
+        self.adapters: Optional[AdapterBank] = None
+        if self.serving.adapter_slots > 0:
+            self.adapters = AdapterBank(
+                cfg, self.serving.adapter_slots, self.serving.adapter_rank,
+                host_bytes=self.serving.adapter_host_bytes,
+                metrics=self.metrics, device=self.device)
+        self._adapter_idx = np.zeros(S, np.int64)
+        self._d_adapter_idx = self._upload(self._adapter_idx)
+        self._adapters_dirty = False
+        # live weights: the served version, the generation that namespaces
+        # the prefix cache (bumped by every applied swap) and the pending
+        # swap the loop applies once the grid is quiet
+        self.weight_version = weight_version
+        self._weight_gen = 0
+        self._pending_swap: Optional[_SwapTicket] = None
+        # the last applied swap's seconds: admissions held (the ticket's
+        # wait for the grid to drain), then placement, flip and hygiene
+        self.last_swap: dict = {}
+        if weight_version is not None:
+            self.metrics.set_weight_version(weight_version.iteration)
         self._vp = cfg.padded_vocab_size
         self._last_logits = torch.zeros(S, self._vp, dtype=torch.float32,
                                         device=self.device)
@@ -349,7 +421,8 @@ class ServingEngine:
                sampling: SamplingOptions = SamplingOptions(),
                seed: int = 0, priority: int = 0,
                deadline_s: Optional[float] = None,
-               arrival_id: Optional[int] = None) -> GenRequest:
+               arrival_id: Optional[int] = None,
+               adapter_id=None) -> GenRequest:
         """Non-blocking: enqueue and return the request handle. Raises
         QueueFullError (-> 429) on a full queue or a draining engine,
         OverloadShedError (-> 429) when early shedding fires,
@@ -358,12 +431,23 @@ class ServingEngine:
         `priority` clamps into [0, priority_levels); `deadline_s`
         overrides the engine-wide request_deadline_s; `arrival_id` (the
         router's failover retries) keeps a request's original position in
-        the queue's order."""
+        the queue's order. `adapter_id` selects a registered LoRA adapter
+        (None: the base model); an unknown one, or any on an engine with
+        no bank, is an AdmissionError (-> 400)."""
         if self._broken:
             raise EngineUnhealthyError(
                 f"engine unhealthy (circuit breaker open): {self._broken}")
         self.metrics.count("requests_received")
         try:
+            if adapter_id is not None:
+                if self.adapters is None:
+                    raise UnknownAdapterError(
+                        f"adapter_id {adapter_id!r} on an engine serving no "
+                        "adapters (adapter_slots=0)")
+                if not self.adapters.known(adapter_id):
+                    raise UnknownAdapterError(
+                        f"unknown adapter_id {adapter_id!r}: register it "
+                        "before submitting requests against it")
             if self._draining:
                 raise QueueFullError(
                     "engine draining (shutdown in progress); retry "
@@ -373,7 +457,7 @@ class ServingEngine:
                                   self.serving.priority_levels - 1))
             req = GenRequest(list(prompt), max_new_tokens, sampling, seed,
                              priority=priority, deadline_s=deadline_s,
-                             arrival_id=arrival_id)
+                             arrival_id=arrival_id, adapter_id=adapter_id)
             req._on_terminal = self._count_terminal
             if max_new_tokens == 0:
                 # nothing to decode: the serial path returns the prompt
@@ -412,17 +496,19 @@ class ServingEngine:
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
                  sampling: SamplingOptions = SamplingOptions(),
-                 seed: int = 0, timeout: Optional[float] = None):
+                 seed: int = 0, timeout: Optional[float] = None,
+                 adapter_id=None):
         """Blocking: submit and wait. Returns (prompt + generated tokens,
         generated logprobs)."""
-        return self.submit(prompt, max_new_tokens, sampling,
-                           seed).result(timeout)
+        return self.submit(prompt, max_new_tokens, sampling, seed,
+                           adapter_id=adapter_id).result(timeout)
 
     def close(self):
         """Stop the loop; fail queued and in-flight requests."""
         with self._cond:
             self._stop = True
             self._cond.notify_all()
+        self._fail_pending_swap("engine closing")
         if self._thread.ident is not None:
             self._thread.join(timeout=60)
         if self._watchdog is not None:
@@ -441,6 +527,7 @@ class ServingEngine:
         decode to completion, then stop the loop. True when it finished
         within `timeout`."""
         self._draining = True
+        self._fail_pending_swap("engine draining")
         for req in self.scheduler.close():
             req.fail("engine draining (shutdown in progress); retry "
                      "against another replica", kind="unavailable")
@@ -484,29 +571,225 @@ class ServingEngine:
                 self.scheduler.service_time_ewma() * 1e3,
             "kv_attn_path": self._attn_path,
             "max_len": int(self.max_len),
+            # the router's adapter-locality signal (0 without a bank)
+            "active_adapters": (self.adapters.active_count()
+                                if self.adapters is not None else 0),
+            # the served weights, for a fleet mid-upgrade
+            "weight_version": (self.weight_version.label
+                               if self.weight_version is not None
+                               else "unversioned"),
+            "weight_iteration": (self.weight_version.iteration
+                                 if self.weight_version is not None
+                                 else None),
+            "weight_swap_pending": self._pending_swap is not None,
             "detail": broken or "",
         }
 
     def queue_depth(self) -> int:
         return self.scheduler.depth()
 
-    def prefix_peek(self, tokens: Sequence[int]) -> int:
+    def prefix_peek(self, tokens: Sequence[int], adapter_id=None) -> int:
         """Longest cached prefix (device index or host tier) this engine
-        could serve `tokens` with (0 without the prefix cache): the
-        router's affinity hint, read from other threads, so a racy read
-        degrades to 0; admission resolves the real hit."""
+        could serve `tokens` with under `adapter_id`'s current namespace
+        and the current weights (0 without the prefix cache): the router's
+        affinity hint, read from other threads, so a racy read degrades to
+        0; admission resolves the real hit."""
         if not self._prefix_on or not tokens:
             return 0
+        ns = None
+        if adapter_id is not None:
+            if self.adapters is None:
+                return 0
+            ns = self.adapters.namespace(adapter_id)
+            if ns is None:
+                return 0
         toks = list(tokens)
         try:
-            src, hit = self._index.lookup(toks, len(toks) - 1)
+            wns = self._ns(ns)
+            src, hit = self._index.lookup(toks, len(toks) - 1,
+                                          namespace=wns)
             best = hit if src is not None else 0
             if self._host_tier is not None:
-                _, hhit = self._host_tier.lookup(toks, len(toks) - 1)
+                _, hhit = self._host_tier.lookup(toks, len(toks) - 1,
+                                                 namespace=wns)
                 best = max(best, hhit)
             return int(best)
         except Exception:  # noqa: BLE001 — cross-thread peek
             return 0
+
+    def register_adapter(self, adapter_id, path: Optional[str] = None,
+                         factors=None, rank: Optional[int] = None,
+                         alpha: float = 1.0):
+        """Make `adapter_id` servable here, from a `.npz` path or raw
+        factors (validated now; serving/adapters.py). Raises on an engine
+        with no bank."""
+        if self.adapters is None:
+            raise RuntimeError(
+                "this engine serves no adapters (adapter_slots=0); set "
+                "ServingConfig.adapter_slots to register adapters")
+        self.adapters.register(adapter_id, path=path, factors=factors,
+                               rank=rank, alpha=alpha)
+
+    def adapter_peek(self, adapter_id) -> int:
+        """The router's adapter-locality signal: 2 on the device here, 1
+        registered (a host restore or disk load away), 0 unknown."""
+        if self.adapters is None or adapter_id is None:
+            return 0
+        return self.adapters.peek(adapter_id)
+
+    # ------------------------------------------------------------------
+    # live weights (serving/weights.py)
+    # ------------------------------------------------------------------
+    def swap_weights(self, ckpt_dir: str, timeout: Optional[float] = None,
+                     staged=None):
+        """Hot-swap the running engine to the checkpoint in `ckpt_dir`
+        (engine.py swap_weights, without the topology and placement
+        branches).
+
+        1. Stage on the calling thread: the checkpoint verifies against its
+           manifest and loads into host memory (`load_staged`) before
+           anything touches the card; a corrupt, truncated or
+           manifest-less one raises WeightSwapError and counts
+           `weight_swap_failures`.
+        2. The swap point, on the engine thread: admissions hold (queued
+           work waits), the slots and pending prefills in flight finish
+           under the current weights, then between two iterations the
+           new device tree is built whole and the engine's Generator flips
+           to it. The pool survives untouched.
+        3. Version hygiene (`_swap_hygiene`).
+
+        Requests admitted before the swap are pure version N, those after
+        it pure N+1. Returns the new WeightVersion. Raises WeightSwapError
+        on a refusal, on a placement failure, or when the drain outlasts
+        `timeout` (default `ServingConfig.swap_timeout_s`). `staged` (a
+        StagedWeights) skips the staging: a rolling upgrade stages once for
+        every replica."""
+        old = (self.weight_version.label if self.weight_version is not None
+               else "unversioned")
+        if self._broken:
+            raise WeightSwapError(
+                f"engine unhealthy (circuit breaker open): {self._broken}; "
+                "nothing to swap onto")
+        if staged is None:
+            try:
+                staged = load_staged(ckpt_dir, self.gen.params)
+            except WeightSwapError:
+                self.metrics.count("weight_swap_failures")
+                raise
+        ticket = _SwapTicket(staged)
+        with self._cond:
+            if self._stop or self._draining:
+                self.metrics.count("weight_swap_failures")
+                raise WeightSwapError("engine stopping or draining; a "
+                                      "shutting-down replica does not swap")
+            if self._pending_swap is not None:
+                self.metrics.count("weight_swap_failures")
+                raise WeightSwapError("a weight swap is already in "
+                                      "progress on this engine")
+            self._pending_swap = ticket
+            self._cond.notify_all()
+        budget = (timeout if timeout is not None
+                  else float(self.serving.swap_timeout_s))
+        if not ticket.done.wait(budget):
+            with self._cond:
+                if self._pending_swap is ticket and not ticket.taken:
+                    # still at the barrier: cancel, admissions resume
+                    self._pending_swap = None
+                    self.metrics.count("weight_swap_failures")
+                    raise WeightSwapError(
+                        f"weight swap timed out after {budget:.1f}s "
+                        "waiting for in-flight work to drain; the engine "
+                        f"keeps serving {old}")
+            # the apply is in flight: wait for its verdict
+            if not ticket.done.wait(max(budget, 60.0)):
+                raise WeightSwapError(
+                    "weight swap verdict still pending (device placement "
+                    "in flight); it may yet complete: check "
+                    "health()['weight_version'] before retrying")
+        if ticket.error is not None:
+            self.metrics.count("weight_swap_failures")
+            raise WeightSwapError(
+                f"weight swap failed during device placement "
+                f"({ticket.error!r}); the engine keeps serving {old}"
+            ) from ticket.error
+        if ticket.version is None:
+            self.metrics.count("weight_swap_failures")
+            raise WeightSwapError(f"weight swap aborted (the engine went "
+                                  f"down mid-swap); last version {old}")
+        return ticket.version
+
+    def _apply_swap(self, ticket: _SwapTicket):
+        """Engine thread, at the swap point (no active slots, no pending
+        prefills): build the new device tree, then flip. A failure before
+        the flip leaves the old weights serving."""
+        staged = ticket.staged
+        t0 = time.perf_counter()
+        try:
+            params = place_params(staged, self.gen.params, self.cfg,
+                                  self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as e:  # noqa: BLE001 — a typed refusal upstream
+            ticket.error = e
+            ticket.done.set()
+            return
+        # the swap point: this engine's own view of the Generator takes the
+        # new tree (a Generator shared with other replicas keeps its own)
+        gen = copy.copy(self.gen)
+        gen.params = params
+        self.gen = gen
+        self.weight_version = staged.version
+        self.metrics.count("weight_swaps")
+        self.metrics.set_weight_version(staged.version.iteration)
+        ticket.version = staged.version
+        try:
+            self._swap_hygiene(staged)
+        finally:
+            # the weights flipped whatever the sweep did; a failed sweep
+            # raises into the supervisor, whose restart rebuilds more
+            self.last_swap = dict(hold_s=t0 - ticket.created,
+                                  apply_s=time.perf_counter() - t0)
+            ticket.done.set()
+        print_rank_0(f"serving engine: weights hot-swapped to "
+                     f"{staged.version.label} between iterations")
+
+    def _swap_hygiene(self, staged):
+        """After the flip: nothing computed under the old weights may be
+        reused under the new."""
+        self._weight_gen += 1
+        self._index = self._new_index()
+        self.pool.on_reclaim = lambda key: self._index.remove(key)
+        dropped = self.pool.drop_retained()
+        tier_dropped = (self._host_tier.clear()
+                        if self._host_tier is not None else 0)
+        # no active slots at the barrier: every row parks at 0
+        self._lengths[:] = 0
+        self._reject[:] = -1
+        self._lengths_dirty = True
+        self._kv_dirty = True
+        # a queued request with resume state committed tokens under the
+        # old weights: continuing it under the new would mix versions in
+        # one stream, so it fails retryable (a router resubmits it whole)
+        for req in self.scheduler.drop_resumed():
+            req.fail("weights hot-swapped while this preempted request was "
+                     "queued: its committed tokens came from the previous "
+                     f"version and cannot continue under "
+                     f"{staged.version.label}; resubmit",
+                     kind="unavailable")
+        if self.adapters is not None:
+            # adapters were trained against the old base
+            self.adapters.bump_generations()
+        print_rank_0(f"serving engine: version hygiene dropped {dropped} "
+                     f"retained prefix(es) and {tier_dropped} host-tier "
+                     f"entr(ies) for {staged.version.label}")
+
+    def _fail_pending_swap(self, msg: str):
+        """Resolve a pending, never-applied swap when the engine goes down,
+        so its caller does not hang."""
+        with self._cond:
+            ticket, self._pending_swap = self._pending_swap, None
+        if ticket is not None and not ticket.done.is_set():
+            ticket.done.set()  # version stays None: a typed abort
 
     def __enter__(self):
         return self
@@ -544,12 +827,23 @@ class ServingEngine:
         caches = dataclasses.replace(self._grid_caches(), offset=lengths)
         logits, caches = lm.model_forward(
             self.gen.params, toks[:, None], self.cfg, kv_caches=caches,
-            position_ids=lengths[:, None].long(), rope=self.gen.rope)
+            position_ids=lengths[:, None].long(), rope=self.gen.rope,
+            adapters=self._lora(self._d_adapter_idx))
         if self._blocks_on and not self._kernel_on:
             scatter_view(self.pool.caches, caches)
         self._last_logits = logits[:, 0]
         self._d_lengths = torch.clamp(lengths + 1, max=self.max_len - 1)
         return toks, lps
+
+    def _lora(self, idx):
+        """The forward's `adapters` argument: the bank and the rows' bank
+        indices (a device tensor, or host rows uploaded here), or None on
+        an engine with no bank."""
+        if self.adapters is None:
+            return None
+        if not isinstance(idx, torch.Tensor):
+            idx = self._upload(np.asarray(idx, np.int64))
+        return self.adapters.stacked, idx
 
     def _grid_caches(self):
         """The slot grid's cache as the forward takes it: the block-native
@@ -599,7 +893,8 @@ class ServingEngine:
         window = torch.cat([toks0[:, None], drafts], dim=1)
         logits, caches = verify_tokens(
             self.gen.params, window, self._grid_caches(), self.cfg,
-            rope=self.gen.rope, lengths=lengths, max_len=self.max_len)
+            rope=self.gen.rope, lengths=lengths, max_len=self.max_len,
+            adapters=self._lora(self._d_adapter_idx))
         if self._blocks_on and not self._kernel_on:
             scatter_view(self.pool.caches, caches)
         # logits[:, j]: the distribution of the token after window[:, j],
@@ -758,6 +1053,7 @@ class ServingEngine:
             with self._cond:
                 while (not self._stop and not self._draining
                        and not self._wedged
+                       and self._pending_swap is None
                        and self.scheduler.depth() == 0
                        and not self._active.any()
                        and not self._prefilling):
@@ -776,8 +1072,23 @@ class ServingEngine:
             self._maybe_decay_restarts()
             self._reap_cancelled()
             self._reap_expired()
-            self._preempt_for_priority()
-            self._admit()
+            if self._pending_swap is not None:
+                # the swap barrier: admissions hold (queued work waits)
+                # while the slots and prefills in flight finish under the
+                # current weights; a quiet grid swaps between iterations
+                if not self._active.any() and not self._prefilling:
+                    with self._cond:
+                        ticket = self._pending_swap
+                        if ticket is not None:
+                            ticket.taken = True
+                            self._pending_swap = None
+                    if ticket is not None:
+                        self._apply_swap(ticket)
+                    self._heartbeat()
+                    continue
+            else:
+                self._preempt_for_priority()
+                self._admit()
             # one chunk an iteration, between decode steps, so running
             # slots keep emitting while a long prompt lands
             self._advance_prefill()
@@ -838,6 +1149,7 @@ class ServingEngine:
         self._broken = (f"circuit breaker open after {self._restarts} "
                         f"restart(s): {msg}")
         print_rank_0(f"serving engine: {self._broken}")
+        self._fail_pending_swap(self._broken)
         for req in self._slot_req:
             if req is not None:
                 req.fail(self._broken)
@@ -883,6 +1195,12 @@ class ServingEngine:
         self._lengths[:] = 0
         self._active[:] = False
         self._d_lengths = self._upload(self._lengths)
+        # every slotted request failed, so no adapter pin survives; the
+        # bank's rows stay loaded
+        self._adapter_idx[:] = 0
+        self._d_adapter_idx = self._upload(self._adapter_idx)
+        if self.adapters is not None:
+            self.adapters.reset_pins()
         self._sampling_dirty = True
         self._lengths_dirty = True
         self._kv_dirty = True
@@ -948,6 +1266,10 @@ class ServingEngine:
         self._active[slot] = False
         self._gens[slot] = None
         self._reject[slot] = -1
+        # the pin frees with the slot; the victim re-acquires its adapter
+        # by id at resume, whichever row it lands in
+        self._release_adapter(req)
+        self._free_adapter_row(slot)
         self._sampling_dirty = True
         self._kv_dirty = True
         self._lengths_dirty = True
@@ -968,7 +1290,20 @@ class ServingEngine:
         self._admitting = pending
         try:
             groupable: List[GenRequest] = []
+            # once a request blocks on a full bank, later adapter requests
+            # this pass requeue untried, so a busy resident adapter cannot
+            # starve the blocked head (arrival ids keep the order)
+            bank_blocked = False
             for r in popped:
+                if bank_blocked and r.adapter_id is not None:
+                    self.scheduler.requeue(r)
+                    pending.remove(r)
+                    continue
+                verdict = self._acquire_adapter(r)
+                if verdict != "ok":
+                    bank_blocked = bank_blocked or verdict == "blocked"
+                    pending.remove(r)
+                    continue
                 if r.parked is not None:
                     # a preemption victim with its KV intact: one insert,
                     # no forward
@@ -977,7 +1312,7 @@ class ServingEngine:
                     continue
                 # a replay prefills prompt + generated
                 toks = r.effective_prompt()
-                src, hit = self._lookup_prefix(toks)
+                src, hit = self._lookup_prefix(toks, r.adapter_ns)
                 if hit or r.resume_rng is not None or (
                         self._chunk is not None and len(toks) > self._chunk):
                     self._start_pending(r, src, hit)
@@ -992,10 +1327,62 @@ class ServingEngine:
                     pending.remove(r)
         except Exception as e:
             for r in pending:
+                self._release_adapter(r)
                 r.fail(repr(e))
             raise
         finally:
             self._admitting = []
+
+    def _acquire_adapter(self, req: GenRequest) -> str:
+        """Pin req.adapter_id's bank row (req.bank_idx) and record its
+        namespace (req.adapter_ns). Returns "ok", "blocked" (the bank is
+        full: requeued until a pin frees) or "failed" (the request failed
+        typed: unknown since submit, unloadable, or re-registered or
+        swapped while it was queued or preempted, since a stream never
+        continues under other weights than it started with)."""
+        req.bank_idx = 0
+        if self.adapters is None or req.adapter_id is None:
+            return "ok"
+        try:
+            idx = self.adapters.acquire(req.adapter_id)
+        except AdapterBankFullError:
+            self.scheduler.requeue(req)
+            return "blocked"
+        except UnknownAdapterError as e:
+            req.fail(str(e))
+            return "failed"
+        except Exception as e:  # noqa: BLE001 — an unloadable source
+            req.fail(f"adapter {req.adapter_id!r} failed to load: {e!r}")
+            return "failed"
+        ns = self.adapters.namespace(req.adapter_id)
+        if req.adapter_ns is not None and ns != req.adapter_ns:
+            self.adapters.release(idx)
+            req.fail(f"adapter {req.adapter_id!r} was re-registered while "
+                     "this request was queued or preempted; its stream "
+                     "cannot continue under different weights: resubmit")
+            return "failed"
+        req.adapter_ns = ns
+        req.bank_idx = idx
+        return "ok"
+
+    def _release_adapter(self, req: Optional[GenRequest]):
+        """Drop a request's admission-time pin (idempotent)."""
+        if req is None or self.adapters is None:
+            return
+        if req.bank_idx:
+            self.adapters.release(int(req.bank_idx))
+            req.bank_idx = 0
+
+    def _free_adapter_row(self, slot: int):
+        if self._adapter_idx[slot]:
+            self._adapter_idx[slot] = 0  # idle rows decode the base model
+            self._adapters_dirty = True
+
+    def _ns(self, adapter_ns):
+        """The prefix index's and host tier's namespace: (weight
+        generation, adapter namespace), so KV computed under other weights
+        or another adapter is invisible to a lookup."""
+        return (self._weight_gen, adapter_ns)
 
     def _record_admission(self, req: GenRequest):
         # a request admitted before (then requeued) records its queue wait
@@ -1005,8 +1392,10 @@ class ServingEngine:
         if first and req.admit_time is not None:
             self.metrics.record_admitted(req.admit_time - req.submit_time)
 
-    def _lookup_prefix(self, toks: List[int]):
-        """The longest reusable cached prefix of `toks` and its source: a
+    def _lookup_prefix(self, toks: List[int], namespace=None):
+        """The longest reusable cached prefix of `toks` computed under
+        `namespace` (the request's adapter namespace; None: the base
+        model) and the current weights, and its source: a
         running slot (an int) or a retained prefix's key. The match is
         capped at len - 1 so one suffix token forwards for the logits.
         Rolling pools (block mode) add the ring-validity gate: a retained
@@ -1016,7 +1405,9 @@ class ServingEngine:
         slots are never indexed."""
         if not self._prefix_on:
             return None, 0
-        src, hit = self._index.lookup(toks, len(toks) - 1)
+        namespace = self._ns(namespace)
+        src, hit = self._index.lookup(toks, len(toks) - 1,
+                                      namespace=namespace)
         if src is None or not hit:
             src, hit = None, 0
         elif self.pool.rolling:
@@ -1034,7 +1425,8 @@ class ServingEngine:
         # device hit (a restore costs an upload; the on-card copy wins a
         # tie)
         if self._host_tier is not None:
-            hkey, hhit = self._host_tier.lookup(toks, len(toks) - 1)
+            hkey, hhit = self._host_tier.lookup(toks, len(toks) - 1,
+                                                namespace=namespace)
             if hkey is not None and hhit > hit:
                 return _HostSrc(hkey), hhit
         return src, hit
@@ -1234,7 +1626,8 @@ class ServingEngine:
         toks[0, :n] = st.tokens[st.pos:st.pos + n]
         st.sub, st.last = prefill_chunk(
             self.gen.params, self._upload(toks), st.sub, self.cfg,
-            rope=self.gen.rope, last_idx=n - 1, next_offset=st.pos + n)
+            rope=self.gen.rope, last_idx=n - 1, next_offset=st.pos + n,
+            adapters=self._lora([st.aidx]))
         st.pos += n
         st.req.prefill_chunks += 1
         self.metrics.count("prefill_chunks")
@@ -1267,6 +1660,8 @@ class ServingEngine:
         self._top_ps[slot] = sp.top_p
         self._reject[slot] = req.resume_reject  # -1 unless resumed
         self._slot_req[slot] = req
+        self._adapter_idx[slot] = st.aidx
+        self._adapters_dirty = True
         self._sampling_dirty = True
         self._kv_dirty = True
         self._lengths_dirty = True
@@ -1274,7 +1669,8 @@ class ServingEngine:
             # cloneable for the sequence it now holds; a running ring
             # keeps wrapping over its prefix, so rolling slots are indexed
             # only when retained
-            self._index.insert(slot, st.tokens)
+            self._index.insert(slot, st.tokens,
+                               namespace=self._ns(req.adapter_ns))
 
     def _drop_pending(self, st: _PendingPrefill, msg: str,
                       kind: str = "error"):
@@ -1285,6 +1681,7 @@ class ServingEngine:
             self.pool.drop_blocks(st.blocks)
         self._kv_dirty = True
         self.pool.release(st.slot)
+        self._release_adapter(st.req)
         st.req.fail(msg, kind=kind)
 
     def _prefill_group(self, reqs: List[GenRequest], padded: int):
@@ -1313,10 +1710,13 @@ class ServingEngine:
         toks[B_real:] = toks[0]
         last = np.asarray(plens + [plens[0]] * (B - B_real)) - 1
         caches = self.pool.make_prefill_caches(B, padded)
+        rows = [r.bank_idx for r in reqs]
+        rows += [rows[0]] * (B - B_real)  # pad rows replicate row 0
         logits, caches = lm.model_forward(
             self.gen.params, self._upload(toks), self.cfg,
             kv_caches=caches, rope=self.gen.rope,
-            head_positions=self._upload(last))
+            head_positions=self._upload(last),
+            adapters=self._lora(rows))
         # the bracketed mode lands the rows in the gathered view and
         # scatters it back, as the reference's prefill program does
         view = (resolve_view(self.pool.caches)
@@ -1342,6 +1742,8 @@ class ServingEngine:
             self._top_ps[slot] = sp.top_p
             self._reject[slot] = -1
             self._slot_req[slot] = req
+            self._adapter_idx[slot] = req.bank_idx
+            self._adapters_dirty = True
             self._record_admission(req)
             req.prefill_chunks = 1
         if view is not None:
@@ -1355,7 +1757,8 @@ class ServingEngine:
         self.metrics.count("prefill_forward_tokens", int(sum(plens)))
         if self._prefix_on and not self.pool.rolling:
             for slot, req in zip(slots, reqs):
-                self._index.insert(slot, req.prompt)
+                self._index.insert(slot, req.prompt,
+                                   namespace=self._ns(req.adapter_ns))
 
     def _reap_cancelled(self):
         for slot in np.nonzero(self._active)[0]:
@@ -1411,18 +1814,21 @@ class ServingEngine:
         self._kv_dirty = True
         self._lengths_dirty = True
         self._sampling_dirty = True
+        self._release_adapter(req)
+        self._free_adapter_row(slot)
         tokens = req.prompt + req.generated
+        ns = self._ns(req.adapter_ns)
         if failed is None and self._prefix_on and self._blocks_on:
             self._index.remove(slot)
             key = self.pool.retain_row(slot, int(self._lengths[slot]),
-                                       tokens)
+                                       tokens, namespace=ns)
             if key is not None:
-                self._index.insert(key, tokens)
+                self._index.insert(key, tokens, namespace=ns)
             self._lengths[slot] = 0
         elif failed is None and self._prefix_on:
             # indexed before retain: a retain that reclaims this very slot
             # (retained_slots=0) removes the entry again through on_reclaim
-            self._index.insert(slot, tokens)
+            self._index.insert(slot, tokens, namespace=ns)
             self.pool.retain(slot)
         else:
             self._lengths[slot] = 0  # idle rows park at position 0
@@ -1462,6 +1868,10 @@ class ServingEngine:
             # turn the next restore into a miss, never wrong tokens
             if inj.serve_host_corrupt(call) and self._host_tier is not None:
                 inj.corrupt_host_tier_entry(self._host_tier)
+            # flip bytes in a demoted host adapter copy: its CRC gate must
+            # turn the next restore into a reload from the source
+            if inj.serve_adapter_corrupt(call) and self.adapters is not None:
+                inj.corrupt_adapter_host_entry(self.adapters)
             ordinal = inj.serve_nan_slot(call)
             if ordinal is not None:
                 act = np.nonzero(self._active)[0]
@@ -1488,6 +1898,9 @@ class ServingEngine:
             self._d_lengths = self._upload(self._lengths)
             self._d_reject = self._upload(self._reject)
             self._lengths_dirty = False
+        if self._adapters_dirty:
+            self._d_adapter_idx = self._upload(self._adapter_idx)
+            self._adapters_dirty = False
         k = self._spec_k
         spec_round = [False] * K
         grids = None
@@ -1602,4 +2015,6 @@ class ServingEngine:
                                      int(consumed[r]), depth)
         if self._kv_dirty:
             self.metrics.set_kv_gauges(*self.pool.kv_gauges(self._lengths))
+            if self.adapters is not None:
+                self.metrics.set_adapter_gauge(self.adapters.active_count())
             self._kv_dirty = False

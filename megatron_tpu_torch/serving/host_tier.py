@@ -118,6 +118,17 @@ class HostKVTier:
             if self._by_seq.get(seq) == key:
                 del self._by_seq[seq]
 
+    def clear(self) -> int:
+        """Drop every entry (the weight swap's version hygiene: KV demoted
+        under the old weights must not restore under the new). Returns the
+        count dropped."""
+        n = len(self._entries)
+        self._entries.clear()
+        self._by_seq.clear()
+        self._index = PrefixIndex(self._index.granularity)
+        self.bytes_used = 0
+        return n
+
     # ---- lookup / restore --------------------------------------------
     def lookup(self, tokens: Sequence[int], max_tokens: Optional[int] = None,
                namespace=None) -> Tuple[object, int]:

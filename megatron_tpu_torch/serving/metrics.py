@@ -1,8 +1,8 @@
 """Serving metrics registry: queue depth, TTFT, tokens/s, occupancy
 (megatron_tpu/serving/metrics.py, with the counters and gauges of the
 core engine, the prefix cache, chunked prefill, preemption, speculative
-decoding and the front door: the router, SSE streams and the host KV
-tier).
+decoding, the front door (the router, SSE streams and the host KV tier),
+LoRA serving and live weights).
 
 Counters and latency reservoirs are updated from the engine loop and HTTP
 threads and snapshotted as plain floats for `/metrics`. Beside the
@@ -63,6 +63,14 @@ _BASE_COUNTERS = (
     "router_failovers", "router_retries", "host_tier_hits",
     "host_tier_demotions", "host_tier_checksum_misses",
     "stream_reconnects",
+    # LoRA serving: adapters written into bank rows, rows evicted under
+    # bank pressure, loads served from the checksummed host copy, and host
+    # copies dropped because their checksum failed (a reload from source)
+    "adapter_loads", "adapter_evictions", "adapter_host_hits",
+    "adapter_host_checksum_misses",
+    # live weights: hot swaps applied, swaps refused or failed (the old
+    # weights serve on each time), completed rolling fleet upgrades
+    "weight_swaps", "weight_swap_failures", "rolling_upgrades",
 )
 
 # gauges a snapshot always carries, by the attribute each is stored under.
@@ -72,13 +80,18 @@ _BASE_COUNTERS = (
 # the resolve/scatter bracket, 2 = block-native kernel;
 # kv_gather_bytes_per_step: the bytes the bracket moved per decode step
 # over the last sync window (0 on the other two paths);
-# fleet_replicas_up: the router's replicas in rotation (router-pushed).
+# fleet_replicas_up: the router's replicas in rotation (router-pushed);
+# active_adapters: device-resident LoRA adapters. Beside these every
+# snapshot carries `weight_version`, the served checkpoint's iteration (0
+# until a versioned start or a swap), which the router reports as the
+# fleet's minimum with `weight_version_min`/`_max`.
 # Every gauge here needs an aggregation rule in serving/router.py, or a
 # fleet scrape reads it as 0 (tests/test_torch_router.py pins that).
 _BASE_GAUGES = (
     "queue_depth", "active_slots", "num_slots",
     "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted",
     "kv_gather_bytes_per_step", "kv_attn_path", "fleet_replicas_up",
+    "active_adapters",
 )
 
 
@@ -105,6 +118,7 @@ class ServingMetrics:
         self._total_slot_steps = 0
         for name in _BASE_GAUGES:
             setattr(self, name, 0)
+        self.weight_version = 0.0
 
     # ---- recording ---------------------------------------------------
     def count(self, name: str, n: int = 1):
@@ -150,6 +164,16 @@ class ServingMetrics:
         with self._lock:
             self.fleet_replicas_up = int(replicas_up)
 
+    def set_adapter_gauge(self, active: int):
+        """Engine-pushed: device-resident LoRA adapters."""
+        with self._lock:
+            self.active_adapters = int(active)
+
+    def set_weight_version(self, iteration) -> None:
+        """Engine-pushed: the iteration of the weights being served."""
+        with self._lock:
+            self.weight_version = float(iteration)
+
     def record_step(self, active_slots: int, num_slots: int,
                     tokens_emitted: int, queue_depth: int):
         now = time.monotonic()
@@ -183,6 +207,7 @@ class ServingMetrics:
             occ = (self._busy_slot_steps / self._total_slot_steps
                    if self._total_slot_steps else 0.0)
             gauges = {k: float(getattr(self, k)) for k in _BASE_GAUGES}
+            gauges["weight_version"] = float(self.weight_version)
         out = {k: 0.0 for k in _BASE_COUNTERS}
         out.update({k: float(v) for k, v in counters.items()})
         out.update(gauges)

@@ -8,10 +8,12 @@ block on, and each committed token through a condition that the SSE
 streaming cursor and the router's retry pump wait on (`wait_token`). A
 preempted request carries its resume state: `parked` (its
 KV copied out of the pool and its carried logits row), `resume_rng` and
-`resume_reject`. The fields of the features the port has not reached yet
-(LoRA adapters, structured output, n-best fan-out) stay present and inert,
-so that later slices keep one request type. The fan-out aggregate and the
-grammar error come with those slices.
+`resume_reject`. A LoRA request carries `adapter_id`, the `adapter_ns`
+(id, registration generation) it first ran under and the `bank_idx` it
+holds pinned. The fields of the features the port has not reached yet
+(structured output, n-best fan-out) stay present and inert, so that later
+slices keep one request type. The fan-out aggregate and the grammar error
+come with those slices.
 """
 from __future__ import annotations
 

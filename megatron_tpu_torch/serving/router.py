@@ -9,9 +9,12 @@ breaker, queue, busy slots, the service-time EWMA) and `prefix_peek` (the
 prefix index and the host KV tier).
 
 - Cache-aware routing: a request goes to the replica whose prefix cache
-  holds the longest match for its prompt, ties broken by the least load:
-  (queue depth + busy slots + pending prefills) x the replica's
-  service-time EWMA, both from its last `health()` snapshot.
+  holds the longest match for its prompt (under its adapter's namespace),
+  then to one holding its LoRA adapter on the device (`adapter_peek` 2)
+  over one a load away (1), ties broken by the least load: (queue depth +
+  busy slots + pending prefills) x the replica's service-time EWMA, both
+  from its last `health()` snapshot. A prefix hit saves forward work every
+  time; a cold adapter load is paid once.
 - Health-driven failover: a replica whose snapshot reports draining, an
   open breaker or a dead loop, or that has not given a healthy snapshot
   within `heartbeat_timeout_s` (a wedged one gets that grace: its
@@ -34,9 +37,17 @@ HTTP threads under the router lock; retries are driven by the caller's
 thread inside `RouterRequest.wait_done` / `wait_token` (there is no router
 thread to die, and every future a caller waits on resolves).
 
-LoRA adapters, live weights and remote replicas come with later slices:
-`register_adapter`, `adapter_peek`, `rolling_upgrade` and `affinity_digest`
-raise NotImplementedError.
+- Rolling upgrade (`rolling_upgrade`): the checkpoint is staged once, then
+  one replica at a time is drained (held out of rotation: its traffic
+  fails over), swapped (`ServingEngine.swap_weights` with the shared
+  staged copy), probed by one canary request under the new weights and
+  re-admitted, so at most one replica is ever out of rotation. A refusal
+  aborts the walk with `RollingUpgradeError` while the fleet serves on.
+- `register_adapter` registers an adapter on every replica, so a failover
+  can resume an adapter request anywhere.
+
+Remote replicas come with a later slice: `affinity_digest` raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -50,13 +61,15 @@ from megatron_tpu_torch.serving.request import (RequestState,
                                                 ServiceUnavailableError)
 from megatron_tpu_torch.serving.scheduler import (AdmissionError,
                                                   EngineUnhealthyError)
+from megatron_tpu_torch.serving.weights import WeightSwapError, load_staged
 from megatron_tpu_torch.utils.logging import print_rank_0
 
 UP, DOWN, PROBING = "up", "down", "probing"
 
 # engine gauges summed across replicas in the aggregate /metrics snapshot
 _SUM_GAUGES = ("queue_depth", "active_slots", "num_slots",
-               "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted")
+               "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted",
+               "active_adapters")
 # engine gauges reported as the worst replica: per-step readings and the
 # attention path, which summing would turn into values no replica has
 _MAX_GAUGES = ("kv_gather_bytes_per_step", "kv_attn_path")
@@ -70,9 +83,16 @@ class NoReplicaAvailableError(ServiceUnavailableError):
     """Every replica is ejected or down: the HTTP layer answers 503."""
 
 
+class RollingUpgradeError(RuntimeError):
+    """A rolling upgrade aborted: the failing replica kept (or is back on)
+    its previous weights and re-enters rotation through the half-open
+    canary. The fleet serves on: upgraded replicas stay on the new version,
+    the rest on the old (the weight_version min/max gauges show it)."""
+
+
 class _Replica:
     __slots__ = ("idx", "engine", "state", "last_health", "last_healthy_t",
-                 "down_until", "canary", "canary_t")
+                 "down_until", "canary", "canary_t", "upgrading")
 
     def __init__(self, idx: int, engine):
         self.idx = idx
@@ -83,6 +103,9 @@ class _Replica:
         self.down_until = 0.0
         self.canary = None  # the RouterRequest probing this replica
         self.canary_t = 0.0
+        # a planned drain (rolling_upgrade): held out of rotation, its work
+        # failing over, until the swap's verdict
+        self.upgrading = False
 
 
 class RouterRequest:
@@ -309,6 +332,13 @@ class EngineRouter:
             return rep.state
 
     def _refresh_one(self, rep: _Replica, now: float):
+        if rep.upgrading:
+            # healthy, but held out of rotation like a DOWN replica (its
+            # work fails over by the same retry path); no canary until the
+            # swap's verdict
+            rep.state = DOWN
+            rep.canary = None
+            return
         verdict = self._eval_replica(rep, now)
         if verdict == DOWN:
             if rep.state != DOWN:
@@ -370,10 +400,12 @@ class EngineRouter:
         return float(waiting) * max(
             float(h.get("service_time_ewma_ms", 0.0)), 1.0)
 
-    def _pick_locked(self, tokens: Sequence[int], exclude=()):
+    def _pick_locked(self, tokens: Sequence[int], exclude=(),
+                     adapter_id=None):
         """(replica, is_canary): a PROBING replica with no canary in flight
-        takes the request as its canary; otherwise the longest
-        `prefix_peek` among UP replicas, ties by the least load."""
+        takes the request as its canary; otherwise among UP replicas the
+        longest `prefix_peek` under the adapter's namespace, then adapter
+        locality (`adapter_peek`), ties by the least load."""
         self._refresh_locked()
         for rep in self.replicas:
             if rep.idx not in exclude and rep.state == PROBING \
@@ -383,8 +415,10 @@ class EngineRouter:
         for rep in self.replicas:
             if rep.idx in exclude or rep.state != UP:
                 continue
-            key = (-rep.engine.prefix_peek(tokens), self._load(rep),
-                   rep.idx)
+            apeek = (rep.engine.adapter_peek(adapter_id)
+                     if adapter_id is not None else 0)
+            key = (-rep.engine.prefix_peek(tokens, adapter_id), -apeek,
+                   self._load(rep), rep.idx)
             if best_key is None or key < best_key:
                 best, best_key = rep, key
         if best is None:
@@ -408,13 +442,15 @@ class EngineRouter:
         while True:
             with self._lock:
                 rep, is_canary = self._pick_locked(
-                    spec["prompt"], exclude=tried | set(exclude))
+                    spec["prompt"], exclude=tried | set(exclude),
+                    adapter_id=spec["adapter_id"])
                 if rep is None and exclude and not relaxed:
                     # the just-failed replica may be the only one left
                     # standing: take it again rather than answer 503
                     relaxed = True
-                    rep, is_canary = self._pick_locked(spec["prompt"],
-                                                       exclude=tried)
+                    rep, is_canary = self._pick_locked(
+                        spec["prompt"], exclude=tried,
+                        adapter_id=spec["adapter_id"])
                 if rep is None:
                     break
                 if is_canary:
@@ -427,7 +463,8 @@ class EngineRouter:
                     spec["sampling"], seed=spec["seed"],
                     priority=spec["priority"],
                     deadline_s=spec["deadline_s"],
-                    arrival_id=rreq.arrival_id)
+                    arrival_id=rreq.arrival_id,
+                    adapter_id=spec["adapter_id"])
             except AdmissionError:
                 with self._lock:
                     if rep.canary is rreq:
@@ -459,11 +496,12 @@ class EngineRouter:
                sampling: SamplingOptions = SamplingOptions(),
                seed: int = 0, priority: int = 0,
                deadline_s: Optional[float] = None,
-               arrival_id: Optional[int] = None) -> RouterRequest:
+               arrival_id: Optional[int] = None,
+               adapter_id=None) -> RouterRequest:
         rreq = RouterRequest(self, dict(
             prompt=list(prompt), max_new_tokens=int(max_new_tokens),
             sampling=sampling, seed=int(seed), priority=int(priority),
-            deadline_s=deadline_s))
+            deadline_s=deadline_s, adapter_id=adapter_id))
         if arrival_id is not None:
             rreq.arrival_id = int(arrival_id)
         # requests_received is counted by the replica each attempt lands
@@ -473,9 +511,10 @@ class EngineRouter:
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
                  sampling: SamplingOptions = SamplingOptions(),
-                 seed: int = 0, timeout: Optional[float] = None):
-        return self.submit(prompt, max_new_tokens, sampling,
-                           seed).result(timeout)
+                 seed: int = 0, timeout: Optional[float] = None,
+                 adapter_id=None):
+        return self.submit(prompt, max_new_tokens, sampling, seed,
+                           adapter_id=adapter_id).result(timeout)
 
     def cancel(self, rreq: RouterRequest):
         rreq.cancel()
@@ -493,21 +532,108 @@ class EngineRouter:
                 pass
         return n
 
-    def prefix_peek(self, tokens: Sequence[int]) -> int:
-        return max(rep.engine.prefix_peek(tokens) for rep in self.replicas)
+    def prefix_peek(self, tokens: Sequence[int], adapter_id=None) -> int:
+        return max(rep.engine.prefix_peek(tokens, adapter_id)
+                   for rep in self.replicas)
 
     def adapter_peek(self, adapter_id) -> int:
-        raise NotImplementedError(_LATER.format("LoRA adapters"))
+        return max(rep.engine.adapter_peek(adapter_id)
+                   for rep in self.replicas)
 
     def register_adapter(self, adapter_id, path: Optional[str] = None,
                          factors=None, rank: Optional[int] = None,
                          alpha: float = 1.0):
-        raise NotImplementedError(_LATER.format("LoRA adapters"))
+        """Register on every replica, so a failover can resume an adapter
+        request anywhere (each bank loads it at first use)."""
+        for rep in self.replicas:
+            rep.engine.register_adapter(adapter_id, path=path,
+                                        factors=factors, rank=rank,
+                                        alpha=alpha)
 
     def rolling_upgrade(self, ckpt_dir: str,
                         swap_timeout_s: Optional[float] = None,
                         canary_timeout_s: float = 60.0):
-        raise NotImplementedError(_LATER.format("live weights"))
+        """Upgrade the fleet to `ckpt_dir` one replica at a time (router.py
+        rolling_upgrade): stage once, then for each replica drain (held
+        out of rotation), swap, canary and re-admit. A replica already
+        hard down is skipped. Returns the new WeightVersion; counts
+        `rolling_upgrades` on completion. Raises RollingUpgradeError on a
+        refusal (the fleet serves on); a staging refusal counts
+        `weight_swap_failures` once on the router."""
+        try:
+            staged = load_staged(ckpt_dir, self.replicas[0].engine.gen.params)
+        except WeightSwapError as e:
+            self.metrics.count("weight_swap_failures")
+            raise RollingUpgradeError(
+                f"rolling upgrade refused before any replica drained: {e}; "
+                "the fleet keeps serving") from e
+        version = None
+        for rep in self.replicas:
+            try:
+                h = rep.engine.health()
+            except Exception:  # noqa: BLE001 — unreachable is down
+                h = None
+            if h is None or h.get("circuit_breaker_open") \
+                    or not h.get("loop_alive", False):
+                print_rank_0(f"router: rolling upgrade skips replica "
+                             f"{rep.idx} (already down: "
+                             f"{(h or {}).get('detail', 'unreachable')})")
+                continue
+            with self._lock:
+                rep.upgrading = True
+                rep.state = DOWN
+                rep.canary = None
+            print_rank_0(f"router: rolling upgrade: replica {rep.idx} "
+                         "draining (its traffic fails over)")
+            try:
+                version = rep.engine.swap_weights(
+                    ckpt_dir, timeout=swap_timeout_s, staged=staged)
+            except Exception as e:
+                # the refused swap flipped nothing: the replica re-enters
+                # rotation through the half-open canary
+                with self._lock:
+                    rep.upgrading = False
+                    rep.state = DOWN
+                    rep.down_until = time.monotonic()
+                raise RollingUpgradeError(
+                    f"rolling upgrade aborted at replica {rep.idx}: {e}; "
+                    "the fleet keeps serving (upgraded replicas on the new "
+                    "version, this and later ones on the old)") from e
+            ok = self._canary_probe(rep, timeout=canary_timeout_s)
+            with self._lock:
+                rep.upgrading = False
+                if ok:
+                    rep.state = UP
+                    rep.last_healthy_t = time.monotonic()
+                else:
+                    rep.state = DOWN
+                    rep.down_until = time.monotonic() + self.probe_backoff_s
+            if not ok:
+                raise RollingUpgradeError(
+                    f"rolling upgrade aborted: replica {rep.idx} failed its "
+                    f"canary under {version.label}; it stays ejected "
+                    "(half-open re-admission applies) and the fleet keeps "
+                    "serving")
+            print_rank_0(f"router: replica {rep.idx} upgraded to "
+                         f"{version.label} and re-admitted (canary passed)")
+        if version is None:
+            raise RollingUpgradeError(
+                "rolling upgrade applied to no replica (every replica is "
+                "already down)")
+        self.metrics.count("rolling_upgrades")
+        return version
+
+    def _canary_probe(self, rep: _Replica, timeout: float = 60.0) -> bool:
+        """One canary on a just-swapped replica, submitted to its engine
+        directly (it is still out of rotation): a one-token greedy request
+        must complete and the replica must still accept."""
+        try:
+            req = rep.engine.submit([1], 1, SamplingOptions(temperature=0.0),
+                                    seed=0, deadline_s=max(timeout, 1.0))
+            req.result(timeout=timeout)
+            return bool(rep.engine.health().get("accepting"))
+        except Exception:  # noqa: BLE001 — any failure fails the canary
+            return False
 
     def affinity_digest(self) -> dict:
         raise NotImplementedError(_LATER.format("remote replicas"))
@@ -534,6 +660,9 @@ class EngineRouter:
                     "active_slots": int(h.get("active_slots", 0)),
                     "service_time_ewma_ms":
                         float(h.get("service_time_ewma_ms", 0.0)),
+                    # mixed versions are visible mid-rollout
+                    "weight_version": h.get("weight_version", "unversioned"),
+                    "upgrading": rep.upgrading,
                 })
         return {
             "healthy": up > 0,
@@ -554,11 +683,13 @@ class EngineRouter:
         retries, stream reconnects) added from its registry, and latency,
         rate and per-step keys as the worst replica's."""
         out = self.metrics.snapshot()
+        versions = []
         for rep in self.replicas:
             try:
                 snap = rep.engine.metrics.snapshot()
             except Exception:  # noqa: BLE001
                 continue
+            versions.append(float(snap.get("weight_version", 0.0)))
             for k in _BASE_COUNTERS + _SUM_GAUGES:
                 out[k] = out.get(k, 0.0) + snap.get(k, 0.0)
             for k, v in snap.items():
@@ -566,6 +697,11 @@ class EngineRouter:
                                                "slot_occupancy")
                                               + _MAX_GAUGES):
                     out[k] = max(out.get(k, 0.0), v)
+        # the weight version as the fleet's floor, with its spread: a fleet
+        # mid-rollout shows min < max on one scrape
+        out["weight_version_min"] = min(versions) if versions else 0.0
+        out["weight_version_max"] = max(versions) if versions else 0.0
+        out["weight_version"] = out["weight_version_min"]
         out["num_replicas"] = float(len(self.replicas))
         # the current rotation, not the last health() push
         out["fleet_replicas_up"] = float(

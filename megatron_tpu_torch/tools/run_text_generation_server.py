@@ -20,10 +20,18 @@ then split between them) behind the prefix-affinity router,
 and `--host_kv_bytes` demotes evicted ones to a host-RAM tier of that many
 bytes. `"stream": true` payloads are answered as server-sent events.
 
+LoRA serving: `--adapter_slots N --adapter_rank R` give the engine a bank
+of N adapters (`--adapter_host_bytes` of checksummed host overflow), and
+`--adapter_dir DIR` registers every `DIR/*.npz` export (finetune
+`--lora_rank`) at start, adapter_id = the file's stem; a payload's
+`"adapter_id"` selects one. Live weights: `--watch_checkpoints` polls the
+`--load` root's tracker and hot-swaps to each new publish
+(`--watch_interval_s`, `--swap_timeout_s`); `PUT /admin` swaps or
+registers on demand.
+
 The other flags of the JAX tool parse and raise NotImplementedError naming
 the ROADMAP item they wait for: `--fleet`, `--replica_mode` and the
-`--remote_*` flags, the `--adapter_*` flags, `--serving_tp`,
-`--disaggregate_prefill` and `--watch_checkpoints`.
+`--remote_*` flags, `--serving_tp` and `--disaggregate_prefill`.
 """
 from __future__ import annotations
 
@@ -96,16 +104,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_ttl_s", type=float, default=600.0,
                    help="seconds a finished SSE stream stays resumable "
                         "through Last-Event-ID")
+    p.add_argument("--adapter_slots", type=int, default=0,
+                   help="device-resident LoRA adapters served at once "
+                        "(0: no adapter bank)")
+    p.add_argument("--adapter_rank", type=int, default=8,
+                   help="the bank's rank; smaller exports zero-pad up")
+    p.add_argument("--adapter_host_bytes", type=int, default=0,
+                   help="host-RAM budget for evicted adapters "
+                        "(checksummed; 0: evictions drop)")
+    p.add_argument("--adapter_dir", type=str, default=None,
+                   help="directory of adapter .npz exports registered at "
+                        "start; adapter_id = file stem")
+    p.add_argument("--watch_checkpoints", action="store_true",
+                   help="poll --load's tracker and hot-swap to every "
+                        "newly published checkpoint")
+    p.add_argument("--watch_interval_s", type=float, default=5.0,
+                   help="tracker poll cadence for --watch_checkpoints")
+    p.add_argument("--swap_timeout_s", type=float, default=120.0,
+                   help="how long a hot swap waits for in-flight work "
+                        "before it is refused")
     # flags of later slices: they parse and raise
-    p.add_argument("--adapter_slots", type=int, default=0)
-    p.add_argument("--adapter_rank", type=int, default=8)
-    p.add_argument("--adapter_host_bytes", type=int, default=0)
-    p.add_argument("--adapter_dir", type=str, default=None)
     p.add_argument("--serving_tp", type=int, default=1)
     p.add_argument("--disaggregate_prefill", action="store_true")
-    p.add_argument("--watch_checkpoints", action="store_true")
-    p.add_argument("--watch_interval_s", type=float, default=5.0)
-    p.add_argument("--swap_timeout_s", type=float, default=120.0)
     p.add_argument("--replica_mode", action="store_true")
     p.add_argument("--fleet", type=str, default=None)
     p.add_argument("--remote_connect_timeout_s", type=float, default=2.0)
@@ -149,6 +169,9 @@ def build_server(argv=None, *, device: DeviceLike = None):
     """Parse `argv`, load the checkpoint and build the MegatronServer.
     Returns (server, args). Flags of later slices raise before any weight
     is read."""
+    import glob
+    import os
+
     import torch
 
     from megatron_tpu_torch.convert.from_jax import load_npz_checkpoint
@@ -157,18 +180,24 @@ def build_server(argv=None, *, device: DeviceLike = None):
     from megatron_tpu_torch.inference.server import MegatronServer
     from megatron_tpu_torch.ops.quantized import quantize_weights
     from megatron_tpu_torch.serving.kv_pool import fit_num_slots
+    from megatron_tpu_torch.serving.weights import checkpoint_version
+    from megatron_tpu_torch.training.checkpointing import tracked_dir
 
     p = build_parser()
     args = p.parse_args(argv)
-    if args.adapter_dir is not None:
-        raise NotImplementedError("--adapter_dir: LoRA adapters are ported "
-                                  "in a later slice (ROADMAP Queue 1 item 6)")
     serving_config(args, 8).validate()  # later slices' flags raise here
     if not args.load:
         p.error("--load is required")
+    if args.watch_checkpoints and args.int8_weights:
+        p.error("--watch_checkpoints is unsupported with --int8_weights "
+                "(serve fp weights to hot-swap them)")
+    if args.adapter_dir and (args.serial or args.adapter_slots <= 0):
+        p.error("--adapter_dir requires --adapter_slots > 0 and the "
+                "serving engine (drop --serial)")
     device = resolve_device(device)
 
     model, mcfg = load_npz_checkpoint(args.load, device)
+    version = checkpoint_version(tracked_dir(args.load))
     tokenizer = build_tokenizer(
         args.tokenizer_type, vocab_file=args.vocab_file,
         merge_file=args.merge_file, tokenizer_model=args.tokenizer_model)
@@ -192,7 +221,18 @@ def build_server(argv=None, *, device: DeviceLike = None):
             print_rank_0(f"serving: auto-sized num_slots={num_slots} "
                          "(override with --num_slots)")
     serving = serving_config(args, num_slots).validate(mcfg)
-    server = MegatronServer(gen, tokenizer, serving=serving, device=device)
+    server = MegatronServer(gen, tokenizer, serving=serving, device=device,
+                            weight_version=version)
+    if args.adapter_dir:
+        try:
+            for path in sorted(glob.glob(os.path.join(args.adapter_dir,
+                                                      "*.npz"))):
+                aid = os.path.splitext(os.path.basename(path))[0]
+                server.engine.register_adapter(aid, path=path)
+                print_rank_0(f"serving: registered adapter {aid!r} ({path})")
+        except BaseException:
+            server.close()
+            raise
     return server, args
 
 

@@ -27,6 +27,9 @@ every key and shape before it reads, then copies each leaf into the example
 state's tensors in place. The step's random draws derive from (seed,
 iteration) (training/loop.py), so no generator state is saved.
 
+`load_params_host` stages one checkpoint's parameters in host memory without
+the optimizer state (the live-weight swap's staging, serving/weights.py).
+
 Orbax checkpoints (`format_version` 2, a `state/` directory) exist only with
 JAX: reading one raises. Convert it on the JAX side with `load_params_host`
 and `save_checkpoint(backend="npz")`.
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import MegatronConfig, ResilienceConfig
+from megatron_tpu_torch.ops.quantized import W8
 from megatron_tpu_torch.resilience import integrity
 from megatron_tpu_torch.resilience.faults import fault_point
 from megatron_tpu_torch.resilience.retry import RetryPolicy, policy_from, retry
@@ -285,20 +289,20 @@ def _npz_shapes(path: str) -> dict:
     return shapes
 
 
-def _check_leaves(path: str, leaves: dict) -> None:
-    """Every key of `leaves` present in `path` with its shape, and no
-    other."""
+def _check_leaves(path: str, want: dict) -> None:
+    """Every key of `want` ({key: shape}) present in `path` with its shape,
+    and no other."""
     shapes = _npz_shapes(path)
-    missing = sorted(set(leaves) - set(shapes))
-    extra = sorted(set(shapes) - set(leaves))
+    missing = sorted(set(want) - set(shapes))
+    extra = sorted(set(shapes) - set(want))
     if missing or extra:
         raise KeyError(f"{path} does not match the model: missing "
                        f"{missing[:8]}, unexpected {extra[:8]}")
-    for key, t in leaves.items():
-        if tuple(shapes[key]) != tuple(t.shape):
+    for key, shape in want.items():
+        if tuple(shapes[key]) != tuple(shape):
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(shapes[key])} vs model "
-                             f"{tuple(t.shape)}")
+                             f"{tuple(shape)}")
 
 
 @torch.no_grad()
@@ -391,10 +395,10 @@ def _restore_from_dir(d: str, meta: dict, example_state: TrainState, *,
     opt_path = os.path.join(d, OPT_FILE)
     load_optim = load_optim and os.path.exists(opt_path)
     params = _param_leaves(example_state)
-    _check_leaves(params_path, params)
+    _check_leaves(params_path, _shapes(params))
     if load_optim:
         opt = _opt_leaves(example_state)
-        _check_leaves(opt_path, opt)
+        _check_leaves(opt_path, _shapes(opt))
     # every key and shape checked: only now is the example overwritten
     _copy_into(params_path, params)
     if load_optim:
@@ -433,6 +437,48 @@ def read_params(d: str) -> dict:
     _check_npz_format(d)
     with np.load(os.path.join(d, PARAMS_FILE)) as npz:
         return {k: npz[k] for k in npz.files}
+
+
+def _shapes(leaves: dict) -> dict:
+    return {k: tuple(t.shape) for k, t in leaves.items()}
+
+
+def tree_leaves(params) -> dict:
+    """{"a/b/c": leaf} of a LanguageModel or a parameter tree (JAX's
+    `_flatten` names); a W8 leaf (ops/quantized.py) stays one leaf."""
+    tree = params.tree() if hasattr(params, "tree") else params
+    out = {}
+
+    def walk(prefix, node):
+        if hasattr(node, "items"):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            out[prefix] = node
+    walk("", tree)
+    return out
+
+
+def example_shapes(example_params) -> dict:
+    """{"a/b/c": shape} of a LanguageModel or a parameter tree, a W8 leaf
+    counting as the float weight it quantizes."""
+    return {k: tuple((v.q if isinstance(v, W8) else v).shape)
+            for k, v in tree_leaves(example_params).items()}
+
+
+def load_params_host(ckpt_dir: str, example_params) -> dict:
+    """The parameters of one npz checkpoint dir staged in host memory
+    (checkpointing.py load_params_host): {"a/b/c": numpy array} in the
+    file's dtype (numpy has no bfloat16; the placement casts), every key
+    and shape checked against `example_params` before any array is read.
+    The optimizer state is never read and nothing touches a device. An
+    orbax checkpoint raises (ROADMAP Queue 1 item 2)."""
+    _check_npz_format(ckpt_dir)
+    path = os.path.join(ckpt_dir, PARAMS_FILE)
+    want = example_shapes(example_params)
+    _check_leaves(path, want)
+    with np.load(path) as npz:
+        return {k: npz[k] for k in want}
 
 
 def load_config_from_checkpoint(root: str) -> Optional[MegatronConfig]:

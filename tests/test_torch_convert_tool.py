@@ -254,11 +254,11 @@ def test_cli_server_greedy_equals_jax_generator(converted, monkeypatch):
     (["--fleet", "127.0.0.1:1"], "Queue 1 item 6"),
     (["--replica_mode"], "Queue 1 item 6"),
     (["--remote_max_retries", "3"], "Queue 1 item 6"),
-    (["--adapter_slots", "2"], "Queue 1 item 6"),
-    (["--adapter_dir", "adapters"], "Queue 1 item 6"),
+    (["--remote_connect_timeout_s", "5"], "Queue 1 item 6"),
+    (["--remote_read_timeout_s", "60"], "Queue 1 item 6"),
     (["--serving_tp", "2"], "Queue 1 item 7"),
     (["--disaggregate_prefill"], "Queue 1 item 7"),
-    (["--watch_checkpoints"], "Queue 1 item 6"),
+    (["--remote_digest_interval_s", "5"], "Queue 1 item 6"),
 ])
 def test_unported_server_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -199,7 +199,7 @@ def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
 
 def test_later_slice_fields_raise():
     for kw in (dict(degrade_ladder=2), dict(serving_tp=2),
-               dict(fleet="127.0.0.1:1"), dict(adapter_slots=2)):
+               dict(fleet="127.0.0.1:1"), dict(replica_mode=True)):
         with pytest.raises(NotImplementedError):
             ServingConfig(**kw).validate()
     with pytest.raises(ValueError, match="divide"):

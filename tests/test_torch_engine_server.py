@@ -128,13 +128,17 @@ LATER = {
     "adapter_id": {"prompts": ["hi"], "adapter_id": "a"},
     "prompt_tokens": {"prompt_tokens": [[5, 6]]},
 }
+# the fields whose slice has come: still a 400 on this adapterless engine,
+# now saying why
+LATER_PORTED = {"adapter_id": "serving no adapters"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER))
 def test_later_slice_fields_are_400(block_server, name):
     _, port = block_server
     status, body, _ = _put(port, LATER[name])
-    assert status == 400 and "later slice" in body["message"]
+    assert status == 400
+    assert LATER_PORTED.get(name, "later slice") in body["message"]
 
 
 def _open_stream(port, payload):

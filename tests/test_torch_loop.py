@@ -350,7 +350,7 @@ def test_exit_interval_and_sigterm_match_jax(corpus, monkeypatch, tmp_path):
     ["--sequence_parallel"], ["--use_distributed_optimizer"],
     ["--recompute_granularity", "full"], ["--recompute_activations"],
     ["--recompute_method", "uniform"], ["--recompute_num_layers", "1"],
-    ["--lora_rank", "8"]])
+    ["--recompute_granularity", "selective"]])
 def test_unported_flags_raise(corpus, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         finetune.main(_argv(corpus, *flags), device="cpu")
