@@ -214,12 +214,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    merged-weights serial Generators; a swap driven by
    CheckpointWatcher.poll_once under load gives the serial N before it and
    N+1 after; a corrupt publish is refused once and not retried.
+14. Structured output, n-best fan-out and the brownout ladder
+   (`phase_structured_degrade`): Llama-2-7B at full width and depth, 8
+   slots, 16-token blocks, the block kernel, each request prefilled alone,
+   grammars over the byte-level identity table of 32,000 tokens (the
+   TokenFSM compile seconds printed). (a) tools/bench_structured.py's free
+   arm, then the same 8 requests under a regex and under a JSON-schema
+   grammar: every completion FSM-legal and parsed, `mask_uploads` against
+   the decode steps, tokens/s, TTFT and inter-token p50 of each arm, the
+   block kernel held on the live masked grid. (b) an n=4 fan-out on an
+   unseen prompt: its flash launches one prefill's (32), 3 alias hits, the
+   pool's books back to baseline, each sample equal to its n=1 twin (run on
+   a second engine over the same weights). (c) constrained requests on a
+   speculative engine: masked verify rounds at w 5, the block kernel held
+   on one. (d) tools/chaos_storm.py, one seed, 0.5x/1x/2x of the rate a
+   calibration sustains, the ladder at 4 rungs: laws 8-11 and the
+   structural sweep, the level rising and back at 0. (e) a 2-layer fp32
+   slice: constrained streams equal the masked serial oracle with
+   speculation off and on, fp32 and int8 pools; fan-out samples equal
+   serial n=1 generates; rung 2's clamp and rung 1 mid-stream change no
+   token; tools/chaos_serve.py's three drills and tools/chaos_upgrade.py's
+   drills 1-2, each ending in a strict invariant sweep.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-13
-too, the block kernel's on phases 9 and 11-13 too, its verify rounds at
-w 5 on phases 11 and 13) and, last, {"ok": true, "device": ...}.
+the norm kernels' on every path above, the flash kernels' on phases 8-14
+too, the block kernel's on phases 9 and 11-14 too, its verify rounds at
+w 5 on phases 11, 13 and 14) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -6802,6 +6823,500 @@ def phase_lora_live(smi: str) -> dict:
     return stats
 
 
+# Phase 14, structured output, n-best fan-out and the brownout ladder with
+# its SLO accounting. (a)-(d): Llama-2-7B at full width and depth (random
+# bf16 weights, seed STRUCT_SEED), 8 slots, 16-token blocks, the block
+# kernel, each request prefilled alone (`prefill_max_batch=1`), the
+# grammars composed over the byte-level identity table
+# (`default_token_strings(32000)`: token i is chr(i)), every prompt made of
+# identity tokens. Launch counts are zeroed before each part and read after
+# it.
+STRUCT_SEED = 0
+STRUCT_SERVING = dict(ENGINE_SERVING, prefill_max_batch=1)
+STRUCT_REQUESTS = 8
+STRUCT_PROMPT = 160
+STRUCT_NEW = 32
+FANOUT_N = 4
+FANOUT_PROMPT = 200   # not a multiple of the 16-token block
+FANOUT_NEW = 32
+FANOUT_SEED = 7
+STRUCT_SPEC_REQUESTS = 8
+STRUCT_SPEC_NEW = 24
+STRUCT_SPEC_GRAMMAR = {"type": "regex", "pattern": "[0-9]{8,24}"}
+STORM_SEED = 17
+STORM_REQUESTS = 24
+STORM_NEW = 8
+STORM_SERVING = dict(num_slots=8, max_queue=16, kv_block_size=16,
+                     block_native_attn=True)
+SLICE_REQUESTS_NEW = 24
+
+
+def id_tokens(text: str) -> list[int]:
+    """Identity-table token ids of an ASCII text (token i is chr(i))."""
+    return [ord(c) for c in text]
+
+
+def structured_engine(gen, token_strings, **fields):
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.serving import ServingEngine
+    return ServingEngine(gen, ServingConfig(**dict(STRUCT_SERVING,
+                                                   **fields)),
+                         token_strings=token_strings)
+
+
+def block_capture(captures, want_w: int, min_active: int = 6):
+    """A stand-in for the block kernel's wrapper that copies the inputs of
+    its first call at w `want_w` made while `captures["engine"]` holds at
+    least `min_active` running slots under a grammar mask, then launches."""
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+
+    def recording(q, k_arena, v_arena, block_map, lengths, **kw):
+        eng = captures.get("engine")
+        key = f"w{q.shape[1]}"
+        if (eng is not None and q.shape[1] == want_w and key not in captures
+                and int((eng._mask_state >= 0).sum()) >= min_active):
+            captures[key] = dict(q=q.clone(), k=k_arena.clone(),
+                                 v=v_arena.clone(), map=block_map.clone(),
+                                 lengths=lengths.clone(), kw=kw)
+        return block_attention_cuda(q, k_arena, v_arena, block_map,
+                                    lengths, **kw)
+    return recording
+
+
+def hold_block_capture(c: dict, what: str) -> dict:
+    """The block kernel on a captured live state against its plain
+    version (not counted: callers read their counts before)."""
+    import torch
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    got = block_attention_cuda(c["q"], c["k"], c["v"], c["map"],
+                               c["lengths"], **c["kw"])
+    ref = ba.block_attention_reference(c["q"], c["k"], c["v"], c["map"],
+                                       c["lengths"], scale=c["kw"]["scale"])
+    err = (got.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = live_tol(BLOCK_LIVE_TOL, ref_max)
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"block kernel on {what}: err {err} (tol {tol})")
+    return dict(w=int(c["q"].shape[1]), max_abs_err=err, tol=tol,
+                max_abs_ref=ref_max, lengths=c["lengths"].tolist())
+
+
+def structured_arms(gen, token_strings, L) -> dict:
+    """(a): tools/bench_structured.py's constrained arm against its free
+    arm, a regex and a JSON-schema grammar, on one engine; the block kernel
+    held on the live masked grid."""
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    from megatron_tpu_torch.tools import bench_structured as bs
+    prompts = [id_tokens(prompt_text(STRUCT_PROMPT, 40 + i))
+               for i in range(STRUCT_REQUESTS)]
+    engine = structured_engine(gen, token_strings)
+    captures = {"engine": engine}
+    try:
+        engine.generate(prompts[0][:32], 4, greedy(), timeout=600)
+        wait_idle(engine)
+        engine.metrics = ServingMetrics()
+        zero_counts()
+        ba.block_attention_cuda = block_capture(captures, 1)
+        try:
+            arm = bs.arm_constrained_vs_free(engine, prompts, STRUCT_NEW,
+                                             token_strings=token_strings)
+        finally:
+            ba.block_attention_cuda = block_attention_cuda
+        snap = settle(engine)
+        counts = read_counts()
+    finally:
+        captures.pop("engine", None)
+        engine.close()
+    check(arm["ok"], f"bench_structured constrained arm: {arm}")
+    check(counts["block_attention_cuda"] == L * snap["decode_steps"],
+          f"structured: {counts['block_attention_cuda']} block launches in "
+          f"{snap['decode_steps']} steps of {L} layers")
+    check(counts["flash_fwd_cuda"] == L * snap["prefill_calls"],
+          f"structured: {counts['flash_fwd_cuda']} flash launches for "
+          f"{snap['prefill_calls']} prefills of {L} layers")
+    check("w1" in captures, "structured: no block call with 6 masked slots")
+    arm["live_block_w1"] = hold_block_capture(captures.pop("w1"),
+                                              "the live masked grid (w 1)")
+    arm["launches"] = counts
+    return arm
+
+
+def pool_books(engine) -> tuple:
+    """(references held, free blocks, shared blocks) of the pool, the
+    trash block aside."""
+    acct = engine.pool.accounting()
+    rc = [int(r) for b, r in enumerate(acct["rc"]) if b != acct["trash"]]
+    return (sum(rc), len(acct["free_blocks"]),
+            engine.pool.shared_block_count())
+
+
+def fanout_arm(gen, token_strings, L) -> dict:
+    """(b): one n=4 fan-out on a prompt the engine has not seen (its flash
+    launches one prefill's, the siblings aliasing the leader's blocks, the
+    pool's books back to their baseline), then its four n=1 twins one after
+    another on a second engine over the same weights; each sample equals its
+    twin. A twin on the fan-out's own engine would hit the retained prompt
+    and forward its last prompt token on the dot path, where the leader
+    took the flash prefill: bf16 logits that differ in the last bits."""
+    from megatron_tpu_torch.serving import SamplingOptions
+    sampling = SamplingOptions(temperature=0.8, top_k=8)
+    prompt = id_tokens(prompt_text(FANOUT_PROMPT, 77))
+    hit = (len(prompt) - 1) // 16 * 16
+    engine = structured_engine(gen, token_strings, enable_prefix_cache=True,
+                               retained_slots=0)
+    try:
+        engine.generate(id_tokens(prompt_text(40, 3)), 4, greedy(),
+                        timeout=600)
+        wait_idle(engine)
+        settle(engine)
+        books0 = pool_books(engine)
+        snap0 = engine.metrics.snapshot()
+        zero_counts()
+        t0 = time.perf_counter()
+        agg = engine.submit(prompt, FANOUT_NEW, sampling, seed=FANOUT_SEED,
+                            n=FANOUT_N, best_of=FANOUT_N)
+        agg.result(timeout=1800)
+        fan_wall = time.perf_counter() - t0
+        snap = settle(engine)
+        counts = read_counts()
+        deadline = time.monotonic() + 30
+        while pool_books(engine) != books0:
+            check(time.monotonic() < deadline,
+                  f"fan-out: the pool's books {pool_books(engine)} did not "
+                  f"return to {books0}")
+            time.sleep(0.05)
+        samples = [c.prompt + c.generated for c in agg.children]
+        ttft = [c.ttft * 1e3 for c in agg.children]
+    finally:
+        engine.close()
+    d = {k: snap[k] - snap0[k] for k in (
+        "prefix_hits", "prefill_tokens_saved", "prefill_forward_tokens",
+        "fanout_requests", "fanout_samples", "requests_received")}
+    check(counts["flash_fwd_cuda"] == L,
+          f"fan-out: {counts['flash_fwd_cuda']} flash launches, not one "
+          f"prefill's {L}")
+    check(d["prefix_hits"] == FANOUT_N - 1
+          and d["prefill_tokens_saved"] == (FANOUT_N - 1) * hit,
+          f"fan-out: siblings did not alias the leader's blocks: {d}")
+    check(d["fanout_requests"] == 1 and d["fanout_samples"] == FANOUT_N
+          and d["requests_received"] == FANOUT_N, f"fan-out counters: {d}")
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    twins_engine = structured_engine(gen, token_strings,
+                                     enable_prefix_cache=True)
+    try:
+        t0 = time.perf_counter()
+        twins = [twins_engine.submit(prompt, FANOUT_NEW, sampling,
+                                     seed=FANOUT_SEED + i
+                                     ).result(timeout=1800)[0]
+                 for i in range(FANOUT_N)]
+        twin_wall = time.perf_counter() - t0
+    finally:
+        twins_engine.close()
+    equal = sum(a == b for a, b in zip(samples, twins))
+    check(equal == FANOUT_N,
+          f"fan-out: {equal} of {FANOUT_N} samples equal their n=1 twins")
+    gen_tokens = FANOUT_N * FANOUT_NEW
+    return dict(n=FANOUT_N, prompt=len(prompt), counters=d,
+                flash_launches=counts["flash_fwd_cuda"],
+                block_launches=counts["block_attention_cuda"],
+                pool_books=list(books0), samples_equal_twins=equal,
+                fanout_wall_s=fan_wall, twins_wall_s=twin_wall,
+                fanout_tokens_per_s=gen_tokens / fan_wall,
+                twins_tokens_per_s=gen_tokens / twin_wall,
+                fanout_ttft_ms=ttft, launches=counts)
+
+
+def structured_spec(gen, token_strings, L) -> dict:
+    """(c): constrained greedy requests on a speculative engine (k SPEC_K):
+    verify rounds at w SPEC_K + 1 under per-position grammar masks, the
+    block kernel held on one; every completion FSM-legal."""
+    from megatron_tpu_torch.ops import block_attention as ba
+    from megatron_tpu_torch.ops.block_attention_cuda import \
+        block_attention_cuda
+    from megatron_tpu_torch.serving.structured import \
+        compile_response_format
+    fsm = compile_response_format(STRUCT_SPEC_GRAMMAR, gen.cfg.vocab_size,
+                                  token_strings=token_strings,
+                                  eos_id=gen.eos_id)
+    # digits repeating a span: the drafter proposes digit continuations,
+    # legal under the grammar
+    prompts = [id_tokens(("".join(str((i * 7 + j * 3) % 10)
+                                  for j in range(5)) * 40)[:STRUCT_PROMPT])
+               for i in range(STRUCT_SPEC_REQUESTS)]
+    engine = structured_engine(gen, token_strings, speculative_k=SPEC_K)
+    captures = {"engine": engine}
+    ba.block_attention_cuda = block_capture(captures, SPEC_K + 1)
+    try:
+        zero_counts()
+        reqs = [engine.submit(p, STRUCT_SPEC_NEW, greedy(),
+                              response_format=STRUCT_SPEC_GRAMMAR)
+                for p in prompts]
+        outs = [r.result(timeout=1800)[0] for r in reqs]
+        snap = settle(engine)
+        counts = read_counts()
+    finally:
+        ba.block_attention_cuda = block_attention_cuda
+        captures.pop("engine", None)
+        engine.close()
+    legal = all(fsm.replay(o[len(p):])[0] for o, p in zip(outs, prompts))
+    check(legal, "structured verify: an illegal token was committed")
+    check(snap["spec_rounds"] > 0, "structured verify: no verify round ran")
+    check(counts["block_attention_cuda"] == L * snap["decode_steps"],
+          f"structured verify: {counts['block_attention_cuda']} block "
+          f"launches in {snap['decode_steps']} rounds and steps")
+    key = f"w{SPEC_K + 1}"
+    check(key in captures, "structured verify: no masked verify round "
+          "with 6 grammar rows was captured")
+    return dict(spec_rounds=snap["spec_rounds"],
+                spec_fallback_steps=snap["spec_fallback_steps"],
+                draft_tokens=snap["draft_tokens"],
+                accepted_tokens=snap["accepted_tokens"],
+                mask_uploads=snap["mask_uploads"],
+                block_launches=counts["block_attention_cuda"],
+                outputs_legal=legal,
+                live_block_verify=hold_block_capture(
+                    captures.pop(key), f"a masked verify round (w "
+                                       f"{SPEC_K + 1})"),
+                launches=counts)
+
+
+def storm_arms(gen, L) -> dict:
+    """(d): tools/chaos_storm.py, one seed, three arms at 0.5x, 1x and 2x
+    of the rate a calibration on the card sustains, the ladder at 4 rungs,
+    judged by laws 8-11 and the structural sweep (the serial-oracle law
+    off: a bf16 model's batched tokens need not equal its batch-1 ones)."""
+    from megatron_tpu_torch.tools import chaos_storm
+    zero_counts()
+    rec = chaos_storm.run_one(STORM_SEED, (), n_requests=STORM_REQUESTS,
+                              new_tokens=STORM_NEW, gen=gen,
+                              check_tokens=False,
+                              serving_overrides=STORM_SERVING)
+    counts = read_counts()
+    check(rec["ok"], f"storm: {rec['violations']} (repro: {rec['repro']})")
+    check(rec["degrade_peak"] >= 1 and rec["degrade_final"] == 0,
+          f"storm: the level series peaked at {rec['degrade_peak']} and "
+          f"ended at {rec['degrade_final']}")
+    levels = rec.pop("levels")
+    # the polled series, runs of one level as (level, samples)
+    runs = []
+    for lv in levels:
+        if runs and runs[-1][0] == lv:
+            runs[-1][1] += 1
+        else:
+            runs.append([lv, 1])
+    rec["level_runs"] = runs
+    rec["launches"] = counts
+    return rec
+
+
+def check_structured_slice() -> dict:
+    """(e): a 2-layer fp32 slice of the 7B width (TF32 off). Constrained
+    greedy streams equal the host-driven masked serial oracle
+    (bench_structured.masked_serial_oracle) with speculation off and on, on
+    an fp32 and an int8 pool; fan-out samples equal serial n=1 generates at
+    seed + i; a rung-2 clamp gives the serial output of the effective
+    config; rung 1 switched on mid-stream changes no token; then
+    tools/chaos_serve.py's three drills (over this slice) and
+    tools/chaos_upgrade.py's drills 1-2 (over the tools' tiny model) on the
+    card, each ending in a strict invariant sweep."""
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import (Generator,
+                                                         SamplingParams)
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.serving import SamplingOptions
+    from megatron_tpu_torch.serving.structured import (
+        compile_response_format, default_token_strings)
+    from megatron_tpu_torch.tools import chaos_serve, chaos_upgrade
+    from megatron_tpu_torch.tools.bench_structured import (
+        GRAMMAR, SCHEMA, masked_serial_oracle)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32")
+    strings = default_token_strings(cfg.vocab_size)
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1)
+    gen = Generator(model, cfg, eos_id=-1, pad_id=0,
+                    kv_cache_dtype=torch.float32)
+    digits = {"type": "regex", "pattern": "[0-9]{6,16}"}
+    cases = [(id_tokens(prompt_text(100 + 20 * i, 90 + i)), rf)
+             for i, rf in enumerate((GRAMMAR, SCHEMA, digits))]
+    cases.append((id_tokens("1212121212" * 8), digits))
+    fsms = [compile_response_format(rf, cfg.vocab_size,
+                                    token_strings=strings, eos_id=-1)
+            for _, rf in cases]
+    out = {}
+    for kv in ("float32", "int8"):
+        oracle_gen = Generator(model, cfg, eos_id=-1, pad_id=0,
+                               kv_cache_dtype=getattr(torch, kv))
+        want = [masked_serial_oracle(oracle_gen, p, SLICE_REQUESTS_NEW, f)
+                for (p, _), f in zip(cases, fsms)]
+        for k in (0, SPEC_K):
+            engine = structured_engine(gen, strings, kv_dtype=kv,
+                                       speculative_k=k)
+            try:
+                reqs = [engine.submit(p, SLICE_REQUESTS_NEW, greedy(),
+                                      response_format=rf)
+                        for p, rf in cases]
+                reqs.append(engine.submit(cases[0][0], 8, greedy()))
+                got = [r.result(timeout=600)[0] for r in reqs]
+                snap = engine.metrics.snapshot()
+            finally:
+                engine.close()
+            for (p, rf), g, w in zip(cases, got, want):
+                check(g[len(p):] == w,
+                      f"fp32 slice, {kv} pool, speculative_k {k}: a "
+                      f"constrained stream ({rf}) differs from the masked "
+                      "serial oracle")
+            out[f"{kv}_k{k}"] = dict(mask_uploads=snap["mask_uploads"],
+                                     spec_rounds=snap["spec_rounds"],
+                                     accepted_tokens=snap["accepted_tokens"])
+    # fan-out against serial n=1 generates
+    sampling = SamplingOptions(temperature=0.8, top_k=8)
+    prompt = id_tokens(prompt_text(FANOUT_PROMPT, 5))
+    engine = structured_engine(gen, strings, enable_prefix_cache=True)
+    try:
+        agg = engine.submit(prompt, 16, sampling, seed=FANOUT_SEED, n=3,
+                            best_of=3)
+        agg.result(timeout=600)
+        fan_hits = engine.metrics.snapshot()["prefix_hits"]
+    finally:
+        engine.close()
+    for i, c in enumerate(agg.children):
+        t, lens, _ = gen.generate([prompt], 16, SamplingParams(
+            temperature=0.8, top_k=8), seed=FANOUT_SEED + i)
+        check(c.prompt + c.generated == t[0, :lens[0]].tolist(),
+              f"fp32 slice: fan-out sample {i} differs from the serial "
+              "n=1 generate at its seed")
+    out["fanout"] = dict(samples=3, prefix_hits=fan_hits)
+    # rung 2's clamp and rung 1 mid-stream
+    hold = dict(degrade_ladder=4, degrade_dwell_down=10 ** 9,
+                degrade_max_new_tokens=4)
+    engine = structured_engine(gen, strings, speculative_k=SPEC_K, **hold)
+    try:
+        p = cases[3][0]
+        engine.degrade.level = 2
+        r = engine.submit(p, 16, greedy())
+        clamped = r.result(timeout=600)[0]
+        t, lens, _ = gen.generate([p], 4, SamplingParams(temperature=0.0))
+        check(r.max_new_tokens == 4 and clamped == t[0, :lens[0]].tolist(),
+              "fp32 slice: rung 2's clamp is not the serial run of the "
+              "effective config")
+        engine.degrade.level = 0
+        r = engine.submit(p, 40, greedy())
+        while len(r.generated) < 8 and not r.done():
+            time.sleep(0.001)
+        engine.degrade.level = 1
+        switched_at = len(r.generated)
+        toks = r.result(timeout=600)[0]
+        t, lens, _ = gen.generate([p], 40, SamplingParams(temperature=0.0))
+        check(switched_at < 40 and toks == t[0, :lens[0]].tolist(),
+              "fp32 slice: rung 1 switched mid-stream changed a token")
+        snap = engine.metrics.snapshot()
+    finally:
+        engine.close()
+    out["rungs"] = dict(clamped_to=4, rung1_switched_at=switched_at,
+                        spec_rounds=snap["spec_rounds"])
+    del gen, model
+    torch.cuda.empty_cache()
+    slice_model = LanguageModel(cfg, dtype=torch.float32, seed=2)
+    slice_gen = Generator(slice_model, cfg, eos_id=-1, pad_id=0,
+                          kv_cache_dtype=torch.float32)
+    serve = chaos_serve.run_chaos(16, 1.0, 2.5, spec_k=SPEC_K,
+                                  gen=slice_gen)
+    del slice_gen, slice_model
+    torch.cuda.empty_cache()
+    check(serve["completed"], "chaos_serve on the card: " + json.dumps(
+        {k: serve[k]["ok"] for k in ("overload", "hang", "crash_loop")}))
+    upgrade = chaos_upgrade.run_chaos(8)
+    check(upgrade["completed"], "chaos_upgrade on the card: " + json.dumps(
+        {k: upgrade[k]["ok"] for k in ("kill_draining", "corrupt_watch")}))
+    out["chaos_serve"] = {k: {kk: serve[k][kk] for kk in (
+        "ok", "invariants_ok")} for k in ("overload", "hang", "crash_loop")}
+    out["chaos_serve"]["hang_recovery_s"] = serve["hang"]["recovery_s"]
+    out["chaos_upgrade"] = {k: {kk: upgrade[k][kk] for kk in (
+        "ok", "invariants_ok")} for k in ("kill_draining", "corrupt_watch")}
+    out["allow_tf32"] = False
+    return out
+
+
+def phase_structured_degrade(smi: str) -> dict:
+    """Phase 14: (a) constrained against free, (b) an n=4 fan-out against
+    its n=1 twins, (c) constrained verify rounds and (d) a load storm on
+    Llama-2-7B at full width and depth, launch counts zeroed before each
+    part and read after it; (e) the 2-layer fp32 slice."""
+    import gc
+
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.serving.structured import default_token_strings
+    from megatron_tpu_torch.tools.bench_structured import (GRAMMAR, SCHEMA,
+                                                          compile_seconds)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "phase 14: phase 13's model was not freed")
+    t_phase = time.perf_counter()
+    cfg = llama2_config("7b")
+    strings = default_token_strings(cfg.vocab_size)
+    stats = dict(card=smi)
+    stats["fsm_compile_s"] = {
+        name: compile_seconds(rf, cfg.vocab_size, strings, -1)[1]
+        for name, rf in (("regex", GRAMMAR), ("json_schema", SCHEMA))}
+    log("structured/degrade: TokenFSM compile seconds at V "
+        f"{cfg.vocab_size} (host): {json.dumps(stats['fsm_compile_s'])}")
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=STRUCT_SEED)
+    gen = Generator(model, cfg, eos_id=-1, pad_id=0)
+    L = cfg.num_layers
+    try:
+        for name, fn in (
+                ("structured", lambda: structured_arms(gen, strings, L)),
+                ("fanout", lambda: fanout_arm(gen, strings, L)),
+                ("verify", lambda: structured_spec(gen, strings, L)),
+                ("storm", lambda: storm_arms(gen, L))):
+            t0 = time.perf_counter()
+            stats[name] = fn()
+            stats[name]["seconds"] = time.perf_counter() - t0
+            log(f"structured/degrade ({name}, {smi}): "
+                + json.dumps(stats[name]))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        del gen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats["slice"] = check_structured_slice()
+    stats["slice"]["seconds"] = time.perf_counter() - t0
+    log(f"structured/degrade slice (fp32, 2 layers, {smi}): "
+        + json.dumps(stats["slice"]))
+    total = {}
+    for part in ("structured", "fanout", "verify", "storm"):
+        for k, v in stats[part]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    stats["launches"] = dict(flash_fwd=total["flash_fwd_cuda"],
+                             block_attn=total["block_attention_cuda"])
+    stats["norm_launches"] = {k: v for k, v in total.items()
+                              if k.startswith(("rms_", "ln_"))}
+    check(all(v > 0 for v in stats["launches"].values()),
+          f"phase 14 launches: {stats['launches']}")
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6878,6 +7393,9 @@ def main(argv=None) -> int:
         log(f"front door: phase 12 took {front_stats['seconds']:.1f} s")
         lora_stats = phase_lora_live(smi)
         log(f"lora/live: phase 13 took {lora_stats['seconds']:.1f} s")
+        struct_stats = phase_structured_degrade(smi)
+        log(f"structured/degrade: phase 14 took "
+            f"{struct_stats['seconds']:.1f} s")
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6902,6 +7420,8 @@ def main(argv=None) -> int:
     front_counts = front_stats["launches"]
     # phase 13's parts, each counted from zero
     lora_counts = lora_stats["launches"]
+    # phase 14's parts (a)-(d), each counted from zero
+    struct_counts = struct_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -6928,7 +7448,8 @@ def main(argv=None) -> int:
               + window_counts["flash_fwd_cuda"]
               + feature_counts["flash_fwd"]
               + front_counts["flash_fwd"]
-              + lora_counts["flash_fwd"], "fwd",
+              + lora_counts["flash_fwd"]
+              + struct_counts["flash_fwd"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -6943,7 +7464,10 @@ def main(argv=None) -> int:
                   window_supervisor=window_counts["flash_fwd_cuda"],
                   engine_features=feature_counts["flash_fwd"],
                   front_door=front_counts["flash_fwd"],
-                  lora_live=lora_counts["flash_fwd"]),
+                  lora_live=lora_counts["flash_fwd"],
+                  structured_degrade=struct_counts["flash_fwd"],
+                  structured_degrade_fanout=struct_stats["fanout"][
+                      "flash_launches"]),
                    window_shape=dict(shape=WINDOW_SHAPE, **{
                        k: window_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -6998,7 +7522,8 @@ def main(argv=None) -> int:
                   + tool_counts["block_attention_cuda"]
                   + feature_counts["block_attn"]
                   + front_counts["block_attn"]
-                  + lora_counts["block_attn"]),
+                  + lora_counts["block_attn"]
+                  + struct_counts["block_attn"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
@@ -7007,7 +7532,10 @@ def main(argv=None) -> int:
             engine_features=feature_counts["block_attn"],
             front_door=front_counts["block_attn"],
             lora_live=lora_counts["block_attn"],
+            structured_degrade=struct_counts["block_attn"],
             lora_live_verify_rounds=lora_stats["serving"]["verify"][
+                "spec_rounds"],
+            structured_degrade_verify_rounds=struct_stats["verify"][
                 "spec_rounds"],
             engine_features_verify_rounds=sum(
                 feature_stats["speculative"][arm]["spec_rounds"]
@@ -7020,6 +7548,8 @@ def main(argv=None) -> int:
         live_failover_check=front_stats["failover"]["live_state_check"],
         live_adapter_checks=[lora_stats["serving"][k] for k in (
             "live_block_w1", f"live_block_w{SPEC_K + 1}")],
+        live_masked_checks=[struct_stats["structured"]["live_block_w1"],
+                            struct_stats["verify"]["live_block_verify"]],
         max_abs_err=block_main["max_abs_err"], ms=block_main["ms"],
         kernel_ms=block_main["ms"], plain_ms=block_main["plain_ms"],
         bound_ms=block_main["bound_ms"], bound_by=block_main["bound_by"],
@@ -7036,7 +7566,8 @@ def main(argv=None) -> int:
                       pretrain=pretrain_stats, toolchain=toolchain_stats,
                       window_supervisor=window_stats,
                       engine_features=feature_stats,
-                      front_door=front_stats, lora_live=lora_stats)
+                      front_door=front_stats, lora_live=lora_stats,
+                      structured_degrade=struct_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -292,14 +292,6 @@ SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # ServingConfig fields the continuous-batching engine does not run yet,
 # each with the later slice that brings it (ROADMAP Queue 1 items 6-7)
 _LATER_SERVING = {
-    "degrade_ladder": "the degrade ladder (Queue 1 item 6)",
-    "degrade_raise_at": "the degrade ladder (Queue 1 item 6)",
-    "degrade_hysteresis": "the degrade ladder (Queue 1 item 6)",
-    "degrade_dwell_up": "the degrade ladder (Queue 1 item 6)",
-    "degrade_dwell_down": "the degrade ladder (Queue 1 item 6)",
-    "degrade_max_new_tokens": "the degrade ladder (Queue 1 item 6)",
-    "slo_ttft_ms": "the degrade ladder (Queue 1 item 6)",
-    "slo_itl_p99_ms": "the degrade ladder (Queue 1 item 6)",
     "serving_tp": "the serving topology (Queue 1 item 7)",
     "disaggregate_prefill": "the serving topology (Queue 1 item 7)",
     "prefill_tp": "the serving topology (Queue 1 item 7)",
@@ -342,11 +334,15 @@ class ServingConfig:
     (with the prefix cache on a block pool); LoRA serving: `adapter_slots`
     adapters of rank `adapter_rank` in a device bank (within
     `adapter_max_bank_bytes`) with `adapter_host_bytes` of checksummed
-    host overflow; and live weights: `swap_timeout_s` (the hot swap's
+    host overflow; live weights: `swap_timeout_s` (the hot swap's
     drain budget) and the checkpoint watcher (`watch_checkpoints`, polled
-    every `watch_interval_s`). `validate()`
+    every `watch_interval_s`); and the brownout ladder (`degrade_ladder`
+    rungs at `degrade_raise_at` pressures, `degrade_hysteresis`,
+    `degrade_dwell_up`/`_down`, rung 2's `degrade_max_new_tokens`) with
+    the SLO accounting (`slo_ttft_ms`, `slo_itl_p99_ms`). `validate()`
     raises NotImplementedError for any other field set away from its
-    default, naming the later slice (ROADMAP Queue 1 items 6 and 7)."""
+    default: the serving topology (ROADMAP Queue 1 item 7) and remote
+    replicas (item 6)."""
 
     num_slots: int = 8
     max_queue: int = 64
@@ -436,6 +432,47 @@ class ServingConfig:
                 raise NotImplementedError(
                     f"ServingConfig.{name}={getattr(self, name)!r}: "
                     f"{slice_name} is ported in a later slice")
+        # the brownout ladder (serving/degrade.py): its shape fails here,
+        # at config time, not mid-storm
+        if not 0 <= self.degrade_ladder <= 4:
+            raise ValueError(f"degrade_ladder={self.degrade_ladder} must be "
+                             "in 0..4 (0 disables; 4 is the full brownout "
+                             "ladder)")
+        if self.degrade_raise_at is not None:
+            if not self.degrade_ladder:
+                raise ValueError(
+                    "degrade_raise_at without degrade_ladder is inert: set "
+                    "degrade_ladder >= 1 or drop the thresholds")
+            ra = tuple(self.degrade_raise_at)
+            if len(ra) != self.degrade_ladder:
+                raise ValueError(
+                    f"degrade_raise_at needs one threshold per level: "
+                    f"degrade_ladder={self.degrade_ladder} but got "
+                    f"{len(ra)} thresholds")
+            if not (all(x > 0 for x in ra)
+                    and all(b > a for a, b in zip(ra, ra[1:]))):
+                raise ValueError(
+                    f"degrade_raise_at must be positive and strictly "
+                    f"increasing (a monotone ladder), got {ra}")
+        if self.degrade_ladder:
+            if not 0.0 < self.degrade_hysteresis < 1.0:
+                raise ValueError(
+                    f"degrade_hysteresis={self.degrade_hysteresis} must be "
+                    "a ratio in (0, 1): the lower edge of each rung is "
+                    "hysteresis * its raise edge")
+            if self.degrade_dwell_up < 1 or self.degrade_dwell_down < 1:
+                raise ValueError("degrade dwell counts must be >= 1 "
+                                 "supervisor-loop evaluations")
+            if self.degrade_max_new_tokens < 1:
+                raise ValueError(
+                    f"degrade_max_new_tokens={self.degrade_max_new_tokens} "
+                    "must be >= 1: level 2 clamps new admissions' "
+                    "max_new_tokens to it")
+        for name in ("slo_ttft_ms", "slo_itl_p99_ms"):
+            v = getattr(self, name)
+            if v is not None and not v > 0.0:
+                raise ValueError(f"{name} must be > 0 (None: no SLO), got "
+                                 f"{v}")
         # live weights (serving/weights.py)
         if self.swap_timeout_s <= 0.0:
             raise ValueError(f"swap_timeout_s must be > 0, got "

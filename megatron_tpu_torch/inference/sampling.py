@@ -102,14 +102,17 @@ def sample_batched(generators: Sequence[Optional[torch.Generator]],
     they are given. Every other row is filtered and drawn as its own
     [1, vocab] call with its own generator, the call `sample` makes at
     batch 1, so a row's stream equals the serial path's for the same seed;
-    with no such row nothing is filtered. Without a mask nothing here reads
-    a tensor back to the host. `banned` [b] (< 0 off)
+    with no such row nothing is filtered. Nothing here reads a tensor back
+    to the host, with a mask or without. `banned` [b] (< 0 off)
     masks one token of the processed distribution, `mask` [b, vocab]
     (True = allowed) a set of them; greedy rows obey `mask` but not
     `banned`, and a row whose mask allows nothing returns -1
-    (sampling.py sample_batched). A drawing row whose logits are not
-    finite draws a token uniformly (the reference draws garbage there
-    too) instead of raising."""
+    (sampling.py sample_batched): a drawing row still draws there (from
+    the uniform distribution, below) and the draw is discarded, since its
+    request fails and its generator with it. An all-True mask row is
+    bit-identical to mask=None. A drawing row whose logits are not finite
+    draws a token uniformly (the reference draws garbage there too)
+    instead of raising."""
     logits = logits.float()
     if vocab_size is not None and vocab_size < logits.shape[-1]:
         logits = logits.clone()
@@ -120,8 +123,6 @@ def sample_batched(generators: Sequence[Optional[torch.Generator]],
     out = greedy.clone()
     live = None if mask is None else mask.any(dim=-1)
     rows = [i for i, gen in enumerate(generators) if gen is not None]
-    if rows and live is not None:  # a row with nothing allowed draws nothing
-        rows = [i for i in rows if bool(live[i])]
     if rows:
         x = _processed(logits, temperature, top_k, top_p)
         if banned is not None:
@@ -153,7 +154,8 @@ def verify_draft_probs(logits: torch.Tensor, drafts: torch.Tensor, *,
                        temperature: torch.Tensor,
                        top_k: Optional[torch.Tensor],
                        top_p: Optional[torch.Tensor],
-                       vocab_size: Optional[int] = None):
+                       vocab_size: Optional[int] = None,
+                       mask: Optional[torch.Tensor] = None):
     """Acceptance inputs of a speculative verify window
     (sampling.py verify_draft_probs). logits [b, w, vocab]: position j
     holds the model's distribution for the token drafts[:, j] claims;
@@ -164,17 +166,31 @@ def verify_draft_probs(logits: torch.Tensor, drafts: torch.Tensor, *,
     knobs repeated over its positions), which point-mass rejection
     sampling accepts against, and the plain argmax, which greedy rows
     accept by exact match. A negative draft (a filler) reads its row's
-    last vocabulary entry, as the reference's index wraps."""
+    last vocabulary entry, as the reference's index wraps.
+
+    `mask` [b, w, vocab] (True = allowed) holds a grammar-constrained
+    row's legal tokens at each position: an illegal draft's probability
+    is 0 (never accepted, the uniform lying in [0, 1)), the greedy target
+    is the masked argmax, -1 at a position that allows nothing, and an
+    all-True position is bit-identical to mask=None."""
     b, w, V = logits.shape
     x = logits.float().reshape(b * w, V)
     if vocab_size is not None and vocab_size < V:
         x = x.clone()
         x[:, vocab_size:] = float("-inf")
-    targets = torch.argmax(x, dim=-1)
+    m = None if mask is None else mask.reshape(b * w, V)
+    if m is None:
+        targets = torch.argmax(x, dim=-1)
+    else:
+        targets = torch.argmax(x.masked_fill(~m, float("-inf")), dim=-1)
+        targets = torch.where(m.any(dim=-1), targets,
+                              torch.full_like(targets, -1))
     x = _processed(
         x, temperature.repeat_interleave(w),
         None if top_k is None else top_k.repeat_interleave(w),
         None if top_p is None else top_p.repeat_interleave(w))
+    if m is not None:
+        x = x.masked_fill(~m, float("-inf"))
     p = torch.softmax(x, dim=-1)
     idx = drafts.reshape(b * w, 1).long().remainder(V)
     return (p.gather(-1, idx)[:, 0].reshape(b, w),

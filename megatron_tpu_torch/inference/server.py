@@ -3,8 +3,9 @@
 The `/api` PUT contract is the reference's: {"prompts": [...],
 "tokens_to_generate": N, "temperature", "top_k", "top_p", "logprobs",
 "random_seed", "add_BOS", "beam_width", "length_penalty", "priority",
-"deadline_s", "serial", "adapter_id"} -> {"text", "segments", "logprobs"}
-or, for beam search, {"text", "score"}.
+"deadline_s", "serial", "adapter_id", "response_format", "n", "best_of"}
+-> {"text", "segments", "logprobs"} or, for beam search, {"text",
+"score"}.
 
 By default the server builds one continuous-batching `ServingEngine`
 (serving/engine.py) and every prompt of a payload becomes an engine request
@@ -18,8 +19,15 @@ take the serial route: one request at a time under a lock
 takes the serial route, with the reference's statuses and messages in that
 mode. A payload's `adapter_id` serves it under that registered LoRA
 adapter on the engine route (an unknown one, or one on the serial route, is
-a 400). On the engine route, `n`/`best_of`, `response_format` and
-`prompt_tokens` get a 400 saying which later slice brings them.
+a 400). `response_format` constrains the engine route's output to a regex
+or a JSON schema (a grammar that does not compile is a 400, a generation
+that reaches a state with no legal token a 422); with `n`/`best_of` each
+prompt fans out into best_of samples and its text/segments/logprobs
+entries become lists of the n best. The serial route refuses both, and a
+router refuses fan-out. `prompt_tokens` (the replica-mode wire format)
+gets a 400 until remote replicas come (ROADMAP Queue 1 item 6).
+`GET /invariants[?strict=1]` runs the invariant sweep
+(serving/invariants.py) on the live engines and answers its report.
 
 The control plane, `PUT /admin` (`handle_admin`): `{"op": "swap_weights",
 "ckpt_dir": ...}` hot-swaps the engine (a router walks a rolling upgrade)
@@ -66,6 +74,7 @@ from megatron_tpu_torch.inference.api import (beam_search_and_post_process,
 from megatron_tpu_torch.inference.generation import Generator
 from megatron_tpu_torch.serving.engine import ServingEngine
 from megatron_tpu_torch.serving.request import (DeadlineExceededError,
+                                                GrammarDeadEndError,
                                                 SamplingOptions,
                                                 ServiceUnavailableError)
 from megatron_tpu_torch.serving.router import (EngineRouter,
@@ -74,6 +83,7 @@ from megatron_tpu_torch.serving.scheduler import (AdmissionError,
                                                   EngineUnhealthyError,
                                                   OverloadShedError,
                                                   QueueFullError)
+from megatron_tpu_torch.serving.structured import validate_response_format
 from megatron_tpu_torch.serving.weights import (CheckpointWatcher,
                                                 WeightSwapError)
 from megatron_tpu_torch.training.checkpointing import read_tracker
@@ -85,8 +95,6 @@ MAX_PROMPTS = 128
 _LATER_ON_ENGINE = (
     ("prompt_tokens", "prompt_tokens (the replica-mode wire format) comes "
                       "with remote replicas in a later slice"),
-    ("response_format", "response_format comes with structured output in "
-                        "a later slice"),
 )
 
 
@@ -105,26 +113,6 @@ class _StreamEntry:
 
 def _is_stream_body(body) -> bool:
     return isinstance(body, types.GeneratorType)
-
-
-def validate_response_format(rf) -> Optional[str]:
-    """Structural check of a `response_format` payload
-    (serving/structured.py validate_response_format)."""
-    if not isinstance(rf, dict):
-        return "response_format must be an object"
-    t = rf.get("type")
-    if t == "regex":
-        if not isinstance(rf.get("pattern"), str) or not rf["pattern"]:
-            return ("response_format type 'regex' requires a non-empty "
-                    "string 'pattern'")
-        return None
-    if t == "json_schema":
-        if not isinstance(rf.get("schema"), dict):
-            return ("response_format type 'json_schema' requires an "
-                    "object 'schema'")
-        return None
-    return ("response_format.type must be 'regex' or 'json_schema', "
-            f"got {t!r}")
 
 
 def validate_generate_payload(payload) -> Optional[str]:
@@ -311,11 +299,6 @@ class MegatronServer:
                 for field, msg in _LATER_ON_ENGINE:
                     if payload.get(field) not in (None, False):
                         return 400, {"message": msg}
-                if any(isinstance(payload.get(f), int)
-                       and payload[f] > 1 for f in ("n", "best_of")):
-                    return 400, {"message": "n/best_of parallel sampling "
-                                            "comes with fan-out in a later "
-                                            "slice"}
                 if payload.get("cancel"):
                     return self._handle_cancel(payload)
                 if payload.get("stream"):
@@ -340,6 +323,14 @@ class MegatronServer:
                                  "adapter_id requires the serving-engine "
                                  "path (drop 'serial': true / "
                                  "serial_fallback)"}
+                if payload.get("response_format") is not None or \
+                        (payload.get("best_of") or payload.get("n") or 1) > 1:
+                    # no FSM masking and no slot grid to fan out on there:
+                    # its output would be wrong, not degraded
+                    return 400, {"message":
+                                 "response_format and n/best_of require "
+                                 "the serving-engine path (drop 'serial': "
+                                 "true / serial_fallback)"}
                 return 200, self._handle_serial(payload)
             return 200, self._handle_engine(payload)
         except EngineUnhealthyError as e:
@@ -356,6 +347,11 @@ class MegatronServer:
             return 503, self._backoff_body(str(e), retry_after=5)
         except AdmissionError as e:
             return 400, {"message": str(e)}
+        except GrammarDeadEndError as e:
+            # well-formed (not a 400), the server healthy (not a 500): the
+            # constrained generation is unprocessable. Not retryable as
+            # is: the same grammar, budget and seed dead-end again
+            return 422, {"message": str(e)}
         except Exception as e:  # noqa: BLE001 — a server fault is a 500
             return 500, {"message": str(e)}
 
@@ -570,13 +566,22 @@ class MegatronServer:
         and checked before any is submitted. A payload with more prompts
         than the queue holds drains its own finished rows to make room; a
         429 fires only when other traffic fills the queue before this
-        payload served a row."""
+        payload served a row.
+
+        With `n`/`best_of` each prompt fans out into best_of samples
+        seeded from seed + i * best_of (seed + i would collide across
+        prompts) and its entries become lists of the n best completions.
+        `response_format` rides to the engine's constrained decoding."""
         n = int(payload.get("tokens_to_generate", 64))
         sampling = SamplingOptions(
             temperature=float(payload.get("temperature", 1.0)),
             top_k=int(payload.get("top_k", 0)),
             top_p=float(payload.get("top_p", 0.0)))
         seed = self._seed_for(payload)
+        rf = payload.get("response_format")
+        n_samples = int(payload.get("n", 1) or 1)
+        best_of = int(payload.get("best_of", n_samples) or n_samples)
+        fanout = best_of > 1
         priority = int(payload.get("priority", 0) or 0)
         deadline_s = payload.get("deadline_s")
         deadline_s = None if deadline_s is None else float(deadline_s)
@@ -591,9 +596,11 @@ class MegatronServer:
                 while True:
                     try:
                         reqs[i] = self.engine.submit(
-                            ids, n, sampling, seed=seed + i,
+                            ids, n, sampling, seed=seed + i * best_of,
                             priority=priority, deadline_s=deadline_s,
-                            adapter_id=payload.get("adapter_id"))
+                            adapter_id=payload.get("adapter_id"),
+                            response_format=rf, n=n_samples,
+                            best_of=best_of)
                         pending.append(i)
                         break
                     except OverloadShedError:
@@ -620,6 +627,15 @@ class MegatronServer:
             raise
         texts, tokens, logprobs = [], [], []
         for i in range(len(prompt_ids)):
+            if fanout:
+                # the n best samples, each a (tokens, logprobs) pair
+                plen = len(reqs[i].prompt)
+                toks_list, lps_list = results[i]
+                texts.append([self.tokenizer.detokenize(t)
+                              for t in toks_list])
+                tokens.append(toks_list)
+                logprobs.append([[0.0] * plen + lp for lp in lps_list])
+                continue
             toks, gen_lps = results[i]
             texts.append(self.tokenizer.detokenize(toks))
             tokens.append(toks)
@@ -692,6 +708,10 @@ class MegatronServer:
                 return 404, {"message": f"unknown or expired stream_id "
                                         f"{sid!r}; start a new stream"}
             self.engine.metrics.count("stream_reconnects")
+            if getattr(entry.req, "children", None):
+                return 200, self._stream_events_fanout(entry,
+                                                       start=last + 1,
+                                                       resumed=True)
             return 200, self._stream_events(entry, start=last + 1,
                                             resumed=True)
         err = validate_generate_payload(payload)
@@ -703,6 +723,15 @@ class MegatronServer:
         if len(payload["prompts"]) != 1:
             return 400, {"message": "streaming supports exactly one prompt "
                                     "per request"}
+        n_samples = int(payload.get("n", 1) or 1)
+        best_of = int(payload.get("best_of", n_samples) or n_samples)
+        if best_of > 1 and n_samples != best_of:
+            # ranking needs every sample finished: a fan-out stream
+            # delivers all of them
+            return 400, {"message": "streaming requires n == best_of "
+                                    "(n-best selection cannot stream; "
+                                    "drop best_of or stream all "
+                                    "samples)"}
         prompt_ids = self._preflight_lengths(payload, self.engine.max_len,
                                              "max_len")
         sampling = SamplingOptions(
@@ -717,12 +746,31 @@ class MegatronServer:
             priority=int(payload.get("priority", 0) or 0),
             deadline_s=None if deadline_s is None else float(deadline_s),
             arrival_id=None if aid is None else int(aid),
-            adapter_id=payload.get("adapter_id"))
+            adapter_id=payload.get("adapter_id"),
+            response_format=payload.get("response_format"),
+            n=n_samples, best_of=best_of)
         entry = _StreamEntry(secrets.token_hex(8), req)
         with self._streams_lock:
             self._gc_streams_locked(time.monotonic())
             self._streams[entry.sid] = entry
+        if getattr(req, "children", None):
+            return 200, self._stream_events_fanout(entry, start=0,
+                                                   resumed=False)
         return 200, self._stream_events(entry, start=0, resumed=False)
+
+    @staticmethod
+    def _error_status(e: Exception) -> int:
+        """The HTTP status a whole-completion caller would have seen for a
+        request's terminal error (a stream's typed `error` frame)."""
+        if isinstance(e, DeadlineExceededError):
+            return 504
+        if isinstance(e, (ServiceUnavailableError, EngineUnhealthyError)):
+            return 503
+        if isinstance(e, QueueFullError):
+            return 429
+        if isinstance(e, GrammarDeadEndError):
+            return 422  # deterministic for its grammar and seed
+        return 500
 
     def _stream_events(self, entry: _StreamEntry, start: int,
                        resumed: bool):
@@ -772,15 +820,7 @@ class MegatronServer:
         try:
             toks, _ = req.result(timeout=self._timeout)
         except Exception as e:  # noqa: BLE001 — a typed terminal frame
-            if isinstance(e, DeadlineExceededError):
-                status = 504
-            elif isinstance(e, (ServiceUnavailableError,
-                                EngineUnhealthyError)):
-                status = 503
-            elif isinstance(e, QueueFullError):
-                status = 429
-            else:
-                status = 500
+            status = self._error_status(e)
             yield self._sse({"message": str(e), "status": status,
                              "retryable": status in (429, 503),
                              "committed": len(req.generated)},
@@ -789,6 +829,105 @@ class MegatronServer:
         yield self._sse({"text": self.tokenizer.detokenize(toks),
                          "segments": toks,
                          "generated": len(req.generated)}, event="done")
+
+    def _stream_events_fanout(self, entry: _StreamEntry, start: int,
+                              resumed: bool):
+        """The frame generator of a fan-out stream (n == best_of): sample
+        0 streams to its end, then sample 1, and so on, under one global
+        frame id across all samples, so a Last-Event-ID resume is as exact
+        as a single stream's. A token frame carries its `sample` beside its
+        per-sample `index`; a sample's typed failure is an `error` frame
+        tagged with the sample and the stream goes on; `done` reports every
+        completed text."""
+        agg = entry.req
+        version = getattr(self.engine, "weight_version", None)
+        yield self._sse({"stream_id": entry.sid, "resumed": resumed,
+                         "next_index": max(start, 0), "n": agg.n,
+                         "weight_version": (version.label if version
+                                            is not None else "unversioned")},
+                        event="start")
+        gid = 0  # the global frame id
+        start = max(start, 0)
+        give_up = time.monotonic() + self._timeout
+        texts, errors = [], []
+        for k, req in enumerate(agg.children):
+            i = 0
+            while True:
+                gen = req.generated
+                if i < len(gen):
+                    if gid >= start:
+                        lps = req.gen_logprobs
+                        data = {"sample": k, "index": i,
+                                "token": int(gen[i]),
+                                "text": self.tokenizer.detokenize(
+                                    [int(gen[i])])}
+                        if i < len(lps):
+                            data["logprob"] = float(lps[i])
+                        yield self._sse(data, event="token", event_id=gid)
+                    gid += 1
+                    i += 1
+                    continue
+                if req.done():
+                    break
+                if time.monotonic() > give_up:
+                    yield self._sse(
+                        {"message": f"stream timed out after "
+                                    f"{self._timeout:.0f}s waiting for "
+                                    "tokens", "status": 500,
+                         "retryable": True, "sample": k,
+                         "committed": len(req.generated)}, event="error")
+                    return
+                req.wait_token(i, timeout=0.25)
+            try:
+                toks, _ = req.result(timeout=self._timeout)
+                texts.append(self.tokenizer.detokenize(toks))
+            except Exception as e:  # noqa: BLE001 — a typed sample frame
+                status = self._error_status(e)
+                errors.append({"sample": k, "status": status})
+                yield self._sse({"message": str(e), "status": status,
+                                 "retryable": status in (429, 503),
+                                 "sample": k,
+                                 "committed": len(req.generated)},
+                                event="error")
+        yield self._sse({"text": texts, "n": agg.n,
+                         "completed": len(texts), "failed": errors},
+                        event="done")
+
+    def invariant_report(self, strict: bool = False) -> dict:
+        """`GET /invariants`: the invariant sweep (serving/invariants.py)
+        of this process's live engines, as a report. Default strict=False:
+        a live engine is rarely quiesced; the caller opts into the strict
+        accounting sweep once traffic stops. A sweep that raises is itself
+        a reported violation, not a 500."""
+        from megatron_tpu_torch.serving.invariants import (
+            _Sweep, check_engine, check_router_health, check_schema)
+        if self.engine is None:
+            return {"engines": 0, "laws_checked": [], "violations": [],
+                    "ok": True}
+        sweep = _Sweep()
+        is_router = isinstance(self.engine, EngineRouter)
+        engines = self.engine.engines if is_router else [self.engine]
+        for e in engines:
+            try:
+                check_engine(e, strict=strict, sweep=sweep)
+            except Exception as ex:  # noqa: BLE001
+                sweep.violations.append(
+                    ("sweep", f"check_engine raised {type(ex).__name__}: "
+                              f"{ex}"))
+        if is_router:
+            try:
+                check_router_health(self.engine.health(), sweep=sweep)
+                check_schema(self.engine.aggregate_snapshot(), router=True,
+                             sweep=sweep)
+            except Exception as ex:  # noqa: BLE001
+                sweep.violations.append(
+                    ("sweep", f"router sweep raised {type(ex).__name__}: "
+                              f"{ex}"))
+        return {"engines": len(engines),
+                "laws_checked": list(sweep.checked),
+                "violations": [[law, detail]
+                               for law, detail in sweep.violations],
+                "ok": not sweep.violations}
 
     def _handle_cancel(self, payload: dict) -> Tuple[int, dict]:
         """`{"stream_id": ..., "cancel": true}`: evict a live stream's
@@ -809,8 +948,8 @@ class MegatronServer:
 
     def make_http_server(self, host: str, port: int) -> ThreadingHTTPServer:
         """The HTTP front end, bound but not yet serving: PUT /api (JSON,
-        or server-sent events for a stream) and /admin, GET /healthz and
-        /metrics. The caller runs
+        or server-sent events for a stream) and /admin, GET /healthz,
+        /metrics and /invariants[?strict=1]. The caller runs
         `serve_forever()` and stops it with `shutdown()`."""
         server = self
 
@@ -869,12 +1008,21 @@ class MegatronServer:
                     self._send(status, body)
 
             def do_GET(self):
-                from urllib.parse import urlsplit
-                path = urlsplit(self.path).path.rstrip("/")
+                from urllib.parse import parse_qs, urlsplit
+                parts = urlsplit(self.path)
+                path = parts.path.rstrip("/")
                 if path == "/metrics":
                     self._send(200, server.metrics_snapshot())
                 elif path == "/healthz":
                     self._send(*server.healthz())
+                elif path == "/invariants":
+                    strict = (parse_qs(parts.query).get("strict", ["0"])[0]
+                              not in ("0", "", "false"))
+                    try:
+                        self._send(200,
+                                   server.invariant_report(strict=strict))
+                    except Exception as e:  # noqa: BLE001 — a report
+                        self._send(500, {"message": str(e)})
                 else:
                     self.send_error(404)
 

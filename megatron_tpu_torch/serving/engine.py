@@ -130,8 +130,35 @@ steps, and the last chunk lands it with one insert.
   engine serves on. The engine keeps its own Generator view, so replicas
   that share a Generator swap one at a time.
 
-Structured output and fan-out come with later slices and raise when
-configured (ServingConfig.validate).
+- Structured output (`submit(response_format=...)`,
+  serving/structured.py): the grammar compiles once at submit into a
+  TokenFSM (shared by a fan-out's samples; a grammar that does not compile
+  is an AdmissionError, 400). The request carries its integer `fsm_state`
+  on the host, so it survives preemption, replay and restarts. Each slot
+  has a row in a persistent [slots, padded vocab] device mask that
+  `sample_batched` applies on every step: all-True for free rows
+  (bit-identical to no mask), the state's legal tokens for a structured
+  row, rewritten in place only when that row's state changes
+  (`mask_uploads`). A structured row pins the window to one step (its
+  next mask depends on the token the host has not seen yet); speculative
+  rounds step the FSM along the drafter's guess and drafts on the host and
+  pass per-position verify masks, acceptance gated on the device's first
+  token equalling the guess. A state with no legal token fails the
+  request typed (GrammarDeadEndError, 422); a terminal state finishes it.
+- Fan-out (`submit(n=, best_of=)`): best_of independently seeded samples
+  (seed + i) of one prompt behind a FanoutRequest that returns the n best
+  by summed logprob. With the prefix cache the siblings wait for the
+  leader's prompt to be indexed and admit through the copy-on-write alias
+  hit, so the fan-out runs one real prefill.
+- The brownout ladder (`degrade_ladder`, serving/degrade.py), evaluated
+  once an iteration (idle waits too, so a drained engine steps back
+  down): rung 1 turns speculation off for new windows, rung 2 clamps a
+  new request's best_of to n and its max_new_tokens (the clamped values
+  are its config), rung 3 sheds priority 0 and rung 4 every new
+  admission. The level is host state and survives restarts. With
+  `slo_ttft_ms` / `slo_itl_p99_ms` late first tokens and inter-token gaps
+  are counted, and `goodput_tokens` counts the tokens of completed
+  requests whose first token met the TTFT SLO.
 """
 from __future__ import annotations
 
@@ -158,6 +185,7 @@ from megatron_tpu_torch.resilience.watchdog import StepWatchdog
 from megatron_tpu_torch.serving.adapters import (AdapterBank,
                                                  AdapterBankFullError,
                                                  UnknownAdapterError)
+from megatron_tpu_torch.serving.degrade import DegradeController
 from megatron_tpu_torch.serving.host_tier import HostKVTier
 from megatron_tpu_torch.serving.kv_pool import (SlotKVPool,
                                                 block_native_cache,
@@ -166,14 +194,17 @@ from megatron_tpu_torch.serving.kv_pool import (SlotKVPool,
                                                 slice_blocks, slice_slot)
 from megatron_tpu_torch.serving.metrics import ServingMetrics
 from megatron_tpu_torch.serving.prefix_index import PrefixIndex
-from megatron_tpu_torch.serving.request import (GenRequest, RequestState,
-                                                SamplingOptions)
-from megatron_tpu_torch.serving.scheduler import (AdmissionScheduler,
+from megatron_tpu_torch.serving.request import (FanoutRequest, GenRequest,
+                                                RequestState, SamplingOptions)
+from megatron_tpu_torch.serving.scheduler import (AdmissionError,
+                                                  AdmissionScheduler,
                                                   EngineUnhealthyError,
                                                   OverloadShedError,
                                                   QueueFullError)
 from megatron_tpu_torch.serving.spec_decode import (NGramDrafter,
                                                     build_draft_rounds)
+from megatron_tpu_torch.serving.structured import (GrammarCompileError,
+                                                   compile_response_format)
 from megatron_tpu_torch.serving.weights import (WeightSwapError, load_staged,
                                                 place_params)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -254,7 +285,9 @@ class ServingEngine:
     grid. Built from a `Generator`, whose model, config and rope tables it
     reuses; `device` must name the generator's device (None: the current
     CUDA device, raising without one). `weight_version` names the
-    checkpoint the generator's weights came from, when known."""
+    checkpoint the generator's weights came from, when known;
+    `token_strings` the tokenizer's piece strings the grammars compose
+    over (None: byte-level identity, structured.default_token_strings)."""
 
     # a restart this long ago no longer counts toward the crash-loop
     # breaker, which exists to catch a loop, not to add up isolated
@@ -264,7 +297,7 @@ class ServingEngine:
     def __init__(self, generator: Generator,
                  serving: Optional[ServingConfig] = None, *,
                  device: DeviceLike = None, start: bool = True,
-                 drafter=None, weight_version=None):
+                 drafter=None, weight_version=None, token_strings=None):
         self.device = resolve_device(device)
         if generator.device != self.device:
             raise ValueError(f"generator runs on {generator.device}, the "
@@ -318,6 +351,15 @@ class ServingEngine:
             lambda: int(self._active.sum()) + len(self._prefilling))
         self.metrics = ServingMetrics()
         self.metrics.kv_attn_path = self._attn_path
+        # the brownout ladder (None with degrade_ladder=0: no rung ever
+        # fires); host state like the queue, so it survives restarts
+        self.degrade = DegradeController.from_config(self.serving)
+        # SLO targets in seconds: counters and the goodput ledger only,
+        # never scheduling
+        self._slo_ttft_s = (self.serving.slo_ttft_ms / 1e3
+                            if self.serving.slo_ttft_ms else None)
+        self._slo_itl_s = (self.serving.slo_itl_p99_ms / 1e3
+                           if self.serving.slo_itl_p99_ms else None)
         # the LoRA bank (None with adapter_slots=0: no extra op anywhere)
         # and each slot's bank row, uploaded on churn like the lengths
         self.adapters: Optional[AdapterBank] = None
@@ -343,6 +385,27 @@ class ServingEngine:
         self._vp = cfg.padded_vocab_size
         self._last_logits = torch.zeros(S, self._vp, dtype=torch.float32,
                                         device=self.device)
+        # grammar masks: the host grid, its persistent device copy that
+        # every sampling call reads (rows rewritten in place, never
+        # reallocated), each row's FSM state (-1: a free, all-True row)
+        # and the rows changed since the last window
+        self._token_strings = token_strings
+        self._masks = np.ones((S, self._vp), bool)
+        self._d_masks = torch.ones(S, self._vp, dtype=torch.bool,
+                                   device=self.device)
+        self._mask_state = np.full(S, -1, np.int64)
+        self._mask_rows_dirty: set = set()
+        if self._spec_k:
+            # verify-window masks: the all-True buffer a free round reads,
+            # the one a structured round's host-walked masks are written
+            # into, and the no-guess row that leaves the gate inert
+            shape = (S, self._spec_k, self._vp)
+            self._d_free_dmask = torch.ones(shape, dtype=torch.bool,
+                                            device=self.device)
+            self._d_draft_masks = torch.ones(shape, dtype=torch.bool,
+                                             device=self.device)
+            self._d_no_guess = torch.full((S,), -1, dtype=torch.int64,
+                                          device=self.device)
         # per-slot generator: None for greedy and idle rows
         self._gens: List[Optional[torch.Generator]] = [None] * S
         # per-slot host state (engine thread only)
@@ -422,22 +485,48 @@ class ServingEngine:
                seed: int = 0, priority: int = 0,
                deadline_s: Optional[float] = None,
                arrival_id: Optional[int] = None,
-               adapter_id=None) -> GenRequest:
+               adapter_id=None, response_format=None, n: int = 1,
+               best_of: Optional[int] = None):
         """Non-blocking: enqueue and return the request handle. Raises
         QueueFullError (-> 429) on a full queue or a draining engine,
-        OverloadShedError (-> 429) when early shedding fires,
-        EngineUnhealthyError (-> 503) when the circuit breaker is open, and
-        AdmissionError (-> 400) when the request can never fit.
+        OverloadShedError (-> 429) when early shedding or a brownout shed
+        fires, EngineUnhealthyError (-> 503) when the circuit breaker is
+        open, and AdmissionError (-> 400) when the request can never fit.
         `priority` clamps into [0, priority_levels); `deadline_s`
         overrides the engine-wide request_deadline_s; `arrival_id` (the
         router's failover retries) keeps a request's original position in
         the queue's order. `adapter_id` selects a registered LoRA adapter
         (None: the base model); an unknown one, or any on an engine with
-        no bank, is an AdmissionError (-> 400)."""
+        no bank, is an AdmissionError (-> 400).
+
+        `response_format` ({"type": "regex", "pattern": ...} or
+        {"type": "json_schema", "schema": ...}) constrains the output; it
+        compiles here, once, and one that does not compile is an
+        AdmissionError. `n`/`best_of`: best_of samples seeded seed + i,
+        returned as a FanoutRequest whose result is the n best (a plain
+        GenRequest when best_of is 1); every sample counts as a request
+        received."""
         if self._broken:
+            # outside the received/rejected accounting, as the reference
             raise EngineUnhealthyError(
                 f"engine unhealthy (circuit breaker open): {self._broken}")
-        self.metrics.count("requests_received")
+        n = int(n)
+        best_of = n if best_of is None else int(best_of)
+        if not 1 <= n <= best_of:
+            raise AdmissionError(
+                f"need 1 <= n <= best_of, got n={n} best_of={best_of}")
+        if best_of > self.num_slots:
+            raise AdmissionError(
+                f"best_of={best_of} exceeds the engine's {self.num_slots} "
+                "slots: the fan-out could never decode concurrently")
+        if self.degrade is not None and self.degrade.cap_work():
+            # rung 2: the clamped values are the request's config, before
+            # the received count, so accounting and the serial oracle see
+            # the same request
+            best_of = n
+            max_new_tokens = min(int(max_new_tokens),
+                                 self.serving.degrade_max_new_tokens)
+        self.metrics.count("requests_received", best_of)
         try:
             if adapter_id is not None:
                 if self.adapters is None:
@@ -453,45 +542,100 @@ class ServingEngine:
                     "engine draining (shutdown in progress); retry "
                     "against another replica", retry_after=5,
                     queue_depth=self.scheduler.depth())
+            fsm = None
+            if response_format is not None:
+                try:
+                    fsm = compile_response_format(
+                        response_format, self.cfg.vocab_size,
+                        token_strings=self._token_strings,
+                        eos_id=self.gen.eos_id)
+                except GrammarCompileError as e:
+                    raise AdmissionError(
+                        f"response_format does not compile: {e}") from e
             priority = max(0, min(int(priority),
                                   self.serving.priority_levels - 1))
-            req = GenRequest(list(prompt), max_new_tokens, sampling, seed,
-                             priority=priority, deadline_s=deadline_s,
-                             arrival_id=arrival_id, adapter_id=adapter_id)
-            req._on_terminal = self._count_terminal
+            if self.degrade is not None and self.degrade.shed_priority(
+                    priority, self.serving.priority_levels):
+                # rungs 3 and 4, after the received count like every
+                # other submit-time refusal
+                what = ("all new admissions shed"
+                        if self.degrade.level >= 4
+                        else "lowest-priority admissions shed")
+                raise OverloadShedError(
+                    f"brownout level {self.degrade.level}: {what} — retry "
+                    "later or against another replica",
+                    retry_after=self.scheduler.retry_after_hint(),
+                    queue_depth=self.scheduler.depth())
+            children: List[GenRequest] = []
+            for i in range(best_of):
+                req = GenRequest(list(prompt), max_new_tokens, sampling,
+                                 seed + i, priority=priority,
+                                 deadline_s=deadline_s,
+                                 arrival_id=(arrival_id if i == 0
+                                             else None),
+                                 adapter_id=adapter_id)
+                req.response_format = response_format
+                req.fsm = fsm
+                req.sample_index = i
+                if i:
+                    # sample 0 leads: the siblings wait for its prompt KV
+                    # to be indexed and alias it (_admit)
+                    req.fanout_leader = children[0]
+                req._on_terminal = self._count_terminal
+                children.append(req)
+            if fsm is not None:
+                self.metrics.count("structured_requests", best_of)
             if max_new_tokens == 0:
                 # nothing to decode: the serial path returns the prompt
                 # unchanged; the same admission check still applies
-                self.scheduler.check_admissible(req)
-                req.mark_admitted()
-                req.finish()
-                self.metrics.record_admitted(0.0)
+                self.scheduler.check_admissible(children[0])
+                for req in children:
+                    req.mark_admitted()
+                    req.finish()
+                    self.metrics.record_admitted(0.0)
+            elif best_of == 1:
+                self.scheduler.submit(children[0])
             else:
-                self.scheduler.submit(req)
+                # all samples queue or none do
+                self.scheduler.submit_many(children)
+            if best_of > 1:
+                self.metrics.count("fanout_requests")
+                self.metrics.count("fanout_samples", best_of)
         except OverloadShedError:
-            self.metrics.count("requests_shed")
-            self.metrics.count("requests_rejected")
+            self.metrics.count("requests_shed", best_of)
+            self.metrics.count("requests_rejected", best_of)
             raise
         except Exception:
-            self.metrics.count("requests_rejected")
+            self.metrics.count("requests_rejected", best_of)
             raise
-        return req
+        if best_of == 1:
+            return children[0]
+        return FanoutRequest(children, n)
 
     def _count_terminal(self, req: GenRequest, outcome: str):
-        """GenRequest's terminal hook: fires exactly once per request."""
+        """GenRequest's terminal hook: fires exactly once per request. A
+        completed request whose first token missed the TTFT SLO delivered
+        its tokens too late to count as goodput."""
         if outcome == "completed":
+            gen = len(req.generated)
+            good = gen
+            if self._slo_ttft_s is not None and req.ttft is not None \
+                    and req.ttft > self._slo_ttft_s:
+                good = 0
             self.metrics.record_completed(
                 (req.finish_time or req.submit_time) - req.submit_time,
-                len(req.generated))
+                gen, good_tokens=good)
         else:
             self.metrics.count("requests_" + outcome)
 
-    def cancel(self, req: GenRequest):
+    def cancel(self, req):
         """A queued request is dropped and failed at once; a running one is
-        evicted at the next iteration."""
-        req.cancel()
-        if not req.done():
-            self.scheduler.cancel(req)
+        evicted at the next iteration. A FanoutRequest cancels every
+        sample."""
+        for child in getattr(req, "children", None) or [req]:
+            child.cancel()
+            if not child.done():
+                self.scheduler.cancel(child)
         self._wake()
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
@@ -571,6 +715,13 @@ class ServingEngine:
                 self.scheduler.service_time_ewma() * 1e3,
             "kv_attn_path": self._attn_path,
             "max_len": int(self.max_len),
+            # the brownout level (0 also without a ladder, so the schema
+            # never forks; the router aggregates it as a max) and the
+            # controller's detail (None without a ladder)
+            "degrade_level": (self.degrade.level
+                              if self.degrade is not None else 0),
+            "degrade": (self.degrade.describe()
+                        if self.degrade is not None else None),
             # the router's adapter-locality signal (0 without a bank)
             "active_adapters": (self.adapters.active_count()
                                 if self.adapters is not None else 0),
@@ -583,6 +734,34 @@ class ServingEngine:
                                  else None),
             "weight_swap_pending": self._pending_swap is not None,
             "detail": broken or "",
+        }
+
+    def invariant_state(self) -> dict:
+        """Host snapshot for the invariant checker (serving/invariants.py):
+        the slotted requests, pending prefills, mid-admission pops and queue
+        depth feed the conservation law, the weight generation the
+        namespace check. It walks engine-thread lists, so strict sweeps
+        run against a quiesced engine."""
+        slot_reqs = [(slot, r) for slot, r in enumerate(self._slot_req)
+                     if r is not None]
+        pend = [(st.req, st.slot, st.blocks, st.installed)
+                for st in self._prefilling]
+        admitting = list(self._admitting)
+        # only non-terminal requests are in flight: a watchdog-failed or
+        # cancelled one has been counted already
+        live = (sum(1 for _, r in slot_reqs if not r.done())
+                + sum(1 for r, _, _, _ in pend if not r.done())
+                + sum(1 for r in admitting if not r.done())
+                + self.scheduler.live_depth())
+        return {
+            "slot_requests": slot_reqs,
+            "prefilling": pend,
+            "admitting": admitting,
+            "queue_depth": self.scheduler.depth(),
+            "in_flight": live,
+            "weight_gen": self._weight_gen,
+            "lengths": self._lengths.copy(),
+            "active": self._active.copy(),
         }
 
     def queue_depth(self) -> int:
@@ -814,7 +993,8 @@ class ServingEngine:
                               temperature=self._d_temps,
                               top_k=self._d_top_ks, top_p=self._d_top_ps,
                               vocab_size=self.cfg.vocab_size,
-                              banned=self._d_reject if k else None)
+                              banned=self._d_reject if k else None,
+                              mask=self._d_masks)
         if k:
             # a speculative engine's step: the residual carry is consumed,
             # and each drawing row spends the k uniforms a verify round
@@ -822,8 +1002,10 @@ class ServingEngine:
             # proposed a draft this step
             self._uniforms(k)
             self._d_reject = torch.full_like(self._d_reject, -1)
+        # a dead grammar row samples -1: its logprob and the forward of it
+        # (index -1 wraps) are garbage for a row the host fails
         lps = torch.log_softmax(self._last_logits, dim=-1).gather(
-            -1, toks[:, None])[:, 0]
+            -1, toks.clamp(min=0)[:, None])[:, 0]
         caches = dataclasses.replace(self._grid_caches(), offset=lengths)
         logits, caches = lm.model_forward(
             self.gen.params, toks[:, None], self.cfg, kv_caches=caches,
@@ -865,9 +1047,10 @@ class ServingEngine:
                 u[i] = torch.rand(k, generator=g, device=self.device)
         return u
 
-    def _verify_fn(self, drafts: torch.Tensor):
-        """One speculative round for the whole grid (engine.py _verify_fn,
-        without the structured-output masks): sample each slot's t0 from
+    def _verify_fn(self, drafts: torch.Tensor, draft_masks: torch.Tensor,
+                   guess0: torch.Tensor):
+        """One speculative round for the whole grid (engine.py _verify_fn):
+        sample each slot's t0 from
         its carried logits (the residual distribution where last round's
         rejection bans a draft), forward [t0, d1..dk] through the pool at
         the per-slot lengths (`verify_tokens`; the block kernel at
@@ -880,16 +1063,25 @@ class ServingEngine:
         logits become the row after its last committed token, and a real
         stochastic rejection at the stop position becomes its residual
         carry. Returns (window [S, k+1], logprobs [S, k+1] under the raw
-        logits, accepted [S]) on the device."""
+        logits, accepted [S]) on the device.
+
+        Grammar: t0 samples under the resident slot masks, and
+        `draft_masks` [S, k, Vp] holds the legal tokens the host walked
+        along [guess0, d1..dk] for each structured row (all-True for free
+        rows), so an illegal draft is never accepted. Those masks hold only
+        if t0 equals the host's guess, so a row with a guess (`guess0`
+        >= 0) accepts nothing when t0 differs; such a gate rejection is no
+        stochastic rejection and sets no residual carry."""
         S, k = drafts.shape
         lengths = self._d_lengths
         last = self._last_logits
         toks0 = sample_batched(self._gens, last, temperature=self._d_temps,
                                top_k=self._d_top_ks, top_p=self._d_top_ps,
                                vocab_size=self.cfg.vocab_size,
-                               banned=self._d_reject)
+                               banned=self._d_reject, mask=self._d_masks)
         u = self._uniforms(k)
-        lp0 = torch.log_softmax(last, dim=-1).gather(-1, toks0[:, None])
+        lp0 = torch.log_softmax(last, dim=-1).gather(
+            -1, toks0.clamp(min=0)[:, None])
         window = torch.cat([toks0[:, None], drafts], dim=1)
         logits, caches = verify_tokens(
             self.gen.params, window, self._grid_caches(), self.cfg,
@@ -902,9 +1094,12 @@ class ServingEngine:
         ctx = logits[:, :k]
         probs, targets = verify_draft_probs(
             ctx, drafts, temperature=self._d_temps, top_k=self._d_top_ks,
-            top_p=self._d_top_ps, vocab_size=self.cfg.vocab_size)
-        accept = torch.where(self._d_greedy[:, None], drafts == targets,
-                             u < probs) & (drafts >= 0)
+            top_p=self._d_top_ps, vocab_size=self.cfg.vocab_size,
+            mask=draft_masks)
+        gate_ok = (guess0 < 0) | (toks0 == guess0)
+        accept = (torch.where(self._d_greedy[:, None], drafts == targets,
+                              u < probs) & (drafts >= 0)
+                  & gate_ok[:, None])
         steps = torch.arange(k, device=self.device)
         allow = lengths.long()[:, None] + 1 + steps <= self.max_len - 1
         a = torch.cumprod((accept & allow).long(), dim=1).sum(dim=1)
@@ -915,7 +1110,7 @@ class ServingEngine:
         a_idx = torch.clamp(a, max=k - 1)
         d_stop = drafts[rows, a_idx]
         self._d_reject = torch.where(
-            (a < k) & allow[rows, a_idx] & (d_stop >= 0), d_stop,
+            gate_ok & (a < k) & allow[rows, a_idx] & (d_stop >= 0), d_stop,
             torch.full_like(d_stop, -1))
         self._d_lengths = torch.clamp(lengths + 1 + a,
                                       max=self.max_len - 1).int()
@@ -1059,6 +1254,9 @@ class ServingEngine:
                        and not self._prefilling):
                     self._cond.wait(timeout=self._idle_wait)
                     self._heartbeat()  # idleness is not a hang
+                    # the ladder steps down on an idle engine too: after
+                    # a storm drains the level reverts with no traffic
+                    self._evaluate_degrade()
                 if self._stop:
                     return True
                 if (self._draining and not self._active.any()
@@ -1072,6 +1270,9 @@ class ServingEngine:
             self._maybe_decay_restarts()
             self._reap_cancelled()
             self._reap_expired()
+            # one ladder evaluation an iteration (the dwell counts are in
+            # these units)
+            self._evaluate_degrade()
             if self._pending_swap is not None:
                 # the swap barrier: admissions hold (queued work waits)
                 # while the slots and prefills in flight finish under the
@@ -1103,6 +1304,25 @@ class ServingEngine:
                     self._watchdog.start()
                 else:
                     self._watchdog.heartbeat()
+
+    def _evaluate_degrade(self):
+        """One brownout-ladder evaluation (engine thread; HTTP threads read
+        the level lock-free). A transition counts `degrade_transitions`
+        and pushes the `degrade_level` gauge."""
+        if self.degrade is None:
+            return
+        before = self.degrade.level
+        after = self.degrade.observe(
+            self.scheduler.depth(),
+            int(self._active.sum()) + len(self._prefilling),
+            self.num_slots)
+        if after != before:
+            self.metrics.count("degrade_transitions")
+            self.metrics.set_degrade_gauge(after)
+            print_rank_0(
+                f"serving engine: brownout level {before} -> {after} "
+                f"(pressure {self.degrade._last_pressure:.2f}, "
+                f"queue {self.scheduler.depth()})")
 
     # ------------------------------------------------------------------
     # supervisor: hang detection, restart, circuit breaker
@@ -1168,7 +1388,10 @@ class ServingEngine:
         every reference to the old tensors is dropped first so that a
         full-size pool is never held twice. Host state the restart does
         not touch survives: the scheduler and its service-time
-        estimate."""
+        estimate, the brownout level (a replica that wedged under
+        overload must not come back at level 0 and re-admit the flood),
+        and a requeued structured request's FSM state, whose mask row is
+        installed again at its activation."""
         for req in self._slot_req:
             if req is not None:
                 req.fail(f"engine step failed while this request was "
@@ -1195,6 +1418,11 @@ class ServingEngine:
         self._lengths[:] = 0
         self._active[:] = False
         self._d_lengths = self._upload(self._lengths)
+        # the mask buffer is kept (rewritten in place), every row free
+        self._masks[:] = True
+        self._d_masks.fill_(True)
+        self._mask_state[:] = -1
+        self._mask_rows_dirty.clear()
         # every slotted request failed, so no adapter pin survives; the
         # bank's rows stay loaded
         self._adapter_idx[:] = 0
@@ -1270,6 +1498,9 @@ class ServingEngine:
         # by id at resume, whichever row it lands in
         self._release_adapter(req)
         self._free_adapter_row(slot)
+        # the mask row frees with the slot; the grammar walk lives on the
+        # request (fsm_state) and is installed again at resume
+        self._clear_slot_mask(slot)
         self._sampling_dirty = True
         self._kv_dirty = True
         self._lengths_dirty = True
@@ -1313,6 +1544,20 @@ class ServingEngine:
                 # a replay prefills prompt + generated
                 toks = r.effective_prompt()
                 src, hit = self._lookup_prefix(toks, r.adapter_ns)
+                if (r.fanout_leader is not None
+                        and not r.fanout_leader.done() and not hit
+                        and self._prefix_on and not self.pool.rolling
+                        and r.resume_rng is None):
+                    # a fan-out sibling waits for the leader's prompt KV
+                    # to land in the index, then admits through the alias
+                    # hit: one prefill serves the fan-out. The gate is the
+                    # sibling's own hit (the leader is indexed only at
+                    # activation); a terminal leader releases it, and a
+                    # prompt too short to hit prefills alone afterwards
+                    self._release_adapter(r)
+                    self.scheduler.requeue(r)
+                    pending.remove(r)
+                    continue
                 if hit or r.resume_rng is not None or (
                         self._chunk is not None and len(toks) > self._chunk):
                     self._start_pending(r, src, hit)
@@ -1662,6 +1907,10 @@ class ServingEngine:
         self._slot_req[slot] = req
         self._adapter_idx[slot] = st.aidx
         self._adapters_dirty = True
+        if req.fsm is not None:
+            # the request's current state: 0 when fresh, the saved one on
+            # a resume or replay
+            self._set_slot_mask(slot, req)
         self._sampling_dirty = True
         self._kv_dirty = True
         self._lengths_dirty = True
@@ -1744,6 +1993,8 @@ class ServingEngine:
             self._slot_req[slot] = req
             self._adapter_idx[slot] = req.bank_idx
             self._adapters_dirty = True
+            if req.fsm is not None:
+                self._set_slot_mask(slot, req)
             self._record_admission(req)
             req.prefill_chunks = 1
         if view is not None:
@@ -1816,6 +2067,8 @@ class ServingEngine:
         self._sampling_dirty = True
         self._release_adapter(req)
         self._free_adapter_row(slot)
+        # a stale mask would constrain the next tenant's tokens
+        self._clear_slot_mask(slot)
         tokens = req.prompt + req.generated
         ns = self._ns(req.adapter_ns)
         if failed is None and self._prefix_on and self._blocks_on:
@@ -1841,6 +2094,81 @@ class ServingEngine:
             self.scheduler.observe_service(
                 req.finish_time - (req.admit_time or req.submit_time))
 
+    # ------------------------------------------------------------------
+    # grammar masks
+    # ------------------------------------------------------------------
+    def _set_slot_mask(self, slot: int, req: GenRequest):
+        """Write `req`'s current FSM state's legal tokens into the slot's
+        host row and mark it for the device; called at activation and at
+        every transition to a new state (a self-loop writes nothing). The
+        padded tail stays False."""
+        row = self._masks[slot]
+        row[:] = False
+        tbl = req.fsm.mask_table[req.fsm_state]
+        row[:tbl.shape[0]] = tbl
+        self._mask_state[slot] = req.fsm_state
+        self._mask_rows_dirty.add(slot)
+
+    def _clear_slot_mask(self, slot: int):
+        if self._mask_state[slot] >= 0:
+            self._masks[slot, :] = True
+            self._mask_state[slot] = -1
+            self._mask_rows_dirty.add(slot)
+
+    def _sync_masks(self):
+        """Copy the changed host rows into the resident device buffer in
+        place (one `mask_uploads` a window that wrote)."""
+        rows = sorted(self._mask_rows_dirty)
+        self._mask_rows_dirty.clear()
+        src = torch.from_numpy(self._masks[rows]).to(self.device)
+        self._d_masks.index_copy_(
+            0, torch.tensor(rows, device=self.device), src)
+        self.metrics.count("mask_uploads")
+
+    def _build_round_masks(self, grid: np.ndarray, g0: np.ndarray, k: int):
+        """The host walk of one speculative round under grammar: for each
+        structured slot whose drafter guessed t0 (g0 >= 0), step its FSM
+        along [g0, d1..dk] and write the per-position legal tokens into
+        the verify mask buffer. Returns (draft_masks [S, k, Vp], guess0
+        [S], -1 where a row carries no usable guess) on the device. Free
+        rows stay all-True with no guess, so their drafts verify as
+        before. An illegal draft, or a guess the FSM refuses, truncates
+        `grid` in place from there (such drafts can never commit)."""
+        S = self.num_slots
+        dm = np.ones((S, k, self._vp), bool)
+        g0_eff = np.full(S, -1, np.int64)
+        for slot in np.nonzero(self._mask_state >= 0)[0]:
+            req = self._slot_req[slot]
+            if req is None or req.fsm is None:
+                continue
+            fsm = req.fsm
+            g = int(g0[slot])
+            if g < 0:
+                # no guess: no drafts for this slot either, and t0 still
+                # samples under its resident mask
+                continue
+            g0_eff[slot] = g
+            cur = fsm.step(req.fsm_state, g)
+            if cur < 0:
+                # the guess is illegal, so t0 cannot equal it: the gate
+                # rejects the round's drafts whatever they are
+                grid[slot, :] = -1
+                continue
+            V = fsm.mask_table.shape[1]
+            for j in range(k):
+                d = int(grid[slot, j])
+                if d < 0:
+                    break
+                dm[slot, j, :] = False
+                dm[slot, j, :V] = fsm.mask_table[cur]
+                nxt = fsm.step(cur, d)
+                if nxt < 0:
+                    grid[slot, j:] = -1
+                    break
+                cur = nxt
+        self._d_draft_masks.copy_(torch.from_numpy(dm))
+        return self._d_draft_masks, self._upload(g0_eff)
+
     def _step(self):
         """K chained steps, ONE host read, then bookkeeping. A request that
         hits EOS or its token budget at inner step r discards the window's
@@ -1854,8 +2182,17 @@ class ServingEngine:
         slot, and the accept counts and residual carry chain on the device
         between reads. A round in which no slot proposes a draft runs the
         plain decode step (`spec_fallback_steps`), which consumes the
-        carry too."""
-        K = self._sync_interval
+        carry too.
+
+        A structured row pins the window to one step: its mask for token
+        t+1 depends on token t, which only the host's FSM step knows.
+        Speculative rounds still commit up to 1 + k tokens a window under
+        grammar (the host walks the drafts' masks). From brownout rung 1
+        on, a window runs no verify round: the plain decode step, bit
+        for bit a non-speculative engine's, so streams switch mid-flight
+        with no token changed."""
+        structured_on = bool((self._mask_state >= 0).any())
+        K = 1 if structured_on else self._sync_interval
         inj = get_fault_injector()
         if inj is not None:
             # serving fault points: stall the loop (watchdog bait), crash
@@ -1901,9 +2238,13 @@ class ServingEngine:
         if self._adapters_dirty:
             self._d_adapter_idx = self._upload(self._adapter_idx)
             self._adapters_dirty = False
+        if self._mask_rows_dirty:
+            self._sync_masks()
         k = self._spec_k
+        if k and self.degrade is not None and self.degrade.spec_disabled():
+            k = 0  # rung 1: no drafts, no verify rounds this window
         spec_round = [False] * K
-        grids = None
+        grids = guesses = None
         if k:
             histories: List[Optional[List[int]]] = [None] * self.num_slots
             win = getattr(self.drafter, "scan_window", None)
@@ -1911,14 +2252,22 @@ class ServingEngine:
                 req = self._slot_req[slot]
                 hist = req.prompt + req.generated
                 histories[slot] = hist if win is None else hist[-win:]
-            grids, spec_round, _ = build_draft_rounds(histories,
-                                                      self.drafter, k, K)
-        W = k + 1
+            grids, spec_round, guesses = build_draft_rounds(
+                histories, self.drafter, k, K)
+        # the packed read keeps the configured window width: a degraded
+        # window's decode steps fill column 0 of it
+        W = self._spec_k + 1
         steps = []
         for r in range(K):
             if spec_round[r]:
+                if structured_on:
+                    # before the grid uploads: the walk truncates it
+                    d_dm, d_g0 = self._build_round_masks(grids[r],
+                                                         guesses[r], k)
+                else:
+                    d_dm, d_g0 = self._d_free_dmask, self._d_no_guess
                 window, lps, acc = self._verify_fn(
-                    self._upload(grids[r].astype(np.int64)))
+                    self._upload(grids[r].astype(np.int64)), d_dm, d_g0)
                 self.metrics.count("spec_rounds")
             else:
                 toks, tok_lp = self._decode_fn()
@@ -1980,15 +2329,54 @@ class ServingEngine:
                         done = True
                         break
                     tok = int(toks[r, slot, j])
+                    if req.fsm is not None and tok < 0:
+                        # a grammar dead end: every token is masked at
+                        # this state (the sampler's -1); the request fails
+                        # typed (422) and the other slots decode on
+                        self.metrics.count("grammar_dead_ends")
+                        if K - 1 - r:
+                            self.metrics.count("wasted_decode_steps",
+                                               K - 1 - r)
+                        self._evict(slot, failed=(
+                            f"grammar dead end: every candidate token is "
+                            f"masked out at FSM state {req.fsm_state} "
+                            f"(after {len(req.generated)} tokens)"),
+                            kind="grammar")
+                        done = True
+                        break
                     first = not req.generated
                     req.append_token(tok, lp)
                     if first:
                         self.metrics.record_first_token(req.ttft)
+                        if self._slo_ttft_s is not None \
+                                and req.ttft > self._slo_ttft_s:
+                            self.metrics.count("slo_ttft_violations")
                     if j:
                         self.metrics.count("accepted_tokens")
                     self._lengths[slot] += 1
                     consumed[r] += 1
-                    if (tok == self.gen.eos_id
+                    fsm_done = False
+                    if req.fsm is not None:
+                        nxt = req.fsm.step(req.fsm_state, tok)
+                        if nxt < 0:
+                            # a masked sample is legal by construction:
+                            # an illegal commit means the host and device
+                            # masks diverged; fail, never emit it on
+                            self.metrics.count("grammar_dead_ends")
+                            if K - 1 - r:
+                                self.metrics.count("wasted_decode_steps",
+                                                   K - 1 - r)
+                            self._evict(slot, failed=(
+                                f"grammar violation: token {tok} is "
+                                f"illegal at FSM state {req.fsm_state}"),
+                                kind="grammar")
+                            done = True
+                            break
+                        req.fsm_state = nxt
+                        # no legal non-EOS continuation: finished here (a
+                        # model without EOS would dead-end next step)
+                        fsm_done = req.fsm.is_terminal(nxt)
+                    if (tok == self.gen.eos_id or fsm_done
                             or len(req.generated) >= req.max_new_tokens):
                         if K - 1 - r:
                             self.metrics.count("wasted_decode_steps",
@@ -1996,11 +2384,22 @@ class ServingEngine:
                         self._evict(slot)
                         done = True
                         break
+                    if req.fsm is not None \
+                            and self._mask_state[slot] != req.fsm_state:
+                        # a new state: its row uploads next window (a
+                        # self-loop keeps the resident row)
+                        self._set_slot_mask(slot, req)
             n_new = len(req.generated) - had
             prev = getattr(req, "_last_commit_t", None)
             if prev is not None and n_new:
                 self.metrics.record_inter_token((commit_t - prev) / n_new)
-            req._last_commit_t = commit_t
+                if self._slo_itl_s is not None \
+                        and commit_t - prev > self._slo_itl_s:
+                    # one check a slot a window, against the gap since
+                    # its previous commit window
+                    self.metrics.count("slo_itl_violations")
+            if n_new:
+                req._last_commit_t = commit_t
         # bytes the bracket moved this window, per step: one gather and
         # one scatter of the whole view per decode step, plus the
         # bracketed prefills since the last window

@@ -643,7 +643,9 @@ class SlotKVPool:
                 key: {"blocks": (list(ent.blocks)
                                  if self.blocks_enabled else None),
                       "length": (ent.length if self.blocks_enabled
-                                 else None)}
+                                 else None),
+                      "namespace": (getattr(ent, "namespace", None)
+                                    if self.blocks_enabled else None)}
                 for key, ent in self._retained.items()},
             "rolling": self.rolling,
         }

@@ -2,7 +2,8 @@
 (megatron_tpu/serving/metrics.py, with the counters and gauges of the
 core engine, the prefix cache, chunked prefill, preemption, speculative
 decoding, the front door (the router, SSE streams and the host KV tier),
-LoRA serving and live weights).
+LoRA serving, live weights, structured output, fan-out and the brownout
+ladder with its SLO accounting).
 
 Counters and latency reservoirs are updated from the engine loop and HTTP
 threads and snapshotted as plain floats for `/metrics`. Beside the
@@ -71,6 +72,21 @@ _BASE_COUNTERS = (
     # live weights: hot swaps applied, swaps refused or failed (the old
     # weights serve on each time), completed rolling fleet upgrades
     "weight_swaps", "weight_swap_failures", "rolling_upgrades",
+    # structured output and fan-out: grammar-constrained requests
+    # admitted (one a sample), per-slot mask rows written to the device
+    # (only when a slot's FSM state changes: a self-loop state reuses its
+    # row), requests failed typed (422) because every token was masked,
+    # fan-outs admitted and the samples they expanded into (each sample
+    # also counts in requests_received)
+    "structured_requests", "mask_uploads", "grammar_dead_ends",
+    "fanout_requests", "fanout_samples",
+    # the brownout ladder and SLO accounting: level changes (either
+    # direction), first tokens later than slo_ttft_ms, sync windows whose
+    # inter-token gap exceeded slo_itl_p99_ms, and the generated tokens
+    # of completed requests that met their TTFT SLO (all of them without
+    # an SLO)
+    "degrade_transitions", "slo_ttft_violations", "slo_itl_violations",
+    "goodput_tokens",
 )
 
 # gauges a snapshot always carries, by the attribute each is stored under.
@@ -81,7 +97,9 @@ _BASE_COUNTERS = (
 # kv_gather_bytes_per_step: the bytes the bracket moved per decode step
 # over the last sync window (0 on the other two paths);
 # fleet_replicas_up: the router's replicas in rotation (router-pushed);
-# active_adapters: device-resident LoRA adapters. Beside these every
+# active_adapters: device-resident LoRA adapters; degrade_level: the
+# brownout ladder's level (the router reports the fleet's maximum).
+# Beside these every
 # snapshot carries `weight_version`, the served checkpoint's iteration (0
 # until a versioned start or a swap), which the router reports as the
 # fleet's minimum with `weight_version_min`/`_max`.
@@ -91,7 +109,7 @@ _BASE_GAUGES = (
     "queue_depth", "active_slots", "num_slots",
     "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted",
     "kv_gather_bytes_per_step", "kv_attn_path", "fleet_replicas_up",
-    "active_adapters",
+    "active_adapters", "degrade_level",
 )
 
 
@@ -138,10 +156,15 @@ class ServingMetrics:
         with self._lock:
             self._itl.append(gap_s)
 
-    def record_completed(self, latency_s: float, gen_tokens: int):
+    def record_completed(self, latency_s: float, gen_tokens: int,
+                         good_tokens: Optional[int] = None):
+        """`good_tokens`: the SLO-conformant share of `gen_tokens` (the
+        goodput ledger); None counts every completed token."""
         with self._lock:
             self._counters["requests_completed"] += 1
             self._counters["tokens_generated"] += gen_tokens
+            self._counters["goodput_tokens"] += (
+                gen_tokens if good_tokens is None else good_tokens)
             self._req_latency.append(latency_s)
 
     def set_kv_gauges(self, blocks_used: int, blocks_retained: int,
@@ -168,6 +191,11 @@ class ServingMetrics:
         """Engine-pushed: device-resident LoRA adapters."""
         with self._lock:
             self.active_adapters = int(active)
+
+    def set_degrade_gauge(self, level: int) -> None:
+        """Engine-pushed on every brownout-ladder transition."""
+        with self._lock:
+            self.degrade_level = int(level)
 
     def set_weight_version(self, iteration) -> None:
         """Engine-pushed: the iteration of the weights being served."""

@@ -10,10 +10,11 @@ preempted request carries its resume state: `parked` (its
 KV copied out of the pool and its carried logits row), `resume_rng` and
 `resume_reject`. A LoRA request carries `adapter_id`, the `adapter_ns`
 (id, registration generation) it first ran under and the `bank_idx` it
-holds pinned. The fields of the features the port has not reached yet
-(structured output, n-best fan-out) stay present and inert, so that later
-slices keep one request type. The fan-out aggregate and the grammar error
-come with those slices.
+holds pinned. A structured request carries its compiled `fsm` and its
+`fsm_state` (host state, so it survives preemption, replay and restarts);
+an n-best fan-out's samples are plain requests aggregated by
+`FanoutRequest`, the siblings gating their admission on the leader's
+prompt KV (`fanout_leader`).
 """
 from __future__ import annotations
 
@@ -55,6 +56,17 @@ class RequestFailedError(RuntimeError):
     one of {DeadlineExceededError (504), ServiceUnavailableError (503,
     retryable), RequestFailedError (500)} or a typed submit-time
     rejection."""
+
+
+class GrammarDeadEndError(RuntimeError):
+    """A grammar-constrained request reached a state where EVERY
+    candidate token is masked out (the model must emit something, the
+    grammar admits nothing — e.g. max_new_tokens ran out mid-structure
+    with no legal stopping point, or the sampler returned the all-
+    banned sentinel). The request fails TYPED instead of sampling from
+    a renormalized-empty distribution; the HTTP layer maps this to
+    422 — the request was well-formed, the constrained generation is
+    unprocessable."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,8 +305,8 @@ class GenRequest:
     def fail(self, msg: str, kind: str = "error") -> bool:
         """`kind` picks the exception `result()` raises: "deadline" →
         DeadlineExceededError (504), "unavailable" →
-        ServiceUnavailableError (503), anything else →
-        RequestFailedError. Idempotent AND atomic: the first terminal
+        ServiceUnavailableError (503), "grammar" → GrammarDeadEndError
+        (422), anything else → RequestFailedError. Idempotent AND atomic: the first terminal
         transition wins (the watchdog and the engine loop may race to
         fail the same request — the lock makes the winner unique, so
         the terminal-accounting hook fires exactly once). Returns True
@@ -343,6 +355,9 @@ class GenRequest:
             if kind == "unavailable":
                 raise ServiceUnavailableError(
                     f"request {self.id}: {self.error}")
+            if kind == "grammar":
+                raise GrammarDeadEndError(
+                    f"request {self.id}: {self.error}")
             raise RequestFailedError(
                 f"request {self.id} failed: {self.error}")
         return self.prompt + self.generated, list(self.gen_logprobs)
@@ -352,3 +367,67 @@ class GenRequest:
         if self.first_token_time is None:
             return None
         return self.first_token_time - self.submit_time
+
+
+class FanoutRequest:
+    """Aggregate handle over an n-best fan-out's child GenRequests
+    (engine.submit with best_of > 1): ONE prompt, `best_of` independently
+    seeded decode streams sharing the prompt's physical KV blocks
+    copy-on-write, of which the `n` highest-scoring completions are
+    returned. Each child is a full GenRequest (its own slot, seed
+    `seed + i`, terminal accounting) — this wrapper only aggregates.
+
+    Ranking: cumulative generated logprob, descending (ties break on
+    sample index for determinism). With n == best_of the ranking is a
+    stable reorder of all samples."""
+
+    def __init__(self, children: List[GenRequest], n: int):
+        assert children, "fan-out with no samples"
+        assert 1 <= n <= len(children), (n, len(children))
+        self.children = list(children)
+        self.n = int(n)
+        self.best_of = len(children)
+        self.id = children[0].id
+        self.prompt = children[0].prompt
+
+    def done(self) -> bool:
+        return all(c.done() for c in self.children)
+
+    def cancel(self) -> None:
+        for c in self.children:
+            c.cancel()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        for c in self.children:
+            rem = (None if deadline is None
+                   else max(deadline - time.monotonic(), 0.0))
+            if not c._done.wait(rem):
+                return False
+        return True
+
+    def result(self, timeout: Optional[float] = None):
+        """Block until every sample resolves; returns (tokens_list,
+        logprobs_list) — the n best completions, each entry the same
+        (prompt + generated, logprobs) shape a plain GenRequest's
+        result() has. If fewer than n samples completed, the first
+        failed child's typed error propagates (so a deadline/grammar/
+        crash death keeps its HTTP status)."""
+        if not self.wait(timeout):
+            pending = [c.id for c in self.children if not c.done()]
+            raise TimeoutError(f"fan-out {self.id}: samples {pending} "
+                               "still running")
+        completed, first_error = [], None
+        for c in self.children:
+            try:
+                toks, lps = c.result(timeout=0)
+                completed.append((c.sample_index, toks, lps))
+            except Exception as e:  # noqa: BLE001 — typed, re-raised below
+                if first_error is None:
+                    first_error = e
+        if len(completed) < self.n:
+            raise first_error
+        completed.sort(key=lambda t: (-sum(t[2]), t[0]))
+        top = completed[:self.n]
+        return [t[1] for t in top], [t[2] for t in top]

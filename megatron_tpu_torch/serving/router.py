@@ -46,8 +46,11 @@ thread to die, and every future a caller waits on resolves).
 - `register_adapter` registers an adapter on every replica, so a failover
   can resume an adapter request anywhere.
 
-Remote replicas come with a later slice: `affinity_digest` raises
-NotImplementedError.
+A request's `response_format` rides to the replica, which compiles it at
+admission (a failover replays the same constrained stream); fan-out
+(`n`/`best_of` > 1) is refused with an AdmissionError, as the reference
+refuses it. Remote replicas come with a later slice: `affinity_digest`
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -71,8 +74,10 @@ _SUM_GAUGES = ("queue_depth", "active_slots", "num_slots",
                "kv_blocks_used", "kv_blocks_retained", "kv_bytes_wasted",
                "active_adapters")
 # engine gauges reported as the worst replica: per-step readings and the
-# attention path, which summing would turn into values no replica has
-_MAX_GAUGES = ("kv_gather_bytes_per_step", "kv_attn_path")
+# attention path, which summing would turn into values no replica has,
+# and the brownout level (max by contract: a fleet scrape reports its
+# most-degraded replica)
+_MAX_GAUGES = ("kv_gather_bytes_per_step", "kv_attn_path", "degrade_level")
 # gauges the router sets itself on the aggregate snapshot
 _ROUTER_GAUGES = ("fleet_replicas_up",)
 
@@ -464,7 +469,8 @@ class EngineRouter:
                     priority=spec["priority"],
                     deadline_s=spec["deadline_s"],
                     arrival_id=rreq.arrival_id,
-                    adapter_id=spec["adapter_id"])
+                    adapter_id=spec["adapter_id"],
+                    response_format=spec["response_format"])
             except AdmissionError:
                 with self._lock:
                     if rep.canary is rreq:
@@ -497,11 +503,23 @@ class EngineRouter:
                seed: int = 0, priority: int = 0,
                deadline_s: Optional[float] = None,
                arrival_id: Optional[int] = None,
-               adapter_id=None) -> RouterRequest:
+               adapter_id=None, response_format=None, n: int = 1,
+               best_of: Optional[int] = None) -> RouterRequest:
+        """Route one request. `response_format` rides to the replica (each
+        attempt compiles the grammar at admission, so a failover replays
+        the same constrained stream). Fan-out is refused: the retry pump
+        fronts one GenRequest, and a FanoutRequest has no state for it to
+        read."""
+        if (best_of or n or 1) > 1:
+            raise AdmissionError(
+                "parallel sampling (n/best_of > 1) is not supported "
+                "behind the EngineRouter; submit to a replica engine "
+                "directly or fan out client-side with n=1 requests")
         rreq = RouterRequest(self, dict(
             prompt=list(prompt), max_new_tokens=int(max_new_tokens),
             sampling=sampling, seed=int(seed), priority=int(priority),
-            deadline_s=deadline_s, adapter_id=adapter_id))
+            deadline_s=deadline_s, adapter_id=adapter_id,
+            response_format=response_format))
         if arrival_id is not None:
             rreq.arrival_id = int(arrival_id)
         # requests_received is counted by the replica each attempt lands
@@ -521,6 +539,9 @@ class EngineRouter:
 
     @property
     def engines(self) -> List:
+        """The replica engines in index order: the invariant checker's
+        walk (serving/invariants.py sweeps each, then the router-level
+        laws)."""
         return [rep.engine for rep in self.replicas]
 
     def queue_depth(self) -> int:
@@ -660,6 +681,9 @@ class EngineRouter:
                     "active_slots": int(h.get("active_slots", 0)),
                     "service_time_ewma_ms":
                         float(h.get("service_time_ewma_ms", 0.0)),
+                    # which replica is shedding service (the aggregate
+                    # /metrics reports the max)
+                    "degrade_level": int(h.get("degrade_level", 0)),
                     # mixed versions are visible mid-rollout
                     "weight_version": h.get("weight_version", "unversioned"),
                     "upgrading": rep.upgrading,

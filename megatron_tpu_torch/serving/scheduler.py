@@ -124,6 +124,13 @@ class AdmissionScheduler:
         est = self._service_ewma * max(depth, 1) / self.num_slots
         return max(1, min(int(math.ceil(est)), 60))
 
+    def retry_after_hint(self) -> int:
+        """The backoff hint for refusals decided outside the scheduler
+        (the engine's brownout sheds): the same clamped [1, 60] s
+        estimate a queue-full refusal carries."""
+        with self._lock:
+            return self._retry_after_locked(len(self._q))
+
     # ---- admission ---------------------------------------------------
     def check_admissible(self, req: GenRequest):
         """Length admission check, shared with the engine's
@@ -168,6 +175,45 @@ class AdmissionScheduler:
             self._q.append(req)
         self.notify()
         return req
+
+    def submit_many(self, reqs: List[GenRequest]) -> List[GenRequest]:
+        """All-or-nothing admission of an n-best fan-out's samples: a
+        partly admitted fan-out would return fewer samples than asked
+        for. The bound covers the whole group; the shed estimate runs on
+        the first sample (the samples share one deadline and one queue
+        position)."""
+        assert reqs, "empty fan-out"
+        for r in reqs:
+            self.check_admissible(r)
+        with self._lock:
+            if self._closed:
+                raise EngineUnhealthyError(
+                    "engine unavailable (queue closed by drain or "
+                    "circuit breaker); retry against another replica")
+            depth = len(self._q)
+            if depth + len(reqs) > self.max_queue:
+                raise QueueFullError(
+                    f"request queue full ({depth} + {len(reqs)}-sample "
+                    f"fan-out exceeds {self.max_queue}); retry later",
+                    retry_after=self._retry_after_locked(depth),
+                    queue_depth=depth)
+            if self.shed_on_overload:
+                head = reqs[0]
+                est = self._estimate_delay_locked(head)
+                ad = head.absolute_deadline(self.default_deadline_s)
+                if est is not None and ad is not None \
+                        and head.submit_time + est > ad:
+                    budget = ad - head.submit_time
+                    raise OverloadShedError(
+                        f"overloaded: estimated queue delay {est:.1f}s "
+                        f"exceeds the fan-out deadline ({budget:.1f}s); "
+                        "shed early — retry later or against another "
+                        "replica",
+                        retry_after=max(1, int(math.ceil(est - budget))),
+                        queue_depth=depth)
+            self._q.extend(reqs)
+        self.notify()
+        return reqs
 
     def pop_ready(self, n: int) -> List[GenRequest]:
         """Up to n non-cancelled requests in (priority, deadline,

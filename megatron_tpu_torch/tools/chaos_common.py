@@ -1,15 +1,16 @@
-"""Shared scaffolding of the port's chaos drills (the parts of the root
-tools/chaos_common.py that tools/chaos_router.py uses): a tiny router over
-replicas of one tiny model, a serial oracle, and the outcome resolvers
-that count every future as resolved or stranded.
-
-The reference's drills also sweep `serving/invariants.py`; the port's
-invariant checker comes with a later slice (ROADMAP Queue 1 item 6), so
-the port's drills assert their own scenario contracts only.
+"""Shared scaffolding of the port's chaos drills (the root
+tools/chaos_common.py without its multi-process fleet helpers, which come
+with remote replicas): a tiny engine and a tiny router over replicas of
+one tiny model, LoRA adapters for them, serial oracles, the outcome
+resolvers that count every future as resolved or stranded, checkpoint
+publishes (a good one and a corrupted one), and the invariant sweep
+(serving/invariants.py) every drill ends with.
 """
 from __future__ import annotations
 
+import glob
 import json
+import os
 from typing import Optional
 
 import torch
@@ -17,8 +18,10 @@ import torch
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
-def tiny_model_cfg(compute: str = "float32", hidden: int = 64):
-    """The drills' tiny model: 2 layers, vocab 128, 128 positions."""
+def tiny_model_cfg(compute: str = "float32", hidden: int = 128):
+    """The drills' tiny model: 2 layers, vocab 128, 128 positions, two
+    query heads over one kv head of 64 dims (a head dim the card's kernels
+    take, so the drills run there as on the CPU)."""
     from megatron_tpu_torch.config import ModelConfig
     return ModelConfig(num_layers=2, hidden_size=hidden,
                        num_attention_heads=2, num_kv_heads=1,
@@ -39,6 +42,54 @@ def tiny_generator(cfg, device: DeviceLike = None, seed: int = 0):
     model = LanguageModel(cfg, device=device, seed=seed)
     return Generator(model, cfg, eos_id=-1, pad_id=0, device=device,
                      kv_cache_dtype=torch.float32)
+
+
+def tiny_engine(serving_kwargs: dict, device: DeviceLike = None,
+                gen=None):
+    """(engine, generator) over the tiny model (or over `gen`, a
+    Generator the caller built)."""
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.serving import ServingEngine
+    device = resolve_device(device)
+    if gen is None:
+        gen = tiny_generator(tiny_model_cfg(), device)
+    serving = ServingConfig(**serving_kwargs).validate(gen.cfg)
+    return ServingEngine(gen, serving, device=device), gen
+
+
+def pool_mode(block: int, kernel: bool) -> dict:
+    """Serving kwargs of the drilled pool layout: the block pool (the
+    production layout) with the block kernel where legal, or the
+    whole-region pool with block 0."""
+    kw = {}
+    if block:
+        kw["kv_block_size"] = int(block)
+        if kernel:
+            kw["block_native_attn"] = True
+    return kw
+
+
+def make_adapters(cfg, n_adapters: int, rank: int = 4) -> dict:
+    """n random nonzero adapters (seeded) -> {adapter_id: factors}."""
+    from megatron_tpu_torch.serving.adapters import random_adapter_factors
+    return {f"tenant-{a}": random_adapter_factors(cfg, rank, 1000 + a)
+            for a in range(n_adapters)}
+
+
+def adapter_generators(gen, adapters: dict, rank: int, alpha: float):
+    """{adapter_id: Generator} over the base weights with each adapter
+    merged in (training/lora.py merge_lora; exact against the factored
+    serving path in fp32), with None -> `gen` itself."""
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.training.lora import merge_lora
+    out = {None: gen}
+    for aid, factors in adapters.items():
+        out[aid] = Generator(merge_lora(gen.params, factors, gen.cfg, rank,
+                                        alpha),
+                             gen.cfg, eos_id=gen.eos_id, pad_id=gen.pad_id,
+                             device=gen.device,
+                             kv_cache_dtype=gen.kv_cache_dtype)
+    return out
 
 
 def tiny_router(serving_kwargs: dict, n_replicas: int = 2,
@@ -118,6 +169,49 @@ def resolve_exact(reqs, want, timeout: float = 120.0):
         except Exception:  # noqa: BLE001 — typed enough: it resolved
             out["error"] += 1
     return out, exact
+
+
+def publish_checkpoint(root: str, model, cfg, iteration: int) -> str:
+    """One manifest-sealed checkpoint publish of `model` (a
+    LanguageModel), as a trainer would write it; returns its directory."""
+    from megatron_tpu_torch.config import MegatronConfig
+    from megatron_tpu_torch.training.checkpointing import save_checkpoint
+    from megatron_tpu_torch.training.train_step import TrainState
+    return save_checkpoint(
+        root, TrainState(params=model, opt_state=None, iteration=iteration),
+        MegatronConfig(model=cfg), iteration)
+
+
+def corrupt_payload(ckpt_dir: str) -> str:
+    """Flip one byte of the largest payload file: the torn or bit-rotted
+    publish the manifest gate must refuse."""
+    files = [p for p in glob.glob(os.path.join(ckpt_dir, "**"),
+                                  recursive=True)
+             if os.path.isfile(p) and os.path.basename(p) != "manifest.json"]
+    target = max(files, key=os.path.getsize)
+    with open(target, "r+b") as f:
+        b0 = f.read(1)
+        f.seek(0)
+        f.write(bytes([b0[0] ^ 0xFF]))
+    return target
+
+
+def invariant_sweep(target, reqs=(), oracles=(), strict: bool = True,
+                    timeout: float = 120.0) -> dict:
+    """`invariants.check_all` without raising: the report (its "ok" and
+    "violations"), which a drill puts in its record beside its own
+    checks. The strict sweep reads engine-thread accounting, so it waits
+    for the grid to go quiet first; a sweep that raises is a finding."""
+    from megatron_tpu_torch.serving import invariants
+    try:
+        if strict:
+            invariants.wait_quiesced(target, timeout=min(timeout, 30.0))
+        return invariants.check_all(target, requests=reqs, oracles=oracles,
+                                    strict=strict, timeout=timeout,
+                                    raise_on_violation=False)
+    except Exception as e:  # noqa: BLE001 — a crashed sweep is a finding
+        return {"ok": False,
+                "violations": [f"[sweep-crash] {type(e).__name__}: {e}"]}
 
 
 def emit_record(record: dict, out: Optional[str], seed=0) -> str:

@@ -19,11 +19,12 @@ strands and no token moves.
    bytes are flipped and the next hit is a checksum miss
    (`host_tier_checksum_misses`) that recomputes, still token-exact.
 
-Drills 4 and 5 of the reference (a disaggregated replica losing its
-prefill or decode half, a pipeline-sharded replica losing a stage) need
-the serving topology (ROADMAP Queue 1 item 7) and raise
-NotImplementedError. The reference's invariant sweep comes with the
-invariant checker (item 6).
+Each drill ends with the invariant sweep (serving/invariants.py
+`check_all` over the router: every replica's engine laws, then the
+router's degraded-not-down and aggregate-schema laws). Drills 4 and 5 of
+the reference (a disaggregated replica losing its prefill or decode half,
+a pipeline-sharded replica losing a stage) need the serving topology
+(ROADMAP Queue 1 item 7) and raise NotImplementedError.
 
 Prints one JSON record and exits 0 when every drill held.
 
@@ -36,7 +37,9 @@ import argparse
 import sys
 import time
 
-from megatron_tpu_torch.tools.chaos_common import (emit_record, resolve_exact,
+from megatron_tpu_torch.tools.chaos_common import (emit_record,
+                                                   invariant_sweep,
+                                                   resolve_exact,
                                                    serial_oracle, tiny_router)
 
 _DRILLS_4_5 = ("the serving topology (ROADMAP Queue 1 item 7): a "
@@ -70,6 +73,7 @@ def kill_drill(new_tokens: int, device=None) -> dict:
         snap = router.aggregate_snapshot()
         post = router.submit([9, 9, 8], 4, sampling, seed=99)
         post_exact = post.result(timeout=60)[0] == want([9, 9, 8], 4)
+        inv = invariant_sweep(router, [r for r, _, _ in reqs] + [post])
     finally:
         router.close()
     return {
@@ -80,11 +84,13 @@ def kill_drill(new_tokens: int, device=None) -> dict:
         "health_state": health["state"],
         "healthz_ready": bool(health["healthy"]),
         "post_kill_serve_exact": post_exact,
+        "invariants_ok": inv["ok"],
+        "invariant_violations": inv["violations"],
         "ok": (outcomes["stranded"] == 0 and outcomes["error"] == 0
                and outcomes["ok"] == len(reqs) and exact
                and int(snap["router_failovers"]) >= 1
                and health["state"] == "degraded" and health["healthy"]
-               and post_exact),
+               and post_exact and inv["ok"]),
     }
 
 
@@ -135,6 +141,7 @@ def wedge_drill(new_tokens: int, timeout_s: float, stall_s: float,
                 pass
             time.sleep(0.05)
         health = router.health()
+        inv = invariant_sweep(router, [r for r, _, _ in reqs])
     finally:
         router.close()
     return {
@@ -146,8 +153,10 @@ def wedge_drill(new_tokens: int, timeout_s: float, stall_s: float,
         "wedged_fired": bool(fired),
         "recovered_both_up": recovered,
         "health_state": health["state"],
+        "invariants_ok": inv["ok"],
+        "invariant_violations": inv["violations"],
         "ok": (outcomes["stranded"] == 0 and outcomes["error"] == 0
-               and exact and bool(fired) and recovered),
+               and exact and bool(fired) and recovered and inv["ok"]),
     }
 
 
@@ -185,9 +194,10 @@ def host_tier_drill(new_tokens: int, device=None) -> dict:
             if ent.length >= 16:
                 ent.arrays["k"].view(np.uint8).flat[0] ^= 0xFF
         p2 = prefix + [92, 93]
-        exact2 = router.submit(p2, new_tokens, sampling,
-                               seed=2).result(60)[0] == want(p2, new_tokens)
+        r2 = router.submit(p2, new_tokens, sampling, seed=2)
+        exact2 = r2.result(60)[0] == want(p2, new_tokens)
         snap2 = router.aggregate_snapshot()
+        inv = invariant_sweep(router, [r1, r2])
     finally:
         router.close()
     return {
@@ -199,9 +209,12 @@ def host_tier_drill(new_tokens: int, device=None) -> dict:
         "host_tier_checksum_misses": int(snap2["host_tier_checksum_misses"]),
         "clean_restore_exact": exact1,
         "corrupt_restore_exact": exact2,
+        "invariants_ok": inv["ok"],
+        "invariant_violations": inv["violations"],
         "ok": (demoted and affinity >= 16 and routed_to_warm
                and int(snap1["host_tier_hits"]) >= 1 and exact1
-               and int(snap2["host_tier_checksum_misses"]) >= 1 and exact2),
+               and int(snap2["host_tier_checksum_misses"]) >= 1 and exact2
+               and inv["ok"]),
     }
 
 

@@ -124,6 +124,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="how long a hot swap waits for in-flight work "
                         "before it is refused")
     # flags of later slices: they parse and raise
+    p.add_argument("--degrade_ladder", type=int, default=0,
+                   help="the brownout ladder's top rung: 1 no speculation, "
+                        "2 clamps best_of and max_new_tokens, 3 sheds "
+                        "priority 0, 4 sheds all (0: no ladder)")
+    p.add_argument("--slo_ttft_ms", type=float, default=None,
+                   help="TTFT SLO: later first tokens count "
+                        "slo_ttft_violations and leave goodput_tokens")
+    p.add_argument("--slo_itl_p99_ms", type=float, default=None,
+                   help="inter-token SLO: longer gaps count "
+                        "slo_itl_violations")
     p.add_argument("--serving_tp", type=int, default=1)
     p.add_argument("--disaggregate_prefill", action="store_true")
     p.add_argument("--replica_mode", action="store_true")
@@ -153,6 +163,8 @@ def serving_config(args, num_slots: int):
         host_kv_bytes=args.host_kv_bytes, stream_ttl_s=args.stream_ttl_s,
         adapter_slots=args.adapter_slots, adapter_rank=args.adapter_rank,
         adapter_host_bytes=args.adapter_host_bytes,
+        degrade_ladder=args.degrade_ladder, slo_ttft_ms=args.slo_ttft_ms,
+        slo_itl_p99_ms=args.slo_itl_p99_ms,
         serving_tp=args.serving_tp,
         disaggregate_prefill=args.disaggregate_prefill,
         watch_checkpoints=args.load if args.watch_checkpoints else None,

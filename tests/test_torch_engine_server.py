@@ -120,17 +120,20 @@ def test_short_request_returns_before_long(block_server):
 
 
 LATER = {
-    "n": {"prompts": ["hi"], "n": 2},
+    "n": {"prompts": ["hi"], "n": 2, "best_of": 1},
     "best_of": {"prompts": ["hi"], "best_of": 3},
     "response_format": {"prompts": ["hi"],
                         "response_format": {"type": "regex",
-                                            "pattern": "a+"}},
+                                            "pattern": "("}},
     "adapter_id": {"prompts": ["hi"], "adapter_id": "a"},
     "prompt_tokens": {"prompt_tokens": [[5, 6]]},
 }
-# the fields whose slice has come: still a 400 on this adapterless engine,
-# now saying why
-LATER_PORTED = {"adapter_id": "serving no adapters"}
+# the fields whose slice has come: still a 400 for these payloads on this
+# 2-slot adapterless engine, now saying why
+LATER_PORTED = {"adapter_id": "serving no adapters",
+                "n": "must be <= best_of",
+                "best_of": "exceeds the engine's 2 slots",
+                "response_format": "does not compile"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER))
