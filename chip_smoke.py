@@ -138,10 +138,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    serial greedy tokens equal to the in-process Generator's, an engine
    burst (flash and block kernels at hd 64, one kv head) and the export
    round trip. Bytes and seconds of each part are printed beside the card.
-10. sliding window and supervisor (`phase_window_supervisor`): see its
-   docstring.
+10. sliding window and supervisor (`phase_window_supervisor`), at
+   WINDOW_LAYERS layers: see its docstring.
 11. engine throughput features (`phase_engine_features`): Llama-2-7B at
-   full width and depth (random bf16 weights, seed FEATURE_SEED) behind
+   full width and FEATURE_LAYERS layers (random bf16 weights, seed
+   FEATURE_SEED) behind
    the engine route, ENGINE_SERVING plus each arm's fields, launch counts
    zeroed before each arm and read after it; every request returns 200
    with finite logprobs. (a) prefix cache: a miss of FEATURE_PREFIX shared
@@ -163,7 +164,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    parked, replayed and unpreempted equal; a seeded sampled stream under
    speculative_k equal alone and among 7 others.
 12. the front door (`phase_front_door`): Llama-2-7B at full width and
-   depth (random bf16, seed FRONT_SEED), ENGINE_SERVING with the prefix
+   FRONT_LAYERS layers (random bf16, seed FRONT_SEED), ENGINE_SERVING with the prefix
    cache. (a) two replicas behind the router (`num_replicas=2`) on HTTP:
    16 requests over 4 groups of a FRONT_PREFIX-token prefix, in two waves
    (wave 2 all prefix hits, routed by affinity); per replica picks, hits,
@@ -198,10 +199,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    adapters registered by path into a bank of 2 rows: evictions demote to
    the host, a re-request is a host hit, serve_adapter_corrupt forces a
    checksum miss and the reload from disk gives equal tokens. (c)
-   `finetune.main --lora_rank 16` at 7B width and 8 layers, 10 iterations:
+   `finetune.main --lora_rank 16` at 7B width and 4 layers, 10 iterations:
    the flash forward, dQ and dK/dV launch counts advance, the kernels are
    held on the training's live inputs, the adapter lowers the first
-   batch's loss, and its export serves on an 8-layer engine. (d) 8-layer
+   batch's loss, and its export serves on a 4-layer engine. (d) 4-layer
    checkpoints N and N+1 published by save_checkpoint; a swap to N+1 while
    8 requests stream and 8 more wait in the hold: each wave equals an
    engine holding only its version, nothing is rejected, old prefixes
@@ -235,12 +236,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    serial n=1 generates; rung 2's clamp and rung 1 mid-stream change no
    token; tools/chaos_serve.py's three drills and tools/chaos_upgrade.py's
    drills 1-2, each ending in a strict invariant sweep.
+15. Remote replicas (`phase_fleet`): Llama-2-7B at full width and depth
+   (bf16, seed FLEET_SEED) in replica server processes (`tools/
+   chaos_fleet.py --serve_replica`, the replica-mode MegatronServer),
+   FLEET_SERVING (ENGINE_SERVING, the prefix cache, each request prefilled
+   alone), behind a fleet front tier in this process that holds no
+   weights, all over HTTP on 127.0.0.1. (a) /healthz shows two replicas;
+   (b) 16 requests (8 of them SSE streams) over four 1,024-token prefixes,
+   each warmed on one replica only: the affinity digest sends every
+   request to its prefix's replica (8 prefix hits on each); (c) a replica
+   SIGKILLed while its requests decode: they fail over, /healthz stays
+   accepting with one replica up, the fleet's strict /invariants lists the
+   dead address under `unreachable`, a respawn on its port is re-admitted
+   through the canary; (d) a replica SIGSTOPped: the front tier's read
+   timeouts eject it, its requests fail over, SIGCONT and re-admission;
+   (e) the fleet's strict invariant sweep green. The completions of
+   (b)-(d) equal one replica process's (the reference process R).
+   tools/serving_bench.py --url --stream against the two-process fleet and
+   against R alone: tokens/s, TTFT p50/p99, inter-token p50. Each replica
+   writes its launch counts at its SIGTERM shutdown; every surviving one
+   must show kernels 1 and 4. (f) a 2-layer fp32 slice in two replica
+   processes, one SIGKILLed under traffic: every completion equals the
+   serial route of the same weights here. No child outlives the phase.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-14
-too, the block kernel's on phases 9 and 11-14 too, its verify rounds at
-w 5 on phases 11, 13 and 14) and, last, {"ok": true, "device": ...}.
+the norm kernels' on every path above, the flash kernels' on phases 8-15
+too, the block kernel's on phases 9 and 11-15 too, its verify rounds at
+w 5 on phases 11, 13 and 14; phase 15's counts are the replica processes'
+whole lives) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -3710,10 +3734,13 @@ def phase_toolchain(smi: str) -> dict:
     return stats
 
 
-# Phase 10: Mistral-7B-v0.1's published shape (32 layers, h 4096, 32/8
-# heads, ffn 14336, vocab 32000, window 4096, rope theta 1e4, RMSNorm eps
-# 1e-5, untied head) through llama2_config("7b", ...) overrides, with random
-# bf16 weights from a seed. max_len 8192: the region rolls at 4096 tokens.
+# Phase 10: Mistral-7B-v0.1's published shape (h 4096, 32/8 heads, ffn
+# 14336, vocab 32000, window 4096, rope theta 1e4, RMSNorm eps 1e-5, untied
+# head) through llama2_config("7b", ...) overrides, with random bf16 weights
+# from a seed, cut to WINDOW_LAYERS of its 32 layers (the whole smoke's time
+# limit; the width is not cut). max_len 8192: the region rolls at 4096
+# tokens.
+WINDOW_LAYERS = 16
 MISTRAL_7B = dict(num_kv_heads=8, ffn_hidden_size=14336, sliding_window=4096,
                   seq_length=8192, max_position_embeddings=8192,
                   rope_theta=1e4, norm_epsilon=1e-5)
@@ -3732,7 +3759,7 @@ WINDOW_NEW = [64 + (192 * i) // 7 for i in range(8)]
 WINDOW_SERVING = dict(num_slots=8, max_len=8192)
 WINDOW_ARMS = {"rolling": dict(), "bracketed": dict(kv_block_size=16),
                "int8": dict(kv_dtype="int8")}
-# (d) the supervisor drill on the rolling engine at full depth
+# (d) the supervisor drill on the rolling engine of WINDOW_LAYERS layers
 SUPERVISOR_SERVING = dict(num_slots=2, max_len=8192,
                           engine_step_timeout_s=5.0, max_engine_restarts=2)
 SUPERVISOR_STALL_S = 8.0
@@ -3855,7 +3882,7 @@ def check_window_slice() -> dict:
 
 
 def supervisor_drill(gen, smi: str) -> dict:
-    """(d) on the rolling engine at full depth, under one FaultInjector:
+    """(d) on the rolling engine (WINDOW_LAYERS), under one FaultInjector:
     a crash (the slotted requests fail typed, the queued one is served with
     a fault-free run's tokens), a stall past engine_step_timeout_s (the
     watchdog fails the in-flight requests, the engine restarts and serves
@@ -4103,8 +4130,8 @@ def watchdog_drill(smi: str) -> dict:
 
 
 def phase_window_supervisor(smi: str) -> dict:
-    """Phase 10: Mistral-7B-v0.1's shape (MISTRAL_7B) with random bf16
-    weights: (a) the serial route on the bf16 and the int8 ring with a
+    """Phase 10: Mistral-7B-v0.1's shape (MISTRAL_7B) at WINDOW_LAYERS
+    layers with random bf16 weights: (a) the serial route on the bf16 and the int8 ring with a
     prompt longer than the window; (b) + the fp32 half of (c) on a 2-layer
     fp32 slice (check_window_slice); (c) the rolling, bracketed and int8
     rolling engine arms; (d) the supervisor drill; (e) runs inside phase 9
@@ -4126,7 +4153,7 @@ def phase_window_supervisor(smi: str) -> dict:
           "phase 10: phase 9's model was not freed")
     t_phase = time.perf_counter()
     stats = dict(card=smi)
-    cfg = llama2_config("7b", **MISTRAL_7B)
+    cfg = llama2_config("7b", num_layers=WINDOW_LAYERS, **MISTRAL_7B)
     L = cfg.num_layers
     t0 = time.perf_counter()
     model = LanguageModel(cfg, dtype=torch.bfloat16, seed=WINDOW_SEED)
@@ -4171,7 +4198,7 @@ def phase_window_supervisor(smi: str) -> dict:
                                tol=WINDOW_LOGPROB_TOL)
         log("window (a): " + json.dumps(stats["serial"]) + f" [{smi}]")
 
-        # (c) the engine arms at full depth
+        # (c) the engine arms
         prompts = window_prompts(WINDOW_SEED + 1, cfg.vocab_size)
         check(sum(n > MISTRAL_7B["sliding_window"] for n in WINDOW_PROMPTS)
               == 3, "three prompts must be longer than the window")
@@ -4231,8 +4258,9 @@ def phase_window_supervisor(smi: str) -> dict:
 
 
 # Phase 11: the engine's throughput features on Llama-2-7B at full width and
-# depth (ENGINE_SERVING plus each arm's fields), random bf16 weights (seed
-# 0). (a) prefix cache: a miss of FEATURE_PREFIX shared tokens + 64, then 7
+# FEATURE_LAYERS of its 32 layers (the whole smoke's time limit; the width is
+# not cut) (ENGINE_SERVING plus each arm's fields), random bf16 weights
+# (seed 0). (a) prefix cache: a miss of FEATURE_PREFIX shared tokens + 64, then 7
 # hits; a second wave on the retained entries. (b) chunked prefill: a
 # 1,900-token prompt arrives while 7 streams decode, beside the unchunked
 # engine. (c) preemption: 8 priority-0 streams fill the grid, 2
@@ -4240,6 +4268,7 @@ def phase_window_supervisor(smi: str) -> dict:
 # drafter, and one proposing the k-0 arm's greedy streams) beside k 0 on 8
 # prompts that repeat a 32-token span.
 FEATURE_SEED = 0
+FEATURE_LAYERS = 16
 FEATURE_PREFIX = 1536
 FEATURE_SUFFIXES = [64] + [64 + (136 * i) // 6 for i in range(7)]
 FEATURE_NEW = 32
@@ -4889,8 +4918,8 @@ def check_features_slice() -> dict:
 
 
 def phase_engine_features(smi: str) -> dict:
-    """Phase 11: (a)-(d) on Llama-2-7B at full width and depth behind the
-    engine route, launch counts zeroed before each arm and read after it;
+    """Phase 11: (a)-(d) on Llama-2-7B at full width and FEATURE_LAYERS
+    layers behind the engine route, launch counts zeroed before each arm and read after it;
     (e) the 2-layer fp32 slice."""
     import gc
     import torch
@@ -4904,7 +4933,7 @@ def phase_engine_features(smi: str) -> dict:
     check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
           "phase 11: phase 10's model was not freed")
     t_phase = time.perf_counter()
-    cfg = llama2_config("7b")
+    cfg = llama2_config("7b", num_layers=FEATURE_LAYERS)
     model = LanguageModel(cfg, dtype=torch.bfloat16, seed=FEATURE_SEED)
     tok = ByteTokenizer()
     gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
@@ -4944,8 +4973,9 @@ def phase_engine_features(smi: str) -> dict:
     return stats
 
 
-# Phase 12, the front door: Llama-2-7B at full width and depth (random bf16
-# weights, seed FRONT_SEED) behind MegatronServer, ENGINE_SERVING with the
+# Phase 12, the front door: Llama-2-7B at full width, FRONT_LAYERS of its 32
+# layers (the whole smoke's time limit; the width is not cut), random bf16
+# weights (seed FRONT_SEED), behind MegatronServer, ENGINE_SERVING with the
 # prefix cache (`front_server`). Group prefixes of FRONT_PREFIX tokens; a
 # request is a group's prefix and its own suffix (each starting with its
 # own character, so a hit is exactly the prefix). The parts (b)-(d) send prefix hits on prefixes warmed alone
@@ -4954,6 +4984,7 @@ def phase_engine_features(smi: str) -> dict:
 # requests it ran beside, and a failed-over request regenerates the
 # one-replica run's tokens bit for bit, sampled ones too (seeded).
 FRONT_SEED = 0
+FRONT_LAYERS = 16
 FRONT_GROUPS = 4
 FRONT_PREFIX = 1024
 FRONT_NEW = 128
@@ -5668,7 +5699,8 @@ def check_front_slice() -> dict:
 
 
 def phase_front_door(smi: str) -> dict:
-    """Phase 12: (a)-(e) on Llama-2-7B at full width and depth behind
+    """Phase 12: (a)-(e) on Llama-2-7B at full width and FRONT_LAYERS
+    layers behind
     MegatronServer: two replicas behind the router (a)-(d), then one engine
     with the host tier (e), then one replica with the same config for the
     comparison and the completions the failed-over, wedged and streamed
@@ -5687,7 +5719,7 @@ def phase_front_door(smi: str) -> dict:
     check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
           "phase 12: phase 11's model was not freed")
     t_phase = time.perf_counter()
-    cfg = llama2_config("7b")
+    cfg = llama2_config("7b", num_layers=FRONT_LAYERS)
     model = LanguageModel(cfg, dtype=torch.bfloat16, seed=FRONT_SEED)
     tok = ByteTokenizer()
     gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
@@ -5856,7 +5888,7 @@ PRESSURE_ADAPTERS = 4
 PRESSURE_NEW = 16
 LORA_FT_ITERS = 10
 LORA_FT_LR = "1e-3"
-LIVE_LAYERS = 8
+LIVE_LAYERS = 4
 LIVE_SEEDS = (13, 14)  # the weights of versions N and N+1
 LIVE_REQUESTS = 8
 LIVE_PROMPT = 200
@@ -7317,6 +7349,576 @@ def phase_structured_degrade(smi: str) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------
+# phase 15: remote replicas
+# ---------------------------------------------------------------------
+FLEET_SEED = 0
+# each request prefilled alone and the decode grid fixed: a request's bf16
+# tokens then depend on none of its neighbours, so the fleet's completions
+# can be held to one replica process's
+FLEET_SERVING = dict(ENGINE_SERVING, enable_prefix_cache=True,
+                     prefill_max_batch=1)
+FLEET_NEW = 64
+FLEET_STREAMS = 8
+# the front tier's client: a short read timeout, which is what ejects a
+# stopped (SIGSTOP) replica, as in tools/chaos_fleet.py
+FLEET_REMOTE = dict(remote_connect_timeout_s=2.0, remote_read_timeout_s=5.0,
+                    remote_max_retries=2, remote_digest_interval_s=0.5,
+                    router_heartbeat_timeout_s=3.0)
+FLEET_BOOT_S = 300.0
+FLEET_KILL_AFTER = 8      # tokens every request holds before the fault
+FLEET_BENCH = ["--requests", "32", "--new", "64", "--prompt", "256",
+               "--stream", "--vary_prompts"]
+FLEET_SLICE_LAYERS = 2
+FLEET_SLICE_NEW = 48
+
+
+class ReplicaProcs:
+    """Replica server processes (`tools/chaos_fleet.py --serve_replica`,
+    the `replica_mode` MegatronServer) on 127.0.0.1, each with its own log
+    file and launch-count file under `root`. Every one is stopped in
+    `close`, which the caller runs in a `finally`."""
+
+    def __init__(self, root: str, args: list):
+        self.root, self.args = root, list(args)
+        self.procs, self.ports, self.counts, self.boot_s = {}, {}, {}, {}
+        self._logs = []
+
+    def spawn(self, name: str, port: int = 0):
+        from megatron_tpu_torch.tools.chaos_common import (free_port,
+                                                           spawn_replica)
+        port = port or free_port()
+        counts = f"{self.root}/{name}.{len(self._logs)}.counts.json"
+        log_f = open(f"{self.root}/{name}.{len(self._logs)}.log", "w")
+        self._logs.append(log_f)
+        self.procs[name] = spawn_replica(
+            port, self.args + ["--counts_out", counts], stdout=log_f,
+            stderr=subprocess.STDOUT)
+        self.ports[name], self.counts[name] = port, counts
+        self.boot_s[name] = time.perf_counter()
+
+    def wait_ready(self, *names) -> None:
+        from megatron_tpu_torch.tools.chaos_common import wait_replica_ready
+        for name in names:
+            wait_replica_ready(self.addr(name), FLEET_BOOT_S,
+                               self.procs[name])
+            self.boot_s[name] = time.perf_counter() - self.boot_s[name]
+
+    def addr(self, name: str) -> str:
+        return f"127.0.0.1:{self.ports[name]}"
+
+    def signal(self, name: str, sig) -> None:
+        import os
+        os.kill(self.procs[name].pid, sig)
+
+    def kill(self, name: str) -> None:
+        self.procs[name].kill()
+        self.procs[name].wait(timeout=60)
+
+    def memory_mib(self) -> dict:
+        """The device memory of each process on the card, from nvidia-smi:
+        by replica where its pids are this namespace's, else by the pid
+        nvidia-smi reports."""
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout
+        by_pid = {}
+        for line in out.strip().splitlines():
+            pid, _, mib = line.partition(",")
+            if pid.strip().isdigit() and mib.strip().isdigit():
+                by_pid[int(pid)] = int(mib)
+        names = {p.pid: name for name, p in self.procs.items()
+                 if p.poll() is None}
+        return {names.get(pid, f"pid {pid}"): mib
+                for pid, mib in sorted(by_pid.items())}
+
+    def stop(self, name: str) -> dict:
+        """SIGTERM: the replica drains and writes its launch counts."""
+        import signal
+        p = self.procs[name]
+        p.send_signal(signal.SIGTERM)
+        p.wait(timeout=120)
+        check(p.returncode == 0, f"replica {name} exited {p.returncode}")
+        with open(self.counts[name]) as f:
+            return json.load(f)
+
+    def close(self) -> None:
+        import signal
+        for p in self.procs.values():
+            if p.poll() is None:
+                try:
+                    p.send_signal(signal.SIGCONT)
+                    p.kill()
+                except OSError:
+                    pass
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+        for f in self._logs:
+            f.close()
+
+    def tail(self, n: int = 4000) -> str:
+        """The replicas' log ends, for a failure's report."""
+        out = []
+        for f in self._logs:
+            f.flush()
+            with open(f.name) as r:
+                out.append(f"--- {f.name}\n{r.read()[-n:]}")
+        return "\n".join(out)
+
+
+def fleet_front(addrs, tok=None):
+    """A fleet front tier over `addrs`, serving on 127.0.0.1: (server,
+    httpd, thread, port). It holds no weights and touches no device."""
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.server import MegatronServer
+    server = MegatronServer(None, tok or ByteTokenizer(),
+                            serving=ServingConfig(fleet=",".join(addrs),
+                                                  **FLEET_REMOTE))
+    httpd, thread = serve_http(server)
+    return server, httpd, thread, httpd.server_address[1]
+
+
+def get_json(port: int, path: str):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def warm_remote(port: int, prefixes) -> None:
+    """Each prefix prefilled alone on the replica at `port` and retained
+    (sent straight to it as `prompt_tokens`, past any front tier)."""
+    tok = ByteTokenizer()
+    for p in prefixes:
+        status, body = put(port, {"prompt_tokens": [tok.tokenize(p + " ")],
+                                  "tokens_to_generate": 1,
+                                  "temperature": 0.0})
+        check(status == 200, f"warming a prefix: {status} {body}")
+
+
+def fleet_traffic(port: int, payloads, streams=()):
+    """Every payload through the front tier at once, one thread each; the
+    indices in `streams` as SSE streams (their token frames must equal
+    their `done` frame). Returns (threads, the generated tokens of each in
+    order once `join_traffic` returned, the errors raised)."""
+    out = [None] * len(payloads)
+
+    def one(i):
+        if i in streams:
+            conn, resp = sse_open(port, dict(payloads[i], stream=True))
+            toks, end = [], None
+            try:
+                for event, eid, data, _ in sse_frames(resp):
+                    if event == "token":
+                        check(int(eid) == len(toks),
+                              f"stream {i}: event {eid} after {len(toks)}")
+                        toks.append(data["token"])
+                    elif event in ("done", "error"):
+                        end = (event, data)
+            finally:
+                conn.close()
+            check(end is not None and end[0] == "done",
+                  f"stream {i} ended {end}")
+            plen = len(payloads[i]["prompts"][0])
+            check(end[1]["segments"][plen:] == toks,
+                  f"stream {i}: token frames differ from its done frame")
+            out[i] = toks
+        else:
+            status, body = put(port, payloads[i])
+            check(status == 200, f"request {i}: {status} {body}")
+            out[i] = new_tokens(payloads[i], body)
+
+    errors = []
+
+    def guarded(i):
+        try:
+            one(i)
+        except Exception as e:  # noqa: BLE001 — join_traffic raises it
+            errors.append(e)
+
+    threads = [threading.Thread(target=guarded, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    return threads, out, errors
+
+
+def join_traffic(threads, errors) -> None:
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "a request never returned")
+    if errors:
+        raise errors[0]
+
+
+def replica_snaps(router) -> list:
+    return [rep.engine.metrics.snapshot() for rep in router.replicas]
+
+
+def wait_inflight(made, n: int, count: int, timeout: float = 300.0) -> None:
+    """Until `count` router requests were made and each has at least n
+    tokens (or is done)."""
+    give_up = time.monotonic() + timeout
+    while len(made) < count or not all(
+            r.done() or len(r.generated) >= n for r in made):
+        check(time.monotonic() < give_up, "requests did not start decoding")
+        time.sleep(0.01)
+
+
+def wait_fleet_up(server, timeout: float = 120.0) -> float:
+    """Drive the half-open re-admission (canary requests through the front
+    tier) until every replica is in rotation; returns the seconds."""
+    router = server.engine
+    t0 = time.perf_counter()
+    give_up = time.monotonic() + timeout
+    while router.health()["replicas_up"] < len(router.replicas):
+        check(time.monotonic() < give_up, "a replica was not re-admitted: "
+              + json.dumps(router.health()))
+        status, body = server.handle({"prompts": ["canary"],
+                                      "tokens_to_generate": 2,
+                                      "temperature": 0.0})
+        check(status in (200, 503), f"canary: {status} {body}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def fleet_fault(server, port, procs, payloads, fault: str) -> dict:
+    """(c) or (d): the payloads in flight on both replicas, each holding
+    FLEET_KILL_AFTER tokens; then the replica holding the most of them is
+    SIGKILLed, or SIGSTOPped until the front tier has ejected it. Every
+    request completes; /healthz stays accepting with one replica up. A
+    killed replica is respawned on its port and re-admitted, a stopped one
+    continued and re-admitted. Returns the stats and the tokens."""
+    import signal
+    router = server.engine
+    made = capture_requests(router)
+    before = router.aggregate_snapshot()
+    threads, out, errors = fleet_traffic(port, payloads)
+    wait_inflight(made, FLEET_KILL_AFTER, len(payloads))
+    on = [r.replica.idx for r in made if not r.done()]
+    victim_idx = max(set(on), key=on.count) if on else 0
+    victim = ["A", "B"][victim_idx]
+    stats = dict(victim=victim, victim_requests=on.count(victim_idx))
+    t0 = time.perf_counter()
+    if fault == "sigkill":
+        procs.kill(victim)
+    else:
+        procs.signal(victim, signal.SIGSTOP)
+    try:
+        give_up = time.monotonic() + 60
+        while router.replicas[victim_idx].state != "down":
+            check(time.monotonic() < give_up, f"{fault}: never ejected")
+            router.health()
+            time.sleep(0.1)
+        stats["eject_s"] = time.perf_counter() - t0
+        status, health = get_json(port, "/healthz")
+        check(status == 200 and health["accepting"]
+              and health["state"] == "degraded"
+              and health["replicas_up"] == 1,
+              f"{fault}: /healthz {status} {health}")
+        join_traffic(threads, errors)
+        stats["recovered_s"] = time.perf_counter() - t0
+        if fault == "sigkill":
+            # (e): the dead replica recorded, not convicted
+            wait_quiet_remote(router.engines[1 - victim_idx])
+            status, inv = get_json(port, "/invariants?strict=1")
+            check(status == 200 and inv["ok"] and inv["engines"] == 2
+                  and inv.get("unreachable") == [procs.addr(victim)],
+                  f"(e) with a dead replica: {inv}")
+            stats["invariants_dead"] = dict(
+                ok=inv["ok"], engines=inv["engines"],
+                unreachable=inv["unreachable"],
+                laws=len(inv["laws_checked"]))
+    finally:
+        if fault == "sigstop":
+            procs.signal(victim, signal.SIGCONT)
+    after = router.aggregate_snapshot()
+    stats.update(
+        router_failovers=after["router_failovers"]
+        - before["router_failovers"],
+        router_retries=after["router_retries"] - before["router_retries"],
+        remote_timeouts=after["router_remote_timeouts"]
+        - before["router_remote_timeouts"],
+        probe_failures=after["router_probe_failures"]
+        - before["router_probe_failures"])
+    check(stats["router_failovers"] >= 1
+          and stats["router_retries"] >= stats["victim_requests"] >= 1,
+          f"{fault}: {stats}")
+    if fault == "sigkill":
+        t1 = time.perf_counter()
+        procs.spawn(victim, procs.ports[victim])
+        procs.wait_ready(victim)
+        stats["respawn_s"] = time.perf_counter() - t1
+    return stats, out
+
+
+def fleet_bench(port: int, root: str, label: str) -> dict:
+    """tools/serving_bench.py --url against the front tier, in its own
+    process: tokens/s, TTFT p50/p99 and the inter-token p50 clients see."""
+    import sys
+    out = f"{root}/bench_{label}.json"
+    run = subprocess.run(
+        [sys.executable, "-m", "megatron_tpu_torch.tools.serving_bench",
+         "--url", f"127.0.0.1:{port}", "--out", out, *FLEET_BENCH],
+        capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"serving_bench {label}: {run.stderr[-2000:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    check(rec["completed"] == 32 and not rec["failed"]
+          and not rec["rejected_429"], f"serving_bench {label}: {rec}")
+    return rec
+
+
+def check_fleet_slice(root: str) -> dict:
+    """(f): two 2-layer fp32 replica processes of the 7B width (TF32 off)
+    behind a front tier: greedy completions and streams, one replica
+    SIGKILLed while they decode, every completion equal to the serial
+    route of the same weights in this process."""
+    import torch
+    from megatron_tpu_torch.tools.chaos_fleet import replica_generator
+    gen = replica_generator("llama2-7b", FLEET_SLICE_LAYERS, "float32",
+                            FLEET_SEED + 1, "cuda")
+    tok = ByteTokenizer()
+    prompts = [prompt_text(100 + 60 * i, 1600 + i) for i in range(6)]
+    payloads = [{"prompts": [p], "tokens_to_generate": FLEET_SLICE_NEW,
+                 "temperature": 0.0} for p in prompts]
+    procs = ReplicaProcs(root, [
+        "--device", "cuda", "--model", "llama2-7b", "--layers",
+        FLEET_SLICE_LAYERS, "--dtype", "float32", "--seed", FLEET_SEED + 1,
+        "--serving", json.dumps(FLEET_SERVING)])
+    try:
+        procs.spawn("fA")
+        procs.spawn("fB")
+        procs.wait_ready("fA", "fB")
+        server, httpd, thread, port = fleet_front(
+            [procs.addr("fA"), procs.addr("fB")], tok)
+        try:
+            made = capture_requests(server.engine)
+            threads, out, errors = fleet_traffic(port, payloads,
+                                                 streams={4, 5})
+            wait_inflight(made, 4, len(payloads))
+            procs.kill("fA")
+            join_traffic(threads, errors)
+            snap = server.engine.aggregate_snapshot()
+        finally:
+            stop_tool(httpd, thread)
+            server.close()
+    finally:
+        procs.close()
+    check(snap["router_retries"] >= 1, "(f): nothing failed over")
+    want = []
+    for p in prompts:
+        toks, lens, _ = gen.generate([tok.tokenize(p)], FLEET_SLICE_NEW,
+                                     greedy_params())
+        want.append(toks[0, len(tok.tokenize(p)):int(lens[0])].tolist())
+    check(out == want, "(f): a fleet completion differs from the serial "
+          "route")
+    del gen
+    torch.cuda.empty_cache()
+    return dict(agree=True, requests=len(payloads), streams=2,
+                router_retries=snap["router_retries"],
+                router_failovers=snap["router_failovers"],
+                allow_tf32=False)
+
+
+def greedy_params():
+    from megatron_tpu_torch.inference.generation import SamplingParams
+    return SamplingParams(temperature=0.0)
+
+
+def phase_fleet(smi: str) -> dict:
+    """Phase 15: remote replicas. Two Llama-2-7B replica processes (32
+    layers, bf16, seed FLEET_SEED) behind a fleet front tier in this
+    process, which holds no weights, over HTTP on 127.0.0.1: (a) /healthz,
+    (b) a 16-request trace (8 SSE streams) over four 1,024-token prefixes,
+    each warmed on one replica only, routed by the affinity digest, (c) a
+    SIGKILL mid-decode, the respawn and its re-admission, (d) a SIGSTOP
+    ejected by read timeouts and re-admitted after SIGCONT, (e) the fleet's
+    strict invariant sweep; the completions of (b)-(d) equal one replica
+    process's; serving_bench against the fleet and against one replica
+    process; (f) the 2-layer fp32 slice. Each replica's launch counts are
+    its whole life's, written at its SIGTERM shutdown."""
+    import gc
+    import tempfile
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
+          "phase 15: phase 14's model was not freed")
+    t_phase = time.perf_counter()
+    stats = dict(card=smi)
+    groups_a = [prompt_text(FRONT_PREFIX, 8000 + g)
+                for g in range(FRONT_GROUPS)]
+    groups_b = [prompt_text(FRONT_PREFIX, 8100 + g)
+                for g in range(FRONT_GROUPS)]
+    trace = front_payloads(groups_a, 0, 16, FLEET_NEW, 8200)
+    kill_load = front_payloads(groups_b, 0, 8, FLEET_NEW, 8300)
+    stop_load = front_payloads(groups_b, 8, 4, FLEET_NEW, 8400)
+    counts = {}
+    with tempfile.TemporaryDirectory(dir="build") as root:
+        procs = ReplicaProcs(root, [
+            "--device", "cuda", "--model", "llama2-7b", "--seed",
+            FLEET_SEED, "--serving", json.dumps(FLEET_SERVING)])
+        try:
+            t0 = time.perf_counter()
+            for name in ("A", "B", "R"):  # R: the one-replica reference
+                procs.spawn(name)
+            procs.wait_ready("A", "B", "R")
+            stats["boot_s"] = time.perf_counter() - t0
+            stats["device_mib"] = procs.memory_mib()
+            log(f"fleet: 3 replica processes up in {stats['boot_s']:.1f} s, "
+                f"device MiB (nvidia-smi) {stats['device_mib']}")
+            server, httpd, thread, port = fleet_front(
+                [procs.addr("A"), procs.addr("B")])
+            try:
+                router = server.engine
+                # (a)
+                status, health = get_json(port, "/healthz")
+                check(status == 200 and health["replicas_up"] == 2
+                      and health["state"] == "running",
+                      f"(a) /healthz {status} {health}")
+                # (b): group g warm on replica g % 2 only
+                for g, p in enumerate(groups_a):
+                    warm_remote(procs.ports["AB"[g % 2]], [p])
+                time.sleep(FLEET_REMOTE["remote_digest_interval_s"] + 0.1)
+                router.health()  # the probes refresh the digests
+                tok = ByteTokenizer()
+                peeks = [[r.prefix_peek(tok.tokenize(p + "x"))
+                          for r in router.engines] for p in groups_a]
+                check(all(pk[g % 2] == FRONT_PREFIX and pk[1 - g % 2] == 0
+                          for g, pk in enumerate(peeks)),
+                      f"(b) digest peeks {peeks}")
+                before = replica_snaps(router)
+                t1 = time.perf_counter()
+                threads, trace_out, errors = fleet_traffic(
+                    port, trace, streams=set(range(8, 16)))
+                join_traffic(threads, errors)
+                wall = time.perf_counter() - t1
+                after = replica_snaps(router)
+                hits = [a["prefix_hits"] - b["prefix_hits"]
+                        for a, b in zip(after, before)]
+                saved = [a["prefill_tokens_saved"] - b["prefill_tokens_saved"]
+                         for a, b in zip(after, before)]
+                check(hits == [8, 8] and saved == [8 * FRONT_PREFIX] * 2,
+                      f"(b) per-replica prefix hits {hits}, tokens saved "
+                      f"{saved}: the digest did not steer every request to "
+                      "its prefix's replica")
+                stats["trace"] = dict(
+                    requests=len(trace), streams=8, wall_s=wall,
+                    prefix_hits=hits, tokens_saved=saved,
+                    tokens_per_s=sum(map(len, trace_out)) / wall)
+                log("fleet (b): " + json.dumps(stats["trace"]))
+                stats["bench_fleet"] = fleet_bench(port, root, "fleet")
+                log("fleet serving_bench, two replica processes: "
+                    + json.dumps(stats["bench_fleet"]))
+                # (c)-(d): every prefix warm on both, so a failed-over
+                # request is a hit on a prefix prefilled alone
+                for name in ("A", "B"):
+                    warm_remote(procs.ports[name], groups_b)
+                stats["sigkill"], kill_out = fleet_fault(
+                    server, port, procs, kill_load, "sigkill")
+                warm_remote(procs.ports[stats["sigkill"]["victim"]],
+                            groups_b)
+                stats["sigkill"]["readmit_s"] = wait_fleet_up(server)
+                log("fleet (c) sigkill: " + json.dumps(stats["sigkill"]))
+                stats["sigstop"], stop_out = fleet_fault(
+                    server, port, procs, stop_load, "sigstop")
+                stats["sigstop"]["readmit_s"] = wait_fleet_up(server)
+                log("fleet (d) sigstop: " + json.dumps(stats["sigstop"]))
+                for rep in router.engines:
+                    wait_quiet_remote(rep)
+                status, inv = get_json(port, "/invariants?strict=1")
+                check(status == 200 and inv["ok"] and inv["engines"] == 2
+                      and "unreachable" not in inv, f"(e) {inv}")
+                stats["invariants"] = dict(ok=True, engines=2,
+                                           laws=len(inv["laws_checked"]))
+                stats["fleet_counters"] = {
+                    k: router.aggregate_snapshot()[k] for k in (
+                        "router_failovers", "router_retries",
+                        "router_remote_timeouts", "router_remote_retries",
+                        "router_probe_failures")}
+            finally:
+                stop_tool(httpd, thread)
+                server.close()
+            for name in ("A", "B"):
+                counts[name] = procs.stop(name)
+            # the reference: one replica process with the same config
+            server, httpd, thread, port = fleet_front([procs.addr("R")])
+            try:
+                warm_remote(procs.ports["R"], groups_a)
+                threads, ref_trace, errors = fleet_traffic(port, trace)
+                join_traffic(threads, errors)
+                warm_remote(procs.ports["R"], groups_b)
+                threads, ref_cd, errors = fleet_traffic(
+                    port, kill_load + stop_load)
+                join_traffic(threads, errors)
+                stats["bench_one"] = fleet_bench(port, root, "one")
+                log("fleet serving_bench, one replica process: "
+                    + json.dumps(stats["bench_one"]))
+            finally:
+                stop_tool(httpd, thread)
+                server.close()
+            counts["R"] = procs.stop("R")
+        except Exception:
+            log(procs.tail())
+            raise
+        finally:
+            procs.close()
+        check(all(p.poll() is not None for p in procs.procs.values()),
+              "a replica process outlived phase 15")
+        check(trace_out == ref_trace, "(b): a fleet completion differs from "
+              "one replica process's")
+        check(kill_out + stop_out == ref_cd, "(c)-(d): a failed-over "
+              "completion differs from one replica process's")
+        stats["replica_launches"] = counts
+        stats["replica_peak_reserved_gib"] = {
+            name: c.pop("peak_reserved_bytes") / 2 ** 30
+            for name, c in counts.items()}
+        log("fleet: each surviving replica's launches "
+            + json.dumps(counts) + " and peak reserved GiB "
+            + json.dumps(stats["replica_peak_reserved_gib"]))
+        check(all(c["flash_fwd_cuda"] > 0 and c["block_attention_cuda"] > 0
+                  for c in counts.values()),
+              f"a surviving replica launched no flash or block kernel: "
+              f"{counts}")
+        fl, one = stats["bench_fleet"], stats["bench_one"]
+        stats["fleet_over_one"] = fl["tokens_per_s"] / one["tokens_per_s"]
+        log(f"fleet: two processes {fl['tokens_per_s']} tokens/s against "
+            f"one {one['tokens_per_s']} ({stats['fleet_over_one']:.2f}x), "
+            f"{smi}")
+        t0 = time.perf_counter()
+        stats["slice"] = check_fleet_slice(root)
+        stats["slice"]["seconds"] = time.perf_counter() - t0
+        log(f"fleet slice (fp32, 2 layers, {smi}): "
+            + json.dumps(stats["slice"]))
+    stats["launches"] = dict(
+        flash_fwd=sum(c["flash_fwd_cuda"] for c in counts.values()),
+        block_attn=sum(c["block_attention_cuda"] for c in counts.values()))
+    stats["norm_launches"] = {
+        k: sum(c[k] for c in counts.values())
+        for k in counts["R"] if k.startswith(("rms_", "ln_"))}
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
+def wait_quiet_remote(rep, timeout: float = 120.0) -> None:
+    """Until a replica's health shows no active slot, prefill or queue."""
+    give_up = time.monotonic() + timeout
+    while True:
+        h = rep.health()
+        if not (h["active_slots"] or h["prefilling"] or h["queue_depth"]):
+            return
+        check(time.monotonic() < give_up, f"replica {rep.addr} stayed busy")
+        time.sleep(0.1)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7369,33 +7971,40 @@ def main(argv=None) -> int:
             traceback.print_exc()
             return 1
     t_run = time.perf_counter()
+    seconds = {}
+
+    def timed(number, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took = time.perf_counter() - t0
+        seconds[number] = round(seconds.get(number, 0.0) + took, 1)
+        log(f"phase {number} ({fn.__name__}) took {took:.1f} s")
+        return out
+
     try:
-        smi = phase_device()
-        phase_build()
-        cases = phase_kernels()
-        train_cases = phase_training_kernels()
-        bits = check_dropout_bits()
+        smi = timed("1", phase_device)
+        timed("2", phase_build)
+        cases = timed("3", phase_kernels)
+        train_cases = timed("3", phase_training_kernels)
+        bits = timed("3", check_dropout_bits)
         log(f"dropout: the keep bits of the forward, dQ and dV kernels "
             f"equal the plain hash on {bits} (query, key) pairs, fp32 and "
             f"bf16")
-        block_cases = phase_block_kernels()
-        norm_cases = phase_norm_kernels()
-        bench_stats = phase_bench_kernels()
-        main_stats = phase_main_path(smi)
-        engine_stats = phase_engine(smi)
-        int8_stats = phase_int8(smi)
-        train_stats = phase_training(smi)
-        pretrain_stats = phase_pretrain(smi)
-        toolchain_stats = phase_toolchain(smi)
-        window_stats = phase_window_supervisor(smi)
-        feature_stats = phase_engine_features(smi)
-        front_stats = phase_front_door(smi)
-        log(f"front door: phase 12 took {front_stats['seconds']:.1f} s")
-        lora_stats = phase_lora_live(smi)
-        log(f"lora/live: phase 13 took {lora_stats['seconds']:.1f} s")
-        struct_stats = phase_structured_degrade(smi)
-        log(f"structured/degrade: phase 14 took "
-            f"{struct_stats['seconds']:.1f} s")
+        block_cases = timed("3", phase_block_kernels)
+        norm_cases = timed("3", phase_norm_kernels)
+        bench_stats = timed("3b", phase_bench_kernels)
+        main_stats = timed("4", phase_main_path, smi)
+        engine_stats = timed("5", phase_engine, smi)
+        int8_stats = timed("6", phase_int8, smi)
+        train_stats = timed("7", phase_training, smi)
+        pretrain_stats = timed("8", phase_pretrain, smi)
+        toolchain_stats = timed("9", phase_toolchain, smi)
+        window_stats = timed("10", phase_window_supervisor, smi)
+        feature_stats = timed("11", phase_engine_features, smi)
+        front_stats = timed("12", phase_front_door, smi)
+        lora_stats = timed("13", phase_lora_live, smi)
+        struct_stats = timed("14", phase_structured_degrade, smi)
+        fleet_stats = timed("15", phase_fleet, smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -7422,6 +8031,8 @@ def main(argv=None) -> int:
     lora_counts = lora_stats["launches"]
     # phase 14's parts (a)-(d), each counted from zero
     struct_counts = struct_stats["launches"]
+    # phase 15's replica processes, each counted over its whole life
+    fleet_counts = fleet_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -7449,7 +8060,8 @@ def main(argv=None) -> int:
               + feature_counts["flash_fwd"]
               + front_counts["flash_fwd"]
               + lora_counts["flash_fwd"]
-              + struct_counts["flash_fwd"], "fwd",
+              + struct_counts["flash_fwd"]
+              + fleet_counts["flash_fwd"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -7467,7 +8079,11 @@ def main(argv=None) -> int:
                   lora_live=lora_counts["flash_fwd"],
                   structured_degrade=struct_counts["flash_fwd"],
                   structured_degrade_fanout=struct_stats["fanout"][
-                      "flash_launches"]),
+                      "flash_launches"],
+                  fleet=fleet_counts["flash_fwd"],
+                  fleet_by_replica={
+                      name: c["flash_fwd_cuda"] for name, c in
+                      fleet_stats["replica_launches"].items()}),
                    window_shape=dict(shape=WINDOW_SHAPE, **{
                        k: window_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -7523,7 +8139,8 @@ def main(argv=None) -> int:
                   + feature_counts["block_attn"]
                   + front_counts["block_attn"]
                   + lora_counts["block_attn"]
-                  + struct_counts["block_attn"]),
+                  + struct_counts["block_attn"]
+                  + fleet_counts["block_attn"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
@@ -7533,6 +8150,10 @@ def main(argv=None) -> int:
             front_door=front_counts["block_attn"],
             lora_live=lora_counts["block_attn"],
             structured_degrade=struct_counts["block_attn"],
+            fleet=fleet_counts["block_attn"],
+            fleet_by_replica={
+                name: c["block_attention_cuda"] for name, c in
+                fleet_stats["replica_launches"].items()},
             lora_live_verify_rounds=lora_stats["serving"]["verify"][
                 "spec_rounds"],
             structured_degrade_verify_rounds=struct_stats["verify"][
@@ -7567,7 +8188,7 @@ def main(argv=None) -> int:
                       window_supervisor=window_stats,
                       engine_features=feature_stats,
                       front_door=front_stats, lora_live=lora_stats,
-                      structured_degrade=struct_stats)
+                      structured_degrade=struct_stats, fleet=fleet_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),
@@ -7596,6 +8217,7 @@ def main(argv=None) -> int:
                         param_dtype=c["param_dtype"], rows=c["rows"],
                         h=c["h"], **c[part])
                    for c in norm_cases if c["norm"] == kind]))
+    log(f"chip_smoke: the phases' seconds {json.dumps(seconds)}")
     log(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

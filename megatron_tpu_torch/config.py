@@ -290,7 +290,7 @@ SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                      "int8": torch.int8}
 
 # ServingConfig fields the continuous-batching engine does not run yet,
-# each with the later slice that brings it (ROADMAP Queue 1 items 6-7)
+# each with the later slice that brings it (ROADMAP Queue 1 item 7)
 _LATER_SERVING = {
     "serving_tp": "the serving topology (Queue 1 item 7)",
     "disaggregate_prefill": "the serving topology (Queue 1 item 7)",
@@ -300,12 +300,6 @@ _LATER_SERVING = {
     "pp_waves": "the serving topology (Queue 1 item 7)",
     "placement_auto": "the serving topology (Queue 1 item 7)",
     "placement_budget": "the serving topology (Queue 1 item 7)",
-    "replica_mode": "remote replicas (Queue 1 item 6)",
-    "fleet": "remote replicas (Queue 1 item 6)",
-    "remote_connect_timeout_s": "remote replicas (Queue 1 item 6)",
-    "remote_read_timeout_s": "remote replicas (Queue 1 item 6)",
-    "remote_max_retries": "remote replicas (Queue 1 item 6)",
-    "remote_digest_interval_s": "remote replicas (Queue 1 item 6)",
 }
 
 
@@ -339,10 +333,15 @@ class ServingConfig:
     every `watch_interval_s`); and the brownout ladder (`degrade_ladder`
     rungs at `degrade_raise_at` pressures, `degrade_hysteresis`,
     `degrade_dwell_up`/`_down`, rung 2's `degrade_max_new_tokens`) with
-    the SLO accounting (`slo_ttft_ms`, `slo_itl_p99_ms`). `validate()`
-    raises NotImplementedError for any other field set away from its
-    default: the serving topology (ROADMAP Queue 1 item 7) and remote
-    replicas (item 6)."""
+    the SLO accounting (`slo_ttft_ms`, `slo_itl_p99_ms`); and remote
+    replicas (serving/remote.py): `replica_mode` serves the wire surface
+    a front tier drives (`prompt_tokens`, `/affinity`, `/invariants`),
+    `fleet` ("host:port,...") makes the server a front tier over such
+    processes that holds no weights, and `remote_connect_timeout_s`,
+    `remote_read_timeout_s`, `remote_max_retries` and
+    `remote_digest_interval_s` tune its client. `validate()` raises
+    NotImplementedError for any other field set away from its default:
+    the serving topology (ROADMAP Queue 1 item 7)."""
 
     num_slots: int = 8
     max_queue: int = 64
@@ -587,6 +586,40 @@ class ServingConfig:
             raise ValueError(
                 "num_replicas > 1 routes through the continuous-batching "
                 "engine; serial_fallback has no replicas to route over")
+        # remote replicas (serving/remote.py)
+        for name in ("remote_connect_timeout_s", "remote_read_timeout_s",
+                     "remote_digest_interval_s"):
+            if not getattr(self, name) > 0.0:
+                raise ValueError(f"{name} must be > 0, got "
+                                 f"{getattr(self, name)}")
+        if self.remote_max_retries < 0:
+            raise ValueError(f"remote_max_retries must be >= 0, got "
+                             f"{self.remote_max_retries}")
+        if self.fleet is not None:
+            addrs = [a for a in self.fleet.split(",") if a.strip()]
+            if not addrs:
+                raise ValueError("fleet must name at least one host:port")
+            for a in addrs:
+                if ":" not in a:
+                    raise ValueError(f"fleet address {a!r} must be "
+                                     "host:port")
+            if self.serial_fallback:
+                raise ValueError(
+                    "fleet mode routes over remote replicas; the serial "
+                    "fallback path has no router to run")
+            if self.num_replicas != 1:
+                raise ValueError(
+                    "fleet mode and in-process replicas are exclusive: the "
+                    "front tier holds no engines — drop num_replicas or "
+                    "fleet")
+            if self.replica_mode:
+                raise ValueError(
+                    "a server is either one fleet replica (replica_mode) "
+                    "or the front tier over them (fleet), not both")
+        if self.replica_mode and self.serial_fallback:
+            raise ValueError(
+                "replica_mode serves the continuous-batching engine's wire "
+                "surface; the serial path has none")
         if self.engine_step_timeout_s is not None and \
                 self.engine_step_timeout_s <= 0.0:
             raise ValueError("engine_step_timeout_s must be > 0")

@@ -24,10 +24,8 @@ or a JSON schema (a grammar that does not compile is a 400, a generation
 that reaches a state with no legal token a 422); with `n`/`best_of` each
 prompt fans out into best_of samples and its text/segments/logprobs
 entries become lists of the n best. The serial route refuses both, and a
-router refuses fan-out. `prompt_tokens` (the replica-mode wire format)
-gets a 400 until remote replicas come (ROADMAP Queue 1 item 6).
-`GET /invariants[?strict=1]` runs the invariant sweep
-(serving/invariants.py) on the live engines and answers its report.
+router refuses fan-out. `GET /invariants[?strict=1]` runs the invariant
+sweep (serving/invariants.py) on the live engines and answers its report.
 
 The control plane, `PUT /admin` (`handle_admin`): `{"op": "swap_weights",
 "ckpt_dir": ...}` hot-swaps the engine (a router walks a rolling upgrade)
@@ -54,6 +52,19 @@ tail: nothing duplicated, nothing missing); `{"stream_id": ...,
 "cancel": true}` evicts a stream's request and frees its slot. Finished
 streams stay resumable for `stream_ttl_s`.
 
+Remote replicas (serving/remote.py). With `ServingConfig(replica_mode=True)`
+the server is one replica process of a fleet: it also takes the
+pre-tokenized wire format, `{"prompt_tokens": [[ids...]], ...}` in place
+of `prompts` (the front tier tokenized already, so the stream stays token
+for token the same across the hop and across a failover), and serves
+`GET /affinity`, its engine's routing digest. With
+`ServingConfig(fleet="host:port,...")` the server is a front tier that
+holds no weights and touches no device: `generator` is None, and the
+router drives a `RemoteReplica` client for each address; its
+`/invariants` folds each replica's own report (an unreachable replica is
+listed under `unreachable`, not convicted). A server that is not a
+replica answers `prompt_tokens` with a 400.
+
 The transport is the standard library's threading HTTP server.
 """
 from __future__ import annotations
@@ -73,6 +84,8 @@ from megatron_tpu_torch.inference.api import (beam_search_and_post_process,
                                               generate_and_post_process)
 from megatron_tpu_torch.inference.generation import Generator
 from megatron_tpu_torch.serving.engine import ServingEngine
+from megatron_tpu_torch.serving.metrics import ServingMetrics
+from megatron_tpu_torch.serving.remote import RemoteReplica
 from megatron_tpu_torch.serving.request import (DeadlineExceededError,
                                                 GrammarDeadEndError,
                                                 SamplingOptions,
@@ -91,11 +104,8 @@ from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MAX_PROMPTS = 128
 
-# what the engine route refuses, and the slice that brings it
-_LATER_ON_ENGINE = (
-    ("prompt_tokens", "prompt_tokens (the replica-mode wire format) comes "
-                      "with remote replicas in a later slice"),
-)
+_TOKENS_NEED_REPLICA = ("prompt_tokens is the replica-mode wire format (run "
+                        "the server with --replica_mode); send text prompts")
 
 
 class _StreamEntry:
@@ -206,25 +216,32 @@ def validate_generate_payload(payload) -> Optional[str]:
 
 class MegatronServer:
     """Text-generation server over one Generator: the continuous-batching
-    engine route, unless `serving.serial_fallback`, plus the serial route.
+    engine route, unless `serving.serial_fallback`, plus the serial route;
+    or, with `serving.fleet`, a front tier over replica processes
+    (`generator` None).
 
     `device` must name the generator's device; None means the current CUDA
-    device and raises without one. `weight_version` names the checkpoint
-    the generator's weights came from (the watcher then does not swap to
-    it again)."""
+    device and raises without one (a front tier resolves none).
+    `weight_version` names the checkpoint the generator's weights came
+    from (the watcher then does not swap to it again)."""
 
-    def __init__(self, generator: Generator, tokenizer, *,
+    def __init__(self, generator: Optional[Generator], tokenizer, *,
                  serving: Optional[ServingConfig] = None,
                  device: DeviceLike = None, request_timeout: float = 600.0,
                  weight_version=None):
-        device = resolve_device(device)
-        if generator.device != device:
-            raise ValueError(f"generator runs on {generator.device}, the "
-                             f"server on {device}")
+        serving = serving if serving is not None else ServingConfig()
+        if not serving.fleet:
+            if generator is None:
+                raise ValueError("a server holds a Generator unless it is a "
+                                 "fleet front tier (ServingConfig.fleet)")
+            device = resolve_device(device)
+            if generator.device != device:
+                raise ValueError(f"generator runs on {generator.device}, "
+                                 f"the server on {device}")
         self.generator = generator
         self.tokenizer = tokenizer
-        self.serving = (serving if serving is not None
-                        else ServingConfig()).validate(generator.cfg)
+        self.serving = serving.validate(
+            generator.cfg if generator is not None else None)
         self._lock = threading.Lock()  # the serial route: one at a time
         self._request_counter = itertools.count()
         self._timeout = request_timeout
@@ -236,7 +253,24 @@ class MegatronServer:
         self._watcher = None
         if self.serving.serial_fallback:
             return
-        if self.serving.num_replicas == 1:
+        if self.serving.fleet:
+            # the router over a RemoteReplica client per address; one
+            # registry is both the router's and the transport-fault
+            # counters' sink, so one /metrics scrape shows both
+            counters = ServingMetrics()
+            replicas = [
+                RemoteReplica(
+                    addr.strip(), counters=counters,
+                    connect_timeout_s=self.serving.remote_connect_timeout_s,
+                    read_timeout_s=self.serving.remote_read_timeout_s,
+                    max_retries=self.serving.remote_max_retries,
+                    digest_interval_s=self.serving.remote_digest_interval_s)
+                for addr in self.serving.fleet.split(",") if addr.strip()]
+            self.engine = EngineRouter(
+                replicas, metrics=counters,
+                max_retries=self.serving.router_max_retries,
+                heartbeat_timeout_s=self.serving.router_heartbeat_timeout_s)
+        elif self.serving.num_replicas == 1:
             self.engine = ServingEngine(generator, self.serving,
                                         device=device,
                                         weight_version=weight_version)
@@ -296,9 +330,12 @@ class MegatronServer:
             return self._handle_serial_mode(payload)
         try:
             if isinstance(payload, dict):
-                for field, msg in _LATER_ON_ENGINE:
-                    if payload.get(field) not in (None, False):
-                        return 400, {"message": msg}
+                if payload.get("prompt_tokens") is not None \
+                        and not self.serving.replica_mode:
+                    # the front tier's protocol to a replica process; a
+                    # public server speaks text (its tokenizer is the
+                    # contract)
+                    return 400, {"message": _TOKENS_NEED_REPLICA}
                 if payload.get("cancel"):
                     return self._handle_cancel(payload)
                 if payload.get("stream"):
@@ -307,6 +344,17 @@ class MegatronServer:
             err = validate_generate_payload(payload)
             if err is not None:
                 return 400, {"message": err}
+            if self.generator is None and (payload.get("beam_width")
+                                           or payload.get("serial")):
+                what = ("beam search" if payload.get("beam_width")
+                        else "the serial route")
+                return 400, {"message": f"{what} forwards locally; a fleet "
+                                        "front tier holds no weights"}
+            if payload.get("serial") \
+                    and payload.get("prompt_tokens") is not None:
+                return 400, {"message": "prompt_tokens requires the serving-"
+                                        "engine path (drop 'serial': true / "
+                                        "serial_fallback)"}
             if payload.get("beam_width") or payload.get("serial"):
                 err = self._stale_fallback_error(
                     "beam search" if payload.get("beam_width")
@@ -361,10 +409,7 @@ class MegatronServer:
         try:
             if isinstance(payload, dict) \
                     and payload.get("prompt_tokens") is not None:
-                return 400, {"message":
-                             "prompt_tokens is the replica-mode wire "
-                             "format (run the server with "
-                             "--replica_mode); send text prompts"}
+                return 400, {"message": _TOKENS_NEED_REPLICA}
             if isinstance(payload, dict) and payload.get("cancel"):
                 return 400, {"message": "cancel requires the serving engine"}
             if isinstance(payload, dict) and payload.get("stream"):
@@ -506,8 +551,20 @@ class MegatronServer:
 
     def _preflight_lengths(self, payload: dict, max_total: int, what: str):
         """Tokenize and check lengths before generating, so empty or
-        oversize prompts are a 400. Returns the ids (BOS applied)."""
+        oversize prompts are a 400. Returns the ids (BOS applied). Rows of
+        `prompt_tokens` are ids already (the front tier tokenized and
+        applied BOS): only their lengths are checked."""
         n = int(payload.get("tokens_to_generate", 64))
+        if payload.get("prompt_tokens") is not None:
+            prompt_ids = []
+            for i, row in enumerate(payload["prompt_tokens"]):
+                ids = [int(t) for t in row]
+                if len(ids) + n > max_total:
+                    raise AdmissionError(
+                        f"prompt {i} ({len(ids)} tokens) + tokens_to_"
+                        f"generate ({n}) exceeds {what}={max_total}")
+                prompt_ids.append(ids)
+            return prompt_ids
         add_bos = bool(payload.get("add_BOS", False))
         prompt_ids = []
         for i, p in enumerate(payload["prompts"]):
@@ -585,6 +642,11 @@ class MegatronServer:
         priority = int(payload.get("priority", 0) or 0)
         deadline_s = payload.get("deadline_s")
         deadline_s = None if deadline_s is None else float(deadline_s)
+        # a failover resubmitted by a front tier carries its original
+        # arrival position, so it re-enters this queue where its first
+        # attempt stood (prompt i offset by i)
+        aid0 = payload.get("arrival_id")
+        aid0 = None if aid0 is None else int(aid0)
         prompt_ids = self._preflight_lengths(payload, self.engine.max_len,
                                              "max_len")
         give_up = time.monotonic() + self._timeout
@@ -598,6 +660,7 @@ class MegatronServer:
                         reqs[i] = self.engine.submit(
                             ids, n, sampling, seed=seed + i * best_of,
                             priority=priority, deadline_s=deadline_s,
+                            arrival_id=None if aid0 is None else aid0 + i,
                             adapter_id=payload.get("adapter_id"),
                             response_format=rf, n=n_samples,
                             best_of=best_of)
@@ -720,7 +783,8 @@ class MegatronServer:
         if payload.get("beam_width"):
             return 400, {"message": "beam search is whole-batch; it does "
                                     "not stream"}
-        if len(payload["prompts"]) != 1:
+        if len(payload.get("prompts") or payload.get("prompt_tokens")
+               or ()) != 1:
             return 400, {"message": "streaming supports exactly one prompt "
                                     "per request"}
         n_samples = int(payload.get("n", 1) or 1)
@@ -898,18 +962,27 @@ class MegatronServer:
         of this process's live engines, as a report. Default strict=False:
         a live engine is rarely quiesced; the caller opts into the strict
         accounting sweep once traffic stops. A sweep that raises is itself
-        a reported violation, not a 500."""
+        a reported violation, not a 500. On a front tier each remote
+        replica sweeps itself and its report is folded in; the addresses
+        of replicas that did not answer are listed under `unreachable`."""
         from megatron_tpu_torch.serving.invariants import (
-            _Sweep, check_engine, check_router_health, check_schema)
+            _check_remote_engine, _Sweep, check_engine, check_router_health,
+            check_schema)
         if self.engine is None:
             return {"engines": 0, "laws_checked": [], "violations": [],
                     "ok": True}
         sweep = _Sweep()
+        unreachable = []
         is_router = isinstance(self.engine, EngineRouter)
         engines = self.engine.engines if is_router else [self.engine]
         for e in engines:
             try:
-                check_engine(e, strict=strict, sweep=sweep)
+                if hasattr(e, "invariant_report"):
+                    res = _check_remote_engine(e, strict, sweep)
+                    if "unreachable" in res:
+                        unreachable.append(res["remote"])
+                else:
+                    check_engine(e, strict=strict, sweep=sweep)
             except Exception as ex:  # noqa: BLE001
                 sweep.violations.append(
                     ("sweep", f"check_engine raised {type(ex).__name__}: "
@@ -923,11 +996,22 @@ class MegatronServer:
                 sweep.violations.append(
                     ("sweep", f"router sweep raised {type(ex).__name__}: "
                               f"{ex}"))
-        return {"engines": len(engines),
-                "laws_checked": list(sweep.checked),
-                "violations": [[law, detail]
-                               for law, detail in sweep.violations],
-                "ok": not sweep.violations}
+        report = {"engines": len(engines),
+                  "laws_checked": list(sweep.checked),
+                  "violations": [[law, detail]
+                                 for law, detail in sweep.violations],
+                  "ok": not sweep.violations}
+        if unreachable:
+            report["unreachable"] = unreachable
+        return report
+
+    def affinity_digest(self) -> dict:
+        """`GET /affinity`: the routing digest a remote front tier reads in
+        place of calling `prefix_peek` over the wire for every request (the
+        engine's `affinity_digest`; a router merges its replicas')."""
+        if self.engine is None:
+            return {"granularity": 0, "namespaces": {}, "adapters": {}}
+        return self.engine.affinity_digest()
 
     def _handle_cancel(self, payload: dict) -> Tuple[int, dict]:
         """`{"stream_id": ..., "cancel": true}`: evict a live stream's
@@ -949,7 +1033,7 @@ class MegatronServer:
     def make_http_server(self, host: str, port: int) -> ThreadingHTTPServer:
         """The HTTP front end, bound but not yet serving: PUT /api (JSON,
         or server-sent events for a stream) and /admin, GET /healthz,
-        /metrics and /invariants[?strict=1]. The caller runs
+        /metrics, /invariants[?strict=1] and /affinity. The caller runs
         `serve_forever()` and stops it with `shutdown()`."""
         server = self
 
@@ -1022,6 +1106,11 @@ class MegatronServer:
                         self._send(200,
                                    server.invariant_report(strict=strict))
                     except Exception as e:  # noqa: BLE001 — a report
+                        self._send(500, {"message": str(e)})
+                elif path == "/affinity":
+                    try:
+                        self._send(200, server.affinity_digest())
+                    except Exception as e:  # noqa: BLE001
                         self._send(500, {"message": str(e)})
                 else:
                     self.send_error(404)

@@ -105,7 +105,8 @@ steps, and the last chunk lands it with one insert.
   blocks are uploaded into a batch-1 cache of the region's length and the
   suffix prefills on it like a device hit. Only a strictly longer host match beats a device hit;
   a corrupt entry is a miss. `prefix_peek` reads both halves for the
-  router (serving/router.py).
+  router (serving/router.py), and `affinity_digest` summarises them as
+  CRC32 chains for a router in another process (serving/remote.py).
 
 - LoRA adapters (`adapter_slots`, serving/adapters.py): a device bank of
   stacked factors with the identity row 0, and a per-slot `adapter_idx`
@@ -167,6 +168,7 @@ import dataclasses
 import math
 import threading
 import time
+import zlib
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -731,7 +733,7 @@ class ServingEngine:
                                else "unversioned"),
             "weight_iteration": (self.weight_version.iteration
                                  if self.weight_version is not None
-                                 else None),
+                                 else 0),
             "weight_swap_pending": self._pending_swap is not None,
             "detail": broken or "",
         }
@@ -795,6 +797,60 @@ class ServingEngine:
             return int(best)
         except Exception:  # noqa: BLE001 — cross-thread peek
             return 0
+
+    def affinity_digest(self) -> dict:
+        """The routing digest a remote front tier polls (`GET /affinity`,
+        serving/remote.py): per adapter namespace, the cumulative CRC32
+        chain over each indexed block path of the prefix index and the
+        host tier, current weight generation only, and the adapter
+        residency map. The client recomputes the chain over its prompt
+        (`remote.digest_peek`), so no token crosses the wire; a collision
+        or a stale digest only skews a hint. Read from HTTP threads like
+        `prefix_peek`: a racy walk degrades to an empty digest."""
+        out: dict = {"granularity": 0, "namespaces": {}, "adapters": {}}
+        if self.adapters is not None:
+            try:
+                out["adapters"] = {str(a): int(self.adapters.peek(a))
+                                   for a in self.adapters.ids()}
+            except Exception:  # noqa: BLE001 — cross-thread peek
+                pass
+        if not self._prefix_on:
+            return out
+        out["granularity"] = int(self._index.granularity)
+        ns: dict = {}
+
+        def walk(index):
+            for blocks in list(index._blocks.values()):
+                if not blocks:
+                    continue
+                tag = blocks[0]  # ("ns", (weight generation, adapter ns))
+                if not (isinstance(tag, tuple) and len(tag) == 2
+                        and tag[0] == "ns"):
+                    continue
+                wns = tag[1]
+                if not (isinstance(wns, tuple) and len(wns) == 2):
+                    continue
+                wg, ans = wns
+                if wg != self._weight_gen:
+                    continue  # KV of other weights is invisible remotely too
+                label = ("" if ans is None
+                         else str(ans[0] if isinstance(ans, tuple) else ans))
+                bucket = ns.setdefault(label, set())
+                cum = 0
+                for b in blocks[1:]:
+                    cum = zlib.crc32(
+                        ",".join(str(int(t)) for t in b).encode(), cum)
+                    bucket.add(cum)
+
+        try:
+            walk(self._index)
+            if self._host_tier is not None:
+                walk(self._host_tier._index)
+        except Exception:  # noqa: BLE001 — racy cross-thread walk
+            return {"granularity": 0, "namespaces": {},
+                    "adapters": out["adapters"]}
+        out["namespaces"] = {k: sorted(v) for k, v in ns.items()}
+        return out
 
     def register_adapter(self, adapter_id, path: Optional[str] = None,
                          factors=None, rank: Optional[int] = None,

@@ -1,7 +1,8 @@
 """System-wide serving invariants: the laws that must hold under ANY
-fault schedule (megatron_tpu/serving/invariants.py, the port's own copy;
-the fleet-mode fold of remote replicas' reports comes with remote
-replicas, ROADMAP Queue 1 item 6).
+fault schedule (megatron_tpu/serving/invariants.py, the port's own copy).
+Over a fleet of remote replicas (serving/remote.py) each replica process
+runs its own sweep and serves the report (`GET /invariants`); `check_all`
+folds those reports into the fleet's sweep.
 
 Every robustness PR so far proved its own corner with a hand-scripted
 drill (tools/chaos_serve.py / chaos_router.py / chaos_upgrade.py), and
@@ -543,10 +544,19 @@ def wait_quiesced(target, timeout: float = 60.0) -> bool:
     while True:
         quiet = True
         for e in engines:
-            h = e.health()
+            try:
+                h = e.health()
+            except Exception:  # noqa: BLE001 — an unreachable remote
+                # replica has no accounting changing under the sweep: it
+                # counts as quiet, like a dead loop
+                continue
             if not h.get("loop_alive") or h.get("circuit_breaker_open"):
                 continue
-            depth = e.scheduler.live_depth()
+            # a remote replica has no scheduler here: its health payload's
+            # queue depth answers the same question over the wire
+            sched = getattr(e, "scheduler", None)
+            depth = (sched.live_depth() if sched is not None
+                     else h.get("queue_depth", 0))
             if h.get("active_slots") or h.get("prefilling") or depth:
                 quiet = False
                 break
@@ -576,6 +586,32 @@ def check_engine(engine, strict: bool = True,
     if sweep is None:
         sw.raise_if_violated()
     return stats
+
+
+def _check_remote_engine(e, strict: bool, sw: _Sweep) -> dict:
+    """One remote replica's sweep (fleet mode). KV accounting and the
+    in-flight walks need the live objects, which cannot cross the wire, so
+    the replica process runs its own sweep (`GET /invariants`,
+    `MegatronServer.invariant_report`) and its violations are folded into
+    this sweep, tagged with its address. An unreachable replica is
+    recorded, not convicted: a process that is gone has no accounting left
+    to break, and its in-flight work shows in laws 1-2 on the survivors'
+    counters and the tracked futures."""
+    addr = getattr(e, "addr", repr(e))
+    try:
+        rep = e.invariant_report(strict=strict)
+    except Exception as ex:  # noqa: BLE001 — typed transport faults
+        return {"remote": addr, "unreachable": str(ex)}
+    for law in rep.get("laws_checked", ()):
+        if law not in sw.checked:
+            sw.checked.append(str(law))
+    for v in rep.get("violations", ()):
+        if isinstance(v, (list, tuple)) and len(v) == 2:
+            law, detail = v
+        else:
+            law, detail = "remote", str(v)
+        sw.violations.append((str(law), f"replica {addr}: {detail}"))
+    return {"remote": addr, "report": rep}
 
 
 # ---------------------------------------------------------------------
@@ -691,7 +727,9 @@ def check_all(target, requests: Sequence = (),
               raise_on_violation: bool = True) -> dict:
     """The system-wide sweep, callable against a `ServingEngine` OR an
     `EngineRouter` (each replica engine is swept, then the router-level
-    laws). `requests` are the tracked
+    laws), a router over remote replicas included: each of those sweeps
+    itself in its own process and its report arrives over HTTP
+    (`_check_remote_engine`). `requests` are the tracked
     futures of the storm (engine GenRequests or RouterRequests) —
     resolved and typed-checked, and, when `oracles` are given,
     token-exactness-checked. Returns a report dict; raises
@@ -704,8 +742,11 @@ def check_all(target, requests: Sequence = (),
                                                sweep=sw)
     engines = getattr(target, "engines", None)
     if engines is not None:  # router
-        report["replicas"] = [check_engine(e, strict=strict, sweep=sw)
-                              for e in engines]
+        report["replicas"] = [
+            _check_remote_engine(e, strict, sw)
+            if hasattr(e, "invariant_report")
+            else check_engine(e, strict=strict, sweep=sw)
+            for e in engines]
         check_router_health(target.health(), sweep=sw)
         check_schema(target.aggregate_snapshot(), router=True, sweep=sw)
     else:

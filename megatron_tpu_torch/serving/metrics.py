@@ -64,6 +64,13 @@ _BASE_COUNTERS = (
     "router_failovers", "router_retries", "host_tier_hits",
     "host_tier_demotions", "host_tier_checksum_misses",
     "stream_reconnects",
+    # remote replicas (serving/remote.py): calls to a replica process that
+    # hit a connect or read timeout (it may be wedged, not dead),
+    # transport-level retries of one HTTP call (distinct from
+    # router_retries, a whole request resubmitted to a survivor), and
+    # health probes that failed with a typed transport fault
+    "router_remote_timeouts", "router_remote_retries",
+    "router_probe_failures",
     # LoRA serving: adapters written into bank rows, rows evicted under
     # bank pressure, loads served from the checksummed host copy, and host
     # copies dropped because their checksum failed (a reload from source)

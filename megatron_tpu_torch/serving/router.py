@@ -49,8 +49,13 @@ thread to die, and every future a caller waits on resolves).
 A request's `response_format` rides to the replica, which compiles it at
 admission (a failover replays the same constrained stream); fan-out
 (`n`/`best_of` > 1) is refused with an AdmissionError, as the reference
-refuses it. Remote replicas come with a later slice: `affinity_digest`
-raises NotImplementedError.
+refuses it.
+
+The replicas may be `RemoteReplica`s (serving/remote.py): replica
+processes reached over HTTP, which satisfy the same duck type. Then the
+router is a front tier that holds no weights; a rolling upgrade lets each
+replica stage the checkpoint itself, and `affinity_digest` merges the
+replicas' digests for a router one tier further out.
 """
 from __future__ import annotations
 
@@ -80,9 +85,6 @@ _SUM_GAUGES = ("queue_depth", "active_slots", "num_slots",
 _MAX_GAUGES = ("kv_gather_bytes_per_step", "kv_attn_path", "degrade_level")
 # gauges the router sets itself on the aggregate snapshot
 _ROUTER_GAUGES = ("fleet_replicas_up",)
-
-_LATER = ("comes with {} in a later slice (ROADMAP Queue 1 item 6)")
-
 
 class NoReplicaAvailableError(ServiceUnavailableError):
     """Every replica is ejected or down: the HTTP layer answers 503."""
@@ -177,9 +179,12 @@ class RouterRequest:
             if inner.state is RequestState.FINISHED and inner.error is None:
                 self._settle("ok", True)
                 return
-            if self.cancelled or inner.error_kind == "deadline":
-                # the client gave up or the deadline burned: a retry
-                # cannot help, and neither says the replica is broken
+            if self.cancelled or inner.error_kind in ("deadline",
+                                                      "grammar"):
+                # the client gave up, the deadline burned, or the grammar
+                # dead-ended (the same grammar, prompt and seed dead-end on
+                # every replica): a retry cannot help, and none says the
+                # replica is broken
                 self._settle("err", None)
                 return
             # a retryable failure of the replica (crash, hang, shutdown)
@@ -580,14 +585,21 @@ class EngineRouter:
         hard down is skipped. Returns the new WeightVersion; counts
         `rolling_upgrades` on completion. Raises RollingUpgradeError on a
         refusal (the fleet serves on); a staging refusal counts
-        `weight_swap_failures` once on the router."""
-        try:
-            staged = load_staged(ckpt_dir, self.replicas[0].engine.gen.params)
-        except WeightSwapError as e:
-            self.metrics.count("weight_swap_failures")
-            raise RollingUpgradeError(
-                f"rolling upgrade refused before any replica drained: {e}; "
-                "the fleet keeps serving") from e
+        `weight_swap_failures` once on the router. Over remote replicas
+        nothing is staged here (host buffers cannot cross a process
+        boundary): each replica stages `ckpt_dir` itself inside its swap,
+        one read a process."""
+        example = next((rep.engine.gen.params for rep in self.replicas
+                        if hasattr(rep.engine, "gen")), None)
+        staged = None
+        if example is not None:
+            try:
+                staged = load_staged(ckpt_dir, example)
+            except WeightSwapError as e:
+                self.metrics.count("weight_swap_failures")
+                raise RollingUpgradeError(
+                    f"rolling upgrade refused before any replica drained: "
+                    f"{e}; the fleet keeps serving") from e
         version = None
         for rep in self.replicas:
             try:
@@ -657,7 +669,27 @@ class EngineRouter:
             return False
 
     def affinity_digest(self) -> dict:
-        raise NotImplementedError(_LATER.format("remote replicas"))
+        """The replicas' affinity digests merged (`GET /affinity` of a
+        router-fronted process): the union of the chains and the highest
+        residency of each adapter. Affinity is a hint, so claiming a hit
+        one replica holds costs a worse pick, never a wrong token; a
+        replica that cannot answer adds nothing."""
+        merged: dict = {"granularity": 0, "namespaces": {}, "adapters": {}}
+        for rep in self.replicas:
+            try:
+                d = rep.engine.affinity_digest()
+            except Exception:  # noqa: BLE001 — a dead replica has none
+                continue
+            merged["granularity"] = (merged["granularity"]
+                                     or int(d.get("granularity", 0)))
+            for label, chain in d.get("namespaces", {}).items():
+                merged["namespaces"].setdefault(label, set()).update(chain)
+            for aid, level in d.get("adapters", {}).items():
+                merged["adapters"][aid] = max(
+                    merged["adapters"].get(aid, 0), int(level))
+        merged["namespaces"] = {label: sorted(v) for label, v
+                                in merged["namespaces"].items()}
+        return merged
 
     def health(self) -> dict:
         """The router's `/healthz` payload: `state` tells DEGRADED (some

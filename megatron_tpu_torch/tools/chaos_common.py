@@ -1,16 +1,21 @@
 """Shared scaffolding of the port's chaos drills (the root
-tools/chaos_common.py without its multi-process fleet helpers, which come
-with remote replicas): a tiny engine and a tiny router over replicas of
+tools/chaos_common.py): a tiny engine and a tiny router over replicas of
 one tiny model, LoRA adapters for them, serial oracles, the outcome
 resolvers that count every future as resolved or stranded, checkpoint
-publishes (a good one and a corrupted one), and the invariant sweep
-(serving/invariants.py) every drill ends with.
+publishes (a good one and a corrupted one), the invariant sweep
+(serving/invariants.py) every drill ends with, and the helpers of a fleet
+of replica processes (tools/chaos_fleet.py): the integer tokenizer, free
+ports, and spawning a replica and waiting until it accepts.
 """
 from __future__ import annotations
 
 import glob
 import json
 import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -224,3 +229,84 @@ def emit_record(record: dict, out: Optional[str], seed=0) -> str:
         with open(out, "w") as f:
             f.write(line + "\n")
     return line
+
+
+# ---------------------------------------------------------------------
+# a fleet of replica processes (tools/chaos_fleet.py)
+# ---------------------------------------------------------------------
+REPO_ROOT = Path(__file__).resolve().parents[2]
+
+
+class IntTokenizer:
+    """Space-separated integers: the tokenizer of replica processes and of
+    front tiers in the drills. The wire format between them is
+    `prompt_tokens`, so only `detokenize` runs on a replica, and it must
+    give the same text in every process."""
+
+    eod = 0
+    bos = None
+
+    def tokenize(self, s):
+        return [int(t) for t in str(s).split()]
+
+    def detokenize(self, ids):
+        return " ".join(str(int(t)) for t in ids)
+
+
+def free_port() -> int:
+    """A free TCP port the OS assigned (the child binds it a moment later:
+    a small race, fine for drills and tests)."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def replica_env() -> dict:
+    """A replica child's environment: the parent's, with the repository
+    root first on PYTHONPATH (the child runs `python -m` from the root) and
+    two CPU threads unless the caller set OMP_NUM_THREADS (several
+    replicas share the host's cores)."""
+    env = dict(os.environ)
+    path = env.get("PYTHONPATH")
+    env["PYTHONPATH"] = (str(REPO_ROOT) if not path
+                         else f"{REPO_ROOT}{os.pathsep}{path}")
+    env.setdefault("OMP_NUM_THREADS", "2")
+    return env
+
+
+def spawn_replica(port: int, extra_args=(), stdout=None, stderr=None):
+    """Start `python -m megatron_tpu_torch.tools.chaos_fleet
+    --serve_replica` as a process serving on 127.0.0.1:port, from the
+    repository root. `extra_args` choose its device and model. The
+    child's output goes to DEVNULL unless given, so the parent's stdout
+    keeps its one-record contract."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "megatron_tpu_torch.tools.chaos_fleet",
+         "--serve_replica", "--port", str(port), *map(str, extra_args)],
+        cwd=str(REPO_ROOT), env=replica_env(),
+        stdout=stdout if stdout is not None else subprocess.DEVNULL,
+        stderr=stderr if stderr is not None else subprocess.DEVNULL)
+
+
+def wait_replica_ready(addr: str, timeout: float = 120.0,
+                       proc=None) -> None:
+    """Block until the replica at host:port answers /healthz accepting.
+    Raises on timeout, or when `proc` exits first."""
+    from megatron_tpu_torch.serving.remote import RemoteReplica
+    probe = RemoteReplica(addr, connect_timeout_s=1.0, read_timeout_s=5.0,
+                          max_retries=0)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"replica {addr} exited with "
+                               f"{proc.returncode} before it was ready")
+        try:
+            if probe.health().get("accepting"):
+                return
+        except Exception:  # noqa: BLE001 — not up yet
+            pass
+        time.sleep(0.1)
+    raise TimeoutError(f"replica {addr} not ready within {timeout:.0f}s")

@@ -29,9 +29,18 @@ of N adapters (`--adapter_host_bytes` of checksummed host overflow), and
 (`--watch_interval_s`, `--swap_timeout_s`); `PUT /admin` swaps or
 registers on demand.
 
+Remote replicas (serving/remote.py): `--replica_mode` serves the engine as
+one replica process of a fleet (it also takes pre-tokenized
+`prompt_tokens` payloads and answers `GET /affinity`), and `--fleet
+host:port,...` runs a front tier over such processes: it loads no weights
+(no `--load`), needs only the tokenizer, touches no device, and routes
+through the prefix-affinity router over a `RemoteReplica` client each
+(`--remote_connect_timeout_s`, `--remote_read_timeout_s`,
+`--remote_max_retries`, `--remote_digest_interval_s`).
+
 The other flags of the JAX tool parse and raise NotImplementedError naming
-the ROADMAP item they wait for: `--fleet`, `--replica_mode` and the
-`--remote_*` flags, `--serving_tp` and `--disaggregate_prefill`.
+the ROADMAP item they wait for: `--serving_tp` and
+`--disaggregate_prefill`.
 """
 from __future__ import annotations
 
@@ -45,7 +54,9 @@ from megatron_tpu_torch.utils.logging import print_rank_0
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--load", default=None, help="checkpoint root to serve")
+    p.add_argument("--load", default=None,
+                   help="checkpoint root to serve (none with --fleet: a "
+                        "front tier holds no weights)")
     p.add_argument("--tokenizer_type", default="SentencePieceTokenizer")
     p.add_argument("--tokenizer_model", default=None)
     p.add_argument("--vocab_file", default=None)
@@ -123,7 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--swap_timeout_s", type=float, default=120.0,
                    help="how long a hot swap waits for in-flight work "
                         "before it is refused")
-    # flags of later slices: they parse and raise
     p.add_argument("--degrade_ladder", type=int, default=0,
                    help="the brownout ladder's top rung: 1 no speculation, "
                         "2 clamps best_of and max_new_tokens, 3 sheds "
@@ -134,14 +144,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo_itl_p99_ms", type=float, default=None,
                    help="inter-token SLO: longer gaps count "
                         "slo_itl_violations")
+    p.add_argument("--replica_mode", action="store_true",
+                   help="serve as one fleet replica process: also takes "
+                        "pre-tokenized prompt_tokens payloads and answers "
+                        "GET /affinity, for a --fleet front tier")
+    p.add_argument("--fleet", type=str, default=None,
+                   help="serve as a front tier over the replica processes "
+                        "at these comma-separated host:port addresses "
+                        "(no weights load here)")
+    p.add_argument("--remote_connect_timeout_s", type=float, default=2.0,
+                   help="--fleet: connect (and health-probe read) budget "
+                        "of a call to a replica")
+    p.add_argument("--remote_read_timeout_s", type=float, default=30.0,
+                   help="--fleet: read budget of a replica's responses "
+                        "and of the gaps between SSE frames")
+    p.add_argument("--remote_max_retries", type=int, default=2,
+                   help="--fleet: transport retries of one call (backoff "
+                        "with jitter, Retry-After honoured); failover to a "
+                        "survivor is --router_max_retries")
+    p.add_argument("--remote_digest_interval_s", type=float, default=2.0,
+                   help="--fleet: refresh cadence of each replica's "
+                        "prefix-affinity digest (GET /affinity)")
+    # flags of a later slice: they parse and raise
     p.add_argument("--serving_tp", type=int, default=1)
     p.add_argument("--disaggregate_prefill", action="store_true")
-    p.add_argument("--replica_mode", action="store_true")
-    p.add_argument("--fleet", type=str, default=None)
-    p.add_argument("--remote_connect_timeout_s", type=float, default=2.0)
-    p.add_argument("--remote_read_timeout_s", type=float, default=30.0)
-    p.add_argument("--remote_max_retries", type=int, default=2)
-    p.add_argument("--remote_digest_interval_s", type=float, default=2.0)
     return p
 
 
@@ -178,9 +204,10 @@ def serving_config(args, num_slots: int):
 
 
 def build_server(argv=None, *, device: DeviceLike = None):
-    """Parse `argv`, load the checkpoint and build the MegatronServer.
-    Returns (server, args). Flags of later slices raise before any weight
-    is read."""
+    """Parse `argv`, load the checkpoint and build the MegatronServer (with
+    `--fleet`, the front tier over the replica processes: no weights and
+    no device). Returns (server, args). Flags of later slices raise before
+    any weight is read."""
     import glob
     import os
 
@@ -198,8 +225,24 @@ def build_server(argv=None, *, device: DeviceLike = None):
     p = build_parser()
     args = p.parse_args(argv)
     serving_config(args, 8).validate()  # later slices' flags raise here
-    if not args.load:
-        p.error("--load is required")
+    if args.fleet and args.load:
+        p.error("--fleet is a thin front tier over remote replicas; it "
+                "loads no weights (drop --load)")
+    if not args.fleet and not args.load:
+        p.error("--load is required (or --fleet for a front tier)")
+    if args.fleet and (args.serial or args.replica_mode):
+        p.error("--fleet excludes --serial and --replica_mode: the front "
+                "tier routes, it does not serve an engine")
+    if args.replica_mode and args.serial:
+        p.error("--replica_mode requires the serving engine (drop "
+                "--serial)")
+    if args.fleet:
+        tokenizer = build_tokenizer(
+            args.tokenizer_type, vocab_file=args.vocab_file,
+            merge_file=args.merge_file, tokenizer_model=args.tokenizer_model)
+        return MegatronServer(None, tokenizer,
+                              serving=serving_config(args, 8).validate()), \
+            args
     if args.watch_checkpoints and args.int8_weights:
         p.error("--watch_checkpoints is unsupported with --int8_weights "
                 "(serve fp weights to hot-swap them)")
@@ -261,8 +304,10 @@ def main(argv=None, *, device: DeviceLike = None,
         raise
     try:
         host, port = httpd.server_address[:2]
-        print_rank_0(f"serving {args.load} on http://{host}:{port}/api "
-                     f"({'serial route' if args.serial else 'engine'})")
+        what = ("a fleet front tier over " + args.fleet if args.fleet
+                else f"{args.load} "
+                f"({'serial route' if args.serial else 'engine'})")
+        print_rank_0(f"serving {what} on http://{host}:{port}/api")
         if ready is not None:
             ready(server, httpd)
         httpd.serve_forever()

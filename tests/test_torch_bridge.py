@@ -128,7 +128,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "resilience/watchdog.py", "serving/prefix_index.py",
                    "serving/spec_decode.py", "serving/host_tier.py",
                    "serving/router.py", "tools/chaos_common.py",
-                   "tools/chaos_router.py"):
+                   "tools/chaos_router.py", "serving/remote.py",
+                   "tools/chaos_fleet.py", "tools/serving_bench.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
@@ -143,7 +144,8 @@ FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
               "serving/request.py", "serving/metrics.py",
               "inference/server.py", "tools/chaos_common.py",
               "tools/chaos_router.py",
-              "tools/run_text_generation_server.py")
+              "tools/run_text_generation_server.py", "serving/remote.py",
+              "tools/chaos_fleet.py", "tools/serving_bench.py")
 
 
 @pytest.mark.parametrize("module", FRONT_DOOR)

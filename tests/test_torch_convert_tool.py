@@ -260,9 +260,43 @@ def test_cli_server_greedy_equals_jax_generator(converted, monkeypatch):
     (["--disaggregate_prefill"], "Queue 1 item 7"),
     (["--remote_digest_interval_s", "5"], "Queue 1 item 6"),
 ])
-def test_unported_server_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        srv.build_server(["--load", "unused", *flags], device="cpu")
+def test_unported_server_flags_raise(flags, item, tmp_path):
+    """Item 7's flags still raise NotImplementedError naming it. Item 6's,
+    remote replicas, are ported: each lands in the ServingConfig, and
+    `--fleet` builds a front tier that holds no weights and touches no
+    device (no --device here, no GPU): a router over RemoteReplica
+    clients."""
+    if item == "Queue 1 item 7":
+        with pytest.raises(NotImplementedError, match=item):
+            srv.build_server(["--load", "unused", *flags], device="cpu")
+        return
+    from megatron_tpu_torch.serving import EngineRouter
+    from megatron_tpu_torch.serving.remote import RemoteReplica
+    from megatron_tpu_torch.tools import synthetic_corpus
+    name = flags[0][2:]
+    args = srv.build_parser().parse_args(["--load", "unused", *flags])
+    cfg = srv.serving_config(args, 8).validate()
+    want = {"fleet": "127.0.0.1:1", "replica_mode": True,
+            "remote_max_retries": 3, "remote_connect_timeout_s": 5.0,
+            "remote_read_timeout_s": 60.0,
+            "remote_digest_interval_s": 5.0}[name]
+    assert getattr(cfg, name) == want
+    if name != "fleet":
+        return
+    vocab, merges = synthetic_corpus.write_gpt2_vocab(str(tmp_path), 512)
+    server, args = srv.build_server(
+        [*flags, "--tokenizer_type", "GPT2BPETokenizer", "--vocab_file",
+         vocab, "--merge_file", merges, "--remote_connect_timeout_s",
+         "0.5"])
+    try:
+        assert server.generator is None
+        assert isinstance(server.engine, EngineRouter)
+        assert [type(e) for e in server.engine.engines] == [RemoteReplica]
+        assert server.engine.engines[0].addr == "127.0.0.1:1"
+    finally:
+        server.close()
+    with pytest.raises(SystemExit):  # a front tier loads no weights
+        srv.build_server(["--load", "unused", *flags])
 
 
 def test_convert_tool_mixtral_raises(tmp_path):

@@ -198,10 +198,14 @@ def test_crashed_step_fails_requests_and_marks_unhealthy(port_gen):
 
 
 def test_later_slice_fields_raise():
-    for kw in (dict(disaggregate_prefill=True), dict(serving_tp=2),
-               dict(fleet="127.0.0.1:1"), dict(replica_mode=True)):
+    """The serving topology waits for a later slice; the remote-replica
+    fields, ported since, validate."""
+    for kw in (dict(disaggregate_prefill=True), dict(serving_tp=2)):
         with pytest.raises(NotImplementedError):
             ServingConfig(**kw).validate()
+    for kw in (dict(fleet="127.0.0.1:1"), dict(replica_mode=True)):
+        cfg = ServingConfig(**kw)
+        assert cfg.validate() is cfg
     with pytest.raises(ValueError, match="divide"):
         ServingConfig(kv_block_size=24, block_native_attn=True,
                       max_len=128).validate(tconfig.llama2_config("tiny"))

@@ -129,8 +129,9 @@ LATER = {
     "prompt_tokens": {"prompt_tokens": [[5, 6]]},
 }
 # the fields whose slice has come: still a 400 for these payloads on this
-# 2-slot adapterless engine, now saying why
+# 2-slot adapterless engine that is no fleet replica, now saying why
 LATER_PORTED = {"adapter_id": "serving no adapters",
+                "prompt_tokens": "replica-mode wire format",
                 "n": "must be <= best_of",
                 "best_of": "exceeds the engine's 2 slots",
                 "response_format": "does not compile"}

@@ -12,8 +12,8 @@
   illegal grammar token, a dropped terminal count and an inconsistent
   /healthz payload; and the perf laws 8-11 on the same harness inputs.
 - The metrics schema: the port's snapshot keys are the reference's minus
-  the 16 remote-replica and topology keys (which come with their slices),
-  plus the port's three inter-token and TTFT percentile keys.
+  the 13 serving-topology keys (which come with their slice), plus the
+  port's three inter-token and TTFT percentile keys.
 """
 import copy
 
@@ -54,11 +54,10 @@ TINY = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
 KW = dict(num_slots=4, max_queue=16, max_len=64, kv_block_size=16,
           block_native_attn=True, enable_prefix_cache=True)
 REGEX_RF = {"type": "regex", "pattern": "[0-9]{2,6}"}
-# the reference's keys the port's slices have not reached: remote
-# replicas, the serving topology, pipeline serving, the handoff
-REMOTE_TOPOLOGY_KEYS = {
-    "router_remote_timeouts", "router_remote_retries",
-    "router_probe_failures", "prefill_tp", "decode_tp", "prefill_devices",
+# the reference's keys the port's slices have not reached: the serving
+# topology, pipeline serving, the handoff
+TOPOLOGY_KEYS = {
+    "prefill_tp", "decode_tp", "prefill_devices",
     "decode_devices", "prefill_group_busy", "decode_group_busy",
     "serving_pp", "pp_waves", "pp_stage_bubble",
     "pp_activation_bytes_per_step", "handoffs", "handoff_bytes_per_req",
@@ -318,7 +317,7 @@ def test_perf_laws_match_jax(name, kw):
 def test_snapshot_schema_is_the_references_minus_later_slices():
     ref = set(JMetrics().snapshot())
     ours = set(ServingMetrics().snapshot())
-    assert ref - ours == REMOTE_TOPOLOGY_KEYS
+    assert ref - ours == TOPOLOGY_KEYS
     assert ours - ref == PORT_EXTRA_KEYS
     # the ten keys of this slice, at 0 on a fresh scrape
     snap = ServingMetrics().snapshot()

@@ -354,11 +354,33 @@ def test_cli_passes_the_front_door_flags():
             sc.retained_slots) == (2, 3, 2.5, 4096, 30.0, True, 2)
 
 
+class _DigestEngine(_FakeEngine):
+    def __init__(self, digest):
+        super().__init__()
+        self.digest = digest
+
+    def affinity_digest(self):
+        return self.digest
+
+
 @pytest.mark.parametrize("call", [lambda r: r.affinity_digest()],
                          ids=["affinity_digest"])
 def test_later_router_features_raise(call):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        call(EngineRouter([_FakeEngine()]))
+    """Ported since (remote replicas): the router's affinity_digest is its
+    replicas' digests merged (the chains' union, each adapter's highest
+    residency); a replica with no digest adds nothing."""
+    router = EngineRouter([
+        _FakeEngine(),
+        _DigestEngine({"granularity": 16, "namespaces": {"": [3, 1]},
+                       "adapters": {"a": 1}}),
+        _DigestEngine({"granularity": 16, "namespaces": {"": [2, 1],
+                                                         "a": [7]},
+                       "adapters": {"a": 2, "b": 1}})])
+    assert call(router) == {"granularity": 16,
+                            "namespaces": {"": [1, 2, 3], "a": [7]},
+                            "adapters": {"a": 2, "b": 1}}
+    assert call(EngineRouter([_FakeEngine()])) == {
+        "granularity": 0, "namespaces": {}, "adapters": {}}
 
 
 @pytest.mark.parametrize("drill", ["kill", "wedge", "host_tier"])
