@@ -188,8 +188,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    serial route; a stream and its completion; a host restore, a miss and
    the tier off: equal greedy tokens.
 13. LoRA serving, LoRA finetuning and live weights (`phase_lora_live`):
-   (a) Llama-2-7B at full width and depth behind the engine with an
-   adapter bank of 8 rows at rank 16 (random fp32 factors): the three
+   (a) Llama-2-7B at full width and LORA_LAYERS layers behind the engine
+   with an adapter bank of 8 rows at rank 16 (random fp32 factors): the three
    bench_lora arms (base, one adapter, 16 requests round-robin over the
    base model and 8 adapters), each request prefilled alone: tokens/s,
    TTFT and inter-token p50, peak memory, the gather bytes of a decode
@@ -236,8 +236,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    serial n=1 generates; rung 2's clamp and rung 1 mid-stream change no
    token; tools/chaos_serve.py's three drills and tools/chaos_upgrade.py's
    drills 1-2, each ending in a strict invariant sweep.
-15. Remote replicas (`phase_fleet`): Llama-2-7B at full width and depth
-   (bf16, seed FLEET_SEED) in replica server processes (`tools/
+15. Remote replicas (`phase_fleet`): Llama-2-7B at full width and
+   FLEET_LAYERS layers (bf16, seed FLEET_SEED) in replica server processes (`tools/
    chaos_fleet.py --serve_replica`, the replica-mode MegatronServer),
    FLEET_SERVING (ENGINE_SERVING, the prefix cache, each request prefilled
    alone), behind a fleet front tier in this process that holds no
@@ -258,11 +258,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    must show kernels 1 and 4. (f) a 2-layer fp32 slice in two replica
    processes, one SIGKILLed under traffic: every completion equals the
    serial route of the same weights here. No child outlives the phase.
+16. The Mixture-of-Experts layer (`phase_moe`) at Mixtral-8x7B's widths
+   (h 4096, 32/8 heads, 8 experts of ffn 14336, top-2, vocab 32000, the
+   dropless capacity E / K; random weights from seeds; depth cut for
+   memory, MOE_LAYERS of 32 for serving). (a) the serial /api route: a
+   512-token greedy prompt with 64 new tokens, 3 sampled prompts, and
+   `Generator.score` of the greedy stream; prefill ms, decode ms a token,
+   peak memory, flash and block launches. (b) the engine on HTTP
+   (MOE_SERVING: ENGINE_SERVING with each request prefilled alone), 16
+   requests of 37-1,000 tokens, half sampled: tokens/s, TTFT p50/p99,
+   inter-token p50, peak memory and the decode step's weight-read bound;
+   each greedy request sent again alone gives the burst's tokens. (c)
+   `quantize_weights` (the banks the same tensors), a W8 engine with an
+   int8 block pool (its streams' logprobs against the bf16 and the W8
+   serial routes reported, with the positions where a router's choice
+   flipped); `int8_expert_matmul` against the bf16 bmm at the bank's
+   decode and prefill shapes (MOE_BANK_TOL, the int32 product exact). (d)
+   a 2-layer fp32 slice: sort and dense dispatch agree on logits and grads
+   (MOE_SLICE_TOL), dropless and at capacity MOE_DROP_CAPACITY (drops
+   counted), the engine with batched prefill equals the serial route, and
+   the W8 + int8-KV engine's logprobs agree with its serial route's within
+   W8_LOGPROB_TOL. (e) `make_train_step` at MOE_TRAIN_LAYERS
+   layers, seq 4096, bf16 compute, fp32 Adam, 3 steps: finite losses, each
+   layer's router loss, step ms, peak memory, the three flash kernels
+   once per layer a step. (f) an HF Mixtral directory at MOE_TOOL_LAYERS
+   layers through tools/convert_hf_checkpoint --family mixtral, served,
+   exported and re-imported bit for bit; seconds and bytes.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-15
-too, the block kernel's on phases 9 and 11-15 too, its verify rounds at
+the norm kernels' on every path above, the flash kernels' on phases 8-16
+too, the block kernel's on phases 9, 11-16 too, its verify rounds at
 w 5 on phases 11, 13 and 14; phase 15's counts are the replica processes'
 whole lives) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
@@ -306,9 +332,10 @@ PEAK_BYTES = 3.35e12
 # sit one row past a 128-row tile of the bf16 kernel and one row short of
 # two; s 1000 is the engine phase's longest prompt; the bf16 window of 100
 # crosses the band's edge inside tiles; mistral_window_prefill is phase 10's
-# rolling prefill (a 4608-token prompt past a 4096 window). The bench_ cases
-# are tools/bench_kernels.py's flash shapes (FLASH_SHAPES), which the
-# bench_kernels path launches.
+# rolling prefill (a 4608-token prompt past a 4096 window);
+# mixtral_prefill_s1000 is phase 16's longest engine prompt at Mixtral's
+# 32/8 heads, with no window. The bench_ cases are tools/bench_kernels.py's
+# flash shapes (FLASH_SHAPES), which the bench_kernels path launches.
 KERNEL_CASES = [
     ("llama2_7b_prefill", 1, 512, 32, 32, 128, "bfloat16", True, None),
     ("request_b_prefill", 3, 32, 32, 32, 128, "bfloat16", True, None),
@@ -323,6 +350,7 @@ KERNEL_CASES = [
     ("bf16_window100", 1, 1024, 32, 8, 128, "bfloat16", True, 100),
     ("mistral_window_prefill", 1, 4608, 32, 8, 128, "bfloat16", True, 4096),
     ("fp32_window128", 1, 512, 32, 8, 128, "float32", True, 128),
+    ("mixtral_prefill_s1000", 1, 1000, 32, 8, 128, "bfloat16", True, None),
     ("bench_2x2048x16", 2, 2048, 16, 16, 128, "bfloat16", True, None),
     ("bench_1x8192x8", 1, 8192, 8, 8, 128, "bfloat16", True, None),
     ("bench_1x32768x4", 1, 32768, 4, 4, 128, "bfloat16", True, None),
@@ -340,7 +368,8 @@ WINDOW_SHAPE = "mistral_window_prefill"
 # trains at its 2048 positions). bf16_window100_train runs the bf16 backward
 # with a window; falcon7b_mqa_extra_train holds the d 64 EXTRA
 # instantiations (segment ids and dropout), the dK/dV head split of MQA
-# and a ragged tail (1000 rows) in one case.
+# and a ragged tail (1000 rows) in one case; mixtral_train_s4096 is phase
+# 16's training call (Mixtral-8x7B's 32/8 heads, s 4096).
 TRAIN_CASES = [
     ("llama2_7b_train", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.0,
      False),
@@ -361,6 +390,8 @@ TRAIN_CASES = [
      0.0, False),
     ("falcon7b_mqa_extra_train", 1, 1000, 71, 1, 64, "bfloat16", None, True,
      0.1, False),
+    ("mixtral_train_s4096", 1, 4096, 32, 8, 128, "bfloat16", None, False,
+     0.0, False),
 ]
 TRAIN_MAIN_SHAPE = "llama2_7b_train"
 DROPOUT_SEED = 4321
@@ -381,8 +412,11 @@ SLICE_TOL = 1e-4
 # max_len, with one slot a length (mixed 37-1,200, BLOCK_LENGTHS); a slot
 # of length 0 is idle, its map all trash. The first is the engine's decode
 # shape: 8 slots of Llama-2-7B (32 heads of 128), 16-token blocks, bf16. In
-# the last one slot's live keys reach the region's last key, so every
-# split of the kernel's grid is live and the combine merges the most.
+# full_region one slot's live keys reach the region's last key, so every
+# split of the kernel's grid is live and the combine merges the most;
+# mixtral_decode is phase 16's engine decode (Mixtral-8x7B's 32/8 heads,
+# 4 query rows a kv head), mixtral_int8 the same over phase 16 (c)'s int8
+# arena.
 BLOCK_LENGTHS = [37, 64, 100, 200, 300, 515, 700, 1200]
 BLOCK_CAP = 2048
 BLOCK_CASES = [
@@ -405,6 +439,10 @@ BLOCK_CASES = [
      [37, 0, 100, 200, 0, 515, 0, 1200]),
     ("full_region", 8, 1, 32, 32, 128, 16, "bfloat16", "bfloat16",
      BLOCK_LENGTHS[:7] + [BLOCK_CAP - 1]),
+    ("mixtral_decode", 8, 1, 32, 8, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS),
+    ("mixtral_int8", 8, 1, 32, 8, 128, 16, "bfloat16", "int8",
+     BLOCK_LENGTHS),
 ]
 BLOCK_MAIN = "engine_decode"
 # phase 11's speculative verify window (speculative_k 4)
@@ -3181,9 +3219,9 @@ def phase_pretrain(smi: str) -> dict:
 
 
 # The weight toolchain (phase 9): HF directories in the published layouts of
-# Llama-2-7B and Falcon-7B at full width, cut to TOOLCHAIN_LAYERS layers (the
-# cut phase 8 makes, for bytes and time), with random bf16 weights from
-# TOOLCHAIN_SEED, imported, served, finetuned and exported by the port's
+# Llama-2-7B and Falcon-7B at full width, cut to TOOLCHAIN_LAYERS layers (for
+# bytes; two, so that a mistake in the order of layers shows), with random
+# bf16 weights from TOOLCHAIN_SEED, imported, served, finetuned and exported by the port's
 # tools. The config.json of each is the published one (meta-llama/
 # Llama-2-7b-hf, tiiuae/falcon-7b) with the layer count cut and the dtype of
 # the random weights.
@@ -3740,7 +3778,7 @@ def phase_toolchain(smi: str) -> dict:
 # from a seed, cut to WINDOW_LAYERS of its 32 layers (the whole smoke's time
 # limit; the width is not cut). max_len 8192: the region rolls at 4096
 # tokens.
-WINDOW_LAYERS = 16
+WINDOW_LAYERS = 8
 MISTRAL_7B = dict(num_kv_heads=8, ffn_hidden_size=14336, sliding_window=4096,
                   seq_length=8192, max_position_embeddings=8192,
                   rope_theta=1e4, norm_epsilon=1e-5)
@@ -4268,7 +4306,7 @@ def phase_window_supervisor(smi: str) -> dict:
 # drafter, and one proposing the k-0 arm's greedy streams) beside k 0 on 8
 # prompts that repeat a 32-token span.
 FEATURE_SEED = 0
-FEATURE_LAYERS = 16
+FEATURE_LAYERS = 8
 FEATURE_PREFIX = 1536
 FEATURE_SUFFIXES = [64] + [64 + (136 * i) // 6 for i in range(7)]
 FEATURE_NEW = 32
@@ -4984,7 +5022,7 @@ def phase_engine_features(smi: str) -> dict:
 # requests it ran beside, and a failed-over request regenerates the
 # one-replica run's tokens bit for bit, sampled ones too (seeded).
 FRONT_SEED = 0
-FRONT_LAYERS = 16
+FRONT_LAYERS = 8
 FRONT_GROUPS = 4
 FRONT_PREFIX = 1024
 FRONT_NEW = 128
@@ -5863,7 +5901,8 @@ def phase_front_door(smi: str) -> dict:
 
 
 # Phase 13, LoRA serving, LoRA finetuning and live weights. (a)-(b):
-# Llama-2-7B at full width and depth (random bf16 weights, seed LORA_SEED)
+# Llama-2-7B at full width and LORA_LAYERS of its 32 layers (the whole
+# smoke's time limit) (random bf16 weights, seed LORA_SEED)
 # behind the engine with an adapter bank (LORA_RANK, random fp32 factors from
 # fixed seeds, 67.1 MB an adapter at 32 layers). Every request is prefilled
 # alone (prefill_max_batch 1) and the decode grid has a fixed shape, so a
@@ -5874,6 +5913,7 @@ def phase_front_door(smi: str) -> dict:
 # port's save_checkpoint publishes (fp32 weights, SHA-256 manifests). (f)
 # the 2-layer fp32 slice.
 LORA_SEED = 0
+LORA_LAYERS = 16
 LORA_RANK = 16
 LORA_ALPHA = 32.0
 LORA_SLOTS = 8
@@ -6802,7 +6842,7 @@ def phase_lora_live(smi: str) -> dict:
     check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
           "phase 13: phase 12's model was not freed")
     t_phase = time.perf_counter()
-    cfg = llama2_config("7b")
+    cfg = llama2_config("7b", num_layers=LORA_LAYERS)
     tok = ByteTokenizer()
     root = tempfile.mkdtemp(prefix="chip_smoke_lora_")
     stats = dict(card=smi)
@@ -7353,6 +7393,9 @@ def phase_structured_degrade(smi: str) -> dict:
 # phase 15: remote replicas
 # ---------------------------------------------------------------------
 FLEET_SEED = 0
+# the replicas' depth, of Llama-2-7B's 32 layers (the whole smoke's time
+# limit; the width is not cut)
+FLEET_LAYERS = 16
 # each request prefilled alone and the decode grid fixed: a request's bf16
 # tokens then depend on none of its neighbours, so the fleet's completions
 # can be held to one replica process's
@@ -7732,10 +7775,10 @@ def greedy_params():
 
 
 def phase_fleet(smi: str) -> dict:
-    """Phase 15: remote replicas. Two Llama-2-7B replica processes (32
-    layers, bf16, seed FLEET_SEED) behind a fleet front tier in this
-    process, which holds no weights, over HTTP on 127.0.0.1: (a) /healthz,
-    (b) a 16-request trace (8 SSE streams) over four 1,024-token prefixes,
+    """Phase 15: remote replicas. Two Llama-2-7B replica processes
+    (FLEET_LAYERS layers, bf16, seed FLEET_SEED) behind a fleet front tier
+    in this process, which holds no weights, over HTTP on 127.0.0.1: (a)
+    /healthz, (b) a 16-request trace (8 SSE streams) over four 1,024-token prefixes,
     each warmed on one replica only, routed by the affinity digest, (c) a
     SIGKILL mid-decode, the respawn and its re-admission, (d) a SIGSTOP
     ejected by read timeouts and re-admitted after SIGCONT, (e) the fleet's
@@ -7764,8 +7807,9 @@ def phase_fleet(smi: str) -> dict:
     counts = {}
     with tempfile.TemporaryDirectory(dir="build") as root:
         procs = ReplicaProcs(root, [
-            "--device", "cuda", "--model", "llama2-7b", "--seed",
-            FLEET_SEED, "--serving", json.dumps(FLEET_SERVING)])
+            "--device", "cuda", "--model", "llama2-7b", "--layers",
+            str(FLEET_LAYERS), "--seed", FLEET_SEED, "--serving",
+            json.dumps(FLEET_SERVING)])
         try:
             t0 = time.perf_counter()
             for name in ("A", "B", "R"):  # R: the one-replica reference
@@ -7919,6 +7963,829 @@ def wait_quiet_remote(rep, timeout: float = 120.0) -> None:
         time.sleep(0.1)
 
 
+
+# Phase 16: the Mixture-of-Experts layer at Mixtral-8x7B's widths (h 4096,
+# 32/8 heads of 128, 8 experts of ffn 14336, top-2, vocab 32000, the
+# preset's dropless capacity E / K), random weights from seeds. Depth is
+# cut for memory, never width: 32 layers in bf16 take 93.4 GB, over the
+# card's 80 GB, and the reference keeps the expert banks out of its int8
+# weights, so int8 cannot close the gap. Serving runs MOE_LAYERS of 32
+# (11.9 B parameters, 23.7 GB), training MOE_TRAIN_LAYERS (3.17 B
+# parameters at 16 B each of fp32 state: 50.6 GB; three layers would take
+# 74 GB before activations), the toolchain MOE_TOOL_LAYERS.
+MOE_LAYERS = 8
+MOE_TRAIN_LAYERS = 2
+MOE_TOOL_LAYERS = 1
+MOE_SEED = 0
+MOE_SERIAL_PROMPT = 512
+MOE_SERIAL_NEW = 64
+# ENGINE_SERVING with each request prefilled alone: a bf16 request's
+# tokens do not depend on its neighbours
+MOE_SERVING = dict(ENGINE_SERVING, prefill_max_batch=1)
+MOE_REQUESTS = 16
+MOE_INT8_REQUESTS = 2
+# the greedy requests of (b) sent again alone
+MOE_ALONE_REQUESTS = 4
+# the int8 bank GEMM against the bf16 bmm, relative rms: per-row and
+# per-column int8 rounding of Gaussian operands at K 4096 gives 1.2-1.3%
+# (amax ~3.5 sigma over 127 steps, on each operand); a wrong scale or
+# column gives tens of percent
+MOE_BANK_TOL = 0.02
+# the fp32 slice: sort against dense dispatch, logits and grads, relative
+# to the largest magnitude (the same fp32 values, summed in another order)
+MOE_SLICE_TOL = 1e-5
+# 8 rows of 32 tokens: capacity is per row, C = ceil(2 * 32 * 1.25 / 8) = 10
+# against 8 choices an expert on average, so rows drop at 1.25 (at 256
+# tokens a row, a layer of independently routed tokens drops nothing 92%
+# of the time)
+MOE_SLICE_BATCH = (8, 32)
+MOE_DROP_CAPACITY = 1.25
+MOE_TRAIN_LR = 3e-5
+# free card memory the phase waits for: its largest part, training, peaks
+# at ~54 GiB
+MOE_FREE_BYTES = 70 * 2 ** 30
+MOE_TOOL_NEW = 8
+# the H100's HBM rate, for the decode step's weight-read bound
+HBM_BYTES_PER_S = 3.35e12
+
+
+def diff_summary(diffs: list) -> dict:
+    """Max, median and 90th percentile of per-token |logprob| differences,
+    the count over W8_LOGPROB_TOL and the first token over it."""
+    d = sorted(diffs)
+    return dict(n=len(d), max=d[-1], p50=d[len(d) // 2],
+                p90=d[(9 * len(d)) // 10],
+                over_tol=sum(x > W8_LOGPROB_TOL for x in diffs),
+                first_over=next((i for i, x in enumerate(diffs)
+                                 if x > W8_LOGPROB_TOL), None))
+
+
+def moe_config(layers: int, **kw):
+    from megatron_tpu_torch.config import mixtral_config
+    cfg = mixtral_config("8x7b", num_layers=layers, **kw)
+    check(cfg.hidden_size == 4096 and cfg.num_attention_heads == 32
+          and cfg.num_kv_heads == 8 and cfg.kv_channels == 128
+          and cfg.num_experts == 8 and cfg.ffn_hidden_size == 14336
+          and cfg.moe_top_k == 2 and cfg.vocab_size == 32000
+          and cfg.attention_impl == "flash",
+          "mixtral_config('8x7b') is not Mixtral-8x7B's width")
+    return cfg
+
+
+def moe_requests() -> list:
+    """(b)'s 16 requests: ENGINE_PROMPTS twice, 24-64 new tokens, even ones
+    greedy, odd ones seeded at temperature 0.8, top_p 0.9."""
+    out = []
+    for i in range(MOE_REQUESTS):
+        n = ENGINE_PROMPTS[i % len(ENGINE_PROMPTS)]
+        payload = {"prompts": [prompt_text(n, 1600 + i)],
+                   "tokens_to_generate": 24 + (40 * i) // (MOE_REQUESTS - 1),
+                   "logprobs": True}
+        if i % 2:
+            payload.update(temperature=0.8, top_p=0.9, random_seed=1600 + i)
+        else:
+            payload.update(temperature=0.0)
+        out.append(payload)
+    return out
+
+
+class RouteTap:
+    """While installed (a context manager), records the top-k expert ids of
+    every `models.moe.route` call, each call's [b, s, K] sorted along K, on
+    the host."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from megatron_tpu_torch.models import moe
+        self._route = moe.route
+
+        def tap(*a, **kw):
+            out = self._route(*a, **kw)
+            self.calls.append(out[2].sort(-1).values.cpu())
+            return out
+        moe.route = tap
+        return self
+
+    def __exit__(self, *exc):
+        from megatron_tpu_torch.models import moe
+        moe.route = self._route
+
+    def per_layer(self, layers: int) -> list:
+        """Each layer's choices over its calls' positions: [b, s, K]."""
+        import torch
+        return [torch.cat(self.calls[i::layers], dim=1)
+                for i in range(layers)]
+
+
+def routing_flips(a: list, b: list, positions: int) -> set:
+    """Row 0's positions below `positions` where some layer's set of top-k
+    experts differs between the per-layer choices `a` and `b`."""
+    flips = set()
+    for x, y in zip(a, b):
+        differ = (x[0, :positions] != y[0, :positions]).any(-1)
+        flips.update(differ.nonzero().flatten().tolist())
+    return flips
+
+
+def moe_serial(gen, tok, cfg, smi) -> dict:
+    """(a) the serial /api route: a 512-token greedy prompt with 64 new
+    tokens, 3 sampled prompts in one payload, and `Generator.score` of the
+    greedy stream (a full-sequence forward against prefill + decode). In
+    bf16 a router's top-2 choice near a tie can flip between the two paths
+    (RouteTap), and a flipped expert moves that position's logits by whole
+    nats; at every position where no layer's choice flipped, the score's
+    logprob must agree with the route's within W8_LOGPROB_TOL."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.generation import SamplingParams
+    from megatron_tpu_torch.inference.server import MegatronServer
+    L = cfg.num_layers
+    server = MegatronServer(gen, tok,
+                            serving=ServingConfig(serial_fallback=True))
+    httpd, thread = serve_http(server)
+    port = httpd.server_address[1]
+    req_a = {"prompts": [prompt_text(MOE_SERIAL_PROMPT, 1)],
+             "tokens_to_generate": MOE_SERIAL_NEW, "temperature": 0.0,
+             "logprobs": True}
+    # the serial route feeds a batch's longer prompts one token a step
+    # past its shortest: short prompts keep (b) to a few seconds
+    req_b = {"prompts": [prompt_text(37, 2), prompt_text(64, 3),
+                         prompt_text(100, 4)],
+             "tokens_to_generate": 32, "temperature": 0.8, "top_k": 40,
+             "top_p": 0.9, "random_seed": 7, "logprobs": True}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        bodies = {}
+        with RouteTap() as routes_a:
+            bodies["a"] = put(port, req_a)
+        bodies["b"] = put(port, req_b)
+        for name in "ab":
+            status, body = bodies[name]
+            check(status == 200, f"moe serial ({name}): {status} {body}")
+            bodies[name] = body
+        counts = read_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check(counts["flash_fwd_cuda"] == 2 * L
+          and counts["block_attention_cuda"] == 0,
+          f"moe serial: launches {counts}, expected one flash prefill a "
+          f"layer for each payload ({2 * L}) and no block kernel")
+    n = len(tok.tokenize(req_a["prompts"][0]))
+    seg_a, lps_a = bodies["a"]["segments"][0], bodies["a"]["logprobs"][0]
+    check(len(seg_a) == n + MOE_SERIAL_NEW or seg_a[-1] == tok.eod,
+          f"moe serial (a): {len(seg_a)} tokens")
+    for seg, lps, p in zip(bodies["b"]["segments"], bodies["b"]["logprobs"],
+                           req_b["prompts"]):
+        m = len(tok.tokenize(p))
+        check(m < len(seg) <= m + 32 and all(0 <= t < cfg.vocab_size
+                                             for t in seg),
+              f"moe serial (b): {len(seg)} tokens for a {m}-token prompt")
+        check(all(math.isfinite(x) for x in lps[m:]),
+              "moe serial (b): non-finite logprob")
+    zero_counts()
+    with RouteTap() as routes_s:
+        scored = gen.score([seg_a])[0]
+    score_counts = read_counts()
+    flips = routing_flips(routes_a.per_layer(L), routes_s.per_layer(L),
+                          len(seg_a) - 1)
+    # the logprob of token p is read off position p - 1
+    held = [abs(float(scored[p - 1]) - lps_a[p])
+            for p in range(n, len(seg_a)) if p - 1 not in flips]
+    moved = [abs(float(scored[p - 1]) - lps_a[p])
+             for p in range(n, len(seg_a)) if p - 1 in flips]
+    score_diffs = dict(
+        positions=len(seg_a) - 1, layers=L,
+        positions_with_a_flip=len(flips),
+        generated_unflipped=diff_summary(held) if held else None,
+        generated_flipped=diff_summary(moved) if moved else None)
+    log("moe serial: score against the route: " + json.dumps(score_diffs))
+    check(len(held) >= len(moved) and max(held) <= W8_LOGPROB_TOL,
+          f"moe serial: score's logprobs of the greedy stream against the "
+          f"route's: {score_diffs}")
+    peak = torch.cuda.max_memory_allocated()
+
+    ids = seg_a[:n]
+    greedy = SamplingParams(temperature=0.0)
+
+    def timed(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen.generate([ids], k, sampling=greedy)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    prefill_s = min(timed(1) for _ in range(2))
+    full_s = timed(MOE_SERIAL_NEW + 1)
+    decode_ms = (full_s - prefill_s) / MOE_SERIAL_NEW * 1e3
+    return dict(prefill_tokens=n, prefill_ms=prefill_s * 1e3,
+                decode_ms_per_token=decode_ms,
+                decode_tokens_per_s=1e3 / decode_ms,
+                peak_memory_gib=peak / 2 ** 30,
+                score_logprob_diffs=score_diffs,
+                launches=dict(flash_fwd=counts["flash_fwd_cuda"],
+                              block_attn=counts["block_attention_cuda"],
+                              score_flash_fwd=score_counts["flash_fwd_cuda"]),
+                counts=counts, score_counts=score_counts, card=smi)
+
+
+def moe_engine_burst(gen, tok, cfg, smi) -> dict:
+    """(b) the engine route on HTTP (MOE_SERVING): 16 concurrent requests,
+    launch counts zeroed just before; every request 200 with finite
+    logprobs, the block kernel once per layer per decode step, the flash
+    forward once per layer per prefill. Each greedy request is then sent
+    again alone: its completion must equal the burst's bit for bit (a
+    row's routing, capacity and grid row do not depend on its neighbours).
+    Against the serial route a bf16 stream parts wherever a router's
+    top-2 choice flips between the block kernel's and the dot path's
+    rounding (see (a)); the exactness against the serial route is the fp32
+    slice's."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.serving.metrics import ServingMetrics
+    L = cfg.num_layers
+    server = MegatronServer(gen, tok, serving=ServingConfig(**MOE_SERVING))
+    engine = server.engine
+    httpd, thread = serve_http(server)
+    port = httpd.server_address[1]
+    requests = moe_requests()
+    try:
+        status, _ = put(port, {"prompts": ["warm up"],
+                               "tokens_to_generate": 4, "temperature": 0.0})
+        check(status == 200, f"moe engine warm-up: {status}")
+        engine.metrics = ServingMetrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        bodies = [None] * MOE_REQUESTS
+
+        def send(i):
+            bodies[i] = put(port, requests[i])
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(MOE_REQUESTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        settled = None
+        while True:
+            snap = engine.metrics.snapshot()
+            now = (snap["decode_steps"], snap["prefill_calls"],
+                   read_counts())
+            if now == settled:
+                break
+            settled = now
+            time.sleep(0.3)
+        steps, prefills, counts = settled
+        peak = torch.cuda.max_memory_allocated()
+        generated = 0
+        for i, answer in enumerate(bodies):
+            check(answer is not None and answer[0] == 200,
+                  f"moe engine request {i}: {answer}")
+            seg, lps = answer[1]["segments"][0], answer[1]["logprobs"][0]
+            n = len(tok.tokenize(requests[i]["prompts"][0]))
+            new = requests[i]["tokens_to_generate"]
+            check(n < len(seg) <= n + new
+                  and (len(seg) == n + new or seg[-1] == tok.eod),
+                  f"moe engine request {i}: {len(seg)} tokens")
+            check(all(math.isfinite(x) for x in lps[n:]),
+                  f"moe engine request {i}: non-finite logprob")
+            generated += len(seg) - n
+        check(steps > 0 and counts["block_attention_cuda"] == L * steps,
+              f"moe engine: block kernel {counts} in {steps} decode steps "
+              f"of {L} layers")
+        check(prefills == MOE_REQUESTS
+              and counts["flash_fwd_cuda"] == L * prefills,
+              f"moe engine: flash forward {counts} in {prefills} prefills "
+              f"of {L} layers")
+        greedy = [i for i in range(MOE_REQUESTS)
+                  if i % 2 == 0][:MOE_ALONE_REQUESTS]
+        t0 = time.perf_counter()
+        for i in greedy:
+            status, body = put(port, requests[i])
+            check(status == 200, f"moe replay {i}: {status}")
+            check(body["segments"] == bodies[i][1]["segments"],
+                  f"moe engine request {i}: alone it gives other tokens "
+                  "than in the burst")
+        alone_s = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        server.close()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in gen.params.parameters())
+    return dict(
+        requests=MOE_REQUESTS, generated_tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall, ttft_p50_ms=snap["ttft_p50_ms"],
+        ttft_p99_ms=snap["ttft_p99_ms"], itl_p50_ms=snap["itl_p50_ms"],
+        itl_p99_ms=snap["itl_p99_ms"], decode_steps=steps,
+        prefill_calls=prefills, peak_memory_gib=peak / 2 ** 30,
+        weight_gb=weight_bytes / 1e9,
+        decode_step_weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        launches=dict(flash_fwd=counts["flash_fwd_cuda"],
+                      block_attn=counts["block_attention_cuda"]),
+        counts=counts, greedy_equal_alone=f"{len(greedy)}/{len(greedy)}",
+        alone_replay_s=alone_s, card=smi), requests, bodies
+
+
+def moe_int8(model, gen, cfg, requests, smi) -> dict:
+    """(c) `quantize_weights` on the served weights (the banks stay the same
+    tensors) and an engine with W8 attention and an int8 block pool: every
+    request finite, the block kernel on the int8 arena once per layer per
+    decode step. Its greedy streams are fed through the bf16 serial route
+    and through the W8 + int8-KV serial route, and the logprobs compared
+    (reported, split by whether some layer's top-2 choice flipped at the
+    position, RouteTap): W8's activations move the router's choices at
+    many positions, each flip by whole nats, so no tolerance holds across
+    them in bf16; the PR 4 rule is the fp32 slice's. `int8_expert_matmul`
+    against the bf16 bmm at layer 0's bank, decode (8 rows an expert) and
+    prefill (1,000 rows) shapes."""
+    import torch
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.ops.quantized import (W8, _int_mm_padded,
+                                                  _quantize_bank,
+                                                  int8_expert_matmul,
+                                                  quantize_rows,
+                                                  quantize_weights)
+    from megatron_tpu_torch.serving import SamplingOptions, ServingEngine
+    L = cfg.num_layers
+    tree = quantize_weights(model)
+    bank = tree["transformer"]["mlp"]
+    check(all(bank[k] is model.transformer["mlp"][k]
+              for k in ("router", "w1", "w2")),
+          "quantize_weights did not leave the expert banks as they were")
+    check(isinstance(tree["transformer"]["attention"]["wq"], W8),
+          "quantize_weights did not quantize the attention")
+    gen8 = Generator(tree, cfg, eos_id=gen.eos_id, pad_id=gen.pad_id)
+    greedy = [r for r in requests if r["temperature"] == 0.0]
+    greedy = greedy[:MOE_INT8_REQUESTS]
+    tok = ByteTokenizer()
+    prompts = [tok.tokenize(r["prompts"][0]) for r in greedy]
+    engine = ServingEngine(gen8, ServingConfig(**dict(MOE_SERVING,
+                                                      kv_dtype="int8")))
+    try:
+        zero_counts()
+        reqs = [engine.submit(p, r["tokens_to_generate"],
+                              SamplingOptions(temperature=0.0))
+                for p, r in zip(prompts, greedy)]
+        results = [r.result(timeout=600) for r in reqs]
+        snap = settle(engine)
+        counts = read_counts()
+    finally:
+        engine.close()
+    check(counts["block_attention_cuda"] == L * snap["decode_steps"]
+          and counts["flash_fwd_cuda"] == 0,
+          f"int8 moe engine: launches {counts} in {snap['decode_steps']} "
+          "decode steps (an int8 cache prefills on the dot path)")
+    serial8 = Generator(tree, cfg, eos_id=gen.eos_id, pad_id=gen.pad_id,
+                        kv_cache_dtype=torch.int8)
+    held, moved, engine_vs_w8, flipped = [], [], [], []
+    for p, (seg, lps) in zip(prompts, results):
+        n = len(p)  # the engine's logprobs are the generated tokens'
+        check(len(lps) == len(seg) - n and all(math.isfinite(x)
+                                               for x in lps),
+              "int8 moe engine: non-finite logprob")
+        with RouteTap() as rb:
+            fb = teacher_forced_logprobs(gen, [seg], [n], len(seg) - n)[0]
+        with RouteTap() as r8:
+            f8 = teacher_forced_logprobs(serial8, [seg], [n],
+                                         len(seg) - n)[0]
+        flips = routing_flips(rb.per_layer(L), r8.per_layer(L),
+                              len(seg) - 1)
+        flipped.append(len(flips))
+        for j, (a, b) in enumerate(zip(fb, f8)):
+            (moved if n + j - 1 in flips else held).append(abs(a - b))
+        engine_vs_w8 += [abs(a - b) for a, b in zip(lps, f8)]
+    diffs = dict(
+        w8_vs_bf16_unflipped=diff_summary(held) if held else None,
+        w8_vs_bf16_flipped=diff_summary(moved) if moved else None,
+        engine_vs_w8_route=diff_summary(engine_vs_w8),
+        positions_with_a_flip=flipped)
+    log("int8 moe: logprobs of the engine's streams: " + json.dumps(diffs))
+    del engine, gen8, serial8, tree, bank
+    torch.cuda.empty_cache()
+
+    # the bank GEMM: layer 0's w1 (gate and up), [E, h, 2 ffn]
+    w = model.transformer["mlp"]["w1"][0].reshape(cfg.num_experts,
+                                                  cfg.hidden_size, -1)
+    gen_x = torch.Generator("cuda").manual_seed(9)
+    banks = []
+    for name, rows in (("decode", 8), ("prefill", 1000)):
+        x = torch.randn(cfg.num_experts, rows, cfg.hidden_size,
+                        generator=gen_x, device="cuda",
+                        dtype=torch.bfloat16)
+        with torch.inference_mode():
+            got = int8_expert_matmul(x, w).float()
+            want = torch.bmm(x, w).float()
+            rel = ((got - want).square().mean().sqrt()
+                   / want.square().mean().sqrt()).item()
+            # the int32 product of the quantized values is exact
+            xi, _ = quantize_rows(x)
+            wi, _ = _quantize_bank(w)
+            exact = all(torch.equal(
+                _int_mm_padded(xi[e], wi[e]),
+                (xi[e].double() @ wi[e].double()).to(torch.int32))
+                for e in range(cfg.num_experts))
+        del xi, wi
+        check(rel <= MOE_BANK_TOL and exact,
+              f"int8_expert_matmul at {name} ({rows} rows an expert): rel "
+              f"rms {rel} (tol {MOE_BANK_TOL}), int32 product exact "
+              f"{exact}")
+        banks.append(dict(shape=name, rows_per_expert=rows, rel_rms=rel,
+                          int32_exact=exact))
+    torch.cuda.empty_cache()
+    return dict(requests=len(greedy), decode_steps=snap["decode_steps"],
+                logprob_diffs=diffs, tol=W8_LOGPROB_TOL,
+                launches=dict(flash_fwd=counts["flash_fwd_cuda"],
+                              block_attn=counts["block_attention_cuda"]),
+                counts=counts, bank_gemm=banks, bank_tol=MOE_BANK_TOL,
+                card=smi)
+
+
+def moe_slice() -> dict:
+    """(d) a 2-layer slice at full width in fp32 (TF32 off): sort against
+    dense dispatch, logits and grads (MOE_SLICE_TOL), dropless and at
+    capacity MOE_DROP_CAPACITY (its drops counted); with the dropless
+    capacity the engine (batched prefill allowed) equal to the serial route
+    token for token; and the W8 + int8-KV engine's logprobs within
+    W8_LOGPROB_TOL of its tokens fed through its serial route (the PR 4
+    rule, where fp32 activations leave the routing unflipped)."""
+    import gc
+
+    import torch
+    from megatron_tpu_torch.config import ServingConfig
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.models import moe
+    from megatron_tpu_torch.models.language_model import (LanguageModel,
+                                                          loss_fn,
+                                                          model_forward)
+    from megatron_tpu_torch.ops.quantized import quantize_weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_config(2, compute_dtype="float32")
+    model = LanguageModel(cfg, dtype=torch.float32, seed=1)
+    b, s = MOE_SLICE_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    drops = []
+    sort_route = moe._sort_route
+
+    def counting(*a, **kw):
+        out = sort_route(*a, **kw)
+        drops.append(int((~out[4]).sum()))
+        return out
+
+    out = {}
+    for cap in (cfg.moe_capacity_factor, MOE_DROP_CAPACITY):
+        logits = {}
+        moe._sort_route = counting
+        try:
+            for mode in ("sort", "dense"):
+                c = dataclasses.replace(cfg, moe_dispatch=mode,
+                                        moe_capacity_factor=cap)
+                with torch.inference_mode():
+                    logits[mode], _ = model_forward(model, toks[:, :-1], c)
+        finally:
+            moe._sort_route = sort_route
+        err = ((logits["sort"] - logits["dense"]).abs().max()
+               / logits["dense"].abs().max()).item()
+        check(err <= MOE_SLICE_TOL, f"fp32 moe slice, capacity {cap}: "
+              f"sort and dense logits differ by {err} of the largest")
+        out[f"capacity_{cap}"] = dict(logits_rel_err=err,
+                                      dropped_choices=drops[-2:])
+        drops.clear()
+    dropped = out[f"capacity_{MOE_DROP_CAPACITY}"]["dropped_choices"]
+    check(out[f"capacity_{cfg.moe_capacity_factor}"]["dropped_choices"]
+          == [0, 0] and sum(dropped) > 0,
+          f"fp32 moe slice: drops {out}")
+
+    # grads: sort against dense, at capacity MOE_DROP_CAPACITY
+    model.requires_grad_(True)
+    grads = {}
+    for mode in ("sort", "dense"):
+        model.zero_grad(set_to_none=True)  # the sort grads are kept
+        c = dataclasses.replace(cfg, moe_dispatch=mode,
+                                moe_capacity_factor=MOE_DROP_CAPACITY)
+        loss = loss_fn(model, toks, c)
+        loss.backward()
+        grads[mode] = (loss.item(), {k: p.grad for k, p in
+                                     model.named_parameters()})
+    (l_s, g_s), (l_d, g_d) = grads["sort"], grads["dense"]
+    grad_err = max(((g_s[k] - g_d[k]).abs().max()
+                    / g_d[k].abs().max()).item() for k in g_d)
+    loss_err = abs(l_s - l_d) / abs(l_d)
+    check(grad_err <= MOE_SLICE_TOL and loss_err <= MOE_SLICE_TOL,
+          f"fp32 moe slice: sort vs dense loss {loss_err}, grads "
+          f"{grad_err} of the leaf's largest")
+    out.update(grad_rel_err=grad_err, loss_rel_err=loss_err)
+    del grads, g_s, g_d
+    model.requires_grad_(False)
+    for p in model.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the engine, batched prefill allowed, against the serial route
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod,
+                    kv_cache_dtype=torch.float32)
+    payload = {"prompts": [prompt_text(n, 60 + i) for i, n in
+                           enumerate((37, 100, 300, 515))],
+               "tokens_to_generate": 24, "temperature": 0.0}
+    server = MegatronServer(gen, tok, serving=ServingConfig(**ENGINE_SERVING))
+    try:
+        status, body = server.handle(payload)
+        check(status == 200, f"fp32 moe slice engine: {status} {body}")
+        status, serial = server.handle(dict(payload, serial=True))
+        check(status == 200, f"fp32 moe slice serial: {status} {serial}")
+    finally:
+        server.close()
+    check(body["segments"] == serial["segments"],
+          "fp32 moe slice: the engine's greedy tokens differ from the "
+          "serial route's")
+    # the W8 + int8-KV engine (the banks stay fp32): its logprobs against
+    # its tokens fed through its own serial route (the PR 4 rule)
+    gen8 = Generator(quantize_weights(model), cfg, eos_id=tok.eod,
+                     pad_id=tok.eod, kv_cache_dtype=torch.int8)
+    server = MegatronServer(gen8, tok, serving=ServingConfig(**INT8_SERVING))
+    try:
+        status, eng8 = server.handle(dict(payload, logprobs=True))
+        check(status == 200, f"fp32 moe slice W8 engine: {status} {eng8}")
+    finally:
+        server.close()
+    n_prompt = [len(tok.tokenize(t)) for t in payload["prompts"]]
+    w8_diff = w8_logprob_diff(eng8, teacher_forced_logprobs(
+        gen8, eng8["segments"], n_prompt, payload["tokens_to_generate"]),
+        n_prompt)
+    check(w8_diff <= W8_LOGPROB_TOL,
+          f"fp32 moe slice: the W8 engine's logprobs differ from its tokens "
+          f"fed through the serial route by {w8_diff}")
+    out.update(w8_engine_logprob_diff=w8_diff, w8_tol=W8_LOGPROB_TOL)
+    del gen8
+    out.update(engine_equal_to_serial=True, tol=MOE_SLICE_TOL,
+               batch=MOE_SLICE_BATCH, allow_tf32=False)
+    del server, gen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_training(smi) -> dict:
+    """(e) `make_train_step` at Mixtral's width and MOE_TRAIN_LAYERS layers,
+    seq 4096, batch 1, bf16 compute, fp32 Adam, 3 steps on one batch:
+    finite losses with the router's loss in them (each layer's aux read off
+    its moe_apply), every flash kernel launched layers times a step."""
+    import gc
+
+    import torch
+    from megatron_tpu_torch.config import (MegatronConfig, OptimizerConfig,
+                                           TrainingConfig)
+    from megatron_tpu_torch.models import transformer as tfm
+    from megatron_tpu_torch.training import init_train_state, make_train_step
+    mcfg = moe_config(MOE_TRAIN_LAYERS)
+    check(mcfg.seq_length == 4096 and mcfg.params_dtype == "float32"
+          and mcfg.compute_dtype == "bfloat16", "mixtral training config")
+    cfg = MegatronConfig(
+        model=mcfg, optimizer=OptimizerConfig(lr=MOE_TRAIN_LR, clip_grad=1.0),
+        training=TrainingConfig(micro_batch_size=1, global_batch_size=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB allocated before moe "
+          "training")
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seed=MOE_SEED)
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    build_s = time.perf_counter() - t0
+    s = mcfg.seq_length
+    tokens = torch.randint(0, mcfg.vocab_size, (1, 1, s + 1), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+    auxes = []
+    moe_apply = tfm.moe_apply
+
+    def recording(*a, **kw):
+        y, aux = moe_apply(*a, **kw)
+        auxes.append(aux.detach())
+        return y, aux
+
+    tfm.moe_apply = recording
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    steps = []
+    try:
+        for i in range(3):
+            before = read_counts()
+            auxes.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, {"tokens": tokens})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            after = read_counts()
+            steps.append(dict(
+                step=i + 1, seconds=secs, lm_loss=float(m["lm_loss"]),
+                aux_by_layer=[float(a) for a in auxes],
+                grad_norm=float(m["grad_norm"]),
+                found_inf=int(m["found_inf"]),
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}))
+            log("moe training step: " + json.dumps(steps[-1]))
+    finally:
+        tfm.moe_apply = moe_apply
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = MOE_TRAIN_LAYERS
+    for rec in steps:
+        check(all(rec["launches"].get(k) == L for k in (
+            "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda")),
+              f"moe training step {rec['step']}: launches {rec['launches']}")
+        check(math.isfinite(rec["lm_loss"]) and rec["found_inf"] == 0
+              and math.isfinite(rec["grad_norm"])
+              and len(rec["aux_by_layer"]) == L
+              and all(0.0 < a <= mcfg.num_experts
+                      for a in rec["aux_by_layer"]),
+              f"moe training step {rec['step']}: {rec}")
+    check(abs(steps[0]["lm_loss"] - math.log(mcfg.vocab_size)) < 1.0,
+          f"first moe loss {steps[0]['lm_loss']} is not near ln(32000)")
+    step_s = sorted(r["seconds"] for r in steps[1:])[0]
+    return dict(layers=L, seq_length=s, parameters=n_params,
+                state_gib=state_gib, build_s=build_s,
+                losses=[r["lm_loss"] for r in steps],
+                aux_by_layer=[r["aux_by_layer"] for r in steps],
+                aux_loss_coeff=mcfg.moe_aux_loss_coeff,
+                step_seconds=[r["seconds"] for r in steps],
+                step_ms_best_of_last2=step_s * 1e3,
+                tokens_per_s=s / step_s, peak_memory_gib=peak / 2 ** 30,
+                launches=dict(flash_fwd=counts["flash_fwd_cuda"],
+                              flash_bwd_dq=counts["flash_bwd_dq_cuda"],
+                              flash_bwd_dkv=counts["flash_bwd_dkv_cuda"]),
+                counts=counts, card=smi)
+
+
+def moe_toolchain(root: str, smi) -> dict:
+    """(f) an HF-format Mixtral directory at full width and MOE_TOOL_LAYERS
+    layers (bf16 safetensors, two shards and their index, numpy values from
+    a seed), imported by tools/convert_hf_checkpoint --family mixtral into
+    a fp32 release checkpoint, exported back (every tensor the input's,
+    upcast, bit for bit) and served (MOE_TOOL_NEW greedy tokens through the
+    serial route)."""
+    import gc
+    import os
+
+    import torch
+    from megatron_tpu_torch.convert import hf_io
+    from megatron_tpu_torch.inference.generation import (Generator,
+                                                         SamplingParams)
+    from megatron_tpu_torch.verify_correctness import \
+        synthetic_hf_mixtral_names
+    cfg = moe_config(MOE_TOOL_LAYERS)
+    names = synthetic_hf_mixtral_names(
+        vocab=cfg.vocab_size, hidden=cfg.hidden_size, layers=cfg.num_layers,
+        heads=cfg.num_attention_heads, kv=cfg.num_kv_heads,
+        ffn=cfg.ffn_hidden_size, experts=cfg.num_experts)
+    hf_dir = os.path.join(root, "mixtral_hf")
+    written = write_hf_dir(hf_dir, names, hf_io.hf_config_dict(
+        cfg, "mixtral"), MOE_SEED)
+    from megatron_tpu_torch.tools import convert_hf_checkpoint as tool
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    t0 = time.perf_counter()
+    out = os.path.join(root, "mixtral_ckpt")
+    _, model = tool.do_import(tool.parse_args(
+        ["import", "--hf_path", hf_dir, "--out", out, "--family",
+         "mixtral"]), cfg)
+    stats = dict(tool.last_import, save=dict(ckpt.last_save))
+    stats.pop("dir")
+    # the round trip: every exported tensor is the input's, upcast, bit
+    # for bit (a re-import would read the same values again)
+    tool.do_export(tool.parse_args(["export", "--load", out, "--hf_out",
+                                    out + "_hf", "--family", "mixtral"]))
+    stats["export"] = dict(tool.last_export)
+    t1 = time.perf_counter()
+    stats["export"]["tensors_equal"] = check_export(hf_dir, out + "_hf",
+                                                    "mixtral")
+    stats["export"]["check_s"] = time.perf_counter() - t1
+    stats.update(seconds=time.perf_counter() - t0, hf_write=written)
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=-1, pad_id=tok.eod)
+    zero_counts()
+    toks, lens, lps = gen.generate([tok.tokenize(TOOLCHAIN_PROMPTS[0])],
+                                   MOE_TOOL_NEW,
+                                   SamplingParams(temperature=0.0))
+    counts = read_counts()
+    n = len(tok.tokenize(TOOLCHAIN_PROMPTS[0]))
+    check(int(lens[0]) == n + MOE_TOOL_NEW
+          and all(math.isfinite(float(x)) for x in lps[0, n:lens[0]])
+          and counts["flash_fwd_cuda"] == cfg.num_layers,
+          f"mixtral import served: {lens}, launches {counts}")
+    stats.update(served_tokens=[int(t) for t in toks[0, n:lens[0]]],
+                 launches=dict(flash_fwd=counts["flash_fwd_cuda"]),
+                 counts=counts, card=smi)
+    del gen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_moe(smi: str) -> dict:
+    """Phase 16: the Mixture-of-Experts layer at Mixtral-8x7B's widths, (a)
+    the serial route, (b) the engine, (c) int8 at MOE_LAYERS layers in bf16
+    (one model), then (d) the fp32 slice, (e) training and (f) the
+    toolchain. Launch counts are zeroed before each drive and read after
+    it; their sums are phase 16's."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before the "
+          "moe phase")
+    # phase 15's replica processes have exited; their memory comes back to
+    # the card within moments
+    deadline = time.monotonic() + 120
+    while (free := torch.cuda.mem_get_info()[0]) < MOE_FREE_BYTES:
+        check(time.monotonic() < deadline, f"the card holds only "
+              f"{free / 2 ** 30:.1f} GiB free before the moe phase")
+        time.sleep(1.0)
+    cfg = moe_config(MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, dtype=torch.bfloat16, seed=MOE_SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe: Mixtral-8x7B width, {MOE_LAYERS} of 32 layers, {n_params} "
+        f"bf16 parameters ({n_params * 2 / 1e9:.1f} GB), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tok = ByteTokenizer()
+    gen = Generator(model, cfg, eos_id=tok.eod, pad_id=tok.eod)
+    stats = dict(layers=MOE_LAYERS, parameters=n_params, card=smi)
+    t0 = time.perf_counter()
+    stats["serial"] = moe_serial(gen, tok, cfg, smi)
+    stats["serial"]["seconds"] = time.perf_counter() - t0
+    log("moe (a) serial route: " + json.dumps(stats["serial"]))
+    t0 = time.perf_counter()
+    stats["engine"], requests, _ = moe_engine_burst(gen, tok, cfg, smi)
+    stats["engine"]["seconds"] = time.perf_counter() - t0
+    log("moe (b) engine: " + json.dumps(stats["engine"]))
+    t0 = time.perf_counter()
+    stats["int8"] = moe_int8(model, gen, cfg, requests, smi)
+    stats["int8"]["seconds"] = time.perf_counter() - t0
+    log("moe (c) int8: " + json.dumps(stats["int8"]))
+    del gen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats["slice"] = moe_slice()
+    stats["slice"]["seconds"] = time.perf_counter() - t0
+    log("moe (d) fp32 slice: " + json.dumps(stats["slice"]))
+    t0 = time.perf_counter()
+    stats["training"] = moe_training(smi)
+    stats["training"]["seconds"] = time.perf_counter() - t0
+    log("moe (e) training: " + json.dumps(stats["training"]))
+    root = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        t0 = time.perf_counter()
+        stats["toolchain"] = moe_toolchain(root, smi)
+        stats["toolchain"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("moe (f) toolchain: " + json.dumps(stats["toolchain"]))
+    parts = ("serial", "engine", "int8", "training", "toolchain")
+    stats["launches"] = {
+        k: sum(stats[p]["counts"].get(k, 0) for p in parts)
+        for k in ("flash_fwd_cuda", "flash_bwd_dq_cuda",
+                  "flash_bwd_dkv_cuda", "block_attention_cuda")}
+    stats["norm_launches"] = {
+        k: sum(stats[p]["counts"].get(k, 0) for p in parts)
+        for k in ("rms_fwd_cuda", "rms_bwd_cuda", "ln_fwd_cuda",
+                  "ln_bwd_cuda")}
+    check(all(stats["launches"][k] > 0 for k in stats["launches"]),
+          f"moe phase: a kernel of its path never launched: "
+          f"{stats['launches']}")
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8005,6 +8872,7 @@ def main(argv=None) -> int:
         lora_stats = timed("13", phase_lora_live, smi)
         struct_stats = timed("14", phase_structured_degrade, smi)
         fleet_stats = timed("15", phase_fleet, smi)
+        moe_stats = timed("16", phase_moe, smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -8033,6 +8901,8 @@ def main(argv=None) -> int:
     struct_counts = struct_stats["launches"]
     # phase 15's replica processes, each counted over its whole life
     fleet_counts = fleet_stats["launches"]
+    # phase 16's drives, each counted from zero
+    moe_counts = moe_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -8061,7 +8931,8 @@ def main(argv=None) -> int:
               + front_counts["flash_fwd"]
               + lora_counts["flash_fwd"]
               + struct_counts["flash_fwd"]
-              + fleet_counts["flash_fwd"], "fwd",
+              + fleet_counts["flash_fwd"]
+              + moe_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -8081,6 +8952,7 @@ def main(argv=None) -> int:
                   structured_degrade_fanout=struct_stats["fanout"][
                       "flash_launches"],
                   fleet=fleet_counts["flash_fwd"],
+                  moe=moe_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -8100,7 +8972,8 @@ def main(argv=None) -> int:
               f"{pallas}:191", train_counts["flash_bwd_dq_cuda"]
               + pretrain_counts["flash_bwd_dq_cuda"]
               + tool_counts["flash_bwd_dq_cuda"]
-              + lora_counts["flash_bwd_dq"], "dq",
+              + lora_counts["flash_bwd_dq"]
+              + moe_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -8108,12 +8981,14 @@ def main(argv=None) -> int:
                        training=train_counts["flash_bwd_dq_cuda"],
                        pretrain=pretrain_counts["flash_bwd_dq_cuda"],
                        toolchain=tool_counts["flash_bwd_dq_cuda"],
-                       lora_live=lora_counts["flash_bwd_dq"]))),
+                       lora_live=lora_counts["flash_bwd_dq"],
+                       moe=moe_counts["flash_bwd_dq_cuda"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
               + tool_counts["flash_bwd_dkv_cuda"]
-              + lora_counts["flash_bwd_dkv"], "dkv",
+              + lora_counts["flash_bwd_dkv"]
+              + moe_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -8124,7 +8999,8 @@ def main(argv=None) -> int:
                        training=train_counts["flash_bwd_dkv_cuda"],
                        pretrain=pretrain_counts["flash_bwd_dkv_cuda"],
                        toolchain=tool_counts["flash_bwd_dkv_cuda"],
-                       lora_live=lora_counts["flash_bwd_dkv"]))),
+                       lora_live=lora_counts["flash_bwd_dkv"],
+                       moe=moe_counts["flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
@@ -8140,7 +9016,8 @@ def main(argv=None) -> int:
                   + front_counts["block_attn"]
                   + lora_counts["block_attn"]
                   + struct_counts["block_attn"]
-                  + fleet_counts["block_attn"]),
+                  + fleet_counts["block_attn"]
+                  + moe_counts["block_attention_cuda"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
@@ -8151,6 +9028,7 @@ def main(argv=None) -> int:
             lora_live=lora_counts["block_attn"],
             structured_degrade=struct_counts["block_attn"],
             fleet=fleet_counts["block_attn"],
+            moe=moe_counts["block_attention_cuda"],
             fleet_by_replica={
                 name: c["block_attention_cuda"] for name, c in
                 fleet_stats["replica_launches"].items()},
@@ -8188,7 +9066,8 @@ def main(argv=None) -> int:
                       window_supervisor=window_stats,
                       engine_features=feature_stats,
                       front_door=front_stats, lora_live=lora_stats,
-                      structured_degrade=struct_stats, fleet=fleet_stats)
+                      structured_degrade=struct_stats, fleet=fleet_stats,
+                      moe=moe_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -6,8 +6,11 @@ The flags keep the reference's names and defaults, so a launch line of
 port parses the model, training, optimizer, data and resilience groups and
 the reference-compat aliases of this path. A flag whose feature the port
 does not run yet raises NotImplementedError naming its ROADMAP item:
-tensor, pipeline or context parallelism, sequence parallelism and the
-distributed optimizer (Queue 1 item 7) and activation recompute (item 2).
+tensor, pipeline or context parallelism, sequence parallelism, the
+distributed optimizer and `--expert_axis dp` (Queue 1 item 7) and
+activation recompute (item 2). The MoE flags (`--num_experts`,
+`--moe_top_k`, `--moe_capacity_factor`, `--moe_aux_loss_coeff`,
+`--moe_dispatch`) keep the reference's defaults.
 `--lora_rank` (with `--lora_alpha` and `--lora_export`) turns the run into
 a LoRA finetune (training/lora.py). The serving
 flags belong to the serving entry point and are not parsed here; the
@@ -75,6 +78,13 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    choices=["dot", "flash", "ring", "ulysses"])
     g.add_argument("--recompute_granularity", type=str, default="none",
                    choices=["none", "selective", "full"])
+    # Mixture-of-Experts (models/moe.py)
+    g.add_argument("--num_experts", type=int, default=1)
+    g.add_argument("--moe_top_k", type=int, default=2)
+    g.add_argument("--moe_capacity_factor", type=float, default=1.25)
+    g.add_argument("--moe_aux_loss_coeff", type=float, default=1e-2)
+    g.add_argument("--moe_dispatch", type=str, default="sort",
+                   choices=["sort", "dense"])
     g.add_argument("--model", type=str, default=None,
                    help="preset name (llama2-7b, falcon-7b, gpt2, ...)")
 
@@ -89,6 +99,8 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    default=None)
     g.add_argument("--sequence_parallel", action="store_true")
     g.add_argument("--use_distributed_optimizer", action="store_true")
+    g.add_argument("--expert_axis", type=str, default="tp",
+                   choices=["tp", "dp"])
 
     g = p.add_argument_group("training")
     g.add_argument("--micro_batch_size", type=int, default=1)
@@ -262,6 +274,8 @@ _UNPORTED = (
      "sequence parallelism (ROADMAP Queue 1 item 7)"),
     ("use_distributed_optimizer", False,
      "the sharded optimizer (ROADMAP Queue 1 item 7)"),
+    ("expert_axis", "tp",
+     "expert parallelism over another mesh axis (ROADMAP Queue 1 item 7)"),
     ("recompute_granularity", "none",
      "activation recompute (ROADMAP Queue 1 item 2)"),
     ("recompute_activations", False,

@@ -666,7 +666,7 @@ class MegatronConfig:
 
     def validate(self) -> "MegatronConfig":
         """Derive the model fields and the global batch (micro batch when
-        unset) and check the resilience knobs."""
+        unset) and check the MoE routing and the resilience knobs."""
         tr = self.training
         if tr.global_batch_size is None:
             tr = dataclasses.replace(tr,
@@ -675,6 +675,14 @@ class MegatronConfig:
             raise ValueError(f"global batch {tr.global_batch_size} must be "
                              f"divisible by micro batch "
                              f"{tr.micro_batch_size}")
+        model = self.model
+        if model.num_experts > 1:
+            if not 1 <= model.moe_top_k <= model.num_experts:
+                raise ValueError(f"moe_top_k={model.moe_top_k} must be in "
+                                 f"[1, num_experts={model.num_experts}]")
+            if model.moe_dispatch not in ("sort", "dense"):
+                raise ValueError(f"moe_dispatch={model.moe_dispatch!r} "
+                                 "(expected 'sort' or 'dense')")
         self.resilience.validate()
         return dataclasses.replace(self, model=self.model.derived(),
                                    training=tr)

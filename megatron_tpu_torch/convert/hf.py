@@ -1,5 +1,5 @@
-"""Hugging Face Llama and Falcon state dicts <-> the reference's parameter
-tree (megatron_tpu/convert/hf.py).
+"""Hugging Face Llama, Falcon and Mixtral state dicts <-> the reference's
+parameter tree (megatron_tpu/convert/hf.py).
 
 Numpy in, numpy out. The tree is the JAX package's: nested dicts under its
 names with the stacked [L, ...] layer layout, which
@@ -14,12 +14,17 @@ Layout notes (the reference's weights2megatron and megatron2hf):
 - The embedding and an untied LM head are zero-padded to
   cfg.padded_vocab_size on import and trimmed to cfg.vocab_size on export.
 
-A layer's leaves are written into [L, ...] arrays allocated at the first
-layer, so an import holds one copy of the model beside the tensor it reads.
-`sd` may be any mapping, such as `hf_io.HFStateDict`, which reads each tensor
-from its shard when it is asked for.
+- Mixtral is a Llama backbone (attention, norms and embeddings map as
+  Llama's) whose MLPs are `block_sparse_moe` banks: gate.weight [E, h] ->
+  router [h, E]; experts.{e}.w1 (gate) -> w1[e, :, 0], w3 (up) ->
+  w1[e, :, 1], w2 (down) -> w2[e]. Mixtral is dropless: serve it at
+  moe_capacity_factor >= E / top_k (its preset's default).
 
-The Mixtral pair waits for models/moe.py (ROADMAP Queue 1 item 8).
+A layer's leaves are written into [L, ...] arrays allocated at the first
+layer (an expert's into its slice of the layer's bank), so an import holds
+one copy of the model beside the tensor it reads. `sd` may be any mapping,
+such as `hf_io.HFStateDict`, which reads each tensor from its shard when it
+is asked for.
 """
 from __future__ import annotations
 
@@ -82,10 +87,18 @@ class _Layers:
         self.tree: dict = {}
 
     def put(self, group: str, name: str, i: int, arr: np.ndarray) -> None:
+        self._stack(group, name, arr.shape, arr.dtype)[i] = arr
+
+    def layer(self, group: str, name: str, i: int, shape: tuple,
+              dtype) -> np.ndarray:
+        """Layer i of `tree[group][name]`, a view to write in place."""
+        return self._stack(group, name, shape, dtype)[i]
+
+    def _stack(self, group, name, shape, dtype) -> np.ndarray:
         node = self.tree.setdefault(group, {})
         if name not in node:
-            node[name] = np.empty((self.n,) + arr.shape, arr.dtype)
-        node[name][i] = arr
+            node[name] = np.empty((self.n,) + tuple(shape), dtype)
+        return node[name]
 
 
 def _getter(sd: Mapping, dtype):
@@ -97,6 +110,40 @@ def _getter(sd: Mapping, dtype):
 def hf_llama_to_params(sd: Mapping[str, np.ndarray], cfg: ModelConfig,
                        dtype=np.float32) -> dict:
     """HF LlamaForCausalLM state dict -> the parameter tree."""
+    def mlp(get, layers, i, p):
+        gate = _t(get(p + "mlp.gate_proj.weight"))  # [h, ffn]
+        up = _t(get(p + "mlp.up_proj.weight"))
+        layers.put("mlp", "w1", i, np.stack([gate, up], axis=1))
+        layers.put("mlp", "w2", i, _t(get(p + "mlp.down_proj.weight")))
+    return _llama_backbone_import(sd, cfg, dtype, mlp)
+
+
+def hf_mixtral_to_params(sd: Mapping[str, np.ndarray], cfg: ModelConfig,
+                         dtype=np.float32) -> dict:
+    """HF MixtralForCausalLM state dict -> the parameter tree (Llama's
+    backbone, an expert bank for each MLP). Mixtral's softmax, top-k and
+    renormalization are models/moe.py's routing."""
+    if cfg.num_experts <= 1:
+        raise ValueError("mixtral conversion needs num_experts > 1")
+    E, h, ffn = cfg.num_experts, cfg.hidden_size, cfg.ffn_hidden_size
+
+    def mlp(get, layers, i, p):
+        m = p + "block_sparse_moe."
+        layers.put("mlp", "router", i, _t(get(m + "gate.weight")))
+        w1 = layers.layer("mlp", "w1", i, (E, h, 2, ffn), dtype)
+        w2 = layers.layer("mlp", "w2", i, (E, ffn, h), dtype)
+        for e in range(E):
+            x = f"{m}experts.{e}."
+            w1[e, :, 0] = _t(get(x + "w1.weight"))  # gate
+            w1[e, :, 1] = _t(get(x + "w3.weight"))  # up
+            w2[e] = _t(get(x + "w2.weight"))        # down
+    return _llama_backbone_import(sd, cfg, dtype, mlp)
+
+
+def _llama_backbone_import(sd: Mapping[str, np.ndarray], cfg: ModelConfig,
+                           dtype, mlp) -> dict:
+    """A Llama-layout state dict -> the parameter tree; `mlp(get, layers,
+    i, prefix)` writes layer i's MLP leaves."""
     hd = cfg.kv_channels
     nq = cfg.num_attention_heads
     nkv = cfg.num_kv_heads
@@ -112,10 +159,7 @@ def hf_llama_to_params(sd: Mapping[str, np.ndarray], cfg: ModelConfig,
                    np.concatenate([_t(wk), _t(wv)], axis=1))
         layers.put("attention", "wo", i,
                    _t(get(p + "self_attn.o_proj.weight")))
-        gate = _t(get(p + "mlp.gate_proj.weight"))  # [h, ffn]
-        up = _t(get(p + "mlp.up_proj.weight"))
-        layers.put("mlp", "w1", i, np.stack([gate, up], axis=1))
-        layers.put("mlp", "w2", i, _t(get(p + "mlp.down_proj.weight")))
+        mlp(get, layers, i, p)
         layers.put("input_norm", "scale", i, get(p + "input_layernorm.weight"))
         layers.put("post_attn_norm", "scale", i,
                    get(p + "post_attention_layernorm.weight"))
@@ -133,6 +177,36 @@ def hf_llama_to_params(sd: Mapping[str, np.ndarray], cfg: ModelConfig,
 
 def params_to_hf_llama(params, cfg: ModelConfig, dtype=np.float32) -> dict:
     """The parameter tree -> an HF LlamaForCausalLM state dict."""
+    def mlp(t, i, p):
+        w1 = np.asarray(t["mlp"]["w1"][i], dtype)  # [h, 2, ffn]
+        return {p + "mlp.gate_proj.weight": _t(w1[:, 0]),
+                p + "mlp.up_proj.weight": _t(w1[:, 1]),
+                p + "mlp.down_proj.weight": _t(
+                    np.asarray(t["mlp"]["w2"][i], dtype))}
+    return _llama_backbone_export(params, cfg, dtype, mlp)
+
+
+def params_to_hf_mixtral(params, cfg: ModelConfig,
+                         dtype=np.float32) -> dict:
+    """The parameter tree -> an HF MixtralForCausalLM state dict (the
+    inverse of hf_mixtral_to_params)."""
+    def mlp(t, i, p):
+        m = p + "block_sparse_moe."
+        out = {m + "gate.weight": _t(np.asarray(t["mlp"]["router"][i],
+                                                dtype))}
+        w1 = np.asarray(t["mlp"]["w1"][i], dtype)  # [E, h, 2, ffn]
+        w2 = np.asarray(t["mlp"]["w2"][i], dtype)  # [E, ffn, h]
+        for e in range(cfg.num_experts):
+            out[f"{m}experts.{e}.w1.weight"] = _t(w1[e, :, 0])
+            out[f"{m}experts.{e}.w3.weight"] = _t(w1[e, :, 1])
+            out[f"{m}experts.{e}.w2.weight"] = _t(w2[e])
+        return out
+    return _llama_backbone_export(params, cfg, dtype, mlp)
+
+
+def _llama_backbone_export(params, cfg: ModelConfig, dtype, mlp) -> dict:
+    """The parameter tree -> a Llama-layout state dict; `mlp(t, i, prefix)`
+    returns layer i's MLP tensors."""
     hd = cfg.kv_channels
     nq = cfg.num_attention_heads
     nkv = cfg.num_kv_heads
@@ -156,11 +230,7 @@ def params_to_hf_llama(params, cfg: ModelConfig, dtype=np.float32) -> dict:
         sd[p + "self_attn.v_proj.weight"] = _t(wv)
         sd[p + "self_attn.o_proj.weight"] = _t(
             np.asarray(t["attention"]["wo"][i], dtype))
-        w1 = np.asarray(t["mlp"]["w1"][i], dtype)  # [h, 2, ffn]
-        sd[p + "mlp.gate_proj.weight"] = _t(w1[:, 0])
-        sd[p + "mlp.up_proj.weight"] = _t(w1[:, 1])
-        sd[p + "mlp.down_proj.weight"] = _t(
-            np.asarray(t["mlp"]["w2"][i], dtype))
+        sd.update(mlp(t, i, p))
         sd[p + "input_layernorm.weight"] = np.asarray(
             t["input_norm"]["scale"][i], dtype)
         sd[p + "post_attention_layernorm.weight"] = np.asarray(

@@ -22,8 +22,9 @@ tensor in hand, never a second fp32 copy of the model.
 
 `save_hf_checkpoint` writes `pytorch_model.bin` (fp32, as the JAX export
 does) and a `config.json` with the fields the JAX export passes to
-`LlamaConfig` / `FalconConfig`, plus `model_type` and `architectures`, so
-that `transformers.AutoModelForCausalLM` loads the directory.
+`LlamaConfig` / `FalconConfig` / `MixtralConfig`, plus `model_type` and
+`architectures`, so that `transformers.AutoModelForCausalLM` loads the
+directory.
 """
 from __future__ import annotations
 
@@ -202,7 +203,21 @@ _CONFIG_ALIASES = {
 
 def hf_config_dict(cfg: ModelConfig, family: str) -> dict:
     """The config.json of an export: the fields the JAX export passes to
-    LlamaConfig / FalconConfig, with model_type and architectures."""
+    LlamaConfig / FalconConfig / MixtralConfig, with model_type and
+    architectures."""
+    if family == "mixtral":
+        return dict(
+            model_type="mixtral", architectures=["MixtralForCausalLM"],
+            vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+            num_hidden_layers=cfg.num_layers,
+            num_attention_heads=cfg.num_attention_heads,
+            num_key_value_heads=cfg.num_kv_heads,
+            intermediate_size=cfg.ffn_hidden_size,
+            max_position_embeddings=cfg.max_position_embeddings,
+            rms_norm_eps=cfg.norm_epsilon, rope_theta=cfg.rope_theta,
+            num_local_experts=cfg.num_experts,
+            num_experts_per_tok=cfg.moe_top_k,
+            tie_word_embeddings=cfg.tie_embed_logits)
     if family == "llama":
         return dict(
             model_type="llama", architectures=["LlamaForCausalLM"],
@@ -238,9 +253,13 @@ def check_hf_config(hf: dict, cfg: ModelConfig, family: str) -> None:
             "num_hidden_layers": cfg.num_layers,
             "num_attention_heads": cfg.num_attention_heads,
             "vocab_size": cfg.vocab_size}
-    if family == "llama":
+    if family in ("llama", "mixtral"):
         want["num_key_value_heads"] = cfg.num_kv_heads
         want["intermediate_size"] = cfg.ffn_hidden_size
+    if family == "mixtral":
+        want["num_local_experts"] = cfg.num_experts
+        want["num_experts_per_tok"] = cfg.moe_top_k
+        want["rope_theta"] = cfg.rope_theta
     elif family == "falcon":
         kv = hf.get("num_kv_heads")
         if kv is None and not hf.get("new_decoder_architecture"):

@@ -156,8 +156,11 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   deterministic: bool = True,
                   generator: Optional[torch.Generator] = None,
                   head_positions: Optional[torch.Tensor] = None,
-                  adapters=None):
-    """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches).
+                  adapters=None, return_aux: bool = False):
+    """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches),
+    or with `return_aux` (logits, kv_caches, aux): the MoE router's
+    load-balancing loss summed over layers, a 0-d fp32 tensor (zero for a
+    dense model).
     With `head_positions` [b], only row i's position head_positions[i]
     reaches the LM head and the logits are [b, 1, padded_vocab] (a
     prefill needs only each prompt's last position).
@@ -187,7 +190,7 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             compute_dtype)
     if rope is None:
         rope = make_rope(cfg, device=tokens.device)
-    x, kv_caches = tfm.stack_apply(
+    x, kv_caches, aux = tfm.stack_apply(
         params["transformer"], x, cfg,
         rope_cos=rope.cos if rope else None,
         rope_sin=rope.sin if rope else None,
@@ -197,7 +200,12 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if head_positions is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
               head_positions.long()][:, None]
-    return head_logits(params, x, cfg, logits_dtype=logits_dtype), kv_caches
+    logits = head_logits(params, x, cfg, logits_dtype=logits_dtype)
+    if return_aux:
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, kv_caches, aux
+    return logits, kv_caches
 
 
 def head_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -219,12 +227,12 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
             deterministic: bool = True, position_ids=None, segment_ids=None,
             adapters=None):
     """Causal LM loss (language_model.py loss_fn): the mean cross-entropy
-    over unmasked positions. `tokens` is [b, s+1] (inputs and labels
+    over unmasked positions, plus cfg.moe_aux_loss_coeff times the router
+    loss when `num_experts > 1`. `tokens` is [b, s+1] (inputs and labels
     shifted by one; a [b, s+1] loss_mask drops its first column) or an
     (inputs, labels) pair of [b, s]. `adapters` threads LoRA factors into
-    the forward (training/lora.py differentiates through them). The MoE
-    aux term and the context-parallel zigzag are not ported (MoE and cp
-    raise where the model builds them)."""
+    the forward (training/lora.py differentiates through them). The
+    context-parallel zigzag is the multi-device slice's."""
     if cfg.recompute_granularity != "none":
         raise NotImplementedError(
             f"recompute_granularity={cfg.recompute_granularity!r}: "
@@ -235,13 +243,19 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         if loss_mask is not None and loss_mask.shape[1] == tokens.shape[1]:
             loss_mask = loss_mask[:, 1:]
-    logits, _ = model_forward(params, inputs, cfg, rope=rope,
-                              position_ids=position_ids,
-                              segment_ids=segment_ids,
-                              deterministic=deterministic,
-                              generator=generator, adapters=adapters)
+    logits, _, aux = model_forward(params, inputs, cfg, rope=rope,
+                                   position_ids=position_ids,
+                                   segment_ids=segment_ids,
+                                   deterministic=deterministic,
+                                   generator=generator, adapters=adapters,
+                                   return_aux=True)
     losses = cross_entropy_loss(logits, labels, vocab_size=cfg.vocab_size)
     if loss_mask is None:
-        return losses.mean()
-    loss_mask = loss_mask.to(losses.dtype)
-    return (losses * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+        loss = losses.mean()
+    else:
+        loss_mask = loss_mask.to(losses.dtype)
+        loss = ((losses * loss_mask).sum()
+                / torch.clamp(loss_mask.sum(), min=1.0))
+    if cfg.num_experts > 1:
+        loss = loss + cfg.moe_aux_loss_coeff * aux
+    return loss

@@ -6,9 +6,12 @@ where the reference scans; it takes each stacked leaf apart once per
 forward with `unbind(0)`, whose backward is one `stack`, so a layer's
 gradient never allocates the whole stack. Covers pre- and post-LN and
 Falcon's `parallel_attn` / `parallel_layernorm`, segment ids, the flash
-path's attention dropout and LoRA adapters (a stacked `LoraAdapter` bank
-with a per-row index, sliced per layer like the weights). Hidden dropout (and its LIMA ramp), stochastic
-depth, activation recompute and MoE belong to later slices and raise.
+path's attention dropout, LoRA adapters (a stacked `LoraAdapter` bank
+with a per-row index, sliced per layer like the weights) and the
+Mixture-of-Experts MLP (models/moe.py) when `num_experts > 1`, whose
+router loss each layer returns and the stack sums. Hidden dropout (and its
+LIMA ramp), stochastic depth and activation recompute belong to later
+slices and raise.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from megatron_tpu_torch.models.attention import (BlockKVCache, KVCache,
                                                  attention_apply,
                                                  attention_init)
 from megatron_tpu_torch.models.mlp import mlp_apply, mlp_init
+from megatron_tpu_torch.models.moe import moe_apply, moe_init
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
 from megatron_tpu_torch.ops.quantized import W8
 
@@ -29,10 +33,10 @@ from megatron_tpu_torch.ops.quantized import W8
 def layer_init(cfg: ModelConfig) -> dict:
     """Parameter specs of one layer (transformer.py layer_init): pre-LN has
     input_norm + post_attn_norm, post-LN output_norm + post_attn_norm,
-    parallel_attn drops post_attn_norm, parallel_layernorm adds mlp_norm."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError("MoE layers are ported in a later slice")
-    specs = {"attention": attention_init(cfg), "mlp": mlp_init(cfg)}
+    parallel_attn drops post_attn_norm, parallel_layernorm adds mlp_norm;
+    `num_experts > 1` makes "mlp" an expert bank."""
+    mlp = moe_init(cfg) if cfg.num_experts > 1 else mlp_init(cfg)
+    specs = {"attention": attention_init(cfg), "mlp": mlp}
     norm = norm_init(cfg.norm_type, cfg.hidden_size)
     specs["output_norm" if cfg.use_post_ln else "input_norm"] = norm
     if not cfg.parallel_attn:
@@ -60,7 +64,9 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
                 adapters=None):
-    """One transformer layer. x: [b, s, h]. Returns (x, kv_cache).
+    """One transformer layer. x: [b, s, h]. Returns (x, kv_cache, aux),
+    aux being the MoE router's load-balancing loss (a 0-d fp32 tensor), or
+    the float 0.0 for a dense MLP, which launches nothing.
     `generator` draws the flash path's attention-dropout seed when
     `deterministic` is False; `adapters` is (this layer's LoraAdapter,
     adapter_idx [b]) or None.
@@ -77,6 +83,12 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
             "hidden dropout, LIMA dropout and drop-path are ported with the "
             "dropout module in a later slice")
     eps = cfg.norm_epsilon
+
+    def mlp_branch(inp):
+        if cfg.num_experts > 1:
+            return moe_apply(params["mlp"], inp, cfg)
+        return mlp_apply(params["mlp"], inp, cfg), 0.0
+
     residual = x
     if cfg.use_post_ln:
         ln_out = x
@@ -93,14 +105,16 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                                 eps)
         else:
             mlp_in = ln_out
-        out = residual + (mlp_apply(params["mlp"], mlp_in, cfg) + attn_out)
+        mlp_out, aux = mlp_branch(mlp_in)
+        out = residual + (mlp_out + attn_out)
     else:
         ln_in = residual + attn_out
         ln2 = apply_norm(cfg.norm_type, params["post_attn_norm"], ln_in, eps)
-        out = ln_in + mlp_apply(params["mlp"], ln2, cfg)
+        mlp_out, aux = mlp_branch(ln2)
+        out = ln_in + mlp_out
     if cfg.use_post_ln:
         out = apply_norm(cfg.norm_type, params["output_norm"], out, eps)
-    return out, kv_cache
+    return out, kv_cache, aux
 
 
 def unstack_layers(stacked) -> list:
@@ -130,19 +144,22 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
     its slice of the stacked tensors. `adapters` is (a stacked
     LoraAdapter, adapter_idx [b]): each layer gets its slice of the factors
     and the one index. Returns (x, kv_caches advanced by the step's length,
-    or None)."""
+    or None, aux): aux sums the layers' MoE router losses (the float 0.0
+    for a dense stack)."""
     lora = None
     if adapters is not None:
         stacked, aidx = adapters
         lora = [(lw, aidx) for lw in stacked.layers()]
+    aux = 0.0
     for i, layer in enumerate(unstack_layers(stacked_params)):
         cache = None if kv_caches is None else kv_caches.layer(i)
-        x, _ = layer_apply(layer, x, cfg, rope_cos=rope_cos,
+        x, _, layer_aux = layer_apply(layer, x, cfg, rope_cos=rope_cos,
                            rope_sin=rope_sin, position_ids=position_ids,
                            kv_cache=cache, segment_ids=segment_ids,
                            deterministic=deterministic, generator=generator,
                            adapters=None if lora is None else lora[i])
+        aux = aux + layer_aux
     if kv_caches is None:
-        return x, None
+        return x, None, aux
     return x, dataclasses.replace(kv_caches,
-                                  offset=kv_caches.offset + x.shape[1])
+                                  offset=kv_caches.offset + x.shape[1]), aux

@@ -24,8 +24,12 @@ half to even (`torch.round`, as `jnp.round`), and every division is by a
 tensor: on CUDA a division by a Python scalar is a reciprocal multiply, which
 moves a scale by an ulp and flips ties.
 
-Not ported here: `int8_expert_matmul` (comes with MoE) and `quantize_axes`
-(comes with the multi-device slice).
+- `int8_expert_matmul(x, w)`: the same recipe over an MoE expert bank,
+  per-(expert, column) weight scales, one `_int_mm_padded` per expert.
+  `quantize_weights` leaves an expert bank in its dtype, as the reference
+  does: its walk would read the bank's expert axis as the contraction.
+
+Not ported here: `quantize_axes` (comes with the multi-device slice).
 """
 from __future__ import annotations
 
@@ -144,14 +148,18 @@ def quantize_weights(params) -> dict:
     """Serving-time transform of a LanguageModel or its parameter tree: the
     transformer's attention and MLP projections (the QUANTIZABLE names,
     stacked [L, K, ...]) become W8 leaves with per-layer per-output-channel
-    scales; the embedding, the norms and the LM head keep their tensors.
-    Returns a new tree of plain dicts, which `Generator` and
-    `model_forward` take in place of the model."""
+    scales; the embedding, the norms, the LM head and an MoE expert bank
+    (a dict holding "router", stacked [L, E, K, ...]: axis 1 is the expert
+    axis, not the contraction) keep their tensors. Returns a new tree of
+    plain dicts, which `Generator` and `model_forward` take in place of the
+    model."""
     if hasattr(params, "tree"):
         params = params.tree()
 
     def walk(name, node):
         if hasattr(node, "items"):  # dicts, ModuleDict, ParameterDict
+            if "router" in node:  # the expert bank, untouched
+                return dict(node.items())
             return {k: walk(k, v) for k, v in node.items()}
         if name in QUANTIZABLE:
             return _quantize_stacked(node.detach())
@@ -198,3 +206,59 @@ def qdense(x: torch.Tensor, w, quantized_gemm: str) -> torch.Tensor:
         return int8_matmul(x, w)
     y = int8_matmul(x, w.reshape(w.shape[0], -1))
     return y.reshape(*y.shape[:-1], *w.shape[1:])
+
+
+def _quantize_bank(w: torch.Tensor):
+    """w [E, K, N] -> (int8 values, fp32 scales [E, N]): each expert's
+    columns as `_quantize_cols` quantizes a dense weight."""
+    scale = _amax_scale(w.abs().amax(dim=1))
+    return _to_int8(w, scale[:, None]), scale
+
+
+def _experts_first(t: torch.Tensor) -> torch.Tensor:
+    """[..., E, C, K] -> [E, rows, K] (a view when there are no leading
+    dims)."""
+    return t.movedim(-3, 0).reshape(t.shape[-3], -1, t.shape[-1])
+
+
+def _from_experts(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of `_experts_first` for an output [E, rows, N] of an
+    input shaped like `like` [..., E, C, K]."""
+    lead, (e, c) = like.shape[:-3], like.shape[-3:-1]
+    return t.reshape(e, *lead, c, t.shape[-1]).movedim(0, -3)
+
+
+def _int8_bmm_impl(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    xi, sx = quantize_rows(x)
+    wi, sw = _quantize_bank(w)
+    xe = _experts_first(xi)
+    yi = torch.stack([_int_mm_padded(xe[e], wi[e])
+                      for e in range(w.shape[0])])
+    y = _from_experts(yi, x).float() * sx * sw[:, None, :]
+    return y.to(x.dtype)
+
+
+class _Int8ExpertMatmul(torch.autograd.Function):
+    """int8 forward over an expert bank, straight-through backward in the
+    compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _int8_bmm_impl(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dye = _experts_first(dy)
+        dx = _from_experts(torch.bmm(dye, w.to(dy.dtype).transpose(1, 2)), x)
+        dw = torch.bmm(_experts_first(x).to(dy.dtype).transpose(1, 2), dye)
+        return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def int8_expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert batched GEMM of an MoE bank with an int8 forward and a
+    full-precision backward: x [..., E, C, K], w [E, K, N] ->
+    [..., E, C, N]. Rows are quantized one by one, each (expert, column)
+    of w on its own."""
+    return _Int8ExpertMatmul.apply(x, w)

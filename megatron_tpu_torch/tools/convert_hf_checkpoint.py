@@ -19,8 +19,8 @@ by convert/hf_io.py (no `transformers`); the export writes fp32
 embedded args of a Megatron-LM checkpoint; an export takes the checkpoint's
 own config.json (`--size` is not read). The weights pass through the card
 unless the caller of `main`, `do_import` or `do_export` names another
-device; without a GPU and a device these raise. Mixtral waits for the MoE
-model (ROADMAP Queue 1 item 8).
+device; without a GPU and a device these raise. `--family mixtral` takes
+the Mixtral presets (`--size 8x7b` or `tiny`).
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ import time
 from typing import Optional
 
 from megatron_tpu_torch.config import (MegatronConfig, ModelConfig,
-                                       falcon_config, llama2_config)
+                                       falcon_config, llama2_config,
+                                       mixtral_config)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 from megatron_tpu_torch.utils.logging import print_rank_0
 
@@ -50,15 +51,8 @@ def model_config(family: str, size: str) -> ModelConfig:
     if family == "falcon":
         return falcon_config(size)
     if family == "mixtral":
-        raise NotImplementedError(
-            "--family mixtral: Mixtral conversion waits for the MoE model "
-            "(models/moe.py, ROADMAP Queue 1 item 8)")
+        return mixtral_config(size)
     raise ValueError(f"unknown family {family!r}")
-
-
-def _check_family(family: str) -> None:
-    if family == "mixtral":
-        model_config(family, "8x7b")  # raises, naming the Queue 1 item
 
 
 def read_hf_params(path: str, family: str, cfg: ModelConfig) -> dict:
@@ -67,7 +61,8 @@ def read_hf_params(path: str, family: str, cfg: ModelConfig) -> dict:
     from megatron_tpu_torch.convert import hf, hf_io
     hf_io.check_hf_config(hf_io.read_hf_config(path), cfg, family)
     conv = {"llama": hf.hf_llama_to_params,
-            "falcon": hf.hf_falcon_to_params}[family]
+            "falcon": hf.hf_falcon_to_params,
+            "mixtral": hf.hf_mixtral_to_params}[family]
     with hf_io.HFStateDict(path) as sd:
         return conv(sd, cfg)
 
@@ -84,8 +79,6 @@ def do_import(args, cfg: Optional[ModelConfig] = None, *,
     from megatron_tpu_torch.training.train_step import TrainState
 
     device = resolve_device(device)
-    if args.source != "megatron":
-        _check_family(args.family)
     t0 = time.perf_counter()
     if args.source == "megatron":
         print_rank_0(f"loading reference Megatron-LM checkpoint from "
@@ -151,7 +144,6 @@ def do_export(args, cfg: Optional[ModelConfig] = None, *,
     from megatron_tpu_torch.convert.from_jax import load_npz_checkpoint
     from megatron_tpu_torch.models.language_model import params_tree
 
-    _check_family(args.family)
     t0 = time.perf_counter()
     model, saved = load_npz_checkpoint(args.load, device)
     cfg = cfg or saved
@@ -159,7 +151,8 @@ def do_export(args, cfg: Optional[ModelConfig] = None, *,
                         for k, t in model.state_dict().items()})
     t1 = time.perf_counter()
     conv = {"llama": hf.params_to_hf_llama,
-            "falcon": hf.params_to_hf_falcon}[args.family]
+            "falcon": hf.params_to_hf_falcon,
+            "mixtral": hf.params_to_hf_mixtral}[args.family]
     sd = conv(tree, cfg)
     del tree, model
     t2 = time.perf_counter()

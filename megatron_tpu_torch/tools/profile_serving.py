@@ -1,8 +1,10 @@
 """Where the time goes on the serving paths, on one GPU.
 
 Builds Llama-2-7B at full width and depth (random bf16 weights from a fixed
-seed), then runs under torch.profiler (CPU + CUDA activities). The default
-mode profiles the serial path:
+seed; `--model mixtral-8x7b` Mixtral-8x7B's widths instead, `--layers N`
+another depth: 32 layers of Mixtral do not fit one card), then runs under
+torch.profiler (CPU + CUDA activities). The default mode profiles the
+serial path:
 
 - prefill: one 512-token prompt through the cached forward (the flash
   kernel path);
@@ -21,15 +23,19 @@ five unprofiled repeats (all taken before any profiler session) and of the
 profiled run, the device busy time (the sum of kernel times; kernels run on
 one stream, so they do not overlap), the idle share against the fastest
 unprofiled repeat, the kernel count, and the device time by kernel class
-(GEMM, the port's flash and block kernels, the rest) with the five largest
-kernels by name. Run from the root of a checkout:
+(GEMM, which holds an MoE model's expert-bank `bmm`s; sort, scatter,
+gather and indexing kernels, which hold its dispatch and the embedding
+lookup; the port's flash and block kernels; the rest) with the five
+largest kernels by name. Run from the root of a checkout:
 
-    python -m megatron_tpu_torch.tools.profile_serving [--engine]
+    python -m megatron_tpu_torch.tools.profile_serving [--engine] \
+        [--model mixtral-8x7b --layers 16]
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import time
@@ -37,7 +43,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from megatron_tpu_torch.config import llama2_config
+from megatron_tpu_torch.config import MODEL_PRESETS
 from megatron_tpu_torch.inference.generation import init_kv_caches
 from megatron_tpu_torch.models import language_model as lm
 
@@ -57,6 +63,8 @@ def kernel_class(name: str) -> str:
     if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "cublas")):
         return "gemm"
+    if any(t in low for t in ("sort", "scatter", "gather", "index")):
+        return "index_sort"
     return "other"
 
 
@@ -88,11 +96,12 @@ def card_name() -> str:
 
 
 def report(phase: str, card: str, calls: int, walls: list,
-           profiled_ms: float, prof) -> None:
+           profiled_ms: float, prof, *, model, **extra) -> None:
     rec = dict(phase=phase, card=card, calls=calls,
+               layers=model.num_layers, experts=model.num_experts,
                profiled_wall_ms_per_call=profiled_ms,
                unprofiled_wall_ms_per_call=walls,
-               **device_breakdown(prof, calls))
+               **device_breakdown(prof, calls), **extra)
     busy = rec["device_ms_per_call"]
     # idle share against the fastest unprofiled repeat: the least idle
     # the host allowed
@@ -101,13 +110,26 @@ def report(phase: str, card: str, calls: int, walls: list,
     print(json.dumps(rec), flush=True)
 
 
-def engine_step() -> None:
+def model_config(name: str, layers):
+    cfg = MODEL_PRESETS[name]()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def weight_bound_ms(model) -> float:
+    """The bytes of every weight over the H100's 3.35 TB/s: the least time
+    a decode step that reads them all can take."""
+    return sum(p.numel() * p.element_size()
+               for p in model.parameters()) / 3.35e12 * 1e3
+
+
+def engine_step(cfg) -> None:
     """One 8-slot decode step of the engine on the block arena."""
     from megatron_tpu_torch.config import ServingConfig
     from megatron_tpu_torch.inference.generation import Generator
     from megatron_tpu_torch.serving import SamplingOptions, ServingEngine
     card = card_name()
-    cfg = llama2_config("7b")
     model = lm.LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
     gen = Generator(model, cfg, eos_id=-1, pad_id=0)
     engine = ServingEngine(gen, ServingConfig(
@@ -139,7 +161,8 @@ def engine_step() -> None:
             step()
         walls = [step()[0] for _ in range(REPEATS)]
         profiled_ms, prof = step(profiled=True)
-    report("engine_decode_step", card, 1, walls, profiled_ms, prof)
+    report("engine_decode_step", card, 1, walls, profiled_ms, prof,
+           model=cfg, weight_bound_ms=weight_bound_ms(model))
     engine.close()
 
 
@@ -147,11 +170,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--engine", action="store_true",
                         help="profile one 8-slot decode step of the engine")
-    if parser.parse_args().engine:
-        engine_step()
+    parser.add_argument("--model", default="llama2-7b",
+                        choices=sorted(MODEL_PRESETS))
+    parser.add_argument("--layers", type=int, default=None,
+                        help="depth (default: the preset's)")
+    args = parser.parse_args()
+    cfg = model_config(args.model, args.layers)
+    if args.engine:
+        engine_step(cfg)
         return
     card = card_name()
-    cfg = llama2_config("7b")
     model = lm.LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
     dev = model.device
     rope = lm.make_rope(cfg, device=dev)
@@ -197,7 +225,8 @@ def main() -> None:
                  for phase in CALLS}
         for phase, calls in CALLS.items():
             profiled_ms, prof = run(phase, profiled=True)
-            report(phase, card, calls, walls[phase], profiled_ms, prof)
+            report(phase, card, calls, walls[phase], profiled_ms, prof,
+                   model=cfg)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,13 @@ package committed under tests/fixtures/:
   and shapes (`synthetic_hf_llama_names`), filled as the root tool's
   `seed_hf_llama_numpy` fills it, converted by convert/hf.py and run in
   fp32; tokens [2, 64] must equal the fixture's and the logits [2, 64, 128]
-  agree at an average max-abs <= 1e-3;
+  agree at an average max-abs <= 1e-3. With `--family mixtral` the model
+  is the root tool's synthetic Mixtral (2 layers, hidden 64, 4/2 heads,
+  4 experts of ffn 96, top-2, vocab 160, dropless capacity), its
+  `MixtralForCausalLM.state_dict()` names pinned in
+  `synthetic_hf_mixtral_names`, against
+  tests/fixtures/golden_logits_mixtral_synthetic.npz (written by the JAX
+  package's forward through its `hf_mixtral_to_params`);
 - the loss trajectory (`--loss_trajectory`): 100 steps of
   `make_train_step` (Adam, clipping, warmup + cosine lr, weight decay, the
   dynamic fp16 loss scaler) on the same model over a fixed 4-batch cycle,
@@ -34,6 +40,8 @@ package committed under tests/fixtures/:
   python -m megatron_tpu_torch.verify_correctness \\
       --golden tests/fixtures/golden_logits_llama_synthetic.npz \\
       --loss_trajectory tests/fixtures/golden_loss_trajectory.npz
+  python -m megatron_tpu_torch.verify_correctness --family mixtral \\
+      --golden tests/fixtures/golden_logits_mixtral_synthetic.npz
 
 It runs on the card unless `main(argv, device=...)` names another device;
 without a GPU and a device it raises. Matmuls run in full fp32 (TF32 off,
@@ -56,6 +64,10 @@ from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 # the synthetic Llama of both fixtures
 SYNTHETIC = dict(vocab=128, hidden=64, layers=4, heads=4, kv=2, ffn=176,
                  seq=64)
+# the synthetic Mixtral of the root tool (make_synthetic_hf_mixtral)
+SYNTHETIC_MIXTRAL = dict(vocab=160, hidden=64, layers=2, heads=4, kv=2,
+                         ffn=96, experts=4, top_k=2, seq=64)
+FAMILIES = ("llama", "mixtral")
 GOLDEN_TOL = 1e-3  # the reference CI gate, average max-abs in fp32
 TRAJECTORY_MODES = ("fp32", "fp16")
 # the trajectory series a free run holds on any backend (module docstring)
@@ -89,6 +101,45 @@ def synthetic_hf_llama_names(vocab=128, hidden=64, layers=4, heads=4, kv=2,
     out += [("model.norm.weight", (hidden,)),
             ("lm_head.weight", (vocab, hidden))]
     return out
+
+
+def synthetic_hf_mixtral_names(vocab=160, hidden=64, layers=2, heads=4,
+                               kv=2, ffn=96, experts=4) -> list:
+    """[(name, shape)] of an untied MixtralForCausalLM's state_dict, in its
+    order (transformers 4.57): the Llama layer with `block_sparse_moe`
+    (gate, then each expert's w1, w2, w3) in place of the MLP."""
+    hd = hidden // heads
+    dims = {"h": hidden, "q": heads * hd, "kv": kv * hd}
+    out = [("model.embed_tokens.weight", (vocab, hidden))]
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        out += [(p + name, tuple(dims[d] for d in shape))
+                for name, shape in _LLAMA_LAYER_NAMES[:4]]
+        m = p + "block_sparse_moe."
+        out.append((m + "gate.weight", (experts, hidden)))
+        for e in range(experts):
+            out += [(f"{m}experts.{e}.w1.weight", (ffn, hidden)),
+                    (f"{m}experts.{e}.w2.weight", (hidden, ffn)),
+                    (f"{m}experts.{e}.w3.weight", (ffn, hidden))]
+        out += [(p + "input_layernorm.weight", (hidden,)),
+                (p + "post_attention_layernorm.weight", (hidden,))]
+    out += [("model.norm.weight", (hidden,)),
+            ("lm_head.weight", (vocab, hidden))]
+    return out
+
+
+def synthetic_mixtral_config(vocab=160, hidden=64, layers=2, heads=4, kv=2,
+                             ffn=96, experts=4, top_k=2,
+                             seq=64) -> ModelConfig:
+    """The ModelConfig of the synthetic Mixtral (fp32 compute, the preset's
+    dropless capacity E / K)."""
+    from megatron_tpu_torch.config import mixtral_config
+    return mixtral_config(
+        "tiny", num_layers=layers, hidden_size=hidden,
+        num_attention_heads=heads, num_kv_heads=kv, ffn_hidden_size=ffn,
+        vocab_size=vocab, seq_length=seq, num_experts=experts,
+        moe_top_k=top_k, make_vocab_size_divisible_by=1,
+        compute_dtype="float32")
 
 
 def synthetic_config(vocab=128, hidden=64, layers=4, heads=4, kv=2, ffn=176,
@@ -125,13 +176,23 @@ def synthetic_llama_sd(seed: int = 0) -> dict:
     return seed_hf_llama_numpy_sd(synthetic_hf_llama_names(**dims), seed)
 
 
+def synthetic_mixtral_sd(seed: int = 0) -> dict:
+    """The Mixtral golden fixture's HF state dict, with no
+    `transformers`."""
+    dims = {k: v for k, v in SYNTHETIC_MIXTRAL.items()
+            if k not in ("seq", "top_k")}
+    return seed_hf_llama_numpy_sd(synthetic_hf_mixtral_names(**dims), seed)
+
+
 def _model(sd: dict, cfg: ModelConfig, device: torch.device,
            trainable: bool = False):
+    from megatron_tpu_torch.convert import hf
     from megatron_tpu_torch.convert.from_jax import params_from_numpy
-    from megatron_tpu_torch.convert.hf import hf_llama_to_params
     from megatron_tpu_torch.models.language_model import LanguageModel
+    conv = (hf.hf_mixtral_to_params if cfg.num_experts > 1
+            else hf.hf_llama_to_params)
     return LanguageModel.from_state_dict(
-        cfg, params_from_numpy(hf_llama_to_params(sd, cfg), cfg, device),
+        cfg, params_from_numpy(conv(sd, cfg), cfg, device),
         trainable=trainable)
 
 
@@ -165,18 +226,24 @@ def compare_llama(hf_model, cfg: ModelConfig, tokens: np.ndarray, *,
             "loss_ours": float(loss_ours), "loss_hf": float(loss_hf)}
 
 
-def golden_logits(batch: int = 2, device: DeviceLike = None):
-    """(tokens [batch, 64] int32, fp32 logits [batch, 64, 128]) of the
-    numpy-seeded synthetic Llama through convert/hf.py and the port's
-    model."""
+def golden_logits(batch: int = 2, device: DeviceLike = None,
+                  family: str = "llama"):
+    """(tokens [batch, 64] int32, fp32 logits [batch, 64, vocab]) of the
+    numpy-seeded synthetic Llama (vocab 128) or Mixtral (vocab 160)
+    through convert/hf.py and the port's model."""
     from megatron_tpu_torch.models.language_model import model_forward
 
     device = resolve_device(device)
-    cfg = synthetic_config(**SYNTHETIC)
-    model = _model(synthetic_llama_sd(0), cfg, device)
+    if family == "mixtral":
+        cfg = synthetic_mixtral_config(**SYNTHETIC_MIXTRAL)
+        sd = synthetic_mixtral_sd(0)
+    else:
+        cfg = synthetic_config(**SYNTHETIC)
+        sd = synthetic_llama_sd(0)
+    model = _model(sd, cfg, device)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size,
-                          (batch, SYNTHETIC["seq"])).astype(np.int32)
+                          (batch, cfg.seq_length)).astype(np.int32)
     with torch.no_grad():
         logits, _ = model_forward(
             model, torch.from_numpy(tokens.astype(np.int64)).to(device), cfg)
@@ -184,10 +251,11 @@ def golden_logits(batch: int = 2, device: DeviceLike = None):
 
 
 def golden_mode(path: str, tolerance: float = GOLDEN_TOL,
-                device: DeviceLike = None) -> dict:
-    """Replay the golden-logit fixture: {"avg_max_abs_err", "ok"}."""
+                device: DeviceLike = None, family: str = "llama") -> dict:
+    """Replay a golden-logit fixture of `family`'s synthetic model:
+    {"avg_max_abs_err", "ok"}."""
     pinned = np.load(path)
-    tokens, ours = golden_logits(pinned["tokens"].shape[0], device)
+    tokens, ours = golden_logits(pinned["tokens"].shape[0], device, family)
     if not np.array_equal(pinned["tokens"], tokens):
         raise AssertionError("fixture tokens differ: the numpy Generator "
                              "stream changed?")
@@ -305,6 +373,8 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
     p.add_argument("--loss_trajectory", type=str, default=None,
                    help="loss-trajectory fixture (.npz) to replay")
     p.add_argument("--tolerance", type=float, default=GOLDEN_TOL)
+    p.add_argument("--family", default="llama", choices=FAMILIES,
+                   help="the synthetic model --golden replays")
     args = p.parse_args(argv)
     if not args.golden and not args.loss_trajectory:
         p.error("give --golden and/or --loss_trajectory (a comparison "
@@ -312,7 +382,8 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
     device = resolve_device(device)
     ok = True
     if args.golden:
-        ok &= golden_mode(args.golden, args.tolerance, device)["ok"]
+        ok &= golden_mode(args.golden, args.tolerance, device,
+                          args.family)["ok"]
     if args.loss_trajectory:
         ok &= trajectory_mode(args.loss_trajectory, device)["ok"]
     return 0 if ok else 1

@@ -1,6 +1,7 @@
 """The weight bridge and the port's package boundaries.
 
-- `params_from_numpy` keeps the JAX parameter tree's names and shapes;
+- `params_from_numpy` keeps the JAX parameter tree's names and shapes (a
+  Mixtral's expert banks too);
 - a checkpoint the JAX package saved with backend="npz" loads without JAX
   and gives the same logits;
 - no module of the port (nor chip_smoke.py) imports jax or megatron_tpu,
@@ -44,12 +45,13 @@ def _cfgs(name, **kw):
     if name == "gpt":
         return jconfig.gpt_config(**SMALL, **kw), tconfig.gpt_config(
             **SMALL, **kw)
-    fn = {"llama": "llama2_config", "falcon": "falcon_config"}[name]
+    fn = {"llama": "llama2_config", "falcon": "falcon_config",
+          "mixtral": "mixtral_config"}[name]
     return (getattr(jconfig, fn)("tiny", **SMALL, **kw),
             getattr(tconfig, fn)("tiny", **SMALL, **kw))
 
 
-@pytest.mark.parametrize("name", ["llama", "falcon", "gpt"])
+@pytest.mark.parametrize("name", ["llama", "falcon", "gpt", "mixtral"])
 def test_params_from_numpy_keeps_tree_names_and_shapes(name):
     jcfg, tcfg = _cfgs(name)
     params = jlm.model_init(jax.random.PRNGKey(0), jcfg)
@@ -77,7 +79,7 @@ def test_params_from_numpy_rejects_mismatch():
                           tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["llama", "gpt"])
+@pytest.mark.parametrize("name", ["llama", "gpt", "mixtral"])
 def test_npz_checkpoint_loads_with_same_logits(tmp_path, name):
     jcfg, _ = _cfgs(name, compute_dtype="float32")
     params = jlm.model_init(jax.random.PRNGKey(1), jcfg)
@@ -129,7 +131,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/spec_decode.py", "serving/host_tier.py",
                    "serving/router.py", "tools/chaos_common.py",
                    "tools/chaos_router.py", "serving/remote.py",
-                   "tools/chaos_fleet.py", "tools/serving_bench.py"):
+                   "tools/chaos_fleet.py", "tools/serving_bench.py",
+                   "models/moe.py"):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):

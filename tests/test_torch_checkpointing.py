@@ -141,6 +141,32 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
                 k.replace(".", "/")]))
 
 
+def test_moe_train_state_crosses_packages_bit_for_bit(tmp_path):
+    """A tiny Mixtral's train state (router, expert banks, their moments):
+    each package reads the other's npz checkpoint leaf for leaf, bit for
+    bit."""
+    model_kw = dict(SMALL, vocab_size=256, num_experts=4)
+    jcfg = jc.MegatronConfig(model=jc.mixtral_config("tiny", **model_kw))
+    tcfg = tc.MegatronConfig(model=tc.mixtral_config("tiny", **model_kw))
+    st = j_init(jax.random.PRNGKey(2), jcfg)
+    rs = np.random.RandomState(2)
+    jstate = JTrainState(st.params, st.opt_state._replace(
+        step=jnp.int32(4), mu=jax.tree.map(lambda x: jnp.asarray(
+            rs.standard_normal(x.shape).astype(np.float32)), st.opt_state.mu)),
+        jnp.int32(4))
+    # [L, E, h, 2, ffn]: the expert bank, not a dense MLP
+    assert _flatten(jstate.params)["transformer/mlp/w1"].shape[:2] == (2, 4)
+    j_ckpt.save_checkpoint(str(tmp_path / "jax"), jstate, jcfg, 4,
+                           backend="npz")
+    example = t_init(tcfg, seed=3, device="cpu")
+    t_ckpt.load_checkpoint(str(tmp_path / "jax"), example)
+    _assert_leaves_equal(_port_leaves(example), _jax_leaves(jstate))
+    t_ckpt.save_checkpoint(str(tmp_path / "port"), example, tcfg, 4)
+    loaded = j_ckpt.load_checkpoint(str(tmp_path / "port"),
+                                    j_init(jax.random.PRNGKey(5), jcfg))
+    _assert_leaves_equal(_jax_leaves(loaded.state), _port_leaves(example))
+
+
 @pytest.mark.parametrize("mode", ["finetune", "no_load_optim"])
 def test_finetune_and_no_load_optim_match_jax(tmp_path, mode):
     jcfg, tcfg = _configs()

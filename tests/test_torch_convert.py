@@ -11,8 +11,11 @@ converted models against `transformers`.
   vpp2 chunks, the legacy qkv orders of checkpoint versions 0 and 1.0 (tp1
   and tp2), and the export (`save_megatron_checkpoint`) with biases, GLU and
   a GPT layout.
-- The port's fp32 logits on tiny HF Llama and Falcon models converted by
-  the port agree with `transformers`' at an average max-abs <= 1e-3, the
+- Mixtral's pair (a tiny one, 4 experts, a padded vocabulary) is bit-exact
+  against JAX's both ways, as the Llama pair.
+- The port's fp32 logits on tiny HF Llama, Falcon and Mixtral models
+  converted by the port agree with `transformers`' at an average max-abs
+  <= 1e-3, the
   reference's CI gate (measured ~1e-6: the same fp32 model in two
   frameworks).
 """
@@ -35,7 +38,8 @@ from megatron_tpu_torch.convert import meta as tmeta
 from megatron_tpu_torch.convert.from_jax import params_from_numpy
 from megatron_tpu_torch.models.language_model import (LanguageModel,
                                                       model_forward)
-from megatron_tpu_torch.verify_correctness import synthetic_hf_llama_names
+from megatron_tpu_torch.verify_correctness import (synthetic_hf_llama_names,
+                                                   synthetic_hf_mixtral_names)
 
 torch.set_num_threads(2)
 TOL = 1e-3  # the reference CI gate, average max-abs logit error in fp32
@@ -119,6 +123,25 @@ def test_hf_llama_import_export_bit_exact():
     back = thf.params_to_hf_llama(got, tcfg)
     assert_trees_equal(back, jhf.params_to_hf_llama(want, jcfg))
     assert_trees_equal(back, sd)  # trimmed back to the vocabulary
+
+
+MIXTRAL = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
+               num_kv_heads=2, ffn_hidden_size=96, vocab_size=300,
+               seq_length=32, num_experts=4)
+
+
+def test_hf_mixtral_import_export_bit_exact():
+    jcfg, tcfg = _cfgs("mixtral_config", **MIXTRAL)
+    sd = _random_sd(synthetic_hf_mixtral_names(
+        vocab=300, hidden=64, layers=2, heads=4, kv=2, ffn=96, experts=4), 3)
+    want = jhf.hf_mixtral_to_params(sd, jcfg)
+    got = thf.hf_mixtral_to_params(sd, tcfg)
+    assert_trees_equal(got, want)
+    back = thf.params_to_hf_mixtral(got, tcfg)
+    assert_trees_equal(back, jhf.params_to_hf_mixtral(want, jcfg))
+    assert_trees_equal(back, sd)
+    with pytest.raises(ValueError, match="num_experts"):
+        thf.hf_mixtral_to_params(sd, tc.llama2_config("tiny", **LLAMA))
 
 
 @pytest.mark.parametrize("layout", sorted(FALCON))
@@ -476,3 +499,17 @@ def test_falcon_logits_match_transformers(layout):
     _, tcfg = _cfgs("falcon_config", **kw)
     sd = {k: v.detach().numpy() for k, v in hf.state_dict().items()}
     assert _hf_gap(hf, thf.hf_falcon_to_params(sd, tcfg), tcfg, 7) <= TOL
+
+
+def test_mixtral_logits_match_transformers():
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(2)
+    hf = transformers.MixtralForCausalLM(transformers.MixtralConfig(
+        vocab_size=300, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, intermediate_size=96,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=32, rope_theta=1e6, rms_norm_eps=1e-5,
+        tie_word_embeddings=False)).eval()
+    _, tcfg = _cfgs("mixtral_config", **MIXTRAL)
+    sd = {k: v.detach().numpy() for k, v in hf.state_dict().items()}
+    assert _hf_gap(hf, thf.hf_mixtral_to_params(sd, tcfg), tcfg, 8) <= TOL

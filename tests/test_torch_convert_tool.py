@@ -15,7 +15,9 @@ JAX package's tools on the same files.
   Generator gives on the same checkpoint in fp32; text_generation_cli gets
   an answer from it.
 - The server's flags of later slices raise NotImplementedError naming
-  their ROADMAP item, and so does the convert tool's --family mixtral.
+  their ROADMAP item.
+- A numpy-written HF Mixtral directory goes through both tools to the same
+  checkpoint, and the port's export and re-import round trip bit for bit.
 - merge_datasets writes the same bytes as the root tool; compare_loss_curves
   parses the port's training log lines and agrees with the root tool.
 - The export and the server verify the checkpoint's manifest, as JAX's
@@ -299,11 +301,63 @@ def test_unported_server_flags_raise(flags, item, tmp_path):
         srv.build_server(["--load", "unused", *flags])
 
 
-def test_convert_tool_mixtral_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tool.main(["import", "--hf_path", str(tmp_path), "--out",
-                   str(tmp_path / "o"), "--family", "mixtral"],
-                  device="cpu")
+def test_convert_tool_mixtral_roundtrip(tmp_path):
+    """An HF Mixtral directory written with numpy (safetensors, the tiny
+    preset's shapes): the port's tool and the root tool import it to the
+    same checkpoint bit for bit; the port's export equals the HF tensors,
+    and its re-import the first import."""
+    from safetensors.numpy import save_file
+
+    from megatron_tpu_torch.verify_correctness import (
+        seed_hf_llama_numpy_sd, synthetic_hf_mixtral_names)
+    cfg = tc.mixtral_config("tiny")
+    names = synthetic_hf_mixtral_names(
+        vocab=cfg.vocab_size, hidden=cfg.hidden_size, layers=cfg.num_layers,
+        heads=cfg.num_attention_heads, kv=cfg.num_kv_heads,
+        ffn=cfg.ffn_hidden_size, experts=cfg.num_experts)
+    sd = seed_hf_llama_numpy_sd(names, seed=5)
+    hf_dir = tmp_path / "hf"
+    hf_dir.mkdir()
+    save_file(sd, str(hf_dir / "model.safetensors"))
+    (hf_dir / "config.json").write_text(json.dumps(
+        hf_io.hf_config_dict(cfg, "mixtral")))
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    tool.main(["import", "--hf_path", str(hf_dir), "--out", port_dir,
+               "--family", "mixtral", "--size", "tiny"], device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jckpt, "save_checkpoint", functools.partial(
+            jckpt.save_checkpoint, backend="npz"))
+        jax_tool.main(["import", "--hf_path", str(hf_dir), "--out", jax_dir,
+                       "--family", "mixtral", "--size", "tiny"])
+    want = tckpt.read_params(tckpt.tracked_dir(jax_dir))
+    got = tckpt.read_params(tckpt.tracked_dir(port_dir))
+    assert sorted(got) == sorted(want)
+    assert got["transformer/mlp/w1"].shape == (2, 4, 256, 2, 512)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    out = str(tmp_path / "hf_out")
+    tool.main(["export", "--load", port_dir, "--hf_out", out,
+               "--family", "mixtral"], device="cpu")
+    assert hf_io.read_hf_config(out)["architectures"] == [
+        "MixtralForCausalLM"]
+    with hf_io.HFStateDict(out) as back:
+        assert sorted(back) == sorted(sd)
+        for k, t in sd.items():
+            np.testing.assert_array_equal(back[k], t, err_msg=k)
+    again = str(tmp_path / "again")
+    tool.main(["import", "--hf_path", out, "--out", again, "--family",
+               "mixtral", "--size", "tiny"], device="cpu")
+    again = tckpt.read_params(tckpt.tracked_dir(again))
+    for k in got:
+        np.testing.assert_array_equal(again[k], got[k], err_msg=k)
+    # a config.json of another expert count is refused
+    (hf_dir / "config.json").write_text(json.dumps(dict(
+        hf_io.hf_config_dict(cfg, "mixtral"), num_local_experts=8)))
+    with pytest.raises(ValueError, match="num_local_experts"):
+        tool.main(["import", "--hf_path", str(hf_dir), "--out",
+                   str(tmp_path / "x"), "--family", "mixtral", "--size",
+                   "tiny"], device="cpu")
 
 
 def test_tools_raise_without_gpu_and_device(monkeypatch, converted):

@@ -89,6 +89,70 @@ def test_block_native_engine_matches_jax_engine(name):
     assert snap["requests_completed"] == len(PROMPTS)
 
 
+def test_mixtral_block_native_engine_matches_jax_engine():
+    """A tiny Mixtral (4 experts, top-2, the preset's dropless capacity):
+    JAX's engine runs it, and the port's gives its greedy tokens exactly
+    and its logprobs within 1e-4."""
+    kw = dict(attention_impl="flash", compute_dtype="float32",
+              vocab_size=256)
+    jcfg = jconfig.mixtral_config("tiny", **kw)
+    tcfg = tconfig.mixtral_config("tiny", **kw)
+    params = jlm.model_init(jax.random.PRNGKey(0), jcfg)
+    model = LanguageModel.from_state_dict(
+        tcfg, params_from_numpy(_flatten(params), tcfg, device="cpu"))
+    prompts = [[t % 256 for t in p] for p in PROMPTS]
+    jeng = JServingEngine(JGenerator(params, jcfg, eos_id=0, pad_id=0),
+                          jconfig.ServingConfig(**BLOCK))
+    try:
+        reqs = [jeng.submit(p, NEW, JSamplingOptions(temperature=0.0))
+                for p in prompts]
+        want = [r.result(timeout=600) for r in reqs]
+    finally:
+        jeng.close()
+    gen = Generator(model, tcfg, eos_id=0, pad_id=0, device="cpu")
+    with ServingEngine(gen, ServingConfig(**BLOCK), device="cpu") as eng:
+        reqs = [eng.submit(p, NEW, SamplingOptions(temperature=0.0))
+                for p in prompts]
+        got = [r.result(timeout=600) for r in reqs]
+    for (gt, glp), (wt, wlp) in zip(got, want):
+        assert gt == wt
+        np.testing.assert_allclose(glp, wlp, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("features", [
+    dict(prefill_chunk=16, prefill_max_batch=1),
+    dict(speculative_k=3),
+    dict(prefill_max_batch=4)])
+def test_mixtral_engine_features_equal_the_serial_route(features):
+    """Routing is per row: with the dropless capacity a row's tokens do
+    not depend on the slot grid's other rows (idle ones included), on
+    chunked prefill, on a batched, bucketed prefill or on a speculative
+    verify window of k + 1 tokens (fp32 cache, greedy)."""
+    tcfg = tconfig.mixtral_config("tiny", attention_impl="flash",
+                                  compute_dtype="float32", vocab_size=256)
+    model = LanguageModel(tcfg, device="cpu", seed=3)
+    gen = Generator(model, tcfg, eos_id=0, pad_id=0, device="cpu",
+                    kv_cache_dtype=torch.float32)
+    # repeating prompts, so that the n-gram drafter proposes tokens
+    prompts = [[5, 6, 7, 8] * 5, list(range(30, 63)), [9, 10] * 9]
+    greedy = SamplingOptions(temperature=0.0)
+    with ServingEngine(gen, ServingConfig(**dict(BLOCK, **features)),
+                       device="cpu") as eng:
+        reqs = [eng.submit(p, NEW, greedy) for p in prompts]
+        got = [r.result(timeout=120)[0] for r in reqs]
+        snap = eng.metrics.snapshot()
+    want = []
+    for p in prompts:
+        toks, lens, _ = gen.generate([p], NEW,
+                                     sampling=SamplingParams(temperature=0.0))
+        want.append(toks[0, :lens[0]].tolist())
+    assert got == want
+    if "speculative_k" in features:
+        assert snap["spec_rounds"] > 0
+    if "prefill_chunk" in features:
+        assert snap["prefill_chunks"] > 0
+
+
 @pytest.fixture(scope="module")
 def port_gen():
     _, _, tcfg, model = _models("llama")

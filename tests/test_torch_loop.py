@@ -70,12 +70,27 @@ def corpus(tmp_path_factory):
     return out
 
 
-def _configs(train_iters=6, **tr):
+def _configs(train_iters=6, family="llama", **tr):
     kw = dict(micro_batch_size=2, global_batch_size=4,
               train_iters=train_iters, seed=11, **tr)
     opt = dict(lr=1e-3, min_lr=1e-4, lr_warmup_iters=1)
     data = dict(reset_attention_mask=True, reset_position_ids=True,
                 eod_mask_loss=True)
+    if family == "mixtral":
+        model = dict(MODEL, ffn_hidden_size=96, num_experts=4,
+                     moe_capacity_factor=1.25)
+        return (jc.MegatronConfig(
+                    model=jc.mixtral_config("tiny", **model),
+                    optimizer=jc.OptimizerConfig(**opt),
+                    training=jc.TrainingConfig(**kw),
+                    data=jc.DataConfig(**data),
+                    resilience=jc.ResilienceConfig(**FAST_IO)),
+                tc.MegatronConfig(
+                    model=tc.mixtral_config("tiny", **model),
+                    optimizer=tc.OptimizerConfig(**opt),
+                    training=tc.TrainingConfig(**kw),
+                    data=tc.DataConfig(**data),
+                    resilience=tc.ResilienceConfig(**FAST_IO)))
     return (jc.MegatronConfig(
                 model=jc.llama2_config("tiny", **MODEL),
                 optimizer=jc.OptimizerConfig(**opt),
@@ -196,6 +211,38 @@ def test_train_matches_jax(corpus, monkeypatch, tmp_path):
     for it in (3, 6):
         assert _meta(roots["t"], it) == _meta(roots["j"], it)
     assert _meta(roots["t"], 3)["consumed_samples"] == 12
+
+
+def test_mixtral_train_and_finetune_entry_point(corpus, monkeypatch,
+                                               tmp_path):
+    """A tiny Mixtral at capacity 1.25 (tokens drop, the router's loss in
+    the loss): 4 iterations of the port's train against JAX's, loss and
+    grad norm at 1e-5; then finetune.main --model mixtral-tiny with the MoE
+    flags runs to its end with finite losses."""
+    jcfg, tcfg = _configs(train_iters=4, family="mixtral", log_interval=2)
+    jstate = j_init(jax.random.PRNGKey(0), jcfg)
+    tstate = train_state_from_numpy(jstate.params, jstate.opt_state,
+                                    jstate.iteration, tcfg, device="cpu")
+    recs = {"j": [], "t": []}
+    _record_steps(monkeypatch, j_loop, recs["j"])
+    _record_steps(monkeypatch, t_loop, recs["t"])
+    jit, jvalid = _iterators(j_gpt, j_samp, corpus["j"], jcfg)
+    tit, tvalid = _iterators(t_gpt, t_samp, corpus["t"], tcfg)
+    j_loop.train(jcfg, jit, jvalid, mesh=None, state=jstate,
+                 rng=jax.random.PRNGKey(1))
+    t_loop.train(tcfg, tit, tvalid, state=tstate, device="cpu")
+    assert len(recs["t"]) == len(recs["j"]) == 4
+    for (_, tl, tg), (_, jl, jg) in zip(recs["t"], recs["j"]):
+        assert _rel(tl, jl) < 1e-5 and _rel(tg, jg) < 1e-5
+    monkeypatch.undo()
+    recs = []
+    _record_steps(monkeypatch, t_loop, recs)
+    argv = _argv(corpus, "--train_iters", "2", "--eval_interval", "2")
+    argv[argv.index("llama2-tiny")] = "mixtral-tiny"
+    argv += ["--ffn_hidden_size", "96", "--num_experts", "4",
+             "--moe_capacity_factor", "1.25", "--moe_dispatch", "sort"]
+    assert finetune.main(argv, device="cpu") == 0
+    assert len(recs) == 2 and all(np.isfinite(r[1]) for r in recs)
 
 
 def _argv(corpus, *extra):

@@ -283,15 +283,19 @@ def test_loss_fn_and_grads_match_jax(impl, extra):
         assert _rel_err(p.grad.numpy(), grads[name.replace(".", "/")]) < 1e-5
 
 
-def _train_configs():
+def _train_configs(family="llama"):
     kw = dict(attention_impl="flash", compute_dtype="float32", seq_length=64)
+    if family == "mixtral":
+        # capacity 1.25: tokens drop, and the router loss is in the loss
+        kw.update(vocab_size=32000, moe_capacity_factor=1.25)
+    preset = {"llama": "llama2_config", "mixtral": "mixtral_config"}[family]
     opt = dict(lr=1e-3, min_lr=1e-4, lr_warmup_iters=1, clip_grad=1.0,
                weight_decay=0.1)
     tr = dict(micro_batch_size=2, global_batch_size=4, train_iters=10)
-    return (jc.MegatronConfig(model=jc.llama2_config("tiny", **kw),
+    return (jc.MegatronConfig(model=getattr(jc, preset)("tiny", **kw),
                               optimizer=jc.OptimizerConfig(**opt),
                               training=jc.TrainingConfig(**tr)),
-            tc.MegatronConfig(model=tc.llama2_config("tiny", **kw),
+            tc.MegatronConfig(model=getattr(tc, preset)("tiny", **kw),
                               optimizer=tc.OptimizerConfig(**opt),
                               training=tc.TrainingConfig(**tr)))
 
@@ -300,7 +304,17 @@ def test_three_train_steps_match_jax():
     """Three make_train_step steps, 2 microbatches with segment ids and a
     loss mask, from the same initial tree: metrics and every param, mu and
     nu leaf. CPU tensors never reach a kernel."""
-    jcfg, tcfg = _train_configs()
+    _three_train_steps("llama")
+
+
+def test_three_mixtral_train_steps_match_jax():
+    """As above on a tiny Mixtral at capacity 1.25: its router and expert
+    banks are leaves like any other, and its loss holds the router's."""
+    _three_train_steps("mixtral")
+
+
+def _three_train_steps(family):
+    jcfg, tcfg = _train_configs(family)
     assert tcfg.num_microbatches == 2
     jstate = jts.init_train_state(jax.random.PRNGKey(0), jcfg)
     tstate = train_state_from_numpy(jstate.params, jstate.opt_state,

@@ -5,7 +5,9 @@ against the JAX package's fixtures and functions.
   shapes equals transformers' own; the numpy-seeded state dict built from it
   without transformers equals the JAX tool's seeded HF model bit for bit.
 - The golden-logit fixture replays in the port at an average max-abs
-  <= 1e-3 (measured 1.3e-7).
+  <= 1e-3 (measured 1.3e-7), and so does the Mixtral one (measured
+  1.3e-7), whose pinned names and seeded state dict equal the JAX tool's
+  synthetic Mixtral.
 - The loss-trajectory fixture, run free for 100 steps in fp32: losses at
   rtol 2e-4 / atol 1e-5 and lr at rtol 1e-6 on every step, JAX's
   tolerances; these are the series the command line gates
@@ -42,6 +44,7 @@ from megatron_tpu_torch.training import make_train_step
 transformers = pytest.importorskip("transformers")
 torch.set_num_threads(2)
 GOLDEN = "tests/fixtures/golden_logits_llama_synthetic.npz"
+GOLDEN_MIXTRAL = "tests/fixtures/golden_logits_mixtral_synthetic.npz"
 TRAJECTORY = "tests/fixtures/golden_loss_trajectory.npz"
 STEPS = 100
 
@@ -70,6 +73,40 @@ def test_golden_fixture_replays():
     r = tvc.golden_mode(GOLDEN, device="cpu")
     assert r["ok"] and r["avg_max_abs_err"] <= 1e-3, r
     assert tvc.main(["--golden", GOLDEN], device="cpu") == 0
+
+
+def test_mixtral_names_and_seeded_state_dict_equal_jax_tool():
+    model, cfg = jvc.make_synthetic_hf_mixtral(seq=64)
+    dims = {k: v for k, v in tvc.SYNTHETIC_MIXTRAL.items()
+            if k not in ("seq", "top_k")}
+    assert tvc.synthetic_hf_mixtral_names(**dims) == [
+        (k, tuple(v.shape)) for k, v in model.state_dict().items()]
+    jvc.seed_hf_llama_numpy(model, seed=0)
+    got = tvc.synthetic_mixtral_sd(0)
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
+    tcfg = tvc.synthetic_mixtral_config(**tvc.SYNTHETIC_MIXTRAL)
+    assert {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k in dataclasses.asdict(tcfg)} == dataclasses.asdict(tcfg)
+
+
+def test_golden_mixtral_fixture_replays():
+    """tests/fixtures/golden_logits_mixtral_synthetic.npz holds the JAX
+    package's forward of its `hf_mixtral_to_params` conversion of the seeded
+    state dict (recomputed here: bit for bit), and the port replays it at the Llama fixture's tolerance."""
+    from megatron_tpu.convert import hf_mixtral_to_params
+    from megatron_tpu.models import language_model as jlm
+    pinned = np.load(GOLDEN_MIXTRAL)
+    _, cfg = jvc.make_synthetic_hf_mixtral(seq=64)
+    params = hf_mixtral_to_params(tvc.synthetic_mixtral_sd(0), cfg)
+    logits, _ = jlm.model_forward(params, jnp.asarray(pinned["tokens"]), cfg,
+                                  logits_dtype=jnp.float32)
+    np.testing.assert_array_equal(
+        np.asarray(logits)[..., :cfg.vocab_size], pinned["logits"])
+    r = tvc.golden_mode(GOLDEN_MIXTRAL, device="cpu", family="mixtral")
+    assert r["ok"] and r["avg_max_abs_err"] <= 1e-3, r
+    assert tvc.main(["--family", "mixtral", "--golden", GOLDEN_MIXTRAL],
+                    device="cpu") == 0
 
 
 def test_loss_trajectory_fixture_fp32_losses_and_lr():
