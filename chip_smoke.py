@@ -284,10 +284,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    once per layer a step. (f) an HF Mixtral directory at MOE_TOOL_LAYERS
    layers through tools/convert_hf_checkpoint --family mixtral, served,
    exported and re-imported bit for bit; seconds and bytes.
+17. BERT and T5 pretraining (`phase_bert_t5`): BERT-base and T5-base at
+   the presets' full widths and depths (h 768, 12 heads of 64, ffn 3072,
+   12 layers; T5 12 + 12 with cross-attention, decoder seq 128), seq 512,
+   micro-batch 8, bf16 compute, fp32 master weights, flash attention,
+   through `megatron_tpu_torch.pretrain_bert.main` and `pretrain_t5.main`
+   on a synthetic corpus with a WordPiece vocabulary the phase writes
+   (30,522 entries; 32,028 for T5, whose entry adds 100 sentinels). Each
+   family: U, 3 iterations; P, --save at 2 and exit; R, --load P to 3; D,
+   one iteration with hidden and attention dropout 0.1. P's and R's steps
+   equal U's (loss and grad norm) and R's final state U's bit for bit
+   (`state_digest`); the first loss within 1 nat of ln(vocab) (+ ln 2 for
+   NSP); D's loss finite; every iteration launches each flash kernel once
+   per attention call (BERT 12, T5 36). Then a 2-layer fp32 slice of each
+   on the card (the kernels) and on the CPU (the plain versions), the
+   same weights and 4 rows of the phase's data: loss and every gradient
+   leaf within SLICE_TOL. The new kernel paths (non-causal with pad
+   segments, cross-attention at sq 128 / sk 512 in bf16 and fp32, the
+   decoder at s 128) are KERNEL_CASES' and TRAIN_CASES' last cases, run in
+   phase 3.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-16
+the norm kernels' on every path above, the flash kernels' on phases 8-17
 too, the block kernel's on phases 9, 11-16 too, its verify rounds at
 w 5 on phases 11, 13 and 14; phase 15's counts are the replica processes'
 whole lives) and, last, {"ok": true, "device": ...}.
@@ -325,8 +344,10 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
               "torch.int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
-# (label, b, s, nq, nkv, d, dtype name, causal, sliding_window). The first
-# three are the prefills the main path runs: request (a) at b 1, s 512;
+# (label, b, sq, sk, nq, nkv, d, dtype name, causal, sliding_window,
+# segments: None, or "pad" for BERT's pad isolation over ragged real
+# lengths, PAD_LENGTHS). The first three are the prefills the main path
+# runs: request (a) at b 1, s 512;
 # request (b) at b 3, s 32 (its shortest prompt, 37, rounded down to the
 # prefill bucket); request (d)'s beam search at b 4, s 24. s 129 and s 255
 # sit one row past a 128-row tile of the bf16 kernel and one row short of
@@ -335,63 +356,101 @@ PEAK_BYTES = 3.35e12
 # rolling prefill (a 4608-token prompt past a 4096 window);
 # mixtral_prefill_s1000 is phase 16's longest engine prompt at Mixtral's
 # 32/8 heads, with no window. The bench_ cases are tools/bench_kernels.py's
-# flash shapes (FLASH_SHAPES), which the bench_kernels path launches.
+# flash shapes (FLASH_SHAPES), which the bench_kernels path launches. The
+# last four are phase 17's attention at BERT-base's and T5-base's widths
+# (12/12 heads of 64, micro-batch 8): the bidirectional encoder with pad
+# segments, T5's cross-attention (128 decoder queries over 512 encoder
+# keys, no segment ids) in bf16 and fp32, and its causal decoder.
 KERNEL_CASES = [
-    ("llama2_7b_prefill", 1, 512, 32, 32, 128, "bfloat16", True, None),
-    ("request_b_prefill", 3, 32, 32, 32, 128, "bfloat16", True, None),
-    ("beam_prefill", 4, 24, 32, 32, 128, "bfloat16", True, None),
-    ("ragged_s200", 1, 200, 32, 32, 128, "bfloat16", True, None),
-    ("tile_edge_s129", 1, 129, 32, 32, 128, "bfloat16", True, None),
-    ("tile_edge_s255", 1, 255, 32, 32, 128, "bfloat16", True, None),
-    ("engine_prompt_s1000", 1, 1000, 32, 32, 128, "bfloat16", True, None),
-    ("gqa_64q_8kv", 1, 512, 64, 8, 128, "bfloat16", True, None),
-    ("falcon7b_mqa", 1, 512, 71, 1, 64, "bfloat16", True, None),
-    ("falcon7b_mqa_s2048", 1, 2048, 71, 1, 64, "bfloat16", True, None),
-    ("bf16_window100", 1, 1024, 32, 8, 128, "bfloat16", True, 100),
-    ("mistral_window_prefill", 1, 4608, 32, 8, 128, "bfloat16", True, 4096),
-    ("fp32_window128", 1, 512, 32, 8, 128, "float32", True, 128),
-    ("mixtral_prefill_s1000", 1, 1000, 32, 8, 128, "bfloat16", True, None),
-    ("bench_2x2048x16", 2, 2048, 16, 16, 128, "bfloat16", True, None),
-    ("bench_1x8192x8", 1, 8192, 8, 8, 128, "bfloat16", True, None),
-    ("bench_1x32768x4", 1, 32768, 4, 4, 128, "bfloat16", True, None),
+    ("llama2_7b_prefill", 1, 512, 512, 32, 32, 128, "bfloat16", True, None,
+     None),
+    ("request_b_prefill", 3, 32, 32, 32, 32, 128, "bfloat16", True, None,
+     None),
+    ("beam_prefill", 4, 24, 24, 32, 32, 128, "bfloat16", True, None, None),
+    ("ragged_s200", 1, 200, 200, 32, 32, 128, "bfloat16", True, None, None),
+    ("tile_edge_s129", 1, 129, 129, 32, 32, 128, "bfloat16", True, None,
+     None),
+    ("tile_edge_s255", 1, 255, 255, 32, 32, 128, "bfloat16", True, None,
+     None),
+    ("engine_prompt_s1000", 1, 1000, 1000, 32, 32, 128, "bfloat16", True,
+     None, None),
+    ("gqa_64q_8kv", 1, 512, 512, 64, 8, 128, "bfloat16", True, None, None),
+    ("falcon7b_mqa", 1, 512, 512, 71, 1, 64, "bfloat16", True, None, None),
+    ("falcon7b_mqa_s2048", 1, 2048, 2048, 71, 1, 64, "bfloat16", True, None,
+     None),
+    ("bf16_window100", 1, 1024, 1024, 32, 8, 128, "bfloat16", True, 100,
+     None),
+    ("mistral_window_prefill", 1, 4608, 4608, 32, 8, 128, "bfloat16", True,
+     4096, None),
+    ("fp32_window128", 1, 512, 512, 32, 8, 128, "float32", True, 128, None),
+    ("mixtral_prefill_s1000", 1, 1000, 1000, 32, 8, 128, "bfloat16", True,
+     None, None),
+    ("bench_2x2048x16", 2, 2048, 2048, 16, 16, 128, "bfloat16", True, None,
+     None),
+    ("bench_1x8192x8", 1, 8192, 8192, 8, 8, 128, "bfloat16", True, None,
+     None),
+    ("bench_1x32768x4", 1, 32768, 32768, 4, 4, 128, "bfloat16", True, None,
+     None),
+    ("bert_base_pad", 8, 512, 512, 12, 12, 64, "bfloat16", False, None,
+     "pad"),
+    ("t5_cross", 8, 128, 512, 12, 12, 64, "bfloat16", False, None, None),
+    ("t5_cross_fp32", 8, 128, 512, 12, 12, 64, "float32", False, None,
+     None),
+    ("t5_dec_self", 8, 128, 128, 12, 12, 64, "bfloat16", True, None, None),
 ]
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}  # (out, lse)
+# the real lengths of a "pad" case's rows run evenly from the first to the
+# second (BERT's pretraining rows, ragged up to the full 512)
+PAD_LENGTHS = (200, 512)
 MAIN_SHAPE = "llama2_7b_prefill"
 # phase 10's rolling prefill: Mistral-7B's 32/8 heads, a prompt past its
 # 4096-token window
 WINDOW_SHAPE = "mistral_window_prefill"
 
-# (label, b, s, nq, nkv, d, dtype name, sliding_window, segment ids, dropout
-# rate, lse cotangent): the training path's attention. The first is the
-# main path's call (Llama-2-7B, s 4096); the others are the features and
+# (label, b, sq, sk, nq, nkv, d, dtype name, causal, sliding_window,
+# segment ids: False, True for two documents a row, "pad" for BERT's pad
+# isolation, dropout rate, lse cotangent): the training path's attention.
+# The first is the main path's call (Llama-2-7B, s 4096); the others are
+# the features and
 # layouts the kernels take (segment ids give two documents a row; Falcon-7B
 # trains at its 2048 positions). bf16_window100_train runs the bf16 backward
 # with a window; falcon7b_mqa_extra_train holds the d 64 EXTRA
 # instantiations (segment ids and dropout), the dK/dV head split of MQA
 # and a ragged tail (1000 rows) in one case; mixtral_train_s4096 is phase
-# 16's training call (Mixtral-8x7B's 32/8 heads, s 4096).
+# 16's training call (Mixtral-8x7B's 32/8 heads, s 4096); the last four
+# are phase 17's (BERT-base's padded encoder, T5-base's cross-attention in
+# bf16 and fp32 and its decoder self-attention, micro-batch 8).
 TRAIN_CASES = [
-    ("llama2_7b_train", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.0,
-     False),
-    ("train_segments", 1, 4096, 32, 32, 128, "bfloat16", None, True, 0.0,
-     False),
-    ("train_dropout", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.1,
-     False),
-    ("train_dlse", 1, 4096, 32, 32, 128, "bfloat16", None, False, 0.0, True),
-    ("gqa_64q_8kv_train", 1, 4096, 64, 8, 128, "bfloat16", None, False, 0.0,
-     False),
-    ("falcon7b_mqa_train", 1, 2048, 71, 1, 64, "bfloat16", None, False, 0.0,
-     False),
-    ("ragged_s200_train", 1, 200, 32, 32, 128, "bfloat16", None, False, 0.0,
-     False),
-    ("fp32_window128_train", 1, 2048, 32, 8, 128, "float32", 128, False, 0.0,
-     False),
-    ("bf16_window100_train", 1, 1024, 32, 8, 128, "bfloat16", 100, False,
-     0.0, False),
-    ("falcon7b_mqa_extra_train", 1, 1000, 71, 1, 64, "bfloat16", None, True,
-     0.1, False),
-    ("mixtral_train_s4096", 1, 4096, 32, 8, 128, "bfloat16", None, False,
-     0.0, False),
+    ("llama2_7b_train", 1, 4096, 4096, 32, 32, 128, "bfloat16", True, None,
+     False, 0.0, False),
+    ("train_segments", 1, 4096, 4096, 32, 32, 128, "bfloat16", True, None,
+     True, 0.0, False),
+    ("train_dropout", 1, 4096, 4096, 32, 32, 128, "bfloat16", True, None,
+     False, 0.1, False),
+    ("train_dlse", 1, 4096, 4096, 32, 32, 128, "bfloat16", True, None,
+     False, 0.0, True),
+    ("gqa_64q_8kv_train", 1, 4096, 4096, 64, 8, 128, "bfloat16", True, None,
+     False, 0.0, False),
+    ("falcon7b_mqa_train", 1, 2048, 2048, 71, 1, 64, "bfloat16", True, None,
+     False, 0.0, False),
+    ("ragged_s200_train", 1, 200, 200, 32, 32, 128, "bfloat16", True, None,
+     False, 0.0, False),
+    ("fp32_window128_train", 1, 2048, 2048, 32, 8, 128, "float32", True,
+     128, False, 0.0, False),
+    ("bf16_window100_train", 1, 1024, 1024, 32, 8, 128, "bfloat16", True,
+     100, False, 0.0, False),
+    ("falcon7b_mqa_extra_train", 1, 1000, 1000, 71, 1, 64, "bfloat16", True,
+     None, True, 0.1, False),
+    ("mixtral_train_s4096", 1, 4096, 4096, 32, 8, 128, "bfloat16", True,
+     None, False, 0.0, False),
+    ("bert_base_pad_train", 8, 512, 512, 12, 12, 64, "bfloat16", False,
+     None, "pad", 0.0, False),
+    ("t5_cross_train", 8, 128, 512, 12, 12, 64, "bfloat16", False, None,
+     False, 0.0, False),
+    ("t5_cross_fp32_train", 8, 128, 512, 12, 12, 64, "float32", False, None,
+     False, 0.0, False),
+    ("t5_dec_self_train", 8, 128, 128, 12, 12, 64, "bfloat16", True, None,
+     False, 0.0, False),
 ]
 TRAIN_MAIN_SHAPE = "llama2_7b_train"
 DROPOUT_SEED = 4321
@@ -613,25 +672,6 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
     return start.elapsed_time(stop) / iters
 
 
-def attention_bound(b, sq, sk, nq, nkv, d, itemsize, dtype_name, causal,
-                    window):
-    """Least time on the card: the larger of the visible (q, k) pairs' 4d
-    FLOPs over the dtype's peak and the bytes of q, k, v, out and lse read
-    or written once over the memory rate."""
-    pairs = 0
-    for i in range(sq):
-        hi = min(i + 1, sk) if causal else sk
-        lo = max(0, i - window + 1) if (causal and window) else 0
-        pairs += max(0, hi - lo)
-    flops = 4 * d * pairs * b * nq
-    nbytes = (itemsize * d * (2 * b * sq * nq + 2 * b * sk * nkv)
-              + 4 * b * nq * sq)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def bound_ms(flops: float, nbytes: float, dtype_name: str):
     """The least time on the card: the larger of the operations over the
     dtype's peak and the bytes over the memory rate."""
@@ -641,28 +681,80 @@ def bound_ms(flops: float, nbytes: float, dtype_name: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def visible_pairs(s: int, window, seg) -> int:
-    """(query, key) pairs a causal call sees, over the batch: the window
-    and segment masks of this run's data included."""
+def counterparts(causal: bool, seg) -> dict:
+    """The counterparts of a bidirectional or segmented case, timed on the
+    same inputs beside it: "causal_ms" made causal (top-left aligned)
+    without segment ids, and for a segmented one "unsegmented_ms" without
+    them. Returns {key: keyword overrides of the case's call}."""
+    out = {}
+    if not causal:
+        out["causal_ms"] = dict(causal=True, segment_ids=None)
+    if seg is not None:
+        out["unsegmented_ms"] = dict(segment_ids=None)
+    return out
+
+
+def pad_segments(b: int, s: int):
+    """BERT's pad isolation over ragged real lengths (PAD_LENGTHS spread
+    over the rows): real tokens segment 0, the pad at position i segment
+    2 + i, which sees only itself. int32 [b, s] on the card."""
     import torch
+    lo, hi = min(PAD_LENGTHS[0], s), min(PAD_LENGTHS[1], s)
+    lengths = torch.tensor([lo + (hi - lo) * i // max(b - 1, 1)
+                            for i in range(b)], device="cuda")
     pos = torch.arange(s, device="cuda")
-    mask = pos[:, None] >= pos[None, :]
-    if window:
-        mask = mask & (pos[:, None] - pos[None, :] < window)
-    if seg is None:
-        return int(mask.sum())
-    return int((mask[None] & (seg[:, :, None] == seg[:, None, :])).sum())
+    return torch.where(pos[None] < lengths[:, None], 0,
+                       2 + pos[None]).to(torch.int32)
 
 
-def training_bounds(b, s, nq, nkv, d, item, dtype_name, pairs, seg, dlse):
+def case_segments(mode, b: int, s: int):
+    """A case's segment ids: None, two documents a row (True), or BERT's
+    pad isolation ("pad")."""
+    import torch
+    if not mode:
+        return None
+    if mode == "pad":
+        return pad_segments(b, s)
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg[:, s // 2:] = 1
+    return seg
+
+
+def visible_mask(sq: int, sk: int, causal: bool, window, seg):
+    """The (query, key) pairs a call sees: bool [b|1, sq, sk] on the card
+    (top-left aligned causal mask, the window, the segment ids of this
+    run's data)."""
+    import torch
+    qp = torch.arange(sq, device="cuda")[:, None]
+    kp = torch.arange(sk, device="cuda")[None]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        mask = qp >= kp
+        if window:
+            mask = mask & (qp - kp < window)
+    mask = mask[None]
+    if seg is not None:
+        mask = mask & (seg[:, :, None] == seg[:, None, :])
+    return mask
+
+
+def visible_pairs(b: int, sq: int, sk: int, causal: bool, window,
+                  seg) -> int:
+    """(query, key) pairs a call sees, over the batch of b rows."""
+    mask = visible_mask(sq, sk, causal, window, seg)
+    return int(mask.sum()) * (b // mask.shape[0])
+
+
+def training_bounds(b, sq, sk, nq, nkv, d, item, dtype_name, pairs, seg,
+                    dlse):
     """(forward, dQ, dK/dV) bounds of one training call: each kernel's
     operations on this run's visible pairs (4 d, 6 d and 8 d a pair) and
-    the bytes it must move (q, k, v, dout, out, dq, dk, dv, the [b, nq, s]
+    the bytes it must move (q, k, v, dout, out, dq, dk, dv, the [b, nq, sq]
     fp32 row stats and the segment ids, each read or written once)."""
-    seg_bytes = 4 * b * s if seg else 0
-    stat_bytes = 4 * b * nq * s
-    qo_bytes = item * b * s * nq * d  # one [b, s, nq, d] tensor
-    kv_bytes = item * b * s * nkv * d  # one [b, s, nkv, d] tensor
+    seg_bytes = 4 * b * sq if seg else 0
+    stat_bytes = 4 * b * nq * sq
+    qo_bytes = item * b * sq * nq * d  # one [b, sq, nq, d] tensor
+    kv_bytes = item * b * sk * nkv * d  # one [b, sk, nkv, d] tensor
     n_stats = 3 if dlse else 2  # lse, delta (, dlse)
     return (bound_ms(4 * d * pairs, 2 * qo_bytes + 2 * kv_bytes
                      + stat_bytes + seg_bytes, dtype_name),
@@ -672,21 +764,20 @@ def training_bounds(b, s, nq, nkv, d, item, dtype_name, pairs, seg, dlse):
                      + n_stats * stat_bytes + seg_bytes, dtype_name))
 
 
-def sdpa_calls(q, k, v, dout, scale, window):
+def sdpa_calls(q, k, v, dout, scale, window, causal=True, seg=None):
     """(forward, backward) of scaled_dot_product_attention on the same
-    inputs: the library yardstick for causal attention without segment
-    ids or dropout."""
+    inputs and the same mask: the library yardstick for attention without
+    dropout (a boolean mask for a window or segment ids)."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     kw = dict(scale=scale, enable_gqa=True)
-    if window:
-        pos = torch.arange(q.shape[1], device="cuda")
-        kw["attn_mask"] = ((pos[:, None] >= pos[None, :])
-                           & (pos[:, None] - pos[None, :] < window))
+    if window or seg is not None:
+        kw["attn_mask"] = visible_mask(q.shape[1], k.shape[1], causal,
+                                       window, seg)[:, None]
     else:
-        kw["is_causal"] = True
+        kw["is_causal"] = causal
 
     def fwd():
         with torch.no_grad():
@@ -753,30 +844,31 @@ def phase_build() -> None:
 
 def phase_kernels() -> list[dict]:
     import torch
-    import torch.nn.functional as F
     from megatron_tpu_torch.ops.flash_attention import blockwise_attention
     from megatron_tpu_torch.ops.flash_attention_cuda import flash_fwd_cuda
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = []
-    for (label, b, s, nq, nkv, d, dname, causal, window) in KERNEL_CASES:
+    for (label, b, sq, sk, nq, nkv, d, dname, causal, window,
+         seg_mode) in KERNEL_CASES:
         dtype = getattr(torch, dname)
-        q = torch.randn(b, s, nq, d, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(b, sq, nq, d, generator=gen, device="cuda").to(dtype)
         # k and v as the strided halves of one fused projection, as the
         # model hands them over
-        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+        kv = torch.randn(b, sk, 2, nkv, d, generator=gen,
                          device="cuda").to(dtype)
         k, v = kv[:, :, 0], kv[:, :, 1]
+        seg = case_segments(seg_mode, b, sq)
         scale = d ** -0.5
+        kw = dict(causal=causal, scale=scale, sliding_window=window,
+                  segment_ids=seg)
 
         def kernel():
-            return flash_fwd_cuda(q, k, v, causal=causal, scale=scale,
-                                  sliding_window=window)
+            return flash_fwd_cuda(q, k, v, **kw)
 
         def plain():
-            return blockwise_attention(q, k, v, causal=causal, scale=scale,
-                                       sliding_window=window)
+            return blockwise_attention(q, k, v, **kw)
 
         out, lse = kernel()
         torch.cuda.synchronize()
@@ -784,38 +876,30 @@ def phase_kernels() -> list[dict]:
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         tol_out, tol_lse = TOL[dname]
-        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        check(bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(lse).all()),
+              f"{label}: non-finite output or lse")
         check(err_out <= tol_out and err_lse <= tol_lse,
               f"{label}: kernel vs plain out err {err_out} (tol {tol_out}),"
               f" lse err {err_lse} (tol {tol_lse})")
 
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window:
-            pos = torch.arange(s, device="cuda")
-            mask = ((pos[:, None] >= pos[None, :])
-                    & (pos[:, None] - pos[None, :] < window))
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=scale,
-                    enable_gqa=True)
-        else:
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale,
-                    enable_gqa=True)
-
-        bound_ms, bound_by = attention_bound(b, s, s, nq, nkv, d,
-                                             q.element_size(), str(dtype),
-                                             causal, window)
-        r = dict(shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d, dtype=dname,
-                 causal=causal, sliding_window=window,
+        library, _ = sdpa_calls(q, k, v, q, scale, window, causal, seg)
+        pairs = visible_pairs(b, sq, sk, causal, window, seg) * nq
+        bound = training_bounds(b, sq, sk, nq, nkv, d, q.element_size(),
+                                str(dtype), pairs, seg is not None,
+                                False)[0]
+        r = dict(shape=label, b=b, s=sq, sk=sk, nq=nq, nkv=nkv, d=d,
+                 dtype=dname, causal=causal, sliding_window=window,
+                 segments=seg_mode, visible_pairs=pairs,
                  max_abs_err=err_out, max_abs_err_lse=err_lse,
                  ms=cuda_time_ms(kernel, queued=True),
                  plain_ms=cuda_time_ms(plain, 5, 1, queued=True),
                  library_ms=cuda_time_ms(library, queued=True),
-                 bound_ms=bound_ms,
-                 bound_by=bound_by)
+                 bound_ms=bound[0], bound_by=bound[1])
+        for key, over in counterparts(causal, seg).items():
+            r[key] = cuda_time_ms(
+                lambda: flash_fwd_cuda(q, k, v, **dict(kw, **over)),
+                queued=True)
         log("kernel check: " + json.dumps(r))
         results.append(r)
     return results
@@ -898,23 +982,20 @@ def phase_training_kernels() -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(99)
     results = []
-    for (label, b, s, nq, nkv, d, dname, window, use_seg, rate,
+    for (label, b, s, sk, nq, nkv, d, dname, causal, window, use_seg, rate,
          use_dlse) in TRAIN_CASES:
         dtype = getattr(torch, dname)
         q = torch.randn(b, s, nq, d, generator=gen, device="cuda").to(dtype)
         # k and v as the strided halves of one fused projection
-        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+        kv = torch.randn(b, sk, 2, nkv, d, generator=gen,
                          device="cuda").to(dtype)
         k, v = kv[:, :, 0], kv[:, :, 1]
         dout = torch.randn(b, s, nq, d, generator=gen,
                            device="cuda").to(dtype)
-        seg = None
-        if use_seg:  # two documents a row
-            seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
-            seg[:, s // 2:] = 1
+        seg = case_segments(use_seg, b, s)
         dlse = (torch.randn(b, nq, s, generator=gen, device="cuda")
                 if use_dlse else None)
-        kw = dict(causal=True, scale=d ** -0.5, sliding_window=window,
+        kw = dict(causal=causal, scale=d ** -0.5, sliding_window=window,
                   segment_ids=seg, dropout_rate=rate,
                   dropout_seed=DROPOUT_SEED)
         bkw = dict(kw, dlse=dlse)
@@ -925,7 +1006,9 @@ def phase_training_kernels() -> list[dict]:
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         tol_out, tol_lse = TOL[dname]
-        check(bool(torch.isfinite(out).all()), f"{label}: non-finite out")
+        check(bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(lse).all()),
+              f"{label}: non-finite out or lse")
         check(err_out <= tol_out and err_lse <= tol_lse,
               f"{label}: forward vs plain out err {err_out} (tol "
               f"{tol_out}), lse err {err_lse} (tol {tol_lse})")
@@ -962,21 +1045,34 @@ def phase_training_kernels() -> list[dict]:
             errs[name] = dict(max_abs_err=err, max_abs_ref=ref_max, tol=tol)
         del grads, again
 
-        pairs = visible_pairs(s, window, seg) * b * nq
+        pairs = visible_pairs(b, s, sk, causal, window, seg) * nq
         fwd_bound, dq_bound, dkv_bound = training_bounds(
-            b, s, nq, nkv, d, q.element_size(), str(dtype), pairs,
+            b, s, sk, nq, nkv, d, q.element_size(), str(dtype), pairs,
             seg is not None, dlse is not None)
-        same_as_sdpa = seg is None and not rate
         lib_fwd = lib_bwd = None
-        if same_as_sdpa:
-            sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, d ** -0.5, window)
+        if not rate:
+            sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, d ** -0.5, window,
+                                            causal, seg)
             lib_fwd = cuda_time_ms(sdpa_fwd, 10, 2, queued=True)
             if dlse is None:
                 lib_bwd = cuda_time_ms(sdpa_bwd, 10, 2, queued=True)
         plain_bwd_ms = cuda_time_ms(plain_bwd, 3, 1)
+        times_of = {}
+        for key, over in counterparts(causal, seg).items():
+            kw2 = dict(bkw, **over)
+            out2, lse2 = fc.flash_fwd_cuda(q, k, v, **dict(kw, **over))
+            delta2 = fa.attention_delta(out2, dout)
+            times_of[key] = {part: cuda_time_ms(fn, 10, 2, queued=True)
+                             for part, fn in (
+                ("fwd", lambda: fc.flash_fwd_cuda(q, k, v,
+                                                  **dict(kw, **over))),
+                ("dq", lambda: fc.flash_bwd_dq_cuda(q, k, v, dout, lse2,
+                                                    delta2, **kw2)),
+                ("dkv", lambda: fc.flash_bwd_dkv_cuda(q, k, v, dout, lse2,
+                                                      delta2, **kw2)))}
         r = dict(
-            shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d, dtype=dname,
-            causal=True, sliding_window=window, segments=use_seg,
+            shape=label, b=b, s=s, sk=sk, nq=nq, nkv=nkv, d=d, dtype=dname,
+            causal=causal, sliding_window=window, segments=use_seg,
             dropout=rate, dlse=use_dlse, visible_pairs=pairs,
             fwd=dict(max_abs_err=err_out, max_abs_err_lse=err_lse,
                      ms=cuda_time_ms(lambda: fc.flash_fwd_cuda(q, k, v,
@@ -998,6 +1094,9 @@ def phase_training_kernels() -> list[dict]:
                      plain_ms=plain_bwd_ms, bound_ms=dkv_bound[0],
                      bound_by=dkv_bound[1], library_ms=lib_bwd),
             bitwise_repeat=True)
+        for key, times in times_of.items():
+            for part, ms in times.items():
+                r[part][key] = ms
         log("training kernel check: " + json.dumps(r))
         results.append(r)
         del q, kv, k, v, dout, out, lse, ref_out, ref_lse, delta
@@ -1361,14 +1460,16 @@ def phase_norm_kernels() -> list[dict]:
 
 def forward_shapes():
     """Every bf16 forward shape of KERNEL_CASES and TRAIN_CASES as (label,
-    b, s, nq, nkv, d, window, segment ids, dropout rate); training cases
-    that differ only in the backward (an lse cotangent) are left out."""
-    shapes = [(label, b, s, nq, nkv, d, window, False, 0.0)
-              for (label, b, s, nq, nkv, d, dname, _, window) in KERNEL_CASES
+    b, sq, sk, nq, nkv, d, causal, window, segment ids, dropout rate);
+    training cases that differ only in the backward (an lse cotangent) are
+    left out."""
+    shapes = [(label, b, sq, sk, nq, nkv, d, causal, window, seg, 0.0)
+              for (label, b, sq, sk, nq, nkv, d, dname, causal, window,
+                   seg) in KERNEL_CASES
               if dname == "bfloat16"]
-    shapes += [(label, b, s, nq, nkv, d, window, seg, rate)
-               for (label, b, s, nq, nkv, d, dname, window, seg, rate,
-                    dlse) in TRAIN_CASES
+    shapes += [(label, b, sq, sk, nq, nkv, d, causal, window, seg, rate)
+               for (label, b, sq, sk, nq, nkv, d, dname, causal, window, seg,
+                    rate, dlse) in TRAIN_CASES
                if dname == "bfloat16" and not dlse]
     return shapes
 
@@ -1423,17 +1524,15 @@ def compare_forward(old_source: str) -> int:
     original = fc._library
     gen = torch.Generator(device="cuda").manual_seed(7)
     failed = []
-    for (label, b, s, nq, nkv, d, window, use_seg, rate) in forward_shapes():
+    for (label, b, s, sk, nq, nkv, d, causal, window, use_seg,
+         rate) in forward_shapes():
         q = torch.randn(b, s, nq, d, generator=gen,
                         device="cuda").bfloat16()
-        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+        kv = torch.randn(b, sk, 2, nkv, d, generator=gen,
                          device="cuda").bfloat16()
         k, v = kv[:, :, 0], kv[:, :, 1]
-        seg = None
-        if use_seg:
-            seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
-            seg[:, s // 2:] = 1
-        kw = dict(causal=True, scale=d ** -0.5, sliding_window=window,
+        seg = case_segments(use_seg, b, s)
+        kw = dict(causal=causal, scale=d ** -0.5, sliding_window=window,
                   segment_ids=seg, dropout_rate=rate,
                   dropout_seed=DROPOUT_SEED)
 
@@ -1457,16 +1556,16 @@ def compare_forward(old_source: str) -> int:
             times[which].append(cuda_time_ms(lambda: call(which), 20, 3,
                                              queued=True))
         sdpa_ms = None
-        if seg is None and not rate:
-            sdpa_fwd, _ = sdpa_calls(q, k, v, q, d ** -0.5, window)
+        if not rate:
+            sdpa_fwd, _ = sdpa_calls(q, k, v, q, d ** -0.5, window, causal,
+                                     seg)
             sdpa_ms = cuda_time_ms(sdpa_fwd, 20, 3, queued=True)
-        pairs = visible_pairs(s, window, seg) * b * nq
-        bound = bound_ms(4 * d * pairs, 2 * (2 * b * s * nq * d
-                                             + 2 * b * s * nkv * d)
-                         + 4 * b * nq * s, "torch.bfloat16")
+        pairs = visible_pairs(b, s, sk, causal, window, seg) * nq
+        bound = training_bounds(b, s, sk, nq, nkv, d, 2, "torch.bfloat16",
+                                pairs, seg is not None, False)[0]
         old_ms = sum(times["old"]) / 2
         new_ms = sum(times["new"]) / 2
-        r = dict(shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d,
+        r = dict(shape=label, b=b, s=s, sk=sk, nq=nq, nkv=nkv, d=d,
                  sliding_window=window, segments=use_seg, dropout=rate,
                  old_ms=old_ms, new_ms=new_ms, old_runs=times["old"],
                  new_runs=times["new"], speedup=old_ms / new_ms,
@@ -1528,23 +1627,20 @@ def compare_backward(old_source: str) -> int:
     original = fc._library
     gen = torch.Generator(device="cuda").manual_seed(11)
     failed = []
-    for (label, b, s, nq, nkv, d, dname, window, use_seg, rate,
+    for (label, b, s, sk, nq, nkv, d, dname, causal, window, use_seg, rate,
          use_dlse) in TRAIN_CASES:
         if dname != "bfloat16":
             continue
         q = torch.randn(b, s, nq, d, generator=gen, device="cuda").bfloat16()
-        kv = torch.randn(b, s, 2, nkv, d, generator=gen,
+        kv = torch.randn(b, sk, 2, nkv, d, generator=gen,
                          device="cuda").bfloat16()
         k, v = kv[:, :, 0], kv[:, :, 1]
         dout = torch.randn(b, s, nq, d, generator=gen,
                            device="cuda").bfloat16()
-        seg = None
-        if use_seg:
-            seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
-            seg[:, s // 2:] = 1
+        seg = case_segments(use_seg, b, s)
         dlse = (torch.randn(b, nq, s, generator=gen, device="cuda")
                 if use_dlse else None)
-        kw = dict(causal=True, scale=d ** -0.5, sliding_window=window,
+        kw = dict(causal=causal, scale=d ** -0.5, sliding_window=window,
                   segment_ids=seg, dropout_rate=rate,
                   dropout_seed=DROPOUT_SEED)
         out, lse = fa.blockwise_attention(q, k, v, **kw)
@@ -1579,20 +1675,20 @@ def compare_backward(old_source: str) -> int:
                 times[which, part].append(cuda_time_ms(
                     lambda: call(which, fn), 10, 2, queued=True))
         sdpa_ms = None
-        if seg is None and not rate and dlse is None:
+        if not rate and dlse is None:
             sdpa_ms = cuda_time_ms(
-                sdpa_calls(q, k, v, dout, d ** -0.5, window)[1], 10, 2,
-                queued=True)
-        pairs = visible_pairs(s, window, seg) * b * nq
+                sdpa_calls(q, k, v, dout, d ** -0.5, window, causal,
+                           seg)[1], 10, 2, queued=True)
+        pairs = visible_pairs(b, s, sk, causal, window, seg) * nq
         _, dq_bound, dkv_bound = training_bounds(
-            b, s, nq, nkv, d, 2, "torch.bfloat16", pairs, seg is not None,
-            dlse is not None)
+            b, s, sk, nq, nkv, d, 2, "torch.bfloat16", pairs,
+            seg is not None, dlse is not None)
         mean = {key: sum(v_) / len(v_) for key, v_ in times.items()}
-        r = dict(shape=label, b=b, s=s, nq=nq, nkv=nkv, d=d,
+        r = dict(shape=label, b=b, s=s, sk=sk, nq=nq, nkv=nkv, d=d,
                  sliding_window=window, segments=use_seg, dropout=rate,
                  dlse=use_dlse, visible_pairs=pairs,
                  dkv_head_chunks=fc.dkv_head_chunks(
-                     b, s, nkv, nq // nkv, sm_count(q.device.index)),
+                     b, sk, nkv, nq // nkv, sm_count(q.device.index)),
                  old_dq_ms=mean["old", "dq"], new_dq_ms=mean["new", "dq"],
                  old_dkv_ms=mean["old", "dkv"],
                  new_dkv_ms=mean["new", "dkv"],
@@ -1912,9 +2008,10 @@ def phase_bench_kernels() -> dict:
     for name in ("rms_fwd_cuda", "rms_bwd_cuda", "ln_fwd_cuda",
                  "ln_bwd_cuda", "flash_fwd_cuda"):
         check(counts[name] > 0, f"bench_kernels launched {name} no time")
-    held = {(b, s, nq, d) for (_, b, s, nq, nkv, d, dname, causal, window)
-            in KERNEL_CASES if dname == "bfloat16" and causal
-            and window is None and nkv == nq}
+    held = {(b, s, nq, d) for (_, b, s, sk, nq, nkv, d, dname, causal,
+                               window, seg) in KERNEL_CASES
+            if dname == "bfloat16" and causal and window is None
+            and nkv == nq and sk == s and seg is None}
     check(all(tuple(shape) in held for shape in bench_kernels.FLASH_SHAPES),
           "a bench_kernels flash shape is not among KERNEL_CASES, where the "
           "kernel is held against its plain version")
@@ -3061,7 +3158,7 @@ def segment_cost(seg) -> dict:
                 q, k, v, dout, lse, delta, **kw), 10, 2, queued=True),
             dkv_ms=cuda_time_ms(lambda: fc.flash_bwd_dkv_cuda(
                 q, k, v, dout, lse, delta, **kw), 10, 2, queued=True),
-            visible_pairs=visible_pairs(s, None, ids))
+            visible_pairs=visible_pairs(1, s, s, True, None, ids))
     out["segments"] = int(seg.max()) + 1
     return out
 
@@ -8786,6 +8883,317 @@ def phase_moe(smi: str) -> dict:
     return stats
 
 
+# Phase 17: BERT-base and T5-base pretraining through the port's entry
+# points at the presets' full widths and depths (models/bert.py
+# bert_config, models/t5.py t5_config), micro-batch 8, bf16 compute, fp32
+# master weights
+BT_SEED = 0
+BT_DOCS = 120
+BT_VOCAB = {"bert": 30522, "t5": 32028}  # T5's entry adds 100 sentinels
+BT_ITERS = 3
+BT_MICRO = 8
+BT_SEQ, BT_DEC_SEQ = 512, 128  # encoder, T5's decoder
+BT_LR = "1e-4"
+BT_DROPOUT = "0.1"
+# layers each stack has in the flash kernels' per-step launches
+BT_ATTENTION_CALLS = {"bert": 12, "t5": 36}
+# the fp32 slices: BT_SLICE_LAYERS layers, BT_SLICE_BATCH rows of the
+# phase's dataset, the card's kernels against the CPU's plain versions
+BT_SLICE_LAYERS = 2
+BT_SLICE_BATCH = 4
+
+
+def bt_corpus(root: str, family: str) -> dict:
+    """A WordPiece vocab.txt of BT_VOCAB[family] entries, BT_DOCS random
+    documents, and their .bin/.idx through the port's
+    tools/preprocess_data.py."""
+    import os
+
+    from megatron_tpu_torch.tools import preprocess_data, synthetic_corpus
+    t0 = time.perf_counter()
+    d = os.path.join(root, family)
+    vocab = synthetic_corpus.write_wordpiece_vocab(d, BT_VOCAB[family])
+    with open(vocab) as f:
+        n_vocab = sum(1 for _ in f)
+    check(n_vocab == BT_VOCAB[family], f"{family} vocab.txt holds {n_vocab}")
+    jsonl = synthetic_corpus.write_jsonl(os.path.join(d, "corpus.jsonl"),
+                                         BT_DOCS, BT_SEED)
+    prefix = os.path.join(d, "corpus")
+    preprocess_data.main(["--input", jsonl, "--output_prefix", prefix,
+                          "--tokenizer_type", "BertWordPieceLowerCase",
+                          "--vocab_file", vocab])
+    return dict(vocab=vocab, data=prefix + "_document",
+                seconds=time.perf_counter() - t0)
+
+
+def bt_argv(family: str, corpus: dict, *extra, layers: int = 12) -> list:
+    argv = ["--data_path", corpus["data"], "--vocab_file", corpus["vocab"],
+            "--tokenizer_type", "BertWordPieceLowerCase",
+            "--num_layers", str(layers), "--hidden_size", "768",
+            "--num_attention_heads", "12", "--seq_length", str(BT_SEQ),
+            "--bf16", "--attention_impl", "flash",
+            "--micro_batch_size", str(BT_MICRO), "--global_batch_size",
+            str(BT_MICRO), "--train_iters", str(BT_ITERS), "--lr", BT_LR,
+            "--log_interval", "1", "--seed", str(BT_SEED), *extra]
+    if family == "t5":
+        argv += ["--decoder_seq_length", str(BT_DEC_SEQ)]
+    return argv
+
+
+def state_digest(state) -> list:
+    """One int64 a tensor of the state (parameters, Adam's mu and nu): the
+    sum of its bit patterns, read in one copy. Equal digests of two states
+    say their bits agree."""
+    import torch
+    o = state.opt_state
+    tensors = [*state.params.state_dict().values(), *o.mu.values(),
+               *o.nu.values(), o.step]
+    with torch.no_grad():
+        sums = [t.detach().contiguous().view(torch.int32).to(
+            torch.int64).sum() for t in tensors]
+    return torch.stack(sums).tolist()
+
+
+def run_entry(main, argv: list) -> dict:
+    """One in-process run of an entry point's main(argv) on the card, the
+    kernels' launch counts zeroed just before: each step's loss, grad norm,
+    launches and CUDA-event ms, and the final state's digest."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    from megatron_tpu_torch.training import loop
+
+    steps, final = [], {}
+    make_step, train = loop.make_train_step, loop.train
+
+    def recording_make(*a, **k):
+        step = make_step(*a, **k)
+
+        def recorded(state, batch, gen):
+            before = fc.launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch, gen)
+            stop.record()
+            after = fc.launch_counts()
+            steps.append(dict(iteration=state.iteration, metrics=m,
+                              start=start, stop=stop,
+                              launches={k: after[k] - before[k]
+                                        for k in after}))
+            return state, m
+        return recorded
+
+    def recording_train(*a, **k):
+        state, consumed = train(*a, **k)
+        final["digest"] = state_digest(state)
+        return state, consumed
+
+    loop.make_train_step, loop.train = recording_make, recording_train
+    fc.reset_launch_counts()
+    fnc.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        loop.make_train_step, loop.train = make_step, train
+    check(rc == 0, f"main returned {rc}")
+    for rec in steps:
+        m = rec.pop("metrics")
+        rec.update(lm_loss=float(m["lm_loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   found_inf=int(m["found_inf"]),
+                   device_ms=rec.pop("start").elapsed_time(rec.pop("stop")))
+    return dict(steps=steps, digest=final.get("digest"),
+                launches=fc.launch_counts(),
+                norm_launches=fnc.launch_counts(),
+                seconds=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def bt_family(family: str, corpus: dict, root: str, smi: str) -> dict:
+    """U (BT_ITERS iterations), P (--save, --exit_interval 2), R (--load P
+    to BT_ITERS) and D (one iteration with hidden and attention dropout
+    BT_DROPOUT) through the family's entry point."""
+    import os
+
+    import torch
+    from megatron_tpu_torch import pretrain_bert, pretrain_t5
+    main = {"bert": pretrain_bert, "t5": pretrain_t5}[family].main
+    save = os.path.join(root, f"{family}_ckpt")
+    runs = {}
+    for name, extra in (
+            ("U", ()),
+            ("P", ("--save", save, "--save_interval", "2",
+                   "--exit_interval", "2")),
+            ("R", ("--save", save, "--save_interval", "2")),
+            ("D", ("--train_iters", "1", "--hidden_dropout", BT_DROPOUT,
+                   "--attention_dropout", BT_DROPOUT))):
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = run_entry(main, bt_argv(family, corpus, *extra))
+        log(f"{family} {name}: " + json.dumps(
+            {k: v for k, v in runs[name].items() if k != "digest"}))
+    u, p, r, d = (runs[k]["steps"] for k in "UPRD")
+    check([s["iteration"] for s in u] == list(range(1, BT_ITERS + 1))
+          and [s["iteration"] for s in p] == [1, 2]
+          and [s["iteration"] for s in r] == list(range(3, BT_ITERS + 1)),
+          f"{family}: iterations U {[s['iteration'] for s in u]}, P "
+          f"{[s['iteration'] for s in p]}, R {[s['iteration'] for s in r]}")
+    losses = [s["lm_loss"] for s in u]
+    check(all(math.isfinite(x) for x in losses)
+          and all(s["found_inf"] == 0 for s in u + p + r + d),
+          f"{family}: losses {losses}")
+    # MLM over the true vocabulary (+ NSP's ln 2 for BERT) at random init
+    want0 = math.log(BT_VOCAB[family] + (100 if family == "t5" else 0)) + (
+        math.log(2) if family == "bert" else 0.0)
+    check(abs(losses[0] - want0) < 1.0,
+          f"{family}: first loss {losses[0]} not near {want0:.2f}")
+    # the resume: P's steps are U's, R's are U's, and R's final state is
+    # U's, bit for bit
+    for what, got, want in (("P", p, u[:2]), ("R", r, u[2:])):
+        check([(s["lm_loss"], s["grad_norm"]) for s in got]
+              == [(s["lm_loss"], s["grad_norm"]) for s in want],
+              f"{family}: {what}'s steps differ from U's: "
+              f"{[s['lm_loss'] for s in got]} vs "
+              f"{[s['lm_loss'] for s in want]}")
+    check(runs["R"]["digest"] == runs["U"]["digest"],
+          f"{family}: the resumed state differs from the uninterrupted one")
+    check(math.isfinite(d[0]["lm_loss"]) and d[0]["lm_loss"] != u[0]["lm_loss"],
+          f"{family}: the dropout run's loss {d[0]['lm_loss']} (U "
+          f"{u[0]['lm_loss']})")
+    calls = BT_ATTENTION_CALLS[family]
+    for s_ in u + p + r + d:
+        check(all(v == calls for v in s_["launches"].values()),
+              f"{family}: an iteration launched {s_['launches']}, not "
+              f"{calls} of each flash kernel")
+    totals = {k: sum(runs[n]["launches"][k] for n in runs)
+              for k in runs["U"]["launches"]}
+    norms = {k: sum(runs[n]["norm_launches"][k] for n in runs)
+             for k in runs["U"]["norm_launches"]}
+    tokens = BT_MICRO * (BT_SEQ + (BT_DEC_SEQ if family == "t5" else 0))
+    step_ms = [s["device_ms"] for s in u[1:]]
+    return dict(losses=losses, dropout_loss=d[0]["lm_loss"],
+                resumed_bit_equal=True, launches=totals,
+                norm_launches=norms, step_ms=step_ms,
+                tokens_per_s=tokens / (sum(step_ms) / len(step_ms) / 1e3),
+                run_seconds={k: v["seconds"] for k, v in runs.items()},
+                peak_gib={k: v["peak_gib"] for k, v in runs.items()},
+                card=smi)
+
+
+def bt_slice(family: str, corpus: dict) -> dict:
+    """BT_SLICE_LAYERS layers of the family's width in fp32 (TF32 off) on
+    the card (the flash kernels) and on the CPU (the plain versions), the
+    same weights and BT_SLICE_BATCH rows of the phase's dataset: the loss
+    within SLICE_TOL relative, every gradient leaf within SLICE_TOL of its
+    largest magnitude."""
+    from megatron_tpu_torch.data.indexed_dataset import MMapIndexedDataset
+    from megatron_tpu_torch.data.masked_dataset import (BertDataset,
+                                                        T5Dataset)
+    from megatron_tpu_torch.data.tokenizers import build_tokenizer
+    from megatron_tpu_torch.models import bert, t5
+    import numpy as np
+    import torch
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extra = 100 if family == "t5" else 0
+    tok = build_tokenizer("BertWordPieceLowerCase",
+                          vocab_file=corpus["vocab"], vocab_extra_ids=extra)
+    indexed = MMapIndexedDataset(corpus["data"])
+    kw = dict(num_layers=BT_SLICE_LAYERS, vocab_size=tok.vocab_size,
+              compute_dtype="float32", attention_impl="flash")
+    if family == "bert":
+        cfg, cls, loss_fn = bert.bert_config(**kw), bert.BertModel, \
+            bert.bert_loss
+        ds = BertDataset(indexed, BT_SLICE_BATCH, BT_SEQ, tok.vocab_size,
+                         cls_id=tok.cls, sep_id=tok.sep, mask_id=tok.mask,
+                         pad_id=tok.pad, seed=BT_SEED)
+    else:
+        cfg, cls, loss_fn = t5.t5_config(**kw), t5.T5Model, t5.t5_loss
+        ds = T5Dataset(indexed, BT_SLICE_BATCH, BT_SEQ, BT_DEC_SEQ,
+                       tok.vocab_size,
+                       sentinel_ids=range(tok.vocab_size - extra,
+                                          tok.vocab_size),
+                       bos_id=tok.cls, eos_id=tok.sep, pad_id=tok.pad,
+                       seed=BT_SEED)
+    items = [ds[i] for i in range(BT_SLICE_BATCH)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in items[0]}
+    card = cls(cfg, seed=BT_SEED, trainable=True)
+    cpu = cls.from_state_dict(cfg, {k: v.detach().cpu().clone() for k, v in
+                                    card.state_dict().items()},
+                              trainable=True)
+    before = fc.launch_counts()
+    got = loss_fn(card, {k: v.to(card.device) for k, v in batch.items()},
+                  cfg)
+    got.backward()
+    torch.cuda.synchronize()
+    launched = {k: fc.launch_counts()[k] - before[k] for k in before}
+    t0 = time.perf_counter()
+    want = loss_fn(cpu, batch, cfg)
+    want.backward()
+    cpu_s = time.perf_counter() - t0
+    check(all(v > 0 for v in launched.values()),
+          f"{family} slice: the card's loss launched {launched}")
+    loss_err = abs(got.item() - want.item()) / abs(want.item())
+    check(loss_err <= SLICE_TOL, f"{family} slice: loss {got.item()} vs "
+          f"{want.item()} on the CPU")
+    worst = 0.0
+    grads_cpu = dict(cpu.named_parameters())
+    for name, p_ in card.named_parameters():
+        ref = grads_cpu[name].grad
+        scale = max(ref.abs().max().item(), 1e-30)
+        err = (p_.grad.cpu() - ref).abs().max().item() / scale
+        worst = max(worst, err)
+        check(err <= SLICE_TOL, f"{family} slice: grad {name} err {err} of "
+              f"its largest magnitude (tol {SLICE_TOL})")
+    return dict(layers=BT_SLICE_LAYERS, batch=BT_SLICE_BATCH,
+                loss=got.item(), loss_cpu=want.item(), loss_rel_err=loss_err,
+                worst_grad_rel_err=worst, launches=launched, cpu_s=cpu_s)
+
+
+def phase_bert_t5(smi: str) -> dict:
+    """Phase 17: BERT-base and T5-base pretraining (see the module's note);
+    the new kernel cases of KERNEL_CASES and TRAIN_CASES ran in phase 3."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_bert_t5_")
+    stats = dict(card=smi)
+    try:
+        for family in ("bert", "t5"):
+            corpus = bt_corpus(root, family)
+            log(f"{family} corpus: {json.dumps(corpus)}")
+            t0 = time.perf_counter()
+            stats[family] = bt_family(family, corpus, root, smi)
+            stats[family]["seconds"] = time.perf_counter() - t0
+            stats[family]["corpus_s"] = corpus["seconds"]
+            log(f"{family} pretraining: " + json.dumps(stats[family]))
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            stats[f"{family}_slice"] = bt_slice(family, corpus)
+            stats[f"{family}_slice"]["seconds"] = time.perf_counter() - t0
+            log(f"{family} fp32 slice: "
+                + json.dumps(stats[f"{family}_slice"]))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats["launches"] = {k: stats["bert"]["launches"][k]
+                         + stats["t5"]["launches"][k]
+                         for k in stats["bert"]["launches"]}
+    stats["norm_launches"] = {k: stats["bert"]["norm_launches"][k]
+                              + stats["t5"]["norm_launches"][k]
+                              for k in stats["bert"]["norm_launches"]}
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8873,6 +9281,7 @@ def main(argv=None) -> int:
         struct_stats = timed("14", phase_structured_degrade, smi)
         fleet_stats = timed("15", phase_fleet, smi)
         moe_stats = timed("16", phase_moe, smi)
+        bt_stats = timed("17", phase_bert_t5, smi)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -8903,6 +9312,9 @@ def main(argv=None) -> int:
     fleet_counts = fleet_stats["launches"]
     # phase 16's drives, each counted from zero
     moe_counts = moe_stats["launches"]
+    # phase 17's entry-point runs, each counted from zero
+    bert_counts = bt_stats["bert"]["launches"]
+    t5_counts = bt_stats["t5"]["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -8932,7 +9344,9 @@ def main(argv=None) -> int:
               + lora_counts["flash_fwd"]
               + struct_counts["flash_fwd"]
               + fleet_counts["flash_fwd"]
-              + moe_counts["flash_fwd_cuda"], "fwd",
+              + moe_counts["flash_fwd_cuda"]
+              + bert_counts["flash_fwd_cuda"]
+              + t5_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -8953,6 +9367,8 @@ def main(argv=None) -> int:
                       "flash_launches"],
                   fleet=fleet_counts["flash_fwd"],
                   moe=moe_counts["flash_fwd_cuda"],
+                  pretrain_bert=bert_counts["flash_fwd_cuda"],
+                  pretrain_t5=t5_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -8973,7 +9389,9 @@ def main(argv=None) -> int:
               + pretrain_counts["flash_bwd_dq_cuda"]
               + tool_counts["flash_bwd_dq_cuda"]
               + lora_counts["flash_bwd_dq"]
-              + moe_counts["flash_bwd_dq_cuda"], "dq",
+              + moe_counts["flash_bwd_dq_cuda"]
+              + bert_counts["flash_bwd_dq_cuda"]
+              + t5_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -8982,13 +9400,17 @@ def main(argv=None) -> int:
                        pretrain=pretrain_counts["flash_bwd_dq_cuda"],
                        toolchain=tool_counts["flash_bwd_dq_cuda"],
                        lora_live=lora_counts["flash_bwd_dq"],
-                       moe=moe_counts["flash_bwd_dq_cuda"]))),
+                       moe=moe_counts["flash_bwd_dq_cuda"],
+                       pretrain_bert=bert_counts["flash_bwd_dq_cuda"],
+                       pretrain_t5=t5_counts["flash_bwd_dq_cuda"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
               + tool_counts["flash_bwd_dkv_cuda"]
               + lora_counts["flash_bwd_dkv"]
-              + moe_counts["flash_bwd_dkv_cuda"], "dkv",
+              + moe_counts["flash_bwd_dkv_cuda"]
+              + bert_counts["flash_bwd_dkv_cuda"]
+              + t5_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -9000,7 +9422,9 @@ def main(argv=None) -> int:
                        pretrain=pretrain_counts["flash_bwd_dkv_cuda"],
                        toolchain=tool_counts["flash_bwd_dkv_cuda"],
                        lora_live=lora_counts["flash_bwd_dkv"],
-                       moe=moe_counts["flash_bwd_dkv_cuda"]))),
+                       moe=moe_counts["flash_bwd_dkv_cuda"],
+                       pretrain_bert=bert_counts["flash_bwd_dkv_cuda"],
+                       pretrain_t5=t5_counts["flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
@@ -9067,7 +9491,7 @@ def main(argv=None) -> int:
                       engine_features=feature_stats,
                       front_door=front_stats, lora_live=lora_stats,
                       structured_degrade=struct_stats, fleet=fleet_stats,
-                      moe=moe_stats)
+                      moe=moe_stats, bert_t5=bt_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -12,7 +12,11 @@ activation recompute (item 2). The MoE flags (`--num_experts`,
 `--moe_top_k`, `--moe_capacity_factor`, `--moe_aux_loss_coeff`,
 `--moe_dispatch`) keep the reference's defaults.
 `--lora_rank` (with `--lora_alpha` and `--lora_export`) turns the run into
-a LoRA finetune (training/lora.py). The serving
+a LoRA finetune (training/lora.py). `--mask_prob`, `--short_seq_prob` and
+`--decoder_seq_length` feed the masked-LM datasets of pretrain_bert and
+pretrain_t5; `--decoder_num_layers` is accepted as the reference's T5
+launch lines carry it, and the decoder has `--num_layers` layers as in the
+JAX package. The serving
 flags belong to the serving entry point and are not parsed here; the
 reference's CUDA-mechanics flags are accepted and have no effect.
 """
@@ -178,6 +182,10 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    action="store_false", default=True)
     g.add_argument("--data_impl", type=str, default="mmap")
     g.add_argument("--strict_data", action="store_true")
+    # the masked-LM datasets of pretrain_bert / pretrain_t5
+    g.add_argument("--mask_prob", type=float, default=0.15,
+                   dest="masked_lm_prob")
+    g.add_argument("--short_seq_prob", type=float, default=0.1)
     g.add_argument("--train_data_path", nargs="*", default=None)
     g.add_argument("--valid_data_path", nargs="*", default=None)
     g.add_argument("--test_data_path", nargs="*", default=None)
@@ -207,6 +215,9 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                             "absolute"])
     g.add_argument("--encoder_num_layers", type=int, default=None)
     g.add_argument("--encoder_seq_length", type=int, default=None)
+    g.add_argument("--decoder_num_layers", type=int, default=None)
+    g.add_argument("--decoder_seq_length", type=int, default=128,
+                   dest="max_seq_length_dec")
     g.add_argument("--no_save_optim", action="store_true")
     g.add_argument("--no_save_rng", action="store_true")
     g.add_argument("--recompute_activations", action="store_true")

@@ -9,6 +9,9 @@ inside attention exactly as in the reference.
 `train_state_from_numpy` carries a JAX training state across: the params,
 the optimizer's mu, nu and step, the loss-scaler automaton and the
 iteration. `train_state_to_numpy` is its inverse, under the JAX names.
+Both take the model family's class (`model_cls`: LanguageModel by default,
+models/bert.py BertModel, models/t5.py T5Model) whose tree the keys and
+shapes are checked against.
 
 `load_npz_checkpoint` reads the weights of a checkpoint either package saved
 in the npz format, through the port's training/checkpointing.py: the tracker
@@ -63,11 +66,14 @@ def _take_w8(got: dict, expected: dict) -> dict:
 
 def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
                       device: DeviceLike = None,
-                      dtype: Optional[torch.dtype] = None) -> dict:
+                      dtype: Optional[torch.dtype] = None, *,
+                      model_cls=LanguageModel) -> dict:
     """The JAX parameter tree (nested dict of arrays, or the flat "a/b/c"
     keys of checkpointing._flatten) -> the port's state_dict on `device`,
     cast to `dtype` when given. Raises on a missing, extra or misshapen
-    leaf.
+    leaf. `model_cls` names the family whose tree is expected:
+    LanguageModel (GPT, Llama, Falcon, Mixtral), models.bert.BertModel or
+    models.t5.T5Model.
 
     A tree that `quantize_weights` made carries its W8 leaves (as W8
     objects, or flat ".../q" and ".../scale" keys): they come across
@@ -77,7 +83,7 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
     device = resolve_device(device)
     flat = _flatten(tree_or_flat)
     expected = {k: tuple(t.shape) for k, t in
-                LanguageModel(cfg, device="meta").state_dict().items()}
+                model_cls(cfg, device="meta").state_dict().items()}
     got = {k.replace("/", "."): v for k, v in flat.items()}
     w8 = _take_w8(got, expected)
     missing = sorted(set(expected) - set(got) - set(w8))
@@ -109,21 +115,24 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
 
 def train_state_from_numpy(params: Mapping, opt_state, iteration,
                            cfg: MegatronConfig,
-                           device: DeviceLike = None) -> TrainState:
+                           device: DeviceLike = None, *,
+                           model_cls=LanguageModel) -> TrainState:
     """A JAX training state -> the port's. `params` is the parameter tree
     (nested or flat), `opt_state` the JAX OptState or anything with its
     fields `step`, `mu`, `nu` (None for SGD) and `scaler` = (scale,
     growth_tracker, hysteresis), holding arrays; `iteration` an int or a
-    0-d array."""
+    0-d array. `model_cls` as `params_from_numpy` takes it."""
     device = resolve_device(device)
-    model = LanguageModel.from_state_dict(
-        cfg.model, params_from_numpy(params, cfg.model, device),
+    model = model_cls.from_state_dict(
+        cfg.model, params_from_numpy(params, cfg.model, device,
+                                     model_cls=model_cls),
         trainable=True)
 
     def moments(tree):
         if tree is None:
             return None
-        return params_from_numpy(tree, cfg.model, device, torch.float32)
+        return params_from_numpy(tree, cfg.model, device, torch.float32,
+                                 model_cls=model_cls)
 
     scale, tracker, hysteresis = opt_state.scaler
     scaler = ScalerState(

@@ -42,7 +42,19 @@ a multi-token verify window is undefined on a ring).
 
 The uncached (training) forward passes segment ids, and attention dropout
 with its generator, to the flash path (ops/flash_attention.py, kernels on
-the card); the dot path takes the segment mask too.
+the card); the dot path takes the segment mask too. `causal=False` makes
+the attention bidirectional (BERT's and T5's encoders), and `kv_input`
+makes it cross-attention (T5's decoder): k and v are projected from the
+encoder output, with no rotary embedding, and sq may differ from sk. Both
+take the uncached forward only.
+
+Attention dropout on either path draws one seed from the generator and
+keeps (batch, head, query, key) by the flash kernels' counter hash
+(ops/flash_attention.py `_dropout_keep`), so the dot path and the flash
+path drop the same weights for the same generator seed. The reference's
+dot path draws its mask from `jax.random`, which torch cannot reproduce;
+both apply inverted dropout to the softmax's weights, whose normalizer
+keeps the undropped sum.
 
 LoRA adapters (`adapters=`, the multi-tenant serving bank and the LoRA
 finetune) add each row's low-rank delta x @ A[idx] @ B[idx] to the q, k, v
@@ -51,8 +63,8 @@ to the activation dtype, and applied as two batched products (`torch.bmm`),
 as the reference computes them outside any Pallas kernel. The deltas join
 before the head reshape and RoPE.
 
-Left for later slices, and raising: cross-attention, attention dropout on
-the dot path, and the ring / ulysses implementations.
+Left for later slices, and raising: a cached cross-attention (T5
+inference) and the ring / ulysses implementations.
 """
 from __future__ import annotations
 
@@ -65,7 +77,9 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.rope import apply_rotary
 from megatron_tpu_torch.ops.block_attention import block_native_attention
-from megatron_tpu_torch.ops.flash_attention import flash_attention
+from megatron_tpu_torch.ops.flash_attention import (_dropout_keep,
+                                                    draw_dropout_seed,
+                                                    flash_attention)
 from megatron_tpu_torch.ops.quantized import qdense, quantize_rows, wcast
 
 
@@ -238,7 +252,8 @@ def attention_init(cfg: ModelConfig) -> dict:
 def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
                    scale: float, q_offset=0,
                    sliding_window: Optional[int] = None, segment_ids=None,
-                   kv_positions: Optional[torch.Tensor] = None):
+                   kv_positions: Optional[torch.Tensor] = None,
+                   dropout_rate: float = 0.0, dropout_seed: int = 0):
     """Unfused attention: QK^T -> mask -> softmax -> AV.
 
     q: [b, s, nq, hd]; k, v: [b, t, nkv, hd]. GQA reshapes q into
@@ -247,7 +262,8 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
     (the serving engine's slot grid). `kv_positions` is a rolling cache's
     slot -> position map, [t] shared or [b, t] per row (default: slot j
     holds position j). `segment_ids` [b, s] (s == t) masks attention
-    block-diagonally across documents."""
+    block-diagonally across documents. `dropout_rate` > 0 drops weights
+    after the softmax by the flash kernels' hash of `dropout_seed`."""
     b, s, nq, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -274,6 +290,16 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
         scores = scores.masked_fill(~same[:, None, None],
                                     torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropout_rate:
+        dev = q.device
+        heads = torch.arange(nq, device=dev).reshape(nkv, g)
+        bh = (torch.arange(b, device=dev)[:, None, None] * nq
+              + heads[None])[..., None, None]
+        keep = _dropout_keep(dropout_seed, bh,
+                             torch.arange(s, device=dev)[:, None],
+                             torch.arange(t, device=dev)[None], dropout_rate)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros_like(probs))
     out = torch.einsum("bngst,btnd->bsngd", probs, v)
     return out.reshape(b, s, nq, hd)
 
@@ -283,8 +309,9 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     kv_cache: Optional[KVCache] = None, segment_ids=None,
                     deterministic: bool = True,
                     generator: Optional[torch.Generator] = None,
-                    adapters=None):
-    """Causal self-attention. x: [b, s, h]. Returns (out [b, s, h], the
+                    adapters=None, causal: bool = True, kv_input=None):
+    """Self-attention, causal unless `causal` is False, or cross-attention
+    over `kv_input` [b, t, h]. x: [b, s, h]. Returns (out [b, s, h], the
     per-layer cache advanced by s, or None without a cache). Attention
     dropout runs when `deterministic` is False and a `generator` is given,
     as the reference runs it only with an rng. `adapters` is a (per-layer
@@ -293,13 +320,25 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     hd, nq, nkv = cfg.kv_channels, cfg.num_attention_heads, cfg.num_kv_heads
     dtype = x.dtype
+    cross = kv_input is not None
     if cfg.attention_impl not in ("flash", "dot"):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} (context parallelism) is "
             "ported with the multi-device slice")
+    if adapters is not None and cross:
+        raise ValueError("LoRA adapters apply to self-attention "
+                         "projections only; cross-attention has no adapter "
+                         "path")
+    if cfg.sliding_window is not None and (cross or not causal):
+        raise ValueError("sliding_window requires causal self-attention")
+    if kv_cache is not None and (cross or not causal):
+        raise ValueError("cross and bidirectional attention take the "
+                         "uncached forward (a cached T5 decoder is not "
+                         "ported)")
 
     q = qdense(x, wcast(params["wq"], dtype), cfg.quantized_gemm)
-    kv = qdense(x, wcast(params["wkv"], dtype), cfg.quantized_gemm)
+    kv = qdense(kv_input if cross else x, wcast(params["wkv"], dtype),
+                cfg.quantized_gemm)
     if cfg.use_bias:
         q = q + params["bq"].to(dtype)
         kv = kv + params["bkv"].to(dtype)
@@ -311,7 +350,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         # semantics
         q = q + _lora(x, lw.aq, lw.bq, aidx, dtype)
     q = q.reshape(b, s, nq, hd)
-    kv = kv.reshape(b, s, 2, nkv, hd)
+    kv = kv.reshape(b, kv.shape[1], 2, nkv, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
     if lw is not None:
         k = k + _lora(x, lw.ak, lw.bk, aidx, dtype).reshape(b, s, nkv, hd)
@@ -326,7 +365,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
             steps = torch.arange(s, device=x.device)
             position_ids = (offset.long()[:, None] + steps[None] if per_slot
                             else (offset + steps).expand(b, s))
-    if cfg.use_rotary_emb:
+    if cfg.use_rotary_emb and not cross:
         if rope_cos is None or rope_sin is None:
             raise ValueError("cfg.use_rotary_emb=True requires rope_cos/"
                              "rope_sin tables (language_model.make_rope)")
@@ -340,10 +379,6 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     if kv_cache is not None and (segment_ids is not None or dropout_rate):
         raise ValueError("segment ids and attention dropout take the "
                          "uncached (training) forward")
-    if dropout_rate and cfg.attention_impl != "flash":
-        raise NotImplementedError(
-            "attention dropout on the dot path is ported with the dropout "
-            "module in a later slice; the flash path carries it")
     rolling = (kv_cache is not None and window is not None
                and kv_cache.k.shape[-3] == window)
     if isinstance(kv_cache, BlockKVCache):
@@ -431,17 +466,19 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 kv_positions=kv_positions)
     else:
         new_cache = None
+        seed = draw_dropout_seed(generator) if dropout_rate else 0
         if cfg.attention_impl == "flash":
-            out = flash_attention(q, k, v, causal=True, scale=scale,
+            out = flash_attention(q, k, v, causal=causal, scale=scale,
                                   sliding_window=window,
                                   segment_ids=segment_ids,
                                   dropout_rate=dropout_rate,
-                                  generator=generator)
+                                  dropout_seed=seed)
         else:
             out = _dot_attention(
-                q, k, v, causal=True,
+                q, k, v, causal=causal,
                 softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
-                sliding_window=window, segment_ids=segment_ids)
+                sliding_window=window, segment_ids=segment_ids,
+                dropout_rate=dropout_rate, dropout_seed=seed)
 
     out = out.reshape(b, s, nq * hd)
     proj = qdense(out, wcast(params["wo"], dtype), cfg.quantized_gemm)

@@ -22,6 +22,7 @@ from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
 from megatron_tpu_torch.models.rope import precompute_freqs
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.ops.dropout import dropout
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -44,7 +45,74 @@ def model_init(cfg: ModelConfig) -> dict:
     return specs
 
 
-class LanguageModel(nn.Module):
+def param_maker(cfg: ModelConfig, device: DeviceLike,
+                dtype: Optional[torch.dtype], seed: int, trainable: bool):
+    """spec (shape, init) -> nn.Parameter on `device` (the current CUDA
+    device when None) in `dtype` (cfg.params_dtype when None), drawn in
+    call order from one generator seeded with `seed`; empty on "meta"."""
+    device = resolve_device(device)
+    dtype = dtype or as_dtype(cfg.params_dtype)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
+
+    def make(spec):
+        shape, (kind, value) = spec
+        if gen is None:
+            t = torch.empty(shape, dtype=dtype, device=device)
+        elif kind == "normal":
+            t = torch.randn(shape, generator=gen, dtype=dtype,
+                            device=device).mul_(value)
+        else:
+            t = torch.full(shape, value, dtype=dtype, device=device)
+        return nn.Parameter(t, requires_grad=trainable)
+    return make
+
+
+class ParamTree(nn.Module):
+    """A parameter tree node whose children are parameters and subtrees
+    alike (BERT's lm_head holds dense/, norm/ and a bias leaf), indexed as
+    a dict; `named_parameters` gives the tree's "a.b.c" paths."""
+
+    def __init__(self, children: dict):
+        super().__init__()
+        self._keys = list(children)
+        for k, v in children.items():
+            if isinstance(v, nn.Parameter):
+                self.register_parameter(k, v)
+            else:
+                self.add_module(k, v)
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._keys
+
+    def keys(self):
+        return list(self._keys)
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]
+
+    def values(self):
+        return [self[k] for k in self._keys]
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+
+def build_param_tree(specs: dict, make) -> dict:
+    """Nested specs -> the children of a ParamTree: `make(spec)` leaves and
+    ParamTree subtrees, made in spec order."""
+    return {k: make(v) if isinstance(v, tuple)
+            else ParamTree(build_param_tree(v, make))
+            for k, v in specs.items()}
+
+
+class LanguageModel(ParamTree):
     """The reference's parameter tree as a module.
 
     Weights are drawn from a `torch.Generator` seeded with `seed`, on
@@ -53,37 +121,15 @@ class LanguageModel(nn.Module):
     allocated, for loading a state_dict with `assign=True`. Parameters
     require grad only when `trainable`: serving builds frozen models."""
 
+    stacked_prefixes = ("transformer.",)
+
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
                  trainable: bool = False):
-        super().__init__()
+        super().__init__(build_param_tree(
+            model_init(cfg), param_maker(cfg, device, dtype, seed,
+                                         trainable)))
         self.cfg = cfg
-        device = resolve_device(device)
-        dtype = dtype or as_dtype(cfg.params_dtype)
-        gen = (None if device.type == "meta"
-               else torch.Generator(device=device).manual_seed(seed))
-
-        def make(spec):
-            shape, (kind, value) = spec
-            if gen is None:
-                t = torch.empty(shape, dtype=dtype, device=device)
-            elif kind == "normal":
-                t = torch.randn(shape, generator=gen, dtype=dtype,
-                                device=device).mul_(value)
-            else:
-                t = torch.full(shape, value, dtype=dtype, device=device)
-            return nn.Parameter(t, requires_grad=trainable)
-
-        def module(tree):
-            if all(isinstance(v, tuple) for v in tree.values()):
-                return nn.ParameterDict({k: make(v) for k, v in tree.items()})
-            return nn.ModuleDict({k: module(v) for k, v in tree.items()})
-
-        specs = model_init(cfg)
-        self.embedding = module(specs["embedding"])
-        self.transformer = module(specs["transformer"])
-        self.final_norm = module(specs["final_norm"])
-        self.lm_head = make(specs["lm_head"]) if "lm_head" in specs else None
 
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig, state_dict: dict, *,
@@ -99,11 +145,7 @@ class LanguageModel(nn.Module):
 
     def tree(self) -> dict:
         """The parameter tree in the reference's nesting."""
-        t = {"embedding": self.embedding, "transformer": self.transformer,
-             "final_norm": self.final_norm}
-        if self.lm_head is not None:
-            t["lm_head"] = self.lm_head
-        return t
+        return dict(self.items())
 
     def forward(self, tokens, **kwargs):
         return model_forward(self, tokens, self.cfg, **kwargs)
@@ -170,7 +212,8 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions continue from the cache offset and the caches are written in
     place.
     `segment_ids` [b, s] mask attention across documents; with
-    `deterministic` False, `generator` seeds attention dropout.
+    `deterministic` False, `generator` seeds the embedding's and the
+    stack's dropout.
     `adapters` is (a stacked LoraAdapter bank, adapter_idx int [b]): each
     row adds its adapter's low-rank deltas to the attention projections."""
     params = _tree(params)
@@ -190,6 +233,8 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             compute_dtype)
     if rope is None:
         rope = make_rope(cfg, device=tokens.device)
+    if not deterministic:
+        x = dropout(generator, x, cfg.hidden_dropout)
     x, kv_caches, aux = tfm.stack_apply(
         params["transformer"], x, cfg,
         rope_cos=rope.cos if rope else None,

@@ -157,7 +157,7 @@ def quantize_weights(params) -> dict:
         params = params.tree()
 
     def walk(name, node):
-        if hasattr(node, "items"):  # dicts, ModuleDict, ParameterDict
+        if hasattr(node, "items"):  # dicts and ParamTree subtrees
             if "router" in node:  # the expert bank, untouched
                 return dict(node.items())
             return {k: walk(k, v) for k, v in node.items()}

@@ -1,16 +1,20 @@
-"""A synthetic corpus for the pretraining path: a GPT-2 byte-level BPE
-vocabulary of a chosen size and a jsonl of random documents, both from a
-seed. `chip_smoke.py` and the tests preprocess it with
-tools/preprocess_data.py and train on it.
+"""A synthetic corpus for the pretraining path: a vocabulary of a chosen
+size and a jsonl of random documents, both from a seed. `chip_smoke.py`
+and the tests preprocess it with tools/preprocess_data.py and train on it.
 
-The vocabulary holds the 256 byte tokens, merges of lowercase letters in
-rank order (a leading space "Ġ" + letter, letter pairs, space + pair,
-triples, ...) up to the size, and `<|endoftext|>` last; `merges.txt`
-matches it. Documents are words of a fixed random lexicon drawn with
-Zipf-like frequencies, with punctuation and numbers between them.
+The GPT-2 byte-level BPE vocabulary (the default) holds the 256 byte
+tokens, merges of lowercase letters in rank order (a leading space "Ġ" +
+letter, letter pairs, space + pair, triples, ...) up to the size, and
+`<|endoftext|>` last; `merges.txt` matches it. The WordPiece vocabulary
+(`--wordpiece`, for BERT and T5) is a BERT vocab.txt: [PAD] [UNK] [CLS]
+[SEP] [MASK], the digits and the punctuation the documents use, then word
+pieces of growing length, each followed by its "##" continuation (a, ##a,
+b, ##b, ..., aa, ##aa, ...), up to the size. Documents are words of a
+fixed random lexicon drawn with Zipf-like frequencies, with punctuation
+and numbers between them.
 
   python -m megatron_tpu_torch.tools.synthetic_corpus --out DIR \\
-      --vocab_size 32000 --docs 300 --seed 0
+      --vocab_size 32000 --docs 300 --seed 0 [--wordpiece]
 """
 from __future__ import annotations
 
@@ -74,6 +78,42 @@ def write_gpt2_vocab(out_dir: str, vocab_size: int = 32000) -> tuple:
     return vocab_file, merge_file
 
 
+WORDPIECE_SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+
+def _word_pieces():
+    """Word pieces in order, without end: the digits and the documents'
+    punctuation, each digit's and letter's "##" continuation, the letters,
+    then letter strings of growing length, each followed by its "##"
+    continuation."""
+    yield from string.digits
+    yield from ".,"
+    for c in string.digits + string.ascii_lowercase:
+        if c in string.ascii_lowercase:
+            yield c
+        yield "##" + c
+    for n in itertools.count(2):
+        for letters in itertools.product(string.ascii_lowercase, repeat=n):
+            word = "".join(letters)
+            yield word
+            yield "##" + word
+
+
+def write_wordpiece_vocab(out_dir: str, vocab_size: int = 30522) -> str:
+    """Write a BERT vocab.txt of exactly `vocab_size` entries under
+    `out_dir`; returns its path."""
+    if vocab_size < len(WORDPIECE_SPECIALS):
+        raise ValueError(f"vocab_size {vocab_size} below the "
+                         f"{len(WORDPIECE_SPECIALS)} special tokens")
+    tokens = WORDPIECE_SPECIALS + list(itertools.islice(
+        _word_pieces(), vocab_size - len(WORDPIECE_SPECIALS)))
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "vocab.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(t + "\n" for t in tokens)
+    return path
+
+
 def random_documents(n_docs: int, seed: int, min_words: int = 50,
                      max_words: int = 600, lexicon: int = 4000) -> list:
     """`n_docs` texts of min_words..max_words words each."""
@@ -114,8 +154,14 @@ def main(argv=None) -> int:
     p.add_argument("--vocab_size", type=int, default=32000)
     p.add_argument("--docs", type=int, default=300)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--wordpiece", action="store_true",
+                   help="write a BERT WordPiece vocab.txt instead of the "
+                        "GPT-2 vocab.json and merges.txt")
     args = p.parse_args(argv)
-    write_gpt2_vocab(args.out, args.vocab_size)
+    if args.wordpiece:
+        write_wordpiece_vocab(args.out, args.vocab_size)
+    else:
+        write_gpt2_vocab(args.out, args.vocab_size)
     write_jsonl(os.path.join(args.out, "corpus.jsonl"), args.docs,
                 args.seed)
     return 0

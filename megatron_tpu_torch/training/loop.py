@@ -204,15 +204,24 @@ def training_log(metrics: dict, iteration: int, consumed_samples: int,
     return line
 
 
-def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None):
+def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
+                    loss_fn=None):
     """The evaluation loss of a batch, as the reference's eval step: the
     mean over microbatches of the masked-mean lm loss, deterministic, with
-    no position or segment ids. Returns a device scalar."""
+    no position or segment ids; or of `loss_fn(params, mb, None)` (the
+    BERT and T5 entry points' loss). Returns a device scalar."""
     device = resolve_device(device)
     rope = lm.make_rope(cfg.model, device=device)
 
     @torch.no_grad()
     def eval_step(params, batch: dict) -> torch.Tensor:
+        if loss_fn is not None:
+            n_micro = next(iter(batch.values())).shape[0]
+            total = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(n_micro):
+                total += loss_fn(params, {k: v[i] for k, v in batch.items()},
+                                 None)
+            return total / n_micro
         tokens = batch["tokens"]
         n_micro = tokens.shape[0]
         mask = batch.get("loss_mask")
@@ -293,6 +302,7 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
           load_fn: Optional[Callable] = None,
           reset_data_fn: Optional[Callable] = None,
           quarantine_log: Optional[list] = None,
+          step_kwargs: Optional[dict] = None,
           device: DeviceLike = None):
     """The `_train` loop on `device` (the current CUDA device when None;
     raises without one). `train_iterator` yields numpy batches
@@ -306,7 +316,9 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
     when the divergence guard orders a rollback (without it a breach raises
     TrainingDivergedError); `reset_data_fn(consumed_samples, rollbacks,
     data_state=) -> iterator` rebuilds the stream at the checkpoint's
-    position."""
+    position. `step_kwargs` goes to make_train_step (`loss_fn`: the BERT
+    and T5 entry points' loss), and its `loss_fn` also makes the
+    evaluation loss."""
     device = resolve_device(device)
     res = cfg.resilience.validate()
     tr = cfg.training
@@ -321,9 +333,10 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
     writer = make_writer(tr.tensorboard_dir, use_wandb=tr.wandb_logger,
                          **wandb_kwargs)
     seed = tr.seed if seed is None else seed
+    step_kwargs = dict(step_kwargs or {})
     if state is None:
         state = init_train_state(cfg, seed=seed, device=device)
-    step_fn = make_train_step(cfg, device=device)
+    step_fn = make_train_step(cfg, device=device, **step_kwargs)
     calc = MicrobatchCalculator(tr.global_batch_size or tr.micro_batch_size,
                                 tr.micro_batch_size, 1, tr.rampup_batch_size)
 
@@ -586,7 +599,8 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
 
             if eval_due:
                 if eval_step_fn is None:
-                    eval_step_fn = _make_eval_step(cfg, device)
+                    eval_step_fn = _make_eval_step(
+                        cfg, device, loss_fn=step_kwargs.get("loss_fn"))
                 with (watchdog.suspend() if watchdog is not None
                       else contextlib.nullcontext()):
                     results = evaluate(state, valid_iterator, eval_step_fn,

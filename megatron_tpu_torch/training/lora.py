@@ -75,7 +75,7 @@ def lora_adapters(factors: Dict[str, torch.Tensor], rank: int,
 
 
 def _plain(node) -> dict:
-    """A ModuleDict/ParameterDict subtree as nested plain dicts."""
+    """A ParamTree subtree as nested plain dicts."""
     if isinstance(node, torch.Tensor):
         return node
     return {k: _plain(v) for k, v in node.items()}

@@ -82,18 +82,22 @@ def init_optimizer(params: Mapping[str, torch.Tensor], cfg: OptimizerConfig,
                     scaler=init_scaler(cfg, compute_dtype, device))
 
 
-def weight_decay_mask(params: Mapping[str, torch.Tensor]) -> dict:
+def weight_decay_mask(params: Mapping[str, torch.Tensor],
+                      stacked=(STACKED_PREFIX,)) -> dict:
     """name -> True where weight decay applies: named biases and norm
     parameters never, otherwise leaves that are >= 2-D per layer. The
-    leading [num_layers] dim of the stacked transformer leaves does not
-    count, so a stacked norm scale [L, h] stays exempt."""
+    leading [num_layers] dim of the stacked leaves (names starting with a
+    prefix of `stacked`: a LanguageModel's transformer, T5's encoder and
+    decoder) does not count, so a stacked norm scale [L, h] stays
+    exempt."""
+    prefixes = tuple(stacked)
     mask = {}
     for name, p in params.items():
         if name.rsplit(".", 1)[-1] in _NO_DECAY_NAMES:
             mask[name] = False
         else:
-            stacked = name.startswith(STACKED_PREFIX)
-            mask[name] = p.dim() - (1 if stacked else 0) >= 2
+            mask[name] = p.dim() - (1 if name.startswith(prefixes)
+                                    else 0) >= 2
     return mask
 
 

@@ -12,8 +12,16 @@ its metrics are device tensors, except lr and wd, which the host knows.
 `make_train_step(cfg)` returns `step(state, batch, generator=None) ->
 (state, metrics)`. The batch is a dict of tensors with a leading
 microbatch dim: "tokens" [n_micro, b, s+1] and optionally "loss_mask"
-[n_micro, b, s], "position_ids" and "segment_ids" [n_micro, b, s]. A mesh,
-a custom loss and the pipelined steps belong to later slices and raise.
+[n_micro, b, s], "position_ids" and "segment_ids" [n_micro, b, s].
+
+A custom loss (`make_train_step(cfg, loss_fn=...)`, the BERT and T5 entry
+points) takes each microbatch's slice of every batch entry instead:
+`loss_fn(model, mb, generator)` returns the microbatch's scalar loss and
+decides itself whether dropout runs. The state's model is then any module
+whose parameters carry the JAX tree's names (models/bert.py BertModel,
+models/t5.py T5Model), and the weight-decay mask comes from that module:
+its `stacked_prefixes` name the stacked [L, ...] leaves. A mesh and the
+pipelined steps belong to the multi-device slice and raise.
 """
 from __future__ import annotations
 
@@ -38,17 +46,27 @@ SPAN_OPTIMIZER = "train_step.optimizer"
 
 @dataclass
 class TrainState:
-    params: lm.LanguageModel  # fp32 master weights, trainable
+    # fp32 master weights, trainable: a LanguageModel, or another family's
+    # module under the JAX tree's names
+    params: torch.nn.Module
     opt_state: opt.OptState
     iteration: int  # completed iterations, skipped ones included
 
 
-def named_params(model: lm.LanguageModel) -> dict:
+def named_params(model: torch.nn.Module) -> dict:
     """name -> parameter, under the state_dict names."""
     return dict(model.named_parameters())
 
 
-def state_from_params(params: lm.LanguageModel,
+def weight_decay_mask(model: torch.nn.Module) -> dict:
+    """The optimizer's weight-decay mask of a model: the leaves under its
+    `stacked_prefixes` (a LanguageModel's "transformer.") carry a layers
+    dim that does not count toward the >= 2-D rule."""
+    return opt.weight_decay_mask(dict(model.state_dict()),
+                                 stacked=model.stacked_prefixes)
+
+
+def state_from_params(params: torch.nn.Module,
                       cfg: MegatronConfig) -> TrainState:
     """A fresh TrainState around a model: its parameters become trainable
     and fp16 compute seeds the dynamic loss scaler."""
@@ -73,26 +91,30 @@ def init_train_state(cfg: MegatronConfig, *, seed: int = 0,
 def train_step(state: TrainState, batch: dict,
                generator: Optional[torch.Generator] = None, *,
                cfg: MegatronConfig, rope: Optional[lm.RopeTables] = None,
-               wd_mask: Optional[dict] = None):
+               wd_mask: Optional[dict] = None, loss_fn=None):
     """One iteration over the batch's microbatches. Returns (state, updated
-    in place, metrics)."""
+    in place, metrics). `loss_fn(model, mb, generator)`, when given,
+    replaces the LM loss on each microbatch slice `mb` of the batch."""
     mcfg = cfg.model
     model = state.params
     params = named_params(model)
-    tokens = batch["tokens"]
-    n_micro = tokens.shape[0]
+    # any entry's leading dim is the microbatch count (T5's batch has no
+    # "tokens")
+    n_micro = next(iter(batch.values())).shape[0]
     scale = state.opt_state.scaler.scale
-    if rope is None:
-        rope = lm.make_rope(mcfg, device=model.device)
-    deterministic = (mcfg.hidden_dropout == 0.0
-                     and mcfg.attention_dropout == 0.0)
-    if not deterministic and generator is None:
-        raise ValueError("train_step: dropout needs a generator")
-    loss_mask = batch.get("loss_mask")
-    if loss_mask is None:
-        loss_mask = torch.ones(tokens.shape[0], tokens.shape[1],
-                               tokens.shape[2] - 1, dtype=torch.float32,
-                               device=tokens.device)
+    if loss_fn is None:
+        tokens = batch["tokens"]
+        if rope is None:
+            rope = lm.make_rope(mcfg, device=model.device)
+        deterministic = (mcfg.hidden_dropout == 0.0
+                         and mcfg.attention_dropout == 0.0)
+        if not deterministic and generator is None:
+            raise ValueError("train_step: dropout needs a generator")
+        loss_mask = batch.get("loss_mask")
+        if loss_mask is None:
+            loss_mask = torch.ones(tokens.shape[0], tokens.shape[1],
+                                   tokens.shape[2] - 1, dtype=torch.float32,
+                                   device=tokens.device)
 
     for p in params.values():
         p.grad = None
@@ -102,12 +124,16 @@ def train_step(state: TrainState, batch: dict,
             def part(key):
                 t = batch.get(key)
                 return None if t is None else t[i]
-            loss = lm.loss_fn(model, tokens[i], mcfg,
-                              loss_mask=loss_mask[i], rope=rope,
-                              generator=generator,
-                              deterministic=deterministic,
-                              position_ids=part("position_ids"),
-                              segment_ids=part("segment_ids"))
+            if loss_fn is not None:
+                loss = loss_fn(model, {k: v[i] for k, v in batch.items()},
+                               generator)
+            else:
+                loss = lm.loss_fn(model, tokens[i], mcfg,
+                                  loss_mask=loss_mask[i], rope=rope,
+                                  generator=generator,
+                                  deterministic=deterministic,
+                                  position_ids=part("position_ids"),
+                                  segment_ids=part("segment_ids"))
             (loss * scale / n_micro).backward()
             loss_sum += loss.detach()
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -138,18 +164,20 @@ def _finish_step(state: TrainState, grads: dict, loss: torch.Tensor,
 
 
 def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
-                    pipelined_spec=None, pipelined_loss_fn=None,
-                    device: DeviceLike = None):
+                    init_params_fn=None, pipelined_spec=None,
+                    pipelined_loss_fn=None, device: DeviceLike = None):
     """The training step of `cfg` on `device` (the current CUDA device when
     None; raises without one): `step(state, batch, generator=None) ->
-    (state, metrics)`, updating the state in place."""
+    (state, metrics)`, updating the state in place. `loss_fn(model, mb,
+    generator)` replaces the LM loss (see the module's note). The
+    reference's `init_params_fn` gives its weight-decay mask the model's
+    tree; the port reads the mask off the state's module, so the keyword
+    is accepted, for the reference's signature, and ignored."""
+    del init_params_fn
     if mesh is not None:
         raise NotImplementedError("make_train_step: a mesh (tensor, "
                                   "pipeline, data parallelism) is ported "
                                   "with the multi-device slice")
-    if loss_fn is not None:
-        raise NotImplementedError("make_train_step: custom losses (BERT, "
-                                  "T5, ...) are ported with their models")
     if pipelined_spec is not None or pipelined_loss_fn is not None:
         raise NotImplementedError("make_train_step: pipelined steps are "
                                   "ported with the multi-device slice")
@@ -157,16 +185,19 @@ def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
         raise NotImplementedError("make_train_step: the port trains fp32 "
                                   "master weights (params_dtype float32)")
     device = resolve_device(device)
-    rope = lm.make_rope(cfg.model, device=device)
-    meta = lm.LanguageModel(cfg.model, device="meta")
-    wd_mask = opt.weight_decay_mask(dict(meta.state_dict()))
+    rope = (None if loss_fn is not None
+            else lm.make_rope(cfg.model, device=device))
+    masks: dict = {}
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
         if state.params.device != device:
             raise ValueError(f"train step built for {device}, state on "
                              f"{state.params.device}")
+        family = type(state.params)
+        if family not in masks:
+            masks[family] = weight_decay_mask(state.params)
         return train_step(state, batch, generator, cfg=cfg, rope=rope,
-                          wd_mask=wd_mask)
+                          wd_mask=masks[family], loss_fn=loss_fn)
 
     return step

@@ -132,7 +132,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/router.py", "tools/chaos_common.py",
                    "tools/chaos_router.py", "serving/remote.py",
                    "tools/chaos_fleet.py", "tools/serving_bench.py",
-                   "models/moe.py"):
+                   "models/moe.py", *PRETRAINING):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
@@ -142,6 +142,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                "safetensors", "tokenizers", "sentencepiece",
                                "regex"), f"{path}: imports {mod}"
 
+
+# the BERT and T5 pretraining slice
+PRETRAINING = ("ops/dropout.py", "models/bert.py", "models/t5.py",
+               "data/masked_dataset.py", "training/pretrain.py",
+               "pretrain_bert.py", "pretrain_t5.py")
 
 FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
               "serving/request.py", "serving/metrics.py",
@@ -156,6 +161,16 @@ def test_front_door_modules_import_no_jax(module):
     """The front door's modules, imported in a fresh interpreter, load
     neither jax nor the JAX package (directly or through what they
     import)."""
+    _assert_imports_no_jax(module)
+
+
+@pytest.mark.parametrize("module", PRETRAINING)
+def test_pretraining_modules_import_no_jax(module):
+    """The same for the BERT and T5 pretraining slice's modules."""
+    _assert_imports_no_jax(module)
+
+
+def _assert_imports_no_jax(module):
     import subprocess
     import sys
     name = "megatron_tpu_torch." + module[:-3].replace("/", ".")
