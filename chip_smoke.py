@@ -49,8 +49,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    launch the flash kernel at least once per layer. A 2-layer slice of the
    same width checks the flash path's logits against the kernel-free dot
    path in fp32. Prefill time, decode tokens/s and peak memory are printed;
-5. engine main path: the same model behind MegatronServer's continuous-
-   batching engine route (ENGINE_SERVING: 8 slots, 2048 positions,
+5. engine main path: the same width at ENGINE_LAYERS of its 32 layers
+   behind MegatronServer's continuous-batching engine route (ENGINE_SERVING: 8 slots, 2048 positions,
    16-token blocks, the block kernel), 16 concurrent requests from 16
    threads, an empty payload and a /metrics read (`phase_engine`). Every
    request must return 200 with finite logprobs; counts zeroed just before
@@ -61,7 +61,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    of greedy requests equal to the serial route are printed. A 2-layer fp32
    slice checks that the block-native engine, the whole-region engine and
    the serial route give the same greedy tokens;
-6. int8 serving: Llama-2-7B at full width and depth with int8-resident
+6. int8 serving: Llama-2-7B at full width and ENGINE_LAYERS layers with
+   int8-resident
    weights (`quantize_weights` of the random bf16 weights) behind the
    engine route with an int8 block pool (INT8_SERVING), 12 concurrent
    requests (`phase_int8`). Every request must return 200 with finite
@@ -69,8 +70,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    the int8 arena with its scales, and the flash forward 0 times (an int8
    cache prefills on the dot path). Tokens/s, TTFT p50/p99, inter-token
    p50, peak memory and the weight and pool bytes are printed. Then the
-   ported tools/bench_decode.py at Llama-2-7B's width (batch 8, prompt
-   512, 16 new tokens), all four arms; and a 2-layer fp32 slice where the
+   ported tools/bench_decode.py at Llama-2-7B's width and ENGINE_LAYERS
+   layers (batch 8, prompt 512, 16 new tokens), all four arms; and a 2-layer fp32 slice where the
    int8-KV engine gives the same greedy tokens as the int8-KV serial route,
    the W8 + int8-KV engine's logprobs agree with its tokens fed through the
    serial route (every generated token, W8_LOGPROB_TOL) while two faults
@@ -216,7 +217,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    CheckpointWatcher.poll_once under load gives the serial N before it and
    N+1 after; a corrupt publish is refused once and not retried.
 14. Structured output, n-best fan-out and the brownout ladder
-   (`phase_structured_degrade`): Llama-2-7B at full width and depth, 8
+   (`phase_structured_degrade`): Llama-2-7B at full width and
+   STRUCT_LAYERS of its 32 layers, 8
    slots, 16-token blocks, the block kernel, each request prefilled alone,
    grammars over the byte-level identity table of 32,000 tokens (the
    TokenFSM compile seconds printed). (a) tools/bench_structured.py's free
@@ -224,7 +226,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    grammar: every completion FSM-legal and parsed, `mask_uploads` against
    the decode steps, tokens/s, TTFT and inter-token p50 of each arm, the
    block kernel held on the live masked grid. (b) an n=4 fan-out on an
-   unseen prompt: its flash launches one prefill's (32), 3 alias hits, the
+   unseen prompt: its flash launches one prefill's (one a layer), 3 alias hits, the
    pool's books back to baseline, each sample equal to its n=1 twin (run on
    a second engine over the same weights). (c) constrained requests on a
    speculative engine: masked verify rounds at w 5, the block kernel held
@@ -301,12 +303,46 @@ Phases, each fatal on failure (exit code 1, no result line):
    same weights and 4 rows of the phase's data: loss and every gradient
    leaf within SLICE_TOL. The new kernel paths (non-causal with pad
    segments, cross-attention at sq 128 / sk 512 in bf16 and fp32, the
-   decoder at s 128) are KERNEL_CASES' and TRAIN_CASES' last cases, run in
+   decoder at s 128) are KERNEL_CASES' and TRAIN_CASES' cases, run in
    phase 3.
+18. The BERT heads and the retriever (`phase_retrieval_tasks`) at
+   BERT-base's full width and depth, bf16 compute, fp32 Adam, flash
+   attention, random weights from RT_SEED, on files the phase writes in
+   the published layouts (a WordPiece vocabulary, a sentence-split corpus
+   with titles through the port's indexed-dataset builder, MNLI TSVs, RACE
+   json lines, a DPR evidence TSV, NQ questions and DPR json). (a)
+   `pretrain_ict.main`: 3 iterations at seq 256, micro-batch 32, ict_head
+   128 (each flash kernel 24 times a step, two towers), one params-only
+   checkpoint; the first loss beside ln 32; then U, P (save at 2, exit)
+   and R (resume) on a 2-layer fp32 slice with shared towers, R's final
+   state U's bit for bit. (b) `tasks.main` MNLI (seq 128, micro-batch 32)
+   and RACE (seq 384, micro-batch 8 x 4 choices), one epoch. (c)
+   `create_doc_index` over RT_PASSAGES passages from (a)'s checkpoint
+   (passages/s), the store within one fp16 step of a batch-by-batch
+   `embed_text` pass, then `tasks.main --task NQ` (top-1/5/20/100). (d)
+   `MIPSIndex` over 21,015,324 x 128 fp32 embeddings made on the card,
+   3,610 queries for the top 100, timed against its bound; 64 queries over
+   the first 1,048,576 rows against a float64 numpy top-100. (e)
+   `tasks.main --task RET-FINETUNE-NQ` from (a)'s checkpoint. (f) a
+   2-layer fp32 slice: the classification, multiple-choice and retrieval
+   losses through the kernels against the dot path. The padded kernel
+   cases `ict_query_pad` and `race_mc_pad` run in phase 3.
+
+Phases 1-3b run alone on the card, so that the kernels' times are the
+card's own. Then phases 4-18 run in two lanes at once, each phase in the
+order above within its lane: this process runs LANE_A, and a second
+process (`chip_smoke.py --lane ...`, started here and stopped with its own
+processes however the run ends) runs LANE_B, whose lines come through here
+prefixed `lane B | `. The phases' host work (servers, conversions,
+checkpoint I/O, process starts) is most of their time and the card idles
+through most of it, so the lanes share it; the phases that hold most of the
+card's memory (7, 15 and 16) run one after another in LANE_B, and LANE_A's
+phases hold less than the rest. The serving and training rates the phases
+print are taken beside the other lane's work.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-17
+the norm kernels' on every path above, the flash kernels' on phases 8-18
 too, the block kernel's on phases 9, 11-16 too, its verify rounds at
 w 5 on phases 11, 13 and 14; phase 15's counts are the replica processes'
 whole lives) and, last, {"ok": true, "device": ...}.
@@ -344,9 +380,23 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
               "torch.int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
+# phases 4-18 in two lanes at once (the module's docstring): the seconds
+# each took alone on one host (a slower one than most) balance them,
+# 508 s against 520 s
+LANE_A = ("4", "5", "6", "8", "9", "12", "13")
+LANE_B = ("15", "16", "7", "10", "11", "14", "17", "18")
+# the most a phase waits for the other lane to give back card memory
+LANE_MEMORY_WAIT_S = 900.0
+
+# phase 18's padded batches: ICT's one-sentence queries padded to 256
+# tokens (32 a batch), and RACE's 8 questions x 4 choices at 384 tokens
+ICT_QUERY_PAD = ("pad", 8, 64)
+RACE_MC_PAD = ("pad", 150, 384)
+
 # (label, b, sq, sk, nq, nkv, d, dtype name, causal, sliding_window,
 # segments: None, or "pad" for BERT's pad isolation over ragged real
-# lengths, PAD_LENGTHS). The first three are the prefills the main path
+# lengths, PAD_LENGTHS, or ("pad", first, last) over lengths first..last).
+# The first three are the prefills the main path
 # runs: request (a) at b 1, s 512;
 # request (b) at b 3, s 32 (its shortest prompt, 37, rounded down to the
 # prefill bucket); request (d)'s beam search at b 4, s 24. s 129 and s 255
@@ -356,11 +406,13 @@ PEAK_BYTES = 3.35e12
 # rolling prefill (a 4608-token prompt past a 4096 window);
 # mixtral_prefill_s1000 is phase 16's longest engine prompt at Mixtral's
 # 32/8 heads, with no window. The bench_ cases are tools/bench_kernels.py's
-# flash shapes (FLASH_SHAPES), which the bench_kernels path launches. The
-# last four are phase 17's attention at BERT-base's and T5-base's widths
-# (12/12 heads of 64, micro-batch 8): the bidirectional encoder with pad
+# flash shapes (FLASH_SHAPES), which the bench_kernels path launches. Then
+# four of phase 17's attention at BERT-base's and T5-base's widths (12/12
+# heads of 64, micro-batch 8): the bidirectional encoder with pad
 # segments, T5's cross-attention (128 decoder queries over 512 encoder
-# keys, no segment ids) in bf16 and fp32, and its causal decoder.
+# keys, no segment ids) in bf16 and fp32, and its causal decoder; and two
+# of phase 18's: ICT's one-sentence queries padded to 256 tokens (32 a
+# batch) and RACE's 8 x 4 choices at 384 tokens.
 KERNEL_CASES = [
     ("llama2_7b_prefill", 1, 512, 512, 32, 32, 128, "bfloat16", True, None,
      None),
@@ -397,6 +449,10 @@ KERNEL_CASES = [
     ("t5_cross_fp32", 8, 128, 512, 12, 12, 64, "float32", False, None,
      None),
     ("t5_dec_self", 8, 128, 128, 12, 12, 64, "bfloat16", True, None, None),
+    ("ict_query_pad", 32, 256, 256, 12, 12, 64, "bfloat16", False, None,
+     ICT_QUERY_PAD),
+    ("race_mc_pad", 32, 384, 384, 12, 12, 64, "bfloat16", False, None,
+     RACE_MC_PAD),
 ]
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}  # (out, lse)
 # the real lengths of a "pad" case's rows run evenly from the first to the
@@ -417,9 +473,10 @@ WINDOW_SHAPE = "mistral_window_prefill"
 # with a window; falcon7b_mqa_extra_train holds the d 64 EXTRA
 # instantiations (segment ids and dropout), the dK/dV head split of MQA
 # and a ragged tail (1000 rows) in one case; mixtral_train_s4096 is phase
-# 16's training call (Mixtral-8x7B's 32/8 heads, s 4096); the last four
-# are phase 17's (BERT-base's padded encoder, T5-base's cross-attention in
-# bf16 and fp32 and its decoder self-attention, micro-batch 8).
+# 16's training call (Mixtral-8x7B's 32/8 heads, s 4096); then four of
+# phase 17's (BERT-base's padded encoder, T5-base's cross-attention in
+# bf16 and fp32 and its decoder self-attention, micro-batch 8) and two of
+# phase 18's (ICT's padded queries, RACE's padded choices).
 TRAIN_CASES = [
     ("llama2_7b_train", 1, 4096, 4096, 32, 32, 128, "bfloat16", True, None,
      False, 0.0, False),
@@ -451,6 +508,10 @@ TRAIN_CASES = [
      False, 0.0, False),
     ("t5_dec_self_train", 8, 128, 128, 12, 12, 64, "bfloat16", True, None,
      False, 0.0, False),
+    ("ict_query_pad_train", 32, 256, 256, 12, 12, 64, "bfloat16", False,
+     None, ICT_QUERY_PAD, 0.0, False),
+    ("race_mc_pad_train", 32, 384, 384, 12, 12, 64, "bfloat16", False, None,
+     RACE_MC_PAD, 0.0, False),
 ]
 TRAIN_MAIN_SHAPE = "llama2_7b_train"
 DROPOUT_SEED = 4321
@@ -522,10 +583,13 @@ BLOCK_TOL = {"bfloat16": 4e-3, "float32": 1e-4}
 # 3.9e-3, one bf16 rounding at 0.5-1)
 BLOCK_LIVE_TOL = 1e-2
 
-# The engine phase: Llama-2-7B at full width and depth behind the engine
-# route. 16 concurrent requests: each prompt length twice, new tokens from
-# 64 to 256, even requests greedy, odd ones seeded at temperature 0.8,
-# top_p 0.9.
+# The engine phase: Llama-2-7B at full width and ENGINE_LAYERS of its 32
+# layers behind the engine route (phase 4 drives all 32; the whole smoke's
+# time limit cuts the depth here, never the width: the serving loop's host
+# time grows with the layers). 16 concurrent requests: each prompt length
+# twice, new tokens from 64 to 256, even requests greedy, odd ones seeded
+# at temperature 0.8, top_p 0.9.
+ENGINE_LAYERS = 8
 ENGINE_SERVING = dict(num_slots=8, max_len=2048, kv_block_size=16,
                       block_native_attn=True, prefill_max_batch=8)
 ENGINE_PROMPTS = [37, 64, 100, 200, 300, 515, 700, 1000]
@@ -595,8 +659,9 @@ NORM_CUDA_KERNELS = {
 NORM_FLOPS = {("rms", "fwd"): 4, ("ln", "fwd"): 8, ("rms", "bwd"): 11,
               ("ln", "bwd"): 16}
 
-# The int8 serving phase: Llama-2-7B with int8-resident weights behind the
-# engine route with an int8 block pool; 12 concurrent requests.
+# The int8 serving phase: Llama-2-7B's width at ENGINE_LAYERS layers with
+# int8-resident weights behind the engine route with an int8 block pool; 12
+# concurrent requests.
 INT8_SERVING = dict(ENGINE_SERVING, kv_dtype="int8")
 INT8_REQUESTS = 12
 # the engine's live int8 state: bf16 queries against dequantized keys, as
@@ -613,8 +678,9 @@ W8_LOGPROB_TOL = 0.25
 # faults planted in the k scales the W8 engine's block kernel reads: the
 # scales left at 1.0, and each block's scales taken from the block before
 W8_FAULTS = ("k_scale_one", "k_scale_wrong_block")
-# bench_decode at Llama-2-7B's width, all four arms
-BENCH_DECODE_ARGS = ["--layers", "32", "--hidden", "4096", "--heads", "32",
+# bench_decode at Llama-2-7B's width and ENGINE_LAYERS layers, all four arms
+BENCH_DECODE_ARGS = ["--layers", str(ENGINE_LAYERS), "--hidden", "4096",
+                     "--heads", "32",
                      "--ffn", "11008", "--vocab", "32000", "--batch", "8",
                      "--prompt", "512", "--new", "16", "--int8_weights",
                      "--int8_kv"]
@@ -641,8 +707,14 @@ def prompt_text(n: int, seed: int) -> str:
                    for i in range(n))
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write a line: the other lane's lines are printed from a thread
+    with _LOG_LOCK:
+        sys.stdout.write(msg + "\n")
+        sys.stdout.flush()
 
 
 def check(cond: bool, what: str) -> None:
@@ -694,12 +766,12 @@ def counterparts(causal: bool, seg) -> dict:
     return out
 
 
-def pad_segments(b: int, s: int):
-    """BERT's pad isolation over ragged real lengths (PAD_LENGTHS spread
-    over the rows): real tokens segment 0, the pad at position i segment
-    2 + i, which sees only itself. int32 [b, s] on the card."""
+def pad_segments(b: int, s: int, lengths=PAD_LENGTHS):
+    """BERT's pad isolation over ragged real lengths (`lengths`' first to
+    last spread over the rows): real tokens segment 0, the pad at position
+    i segment 2 + i, which sees only itself. int32 [b, s] on the card."""
     import torch
-    lo, hi = min(PAD_LENGTHS[0], s), min(PAD_LENGTHS[1], s)
+    lo, hi = min(lengths[0], s), min(lengths[1], s)
     lengths = torch.tensor([lo + (hi - lo) * i // max(b - 1, 1)
                             for i in range(b)], device="cuda")
     pos = torch.arange(s, device="cuda")
@@ -709,12 +781,14 @@ def pad_segments(b: int, s: int):
 
 def case_segments(mode, b: int, s: int):
     """A case's segment ids: None, two documents a row (True), or BERT's
-    pad isolation ("pad")."""
+    pad isolation ("pad", or ("pad", first, last) real lengths)."""
     import torch
     if not mode:
         return None
     if mode == "pad":
         return pad_segments(b, s)
+    if isinstance(mode, tuple):
+        return pad_segments(b, s, mode[1:])
     seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
     seg[:, s // 2:] = 1
     return seg
@@ -2233,7 +2307,8 @@ def check_engine_slice() -> dict:
 
 
 def phase_engine(smi: str) -> dict:
-    """Llama-2-7B (32 layers, random bf16 weights from a fixed seed) behind
+    """Llama-2-7B's width at ENGINE_LAYERS layers (random bf16 weights from
+    a fixed seed) behind
     MegatronServer's engine route on 127.0.0.1, ServingConfig
     ENGINE_SERVING: 16 concurrent PUT /api requests from 16 threads, an
     empty payload and a /metrics read. Launch counts are zeroed just before
@@ -2258,7 +2333,7 @@ def phase_engine(smi: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = llama2_config("7b")
+    cfg = llama2_config("7b", num_layers=ENGINE_LAYERS)
     t0 = time.perf_counter()
     model = LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
     tok = ByteTokenizer()
@@ -2636,7 +2711,8 @@ def check_int8_slice() -> dict:
 
 
 def phase_int8(smi: str) -> dict:
-    """Llama-2-7B at full width and depth with int8-resident weights
+    """Llama-2-7B at full width and ENGINE_LAYERS layers with int8-resident
+    weights
     (`quantize_weights` of random bf16 weights) behind MegatronServer's
     engine route with an int8 block pool (INT8_SERVING), INT8_REQUESTS
     concurrent requests. Launch counts are zeroed just before the requests:
@@ -2668,7 +2744,7 @@ def phase_int8(smi: str) -> dict:
     check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before the "
           "int8 phase: the earlier model was not freed")
     int_mm = check_int_mm()
-    cfg = llama2_config("7b")
+    cfg = llama2_config("7b", num_layers=ENGINE_LAYERS)
     t0 = time.perf_counter()
     model = LanguageModel(cfg, dtype=torch.bfloat16, seed=0)
     bf16_bytes = tree_bytes(model.tree())
@@ -2686,7 +2762,8 @@ def phase_int8(smi: str) -> dict:
           "the int8 engine's pool is not an int8 arena with scales")
     torch.cuda.synchronize()
     weights_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"int8 engine: Llama-2-7B, weights {bf16_bytes / 1e9:.2f} GB bf16 -> "
+    log(f"int8 engine: Llama-2-7B width, {cfg.num_layers} layers, weights "
+        f"{bf16_bytes / 1e9:.2f} GB bf16 -> "
         f"{int8_bytes / 1e9:.2f} GB with int8 projections, pool "
         f"{engine.pool.nbytes() / 2 ** 30:.2f} GiB (scales included), "
         f"{weights_gib:.2f} GiB allocated, built in "
@@ -3375,21 +3452,20 @@ def falcon_tensor_names(cfg) -> list:
 def write_hf_dir(out_dir: str, names: list, config: dict, seed: int) -> dict:
     """An HF directory as the published 7B checkpoints ship: config.json,
     model-0000{1,2}-of-00002.safetensors split at half the bytes, and
-    model.safetensors.index.json. Each tensor is drawn from one numpy
-    stream, uniform with a standard deviation of 0.02 (numpy draws it
-    faster than a normal; norm gains about 1), rounded to bf16 and streamed
-    to its shard. Returns bytes and seconds."""
+    model.safetensors.index.json. Each tensor is drawn on the card from one
+    seeded generator, uniform with a standard deviation of 0.02 (norm gains
+    about 1), rounded to bf16 there and streamed to its shard. Returns
+    bytes and seconds."""
     import os
     import struct
 
-    import numpy as np
     import torch
     t0 = time.perf_counter()
     os.makedirs(out_dir)
     sizes = [2 * math.prod(shape) for _, shape in names]
     cut = next(i for i in range(len(sizes))
                if 2 * sum(sizes[:i + 1]) >= sum(sizes)) + 1
-    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     weight_map = {}
     for k, part in enumerate((names[:cut], names[cut:])):
         file = f"model-{k + 1:05d}-of-00002.safetensors"
@@ -3404,13 +3480,13 @@ def write_hf_dir(out_dir: str, names: list, config: dict, seed: int) -> dict:
         with open(os.path.join(out_dir, file), "wb") as f:
             f.write(struct.pack("<Q", len(raw)) + raw)
             for name, shape in part:
-                x = rng.random(shape, dtype=np.float32)
-                x -= np.float32(0.5)
-                x *= np.float32(0.02 * 12 ** 0.5)
+                x = torch.rand(shape, generator=gen, device="cuda")
+                x.sub_(0.5).mul_(0.02 * 12 ** 0.5)
                 if name.endswith(("norm.weight", "ln_f.weight")):
-                    x += np.float32(1.0)
-                f.write(torch.from_numpy(x).to(torch.bfloat16)
-                        .view(torch.int16).numpy().tobytes())
+                    x.add_(1.0)
+                f.write(x.to(torch.bfloat16).view(torch.int16).cpu()
+                        .numpy())
+                del x
     with open(os.path.join(out_dir, "model.safetensors.index.json"),
               "w") as f:
         json.dump({"metadata": {"total_size": sum(sizes)},
@@ -6993,14 +7069,17 @@ def phase_lora_live(smi: str) -> dict:
 
 
 # Phase 14, structured output, n-best fan-out and the brownout ladder with
-# its SLO accounting. (a)-(d): Llama-2-7B at full width and depth (random
-# bf16 weights, seed STRUCT_SEED), 8 slots, 16-token blocks, the block
-# kernel, each request prefilled alone (`prefill_max_batch=1`), the
+# its SLO accounting. (a)-(d): Llama-2-7B at full width and STRUCT_LAYERS
+# of its 32 layers (the whole smoke's time limit cuts the depth, never the
+# width; random bf16 weights, seed STRUCT_SEED), 8 slots, 16-token
+# blocks, the block kernel, each request prefilled alone
+# (`prefill_max_batch=1`), the
 # grammars composed over the byte-level identity table
 # (`default_token_strings(32000)`: token i is chr(i)), every prompt made of
 # identity tokens. Launch counts are zeroed before each part and read after
 # it.
 STRUCT_SEED = 0
+STRUCT_LAYERS = 8
 STRUCT_SERVING = dict(ENGINE_SERVING, prefill_max_batch=1)
 STRUCT_REQUESTS = 8
 STRUCT_PROMPT = 160
@@ -7421,7 +7500,8 @@ def check_structured_slice() -> dict:
 def phase_structured_degrade(smi: str) -> dict:
     """Phase 14: (a) constrained against free, (b) an n=4 fan-out against
     its n=1 twins, (c) constrained verify rounds and (d) a load storm on
-    Llama-2-7B at full width and depth, launch counts zeroed before each
+    Llama-2-7B at full width and STRUCT_LAYERS layers, launch counts
+    zeroed before each
     part and read after it; (e) the 2-layer fp32 slice."""
     import gc
 
@@ -7439,7 +7519,7 @@ def phase_structured_degrade(smi: str) -> dict:
     check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before "
           "phase 14: phase 13's model was not freed")
     t_phase = time.perf_counter()
-    cfg = llama2_config("7b")
+    cfg = llama2_config("7b", num_layers=STRUCT_LAYERS)
     strings = default_token_strings(cfg.vocab_size)
     stats = dict(card=smi)
     stats["fsm_compile_s"] = {
@@ -7816,9 +7896,9 @@ def fleet_bench(port: int, root: str, label: str) -> dict:
 
 def check_fleet_slice(root: str) -> dict:
     """(f): two 2-layer fp32 replica processes of the 7B width (TF32 off)
-    behind a front tier: greedy completions and streams, one replica
-    SIGKILLed while they decode, every completion equal to the serial
-    route of the same weights in this process."""
+    behind a front tier: greedy completions and streams, the replica
+    holding most of them SIGKILLed while they decode, every completion
+    equal to the serial route of the same weights in this process."""
     import torch
     from megatron_tpu_torch.tools.chaos_fleet import replica_generator
     gen = replica_generator("llama2-7b", FLEET_SLICE_LAYERS, "float32",
@@ -7842,7 +7922,11 @@ def check_fleet_slice(root: str) -> dict:
             threads, out, errors = fleet_traffic(port, payloads,
                                                  streams={4, 5})
             wait_inflight(made, 4, len(payloads))
-            procs.kill("fA")
+            # the replica holding the most unfinished requests, as (c)
+            # picks its victim (affinity may send them all to one)
+            on = [r.replica.idx for r in made if not r.done()]
+            procs.kill(["fA", "fB"][max(set(on), key=on.count) if on
+                                    else 0])
             join_traffic(threads, errors)
             snap = server.engine.aggregate_snapshot()
         finally:
@@ -8067,11 +8151,12 @@ def wait_quiet_remote(rep, timeout: float = 120.0) -> None:
 # cut for memory, never width: 32 layers in bf16 take 93.4 GB, over the
 # card's 80 GB, and the reference keeps the expert banks out of its int8
 # weights, so int8 cannot close the gap. Serving runs MOE_LAYERS of 32
-# (11.9 B parameters, 23.7 GB), training MOE_TRAIN_LAYERS (3.17 B
-# parameters at 16 B each of fp32 state: 50.6 GB; three layers would take
-# 74 GB before activations), the toolchain MOE_TOOL_LAYERS.
+# (11.9 B parameters, 23.7 GB), training MOE_TRAIN_LAYERS (1.71 B
+# parameters at 16 B each of fp32 state: 27.4 GB; two layers take 50.6 GB
+# and peak at 54 GiB, which leaves the other lane of the smoke too little
+# of the card), the toolchain MOE_TOOL_LAYERS.
 MOE_LAYERS = 8
-MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_LAYERS = 1
 MOE_TOOL_LAYERS = 1
 MOE_SEED = 0
 MOE_SERIAL_PROMPT = 512
@@ -8099,8 +8184,8 @@ MOE_SLICE_BATCH = (8, 32)
 MOE_DROP_CAPACITY = 1.25
 MOE_TRAIN_LR = 3e-5
 # free card memory the phase waits for: its largest part, training, peaks
-# at ~54 GiB
-MOE_FREE_BYTES = 70 * 2 ** 30
+# at ~31 GiB (54 GiB at two layers)
+MOE_FREE_BYTES = 40 * 2 ** 30
 MOE_TOOL_NEW = 8
 # the H100's HBM rate, for the decode step's weight-read bound
 HBM_BYTES_PER_S = 3.35e12
@@ -8819,9 +8904,10 @@ def phase_moe(smi: str) -> dict:
     base_gib = torch.cuda.memory_allocated() / 2 ** 30
     check(base_gib < 1.0, f"{base_gib:.2f} GiB still allocated before the "
           "moe phase")
-    # phase 15's replica processes have exited; their memory comes back to
-    # the card within moments
-    deadline = time.monotonic() + 120
+    # phase 15's replica processes have exited, and their memory comes
+    # back to the card within moments; the other lane's phases hold less
+    # than the rest
+    deadline = time.monotonic() + LANE_MEMORY_WAIT_S
     while (free := torch.cuda.mem_get_info()[0]) < MOE_FREE_BYTES:
         check(time.monotonic() < deadline, f"the card holds only "
               f"{free / 2 ** 30:.1f} GiB free before the moe phase")
@@ -9194,6 +9280,781 @@ def phase_bert_t5(smi: str) -> dict:
     return stats
 
 
+# Phase 18: the BERT heads and the retriever at BERT-base's full width and
+# depth (models/bert.py bert_config(): 12 layers, h 768, 12 heads of 64,
+# ffn 3072, vocab 30,522 padded to 30,592), bf16 compute, fp32 Adam, random
+# weights from RT_SEED, on a WordPiece vocabulary and files the phase
+# writes in the published layouts (no GLUE, RACE, NQ or DPR file is in the
+# repository)
+RT_SEED = 0
+RT_VOCAB = 30522
+RT_LAYERS, RT_HIDDEN, RT_HEADS = 12, 768, 12
+RT_SHAPE = ["--num_layers", str(RT_LAYERS), "--hidden_size", str(RT_HIDDEN),
+            "--num_attention_heads", str(RT_HEADS)]
+RT_DOCS = 400              # ICT's sentence-split corpus
+RT_SEQ = 256               # ICT, the evidence, NQ (pretrain_ict.py:4-6)
+RT_ICT_MICRO = 32          # the in-batch softmax's 32 x 32 scores
+RT_ICT_ITERS = 3
+RT_ICT_HEAD = 128
+RT_LR = "1e-4"
+RT_MNLI = (128, 64, 128, 32)   # train rows, dev rows, seq, micro-batch
+RT_RACE = (32, 16, 384, 8)     # train questions, dev questions, seq, micro
+RT_PASSAGES = 8192
+RT_INDEX_BATCH = 128
+RT_QUESTIONS = 64
+RT_TOPK = 100
+RT_RET = (32, 16, 8)           # DPR train rows, dev rows, micro-batch
+# DPR's psgs_w100.tsv rows and NQ-test's questions, for the MIPS search
+MIPS_ROWS = 21_015_324
+MIPS_QUERIES = 3_610
+MIPS_DIM = 128
+MIPS_CHECK = (64, 1_048_576)   # queries, rows held against float64 numpy
+MIPS_SUB_CHUNK = 5             # queries a chunk in the chunked check
+MIPS_SCORE_TOL = 1e-3          # fp32 dot products of 128 terms, |s| < 60
+RT_SLICE_LAYERS = 2
+RT_SLICE_LOSS_TOL = 1e-6
+RT_SLICE_GRAD_TOL = 1e-5
+# the heads' outputs, of their largest: fp32 sums in another order
+# through 2 layers of 768 (1.0e-6 measured on the multiple-choice scores)
+RT_SLICE_OUT_TOL = 1e-5
+
+
+def rt_sentences(text: str) -> list:
+    return [t.strip() for t in text.split(".") if t.strip()]
+
+
+def rt_files(root: str) -> dict:
+    """The phase's vocabulary and files: the sentence-split ICT corpus and
+    its titles (written through the port's indexed-dataset builder, one
+    sentence a row), MNLI TSVs, RACE json lines, an evidence TSV with
+    questions whose answers occur in known passages, and DPR json."""
+    import os
+
+    import numpy as np
+    from megatron_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
+    from megatron_tpu_torch.data.tokenizers import build_tokenizer
+    from megatron_tpu_torch.tools import synthetic_corpus as sc
+    t0 = time.perf_counter()
+    vocab = sc.write_wordpiece_vocab(root, RT_VOCAB)
+    tok = build_tokenizer("BertWordPieceLowerCase", vocab_file=vocab)
+    rng = np.random.RandomState(RT_SEED)
+    out = dict(vocab=vocab)
+
+    sents, titles = (os.path.join(root, n) for n in ("sents", "titles"))
+    bs, bt = IndexedDatasetBuilder(sents), IndexedDatasetBuilder(titles)
+    for doc in sc.random_documents(RT_DOCS, RT_SEED):
+        parts = rt_sentences(doc)
+        for sentence in parts:
+            bs.add_item(tok.tokenize(sentence))
+        bs.end_document()
+        bt.add_item(tok.tokenize(" ".join(parts[0].split()[:3])))
+        bt.end_document()
+    bs.finalize()
+    bt.finalize()
+    out.update(sents=sents, titles=titles)
+
+    words = " ".join(sc.random_documents(50, RT_SEED + 1)).split()
+
+    def phrase(lo, hi):
+        return " ".join(rng.choice(words, rng.randint(lo, hi + 1)))
+
+    labels = ["contradiction", "entailment", "neutral"]
+    header = "\t".join(["index"] + [f"c{i}" for i in range(1, 8)] + [
+        "sentence1", "sentence2", "label1", "gold_label"])
+    for split, n in (("train", RT_MNLI[0]), ("dev", RT_MNLI[1])):
+        path = os.path.join(root, f"mnli_{split}.tsv")
+        with open(path, "w") as f:
+            f.write(header + "\n")
+            for i in range(n):
+                f.write("\t".join([str(i)] + [""] * 7 + [
+                    phrase(10, 40), phrase(5, 20), "x",
+                    labels[rng.randint(3)]]) + "\n")
+        out[f"mnli_{split}"] = path
+    for split, n in (("train", RT_RACE[0]), ("dev", RT_RACE[1])):
+        d = os.path.join(root, f"race_{split}")
+        os.makedirs(d)
+        with open(os.path.join(d, "high.txt"), "w") as f:
+            for _ in range(n // 4):
+                qs = [phrase(4, 10) + (" _ ." if rng.rand() < 0.5 else " ?")
+                      for _ in range(4)]
+                f.write(json.dumps({
+                    "article": phrase(250, 340), "questions": qs,
+                    "options": [[phrase(1, 5) for _ in range(4)]
+                                for _ in qs],
+                    "answers": ["ABCD"[rng.randint(4)] for _ in qs]})
+                    + "\n")
+        out[f"race_{split}"] = d
+
+    passages = sc.random_documents(RT_PASSAGES, RT_SEED + 2, min_words=80,
+                                   max_words=100)
+    psgs = os.path.join(root, "psgs_w100.tsv")
+    with open(psgs, "w") as f:
+        f.write("id\ttext\ttitle\n")
+        for i, text in enumerate(passages):
+            f.write(f"{i + 1}\t{text}\t{' '.join(text.split()[:2])}\n")
+    out["psgs"] = psgs
+    # each question's answer is a 3-word span of a known passage; the
+    # question holds the words before it
+    nq = os.path.join(root, "nq-test.csv")
+    with open(nq, "w") as f:
+        for q in range(RT_QUESTIONS):
+            w = passages[rng.randint(RT_PASSAGES)].replace(".", "").replace(
+                ",", "").split()
+            at = rng.randint(8, len(w) - 3)
+            f.write(f"{' '.join(w[at - 8:at])}\t{[' '.join(w[at:at + 3])]!r}"
+                    "\n")
+    out["nq"] = nq
+
+    def ctx(i):
+        return {"title": " ".join(passages[i].split()[:2]),
+                "text": passages[i]}
+    for split, n in (("train", RT_RET[0]), ("dev", RT_RET[1])):
+        rows = []
+        for _ in range(n):
+            pos = rng.randint(RT_PASSAGES)
+            rows.append({
+                "question": " ".join(passages[pos].split()[5:15]) + "?",
+                "answers": [" ".join(passages[pos].split()[15:17])],
+                "positive_ctxs": [ctx(pos)],
+                "negative_ctxs": [ctx(i) for i in rng.randint(
+                    RT_PASSAGES, size=30)],
+                "hard_negative_ctxs": [ctx(i) for i in rng.randint(
+                    RT_PASSAGES, size=30)]})
+        path = os.path.join(root, f"nq-{split}.json")
+        with open(path, "w") as f:
+            json.dump(rows, f)
+        out[f"nq_{split}"] = path
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def ict_argv(files: dict, *extra, layers=None) -> list:
+    layers = RT_LAYERS if layers is None else layers
+    return ["--data_path", files["sents"], "--titles_data_path",
+            files["titles"], "--vocab_file", files["vocab"],
+            "--tokenizer_type", "BertWordPieceLowerCase",
+            "--num_layers", str(layers), "--hidden_size", str(RT_HIDDEN),
+            "--num_attention_heads", str(RT_HEADS), "--seq_length",
+            str(RT_SEQ),
+            "--attention_impl", "flash", "--micro_batch_size",
+            str(RT_ICT_MICRO), "--global_batch_size", str(RT_ICT_MICRO),
+            "--train_iters", str(RT_ICT_ITERS), "--lr", RT_LR,
+            "--log_interval", "1", "--seed", str(RT_SEED),
+            "--ict_head_size", str(RT_ICT_HEAD), "--query_in_block_prob",
+            "0.1", *extra]
+
+
+def zeroed(fn, *args):
+    """fn(*args) with the flash and norm kernels' counts zeroed just
+    before and read just after: (result, counts, norm counts, seconds)."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    fc.reset_launch_counts()
+    fnc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, fc.launch_counts(), fnc.launch_counts(),
+            time.perf_counter() - t0)
+
+
+def rt_ict(files: dict, root: str) -> dict:
+    """(a) ICT at full width and depth (RT_ICT_ITERS iterations, one
+    params-only checkpoint), then exact resume on a 2-layer fp32 slice with
+    shared towers: U, P (save at 2, exit), R (resume to 3)."""
+    import os
+
+    from megatron_tpu_torch import pretrain_ict
+    save = os.path.join(root, "ict_ckpt")
+    full = run_entry(pretrain_ict.main, ict_argv(
+        files, "--bf16", "--save", save, "--save_interval",
+        str(RT_ICT_ITERS), "--no_save_optim"))
+    losses = [s_["lm_loss"] for s_ in full["steps"]]
+    check(len(losses) == RT_ICT_ITERS and all(
+        math.isfinite(x) for x in losses), f"ICT losses {losses}")
+    # two towers: 2 * RT_LAYERS launches of each kernel a step
+    for s_ in full["steps"]:
+        check(all(v == 2 * RT_LAYERS for v in s_["launches"].values()),
+              f"an ICT step launched {s_['launches']}, not "
+              f"{2 * RT_LAYERS} of each")
+    slice_root = os.path.join(root, "ict_resume")
+    runs = {}
+    for name, extra in (
+            ("U", ()),
+            ("P", ("--save", slice_root, "--save_interval", "2",
+                   "--exit_interval", "2")),
+            ("R", ("--save", slice_root, "--save_interval", "2"))):
+        runs[name] = run_entry(pretrain_ict.main, ict_argv(
+            files, "--biencoder_shared_query_context_model", *extra,
+            layers=RT_SLICE_LAYERS))
+    u, p, r = (runs[k]["steps"] for k in "UPR")
+    for what, got, want in (("P", p, u[:2]), ("R", r, u[2:])):
+        check([(s_["lm_loss"], s_["grad_norm"]) for s_ in got]
+              == [(s_["lm_loss"], s_["grad_norm"]) for s_ in want],
+              f"ICT slice: {what}'s steps differ from U's: "
+              f"{[(s_['lm_loss'], s_['grad_norm']) for s_ in got]} vs "
+              f"{[(s_['lm_loss'], s_['grad_norm']) for s_ in want]}")
+    check(runs["R"]["digest"] == runs["U"]["digest"],
+          "ICT slice: the resumed state differs from the uninterrupted one")
+    step_ms = [s_["device_ms"] for s_ in full["steps"][1:]]
+    return dict(losses=losses, ln_batch=math.log(RT_ICT_MICRO),
+                step_ms=step_ms, launches=full["launches"],
+                norm_launches=full["norm_launches"],
+                seconds=full["seconds"], peak_gib=full["peak_gib"],
+                ckpt=save, ckpt_bytes=sum(
+                    os.path.getsize(os.path.join(dp, f_))
+                    for dp, _, fs in os.walk(save) for f_ in fs),
+                resume=dict(losses=[s_["lm_loss"] for s_ in u],
+                            bit_equal=True, seconds={
+                                k: v["seconds"] for k, v in runs.items()},
+                            launches={k: (v["launches"], v["norm_launches"])
+                                      for k, v in runs.items()}))
+
+
+def rt_task(argv: list) -> tuple:
+    """One tasks.main run on the card, counted from zero; returns (its
+    metrics, flash counts, norm counts, seconds)."""
+    from megatron_tpu_torch.tasks import main as tasks_main
+    return zeroed(tasks_main.main, argv)
+
+
+def rt_finetune(files: dict) -> dict:
+    """(b) MNLI (seq 128, micro-batch 32, 3 classes) and RACE (seq 384,
+    micro-batch 8 x 4 choices) through tasks.main, one epoch each."""
+    out = {}
+    for task, (n_train, _, seq, micro), key in (
+            ("MNLI", RT_MNLI, "mnli"), ("RACE", RT_RACE, "race")):
+        metrics, counts, norms, took = rt_task([
+            "--task", task, "--train_data", files[f"{key}_train"],
+            "--valid_data", files[f"{key}_dev"], "--vocab_file",
+            files["vocab"], "--tokenizer_type", "BertWordPieceLowerCase",
+            "--seq_length", str(seq), "--micro_batch_size", str(micro),
+            "--epochs", "1", "--lr", "2e-5", *RT_SHAPE])
+        check(sorted(metrics) == ["best accuracy", "last accuracy"]
+              and 0.0 <= metrics["last accuracy"] <= 1.0,
+              f"{task}: {metrics}")
+        steps = n_train // micro
+        # RT_LAYERS a step forward and backward; the evaluation's
+        # forwards on top
+        check(counts["flash_bwd_dq_cuda"] == RT_LAYERS * steps
+              and counts["flash_fwd_cuda"] > RT_LAYERS * steps,
+              f"{task}: launches {counts}")
+        out[task] = dict(metrics=metrics, launches=counts,
+                         norm_launches=norms, seconds=took, steps=steps)
+    return out
+
+
+def rt_index_and_eval(files: dict, ckpt: str, root: str) -> dict:
+    """(c) create_doc_index over the evidence from (a)'s checkpoint, the
+    store held against one batch-by-batch embed_text pass, then tasks.main
+    --task NQ over it."""
+    import os
+
+    import numpy as np
+    import torch
+    from megatron_tpu_torch.data.orqa_dataset import \
+        OpenRetrievalEvidenceDataset
+    from megatron_tpu_torch.data.realm_index import OpenRetrievalDataStore
+    from megatron_tpu_torch.data.tokenizers import build_tokenizer
+    from megatron_tpu_torch.indexer import IndexBuilder
+    from megatron_tpu_torch.models.biencoder import load_biencoder
+    from megatron_tpu_torch.tasks.main import get_tasks_parser
+    from megatron_tpu_torch.tools import create_doc_index
+    emb = os.path.join(root, "evidence.npz")
+    rc, counts, norms, took = zeroed(create_doc_index.main, [
+        "--load", ckpt, "--evidence_data_path", files["psgs"],
+        "--embedding_path", emb, "--vocab_file", files["vocab"],
+        "--retriever_seq_length", str(RT_SEQ), "--indexer_batch_size",
+        str(RT_INDEX_BATCH), "--ict_head_size", str(RT_ICT_HEAD),
+        "--indexer_log_interval", "0"])
+    check(rc == 0, f"create_doc_index returned {rc}")
+    batches = -(-RT_PASSAGES // RT_INDEX_BATCH)
+    check(counts["flash_fwd_cuda"] == RT_LAYERS * batches
+          and counts["flash_bwd_dq_cuda"] == 0,
+          f"create_doc_index launched {counts}")
+    store = OpenRetrievalDataStore(emb)
+    check(len(store) == RT_PASSAGES, f"the store holds {len(store)}")
+    tok = build_tokenizer("BertWordPieceLowerCase",
+                          vocab_file=files["vocab"])
+    args = get_tasks_parser().parse_args([
+        "--task", "NQ", "--valid_data", "x", "--load", ckpt,
+        "--ict_head_size", str(RT_ICT_HEAD)])
+    model, mcfg = load_biencoder(args, tok.vocab_size, RT_SEQ)
+    evidence = OpenRetrievalEvidenceDataset(files["psgs"], tok, RT_SEQ)
+    builder = IndexBuilder(model, mcfg, evidence, embedding_path=emb,
+                           batch_size=RT_INDEX_BATCH)
+    worst = 0.0
+    for batch in evidence.batches(RT_INDEX_BATCH):
+        n = batch["n_real"]
+        got = builder.embed(batch)[:n].cpu().numpy()
+        stored = np.stack([store.embed_data[int(i)] for i in
+                           batch["row_id"][:n]]).astype(np.float32)
+        step = np.spacing(np.maximum(np.abs(stored), np.abs(got)).astype(
+            np.float16)).astype(np.float32)
+        worst = max(worst, float((np.abs(stored - got) / step).max()))
+    check(worst <= 1.0, f"the store differs from embed_text by {worst} "
+          "fp16 steps")
+    del model, builder
+    torch.cuda.empty_cache()
+    metrics, nq_counts, nq_norms, nq_took = rt_task([
+        "--task", "NQ", "--load", ckpt, "--valid_data", files["nq"],
+        "--evidence_data_path", files["psgs"], "--embedding_path", emb,
+        "--tokenizer_type", "BertWordPieceLowerCase", "--vocab_file",
+        files["vocab"], "--faiss_topk_retrievals", str(RT_TOPK),
+        "--retriever_seq_length", str(RT_SEQ), "--micro_batch_size", "64",
+        "--ict_head_size", str(RT_ICT_HEAD)])
+    top = metrics[files["nq"]]
+    check(sorted(top) == ["top1", "top100", "top20", "top5"]
+          and top["top1"] <= top["top5"] <= top["top20"] <= top["top100"],
+          f"NQ: {metrics}")
+    return dict(index_seconds=took, passages_per_s=RT_PASSAGES / took,
+                index_launches=counts, index_norm_launches=norms,
+                store_vs_embed_text_fp16_steps=worst, nq=top,
+                nq_seconds=nq_took, nq_launches=nq_counts,
+                nq_norm_launches=nq_norms)
+
+
+def rt_mips(smi: str) -> dict:
+    """(d) MIPSIndex over MIPS_ROWS x 128 fp32 embeddings made on the card
+    from a seeded generator, MIPS_QUERIES queries for the top RT_TOPK,
+    timed. The timed search's first 64 rows (two of its chunks) are held
+    against one block of those queries' scores over every row; 64 queries
+    over the first 1,048,576 rows, in chunks of MIPS_SUB_CHUNK queries and
+    in one block, against a float64 numpy top-100. A chunk's query count
+    may change cuBLAS's kernel and so the scores' rounding: chunked and
+    one-block results are held as the float64 check holds them, scores
+    within MIPS_SCORE_TOL and each id's score, under the other search's
+    scoring, within it too; how many ids are equal is reported."""
+    import numpy as np
+    import torch
+    from megatron_tpu_torch.models.biencoder import MIPSIndex, exact_fp32
+    gen = torch.Generator(device="cuda").manual_seed(RT_SEED)
+    matrix = torch.randn(MIPS_ROWS, MIPS_DIM, generator=gen, device="cuda")
+    queries = torch.randn(MIPS_QUERIES, MIPS_DIM, generator=gen,
+                          device="cuda")
+    index = MIPSIndex(MIPS_DIM)
+    index.add_block_data(np.arange(MIPS_ROWS), matrix)
+    index.search_device(queries[:8], RT_TOPK)  # cuBLAS and topk warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, rows = index.search_device(queries, RT_TOPK)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    check(scores.shape == (MIPS_QUERIES, RT_TOPK)
+          and bool(torch.isfinite(scores).all())
+          and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          "MIPS: scores not finite and sorted")
+    flops = 2.0 * MIPS_QUERIES * MIPS_ROWS * MIPS_DIM
+    nbytes = 4.0 * (MIPS_ROWS * MIPS_DIM + MIPS_QUERIES * MIPS_DIM
+                    + 2 * MIPS_QUERIES * RT_TOPK)
+    bound, bound_by = bound_ms(flops, nbytes, "torch.float32")
+    chunk_rows = index.chunk_rows()
+    n_q, n_rows = MIPS_CHECK
+    check(chunk_rows < n_q, f"MIPS: the timed search's first {n_q} queries "
+          f"lie in one chunk of {chunk_rows}")
+    # the timed search's first n_q rows against one block over every row
+    with torch.no_grad(), exact_fp32():
+        block = queries[:n_q] @ matrix.T
+        top = torch.topk(block, RT_TOPK, dim=-1)
+        full = dict(
+            scores_max_diff=(scores[:n_q] - top.values).abs().max().item(),
+            id_scores_max_diff=(torch.gather(block, 1, rows[:n_q])
+                                - top.values).abs().max().item(),
+            ids_equal=(rows[:n_q] == top.indices).float().mean().item())
+    del block, top, scores, rows
+    check(max(full["scores_max_diff"], full["id_scores_max_diff"])
+          <= MIPS_SCORE_TOL, f"MIPS: the timed search's first {n_q} rows "
+          f"vs one block over every row: {full} (tol {MIPS_SCORE_TOL})")
+    sub = MIPSIndex(MIPS_DIM, score_bytes=4 * MIPS_SUB_CHUNK * n_rows)
+    sub.add_block_data(np.arange(n_rows), matrix[:n_rows])
+    check(sub.chunk_rows() == MIPS_SUB_CHUNK,
+          f"MIPS: the chunked check runs {sub.chunk_rows()} queries a chunk")
+    got_s, got_i = sub.search_mips_index(queries[:n_q], RT_TOPK)
+    one = MIPSIndex(MIPS_DIM, score_bytes=4 * n_q * n_rows)
+    one.add_block_data(np.arange(n_rows), matrix[:n_rows])
+    check(one.chunk_rows() >= n_q, "MIPS: the one-block search is chunked")
+    one_s, one_i = one.search_mips_index(queries[:n_q], RT_TOPK)
+    m64 = matrix[:n_rows].double().cpu().numpy()
+    q64 = queries[:n_q].double().cpu().numpy()
+    del matrix, index, sub, one
+    torch.cuda.empty_cache()
+    s64 = q64 @ m64.T
+    top = np.argpartition(-s64, RT_TOPK, axis=1)[:, :RT_TOPK]
+    order = np.argsort(-np.take_along_axis(s64, top, axis=1), axis=1)
+    want_i = np.take_along_axis(top, order, axis=1)
+    want_s = np.take_along_axis(s64, want_i, axis=1)
+    # the ids' own float64 scores: a correct top-k up to near-ties
+    got_s64 = np.sort(np.take_along_axis(s64, got_i, axis=1), axis=1)[:, ::-1]
+    one_s64 = np.sort(np.take_along_axis(s64, one_i, axis=1),
+                      axis=1)[:, ::-1]
+    err_scores = float(max(np.abs(got_s - want_s).max(),
+                           np.abs(one_s - want_s).max(),
+                           np.abs(got_s - one_s).max()))
+    err_ids = float(max(np.abs(got_s64 - want_s).max(),
+                        np.abs(one_s64 - want_s).max()))
+    check(err_scores <= MIPS_SCORE_TOL and err_ids <= MIPS_SCORE_TOL,
+          f"MIPS vs float64, chunked and one block: scores off by "
+          f"{err_scores}, the ids' scores by {err_ids} "
+          f"(tol {MIPS_SCORE_TOL})")
+    return dict(rows=MIPS_ROWS, queries=MIPS_QUERIES, dim=MIPS_DIM,
+                top_k=RT_TOPK, seconds=took, chunk_rows=chunk_rows,
+                matrix_gb=MIPS_ROWS * MIPS_DIM * 4 / 1e9, bound_ms=bound,
+                bound_by=bound_by, tflop=flops / 1e12,
+                check=dict(queries=n_q, rows=n_rows,
+                           max_score_err=err_scores,
+                           max_id_score_err=err_ids,
+                           ids_equal=float((got_i == want_i).mean()),
+                           chunk_queries=MIPS_SUB_CHUNK,
+                           chunked_ids_equal_one_block=float(
+                               (got_i == one_i).mean()),
+                           chunked_scores_max_diff=float(
+                               np.abs(got_s - one_s).max())),
+                timed_vs_one_block=dict(queries=n_q, **full),
+                card=smi)
+
+
+def rt_ret_finetune(files: dict, ckpt: str) -> dict:
+    """(e) RET-FINETUNE-NQ from (a)'s checkpoint, as
+    examples/finetune_retriever.sh: micro-batch 8, one hard negative,
+    score scaling, seq 256."""
+    n_train, _, micro = RT_RET
+    metrics, counts, norms, took = rt_task([
+        "--task", "RET-FINETUNE-NQ", "--train_data", files["nq_train"],
+        "--valid_data", files["nq_dev"], "--pretrained_checkpoint", ckpt,
+        "--vocab_file", files["vocab"], "--retriever_seq_length",
+        str(RT_SEQ), "--micro_batch_size", str(micro), "--epochs", "1",
+        "--lr", "2e-5", "--train_with_neg", "--train_hard_neg", "1",
+        "--retriever_score_scaling", "--ict_head_size", str(RT_ICT_HEAD),
+        *RT_SHAPE])
+    check(sorted(metrics) == ["average_rank", "top1_accuracy"]
+          and 1.0 <= metrics["average_rank"] <= 61.0,
+          f"RET-FINETUNE-NQ: {metrics}")
+    steps = n_train // micro
+    check(counts["flash_bwd_dq_cuda"] == 2 * RT_LAYERS * steps,
+          f"RET-FINETUNE-NQ launched {counts}")
+    return dict(metrics=metrics, launches=counts, norm_launches=norms,
+                seconds=took, steps=steps)
+
+
+def rt_slice(files: dict) -> dict:
+    """(f) RT_SLICE_LAYERS layers at BERT-base's width in fp32 (TF32 off):
+    the classification, multiple-choice and retrieval losses through the
+    flash kernels against the dot path, on the same weights and batches
+    from the phase's files. Held for each loss:
+    - the loss within RT_SLICE_LOSS_TOL relative, and the heads' outputs
+      (logits, query and context embeddings) within RT_SLICE_OUT_TOL of
+      their largest;
+    - every gradient under a seeded cotangent on the outputs within
+      RT_SLICE_GRAD_TOL of its leaf's largest;
+    - every gradient of the loss through each path's backward, under the
+      dot path's cotangent of the loss on the outputs, within
+      RT_SLICE_GRAD_TOL of its leaf's scale: the larger of the leaf's
+      largest and the leaf's terms' scale, the same backward under that
+      cotangent with seeded random signs. At random init the heads'
+      outputs barely depend on the row, and the multiple-choice and
+      in-batch losses' cotangents sum to zero over the rows (the
+      multiple-choice head's bias gets sum_c (p_c - y_c) = 0, the context
+      ict_head's bias sum_i q_i sum_j (p_ij - d_ij) = 0): such a leaf's
+      gradient is a difference of nearly equal terms, measured against
+      their size.
+    The classification loss's own gradients, flash against dot, are
+    held within RT_SLICE_GRAD_TOL of each leaf's largest too; the other
+    two losses' are reported: their cotangents are differences of nearly
+    equal rows themselves, so the outputs' rounding reaches them
+    amplified."""
+    import numpy as np
+    import torch
+    from megatron_tpu_torch.data.indexed_dataset import MMapIndexedDataset
+    from megatron_tpu_torch.data.ict_dataset import ICTDataset
+    from megatron_tpu_torch.data.tokenizers import build_tokenizer
+    from megatron_tpu_torch.models import bert, biencoder, classification
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.tasks.glue.data import GlueDataset, read_mnli
+    from megatron_tpu_torch.tasks.race.data import RaceDataset, read_race
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok = build_tokenizer("BertWordPieceLowerCase", vocab_file=files["vocab"])
+    sents = MMapIndexedDataset(files["sents"])
+    ict = ICTDataset(sents, sents.doc_idx, MMapIndexedDataset(
+        files["titles"]), max_seq_length=RT_SEQ, cls_id=tok.cls,
+        sep_id=tok.sep, pad_id=tok.pad, seed=RT_SEED, sizes=sents.sizes)
+
+    def head_outputs(forward):
+        def out(m, b, cfg):
+            return [forward(m, b["tokens"], cfg,
+                            tokentype_ids=b["tokentype_ids"],
+                            padding_mask=b["padding_mask"])]
+        return out
+
+    def embeddings(m, b, cfg):
+        return list(biencoder.biencoder_forward(
+            m, b["query_tokens"], b["context_tokens"], cfg,
+            query_pad_mask=b["query_pad_mask"],
+            context_pad_mask=b["context_pad_mask"]))
+
+    def head_loss(outs, b):
+        return classification.cross_entropy_loss(outs[0], b["label"]).mean()
+
+    def in_batch_loss(outs, b):
+        q, c = outs
+        scores = q @ c.T / math.sqrt(q.shape[-1])
+        return -torch.log_softmax(scores, dim=-1).diagonal().mean()
+
+    # name: (model, options, the port's loss, its outputs, the loss on
+    # the outputs, data, rows, seq, its own gradients held)
+    cases = {
+        "classification": (
+            classification.ClassificationModel, dict(num_classes=3),
+            classification.classification_loss,
+            head_outputs(classification.classification_forward), head_loss,
+            GlueDataset(read_mnli(files["mnli_dev"])[:8], tok, RT_MNLI[2]),
+            8, RT_MNLI[2], True),
+        "multichoice": (
+            classification.MultipleChoiceModel, {},
+            classification.multiple_choice_loss,
+            head_outputs(classification.multiple_choice_forward), head_loss,
+            RaceDataset(read_race(files["race_dev"])[:2], tok, RT_RACE[2]),
+            2, RT_RACE[2], False),
+        "retrieval": (
+            biencoder.BiencoderModel, dict(ict_head_size=RT_ICT_HEAD),
+            lambda m, b, c: biencoder.retrieval_loss(m, b, c)[0],
+            embeddings, in_batch_loss, ict, 8, RT_SEQ, False)}
+
+    def leaf_errors(got, want, scale=None):
+        """{leaf: max |got - want| / its scale}."""
+        out = {}
+        for n, ref in want.items():
+            sc = ref.abs().max().item()
+            if scale is not None:
+                sc = max(sc, scale[n].abs().max().item())
+            out[n] = (got[n] - ref).abs().max().item() / max(sc, 1e-30)
+        return out
+
+    out = {}
+    for name, (cls, opts, loss_fn, out_fn, outs_loss, ds, rows, seq,
+               hold_own) in cases.items():
+        items = [ds[i] for i in range(rows)]
+        batch = {k: torch.from_numpy(np.stack([it[k] for it in items])
+                                     ).cuda() for k in items[0]}
+        losses, outputs, own, vjps, through, launched = ({} for _ in
+                                                         range(6))
+        model = cot = signed = None
+        for impl in ("dot", "flash"):
+            cfg = bert.bert_config(num_layers=RT_SLICE_LAYERS,
+                                   hidden_size=RT_HIDDEN,
+                                   num_attention_heads=RT_HEADS,
+                                   vocab_size=tok.vocab_size,
+                                   seq_length=seq,
+                                   max_position_embeddings=seq,
+                                   compute_dtype="float32",
+                                   attention_impl=impl)
+            if model is None:
+                model = cls(cfg, seed=RT_SEED, trainable=True, **opts)
+            else:
+                model = cls.from_state_dict(cfg, {
+                    k: v.detach().clone() for k, v in
+                    model.state_dict().items()}, trainable=True)
+            params = dict(model.named_parameters())
+
+            def grads(value, **kw):
+                got = torch.autograd.grad(value, list(params.values()),
+                                          allow_unused=True, **kw)
+                return {n: torch.zeros_like(p) if g is None else g
+                        for (n, p), g in zip(params.items(), got)}
+
+            before = fc.launch_counts()
+            loss = loss_fn(model, batch, cfg)
+            outs = out_fn(model, batch, cfg)
+            losses[impl] = loss.item()
+            outputs[impl] = [o.detach() for o in outs]
+            own[impl] = grads(loss)
+            if cot is None:
+                # the seeded cotangent, and the dot path's cotangent of
+                # the loss on its outputs (that loss is the port's)
+                gen = torch.Generator(device="cuda").manual_seed(RT_SEED)
+                cot = [torch.randn(o.shape, generator=gen, device="cuda")
+                       for o in outs]
+                again = outs_loss(outs, batch)
+                check(abs(again.item() - losses[impl])
+                      <= RT_SLICE_LOSS_TOL * abs(losses[impl]),
+                      f"{name} slice: the loss on the outputs "
+                      f"{again.item()} vs the port's {losses[impl]}")
+                dloss = [g.detach() for g in torch.autograd.grad(
+                    again, outs, retain_graph=True)]
+                signed = [g * torch.randint(0, 2, g.shape, generator=gen,
+                                            device="cuda").mul(2).sub(1)
+                          for g in dloss]
+                terms = grads(outs, grad_outputs=signed, retain_graph=True)
+            vjps[impl] = grads(outs, grad_outputs=cot, retain_graph=True)
+            through[impl] = grads(outs, grad_outputs=dloss)
+            torch.cuda.synchronize()
+            launched[impl] = {k: fc.launch_counts()[k] - before[k]
+                              for k in before}
+        check(all(v > 0 for v in launched["flash"].values())
+              and not any(launched["dot"].values()),
+              f"{name} slice: launches {launched}")
+        loss_err = abs(losses["flash"] - losses["dot"]) / abs(losses["dot"])
+        check(loss_err <= RT_SLICE_LOSS_TOL,
+              f"{name} slice: loss flash {losses['flash']} vs dot "
+              f"{losses['dot']}")
+        out_err = max((f - d).abs().max().item() / d.abs().max().item()
+                      for f, d in zip(outputs["flash"], outputs["dot"]))
+        check(out_err <= RT_SLICE_OUT_TOL,
+              f"{name} slice: outputs err {out_err} of their largest")
+        worst = {}
+        for what, errs, held in (
+                ("outputs", leaf_errors(vjps["flash"], vjps["dot"]), True),
+                ("through", leaf_errors(through["flash"], through["dot"],
+                                        terms), True),
+                ("own", leaf_errors(own["flash"], own["dot"]), hold_own)):
+            worst[what] = max(errs.items(), key=lambda kv: kv[1])
+            check(not held or worst[what][1] <= RT_SLICE_GRAD_TOL,
+                  f"{name} slice: {what} grad {worst[what][0]} err "
+                  f"{worst[what][1]} of its scale (tol {RT_SLICE_GRAD_TOL})")
+        out[name] = dict(loss=losses["flash"], loss_dot=losses["dot"],
+                         loss_rel_err=loss_err, output_rel_err=out_err,
+                         launches=launched["flash"], own_grads_held=hold_own,
+                         **{f"worst_{w}_grad": list(v)
+                            for w, v in worst.items()})
+        del model, own, vjps, through, terms
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_retrieval_tasks(smi: str) -> dict:
+    """Phase 18: the BERT heads and the retriever (see the note above
+    RT_SEED), parts (a)-(f); the new kernel cases of KERNEL_CASES and
+    TRAIN_CASES ran in phase 3."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_retrieval_")
+    stats = dict(card=smi)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        stats[name] = fn(*args)
+        stats[name]["part_seconds"] = time.perf_counter() - t0
+        log(f"retrieval {name}: " + json.dumps(stats[name]))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        files = rt_files(root)
+        stats["files_s"] = files["seconds"]
+        log(f"retrieval files: {files['seconds']:.1f} s")
+        part("ict", rt_ict, files, root)
+        ckpt = stats["ict"]["ckpt"]
+        part("finetune", rt_finetune, files)
+        part("index", rt_index_and_eval, files, ckpt, root)
+        part("mips", rt_mips, smi)
+        part("ret_finetune", rt_ret_finetune, files, ckpt)
+        part("slice", rt_slice, files)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ict, ft, ix = stats["ict"], stats["finetune"], stats["index"]
+    counted = [(ict["launches"], ict["norm_launches"]),
+               *ict["resume"]["launches"].values(),
+               (ft["MNLI"]["launches"], ft["MNLI"]["norm_launches"]),
+               (ft["RACE"]["launches"], ft["RACE"]["norm_launches"]),
+               (ix["index_launches"], ix["index_norm_launches"]),
+               (ix["nq_launches"], ix["nq_norm_launches"]),
+               (stats["ret_finetune"]["launches"],
+                stats["ret_finetune"]["norm_launches"])]
+    for key, at in (("launches", 0), ("norm_launches", 1)):
+        stats[key] = {k: sum(c[at][k] for c in counted)
+                      for k in counted[0][at]}
+    return stats
+
+
+PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
+          "7": phase_training, "8": phase_pretrain, "9": phase_toolchain,
+          "10": phase_window_supervisor, "11": phase_engine_features,
+          "12": phase_front_door, "13": phase_lora_live,
+          "14": phase_structured_degrade, "15": phase_fleet,
+          "16": phase_moe, "17": phase_bert_t5,
+          "18": phase_retrieval_tasks}
+
+
+class Lane:
+    """The second lane: `chip_smoke.py --lane` over `phases` in a process
+    of its own session, whose output lines are logged here prefixed as
+    they come. `join` returns its phases' results and seconds; `stop`
+    kills it and every process it started, whatever state it is in."""
+
+    PREFIX = "lane B | "
+
+    def __init__(self, phases, smi: str):
+        import os
+        here = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(here, "build"), exist_ok=True)
+        self.out = os.path.join(here, "build", "chip_smoke_lane.json")
+        if os.path.exists(self.out):
+            os.remove(self.out)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--lane",
+             ",".join(phases), "--lane-out", self.out, "--smi", smi],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump.start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            log(self.PREFIX + line.rstrip("\n"))
+
+    def check(self) -> None:
+        """Raise once the lane has failed, so that this lane stops too."""
+        rc = self.proc.poll()
+        check(rc is None or rc == 0, f"lane B failed (exit code {rc})")
+
+    def join(self) -> tuple:
+        rc = self.proc.wait()
+        self.stop()
+        check(rc == 0, f"lane B failed (exit code {rc})")
+        with open(self.out) as f:
+            done = json.load(f)
+        return done["stats"], done["seconds"]
+
+    def stop(self) -> None:
+        import os
+        import signal
+        try:  # the lane's own processes too (its replicas, subprocesses)
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait()
+        self.pump.join(timeout=30)
+
+
+def run_lane(phases, out: str, smi: str) -> int:
+    """`--lane`: phases of LANE_B in their order, then {"stats", "seconds"}
+    written to `out` (JSON). Exit code 1, and no file, if one fails."""
+    seconds, stats = {}, {}
+    t_lane = time.perf_counter()
+    try:
+        for number in phases:
+            t0 = time.perf_counter()
+            stats[number] = PHASES[number](smi)
+            took = time.perf_counter() - t0
+            seconds[number] = round(took, 1)
+            log(f"phase {number} ({PHASES[number].__name__}) took "
+                f"{took:.1f} s")
+    except Exception:  # noqa: BLE001 — every phase failure fails the run
+        traceback.print_exc(file=sys.stdout)
+        return 1
+    log(f"chip_smoke: lane B took {time.perf_counter() - t_lane:.1f} s")
+    with open(out + ".tmp", "w") as f:
+        json.dump(dict(stats=stats, seconds=seconds), f, default=str)
+    import os
+    os.replace(out + ".tmp", out)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -9216,6 +10077,14 @@ def main(argv=None) -> int:
         help="instead of the smoke run, time this earlier "
              "csrc/block_attn.cu beside the current one at every "
              "BLOCK_CASES shape")
+    parser.add_argument(
+        "--lane", metavar="PHASES",
+        help="run only these phases (comma-separated numbers of LANE_B) "
+             "and write their results to --lane-out: the smoke run's "
+             "second lane, which the run starts itself")
+    parser.add_argument("--lane-out", metavar="JSON",
+                        help="where --lane writes its phases' results")
+    parser.add_argument("--smi", help="--lane: the card's nvidia-smi line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -9232,6 +10101,8 @@ def main(argv=None) -> int:
               "repository (megatron_tpu_torch not importable)",
               file=sys.stderr)
         return 2
+    if args.lane:
+        return run_lane(args.lane.split(","), args.lane_out, args.smi)
     compares = [(fn, path) for fn, path in (
         (compare_forward, args.compare_fwd),
         (compare_backward, args.compare_bwd),
@@ -9268,24 +10139,28 @@ def main(argv=None) -> int:
         block_cases = timed("3", phase_block_kernels)
         norm_cases = timed("3", phase_norm_kernels)
         bench_stats = timed("3b", phase_bench_kernels)
-        main_stats = timed("4", phase_main_path, smi)
-        engine_stats = timed("5", phase_engine, smi)
-        int8_stats = timed("6", phase_int8, smi)
-        train_stats = timed("7", phase_training, smi)
-        pretrain_stats = timed("8", phase_pretrain, smi)
-        toolchain_stats = timed("9", phase_toolchain, smi)
-        window_stats = timed("10", phase_window_supervisor, smi)
-        feature_stats = timed("11", phase_engine_features, smi)
-        front_stats = timed("12", phase_front_door, smi)
-        lora_stats = timed("13", phase_lora_live, smi)
-        struct_stats = timed("14", phase_structured_degrade, smi)
-        fleet_stats = timed("15", phase_fleet, smi)
-        moe_stats = timed("16", phase_moe, smi)
-        bt_stats = timed("17", phase_bert_t5, smi)
+        lane = Lane(LANE_B, smi)
+        try:
+            t_lane = time.perf_counter()
+            stats = {}
+            for number in LANE_A:
+                lane.check()
+                stats[number] = timed(number, PHASES[number], smi)
+            log(f"chip_smoke: lane A took "
+                f"{time.perf_counter() - t_lane:.1f} s")
+            lane_stats, lane_seconds = lane.join()
+        finally:
+            lane.stop()
+        stats.update(lane_stats)
+        seconds.update(lane_seconds)
     except Exception:  # noqa: BLE001 — every phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    (main_stats, engine_stats, int8_stats, train_stats, pretrain_stats,
+     toolchain_stats, window_stats, feature_stats, front_stats, lora_stats,
+     struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats) = (
+        stats[str(n)] for n in range(4, 19))
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
     window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
@@ -9315,6 +10190,8 @@ def main(argv=None) -> int:
     # phase 17's entry-point runs, each counted from zero
     bert_counts = bt_stats["bert"]["launches"]
     t5_counts = bt_stats["t5"]["launches"]
+    # phase 18's runs (entry points, tasks, the index), each from zero
+    rt_counts = rt_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -9346,7 +10223,8 @@ def main(argv=None) -> int:
               + fleet_counts["flash_fwd"]
               + moe_counts["flash_fwd_cuda"]
               + bert_counts["flash_fwd_cuda"]
-              + t5_counts["flash_fwd_cuda"], "fwd",
+              + t5_counts["flash_fwd_cuda"]
+              + rt_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -9369,6 +10247,7 @@ def main(argv=None) -> int:
                   moe=moe_counts["flash_fwd_cuda"],
                   pretrain_bert=bert_counts["flash_fwd_cuda"],
                   pretrain_t5=t5_counts["flash_fwd_cuda"],
+                  retrieval_tasks=rt_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -9391,7 +10270,8 @@ def main(argv=None) -> int:
               + lora_counts["flash_bwd_dq"]
               + moe_counts["flash_bwd_dq_cuda"]
               + bert_counts["flash_bwd_dq_cuda"]
-              + t5_counts["flash_bwd_dq_cuda"], "dq",
+              + t5_counts["flash_bwd_dq_cuda"]
+              + rt_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -9402,7 +10282,8 @@ def main(argv=None) -> int:
                        lora_live=lora_counts["flash_bwd_dq"],
                        moe=moe_counts["flash_bwd_dq_cuda"],
                        pretrain_bert=bert_counts["flash_bwd_dq_cuda"],
-                       pretrain_t5=t5_counts["flash_bwd_dq_cuda"]))),
+                       pretrain_t5=t5_counts["flash_bwd_dq_cuda"],
+                       retrieval_tasks=rt_counts["flash_bwd_dq_cuda"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
@@ -9410,7 +10291,8 @@ def main(argv=None) -> int:
               + lora_counts["flash_bwd_dkv"]
               + moe_counts["flash_bwd_dkv_cuda"]
               + bert_counts["flash_bwd_dkv_cuda"]
-              + t5_counts["flash_bwd_dkv_cuda"], "dkv",
+              + t5_counts["flash_bwd_dkv_cuda"]
+              + rt_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -9424,7 +10306,8 @@ def main(argv=None) -> int:
                        lora_live=lora_counts["flash_bwd_dkv"],
                        moe=moe_counts["flash_bwd_dkv_cuda"],
                        pretrain_bert=bert_counts["flash_bwd_dkv_cuda"],
-                       pretrain_t5=t5_counts["flash_bwd_dkv_cuda"]))),
+                       pretrain_t5=t5_counts["flash_bwd_dkv_cuda"],
+                       retrieval_tasks=rt_counts["flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
@@ -9491,7 +10374,8 @@ def main(argv=None) -> int:
                       engine_features=feature_stats,
                       front_door=front_stats, lora_live=lora_stats,
                       structured_degrade=struct_stats, fleet=fleet_stats,
-                      moe=moe_stats, bert_t5=bt_stats)
+                      moe=moe_stats, bert_t5=bt_stats,
+                      retrieval_tasks=rt_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

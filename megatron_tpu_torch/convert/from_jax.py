@@ -10,8 +10,11 @@ inside attention exactly as in the reference.
 the optimizer's mu, nu and step, the loss-scaler automaton and the
 iteration. `train_state_to_numpy` is its inverse, under the JAX names.
 Both take the model family's class (`model_cls`: LanguageModel by default,
-models/bert.py BertModel, models/t5.py T5Model) whose tree the keys and
-shapes are checked against.
+models/bert.py BertModel, models/t5.py T5Model, models/classification.py
+ClassificationModel and MultipleChoiceModel, models/biencoder.py
+BiencoderModel) whose tree the keys and shapes are checked against; a
+family with options (the classes, the biencoder's shared tower and
+ict_head) reads them off the tree's names and shapes.
 
 `load_npz_checkpoint` reads the weights of a checkpoint either package saved
 in the npz format, through the port's training/checkpointing.py: the tracker
@@ -72,8 +75,10 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
     keys of checkpointing._flatten) -> the port's state_dict on `device`,
     cast to `dtype` when given. Raises on a missing, extra or misshapen
     leaf. `model_cls` names the family whose tree is expected:
-    LanguageModel (GPT, Llama, Falcon, Mixtral), models.bert.BertModel or
-    models.t5.T5Model.
+    LanguageModel (GPT, Llama, Falcon, Mixtral), models.bert.BertModel,
+    models.t5.T5Model or a models.classification.EncoderTree family
+    (classification, multiple choice, the biencoder), whose options come
+    from the tree.
 
     A tree that `quantize_weights` made carries its W8 leaves (as W8
     objects, or flat ".../q" and ".../scale" keys): they come across
@@ -82,9 +87,13 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
     `language_model.params_tree` nests it for `Generator`."""
     device = resolve_device(device)
     flat = _flatten(tree_or_flat)
-    expected = {k: tuple(t.shape) for k, t in
-                model_cls(cfg, device="meta").state_dict().items()}
     got = {k.replace("/", "."): v for k, v in flat.items()}
+    options = {}
+    if hasattr(model_cls, "options_from_tree"):
+        options = model_cls.options_from_tree(
+            {k: tuple(np.shape(v)) for k, v in got.items()})
+    expected = {k: tuple(t.shape) for k, t in model_cls(
+        cfg, device="meta", **options).state_dict().items()}
     w8 = _take_w8(got, expected)
     missing = sorted(set(expected) - set(got) - set(w8))
     extra = sorted(set(got) - set(expected))
@@ -184,7 +193,7 @@ def load_npz_checkpoint(root: str, device: DeviceLike = None,
     if not ok:
         raise ValueError(f"checkpoint {d} failed integrity verification "
                          f"({why})")
-    flat = checkpointing.read_params(d)
+    flat = checkpointing.read_params(d, verified=why == "ok")
     with open(os.path.join(d, "config.json")) as f:
         cfg = MegatronConfig.from_dict(json.load(f)).model.derived()
     state = params_from_numpy(flat, cfg, device, dtype)

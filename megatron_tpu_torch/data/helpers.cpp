@@ -1,11 +1,13 @@
 // Native data-pipeline helpers of megatron_tpu_torch (host C++, no CUDA).
 //
-// The port's copy of the two functions of megatron_tpu/data/helpers.cpp that
-// the GPT data path runs: the sequential sample-index walk (taken only when a
-// corpus has empty documents) and the greedy blending indices. Same
-// algorithms as the reference's pybind11 helpers (ref: megatron/data/
-// helpers.cpp build_sample_idx :83-166, build_blending_indices :20-80), as a
-// plain extern "C" library bound through ctypes. Built at first use by
+// The port's copy of megatron_tpu/data/helpers.cpp: the sequential
+// sample-index walk (taken only when a corpus has empty documents) and the
+// greedy blending indices of the GPT data path, and the sentence-pair and
+// ICT block mappings of data/ict_dataset.py. Same algorithms as the
+// reference's pybind11 helpers (ref: megatron/data/helpers.cpp
+// build_sample_idx :83-166, build_blending_indices :20-80, build_mapping
+// :188-451, build_blocks_mapping :453-670), as a plain extern "C" library
+// bound through ctypes. Built at first use by
 // megatron_tpu_torch/data/helpers.py into the repository's build/ directory:
 //
 //   g++ -O3 -shared -fPIC -o build/libdata_helpers_<hash>.so helpers.cpp
@@ -82,6 +84,173 @@ void build_blending_indices(const double* weights, int32_t num_datasets,
         dataset_sample_index[i] = current[best];
         ++current[best];
     }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Sentence-pair / block mappings for BERT-style and ICT/REALM datasets.
+//
+// Walk documents of sentences, cut them into samples of ~target length,
+// record (start sentence, end sentence, extra) triples/quads, then
+// Fisher-Yates shuffle with mt19937_64(seed+1). Sample-length randomness
+// uses mt19937(seed), so the maps are bit-identical to megatron_tpu's for
+// the same inputs. Two-call form: pass out == nullptr to size the map, then
+// call again to fill and shuffle it.
+// ---------------------------------------------------------------------------
+
+#include <cmath>
+#include <random>
+
+namespace {
+
+const int32_t kLongSentenceLen = 512;
+
+inline int32_t target_sample_len(int32_t short_seq_ratio, int32_t max_length,
+                                 std::mt19937& gen) {
+    if (short_seq_ratio == 0) return max_length;
+    const uint32_t r = gen();
+    if (r % short_seq_ratio == 0) return 2 + r % (max_length - 1);
+    return max_length;
+}
+
+inline void shuffle_rows(int64_t* maps, int64_t n, int width, int32_t seed) {
+    std::mt19937_64 gen(seed + 1);
+    for (int64_t i = n - 1; i > 0; --i) {
+        const int64_t j = static_cast<int64_t>(gen() % (i + 1));
+        for (int c = 0; c < width; ++c) {
+            const int64_t t = maps[width * i + c];
+            maps[width * i + c] = maps[width * j + c];
+            maps[width * j + c] = t;
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sentence-pair mapping (ref: helpers.cpp:188-420 build_mapping_impl).
+// docs: [n_docs+1] sentence-index offsets; sizes: tokens per sentence.
+// Returns the sample count; when out != nullptr also fills out[n*3] with
+// (start sentence, end sentence (exclusive), target seq length) rows and
+// shuffles them.
+int64_t build_mapping(const int64_t* docs, int64_t n_docs,
+                      const int32_t* sizes,
+                      int32_t num_epochs, uint64_t max_num_samples,
+                      int32_t max_seq_length, double short_seq_prob,
+                      int32_t seed, int32_t min_num_sent,
+                      int64_t* out) {
+    int32_t short_seq_ratio = 0;
+    if (short_seq_prob > 0)
+        short_seq_ratio =
+            static_cast<int32_t>(lround(1.0 / short_seq_prob));
+
+    std::mt19937 gen(seed);
+    uint64_t map_index = 0;
+    for (int32_t epoch = 0; epoch < num_epochs; ++epoch) {
+        if (map_index >= max_num_samples) break;
+        for (int64_t doc = 0; doc < n_docs; ++doc) {
+            const int64_t first = docs[doc];
+            const int64_t last = docs[doc + 1];
+            int64_t prev_start = first;
+            int64_t remain = last - first;
+
+            bool has_long = false;
+            if (remain > 1) {
+                for (int64_t s = first; s < last; ++s) {
+                    if (sizes[s] > kLongSentenceLen) { has_long = true; break; }
+                }
+            }
+            if (remain < min_num_sent || has_long) continue;
+
+            int32_t seq_len = 0;
+            int32_t num_sent = 0;
+            int32_t target = target_sample_len(short_seq_ratio,
+                                               max_seq_length, gen);
+            for (int64_t s = first; s < last; ++s) {
+                seq_len += sizes[s];
+                ++num_sent;
+                --remain;
+                if ((seq_len >= target && remain > 1 &&
+                     num_sent >= min_num_sent) || remain == 0) {
+                    if (out != nullptr) {
+                        out[3 * map_index] = prev_start;
+                        out[3 * map_index + 1] = s + 1;
+                        out[3 * map_index + 2] = target;
+                    }
+                    ++map_index;
+                    prev_start = s + 1;
+                    target = target_sample_len(short_seq_ratio,
+                                               max_seq_length, gen);
+                    seq_len = 0;
+                    num_sent = 0;
+                }
+            }
+        }
+    }
+    if (out != nullptr)
+        shuffle_rows(out, static_cast<int64_t>(map_index), 3, seed);
+    return static_cast<int64_t>(map_index);
+}
+
+// ICT/REALM block mapping (ref: helpers.cpp:453-670
+// build_blocks_mapping_impl). Rows are (start sentence, end sentence,
+// document index, block id); target length shrinks by the document's title
+// size so title + block fit max_seq_length together.
+int64_t build_blocks_mapping(const int64_t* docs, int64_t n_docs,
+                             const int32_t* sizes,
+                             const int32_t* titles_sizes,
+                             int32_t num_epochs, uint64_t max_num_samples,
+                             int32_t max_seq_length, int32_t seed,
+                             int32_t use_one_sent_blocks,
+                             int64_t* out) {
+    const int32_t min_num_sent = use_one_sent_blocks ? 1 : 2;
+    uint64_t map_index = 0;
+    for (int32_t epoch = 0; epoch < num_epochs; ++epoch) {
+        int64_t block_id = 0;
+        if (map_index >= max_num_samples) break;
+        for (int64_t doc = 0; doc < n_docs; ++doc) {
+            const int64_t first = docs[doc];
+            const int64_t last = docs[doc + 1];
+            const int32_t target = max_seq_length - titles_sizes[doc];
+            int64_t prev_start = first;
+            int64_t remain = last - first;
+
+            bool has_long = false;
+            if (remain >= min_num_sent) {
+                for (int64_t s = first; s < last; ++s) {
+                    if (sizes[s] > kLongSentenceLen) { has_long = true; break; }
+                }
+            }
+            if (remain < min_num_sent || has_long) continue;
+
+            int32_t seq_len = 0;
+            int32_t num_sent = 0;
+            for (int64_t s = first; s < last; ++s) {
+                seq_len += sizes[s];
+                ++num_sent;
+                --remain;
+                if ((seq_len >= target && remain >= min_num_sent &&
+                     num_sent >= min_num_sent) || remain == 0) {
+                    if (out != nullptr) {
+                        out[4 * map_index] = prev_start;
+                        out[4 * map_index + 1] = s + 1;
+                        out[4 * map_index + 2] = doc;
+                        out[4 * map_index + 3] = block_id;
+                    }
+                    ++map_index;
+                    ++block_id;
+                    prev_start = s + 1;
+                    seq_len = 0;
+                    num_sent = 0;
+                }
+            }
+        }
+    }
+    if (out != nullptr)
+        shuffle_rows(out, static_cast<int64_t>(map_index), 4, seed);
+    return static_cast<int64_t>(map_index);
 }
 
 }  // extern "C"

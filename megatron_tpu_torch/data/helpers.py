@@ -1,7 +1,8 @@
 """ctypes loader of the native data helpers (data/helpers.cpp).
 
-Host C++, not a kernel: the sequential sample-index walk and the greedy
-blending indices of megatron_tpu/data/helpers.py. The library is built with
+Host C++, not a kernel: the sequential sample-index walk, the greedy
+blending indices and the sentence-pair and ICT block mappings of
+megatron_tpu/data/helpers.py. The library is built with
 g++ at first use into the repository's `build/` directory (as
 ops/cuda_build.py builds the kernels), named by the hash of its source and
 flags, and never next to the source. A failed build raises; nothing falls
@@ -68,6 +69,16 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_double), ctypes.c_int32, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64)]
     lib.build_blending_indices.restype = None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.build_mapping.argtypes = [
+        i64p, ctypes.c_int64, i32p, ctypes.c_int32, ctypes.c_uint64,
+        ctypes.c_int32, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+        i64p]
+    lib.build_mapping.restype = ctypes.c_int64
+    lib.build_blocks_mapping.argtypes = [
+        i64p, ctypes.c_int64, i32p, i32p, ctypes.c_int32, ctypes.c_uint64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i64p]
+    lib.build_blocks_mapping.restype = ctypes.c_int64
     return lib
 
 
@@ -106,3 +117,48 @@ def build_blending_indices_native(weights: np.ndarray, size: int):
         ctypes.c_int64(size), _ptr(dataset_index, ctypes.c_uint8),
         _ptr(dataset_sample_index, ctypes.c_int64))
     return dataset_index, dataset_sample_index
+
+
+def build_mapping_native(docs: np.ndarray, sizes: np.ndarray, *,
+                         num_epochs: int, max_num_samples: int,
+                         max_seq_length: int, short_seq_prob: float,
+                         seed: int, min_num_sent: int = 2) -> np.ndarray:
+    """Sentence-pair sample map [n, 3] int64 of (start sentence, end
+    sentence, target length), shuffled."""
+    lib = _lib()
+    docs = np.ascontiguousarray(docs, dtype=np.int64)
+    sizes = np.ascontiguousarray(sizes, dtype=np.int32)
+    args = [_ptr(docs, ctypes.c_int64), ctypes.c_int64(len(docs) - 1),
+            _ptr(sizes, ctypes.c_int32), ctypes.c_int32(num_epochs),
+            ctypes.c_uint64(max_num_samples),
+            ctypes.c_int32(max_seq_length),
+            ctypes.c_double(short_seq_prob), ctypes.c_int32(seed),
+            ctypes.c_int32(min_num_sent)]
+    n = lib.build_mapping(*args, None)
+    out = np.zeros((n, 3), dtype=np.int64)
+    lib.build_mapping(*args, _ptr(out, ctypes.c_int64))
+    return out
+
+
+def build_blocks_mapping_native(docs: np.ndarray, sizes: np.ndarray,
+                                titles_sizes: np.ndarray, *,
+                                num_epochs: int, max_num_samples: int,
+                                max_seq_length: int, seed: int,
+                                use_one_sent_blocks: bool = False
+                                ) -> np.ndarray:
+    """ICT block map [n, 4] int64 of (start sentence, end sentence,
+    document, block id), shuffled; a document's target length shrinks by
+    its title's."""
+    lib = _lib()
+    docs = np.ascontiguousarray(docs, dtype=np.int64)
+    sizes = np.ascontiguousarray(sizes, dtype=np.int32)
+    titles_sizes = np.ascontiguousarray(titles_sizes, dtype=np.int32)
+    args = [_ptr(docs, ctypes.c_int64), ctypes.c_int64(len(docs) - 1),
+            _ptr(sizes, ctypes.c_int32), _ptr(titles_sizes, ctypes.c_int32),
+            ctypes.c_int32(num_epochs), ctypes.c_uint64(max_num_samples),
+            ctypes.c_int32(max_seq_length), ctypes.c_int32(seed),
+            ctypes.c_int32(int(use_one_sent_blocks))]
+    n = lib.build_blocks_mapping(*args, None)
+    out = np.zeros((n, 4), dtype=np.int64)
+    lib.build_blocks_mapping(*args, _ptr(out, ctypes.c_int64))
+    return out

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import unicodedata
 from typing import Optional, Sequence
 
@@ -389,6 +390,15 @@ def bytes_to_unicode():
     return dict(zip(bs, (chr(c) for c in cs)))
 
 
+# The basic tokenization below for ASCII text, at C speed: the control
+# characters other than \t\n\r dropped and those three made spaces (ASCII
+# has no marks for NFD to strip), then runs of letters and digits and each
+# punctuation character (the four ASCII ranges of `_is_punct`).
+_ASCII_CLEAN = {**dict.fromkeys([*range(9), 11, 12, *range(14, 32), 127]),
+                9: 32, 10: 32, 13: 32}
+_ASCII_WORDS = re.compile(r"[0-9A-Za-z]+|[!-/:-@\[-`{-~]")
+
+
 class BertWordPieceTokenizer(AbstractTokenizer):
     """Self-contained BERT WordPiece tokenizer
     (ref: megatron/tokenizer/tokenizer.py:123-253 _BertWordPieceTokenizer
@@ -445,7 +455,10 @@ class BertWordPieceTokenizer(AbstractTokenizer):
         return unicodedata.category(ch).startswith("C")
 
     def _basic_tokenize(self, text: str) -> list[str]:
-        import unicodedata
+        if text.isascii():
+            text = text.translate(_ASCII_CLEAN)
+            return _ASCII_WORDS.findall(text.lower() if self.lower_case
+                                        else text)
         # clean: drop control chars and the replacement char, normalize
         # whitespace (the original BasicTokenizer's _clean_text)
         text = "".join(" " if ch.isspace() else ch for ch in text

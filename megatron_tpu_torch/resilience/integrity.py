@@ -31,7 +31,9 @@ import json
 import os
 import re
 import shutil
-from typing import List, Optional, Tuple
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 MANIFEST = "manifest.json"
 _ITER_RE = re.compile(r"^iter_(\d{7,})$")
@@ -51,6 +53,76 @@ def _digest_file(path: str) -> Tuple[str, int]:
     return h.hexdigest(), size
 
 
+def _digest_files(paths: List[str]) -> List[Tuple[str, int]]:
+    """_digest_file of each path, one thread a file (hashlib and file reads
+    release the GIL, so a params file and an optimizer file digest side by
+    side)."""
+    if len(paths) < 2:
+        return [_digest_file(p) for p in paths]
+    with ThreadPoolExecutor(max_workers=min(len(paths), 8)) as pool:
+        return list(pool.map(_digest_file, paths))
+
+
+class FollowingDigest:
+    """SHA-256 of a file while it is being written, on a thread of its own:
+    the writer calls `advance(offset)` once every byte before `offset` is
+    final (a zip member closed, its local header rewritten), and the thread
+    reads the file back up to there and digests it. `finish(size)` marks the
+    file complete and returns (hexdigest, size), or None if reading back
+    failed (the manifest then digests the file itself). Digesting overlaps
+    the write instead of following it."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._final = 0
+        self._done = False
+        self._cv = threading.Condition()
+        self._result: Optional[Tuple[str, int]] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="checkpoint-digest")
+        self._thread.start()
+
+    def advance(self, offset: int, done: bool = False) -> None:
+        with self._cv:
+            self._final = max(self._final, offset)
+            self._done = self._done or done
+            self._cv.notify()
+
+    def finish(self, size: int) -> Optional[Tuple[str, int]]:
+        self.advance(size, done=True)
+        self._thread.join()
+        result = self._result
+        return result if result is not None and result[1] == size else None
+
+    def abandon(self) -> None:
+        self.advance(0, done=True)
+        self._thread.join()
+
+    def _run(self) -> None:
+        h = hashlib.sha256()
+        pos = 0
+        try:
+            # unbuffered: a buffered reader would read ahead past `final`
+            # into bytes the writer has yet to rewrite
+            with open(self._path, "rb", buffering=0) as f:
+                while True:
+                    with self._cv:
+                        while pos >= self._final and not self._done:
+                            self._cv.wait()
+                        final, done = self._final, self._done
+                    while pos < final:
+                        chunk = f.read(min(_CHUNK * 8, final - pos))
+                        if not chunk:
+                            return
+                        h.update(chunk)
+                        pos += len(chunk)
+                    if done:
+                        break
+        except OSError:
+            return
+        self._result = (h.hexdigest(), pos)
+
+
 def _walk_files(ckpt_dir: str) -> List[str]:
     """All file paths under `ckpt_dir` relative to it, manifest
     excluded, sorted for a deterministic manifest."""
@@ -64,15 +136,25 @@ def _walk_files(ckpt_dir: str) -> List[str]:
     return sorted(out)
 
 
-def write_manifest(ckpt_dir: str) -> str:
+def write_manifest(ckpt_dir: str, known: Optional[
+        Dict[str, Tuple[str, int]]] = None) -> str:
     """Digest every file under the checkpoint dir and write
     `manifest.json` atomically (tmp + rename: a crash mid-manifest
     leaves no half-manifest to misverify). Must be called only after
     all payload writes are durable — the save path orders it after the
-    backend write and before the tracker publish."""
+    backend write and before the tracker publish. `known` holds
+    {relative path: (sha256, size)} digested as the save wrote them
+    (FollowingDigest); such a file whose size on disk still matches is not
+    read again."""
+    known = known or {}
+    rels = _walk_files(ckpt_dir)
+    todo = [rel for rel in rels if rel not in known or os.path.getsize(
+        os.path.join(ckpt_dir, rel)) != known[rel][1]]
+    digests = dict(zip(todo, _digest_files(
+        [os.path.join(ckpt_dir, rel) for rel in todo])))
     entries = {}
-    for rel in _walk_files(ckpt_dir):
-        digest, size = _digest_file(os.path.join(ckpt_dir, rel))
+    for rel in rels:
+        digest, size = digests[rel] if rel in digests else known[rel]
         entries[rel] = {"sha256": digest, "size": size}
     doc = {"version": 1, "algorithm": "sha256", "files": entries}
     path = os.path.join(ckpt_dir, MANIFEST)
@@ -111,18 +193,28 @@ def verify_checkpoint(ckpt_dir: str, *, deep: bool = True
         files = doc["files"]
     except (OSError, ValueError, KeyError) as e:
         return False, f"manifest unreadable ({e})"
+    # the files in the manifest's order, the first fault reported: sizes
+    # first, then the digests of the files before the first bad size, side
+    # by side
+    sound, fault = [], None
     for rel, want in files.items():
         p = os.path.join(ckpt_dir, rel)
         if not os.path.exists(p):
-            return False, f"missing file {rel}"
+            fault = f"missing file {rel}"
+            break
         size = os.path.getsize(p)
         if size != want["size"]:
-            return False, (f"size mismatch for {rel}: "
-                           f"{size} != {want['size']}")
-        if deep:
-            digest, _ = _digest_file(p)
-            if digest != want["sha256"]:
+            fault = f"size mismatch for {rel}: {size} != {want['size']}"
+            break
+        sound.append(rel)
+    if deep:
+        digests = _digest_files([os.path.join(ckpt_dir, rel)
+                                 for rel in sound])
+        for rel, (digest, _) in zip(sound, digests):
+            if digest != files[rel]["sha256"]:
                 return False, f"checksum mismatch for {rel}"
+    if fault is not None:
+        return False, fault
     return True, "ok"
 
 

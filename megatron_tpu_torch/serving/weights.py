@@ -146,7 +146,8 @@ def load_staged(ckpt_dir: str, example_params, *,
     try:
         from megatron_tpu_torch.training.checkpointing import \
             load_params_host
-        params = load_params_host(ckpt_dir, example_params)
+        params = load_params_host(ckpt_dir, example_params,
+                                  verified=not unverified)
     except Exception as e:  # noqa: BLE001 — any staging failure refuses
         raise WeightSwapError(
             f"checkpoint {ckpt_dir} failed host-side staging "

@@ -29,6 +29,8 @@ iteration) (training/loop.py), so no generator state is saved.
 
 `load_params_host` stages one checkpoint's parameters in host memory without
 the optimizer state (the live-weight swap's staging, serving/weights.py).
+`load_pretrained_params` copies a checkpoint's weights into the leaves of
+another model that share their names (a task head keeps its fresh values).
 
 Orbax checkpoints (`format_version` 2, a `state/` directory) exist only with
 JAX: reading one raises. Convert it on the JAX side with `load_params_host`
@@ -38,8 +40,10 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import time
 import zipfile
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -123,13 +127,15 @@ def _write_text_atomic(path: str, text: str,
     retry(_write, policy, label=f"write:{os.path.basename(path)}")
 
 
-def _publish(root: str, tag: str, d: str, resil: ResilienceConfig) -> float:
+def _publish(root: str, tag: str, d: str, resil: ResilienceConfig,
+             digests: Optional[dict] = None) -> float:
     """Manifest (integrity), then tracker (visibility), then retention.
+    `digests` holds the payload files' digests taken as they were written.
     Returns the manifest's seconds."""
     policy = policy_from(resil)
     t0 = time.perf_counter()
     if resil.checkpoint_integrity:
-        retry(lambda: integrity.write_manifest(d), policy,
+        retry(lambda: integrity.write_manifest(d, digests), policy,
               label="write_manifest")
     manifest_s = time.perf_counter() - t0
     _write_text_atomic(os.path.join(root, TRACKER), tag, policy)
@@ -165,17 +171,31 @@ def _opt_leaves(state: TrainState) -> dict:
     return leaves
 
 
-def _write_npz(path: str, leaves: dict) -> int:
+def _write_npz(path: str, leaves: dict) -> tuple:
     """The file np.savez writes, filled one leaf at a time (device -> host
-    -> zip member). Returns its bytes."""
-    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
-                         allowZip64=True) as zf:
-        for key, t in leaves.items():
-            arr = t.detach().cpu().numpy()
-            with zf.open(key + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, arr, allow_pickle=False)
-            del arr
-    return os.path.getsize(path)
+    -> zip member), its SHA-256 taken on another thread as each member is
+    closed. Returns (bytes, (sha256, bytes) or None)."""
+    with open(path, "wb") as raw:
+        digest = integrity.FollowingDigest(path)
+        try:
+            with zipfile.ZipFile(raw, mode="w",
+                                 compression=zipfile.ZIP_STORED,
+                                 allowZip64=True) as zf:
+                for key, t in leaves.items():
+                    arr = t.detach().cpu().numpy()
+                    with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                        np.lib.format.write_array(f, arr,
+                                                  allow_pickle=False)
+                    del arr
+                    # the member's local header is rewritten on close:
+                    # every byte before the end is final now
+                    raw.flush()
+                    digest.advance(raw.tell())
+        except BaseException:
+            digest.abandon()
+            raise
+    size = os.path.getsize(path)
+    return size, digest.finish(size)
 
 
 def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
@@ -196,6 +216,7 @@ def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
                 and not cfg.training.no_save_optim)
     t0 = time.perf_counter()
     nbytes = 0
+    digests = {}
     for fname, leaves in ((PARAMS_FILE, _param_leaves(state)),
                           (OPT_FILE, _opt_leaves(state) if save_opt
                            else None)):
@@ -207,7 +228,10 @@ def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
             fault_point("checkpoint_write")
             return _write_npz(p, lv)
 
-        nbytes += retry(_write, policy, label=f"write:{fname}")
+        size, digest = retry(_write, policy, label=f"write:{fname}")
+        nbytes += size
+        if digest is not None:
+            digests[fname] = digest
     meta = {
         "iteration": int(iteration),
         "consumed_samples": int(consumed_samples),
@@ -223,7 +247,7 @@ def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
                        json.dumps(meta, indent=2), policy)
     _write_text_atomic(os.path.join(d, "config.json"), cfg.to_json(), policy)
     payload_s = time.perf_counter() - t0
-    manifest_s = _publish(root, tag, d, resil)
+    manifest_s = _publish(root, tag, d, resil, digests)
     last_save.clear()
     last_save.update(dir=d, payload_s=payload_s, manifest_s=manifest_s,
                      bytes=nbytes)
@@ -305,11 +329,67 @@ def _check_leaves(path: str, want: dict) -> None:
                              f"{tuple(shape)}")
 
 
+_LOCAL_HEADER = struct.Struct("<4s2B4HL2L2H")  # a zip member's local header
+
+
+def _read_exact(f, buf: memoryview) -> None:
+    got = 0
+    while got < len(buf):
+        n = f.readinto(buf[got:])
+        if not n:
+            raise ValueError("npz member truncated")
+        got += n
+
+
+def _npz_arrays(path: str, keys=None, *, crc: bool = True):
+    """Yield (key, array) for `keys` of an npz file (all its members, in
+    order, when None), as np.load would give them: each stored member is
+    read straight into its array, with no chunked copy. The member's CRC-32
+    is checked unless `crc` is False (the caller has just verified the
+    file's SHA-256 against its manifest). A missing key raises KeyError."""
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        infos = {(i.filename[:-4] if i.filename.endswith(".npy")
+                  else i.filename): i for i in zf.infolist()}
+        for key in (list(infos) if keys is None else keys):
+            info = infos[key]
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as m:
+                    yield key, np.lib.format.read_array(
+                        m, allow_pickle=False)
+                continue
+            f.seek(info.header_offset)
+            fields = _LOCAL_HEADER.unpack(f.read(_LOCAL_HEADER.size))
+            if fields[0] != b"PK\x03\x04":
+                raise ValueError(f"{path}: bad zip local header for {key}")
+            start = info.header_offset + _LOCAL_HEADER.size + fields[-2] \
+                + fields[-1]
+            f.seek(start)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            if dtype.hasobject:
+                raise ValueError(f"{path}: {key} holds Python objects")
+            head = f.tell() - start
+            count = int(np.prod(shape, dtype=np.int64))
+            if head + count * dtype.itemsize != info.file_size:
+                raise ValueError(f"{path}: {key} is not {shape} {dtype}")
+            flat = np.empty(count, dtype)
+            _read_exact(f, memoryview(flat.view(np.uint8)))
+            if crc:
+                f.seek(start)
+                value = zlib.crc32(f.read(head))
+                if zlib.crc32(flat.view(np.uint8), value) != info.CRC:
+                    raise zipfile.BadZipFile(f"Bad CRC-32 for file "
+                                             f"{info.filename!r}")
+            yield key, (flat.reshape(shape[::-1]).T if fortran
+                        else flat.reshape(shape))
+
+
 @torch.no_grad()
-def _copy_into(path: str, leaves: dict) -> None:
-    with np.load(path) as npz:
-        for key, t in leaves.items():
-            t.copy_(torch.from_numpy(npz[key]))
+def _copy_into(path: str, leaves: dict, *, crc: bool = True) -> None:
+    for key, arr in _npz_arrays(path, leaves.keys(), crc=crc):
+        leaves[key].copy_(torch.from_numpy(arr))
 
 
 def load_checkpoint(root: str, example_state: TrainState, *,
@@ -343,6 +423,7 @@ def load_checkpoint(root: str, example_state: TrainState, *,
             continue
         _check_npz_format(d)
         verified = not resil.checkpoint_integrity
+        digested = False  # every payload byte matched its SHA-256
         t0 = time.perf_counter()
         if resil.checkpoint_integrity:
             ok, why = integrity.verify_checkpoint(d)
@@ -351,7 +432,7 @@ def load_checkpoint(root: str, example_state: TrainState, *,
                              f"verification ({why}); falling back to "
                              "the previous valid checkpoint")
                 continue
-            verified = why == "ok"
+            verified = digested = why == "ok"
             if not verified:
                 print_rank_0(f"checkpoint {d}: {why}")
         verify_s = time.perf_counter() - t0
@@ -366,7 +447,8 @@ def load_checkpoint(root: str, example_state: TrainState, *,
             t0 = time.perf_counter()
             loaded = _restore_from_dir(d, meta, example_state,
                                        finetune=finetune,
-                                       no_load_optim=no_load_optim)
+                                       no_load_optim=no_load_optim,
+                                       digested=digested)
         except Exception as e:  # noqa: BLE001 — see below
             if verified:
                 # the payload checksummed clean: a real error (a tree or
@@ -386,8 +468,8 @@ def load_checkpoint(root: str, example_state: TrainState, *,
 
 
 def _restore_from_dir(d: str, meta: dict, example_state: TrainState, *,
-                      finetune: bool = False, no_load_optim: bool = False
-                      ) -> LoadedCheckpoint:
+                      finetune: bool = False, no_load_optim: bool = False,
+                      digested: bool = False) -> LoadedCheckpoint:
     release = bool(meta.get("release", os.path.basename(d) == "release"))
     load_optim = (not finetune and not no_load_optim and not release
                   and example_state.opt_state is not None)
@@ -400,9 +482,9 @@ def _restore_from_dir(d: str, meta: dict, example_state: TrainState, *,
         opt = _opt_leaves(example_state)
         _check_leaves(opt_path, _shapes(opt))
     # every key and shape checked: only now is the example overwritten
-    _copy_into(params_path, params)
+    _copy_into(params_path, params, crc=not digested)
     if load_optim:
-        _copy_into(opt_path, opt)
+        _copy_into(opt_path, opt, crc=not digested)
 
     if finetune or release:
         # a fresh run: the data stream restarts too
@@ -432,11 +514,12 @@ def tracked_dir(root: str) -> str:
     return d
 
 
-def read_params(d: str) -> dict:
-    """The flat {"a/b/c": array} parameters of one checkpoint dir."""
+def read_params(d: str, *, verified: bool = False) -> dict:
+    """The flat {"a/b/c": array} parameters of one checkpoint dir
+    (`verified`: its manifest was just checked, so the zip's CRC-32s are
+    not)."""
     _check_npz_format(d)
-    with np.load(os.path.join(d, PARAMS_FILE)) as npz:
-        return {k: npz[k] for k in npz.files}
+    return dict(_npz_arrays(os.path.join(d, PARAMS_FILE), crc=not verified))
 
 
 def _shapes(leaves: dict) -> dict:
@@ -466,19 +549,20 @@ def example_shapes(example_params) -> dict:
             for k, v in tree_leaves(example_params).items()}
 
 
-def load_params_host(ckpt_dir: str, example_params) -> dict:
+def load_params_host(ckpt_dir: str, example_params, *,
+                     verified: bool = False) -> dict:
     """The parameters of one npz checkpoint dir staged in host memory
     (checkpointing.py load_params_host): {"a/b/c": numpy array} in the
     file's dtype (numpy has no bfloat16; the placement casts), every key
     and shape checked against `example_params` before any array is read.
     The optimizer state is never read and nothing touches a device. An
-    orbax checkpoint raises (ROADMAP Queue 1 item 2)."""
+    orbax checkpoint raises (ROADMAP Queue 1 item 2). `verified`: the
+    manifest was just checked, so the zip's CRC-32s are not."""
     _check_npz_format(ckpt_dir)
     path = os.path.join(ckpt_dir, PARAMS_FILE)
     want = example_shapes(example_params)
     _check_leaves(path, want)
-    with np.load(path) as npz:
-        return {k: npz[k] for k in want}
+    return dict(_npz_arrays(path, want, crc=not verified))
 
 
 def load_config_from_checkpoint(root: str) -> Optional[MegatronConfig]:
@@ -494,3 +578,37 @@ def load_config_from_checkpoint(root: str) -> Optional[MegatronConfig]:
         except (OSError, ValueError):
             continue
     return None
+
+
+@torch.no_grad()
+def load_pretrained_params(root: str, model: torch.nn.Module, *,
+                           label: str = "pretrained_checkpoint") -> list:
+    """Copy the weights of the checkpoint the tracker under `root` names
+    into `model`'s leaves of the same name (finetuning from a pretraining
+    checkpoint: the reference's partial restore). Leaves the checkpoint
+    lacks keep their values and are reported; a leaf of another shape
+    raises; the checkpoint's other leaves (a pretraining head) are not
+    read. The directory is verified against its manifest first. Returns
+    the names kept."""
+    d = tracked_dir(root)
+    _check_npz_format(d)
+    ok, why = integrity.verify_checkpoint(d)
+    if not ok:
+        raise ValueError(f"checkpoint {d} failed integrity verification "
+                         f"({why})")
+    path = os.path.join(d, PARAMS_FILE)
+    shapes = _npz_shapes(path)
+    leaves = {_jax_name(k): t for k, t in model.state_dict().items()}
+    for key, t in leaves.items():
+        if key in shapes and tuple(shapes[key]) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(shapes[key])} vs model "
+                             f"{tuple(t.shape)}")
+    _copy_into(path, {k: t for k, t in leaves.items() if k in shapes},
+               crc=why != "ok")
+    kept = sorted(k for k in leaves if k not in shapes)
+    if kept:
+        print_rank_0(f"{label}: kept fresh init for {len(kept)} leaves "
+                     f"absent on disk: {', '.join(kept[:8])}"
+                     f"{' ...' if len(kept) > 8 else ''}")
+    return kept

@@ -132,7 +132,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/router.py", "tools/chaos_common.py",
                    "tools/chaos_router.py", "serving/remote.py",
                    "tools/chaos_fleet.py", "tools/serving_bench.py",
-                   "models/moe.py", *PRETRAINING):
+                   "models/moe.py", *PRETRAINING, *RETRIEVAL):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
@@ -140,13 +140,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert top not in ("jax", "jaxlib", "megatron_tpu", "flax",
                                "optax", "orbax", "transformers",
                                "safetensors", "tokenizers", "sentencepiece",
-                               "regex"), f"{path}: imports {mod}"
+                               "regex", "tasks"), f"{path}: imports {mod}"
 
 
 # the BERT and T5 pretraining slice
 PRETRAINING = ("ops/dropout.py", "models/bert.py", "models/t5.py",
                "data/masked_dataset.py", "training/pretrain.py",
                "pretrain_bert.py", "pretrain_t5.py")
+
+# the BERT heads and the retriever slice
+RETRIEVAL = ("data/ict_dataset.py", "data/orqa_dataset.py",
+             "data/realm_index.py", "models/classification.py",
+             "models/biencoder.py", "indexer.py", "pretrain_ict.py",
+             "tools/create_doc_index.py", "tasks/main.py",
+             "tasks/data_utils.py", "tasks/finetune_utils.py",
+             "tasks/glue/data.py", "tasks/race/data.py",
+             "tasks/orqa/data.py", "tasks/orqa/evaluate.py",
+             "tasks/orqa/finetune.py", "tasks/orqa/qa_utils.py")
 
 FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
               "serving/request.py", "serving/metrics.py",
@@ -170,13 +180,20 @@ def test_pretraining_modules_import_no_jax(module):
     _assert_imports_no_jax(module)
 
 
+@pytest.mark.parametrize("module", RETRIEVAL)
+def test_retrieval_modules_import_no_jax(module):
+    """The same for the BERT heads and the retriever slice's modules, the
+    root `tasks` package included."""
+    _assert_imports_no_jax(module)
+
+
 def _assert_imports_no_jax(module):
     import subprocess
     import sys
     name = "megatron_tpu_torch." + module[:-3].replace("/", ".")
     code = (f"import sys, {name}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'megatron_tpu')); print(bad)")
+            "('jax', 'jaxlib', 'megatron_tpu', 'tasks')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

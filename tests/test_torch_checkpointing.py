@@ -258,3 +258,64 @@ def test_missing_checkpoint_starts_from_scratch(tmp_path):
     loaded = t_ckpt.load_checkpoint(str(tmp_path),
                                     t_init(tcfg, seed=0, device="cpu"))
     assert tuple(loaded) == (None, 0, 0)
+
+
+def _npz_members():
+    rs = np.random.RandomState(3)
+    return {"c": rs.randn(5, 7).astype(np.float32),
+            "fortran": np.asfortranarray(rs.randn(4, 6)),
+            "scalar": np.float32(2.5) * np.ones((), np.float32),
+            "empty": np.zeros((0, 3), np.int32),
+            "int8": rs.randint(-128, 127, (3, 2, 5)).astype(np.int8)}
+
+
+@pytest.mark.parametrize("writer", ["np.savez", "port"])
+def test_npz_reader_matches_np_load(tmp_path, writer):
+    """The port's direct member reader gives np.load's arrays, for files
+    numpy writes (the JAX package's) and files the port writes (a
+    transposed tensor stored in Fortran order), with and without the
+    CRC-32 check; the port's write-time digest is the file's SHA-256."""
+    path = str(tmp_path / "x.npz")
+    members = _npz_members()
+    if writer == "np.savez":
+        np.savez(path, **members)
+    else:
+        leaves = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in members.items()}
+        leaves["fortran"] = torch.from_numpy(
+            np.ascontiguousarray(members["fortran"].T)).T
+        size, digest = t_ckpt._write_npz(path, leaves)
+        assert digest == t_integrity._digest_file(path)
+        assert size == os.path.getsize(path)
+    with np.load(path) as npz:
+        want = {k: npz[k] for k in npz.files}
+    for crc in (True, False):
+        got = dict(t_ckpt._npz_arrays(path, crc=crc))
+        assert list(got) == list(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape
+            assert np.array_equal(got[k], v), k
+    assert list(dict(t_ckpt._npz_arrays(path, ["int8", "c"]))) == \
+        ["int8", "c"]
+    with pytest.raises(KeyError):
+        dict(t_ckpt._npz_arrays(path, ["missing"]))
+
+
+def test_npz_reader_checks_crc_unless_digested(tmp_path):
+    """A flipped payload byte fails the member's CRC-32 as np.load fails
+    it; with the check off (the caller verified the file's SHA-256 first)
+    the reader does not look."""
+    import zipfile
+    path = str(tmp_path / "x.npz")
+    np.savez(path, a=np.arange(64, dtype=np.float32))
+    raw = bytearray(open(path, "rb").read())
+    at = raw.index(np.arange(64, dtype=np.float32).tobytes()) + 17
+    raw[at] ^= 0x40
+    open(path, "wb").write(bytes(raw))
+    with pytest.raises(zipfile.BadZipFile):
+        with np.load(path) as npz:
+            npz["a"]
+    with pytest.raises(zipfile.BadZipFile):
+        dict(t_ckpt._npz_arrays(path))
+    assert not np.array_equal(dict(t_ckpt._npz_arrays(path, crc=False))["a"],
+                              np.arange(64, dtype=np.float32))

@@ -87,6 +87,26 @@ def test_bert_wordpiece_ids_match_jax(vocab, tokenizer_type):
         assert tt.detokenize(ids) == jt.detokenize(ids)
 
 
+@pytest.mark.parametrize("tokenizer_type", ["BertWordPieceLowerCase",
+                                            "BertWordPieceCase"])
+def test_bert_wordpiece_ascii_matches_jax(vocab, tokenizer_type):
+    """ASCII text takes the port's fast basic tokenization: every ASCII
+    code point, the controls, whitespace and punctuation included, splits
+    and maps as the reference's character loop does."""
+    jt = j_tok.build_tokenizer(tokenizer_type, vocab_file=vocab["bert"])
+    tt = t_tok.build_tokenizer(tokenizer_type, vocab_file=vocab["bert"])
+    rng = np.random.RandomState(0)
+    words = [w for w in open(vocab["bert"]).read().split() if w.isalpha()]
+    texts = ["".join(map(chr, rng.randint(0, 128, size=n)))
+             for n in rng.randint(0, 120, size=200)]
+    texts += [" ".join(rng.choice(words, 12)).title() + "\x0bA\tb\x1fC,d!"
+              for _ in range(20)]
+    for text in texts:
+        assert text.isascii()
+        assert tt._basic_tokenize(text) == jt._basic_tokenize(text), text
+        assert tt.tokenize(text) == jt.tokenize(text), text
+
+
 def _preprocess(main, vocab, out, workers=1):
     main(["--input", vocab["jsonl"], "--output_prefix", str(out),
           "--tokenizer_type", "GPT2BPETokenizer", "--vocab_file",
