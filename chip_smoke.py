@@ -327,9 +327,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    2-layer fp32 slice: the classification, multiple-choice and retrieval
    losses through the kernels against the dot path. The padded kernel
    cases `ict_query_pad` and `race_mc_pad` run in phase 3.
+19. Zero-shot evaluation, MSDP, the engine bench tools and length buckets
+   (`phase_zeroshot_msdp_bench`) at Llama-2-7B's widths, random weights
+   from ZS_SEED, a GPT-2 BPE vocabulary of 32,000 and files the phase
+   writes in the published layouts. (a) `evaluate_dataset` with all 32
+   layers in bf16: WIKITEXT103 over a text of at least ZS_FULL_WINDOWS
+   whole windows at the example's overlapping_eval 32, LAMBADA strict on
+   64 samples at micro-batch 8 (the flash forward once a layer a batch;
+   tokens scored a second, peak memory); the loss sum of the first
+   windows through the plain (dot) attention within ZS_DOT_TOL, and the
+   first batch's logits within ZS_LOGITS_TOL; then
+   `python -m megatron_tpu_torch.tasks.main` for both tasks on a 2-layer
+   npz checkpoint, its JSON equal to the same runs in process. (b) MSDP:
+   WoW processing, knowledge-prompt selection through the query tower of
+   a BERT-base biencoder checkpoint (flash with pad segments), greedy
+   knowledge generation at ENGINE_LAYERS, MSDP-EVAL-F1, and a 2-layer
+   fp32 slice whose generations through make_api_fn against the port's
+   server equal those in process. (c) bench_block_attn, bench_spec,
+   bench_prefix and bench_sync: each tool's main in fp32 at 2 layers,
+   which asserts its arms agree token for token, then their arms in bf16
+   at ENGINE_LAYERS and each tool's default sizes for the times (through
+   each tool's `measure`, bench_sync's training arm at 2 layers and seq
+   4,096; each pair's agreement measured); the block
+   kernel must run in the kernel arms only, the bracket's gather bytes a
+   step be 0 there, and bench_sync's serving syncs a decode step be 1/4.
+   (d) one training step a bucket through `bucket_batches` (buckets 1,024
+   and 4,096, 2 layers, fp32 compute): each step's loss equals the
+   unpadded masked mean, and the steps launch each flash kernel once a
+   layer a microbatch. The kernel cases `zeroshot_b8_s4096`,
+   `msdp_query_pad`, `spec_verify_w3` and `spec_verify_w9` run in phase 3.
 
 Phases 1-3b run alone on the card, so that the kernels' times are the
-card's own. Then phases 4-18 run in two lanes at once, each phase in the
+card's own. Then phases 4-19 run in two lanes at once, each phase in the
 order above within its lane: this process runs LANE_A, and a second
 process (`chip_smoke.py --lane ...`, started here and stopped with its own
 processes however the run ends) runs LANE_B, whose lines come through here
@@ -342,10 +371,10 @@ print are taken beside the other lane's work.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-18
-too, the block kernel's on phases 9, 11-16 too, its verify rounds at
-w 5 on phases 11, 13 and 14; phase 15's counts are the replica processes'
-whole lives) and, last, {"ok": true, "device": ...}.
+the norm kernels' on every path above, the flash kernels' on phases 8-19
+too, the block kernel's on phases 9, 11-16 and 19 too, its verify rounds
+at w 5 on phases 11, 13 and 14; phase 15's counts are the replica
+processes' whole lives, phase 19's the parts in its own process) and, last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -361,8 +390,10 @@ current wrapper with the autograd Function's cast).
 from __future__ import annotations
 
 import ast
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import re
@@ -384,7 +415,7 @@ PEAK_BYTES = 3.35e12
 # each took alone on one host (a slower one than most) balance them,
 # 508 s against 520 s
 LANE_A = ("4", "5", "6", "8", "9", "12", "13")
-LANE_B = ("15", "16", "7", "10", "11", "14", "17", "18")
+LANE_B = ("15", "16", "7", "10", "11", "14", "17", "18", "19")
 # the most a phase waits for the other lane to give back card memory
 LANE_MEMORY_WAIT_S = 900.0
 
@@ -392,6 +423,9 @@ LANE_MEMORY_WAIT_S = 900.0
 # tokens (32 a batch), and RACE's 8 questions x 4 choices at 384 tokens
 ICT_QUERY_PAD = ("pad", 8, 64)
 RACE_MC_PAD = ("pad", 150, 384)
+# phase 19's biencoder queries: dialogue turns padded to 256 tokens, 64 a
+# batch (tasks/msdp/preprocessing.py biencoder_encode_fn)
+MSDP_QUERY_PAD = ("pad", 8, 48)
 
 # (label, b, sq, sk, nq, nkv, d, dtype name, causal, sliding_window,
 # segments: None, or "pad" for BERT's pad isolation over ragged real
@@ -412,7 +446,9 @@ RACE_MC_PAD = ("pad", 150, 384)
 # segments, T5's cross-attention (128 decoder queries over 512 encoder
 # keys, no segment ids) in bf16 and fp32, and its causal decoder; and two
 # of phase 18's: ICT's one-sentence queries padded to 256 tokens (32 a
-# batch) and RACE's 8 x 4 choices at 384 tokens.
+# batch) and RACE's 8 x 4 choices at 384 tokens; and two of phase 19's:
+# the zero-shot evaluation's 8 windows of 4,096 tokens at Llama-2-7B's
+# heads, and MSDP's padded biencoder queries at BERT-base's.
 KERNEL_CASES = [
     ("llama2_7b_prefill", 1, 512, 512, 32, 32, 128, "bfloat16", True, None,
      None),
@@ -453,6 +489,10 @@ KERNEL_CASES = [
      ICT_QUERY_PAD),
     ("race_mc_pad", 32, 384, 384, 12, 12, 64, "bfloat16", False, None,
      RACE_MC_PAD),
+    ("zeroshot_b8_s4096", 8, 4096, 4096, 32, 32, 128, "bfloat16", True,
+     None, None),
+    ("msdp_query_pad", 64, 256, 256, 12, 12, 64, "bfloat16", False, None,
+     MSDP_QUERY_PAD),
 ]
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}  # (out, lse)
 # the real lengths of a "pad" case's rows run evenly from the first to the
@@ -548,6 +588,12 @@ BLOCK_CASES = [
      BLOCK_LENGTHS),
     ("spec_verify_w5", 8, 5, 32, 32, 128, 16, "bfloat16", "bfloat16",
      BLOCK_LENGTHS),
+    # phase 19's bench_spec at speculative_k 2 and 8: 4 slots, windows of
+    # 3 and 9 (9 rows a kv head: two row chunks)
+    ("spec_verify_w3", 4, 3, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS[1:5]),
+    ("spec_verify_w9", 4, 9, 32, 32, 128, 16, "bfloat16", "bfloat16",
+     BLOCK_LENGTHS[1:5]),
     ("gqa_64q_8kv", 8, 1, 64, 8, 128, 16, "bfloat16", "bfloat16",
      BLOCK_LENGTHS),
     ("falcon7b_mqa", 8, 1, 71, 1, 64, 16, "bfloat16", "bfloat16",
@@ -9971,13 +10017,769 @@ def phase_retrieval_tasks(smi: str) -> dict:
     return stats
 
 
+# Phase 19: zero-shot evaluation, MSDP, the engine bench tools and length
+# buckets, at Llama-2-7B's widths (llama2_config("7b"): h 4096, 32/32 heads
+# of 128, ffn 11008, vocab 32,000, seq 4,096), random weights from ZS_SEED,
+# on a GPT-2 BPE vocabulary of 32,000 and files the phase writes in the
+# published layouts (no WikiText-103, LAMBADA, WoW or WoI file is in the
+# repository)
+ZS_SEED = 0
+ZS_VOCAB = 32000
+ZS_OVERLAP = 32            # examples/evaluate_wikitext103.sh's stride
+ZS_FULL_WINDOWS = 16       # windows of a whole 4,096 tokens of context
+ZS_LAMBADA = (64, 8)       # samples, micro-batch
+# the first windows held flash against the plain (dot) attention, 2 a batch
+# (the dot path's [b, 32, 4096, 4096] fp32 scores take 2 GiB a row)
+ZS_DOT_WINDOWS = 8
+# relative, on the bf16 loss sum over those windows: 32 layers of bf16
+# activations whose attention is rounded in another order on each path
+# (10x the reading, 2.47e-5, on an H100). A random model's loss sum hardly
+# depends on attention, so the first batch's final logits are held too:
+# ||flash - dot|| / ||dot|| over the batch, where 32 random bf16 layers
+# carry each path's rounding far (the reading 0.0592 on an H100; a wrong
+# mask or a 1.25x softmax scale moves the logits by more than their norm)
+ZS_DOT_TOL = 2.5e-4
+ZS_LOGITS_TOL = 0.25
+ZS_CLI_LAYERS = 2
+ZS_CLI_TOL = 1e-6          # the same code and card in and out of process
+MSDP_DIALOGUES = (48, 8)   # WoW train and test dialogues
+MSDP_NEW = 32              # tokens a knowledge generation
+MSDP_BI_SEQ = 256          # the biencoder's query length
+MSDP_SLICE_LAYERS = 2
+BENCH_SLICE_LAYERS = 2
+BENCH_TRAIN_LAYERS = 2
+BUCKET_LENGTHS = ((700, 1025), (3000, 4097))   # two steps' samples
+BUCKETS = (1024, 4096)
+BUCKET_LAYERS = 2
+BUCKET_TOL = 1e-5          # fp32 compute, TF32 off
+
+
+class Windows:
+    """The first `n` items of a dataset (evaluate_dataset's interface)."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, min(n, len(ds))
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.ds[i]
+
+
+def zs_files(root: str, seq: int) -> dict:
+    """A GPT-2 BPE vocabulary of ZS_VOCAB, a WikiText-style test file of at
+    least ZS_FULL_WINDOWS whole windows of `seq` tokens, LAMBADA json
+    lines, and WoW train and test dumps."""
+    import os
+
+    import numpy as np
+    from megatron_tpu_torch.data.tokenizers import build_tokenizer
+    from megatron_tpu_torch.tasks.zeroshot_gpt.detokenizer import \
+        wikitext_detokenizer
+    from megatron_tpu_torch.tools import synthetic_corpus as sc
+    vocab, merges = sc.write_gpt2_vocab(os.path.join(root, "gpt2"), ZS_VOCAB)
+    tok = build_tokenizer("GPT2BPETokenizer", vocab_file=vocab,
+                          merge_file=merges)
+    rng = np.random.RandomState(ZS_SEED)
+    marks = [" @-@ ", " @,@ ", " , ", " . ", " ; ", " 's ", " ( x ) "]
+    want = seq + 1 + (ZS_FULL_WINDOWS - 1) * ZS_OVERLAP
+    docs = sc.random_documents(40, ZS_SEED, min_words=150, max_words=250)
+    words = " ".join(docs).split()
+    for i in range(0, len(words), 7):
+        words[i] += marks[rng.randint(len(marks))].rstrip()
+    n = 1500
+    while True:
+        text = " = = heading = = \n " + " ".join(words[:n]) + " \n"
+        if (len(tok.tokenize(wikitext_detokenizer(text))) >= want
+                or n >= len(words)):
+            break
+        n += 100
+    wiki = os.path.join(root, "wiki.test.tokens")
+    with open(wiki, "w") as f:
+        f.write(text)
+    lam = os.path.join(root, "lambada_test.jsonl")
+    passages = sc.random_documents(ZS_LAMBADA[0], ZS_SEED + 1, min_words=40,
+                                   max_words=120)
+    with open(lam, "w") as f:
+        for p in passages:
+            f.write(json.dumps({"text": p.replace(".", "").strip()}) + "\n")
+
+    def dialogues(n, seed):
+        r = np.random.RandomState(seed)
+        lexicon = " ".join(sc.random_documents(20, seed)).replace(
+            ".", "").replace(",", "").split()
+        topics = [f"topic{t}" for t in range(6)]
+        out = []
+        for d in range(n):
+            topic = topics[d % len(topics)]
+            turns = []
+            for t in range(int(r.randint(3, 8))):
+                text = " ".join(r.choice(lexicon, int(r.randint(4, 14))))
+                wizard = t % 2 == 1
+                turns.append({
+                    "speaker": "1_Wizard" if wizard else "0_Apprentice",
+                    "text": text + ("?" if not wizard else ""),
+                    "checked_sentence": (
+                        {"s": f"{topic} " + " ".join(r.choice(lexicon, 9))}
+                        if wizard and r.rand() < 0.8 else {}),
+                    "checked_passage": ({"p": topic} if wizard else {})})
+            out.append({"chosen_topic": topic, "dialog": turns})
+        return out
+
+    out = dict(vocab=vocab, merges=merges, tok=tok, wiki=wiki, lambada=lam)
+    for split, n, seed in (("train", MSDP_DIALOGUES[0], 1),
+                           ("test", MSDP_DIALOGUES[1], 2)):
+        path = os.path.join(root, f"wow_{split}.json")
+        with open(path, "w") as f:
+            json.dump(dialogues(n, ZS_SEED + 10 + seed), f)
+        out[f"wow_{split}"] = path
+    out["wordpiece"] = sc.write_wordpiece_vocab(
+        os.path.join(root, "wordpiece"), 30522)
+    return out
+
+
+def zs_counts() -> tuple:
+    """(flash counts, norm counts, block launches) so far."""
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    return (fc.launch_counts(), fnc.launch_counts(),
+            bac.block_attention_cuda.launches)
+
+
+def zs_zero() -> None:
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    fc.reset_launch_counts()
+    fnc.reset_launch_counts()
+    bac.block_attention_cuda.launches = 0
+
+
+def zs_scored(ds) -> int:
+    return int(sum(ds[i]["pad_mask"].sum() for i in range(len(ds))))
+
+
+def zs_eval(files: dict, root: str, smi: str) -> dict:
+    """(a) Zero-shot on Llama-2-7B, all 32 layers, bf16: WIKITEXT103 and
+    LAMBADA (strict) through evaluate_dataset, the loss sum of the first
+    windows and the first batch's logits held against the dot path, then `tasks.main --task LAMBADA` in
+    a process of its own on a ZS_CLI_LAYERS-layer npz checkpoint against
+    the same run in process."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.config import MegatronConfig, llama2_config
+    from megatron_tpu_torch.models import language_model as lm
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.tasks import main as tasks_main
+    from megatron_tpu_torch.tasks.zeroshot_gpt import evaluate as ev
+    from megatron_tpu_torch.tasks.zeroshot_gpt.datasets import (
+        build_lambada_dataset, build_wikitext_dataset, iterate_batches)
+    from megatron_tpu_torch.training.checkpointing import save_checkpoint
+    from megatron_tpu_torch.training.train_step import TrainState
+
+    mcfg = llama2_config("7b")
+    check(mcfg.num_layers == 32 and mcfg.attention_impl == "flash"
+          and mcfg.padded_vocab_size == ZS_VOCAB,
+          "llama2_config('7b') is not Llama-2-7B")
+    cfg = MegatronConfig(model=mcfg)
+    tok = files["tok"]
+    model = LanguageModel(mcfg, dtype=torch.bfloat16, seed=ZS_SEED)
+    seq = mcfg.seq_length
+    wiki = build_wikitext_dataset(files["wiki"], tok, seq, ZS_OVERLAP)
+    full = sum(1 for i in range(len(wiki))
+               if i * ZS_OVERLAP + seq + 1 <= len(wiki.tokens))
+    check(full >= ZS_FULL_WINDOWS, f"the wiki file holds {full} whole "
+          f"windows, not {ZS_FULL_WINDOWS}")
+    lam = build_lambada_dataset(files["lambada"], tok, seq, strict=True)
+    out = {}
+    for task, ds, metrics_fn, micro in (
+            ("WIKITEXT103", wiki, lambda s: ev.wikitext_metrics(s, wiki),
+             8),
+            ("LAMBADA", lam, ev.lambada_metrics, ZS_LAMBADA[1])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zs_zero()
+        t0 = time.perf_counter()
+        stats = ev.evaluate_dataset(model, ds, cfg, batch_size=micro)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts, norms, blocks = zs_counts()
+        batches = -(-len(ds) // micro)
+        check(counts["flash_fwd_cuda"] == mcfg.num_layers * batches
+              and counts["flash_bwd_dq_cuda"] == 0,
+              f"{task}: flash launches {counts}, expected "
+              f"{mcfg.num_layers} x {batches} forwards")
+        metrics = metrics_fn(stats)
+        check(all(math.isfinite(v) for v in metrics.values()),
+              f"{task}: {metrics}")
+        scored = zs_scored(ds)
+        out[task] = dict(
+            metrics=metrics, loss_sum=stats["loss_sum"],
+            correct=stats["correct"], windows=len(ds), batches=batches,
+            seconds=took, tokens_scored=scored,
+            tokens_scored_per_s=scored / took,
+            tokens_forwarded_per_s=batches * micro * seq / took,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=counts, norm_launches=norms, block_launches=blocks)
+        log(f"zero-shot {task} ({smi}): " + json.dumps(out[task]))
+    check(out["WIKITEXT103"]["metrics"]["avg loss"] > 5.0,
+          "a random 7B model scores far below ln(32000) "
+          f"{out['WIKITEXT103']['metrics']}")
+
+    # the first windows through the plain attention, 2 a batch, beside the
+    # flash path on the same batches
+    sub = Windows(wiki, ZS_DOT_WINDOWS)
+    dot_cfg = MegatronConfig(model=dataclasses.replace(
+        mcfg, attention_impl="dot"))
+    t0 = time.perf_counter()
+    flash = ev.evaluate_dataset(model, sub, cfg, batch_size=2)
+    dot = ev.evaluate_dataset(model, sub, dot_cfg, batch_size=2)
+    rel = abs(flash["loss_sum"] - dot["loss_sum"]) / abs(dot["loss_sum"])
+    tokens = torch.from_numpy(
+        next(iterate_batches(sub, 2))["text"][:, :-1]).cuda()
+    rope = lm.make_rope(mcfg, device=tokens.device)
+    with torch.inference_mode():
+        lf = lm.model_forward(model, tokens, mcfg, rope=rope)[0].float()
+        ld = lm.model_forward(model, tokens, dot_cfg.model,
+                              rope=rope)[0].float()
+        logits_rel = float((lf - ld).norm() / ld.norm())
+        logits_max = float((lf - ld).abs().max() / ld.abs().max())
+    del lf, ld
+    out["dot"] = dict(windows=len(sub), flash=flash["loss_sum"],
+                      dot=dot["loss_sum"], rel=rel, logits_rel=logits_rel,
+                      logits_max_rel=logits_max,
+                      seconds=time.perf_counter() - t0)
+    log(f"zero-shot: flash against dot on {len(sub)} windows, 32 layers "
+        f"bf16: {json.dumps(out['dot'])}")
+    check(rel <= ZS_DOT_TOL and logits_rel <= ZS_LOGITS_TOL,
+          f"zero-shot flash against dot: loss sum {flash['loss_sum']} "
+          f"against {dot['loss_sum']} ({rel:.3g}, limit {ZS_DOT_TOL}), "
+          f"the first batch's logits {logits_rel:.3g} (limit "
+          f"{ZS_LOGITS_TOL})")
+    del model
+    gc_cuda()
+
+    # tasks.main --task LAMBADA and WIKITEXT103, each in a process of its
+    # own (both at once), on a 2-layer npz checkpoint, against the same
+    # runs in this process
+    ckpt = os.path.join(root, "zs_ckpt")
+    small = MegatronConfig(model=llama2_config("7b",
+                                               num_layers=ZS_CLI_LAYERS))
+    save_checkpoint(ckpt, TrainState(LanguageModel(
+        small.model, seed=ZS_SEED + 1), None, 1), small, iteration=1)
+    gc_cuda()
+    common = ["--load", ckpt, "--tokenizer_type", "GPT2BPETokenizer",
+              "--vocab_file", files["vocab"], "--merge_file",
+              files["merges"]]
+    argvs = {"LAMBADA": ["--task", "LAMBADA", "--valid_data",
+                         files["lambada"], "--strict_lambada", *common],
+             "WIKITEXT103": ["--task", "WIKITEXT103", "--valid_data",
+                             files["wiki"], "--overlapping_eval",
+                             str(ZS_OVERLAP), *common]}
+    t0 = time.perf_counter()
+    procs = {task: subprocess.Popen(
+        [sys.executable, "-m", "megatron_tpu_torch.tasks.main", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for task, argv in argvs.items()}
+    printed, here = {}, {}
+    out["cli"] = {}
+    try:
+        # the same runs in this process while the two start and run
+        zs_zero()
+        for task, argv in argvs.items():
+            t1 = time.perf_counter()
+            here[task] = tasks_main.main(argv)
+            torch.cuda.synchronize()
+            out["cli"][task] = dict(in_process_s=time.perf_counter() - t1)
+        counts, norms, blocks = zs_counts()
+        for task, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"tasks.main {task} exited "
+                  f"{proc.returncode}: {stderr[-2000:]}")
+            printed[task] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["cli"]["process_s"] = time.perf_counter() - t0
+    for task in argvs:
+        cli = printed[task]
+        check(set(cli) == {"task", *here[task]} and cli["task"] == task
+              and all(abs(cli[k] - v) <= ZS_CLI_TOL * max(abs(v), 1.0)
+                      for k, v in here[task].items()),
+              f"tasks.main {task}: the process printed {cli}, in process "
+              f"{here[task]}")
+        out["cli"][task].update(process=cli, in_process=here[task])
+    out["cli"].update(launches=counts, norm_launches=norms,
+                      block_launches=blocks)
+    log(f"zero-shot: tasks.main, {ZS_CLI_LAYERS} layers: "
+        f"{json.dumps(out['cli'])}")
+    return out
+
+
+def gc_cuda() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zs_msdp(files: dict, root: str, smi: str) -> dict:
+    """(b) MSDP: WoW processing, knowledge-prompt selection through the
+    query tower of a BERT-base biencoder checkpoint, greedy knowledge
+    generation on Llama-2-7B's widths at ENGINE_LAYERS, MSDP-EVAL-F1; then
+    a 2-layer fp32 slice whose generations in process equal those through
+    make_api_fn against the port's own server."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.config import (DataConfig, MegatronConfig,
+                                           ServingConfig, llama2_config)
+    from megatron_tpu_torch.inference.generation import Generator
+    from megatron_tpu_torch.inference.server import MegatronServer
+    from megatron_tpu_torch.models.bert import bert_config
+    from megatron_tpu_torch.models.biencoder import (BiencoderModel,
+                                                     exact_fp32)
+    from megatron_tpu_torch.models.language_model import LanguageModel
+    from megatron_tpu_torch.tasks.msdp import main as msdp_main
+    from megatron_tpu_torch.tasks.msdp import preprocessing as pp
+    from megatron_tpu_torch.tasks.msdp import prompt as pr
+    from megatron_tpu_torch.training.checkpointing import save_checkpoint
+    from megatron_tpu_torch.training.train_step import TrainState
+
+    tsv = {}
+    for split in ("train", "test"):
+        tsv[split] = os.path.join(root, f"wow_{split}.tsv")
+        refs = [os.path.join(root, f"{split}_{k}.txt")
+                for k in ("knwl", "resp")]
+        n = pp.process_wow_dataset(files[f"wow_{split}"], tsv[split], *refs)
+        check(n > 0, f"process_wow_dataset wrote no {split} row")
+        tsv[f"{split}_knwl"] = refs[0]
+    n_test = sum(1 for _ in open(tsv["test"]))
+
+    bcfg = bert_config(seq_length=MSDP_BI_SEQ, attention_impl="flash")
+    bi = MegatronConfig(model=bcfg, data=DataConfig(
+        tokenizer_type="BertWordPieceLowerCase",
+        vocab_file=files["wordpiece"]))
+    bi_ckpt = os.path.join(root, "biencoder")
+    save_checkpoint(bi_ckpt, TrainState(BiencoderModel(
+        bcfg, seed=ZS_SEED + 2), None, 1), bi, iteration=1)
+    gc_cuda()
+    prompts_file = os.path.join(root, "knwl_prompts.jsonl")
+    zs_zero()
+    t0 = time.perf_counter()
+    n = pp.prompt_selection_for_knowledge_generation(
+        tsv["test"], tsv["train"], bi_ckpt, prompts_file, "wow_seen")
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    sel_counts, sel_norms, sel_blocks = zs_counts()
+    check(n == n_test and sel_counts["flash_fwd_cuda"] >= bcfg.num_layers,
+          f"prompt selection: {n} of {n_test} rows, launches {sel_counts}")
+    prompts = pr.read_prompts(prompts_file, "knowledge", 10)
+    check(all(v.count("=>") >= 1 for v in prompts.values()),
+          "prompt selection chose no prompt for a seen topic")
+    gc_cuda()
+
+    tok = files["tok"]
+    lines = open(tsv["test"]).readlines()
+    cfg = llama2_config("7b", num_layers=ENGINE_LAYERS)
+    gen = Generator(LanguageModel(cfg, dtype=torch.bfloat16, seed=ZS_SEED),
+                    cfg, eos_id=tok.eod)
+    zs_zero()
+    t0 = time.perf_counter()
+    outs = pr.generate_samples(lines, prompt_type="knowledge",
+                               prompts=prompts,
+                               generate_fn=pr.make_generator_fn(gen, tok),
+                               out_seq_length=MSDP_NEW, log_interval=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, norms, blocks = zs_counts()
+    check(len(outs) == n_test and counts["flash_fwd_cuda"]
+          >= ENGINE_LAYERS * n_test,
+          f"knowledge generation: {len(outs)} lines, launches {counts}")
+    del gen
+    gc_cuda()
+    guess = os.path.join(root, "knwl_gen.txt")
+    with open(guess, "w") as f:
+        f.writelines(o + "\n" for o in outs)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = msdp_main.main(["--task", "MSDP-EVAL-F1", "--guess_file",
+                             guess, "--answer_file", tsv["test_knwl"]])
+    f1_s = time.perf_counter() - t0
+    m = re.fullmatch(r"Precision: (\S+); recall: (\S+); f1: (\S+)",
+                     printed.getvalue().strip())
+    check(rc == 0 and m is not None,
+          f"MSDP-EVAL-F1: exit {rc}, printed {printed.getvalue()!r}")
+    f1 = dict(zip(("precision", "recall", "f1"), map(float, m.groups())))
+
+    # the 2-layer fp32 slice: in process against the API
+    scfg = llama2_config("7b", num_layers=MSDP_SLICE_LAYERS,
+                         compute_dtype="float32")
+    sgen = Generator(LanguageModel(scfg, seed=ZS_SEED + 3), scfg,
+                     eos_id=tok.eod, kv_cache_dtype=torch.float32)
+    kw = dict(prompt_type="knowledge", prompts=prompts,
+              out_seq_length=16, log_interval=0)
+    with exact_fp32():
+        here = pr.generate_samples(lines, generate_fn=pr.make_generator_fn(
+            sgen, tok), **kw)
+        server = MegatronServer(sgen, tok,
+                                serving=ServingConfig(num_slots=4))
+        httpd = server.make_http_server("127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            api = pr.generate_samples(lines, generate_fn=pr.make_api_fn(
+                f"127.0.0.1:{httpd.server_address[1]}/api"), **kw)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            server.close()
+    check(api == here, f"MSDP slice: the API's generations {api} differ "
+          f"from the in-process ones {here}")
+    del sgen, server
+    gc_cuda()
+    out = dict(rows=n_test, select_s=select_s, generate_s=gen_s,
+               f1=f1, f1_s=f1_s, generations=outs, slice_equal=True,
+               launches=sel_counts, norm_launches=sel_norms,
+               block_launches=sel_blocks,
+               generate_launches=counts, generate_norm_launches=norms,
+               generate_block_launches=blocks)
+    log(f"msdp ({smi}): " + json.dumps(out))
+    return out
+
+
+BENCH_TOOLS = ("bench_block_attn", "bench_spec", "bench_prefix",
+               "bench_sync")
+
+
+def bench_argv(tool: str, dtype: str) -> list:
+    """A bench tool's flags at Llama-2-7B's widths: fp32 at
+    BENCH_SLICE_LAYERS and a small size (the token-for-token assertions),
+    bf16 at ENGINE_LAYERS and the tool's own default sizes (the times). The
+    block kernel runs on bench_spec's, bench_prefix's and bench_sync's
+    engines."""
+    layers = BENCH_SLICE_LAYERS if dtype == "float32" else ENGINE_LAYERS
+    common = ["--model", "llama2-7b", "--layers", str(layers), "--dtype",
+              dtype]
+    kernel = {"bench_block_attn": [], "bench_spec": ["--block", "16"],
+              "bench_prefix": ["--block_native_attn"],
+              "bench_sync": ["--block", "16"]}[tool]
+    if dtype == "bfloat16":
+        return common + kernel
+    return common + kernel + {
+        "bench_block_attn": ["--blocks", "16", "--dtypes", "float32",
+                             "--requests", "4", "--prompt", "64", "--new",
+                             "32", "--slots", "4", "--max_len", "256"],
+        "bench_spec": ["--ks", "2,4", "--requests", "4", "--prompt", "64",
+                       "--new", "32", "--slots", "4", "--seq", "256"],
+        "bench_prefix": ["--requests", "6", "--shared", "256", "--unique",
+                         "32", "--slots", "3", "--new", "8", "--chunk", "64",
+                         "--sessions", "5", "--block", "16", "--seq", "512"],
+        "bench_sync": ["--iters", "6", "--log_interval", "3",
+                       "--micro_batch", "1", "--requests", "4", "--slots",
+                       "4", "--new", "16", "--sync_k", "4", "--seq", "512"],
+    }[tool]
+
+
+def bf16_arms(tool: str, argv: list) -> dict:
+    """A bench tool's arms in bf16 for their times, through the tool's own
+    `measure` (bench_sync: its two arms): the tool's token-for-token
+    assertion runs in its fp32 runs (bf16 arms part where a random model's
+    top two logits tie within a bf16 step, and each arm rounds its
+    attention in its own order), so here each pair's agreement is
+    measured, with its first divergence. bench_sync's training arm runs at
+    BENCH_TRAIN_LAYERS and seq 4,096 (fp32 Adam state takes 16 bytes a
+    parameter), its serving arm at argv's depth."""
+    import importlib
+
+    from megatron_tpu_torch.tools import bench_common as bc
+    from megatron_tpu_torch.utils.device import resolve_device
+    mod = importlib.import_module(f"megatron_tpu_torch.tools.{tool}")
+    args = mod.parse(argv)
+    device = resolve_device(None)
+
+    def pair(arm, ref):
+        got, want = arm.pop("outputs"), ref["outputs"]
+        div = bc.first_divergence(got, want)
+        arm["agrees"] = div is None
+        arm["requests_equal"] = sum(a == b for a, b in zip(got, want))
+        arm["first_divergence"] = div
+
+    if tool == "bench_block_attn":
+        combos = []
+        for block, dtype, bracket, kernel in mod.measure(args, device):
+            pair(kernel, bracket)
+            bracket.pop("outputs")
+            check(kernel["kv_gather_bytes_per_step"] == 0
+                  and bracket["kv_gather_bytes_per_step"] > 0,
+                  f"{tool} bf16: gather bytes {bracket} {kernel}")
+            combos.append(dict(kv_block_size=block, kv_dtype=dtype,
+                               bracket=bracket, kernel=kernel,
+                               speedup_x=kernel["tok_s"] / bracket["tok_s"]))
+        return dict(combos=combos)
+    if tool == "bench_spec":
+        gen, base, arms = mod.measure(args, device)
+        for arm in arms:
+            pair(arm, base)
+            arm["speedup_x"] = arm["accepted_tok_s"] / base["accepted_tok_s"]
+            check(arm["spec_rounds"] > 0, f"{tool} bf16: {arm}")
+        base.pop("outputs")
+        return dict(baseline=base, arms=arms, roofline=mod.roofline(
+            gen, args, bc.device_kind(device)))
+    if tool == "bench_sync":
+        train = mod.parse(argv + ["--layers", str(BENCH_TRAIN_LAYERS),
+                                  "--seq", "4096"])
+        return {"bench": "sync_cadence", "device": bc.device_kind(device),
+                "training": mod.bench_training(train, device),
+                "serving": mod.bench_serving(args, device)}
+    arms = mod.measure(args, device)
+    for name in ("prefix", "prefix_chunked"):
+        pair(arms[name], arms["baseline"])
+    pair(arms["multiturn_blocks"], arms["multiturn_whole_region"])
+    for name in ("baseline", "multiturn_whole_region"):
+        arms[name].pop("outputs")
+    check(arms["prefix"]["prefix_hits"] > 0, f"{tool} bf16: {arms}")
+    return arms
+
+
+def zs_bench(root: str, smi: str) -> dict:
+    """(c) The four bench tools at Llama-2-7B's widths: each tool's main in
+    fp32 at BENCH_SLICE_LAYERS (TF32 off), where each asserts its arms'
+    agreement token for token, then their arms in bf16 at ENGINE_LAYERS
+    through `bf16_arms` for the times. bench_block_attn's arms are tapped
+    for the block kernel's launches."""
+    import importlib
+    import os
+
+    import torch
+    from megatron_tpu_torch.models.biencoder import exact_fp32
+    from megatron_tpu_torch.ops import block_attention_cuda as bac
+    out = {}
+    totals = [None, None, 0]
+    ba = importlib.import_module("megatron_tpu_torch.tools.bench_block_attn")
+    run_arm = ba.run_arm
+    arm_launches = []
+
+    def tapped(*a, **k):
+        before = bac.block_attention_cuda.launches
+        rec = run_arm(*a, **k)
+        arm_launches.append((rec["attn_path"],
+                             bac.block_attention_cuda.launches - before))
+        return rec
+
+    for dtype in ("float32", "bfloat16"):
+        for tool in BENCH_TOOLS:
+            mod = importlib.import_module(f"megatron_tpu_torch.tools.{tool}")
+            path = os.path.join(root, f"{tool}_{dtype}.json")
+            argv = bench_argv(tool, dtype)
+            arm_launches.clear()
+            ba.run_arm = tapped
+            zs_zero()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                if dtype == "float32":
+                    with exact_fp32():
+                        check(mod.main(argv + ["--out", path]) == 0,
+                              f"{tool} (fp32) failed")
+                    with open(path) as f:
+                        rec = json.load(f)
+                else:
+                    rec = bf16_arms(tool, argv)
+                torch.cuda.synchronize()
+            finally:
+                ba.run_arm = run_arm
+            took = time.perf_counter() - t0
+            counts, norms, blocks = zs_counts()
+            totals = [counts if totals[0] is None else
+                      {k: totals[0][k] + v for k, v in counts.items()},
+                      norms if totals[1] is None else
+                      {k: totals[1][k] + v for k, v in norms.items()},
+                      totals[2] + blocks]
+            if tool == "bench_block_attn":
+                if dtype == "float32":
+                    check(rec["greedy_arms_token_exact"] and all(
+                        c["kernel"]["kv_gather_bytes_per_step"] == 0
+                        and c["bracket"]["kv_gather_bytes_per_step"] > 0
+                        for c in rec["combos"]), f"{tool}: {rec}")
+                check(all((n > 0) == (path_ == "block_native")
+                          for path_, n in arm_launches),
+                      f"{tool}: block launches by arm {arm_launches}")
+                rec["block_launches_by_arm"] = list(arm_launches)
+            elif tool == "bench_spec":
+                check(all(a["spec_rounds"] > 0 for a in rec["arms"])
+                      and blocks > 0, f"{tool}: {rec}, block {blocks}")
+            elif tool == "bench_prefix":
+                check(rec["prefix"]["prefix_hits"] > 0 and blocks > 0,
+                      f"{tool}: {rec}, block {blocks}")
+            else:
+                k = rec["serving"]["k"]
+                check(rec["device"] == torch.cuda.get_device_name(0)
+                      and rec["serving"]["k1"]["syncs_per_step"] == 1.0
+                      and abs(k["syncs_per_step"] - 1 / 4) < 1e-3
+                      and k["tokens"] == rec["serving"]["k1"]["tokens"]
+                      and rec["training"]["sync"]["host_syncs"]
+                      == mod.parse(argv).iters
+                      and rec["training"]["async"]["host_syncs"]
+                      < rec["training"]["sync"]["host_syncs"]
+                      and counts["flash_bwd_dq_cuda"] > 0 and blocks > 0,
+                      f"{tool}: {rec}, launches {counts}, block {blocks}")
+            out[f"{tool}_{dtype}"] = dict(
+                record=rec, seconds=took, launches=counts,
+                norm_launches=norms, block_launches=blocks,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            log(f"{tool} ({dtype}, {smi}): "
+                + json.dumps(out[f"{tool}_{dtype}"]))
+            gc_cuda()
+    out["launches"], out["norm_launches"], out["block_launches"] = totals
+    return out
+
+
+def zs_buckets(smi: str) -> dict:
+    """(d) One training step a bucket on a two-bucket stream (BUCKETS) at
+    Llama-2-7B's widths and BUCKET_LAYERS layers, fp32 compute with TF32
+    off, through bucket_batches: each step's loss equals the unpadded
+    masked mean, computed beforehand from each sample alone."""
+    import numpy as np
+    import torch
+    from megatron_tpu_torch.config import (MegatronConfig, OptimizerConfig,
+                                           TrainingConfig, llama2_config)
+    from megatron_tpu_torch.data.buckets import bucket_batches
+    from megatron_tpu_torch.models import language_model as lm
+    from megatron_tpu_torch.models.biencoder import exact_fp32
+    from megatron_tpu_torch.training import make_train_step
+    from megatron_tpu_torch.training.train_step import init_train_state
+
+    cfg = MegatronConfig(
+        model=llama2_config("7b", num_layers=BUCKET_LAYERS,
+                            compute_dtype="float32"),
+        optimizer=OptimizerConfig(lr=3e-5),
+        training=TrainingConfig(micro_batch_size=1, global_batch_size=2,
+                                train_iters=2)).validate()
+    rng = np.random.RandomState(ZS_SEED)
+    samples = [rng.randint(1, ZS_VOCAB, n).astype(np.int32)
+               for pair in BUCKET_LENGTHS for n in pair]
+    batches = list(bucket_batches(iter(samples), 1, 2, list(BUCKETS), 0))
+    check([b["tokens"].shape[-1] - 1 for b in batches] == list(BUCKETS),
+          f"bucket shapes {[b['tokens'].shape for b in batches]}")
+    out = dict(steps=[])
+    counts, norms, blocks = None, None, 0
+    with exact_fp32():
+        state = init_train_state(cfg, seed=ZS_SEED)
+        step = make_train_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches):
+            # the unpadded loss from the params this step starts from,
+            # outside the step's counted window
+            with torch.no_grad():
+                want = float(np.mean([lm.loss_fn(
+                    state.params, torch.from_numpy(s[None].astype(
+                        np.int64)).cuda(), cfg.model).item()
+                    for s in samples[2 * i:2 * i + 2]]))
+            zs_zero()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                    for k, v in batch.items()})
+            stop.record()
+            torch.cuda.synchronize()
+            c, n, bl = zs_counts()
+            counts = c if counts is None else {
+                k: counts[k] + v for k, v in c.items()}
+            norms = n if norms is None else {
+                k: norms[k] + v for k, v in n.items()}
+            blocks += bl
+            got = float(m["lm_loss"])
+            rel = abs(got - want) / want
+            out["steps"].append(dict(bucket=BUCKETS[i], loss=got,
+                                     unpadded=want, rel=rel,
+                                     device_ms=start.elapsed_time(stop)))
+            check(rel <= BUCKET_TOL and int(m["found_inf"]) == 0,
+                  f"bucket {BUCKETS[i]}: loss {got} against the unpadded "
+                  f"{want} ({rel:.3g} > {BUCKET_TOL})")
+    # each step: a forward and a backward a layer a microbatch
+    per_kernel = BUCKET_LAYERS * 2 * len(batches)
+    check(counts["flash_fwd_cuda"] == counts["flash_bwd_dq_cuda"]
+          == counts["flash_bwd_dkv_cuda"] == per_kernel,
+          f"bucket steps: launches {counts}, expected {per_kernel} each")
+    out.update(launches=counts, norm_launches=norms, block_launches=blocks,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, step
+    gc_cuda()
+    log(f"buckets ({smi}): " + json.dumps(out))
+    return out
+
+
+def phase_zeroshot_msdp_bench(smi: str) -> dict:
+    """Phase 19: zero-shot evaluation, MSDP, the bench tools and length
+    buckets, parts (a)-(d) (see the note above ZS_SEED)."""
+    import shutil
+    import tempfile
+
+    from megatron_tpu_torch.config import llama2_config
+    gc_cuda()
+    root = tempfile.mkdtemp(prefix="chip_smoke_zeroshot_")
+    stats = dict(card=smi)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        stats[name] = fn(*args)
+        stats[name]["part_seconds"] = time.perf_counter() - t0
+        log(f"phase 19 {name}: {stats[name]['part_seconds']:.1f} s")
+        gc_cuda()
+
+    try:
+        t0 = time.perf_counter()
+        files = zs_files(root, llama2_config("7b").seq_length)
+        stats["files_s"] = time.perf_counter() - t0
+        part("zeroshot", zs_eval, files, root, smi)
+        part("msdp", zs_msdp, files, root, smi)
+        part("bench", zs_bench, root, smi)
+        part("buckets", zs_buckets, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    zs, ms = stats["zeroshot"], stats["msdp"]
+    counted = [(zs[t]["launches"], zs[t]["norm_launches"],
+                zs[t]["block_launches"]) for t in ("WIKITEXT103", "LAMBADA")]
+    counted += [(zs["cli"]["launches"], zs["cli"]["norm_launches"],
+                 zs["cli"]["block_launches"]),
+                (ms["launches"], ms["norm_launches"], ms["block_launches"]),
+                (ms["generate_launches"], ms["generate_norm_launches"],
+                 ms["generate_block_launches"])]
+    counted += [(stats[p]["launches"], stats[p]["norm_launches"],
+                 stats[p]["block_launches"]) for p in ("bench", "buckets")]
+    stats["launches"] = {k: sum(c[0][k] for c in counted)
+                         for k in counted[0][0]}
+    stats["norm_launches"] = {k: sum(c[1][k] for c in counted)
+                              for k in counted[0][1]}
+    stats["block_launches"] = sum(c[2] for c in counted)
+    peaks = [zs[t]["peak_gib"] for t in ("WIKITEXT103", "LAMBADA")] + [
+        v["peak_gib"] for k, v in stats["bench"].items()
+        if isinstance(v, dict) and "peak_gib" in v] + [
+        stats["buckets"]["peak_gib"]]
+    stats["peak_gib"] = max(peaks)
+    log(f"phase 19: peak {stats['peak_gib']:.2f} GiB, launches "
+        f"{stats['launches']}, block {stats['block_launches']}")
+    return stats
+
+
 PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "7": phase_training, "8": phase_pretrain, "9": phase_toolchain,
           "10": phase_window_supervisor, "11": phase_engine_features,
           "12": phase_front_door, "13": phase_lora_live,
           "14": phase_structured_degrade, "15": phase_fleet,
           "16": phase_moe, "17": phase_bert_t5,
-          "18": phase_retrieval_tasks}
+          "18": phase_retrieval_tasks, "19": phase_zeroshot_msdp_bench}
 
 
 class Lane:
@@ -10159,8 +10961,8 @@ def main(argv=None) -> int:
         return 1
     (main_stats, engine_stats, int8_stats, train_stats, pretrain_stats,
      toolchain_stats, window_stats, feature_stats, front_stats, lora_stats,
-     struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats) = (
-        stats[str(n)] for n in range(4, 19))
+     struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats, zs_stats) = (
+        stats[str(n)] for n in range(4, 20))
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
     window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
@@ -10192,6 +10994,9 @@ def main(argv=None) -> int:
     t5_counts = bt_stats["t5"]["launches"]
     # phase 18's runs (entry points, tasks, the index), each from zero
     rt_counts = rt_stats["launches"]
+    # phase 19's parts in process, each from zero (the tasks.main process's
+    # own are not read)
+    zs_counts_ = zs_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -10224,7 +11029,8 @@ def main(argv=None) -> int:
               + moe_counts["flash_fwd_cuda"]
               + bert_counts["flash_fwd_cuda"]
               + t5_counts["flash_fwd_cuda"]
-              + rt_counts["flash_fwd_cuda"], "fwd",
+              + rt_counts["flash_fwd_cuda"]
+              + zs_counts_["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -10248,6 +11054,7 @@ def main(argv=None) -> int:
                   pretrain_bert=bert_counts["flash_fwd_cuda"],
                   pretrain_t5=t5_counts["flash_fwd_cuda"],
                   retrieval_tasks=rt_counts["flash_fwd_cuda"],
+                  zeroshot_msdp_bench=zs_counts_["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -10271,7 +11078,8 @@ def main(argv=None) -> int:
               + moe_counts["flash_bwd_dq_cuda"]
               + bert_counts["flash_bwd_dq_cuda"]
               + t5_counts["flash_bwd_dq_cuda"]
-              + rt_counts["flash_bwd_dq_cuda"], "dq",
+              + rt_counts["flash_bwd_dq_cuda"]
+              + zs_counts_["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -10283,7 +11091,9 @@ def main(argv=None) -> int:
                        moe=moe_counts["flash_bwd_dq_cuda"],
                        pretrain_bert=bert_counts["flash_bwd_dq_cuda"],
                        pretrain_t5=t5_counts["flash_bwd_dq_cuda"],
-                       retrieval_tasks=rt_counts["flash_bwd_dq_cuda"]))),
+                       retrieval_tasks=rt_counts["flash_bwd_dq_cuda"],
+                       zeroshot_msdp_bench=zs_counts_[
+                           "flash_bwd_dq_cuda"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
@@ -10292,7 +11102,8 @@ def main(argv=None) -> int:
               + moe_counts["flash_bwd_dkv_cuda"]
               + bert_counts["flash_bwd_dkv_cuda"]
               + t5_counts["flash_bwd_dkv_cuda"]
-              + rt_counts["flash_bwd_dkv_cuda"], "dkv",
+              + rt_counts["flash_bwd_dkv_cuda"]
+              + zs_counts_["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -10307,7 +11118,9 @@ def main(argv=None) -> int:
                        moe=moe_counts["flash_bwd_dkv_cuda"],
                        pretrain_bert=bert_counts["flash_bwd_dkv_cuda"],
                        pretrain_t5=t5_counts["flash_bwd_dkv_cuda"],
-                       retrieval_tasks=rt_counts["flash_bwd_dkv_cuda"]))),
+                       retrieval_tasks=rt_counts["flash_bwd_dkv_cuda"],
+                       zeroshot_msdp_bench=zs_counts_[
+                           "flash_bwd_dkv_cuda"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
@@ -10324,7 +11137,8 @@ def main(argv=None) -> int:
                   + lora_counts["block_attn"]
                   + struct_counts["block_attn"]
                   + fleet_counts["block_attn"]
-                  + moe_counts["block_attention_cuda"]),
+                  + moe_counts["block_attention_cuda"]
+                  + zs_stats["block_launches"]),
         launches_by_path=dict(
             engine=engine_stats["launches"]["block_attn"],
             int8_engine=int8_stats["launches"]["block_attn"],
@@ -10336,6 +11150,7 @@ def main(argv=None) -> int:
             structured_degrade=struct_counts["block_attn"],
             fleet=fleet_counts["block_attn"],
             moe=moe_counts["block_attention_cuda"],
+            zeroshot_msdp_bench=zs_stats["block_launches"],
             fleet_by_replica={
                 name: c["block_attention_cuda"] for name, c in
                 fleet_stats["replica_launches"].items()},
@@ -10375,7 +11190,8 @@ def main(argv=None) -> int:
                       front_door=front_stats, lora_live=lora_stats,
                       structured_degrade=struct_stats, fleet=fleet_stats,
                       moe=moe_stats, bert_t5=bt_stats,
-                      retrieval_tasks=rt_stats)
+                      retrieval_tasks=rt_stats,
+                      zeroshot_msdp_bench=zs_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -1,7 +1,8 @@
-"""The task entry point (tasks/main.py): GLUE (MNLI, QQP) classification
-and RACE multiple-choice finetuning, the NQ retriever evaluation and
-supervised retriever finetuning (RET-FINETUNE-NQ), with the reference's
-flags and result lines.
+"""The task entry point (tasks/main.py): the zero-shot GPT evaluations
+(WIKITEXT103 perplexity, LAMBADA accuracy), GLUE (MNLI, QQP)
+classification and RACE multiple-choice finetuning, the NQ retriever
+evaluation and supervised retriever finetuning (RET-FINETUNE-NQ), with the
+reference's flags and result lines.
 
   python -m megatron_tpu_torch.tasks.main --task MNLI \\
       --train_data train.tsv --valid_data dev_matched.tsv \\
@@ -10,29 +11,36 @@ flags and result lines.
   python -m megatron_tpu_torch.tasks.main --task NQ --load ckpts/ict \\
       --valid_data nq-test.csv --evidence_data_path psgs_w100.tsv \\
       --embedding_path evidence.npz --vocab_file vocab.txt
+  python -m megatron_tpu_torch.tasks.main --task WIKITEXT103 \\
+      --valid_data wiki.test.tokens --load ckpts/gpt \\
+      --tokenizer_type GPT2BPETokenizer --vocab_file vocab.json \\
+      --merge_file merges.txt [--overlapping_eval 32]
+  python -m megatron_tpu_torch.tasks.main --task LAMBADA \\
+      --valid_data lambada.jsonl --load ckpts/gpt [--strict_lambada] ...
 
 It runs on the current CUDA device; `main(argv, device="cpu")` runs it on
 the CPU, and without a GPU and a `device` it raises. The BERT towers run
 the flash kernels (the reference's tasks take the dot path, its config's
-default), unless a checkpoint's config names another attention. The
-zero-shot GPT tasks (WIKITEXT103, LAMBADA) are not ported yet.
+default), unless a checkpoint's config names another attention; the
+zero-shot tasks run the checkpoint's own config (the GPT and Llama
+presets take the flash kernels) on its npz weights.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 FINETUNE_TASKS = ("MNLI", "QQP", "RACE")
-ZERO_SHOT_TASKS = ("WIKITEXT103", "LAMBADA")
 
 
 def get_tasks_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("tasks", description=__doc__.splitlines()[0])
     p.add_argument("--task", required=True,
-                   choices=[*ZERO_SHOT_TASKS, *FINETUNE_TASKS, "NQ",
+                   choices=["WIKITEXT103", "LAMBADA", *FINETUNE_TASKS, "NQ",
                             "RET-FINETUNE-NQ"],
                    help="NQ = the ORQA retriever evaluation; "
                         "RET-FINETUNE-NQ = supervised retriever finetuning")
@@ -51,7 +59,8 @@ def get_tasks_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict_lambada", action="store_true")
     p.add_argument("--micro_batch_size", type=int, default=8)
     p.add_argument("--seq_length", type=int, default=None,
-                   help="sequence length of the finetune tasks (512)")
+                   help="sequence length of the finetune tasks (512); the "
+                        "zero-shot tasks' window (the model's seq_length)")
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--lr", type=float, default=5e-5)
     # the model's shape when no checkpoint gives it
@@ -213,19 +222,63 @@ def run_ret_finetune_task(args, device) -> dict:
     return result["final"]
 
 
+def run_zeroshot_task(args, device) -> dict:
+    """WIKITEXT103 or LAMBADA on the npz checkpoint under --load: its
+    config and weights, the window its seq_length unless --seq_length."""
+    from megatron_tpu_torch.convert.from_jax import load_npz_checkpoint
+    from megatron_tpu_torch.data.tokenizers import build_tokenizer
+    from megatron_tpu_torch.tasks.zeroshot_gpt import evaluate as ev
+    from megatron_tpu_torch.tasks.zeroshot_gpt.datasets import (
+        build_lambada_dataset, build_wikitext_dataset)
+    from megatron_tpu_torch.training.checkpointing import \
+        load_config_from_checkpoint
+
+    if not args.load:
+        raise SystemExit("--load required for zero-shot tasks")
+    cfg = load_config_from_checkpoint(args.load)
+    if cfg is None:
+        raise SystemExit(f"no checkpoint found under {args.load}")
+    tokenizer = build_tokenizer(
+        args.tokenizer_type, vocab_file=args.vocab_file,
+        merge_file=args.merge_file, tokenizer_model=args.tokenizer_model)
+    model, mcfg = load_npz_checkpoint(args.load, device)
+    cfg = dataclasses.replace(cfg, model=mcfg)
+
+    seq_len = args.seq_length or mcfg.seq_length
+    path = args.valid_data[0]
+    if args.task == "WIKITEXT103":
+        ds = build_wikitext_dataset(path, tokenizer, seq_len,
+                                    overlapping_eval=args.overlapping_eval)
+    else:
+        ds = build_lambada_dataset(path, tokenizer, seq_len,
+                                   strict=args.strict_lambada)
+    stats = ev.evaluate_dataset(model, ds, cfg,
+                                batch_size=args.micro_batch_size,
+                                device=device, log_every=10)
+    metrics = (ev.wikitext_metrics(stats, ds) if args.task == "WIKITEXT103"
+               else ev.lambada_metrics(stats))
+
+    line = f" validation results on {args.task} | " + " | ".join(
+        f"{k}: {v:.4E}" if isinstance(v, float) else f"{k}: {v}"
+        for k, v in metrics.items())
+    print("-" * (len(line) + 1))
+    print(line)
+    print("-" * (len(line) + 1))
+    print(json.dumps({"task": args.task, **metrics}), flush=True)
+    return metrics
+
+
 def main(argv=None, *, device: DeviceLike = None) -> dict:
     """Run one task; returns its metrics."""
     device = resolve_device(device)
     args = get_tasks_parser().parse_args(argv)
-    if args.task in ZERO_SHOT_TASKS:
-        raise NotImplementedError(
-            f"--task {args.task}: the zero-shot GPT tasks (tasks/"
-            "zeroshot_gpt) are not ported yet (ROADMAP Queue 1 item 8)")
     if args.task in FINETUNE_TASKS:
         return run_finetune_task(args, device)
     if args.task == "NQ":
         return run_nq_task(args, device)
-    return run_ret_finetune_task(args, device)
+    if args.task == "RET-FINETUNE-NQ":
+        return run_ret_finetune_task(args, device)
+    return run_zeroshot_task(args, device)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,102 @@
+"""What the engine bench tools (bench_block_attn, bench_spec, bench_prefix,
+bench_sync) share: the model flags, the model, and the device's name.
+
+`--model small` is the reference tools' model at the flags' widths (kv
+heads half the query heads, positions `--seq`, the vocabulary padded to a
+multiple of 64); `--model llama2-7b` is Llama-2-7B's widths at `--layers`
+layers. `--dtype` is the weights', the compute's and the KV cache's type:
+float32 (the default) keeps the tools' token-for-token assertions exact
+across attention paths; bfloat16 is the serving layout the card's times
+are taken in. Weights are random, from seed 0.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from megatron_tpu_torch.config import ModelConfig, llama2_config
+from megatron_tpu_torch.inference.generation import Generator
+from megatron_tpu_torch.models.language_model import LanguageModel
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def add_model_args(p: argparse.ArgumentParser, *, seq: int = 256) -> None:
+    p.add_argument("--model", default="small",
+                   choices=("small", "llama2-7b"),
+                   help="small: --hidden/--heads/--vocab/--seq widths; "
+                        "llama2-7b: Llama-2-7B's widths at --layers")
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--hidden", type=int, default=128)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--vocab", type=int, default=512)
+    p.add_argument("--seq", type=int, default=seq,
+                   help="max_position_embeddings")
+    p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+                   help="weights, compute and KV cache")
+    p.add_argument("--device", default=None,
+                   help="cpu runs without a card (the default is the card)")
+
+
+def parse_args(p: argparse.ArgumentParser, argv, smoke: dict):
+    """The flags, with `smoke`'s values as the defaults under --smoke (a
+    flag given explicitly still wins)."""
+    args = p.parse_args(argv)
+    if args.smoke:
+        p.set_defaults(**smoke)
+        args = p.parse_args(argv)
+    return args
+
+
+def model_config(args) -> ModelConfig:
+    """The flags' model."""
+    if args.model == "llama2-7b":
+        return llama2_config("7b", num_layers=args.layers,
+                             compute_dtype=args.dtype,
+                             seq_length=min(args.seq, 4096),
+                             max_position_embeddings=args.seq)
+    return ModelConfig(
+        num_layers=args.layers, hidden_size=args.hidden,
+        num_attention_heads=args.heads,
+        num_kv_heads=max(args.heads // 2, 1), vocab_size=args.vocab,
+        seq_length=args.seq, max_position_embeddings=args.seq,
+        make_vocab_size_divisible_by=64, attention_impl="flash",
+        compute_dtype=args.dtype).derived()
+
+
+def build_generator(args, device: torch.device, *, eos_id: int,
+                    pad_id: int = 0) -> Generator:
+    cfg = model_config(args)
+    dtype = DTYPES[args.dtype]
+    model = LanguageModel(cfg, device=device, dtype=dtype, seed=0)
+    return Generator(model, cfg, eos_id=eos_id, pad_id=pad_id,
+                     kv_cache_dtype=dtype, device=device)
+
+
+def device_kind(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def first_divergence(got: list, want: list):
+    """(request, position, got's token, want's token) where two arms'
+    outputs first part, or None when they agree."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                     min(len(g), len(w)))
+            return (i, j, g[j] if j < len(g) else None,
+                    w[j] if j < len(w) else None)
+    return None if len(got) == len(want) else (min(len(got), len(want)),
+                                                0, None, None)
+
+
+def emit(record: dict, out) -> None:
+    """The record as one JSON line on stdout (and into `out`)."""
+    line = json.dumps(record)
+    print(line, flush=True)
+    if out:
+        with open(out, "w") as f:
+            f.write(line + "\n")

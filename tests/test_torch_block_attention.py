@@ -226,7 +226,7 @@ def _smoke_block_shapes():
 @pytest.mark.parametrize("sms", [132, 114])
 def test_split_plan_covers_every_key_once_and_fills_the_card(sms):
     shapes = _smoke_block_shapes()
-    assert len(shapes) == 13
+    assert len(shapes) == 15
     for S, w, nq, nkv, nb, B in shapes:
         plan = block_attention_cuda.split_plan(S, w, nq, nkv, nb, B, sms)
         what = f"S {S} w {w} nq {nq} nkv {nkv} nb {nb} B {B}: {plan}"

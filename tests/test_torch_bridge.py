@@ -5,8 +5,8 @@
 - a checkpoint the JAX package saved with backend="npz" loads without JAX
   and gives the same logits;
 - no module of the port (nor chip_smoke.py) imports jax or megatron_tpu,
-  nor transformers, safetensors, tokenizers, sentencepiece or regex, which
-  the card's machine lacks;
+  nor transformers, safetensors, tokenizers, sentencepiece, regex or
+  requests, which the card's machine lacks;
 - the entry points refuse to fall back to the CPU when no device is named,
   and the block-attention kernel's wrapper refuses a CPU tensor.
 """
@@ -132,7 +132,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/router.py", "tools/chaos_common.py",
                    "tools/chaos_router.py", "serving/remote.py",
                    "tools/chaos_fleet.py", "tools/serving_bench.py",
-                   "models/moe.py", *PRETRAINING, *RETRIEVAL):
+                   "models/moe.py", *PRETRAINING, *RETRIEVAL, *ZERO_SHOT):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
@@ -140,7 +140,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert top not in ("jax", "jaxlib", "megatron_tpu", "flax",
                                "optax", "orbax", "transformers",
                                "safetensors", "tokenizers", "sentencepiece",
-                               "regex", "tasks"), f"{path}: imports {mod}"
+                               "regex", "requests", "tasks"), \
+                f"{path}: imports {mod}"
 
 
 # the BERT and T5 pretraining slice
@@ -157,6 +158,16 @@ RETRIEVAL = ("data/ict_dataset.py", "data/orqa_dataset.py",
              "tasks/glue/data.py", "tasks/race/data.py",
              "tasks/orqa/data.py", "tasks/orqa/evaluate.py",
              "tasks/orqa/finetune.py", "tasks/orqa/qa_utils.py")
+
+# zero-shot evaluation, MSDP, length buckets and the engine bench tools
+ZERO_SHOT = ("tasks/zeroshot_gpt/detokenizer.py",
+             "tasks/zeroshot_gpt/datasets.py",
+             "tasks/zeroshot_gpt/evaluate.py", "tasks/msdp/metrics.py",
+             "tasks/msdp/evaluate.py", "tasks/msdp/prompt.py",
+             "tasks/msdp/preprocessing.py", "tasks/msdp/main.py",
+             "data/buckets.py", "tools/bench_common.py",
+             "tools/bench_block_attn.py", "tools/bench_spec.py",
+             "tools/bench_prefix.py", "tools/bench_sync.py")
 
 FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
               "serving/request.py", "serving/metrics.py",
@@ -187,13 +198,21 @@ def test_retrieval_modules_import_no_jax(module):
     _assert_imports_no_jax(module)
 
 
+@pytest.mark.parametrize("module", ZERO_SHOT)
+def test_zero_shot_msdp_bench_modules_import_no_jax(module):
+    """The same for the zero-shot, MSDP, buckets and bench tools slice's
+    modules (nor `requests`: the card's machine has none)."""
+    _assert_imports_no_jax(module)
+
+
 def _assert_imports_no_jax(module):
     import subprocess
     import sys
     name = "megatron_tpu_torch." + module[:-3].replace("/", ".")
     code = (f"import sys, {name}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'megatron_tpu', 'tasks')); print(bad)")
+            "('jax', 'jaxlib', 'megatron_tpu', 'tasks', 'requests')); "
+            "print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

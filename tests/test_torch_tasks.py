@@ -570,7 +570,10 @@ def test_tasks_main_prints_the_references_keys(task_files, task, capsys,
 
 @pytest.mark.parametrize("task", ["WIKITEXT103", "LAMBADA"])
 def test_zero_shot_tasks_raise(task):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """The zero-shot tasks are ported (tests/test_torch_zeroshot.py runs
+    them); without --load they raise for the missing checkpoint, as the
+    reference's `--load required` does."""
+    with pytest.raises(SystemExit, match="--load required"):
         tmain.main(["--task", task, "--valid_data", "x"], device="cpu")
 
 
