@@ -356,22 +356,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    unpadded masked mean, and the steps launch each flash kernel once a
    layer a microbatch. The kernel cases `zeroshot_b8_s4096`,
    `msdp_query_pad`, `spec_verify_w3` and `spec_verify_w9` run in phase 3.
+20. bf16 master weights and activation recompute (`phase_remat_master`,
+   in LANE_B after phase 7). (a) Llama-2-7B's widths built through the
+   flag path with --bf16 (bf16 weights, fp32 grad buffers and moments):
+   `finetune.main` trains phase 7's depth for REMAT_ITERS steps (each
+   flash kernel layers x microbatches times a step; step ms and peak
+   memory printed beside phase 7's fp32 figures), then at
+   REMAT_RESUME_LAYERS U trains REMAT_ITERS, P saves at 2 and exits, R
+   resumes: R's step and final state equal U's bit for bit. (b) a 2-layer
+   fp32 slice with hidden and attention dropout: loss and grads under
+   "selective" and "full" equal "none"'s (REMAT_SLICE_TOL). (c)
+   tools/bench_remat.py at the headline shape (12 x h 2048, s 2048,
+   micro-batch 2 x 4): every arm trains, the flash forward launches twice
+   a layer and microbatch under recompute and once without. (d)
+   tools/bench_32k.py at s LONG_SEQ: two depths of the ladder and the
+   labelled extrapolation, the forward twice a layer a step. (e) the
+   three flash kernels at that shape (b 1, 32/32 heads of 128, causal,
+   bf16) against their plain versions on LONG_HEADS, timed beside SDPA
+   and their bounds. (f) tools/chaos_train.py --smoke on the card.
 
 Phases 1-3b run alone on the card, so that the kernels' times are the
-card's own. Then phases 4-19 run in two lanes at once, each phase in the
+card's own. Then phases 4-20 run in two lanes at once, each phase in the
 order above within its lane: this process runs LANE_A, and a second
 process (`chip_smoke.py --lane ...`, started here and stopped with its own
 processes however the run ends) runs LANE_B, whose lines come through here
 prefixed `lane B | `. The phases' host work (servers, conversions,
 checkpoint I/O, process starts) is most of their time and the card idles
 through most of it, so the lanes share it; the phases that hold most of the
-card's memory (7, 15 and 16) run one after another in LANE_B, and LANE_A's
+card's memory (7, 15, 16 and 20) run one after another in LANE_B, and LANE_A's
 phases hold less than the rest. The serving and training rates the phases
 print are taken beside the other lane's work.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-19
+the norm kernels' on every path above, the flash kernels' on phases 8-20
 too, the block kernel's on phases 9, 11-16 and 19 too, its verify rounds
 at w 5 on phases 11, 13 and 14; phase 15's counts are the replica
 processes' whole lives, phase 19's the parts in its own process) and, last, {"ok": true, "device": ...}.
@@ -415,7 +433,7 @@ PEAK_BYTES = 3.35e12
 # each took alone on one host (a slower one than most) balance them,
 # 508 s against 520 s
 LANE_A = ("4", "5", "6", "8", "9", "12", "13")
-LANE_B = ("15", "16", "7", "10", "11", "14", "17", "18", "19")
+LANE_B = ("15", "16", "7", "20", "10", "11", "14", "17", "18", "19")
 # the most a phase waits for the other lane to give back card memory
 LANE_MEMORY_WAIT_S = 900.0
 
@@ -3100,6 +3118,10 @@ def phase_training(smi: str) -> dict:
         allocated_before_gib=base_gib,
         launches=counts, norm_launches=norm_launches, card=smi)
     log("training: " + json.dumps(stats))
+    TRAINING_FP32.update(step_s_median_last2=step_s,
+                         tokens_per_s=stats["tokens_per_s"],
+                         peak_memory_gib=stats["peak_memory_gib"],
+                         state_gib=state_gib)
     stats["slice"] = check_training_slice()
     log("training slice (fp32, 2 layers, flash vs dot): "
         + json.dumps(stats["slice"]))
@@ -10773,13 +10795,415 @@ def phase_zeroshot_msdp_bench(smi: str) -> dict:
     return stats
 
 
+# Phase 20: bf16 master weights and activation recompute on the card.
+# (a) Llama-2-7B's widths built through the flag path with --bf16 (bf16
+# weights, fp32 grad buffers and Adam moments): finetune.main trains
+# REMAT_LAYERS (phase 7's depth) REMAT_ITERS steps, timed beside phase 7's
+# fp32 figures; then at REMAT_RESUME_LAYERS (the checkpoint holds bf16
+# weights and fp32 moments, 6.7 GB, where 8 layers would write 19 GB) U
+# runs REMAT_ITERS, P saves at 2 and exits, R resumes from P: R's step and
+# final state equal U's bit for bit. (b) a 2-layer fp32 slice with hidden
+# and attention dropout: the grads under "none", "selective" and "full"
+# (REMAT_SLICE_TOL). (c) tools/bench_remat.py at the headline shape, (d)
+# tools/bench_32k.py at s LONG_SEQ, (e) the three flash kernels at
+# bench_32k's shape against their plain versions on LONG_HEADS and beside
+# SDPA, (f) tools/chaos_train.py --smoke on the card.
+REMAT_LAYERS = TRAIN_LAYERS
+REMAT_MODEL = dict(hidden_size=4096, num_attention_heads=32,
+                   ffn_hidden_size=11008, seq_length=4096)
+REMAT_RESUME_LAYERS = 2
+REMAT_ITERS = 3
+REMAT_SEED = 7
+REMAT_SLICE_SEQ = 1024
+REMAT_DROPOUT = 0.1
+# recompute runs the same operations on the same inputs and draws the
+# same dropout masks, so the grads are expected bit-equal; the stated
+# limit, relative to each leaf's largest grad, leaves room for the last
+# bits of an atomic accumulation (the embedding's scatter-add)
+REMAT_SLICE_TOL = 1e-6
+LONG_SEQ = 32768
+# bench_32k's attention: b 1, 32/32 heads of 128, causal, bf16. Heads do
+# not mix without GQA, so the plain versions (fp32, over kv blocks) run on
+# these heads of the same inputs and the kernels' outputs are read there
+LONG_HEADS = (0, 31)
+# limits of (e)'s forward at s LONG_SEQ. An output row there averages up
+# to 32k values, so its elements are near sqrt(1/s) and an absolute limit
+# set at s 4096 is larger than they are. Each output row is held by its
+# largest error over the row's reference norm (read 2.38e-3 on the card,
+# rows past 4096 included), so a wrong or misscaled row fails at any
+# length; the lse is held near its reading (1.9e-6 on the card), so one
+# skipped 128-key tile, which moves a late row's lse by ~128/s (3.9e-3)
+# and its output by about as much as the bf16 noise, fails too
+LONG_TOL_OUT_ROW = 5e-3
+LONG_TOL_LSE = 1e-4
+# phase 7's fp32 figures, for (a)'s bf16 run beside them (both lane B)
+TRAINING_FP32: dict = {}
+
+
+def remat_argv(corpus: dict, layers: int, *extra) -> list:
+    """Llama-2-7B's widths through the flag path (no --model preset), so
+    that --bf16 makes the master weights bf16."""
+    m = REMAT_MODEL
+    return ["--num_layers", str(layers), "--hidden_size",
+            str(m["hidden_size"]), "--num_attention_heads",
+            str(m["num_attention_heads"]), "--ffn_hidden_size",
+            str(m["ffn_hidden_size"]), "--seq_length", str(m["seq_length"]),
+            "--max_position_embeddings", str(m["seq_length"]),
+            "--use_rms_norm", "--glu_activation", "swiglu", "--bf16",
+            "--use_flash_attn", "--micro_batch_size", "1",
+            "--global_batch_size", "2", "--train_iters", str(REMAT_ITERS),
+            "--lr", PRETRAIN_LR, "--log_interval", "1", "--eval_interval",
+            "1000", "--eval_iters", "0", "--split", "90,8,2",
+            "--seed", str(REMAT_SEED), "--data_path", corpus["data"],
+            "--tokenizer_type", "GPT2BPETokenizer", "--vocab_file",
+            corpus["vocab"], "--merge_file", corpus["merges"], *extra]
+
+
+def remat_bf16(corpus: dict, root: str, smi: str) -> dict:
+    """(a): the bf16 run at phase 7's depth, then U, P and R."""
+    import os
+
+    import torch
+    from megatron_tpu_torch import finetune
+    from megatron_tpu_torch.arguments import parse_cli
+    cfg, _ = parse_cli(remat_argv(corpus, REMAT_LAYERS))
+    check(cfg.model.params_dtype == "bfloat16"
+          and cfg.model.compute_dtype == "bfloat16"
+          and all(getattr(cfg.model, k) == v for k, v in REMAT_MODEL.items())
+          and cfg.model.norm_type == "rmsnorm" and cfg.model.use_rotary_emb
+          and cfg.model.activation == "swiglu" and cfg.num_microbatches == 2,
+          f"--bf16 flag path: {cfg.model}, {cfg.num_microbatches} "
+          "microbatches")
+    per_step = REMAT_LAYERS * cfg.num_microbatches
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    timed = run_entry(finetune.main, remat_argv(corpus, REMAT_LAYERS))
+    steps = timed["steps"]
+    check(len(steps) == REMAT_ITERS and all(
+        math.isfinite(s["lm_loss"]) and s["found_inf"] == 0
+        and math.isfinite(s["grad_norm"]) for s in steps),
+        f"bf16 run: {[(s['lm_loss'], s['found_inf']) for s in steps]}")
+    check(all(n == per_step for s in steps for n in s["launches"].values()),
+          f"bf16 run launches {[s['launches'] for s in steps]}, expected "
+          f"{per_step} of each kernel a step")
+    step_ms = sorted(s["device_ms"] for s in steps[1:])[0]
+    out = dict(layers=REMAT_LAYERS, losses=[s["lm_loss"] for s in steps],
+               device_ms=[s["device_ms"] for s in steps],
+               step_ms_best_of_last2=step_ms,
+               tokens_per_s=(cfg.num_microbatches * cfg.model.seq_length
+                             / step_ms * 1e3),
+               peak_gib=timed["peak_gib"], launches=timed["launches"],
+               norm_launches=timed["norm_launches"],
+               fp32_phase7=dict(TRAINING_FP32), card=smi)
+    log("phase 20 (a) bf16 master weights at phase 7's depth: "
+        + json.dumps(out))
+    gc_cuda()
+    save = os.path.join(root, "remat_ckpt")
+    runs = {}
+    for name, extra in (("U", ()),
+                        ("P", ("--save", save, "--save_interval", "2",
+                               "--exit_interval", "2")),
+                        ("R", ("--load", save))):
+        runs[name] = run_entry(finetune.main, remat_argv(
+            corpus, REMAT_RESUME_LAYERS, *extra))
+        gc_cuda()
+    u, p, r = (runs[k]["steps"] for k in "UPR")
+    check([s["iteration"] for s in u] == [1, 2, 3]
+          and [s["iteration"] for s in p] == [1, 2]
+          and [s["iteration"] for s in r] == [3],
+          f"resume: iterations U {[s['iteration'] for s in u]}, P "
+          f"{[s['iteration'] for s in p]}, R {[s['iteration'] for s in r]}")
+    check([(s["lm_loss"], s["grad_norm"]) for s in p]
+          == [(s["lm_loss"], s["grad_norm"]) for s in u[:2]]
+          and (r[0]["lm_loss"], r[0]["grad_norm"])
+          == (u[2]["lm_loss"], u[2]["grad_norm"])
+          and runs["R"]["digest"] == runs["U"]["digest"],
+          f"bf16 resume not bit-equal: U {[s['lm_loss'] for s in u]}, P "
+          f"{[s['lm_loss'] for s in p]}, R {[s['lm_loss'] for s in r]}")
+    out["resume"] = dict(
+        layers=REMAT_RESUME_LAYERS, losses=[s["lm_loss"] for s in u],
+        resumed_loss=r[0]["lm_loss"], bit_equal=True,
+        checkpoint_bytes=du_bytes(save))
+    out["launches"] = {k: out["launches"][k] + sum(
+        runs[n]["launches"][k] for n in "UPR") for k in out["launches"]}
+    out["norm_launches"] = {k: out["norm_launches"][k] + sum(
+        runs[n]["norm_launches"][k] for n in "UPR")
+        for k in out["norm_launches"]}
+    log("phase 20 (a) bf16 resume: " + json.dumps(out["resume"]))
+    return out
+
+
+def du_bytes(root: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def remat_slice() -> dict:
+    """(b): loss and grads of a 2-layer fp32 slice of the 7B width with
+    hidden and attention dropout, one generator seed, under each
+    granularity."""
+    import torch
+    from megatron_tpu_torch.config import llama2_config
+    from megatron_tpu_torch.models.language_model import (LanguageModel,
+                                                          loss_fn)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama2_config("7b", num_layers=2, compute_dtype="float32",
+                        hidden_dropout=REMAT_DROPOUT,
+                        attention_dropout=REMAT_DROPOUT)
+    model = LanguageModel(cfg, dtype=torch.float32, seed=2, trainable=True)
+    toks = torch.randint(0, cfg.vocab_size, (1, REMAT_SLICE_SEQ + 1),
+                         device="cuda", generator=torch.Generator(
+                             "cuda").manual_seed(4))
+    results = {}
+    for gran in ("none", "selective", "full"):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, toks, dataclasses.replace(
+            cfg, recompute_granularity=gran), deterministic=False,
+            generator=torch.Generator().manual_seed(REMAT_SEED))
+        loss.backward()
+        results[gran] = (loss.item(), {k: p.grad.clone() for k, p in
+                                       model.named_parameters()})
+    base_loss, base = results["none"]
+    out = dict(tol=REMAT_SLICE_TOL, dropout=REMAT_DROPOUT, loss=base_loss)
+    for gran in ("selective", "full"):
+        loss, grads = results[gran]
+        errs = {k: (grads[k] - base[k]).abs().max().item()
+                / max(base[k].abs().max().item(), 1e-30) for k in base}
+        worst = max(errs, key=errs.get)
+        out[gran] = dict(loss_equal=loss == base_loss,
+                         max_grad_err=errs[worst], worst_leaf=worst,
+                         leaves_bit_equal=sum(
+                             torch.equal(grads[k], base[k]) for k in base),
+                         leaves=len(base))
+        check(loss == base_loss and errs[worst] <= REMAT_SLICE_TOL,
+              f"recompute {gran} vs none with dropout: loss {loss} vs "
+              f"{base_loss}, grad err {errs[worst]} at {worst} (tol "
+              f"{REMAT_SLICE_TOL})")
+    del model, results, base
+    gc_cuda()
+    log("phase 20 (b) recompute slice (fp32, 2 layers, dropout): "
+        + json.dumps(out))
+    return out
+
+
+def counted(fn, *args):
+    """fn(*args) with every kernel's launch count zeroed just before and
+    read just after: (result, flash launches, norm launches)."""
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.ops import fused_norms_cuda as fnc
+    fc.reset_launch_counts()
+    fnc.reset_launch_counts()
+    out = fn(*args)
+    return out, fc.launch_counts(), fnc.launch_counts()
+
+
+def remat_bench(smi: str) -> dict:
+    """(c): tools/bench_remat.py at the headline shape, every arm; full
+    and selective recompute launch the flash forward twice a layer and
+    microbatch, the backward kernels once, as "none" does."""
+    from megatron_tpu_torch.tools import bench_remat
+    from megatron_tpu_torch.utils.device import resolve_device
+    args = bench_remat.parse(["--iters", "3", "--warmup", "1"])
+    gc_cuda()
+    rec, launches, norms = counted(bench_remat.measure, args,
+                                   resolve_device(None))
+    check(rec["completed"], f"bench_remat: {rec['arms']}")
+    layers = bench_remat.HEADLINE["num_layers"]
+    per = layers * bench_remat.HEADLINE_BATCH[1]
+    for arm, a in rec["arms"].items():
+        want_fwd = per if arm == "none" else 2 * per
+        got = a["launches_per_step"]
+        check(got["flash_fwd_cuda"] == want_fwd
+              and got["flash_bwd_dq_cuda"] == per
+              and got["flash_bwd_dkv_cuda"] == per,
+              f"bench_remat {arm}: launches a step {got}, expected forward "
+              f"{want_fwd}, backward {per}")
+        check(math.isfinite(a["loss"]), f"bench_remat {arm}: loss "
+              f"{a['loss']}")
+    out = dict(record=rec, launches=launches, norm_launches=norms,
+               card=smi)
+    log("phase 20 (c) bench_remat: " + json.dumps(rec))
+    return out
+
+
+def remat_32k(smi: str) -> dict:
+    """(d): tools/bench_32k.py at s LONG_SEQ: the two largest depths of the
+    ladder that train, and the labelled extrapolation."""
+    from megatron_tpu_torch.tools import bench_32k
+    from megatron_tpu_torch.utils.device import resolve_device
+    args = bench_32k.parse(["--iters", "2", "--warmup", "1",
+                            "--seq_length", str(LONG_SEQ)])
+    gc_cuda()
+    recs, launches, norms = counted(bench_32k.measure, args,
+                                    resolve_device(None))
+    trained = [r for r in recs if "step_ms" in r]
+    # the ladder's largest depths both train: a depth that failed (out of
+    # memory beside lane A, or a fault) fails the part, where the tool
+    # would fit the depths below it
+    check(not any("failed" in r for r in recs) and len(trained) == 2
+          and trained[0]["layers"] == bench_32k.LADDER[0]
+          and trained[1]["layers"] == bench_32k.LADDER[1]
+          and recs[-1]["metric"].startswith("extrapolated")
+          and "EXTRAPOLATED" in recs[-1]["note"], f"bench_32k: {recs}")
+    for r in trained:
+        got = r["launches_per_step"]
+        check(got["flash_fwd_cuda"] == 2 * r["layers"]
+              and got["flash_bwd_dq_cuda"] == r["layers"]
+              and got["flash_bwd_dkv_cuda"] == r["layers"]
+              and math.isfinite(r["loss"]),
+              f"bench_32k {r['layers']} layers: launches {got}, loss "
+              f"{r['loss']}")
+    log("phase 20 (d) bench_32k: " + json.dumps(recs))
+    return dict(records=recs, launches=launches, norm_launches=norms,
+                card=smi)
+
+
+def long_context_kernels() -> dict:
+    """(e): forward, dQ and dK/dV at b 1, s LONG_SEQ, 32/32 heads of 128,
+    causal, bf16: each held against its plain version on LONG_HEADS (the
+    kernel's backward fed the plain forward's lse and delta there),
+    timed queued beside SDPA and the bound."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    b, s, n, d = 1, LONG_SEQ, 32, 128
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    q, k, v, dout = (torch.randn(b, s, n, d, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5)
+    heads = list(LONG_HEADS)
+    sub = [t[:, :, heads].contiguous() for t in (q, k, v, dout)]
+    out, lse = fc.flash_fwd_cuda(q, k, v, **kw)
+    ref_out, ref_lse = fa.blockwise_attention(*sub[:3], **kw)
+    diff = (out[:, :, heads].float() - ref_out.float()).abs()
+    err_out = diff.max().item()
+    err_row = (diff.amax(-1) / ref_out.float().norm(dim=-1).clamp_min(
+        1e-30)).max().item()
+    err_lse = (lse[:, heads] - ref_lse).abs().max().item()
+    del diff
+    check(bool(torch.isfinite(out).all()) and err_row <= LONG_TOL_OUT_ROW
+          and err_lse <= LONG_TOL_LSE,
+          f"s {s}: forward vs plain: a row's error over its norm {err_row} "
+          f"(limit {LONG_TOL_OUT_ROW}), lse err {err_lse} (limit "
+          f"{LONG_TOL_LSE})")
+    delta = fa.attention_delta(out, dout)
+    ref_delta = fa.attention_delta(ref_out, sub[3])
+    lse_in, delta_in = lse.clone(), delta.clone()
+    lse_in[:, heads], delta_in[:, heads] = ref_lse, ref_delta
+    dq = fc.flash_bwd_dq_cuda(q, k, v, dout, lse_in, delta_in, **kw)
+    dk, dv = fc.flash_bwd_dkv_cuda(q, k, v, dout, lse_in, delta_in, **kw)
+    want = fa.blockwise_attention_bwd(*sub, ref_lse, ref_delta, **kw)
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        err = (got[:, :, heads].float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = GRAD_TOL["bfloat16"] * ref_max
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"s {s}: {name} err {err} (tol {tol})")
+        errs[name] = dict(max_abs_err=err, max_abs_ref=ref_max, tol=tol)
+    del dq, dk, dv, want
+    pairs = s * (s + 1) // 2 * n
+    fwd_b, dq_b, dkv_b = training_bounds(b, s, s, n, n, d, 2,
+                                         "torch.bfloat16", pairs, False,
+                                         False)
+    sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, d ** -0.5, None, True)
+    plain_fwd = cuda_time_ms(lambda: fa.blockwise_attention(*sub[:3], **kw),
+                             1, 1)
+    plain_bwd = cuda_time_ms(lambda: fa.blockwise_attention_bwd(
+        *sub, ref_lse, ref_delta, **kw), 1, 1)
+    lib_bwd = cuda_time_ms(sdpa_bwd, 5, 1, queued=True)
+    out_stats = dict(
+        shape=f"b{b}_s{s}_h{n}_d{d}_bf16_causal", plain_heads=heads,
+        fwd=dict(max_abs_err=err_out, max_row_rel_err=err_row,
+                 tol_row_rel=LONG_TOL_OUT_ROW, max_abs_err_lse=err_lse,
+                 tol_lse=LONG_TOL_LSE,
+                 ms=cuda_time_ms(lambda: fc.flash_fwd_cuda(q, k, v, **kw),
+                                 5, 1, queued=True),
+                 plain_ms_heads=plain_fwd, bound_ms=fwd_b[0],
+                 bound_by=fwd_b[1],
+                 library_ms=cuda_time_ms(sdpa_fwd, 5, 1, queued=True)),
+        dq=dict(**errs["dq"], ms=cuda_time_ms(lambda: fc.flash_bwd_dq_cuda(
+            q, k, v, dout, lse, delta, **kw), 5, 1, queued=True),
+            plain_ms_heads=plain_bwd, bound_ms=dq_b[0], bound_by=dq_b[1],
+            library_ms=lib_bwd),
+        dkv=dict(max_abs_err=max(errs["dk"]["max_abs_err"],
+                                 errs["dv"]["max_abs_err"]),
+                 dk=errs["dk"], dv=errs["dv"],
+                 ms=cuda_time_ms(lambda: fc.flash_bwd_dkv_cuda(
+                     q, k, v, dout, lse, delta, **kw), 5, 1, queued=True),
+                 plain_ms_heads=plain_bwd, bound_ms=dkv_b[0],
+                 bound_by=dkv_b[1], library_ms=lib_bwd))
+    del q, k, v, dout, out, lse, delta, sub, ref_out, ref_lse
+    gc_cuda()
+    log("phase 20 (e) flash kernels at s 32768: " + json.dumps(out_stats))
+    return out_stats
+
+
+def remat_chaos() -> dict:
+    """(f): tools/chaos_train.py --smoke on the card."""
+    import shutil
+    import tempfile
+
+    from megatron_tpu_torch.tools import chaos_train
+    root = tempfile.mkdtemp(prefix="chip_smoke_chaos_train_")
+    try:
+        rec = chaos_train.run_chaos(8, 32, "write_error@2,nan@3,nan@4",
+                                    root, "cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(rec["completed"] and rec["final_iteration"] == 8
+          and len(rec["quarantine_windows"]) == 1
+          and rec["corrupt_fallback_iteration"] == 6,
+          f"chaos_train on the card: {rec}")
+    log("phase 20 (f) chaos_train: " + json.dumps(rec))
+    return rec
+
+
+def phase_remat_master(smi: str) -> dict:
+    """Phase 20: bf16 master weights, activation recompute and the tools
+    that compose them, parts (a)-(f) (see the note above REMAT_LAYERS)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    stats = dict(card=smi)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        stats[name] = fn(*args)
+        stats[name]["part_seconds"] = time.perf_counter() - t0
+        log(f"phase 20 {name}: {stats[name]['part_seconds']:.1f} s")
+        gc_cuda()
+
+    try:
+        corpus = pretrain_corpus(root)
+        part("bf16", remat_bf16, corpus, root, smi)
+        part("slice", remat_slice)
+        part("bench_remat", remat_bench, smi)
+        part("bench_32k", remat_32k, smi)
+        part("long_context", long_context_kernels)
+        part("chaos_train", remat_chaos)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counted_parts = [stats[p] for p in ("bf16", "bench_remat", "bench_32k")]
+    stats["launches"] = {k: sum(c["launches"][k] for c in counted_parts)
+                         for k in counted_parts[0]["launches"]}
+    stats["norm_launches"] = {
+        k: sum(c["norm_launches"][k] for c in counted_parts)
+        for k in counted_parts[0]["norm_launches"]}
+    log(f"phase 20: launches {stats['launches']}")
+    return stats
+
+
 PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "7": phase_training, "8": phase_pretrain, "9": phase_toolchain,
           "10": phase_window_supervisor, "11": phase_engine_features,
           "12": phase_front_door, "13": phase_lora_live,
           "14": phase_structured_degrade, "15": phase_fleet,
           "16": phase_moe, "17": phase_bert_t5,
-          "18": phase_retrieval_tasks, "19": phase_zeroshot_msdp_bench}
+          "18": phase_retrieval_tasks, "19": phase_zeroshot_msdp_bench,
+          "20": phase_remat_master}
 
 
 class Lane:
@@ -10961,8 +11385,8 @@ def main(argv=None) -> int:
         return 1
     (main_stats, engine_stats, int8_stats, train_stats, pretrain_stats,
      toolchain_stats, window_stats, feature_stats, front_stats, lora_stats,
-     struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats, zs_stats) = (
-        stats[str(n)] for n in range(4, 20))
+     struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats, zs_stats,
+     remat_stats) = (stats[str(n)] for n in range(4, 21))
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
     window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
@@ -10997,6 +11421,10 @@ def main(argv=None) -> int:
     # phase 19's parts in process, each from zero (the tasks.main process's
     # own are not read)
     zs_counts_ = zs_stats["launches"]
+    # phase 20's entry-point runs and bench tools, each from zero (its
+    # slice and the s 32768 kernel checks are not counted)
+    remat_counts = remat_stats["launches"]
+    long_context = remat_stats["long_context"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -11030,7 +11458,8 @@ def main(argv=None) -> int:
               + bert_counts["flash_fwd_cuda"]
               + t5_counts["flash_fwd_cuda"]
               + rt_counts["flash_fwd_cuda"]
-              + zs_counts_["flash_fwd_cuda"], "fwd",
+              + zs_counts_["flash_fwd_cuda"]
+              + remat_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -11055,6 +11484,7 @@ def main(argv=None) -> int:
                   pretrain_t5=t5_counts["flash_fwd_cuda"],
                   retrieval_tasks=rt_counts["flash_fwd_cuda"],
                   zeroshot_msdp_bench=zs_counts_["flash_fwd_cuda"],
+                  remat_master=remat_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -11064,6 +11494,8 @@ def main(argv=None) -> int:
                            "plain_ms", "bound_ms", "bound_by",
                            "library_ms")}),
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
+                   long_context=dict(shape=long_context["shape"],
+                                     **long_context["fwd"]),
                    serving_shape=dict(shape=MAIN_SHAPE, **{
                        k: serving_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -11079,7 +11511,8 @@ def main(argv=None) -> int:
               + bert_counts["flash_bwd_dq_cuda"]
               + t5_counts["flash_bwd_dq_cuda"]
               + rt_counts["flash_bwd_dq_cuda"]
-              + zs_counts_["flash_bwd_dq_cuda"], "dq",
+              + zs_counts_["flash_bwd_dq_cuda"]
+              + remat_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -11093,7 +11526,10 @@ def main(argv=None) -> int:
                        pretrain_t5=t5_counts["flash_bwd_dq_cuda"],
                        retrieval_tasks=rt_counts["flash_bwd_dq_cuda"],
                        zeroshot_msdp_bench=zs_counts_[
-                           "flash_bwd_dq_cuda"]))),
+                           "flash_bwd_dq_cuda"],
+                       remat_master=remat_counts["flash_bwd_dq_cuda"]),
+                   long_context=dict(shape=long_context["shape"],
+                                     **long_context["dq"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
@@ -11103,7 +11539,8 @@ def main(argv=None) -> int:
               + bert_counts["flash_bwd_dkv_cuda"]
               + t5_counts["flash_bwd_dkv_cuda"]
               + rt_counts["flash_bwd_dkv_cuda"]
-              + zs_counts_["flash_bwd_dkv_cuda"], "dkv",
+              + zs_counts_["flash_bwd_dkv_cuda"]
+              + remat_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -11120,7 +11557,10 @@ def main(argv=None) -> int:
                        pretrain_t5=t5_counts["flash_bwd_dkv_cuda"],
                        retrieval_tasks=rt_counts["flash_bwd_dkv_cuda"],
                        zeroshot_msdp_bench=zs_counts_[
-                           "flash_bwd_dkv_cuda"]))),
+                           "flash_bwd_dkv_cuda"],
+                       remat_master=remat_counts["flash_bwd_dkv_cuda"]),
+                   long_context=dict(shape=long_context["shape"],
+                                     **long_context["dkv"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)
@@ -11191,7 +11631,8 @@ def main(argv=None) -> int:
                       structured_degrade=struct_stats, fleet=fleet_stats,
                       moe=moe_stats, bert_t5=bt_stats,
                       retrieval_tasks=rt_stats,
-                      zeroshot_msdp_bench=zs_stats)
+                      zeroshot_msdp_bench=zs_stats,
+                      remat_master=remat_stats)
     for name, kind, part, line in (("rms_fwd", "rms", "fwd", 56),
                                    ("rms_bwd", "rms", "bwd", 62),
                                    ("ln_fwd", "ln", "fwd", 137),

@@ -7,8 +7,14 @@ port parses the model, training, optimizer, data and resilience groups and
 the reference-compat aliases of this path. A flag whose feature the port
 does not run yet raises NotImplementedError naming its ROADMAP item:
 tensor, pipeline or context parallelism, sequence parallelism, the
-distributed optimizer and `--expert_axis dp` (Queue 1 item 7) and
-activation recompute (item 2). The MoE flags (`--num_experts`,
+distributed optimizer and `--expert_axis dp` (Queue 1 item 7).
+`--recompute_granularity full|selective` recomputes each layer in the
+backward (models/transformer.py); `--recompute_activations` is the
+reference's alias for selective, and `--recompute_method` and
+`--recompute_num_layers` are accepted and change nothing, as in the
+reference, which recomputes every layer alike. `--bf16` and `--fp16` on
+the flag-built path train bf16 and fp16 master weights. The MoE flags
+(`--num_experts`,
 `--moe_top_k`, `--moe_capacity_factor`, `--moe_aux_loss_coeff`,
 `--moe_dispatch`) keep the reference's defaults.
 `--lora_rank` (with `--lora_alpha` and `--lora_export`) turns the run into
@@ -220,9 +226,15 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    dest="max_seq_length_dec")
     g.add_argument("--no_save_optim", action="store_true")
     g.add_argument("--no_save_rng", action="store_true")
-    g.add_argument("--recompute_activations", action="store_true")
+    g.add_argument("--recompute_activations", action="store_true",
+                   help="alias for --recompute_granularity selective, "
+                        "which keeps each layer's weight-GEMM outputs and "
+                        "recomputes the rest (more memory than full, no "
+                        "GEMM run twice)")
     g.add_argument("--recompute_method", type=str, default=None,
-                   choices=["uniform", "block"])
+                   choices=["uniform", "block"],
+                   help="accepted; every layer is recomputed alike either "
+                        "way")
     g.add_argument("--recompute_num_layers", type=int, default=None)
     g.add_argument("--attention_softmax_in_fp32", action="store_true",
                    dest="softmax_compute_fp32", default=True)
@@ -287,14 +299,6 @@ _UNPORTED = (
      "the sharded optimizer (ROADMAP Queue 1 item 7)"),
     ("expert_axis", "tp",
      "expert parallelism over another mesh axis (ROADMAP Queue 1 item 7)"),
-    ("recompute_granularity", "none",
-     "activation recompute (ROADMAP Queue 1 item 2)"),
-    ("recompute_activations", False,
-     "activation recompute (ROADMAP Queue 1 item 2)"),
-    ("recompute_method", None,
-     "activation recompute (ROADMAP Queue 1 item 2)"),
-    ("recompute_num_layers", None,
-     "activation recompute (ROADMAP Queue 1 item 2)"),
 )
 
 
@@ -319,6 +323,8 @@ def _apply_compat(args: argparse.Namespace) -> None:
             args._num_layers_defaulted = enc is None
     if args.encoder_seq_length and not args.seq_length:
         args.seq_length = args.encoder_seq_length
+    if args.recompute_activations and args.recompute_granularity == "none":
+        args.recompute_granularity = "selective"
     pet = args.position_embedding_type
     if pet in ("rope", "rotary"):
         args.use_rotary_emb = True

@@ -2,9 +2,10 @@
 
 The port keeps the reference's leaf names and its stacked [L, ...] layer
 layout, so moving weights across is a renaming ("a/b/c" -> "a.b.c") plus
-`torch.from_numpy`, with the keys and shapes checked against the model the
-config describes. Nothing is reordered: the fused wkv splits into k and v
-inside attention exactly as in the reference.
+`torch.from_numpy` (a bf16 leaf by viewing its bits), with the keys and
+shapes checked against the model the config describes. Nothing is
+reordered: the fused wkv splits into k and v inside attention exactly as
+in the reference.
 
 `train_state_from_numpy` carries a JAX training state across: the params,
 the optimizer's mu, nu and step, the loss-scaler automaton and the
@@ -117,7 +118,8 @@ def params_from_numpy(tree_or_flat: Mapping, cfg: ModelConfig,
         if tuple(arr.shape) != expected[key]:
             raise ValueError(f"shape mismatch for {key}: got {arr.shape}, "
                              f"model {expected[key]}")
-        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+        t = checkpointing.numpy_to_tensor(
+            np.require(arr, requirements=["C", "W"]))
         state[key] = t.to(device=device, dtype=dtype or t.dtype)
     return state
 
@@ -169,7 +171,7 @@ def train_state_to_numpy(state: TrainState):
     def flat(tensors):
         if tensors is None:
             return None
-        return {k.replace(".", "/"): t.detach().cpu().numpy()
+        return {k.replace(".", "/"): checkpointing.tensor_to_numpy(t)
                 for k, t in tensors.items()}
 
     o = state.opt_state

@@ -278,10 +278,6 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
     (inputs, labels) pair of [b, s]. `adapters` threads LoRA factors into
     the forward (training/lora.py differentiates through them). The
     context-parallel zigzag is the multi-device slice's."""
-    if cfg.recompute_granularity != "none":
-        raise NotImplementedError(
-            f"recompute_granularity={cfg.recompute_granularity!r}: "
-            "activation recompute is ported in a later slice")
     if isinstance(tokens, tuple):
         inputs, labels = tokens
     else:

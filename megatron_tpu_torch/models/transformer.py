@@ -23,11 +23,31 @@ every layer or, with `lima_dropout`, at the LIMA ramp linspace(0, p, L)
 whose first layer drops nothing. `drop_path_rate` > 0 adds stochastic
 depth on the attention and MLP branches at the ramp linspace(0, rate, L).
 All of it runs only when `deterministic` is False and a generator is
-given. Activation recompute belongs to a later slice and raises in
-`loss_fn`.
+given.
+
+Activation recompute (`cfg.recompute_granularity`, the reference's
+`jax.checkpoint` around its scanned layer body) wraps each layer in
+`torch.utils.checkpoint` (non-reentrant) when grad is enabled and no KV
+cache is written: "full" keeps only the layer's input and recomputes the
+whole layer in the backward; "selective" also keeps the outputs of the
+weight GEMMs (the QKV, output and MLP projections, through
+`ops.quantized.GemmTape`) and the recompute hands them back in place of
+the products, so it runs the norms, RoPE, core attention, activations
+and dropout again but no weight GEMM, as the reference's
+`dots_with_no_batch_dims_saveable` policy does (the MoE router's small
+product, the experts' batched products and the LoRA products recompute).
+A hand-written kernel (the flash forward) runs again in the recompute,
+writing buffers the recompute allocates anew. Dropout draws from the
+explicit generator, which torch's checkpoint does not replay: each layer
+runs on a copy of the generator taken before its forward, the recompute
+on another copy of the same state, and the caller's generator is moved
+on to where the forward left its copy, so recompute draws the masks of
+the forward and the layers after it draw what they draw without
+recompute. The loss and grads are those of "none" bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Union
 
@@ -42,7 +62,7 @@ from megatron_tpu_torch.models.mlp import mlp_apply, mlp_init
 from megatron_tpu_torch.models.moe import moe_apply, moe_init
 from megatron_tpu_torch.models.norms import apply_norm, norm_init
 from megatron_tpu_torch.ops.dropout import drop_path, dropout
-from megatron_tpu_torch.ops.quantized import W8
+from megatron_tpu_torch.ops.quantized import W8, GemmTape
 
 
 def layer_init(cfg: ModelConfig, cross_attn: bool = False) -> dict:
@@ -191,6 +211,36 @@ def unstack_layers(stacked) -> list:
     return [{k: v[i] for k, v in per_key.items()} for i in range(num_layers)]
 
 
+def recompute(fn, x: torch.Tensor, granularity: str,
+              generator: Optional[torch.Generator] = None):
+    """`fn(x, generator)` under activation checkpointing at `granularity`
+    ("full" or "selective"), its dropout masks drawn again in the
+    recompute from a copy of the generator's state before the forward
+    (see the module's note). Returns fn's outputs."""
+    from torch.utils import checkpoint as ckpt
+    if granularity not in ("full", "selective"):
+        raise ValueError(f"recompute_granularity={granularity!r}")
+    tape = GemmTape() if granularity == "selective" else None
+    state = None if generator is None else generator.get_state()
+    forward_generator = []
+
+    def run(t):
+        g = None
+        if generator is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+        with (contextlib.nullcontext() if tape is None
+              else tape.active(replaying=bool(forward_generator))):
+            out = fn(t, g)
+        forward_generator.append(g)
+        return out
+
+    out = ckpt.checkpoint(run, x, use_reentrant=False)
+    if generator is not None:
+        generator.set_state(forward_generator[0].get_state())
+    return out
+
+
 def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
                 kv_caches: Union[KVCache, BlockKVCache, None] = None,
@@ -214,16 +264,26 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
     aux = 0.0
     layers = unstack_layers(stacked_params)
     hidden, paths = dropout_rates(cfg, len(layers))
+    remat = (cfg.recompute_granularity != "none" and kv_caches is None
+             and torch.is_grad_enabled())
+    gen = None if deterministic else generator
     for i, layer in enumerate(layers):
         cache = None if kv_caches is None else kv_caches.layer(i)
-        x, _, layer_aux = layer_apply(layer, x, cfg, rope_cos=rope_cos,
-                           rope_sin=rope_sin, position_ids=position_ids,
-                           kv_cache=cache, segment_ids=segment_ids,
-                           deterministic=deterministic, generator=generator,
-                           adapters=None if lora is None else lora[i],
-                           causal=causal, encoder_output=encoder_output,
-                           hidden_dropout=hidden[i],
-                           drop_path_rate=paths[i])
+
+        def apply(h, g, layer=layer, cache=cache, i=i):
+            return layer_apply(layer, h, cfg, rope_cos=rope_cos,
+                               rope_sin=rope_sin, position_ids=position_ids,
+                               kv_cache=cache, segment_ids=segment_ids,
+                               deterministic=deterministic, generator=g,
+                               adapters=None if lora is None else lora[i],
+                               causal=causal, encoder_output=encoder_output,
+                               hidden_dropout=hidden[i],
+                               drop_path_rate=paths[i])
+        if remat:
+            x, _, layer_aux = recompute(apply, x, cfg.recompute_granularity,
+                                        gen)
+        else:
+            x, _, layer_aux = apply(x, gen)
         aux = aux + layer_aux
     if kv_caches is None:
         return x, None, aux

@@ -29,10 +29,18 @@ moves a scale by an ulp and flips ties.
   `quantize_weights` leaves an expert bank in its dtype, as the reference
   does: its walk would read the bank's expert axis as the contraction.
 
+- `GemmTape`: selective activation recompute's record of a layer's
+  weight-GEMM outputs. `qdense` hands each product to the tape active on
+  its thread: the layer's forward keeps the outputs, the checkpoint's
+  recompute of the layer gets them back with the product's own backward,
+  and so recomputes everything between the GEMMs but no GEMM.
+
 Not ported here: `quantize_axes` (comes with the multi-device slice).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -94,6 +102,13 @@ def _int8_matmul_impl(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (_int8_dot(xi, wi).float() * sx * sw).to(x.dtype)
 
 
+def _int8_matmul_grads(x, w, dy):
+    dx = dy @ w.to(dy.dtype).T
+    dw = x.reshape(-1, x.shape[-1]).T.to(dy.dtype) @ dy.reshape(
+        -1, dy.shape[-1])
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 class _Int8Matmul(torch.autograd.Function):
     """int8 forward, full-precision straight-through backward."""
 
@@ -105,10 +120,7 @@ class _Int8Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dx = dy @ w.to(dy.dtype).T
-        dw = x.reshape(-1, x.shape[-1]).T.to(dy.dtype) @ dy.reshape(
-            -1, dy.shape[-1])
-        return dx.to(x.dtype), dw.to(w.dtype)
+        return _int8_matmul_grads(x, w, dy)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -187,24 +199,125 @@ def wcast(w, dtype: torch.dtype):
     return w.to(dtype)
 
 
+def _product(x: torch.Tensor, w: torch.Tensor, int8: bool) -> torch.Tensor:
+    return int8_matmul(x, w) if int8 else x @ w
+
+
+def _folds(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether `x @ w` (w 2-D) is one aten.mm on x viewed [M, K], as
+    torch's matmul computes it when w needs a grad or x's leading dims
+    fold without a copy; otherwise it broadcasts w to a bmm."""
+    if x.dim() <= 2 or w.requires_grad:
+        return True
+    return all(x.stride(i) == x.stride(i + 1) * x.shape[i + 1]
+               for i in range(x.dim() - 2))
+
+
+def _column_major(t: torch.Tensor) -> bool:
+    return t.stride(0) == 1 and t.stride(1) == t.shape[0]
+
+
+class _KeptGemm(torch.autograd.Function):
+    """`x @ w` whose output the forward kept: returns it without the
+    product, and backpropagates as the product does (aten.mm's backward
+    on the folded x, bit for bit, or `int8_matmul`'s). It saves what that
+    product saves, in its order (the checkpoint compares the recompute's
+    saved tensors with the forward's)."""
+
+    @staticmethod
+    def forward(ctx, x, w, y, int8):
+        ctx.int8, ctx.x_shape = int8, x.shape
+        if int8:
+            ctx.save_for_backward(x, w)
+            return y
+        xf = x.reshape(-1, x.shape[-1])
+        ctx.xf_column_major = _column_major(xf)
+        needs_x, needs_w = ctx.needs_input_grad[:2]
+        ctx.save_for_backward(*([w] if needs_x else []),
+                              *([xf] if needs_w else []))
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.int8:
+            x, w = ctx.saved_tensors
+            return (*_int8_matmul_grads(x, w, dy), None, None)
+        needs_x, needs_w = ctx.needs_input_grad[:2]
+        saved = list(ctx.saved_tensors)
+        w = saved.pop(0) if needs_x else None
+        xf = saved.pop(0) if needs_w else None
+        g = dy.reshape(-1, dy.shape[-1])
+        dx = dw = None
+        if needs_x:
+            dxf = (w.mm(g.t()).t() if ctx.xf_column_major
+                   else g.mm(w.t()))
+            dx = dxf.reshape(ctx.x_shape)
+        if needs_w:
+            dw = g.t().mm(xf).t() if _column_major(w) else xf.t().mm(g)
+        return dx, dw, None, None
+
+
+_TAPES = threading.local()
+
+
+class GemmTape:
+    """One layer's weight-GEMM outputs under selective recompute. While
+    `recording`, each `qdense` product on this thread is computed and its
+    output kept; while `replaying` (the checkpoint's recompute of the
+    layer), each returns the output kept at its place, through
+    `_KeptGemm`. A product torch would not compute as one mm (a frozen w
+    beside an x that does not fold) is computed both times."""
+
+    def __init__(self):
+        self.outputs: list = []
+        self._replaying = False
+        self._next = 0
+
+    @contextlib.contextmanager
+    def active(self, replaying: bool):
+        prev = getattr(_TAPES, "tape", None)
+        _TAPES.tape, self._replaying, self._next = self, replaying, 0
+        try:
+            yield
+        finally:
+            _TAPES.tape = prev
+
+    def product(self, x: torch.Tensor, w: torch.Tensor,
+                int8: bool) -> torch.Tensor:
+        if not self._replaying:
+            y = _product(x, w, int8)
+            self.outputs.append(y.detach() if int8 or _folds(x, w)
+                                else None)
+            return y
+        y = self.outputs[self._next]
+        self._next += 1
+        if y is None:
+            return _product(x, w, int8)
+        return _KeptGemm.apply(x, w, y, int8)
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, int8: bool) -> torch.Tensor:
+    tape = getattr(_TAPES, "tape", None)
+    if tape is None:
+        return _product(x, w, int8)
+    return tape.product(x, w, int8)
+
+
 def qdense(x: torch.Tensor, w, quantized_gemm: str) -> torch.Tensor:
     """Dense-layer dispatch of the attention and MLP call sites. `w` may
     carry trailing structure (the GLU [h, 2, ffn] layout): it is flattened
     to [K, prod(rest)] for the GEMM and the output reshaped back, so
     gate/value stay a leading index. A W8 weight takes the int8 path
-    whatever `quantized_gemm` says: the resident weight demands it."""
+    whatever `quantized_gemm` says: the resident weight demands it. Under
+    selective recompute the product goes through the active `GemmTape`."""
     if isinstance(w, W8):
         return _w8_matmul(x, w)
-    if quantized_gemm == "none":
-        if w.dim() == 2:
-            return x @ w
-        y = x @ w.reshape(w.shape[0], -1)
-        return y.reshape(*y.shape[:-1], *w.shape[1:])
-    if quantized_gemm != "int8":
+    if quantized_gemm not in ("none", "int8"):
         raise ValueError(f"quantized_gemm={quantized_gemm!r}")
+    int8 = quantized_gemm == "int8"
     if w.dim() == 2:
-        return int8_matmul(x, w)
-    y = int8_matmul(x, w.reshape(w.shape[0], -1))
+        return _dense(x, w, int8)
+    y = _dense(x, w.reshape(w.shape[0], -1), int8)
     return y.reshape(*y.shape[:-1], *w.shape[1:])
 
 

@@ -446,6 +446,9 @@ class ServingEngine:
         self._max_restarts = self.serving.max_engine_restarts
         self._watchdog: Optional[StepWatchdog] = None
         self._idle_wait = 0.5
+        # busy passes of the loop (idle wakes excluded): the unit of the
+        # ladder's dwell counts, read by tools that pace load by it
+        self.iterations = 0
         if self.serving.engine_step_timeout_s:
             self._watchdog = StepWatchdog(
                 self.serving.engine_step_timeout_s, on_timeout=self._on_hang,
@@ -737,6 +740,13 @@ class ServingEngine:
             "weight_swap_pending": self._pending_swap is not None,
             "detail": broken or "",
         }
+
+    def has_work(self) -> bool:
+        """Queued, prefilling or decoding requests are present (host
+        reads, no lock: a reader on another thread may see the state one
+        iteration old)."""
+        return bool(self.scheduler.depth() or self._active.any()
+                    or self._prefilling)
 
     def invariant_state(self) -> dict:
         """Host snapshot for the invariant checker (serving/invariants.py):
@@ -1323,6 +1333,7 @@ class ServingEngine:
                     "engine iteration exceeded the watchdog deadline "
                     f"({self.serving.engine_step_timeout_s}s); in-flight "
                     "requests were failed by the watchdog")
+            self.iterations += 1
             self._maybe_decay_restarts()
             self._reap_cancelled()
             self._reap_expired()

@@ -199,7 +199,8 @@ def place_params(staged: StagedWeights, example, cfg, device):
     from megatron_tpu_torch.models.language_model import (LanguageModel,
                                                           params_tree)
     from megatron_tpu_torch.ops.quantized import W8, quantize_weights
-    from megatron_tpu_torch.training.checkpointing import tree_leaves
+    from megatron_tpu_torch.training.checkpointing import (numpy_to_tensor,
+                                                           tree_leaves)
     key = str(torch.device(device))
     with staged._lock:
         placed = staged._placed.get(key)
@@ -211,7 +212,7 @@ def place_params(staged: StagedWeights, example, cfg, device):
         for name, arr in staged.params.items():
             w8 = isinstance(leaves[name], W8)
             any_w8 |= w8
-            t = torch.from_numpy(np.require(arr, requirements=["C"]))
+            t = numpy_to_tensor(np.require(arr, requirements=["C"]))
             state[name.replace("/", ".")] = t.to(
                 device=device,
                 dtype=torch.float32 if w8 else leaves[name].dtype)

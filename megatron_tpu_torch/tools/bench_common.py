@@ -1,5 +1,7 @@
-"""What the engine bench tools (bench_block_attn, bench_spec, bench_prefix,
-bench_sync) share: the model flags, the model, and the device's name.
+"""What the bench tools share: the engine tools' (bench_block_attn,
+bench_spec, bench_prefix, bench_sync) model flags, model and device name,
+and the training tools' (bench_remat, bench_32k) timed steps
+(`time_train_steps`).
 
 `--model small` is the reference tools' model at the flags' widths (kv
 heads half the query heads, positions `--seq`, the vocabulary padded to a
@@ -12,7 +14,9 @@ are taken in. Weights are random, from seed 0.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import time
 
 import torch
 
@@ -100,3 +104,58 @@ def emit(record: dict, out) -> None:
     if out:
         with open(out, "w") as f:
             f.write(line + "\n")
+
+
+def time_train_steps(cfg, device: torch.device, *, warmup: int, iters: int,
+                     seed: int = 0) -> dict:
+    """`warmup` then `iters` timed make_train_step steps of `cfg` (random
+    weights from `seed`, random tokens, every position in the loss) on
+    `device`: the step's milliseconds and tokens a second by the host clock
+    around work that ends in a synchronise, the last loss, the parameter
+    count, the peak of allocated device memory over the steps (None on the
+    CPU) and the flash kernels' launches a timed step (0 on the CPU, where
+    the plain versions run). The state is dropped before it returns."""
+    from megatron_tpu_torch.ops import flash_attention_cuda
+    from megatron_tpu_torch.training.train_step import (init_train_state,
+                                                        make_train_step)
+    cuda = device.type == "cuda"
+    tr, m = cfg.training, cfg.model
+    n_micro = cfg.num_microbatches
+    state = init_train_state(cfg, seed=seed, device=device)
+    step = make_train_step(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    tokens = torch.randint(0, m.vocab_size,
+                           (n_micro, tr.micro_batch_size, m.seq_length + 1),
+                           generator=gen, device=device)
+    batch = {"tokens": tokens}
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(max(warmup, 1)):
+            state, metrics = step(state, batch)
+        if cuda:
+            torch.cuda.synchronize(device)
+        before = flash_attention_cuda.launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(max(iters, 1)):
+            state, metrics = step(state, batch)
+        loss = float(metrics["lm_loss"])   # a host read: the sync
+        if cuda:
+            torch.cuda.synchronize(device)
+        dt = (time.perf_counter() - t0) / max(iters, 1)
+        after = flash_attention_cuda.launch_counts()
+        return {
+            "step_ms": dt * 1e3,
+            "tok_s": n_micro * tr.micro_batch_size * m.seq_length / dt,
+            "loss": loss,
+            "params": sum(p.numel() for p in state.params.parameters()),
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if cuda else None),
+            "launches_per_step": {k: (after[k] - before[k]) / max(iters, 1)
+                                  for k in after},
+        }
+    finally:
+        state = step = batch = tokens = None
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()

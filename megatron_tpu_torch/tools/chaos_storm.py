@@ -5,7 +5,11 @@ One seed derives a trace-driven workload (bursty Poisson arrivals,
 multi-turn sessions, adapter skew, prompt- and decode-length mixtures, a
 few n-best fan-outs), replayed at several offered-load multiples of the
 engine's calibrated sustainable rate (`--arms`, default 0.5x/1x/2x)
-against an engine running the full ladder (`degrade_ladder=4`).
+against an engine running the full ladder (`degrade_ladder=4`). The
+arrivals are paced in the engine's busy loop passes (`EngineClock`), the
+calibration measures a request in them too: a host whose speed changes
+between the calibration and an arm, or during one, then offers each arm
+the same load per pass, where seconds would offer it more or less.
 
 The laws per seed (serving/invariants.py 8-11, beside the structural
 sweep):
@@ -38,6 +42,7 @@ verify rounds) and an adapter-skewed one, plus the injected regression.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import random
 import sys
 import threading
@@ -180,12 +185,14 @@ class LevelPoller:
 
 
 def calibrate(engine, rng: random.Random, new_tokens: int,
-              vocab: int = 128, adapters=()) -> float:
-    """The quiet engine's measured seconds a request, the warmup excluded;
-    the sustainable gap at 1x is this over num_slots. The warmup loads
-    every adapter of the trace into the bank and the timed requests cycle
-    through them and the base model, so the first arm neither pays the
-    loads nor meets a slower path than the one calibrated."""
+              vocab: int = 128, adapters=()) -> dict:
+    """The quiet engine's cost of a request, the warmup excluded:
+    {"service_s": seconds, "service_passes": busy loop passes (the
+    sustainable gap at 1x is either over num_slots), "passes_per_s": the
+    busy loop's rate}. The warmup loads every adapter of the trace into
+    the bank and the timed requests cycle through them and the base
+    model, so the first arm neither pays the loads nor meets a slower
+    path than the one calibrated."""
     mix = [None] + list(adapters)
     for aid in mix:
         engine.submit([1, 2, 3], new_tokens,
@@ -201,30 +208,66 @@ def calibrate(engine, rng: random.Random, new_tokens: int,
     wave.append(engine.submit([5, 6, 7], new_tokens, n=1, best_of=2))
     for r in wave:
         r.result(timeout=600.0)
-    times = []
+    times, passes = [], []
     for i in range(3):
-        t0 = time.monotonic()
+        t0, n0 = time.monotonic(), engine.iterations
         engine.submit([rng.randrange(1, vocab) for _ in range(6)],
                       new_tokens, seed=rng.randrange(1 << 16),
                       adapter_id=mix[i % len(mix)]).result(timeout=600.0)
         times.append(time.monotonic() - t0)
-    return max(sum(times) / len(times), 1e-3)
+        passes.append(engine.iterations - n0)
+    service_s = max(sum(times) / len(times), 1e-3)
+    service_passes = max(sum(passes) / len(passes), 1.0)
+    return {"service_s": service_s, "service_passes": service_passes,
+            "passes_per_s": service_passes / service_s}
 
 
-def run_arm(engine, specs, gaps, mult: float, base_gap_s: float):
-    """Replay the trace at `mult` x the sustainable rate. Returns (the
-    admitted requests, the arm's stats). A submit-time 429 (a full queue
-    or a brownout shed) is a shed; its Retry-After must be >= 1 s."""
+class EngineClock:
+    """The arms' time, in engine loop passes. While the engine has work
+    it is the count of its busy passes, the unit the ladder's dwell
+    counts are in, so an arm offers the same load per pass however fast
+    the host runs it; while the engine is idle, time runs at the
+    calibrated passes a second. `wall=True` runs it on the wall clock
+    at that rate throughout: a loop stall is a wall-clock event, and
+    arrivals must keep coming while it lasts."""
+
+    def __init__(self, engine, passes_per_s: float, wall: bool = False):
+        self.engine, self.rate, self.wall = engine, passes_per_s, wall
+        self._t0 = self._last = time.monotonic()
+        self._idle = 0.0
+
+    def now(self) -> float:
+        t = time.monotonic()
+        if self.wall:
+            return (t - self._t0) * self.rate
+        if not self.engine.has_work():
+            self._idle += (t - self._last) * self.rate
+        self._last = t
+        return self.engine.iterations + self._idle
+
+    def wait_until(self, target: float) -> None:
+        while self.now() < target:
+            time.sleep(0.0005)
+
+
+def run_arm(engine, specs, gaps, mult: float, base_gap: float,
+            clock: EngineClock):
+    """Replay the trace at `mult` x the sustainable rate, `base_gap` being
+    the 1x gap in the clock's passes. Returns (the admitted requests, the
+    arm's stats). A submit-time 429 (a full queue or a brownout shed) is a
+    shed; its Retry-After must be >= 1 s."""
     from megatron_tpu_torch.serving import QueueFullError, SamplingOptions
     tracked, stats = [], {"mult": mult, "submitted": 0, "shed": 0,
                           "bad_retry_after": 0, "stranded": 0,
                           "completed": 0, "failed": 0,
                           "ttft_ms": [], "itl_ms": []}
     done_prompts = {}
-    t_start = t_next = time.monotonic()
+    t_start = time.monotonic()
+    n_start = engine.iterations
+    p_next = clock.now()
     for i, (spec, gap) in enumerate(zip(specs, gaps)):
-        t_next += gap * base_gap_s / max(mult, 1e-6)
-        time.sleep(max(0.0, t_next - time.monotonic()))
+        p_next += gap * base_gap / max(mult, 1e-6)
+        clock.wait_until(p_next)
         prompt = list(spec["prompt"])
         parent = done_prompts.get(spec["session_of"])
         if parent is not None:
@@ -244,8 +287,9 @@ def run_arm(engine, specs, gaps, mult: float, base_gap_s: float):
                 stats["bad_retry_after"] += 1
             continue
         tracked.append((i, r))
-    stats["offered_rps"] = (stats["submitted"]
-                            / max(t_next - t_start, base_gap_s / mult))
+    t_offered = time.monotonic() - t_start
+    stats["offered_rps"] = stats["submitted"] / max(t_offered, 1e-6)
+    stats["offered_passes"] = engine.iterations - n_start
     for i, r in tracked:
         try:
             r.result(timeout=600.0)
@@ -266,6 +310,8 @@ def run_arm(engine, specs, gaps, mult: float, base_gap_s: float):
             if n > 1 and c.finish_time and c.first_token_time:
                 stats["itl_ms"].append(
                     (c.finish_time - c.first_token_time) * 1e3 / (n - 1))
+    stats["passes_per_s"] = ((engine.iterations - n_start)
+                             / max(time.monotonic() - t_start, 1e-6))
     stats["shed_frac"] = stats["shed"] / max(stats["submitted"], 1)
     return [r for _, r in tracked], stats
 
@@ -283,7 +329,8 @@ def run_one(seed: int, require=(), n_requests: int = 10,
     record["repro"] the one-line reproduction. `gen` storms a Generator
     the caller built (the tiny model by default); `check_tokens` False
     skips the serial-oracle law (a bf16 model's batched tokens need not
-    equal its batch-1 ones)."""
+    equal its batch-1 ones). The injected regression's arms run on the
+    wall clock (see `EngineClock`)."""
     from megatron_tpu_torch.resilience.faults import (FaultInjector,
                                                       use_fault_injector)
     from megatron_tpu_torch.serving import invariants
@@ -318,9 +365,10 @@ def run_one(seed: int, require=(), n_requests: int = 10,
         specs, gaps = build_trace(rng, serving_kw, n_requests, new_tokens,
                                   adapters=sorted(adapter_factors),
                                   vocab=min(vocab, 128))
-        svc_s = calibrate(engine, rng, new_tokens, min(vocab, 128),
-                          sorted(adapter_factors))
-        base_gap_s = svc_s / serving_kw["num_slots"]
+        cal = calibrate(engine, rng, new_tokens, min(vocab, 128),
+                        sorted(adapter_factors))
+        svc_s = cal["service_s"]
+        base_gap = cal["service_passes"] / serving_kw["num_slots"]
         # generous calibrated bounds: host jitter must not trip them, a
         # wedged loop must
         ttft_bound_ms = 30 * svc_s * 1e3 + 5_000
@@ -330,18 +378,14 @@ def run_one(seed: int, require=(), n_requests: int = 10,
         injector = (FaultInjector(serve_delay_calls={5: 8.0})
                     if inject_slo_regression else None)
         all_reqs, arm_stats = [], []
+        clock = EngineClock(engine, cal["passes_per_s"],
+                            wall=inject_slo_regression)
         with LevelPoller(engine) as poller:
-            if injector is not None:
-                with use_fault_injector(injector):
-                    for mult in arms:
-                        reqs, stats = run_arm(engine, specs, gaps, mult,
-                                              base_gap_s)
-                        all_reqs.extend(reqs)
-                        arm_stats.append(stats)
-            else:
+            with (use_fault_injector(injector) if injector is not None
+                  else contextlib.nullcontext()):
                 for mult in arms:
                     reqs, stats = run_arm(engine, specs, gaps, mult,
-                                          base_gap_s)
+                                          base_gap, clock)
                     all_reqs.extend(reqs)
                     arm_stats.append(stats)
             # drain: the idle loop walks the ladder back down
@@ -410,6 +454,8 @@ def run_one(seed: int, require=(), n_requests: int = 10,
             itl_p50_ms=_pct(s["itl_ms"], 0.5),
             itl_p99_ms=_pct(s["itl_ms"], 0.99)) for s in arm_stats]
         record["calibrated_service_s"] = svc_s
+        record["calibrated_service_passes"] = cal["service_passes"]
+        record["pacing"] = "wall" if clock.wall else "engine_passes"
         record["levels"] = poller.levels
         record["degrade_peak"] = max(poller.levels or [0])
         record["degrade_final"] = (poller.levels or [0])[-1]

@@ -16,9 +16,17 @@ rest) with the ten largest kernels by name; and the peak memory. Run from
 the root of a checkout:
 
     python -m megatron_tpu_torch.tools.profile_training
+
+`--shape headline` profiles tools/bench_remat.py's step instead (the root
+bench's 0.74B shape: 12 layers of h 2048, seq 2048, micro-batch 2 x 4,
+bf16 compute), and `--recompute` / `--quantized_gemm` pick its arm:
+
+    python -m megatron_tpu_torch.tools.profile_training --shape headline \
+        --recompute selective
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -51,20 +59,41 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shape", default="train8",
+                   choices=("train8", "headline"),
+                   help="train8: chip_smoke's training path; headline: "
+                        "bench_remat's step")
+    p.add_argument("--recompute", default="none",
+                   choices=("none", "selective", "full"))
+    p.add_argument("--quantized_gemm", default="none",
+                   choices=("none", "int8"))
+    args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    cfg = MegatronConfig(
-        model=llama2_config("7b", num_layers=LAYERS),
-        optimizer=OptimizerConfig(lr=3e-4, clip_grad=1.0),
-        training=TrainingConfig(micro_batch_size=1, global_batch_size=2))
+    if args.shape == "headline":
+        from megatron_tpu_torch.tools import bench_remat
+        cfg = bench_remat.arm_config(
+            args.recompute, args.quantized_gemm, bench_remat.HEADLINE,
+            bench_remat.HEADLINE_BATCH, REPEATS + 2)
+    else:
+        cfg = MegatronConfig(
+            model=llama2_config("7b", num_layers=LAYERS,
+                                recompute_granularity=args.recompute,
+                                quantized_gemm=args.quantized_gemm),
+            optimizer=OptimizerConfig(lr=3e-4, clip_grad=1.0),
+            training=TrainingConfig(micro_batch_size=1,
+                                    global_batch_size=2))
     state = init_train_state(cfg, seed=0)
     step = make_train_step(cfg)
     s = cfg.model.seq_length
     tokens = torch.randint(0, cfg.model.vocab_size,
-                           (cfg.num_microbatches, 1, s + 1), device="cuda",
+                           (cfg.num_microbatches,
+                            cfg.training.micro_batch_size, s + 1),
+                           device="cuda",
                            generator=torch.Generator("cuda").manual_seed(5))
     batch = {"tokens": tokens}
 
@@ -109,7 +138,9 @@ def main() -> None:
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     rec = dict(
-        card=card, layers=LAYERS, seq_length=s,
+        card=card, shape=args.shape, recompute=args.recompute,
+        quantized_gemm=args.quantized_gemm, layers=cfg.model.num_layers,
+        seq_length=s, micro_batch_size=cfg.training.micro_batch_size,
         microbatches=cfg.num_microbatches, loss=loss,
         unprofiled_wall_ms=walls, profiled_wall_ms=profiled_ms,
         device_busy_ms=busy,

@@ -17,6 +17,13 @@ two packages with no converter:
   (`checkpoint_write`, `tracker_read`, resilience/faults.py) where an
   active injector raises a transient error for the retry to absorb.
 
+A bf16 leaf is stored as the reference stores it: its raw 2-byte words
+under the header descr "<V2" (ml_dtypes' `bfloat16.str`, which JAX's
+`np.savez` writes), so the member's bytes are the reference's. numpy without
+ml_dtypes reads that descr as the 2-byte void "V2"; the port reads such a
+leaf back as bf16 by viewing its bits (`numpy_to_tensor`), never by a cast.
+fp16 and fp32 leaves are native numpy both ways.
+
 The npz keys are exactly the names JAX's `_flatten` gives its trees: the
 parameter tree's paths ("transformer/attention/wq", the port's state_dict
 names with "/" for "."), and for the optimizer `step`, `mu/...`, `nu/...`,
@@ -67,6 +74,40 @@ OPT_FILE = "opt_state.npz"
 # and {"verify_s", "read_s", "dir"}
 last_save: dict = {}
 last_load: dict = {}
+
+
+# the npz header descr of a bf16 leaf (ml_dtypes' bfloat16.str)
+BF16_DESCR = "<V2"
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of `t` as numpy; a bf16 tensor as its raw 2-byte words,
+    the void dtype "V2" (numpy has no bfloat16 without ml_dtypes)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def numpy_to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """`torch.from_numpy`, except that a 2-byte void array (a bf16 leaf of an
+    npz checkpoint) or an ml_dtypes bfloat16 array becomes bf16 by viewing
+    its bits."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _write_array(f, arr: np.ndarray) -> None:
+    """One npy member: np.lib.format.write_array's bytes, with a bf16
+    leaf's words under BF16_DESCR, as the reference's np.savez writes it."""
+    if arr.dtype.kind != "V":
+        np.lib.format.write_array(f, arr, allow_pickle=False)
+        return
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": BF16_DESCR, "fortran_order": False,
+            "shape": arr.shape})
+    f.write(np.ascontiguousarray(arr).view(np.uint8).reshape(-1).data)
 
 
 class LoadedCheckpoint:
@@ -182,10 +223,9 @@ def _write_npz(path: str, leaves: dict) -> tuple:
                                  compression=zipfile.ZIP_STORED,
                                  allowZip64=True) as zf:
                 for key, t in leaves.items():
-                    arr = t.detach().cpu().numpy()
+                    arr = tensor_to_numpy(t)
                     with zf.open(key + ".npy", "w", force_zip64=True) as f:
-                        np.lib.format.write_array(f, arr,
-                                                  allow_pickle=False)
+                        _write_array(f, arr)
                     del arr
                     # the member's local header is rewritten on close:
                     # every byte before the end is final now
@@ -389,7 +429,7 @@ def _npz_arrays(path: str, keys=None, *, crc: bool = True):
 @torch.no_grad()
 def _copy_into(path: str, leaves: dict, *, crc: bool = True) -> None:
     for key, arr in _npz_arrays(path, leaves.keys(), crc=crc):
-        leaves[key].copy_(torch.from_numpy(arr))
+        leaves[key].copy_(numpy_to_tensor(arr))
 
 
 def load_checkpoint(root: str, example_state: TrainState, *,
@@ -553,11 +593,13 @@ def load_params_host(ckpt_dir: str, example_params, *,
                      verified: bool = False) -> dict:
     """The parameters of one npz checkpoint dir staged in host memory
     (checkpointing.py load_params_host): {"a/b/c": numpy array} in the
-    file's dtype (numpy has no bfloat16; the placement casts), every key
-    and shape checked against `example_params` before any array is read.
-    The optimizer state is never read and nothing touches a device. An
-    orbax checkpoint raises (ROADMAP Queue 1 item 2). `verified`: the
-    manifest was just checked, so the zip's CRC-32s are not."""
+    file's dtype, every key and shape checked against `example_params`
+    before any array is read. A bf16 leaf comes as its raw words ("V2"):
+    the placement views it as bf16 with `numpy_to_tensor`
+    (serving/weights.py place_params) and casts only the other dtypes. The
+    optimizer state is never read and nothing touches a device. An orbax
+    checkpoint raises (ROADMAP Queue 1 item 2). `verified`: the manifest
+    was just checked, so the zip's CRC-32s are not."""
     _check_npz_format(ckpt_dir)
     path = os.path.join(ckpt_dir, PARAMS_FILE)
     want = example_shapes(example_params)

@@ -1,9 +1,13 @@
 """Adam/SGD with the reference's step semantics
 (megatron_tpu/training/optimizer.py).
 
-Parameters are fp32 master weights that the model casts to the compute
-dtype at use; grads arrive in fp32. The state keeps mu and nu as dicts keyed
-by the model's state_dict names ("transformer.attention.wq"). One step:
+Parameters are master weights of any float dtype (fp32, or bf16/fp16 as
+`params_dtype` asks) that the model casts to the compute dtype at use; grads
+arrive in fp32, and the moments are fp32 whatever the parameter's dtype. The
+update reads each parameter in fp32, computes in fp32 and writes the result
+back rounded to the parameter's dtype, as the reference's
+`p_new.astype(p.dtype)` does. The state keeps mu and nu as dicts keyed by the
+model's state_dict names ("transformer.attention.wq"). One step:
 
   1. unscale grads by the loss scale;
   2. global L2 norm; found_inf = the norm is not finite;
@@ -160,7 +164,8 @@ def apply_optimizer(params: Mapping[str, torch.Tensor],
                     wd_mask: Optional[Mapping[str, bool]] = None):
     """One Megatron optimizer step, in place on `params`, `grads` and the
     moments of `opt_state`. params and grads are name -> tensor dicts with
-    the same names; grads are fp32 and contiguous. Returns (opt_state with
+    the same names; grads are fp32 and contiguous, params of any float
+    dtype (each written back rounded to it). Returns (opt_state with
     the new step and scaler, metrics {grad_norm, found_inf (0/1 int32),
     loss_scale, and num_zeros when cfg.log_num_zeros_in_grad}), all device
     tensors."""
@@ -184,13 +189,14 @@ def apply_optimizer(params: Mapping[str, torch.Tensor],
             for pc, gc, mc, vc in zip(_chunks(p), _chunks(grads[name]),
                                       _chunks(opt_state.mu[name]),
                                       _chunks(opt_state.nu[name])):
+                pf = pc.float()  # pc itself when the parameter is fp32
                 m_new = b1 * mc + (1.0 - b1) * gc
                 v_new = b2 * vc + (1.0 - b2) * gc.square()
                 delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
                 if decay:
-                    delta = delta + wd * pc
-                p_new = pc - lr * delta
-                pc.copy_(torch.where(found_inf, pc, p_new))
+                    delta = delta + wd * pf
+                p_new = pf - lr * delta
+                pc.copy_(torch.where(found_inf, pf, p_new))
                 mc.copy_(torch.where(found_inf, mc, m_new))
                 vc.copy_(torch.where(found_inf, vc, v_new))
     elif cfg.optimizer == "sgd":
@@ -199,10 +205,11 @@ def apply_optimizer(params: Mapping[str, torch.Tensor],
             decay = wd_mask[name]
             for pc, gc, mc in zip(_chunks(p), _chunks(grads[name]),
                                   _chunks(opt_state.mu[name])):
-                g = gc + wd * pc if decay else gc
+                pf = pc.float()
+                g = gc + wd * pf if decay else gc
                 m_new = mom * mc + g
-                p_new = pc - lr * m_new
-                pc.copy_(torch.where(found_inf, pc, p_new))
+                p_new = pf - lr * m_new
+                pc.copy_(torch.where(found_inf, pf, p_new))
                 mc.copy_(torch.where(found_inf, mc, m_new))
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

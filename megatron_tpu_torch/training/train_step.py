@@ -3,8 +3,12 @@
 
 The reference scans `value_and_grad(lm.loss_fn)` over the microbatches and
 sums fp32 grads of `loss * scale / n_micro`. The port runs the same loop on
-the host: each microbatch's backward accumulates into the fp32 `.grad` of
-the master weights, which is that same sum. Then `_finish_step` takes the
+the host: each microbatch's backward accumulates into the `.grad` of an fp32
+master weight, which is that same sum. A bf16 or fp16 master weight's
+`.grad` comes in its own dtype, as the reference's per-microbatch grad does;
+summing microbatches there would round every partial sum, so a hook adds
+each microbatch's grad to an fp32 buffer as soon as it lands and frees it
+(`_Fp32Grads`). Then `_finish_step` takes the
 lr and wd of the iteration from the scheduler and applies the optimizer in
 place (training/optimizer.py). The step makes no host sync of its own;
 its metrics are device tensors, except lr and wd, which the host knows.
@@ -31,7 +35,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from megatron_tpu_torch.config import MegatronConfig, as_dtype
+from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.models import language_model as lm
 from megatron_tpu_torch.training import optimizer as opt
 from megatron_tpu_torch.training import scheduler
@@ -46,8 +50,9 @@ SPAN_OPTIMIZER = "train_step.optimizer"
 
 @dataclass
 class TrainState:
-    # fp32 master weights, trainable: a LanguageModel, or another family's
-    # module under the JAX tree's names
+    # the master weights, trainable, in cfg.model.params_dtype (fp32, bf16
+    # or fp16; the optimizer's moments are fp32 whatever it is): a
+    # LanguageModel, or another family's module under the JAX tree's names
     params: torch.nn.Module
     opt_state: opt.OptState
     iteration: int  # completed iterations, skipped ones included
@@ -64,6 +69,40 @@ def weight_decay_mask(model: torch.nn.Module) -> dict:
     dim that does not count toward the >= 2-D rule."""
     return opt.weight_decay_mask(dict(model.state_dict()),
                                  stacked=model.stacked_prefixes)
+
+
+class _Fp32Grads:
+    """fp32 grad sums of the parameters whose dtype is not fp32, filled
+    while it is entered: after each backward reaches a parameter, its hook
+    adds the `.grad` (in the parameter's dtype) to the buffer and frees
+    it, so no more than one microbatch's low-precision grad of a leaf is
+    alive at a time."""
+
+    def __init__(self, params: dict):
+        self.params = {k: p for k, p in params.items()
+                       if p.dtype != torch.float32}
+        self.buffers: dict = {}
+        self._handles: list = []
+
+    def _hook(self, name: str):
+        def hook(p: torch.Tensor) -> None:
+            buf = self.buffers.get(name)
+            if buf is None:
+                self.buffers[name] = p.grad.float().contiguous()
+            else:
+                buf.add_(p.grad)
+            p.grad = None
+        return hook
+
+    def __enter__(self):
+        self._handles = [p.register_post_accumulate_grad_hook(
+            self._hook(k)) for k, p in self.params.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+        self._handles = []
 
 
 def state_from_params(params: torch.nn.Module,
@@ -119,7 +158,8 @@ def train_step(state: TrainState, batch: dict,
     for p in params.values():
         p.grad = None
     loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-    with record_function(SPAN_FORWARD_BACKWARD):
+    low = _Fp32Grads(params)
+    with record_function(SPAN_FORWARD_BACKWARD), low:
         for i in range(n_micro):
             def part(key):
                 t = batch.get(key)
@@ -136,8 +176,12 @@ def train_step(state: TrainState, batch: dict,
                                   segment_ids=part("segment_ids"))
             (loss * scale / n_micro).backward()
             loss_sum += loss.detach()
-    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-             for k, p in params.items()}
+
+    def grad(k, p):
+        g = low.buffers.get(k) if k in low.params else p.grad
+        return (g if g is not None
+                else torch.zeros_like(p, dtype=torch.float32))
+    grads = {k: grad(k, p) for k, p in params.items()}
     with record_function(SPAN_OPTIMIZER):
         out = _finish_step(state, grads, loss_sum / n_micro, cfg, wd_mask)
     for p in params.values():
@@ -181,9 +225,6 @@ def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
     if pipelined_spec is not None or pipelined_loss_fn is not None:
         raise NotImplementedError("make_train_step: pipelined steps are "
                                   "ported with the multi-device slice")
-    if as_dtype(cfg.model.params_dtype) != torch.float32:
-        raise NotImplementedError("make_train_step: the port trains fp32 "
-                                  "master weights (params_dtype float32)")
     device = resolve_device(device)
     rope = (None if loss_fn is not None
             else lm.make_rope(cfg.model, device=device))

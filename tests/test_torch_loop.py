@@ -394,13 +394,92 @@ def test_exit_interval_and_sigterm_match_jax(corpus, monkeypatch, tmp_path):
     ["--pipeline_model_parallel_size", "2"],
     ["--context_parallel_size", "2"],
     ["--num_layers_per_virtual_pipeline_stage", "1"],
-    ["--sequence_parallel"], ["--use_distributed_optimizer"],
-    ["--recompute_granularity", "full"], ["--recompute_activations"],
-    ["--recompute_method", "uniform"], ["--recompute_num_layers", "1"],
-    ["--recompute_granularity", "selective"]])
+    ["--sequence_parallel"], ["--use_distributed_optimizer"]])
 def test_unported_flags_raise(corpus, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         finetune.main(_argv(corpus, *flags), device="cpu")
+
+
+@pytest.mark.parametrize("flags,granularity", [
+    (["--recompute_granularity", "full"], "full"),
+    (["--recompute_activations"], "selective"),
+    (["--recompute_method", "uniform"], "none"),
+    (["--recompute_num_layers", "1"], "none"),
+    (["--recompute_granularity", "selective"], "selective")])
+def test_recompute_flags_train_like_jax(corpus, monkeypatch, flags,
+                                        granularity):
+    """The recompute flags parse to the reference's granularity
+    (--recompute_activations is its alias for selective; --recompute_method
+    and --recompute_num_layers change nothing), the port's train at that
+    granularity matches JAX's for 2 iterations, and finetune.main with the
+    flags runs to its end."""
+    from megatron_tpu.arguments import parse_cli as j_parse
+    from megatron_tpu_torch.arguments import parse_cli as t_parse
+    argv = _argv(corpus, *flags)
+    assert (t_parse(argv)[0].model.recompute_granularity
+            == j_parse(argv, n_devices=1)[0].model.recompute_granularity
+            == granularity)
+    jcfg, tcfg = (dataclasses.replace(c, model=dataclasses.replace(
+        c.model, recompute_granularity=granularity))
+        for c in _configs(train_iters=2, log_interval=2))
+    jstate = j_init(jax.random.PRNGKey(0), jcfg)
+    tstate = train_state_from_numpy(jstate.params, jstate.opt_state,
+                                    jstate.iteration, tcfg, device="cpu")
+    recs = {"j": [], "t": []}
+    _record_steps(monkeypatch, j_loop, recs["j"])
+    _record_steps(monkeypatch, t_loop, recs["t"])
+    jit, jvalid = _iterators(j_gpt, j_samp, corpus["j"], jcfg)
+    tit, tvalid = _iterators(t_gpt, t_samp, corpus["t"], tcfg)
+    j_loop.train(jcfg, jit, jvalid, mesh=None, state=jstate,
+                 rng=jax.random.PRNGKey(1))
+    t_loop.train(tcfg, tit, tvalid, state=tstate, device="cpu")
+    assert len(recs["t"]) == len(recs["j"]) == 2
+    for (_, tl, tg), (_, jl, jg) in zip(recs["t"], recs["j"]):
+        assert _rel(tl, jl) < 1e-5 and _rel(tg, jg) < 1e-5
+    monkeypatch.undo()
+    recs = []
+    _record_steps(monkeypatch, t_loop, recs)
+    argv = _argv(corpus, *flags, "--train_iters", "2", "--eval_interval",
+                 "2")
+    assert finetune.main(argv, device="cpu") == 0
+    assert len(recs) == 2 and all(np.isfinite(r[1]) for r in recs)
+
+
+@pytest.mark.parametrize("flag,dtype", [("--bf16", torch.bfloat16),
+                                        ("--fp16", torch.float16)])
+def test_low_precision_flags_train(corpus, monkeypatch, flag, dtype):
+    """--bf16 and --fp16 on the flag-built path (no preset) give the
+    reference's params and compute dtypes, and finetune.main trains those
+    master weights (fp32 moments) to its end with finite losses."""
+    from megatron_tpu.arguments import parse_cli as j_parse
+    from megatron_tpu_torch.arguments import parse_cli as t_parse
+    argv = _argv(corpus, flag, "--train_iters", "2", "--eval_interval",
+                 "2")
+    i = argv.index("--model")
+    del argv[i:i + 2]
+    jm, tm = j_parse(argv, n_devices=1)[0].model, t_parse(argv)[0].model
+    assert (tm.params_dtype, tm.compute_dtype) == (
+        jm.params_dtype, jm.compute_dtype)
+    assert tm.params_dtype == str(dtype).split(".")[1]
+    seen = []
+    orig = t_loop.make_train_step
+
+    def make(*a, **k):
+        step = orig(*a, **k)
+
+        def watched(state, batch, gen):
+            state, m = step(state, batch, gen)
+            seen.append((next(state.params.parameters()).dtype,
+                         next(iter(state.opt_state.mu.values())).dtype,
+                         float(m["lm_loss"])))
+            return state, m
+        return watched
+
+    monkeypatch.setattr(t_loop, "make_train_step", make)
+    assert finetune.main(argv, device="cpu") == 0
+    assert len(seen) == 2
+    assert all(p == dtype and mu == torch.float32 and np.isfinite(loss)
+               for p, mu, loss in seen)
 
 
 def test_arguments_follow_jax(corpus):

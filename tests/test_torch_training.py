@@ -417,24 +417,32 @@ def test_training_entry_points_raise_without_gpu_and_device(monkeypatch):
 
 
 def test_what_the_slice_leaves_out_raises():
-    """A mesh, the pipelined steps, bf16 master weights and activation
-    recompute still raise; a custom loss, hidden dropout, drop-path and
-    the dot path's attention dropout (ported with BERT and T5) run."""
+    """A mesh and the pipelined steps still raise; a custom loss, bf16 and
+    fp16 master weights, activation recompute, hidden dropout, drop-path
+    and the dot path's attention dropout run."""
     _, tcfg = _train_configs()
     for kw in (dict(mesh=object()), dict(pipelined_spec=object()),
                dict(pipelined_loss_fn=object())):
         with pytest.raises(NotImplementedError):
             tts.make_train_step(tcfg, device="cpu", **kw)
     tts.make_train_step(tcfg, device="cpu", loss_fn=lambda *a: 0.0)
-    with pytest.raises(NotImplementedError, match="master weights"):
-        tts.make_train_step(tc.MegatronConfig(model=tc.llama2_config(
-            "tiny", params_dtype="bfloat16")), device="cpu")
-    toks = torch.zeros(1, 9, dtype=torch.long)
+    toks = torch.zeros(2, 1, 9, dtype=torch.long)
+    for dtype in ("bfloat16", "float16"):
+        cfg = tc.MegatronConfig(model=tc.llama2_config(
+            "tiny", **SMALL, params_dtype=dtype, compute_dtype=dtype))
+        state = tts.init_train_state(cfg, device="cpu")
+        state, m = tts.make_train_step(cfg, device="cpu")(
+            state, {"tokens": toks})
+        assert next(state.params.parameters()).dtype == getattr(torch, dtype)
+        assert torch.isfinite(m["lm_loss"]) and state.iteration == 1
     model = tlm.LanguageModel(tc.llama2_config("tiny", **SMALL),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="recompute"):
-        tlm.loss_fn(model, toks, tc.llama2_config(
-            "tiny", **SMALL, recompute_granularity="full"))
+    for granularity in ("selective", "full"):
+        loss = tlm.loss_fn(model, toks[0], tc.llama2_config(
+            "tiny", **SMALL, recompute_granularity=granularity))
+        assert torch.equal(loss, tlm.loss_fn(
+            model, toks[0], tc.llama2_config("tiny", **SMALL)))
+    toks = toks[0]
     for cfg_kw in (dict(hidden_dropout=0.1), dict(drop_path_rate=0.1),
                    dict(attention_dropout=0.1)):
         cfg = tc.llama2_config("tiny", **SMALL, **cfg_kw)
