@@ -374,25 +374,43 @@ Phases, each fatal on failure (exit code 1, no result line):
    three flash kernels at that shape (b 1, 32/32 heads of 128, causal,
    bf16) against their plain versions on LONG_HEADS, timed beside SDPA
    and their bounds. (f) tools/chaos_train.py --smoke on the card.
+21. The (dp, tp) mesh (`phase_mesh`, in LANE_B after phase 20; the note
+   above MESH_LAYERS says each part in full). (a) The flash kernels'
+   dropout index at Llama-2-7B's training shape with dropout (b 2, s
+   4,096, 32/32 heads of 128, bf16): a tp half of the heads and a dp half
+   of the batch against their plain versions, and the two tp halves and
+   the two dp halves, launched alone, equal the unsharded launch bit for
+   bit. (b) Two rank processes on the one card over gloo (two over NCCL
+   are started first and must fail with NCCL's "Duplicate GPU detected"),
+   Llama-2-7B's width at MESH_LAYERS layers in
+   fp32 with dropout: (tp 2, sequence parallel) and (dp 2, ZeRO-1) steps
+   against the one-rank step, each rank's step ms, peak GiB and
+   collective bytes printed. (c) NCCL at a world of one rank: the mesh
+   step equals the unsharded step bit for bit. (d) torchrun
+   --nproc_per_node 2 -m megatron_tpu_torch.finetune over gloo at tp 2
+   with sequence parallelism and the distributed optimizer, saving; the
+   unsharded port reloads the checkpoint byte for byte.
 
 Phases 1-3b run alone on the card, so that the kernels' times are the
-card's own. Then phases 4-20 run in two lanes at once, each phase in the
+card's own. Then phases 4-21 run in two lanes at once, each phase in the
 order above within its lane: this process runs LANE_A, and a second
 process (`chip_smoke.py --lane ...`, started here and stopped with its own
 processes however the run ends) runs LANE_B, whose lines come through here
 prefixed `lane B | `. The phases' host work (servers, conversions,
 checkpoint I/O, process starts) is most of their time and the card idles
 through most of it, so the lanes share it; the phases that hold most of the
-card's memory (7, 15, 16 and 20) run one after another in LANE_B, and LANE_A's
-phases hold less than the rest. The serving and training rates the phases
+card's memory (7, 15, 16, 20 and 21) run one after another in LANE_B, and
+LANE_A's phases hold less than the rest. The serving and training rates the phases
 print are taken beside the other lane's work.
 
 Then one JSON line {"kernels": [...]} (8 kernels; each launch count is one
 that a main path's run counted, zeroed just before it and read just after,
-the norm kernels' on every path above, the flash kernels' on phases 8-20
+the norm kernels' on every path above, the flash kernels' on phases 8-21
 too, the block kernel's on phases 9, 11-16 and 19 too, its verify rounds
 at w 5 on phases 11, 13 and 14; phase 15's counts are the replica
-processes' whole lives, phase 19's the parts in its own process) and, last, {"ok": true, "device": ...}.
+processes' whole lives, phase 19's the parts in its own process, phase
+21's its rank processes' sharded steps and its in-process mesh steps) and,
+last, {"ok": true, "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -429,11 +447,13 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
               "torch.int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
-# phases 4-18 in two lanes at once (the module's docstring): the seconds
-# each took alone on one host (a slower one than most) balance them,
-# 508 s against 520 s
-LANE_A = ("4", "5", "6", "8", "9", "12", "13")
-LANE_B = ("15", "16", "7", "20", "10", "11", "14", "17", "18", "19")
+# phases 4-21 in two lanes at once (the module's docstring), balanced by
+# the seconds each took in a whole run with phase 21 in LANE_B (PERF.md
+# §6: lane A 495.7 s, lane B 869.7 s on an H100 80GB HBM3 at 700 W). The
+# light 11, 14 and 17 moved to LANE_A (~600 s against ~770 s); 19 stays in
+# LANE_B: beside phase 21's ranks its tasks.main ran the card out of memory
+LANE_A = ("4", "5", "6", "8", "9", "12", "13", "14", "17", "11")
+LANE_B = ("15", "16", "7", "20", "21", "10", "18", "19")
 # the most a phase waits for the other lane to give back card memory
 LANE_MEMORY_WAIT_S = 900.0
 
@@ -11196,6 +11216,513 @@ def phase_remat_master(smi: str) -> dict:
     return stats
 
 
+# Phase 21, the mesh: the (dp, tp) sharded training step on one card.
+# NCCL refuses two ranks on one device ("Duplicate GPU detected : rank 1 and
+# rank 0 both on CUDA device ..." at the first collective; PERF.md §6), so
+# the two-rank parts name gloo, whose transport stages every collective
+# through host copies (parallel/collectives.py), and (c) runs the default
+# backend, NCCL, at a world of one rank.
+# (a) the flash kernels' dropout index at Llama-2-7B's training shape with
+#     dropout (MESH_KERNEL): a tp rank's half of the heads (head offset 16
+#     of 32) and a dp rank's half of the batch (batch offset 1 of 2) against
+#     their plain versions; the two tp halves and the two dp halves, each
+#     launched alone, equal the unsharded launch bit for bit (forward out
+#     and lse, dQ, dK, dV); the unsharded launches timed.
+# (b) first, two NCCL rank processes on the card, whose first all-reduce
+#     NCCL must refuse with "Duplicate GPU detected" (logged); then two rank
+#     processes (`--mesh-rank`) on the card over gloo, Llama-2-7B's
+#     width at MESH_LAYERS layers, fp32 compute (TF32 off), seq 4096, one
+#     global batch of 2 rows, attention and hidden dropout 0.1 from one
+#     generator a step, SGD at lr 1 clipped at 1: (tp 2, sequence parallel)
+#     then (dp 2, ZeRO-1), MESH_STEPS steps each, held against the one-rank
+#     step, which runs first and is freed before the ranks start: lm_loss
+#     and grad_norm within MESH_METRIC_RTOL, every leaf within MESH_PARAM_REL
+#     of its largest update over the run. Each rank prints its step ms, peak
+#     GiB and the bytes its transport handed to gloo.
+# (c) NCCL at a world of one rank: make_train_step(cfg, mesh=build_mesh(..))
+#     on the default backend against the unsharded step, bf16 compute with
+#     dropout, MESH_STEPS steps: the same parameters and metrics bit for bit.
+# (d) the entry point: torchrun --nproc_per_node 2 -m
+#     megatron_tpu_torch.finetune over gloo at tp 2 with sequence parallelism
+#     and the distributed optimizer (phase 8's corpus and Llama-2-7B width,
+#     MESH_LAYERS layers), saving its weights at iteration 2 (the 5.3 GB of
+#     moments left out for the phase's time: with them the part took 78.8
+#     s, PERF.md §6; the CPU tests save and reload the ZeRO-1 moments); the
+#     unsharded port loads the checkpoint, every parameter byte for byte
+#     the file's.
+MESH_LAYERS = PRETRAIN_LAYERS
+MESH_SEED = 0
+MESH_STEPS = 2
+MESH_SEQ = 4096
+MESH_ROWS = 2
+MESH_KERNEL = (2, 4096, 32, 128)   # b, s, heads (q = kv), head dim; bf16
+MESH_DROPOUT = 0.1
+MESH_LR = 1.0
+# each leaf of a sharded run within this share of its largest update over
+# the run, max |p2 - p0| (a tenth of a tenth: a missing or halved update
+# fails); lm_loss and grad_norm relative. Read (PERF.md §6): 3.2e-4, one
+# ulp of a norm scale (1.2e-7) over its 3.7e-4 update, in both arms; the
+# metrics 8.9e-8
+MESH_PARAM_REL = 1e-2
+MESH_METRIC_RTOL = 1e-5
+MESH_ARMS = {"tp2_sp": dict(tensor_parallel=2, sequence_parallel=True),
+             "dp2_zero1": dict(use_distributed_optimizer=True)}
+MESH_RANK_TIMEOUT_S = 600
+# (b)'s first pair of ranks: two NCCL ranks on the one card, which NCCL
+# refuses ("Duplicate GPU detected"), the reason (b) names gloo
+MESH_NCCL_PAIR = "nccl_one_device"
+MESH_NCCL_PAIR_TIMEOUT_S = 120
+
+
+def mesh_config(parallel: dict, world: int, dtype: str):
+    """Llama-2-7B's width at MESH_LAYERS layers, flash attention, dropout,
+    SGD without momentum, on a mesh of `world` ranks."""
+    from megatron_tpu_torch import config as tc
+    model = tc.llama2_config("7b", num_layers=MESH_LAYERS,
+                             seq_length=MESH_SEQ, params_dtype="float32",
+                             compute_dtype=dtype,
+                             hidden_dropout=MESH_DROPOUT,
+                             attention_dropout=MESH_DROPOUT)
+    micro = MESH_ROWS // (world // parallel.get("tensor_parallel", 1))
+    return tc.MegatronConfig(
+        model=model, parallel=tc.ParallelConfig(**parallel),
+        optimizer=tc.OptimizerConfig(lr=MESH_LR, optimizer="sgd",
+                                     sgd_momentum=0.0, clip_grad=1.0,
+                                     lr_decay_style="constant"),
+        training=tc.TrainingConfig(micro_batch_size=micro,
+                                   global_batch_size=MESH_ROWS),
+    ).validate(n_devices=world)
+
+
+def mesh_batch(i: int):
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(MESH_SEED + i)
+    tokens = rs.randint(0, 32000, (1, MESH_ROWS, MESH_SEQ + 1))
+    return {"tokens": torch.from_numpy(tokens).cuda(),
+            "loss_mask": torch.ones(1, MESH_ROWS, MESH_SEQ, device="cuda")}
+
+
+def mesh_steps(cfg, state, mesh=None) -> list:
+    """MESH_STEPS steps, step i's generator seeded with MESH_SEED + i; per
+    step its metrics, wall ms (synchronised) and flash launches."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    from megatron_tpu_torch.training import make_train_step
+    step = make_train_step(cfg, mesh=mesh)
+    out = []
+    for i in range(MESH_STEPS):
+        batch = mesh_batch(i)
+        gen = torch.Generator().manual_seed(MESH_SEED + i)
+        fc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                        launches=fc.launch_counts(),
+                        **{k: float(v) for k, v in m.items()}))
+    return out
+
+
+def mesh_kernels() -> dict:
+    """(a): see the note above MESH_LAYERS."""
+    import torch
+    from megatron_tpu_torch.ops import flash_attention as fa
+    from megatron_tpu_torch.ops import flash_attention_cuda as fc
+    b, s, n, d = MESH_KERNEL
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, dout = (torch.randn(b, s, n, d, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5, dropout_rate=MESH_DROPOUT,
+              dropout_seed=DROPOUT_SEED)
+
+    def launch(q_, k_, v_, do_, lse_in=None, delta_in=None, **index):
+        out, lse = fc.flash_fwd_cuda(q_, k_, v_, **kw, **index)
+        if lse_in is None:
+            lse_in, delta_in = lse, fa.attention_delta(out, do_)
+        dq = fc.flash_bwd_dq_cuda(q_, k_, v_, do_, lse_in, delta_in, **kw,
+                                  **index)
+        dk, dv = fc.flash_bwd_dkv_cuda(q_, k_, v_, do_, lse_in, delta_in,
+                                       **kw, **index)
+        return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+
+    whole = launch(q, k, v, dout)
+    torch.cuda.synchronize()
+    stats = dict(shape=dict(b=b, s=s, nq=n, nkv=n, d=d, dtype="bfloat16",
+                            dropout=MESH_DROPOUT))
+    h = n // 2
+    halves = {
+        "tp": [dict(sl=(slice(None), slice(None), slice(t * h, (t + 1) * h)),
+                    index=dict(head_offset=t * h, total_heads=n), dim=2)
+               for t in range(2)],
+        "dp": [dict(sl=(slice(r, r + 1),), index=dict(batch_offset=r),
+                    dim=0) for r in range(2)]}
+    for kind, parts in halves.items():
+        runs = [launch(*(t[p["sl"]].contiguous() for t in (q, k, v, dout)),
+                       **p["index"]) for p in parts]
+        torch.cuda.synchronize()
+        for name, full in whole.items():
+            dim = 1 if name == "lse" and kind == "tp" else parts[0]["dim"]
+            cat = torch.cat([r[name] for r in runs], dim=dim)
+            same = torch.equal(cat, full)
+            check(same, f"mesh (a): the {kind} halves' {name} differ from "
+                  f"the unsharded launch at {int((cat != full).sum())} of "
+                  f"{full.numel()} elements")
+        stats[f"{kind}_halves_bit_equal"] = True
+        # the second half (offset > 0) against its plain version
+        part = parts[1]
+        sub = [t[part["sl"]].contiguous() for t in (q, k, v, dout)]
+        got = runs[1]
+        ref_out, ref_lse = fa.blockwise_attention(*sub[:3], **kw,
+                                                  **part["index"])
+        err_out = (got["out"].float() - ref_out.float()).abs().max().item()
+        err_lse = (got["lse"] - ref_lse).abs().max().item()
+        tol_out, tol_lse = TOL["bfloat16"]
+        check(err_out <= tol_out and err_lse <= tol_lse,
+              f"mesh (a) {kind} half: forward vs plain out err {err_out} "
+              f"(tol {tol_out}), lse err {err_lse} (tol {tol_lse})")
+        delta = fa.attention_delta(ref_out, sub[3])
+        kern = launch(*sub, lse_in=ref_lse, delta_in=delta, **part["index"])
+        want = fa.blockwise_attention_bwd(*sub, ref_lse, delta, **kw,
+                                          **part["index"])
+        errs = {}
+        for name, w in zip(("dq", "dk", "dv"), want):
+            err = (kern[name].float() - w.float()).abs().max().item()
+            tol = GRAD_TOL["bfloat16"] * w.float().abs().max().item()
+            check(err <= tol, f"mesh (a) {kind} half: {name} vs plain err "
+                  f"{err} (tol {tol})")
+            errs[name] = err
+        stats[f"{kind}_half_vs_plain"] = dict(
+            index=part["index"], max_abs_err=err_out,
+            max_abs_err_lse=err_lse, **errs)
+        del runs, kern, want, ref_out, ref_lse, delta, sub
+        torch.cuda.empty_cache()
+    lse, delta = whole["lse"], fa.attention_delta(whole["out"], dout)
+    stats["ms"] = dict(
+        fwd=cuda_time_ms(lambda: fc.flash_fwd_cuda(q, k, v, **kw), 10, 2,
+                         queued=True),
+        dq=cuda_time_ms(lambda: fc.flash_bwd_dq_cuda(q, k, v, dout, lse,
+                                                     delta, **kw), 10, 2,
+                        queued=True),
+        dkv=cuda_time_ms(lambda: fc.flash_bwd_dkv_cuda(q, k, v, dout, lse,
+                                                       delta, **kw), 10, 2,
+                         queued=True))
+    log("mesh (a): " + json.dumps(stats))
+    return stats
+
+
+def mesh_reference(root: str) -> dict:
+    """(b)'s one-rank step: its metrics, each leaf's largest update, and
+    its final parameters written to root for the ranks."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.training import init_train_state
+    cfg = mesh_config({}, 1, "float32")
+    state = init_train_state(cfg, seed=MESH_SEED)
+    first = {k: p.detach().clone() for k, p in
+             state.params.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    steps = mesh_steps(cfg, state)
+    final = dict(state.params.named_parameters())
+    update = {k: (final[k].detach() - first[k]).abs().max().item()
+              for k in first}
+    torch.save({k: p.detach().cpu() for k, p in final.items()},
+               os.path.join(root, "reference.pt"))
+    out = dict(steps=steps, update=update,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, first, final
+    gc_cuda()
+    return out
+
+
+def mesh_rank(rank: int, arm: str, port: int, root: str) -> int:
+    """`--mesh-rank`: one rank of (b) over gloo, which writes rank<r>.json;
+    or, for the arm MESH_NCCL_PAIR, one of two NCCL ranks on the one card,
+    whose first all-reduce NCCL refuses (the process then fails)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    from megatron_tpu_torch.training import init_train_state
+    if arm == MESH_NCCL_PAIR:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2)
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        log(f"rank {rank}: NCCL all-reduced over two ranks on one device: "
+            f"{one.item()}")
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        cfg = mesh_config(MESH_ARMS[arm], 2, "float32")
+        mesh = build_mesh(cfg.parallel)
+        state = init_train_state(cfg, seed=MESH_SEED, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        steps = mesh_steps(cfg, state, mesh)
+        out = dict(rank=rank, arm=arm, steps=steps,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   collective_bytes=mesh.transport.bytes)
+        placed = ckpt.sharded_leaves(state)
+        whole = {k: placed.whole(k.replace(".", "/"), p.detach())
+                 for k, p in state.params.named_parameters()}
+        if rank == 0:
+            ref = torch.load(os.path.join(root, "reference.pt"))
+            out["max_abs_diff"] = {
+                k: (w - ref[k].cuda()).abs().max().item()
+                for k, w in whole.items()}
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_ranks(arm: str, root: str) -> tuple:
+    """Two `--mesh-rank` processes of `arm` on a free port, each writing its
+    output to root/<arm>_rank<r>.log: (processes, log paths)."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [os.path.join(root, f"{arm}_rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", os.path.abspath(__file__),
+                 "--mesh-rank", f"{r},{arm},{port},{root}"],
+                stdout=out, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def wait_mesh_ranks(procs, logs, timeout=MESH_RANK_TIMEOUT_S) -> list:
+    """Each rank's (exit code, output), waiting at most `timeout` s for
+    each; a rank still running then is killed."""
+    out = []
+    try:
+        for p, path in zip(procs, logs):
+            try:
+                p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            with open(path) as f:
+                out.append((p.returncode, f.read()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def mesh_nccl_pair(root: str) -> dict:
+    """NCCL refuses two ranks on one device: both ranks of MESH_NCCL_PAIR
+    must fail, NCCL's "Duplicate GPU detected" in their output."""
+    ranks = wait_mesh_ranks(*start_mesh_ranks(MESH_NCCL_PAIR, root),
+                            timeout=MESH_NCCL_PAIR_TIMEOUT_S)
+    messages = []
+    for r, (rc, text) in enumerate(ranks):
+        found = [line for line in text.splitlines()
+                 if "Duplicate GPU detected" in line]
+        check(rc != 0 and found, f"mesh (b): NCCL did not refuse two ranks "
+              f"on one device (rank {r} exit code {rc}):\n{text[-3000:]}")
+        messages.append(found[-1].strip())
+    log(f"mesh (b): NCCL refuses two ranks on one device: {messages[0]}")
+    return dict(messages=messages)
+
+
+def mesh_two_ranks(root: str, smi: str) -> dict:
+    """(b): see the note above MESH_LAYERS."""
+    import os
+    stats = dict(nccl_pair=mesh_nccl_pair(root))
+    torch_ref = mesh_reference(root)
+    log(f"mesh (b) one rank: {json.dumps(torch_ref['steps'])}, peak "
+        f"{torch_ref['peak_gib']:.2f} GiB ({smi})")
+    stats["reference"] = torch_ref
+    for arm in MESH_ARMS:
+        for r, (rc, text) in enumerate(wait_mesh_ranks(
+                *start_mesh_ranks(arm, root))):
+            check(rc == 0, f"mesh (b) {arm} rank {r} failed ({rc}):\n"
+                  f"{text[-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for rec in ranks:
+            log(f"mesh (b) {arm} rank {rec['rank']}: step ms "
+                f"{[round(st['ms'], 1) for st in rec['steps']]}, peak "
+                f"{rec['peak_gib']:.2f} GiB, collective bytes "
+                f"{rec['collective_bytes']} ({smi})")
+        for st, want in zip(ranks[0]["steps"], torch_ref["steps"]):
+            for key in ("lm_loss", "grad_norm"):
+                rel = abs(st[key] - want[key]) / abs(want[key])
+                check(rel <= MESH_METRIC_RTOL, f"mesh (b) {arm}: {key} "
+                      f"{st[key]} vs one rank's {want[key]} (rel {rel})")
+        check(ranks[1]["steps"][-1]["lm_loss"]
+              == ranks[0]["steps"][-1]["lm_loss"],
+              f"mesh (b) {arm}: the ranks report different losses")
+        worst = 0.0
+        for k, diff in ranks[0]["max_abs_diff"].items():
+            upd = torch_ref["update"][k]
+            check(upd > 0 and diff <= MESH_PARAM_REL * upd,
+                  f"mesh (b) {arm}: {k} differs by {diff}, update {upd}")
+            worst = max(worst, diff / upd)
+        stats[arm] = dict(ranks=ranks, worst_diff_over_update=worst)
+        log(f"mesh (b) {arm}: the largest parameter difference is "
+            f"{worst:.3g} of its leaf's update (limit {MESH_PARAM_REL})")
+    return stats
+
+
+def mesh_nccl_world1() -> dict:
+    """(c): see the note above MESH_LAYERS."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.parallel.collectives import transport_for
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.training import init_train_state
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl", "(c) not on nccl")
+        one = transport_for("nccl").all_reduce(
+            torch.ones(4, device="cuda"), None)
+        check(torch.equal(one, torch.ones(4, device="cuda")),
+              "mesh (c): an NCCL all-reduce of one rank changed its input")
+        runs = {}
+        for name in ("unsharded", "mesh"):
+            cfg = mesh_config({}, 1, "bfloat16")
+            mesh = build_mesh(ParallelConfig()) if name == "mesh" else None
+            state = init_train_state(cfg, seed=MESH_SEED, mesh=mesh)
+            steps = mesh_steps(cfg, state, mesh)
+            runs[name] = dict(steps=steps, params={
+                k: p.detach().clone() for k, p in
+                state.params.named_parameters()})
+            del state
+            gc_cuda()
+        a, b = runs["unsharded"], runs["mesh"]
+        for sa, sb in zip(a["steps"], b["steps"]):
+            for key in ("lm_loss", "grad_norm", "found_inf"):
+                check(sa[key] == sb[key], f"mesh (c): {key} {sb[key]} vs "
+                      f"the unsharded step's {sa[key]}")
+        for k, p in a["params"].items():
+            check(torch.equal(p, b["params"][k]),
+                  f"mesh (c): {k} differs from the unsharded step's")
+    finally:
+        dist.destroy_process_group()
+    out = dict(steps=b["steps"], bit_equal=True, backend="nccl")
+    log("mesh (c): " + json.dumps(out))
+    return out
+
+
+def mesh_entry_point(root: str) -> dict:
+    """(d): see the note above MESH_LAYERS."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.config import MegatronConfig
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    from megatron_tpu_torch.training import init_train_state
+    corpus = pretrain_corpus(root)
+    save = os.path.join(root, "ckpt")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "megatron_tpu_torch.finetune",
+            *pretrain_argv(corpus, "--distributed_backend", "gloo",
+                           "--tensor_model_parallel_size", "2",
+                           "--sequence_parallel",
+                           "--use_distributed_optimizer", "--save", save,
+                           "--exit_interval", "2", "--no_save_optim")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=MESH_RANK_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"mesh (d): torchrun exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    losses = re.findall(r"lm loss: ([0-9.E+-]+)", proc.stdout)
+    check(len(losses) == 2 and all(math.isfinite(float(x)) for x in losses),
+          f"mesh (d): lm losses {losses}")
+    d = ckpt.tracked_dir(save)
+    check(sorted(os.listdir(save)) == [os.path.basename(d),
+                                       ckpt.TRACKER],
+          f"mesh (d): the save holds {sorted(os.listdir(save))}")
+    with open(os.path.join(d, "config.json")) as f:
+        saved = MegatronConfig.from_dict(json.load(f))
+    check(saved.parallel.tensor_parallel == 2, "(d) config.json parallel")
+    cfg = MegatronConfig(model=saved.model,
+                         optimizer=saved.optimizer).validate()
+    state = init_train_state(cfg)
+    loaded = ckpt.load_checkpoint(save, state)
+    check(loaded.iteration == 2, f"mesh (d): loaded iteration "
+          f"{loaded.iteration}")
+    arrays = ckpt.read_params(d)
+    leaves = ckpt._param_leaves(state)
+    for k, arr in arrays.items():
+        check(ckpt.tensor_to_numpy(leaves[k]).tobytes() == arr.tobytes(),
+              f"mesh (d): reloaded {k} differs from the checkpoint's")
+    out = dict(seconds=seconds, lm_losses=[float(x) for x in losses],
+               leaves=len(arrays),
+               checkpoint_bytes=sum(os.path.getsize(os.path.join(d, f))
+                                    for f in os.listdir(d)))
+    del state, leaves
+    gc_cuda()
+    log("mesh (d): " + json.dumps(out))
+    return out
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 21: the (dp, tp) mesh, parts (a)-(d) (see the note above
+    MESH_LAYERS). The launch counts are (b)'s ranks' and (c)'s mesh steps'
+    (the one-rank and unsharded comparison steps are not counted)."""
+    import shutil
+    import tempfile
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    stats = dict(card=smi)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        stats[name] = fn(*args)
+        stats[name]["part_seconds"] = time.perf_counter() - t0
+        log(f"phase 21 {name}: {stats[name]['part_seconds']:.1f} s")
+        gc_cuda()
+
+    try:
+        part("kernels", mesh_kernels)
+        part("two_ranks", mesh_two_ranks, root, smi)
+        part("nccl_world1", mesh_nccl_world1)
+        part("entry_point", mesh_entry_point, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counted = [st["launches"] for arm in MESH_ARMS
+               for rec in stats["two_ranks"][arm]["ranks"]
+               for st in rec["steps"]]
+    counted += [st["launches"] for st in stats["nccl_world1"]["steps"]]
+    stats["launches"] = {k: sum(c[k] for c in counted) for k in counted[0]}
+    log(f"phase 21: launches {stats['launches']}")
+    return stats
+
+
 PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "7": phase_training, "8": phase_pretrain, "9": phase_toolchain,
           "10": phase_window_supervisor, "11": phase_engine_features,
@@ -11203,7 +11730,7 @@ PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "14": phase_structured_degrade, "15": phase_fleet,
           "16": phase_moe, "17": phase_bert_t5,
           "18": phase_retrieval_tasks, "19": phase_zeroshot_msdp_bench,
-          "20": phase_remat_master}
+          "20": phase_remat_master, "21": phase_mesh}
 
 
 class Lane:
@@ -11311,6 +11838,9 @@ def main(argv=None) -> int:
     parser.add_argument("--lane-out", metavar="JSON",
                         help="where --lane writes its phases' results")
     parser.add_argument("--smi", help="--lane: the card's nvidia-smi line")
+    parser.add_argument(
+        "--mesh-rank", metavar="RANK,ARM,PORT,DIR",
+        help="run one rank of phase 21 (b) (the smoke run starts two)")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -11329,6 +11859,9 @@ def main(argv=None) -> int:
         return 2
     if args.lane:
         return run_lane(args.lane.split(","), args.lane_out, args.smi)
+    if args.mesh_rank:
+        rank, arm, port, root = args.mesh_rank.split(",", 3)
+        return mesh_rank(int(rank), arm, int(port), root)
     compares = [(fn, path) for fn, path in (
         (compare_forward, args.compare_fwd),
         (compare_backward, args.compare_bwd),
@@ -11386,7 +11919,7 @@ def main(argv=None) -> int:
     (main_stats, engine_stats, int8_stats, train_stats, pretrain_stats,
      toolchain_stats, window_stats, feature_stats, front_stats, lora_stats,
      struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats, zs_stats,
-     remat_stats) = (stats[str(n)] for n in range(4, 21))
+     remat_stats, mesh_stats) = (stats[str(n)] for n in range(4, 22))
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
     window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
@@ -11425,6 +11958,9 @@ def main(argv=None) -> int:
     # slice and the s 32768 kernel checks are not counted)
     remat_counts = remat_stats["launches"]
     long_context = remat_stats["long_context"]
+    # phase 21's sharded steps: (b)'s two rank processes and (c)'s mesh
+    # steps, each step counted from zero
+    mesh_counts = mesh_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -11459,7 +11995,8 @@ def main(argv=None) -> int:
               + t5_counts["flash_fwd_cuda"]
               + rt_counts["flash_fwd_cuda"]
               + zs_counts_["flash_fwd_cuda"]
-              + remat_counts["flash_fwd_cuda"], "fwd",
+              + remat_counts["flash_fwd_cuda"]
+              + mesh_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -11485,6 +12022,7 @@ def main(argv=None) -> int:
                   retrieval_tasks=rt_counts["flash_fwd_cuda"],
                   zeroshot_msdp_bench=zs_counts_["flash_fwd_cuda"],
                   remat_master=remat_counts["flash_fwd_cuda"],
+                  mesh=mesh_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -11496,6 +12034,8 @@ def main(argv=None) -> int:
                    max_abs_err_lse=train_case["fwd"]["max_abs_err_lse"],
                    long_context=dict(shape=long_context["shape"],
                                      **long_context["fwd"]),
+                   mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["fwd"],
+                                   **mesh_stats["kernels"]["shape"]),
                    serving_shape=dict(shape=MAIN_SHAPE, **{
                        k: serving_case[k] for k in (
                            "max_abs_err", "max_abs_err_lse", "ms",
@@ -11512,7 +12052,8 @@ def main(argv=None) -> int:
               + t5_counts["flash_bwd_dq_cuda"]
               + rt_counts["flash_bwd_dq_cuda"]
               + zs_counts_["flash_bwd_dq_cuda"]
-              + remat_counts["flash_bwd_dq_cuda"], "dq",
+              + remat_counts["flash_bwd_dq_cuda"]
+              + mesh_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -11527,9 +12068,12 @@ def main(argv=None) -> int:
                        retrieval_tasks=rt_counts["flash_bwd_dq_cuda"],
                        zeroshot_msdp_bench=zs_counts_[
                            "flash_bwd_dq_cuda"],
-                       remat_master=remat_counts["flash_bwd_dq_cuda"]),
+                       remat_master=remat_counts["flash_bwd_dq_cuda"],
+                       mesh=mesh_counts["flash_bwd_dq_cuda"]),
                    long_context=dict(shape=long_context["shape"],
-                                     **long_context["dq"]))),
+                                     **long_context["dq"]),
+                   mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["dq"],
+                                   **mesh_stats["kernels"]["shape"]))),
         entry("flash_bwd_dkv", "megatron_tpu_torch/csrc/flash_bwd.cu",
               f"{pallas}:278", train_counts["flash_bwd_dkv_cuda"]
               + pretrain_counts["flash_bwd_dkv_cuda"]
@@ -11540,7 +12084,8 @@ def main(argv=None) -> int:
               + t5_counts["flash_bwd_dkv_cuda"]
               + rt_counts["flash_bwd_dkv_cuda"]
               + zs_counts_["flash_bwd_dkv_cuda"]
-              + remat_counts["flash_bwd_dkv_cuda"], "dkv",
+              + remat_counts["flash_bwd_dkv_cuda"]
+              + mesh_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -11558,9 +12103,12 @@ def main(argv=None) -> int:
                        retrieval_tasks=rt_counts["flash_bwd_dkv_cuda"],
                        zeroshot_msdp_bench=zs_counts_[
                            "flash_bwd_dkv_cuda"],
-                       remat_master=remat_counts["flash_bwd_dkv_cuda"]),
+                       remat_master=remat_counts["flash_bwd_dkv_cuda"],
+                       mesh=mesh_counts["flash_bwd_dkv_cuda"]),
                    long_context=dict(shape=long_context["shape"],
-                                     **long_context["dkv"]))),
+                                     **long_context["dkv"]),
+                   mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["dkv"],
+                                   **mesh_stats["kernels"]["shape"]))),
     ]
     block_main = next(c for c in block_cases if c["shape"] == BLOCK_MAIN)
     verify = next(c for c in block_cases if c["shape"] == BLOCK_VERIFY)

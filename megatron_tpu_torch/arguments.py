@@ -6,8 +6,13 @@ The flags keep the reference's names and defaults, so a launch line of
 port parses the model, training, optimizer, data and resilience groups and
 the reference-compat aliases of this path. A flag whose feature the port
 does not run yet raises NotImplementedError naming its ROADMAP item:
-tensor, pipeline or context parallelism, sequence parallelism, the
-distributed optimizer and `--expert_axis dp` (Queue 1 item 7).
+pipeline or context parallelism, the interleaved pipeline and
+`--expert_axis dp` (Queue 1 item 7). `--tensor_model_parallel_size`,
+`--sequence_parallel` and `--use_distributed_optimizer` shard the decoder
+LM's step over a (dp, tp) mesh of the ranks that torchrun starts
+(`parse_cli(n_devices=...)` derives dp from their count), and
+`--distributed_backend` names the process group's backend (nccl on CUDA
+devices by default, gloo).
 `--recompute_granularity full|selective` recomputes each layer in the
 backward (models/transformer.py); `--recompute_activations` is the
 reference's alias for selective, and `--recompute_method` and
@@ -34,8 +39,8 @@ from typing import Callable, Optional
 
 from megatron_tpu_torch.config import (MODEL_PRESETS, DataConfig,
                                        MegatronConfig, ModelConfig,
-                                       OptimizerConfig, ResilienceConfig,
-                                       TrainingConfig)
+                                       OptimizerConfig, ParallelConfig,
+                                       ResilienceConfig, TrainingConfig)
 from megatron_tpu_torch.utils.logging import print_rank_0
 
 
@@ -111,6 +116,8 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--use_distributed_optimizer", action="store_true")
     g.add_argument("--expert_axis", type=str, default="tp",
                    choices=["tp", "dp"])
+    g.add_argument("--distributed_backend", type=str, default=None,
+                   choices=["nccl", "gloo"])
 
     g = p.add_argument_group("training")
     g.add_argument("--micro_batch_size", type=int, default=1)
@@ -267,7 +274,7 @@ _NOOP_FLAGS = [
     "--adlr_autoresume", "--adlr_autoresume_interval",
     "--barrier_with_L1_time", "--apply_residual_connection_post_layernorm",
     "--data_parallel_random_init", "--distribute_saved_activations",
-    "--distributed_backend", "--empty_unused_memory_level",
+    "--empty_unused_memory_level",
     "--fp16_lm_cross_entropy", "--fp32_residual_connection",
     "--fp8_amax_compute_algo", "--fp8_amax_history_len", "--fp8_e4m3",
     "--fp8_hybrid", "--fp8_interval", "--fp8_margin", "--no_fp8_wgrad",
@@ -288,15 +295,10 @@ _NOOP_FLAGS = [
 # flags (attribute, value that means "not asked for") whose feature the
 # port does not run yet, with its ROADMAP item
 _UNPORTED = (
-    ("tensor_parallel", 1, "tensor parallelism (ROADMAP Queue 1 item 7)"),
     ("pipeline_parallel", 1, "pipeline parallelism (ROADMAP Queue 1 item 7)"),
     ("context_parallel", 1, "context parallelism (ROADMAP Queue 1 item 7)"),
     ("num_layers_per_virtual_pipeline_stage", None,
      "the interleaved pipeline (ROADMAP Queue 1 item 7)"),
-    ("sequence_parallel", False,
-     "sequence parallelism (ROADMAP Queue 1 item 7)"),
-    ("use_distributed_optimizer", False,
-     "the sharded optimizer (ROADMAP Queue 1 item 7)"),
     ("expert_axis", "tp",
      "expert parallelism over another mesh axis (ROADMAP Queue 1 item 7)"),
 )
@@ -355,7 +357,8 @@ def _apply_compat(args: argparse.Namespace) -> None:
 
 
 def config_from_args(args: argparse.Namespace,
-                     defaults: Optional[dict] = None) -> MegatronConfig:
+                     defaults: Optional[dict] = None,
+                     n_devices: Optional[int] = None) -> MegatronConfig:
     _apply_compat(args)
     if args.model:
         model = MODEL_PRESETS[args.model]()
@@ -396,6 +399,10 @@ def config_from_args(args: argparse.Namespace,
         model = ModelConfig(**md)
     cfg = MegatronConfig(
         model=model,
+        parallel=ParallelConfig(
+            tensor_parallel=args.tensor_parallel,
+            sequence_parallel=args.sequence_parallel,
+            use_distributed_optimizer=args.use_distributed_optimizer),
         optimizer=OptimizerConfig(**_pick(args, OptimizerConfig)),
         training=TrainingConfig(**{
             **_pick(args, TrainingConfig),
@@ -405,12 +412,16 @@ def config_from_args(args: argparse.Namespace,
         resilience=ResilienceConfig(**{
             **_pick(args, ResilienceConfig),
             "checkpoint_integrity": not args.no_checkpoint_integrity}))
-    return cfg.validate()
+    return cfg.validate(n_devices=n_devices)
 
 
-def parse_cli(argv=None, extra_args_provider=None
+def parse_cli(argv=None, extra_args_provider=None,
+              n_devices: Optional[int] = None
               ) -> tuple[MegatronConfig, argparse.Namespace]:
+    """The flags -> a validated MegatronConfig, dp derived from
+    `n_devices` (the number of ranks) when given."""
     parser = build_parser(extra_args_provider)
     args = parser.parse_args(argv)
     defaults = {a.dest: a.default for a in parser._actions}
-    return config_from_args(args, defaults=defaults), args
+    return config_from_args(args, defaults=defaults,
+                            n_devices=n_devices), args

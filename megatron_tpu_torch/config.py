@@ -4,14 +4,20 @@ A copy of `megatron_tpu.config.ModelConfig`, its derivations and the model
 presets, with dtypes mapped to torch. The JAX package stays the reference;
 the port keeps its own copy so that it never imports it.
 
-`OptimizerConfig`, `TrainingConfig`, `DataConfig` and `ResilienceConfig` are
-copied in full, `ServingConfig` (the serving engine's) with every field and
-the checks on those the engine runs. `MegatronConfig.to_json` and
-`from_dict` write and read the `model`, `optimizer`, `training`, `data` and
-`resilience` sections of a checkpoint's `config.json` under the reference's
-names; its parallel and serving sections are ignored here. With one device
-and no data parallelism, `num_microbatches` is global_batch_size /
-micro_batch_size.
+`ParallelConfig`, `OptimizerConfig`, `TrainingConfig`, `DataConfig` and
+`ResilienceConfig` are copied in full, `ServingConfig` (the serving
+engine's) with every field and the checks on those the engine runs.
+`MegatronConfig.to_json` and `from_dict` write and read the `model`,
+`parallel`, `optimizer`, `training`, `data` and `resilience` sections of a
+checkpoint's `config.json` under the reference's names; its serving
+section is ignored here. `num_microbatches` is global_batch_size /
+(micro_batch_size * dp).
+
+The port runs the (dp, tp) mesh of one decoder LM, with sequence
+parallelism and the ZeRO-1 optimizer (parallel/, training/train_step.py);
+`MegatronConfig.validate` raises on the mesh fields it does not run yet
+(pipeline, context parallelism and their schedules, experts under a mesh,
+`expert_axis` other than "tp"), citing ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -131,6 +137,48 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         m = self.make_vocab_size_divisible_by
         return m * ((self.vocab_size + m - 1) // m)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Device-mesh layout (megatron_tpu/config.py ParallelConfig): the
+    fields and defaults are the reference's. The mesh is (dp, pp, cp, tp)
+    with tp fastest (parallel/mesh.py); `sequence_parallel` shards the
+    residual stream's sequence dim over tp outside attention and the MLP,
+    and `use_distributed_optimizer` shards the fp32 moments over dp
+    (ZeRO-1)."""
+
+    tensor_parallel: int = 1
+    pipeline_parallel: int = 1
+    data_parallel: Optional[int] = None  # derived from world size
+    context_parallel: int = 1
+    expert_parallel: int = 1  # unused; kept for config compatibility
+    expert_axis: str = "tp"
+    sequence_parallel: bool = False
+    virtual_pipeline_chunks: int = 1
+    pipeline_schedule: str = "1f1b"
+    pipeline_store_activations: bool = False
+    use_distributed_optimizer: bool = False
+
+    def derive_dp(self, n_devices: int) -> int:
+        denom = (self.tensor_parallel * self.pipeline_parallel *
+                 self.context_parallel)
+        if n_devices % denom:
+            raise ValueError(f"world size {n_devices} not divisible by "
+                             f"tp*pp*cp={denom}")
+        return n_devices // denom
+
+
+# ParallelConfig fields (name, value that means "not asked for") whose
+# feature the port does not run yet
+_LATER_PARALLEL = (
+    ("pipeline_parallel", 1, "pipeline parallelism"),
+    ("context_parallel", 1, "context parallelism"),
+    ("virtual_pipeline_chunks", 1, "the interleaved pipeline"),
+    ("pipeline_schedule", "1f1b", "the pipeline schedules"),
+    ("pipeline_store_activations", False, "the pipeline schedules"),
+    ("expert_axis", "tp", "expert parallelism over another mesh axis"),
+)
 
 
 @dataclass(frozen=True)
@@ -652,30 +700,69 @@ class ServingConfig:
 
 @dataclass(frozen=True)
 class MegatronConfig:
-    """The reference's MegatronConfig without its parallel and serving
-    sections: one device, no data parallelism. `to_json` writes, and
-    `from_dict` reads, the reference's section and field names, so a
-    checkpoint's `config.json` moves between the two packages; sections
-    and fields the port does not hold are ignored."""
+    """The reference's MegatronConfig without its serving section.
+    `to_json` writes, and `from_dict` reads, the reference's section and
+    field names, so a checkpoint's `config.json` moves between the two
+    packages; sections and fields the port does not hold are ignored."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     data: DataConfig = field(default_factory=DataConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
-    def validate(self) -> "MegatronConfig":
-        """Derive the model fields and the global batch (micro batch when
-        unset) and check the MoE routing and the resilience knobs."""
+    def validate(self, n_devices: Optional[int] = None) -> "MegatronConfig":
+        """Derive the model fields, dp (from `n_devices` when given) and
+        the global batch (micro batch x dp when unset), and check the mesh
+        against the model as the reference does (megatron_tpu/config.py
+        validate): heads, kv heads, ffn and padded vocab over tp, the
+        sequence over tp under SP, the global batch over micro batch x dp;
+        then the MoE routing and the resilience knobs. Mesh fields the port
+        does not run yet raise NotImplementedError."""
+        model = self.model.derived()
+        par = self.parallel
+        for name, off, what in _LATER_PARALLEL:
+            if getattr(par, name) != off:
+                raise NotImplementedError(
+                    f"ParallelConfig.{name}={getattr(par, name)!r}: {what} "
+                    "is not ported to megatron_tpu_torch yet (ROADMAP "
+                    "Queue 1 item 7)")
+        if n_devices is not None and par.data_parallel is None:
+            par = dataclasses.replace(par,
+                                      data_parallel=par.derive_dp(n_devices))
+        tp, dp = par.tensor_parallel, par.data_parallel or 1
+        if tp < 1 or dp < 1:
+            raise ValueError(f"tp={tp} and dp={dp} must be >= 1")
+        if model.num_experts > 1 and tp * dp > 1:
+            raise NotImplementedError(
+                "experts under a mesh (tp or dp > 1): expert parallelism "
+                "is not ported to megatron_tpu_torch yet (ROADMAP Queue 1 "
+                "item 7)")
+        nq, nkv = model.num_attention_heads, model.num_kv_heads
+        if nq % tp:
+            raise ValueError(f"attention heads {nq} must shard evenly over "
+                             f"tp={tp}")
+        if nkv % tp and tp % nkv:
+            raise ValueError(f"kv heads {nkv} must shard evenly over tp={tp} "
+                             "or divide it (then they are replicated)")
+        if model.ffn_hidden_size % tp:
+            raise ValueError(f"ffn_hidden_size {model.ffn_hidden_size} must "
+                             f"shard evenly over tp={tp}")
+        if model.padded_vocab_size % tp:
+            raise ValueError(f"padded vocab {model.padded_vocab_size} must "
+                             f"shard evenly over tp={tp}")
+        if par.sequence_parallel and model.seq_length % tp:
+            raise ValueError("sequence parallel requires seq_length "
+                             f"{model.seq_length} divisible by tp={tp}")
         tr = self.training
         if tr.global_batch_size is None:
-            tr = dataclasses.replace(tr,
-                                     global_batch_size=tr.micro_batch_size)
-        if tr.global_batch_size % tr.micro_batch_size:
+            tr = dataclasses.replace(
+                tr, global_batch_size=tr.micro_batch_size * dp)
+        if tr.global_batch_size % (tr.micro_batch_size * dp):
             raise ValueError(f"global batch {tr.global_batch_size} must be "
-                             f"divisible by micro batch "
-                             f"{tr.micro_batch_size}")
-        model = self.model
+                             f"divisible by micro batch x dp "
+                             f"{tr.micro_batch_size * dp}")
         if model.num_experts > 1:
             if not 1 <= model.moe_top_k <= model.num_experts:
                 raise ValueError(f"moe_top_k={model.moe_top_k} must be in "
@@ -684,16 +771,18 @@ class MegatronConfig:
                 raise ValueError(f"moe_dispatch={model.moe_dispatch!r} "
                                  "(expected 'sort' or 'dense')")
         self.resilience.validate()
-        return dataclasses.replace(self, model=self.model.derived(),
+        return dataclasses.replace(self, model=model, parallel=par,
                                    training=tr)
 
     @property
     def num_microbatches(self) -> int:
-        gbs = self.training.global_batch_size or self.training.micro_batch_size
-        if gbs % self.training.micro_batch_size:
+        tr = self.training
+        per_step = tr.micro_batch_size * (self.parallel.data_parallel or 1)
+        gbs = tr.global_batch_size or per_step
+        if gbs % per_step:
             raise ValueError(f"global batch {gbs} must be divisible by "
-                             f"micro batch {self.training.micro_batch_size}")
-        return gbs // self.training.micro_batch_size
+                             f"micro batch x dp {per_step}")
+        return gbs // per_step
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str, indent=2)
@@ -705,6 +794,7 @@ class MegatronConfig:
             return cls(**{k: v for k, v in sub.items() if k in names})
         return MegatronConfig(
             model=build(ModelConfig, d.get("model", {})),
+            parallel=build(ParallelConfig, d.get("parallel", {})),
             optimizer=build(OptimizerConfig, d.get("optimizer", {})),
             training=build(TrainingConfig, d.get("training", {})),
             data=build(DataConfig, d.get("data", {})),

@@ -231,7 +231,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
     if constexpr (EXTRA) {
       qseg[i] = p.seg ? segment(p, bi, qi, p.sq, -1) : 0;
-      qrow[i] = dropout_row(p.drop.seed, bi * p.nq + h, qi);
+      qrow[i] = dropout_row(p.drop, bi, h, qi);
     }
   }
 
@@ -428,7 +428,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
         const int r = tr + 16 * i;
         const int qi = q0 + r;
         uint32_t qrow = 0;
-        if constexpr (EXTRA) qrow = dropout_row(p.drop.seed, bi * p.nq + h, qi);
+        if constexpr (EXTRA) qrow = dropout_row(p.drop, bi, h, qi);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kj = k0 + tc + 16 * j;
@@ -723,8 +723,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         seg_a = segment(p, bi, row_a, p.sq, -1);
         seg_b = segment(p, bi, row_b, p.sq, -1);
       }
-      hrow_a = dropout_row(p.drop.seed, bi * p.nq + h, row_a);
-      hrow_b = dropout_row(p.drop.seed, bi * p.nq + h, row_b);
+      hrow_a = dropout_row(p.drop, bi, h, row_a);
+      hrow_b = dropout_row(p.drop, bi, h, row_b);
     }
     float dq[HD / 2];
 #pragma unroll
@@ -1065,7 +1065,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
             for (int j = 0; j < TM / 8; ++j)
 #pragma unroll
               for (int e1 = 0; e1 < 2; ++e1) {
-                const uint32_t qrow = dropout_row(p.drop.seed, bi * p.nq + h,
+                const uint32_t qrow = dropout_row(p.drop, bi, h,
                                                   q0 + 8 * j + 2 * t4 + e1);
                 const int ia = 4 * j + e1, ib = 4 * j + 2 + e1;
                 kept[ia / 32] |=
@@ -1301,7 +1301,9 @@ Params make_params(const void* q, const void* k, const void* v,
                    const float* dlse, const int* seg, int b, int sq, int sk,
                    int nq, int nkv, const long long* strides, float scale,
                    int causal, int window, unsigned int drop_seed,
-                   unsigned int drop_thresh, float drop_scale) {
+                   unsigned int drop_thresh, float drop_scale,
+                   int drop_batch_offset, int drop_head_offset,
+                   int drop_total_heads) {
   Params p{};
   p.q = q;
   p.k = k;
@@ -1333,14 +1335,18 @@ Params make_params(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.causal = causal;
   p.window = window;
-  p.drop = Dropout{drop_seed, drop_thresh, drop_scale};
+  p.drop = Dropout{drop_seed, drop_thresh, drop_scale, drop_batch_offset,
+                    drop_head_offset, drop_total_heads};
   return p;
 }
 
 bool valid(int dtype, int hd, int sq, int sk, int nq, int nkv,
-           const int* seg) {
+           const int* seg, int drop_batch_offset, int drop_head_offset,
+           int drop_total_heads) {
   return nkv > 0 && nq % nkv == 0 && (dtype == 0 || dtype == 1) &&
-         (hd == 64 || hd == 128) && (!seg || sq == sk);
+         (hd == 64 || hd == 128) && (!seg || sq == sk) &&
+         drop_batch_offset >= 0 && drop_head_offset >= 0 &&
+         drop_total_heads >= drop_head_offset + nq;
 }
 
 }  // namespace
@@ -1352,8 +1358,10 @@ bool valid(int dtype, int hd, int sq, int sk, int nq, int nkv,
 // rules for the tensor maps built here), and lse, delta and dlse (or null)
 // as contiguous [b, nq, sq] fp32. seg is null or a contiguous [b, sq] int32
 // tensor (sq == sk). drop_scale == 0 turns dropout off; otherwise
-// drop_scale = 1 / (1 - rate) and drop_thresh = rate * 2^31. dtype: 0 =
-// float32, 1 = bfloat16. Each returns the launch's cudaError_t
+// drop_scale = 1 / (1 - rate) and drop_thresh = rate * 2^31, and the hash
+// numbers row (batch, q-head) as (batch + drop_batch_offset) *
+// drop_total_heads + drop_head_offset + q-head (flash_common.cuh Dropout;
+// 0, 0, nq for the launch's own rows). dtype: 0 = float32, 1 = bfloat16. Each returns the launch's cudaError_t
 // (cudaErrorInvalidValue for what it does not take).
 
 // dq: a contiguous [b, sq, nq, hd] tensor of q's dtype.
@@ -1365,11 +1373,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const long long* strides, float scale,
                             int causal, int window, unsigned int drop_seed,
                             unsigned int drop_thresh, float drop_scale,
-                            void* stream) {
-  if (!valid(dtype, hd, sq, sk, nq, nkv, seg)) return cudaErrorInvalidValue;
+                            int drop_batch_offset, int drop_head_offset,
+                            int drop_total_heads, void* stream) {
+  if (!valid(dtype, hd, sq, sk, nq, nkv, seg, drop_batch_offset,
+             drop_head_offset, drop_total_heads))
+    return cudaErrorInvalidValue;
   Params p = make_params(q, k, v, dout, lse, delta, dlse, seg, b, sq, sk, nq,
                          nkv, strides, scale, causal, window, drop_seed,
-                         drop_thresh, drop_scale);
+                         drop_thresh, drop_scale, drop_batch_offset,
+                         drop_head_offset, drop_total_heads);
   p.dq = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool extra = seg != nullptr || drop_scale != 0.f;
@@ -1393,13 +1405,18 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const long long* strides, float scale,
                              int causal, int window, unsigned int drop_seed,
                              unsigned int drop_thresh, float drop_scale,
-                             int chunks, float* workspace, void* stream) {
-  if (!valid(dtype, hd, sq, sk, nq, nkv, seg) || chunks < 1 ||
-      chunks > nq / nkv || (chunks > 1 && (dtype != 1 || !workspace)))
+                             int drop_batch_offset, int drop_head_offset,
+                             int drop_total_heads, int chunks,
+                             float* workspace, void* stream) {
+  if (!valid(dtype, hd, sq, sk, nq, nkv, seg, drop_batch_offset,
+             drop_head_offset, drop_total_heads) ||
+      chunks < 1 || chunks > nq / nkv ||
+      (chunks > 1 && (dtype != 1 || !workspace)))
     return cudaErrorInvalidValue;
   Params p = make_params(q, k, v, dout, lse, delta, dlse, seg, b, sq, sk, nq,
                          nkv, strides, scale, causal, window, drop_seed,
-                         drop_thresh, drop_scale);
+                         drop_thresh, drop_scale, drop_batch_offset,
+                         drop_head_offset, drop_total_heads);
   p.dk = dk;
   p.dv = dv;
   p.chunks = chunks;

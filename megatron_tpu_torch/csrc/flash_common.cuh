@@ -20,7 +20,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // `_fmix32` / `_dropout_keep`, in uint32: wrapping multiplies and logical
 // shifts give the TPU kernel's int32 bits. The keep bit of (bh = batch * nq
 // + q-head, query qi, key kj) depends on absolute positions only, so any
-// tiling regenerates the same mask.
+// tiling regenerates the same mask (bh with offsets: struct Dropout below).
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x85ebca6bu;
@@ -30,11 +30,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t dropout_row(uint32_t seed, int bh,
-                                                int qi) {
-  return fmix32(seed ^ (static_cast<uint32_t>(bh) * 0x9e3779b1u) ^
-                (static_cast<uint32_t>(qi) * 0x61c88647u));
-}
 
 __device__ __forceinline__ bool dropout_keep(uint32_t row, int kj,
                                              uint32_t thresh) {
@@ -42,12 +37,27 @@ __device__ __forceinline__ bool dropout_keep(uint32_t row, int kj,
 }
 
 // Attention dropout: off when scale == 0. z = keep ? scale : 0, with scale
-// = 1 / (1 - rate) and keep = (hash >> 1) >= thresh = rate * 2^31.
+// = 1 / (1 - rate) and keep = (hash >> 1) >= thresh = rate * 2^31. The hash
+// numbers a row by its place in the whole attention call, bh = (batch +
+// batch_offset) * total_heads + head_offset + q-head: a launch over a slice
+// of the batch (a data-parallel rank's rows) or of the heads (a tensor-
+// parallel rank's) draws exactly that slice of the whole call's mask.
+// Offsets 0 and total_heads = nq number the launch's own rows.
 struct Dropout {
   uint32_t seed;
   uint32_t thresh;
   float scale;
+  int batch_offset;
+  int head_offset;
+  int total_heads;
 };
+
+__device__ __forceinline__ uint32_t dropout_row(const Dropout& d, int bi,
+                                                int h, int qi) {
+  const int bh = (bi + d.batch_offset) * d.total_heads + d.head_offset + h;
+  return fmix32(d.seed ^ (static_cast<uint32_t>(bh) * 0x9e3779b1u) ^
+                (static_cast<uint32_t>(qi) * 0x61c88647u));
+}
 
 // --- arithmetic helpers -----------------------------------------------------
 

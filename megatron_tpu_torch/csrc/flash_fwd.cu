@@ -197,7 +197,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
     if constexpr (EXTRA) {
       const int qi = q0 + tr + 16 * i;
       qseg[i] = p.seg ? q_segment(p, bi, qi) : 0;
-      qrow[i] = dropout_row(p.drop.seed, bi * p.nq + h, qi);
+      qrow[i] = dropout_row(p.drop, bi, h, qi);
     }
   }
 
@@ -435,8 +435,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         seg_a = q_segment(p, bi, row_a);
         seg_b = q_segment(p, bi, row_b);
       }
-      hrow_a = dropout_row(p.drop.seed, bi * p.nq + h, row_a);
-      hrow_b = dropout_row(p.drop.seed, bi * p.nq + h, row_b);
+      hrow_a = dropout_row(p.drop, bi, h, row_a);
+      hrow_b = dropout_row(p.drop, bi, h, row_b);
     }
     const uint32_t q_rows = smem_addr(Qs) + 64 * c * 128;
 
@@ -708,7 +708,10 @@ cudaError_t dispatch(int dtype, const Params& p, cudaStream_t st) {
 // out is a contiguous [b, sq, nq, hd] tensor of the input dtype, lse a
 // contiguous [b, nq, sq] fp32 tensor. seg is null or a contiguous [b, sq]
 // int32 tensor (requires sq == sk). drop_scale == 0 turns dropout off;
-// otherwise drop_scale = 1 / (1 - rate) and drop_thresh = rate * 2^31.
+// otherwise drop_scale = 1 / (1 - rate) and drop_thresh = rate * 2^31, and
+// the hash numbers row (batch, q-head) as (batch + drop_batch_offset) *
+// drop_total_heads + drop_head_offset + q-head (flash_common.cuh Dropout;
+// 0, 0, nq for the launch's own rows).
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for an
 // unsupported dtype or head dim).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -719,9 +722,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          long long v_sb, long long v_ss, long long v_sh,
                          float scale, int causal, int window,
                          unsigned int drop_seed, unsigned int drop_thresh,
-                         float drop_scale, void* stream) {
+                         float drop_scale, int drop_batch_offset,
+                         int drop_head_offset, int drop_total_heads,
+                         void* stream) {
   if (nkv <= 0 || nq % nkv != 0 || (dtype != 0 && dtype != 1) ||
-      (seg && sq != sk))
+      (seg && sq != sk) || drop_batch_offset < 0 || drop_head_offset < 0 ||
+      drop_total_heads < drop_head_offset + nq)
     return cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -748,7 +754,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.causal = causal;
   p.window = window;
-  p.drop = Dropout{drop_seed, drop_thresh, drop_scale};
+  p.drop = Dropout{drop_seed, drop_thresh, drop_scale, drop_batch_offset,
+                    drop_head_offset, drop_total_heads};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool extra = seg != nullptr || drop_scale != 0.f;
   if (hd == 64)

@@ -18,6 +18,20 @@ best-effort checkpoint and exits with `--watchdog_exit_code` (43). A
 `FaultInjector.from_env`, e.g. `delay@3:30`) is active for the run: the
 chaos drills of the resilience path run through this entry point.
 
+Under torchrun it trains one decoder LM sharded over the (dp, tp) mesh of
+its ranks (parallel/, training/train_step.py):
+
+  torchrun --nproc_per_node 8 -m megatron_tpu_torch.finetune \\
+      --tensor_model_parallel_size 4 --sequence_parallel \\
+      --use_distributed_optimizer ...
+
+dp is the rank count over tp. Each rank runs on CUDA device LOCAL_RANK
+over NCCL; `--distributed_backend gloo` takes gloo instead (host copies).
+Every rank builds the same global batches and keeps its dp rows; rank 0
+builds the datasets' index caches first, logs, writes the metrics and
+saves (the unsharded checkpoint format, parallel/ gathers the leaves), and
+the other ranks write nothing.
+
 `--lora_rank R` runs a LoRA finetune instead (training/lora.py): the
 (possibly `--load`ed) base stays frozen, only rank-R adapter factors train
 for `--train_iters` steps at `--lr`, and the adapter is exported to
@@ -31,7 +45,7 @@ import dataclasses
 import os
 import sys
 
-from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+from megatron_tpu_torch.utils.device import DeviceLike
 
 
 def build_data(cfg, tokenizer, consumed_samples: int):
@@ -69,7 +83,8 @@ def build_data(cfg, tokenizer, consumed_samples: int):
         if ds is None:
             return None
         return BatchIterator(
-            ds, tr.micro_batch_size, 1, cfg.num_microbatches,
+            ds, tr.micro_batch_size, cfg.parallel.data_parallel or 1,
+            cfg.num_microbatches,
             consumed_samples=consumed,
             dataloader_type=cfg.data.dataloader_type, seed=tr.seed,
             eod_token=tokenizer.eod if tokenizer else None,
@@ -82,8 +97,13 @@ def build_data(cfg, tokenizer, consumed_samples: int):
 
 
 def main(argv=None, *, device: DeviceLike = None) -> int:
+    import torch.distributed as dist
+
     from megatron_tpu_torch.arguments import parse_cli
     from megatron_tpu_torch.data import build_tokenizer, restore_data_state
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.parallel.multihost import (
+        initialize_distributed, world_size)
     from megatron_tpu_torch.resilience import (FaultInjector,
                                                use_fault_injector)
     from megatron_tpu_torch.training import checkpointing as ckpt
@@ -91,8 +111,10 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
     from megatron_tpu_torch.training.loop import train
     from megatron_tpu_torch.utils.logging import print_rank_0
 
-    device = resolve_device(device)
-    cfg, args = parse_cli(argv)
+    world = world_size()
+    cfg, args = parse_cli(argv, n_devices=world)
+    device = initialize_distributed(device, args.distributed_backend)
+    mesh = build_mesh(cfg.parallel) if world > 1 else None
 
     # --use_checkpoint_args: the architecture comes from the checkpoint
     if args.use_checkpoint_args and cfg.training.load_dir:
@@ -102,7 +124,12 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
     print_rank_0(f"device: {device} | model: {cfg.model.num_layers} layers, "
                  f"hidden {cfg.model.hidden_size}, seq "
                  f"{cfg.model.seq_length}, attention "
-                 f"{cfg.model.attention_impl}")
+                 f"{cfg.model.attention_impl}"
+                 + ("" if mesh is None else
+                    f" | mesh dp {mesh.shape['dp']} x tp {mesh.shape['tp']}"
+                    f", sequence parallel {mesh.sequence_parallel}, "
+                    "distributed optimizer "
+                    f"{mesh.use_distributed_optimizer}"))
 
     tokenizer = None
     if cfg.data.tokenizer_model or cfg.data.vocab_file:
@@ -114,9 +141,10 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
             vocab_extra_ids_list=cfg.data.vocab_extra_ids_list,
             new_tokens=cfg.data.new_tokens)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, vocab_size=tokenizer.vocab_size))
+            cfg.model, vocab_size=tokenizer.vocab_size)).validate()
 
-    state = init_train_state(cfg, seed=cfg.training.seed, device=device)
+    state = init_train_state(cfg, seed=cfg.training.seed, device=device,
+                             mesh=mesh)
     start_iteration, consumed = 0, 0
     data_state, quarantine = None, []
     load_dir = cfg.training.load_dir or cfg.training.checkpoint_dir
@@ -128,11 +156,19 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         _, start_iteration, consumed = loaded
         data_state, quarantine = loaded.data_state, loaded.quarantine
 
+    # rank 0 builds the datasets' index caches; the others then read them
+    if mesh is not None and mesh.rank != 0:
+        dist.barrier()
     train_it, valid_it, _ = build_data(cfg, tokenizer, consumed)
+    if mesh is not None and mesh.rank == 0:
+        dist.barrier()
     if train_it is None:
         raise ValueError("--data_path produced no training data")
     restore_data_state(train_it, data_state)
 
+    if args.lora_rank and mesh is not None:
+        raise NotImplementedError("a LoRA finetune under a mesh is not "
+                                  "ported (ROADMAP Queue 1 item 7)")
     if args.lora_rank:
         from megatron_tpu_torch.training.lora import run_lora_finetune
         export = args.lora_export or (

@@ -63,8 +63,21 @@ to the activation dtype, and applied as two batched products (`torch.bmm`),
 as the reference computes them outside any Pallas kernel. The deltas join
 before the head reshape and RoPE.
 
+Under a (dp, tp) mesh (`mesh=`, the sharded training step) the weights
+are this rank's tp parts (parallel/sharding.py): wq and wo hold its nq/tp
+heads, wkv its nkv/tp kv heads, or all of them when tp does not divide nkv,
+and then the rank keeps the kv head of its q heads (global q head j reads
+kv head j // (nq / nkv)). The input enters through `tp_region_in` (a copy,
+or the sequence all-gather under sequence parallelism), the output
+projection's partial sums leave through `tp_region_out` (all-reduce, or
+reduce-scatter), and `bo` is added after that. Attention dropout numbers
+the rank's rows by their place in the whole step (batch offset dp coord x
+b, head offset tp coord x nq/tp, nq heads in all), so a rank draws its
+slice of the unsharded step's mask.
+
 Left for later slices, and raising: a cached cross-attention (T5
-inference) and the ring / ulysses implementations.
+inference), the ring / ulysses implementations, and caches, adapters and
+cross-attention under a mesh.
 """
 from __future__ import annotations
 
@@ -81,6 +94,9 @@ from megatron_tpu_torch.ops.flash_attention import (_dropout_keep,
                                                     draw_dropout_seed,
                                                     flash_attention)
 from megatron_tpu_torch.ops.quantized import qdense, quantize_rows, wcast
+from megatron_tpu_torch.parallel import collectives
+from megatron_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
+from megatron_tpu_torch.parallel.sharding import kv_replicated
 
 
 class _Stacked:
@@ -249,11 +265,23 @@ def attention_init(cfg: ModelConfig) -> dict:
     return specs
 
 
+def attention_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the parameters (attention.py attention_axes)."""
+    axes = {"wq": ("embed", "heads"), "wkv": ("embed", "kv_heads"),
+            "wo": ("heads", "embed")}
+    if cfg.use_bias:
+        axes.update({"bq": ("heads",), "bkv": ("kv_heads",),
+                     "bo": ("embed",)})
+    return axes
+
+
 def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
                    scale: float, q_offset=0,
                    sliding_window: Optional[int] = None, segment_ids=None,
                    kv_positions: Optional[torch.Tensor] = None,
-                   dropout_rate: float = 0.0, dropout_seed: int = 0):
+                   dropout_rate: float = 0.0, dropout_seed: int = 0,
+                   batch_offset: int = 0, head_offset: int = 0,
+                   total_heads: Optional[int] = None):
     """Unfused attention: QK^T -> mask -> softmax -> AV.
 
     q: [b, s, nq, hd]; k, v: [b, t, nkv, hd]. GQA reshapes q into
@@ -263,7 +291,8 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
     slot -> position map, [t] shared or [b, t] per row (default: slot j
     holds position j). `segment_ids` [b, s] (s == t) masks attention
     block-diagonally across documents. `dropout_rate` > 0 drops weights
-    after the softmax by the flash kernels' hash of `dropout_seed`."""
+    after the softmax by the flash kernels' hash of `dropout_seed`, rows
+    placed by the dropout index (ops/flash_attention.py)."""
     b, s, nq, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -293,8 +322,9 @@ def _dot_attention(q, k, v, *, causal: bool, softmax_fp32: bool,
     if dropout_rate:
         dev = q.device
         heads = torch.arange(nq, device=dev).reshape(nkv, g)
-        bh = (torch.arange(b, device=dev)[:, None, None] * nq
-              + heads[None])[..., None, None]
+        total = nq if total_heads is None else total_heads
+        bh = ((torch.arange(b, device=dev)[:, None, None] + batch_offset)
+              * total + head_offset + heads[None])[..., None, None]
         keep = _dropout_keep(dropout_seed, bh,
                              torch.arange(s, device=dev)[:, None],
                              torch.arange(t, device=dev)[None], dropout_rate)
@@ -309,18 +339,37 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     kv_cache: Optional[KVCache] = None, segment_ids=None,
                     deterministic: bool = True,
                     generator: Optional[torch.Generator] = None,
-                    adapters=None, causal: bool = True, kv_input=None):
+                    adapters=None, causal: bool = True, kv_input=None,
+                    mesh=None):
     """Self-attention, causal unless `causal` is False, or cross-attention
     over `kv_input` [b, t, h]. x: [b, s, h]. Returns (out [b, s, h], the
     per-layer cache advanced by s, or None without a cache). Attention
     dropout runs when `deterministic` is False and a `generator` is given,
     as the reference runs it only with an rng. `adapters` is a (per-layer
     LoraAdapter, adapter_idx int [b]) pair: row i adds the delta of bank
-    row adapter_idx[i] to its projections; None runs no extra op."""
-    b, s, _ = x.shape
+    row adapter_idx[i] to its projections; None runs no extra op. Under a
+    `mesh` the weights are this rank's tp parts and x is [b, s/tp, h] with
+    sequence parallelism (see the module's note)."""
     hd, nq, nkv = cfg.kv_channels, cfg.num_attention_heads, cfg.num_kv_heads
-    dtype = x.dtype
     cross = kv_input is not None
+    # this rank's q and kv heads (all of them off a mesh) and their place
+    nq_rank, nkv_rank = nq, nkv
+    head_offset = batch_offset = 0
+    if mesh is not None:
+        if kv_cache is not None or cross or adapters is not None:
+            raise NotImplementedError(
+                "attention under a mesh runs the uncached self-attention of "
+                "the training step; caches, cross-attention and adapters "
+                "are not ported under a mesh (ROADMAP Queue 1 item 7)")
+        x = collectives.tp_region_in(x, mesh)
+        tp = mesh.shape[TENSOR_AXIS]
+        nq_rank = nq // tp
+        if not kv_replicated(nkv, mesh):
+            nkv_rank = nkv // tp
+        head_offset = mesh.coords[TENSOR_AXIS] * nq_rank
+        batch_offset = mesh.coords[DATA_AXIS] * x.shape[0]
+    b, s, _ = x.shape
+    dtype = x.dtype
     if cfg.attention_impl not in ("flash", "dot"):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} (context parallelism) is "
@@ -349,9 +398,13 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         # before the head reshape and RoPE: (W + A B) x, the merged-weights
         # semantics
         q = q + _lora(x, lw.aq, lw.bq, aidx, dtype)
-    q = q.reshape(b, s, nq, hd)
-    kv = kv.reshape(b, kv.shape[1], 2, nkv, hd)
+    q = q.reshape(b, s, nq_rank, hd)
+    kv = kv.reshape(b, kv.shape[1], 2, nkv_rank, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
+    if nq_rank < nq and nkv_rank == nkv > 1:
+        # replicated kv (tp > nkv): the kv head of this rank's q heads
+        kvh = head_offset // (nq // nkv)
+        k, v = k[:, :, kvh:kvh + 1], v[:, :, kvh:kvh + 1]
     if lw is not None:
         k = k + _lora(x, lw.ak, lw.bk, aidx, dtype).reshape(b, s, nkv, hd)
         v = v + _lora(x, lw.av, lw.bv, aidx, dtype).reshape(b, s, nkv, hd)
@@ -472,19 +525,25 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                                   sliding_window=window,
                                   segment_ids=segment_ids,
                                   dropout_rate=dropout_rate,
-                                  dropout_seed=seed)
+                                  dropout_seed=seed,
+                                  batch_offset=batch_offset,
+                                  head_offset=head_offset, total_heads=nq)
         else:
             out = _dot_attention(
                 q, k, v, causal=causal,
                 softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
                 sliding_window=window, segment_ids=segment_ids,
-                dropout_rate=dropout_rate, dropout_seed=seed)
+                dropout_rate=dropout_rate, dropout_seed=seed,
+                batch_offset=batch_offset, head_offset=head_offset,
+                total_heads=nq)
 
-    out = out.reshape(b, s, nq * hd)
+    out = out.reshape(b, s, nq_rank * hd)
     proj = qdense(out, wcast(params["wo"], dtype), cfg.quantized_gemm)
     if lw is not None:
         proj = proj + _lora(out, lw.ao, lw.bo, aidx, dtype)
     out = proj
+    if mesh is not None:
+        out = collectives.tp_region_out(out, mesh)
     if cfg.use_bias:
         out = out + params["bo"].to(dtype)
     return out, new_cache

@@ -8,6 +8,16 @@ reference's flattened paths with "." for "/" ("transformer.attention.wq").
 tree, as in the reference; the head runs in the compute dtype and is cast
 up to fp32 logits, and `loss_fn` is the masked-mean cross-entropy the
 training step differentiates.
+
+`LanguageModel(cfg, mesh=...)` holds this rank's tp parts of every leaf
+(parallel/sharding.py, the logical axes of `model_axes`) and remembers its
+mesh; `model_forward` and `loss_fn` of such a model run the sharded
+forward: the vocab-parallel embedding (ids outside the rank's vocab rows
+read zeros; the partial sums are all-reduced, or reduce-scattered to the
+rank's [b, s/tp, h] under sequence parallelism, learned positions added
+after that, on the rank's positions), the sharded stack, and the
+column-parallel LM head whose logits stay vocab-sharded, fed to the
+vocab-parallel cross-entropy (ops/cross_entropy.py).
 """
 from __future__ import annotations
 
@@ -19,10 +29,15 @@ from torch import nn
 from megatron_tpu_torch.config import ModelConfig, as_dtype
 from megatron_tpu_torch.models import transformer as tfm
 from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
-from megatron_tpu_torch.models.norms import apply_norm, norm_init
+from megatron_tpu_torch.models.norms import apply_norm, norm_axes, norm_init
 from megatron_tpu_torch.models.rope import precompute_freqs
-from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.ops.cross_entropy import (
+    cross_entropy_loss, vocab_parallel_cross_entropy)
 from megatron_tpu_torch.ops.dropout import dropout
+from megatron_tpu_torch.parallel import collectives
+from megatron_tpu_torch.parallel.mesh import TENSOR_AXIS
+from megatron_tpu_torch.parallel.sharding import (activation_region,
+                                                  shard_leaf)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -43,6 +58,32 @@ def model_init(cfg: ModelConfig) -> dict:
     if not cfg.tie_embed_logits:
         specs["lm_head"] = ((h, v), ("normal", cfg.init_method_std))
     return specs
+
+
+def model_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the parameters (language_model.py model_axes)."""
+    axes = {
+        "embedding": {"word_embeddings": ("vocab", "embed")},
+        "transformer": tfm.stack_axes(cfg),
+        "final_norm": norm_axes(cfg.norm_type),
+    }
+    if cfg.use_position_embedding:
+        axes["embedding"]["position_embeddings"] = (None, "embed")
+    if not cfg.tie_embed_logits:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def flat_axes(axes: dict, prefix: str = "") -> dict:
+    """A nested axes tree -> {state_dict name: axes}."""
+    out = {}
+    for k, v in axes.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flat_axes(v, name + "."))
+        else:
+            out[name] = v
+    return out
 
 
 def param_maker(cfg: ModelConfig, device: DeviceLike,
@@ -112,6 +153,21 @@ def build_param_tree(specs: dict, make) -> dict:
             for k, v in specs.items()}
 
 
+def _shard_children(children: dict, axes: dict, mesh, kv_heads: int,
+                    trainable: bool) -> dict:
+    """ParamTree children -> the same tree of this rank's tp parts."""
+    out = {}
+    for k, v in children.items():
+        if isinstance(v, nn.Parameter):
+            out[k] = nn.Parameter(shard_leaf(v.detach(), axes[k], mesh,
+                                             kv_heads),
+                                  requires_grad=trainable)
+        else:
+            out[k] = ParamTree(_shard_children(dict(v.items()), axes[k],
+                                               mesh, kv_heads, trainable))
+    return out
+
+
 class LanguageModel(ParamTree):
     """The reference's parameter tree as a module.
 
@@ -119,17 +175,24 @@ class LanguageModel(ParamTree):
     `device` (the current CUDA device when None; raises without one), in
     `dtype` (cfg.params_dtype when None). On the "meta" device nothing is
     allocated, for loading a state_dict with `assign=True`. Parameters
-    require grad only when `trainable`: serving builds frozen models."""
+    require grad only when `trainable`: serving builds frozen models.
+    With a `mesh` (parallel/mesh.py) the model draws the whole tree from
+    `seed` and keeps this rank's tp parts (see the module's note)."""
 
     stacked_prefixes = ("transformer.",)
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 trainable: bool = False):
-        super().__init__(build_param_tree(
+                 trainable: bool = False, mesh=None):
+        children = build_param_tree(
             model_init(cfg), param_maker(cfg, device, dtype, seed,
-                                         trainable)))
+                                         trainable))
+        if mesh is not None:
+            children = _shard_children(children, model_axes(cfg), mesh,
+                                       cfg.num_kv_heads, trainable)
+        super().__init__(children)
         self.cfg = cfg
+        self.mesh = mesh
 
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig, state_dict: dict, *,
@@ -215,11 +278,24 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     `deterministic` False, `generator` seeds the embedding's and the
     stack's dropout.
     `adapters` is (a stacked LoraAdapter bank, adapter_idx int [b]): each
-    row adds its adapter's low-rank deltas to the attention projections."""
+    row adds its adapter's low-rank deltas to the attention projections.
+    A LanguageModel built on a mesh runs the sharded forward (the module's
+    note): tokens are the rank's dp rows, and the logits its vocab
+    columns."""
+    mesh = params.mesh if isinstance(params, LanguageModel) else None
     params = _tree(params)
     compute_dtype = as_dtype(cfg.compute_dtype)
     emb = params["embedding"]["word_embeddings"]
-    x = emb[tokens].to(compute_dtype)
+    if mesh is None:
+        x = emb[tokens].to(compute_dtype)
+    else:
+        if (kv_caches is not None or head_positions is not None
+                or adapters is not None):
+            raise NotImplementedError(
+                "a sharded model runs the training forward; caches, head "
+                "positions and adapters are not ported under a mesh "
+                "(ROADMAP Queue 1 item 7)")
+        x = _vocab_parallel_embedding(emb, tokens, mesh, compute_dtype)
     if cfg.use_position_embedding:
         if position_ids is None:
             pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -229,23 +305,30 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                              if isinstance(off, torch.Tensor) else off)
         else:
             pos = position_ids
+        if mesh is not None and mesh.sequence_parallel:
+            s = x.shape[1]
+            t = mesh.coords[TENSOR_AXIS]
+            pos = pos[:, t * s:(t + 1) * s]
         x = x + params["embedding"]["position_embeddings"][pos].to(
             compute_dtype)
     if rope is None:
         rope = make_rope(cfg, device=tokens.device)
     if not deterministic:
-        x = dropout(generator, x, cfg.hidden_dropout)
+        x = dropout(generator, x, cfg.hidden_dropout,
+                    None if mesh is None
+                    else activation_region(mesh, tuple(x.shape)))
     x, kv_caches, aux = tfm.stack_apply(
         params["transformer"], x, cfg,
         rope_cos=rope.cos if rope else None,
         rope_sin=rope.sin if rope else None,
         position_ids=position_ids, kv_caches=kv_caches,
         segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator, adapters=adapters)
+        generator=generator, adapters=adapters, mesh=mesh)
     if head_positions is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
               head_positions.long()][:, None]
-    logits = head_logits(params, x, cfg, logits_dtype=logits_dtype)
+    logits = head_logits(params, x, cfg, logits_dtype=logits_dtype,
+                         mesh=mesh)
     if return_aux:
         if not isinstance(aux, torch.Tensor):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -253,12 +336,31 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return logits, kv_caches
 
 
+def _vocab_parallel_embedding(emb: torch.Tensor, tokens: torch.Tensor, mesh,
+                              dtype) -> torch.Tensor:
+    """This rank's vocab rows of the embedding looked up (ids outside them
+    read zeros), then summed over tp: all-reduced, or reduce-scattered to
+    this rank's [b, s/tp, h] under sequence parallelism. Each id's row
+    comes from one rank and the others add zeros, so the sum is exact."""
+    rows = emb.shape[0]
+    local = tokens - mesh.coords[TENSOR_AXIS] * rows
+    inside = (local >= 0) & (local < rows)
+    x = emb[local.clamp(0, rows - 1)].to(dtype)
+    x = x.masked_fill(~inside[..., None], 0.0)
+    return collectives.tp_region_out(x, mesh)
+
+
 def head_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
-                logits_dtype=torch.float32) -> torch.Tensor:
-    """Final norm + tied/untied LM head in the compute dtype, cast up."""
+                logits_dtype=torch.float32, mesh=None) -> torch.Tensor:
+    """Final norm + tied/untied LM head in the compute dtype, cast up.
+    Under a `mesh` the head is column-parallel over the vocab: x enters
+    through `tp_region_in` and the logits are this rank's vocab
+    columns."""
     params = _tree(params)
     compute_dtype = as_dtype(cfg.compute_dtype)
     x = apply_norm(cfg.norm_type, params["final_norm"], x, cfg.norm_epsilon)
+    if mesh is not None:
+        x = collectives.tp_region_in(x, mesh)
     if cfg.tie_embed_logits:
         w_out = params["embedding"]["word_embeddings"].T
     else:
@@ -270,14 +372,18 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
             rope: Optional[RopeTables] = None,
             generator: Optional[torch.Generator] = None,
             deterministic: bool = True, position_ids=None, segment_ids=None,
-            adapters=None):
+            adapters=None, denominator: Optional[torch.Tensor] = None):
     """Causal LM loss (language_model.py loss_fn): the mean cross-entropy
     over unmasked positions, plus cfg.moe_aux_loss_coeff times the router
     loss when `num_experts > 1`. `tokens` is [b, s+1] (inputs and labels
     shifted by one; a [b, s+1] loss_mask drops its first column) or an
     (inputs, labels) pair of [b, s]. `adapters` threads LoRA factors into
-    the forward (training/lora.py differentiates through them). The
-    context-parallel zigzag is the multi-device slice's."""
+    the forward (training/lora.py differentiates through them).
+    `denominator` replaces the mask's own count in the masked mean: the
+    sharded step passes the whole microbatch's count, since `tokens` are
+    one dp rank's rows of it. A model built on a mesh takes the
+    vocab-parallel cross-entropy. The context-parallel zigzag is not
+    ported (ROADMAP Queue 1 item 7)."""
     if isinstance(tokens, tuple):
         inputs, labels = tokens
     else:
@@ -290,13 +396,20 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
                                    deterministic=deterministic,
                                    generator=generator, adapters=adapters,
                                    return_aux=True)
-    losses = cross_entropy_loss(logits, labels, vocab_size=cfg.vocab_size)
-    if loss_mask is None:
+    mesh = params.mesh if isinstance(params, LanguageModel) else None
+    if mesh is not None and mesh.shape[TENSOR_AXIS] > 1:
+        losses = vocab_parallel_cross_entropy(logits, labels, mesh,
+                                              vocab_size=cfg.vocab_size)
+    else:
+        losses = cross_entropy_loss(logits, labels,
+                                    vocab_size=cfg.vocab_size)
+    if loss_mask is None and denominator is None:
         loss = losses.mean()
     else:
-        loss_mask = loss_mask.to(losses.dtype)
-        loss = ((losses * loss_mask).sum()
-                / torch.clamp(loss_mask.sum(), min=1.0))
+        loss_mask = (torch.ones_like(losses) if loss_mask is None
+                     else loss_mask.to(losses.dtype))
+        count = loss_mask.sum() if denominator is None else denominator
+        loss = (losses * loss_mask).sum() / torch.clamp(count, min=1.0)
     if cfg.num_experts > 1:
         loss = loss + cfg.moe_aux_loss_coeff * aux
     return loss

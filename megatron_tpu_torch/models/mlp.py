@@ -1,7 +1,10 @@
 """Feed-forward / GLU-family MLP (megatron_tpu/models/mlp.py).
 
 GLU variants keep the reference's single h -> [2, ffn] projection with the
-gate at index 0 and the value at index 1.
+gate at index 0 and the value at index 1. Under a (dp, tp) mesh w1 and b1
+hold this rank's ffn/tp columns (of both GLU halves) and w2 its rows: the
+input enters through `tp_region_in`, the partial sums of w2 leave through
+`tp_region_out`, and b2 is added after them.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch.nn.functional as F
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.quantized import qdense, wcast
+from megatron_tpu_torch.parallel import collectives
 
 
 def activation_fn(name: str, a: torch.Tensor, b=None) -> torch.Tensor:
@@ -49,8 +53,25 @@ def mlp_init(cfg: ModelConfig) -> dict:
     return specs
 
 
-def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: [b, s, h] -> [b, s, h]."""
+def mlp_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the parameters (mlp.py mlp_axes)."""
+    if cfg.is_glu:
+        axes = {"w1": ("embed", None, "mlp"), "w2": ("mlp", "embed")}
+        b1_axes = (None, "mlp")
+    else:
+        axes = {"w1": ("embed", "mlp"), "w2": ("mlp", "embed")}
+        b1_axes = ("mlp",)
+    if cfg.use_bias:
+        axes.update({"b1": b1_axes, "b2": ("embed",)})
+    return axes
+
+
+def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig,
+              mesh=None) -> torch.Tensor:
+    """x: [b, s, h] -> [b, s, h] ([b, s/tp, h] both ways under a mesh with
+    sequence parallelism)."""
+    if mesh is not None:
+        x = collectives.tp_region_in(x, mesh)
     dtype = x.dtype
     y = qdense(x, wcast(params["w1"], dtype), cfg.quantized_gemm)
     if cfg.use_bias:
@@ -60,6 +81,8 @@ def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         y = activation_fn(cfg.activation, y)
     y = qdense(y, wcast(params["w2"], dtype), cfg.quantized_gemm)
+    if mesh is not None:
+        y = collectives.tp_region_out(y, mesh)
     if cfg.use_bias:
         y = y + params["b2"].to(dtype)
     return y

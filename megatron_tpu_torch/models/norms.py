@@ -37,6 +37,15 @@ def norm_init(norm_type: str, hidden_size: int) -> dict:
     raise ValueError(norm_type)
 
 
+def norm_axes(norm_type: str) -> dict:
+    """Logical axes of a norm's parameters (norms.py norm_axes)."""
+    if norm_type == "rmsnorm":
+        return {"scale": ("embed",)}
+    if norm_type == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    raise ValueError(norm_type)
+
+
 def apply_norm(norm_type: str, params, x: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     if norm_type == "rmsnorm":

@@ -44,6 +44,14 @@ on another copy of the same state, and the caller's generator is moved
 on to where the forward left its copy, so recompute draws the masks of
 the forward and the layers after it draw what they draw without
 recompute. The loss and grads are those of "none" bit for bit.
+
+Under a (dp, tp) mesh (`mesh=`, the sharded training step) each layer's
+weights are this rank's tp parts and the residual stream is this rank's
+dp rows, [b, s/tp, h] under sequence parallelism; attention and the MLP
+place their collectives (models/attention.py, mlp.py), and every dropout
+draws the whole step's mask and keeps this rank's region of it
+(ops/dropout.py), so a sharded step drops what the unsharded step drops
+with the same generator.
 """
 from __future__ import annotations
 
@@ -57,12 +65,14 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.attention import (BlockKVCache, KVCache,
                                                  attention_apply,
+                                                 attention_axes,
                                                  attention_init)
-from megatron_tpu_torch.models.mlp import mlp_apply, mlp_init
+from megatron_tpu_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
 from megatron_tpu_torch.models.moe import moe_apply, moe_init
-from megatron_tpu_torch.models.norms import apply_norm, norm_init
+from megatron_tpu_torch.models.norms import apply_norm, norm_axes, norm_init
 from megatron_tpu_torch.ops.dropout import drop_path, dropout
 from megatron_tpu_torch.ops.quantized import W8, GemmTape
+from megatron_tpu_torch.parallel.sharding import activation_region
 
 
 def layer_init(cfg: ModelConfig, cross_attn: bool = False) -> dict:
@@ -98,6 +108,37 @@ def stack_init(cfg: ModelConfig, num_layers: Optional[int] = None,
     return stack(layer_init(cfg, cross_attn=cross_attn))
 
 
+def layer_axes(cfg: ModelConfig, cross_attn: bool = False) -> dict:
+    """Logical axes of one layer's parameters (transformer.py layer_axes);
+    the expert bank's have no counterpart yet (experts under a mesh,
+    ROADMAP Queue 1 item 7)."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError("the expert bank's sharding (moe_axes) "
+                                  "is not ported (ROADMAP Queue 1 item 7)")
+    axes = {"attention": attention_axes(cfg), "mlp": mlp_axes(cfg)}
+    if cross_attn:
+        axes["inter_attention"] = attention_axes(cfg)
+        axes["post_inter_norm"] = norm_axes(cfg.norm_type)
+    if not cfg.use_post_ln:
+        axes["input_norm"] = norm_axes(cfg.norm_type)
+    else:
+        axes["output_norm"] = norm_axes(cfg.norm_type)
+    if not cfg.parallel_attn:
+        axes["post_attn_norm"] = norm_axes(cfg.norm_type)
+    if cfg.parallel_layernorm:
+        axes["mlp_norm"] = norm_axes(cfg.norm_type)
+    return axes
+
+
+def stack_axes(cfg: ModelConfig, cross_attn: bool = False) -> dict:
+    """Logical axes of the stacked leaves: "layers" prepended."""
+    def stack(tree):
+        if isinstance(tree, dict):
+            return {k: stack(v) for k, v in tree.items()}
+        return ("layers",) + tree
+    return stack(layer_axes(cfg, cross_attn=cross_attn))
+
+
 def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cos=None, rope_sin=None, position_ids=None,
                 kv_cache: Optional[KVCache] = None, segment_ids=None,
@@ -105,8 +146,9 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 generator: Optional[torch.Generator] = None,
                 adapters=None, causal: bool = True, encoder_output=None,
                 hidden_dropout: Optional[float] = None,
-                drop_path_rate: Optional[float] = None):
-    """One transformer layer. x: [b, s, h]. Returns (x, kv_cache, aux),
+                drop_path_rate: Optional[float] = None, mesh=None):
+    """One transformer layer. x: [b, s, h] ([b, s/tp, h] under a mesh with
+    sequence parallelism; `mesh`: see the module's note). Returns (x, kv_cache, aux),
     aux being the MoE router's load-balancing loss (a 0-d fp32 tensor), or
     the float 0.0 for a dense MLP, which launches nothing.
     `generator` draws the dropout masks when `deterministic` is False;
@@ -128,16 +170,26 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         generator = None
     p_drop = cfg.hidden_dropout if hidden_dropout is None else hidden_dropout
 
+    def drop(out):
+        region = (None if mesh is None
+                  else activation_region(mesh, tuple(out.shape)))
+        return dropout(generator, out, p_drop, region)
+
     def branch(out):
-        out = dropout(generator, out, p_drop)
+        out = drop(out)
         if drop_path_rate is None:
             return out
-        return drop_path(generator, out, drop_path_rate)
+        region = (None if mesh is None else activation_region(
+            mesh, (out.shape[0],) + (1,) * (out.dim() - 1), per_sample=True))
+        return drop_path(generator, out, drop_path_rate, region)
 
     def mlp_branch(inp):
         if cfg.num_experts > 1:
+            if mesh is not None:
+                raise NotImplementedError("experts under a mesh (ROADMAP "
+                                          "Queue 1 item 7)")
             return moe_apply(params["mlp"], inp, cfg)
-        return mlp_apply(params["mlp"], inp, cfg), 0.0
+        return mlp_apply(params["mlp"], inp, cfg, mesh=mesh), 0.0
 
     residual = x
     if cfg.use_post_ln:
@@ -148,7 +200,7 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         params["attention"], ln_out, cfg, rope_cos=rope_cos,
         rope_sin=rope_sin, position_ids=position_ids, kv_cache=kv_cache,
         segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator, adapters=adapters, causal=causal)
+        generator=generator, adapters=adapters, causal=causal, mesh=mesh)
     if cfg.parallel_attn:
         if cfg.parallel_layernorm:
             mlp_in = apply_norm(cfg.norm_type, params["mlp_norm"], residual,
@@ -168,7 +220,7 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 params["inter_attention"], ln_x, cfg,
                 deterministic=deterministic, causal=False,
                 kv_input=encoder_output)
-            ln_in = ln_in + dropout(generator, inter_out, p_drop)
+            ln_in = ln_in + drop(inter_out)
         ln2 = apply_norm(cfg.norm_type, params["post_attn_norm"], ln_in, eps)
         mlp_out, aux = mlp_branch(ln2)
         out = ln_in + branch(mlp_out)
@@ -246,7 +298,8 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 kv_caches: Union[KVCache, BlockKVCache, None] = None,
                 segment_ids=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                adapters=None, causal: bool = True, encoder_output=None):
+                adapters=None, causal: bool = True, encoder_output=None,
+                mesh=None):
     """Apply every layer in order, each at its hidden-dropout and drop-path
     rate (`dropout_rates`). `kv_caches` is a KVCache of
     [L, b, T, nkv, hd] tensors or a BlockKVCache of [L, total_blocks, B,
@@ -278,7 +331,7 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                                adapters=None if lora is None else lora[i],
                                causal=causal, encoder_output=encoder_output,
                                hidden_dropout=hidden[i],
-                               drop_path_rate=paths[i])
+                               drop_path_rate=paths[i], mesh=mesh)
         if remat:
             x, _, layer_aux = recompute(apply, x, cfg.recompute_granularity,
                                         gen)

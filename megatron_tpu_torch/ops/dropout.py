@@ -7,6 +7,12 @@ element (or sample) is kept with probability 1 - rate and scaled by
 1 / (1 - rate). A generator on another device than `x` (the training
 loop's CPU generator with a CUDA activation) seeds a generator on x's
 device with one draw, which makes no host sync.
+
+`region` = (whole shape, index) names where `x` lies in a larger tensor
+(a rank's slice of the sharded step's activation,
+parallel/sharding.py `activation_region`): the mask is drawn for the whole
+shape and cut at the index, so a rank keeps exactly its slice of the mask
+that the unsharded step draws from the same generator.
 """
 from __future__ import annotations
 
@@ -28,27 +34,33 @@ def _on_device(generator: torch.Generator,
 
 
 def _keep_scaled(generator: torch.Generator, x: torch.Tensor, shape,
-                 rate: float) -> torch.Tensor:
+                 rate: float, region=None) -> torch.Tensor:
     gen = _on_device(generator, x.device)
-    u = torch.rand(shape, generator=gen, device=x.device)
+    if region is None:
+        u = torch.rand(shape, generator=gen, device=x.device)
+    else:
+        whole, index = region
+        u = torch.rand(whole, generator=gen, device=x.device)[index]
     keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor,
-            rate: float) -> torch.Tensor:
+            rate: float, region=None) -> torch.Tensor:
     """Inverted dropout of every element; the identity without a generator
-    or at rate 0 (a LIMA ramp's first layer)."""
+    or at rate 0 (a LIMA ramp's first layer). `region`: see the module's
+    note."""
     if generator is None or rate == 0.0:
         return x
-    return _keep_scaled(generator, x, x.shape, rate)
+    return _keep_scaled(generator, x, x.shape, rate, region)
 
 
 def drop_path(generator: Optional[torch.Generator], x: torch.Tensor,
-              rate: float) -> torch.Tensor:
+              rate: float, region=None) -> torch.Tensor:
     """Stochastic depth: zero the whole residual branch of a sample, scaled
-    by 1 / (1 - rate) where kept. x is [b, ...]; one draw per sample."""
+    by 1 / (1 - rate) where kept. x is [b, ...]; one draw per sample
+    (`region` over the [b, 1, ...] draw)."""
     if generator is None or rate == 0.0:
         return x
     return _keep_scaled(generator, x, (x.shape[0],) + (1,) * (x.dim() - 1),
-                        rate)
+                        rate, region)

@@ -24,7 +24,12 @@ attention block-diagonally across documents. Attention dropout is the TPU
 kernel's counter hash (`_dropout_keep`), ported bit-exact: the keep bit of
 (batch b, q-head h, query i, key j) depends only on the seed, b * nq + h,
 i and j, so the forward and both backward passes regenerate the same mask
-without storing it, at any tile size. The softmax normalizer keeps the
+without storing it, at any tile size. A call over a slice of a larger
+call's rows (a data-parallel rank's batch rows, a tensor-parallel rank's
+heads) names its place with `batch_offset`, `head_offset` and
+`total_heads`: the hash then numbers row (b, h) as (b + batch_offset) *
+total_heads + head_offset + h, so the slice draws exactly its part of the
+larger call's mask. The softmax normalizer keeps the
 undropped sum; only P V sees z = keep / (1 - rate). The seed is an integer
 in [0, 2^23), drawn from a `torch.Generator` (a CPU generator draws it
 without a device sync), as the reference draws it from a JAX key.
@@ -100,12 +105,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sliding_window: Optional[int] = None,
                     segment_ids=None, dropout_rate: float = 0.0,
                     generator: Optional[torch.Generator] = None,
-                    dropout_seed: Optional[int] = None):
+                    dropout_seed: Optional[int] = None,
+                    batch_offset: int = 0, head_offset: int = 0,
+                    total_heads: Optional[int] = None):
     """Returns out [b, sq, nq, d] in q's dtype, differentiable."""
     return flash_attention_with_lse(
         q, k, v, causal=causal, scale=scale, sliding_window=sliding_window,
         segment_ids=segment_ids, dropout_rate=dropout_rate,
-        generator=generator, dropout_seed=dropout_seed)[0]
+        generator=generator, dropout_seed=dropout_seed,
+        batch_offset=batch_offset, head_offset=head_offset,
+        total_heads=total_heads)[0]
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
@@ -113,11 +122,15 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              sliding_window: Optional[int] = None,
                              segment_ids=None, dropout_rate: float = 0.0,
                              generator: Optional[torch.Generator] = None,
-                             dropout_seed: Optional[int] = None):
+                             dropout_seed: Optional[int] = None,
+                             batch_offset: int = 0, head_offset: int = 0,
+                             total_heads: Optional[int] = None):
     """Returns (out [b, sq, nq, d] in q's dtype, lse [b, nq, sq] fp32), both
     differentiable: an lse cotangent enters the backward as `dlse`. With
     `dropout_rate` > 0 the seed is `dropout_seed` or, without one, drawn
-    from `generator`."""
+    from `generator`, and `batch_offset`, `head_offset` and `total_heads`
+    (None: nq) place the call's rows in the mask of a larger call (see the
+    module's note)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if sliding_window is not None and sliding_window <= 0:
@@ -138,9 +151,15 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                                  "or a dropout_seed")
             dropout_seed = draw_dropout_seed(generator)
         seed = int(dropout_seed)
+    total = q.shape[2] if total_heads is None else int(total_heads)
+    if batch_offset < 0 or head_offset < 0 or total < head_offset + q.shape[2]:
+        raise ValueError(f"flash_attention: dropout index (batch offset "
+                         f"{batch_offset}, head offset {head_offset}, total "
+                         f"heads {total}) does not hold {q.shape[2]} heads")
     return _FlashAttention.apply(q, k, v, segment_ids, bool(causal),
                                  float(scale), sliding_window,
-                                 float(dropout_rate), seed)
+                                 float(dropout_rate), seed, int(batch_offset),
+                                 int(head_offset), total)
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -163,10 +182,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, scale, sliding_window,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, batch_offset, head_offset,
+                total_heads):
         kw = dict(causal=causal, scale=scale, sliding_window=sliding_window,
                   segment_ids=segment_ids, dropout_rate=dropout_rate,
-                  dropout_seed=dropout_seed)
+                  dropout_seed=dropout_seed, batch_offset=batch_offset,
+                  head_offset=head_offset, total_heads=total_heads)
         if _device_route(q) == "cuda":
             from megatron_tpu_torch.ops.flash_attention_cuda import \
                 flash_fwd_cuda
@@ -195,7 +216,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             dq, dk, dv = blockwise_attention_bwd(q, k, v, dout, lse, delta,
                                                  dlse=dlse, **kw)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 def _block_mask(q_pos, kv_pos, *, causal, sliding_window, seg_q, seg_k):
@@ -213,11 +234,15 @@ def _block_mask(q_pos, kv_pos, *, causal, sliding_window, seg_q, seg_k):
     return mask
 
 
-def _dropout_rows(b, sq, nkv, g, seed, device):
+def _dropout_rows(b, sq, nkv, g, seed, device, batch_offset=0,
+                  head_offset=0, total_heads=None):
     """Row halves of the hash [b, sq, nkv, g, 1] for every (batch, head,
-    query), heads numbered as the kernels number them (h = n * g + i)."""
+    query), heads numbered as the kernels number them (h = n * g + i) and
+    placed by the dropout index (see the module's note)."""
     nq = nkv * g
-    bh = (torch.arange(b, device=device)[:, None, None, None] * nq
+    total = nq if total_heads is None else total_heads
+    bh = ((torch.arange(b, device=device)[:, None, None, None]
+           + batch_offset) * total + head_offset
           + torch.arange(nq, device=device).reshape(nkv, g)[None, None])
     q_pos = torch.arange(sq, device=device)[None, :, None, None]
     return _dropout_row(seed, bh, q_pos)[..., None]
@@ -227,11 +252,14 @@ def blockwise_attention(q, k, v, *, causal: bool, scale: Optional[float],
                         block_kv: int = DEFAULT_BLOCK_KV,
                         sliding_window: Optional[int] = None,
                         segment_ids=None, dropout_rate: float = 0.0,
-                        dropout_seed: int = 0):
+                        dropout_seed: int = 0, batch_offset: int = 0,
+                        head_offset: int = 0,
+                        total_heads: Optional[int] = None):
     """Plain forward: the reference's `_blockwise_attention` in fp32, as a
     host loop over kv blocks (the last block may be short), with the
-    segment mask and the dropout hash of the TPU kernel. Runs on any
-    device. Returns (out in q's dtype, lse [b, nq, sq] fp32)."""
+    segment mask and the dropout hash of the TPU kernel, placed by the
+    dropout index. Runs on any device. Returns (out in q's dtype, lse
+    [b, nq, sq] fp32)."""
     b, sq, nq, d = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -240,7 +268,8 @@ def blockwise_attention(q, k, v, *, causal: bool, scale: Optional[float],
     dev = q.device
     qg = (q.float() * scale).reshape(b, sq, nkv, g, d)
     q_pos = torch.arange(sq, device=dev)
-    rows = (_dropout_rows(b, sq, nkv, g, dropout_seed, dev)
+    rows = (_dropout_rows(b, sq, nkv, g, dropout_seed, dev, batch_offset,
+                          head_offset, total_heads)
             if dropout_rate else None)
     acc = torch.zeros(b, sq, nkv, g, d, dtype=torch.float32, device=dev)
     m = torch.full((b, sq, nkv, g), float("-inf"), dtype=torch.float32,
@@ -287,7 +316,9 @@ def blockwise_attention_bwd(q, k, v, dout, lse, delta, *, causal: bool,
                             block_kv: int = DEFAULT_BLOCK_KV,
                             sliding_window: Optional[int] = None,
                             segment_ids=None, dropout_rate: float = 0.0,
-                            dropout_seed: int = 0, dlse=None):
+                            dropout_seed: int = 0, dlse=None,
+                            batch_offset: int = 0, head_offset: int = 0,
+                            total_heads: Optional[int] = None):
     """Plain backward: the Pallas backward kernels' formulas in fp32 over
     kv blocks. `lse`, `delta` and `dlse` are [b, nq, sq] fp32 (`dlse` None
     means zero). Runs on any device. Returns (dq in q's dtype, dk and dv in
@@ -309,7 +340,8 @@ def blockwise_attention_bwd(q, k, v, dout, lse, delta, *, causal: bool,
     if dlse is not None:
         rest0 = rest0 + rows_of(dlse)
     q_pos = torch.arange(sq, device=dev)
-    rows = (_dropout_rows(b, sq, nkv, g, dropout_seed, dev)
+    rows = (_dropout_rows(b, sq, nkv, g, dropout_seed, dev, batch_offset,
+                          head_offset, total_heads)
             if dropout_rate else None)
     dq = torch.zeros(b, sq, nkv, g, d, dtype=torch.float32, device=dev)
     dk = torch.zeros(b, skv, nkv, d, dtype=torch.float32, device=dev)

@@ -38,11 +38,13 @@ def _library(name: str) -> ctypes.CDLL:
     u, f = ctypes.c_uint32, ctypes.c_float
     if name == "flash_fwd":
         lib.flash_fwd.argtypes = ([p] * 6 + [i] * 7 + [ll] * 9
-                                  + [f, i, i, u, u, f, p])
+                                  + [f, i, i, u, u, f, i, i, i, p])
         lib.flash_fwd.restype = i
     else:
         head = [p] * 8  # q, k, v, dout, lse, delta, dlse, seg
-        tail = [i] * 7 + [p, f, i, i, u, u, f]
+        # ..., drop seed, threshold, scale, batch and head offsets, total
+        # heads
+        tail = [i] * 7 + [p, f, i, i, u, u, f, i, i, i]
         lib.flash_bwd_dq.argtypes = head + [p] + tail + [p]
         # ..., chunks, workspace, stream
         lib.flash_bwd_dkv.argtypes = head + [p, p] + tail + [i, p, p]
@@ -99,11 +101,21 @@ def _segments(where: str, segment_ids, q, k) -> Optional[torch.Tensor]:
     return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
 
 
-def _dropout_args(rate: float, seed: int):
-    """(seed, threshold, scale) as the kernels take them; scale 0 is off."""
+def _dropout_args(rate: float, seed: int, nq: int, batch_offset: int,
+                  head_offset: int, total_heads: Optional[int]):
+    """(seed, threshold, scale, batch offset, head offset, total heads) as
+    the kernels take them; scale 0 is off. The hash numbers row (batch,
+    q-head) as (batch + batch_offset) * total_heads + head_offset + q-head
+    (total_heads None: nq)."""
+    total = nq if total_heads is None else int(total_heads)
+    if batch_offset < 0 or head_offset < 0 or total < head_offset + nq:
+        raise ValueError(f"flash kernels: dropout index (batch offset "
+                         f"{batch_offset}, head offset {head_offset}, total "
+                         f"heads {total}) does not hold {nq} heads")
     if not rate:
-        return 0, 0, 0.0
-    return int(seed) & 0xFFFFFFFF, int(rate * float(2 ** 31)), 1.0 / (1.0 - rate)
+        return 0, 0, 0.0, 0, 0, nq
+    return (int(seed) & 0xFFFFFFFF, int(rate * float(2 ** 31)),
+            1.0 / (1.0 - rate), int(batch_offset), int(head_offset), total)
 
 
 def _window(sliding_window) -> int:
@@ -138,17 +150,21 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float,
                    sliding_window: Optional[int] = None,
                    segment_ids: Optional[torch.Tensor] = None,
-                   dropout_rate: float = 0.0, dropout_seed: int = 0):
+                   dropout_rate: float = 0.0, dropout_seed: int = 0,
+                   batch_offset: int = 0, head_offset: int = 0,
+                   total_heads: Optional[int] = None):
     """q [b, sq, nq, d], k/v [b, sk, nkv, d] on one CUDA device, bf16 or
     fp32, d in (64, 128), unit stride on d; `segment_ids` [b, s] (sq == sk)
-    or None. Returns (out [b, sq, nq, d] in q's dtype, lse [b, nq, sq]
-    fp32)."""
+    or None. `batch_offset`, `head_offset` and `total_heads` place the
+    call's rows in a larger call's dropout mask (`_dropout_args`). Returns
+    (out [b, sq, nq, d] in q's dtype, lse [b, nq, sq] fp32)."""
     where = "flash_fwd_cuda"
     _check_inputs(where, {"q": q, "k": k, "v": v})
     seg = _segments(where, segment_ids, q, k)
     window = _window(sliding_window)
-    seed, thresh, drop_scale = _dropout_args(dropout_rate, dropout_seed)
     b, sq, nq, d = q.shape
+    drop = _dropout_args(dropout_rate, dropout_seed, nq, batch_offset,
+                         head_offset, total_heads)
     _, sk, nkv, _ = k.shape
     out = torch.empty(b, sq, nq, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, nq, sq, dtype=torch.float32, device=q.device)
@@ -163,8 +179,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             nq, nkv, q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(causal), window, seed, thresh, drop_scale,
-            stream)
+            float(scale), int(causal), window, *drop, stream)
     _raise_on(rc, where)
     flash_fwd_cuda.launches += 1
     return out, lse
@@ -174,7 +189,8 @@ flash_fwd_cuda.launches = 0
 
 
 def _bwd_args(where, q, k, v, dout, lse, delta, dlse, segment_ids,
-              sliding_window, dropout_rate, dropout_seed):
+              sliding_window, dropout_rate, dropout_seed, batch_offset,
+              head_offset, total_heads):
     _check_inputs(where, {"q": q, "k": k, "v": v, "dout": dout})
     if dout.shape != q.shape:
         raise ValueError(f"{where}: dout must have q's shape")
@@ -190,20 +206,24 @@ def _bwd_args(where, q, k, v, dout, lse, delta, dlse, segment_ids,
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *dout.stride()[:3])
     return seg, strides, _window(sliding_window), _dropout_args(
-        dropout_rate, dropout_seed)
+        dropout_rate, dropout_seed, nq, batch_offset, head_offset,
+        total_heads)
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool,
                       scale: float, sliding_window: Optional[int] = None,
                       segment_ids=None, dropout_rate: float = 0.0,
-                      dropout_seed: int = 0, dlse=None) -> torch.Tensor:
-    """dQ of flash attention. q, k, v as `flash_fwd_cuda` takes them, dout
-    [b, sq, nq, d] in their dtype, lse and delta (and `dlse`, or None)
-    contiguous fp32 [b, nq, sq]. Returns dq [b, sq, nq, d] in q's dtype."""
+                      dropout_seed: int = 0, dlse=None,
+                      batch_offset: int = 0, head_offset: int = 0,
+                      total_heads: Optional[int] = None) -> torch.Tensor:
+    """dQ of flash attention. q, k, v and the dropout index as
+    `flash_fwd_cuda` takes them, dout [b, sq, nq, d] in their dtype, lse
+    and delta (and `dlse`, or None) contiguous fp32 [b, nq, sq]. Returns dq
+    [b, sq, nq, d] in q's dtype."""
     where = "flash_bwd_dq_cuda"
-    seg, strides, window, (seed, thresh, drop_scale) = _bwd_args(
+    seg, strides, window, drop = _bwd_args(
         where, q, k, v, dout, lse, delta, dlse, segment_ids, sliding_window,
-        dropout_rate, dropout_seed)
+        dropout_rate, dropout_seed, batch_offset, head_offset, total_heads)
     b, sq, nq, d = q.shape
     dq = torch.empty(b, sq, nq, d, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
@@ -215,8 +235,8 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(seg),
             dq.data_ptr(), _DTYPE_CODES[q.dtype], d, b, sq, k.shape[1], nq,
-            k.shape[2], strides, float(scale), int(causal), window, seed,
-            thresh, drop_scale, stream)
+            k.shape[2], strides, float(scale), int(causal), window, *drop,
+            stream)
     _raise_on(rc, where)
     flash_bwd_dq_cuda.launches += 1
     return dq
@@ -228,7 +248,9 @@ flash_bwd_dq_cuda.launches = 0
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
                        scale: float, sliding_window: Optional[int] = None,
                        segment_ids=None, dropout_rate: float = 0.0,
-                       dropout_seed: int = 0, dlse=None):
+                       dropout_seed: int = 0, dlse=None,
+                       batch_offset: int = 0, head_offset: int = 0,
+                       total_heads: Optional[int] = None):
     """dK and dV of flash attention, summed over each kv head's GQA group
     without atomics: inside the kernel, or for bf16, where the group's
     q-heads are split into chunks (`dkv_head_chunks`), over fp32 partials in
@@ -236,9 +258,9 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
     `flash_bwd_dq_cuda`. Returns (dk, dv), contiguous [b, sk, nkv, d] in
     k's dtype."""
     where = "flash_bwd_dkv_cuda"
-    seg, strides, window, (seed, thresh, drop_scale) = _bwd_args(
+    seg, strides, window, drop = _bwd_args(
         where, q, k, v, dout, lse, delta, dlse, segment_ids, sliding_window,
-        dropout_rate, dropout_seed)
+        dropout_rate, dropout_seed, batch_offset, head_offset, total_heads)
     b, sq, nq, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     dk = torch.empty(b, sk, nkv, d, dtype=k.dtype, device=k.device)
@@ -259,8 +281,8 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(seg),
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], d, b, sq,
-            sk, nq, nkv, strides, float(scale), int(causal), window, seed,
-            thresh, drop_scale, chunks, _ptr(workspace), stream)
+            sk, nq, nkv, strides, float(scale), int(causal), window, *drop,
+            chunks, _ptr(workspace), stream)
     _raise_on(rc, where)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv

@@ -1,0 +1,212 @@
+"""The collectives of the sharded training step, and the autograd mappings
+that place them (a module only the port has).
+
+The reference states tensor and sequence parallelism as shardings and lets
+GSPMD insert the collectives (megatron_tpu/parallel/sharding.py). The port
+writes them by hand, as upstream Megatron's mappings do
+(megatron/core/tensor_parallel/mappings.py):
+
+- `copy_to_tp`: identity forward, all-reduce over tp backward (the input of
+  a column-parallel product);
+- `reduce_from_tp`: all-reduce over tp forward, identity backward (the
+  output of a row-parallel product);
+- `gather_seq`: all-gather along the sequence over tp forward,
+  reduce-scatter backward (the input of a column-parallel product under
+  sequence parallelism);
+- `reduce_scatter_seq`: reduce-scatter along the sequence forward,
+  all-gather backward (the output of a row-parallel product under
+  sequence parallelism).
+
+`tp_region_in` and `tp_region_out` pick the pair that the mesh's sequence
+parallelism asks for. An axis of size 1 makes every collective over it the
+identity, with no call.
+
+`Transport` moves the bytes for one backend, chosen by the backend named at
+init (`transport_for`): NCCL takes the tensors where they lie; gloo takes
+host copies, because torch's gloo backend runs only `broadcast` and
+`all_reduce` on CUDA tensors. A transport counts the bytes it hands to the
+backend (`bytes`), the input of every call.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+class Transport:
+    """all_reduce, all_gather and reduce_scatter over a process group for
+    one backend. Each call returns a new tensor on its input's device and
+    leaves the input as it was."""
+
+    def __init__(self, backend: str):
+        # gloo runs the collectives on host tensors only
+        self.host = backend == "gloo"
+        self.bytes = 0
+
+    def _stage(self, t: torch.Tensor) -> torch.Tensor:
+        """A contiguous private copy of `t` where the backend reads it."""
+        t = t.detach()
+        self.bytes += t.numel() * t.element_size()
+        if self.host:
+            return t.to("cpu", copy=True, memory_format=torch.contiguous_format)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def _unstage(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return t.to(like.device) if self.host else t
+
+    def all_reduce(self, t: torch.Tensor, group,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        buf = self._stage(t)
+        dist.all_reduce(buf, op=op, group=group)
+        return self._unstage(buf, t)
+
+    def all_gather(self, t: torch.Tensor, group, dim: int) -> torch.Tensor:
+        """The group's tensors concatenated along `dim` in rank order."""
+        n = dist.get_world_size(group)
+        x = self._stage(t.movedim(dim, 0))
+        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return self._unstage(out, t).movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, t: torch.Tensor, group, dim: int
+                       ) -> torch.Tensor:
+        """The sum over the group, cut along `dim` into equal parts in rank
+        order; this rank's part."""
+        n = dist.get_world_size(group)
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                             f"does not split over {n} ranks")
+        x = self._stage(t.movedim(dim, 0))
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+        return self._unstage(out, t).movedim(0, dim).contiguous()
+
+
+def transport_for(backend: str) -> Transport:
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"no transport for backend {backend!r} (nccl, "
+                         "gloo)")
+    return Transport(backend)
+
+
+# --- collectives over a mesh axis --------------------------------------------
+
+def all_reduce(t: torch.Tensor, mesh, axis: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    if mesh.shape[axis] == 1:
+        return t
+    return mesh.transport.all_reduce(t, mesh.groups[axis], op)
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    if mesh.shape[axis] == 1:
+        return t
+    return mesh.transport.all_gather(t, mesh.groups[axis], dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str,
+                   dim: int) -> torch.Tensor:
+    if mesh.shape[axis] == 1:
+        return t
+    return mesh.transport.reduce_scatter(t, mesh.groups[axis], dim)
+
+
+def sum_world(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of `t` over every rank of the mesh."""
+    if mesh.world_size == 1:
+        return t
+    return mesh.transport.all_reduce(t, None)
+
+
+def any_rank(flag: bool, mesh) -> bool:
+    """Whether `flag` holds on any rank: a sum over the world's host group,
+    which neither waits for nor touches the device."""
+    if mesh.world_size == 1:
+        return flag
+    t = torch.tensor([int(flag)])
+    dist.all_reduce(t, group=mesh.host_group)
+    return bool(t.item())
+
+
+# --- autograd mappings over tp ------------------------------------------------
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, "tp"), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x, mesh, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_gather(x, mesh, "tp", 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, "tp", 1), None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return reduce_scatter(x, mesh, "tp", 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, "tp", 1), None
+
+
+def _tp_map(fn, x, mesh):
+    return x if mesh.shape["tp"] == 1 else fn.apply(x, mesh)
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _tp_map(_CopyToTP, x, mesh)
+
+
+def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _tp_map(_ReduceFromTP, x, mesh)
+
+
+def gather_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """[b, s/tp, ...] -> [b, s, ...]."""
+    return _tp_map(_GatherSeq, x, mesh)
+
+
+def reduce_scatter_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """[b, s, ...] partial sums -> this rank's [b, s/tp, ...] of the sum."""
+    return _tp_map(_ReduceScatterSeq, x, mesh)
+
+
+def tp_region_in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The residual stream entering a column-parallel product: gathered
+    along the sequence under sequence parallelism, else copied."""
+    if mesh.sequence_parallel:
+        return gather_seq(x, mesh)
+    return copy_to_tp(x, mesh)
+
+
+def tp_region_out(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product's partial sums leaving for the residual
+    stream: reduce-scattered along the sequence under sequence
+    parallelism, else all-reduced."""
+    if mesh.sequence_parallel:
+        return reduce_scatter_seq(x, mesh)
+    return reduce_from_tp(x, mesh)

@@ -39,6 +39,16 @@ the optimizer state (the live-weight swap's staging, serving/weights.py).
 `load_pretrained_params` copies a checkpoint's weights into the leaves of
 another model that share their names (a task head keeps its fresh values).
 
+A state sharded over a (dp, tp) mesh (training/train_step.py) saves the
+same unsharded files: every rank gathers every leaf whole (the tp parts,
+and each ZeRO-1 moment's dp shares), one leaf at a time, rank 0 keeps a
+host copy of each and writes them once and publishes, and the other ranks
+write nothing and wait at a barrier until it has. Such a save holds the
+whole state in rank 0's host memory while it runs.
+A load into a sharded state reads the whole leaves on every rank and keeps
+each rank's parts, so a checkpoint loads at any (dp, tp) and into the
+unsharded port alike.
+
 Orbax checkpoints (`format_version` 2, a `state/` directory) exist only with
 JAX: reading one raises. Convert it on the JAX side with `load_params_host`
 and `save_checkpoint(backend="npz")`.
@@ -55,13 +65,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from megatron_tpu_torch.config import MegatronConfig, ResilienceConfig
 from megatron_tpu_torch.ops.quantized import W8
+from megatron_tpu_torch.parallel import sharding as shd
+from megatron_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
 from megatron_tpu_torch.resilience import integrity
 from megatron_tpu_torch.resilience.faults import fault_point
 from megatron_tpu_torch.resilience.retry import RetryPolicy, policy_from, retry
-from megatron_tpu_torch.training.train_step import TrainState
+from megatron_tpu_torch.training.train_step import (TrainState,
+                                                    state_layout, zero_share)
 from megatron_tpu_torch.utils.logging import print_rank_0
 
 TRACKER = "latest_checkpointed_iteration.txt"
@@ -212,6 +226,63 @@ def _opt_leaves(state: TrainState) -> dict:
     return leaves
 
 
+class _MeshLeaves:
+    """How the checkpoint leaves of a sharded state lie on this rank: a
+    parameter "a/b/c" as its tp parts, a moment "mu/a/b/c" or "nu/a/b/c"
+    as its tp parts cut again to the ZeRO-1 share; the other leaves (step,
+    scaler) whole on every rank."""
+
+    def __init__(self, state: TrainState):
+        self.mesh = state.params.mesh
+        self.kv_heads = state.params.cfg.num_kv_heads
+        self.layout = state_layout(state.params)
+
+    def _leaf(self, key: str):
+        group, _, rest = key.partition("/")
+        if group in ("mu", "nu") and rest.replace("/", ".") in self.layout:
+            return self.layout[rest.replace("/", ".")], True
+        return self.layout.get(key.replace("/", ".")), False
+
+    def whole(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's part (every rank calls it)."""
+        leaf, moment = self._leaf(key)
+        if leaf is None:
+            return t
+        if moment and leaf.zero_dim is not None:
+            t = shd.gather_dp(t, leaf.zero_dim, self.mesh)
+        return shd.gather_leaf(t, leaf.axes, self.mesh, self.kv_heads)
+
+    def part(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf."""
+        leaf, moment = self._leaf(key)
+        if leaf is None:
+            return t
+        t = shd.shard_leaf(t, leaf.axes, self.mesh, self.kv_heads)
+        return zero_share(t, leaf, self.mesh) if moment else t
+
+    def whole_shape(self, key: str, shape: tuple) -> tuple:
+        """The whole leaf's shape from this rank's part's: the ZeRO-1 dim
+        times dp, every dim cut over tp times tp."""
+        leaf, moment = self._leaf(key)
+        out = list(shape)
+        if leaf is None:
+            return tuple(out)
+        if moment and leaf.zero_dim is not None:
+            out[leaf.zero_dim] *= self.mesh.shape[DATA_AXIS]
+        for d in shd.cut_dims(leaf.axes, self.mesh, self.kv_heads):
+            out[d] *= self.mesh.shape[TENSOR_AXIS]
+        return tuple(out)
+
+
+def sharded_leaves(state: TrainState) -> Optional[_MeshLeaves]:
+    """The leaf placement of a state whose model was built on a mesh of
+    more than one rank, else None."""
+    mesh = getattr(state.params, "mesh", None)
+    if mesh is None or mesh.world_size == 1:
+        return None
+    return _MeshLeaves(state)
+
+
 def _write_npz(path: str, leaves: dict) -> tuple:
     """The file np.savez writes, filled one leaf at a time (device -> host
     -> zip member), its SHA-256 taken on another thread as each member is
@@ -257,9 +328,23 @@ def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
     t0 = time.perf_counter()
     nbytes = 0
     digests = {}
-    for fname, leaves in ((PARAMS_FILE, _param_leaves(state)),
-                          (OPT_FILE, _opt_leaves(state) if save_opt
-                           else None)):
+    files = ((PARAMS_FILE, _param_leaves(state)),
+             (OPT_FILE, _opt_leaves(state) if save_opt else None))
+    placed = sharded_leaves(state)
+    if placed is not None:
+        # one leaf at a time whole on the device: rank 0 keeps its host
+        # copy to write, the others drop theirs
+        def whole(k, t):
+            w = placed.whole(k, t)
+            return w.cpu() if placed.mesh.rank == 0 else None
+        files = tuple((f, None if lv is None else
+                       {k: whole(k, t) for k, t in lv.items()})
+                      for f, lv in files)
+        if placed.mesh.rank != 0:
+            # rank 0 writes and publishes; the others wait until it has
+            dist.barrier()
+            return d
+    for fname, leaves in files:
         if leaves is None:
             continue
         path = os.path.join(d, fname)
@@ -294,6 +379,8 @@ def save_checkpoint(root: str, state: TrainState, cfg: MegatronConfig,
     print_rank_0(f"saved checkpoint to {d} (iteration {iteration}, "
                  f"{nbytes} bytes, payload {payload_s:.2f} s, manifest "
                  f"{manifest_s:.2f} s)")
+    if placed is not None:
+        dist.barrier()
     return d
 
 
@@ -427,9 +514,13 @@ def _npz_arrays(path: str, keys=None, *, crc: bool = True):
 
 
 @torch.no_grad()
-def _copy_into(path: str, leaves: dict, *, crc: bool = True) -> None:
+def _copy_into(path: str, leaves: dict, *, crc: bool = True,
+               placed: Optional[_MeshLeaves] = None) -> None:
+    """Copy each leaf of the file into `leaves`; `placed`: the leaves are
+    a sharded state's parts, and each takes its part of the whole."""
     for key, arr in _npz_arrays(path, leaves.keys(), crc=crc):
-        leaves[key].copy_(numpy_to_tensor(arr))
+        t = numpy_to_tensor(arr)
+        leaves[key].copy_(t if placed is None else placed.part(key, t))
 
 
 def load_checkpoint(root: str, example_state: TrainState, *,
@@ -516,15 +607,21 @@ def _restore_from_dir(d: str, meta: dict, example_state: TrainState, *,
     params_path = os.path.join(d, PARAMS_FILE)
     opt_path = os.path.join(d, OPT_FILE)
     load_optim = load_optim and os.path.exists(opt_path)
+    placed = sharded_leaves(example_state)
+
+    def whole_shapes(leaves):
+        if placed is None:
+            return _shapes(leaves)
+        return {k: placed.whole_shape(k, t.shape) for k, t in leaves.items()}
     params = _param_leaves(example_state)
-    _check_leaves(params_path, _shapes(params))
+    _check_leaves(params_path, whole_shapes(params))
     if load_optim:
         opt = _opt_leaves(example_state)
-        _check_leaves(opt_path, _shapes(opt))
+        _check_leaves(opt_path, whole_shapes(opt))
     # every key and shape checked: only now is the example overwritten
-    _copy_into(params_path, params, crc=not digested)
+    _copy_into(params_path, params, crc=not digested, placed=placed)
     if load_optim:
-        _copy_into(opt_path, opt, crc=not digested)
+        _copy_into(opt_path, opt, crc=not digested, placed=placed)
 
     if finetune or release:
         # a fresh run: the data stream restarts too

@@ -36,6 +36,14 @@
   healthy flush may wait a whole window of device time, so the deadline is
   `step_timeout_s` x `log_interval` unless `sync_metrics` fetches every
   step (the reference's run-ahead rule). Evaluation and saves suspend it.
+- On a state sharded over a mesh (training/train_step.py) every rank runs
+  the loop in step: each is handed the same global batches, the metrics
+  are the global ones on every rank, and the exit decisions that read a
+  rank's own clock or signals (SIGTERM, `exit_duration_in_mins`) are
+  summed over the world first, on the host (`collectives.any_rank`), so
+  the ranks stop at the same iteration.
+  Rank 0 alone writes the metrics and the profiler trace. The hung-step
+  watchdog's checkpoint needs every rank and is refused under a mesh.
 - An active FaultInjector (resilience/faults.py) stalls (`maybe_delay`)
   or poisons (`corrupt_batch`) the host batch of each step call before it
   is copied to the device; the look-ahead copy is off while one is active,
@@ -56,6 +64,8 @@ import torch
 from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.data.samplers import PrefetchIterator
 from megatron_tpu_torch.models import language_model as lm
+from megatron_tpu_torch.parallel import collectives
+from megatron_tpu_torch.parallel.mesh import DATA_AXIS
 from megatron_tpu_torch.resilience import (DivergenceGuard, GuardAction,
                                            StepWatchdog,
                                            TrainingDivergedError,
@@ -63,7 +73,8 @@ from megatron_tpu_torch.resilience import (DivergenceGuard, GuardAction,
 from megatron_tpu_torch.training.microbatches import MicrobatchCalculator
 from megatron_tpu_torch.training.train_step import (TrainState,
                                                     init_train_state,
-                                                    make_train_step)
+                                                    make_train_step,
+                                                    shard_lm_batch)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 from megatron_tpu_torch.utils.logging import (make_writer, print_rank_0,
                                               report_memory)
@@ -205,11 +216,13 @@ def training_log(metrics: dict, iteration: int, consumed_samples: int,
 
 
 def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
-                    loss_fn=None):
+                    loss_fn=None, mesh=None):
     """The evaluation loss of a batch, as the reference's eval step: the
     mean over microbatches of the masked-mean lm loss, deterministic, with
     no position or segment ids; or of `loss_fn(params, mb, None)` (the
-    BERT and T5 entry points' loss). Returns a device scalar."""
+    BERT and T5 entry points' loss). Returns a device scalar. On a `mesh`
+    each rank takes its dp rows of the global batch, divides by the whole
+    microbatch's mask count and the sum goes over dp, as in the step."""
     device = resolve_device(device)
     rope = lm.make_rope(cfg.model, device=device)
 
@@ -222,6 +235,9 @@ def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
                 total += loss_fn(params, {k: v[i] for k, v in batch.items()},
                                  None)
             return total / n_micro
+        counts = None
+        if mesh is not None:
+            batch, counts = shard_lm_batch(batch, mesh)
         tokens = batch["tokens"]
         n_micro = tokens.shape[0]
         mask = batch.get("loss_mask")
@@ -229,7 +245,11 @@ def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
         for i in range(n_micro):
             total += lm.loss_fn(params, tokens[i], cfg.model,
                                 loss_mask=None if mask is None else mask[i],
-                                rope=rope, deterministic=True)
+                                rope=rope, deterministic=True,
+                                denominator=None if counts is None
+                                else counts[i])
+        if mesh is not None:
+            total = collectives.all_reduce(total, mesh, DATA_AXIS)
         return total / n_micro
 
     return eval_step
@@ -265,7 +285,9 @@ def evaluate(state: TrainState, eval_iterator, eval_step_fn,
 class _Profile:
     """torch.profiler over a step window; the trace lands as Chrome JSON."""
 
-    def __init__(self, cfg: MegatronConfig, device: torch.device):
+    def __init__(self, cfg: MegatronConfig, device: torch.device,
+                 rank: int = 0):
+        self.rank = rank
         tr = cfg.training
         self.out_dir = (tr.profile_dir or tr.tensorboard_dir or os.path.join(
             tempfile.gettempdir(), "megatron_tpu_torch_trace"))
@@ -285,6 +307,9 @@ class _Profile:
         if self._prof is None or (iteration < self.end_at and not force):
             return
         self._prof.__exit__(None, None, None)
+        if self.rank != 0:
+            self._prof = None
+            return
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir,
                             f"trace_{self.start_at}_{self.end_at}.json")
@@ -336,9 +361,16 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
     step_kwargs = dict(step_kwargs or {})
     if state is None:
         state = init_train_state(cfg, seed=seed, device=device)
-    step_fn = make_train_step(cfg, device=device, **step_kwargs)
-    calc = MicrobatchCalculator(tr.global_batch_size or tr.micro_batch_size,
-                                tr.micro_batch_size, 1, tr.rampup_batch_size)
+    mesh = getattr(state.params, "mesh", None)
+    if mesh is not None and res.step_timeout_s:
+        raise NotImplementedError(
+            "the hung-step watchdog under a mesh (its checkpoint needs "
+            "every rank) is not ported (ROADMAP Queue 1 item 7)")
+    step_fn = make_train_step(cfg, mesh=mesh, device=device, **step_kwargs)
+    dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    calc = MicrobatchCalculator(
+        tr.global_batch_size or tr.micro_batch_size * dp,
+        tr.micro_batch_size, dp, tr.rampup_batch_size)
 
     iteration = start_iteration
     skipped_total = nan_total = quarantined_total = 0
@@ -354,7 +386,8 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
         loss_spike_window=res.loss_spike_window,
         max_rollbacks=res.max_rollbacks)
     base_seed = seed
-    profile = _Profile(cfg, device) if tr.profile else None
+    profile = (_Profile(cfg, device, 0 if mesh is None else mesh.rank)
+               if tr.profile else None)
     injector = get_fault_injector()
     watchdog = None
     if res.step_timeout_s:
@@ -398,6 +431,22 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
     memory_reported = False
     signals = SignalState().install()
     t_step = timers("train-step", log_level=0)
+
+    def local_exit_msgs() -> list:
+        """The exits that read this rank's signals and clock; on a mesh a
+        rank exits when any rank would."""
+        msgs = []
+        if signals.received:
+            msgs.append("SIGTERM received: checkpointing and exiting")
+        if tr.exit_duration_in_mins is not None:
+            mins = (time.perf_counter() - t_start) / 60.0
+            if mins > tr.exit_duration_in_mins:
+                msgs.append(f"exiting after {mins:.1f} min (exit_duration)")
+        if (mesh is not None and collectives.any_rank(bool(msgs), mesh)
+                and not msgs):
+            msgs.append("exiting with the other ranks (SIGTERM or "
+                        "exit_duration on another rank)")
+        return msgs
 
     try:
         while iteration < tr.train_iters:
@@ -458,17 +507,10 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
             save_due = bool(save_fn is not None and tr.save_interval
                             and iteration % tr.save_interval == 0)
             # exit conditions, decided once per iteration
-            exit_msgs = []
-            if signals.received:
-                exit_msgs.append("SIGTERM received: checkpointing and exiting")
+            exit_msgs = local_exit_msgs()
             if tr.exit_interval and iteration % tr.exit_interval == 0:
                 exit_msgs.append(f"exiting at iteration {iteration} "
                                  "(exit_interval)")
-            if tr.exit_duration_in_mins is not None:
-                mins = (time.perf_counter() - t_start) / 60.0
-                if mins > tr.exit_duration_in_mins:
-                    exit_msgs.append(f"exiting after {mins:.1f} min "
-                                     "(exit_duration)")
             exit_due = bool(exit_msgs)
             flush_due = (sync_metrics or log_due or eval_due or save_due
                          or exit_due or stop_exc is not None
@@ -600,7 +642,8 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
             if eval_due:
                 if eval_step_fn is None:
                     eval_step_fn = _make_eval_step(
-                        cfg, device, loss_fn=step_kwargs.get("loss_fn"))
+                        cfg, device, loss_fn=step_kwargs.get("loss_fn"),
+                        mesh=mesh)
                 with (watchdog.suspend() if watchdog is not None
                       else contextlib.nullcontext()):
                     results = evaluate(state, valid_iterator, eval_step_fn,
@@ -616,14 +659,7 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
             # save sweep exits now, once no unobserved step would be lost
             exiting = exit_due
             if not exiting and len(window) == 0:
-                if signals.received:
-                    exit_msgs.append(
-                        "SIGTERM received: checkpointing and exiting")
-                if tr.exit_duration_in_mins is not None:
-                    mins = (time.perf_counter() - t_start) / 60.0
-                    if mins > tr.exit_duration_in_mins:
-                        exit_msgs.append(f"exiting after {mins:.1f} min "
-                                         "(exit_duration)")
+                exit_msgs = local_exit_msgs()
                 exiting = bool(exit_msgs)
             for msg in exit_msgs:
                 print_rank_0(msg)

@@ -21,11 +21,20 @@ the grads are unscaled and clipped where they lie, and every parameter and
 moment is overwritten, a flat chunk at a time so that no temporary exceeds
 CHUNK elements. The skip is a device-side `torch.where` against the
 found_inf flag, so the step makes no host sync.
+
+In the sharded step (training/train_step.py) each rank holds parts of the
+grads: `GradShards` says which leaves this rank counts (one replica of
+each part: a tp-sharded leaf on every tp rank, a replicated one on tp
+rank 0; a dp-sharded ZeRO-1 leaf on every dp rank, a whole one on dp rank
+0) and how to sum over the world. The norm's squares and the zero count
+are then summed over the owned leaves and over the world, and found_inf
+is set on every rank when any rank saw a non-finite square, so every rank
+skips together.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -57,6 +66,15 @@ class OptState:
     mu: dict            # name -> fp32 first moment
     nu: Optional[dict]  # name -> fp32 second moment (Adam only)
     scaler: ScalerState
+
+
+@dataclass
+class GradShards:
+    """How a sharded step's grads lie on this rank (see the module's
+    note): `owned[name]` is True where this rank counts the leaf, and
+    `sum_world(t)` is the sum of t over every rank."""
+    owned: Mapping[str, bool]
+    sum_world: Callable[[torch.Tensor], torch.Tensor]
 
 
 def init_scaler(cfg: OptimizerConfig, compute_dtype=torch.float32,
@@ -109,12 +127,32 @@ def _chunks(t: torch.Tensor):
     return t.view(-1).split(CHUNK)
 
 
+def _squares(leaves) -> torch.Tensor:
+    squares = [c.float().square().sum() for g in leaves for c in _chunks(g)]
+    return torch.stack(squares).sum()
+
+
 def global_grad_norm(grads) -> torch.Tensor:
     """Global L2 norm over every leaf: the square root of the summed fp32
     squares, on the device, a chunk at a time."""
     leaves = list(grads.values()) if isinstance(grads, Mapping) else grads
-    squares = [c.float().square().sum() for g in leaves for c in _chunks(g)]
-    return torch.stack(squares).sum().sqrt()
+    return _squares(leaves).sqrt()
+
+
+def sharded_grad_norm(grads: Mapping[str, torch.Tensor],
+                      shards: GradShards):
+    """(global norm, found_inf) of a sharded step's grads: the owned
+    leaves' squares summed over the world, and found_inf where the norm or
+    any rank's square of any of its leaves is not finite."""
+    owned = [g for k, g in grads.items() if shards.owned[k]]
+    device = next(iter(grads.values())).device
+    owned_sq = (_squares(owned) if owned
+                else torch.zeros((), dtype=torch.float32, device=device))
+    bad = torch.stack([~torch.isfinite(_squares([g]))
+                       for g in grads.values()]).any()
+    stats = shards.sum_world(torch.stack([owned_sq, bad.float()]))
+    norm = stats[0].sqrt()
+    return norm, (stats[1] > 0) | ~torch.isfinite(norm)
 
 
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
@@ -129,7 +167,15 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
     return grads, norm
 
 
-def count_zeros(grads) -> torch.Tensor:
+def count_zeros(grads, shards: Optional[GradShards] = None) -> torch.Tensor:
+    """Zero elements of the grads; of the owned leaves summed over the
+    world under `shards`."""
+    if shards is not None:
+        leaves = [g for k, g in grads.items() if shards.owned[k]]
+        n = torch.stack([(g == 0.0).sum() for g in leaves] or [
+            torch.zeros((), dtype=torch.int64,
+                        device=next(iter(grads.values())).device)]).sum()
+        return shards.sum_world(n).to(torch.int32)
     leaves = list(grads.values()) if isinstance(grads, Mapping) else grads
     return torch.stack([(g == 0.0).sum() for g in leaves]).sum().to(
         torch.int32)
@@ -161,18 +207,23 @@ def _update_scaler(s: ScalerState, cfg: OptimizerConfig,
 def apply_optimizer(params: Mapping[str, torch.Tensor],
                     grads: Mapping[str, torch.Tensor], opt_state: OptState,
                     cfg: OptimizerConfig, lr: float, wd: float,
-                    wd_mask: Optional[Mapping[str, bool]] = None):
+                    wd_mask: Optional[Mapping[str, bool]] = None,
+                    shards: Optional[GradShards] = None):
     """One Megatron optimizer step, in place on `params`, `grads` and the
     moments of `opt_state`. params and grads are name -> tensor dicts with
     the same names; grads are fp32 and contiguous, params of any float
     dtype (each written back rounded to it). Returns (opt_state with
     the new step and scaler, metrics {grad_norm, found_inf (0/1 int32),
     loss_scale, and num_zeros when cfg.log_num_zeros_in_grad}), all device
-    tensors."""
+    tensors. `shards`: the grads are a sharded step's (see the module's
+    note)."""
     for g in grads.values():
         g.mul_(1.0 / opt_state.scaler.scale)
-    norm = global_grad_norm(grads)
-    found_inf = ~torch.isfinite(norm)
+    if shards is None:
+        norm = global_grad_norm(grads)
+        found_inf = ~torch.isfinite(norm)
+    else:
+        norm, found_inf = sharded_grad_norm(grads, shards)
     if cfg.clip_grad > 0.0:
         clip_by_global_norm(grads, cfg.clip_grad, norm)
     step = opt_state.step + (~found_inf).to(torch.int32)
@@ -217,7 +268,7 @@ def apply_optimizer(params: Mapping[str, torch.Tensor],
     metrics = {"grad_norm": norm, "found_inf": found_inf.to(torch.int32),
                "loss_scale": opt_state.scaler.scale}
     if cfg.log_num_zeros_in_grad:
-        metrics["num_zeros"] = count_zeros(grads)
+        metrics["num_zeros"] = count_zeros(grads, shards)
     new_state = OptState(step=step, mu=opt_state.mu, nu=opt_state.nu,
                          scaler=_update_scaler(opt_state.scaler, cfg,
                                                found_inf))

@@ -8,7 +8,9 @@ at the exact batch the interrupted run would have taken next), the batch
 iterators over the family's dict samples, and the divergence-rollback
 hooks: only checkpoints this run writes are rollback targets, and the data
 stream is rebuilt at the checkpoint's exact position (the loop quarantines
-the poison window; the order is never re-seeded).
+the poison window; the order is never re-seeded). These families' steps
+have no mesh yet: tensor parallelism or more than one rank raises (ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
     from megatron_tpu_torch.training.train_step import state_from_params
     from megatron_tpu_torch.utils.logging import print_rank_0
 
+    from megatron_tpu_torch.parallel.multihost import world_size
+    if cfg.parallel.tensor_parallel > 1 or world_size() > 1:
+        raise NotImplementedError(
+            "the BERT, T5 and ICT steps under a mesh (tensor parallelism or "
+            "more than one rank) are not ported (ROADMAP Queue 1 item 7)")
     device = resolve_device(device)
     tr = cfg.training
     if cfg.data.test_data_path:

@@ -24,8 +24,36 @@ points) takes each microbatch's slice of every batch entry instead:
 decides itself whether dropout runs. The state's model is then any module
 whose parameters carry the JAX tree's names (models/bert.py BertModel,
 models/t5.py T5Model), and the weight-decay mask comes from that module:
-its `stacked_prefixes` name the stacked [L, ...] leaves. A mesh and the
-pipelined steps belong to the multi-device slice and raise.
+its `stacked_prefixes` name the stacked [L, ...] leaves.
+
+`make_train_step(cfg, mesh=...)` runs the step of a decoder LM (GPT,
+Llama, Falcon; dense) sharded over the (dp, tp) mesh (parallel/), on a
+state whose model was built on that mesh (`init_train_state(cfg,
+mesh=...)`): each rank holds its tp parts of the weights and takes its dp
+rows of the global batch, which every rank is handed alike
+(parallel/multihost.py `make_global_batch`). The step writes by hand the
+collectives that GSPMD derives for the reference
+(megatron_tpu/training/train_step.py):
+- each microbatch's masked-mean loss divides by the whole microbatch's
+  mask count, so the dp ranks' losses sum to the unsharded one;
+- the grads of replicated leaves whose grads are partial over tp (every
+  replicated leaf under sequence parallelism: the norms, the row-parallel
+  biases, the position embeddings; the replicated kv leaves when tp > nkv)
+  are all-reduced over tp;
+- every grad is all-reduced over dp, or with the distributed optimizer
+  (ZeRO-1) reduce-scattered on its ZeRO dim (parallel/sharding.py
+  `distributed_opt_dim`): that rank updates its dp share of the leaf with
+  its share of the fp32 moments, and the shares are all-gathered back
+  into the parameter. A leaf with no ZeRO dim keeps whole moments;
+- the grad norm, found_inf and the zero count are taken over the world
+  (training/optimizer.py `GradShards`), and lm_loss is summed over dp, so
+  every rank reports and decides the same.
+Dropout draws the unsharded step's masks from the same generator and
+keeps the rank's slice (models/transformer.py), so with one generator the
+sharded step equals the unsharded one up to the order of the sums.
+Recompute runs under the mesh as without it. A custom `loss_fn` (BERT,
+T5, ICT), the pipelined steps and experts under a mesh raise (ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -37,6 +65,10 @@ from torch.profiler import record_function
 
 from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.models import language_model as lm
+from megatron_tpu_torch.parallel import collectives
+from megatron_tpu_torch.parallel import sharding as shd
+from megatron_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, Mesh
+from megatron_tpu_torch.parallel.multihost import make_global_batch
 from megatron_tpu_torch.training import optimizer as opt
 from megatron_tpu_torch.training import scheduler
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -69,6 +101,64 @@ def weight_decay_mask(model: torch.nn.Module) -> dict:
     dim that does not count toward the >= 2-D rule."""
     return opt.weight_decay_mask(dict(model.state_dict()),
                                  stacked=model.stacked_prefixes)
+
+
+@dataclass(frozen=True)
+class LeafLayout:
+    """Where one leaf of a sharded model lies: its logical axes (the
+    reference's, `model_axes`), whether its tp part is a cut (`tp_cut`)
+    and whether its grads are partial sums over tp (`tp_partial`), its
+    ZeRO-1 dim, and whether this rank counts its grad in the norm
+    (`owned`, optimizer.GradShards)."""
+    axes: tuple
+    tp_cut: bool
+    tp_partial: bool
+    zero_dim: Optional[int]
+    owned: bool
+
+
+def state_layout(model: torch.nn.Module) -> dict:
+    """name -> LeafLayout of a LanguageModel built on a mesh."""
+    mesh, cfg = model.mesh, model.cfg
+    nkv = cfg.num_kv_heads
+    out = {}
+    for name, ax in lm.flat_axes(lm.model_axes(cfg)).items():
+        p = model.get_parameter(name)
+        cut = shd.tp_sharded(ax, mesh, nkv)
+        zero = shd.distributed_opt_dim(ax, tuple(p.shape), mesh)
+        out[name] = LeafLayout(
+            axes=ax, tp_cut=cut,
+            tp_partial=(not cut and mesh.shape[TENSOR_AXIS] > 1
+                        and (mesh.sequence_parallel or "kv_heads" in ax)),
+            zero_dim=zero,
+            owned=((cut or mesh.coords[TENSOR_AXIS] == 0)
+                   and (zero is not None or mesh.coords[DATA_AXIS] == 0)))
+    return out
+
+
+def zero_share(t: torch.Tensor, leaf: LeafLayout, mesh: Mesh
+               ) -> torch.Tensor:
+    """This rank's ZeRO-1 share of a leaf-shaped tensor (the tensor itself
+    when the leaf has no ZeRO dim)."""
+    if leaf.zero_dim is None:
+        return t
+    return shd.shard_dp(t, leaf.zero_dim, mesh)
+
+
+def shard_lm_batch(batch: dict, mesh: Mesh) -> tuple:
+    """A global LM batch -> (this rank's dp rows of it, each microbatch's
+    whole mask count [n_micro]), a missing loss_mask counting every label.
+    Every rank holds the global batch, so the counts take no collective."""
+    tokens = batch["tokens"]
+    if "loss_mask" not in batch:
+        batch = dict(batch, loss_mask=torch.ones(
+            *tokens.shape[:2], tokens.shape[2] - 1, dtype=torch.float32,
+            device=tokens.device))
+    mask = batch["loss_mask"]
+    # a [.., s+1] mask drops its first column, as loss_fn drops it
+    labels = tokens.shape[2] - 1
+    counts = mask[..., mask.shape[-1] - labels:].float().sum(dim=(1, 2))
+    return make_global_batch(batch, mesh), counts
 
 
 class _Fp32Grads:
@@ -108,35 +198,50 @@ class _Fp32Grads:
 def state_from_params(params: torch.nn.Module,
                       cfg: MegatronConfig) -> TrainState:
     """A fresh TrainState around a model: its parameters become trainable
-    and fp16 compute seeds the dynamic loss scaler."""
+    and fp16 compute seeds the dynamic loss scaler. A model built on a
+    mesh gets its moments cut to each leaf's ZeRO-1 share."""
     params.requires_grad_(True)
     compute = (torch.float16 if cfg.model.compute_dtype == "float16"
                else torch.float32)
+    leaves = named_params(params)
+    mesh = getattr(params, "mesh", None)
+    if mesh is not None:
+        layout = state_layout(params)
+        leaves = {k: zero_share(p.detach(), layout[k], mesh)
+                  for k, p in leaves.items()}
     return TrainState(params=params,
-                      opt_state=opt.init_optimizer(named_params(params),
-                                                   cfg.optimizer, compute),
+                      opt_state=opt.init_optimizer(leaves, cfg.optimizer,
+                                                   compute),
                       iteration=0)
 
 
 def init_train_state(cfg: MegatronConfig, *, seed: int = 0,
-                     device: DeviceLike = None) -> TrainState:
+                     device: DeviceLike = None,
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """Random weights from `seed` on `device` (the current CUDA device when
-    None; raises without one)."""
+    None; raises without one); on a `mesh`, this rank's parts of them."""
     model = lm.LanguageModel(cfg.model, device=device, seed=seed,
-                             trainable=True)
+                             trainable=True, mesh=mesh)
     return state_from_params(model, cfg)
 
 
 def train_step(state: TrainState, batch: dict,
                generator: Optional[torch.Generator] = None, *,
                cfg: MegatronConfig, rope: Optional[lm.RopeTables] = None,
-               wd_mask: Optional[dict] = None, loss_fn=None):
+               wd_mask: Optional[dict] = None, loss_fn=None,
+               layout: Optional[dict] = None):
     """One iteration over the batch's microbatches. Returns (state, updated
     in place, metrics). `loss_fn(model, mb, generator)`, when given,
-    replaces the LM loss on each microbatch slice `mb` of the batch."""
+    replaces the LM loss on each microbatch slice `mb` of the batch. On a
+    sharded state (`layout`, `state_layout`) the batch is the global one
+    and the step is the module's sharded step."""
     mcfg = cfg.model
     model = state.params
     params = named_params(model)
+    mesh = getattr(model, "mesh", None)
+    counts = None
+    if mesh is not None:
+        batch, counts = shard_lm_batch(batch, mesh)
     # any entry's leading dim is the microbatch count (T5's batch has no
     # "tokens")
     n_micro = next(iter(batch.values())).shape[0]
@@ -173,7 +278,9 @@ def train_step(state: TrainState, batch: dict,
                                   generator=generator,
                                   deterministic=deterministic,
                                   position_ids=part("position_ids"),
-                                  segment_ids=part("segment_ids"))
+                                  segment_ids=part("segment_ids"),
+                                  denominator=(None if counts is None
+                                               else counts[i]))
             (loss * scale / n_micro).backward()
             loss_sum += loss.detach()
 
@@ -182,28 +289,79 @@ def train_step(state: TrainState, batch: dict,
         return (g if g is not None
                 else torch.zeros_like(p, dtype=torch.float32))
     grads = {k: grad(k, p) for k, p in params.items()}
+    if mesh is not None:
+        loss_sum = collectives.all_reduce(loss_sum, mesh, DATA_AXIS)
+        grads = _reduce_grads(grads, layout, mesh)
     with record_function(SPAN_OPTIMIZER):
-        out = _finish_step(state, grads, loss_sum / n_micro, cfg, wd_mask)
+        out = _finish_step(state, grads, loss_sum / n_micro, cfg, wd_mask,
+                           layout)
     for p in params.values():
         p.grad = None
     return out
 
 
+def _reduce_grads(grads: dict, layout: dict, mesh: Mesh) -> dict:
+    """A sharded step's local grads -> what this rank's optimizer takes:
+    partial sums over tp all-reduced, then every grad all-reduced over dp,
+    or reduce-scattered to the rank's share on its ZeRO dim."""
+    out = {}
+    for k, g in grads.items():
+        leaf = layout[k]
+        if leaf.tp_partial:
+            g = collectives.all_reduce(g, mesh, TENSOR_AXIS)
+        if leaf.zero_dim is None:
+            g = collectives.all_reduce(g, mesh, DATA_AXIS)
+        else:
+            g = collectives.reduce_scatter(g, mesh, DATA_AXIS,
+                                           leaf.zero_dim)
+        out[k] = g.contiguous()
+    return out
+
+
 def _finish_step(state: TrainState, grads: dict, loss: torch.Tensor,
-                 cfg: MegatronConfig, wd_mask: Optional[dict]):
-    """The optimizer tail: lr/wd schedule, apply, metrics."""
+                 cfg: MegatronConfig, wd_mask: Optional[dict],
+                 layout: Optional[dict] = None):
+    """The optimizer tail: lr/wd schedule, apply, metrics. On a sharded
+    state (`layout`) a ZeRO-1 leaf is updated as its dp share (a copy) and
+    the shares are all-gathered back into the parameter."""
     lr = scheduler.learning_rate(state.iteration, cfg.optimizer,
                                  cfg.training)
     wd = scheduler.weight_decay(state.iteration, cfg.optimizer, cfg.training)
     params = named_params(state.params)
+    mesh = getattr(state.params, "mesh", None)
+    shards = None
+    updated = params
+    if mesh is not None:
+        updated = {k: zero_share(p.detach(), layout[k], mesh)
+                   for k, p in params.items()}
+        shards = opt.GradShards(
+            owned={k: leaf.owned for k, leaf in layout.items()},
+            sum_world=lambda t: collectives.sum_world(t, mesh))
     state.opt_state, ometrics = opt.apply_optimizer(
-        params, grads, state.opt_state, cfg.optimizer, lr, wd,
-        wd_mask=wd_mask)
+        updated, grads, state.opt_state, cfg.optimizer, lr, wd,
+        wd_mask=wd_mask, shards=shards)
+    if mesh is not None:
+        with torch.no_grad():
+            for k, p in params.items():
+                dim = layout[k].zero_dim
+                if dim is not None:
+                    p.copy_(shd.gather_dp(updated[k], dim, mesh))
     state.iteration += 1
     metrics = {"lm_loss": loss, "lr": lr, "wd": wd, **ometrics}
     if cfg.training.log_params_norm:
         with torch.no_grad():
-            metrics["params_norm"] = opt.global_grad_norm(params)
+            if shards is None:
+                metrics["params_norm"] = opt.global_grad_norm(params)
+            else:
+                # the parameters are whole over dp: one replica of each tp
+                # part, summed over tp
+                metrics["params_norm"] = opt.sharded_grad_norm(
+                    params, opt.GradShards(
+                        owned={k: leaf.tp_cut
+                               or mesh.coords[TENSOR_AXIS] == 0
+                               for k, leaf in layout.items()},
+                        sum_world=lambda t: collectives.all_reduce(
+                            t, mesh, TENSOR_AXIS)))[0]
     return state, metrics
 
 
@@ -213,32 +371,59 @@ def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
     """The training step of `cfg` on `device` (the current CUDA device when
     None; raises without one): `step(state, batch, generator=None) ->
     (state, metrics)`, updating the state in place. `loss_fn(model, mb,
-    generator)` replaces the LM loss (see the module's note). The
-    reference's `init_params_fn` gives its weight-decay mask the model's
-    tree; the port reads the mask off the state's module, so the keyword
-    is accepted, for the reference's signature, and ignored."""
+    generator)` replaces the LM loss (see the module's note). With a
+    `mesh` (parallel/mesh.py `build_mesh`) the step is the sharded one of
+    the module's note, on a state built on that mesh. The reference's
+    `init_params_fn` gives its weight-decay mask the model's tree; the
+    port reads the mask off the state's module, so the keyword is
+    accepted, for the reference's signature, and ignored."""
     del init_params_fn
-    if mesh is not None:
-        raise NotImplementedError("make_train_step: a mesh (tensor, "
-                                  "pipeline, data parallelism) is ported "
-                                  "with the multi-device slice")
     if pipelined_spec is not None or pipelined_loss_fn is not None:
-        raise NotImplementedError("make_train_step: pipelined steps are "
-                                  "ported with the multi-device slice")
+        raise NotImplementedError("make_train_step: the pipelined steps "
+                                  "are not ported (ROADMAP Queue 1 item 7)")
+    if mesh is not None and loss_fn is not None:
+        raise NotImplementedError(
+            "make_train_step: a custom loss_fn (BERT, T5, ICT) under a mesh "
+            "is not ported (ROADMAP Queue 1 item 7)")
+    if mesh is not None and cfg.model.num_experts > 1:
+        raise NotImplementedError("make_train_step: experts under a mesh "
+                                  "are not ported (ROADMAP Queue 1 item 7)")
+    par = cfg.parallel
+    asked = (par.tensor_parallel, par.sequence_parallel,
+             par.use_distributed_optimizer)
+    if mesh is None and par.tensor_parallel > 1:
+        raise ValueError(f"make_train_step: cfg asks for tp "
+                         f"{par.tensor_parallel} and no mesh was given")
+    if mesh is not None and asked != (
+            mesh.shape[TENSOR_AXIS], mesh.parallel.sequence_parallel,
+            mesh.use_distributed_optimizer):
+        raise ValueError("make_train_step: the mesh was built for another "
+                         "parallel config than cfg's")
     device = resolve_device(device)
     rope = (None if loss_fn is not None
             else lm.make_rope(cfg.model, device=device))
     masks: dict = {}
+    layouts: list = []  # the sharded state's, made at the first step
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
         if state.params.device != device:
             raise ValueError(f"train step built for {device}, state on "
                              f"{state.params.device}")
+        if getattr(state.params, "mesh", None) is not mesh:
+            raise ValueError("train step built for another mesh than the "
+                             "state's model (build it with "
+                             "init_train_state(cfg, mesh=mesh))")
         family = type(state.params)
         if family not in masks:
             masks[family] = weight_decay_mask(state.params)
+        layout = None
+        if mesh is not None:
+            if not layouts:
+                layouts.append(state_layout(state.params))
+            layout = layouts[0]
         return train_step(state, batch, generator, cfg=cfg, rope=rope,
-                          wd_mask=masks[family], loss_fn=loss_fn)
+                          wd_mask=masks[family], loss_fn=loss_fn,
+                          layout=layout)
 
     return step

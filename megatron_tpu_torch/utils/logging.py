@@ -2,7 +2,9 @@
 
 `print_rank_0` logs on the first process of a `torch.distributed` group, or
 always when no group is initialised. `make_writer` returns a TensorBoard or
-wandb writer on the last process, else a writer that drops everything. Both
+wandb writer on the first process too (the reference's writes on the
+last; in the port every file of a run comes from rank 0), else a writer
+that drops everything. Both
 packages are imported only when asked for; the card's machine has neither,
 so asking for one there logs a warning and falls back to the null writer,
 as the reference does when its package is missing.
@@ -95,9 +97,8 @@ class WandbWriter(NullWriter):
 
 def make_writer(tensorboard_dir: Optional[str] = None,
                 use_wandb: bool = False, **wandb_kwargs):
-    """The writer of the last process; the others get a NullWriter."""
-    rank, world = _rank_and_world()
-    if rank != world - 1:
+    """The writer of the first process; the others get a NullWriter."""
+    if _rank_and_world()[0] != 0:
         return NullWriter()
     if use_wandb:
         try:

@@ -1,0 +1,185 @@
+"""What the ranks of the mesh tests run (not a test file; no JAX here, so
+the spawned ranks stay light). Every function takes and returns numpy
+arrays and plain values."""
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+import torch
+
+from megatron_tpu_torch.models import language_model as lm
+from megatron_tpu_torch.parallel import sharding as shd
+from megatron_tpu_torch.parallel.mesh import build_mesh
+from megatron_tpu_torch.training import checkpointing as ckpt
+
+# the module (the package exports its train_step function under the name)
+ts = importlib.import_module("megatron_tpu_torch.training.train_step")
+
+
+def model_on(cfg, weights: dict, mesh=None) -> lm.LanguageModel:
+    """A trainable LanguageModel holding `weights` (the whole tree under
+    the port's names); on a mesh, this rank's parts of them."""
+    model = lm.LanguageModel(cfg.model, device="cpu", trainable=True,
+                             mesh=mesh)
+    axes = lm.flat_axes(lm.model_axes(cfg.model))
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            whole = torch.from_numpy(np.array(weights[k]))
+            p.copy_(whole if mesh is None else shd.shard_leaf(
+                whole, axes[k], mesh, cfg.model.num_kv_heads))
+    return model
+
+
+def whole_state(state) -> dict:
+    """{"params" | "mu" | "nu": {jax name: numpy}} of a train state, the
+    leaves gathered whole on a mesh (every rank calls it)."""
+    placed = ckpt.sharded_leaves(state)
+    out = {"params": ckpt._param_leaves(state), "mu": {}, "nu": {}}
+    for k, t in ckpt._opt_leaves(state).items():
+        group = k.split("/", 1)[0]
+        if group in ("mu", "nu"):
+            out[group][k.split("/", 1)[1]] = t
+    for group in ("params", "mu", "nu"):
+        out[group] = {k: (t if placed is None else placed.whole(
+            k if group == "params" else f"{group}/{k}", t)).float().numpy()
+                      for k, t in out[group].items()}
+    return out
+
+
+def train(cfg, weights: dict, batches: list, seeds=None, sharded=True
+          ) -> dict:
+    """`len(batches)` steps of make_train_step from `weights` (a sharded
+    step on a mesh over the process group when `sharded`), each batch the
+    global one ({name: numpy}), step i's generator seeded with seeds[i]
+    (None: no generator). Returns {"metrics": [{name: float}], "params",
+    "mu", "nu": whole leaves, "bytes": the transport's count}."""
+    mesh = build_mesh(cfg.parallel) if sharded else None
+    state = ts.state_from_params(model_on(cfg, weights, mesh), cfg)
+    step = ts.make_train_step(cfg, mesh=mesh, device="cpu")
+    metrics = []
+    for i, batch in enumerate(batches):
+        gen = (None if seeds is None
+               else torch.Generator().manual_seed(int(seeds[i])))
+        state, m = step(state, {k: torch.from_numpy(np.array(v))
+                                for k, v in batch.items()}, gen)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = whole_state(state)
+    out["metrics"] = metrics
+    out["bytes"] = 0 if mesh is None or mesh.transport is None \
+        else mesh.transport.bytes
+    return out
+
+
+def mesh_view(parallel) -> dict:
+    """This rank's coordinates, and for each axis the sum of the ranks of
+    its group (an all-reduce of the rank ids over that axis)."""
+    from megatron_tpu_torch.parallel import collectives
+    from megatron_tpu_torch.parallel.mesh import axis_size, mesh_info
+    mesh = build_mesh(parallel)
+    sums = {a: int(collectives.all_reduce(
+        torch.tensor([mesh.rank]), mesh, a)[0]) for a in ("dp", "tp")}
+    return {"coords": mesh.coords, "sums": sums, "info": mesh_info(mesh),
+            "tp": axis_size(mesh, "tp")}
+
+
+def shard_roundtrip(cfg, weights: dict) -> dict:
+    """This rank's parts of every leaf, and the leaves gathered back."""
+    mesh = build_mesh(cfg.parallel)
+    axes = lm.flat_axes(lm.model_axes(cfg.model))
+    nkv = cfg.model.num_kv_heads
+    parts = {k: shd.shard_leaf(torch.from_numpy(np.array(v)), axes[k], mesh,
+                               nkv) for k, v in weights.items()}
+    back = {k: shd.gather_leaf(v, axes[k], mesh, nkv)
+            for k, v in parts.items()}
+    return {"parts": {k: v.numpy() for k, v in parts.items()},
+            "back": {k: v.numpy() for k, v in back.items()}}
+
+
+def vocab_parallel_ce(logits, labels, vocab_size: int, smoothing: float,
+                      tp: int) -> dict:
+    """The vocab-parallel cross-entropy of this rank's logits columns:
+    the per-token loss and the grad of its sum."""
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.ops.cross_entropy import \
+        vocab_parallel_cross_entropy
+    mesh = build_mesh(ParallelConfig(tensor_parallel=tp))
+    width = logits.shape[-1] // tp
+    t = mesh.coords["tp"]
+    x = torch.tensor(logits[..., t * width:(t + 1) * width],
+                     requires_grad=True)
+    loss = vocab_parallel_cross_entropy(x, torch.from_numpy(labels), mesh,
+                                        vocab_size=vocab_size,
+                                        label_smoothing=smoothing)
+    loss.sum().backward()
+    return {"loss": loss.detach().numpy(), "grad": x.grad.numpy()}
+
+
+def finetune_run(argv: list) -> dict:
+    """finetune.main(argv) on the CPU on this rank: its return code, each
+    step's (iteration, lm_loss, grad_norm) and the final state's whole
+    leaves."""
+    from megatron_tpu_torch import finetune
+    from megatron_tpu_torch.training import loop
+    steps, states = [], []
+    make, train_fn = loop.make_train_step, loop.train
+
+    def recording_make(*a, **k):
+        step = make(*a, **k)
+
+        def run(state, batch, gen):
+            it = state.iteration
+            state, m = step(state, batch, gen)
+            steps.append((it, float(m["lm_loss"]), float(m["grad_norm"])))
+            return state, m
+        return run
+
+    def recording_train(*a, **k):
+        out = train_fn(*a, **k)
+        states.append(out[0])
+        return out
+
+    loop.make_train_step, loop.train = recording_make, recording_train
+    try:
+        rc = finetune.main(argv, device="cpu")
+    finally:
+        loop.make_train_step, loop.train = make, train_fn
+    out = whole_state(states[-1])
+    out.update(rc=rc, steps=steps, iteration=states[-1].iteration)
+    return out
+
+
+def grad_stats(parallel) -> dict:
+    """optimizer.sharded_grad_norm and count_zeros over a mesh, on grads
+    made from the rank's coordinates: "cut" (a tp part, counted on every
+    rank) holds the rank's number in zeros, "whole" (replicated, counted
+    on rank 0 alone) 5 zeros; with `poison`, rank 3 puts an inf in its
+    copy of "whole", which it does not count."""
+    from megatron_tpu_torch.training import optimizer as opt
+    from megatron_tpu_torch.parallel import collectives
+    mesh = build_mesh(parallel)
+    r = mesh.rank
+    cut = torch.full((8,), float(r + 1))
+    cut[:r] = 0.0
+    whole = torch.full((6,), 2.0)
+    whole[:5] = 0.0
+    out = {}
+    for poison in (False, True):
+        grads = {"cut": cut.clone(), "whole": whole.clone()}
+        if poison and r == 3:
+            grads["whole"][5] = float("inf")
+        shards = opt.GradShards(
+            owned={"cut": True, "whole": r == 0},
+            sum_world=lambda t: collectives.sum_world(t, mesh))
+        norm, found_inf = opt.sharded_grad_norm(grads, shards)
+        out[poison] = dict(norm=float(norm), found_inf=bool(found_inf),
+                           zeros=int(opt.count_zeros(grads, shards)))
+    return out
+
+
+def any_rank_flags(parallel) -> list:
+    """collectives.any_rank of no rank's flag, then of rank 1's alone."""
+    from megatron_tpu_torch.parallel import collectives
+    mesh = build_mesh(parallel)
+    return [collectives.any_rank(False, mesh),
+            collectives.any_rank(mesh.rank == 1, mesh)]

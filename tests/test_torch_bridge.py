@@ -132,7 +132,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/router.py", "tools/chaos_common.py",
                    "tools/chaos_router.py", "serving/remote.py",
                    "tools/chaos_fleet.py", "tools/serving_bench.py",
-                   "models/moe.py", *PRETRAINING, *RETRIEVAL, *ZERO_SHOT):
+                   "models/moe.py", *PRETRAINING, *RETRIEVAL, *ZERO_SHOT,
+                   *MESH):
         assert f"megatron_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imported_modules(path):
@@ -169,6 +170,13 @@ ZERO_SHOT = ("tasks/zeroshot_gpt/detokenizer.py",
              "tools/bench_block_attn.py", "tools/bench_spec.py",
              "tools/bench_prefix.py", "tools/bench_sync.py")
 
+# the mesh: tensor and sequence parallelism, data parallelism and ZeRO-1
+MESH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+        "parallel/collectives.py", "parallel/sharding.py",
+        "training/train_step.py", "training/optimizer.py",
+        "training/checkpointing.py", "training/loop.py",
+        "training/pretrain.py", "finetune.py", "arguments.py")
+
 FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
               "serving/request.py", "serving/metrics.py",
               "inference/server.py", "tools/chaos_common.py",
@@ -202,6 +210,13 @@ def test_retrieval_modules_import_no_jax(module):
 def test_zero_shot_msdp_bench_modules_import_no_jax(module):
     """The same for the zero-shot, MSDP, buckets and bench tools slice's
     modules (nor `requests`: the card's machine has none)."""
+    _assert_imports_no_jax(module)
+
+
+@pytest.mark.parametrize("module", MESH)
+def test_mesh_modules_import_no_jax(module):
+    """The same for the mesh slice's modules and the training modules it
+    changed."""
     _assert_imports_no_jax(module)
 
 
