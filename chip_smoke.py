@@ -390,9 +390,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    --nproc_per_node 2 -m megatron_tpu_torch.finetune over gloo at tp 2
    with sequence parallelism and the distributed optimizer, saving; the
    unsharded port reloads the checkpoint byte for byte.
+22. Context parallelism, experts and the BERT, T5 and ICT steps under the
+   mesh (`phase_mesh_cp_experts`, last in LANE_A; the note above
+   CP_LAYERS says each part in full). Two rank processes on the card over
+   gloo (the runner of phase 21 (b)), held to one-rank steps run first:
+   (a) at Llama-2-7B's attention widths (s 8,192 split over cp 2, bf16),
+   the ring's full and diagonal blocks with an lse cotangent, the whole
+   ring (the lse's cotangent through the merge reaching the backward
+   kernels) and Ulysses, against their plain versions row by row; (b)
+   Llama-2-7B's width, 2 layers, s 8,192, cp 2 with ring attention and
+   with Ulysses; (c) Mixtral-8x7B's width, 1 layer, at (tp 2, experts on
+   tp, sequence parallel) and (dp 2, experts on dp, ZeRO-1); (d)
+   BERT-base and T5-base at (tp 2, sequence parallel) and ICT at dp 2;
+   (e) torchrun --nproc_per_node 2 -m megatron_tpu_torch.pretrain_bert
+   over gloo at tp 2, its save reloaded by the unsharded port byte for
+   byte.
 
 Phases 1-3b run alone on the card, so that the kernels' times are the
-card's own. Then phases 4-21 run in two lanes at once, each phase in the
+card's own. Then phases 4-22 run in two lanes at once, each phase in the
 order above within its lane: this process runs LANE_A, and a second
 process (`chip_smoke.py --lane ...`, started here and stopped with its own
 processes however the run ends) runs LANE_B, whose lines come through here
@@ -409,8 +424,9 @@ the norm kernels' on every path above, the flash kernels' on phases 8-21
 too, the block kernel's on phases 9, 11-16 and 19 too, its verify rounds
 at w 5 on phases 11, 13 and 14; phase 15's counts are the replica
 processes' whole lives, phase 19's the parts in its own process, phase
-21's its rank processes' sharded steps and its in-process mesh steps) and,
-last, {"ok": true, "device": ...}.
+21's its rank processes' sharded steps and its in-process mesh steps,
+phase 22's its rank processes' sharded steps) and, last, {"ok": true,
+"device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
 
@@ -447,12 +463,13 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
               "torch.int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
-# phases 4-21 in two lanes at once (the module's docstring), balanced by
+# phases 4-22 in two lanes at once (the module's docstring), balanced by
 # the seconds each took in a whole run with phase 21 in LANE_B (PERF.md
 # §6: lane A 495.7 s, lane B 869.7 s on an H100 80GB HBM3 at 700 W). The
 # light 11, 14 and 17 moved to LANE_A (~600 s against ~770 s); 19 stays in
-# LANE_B: beside phase 21's ranks its tasks.main ran the card out of memory
-LANE_A = ("4", "5", "6", "8", "9", "12", "13", "14", "17", "11")
+# LANE_B: beside phase 21's ranks its tasks.main ran the card out of memory.
+# Phase 22 ends the shorter LANE_A; it waits for M22_FREE_BYTES of the card
+LANE_A = ("4", "5", "6", "8", "9", "12", "13", "14", "17", "11", "22")
 LANE_B = ("15", "16", "7", "20", "21", "10", "18", "19")
 # the most a phase waits for the other lane to give back card memory
 LANE_MEMORY_WAIT_S = 900.0
@@ -11233,12 +11250,14 @@ def phase_remat_master(smi: str) -> dict:
 #     processes (`--mesh-rank`) on the card over gloo, Llama-2-7B's
 #     width at MESH_LAYERS layers, fp32 compute (TF32 off), seq 4096, one
 #     global batch of 2 rows, attention and hidden dropout 0.1 from one
-#     generator a step, SGD at lr 1 clipped at 1: (tp 2, sequence parallel)
-#     then (dp 2, ZeRO-1), MESH_STEPS steps each, held against the one-rank
-#     step, which runs first and is freed before the ranks start: lm_loss
-#     and grad_norm within MESH_METRIC_RTOL, every leaf within MESH_PARAM_REL
-#     of its largest update over the run. Each rank prints its step ms, peak
-#     GiB and the bytes its transport handed to gloo.
+#     generator a step, SGD at lr 1 clipped at 1: the "llama" arms of
+#     MESH_ARMS, (tp 2, sequence parallel) then (dp 2, ZeRO-1), in one
+#     process group, MESH_STEPS steps each, held against the one-rank step,
+#     which runs first and is freed before the ranks start: lm_loss and
+#     grad_norm within MESH_METRIC_RTOL, every whole leaf within
+#     MESH_PARAM_REL of its largest update over the run (`mesh_rank_arm`,
+#     which phase 22 runs too). Each rank prints its step ms, peak GiB and
+#     the bytes its transport handed to gloo.
 # (c) NCCL at a world of one rank: make_train_step(cfg, mesh=build_mesh(..))
 #     on the default backend against the unsharded step, bf16 compute with
 #     dropout, MESH_STEPS steps: the same parameters and metrics bit for bit.
@@ -11265,8 +11284,42 @@ MESH_LR = 1.0
 # metrics 8.9e-8
 MESH_PARAM_REL = 1e-2
 MESH_METRIC_RTOL = 1e-5
-MESH_ARMS = {"tp2_sp": dict(tensor_parallel=2, sequence_parallel=True),
-             "dp2_zero1": dict(use_distributed_optimizer=True)}
+# a leaf whose one-rank update is under this share of the run's largest
+# update (over every leaf) has a grad that is zero to rounding; it is held
+# to this share of the run's largest update, every other leaf to
+# MESH_PARAM_REL of its own. Such a leaf must be one of MESH_ZERO_GRAD,
+# whose grads are zero in exact arithmetic: the ICT context tower's
+# ict_head bias, since one vector added to every context shifts each
+# query's scores by a constant, which the softmax ignores (PERF.md §6 PR
+# 24 has the readings, and the smallest update held by MESH_PARAM_REL)
+MESH_ROUNDING_REL = 2.0 ** -20
+MESH_ZERO_GRAD = ("context_model.ict_head.b",)
+# the leaves of every family but "llama" are held on MESH_SAMPLE elements
+# drawn alike on both sides (the CPU tests hold whole leaves)
+MESH_SAMPLE = 1 << 16
+# arm -> (family, parallel config, attention_impl); the one-rank step of a
+# family (`mesh_reference`) serves each of its arms. Phase 21 (b) runs the
+# "llama" arms, phase 22 (b)-(d) the others
+MESH_ARMS = {
+    "tp2_sp": ("llama", dict(tensor_parallel=2, sequence_parallel=True),
+               "flash"),
+    "dp2_zero1": ("llama", dict(use_distributed_optimizer=True), "flash"),
+    "cp2_ring": ("lm", dict(context_parallel=2), "ring"),
+    "cp2_ulysses": ("lm", dict(context_parallel=2), "ulysses"),
+    "moe_tp2_sp": ("moe", dict(tensor_parallel=2, sequence_parallel=True),
+                   "flash"),
+    "moe_dp2_zero1": ("moe", dict(expert_axis="dp",
+                                  use_distributed_optimizer=True), "flash"),
+    "bert_tp2_sp": ("bert", dict(tensor_parallel=2, sequence_parallel=True),
+                    "flash"),
+    "t5_tp2_sp": ("t5", dict(tensor_parallel=2, sequence_parallel=True),
+                  "flash"),
+    "ict_dp2": ("ict", {}, "flash"),
+}
+MESH21_ARMS = ("tp2_sp", "dp2_zero1")
+MESH22_ARMS = tuple(a for a in MESH_ARMS if a not in MESH21_ARMS)
+# the arm of phase 22 (a): the ring's and Ulysses' kernels on live state
+MESH_ATTENTION = "attention"
 MESH_RANK_TIMEOUT_S = 600
 # (b)'s first pair of ranks: two NCCL ranks on the one card, which NCCL
 # refuses ("Duplicate GPU detected"), the reason (b) names gloo
@@ -11274,45 +11327,138 @@ MESH_NCCL_PAIR = "nccl_one_device"
 MESH_NCCL_PAIR_TIMEOUT_S = 120
 
 
-def mesh_config(parallel: dict, world: int, dtype: str):
-    """Llama-2-7B's width at MESH_LAYERS layers, flash attention, dropout,
-    SGD without momentum, on a mesh of `world` ranks."""
+def mesh_config(family: str, parallel: dict, world: int,
+                impl: str = "flash", dtype: str = "float32"):
+    """A family of MESH_ARMS at its phase's widths on a mesh of `world`
+    ranks, fp32 parameters, SGD without momentum at lr MESH_LR clipped at 1:
+    "llama" Llama-2-7B's width at MESH_LAYERS layers with dropout, computing
+    in `dtype`; the others fp32: "lm" Llama-2-7B's at CP_LAYERS layers and
+    s CP_SEQ, "moe" Mixtral-8x7B's, "bert", "t5" and "ict" the base
+    models (see the notes above MESH_LAYERS and CP_LAYERS)."""
     from megatron_tpu_torch import config as tc
-    model = tc.llama2_config("7b", num_layers=MESH_LAYERS,
-                             seq_length=MESH_SEQ, params_dtype="float32",
-                             compute_dtype=dtype,
-                             hidden_dropout=MESH_DROPOUT,
-                             attention_dropout=MESH_DROPOUT)
-    micro = MESH_ROWS // (world // parallel.get("tensor_parallel", 1))
+    from megatron_tpu_torch.models.bert import bert_config
+    from megatron_tpu_torch.models.t5 import t5_config
+    fp32 = dict(params_dtype="float32", compute_dtype="float32")
+    if family == "llama":
+        model = tc.llama2_config("7b", num_layers=MESH_LAYERS,
+                                 seq_length=MESH_SEQ, params_dtype="float32",
+                                 compute_dtype=dtype,
+                                 hidden_dropout=MESH_DROPOUT,
+                                 attention_dropout=MESH_DROPOUT)
+        rows = MESH_ROWS
+    elif family == "lm":
+        model = tc.llama2_config("7b", num_layers=CP_LAYERS,
+                                 seq_length=CP_SEQ, attention_impl=impl,
+                                 **fp32)
+        rows = 1
+    elif family == "moe":
+        model = tc.mixtral_config("8x7b", num_layers=MOE22_LAYERS,
+                                  seq_length=MOE22_SEQ,
+                                  moe_capacity_factor=MOE22_CAPACITY,
+                                  **fp32)
+        rows = 2
+    else:
+        make = t5_config if family == "t5" else bert_config
+        model = make(seq_length=FAM_SEQ, max_position_embeddings=FAM_SEQ,
+                     attention_impl="flash", **fp32)
+        rows = FAM_ROWS
+    tp = parallel.get("tensor_parallel", 1)
+    cp = parallel.get("context_parallel", 1)
+    dp = world // (tp * cp)
     return tc.MegatronConfig(
         model=model, parallel=tc.ParallelConfig(**parallel),
         optimizer=tc.OptimizerConfig(lr=MESH_LR, optimizer="sgd",
                                      sgd_momentum=0.0, clip_grad=1.0,
                                      lr_decay_style="constant"),
-        training=tc.TrainingConfig(micro_batch_size=micro,
-                                   global_batch_size=MESH_ROWS),
+        training=tc.TrainingConfig(micro_batch_size=rows // dp,
+                                   global_batch_size=rows),
     ).validate(n_devices=world)
 
 
-def mesh_batch(i: int):
+def mesh_batch(family: str, cfg, i: int) -> dict:
+    """Step i's global batch of one microbatch, on the card."""
     import numpy as np
     import torch
     rs = np.random.RandomState(MESH_SEED + i)
-    tokens = rs.randint(0, 32000, (1, MESH_ROWS, MESH_SEQ + 1))
-    return {"tokens": torch.from_numpy(tokens).cuda(),
-            "loss_mask": torch.ones(1, MESH_ROWS, MESH_SEQ, device="cuda")}
+    rows = cfg.training.global_batch_size
+    s, v = cfg.model.seq_length, cfg.model.vocab_size
+
+    def pads(lo):
+        return (np.arange(s)[None] < rs.randint(lo, s + 1, (rows, 1))
+                ).astype(np.int64)
+    if family in ("llama", "lm", "moe"):
+        b = {"tokens": rs.randint(0, v, (rows, s + 1)),
+             "loss_mask": np.ones((rows, s), np.float32)}
+    elif family == "bert":
+        b = {"tokens": rs.randint(0, v, (rows, s)),
+             "tokentype_ids": (np.arange(s)[None] >= s // 2).repeat(
+                 rows, 0).astype(np.int64),
+             "labels": rs.randint(0, v, (rows, s)),
+             "loss_mask": (rs.rand(rows, s) < 0.15).astype(np.float32),
+             "is_random": rs.randint(0, 2, (rows,)),
+             "padding_mask": pads(200)}
+    elif family == "t5":
+        b = {"text_enc": rs.randint(0, v, (rows, s)),
+             "text_dec": rs.randint(0, v, (rows, FAM_DEC_SEQ)),
+             "labels": rs.randint(0, v, (rows, FAM_DEC_SEQ)),
+             "loss_mask": (rs.rand(rows, FAM_DEC_SEQ) < 0.8).astype(
+                 np.float32),
+             "enc_mask": pads(200)}
+    else:
+        b = {"query_tokens": rs.randint(0, v, (rows, s)),
+             "context_tokens": rs.randint(0, v, (rows, s)),
+             "query_pad_mask": pads(32), "context_pad_mask": pads(256)}
+    return {k: torch.from_numpy(x[None]).cuda() for k, x in b.items()}
 
 
-def mesh_steps(cfg, state, mesh=None) -> list:
+def mesh_state(family: str, cfg, mesh=None):
+    """A fresh train state of the family from MESH_SEED (this rank's parts
+    on a mesh) and its make_train_step loss (None for the LMs)."""
+    from megatron_tpu_torch.models import bert, biencoder, t5
+    from megatron_tpu_torch.training import init_train_state
+    from megatron_tpu_torch.training.train_step import state_from_params
+    m = cfg.model
+    if family in ("llama", "lm", "moe"):
+        return init_train_state(cfg, seed=MESH_SEED, mesh=mesh), None
+    kw = dict(seed=MESH_SEED, trainable=True, mesh=mesh)
+    if family == "bert":
+        model = bert.BertModel(m, **kw)
+        loss = lambda md, mb, g: bert.bert_loss(md, mb, m)  # noqa: E731
+    elif family == "t5":
+        model = t5.T5Model(m, **kw)
+        loss = lambda md, mb, g: t5.t5_loss(md, mb, m)  # noqa: E731
+    else:
+        model = biencoder.BiencoderModel(m, ict_head_size=ICT_HEAD, **kw)
+        loss = lambda md, mb, g: biencoder.retrieval_loss(  # noqa: E731
+            md, mb, m)[0]
+    return state_from_params(model, cfg), loss
+
+
+def mesh_sample(family: str, name: str, t) -> "torch.Tensor":
+    """A leaf as an fp32 copy on the host: whole for "llama", else
+    MESH_SAMPLE elements at places drawn from its name (all of a smaller
+    leaf)."""
+    import zlib
+
+    import torch
+    flat = t.detach().reshape(-1)
+    if family != "llama" and flat.numel() > MESH_SAMPLE:
+        gen = torch.Generator().manual_seed(zlib.crc32(name.encode()))
+        idx = torch.randint(0, flat.numel(), (MESH_SAMPLE,), generator=gen)
+        flat = flat[idx.to(flat.device)]
+    return flat.to("cpu", torch.float32, copy=True)
+
+
+def mesh_steps(family: str, cfg, state, loss=None, mesh=None) -> list:
     """MESH_STEPS steps, step i's generator seeded with MESH_SEED + i; per
     step its metrics, wall ms (synchronised) and flash launches."""
     import torch
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
     from megatron_tpu_torch.training import make_train_step
-    step = make_train_step(cfg, mesh=mesh)
+    step = make_train_step(cfg, mesh=mesh, loss_fn=loss)
     out = []
     for i in range(MESH_STEPS):
-        batch = mesh_batch(i)
+        batch = mesh_batch(family, cfg, i)
         gen = torch.Generator().manual_seed(MESH_SEED + i)
         fc.reset_launch_counts()
         torch.cuda.synchronize()
@@ -11323,6 +11469,150 @@ def mesh_steps(cfg, state, mesh=None) -> list:
                         launches=fc.launch_counts(),
                         **{k: float(v) for k, v in m.items()}))
     return out
+
+
+def mesh_reference(family: str, root: str) -> dict:
+    """A family's one-rank steps: their metrics, and root/ref_<family>.pt
+    (each leaf after the run, `mesh_sample`, and its largest update), which
+    the ranks read."""
+    import os
+
+    import torch
+    cfg = mesh_config(family, {}, 1, "ring" if family == "lm" else "flash")
+    state, loss = mesh_state(family, cfg)
+    first = {k: mesh_sample(family, k, p) for k, p in
+             state.params.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    steps = mesh_steps(family, cfg, state, loss)
+    final = {k: mesh_sample(family, k, p) for k, p in
+             state.params.named_parameters()}
+    torch.save(dict(final=final, update={
+        k: (final[k] - first[k]).abs().max().item() for k in first}),
+        os.path.join(root, f"ref_{family}.pt"))
+    out = dict(steps=steps,
+               parameters=sum(p.numel() for p in state.params.parameters()),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, first, final
+    gc_cuda()
+    return out
+
+
+def mesh_rank_arm(arm: str, root: str) -> dict:
+    """One arm of MESH_ARMS on this rank; rank 0 holds each whole leaf
+    (`mesh_sample` of it) to the one-rank step's, by MESH_PARAM_REL of its
+    update or, for a leaf whose update is rounding, MESH_ROUNDING_REL of
+    the run's largest."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    family, parallel, impl = MESH_ARMS[arm]
+    cfg = mesh_config(family, parallel, 2, impl)
+    mesh = build_mesh(cfg.parallel)
+    state, loss = mesh_state(family, cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    steps = mesh_steps(family, cfg, state, loss, mesh)
+    out = dict(arm=arm, rank=mesh.rank, steps=steps,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               collective_bytes=mesh.transport.bytes)
+    placed = ckpt.sharded_leaves(state)
+    ref = (torch.load(os.path.join(root, f"ref_{family}.pt"))
+           if mesh.rank == 0 else None)
+    if ref is not None:
+        largest = max(ref["update"].values())
+        check(largest > 0, f"{arm}: the one-rank run moved no leaf")
+        floor = MESH_ROUNDING_REL * largest
+    worst, held, rounding = 0.0, None, {}
+    for k, p in state.params.named_parameters():
+        whole = placed.whole(k.replace(".", "/"), p.detach())
+        if ref is None:
+            continue
+        diff = (mesh_sample(family, k, whole)
+                - ref["final"][k]).abs().max().item()
+        update = ref["update"][k]
+        if update <= floor:
+            check(k in MESH_ZERO_GRAD, f"{arm}: {k}'s update {update} is "
+                  f"under {MESH_ROUNDING_REL} of the largest, {largest}")
+            check(diff <= floor, f"{arm}: {k}, whose update {update} is "
+                  f"rounding, differs by {diff} (limit {floor})")
+            rounding[k] = dict(diff=diff, update=update, limit=floor)
+            continue
+        check(diff <= MESH_PARAM_REL * update, f"{arm}: {k} differs by "
+              f"{diff}, update {update}")
+        worst = max(worst, diff / update)
+        held = update / largest if held is None else min(held,
+                                                         update / largest)
+    out.update(worst_diff_over_update=worst, rounding_leaves=rounding,
+               smallest_held_update_share=held)
+    del state, placed
+    gc_cuda()
+    return out
+
+
+def mesh_rank(rank: int, port: int, root: str, arms: list) -> int:
+    """`--mesh-rank`: one of two ranks over gloo running `arms` of
+    MESH_ARMS (and MESH_ATTENTION, phase 22 (a)) in order in one process
+    group, which writes root/rank<r>.json; or, for [MESH_NCCL_PAIR], one of
+    two NCCL ranks on the one card, whose first all-reduce NCCL refuses
+    (the process then fails)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    if arms == [MESH_NCCL_PAIR]:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2)
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        log(f"rank {rank}: NCCL all-reduced over two ranks on one device: "
+            f"{one.item()}")
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        out = dict(rank=rank, arms={})
+        for arm in arms:
+            t0 = time.perf_counter()
+            if arm == MESH_ATTENTION:
+                rec = mesh_attention_check(
+                    build_mesh(ParallelConfig(context_parallel=2)))
+            else:
+                rec = mesh_rank_arm(arm, root)
+            rec["seconds"] = time.perf_counter() - t0
+            out["arms"][arm] = rec
+            log(f"rank {rank} {arm}: {rec['seconds']:.1f} s")
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_ranks(arms, root: str) -> tuple:
+    """Two `--mesh-rank` processes of `arms` on a free port, each writing
+    its output to root/rank<r>.log: (processes, log paths)."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", os.path.abspath(__file__),
+                 "--mesh-rank", f"{r},{port},{'+'.join(arms)},{root}"],
+                stdout=out, stderr=subprocess.STDOUT))
+    return procs, logs
 
 
 def mesh_kernels() -> dict:
@@ -11413,98 +11703,6 @@ def mesh_kernels() -> dict:
     return stats
 
 
-def mesh_reference(root: str) -> dict:
-    """(b)'s one-rank step: its metrics, each leaf's largest update, and
-    its final parameters written to root for the ranks."""
-    import os
-
-    import torch
-    from megatron_tpu_torch.training import init_train_state
-    cfg = mesh_config({}, 1, "float32")
-    state = init_train_state(cfg, seed=MESH_SEED)
-    first = {k: p.detach().clone() for k, p in
-             state.params.named_parameters()}
-    torch.cuda.reset_peak_memory_stats()
-    steps = mesh_steps(cfg, state)
-    final = dict(state.params.named_parameters())
-    update = {k: (final[k].detach() - first[k]).abs().max().item()
-              for k in first}
-    torch.save({k: p.detach().cpu() for k, p in final.items()},
-               os.path.join(root, "reference.pt"))
-    out = dict(steps=steps, update=update,
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    del state, first, final
-    gc_cuda()
-    return out
-
-
-def mesh_rank(rank: int, arm: str, port: int, root: str) -> int:
-    """`--mesh-rank`: one rank of (b) over gloo, which writes rank<r>.json;
-    or, for the arm MESH_NCCL_PAIR, one of two NCCL ranks on the one card,
-    whose first all-reduce NCCL refuses (the process then fails)."""
-    import os
-
-    import torch
-    import torch.distributed as dist
-    from megatron_tpu_torch.parallel.mesh import build_mesh
-    from megatron_tpu_torch.training import checkpointing as ckpt
-    from megatron_tpu_torch.training import init_train_state
-    if arm == MESH_NCCL_PAIR:
-        torch.cuda.set_device(0)
-        dist.init_process_group("nccl",
-                                init_method=f"tcp://127.0.0.1:{port}",
-                                rank=rank, world_size=2)
-        one = torch.ones(1, device="cuda")
-        dist.all_reduce(one)
-        torch.cuda.synchronize()
-        log(f"rank {rank}: NCCL all-reduced over two ranks on one device: "
-            f"{one.item()}")
-        return 0
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
-    try:
-        cfg = mesh_config(MESH_ARMS[arm], 2, "float32")
-        mesh = build_mesh(cfg.parallel)
-        state = init_train_state(cfg, seed=MESH_SEED, mesh=mesh)
-        torch.cuda.reset_peak_memory_stats()
-        steps = mesh_steps(cfg, state, mesh)
-        out = dict(rank=rank, arm=arm, steps=steps,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   collective_bytes=mesh.transport.bytes)
-        placed = ckpt.sharded_leaves(state)
-        whole = {k: placed.whole(k.replace(".", "/"), p.detach())
-                 for k, p in state.params.named_parameters()}
-        if rank == 0:
-            ref = torch.load(os.path.join(root, "reference.pt"))
-            out["max_abs_diff"] = {
-                k: (w - ref[k].cuda()).abs().max().item()
-                for k, w in whole.items()}
-        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
-    return 0
-
-
-def start_mesh_ranks(arm: str, root: str) -> tuple:
-    """Two `--mesh-rank` processes of `arm` on a free port, each writing its
-    output to root/<arm>_rank<r>.log: (processes, log paths)."""
-    import os
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    logs = [os.path.join(root, f"{arm}_rank{r}.log") for r in range(2)]
-    procs = []
-    for r in range(2):
-        with open(logs[r], "w") as out:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-u", os.path.abspath(__file__),
-                 "--mesh-rank", f"{r},{arm},{port},{root}"],
-                stdout=out, stderr=subprocess.STDOUT))
-    return procs, logs
 
 
 def wait_mesh_ranks(procs, logs, timeout=MESH_RANK_TIMEOUT_S) -> list:
@@ -11531,7 +11729,7 @@ def wait_mesh_ranks(procs, logs, timeout=MESH_RANK_TIMEOUT_S) -> list:
 def mesh_nccl_pair(root: str) -> dict:
     """NCCL refuses two ranks on one device: both ranks of MESH_NCCL_PAIR
     must fail, NCCL's "Duplicate GPU detected" in their output."""
-    ranks = wait_mesh_ranks(*start_mesh_ranks(MESH_NCCL_PAIR, root),
+    ranks = wait_mesh_ranks(*start_mesh_ranks([MESH_NCCL_PAIR], root),
                             timeout=MESH_NCCL_PAIR_TIMEOUT_S)
     messages = []
     for r, (rc, text) in enumerate(ranks):
@@ -11544,46 +11742,68 @@ def mesh_nccl_pair(root: str) -> dict:
     return dict(messages=messages)
 
 
+
 def mesh_two_ranks(root: str, smi: str) -> dict:
     """(b): see the note above MESH_LAYERS."""
-    import os
     stats = dict(nccl_pair=mesh_nccl_pair(root))
-    torch_ref = mesh_reference(root)
+    torch_ref = mesh_reference("llama", root)
     log(f"mesh (b) one rank: {json.dumps(torch_ref['steps'])}, peak "
         f"{torch_ref['peak_gib']:.2f} GiB ({smi})")
     stats["reference"] = torch_ref
-    for arm in MESH_ARMS:
-        for r, (rc, text) in enumerate(wait_mesh_ranks(
-                *start_mesh_ranks(arm, root))):
-            check(rc == 0, f"mesh (b) {arm} rank {r} failed ({rc}):\n"
-                  f"{text[-4000:]}")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+    stats.update(mesh_run_ranks("mesh (b)", MESH21_ARMS, root, smi,
+                                {"llama": torch_ref}, MESH_RANK_TIMEOUT_S))
+    return stats
+
+
+
+def mesh_run_ranks(label: str, arms, root: str, smi: str, references: dict,
+                   timeout: float) -> dict:
+    """Two `--mesh-rank` processes running `arms`, held to the one-rank
+    steps of `references` (family -> its `mesh_reference`): lm_loss and
+    grad_norm within MESH_METRIC_RTOL, both ranks' losses equal (the
+    leaves are held in the ranks). Returns arm -> its ranks' records
+    (MESH_ATTENTION: the list of them)."""
+    import os
+    for r, (rc, text) in enumerate(wait_mesh_ranks(
+            *start_mesh_ranks(arms, root), timeout=timeout)):
+        check(rc == 0, f"{label} rank {r} failed ({rc}):\n{text[-6000:]}")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    out = {}
+    for arm in arms:
+        ranks = [rec["arms"][arm] for rec in recs]
+        if arm == MESH_ATTENTION:
+            out[arm] = ranks
+            log(f"{label} (a): {json.dumps(ranks)}")
+            continue
+        want = references[MESH_ARMS[arm][0]]["steps"]
+        for st, w in zip(ranks[0]["steps"], want):
+            for key in ("lm_loss", "grad_norm"):
+                rel = abs(st[key] - w[key]) / abs(w[key])
+                check(rel <= MESH_METRIC_RTOL, f"{label} {arm}: {key} "
+                      f"{st[key]} vs one rank's {w[key]} (rel {rel})")
+        check(ranks[1]["steps"][-1]["lm_loss"]
+              == ranks[0]["steps"][-1]["lm_loss"],
+              f"{label} {arm}: the ranks report different losses")
         for rec in ranks:
-            log(f"mesh (b) {arm} rank {rec['rank']}: step ms "
+            log(f"{label} {arm} rank {rec['rank']}: step ms "
                 f"{[round(st['ms'], 1) for st in rec['steps']]}, peak "
                 f"{rec['peak_gib']:.2f} GiB, collective bytes "
                 f"{rec['collective_bytes']} ({smi})")
-        for st, want in zip(ranks[0]["steps"], torch_ref["steps"]):
-            for key in ("lm_loss", "grad_norm"):
-                rel = abs(st[key] - want[key]) / abs(want[key])
-                check(rel <= MESH_METRIC_RTOL, f"mesh (b) {arm}: {key} "
-                      f"{st[key]} vs one rank's {want[key]} (rel {rel})")
-        check(ranks[1]["steps"][-1]["lm_loss"]
-              == ranks[0]["steps"][-1]["lm_loss"],
-              f"mesh (b) {arm}: the ranks report different losses")
-        worst = 0.0
-        for k, diff in ranks[0]["max_abs_diff"].items():
-            upd = torch_ref["update"][k]
-            check(upd > 0 and diff <= MESH_PARAM_REL * upd,
-                  f"mesh (b) {arm}: {k} differs by {diff}, update {upd}")
-            worst = max(worst, diff / upd)
-        stats[arm] = dict(ranks=ranks, worst_diff_over_update=worst)
-        log(f"mesh (b) {arm}: the largest parameter difference is "
-            f"{worst:.3g} of its leaf's update (limit {MESH_PARAM_REL})")
-    return stats
+        head = ranks[0]
+        log(f"{label} {arm}: loss {[s['lm_loss'] for s in head['steps']]} "
+            f"vs {[s['lm_loss'] for s in want]}; the largest parameter "
+            f"difference is {head['worst_diff_over_update']:.3g} of its "
+            f"leaf's update (limit {MESH_PARAM_REL}), the smallest update "
+            f"so held {head['smallest_held_update_share']:.3g} of the "
+            f"largest; leaves whose update is rounding: "
+            f"{json.dumps(head['rounding_leaves'])}")
+        out[arm] = dict(ranks=ranks,
+                        worst_diff_over_update=head["worst_diff_over_update"],
+                        rounding_leaves=head["rounding_leaves"])
+    return out
 
 
 def mesh_nccl_world1() -> dict:
@@ -11609,10 +11829,10 @@ def mesh_nccl_world1() -> dict:
               "mesh (c): an NCCL all-reduce of one rank changed its input")
         runs = {}
         for name in ("unsharded", "mesh"):
-            cfg = mesh_config({}, 1, "bfloat16")
+            cfg = mesh_config("llama", {}, 1, dtype="bfloat16")
             mesh = build_mesh(ParallelConfig()) if name == "mesh" else None
             state = init_train_state(cfg, seed=MESH_SEED, mesh=mesh)
-            steps = mesh_steps(cfg, state, mesh)
+            steps = mesh_steps("llama", cfg, state, mesh=mesh)
             runs[name] = dict(steps=steps, params={
                 k: p.detach().clone() for k, p in
                 state.params.named_parameters()})
@@ -11714,12 +11934,286 @@ def phase_mesh(smi: str) -> dict:
         part("entry_point", mesh_entry_point, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    counted = [st["launches"] for arm in MESH_ARMS
+    counted = [st["launches"] for arm in MESH21_ARMS
                for rec in stats["two_ranks"][arm]["ranks"]
                for st in rec["steps"]]
     counted += [st["launches"] for st in stats["nccl_world1"]["steps"]]
     stats["launches"] = {k: sum(c[k] for c in counted) for k in counted[0]}
     log(f"phase 21: launches {stats['launches']}")
+    return stats
+
+
+
+
+# Phase 22: context parallelism, experts and the BERT, T5 and ICT steps
+# under the mesh, on one card. Two rank processes (`--mesh-rank`, as phase
+# 21 (b)) over gloo (NCCL refuses two ranks on one card, phase 21 (b)) run
+# (a) and the MESH22_ARMS in one process group, after the one-rank steps
+# they are held against have run here and been freed.
+# (a) in the ranks first, each rank's q, k, v [1, CP_SEQ / 2, 32, 128] bf16
+#     (the cp 2 split of s CP_SEQ at Llama-2-7B's attention widths) and one
+#     cotangent, against their plain versions: the zigzag ring's two block
+#     classes on this rank's chunks (s CP_SEQ / 4 each), "full" (a later
+#     query chunk against an earlier key chunk, no mask) and "diag" (a
+#     chunk against itself, causal), each through flash_attention_with_lse
+#     with a cotangent on its lse too (the dQ and dK/dV kernels' `dlse`)
+#     against `_local_block_attention`; "ring", the whole ring in the
+#     layout the LM loss pre-permutes its batch into, whose backward takes
+#     the lse's cotangent through the merge, against the ring over the
+#     plain block; "ulysses" against the plain ring over the same rows.
+#     Each output row and each dq, dk, dv row is held by its largest error
+#     over its reference row's norm (`row_err`), as phase 20 (e), so a
+#     wrong merge weight or a dropped tile fails on a late row of small
+#     values as on an early one; a grad row's norm is floored at
+#     M22_GRAD_ROW_FLOOR of the largest (the first query's dq is zero
+#     under the causal mask and the last keys' dk, dv nearly so); a block's
+#     lse is held absolutely. Not counted.
+# (b) the decoder LM at Llama-2-7B's widths, CP_LAYERS layers, s CP_SEQ,
+#     one row, fp32 compute (TF32 off) and no dropout (which sends attention
+#     off the ring): cp 2 with ring attention, then with Ulysses.
+# (c) Mixtral-8x7B's widths at MOE22_LAYERS layer, s MOE22_SEQ, 2 rows,
+#     capacity factor 1.25 (the Switch default, which drops), fp32: (tp 2,
+#     experts on tp, sequence parallel) and (dp 2, experts on dp, ZeRO-1).
+# (d) BERT-base and T5-base (12 + 12 layers) at (tp 2, sequence parallel)
+#     and the ICT biencoder (two BERT-base towers, ict_head 128) at dp 2, s
+#     FAM_SEQ (T5's decoder FAM_DEC_SEQ), FAM_ROWS rows, fp32.
+#     (b)-(d) train MESH_STEPS steps with SGD at lr 1 clipped at 1, held to
+#     the one-rank step of the same global batches and seed by
+#     `mesh_rank_arm` and `mesh_run_ranks`: lm_loss and grad_norm within
+#     MESH_METRIC_RTOL; each leaf, read on MESH_SAMPLE elements drawn alike
+#     on both sides, within MESH_PARAM_REL of its largest update over the
+#     run, or within MESH_ROUNDING_REL of the run's largest update where
+#     its own update is under that (a grad zero to rounding). Each rank
+#     prints its step ms, peak GiB and the bytes its transport handed to
+#     gloo; the flash kernels' launches of the sharded steps are counted,
+#     each step from zero.
+# (e) torchrun --nproc_per_node 2 -m megatron_tpu_torch.pretrain_bert over
+#     gloo at tp 2 with sequence parallelism (phase 17's BERT corpus and
+#     flags, BERT-base's width at 2 layers), saving at iteration 2 without
+#     its moments; the unsharded port loads the checkpoint, every parameter
+#     byte for byte the file's.
+CP_LAYERS = 2
+CP_SEQ = 8192
+MOE22_LAYERS = 1
+MOE22_SEQ = 2048
+MOE22_CAPACITY = 1.25
+FAM_SEQ, FAM_DEC_SEQ, FAM_ROWS = 512, 128, 8
+ICT_HEAD = 128
+# (a)'s limits on a row's largest error over its reference norm: the
+# output's is phase 20 (e)'s (LONG_TOL_OUT_ROW; read 2.9e-3 on the card,
+# PERF.md §6 PR 24); the grads' is this, each grad row's norm floored at
+# M22_GRAD_ROW_FLOOR of the tensor's largest. The first query rows set
+# it: a row of 2 or 4 keys has a dS of two or four terms that cancel,
+# each rounded in bf16 from a delta of the rounded output, and read 1.03e-2
+# to 1.81e-2 (dq of rows 1 and 3); every other row read under 4.7e-3. The
+# blocks' lse within LONG_TOL_LSE. A dropped 128-key tile moves a later
+# row's grads by ~sqrt(128 / its keys), over 0.1 at s CP_SEQ / 2; a
+# misweighted merge moves the output, and a lost dlse term the grads, by
+# far more than these limits
+M22_TOL_GRAD_ROW = 3e-2
+M22_GRAD_ROW_FLOOR = 2.0 ** -10
+M22_RANK_TIMEOUT_S = 900
+# the card memory the one-rank steps and then the two ranks need free: the
+# Mixtral one-rank step peaked at 22.3 GiB, its ranks at 15.2 GiB each on
+# an H100 80GB HBM3 (PERF.md §6)
+M22_FREE_BYTES = 32 * 2 ** 30
+
+
+def row_err(got, want, floor: float = 0.0) -> tuple:
+    """Over the rows (the last dim) of [1, s, heads, d] tensors, the
+    largest of a row's largest error over its reference row's norm, each
+    norm floored at `floor` of the largest row norm; and the sequence
+    position of that row."""
+    want = want.float()
+    err = (got.float() - want).abs().amax(-1)
+    norm = want.norm(dim=-1)
+    least = max(floor * norm.max().item(), 1e-30)
+    ratio = (err / norm.clamp_min(least)).amax(-1).flatten()
+    return ratio.max().item(), int(ratio.argmax())
+
+
+def mesh_attention_check(mesh) -> dict:
+    """(a), on each rank: see the note above CP_LAYERS."""
+    import torch
+    from megatron_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse)
+    from megatron_tpu_torch.parallel.ring_attention import (
+        _local_block_attention, ring_attention)
+    from megatron_tpu_torch.parallel.ulysses import ulysses_attention
+    s, n, d = CP_SEQ // 2, 32, 128
+    c, scale = s // 2, d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(22 + mesh.rank)
+    q, k, v, dout = (torch.randn(1, s, n, d, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    dlse = torch.randn(1, n, c, generator=gen, device="cuda")
+    pos = torch.arange(c, device="cuda")
+
+    def run(fn, rows=slice(None), keys=slice(None)):
+        ts = [t.clone().requires_grad_(True)
+              for t in (q[:, rows], k[:, keys], v[:, keys])]
+        out, lse = fn(*ts)
+        loss = (out.float() * dout[:, rows].float()).sum()
+        if lse is not None:
+            loss = loss + (lse * dlse).sum()
+        loss.backward()
+        return dict(out=out.detach(), lse=lse, dq=ts[0].grad,
+                    dk=ts[1].grad, dv=ts[2].grad)
+
+    def plain_block(causal):
+        def fn(a, b, cc):
+            out, lse = _local_block_attention(a, b, cc, pos, pos,
+                                              scale=scale, causal=causal)
+            return out, lse.transpose(1, 2)
+        return fn
+
+    def kernel_block(causal):
+        return lambda a, b, cc: flash_attention_with_lse(
+            a, b, cc, causal=causal, scale=scale)
+
+    cases = {
+        "full": (kernel_block(False), plain_block(False), slice(c, s),
+                 slice(0, c)),
+        "diag": (kernel_block(True), plain_block(True), slice(0, c),
+                 slice(0, c)),
+        "ring": (lambda a, b, cc: (ring_attention(
+            a, b, cc, mesh, layout="pre_zigzag"), None),
+            lambda a, b, cc: (ring_attention(
+                a, b, cc, mesh, layout="pre_zigzag", impl="plain"), None),
+            slice(None), slice(None)),
+        # Ulysses keeps the contiguous split: its plain twin is the plain
+        # ring over the same rows
+        "ulysses": (lambda a, b, cc: (ulysses_attention(a, b, cc, mesh),
+                                      None),
+                    lambda a, b, cc: (ring_attention(
+                        a, b, cc, mesh, layout="contiguous",
+                        impl="plain"), None),
+                    slice(None), slice(None))}
+    # every reading first, then the limits, so that a failure reports all
+    stats, finite, limits = {}, True, []
+    for name, (kernel, plain, rows, keys) in cases.items():
+        want = run(plain, rows, keys)
+        got = run(kernel, rows, keys)
+        errs = dict(out_abs=(got["out"].float() - want["out"].float()
+                             ).abs().max().item())
+        errs["out"], errs["out_at"] = row_err(got["out"], want["out"])
+        limits.append((name, "out", LONG_TOL_OUT_ROW))
+        if got["lse"] is not None:
+            errs["lse"] = (got["lse"].detach()
+                           - want["lse"].detach()).abs().max().item()
+            limits.append((name, "lse", LONG_TOL_LSE))
+        for label in ("out", "dq", "dk", "dv"):
+            finite &= bool(torch.isfinite(got[label]).all())
+            if label != "out":
+                errs[label], errs[f"{label}_at"] = row_err(
+                    got[label], want[label], M22_GRAD_ROW_FLOOR)
+                limits.append((name, label, M22_TOL_GRAD_ROW))
+        stats[name] = errs
+        del got, want
+    gc_cuda()
+    log(f"(a) rank {mesh.rank}: {json.dumps(stats)}")
+    check(finite, f"(a) rank {mesh.rank}: a kernel gave a non-finite value")
+    for name, label, limit in limits:
+        check(stats[name][label] <= limit, f"(a) {name} rank {mesh.rank}: "
+              f"{label} error {stats[name][label]} (limit {limit}; a row's "
+              f"error over its norm but for the lse)")
+    return stats
+
+
+def mesh22_entry_point(root: str) -> dict:
+    """(e): see the note above CP_LAYERS."""
+    import os
+
+    import torch
+    from megatron_tpu_torch.models.bert import BertModel
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    from megatron_tpu_torch.training.train_step import TrainState
+    corpus = bt_corpus(root, "bert")
+    save = os.path.join(root, "bert_ckpt")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "megatron_tpu_torch.pretrain_bert",
+            *bt_argv("bert", corpus, "--distributed_backend", "gloo",
+                     "--tensor_model_parallel_size", "2",
+                     "--sequence_parallel", "--save", save,
+                     "--exit_interval", "2", "--no_save_optim", layers=2)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=M22_RANK_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(e): torchrun exited {proc.returncode}:"
+          f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    losses = re.findall(r"lm loss: ([0-9.E+-]+)", proc.stdout)
+    check(len(losses) == 2 and all(math.isfinite(float(x)) for x in losses),
+          f"(e): lm losses {losses}")
+    d = ckpt.tracked_dir(save)
+    cfg = ckpt.load_config_from_checkpoint(save)
+    check(cfg.parallel.tensor_parallel == 2, "(e) config.json parallel")
+    model = BertModel(cfg.model.derived())
+    loaded = ckpt.load_checkpoint(save, TrainState(model, None, 0),
+                                  no_load_optim=True)
+    check(loaded.iteration == 2, f"(e): loaded iteration "
+          f"{loaded.iteration}")
+    arrays = ckpt.read_params(d)
+    names = dict(model.named_parameters())
+    check(sorted(arrays) == sorted(k.replace(".", "/") for k in names),
+          "(e): the checkpoint's leaves are not the model's")
+    for k, p in names.items():
+        check(ckpt.tensor_to_numpy(p).tobytes()
+              == arrays[k.replace(".", "/")].tobytes(),
+              f"(e): reloaded {k} differs from the checkpoint's")
+    out = dict(seconds=seconds, lm_losses=[float(x) for x in losses],
+               leaves=len(arrays))
+    del model, names
+    torch.cuda.empty_cache()
+    log("mesh22 (e): " + json.dumps(out))
+    return out
+
+
+def phase_mesh_cp_experts(smi: str) -> dict:
+    """Phase 22: context parallelism, experts and the BERT/T5/ICT steps
+    under the mesh, parts (a)-(e) (see the note above CP_LAYERS). The
+    launch counts are the ranks' sharded steps'."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc_cuda()
+    deadline = time.monotonic() + LANE_MEMORY_WAIT_S
+    while (free := torch.cuda.mem_get_info()[0]) < M22_FREE_BYTES:
+        check(time.monotonic() < deadline, f"the card holds only "
+              f"{free / 2 ** 30:.1f} GiB free before phase 22")
+        time.sleep(1.0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh22_")
+    stats = dict(card=smi, references={})
+    try:
+        t0 = time.perf_counter()
+        for family in ("lm", "moe", "bert", "t5", "ict"):
+            stats["references"][family] = ref = mesh_reference(family, root)
+            log(f"mesh22 one rank {family}: {ref['parameters']} parameters,"
+                f" step ms {[round(s['ms'], 1) for s in ref['steps']]}, "
+                f"peak {ref['peak_gib']:.2f} GiB ({smi})")
+        stats["references_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["arms"] = mesh_run_ranks(
+            "mesh22", (MESH_ATTENTION,) + MESH22_ARMS, root, smi,
+            stats["references"], M22_RANK_TIMEOUT_S)
+        stats["attention"] = stats["arms"].pop(MESH_ATTENTION)
+        stats["ranks_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["entry_point"] = mesh22_entry_point(root)
+        stats["entry_point"]["part_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counted = [st["launches"] for arm in stats["arms"].values()
+               for rec in arm["ranks"] for st in rec["steps"]]
+    stats["launches"] = {k: sum(c[k] for c in counted) for k in counted[0]}
+    check(all(stats["launches"][k] > 0 for k in
+              ("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda")),
+          f"phase 22: a flash kernel never launched: {stats['launches']}")
+    log(f"phase 22: launches {stats['launches']}")
     return stats
 
 
@@ -11730,7 +12224,8 @@ PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "14": phase_structured_degrade, "15": phase_fleet,
           "16": phase_moe, "17": phase_bert_t5,
           "18": phase_retrieval_tasks, "19": phase_zeroshot_msdp_bench,
-          "20": phase_remat_master, "21": phase_mesh}
+          "20": phase_remat_master, "21": phase_mesh,
+          "22": phase_mesh_cp_experts}
 
 
 class Lane:
@@ -11839,8 +12334,9 @@ def main(argv=None) -> int:
                         help="where --lane writes its phases' results")
     parser.add_argument("--smi", help="--lane: the card's nvidia-smi line")
     parser.add_argument(
-        "--mesh-rank", metavar="RANK,ARM,PORT,DIR",
-        help="run one rank of phase 21 (b) (the smoke run starts two)")
+        "--mesh-rank", metavar="RANK,PORT,ARM[+ARM...],DIR",
+        help="run one rank of these arms of phase 21 (b) or 22 (a)-(d) "
+             "(the smoke run starts two)")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -11860,8 +12356,8 @@ def main(argv=None) -> int:
     if args.lane:
         return run_lane(args.lane.split(","), args.lane_out, args.smi)
     if args.mesh_rank:
-        rank, arm, port, root = args.mesh_rank.split(",", 3)
-        return mesh_rank(int(rank), arm, int(port), root)
+        rank, port, arms, root = args.mesh_rank.split(",", 3)
+        return mesh_rank(int(rank), int(port), root, arms.split("+"))
     compares = [(fn, path) for fn, path in (
         (compare_forward, args.compare_fwd),
         (compare_backward, args.compare_bwd),
@@ -11919,7 +12415,8 @@ def main(argv=None) -> int:
     (main_stats, engine_stats, int8_stats, train_stats, pretrain_stats,
      toolchain_stats, window_stats, feature_stats, front_stats, lora_stats,
      struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats, zs_stats,
-     remat_stats, mesh_stats) = (stats[str(n)] for n in range(4, 22))
+     remat_stats, mesh_stats, cpx_stats) = (stats[str(n)]
+                                            for n in range(4, 23))
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
     window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
@@ -11961,6 +12458,9 @@ def main(argv=None) -> int:
     # phase 21's sharded steps: (b)'s two rank processes and (c)'s mesh
     # steps, each step counted from zero
     mesh_counts = mesh_stats["launches"]
+    # phase 22's sharded steps in its two rank processes, each step
+    # counted from zero
+    cpx_counts = cpx_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -11996,7 +12496,8 @@ def main(argv=None) -> int:
               + rt_counts["flash_fwd_cuda"]
               + zs_counts_["flash_fwd_cuda"]
               + remat_counts["flash_fwd_cuda"]
-              + mesh_counts["flash_fwd_cuda"], "fwd",
+              + mesh_counts["flash_fwd_cuda"]
+              + cpx_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -12023,6 +12524,7 @@ def main(argv=None) -> int:
                   zeroshot_msdp_bench=zs_counts_["flash_fwd_cuda"],
                   remat_master=remat_counts["flash_fwd_cuda"],
                   mesh=mesh_counts["flash_fwd_cuda"],
+                  mesh_cp_experts=cpx_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -12053,7 +12555,8 @@ def main(argv=None) -> int:
               + rt_counts["flash_bwd_dq_cuda"]
               + zs_counts_["flash_bwd_dq_cuda"]
               + remat_counts["flash_bwd_dq_cuda"]
-              + mesh_counts["flash_bwd_dq_cuda"], "dq",
+              + mesh_counts["flash_bwd_dq_cuda"]
+              + cpx_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -12069,7 +12572,8 @@ def main(argv=None) -> int:
                        zeroshot_msdp_bench=zs_counts_[
                            "flash_bwd_dq_cuda"],
                        remat_master=remat_counts["flash_bwd_dq_cuda"],
-                       mesh=mesh_counts["flash_bwd_dq_cuda"]),
+                       mesh=mesh_counts["flash_bwd_dq_cuda"],
+                       mesh_cp_experts=cpx_counts["flash_bwd_dq_cuda"]),
                    long_context=dict(shape=long_context["shape"],
                                      **long_context["dq"]),
                    mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["dq"],
@@ -12085,7 +12589,8 @@ def main(argv=None) -> int:
               + rt_counts["flash_bwd_dkv_cuda"]
               + zs_counts_["flash_bwd_dkv_cuda"]
               + remat_counts["flash_bwd_dkv_cuda"]
-              + mesh_counts["flash_bwd_dkv_cuda"], "dkv",
+              + mesh_counts["flash_bwd_dkv_cuda"]
+              + cpx_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -12104,7 +12609,8 @@ def main(argv=None) -> int:
                        zeroshot_msdp_bench=zs_counts_[
                            "flash_bwd_dkv_cuda"],
                        remat_master=remat_counts["flash_bwd_dkv_cuda"],
-                       mesh=mesh_counts["flash_bwd_dkv_cuda"]),
+                       mesh=mesh_counts["flash_bwd_dkv_cuda"],
+                       mesh_cp_experts=cpx_counts["flash_bwd_dkv_cuda"]),
                    long_context=dict(shape=long_context["shape"],
                                      **long_context["dkv"]),
                    mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["dkv"],

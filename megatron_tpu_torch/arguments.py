@@ -5,12 +5,13 @@ The flags keep the reference's names and defaults, so a launch line of
 `finetune.py` runs `python -m megatron_tpu_torch.finetune` unchanged. The
 port parses the model, training, optimizer, data and resilience groups and
 the reference-compat aliases of this path. A flag whose feature the port
-does not run yet raises NotImplementedError naming its ROADMAP item:
-pipeline or context parallelism, the interleaved pipeline and
-`--expert_axis dp` (Queue 1 item 7). `--tensor_model_parallel_size`,
-`--sequence_parallel` and `--use_distributed_optimizer` shard the decoder
-LM's step over a (dp, tp) mesh of the ranks that torchrun starts
-(`parse_cli(n_devices=...)` derives dp from their count), and
+does not run yet raises NotImplementedError naming its ROADMAP item: the
+pipeline and the interleaved pipeline (Queue 1 item 7).
+`--tensor_model_parallel_size`, `--context_parallel_size`,
+`--sequence_parallel`, `--use_distributed_optimizer` and `--expert_axis`
+shard the step over a (dp, cp, tp) mesh of the ranks that torchrun starts
+(`parse_cli(n_devices=...)` derives dp from their count);
+`--context_parallel_algo` picks ring or Ulysses attention for cp > 1, and
 `--distributed_backend` names the process group's backend (nccl on CUDA
 devices by default, gloo).
 `--recompute_granularity full|selective` recomputes each layer in the
@@ -116,6 +117,8 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--use_distributed_optimizer", action="store_true")
     g.add_argument("--expert_axis", type=str, default="tp",
                    choices=["tp", "dp"])
+    g.add_argument("--context_parallel_algo", type=str, default="ring",
+                   choices=["ring", "ulysses"])
     g.add_argument("--distributed_backend", type=str, default=None,
                    choices=["nccl", "gloo"])
 
@@ -295,12 +298,10 @@ _NOOP_FLAGS = [
 # flags (attribute, value that means "not asked for") whose feature the
 # port does not run yet, with its ROADMAP item
 _UNPORTED = (
-    ("pipeline_parallel", 1, "pipeline parallelism (ROADMAP Queue 1 item 7)"),
-    ("context_parallel", 1, "context parallelism (ROADMAP Queue 1 item 7)"),
+    ("pipeline_parallel", 1,
+     "pipeline parallelism (ROADMAP Queue 1 item 7 (c))"),
     ("num_layers_per_virtual_pipeline_stage", None,
-     "the interleaved pipeline (ROADMAP Queue 1 item 7)"),
-    ("expert_axis", "tp",
-     "expert parallelism over another mesh axis (ROADMAP Queue 1 item 7)"),
+     "the interleaved pipeline (ROADMAP Queue 1 item 7 (c))"),
 )
 
 
@@ -397,10 +398,18 @@ def config_from_args(args: argparse.Namespace,
             attention_impl=(args.attention_impl or
                             ("flash" if args.use_flash_attn else "dot"))))
         model = ModelConfig(**md)
+    if args.context_parallel > 1 and \
+            model.attention_impl not in ("ring", "ulysses"):
+        # cp > 1 needs a context-parallel attention; the algo flag picks
+        # ring or Ulysses (both run the flash kernels inside)
+        model = dataclasses.replace(
+            model, attention_impl=args.context_parallel_algo)
     cfg = MegatronConfig(
         model=model,
         parallel=ParallelConfig(
             tensor_parallel=args.tensor_parallel,
+            context_parallel=args.context_parallel,
+            expert_axis=args.expert_axis,
             sequence_parallel=args.sequence_parallel,
             use_distributed_optimizer=args.use_distributed_optimizer),
         optimizer=OptimizerConfig(**_pick(args, OptimizerConfig)),

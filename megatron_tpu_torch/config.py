@@ -13,11 +13,12 @@ checkpoint's `config.json` under the reference's names; its serving
 section is ignored here. `num_microbatches` is global_batch_size /
 (micro_batch_size * dp).
 
-The port runs the (dp, tp) mesh of one decoder LM, with sequence
-parallelism and the ZeRO-1 optimizer (parallel/, training/train_step.py);
+The port runs the (dp, cp, tp) mesh: the decoder LM with sequence and
+context parallelism (ring or Ulysses attention), experts sharded over tp
+or dp (`expert_axis`), the BERT, T5 and ICT steps over (dp, tp), and the
+ZeRO-1 optimizer (parallel/, training/train_step.py).
 `MegatronConfig.validate` raises on the mesh fields it does not run yet
-(pipeline, context parallelism and their schedules, experts under a mesh,
-`expert_axis` other than "tp"), citing ROADMAP Queue 1 item 7.
+(the pipeline and its schedules), citing ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -145,8 +146,10 @@ class ParallelConfig:
     fields and defaults are the reference's. The mesh is (dp, pp, cp, tp)
     with tp fastest (parallel/mesh.py); `sequence_parallel` shards the
     residual stream's sequence dim over tp outside attention and the MLP,
-    and `use_distributed_optimizer` shards the fp32 moments over dp
-    (ZeRO-1)."""
+    `context_parallel` shards it over cp everywhere (ring or Ulysses
+    attention), `expert_axis` names the axis an expert bank's experts are
+    cut over, and `use_distributed_optimizer` shards the fp32 moments over
+    dp (ZeRO-1)."""
 
     tensor_parallel: int = 1
     pipeline_parallel: int = 1
@@ -173,11 +176,9 @@ class ParallelConfig:
 # feature the port does not run yet
 _LATER_PARALLEL = (
     ("pipeline_parallel", 1, "pipeline parallelism"),
-    ("context_parallel", 1, "context parallelism"),
     ("virtual_pipeline_chunks", 1, "the interleaved pipeline"),
     ("pipeline_schedule", "1f1b", "the pipeline schedules"),
     ("pipeline_store_activations", False, "the pipeline schedules"),
-    ("expert_axis", "tp", "expert parallelism over another mesh axis"),
 )
 
 
@@ -340,14 +341,14 @@ SERVING_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # ServingConfig fields the continuous-batching engine does not run yet,
 # each with the later slice that brings it (ROADMAP Queue 1 item 7)
 _LATER_SERVING = {
-    "serving_tp": "the serving topology (Queue 1 item 7)",
-    "disaggregate_prefill": "the serving topology (Queue 1 item 7)",
-    "prefill_tp": "the serving topology (Queue 1 item 7)",
-    "decode_tp": "the serving topology (Queue 1 item 7)",
-    "serving_pp": "the serving topology (Queue 1 item 7)",
-    "pp_waves": "the serving topology (Queue 1 item 7)",
-    "placement_auto": "the serving topology (Queue 1 item 7)",
-    "placement_budget": "the serving topology (Queue 1 item 7)",
+    "serving_tp": "the serving topology (Queue 1 item 7 (d))",
+    "disaggregate_prefill": "the serving topology (Queue 1 item 7 (d))",
+    "prefill_tp": "the serving topology (Queue 1 item 7 (d))",
+    "decode_tp": "the serving topology (Queue 1 item 7 (d))",
+    "serving_pp": "the serving topology (Queue 1 item 7 (d))",
+    "pp_waves": "the serving topology (Queue 1 item 7 (d))",
+    "placement_auto": "the serving topology (Queue 1 item 7 (d))",
+    "placement_budget": "the serving topology (Queue 1 item 7 (d))",
 }
 
 
@@ -732,13 +733,9 @@ class MegatronConfig:
             par = dataclasses.replace(par,
                                       data_parallel=par.derive_dp(n_devices))
         tp, dp = par.tensor_parallel, par.data_parallel or 1
-        if tp < 1 or dp < 1:
-            raise ValueError(f"tp={tp} and dp={dp} must be >= 1")
-        if model.num_experts > 1 and tp * dp > 1:
-            raise NotImplementedError(
-                "experts under a mesh (tp or dp > 1): expert parallelism "
-                "is not ported to megatron_tpu_torch yet (ROADMAP Queue 1 "
-                "item 7)")
+        cp = par.context_parallel
+        if tp < 1 or dp < 1 or cp < 1:
+            raise ValueError(f"tp={tp}, dp={dp} and cp={cp} must be >= 1")
         nq, nkv = model.num_attention_heads, model.num_kv_heads
         if nq % tp:
             raise ValueError(f"attention heads {nq} must shard evenly over "
@@ -755,6 +752,12 @@ class MegatronConfig:
         if par.sequence_parallel and model.seq_length % tp:
             raise ValueError("sequence parallel requires seq_length "
                              f"{model.seq_length} divisible by tp={tp}")
+        sp_tp = tp if par.sequence_parallel else 1
+        if cp > 1 and model.seq_length % (cp * sp_tp):
+            raise ValueError(f"context parallel requires seq_length "
+                             f"{model.seq_length} divisible by cp={cp}"
+                             + (f" x tp={tp}" if sp_tp > 1 else ""))
+        self._check_context_parallel(model, par)
         tr = self.training
         if tr.global_batch_size is None:
             tr = dataclasses.replace(
@@ -770,9 +773,58 @@ class MegatronConfig:
             if model.moe_dispatch not in ("sort", "dense"):
                 raise ValueError(f"moe_dispatch={model.moe_dispatch!r} "
                                  "(expected 'sort' or 'dense')")
+            if par.expert_axis not in ("tp", "dp"):
+                raise ValueError(f"expert_axis={par.expert_axis!r} "
+                                 "(expected 'tp' or 'dp')")
+            ep = tp if par.expert_axis == "tp" else dp
+            if model.num_experts % ep:
+                raise ValueError(
+                    f"num_experts={model.num_experts} must shard evenly "
+                    f"over the '{par.expert_axis}' mesh axis (size {ep}) "
+                    "— parallel/sharding.py 'experts' rule")
         self.resilience.validate()
         return dataclasses.replace(self, model=model, parallel=par,
                                    training=tr)
+
+    @staticmethod
+    def _check_context_parallel(model: "ModelConfig",
+                                par: ParallelConfig) -> None:
+        """The reference's ring/Ulysses checks and warnings
+        (megatron_tpu/config.py validate)."""
+        from megatron_tpu_torch.utils.logging import print_rank_0
+        impl = model.attention_impl
+        if model.sliding_window is not None and impl in ("ring", "ulysses"):
+            print_rank_0(
+                f"warning: attention_impl={impl!r} has no sliding-window "
+                "plumbing — attention gathers the sequence over cp and "
+                "runs the flash kernel on it; use attention_impl=flash "
+                "for banded attention")
+        if impl in ("ring", "ulysses") and model.attention_dropout > 0.0:
+            print_rank_0(
+                f"warning: attention_impl={impl!r} with attention_dropout="
+                f"{model.attention_dropout} gathers the sequence over cp "
+                "during training (the cp rings have no dropout plumbing); "
+                "eval keeps the ring, and attention_impl=flash carries "
+                "dropout natively")
+        cp = par.context_parallel
+        if impl == "ulysses" and cp > 1:
+            nq, nkv = model.num_attention_heads, model.num_kv_heads
+            tp = par.tensor_parallel
+            if nq % cp or nkv % cp:
+                raise ValueError(
+                    f"ulysses needs query AND kv head counts divisible by "
+                    f"cp={cp} (got nq={nq}, nkv={nkv}); use "
+                    "--context_parallel_algo ring")
+            if (nq // tp) % cp or (nkv % tp == 0 and (nkv // tp) % cp):
+                raise ValueError(
+                    f"ulysses splits each tp rank's heads over cp: nq/tp="
+                    f"{nq // tp} and nkv/tp={max(nkv // tp, 1)} must divide "
+                    f"by cp={cp}; use --context_parallel_algo ring")
+            if nkv % tp:
+                raise ValueError(
+                    f"ulysses with kv heads replicated over tp (nkv={nkv} < "
+                    f"tp={tp}) leaves one kv head a rank, which does not "
+                    f"split over cp={cp}; use --context_parallel_algo ring")
 
     @property
     def num_microbatches(self) -> int:

@@ -18,14 +18,16 @@ best-effort checkpoint and exits with `--watchdog_exit_code` (43). A
 `FaultInjector.from_env`, e.g. `delay@3:30`) is active for the run: the
 chaos drills of the resilience path run through this entry point.
 
-Under torchrun it trains one decoder LM sharded over the (dp, tp) mesh of
-its ranks (parallel/, training/train_step.py):
+Under torchrun it trains one decoder LM sharded over the (dp, cp, tp) mesh
+of its ranks (parallel/, training/train_step.py), its experts on tp or dp
+(`--expert_axis`), ring or Ulysses attention over cp
+(`--context_parallel_algo`):
 
   torchrun --nproc_per_node 8 -m megatron_tpu_torch.finetune \\
       --tensor_model_parallel_size 4 --sequence_parallel \\
       --use_distributed_optimizer ...
 
-dp is the rank count over tp. Each rank runs on CUDA device LOCAL_RANK
+dp is the rank count over tp x cp. Each rank runs on CUDA device LOCAL_RANK
 over NCCL; `--distributed_backend gloo` takes gloo instead (host copies).
 Every rank builds the same global batches and keeps its dp rows; rank 0
 builds the datasets' index caches first, logs, writes the metrics and
@@ -126,8 +128,10 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
                  f"{cfg.model.seq_length}, attention "
                  f"{cfg.model.attention_impl}"
                  + ("" if mesh is None else
-                    f" | mesh dp {mesh.shape['dp']} x tp {mesh.shape['tp']}"
-                    f", sequence parallel {mesh.sequence_parallel}, "
+                    f" | mesh dp {mesh.shape['dp']} x cp {mesh.shape['cp']}"
+                    f" x tp {mesh.shape['tp']}, sequence parallel "
+                    f"{mesh.sequence_parallel}, experts on "
+                    f"{mesh.parallel.expert_axis}, "
                     "distributed optimizer "
                     f"{mesh.use_distributed_optimizer}"))
 

@@ -63,21 +63,35 @@ to the activation dtype, and applied as two batched products (`torch.bmm`),
 as the reference computes them outside any Pallas kernel. The deltas join
 before the head reshape and RoPE.
 
-Under a (dp, tp) mesh (`mesh=`, the sharded training step) the weights
-are this rank's tp parts (parallel/sharding.py): wq and wo hold its nq/tp
-heads, wkv its nkv/tp kv heads, or all of them when tp does not divide nkv,
-and then the rank keeps the kv head of its q heads (global q head j reads
-kv head j // (nq / nkv)). The input enters through `tp_region_in` (a copy,
-or the sequence all-gather under sequence parallelism), the output
-projection's partial sums leave through `tp_region_out` (all-reduce, or
-reduce-scatter), and `bo` is added after that. Attention dropout numbers
-the rank's rows by their place in the whole step (batch offset dp coord x
-b, head offset tp coord x nq/tp, nq heads in all), so a rank draws its
-slice of the unsharded step's mask.
+Under a (dp, cp, tp) mesh (`mesh=`, the sharded training step) the
+weights are this rank's tp parts (parallel/sharding.py): wq and wo hold its
+nq/tp heads, wkv its nkv/tp kv heads, or all of them when tp does not
+divide nkv, and then the rank keeps the kv head of its q heads (global q
+head j reads kv head j // (nq / nkv)). The input enters through
+`tp_region_in` (a copy, or the sequence all-gather under sequence
+parallelism), the output projection's partial sums leave through
+`tp_region_out` (all-reduce, or reduce-scatter), and `bo` is added after
+that. Attention dropout numbers the rank's rows by their place in the
+whole step (batch offset dp coord x b, head offset tp coord x nq/tp, nq
+heads in all), so a rank draws its slice of the unsharded step's mask.
+
+With cp > 1 the rows are this rank's cp chunk of the sequence, and
+attention takes the reference's `ring_branch`: `attention_impl` "ring"
+(parallel/ring_attention.py; "pre_zigzag" when the loss permuted the
+batch, `cp_pre_zigzag`, else the contiguous split) or "ulysses"
+(parallel/ulysses.py), for causal self-attention with no segment ids, no
+window and no active dropout. Everywhere else (those cases, or another
+`attention_impl`) k and v, q and the segment ids are gathered over cp, the
+flash kernel (the dot path for "dot") runs over the whole sequence, and
+the rank keeps its rows: the unsharded call's result, dropout mask
+included.
+
+Cross-attention (`kv_input`, T5's decoder) under a mesh takes k and v from
+the encoder output entered through `tp_region_in`, the sequence-gathered
+output under sequence parallelism, for this rank's heads.
 
 Left for later slices, and raising: a cached cross-attention (T5
-inference), the ring / ulysses implementations, and caches, adapters and
-cross-attention under a mesh.
+inference), and caches and adapters under a mesh.
 """
 from __future__ import annotations
 
@@ -95,8 +109,11 @@ from megatron_tpu_torch.ops.flash_attention import (_dropout_keep,
                                                     flash_attention)
 from megatron_tpu_torch.ops.quantized import qdense, quantize_rows, wcast
 from megatron_tpu_torch.parallel import collectives
-from megatron_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
-from megatron_tpu_torch.parallel.sharding import kv_replicated
+from megatron_tpu_torch.parallel.mesh import (CONTEXT_AXIS, DATA_AXIS,
+                                              TENSOR_AXIS)
+from megatron_tpu_torch.parallel.ring_attention import ring_attention
+from megatron_tpu_torch.parallel.sharding import cp_positions, kv_replicated
+from megatron_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 class _Stacked:
@@ -340,7 +357,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     deterministic: bool = True,
                     generator: Optional[torch.Generator] = None,
                     adapters=None, causal: bool = True, kv_input=None,
-                    mesh=None):
+                    mesh=None, cp_pre_zigzag: bool = False):
     """Self-attention, causal unless `causal` is False, or cross-attention
     over `kv_input` [b, t, h]. x: [b, s, h]. Returns (out [b, s, h], the
     per-layer cache advanced by s, or None without a cache). Attention
@@ -349,19 +366,28 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     LoraAdapter, adapter_idx int [b]) pair: row i adds the delta of bank
     row adapter_idx[i] to its projections; None runs no extra op. Under a
     `mesh` the weights are this rank's tp parts and x is [b, s/tp, h] with
-    sequence parallelism (see the module's note)."""
+    sequence parallelism, its cp chunk with cp > 1 (see the module's
+    note); `cp_pre_zigzag`: the loss put the batch in the ring's zigzag
+    order."""
     hd, nq, nkv = cfg.kv_channels, cfg.num_attention_heads, cfg.num_kv_heads
     cross = kv_input is not None
     # this rank's q and kv heads (all of them off a mesh) and their place
     nq_rank, nkv_rank = nq, nkv
     head_offset = batch_offset = 0
+    cp = 1 if mesh is None else mesh.shape[CONTEXT_AXIS]
     if mesh is not None:
-        if kv_cache is not None or cross or adapters is not None:
+        if kv_cache is not None or adapters is not None:
             raise NotImplementedError(
-                "attention under a mesh runs the uncached self-attention of "
-                "the training step; caches, cross-attention and adapters "
-                "are not ported under a mesh (ROADMAP Queue 1 item 7)")
+                "attention under a mesh runs the uncached forward of the "
+                "training step; caches and adapters are not ported under a "
+                "mesh (ROADMAP Queue 1 item 7 (d))")
+        if cross and cp > 1:
+            raise NotImplementedError(
+                "cross-attention (T5) under context parallelism is not "
+                "ported (ROADMAP Queue 1 item 7 (g))")
         x = collectives.tp_region_in(x, mesh)
+        if cross:
+            kv_input = collectives.tp_region_in(kv_input, mesh)
         tp = mesh.shape[TENSOR_AXIS]
         nq_rank = nq // tp
         if not kv_replicated(nkv, mesh):
@@ -370,10 +396,6 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         batch_offset = mesh.coords[DATA_AXIS] * x.shape[0]
     b, s, _ = x.shape
     dtype = x.dtype
-    if cfg.attention_impl not in ("flash", "dot"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} (context parallelism) is "
-            "ported with the multi-device slice")
     if adapters is not None and cross:
         raise ValueError("LoRA adapters apply to self-attention "
                          "projections only; cross-attention has no adapter "
@@ -520,22 +542,55 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         new_cache = None
         seed = draw_dropout_seed(generator) if dropout_rate else 0
-        if cfg.attention_impl == "flash":
-            out = flash_attention(q, k, v, causal=causal, scale=scale,
-                                  sliding_window=window,
-                                  segment_ids=segment_ids,
-                                  dropout_rate=dropout_rate,
-                                  dropout_seed=seed,
-                                  batch_offset=batch_offset,
-                                  head_offset=head_offset, total_heads=nq)
+        ring_branch = (cfg.attention_impl in ("ring", "ulysses") and causal
+                       and not cross and segment_ids is None
+                       and window is None and not dropout_rate)
+        # a pre-permuted batch must reach the ring: any drift between
+        # data_zigzag_cp and this dispatch would mask the wrong rows
+        if cp_pre_zigzag and not (ring_branch and cp > 1
+                                  and cfg.attention_impl == "ring"):
+            raise AssertionError(
+                "cp_pre_zigzag=True but the ring-attention path is not "
+                "taken (data_zigzag_cp and attention_apply gating drifted)")
+        if ring_branch and cp > 1:
+            if cfg.attention_impl == "ulysses":
+                out = ulysses_attention(q, k, v, mesh, causal=True,
+                                        scale=scale)
+            else:
+                # a batch the loss did not permute takes the contiguous
+                # split: the ring then gathers nothing
+                out = ring_attention(
+                    q, k, v, mesh, causal=True, scale=scale,
+                    layout="pre_zigzag" if cp_pre_zigzag else "contiguous")
         else:
-            out = _dot_attention(
-                q, k, v, causal=causal,
-                softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
-                sliding_window=window, segment_ids=segment_ids,
-                dropout_rate=dropout_rate, dropout_seed=seed,
-                batch_offset=batch_offset, head_offset=head_offset,
-                total_heads=nq)
+            rows = None
+            if cp > 1:
+                # the whole sequence on every cp rank; this rank's rows
+                rows = cp_positions(s * cp, mesh)
+                q, k, v = (collectives.gather_axis(t, mesh, CONTEXT_AXIS, 1)
+                           for t in (q, k, v))
+                if segment_ids is not None:
+                    segment_ids = collectives.all_gather(
+                        segment_ids, mesh, CONTEXT_AXIS, 1)
+            if cfg.attention_impl == "dot":
+                out = _dot_attention(
+                    q, k, v, causal=causal,
+                    softmax_fp32=cfg.attention_softmax_in_fp32, scale=scale,
+                    sliding_window=window, segment_ids=segment_ids,
+                    dropout_rate=dropout_rate, dropout_seed=seed,
+                    batch_offset=batch_offset, head_offset=head_offset,
+                    total_heads=nq)
+            else:
+                out = flash_attention(q, k, v, causal=causal, scale=scale,
+                                      sliding_window=window,
+                                      segment_ids=segment_ids,
+                                      dropout_rate=dropout_rate,
+                                      dropout_seed=seed,
+                                      batch_offset=batch_offset,
+                                      head_offset=head_offset,
+                                      total_heads=nq)
+            if rows is not None:
+                out = out[:, rows]
 
     out = out.reshape(b, s, nq_rank * hd)
     proj = qdense(out, wcast(params["wo"], dtype), cfg.quantized_gemm)

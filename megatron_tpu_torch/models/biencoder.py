@@ -7,7 +7,13 @@
   "ict_head" projecting the pooled output to `ict_head_size`;
 - `embed_text`: one tower, tokens [b, s] -> fp32 embeddings [b, d];
 - `retrieval_loss`: the in-batch softmax of scores q @ c^T / sqrt(d) with
-  the diagonal as positives -> (loss, accuracy);
+  the diagonal as positives -> (loss, accuracy). On a model built on a
+  (dp, tp) mesh (`biencoder_axes`) each dp rank scores its queries against
+  the contexts of the whole microbatch, gathered over dp (the gather's
+  backward sums every rank's grads, a reduce-scatter), as GSPMD scores the
+  reference's, and returns its share of the loss and the accuracy; under
+  sequence parallelism the pooler and the ict_head run on tp rank 0, where
+  token 0 lies (models/bert.py);
 - `MIPSIndex`: exact maximum-inner-product search over block embeddings
   on the device: fp32 `queries @ matrix.T` with TF32 off and
   `torch.topk`, chunked over the queries so that one block of scores stays
@@ -28,11 +34,14 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig, as_dtype
-from megatron_tpu_torch.models.bert import (bert_config, bert_encode,
-                                            bert_init,
+from megatron_tpu_torch.models.bert import (bert_axes, bert_config,
+                                            bert_encode, bert_init,
+                                            pooled_everywhere,
                                             strip_pretraining_heads)
 from megatron_tpu_torch.models.classification import (EncoderTree, dense,
                                                       dense_spec)
+from megatron_tpu_torch.parallel import collectives
+from megatron_tpu_torch.parallel.mesh import DATA_AXIS
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # one chunk's block of fp32 scores [queries, rows] at most
@@ -58,12 +67,29 @@ class BiencoderModel(EncoderTree):
             return {"shared_model": tower}
         return {"query_model": tower, "context_model": tower}
 
+    @staticmethod
+    def axes(cfg: ModelConfig, *, ict_head_size: Optional[int] = None,
+             shared: bool = False) -> dict:
+        return biencoder_axes(cfg, ict_head_size=ict_head_size,
+                              shared=shared)
+
     @classmethod
     def options_from_tree(cls, shapes: dict) -> dict:
         shared = any(k.startswith("shared_model.") for k in shapes)
         head = ("shared_model" if shared else "query_model") + ".ict_head.w"
         return {"shared": shared,
                 "ict_head_size": shapes[head][1] if head in shapes else None}
+
+
+def biencoder_axes(cfg: ModelConfig, *, ict_head_size: Optional[int] = None,
+                   shared: bool = False) -> dict:
+    """Logical axes of the towers (biencoder.py biencoder_axes)."""
+    tower = strip_pretraining_heads(bert_axes(cfg))
+    if ict_head_size is not None:
+        tower = dict(tower, ict_head={"w": ("embed", None), "b": (None,)})
+    if shared:
+        return {"shared_model": tower}
+    return {"query_model": tower, "context_model": tower}
 
 
 def towers(params):
@@ -76,15 +102,16 @@ def towers(params):
 def embed_text(tower, tokens: torch.Tensor, cfg: ModelConfig, *,
                padding_mask=None, tokentype_ids=None,
                generator: Optional[torch.Generator] = None,
-               deterministic: bool = True) -> torch.Tensor:
+               deterministic: bool = True, mesh=None) -> torch.Tensor:
     """One tower: tokens [b, s] -> the pooled output, through the ict_head
-    when the tower has one, as fp32 [b, d]."""
+    when the tower has one, as fp32 [b, d] (on every tp rank of a
+    `mesh`)."""
     _, pooled = bert_encode(tower, tokens, cfg, tokentype_ids=tokentype_ids,
                             padding_mask=padding_mask, generator=generator,
-                            deterministic=deterministic)
+                            deterministic=deterministic, mesh=mesh)
     if "ict_head" in tower:
         pooled = dense(tower["ict_head"], pooled, as_dtype(cfg.compute_dtype))
-    return pooled.float()
+    return pooled_everywhere(pooled, mesh).float()
 
 
 def biencoder_forward(params, query_tokens: torch.Tensor,
@@ -94,12 +121,14 @@ def biencoder_forward(params, query_tokens: torch.Tensor,
                       deterministic: bool = True):
     """-> (query embeddings [b, d], context embeddings [b, d]); one
     generator draws the query tower's dropout, then the context tower's."""
+    mesh = getattr(params, "mesh", None)
     q_tower, c_tower = towers(params)
     q = embed_text(q_tower, query_tokens, cfg, padding_mask=query_pad_mask,
-                   generator=generator, deterministic=deterministic)
+                   generator=generator, deterministic=deterministic,
+                   mesh=mesh)
     c = embed_text(c_tower, context_tokens, cfg,
                    padding_mask=context_pad_mask, generator=generator,
-                   deterministic=deterministic)
+                   deterministic=deterministic, mesh=mesh)
     return q, c
 
 
@@ -108,18 +137,27 @@ def retrieval_loss(params, batch: dict, cfg: ModelConfig, *,
                    deterministic: bool = True):
     """The in-batch softmax loss: row i's positive is context i. batch:
     query_tokens, context_tokens [b, s] and optionally query_pad_mask,
-    context_pad_mask. Returns (loss, accuracy), fp32 scalars."""
+    context_pad_mask. Returns (loss, accuracy), fp32 scalars: on a mesh
+    the rank's shares of them (see the module's note)."""
+    mesh = getattr(params, "mesh", None)
     q, c = biencoder_forward(
         params, batch["query_tokens"], batch["context_tokens"], cfg,
         query_pad_mask=batch.get("query_pad_mask"),
         context_pad_mask=batch.get("context_pad_mask"), generator=generator,
         deterministic=deterministic)
+    b = q.shape[0]
+    labels = torch.arange(b, device=q.device)
+    if mesh is not None:
+        c = collectives.gather_axis(c, mesh, DATA_AXIS, 0)
+        labels = labels + mesh.coords[DATA_AXIS] * b
     scores = q @ c.T / math.sqrt(q.shape[-1])
     logprobs = torch.log_softmax(scores, dim=-1)
-    labels = torch.arange(scores.shape[0], device=scores.device)
-    loss = -logprobs.diagonal().mean()
-    acc = (scores.argmax(dim=-1) == labels).float().mean()
-    return loss, acc
+    right = (scores.argmax(dim=-1) == labels).float()
+    if mesh is None:
+        return -logprobs.diagonal().mean(), right.mean()
+    rows = b * mesh.shape[DATA_AXIS]
+    picked = logprobs.gather(1, labels[:, None])
+    return -picked.sum() / rows, right.sum() / rows
 
 
 @contextlib.contextmanager

@@ -23,6 +23,7 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig, as_dtype
 from megatron_tpu_torch.models.bert import (bert_encode, bert_init,
+                                            shard_tree,
                                             strip_pretraining_heads)
 from megatron_tpu_torch.models.language_model import (ParamTree,
                                                       build_param_tree,
@@ -51,16 +52,30 @@ class EncoderTree(ParamTree):
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 trainable: bool = False, **options):
-        super().__init__(build_param_tree(
+                 trainable: bool = False, mesh=None, **options):
+        children = build_param_tree(
             self.specs(cfg, **options),
-            param_maker(cfg, device, dtype, seed, trainable)))
+            param_maker(cfg, device, dtype, seed, trainable))
+        if mesh is not None:  # only a model with `axes` has a sharded layout
+            children = shard_tree(children, self.axes(cfg, **options), cfg,
+                                  mesh, trainable)
+        super().__init__(children)
         self.cfg = cfg
         self.options = options
+        self.mesh = mesh
 
     @staticmethod
     def specs(cfg: ModelConfig, **options) -> dict:
         raise NotImplementedError
+
+    @staticmethod
+    def axes(cfg: ModelConfig, **options) -> dict:
+        """The tree's logical axes, for a model built on a mesh."""
+        raise NotImplementedError(
+            "this model has no sharded layout (ROADMAP Queue 1 item 7)")
+
+    def param_axes(self) -> dict:
+        return self.axes(self.cfg, **self.options)
 
     @classmethod
     def options_from_tree(cls, shapes: dict) -> dict:

@@ -17,7 +17,15 @@ read zeros; the partial sums are all-reduced, or reduce-scattered to the
 rank's [b, s/tp, h] under sequence parallelism, learned positions added
 after that, on the rank's positions), the sharded stack, and the
 column-parallel LM head whose logits stay vocab-sharded, fed to the
-vocab-parallel cross-entropy (ops/cross_entropy.py).
+vocab-parallel cross-entropy (ops/cross_entropy.py). With cp > 1 `loss_fn`
+gives each cp rank its chunk of the sequence: in the ring's zigzag order
+when `data_zigzag_cp` says the ring runs (tokens, labels, mask and
+position ids ride one permutation, so RoPE and learned positions see the
+original positions, and the masked-mean loss is unchanged), else the
+contiguous chunk. The rank's masked sum divides by the whole microbatch's
+count, so the (dp, cp) ranks' losses sum to the unsharded one; a rank
+whose chunk holds no masked token still takes its part in every
+collective.
 """
 from __future__ import annotations
 
@@ -31,13 +39,14 @@ from megatron_tpu_torch.models import transformer as tfm
 from megatron_tpu_torch.models.attention import BlockKVCache, KVCache
 from megatron_tpu_torch.models.norms import apply_norm, norm_axes, norm_init
 from megatron_tpu_torch.models.rope import precompute_freqs
-from megatron_tpu_torch.ops.cross_entropy import (
-    cross_entropy_loss, vocab_parallel_cross_entropy)
+from megatron_tpu_torch.ops.cross_entropy import mesh_cross_entropy
 from megatron_tpu_torch.ops.dropout import dropout
 from megatron_tpu_torch.parallel import collectives
-from megatron_tpu_torch.parallel.mesh import TENSOR_AXIS
+from megatron_tpu_torch.parallel.mesh import CONTEXT_AXIS, TENSOR_AXIS
+from megatron_tpu_torch.parallel.ring_attention import (data_zigzag_cp,
+                                                        zigzag_permutation)
 from megatron_tpu_torch.parallel.sharding import (activation_region,
-                                                  shard_leaf)
+                                                  cp_positions, shard_leaf)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -153,8 +162,8 @@ def build_param_tree(specs: dict, make) -> dict:
             for k, v in specs.items()}
 
 
-def _shard_children(children: dict, axes: dict, mesh, kv_heads: int,
-                    trainable: bool) -> dict:
+def shard_children(children: dict, axes: dict, mesh, kv_heads: int,
+                   trainable: bool) -> dict:
     """ParamTree children -> the same tree of this rank's tp parts."""
     out = {}
     for k, v in children.items():
@@ -163,8 +172,8 @@ def _shard_children(children: dict, axes: dict, mesh, kv_heads: int,
                                              kv_heads),
                                   requires_grad=trainable)
         else:
-            out[k] = ParamTree(_shard_children(dict(v.items()), axes[k],
-                                               mesh, kv_heads, trainable))
+            out[k] = ParamTree(shard_children(dict(v.items()), axes[k],
+                                              mesh, kv_heads, trainable))
     return out
 
 
@@ -188,8 +197,8 @@ class LanguageModel(ParamTree):
             model_init(cfg), param_maker(cfg, device, dtype, seed,
                                          trainable))
         if mesh is not None:
-            children = _shard_children(children, model_axes(cfg), mesh,
-                                       cfg.num_kv_heads, trainable)
+            children = shard_children(children, model_axes(cfg), mesh,
+                                      cfg.num_kv_heads, trainable)
         super().__init__(children)
         self.cfg = cfg
         self.mesh = mesh
@@ -205,6 +214,9 @@ class LanguageModel(ParamTree):
     @property
     def device(self) -> torch.device:
         return self.embedding["word_embeddings"].device
+
+    def param_axes(self) -> dict:
+        return model_axes(self.cfg)
 
     def tree(self) -> dict:
         """The parameter tree in the reference's nesting."""
@@ -261,7 +273,8 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   deterministic: bool = True,
                   generator: Optional[torch.Generator] = None,
                   head_positions: Optional[torch.Tensor] = None,
-                  adapters=None, return_aux: bool = False):
+                  adapters=None, return_aux: bool = False,
+                  cp_pre_zigzag: bool = False):
     """Forward to logits [b, s, padded_vocab]. Returns (logits, kv_caches),
     or with `return_aux` (logits, kv_caches, aux): the MoE router's
     load-balancing loss summed over layers, a 0-d fp32 tensor (zero for a
@@ -280,8 +293,8 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     `adapters` is (a stacked LoraAdapter bank, adapter_idx int [b]): each
     row adds its adapter's low-rank deltas to the attention projections.
     A LanguageModel built on a mesh runs the sharded forward (the module's
-    note): tokens are the rank's dp rows, and the logits its vocab
-    columns."""
+    note): tokens are the rank's dp rows (its cp chunk of them, in zigzag
+    order with `cp_pre_zigzag`), and the logits its vocab columns."""
     mesh = params.mesh if isinstance(params, LanguageModel) else None
     params = _tree(params)
     compute_dtype = as_dtype(cfg.compute_dtype)
@@ -295,7 +308,13 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                 "a sharded model runs the training forward; caches, head "
                 "positions and adapters are not ported under a mesh "
                 "(ROADMAP Queue 1 item 7)")
-        x = _vocab_parallel_embedding(emb, tokens, mesh, compute_dtype)
+        x = vocab_parallel_embedding(emb, tokens, mesh, compute_dtype)
+        if position_ids is None and mesh.shape[CONTEXT_AXIS] > 1:
+            s = tokens.shape[1]
+            position_ids = torch.arange(s * mesh.shape[CONTEXT_AXIS],
+                                        device=tokens.device)[
+                cp_positions(s * mesh.shape[CONTEXT_AXIS], mesh,
+                             cp_pre_zigzag)][None].expand(tokens.shape)
     if cfg.use_position_embedding:
         if position_ids is None:
             pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -316,14 +335,16 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if not deterministic:
         x = dropout(generator, x, cfg.hidden_dropout,
                     None if mesh is None
-                    else activation_region(mesh, tuple(x.shape)))
+                    else activation_region(mesh, tuple(x.shape),
+                                           zigzag=cp_pre_zigzag))
     x, kv_caches, aux = tfm.stack_apply(
         params["transformer"], x, cfg,
         rope_cos=rope.cos if rope else None,
         rope_sin=rope.sin if rope else None,
         position_ids=position_ids, kv_caches=kv_caches,
         segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator, adapters=adapters, mesh=mesh)
+        generator=generator, adapters=adapters, mesh=mesh,
+        cp_pre_zigzag=cp_pre_zigzag)
     if head_positions is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
               head_positions.long()][:, None]
@@ -336,7 +357,7 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return logits, kv_caches
 
 
-def _vocab_parallel_embedding(emb: torch.Tensor, tokens: torch.Tensor, mesh,
+def vocab_parallel_embedding(emb: torch.Tensor, tokens: torch.Tensor, mesh,
                               dtype) -> torch.Tensor:
     """This rank's vocab rows of the embedding looked up (ids outside them
     read zeros), then summed over tp: all-reduced, or reduce-scattered to
@@ -382,27 +403,45 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, loss_mask=None,
     `denominator` replaces the mask's own count in the masked mean: the
     sharded step passes the whole microbatch's count, since `tokens` are
     one dp rank's rows of it. A model built on a mesh takes the
-    vocab-parallel cross-entropy. The context-parallel zigzag is not
-    ported (ROADMAP Queue 1 item 7)."""
+    vocab-parallel cross-entropy, and with cp > 1 each rank its chunk of
+    the sequence (the module's note; `denominator` is then required)."""
     if isinstance(tokens, tuple):
         inputs, labels = tokens
     else:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         if loss_mask is not None and loss_mask.shape[1] == tokens.shape[1]:
             loss_mask = loss_mask[:, 1:]
+    mesh = params.mesh if isinstance(params, LanguageModel) else None
+    zigzag = False
+    if mesh is not None and mesh.shape[CONTEXT_AXIS] > 1:
+        if denominator is None:
+            raise ValueError("loss_fn under context parallelism needs the "
+                             "whole microbatch's mask count (denominator)")
+        b, S = inputs.shape
+        if loss_mask is None:
+            loss_mask = torch.ones(b, S, dtype=torch.float32,
+                                   device=inputs.device)
+        if position_ids is None:
+            position_ids = torch.arange(
+                S, device=inputs.device)[None].expand(b, S)
+        zigzag = bool(data_zigzag_cp(cfg, S, mesh,
+                                     segment_ids=segment_ids))
+        rows = cp_positions(S, mesh)
+        if zigzag:
+            rows = torch.from_numpy(zigzag_permutation(
+                S, mesh.shape[CONTEXT_AXIS])[0])[rows]
+        inputs, labels, loss_mask, position_ids = (
+            t[:, rows] for t in (inputs, labels, loss_mask, position_ids))
+        if segment_ids is not None:
+            segment_ids = segment_ids[:, rows]
     logits, _, aux = model_forward(params, inputs, cfg, rope=rope,
                                    position_ids=position_ids,
                                    segment_ids=segment_ids,
                                    deterministic=deterministic,
                                    generator=generator, adapters=adapters,
-                                   return_aux=True)
-    mesh = params.mesh if isinstance(params, LanguageModel) else None
-    if mesh is not None and mesh.shape[TENSOR_AXIS] > 1:
-        losses = vocab_parallel_cross_entropy(logits, labels, mesh,
-                                              vocab_size=cfg.vocab_size)
-    else:
-        losses = cross_entropy_loss(logits, labels,
-                                    vocab_size=cfg.vocab_size)
+                                   return_aux=True, cp_pre_zigzag=zigzag)
+    losses = mesh_cross_entropy(logits, labels, mesh,
+                                vocab_size=cfg.vocab_size)
     if loss_mask is None and denominator is None:
         loss = losses.mean()
     else:

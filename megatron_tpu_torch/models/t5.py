@@ -9,8 +9,17 @@ parameter tree under its names ("encoder.attention.wq",
 "decoder.inter_attention.wkv", "lm_head_bias", ...). Encoder padding
 isolates each pad position in a segment of its own; the cross-attention
 takes no segment ids, so the decoder attends encoder pads, as the
-reference's does. The pipelined T5 loss (`t5_pipeline_loss_fn`) belongs to
-the multi-device slice.
+reference's does.
+
+`T5Model(cfg, mesh=...)` holds this rank's parts of the tree under
+`t5_axes` and runs the sharded forward of the (dp, tp) mesh as BERT's
+(models/bert.py): the vocab-parallel shared embedding, both sharded
+stacks, the decoder's cross-attention over the encoder output entered
+through `tp_region_in` (sequence-gathered under sequence parallelism), and
+the tied head with its vocab-sharded bias into the vocab-parallel
+cross-entropy; `t5_loss` returns the rank's share of the global
+microbatch's loss. The pipelined T5 loss (`t5_pipeline_loss_fn`) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -20,12 +29,13 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig, as_dtype
 from megatron_tpu_torch.models import transformer as tfm
-from megatron_tpu_torch.models.bert import bert_pad_segments
-from megatron_tpu_torch.models.language_model import (ParamTree,
-                                                      build_param_tree,
-                                                      param_maker)
-from megatron_tpu_torch.models.norms import apply_norm, norm_init
-from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.models.bert import (bert_pad_segments, global_sum,
+                                            shard_tree, sp_part)
+from megatron_tpu_torch.models.language_model import (
+    ParamTree, build_param_tree, param_maker, vocab_parallel_embedding)
+from megatron_tpu_torch.models.norms import apply_norm, norm_axes, norm_init
+from megatron_tpu_torch.ops.cross_entropy import mesh_cross_entropy
+from megatron_tpu_torch.parallel import collectives
 from megatron_tpu_torch.utils.device import DeviceLike
 
 
@@ -61,20 +71,38 @@ def t5_init(cfg: ModelConfig, decoder_layers: Optional[int] = None) -> dict:
     }
 
 
+def t5_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the parameters (t5.py t5_axes)."""
+    return {
+        "embedding": {"word_embeddings": ("vocab", "embed"),
+                      "position_embeddings": (None, "embed")},
+        "encoder": tfm.stack_axes(cfg),
+        "encoder_norm": norm_axes(cfg.norm_type),
+        "decoder": tfm.stack_axes(cfg, cross_attn=True),
+        "decoder_norm": norm_axes(cfg.norm_type),
+        "lm_head_bias": ("vocab",),
+    }
+
+
 class T5Model(ParamTree):
     """T5's parameter tree as a module, built as `LanguageModel` builds its
-    own (see models/bert.py BertModel)."""
+    own (see models/bert.py BertModel), on a `mesh` this rank's parts."""
 
     stacked_prefixes = ("encoder.", "decoder.")
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
                  trainable: bool = False,
-                 decoder_layers: Optional[int] = None):
-        super().__init__(build_param_tree(
+                 decoder_layers: Optional[int] = None, mesh=None):
+        super().__init__(shard_tree(build_param_tree(
             t5_init(cfg, decoder_layers),
-            param_maker(cfg, device, dtype, seed, trainable)))
+            param_maker(cfg, device, dtype, seed, trainable)),
+            t5_axes(cfg), cfg, mesh, trainable))
         self.cfg = cfg
+        self.mesh = mesh
+
+    def param_axes(self) -> dict:
+        return t5_axes(self.cfg)
 
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig, state_dict: dict, *,
@@ -95,10 +123,14 @@ class T5Model(ParamTree):
         return t5_forward(self, enc_tokens, dec_tokens, self.cfg, **kwargs)
 
 
-def _embed(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, compute_dtype,
+           mesh=None) -> torch.Tensor:
     emb = params["embedding"]
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = emb["word_embeddings"][tokens] + emb["position_embeddings"][pos][None]
+    word = emb["word_embeddings"]
+    x = (word[tokens] if mesh is None
+         else vocab_parallel_embedding(word, tokens, mesh, word.dtype))
+    x = x + sp_part(emb["position_embeddings"][pos][None], mesh)
     return x.to(compute_dtype)
 
 
@@ -106,31 +138,35 @@ def t5_forward(params, enc_tokens: torch.Tensor, dec_tokens: torch.Tensor,
                cfg: ModelConfig, *, enc_padding_mask=None,
                generator: Optional[torch.Generator] = None,
                deterministic: bool = True) -> torch.Tensor:
-    """-> lm_logits [b, s_dec, V] fp32."""
+    """-> lm_logits [b, s_dec, V] fp32 (the rank's vocab columns of a
+    T5Model built on a mesh)."""
     if cfg.num_experts != 1:
         raise ValueError("MoE's router loss is only wired into the GPT loss")
+    mesh = getattr(params, "mesh", None)
     compute_dtype = as_dtype(cfg.compute_dtype)
     seg = (None if enc_padding_mask is None
            else bert_pad_segments(enc_padding_mask))
-    x = _embed(params, enc_tokens, compute_dtype)
+    x = _embed(params, enc_tokens, compute_dtype, mesh)
     enc, _, _ = tfm.stack_apply(params["encoder"], x, cfg, causal=False,
                                 segment_ids=seg, generator=generator,
-                                deterministic=deterministic)
+                                deterministic=deterministic, mesh=mesh)
     enc = apply_norm(cfg.norm_type, params["encoder_norm"], enc,
                      cfg.norm_epsilon)
-    y = _embed(params, dec_tokens, compute_dtype)
+    y = _embed(params, dec_tokens, compute_dtype, mesh)
     dec, _, _ = tfm.stack_apply(params["decoder"], y, cfg, causal=True,
                                 encoder_output=enc, generator=generator,
-                                deterministic=deterministic)
-    return t5_lm_logits(params, dec, cfg, compute_dtype)
+                                deterministic=deterministic, mesh=mesh)
+    return t5_lm_logits(params, dec, cfg, compute_dtype, mesh)
 
 
 def t5_lm_logits(params, dec: torch.Tensor, cfg: ModelConfig,
-                 compute_dtype) -> torch.Tensor:
+                 compute_dtype, mesh=None) -> torch.Tensor:
     """Decoder-final norm, tied decode in the compute dtype, cast to fp32,
-    plus the fp32 bias."""
+    plus the fp32 bias; on a `mesh` the rank's vocab columns."""
     dec = apply_norm(cfg.norm_type, params["decoder_norm"], dec,
                      cfg.norm_epsilon)
+    if mesh is not None:
+        dec = collectives.tp_region_in(dec, mesh)
     w_out = params["embedding"]["word_embeddings"].T.to(compute_dtype)
     return (dec @ w_out).float() + params["lm_head_bias"].float()
 
@@ -139,11 +175,15 @@ def t5_loss(params, batch: dict, cfg: ModelConfig, *,
             generator: Optional[torch.Generator] = None,
             deterministic: bool = True) -> torch.Tensor:
     """The decoder's masked-mean cross-entropy. batch: text_enc [b, s_enc],
-    text_dec, labels, loss_mask [b, s_dec] and optionally enc_mask."""
+    text_dec, labels, loss_mask [b, s_dec] and optionally enc_mask. On a
+    mesh, the rank's share: its masked sum over the whole microbatch's
+    count."""
+    mesh = getattr(params, "mesh", None)
     logits = t5_forward(params, batch["text_enc"], batch["text_dec"], cfg,
                         enc_padding_mask=batch.get("enc_mask"),
                         generator=generator, deterministic=deterministic)
-    losses = cross_entropy_loss(logits, batch["labels"],
+    losses = mesh_cross_entropy(logits, batch["labels"], mesh,
                                 vocab_size=cfg.vocab_size)
     mask = batch["loss_mask"].float()
-    return (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (losses * mask).sum() / torch.clamp(
+        global_sum(mask.sum(), mesh), min=1.0)

@@ -45,13 +45,15 @@ on to where the forward left its copy, so recompute draws the masks of
 the forward and the layers after it draw what they draw without
 recompute. The loss and grads are those of "none" bit for bit.
 
-Under a (dp, tp) mesh (`mesh=`, the sharded training step) each layer's
-weights are this rank's tp parts and the residual stream is this rank's
-dp rows, [b, s/tp, h] under sequence parallelism; attention and the MLP
-place their collectives (models/attention.py, mlp.py), and every dropout
-draws the whole step's mask and keeps this rank's region of it
-(ops/dropout.py), so a sharded step drops what the unsharded step drops
-with the same generator.
+Under a (dp, cp, tp) mesh (`mesh=`, the sharded training step) each
+layer's weights are this rank's parts and the residual stream is this
+rank's dp rows and cp chunk, [b, s/tp, h] of it under sequence
+parallelism; attention, the MLP and the expert bank place their
+collectives (models/attention.py, mlp.py, moe.py), the cross-attention of
+T5's decoder included, and every dropout draws the whole step's mask and
+keeps this rank's region of it (ops/dropout.py; the zigzag positions when
+the batch was pre-permuted, `cp_pre_zigzag`), so a sharded step drops what
+the unsharded step drops with the same generator.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ from megatron_tpu_torch.models.attention import (BlockKVCache, KVCache,
                                                  attention_axes,
                                                  attention_init)
 from megatron_tpu_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
-from megatron_tpu_torch.models.moe import moe_apply, moe_init
+from megatron_tpu_torch.models.moe import moe_apply, moe_axes, moe_init
 from megatron_tpu_torch.models.norms import apply_norm, norm_axes, norm_init
 from megatron_tpu_torch.ops.dropout import drop_path, dropout
 from megatron_tpu_torch.ops.quantized import W8, GemmTape
@@ -109,13 +111,10 @@ def stack_init(cfg: ModelConfig, num_layers: Optional[int] = None,
 
 
 def layer_axes(cfg: ModelConfig, cross_attn: bool = False) -> dict:
-    """Logical axes of one layer's parameters (transformer.py layer_axes);
-    the expert bank's have no counterpart yet (experts under a mesh,
-    ROADMAP Queue 1 item 7)."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError("the expert bank's sharding (moe_axes) "
-                                  "is not ported (ROADMAP Queue 1 item 7)")
-    axes = {"attention": attention_axes(cfg), "mlp": mlp_axes(cfg)}
+    """Logical axes of one layer's parameters (transformer.py
+    layer_axes)."""
+    axes = {"attention": attention_axes(cfg),
+            "mlp": moe_axes(cfg) if cfg.num_experts > 1 else mlp_axes(cfg)}
     if cross_attn:
         axes["inter_attention"] = attention_axes(cfg)
         axes["post_inter_norm"] = norm_axes(cfg.norm_type)
@@ -146,7 +145,8 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 generator: Optional[torch.Generator] = None,
                 adapters=None, causal: bool = True, encoder_output=None,
                 hidden_dropout: Optional[float] = None,
-                drop_path_rate: Optional[float] = None, mesh=None):
+                drop_path_rate: Optional[float] = None, mesh=None,
+                cp_pre_zigzag: bool = False):
     """One transformer layer. x: [b, s, h] ([b, s/tp, h] under a mesh with
     sequence parallelism; `mesh`: see the module's note). Returns (x, kv_cache, aux),
     aux being the MoE router's load-balancing loss (a 0-d fp32 tensor), or
@@ -172,7 +172,8 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     def drop(out):
         region = (None if mesh is None
-                  else activation_region(mesh, tuple(out.shape)))
+                  else activation_region(mesh, tuple(out.shape),
+                                         zigzag=cp_pre_zigzag))
         return dropout(generator, out, p_drop, region)
 
     def branch(out):
@@ -185,10 +186,7 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     def mlp_branch(inp):
         if cfg.num_experts > 1:
-            if mesh is not None:
-                raise NotImplementedError("experts under a mesh (ROADMAP "
-                                          "Queue 1 item 7)")
-            return moe_apply(params["mlp"], inp, cfg)
+            return moe_apply(params["mlp"], inp, cfg, mesh=mesh)
         return mlp_apply(params["mlp"], inp, cfg, mesh=mesh), 0.0
 
     residual = x
@@ -200,7 +198,8 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         params["attention"], ln_out, cfg, rope_cos=rope_cos,
         rope_sin=rope_sin, position_ids=position_ids, kv_cache=kv_cache,
         segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator, adapters=adapters, causal=causal, mesh=mesh)
+        generator=generator, adapters=adapters, causal=causal, mesh=mesh,
+        cp_pre_zigzag=cp_pre_zigzag)
     if cfg.parallel_attn:
         if cfg.parallel_layernorm:
             mlp_in = apply_norm(cfg.norm_type, params["mlp_norm"], residual,
@@ -219,7 +218,7 @@ def layer_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
             inter_out, _ = attention_apply(
                 params["inter_attention"], ln_x, cfg,
                 deterministic=deterministic, causal=False,
-                kv_input=encoder_output)
+                kv_input=encoder_output, mesh=mesh)
             ln_in = ln_in + drop(inter_out)
         ln2 = apply_norm(cfg.norm_type, params["post_attn_norm"], ln_in, eps)
         mlp_out, aux = mlp_branch(ln2)
@@ -299,7 +298,7 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 segment_ids=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
                 adapters=None, causal: bool = True, encoder_output=None,
-                mesh=None):
+                mesh=None, cp_pre_zigzag: bool = False):
     """Apply every layer in order, each at its hidden-dropout and drop-path
     rate (`dropout_rates`). `kv_caches` is a KVCache of
     [L, b, T, nkv, hd] tensors or a BlockKVCache of [L, total_blocks, B,
@@ -331,7 +330,8 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                                adapters=None if lora is None else lora[i],
                                causal=causal, encoder_output=encoder_output,
                                hidden_dropout=hidden[i],
-                               drop_path_rate=paths[i], mesh=mesh)
+                               drop_path_rate=paths[i], mesh=mesh,
+                               cp_pre_zigzag=cp_pre_zigzag)
         if remat:
             x, _, layer_aux = recompute(apply, x, cfg.recompute_granularity,
                                         gen)

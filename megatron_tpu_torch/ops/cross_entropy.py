@@ -79,3 +79,13 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         loss = (1.0 - label_smoothing) * loss + label_smoothing * (
             lse - mean_logit)
     return loss
+
+
+def mesh_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                       vocab_size: Optional[int] = None) -> torch.Tensor:
+    """The per-token loss of a model's logits: vocab-parallel when `mesh`
+    cuts the vocab over tp (more than one tp rank), else whole."""
+    if mesh is not None and mesh.shape[TENSOR_AXIS] > 1:
+        return vocab_parallel_cross_entropy(logits, labels, mesh,
+                                            vocab_size=vocab_size)
+    return cross_entropy_loss(logits, labels, vocab_size=vocab_size)

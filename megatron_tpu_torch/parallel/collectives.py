@@ -21,6 +21,21 @@ writes them by hand, as upstream Megatron's mappings do
 parallelism asks for. An axis of size 1 makes every collective over it the
 identity, with no call.
 
+Context parallelism and the expert layouts add mappings over any axis:
+
+- `gather_axis`: all-gather along a dim forward, reduce-scatter backward
+  (the sequence over cp, the contexts of ICT's in-batch negatives over dp);
+- `all_to_all_axis`: split one dim over the axis's ranks and concatenate
+  what they send along another (Ulysses' seq <-> head reshards, the expert
+  blocks over dp); its backward is the inverse all-to-all;
+- `ring_shift`: send to the next rank of the axis and receive from the
+  previous one (the reference's `lax.ppermute` with `perm_ring`, through
+  `batch_isend_irecv`); its backward shifts the other way;
+- `sum_axis`: an all-reduce whose backward is an all-reduce too, for a
+  value that every rank's own share of the loss reads (the MoE router's
+  token fractions);
+- `scale_grad`: the identity forward, the grad times a constant backward.
+
 `Transport` moves the bytes for one backend, chosen by the backend named at
 init (`transport_for`): NCCL takes the tensors where they lie; gloo takes
 host copies, because torch's gloo backend runs only `broadcast` and
@@ -68,6 +83,44 @@ class Transport:
         dist.all_gather_into_tensor(out, x, group=group)
         return self._unstage(out, t).movedim(0, dim).contiguous()
 
+    def all_to_all(self, t: torch.Tensor, group, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        """`t` cut along `split_dim` into equal parts in rank order, part i
+        sent to rank i; the parts received joined along `cat_dim` in rank
+        order."""
+        n = dist.get_world_size(group)
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of "
+                             f"{tuple(t.shape)} does not split over {n} "
+                             "ranks")
+        x = self._stage(t.movedim(split_dim, 0))
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        out = self._unstage(out, t)
+        k = x.shape[0] // n
+        # [source rank, this rank's part of split_dim, the other dims]
+        y = out.reshape(n, k, *x.shape[1:]).movedim(1, split_dim + 1)
+        y = y.movedim(0, cat_dim)
+        shape = list(t.shape)
+        shape[split_dim] = k
+        shape[cat_dim] *= n
+        return y.reshape(shape).contiguous()
+
+    def shift(self, t: torch.Tensor, group, step: int) -> torch.Tensor:
+        """What the rank `step` places before this one in the group's ring
+        sent: every rank sends `t` to the rank `step` places after it."""
+        n = dist.get_world_size(group)
+        me = dist.get_group_rank(group, dist.get_rank())
+        buf = self._stage(t)
+        out = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf,
+                          dist.get_global_rank(group, (me + step) % n)),
+               dist.P2POp(dist.irecv, out,
+                          dist.get_global_rank(group, (me - step) % n))]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return self._unstage(out, t)
+
     def reduce_scatter(self, t: torch.Tensor, group, dim: int
                        ) -> torch.Tensor:
         """The sum over the group, cut along `dim` into equal parts in rank
@@ -109,6 +162,20 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str,
     if mesh.shape[axis] == 1:
         return t
     return mesh.transport.reduce_scatter(t, mesh.groups[axis], dim)
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    if mesh.shape[axis] == 1:
+        return t
+    return mesh.transport.all_to_all(t, mesh.groups[axis], split_dim,
+                                     cat_dim)
+
+
+def shift(t: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
+    if mesh.shape[axis] == 1:
+        return t
+    return mesh.transport.shift(t, mesh.groups[axis], step)
 
 
 def sum_world(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -203,6 +270,16 @@ def tp_region_in(x: torch.Tensor, mesh) -> torch.Tensor:
     return copy_to_tp(x, mesh)
 
 
+def from_tp_rank0(x: torch.Tensor, mesh) -> torch.Tensor:
+    """`x` as tp rank 0 holds it, on every tp rank: the other ranks' `x`
+    counts zero, and the backward hands every rank the grad, which only
+    rank 0's `x` takes (BERT's pooler under sequence parallelism, where
+    token 0 lies on tp rank 0)."""
+    if mesh.shape["tp"] == 1:
+        return x
+    return reduce_from_tp(x * float(mesh.coords["tp"] == 0), mesh)
+
+
 def tp_region_out(x: torch.Tensor, mesh) -> torch.Tensor:
     """A row-parallel product's partial sums leaving for the residual
     stream: reduce-scattered along the sequence under sequence
@@ -210,3 +287,100 @@ def tp_region_out(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh.sequence_parallel:
         return reduce_scatter_seq(x, mesh)
     return reduce_from_tp(x, mesh)
+
+
+# --- autograd mappings over any axis ------------------------------------------
+
+class _GatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _AllToAllAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, cat_dim):
+        ctx.args = (mesh, axis, cat_dim, split_dim)
+        return all_to_all(x, mesh, axis, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), *ctx.args), None, None, None, None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, step):
+        ctx.args = (mesh, axis, -step)
+        return shift(x, mesh, axis, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g.contiguous(), *ctx.args), None, None, None
+
+
+class _SumAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, *ctx.args), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def gather_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The axis's parts of `x` joined along `dim`; the backward sums every
+    rank's grad of the whole and keeps this rank's part."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherAxis.apply(x, mesh, axis, dim)
+
+
+def all_to_all_axis(x: torch.Tensor, mesh, axis: str, split_dim: int,
+                    cat_dim: int) -> torch.Tensor:
+    """`Transport.all_to_all` over the axis, differentiable."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllToAllAxis.apply(x, mesh, axis, split_dim, cat_dim)
+
+
+def ring_shift(x: torch.Tensor, mesh, axis: str, step: int = 1
+               ) -> torch.Tensor:
+    """The tensor of the rank `step` places before this one on the axis's
+    ring, differentiable."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _RingShift.apply(x, mesh, axis, step)
+
+
+def sum_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of `x` over the axis, where every rank's loss reads the sum:
+    the backward sums the ranks' grads."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _SumAxis.apply(x, mesh, axis)
+
+
+def scale_grad(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """`x`, whose grad is multiplied by `factor`."""
+    if factor == 1.0:
+        return x
+    return _ScaleGrad.apply(x, factor)

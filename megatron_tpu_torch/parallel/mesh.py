@@ -6,7 +6,7 @@ axis rides the fastest links (upstream Megatron's rank order). The port
 lays the ranks of the default process group out the same way: rank r sits
 where r sits in `arange(world).reshape(dp, pp, cp, tp)` (`rank_grid`), and
 every axis of size > 1 gets the process groups of the ranks that differ
-only along it. The port runs dp and tp; pp and cp are 1 (config.py
+only along it. The port runs dp, cp and tp; pp is 1 (config.py
 `MegatronConfig.validate`).
 
 A `Mesh` is what the sharded model, the train step and the checkpoint

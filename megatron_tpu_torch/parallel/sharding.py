@@ -19,10 +19,21 @@ Two layouts are not a plain cut of a dim:
   replicated and each rank picks the kv head of its q heads
   (models/attention.py); their grads are partial sums over tp.
 
+With `expert_axis="dp"` the rules map a bank's "experts" dim to dp: a
+rank holds its dp coordinate's experts, and `shard_leaf`/`gather_leaf` cut
+and join that dim over dp as the others over tp. Every leaf is whole over
+cp, whose ranks hold the same weights.
+
 `distributed_opt_dim` is the reference's ZeRO-1 dim rule
 (`distributed_opt_sharding`): a leaf's fp32 moments are cut over dp on
 its first dim that the rules leave unsharded and dp divides; a leaf
-without one keeps them whole.
+without one keeps them whole, and a leaf the rules already cut over dp
+(an expert bank on dp) is left as it is.
+
+`activation_region` places a rank's residual-stream activation in the
+whole step's: its dp rows, and along the sequence its cp chunk (the zigzag
+chunks when the batch was pre-permuted) and, under sequence parallelism,
+its tp part of that.
 """
 from __future__ import annotations
 
@@ -84,6 +95,16 @@ def tp_dims(axes: tuple, mesh: Mesh) -> list:
     return [d for d, ax in enumerate(spec) if ax == TENSOR_AXIS]
 
 
+def dp_dims(axes: tuple, mesh: Mesh) -> list:
+    """The dims of a leaf that the rules cut over dp (an expert bank under
+    expert_axis "dp"); none when dp is 1. The batch is the only other
+    logical axis on dp, and no parameter has it."""
+    if mesh.shape[DATA_AXIS] == 1:
+        return []
+    spec = logical_to_spec(axes, _rules(mesh))
+    return [d for d, ax in enumerate(spec) if ax == DATA_AXIS]
+
+
 def _kv_view(t: torch.Tensor, dim: int, kv_heads: int) -> torch.Tensor:
     """The fused kv dim of `t` viewed as [2, nkv, hd]."""
     return t.reshape(*t.shape[:dim], 2, kv_heads, -1, *t.shape[dim + 1:])
@@ -116,12 +137,15 @@ def tp_sharded(axes: tuple, mesh: Mesh,
 def shard_leaf(full: torch.Tensor, axes: tuple, mesh: Mesh,
                kv_heads: Optional[int] = None) -> torch.Tensor:
     """This rank's part of a whole leaf: its tp coordinate's equal share
-    of every dim the rules map to tp. A "kv_heads" dim is cut on the nkv
-    dim of its [2, nkv, hd] view (`kv_heads` = nkv), and left whole when
-    tp does not divide nkv. Returns a contiguous tensor (the leaf itself
-    where nothing is cut)."""
+    of every dim the rules map to tp, and its dp coordinate's of a dim
+    they map to dp. A "kv_heads" dim is cut on the nkv dim of its
+    [2, nkv, hd] view (`kv_heads` = nkv), and left whole when tp does not
+    divide nkv. Returns a contiguous tensor (the leaf itself where nothing
+    is cut)."""
     tp, t = mesh.shape[TENSOR_AXIS], mesh.coords[TENSOR_AXIS]
     out = full
+    for d in dp_dims(axes, mesh):
+        out = shard_dp(out, d, mesh)
     for d in cut_dims(axes, mesh, kv_heads):
         if axes[d] == "kv_heads":
             per = kv_heads // tp
@@ -150,6 +174,8 @@ def gather_leaf(local: torch.Tensor, axes: tuple, mesh: Mesh,
             out = whole.reshape(*out.shape[:d], -1, *out.shape[d + 1:])
         else:
             out = collectives.all_gather(out, mesh, TENSOR_AXIS, d)
+    for d in dp_dims(axes, mesh):
+        out = gather_dp(out, d, mesh)
     return out
 
 
@@ -163,6 +189,9 @@ def distributed_opt_dim(axes: tuple, shape: tuple,
     if dp == 1 or not mesh.use_distributed_optimizer:
         return None
     spec = list(logical_to_spec(axes, _rules(mesh)))
+    if DATA_AXIS in spec:
+        # an expert bank on dp: its moments are cut with it already
+        return None
     spec += [None] * (len(shape) - len(spec))
     for d, (ax, size) in enumerate(zip(spec, shape)):
         if ax is None and size % dp == 0:
@@ -171,8 +200,12 @@ def distributed_opt_dim(axes: tuple, shape: tuple,
 
 
 def shard_dp(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
-    """This rank's dp share of `t` along `dim` (contiguous)."""
+    """This rank's dp share of `t` along `dim` (contiguous); raises when dp
+    does not divide the dim."""
     dp, d = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    if t.shape[dim] % dp:
+        raise ValueError(f"shard_dp: dim {dim} of {tuple(t.shape)} does "
+                         f"not split over dp={dp}")
     per = t.shape[dim] // dp
     return t.narrow(dim, d * per, per).contiguous()
 
@@ -181,17 +214,45 @@ def gather_dp(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     return collectives.all_gather(t, mesh, DATA_AXIS, dim)
 
 
-def activation_region(mesh: Mesh, shape: tuple, per_sample: bool = False):
+def cp_positions(seq: int, mesh: Mesh, zigzag: bool = False):
+    """The places in the whole sequence of length `seq` of this rank's cp
+    chunk, in its order: a slice of the contiguous split, or the index
+    tensor of its two zigzag chunks (parallel/ring_attention.py
+    `zigzag_permutation`)."""
+    cp, c = mesh.shape[CONTEXT_AXIS], mesh.coords[CONTEXT_AXIS]
+    per = seq // cp
+    if not zigzag:
+        return slice(c * per, (c + 1) * per)
+    half = per // 2
+    head = torch.arange(c * half, (c + 1) * half)
+    tail = torch.arange((2 * cp - 1 - c) * half, (2 * cp - c) * half)
+    return torch.cat([head, tail])
+
+
+def activation_region(mesh: Mesh, shape: tuple, per_sample: bool = False,
+                      zigzag: bool = False):
     """Where a rank's residual-stream activation [b, s, ...] lies in the
-    whole step's [b * dp, s (* tp under SP), ...]: (whole shape, index).
-    `per_sample` is the [b, 1, ...] shape of a per-sample draw (drop
-    path), cut on the batch dim alone."""
+    whole step's [b * dp, s * cp (* tp under SP), ...]: (whole shape,
+    index). `per_sample` is the [b, 1, ...] shape of a per-sample draw
+    (drop path), cut on the batch dim alone; `zigzag`: the batch was
+    pre-permuted for the ring (see the module's note)."""
     b = shape[0]
     d = mesh.coords[DATA_AXIS]
     whole = [b * mesh.shape[DATA_AXIS], *shape[1:]]
     index = [slice(d * b, (d + 1) * b)]
-    if mesh.sequence_parallel and not per_sample:
-        s, t = shape[1], mesh.coords[TENSOR_AXIS]
-        whole[1] = s * mesh.shape[TENSOR_AXIS]
-        index.append(slice(t * s, (t + 1) * s))
+    if per_sample:
+        return tuple(whole), tuple(index)
+    sp = mesh.sequence_parallel
+    cp = mesh.shape[CONTEXT_AXIS]
+    if sp or cp > 1:
+        tp, t = mesh.shape[TENSOR_AXIS], mesh.coords[TENSOR_AXIS]
+        s = shape[1]
+        s_cp = s * tp if sp else s
+        whole[1] = s_cp * cp
+        where = cp_positions(s_cp * cp, mesh, zigzag)
+        if sp:
+            where = (torch.arange(s_cp * cp)[where][t * s:(t + 1) * s]
+                     if zigzag else slice(where.start + t * s,
+                                          where.start + (t + 1) * s))
+        index.append(where)
     return tuple(whole), tuple(index)

@@ -12,7 +12,11 @@ The model family is forced as the reference forces it (post-LN, learned
 positions, two token types, GELU, biases, a tied MLM decode), with fp32
 master weights whatever `--bf16` asks of the compute. It trains on the
 current CUDA device; `main(argv, device="cpu")` runs it on the CPU, as the
-tests do, and without a GPU and a `device` it raises. `--save` writes npz
+tests do, and without a GPU and a `device` it raises. Under torchrun it
+trains sharded over the (dp, tp) mesh of its ranks
+(`--tensor_model_parallel_size`, `--sequence_parallel`,
+`--use_distributed_optimizer`; training/pretrain.py `launch`), as
+pretrain_t5.py and pretrain_ict.py do. `--save` writes npz
 checkpoints that the JAX package reads, and `--load` resumes from one
 either package wrote, at the exact batch the interrupted run would have
 taken next.
@@ -22,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 
-from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+from megatron_tpu_torch.utils.device import DeviceLike
 
 
 def single_prefix(paths, flag: str) -> str:
@@ -38,16 +42,15 @@ def single_prefix(paths, flag: str) -> str:
 
 
 def main(argv=None, *, device: DeviceLike = None) -> int:
-    from megatron_tpu_torch.arguments import parse_cli
     from megatron_tpu_torch.data import build_tokenizer
     from megatron_tpu_torch.data.indexed_dataset import MMapIndexedDataset
     from megatron_tpu_torch.data.masked_dataset import BertDataset
     from megatron_tpu_torch.models import bert
-    from megatron_tpu_torch.training.pretrain import run_pretrain
+    from megatron_tpu_torch.training.pretrain import (launch, rank0_first,
+                                                      run_pretrain)
     from megatron_tpu_torch.utils.logging import print_rank_0
 
-    device = resolve_device(device)
-    cfg, _ = parse_cli(argv)
+    cfg, _, device, mesh = launch(argv, None, device)
     tokenizer = build_tokenizer(
         cfg.data.tokenizer_type or "BertWordPieceLowerCase",
         vocab_file=cfg.data.vocab_file,
@@ -74,24 +77,26 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
             mask_id=tokenizer.mask, pad_id=tokenizer.pad, seed=tr.seed,
             masked_lm_prob=cfg.data.masked_lm_prob)
 
-    dataset = make_ds(single_prefix(src, "--data_path"),
-                      tr.train_iters * tr.global_batch_size)
-    valid = None
-    if cfg.data.valid_data_path:
-        valid = make_ds(single_prefix(cfg.data.valid_data_path,
-                                      "--valid_data_path"),
-                        tr.eval_iters * tr.global_batch_size)
+    with rank0_first(mesh):
+        dataset = make_ds(single_prefix(src, "--data_path"),
+                          tr.train_iters * tr.global_batch_size)
+        valid = None
+        if cfg.data.valid_data_path:
+            valid = make_ds(single_prefix(cfg.data.valid_data_path,
+                                          "--valid_data_path"),
+                            tr.eval_iters * tr.global_batch_size)
 
     def init_params():
         return bert.BertModel(mcfg, device=device, seed=tr.seed,
-                              trainable=True)
+                              trainable=True, mesh=mesh)
 
     def loss_fn(model, mb, generator):
         return bert.bert_loss(model, mb, mcfg, generator=generator,
                               deterministic=mcfg.hidden_dropout == 0.0)
 
     return run_pretrain(cfg, dataset, init_params_fn=init_params,
-                        loss_fn=loss_fn, valid_dataset=valid, device=device)
+                        loss_fn=loss_fn, valid_dataset=valid, device=device,
+                        mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 
-from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+from megatron_tpu_torch.utils.device import DeviceLike
 
 
 def extra_args(p):
@@ -40,17 +40,16 @@ def extra_args(p):
 
 
 def main(argv=None, *, device: DeviceLike = None) -> int:
-    from megatron_tpu_torch.arguments import parse_cli
     from megatron_tpu_torch.data import build_tokenizer
     from megatron_tpu_torch.data.ict_dataset import ICTDataset
     from megatron_tpu_torch.data.indexed_dataset import MMapIndexedDataset
     from megatron_tpu_torch.models import biencoder
     from megatron_tpu_torch.pretrain_bert import single_prefix
-    from megatron_tpu_torch.training.pretrain import run_pretrain
+    from megatron_tpu_torch.training.pretrain import (launch, rank0_first,
+                                                      run_pretrain)
     from megatron_tpu_torch.utils.logging import print_rank_0
 
-    device = resolve_device(device)
-    cfg, args = parse_cli(argv, extra_args)
+    cfg, args, device, mesh = launch(argv, extra_args, device)
     tokenizer = build_tokenizer(
         cfg.data.tokenizer_type or "BertWordPieceLowerCase",
         vocab_file=cfg.data.vocab_file,
@@ -83,21 +82,22 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
             pad_id=tokenizer.pad, seed=cfg.training.seed,
             sizes=sentences.sizes)
 
-    dataset = make_ds(single_prefix(src, "--data_path"),
-                      args.titles_data_path)
-    valid = None
-    if cfg.data.valid_data_path:
-        if args.titles_data_path and not args.valid_titles_data_path:
-            raise SystemExit("--valid_data_path with --titles_data_path "
-                             "requires --valid_titles_data_path")
-        valid = make_ds(single_prefix(cfg.data.valid_data_path,
-                                      "--valid_data_path"),
-                        args.valid_titles_data_path)
+    with rank0_first(mesh):
+        dataset = make_ds(single_prefix(src, "--data_path"),
+                          args.titles_data_path)
+        valid = None
+        if cfg.data.valid_data_path:
+            if args.titles_data_path and not args.valid_titles_data_path:
+                raise SystemExit("--valid_data_path with --titles_data_path "
+                                 "requires --valid_titles_data_path")
+            valid = make_ds(single_prefix(cfg.data.valid_data_path,
+                                          "--valid_data_path"),
+                            args.valid_titles_data_path)
 
     def init_params():
         return biencoder.BiencoderModel(
             mcfg, ict_head_size=args.ict_head_size, shared=shared,
-            device=device, seed=cfg.training.seed, trainable=True)
+            device=device, seed=cfg.training.seed, trainable=True, mesh=mesh)
 
     def loss_fn(model, mb, generator):
         loss, _ = biencoder.retrieval_loss(
@@ -106,7 +106,8 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         return loss
 
     return run_pretrain(cfg, dataset, init_params_fn=init_params,
-                        loss_fn=loss_fn, valid_dataset=valid, device=device)
+                        loss_fn=loss_fn, valid_dataset=valid, device=device,
+                        mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -21,20 +21,19 @@ import dataclasses
 import sys
 
 from megatron_tpu_torch.pretrain_bert import single_prefix
-from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
+from megatron_tpu_torch.utils.device import DeviceLike
 
 
 def main(argv=None, *, device: DeviceLike = None) -> int:
-    from megatron_tpu_torch.arguments import parse_cli
     from megatron_tpu_torch.data import build_tokenizer
     from megatron_tpu_torch.data.indexed_dataset import MMapIndexedDataset
     from megatron_tpu_torch.data.masked_dataset import T5Dataset
     from megatron_tpu_torch.models import t5
-    from megatron_tpu_torch.training.pretrain import run_pretrain
+    from megatron_tpu_torch.training.pretrain import (launch, rank0_first,
+                                                      run_pretrain)
     from megatron_tpu_torch.utils.logging import print_rank_0
 
-    device = resolve_device(device)
-    cfg, _ = parse_cli(argv)
+    cfg, _, device, mesh = launch(argv, None, device)
     extra_ids = cfg.data.vocab_extra_ids or 100
     tokenizer = build_tokenizer(
         cfg.data.tokenizer_type or "BertWordPieceLowerCase",
@@ -66,23 +65,26 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
             eos_id=tokenizer.sep, pad_id=tokenizer.pad, seed=tr.seed,
             masked_lm_prob=cfg.data.masked_lm_prob)
 
-    dataset = make_ds(single_prefix(src, "--data_path"),
-                      tr.train_iters * tr.global_batch_size)
-    valid = None
-    if cfg.data.valid_data_path:
-        valid = make_ds(single_prefix(cfg.data.valid_data_path,
-                                      "--valid_data_path"),
-                        tr.eval_iters * tr.global_batch_size)
+    with rank0_first(mesh):
+        dataset = make_ds(single_prefix(src, "--data_path"),
+                          tr.train_iters * tr.global_batch_size)
+        valid = None
+        if cfg.data.valid_data_path:
+            valid = make_ds(single_prefix(cfg.data.valid_data_path,
+                                          "--valid_data_path"),
+                            tr.eval_iters * tr.global_batch_size)
 
     def init_params():
-        return t5.T5Model(mcfg, device=device, seed=tr.seed, trainable=True)
+        return t5.T5Model(mcfg, device=device, seed=tr.seed, trainable=True,
+                          mesh=mesh)
 
     def loss_fn(model, mb, generator):
         return t5.t5_loss(model, mb, mcfg, generator=generator,
                           deterministic=mcfg.hidden_dropout == 0.0)
 
     return run_pretrain(cfg, dataset, init_params_fn=init_params,
-                        loss_fn=loss_fn, valid_dataset=valid, device=device)
+                        loss_fn=loss_fn, valid_dataset=valid, device=device,
+                        mesh=mesh)
 
 
 if __name__ == "__main__":

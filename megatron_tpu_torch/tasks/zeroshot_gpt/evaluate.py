@@ -57,7 +57,8 @@ def evaluate_dataset(params, dataset, cfg: MegatronConfig, *,
     if mesh is not None:
         raise NotImplementedError(
             "evaluate_dataset: a mesh (tensor, pipeline, data parallelism) "
-            "is ported with the multi-device slice (ROADMAP Queue 1 item 7)")
+            "is ported with the multi-device slice (ROADMAP Queue 1 item 7 "
+            "(e))")
     device = resolve_device(device)
     where = lm.params_device(params)
     if where != device:

@@ -39,15 +39,16 @@ the optimizer state (the live-weight swap's staging, serving/weights.py).
 `load_pretrained_params` copies a checkpoint's weights into the leaves of
 another model that share their names (a task head keeps its fresh values).
 
-A state sharded over a (dp, tp) mesh (training/train_step.py) saves the
-same unsharded files: every rank gathers every leaf whole (the tp parts,
-and each ZeRO-1 moment's dp shares), one leaf at a time, rank 0 keeps a
+A state sharded over a (dp, cp, tp) mesh (training/train_step.py) saves
+the same unsharded files: every rank gathers every leaf whole (the tp
+parts, an expert bank's dp parts under expert_axis "dp", and each ZeRO-1
+moment's dp shares), one leaf at a time, rank 0 keeps a
 host copy of each and writes them once and publishes, and the other ranks
 write nothing and wait at a barrier until it has. Such a save holds the
 whole state in rank 0's host memory while it runs.
 A load into a sharded state reads the whole leaves on every rank and keeps
-each rank's parts, so a checkpoint loads at any (dp, tp) and into the
-unsharded port alike.
+each rank's parts, so a checkpoint loads at any (dp, cp, tp) and
+expert_axis, and into the unsharded port alike.
 
 Orbax checkpoints (`format_version` 2, a `state/` directory) exist only with
 JAX: reading one raises. Convert it on the JAX side with `load_params_host`
@@ -262,13 +263,15 @@ class _MeshLeaves:
 
     def whole_shape(self, key: str, shape: tuple) -> tuple:
         """The whole leaf's shape from this rank's part's: the ZeRO-1 dim
-        times dp, every dim cut over tp times tp."""
+        and a dim cut over dp times dp, every dim cut over tp times tp."""
         leaf, moment = self._leaf(key)
         out = list(shape)
         if leaf is None:
             return tuple(out)
         if moment and leaf.zero_dim is not None:
             out[leaf.zero_dim] *= self.mesh.shape[DATA_AXIS]
+        for d in shd.dp_dims(leaf.axes, self.mesh):
+            out[d] *= self.mesh.shape[DATA_AXIS]
         for d in shd.cut_dims(leaf.axes, self.mesh, self.kv_heads):
             out[d] *= self.mesh.shape[TENSOR_AXIS]
         return tuple(out)

@@ -71,10 +71,11 @@ from megatron_tpu_torch.resilience import (DivergenceGuard, GuardAction,
                                            TrainingDivergedError,
                                            get_fault_injector)
 from megatron_tpu_torch.training.microbatches import MicrobatchCalculator
+from megatron_tpu_torch.parallel.multihost import make_global_batch
 from megatron_tpu_torch.training.train_step import (TrainState,
                                                     init_train_state,
                                                     make_train_step,
-                                                    shard_lm_batch)
+                                                    shard_lm_batch, sum_loss)
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 from megatron_tpu_torch.utils.logging import (make_writer, print_rank_0,
                                               report_memory)
@@ -221,19 +222,25 @@ def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
     mean over microbatches of the masked-mean lm loss, deterministic, with
     no position or segment ids; or of `loss_fn(params, mb, None)` (the
     BERT and T5 entry points' loss). Returns a device scalar. On a `mesh`
-    each rank takes its dp rows of the global batch, divides by the whole
-    microbatch's mask count and the sum goes over dp, as in the step."""
+    each rank takes its dp rows of the global batch (and the LM loss its
+    cp chunk), divides by the whole microbatch's mask count, or returns
+    its share of a custom loss, and the sum goes over dp and cp, as in the
+    step."""
     device = resolve_device(device)
     rope = lm.make_rope(cfg.model, device=device)
 
     @torch.no_grad()
     def eval_step(params, batch: dict) -> torch.Tensor:
         if loss_fn is not None:
+            if mesh is not None:
+                batch = make_global_batch(batch, mesh)
             n_micro = next(iter(batch.values())).shape[0]
             total = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(n_micro):
                 total += loss_fn(params, {k: v[i] for k, v in batch.items()},
                                  None)
+            if mesh is not None:
+                total = sum_loss(total, mesh)
             return total / n_micro
         counts = None
         if mesh is not None:
@@ -249,7 +256,7 @@ def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
                                 denominator=None if counts is None
                                 else counts[i])
         if mesh is not None:
-            total = collectives.all_reduce(total, mesh, DATA_AXIS)
+            total = sum_loss(total, mesh)
         return total / n_micro
 
     return eval_step
@@ -365,7 +372,7 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
     if mesh is not None and res.step_timeout_s:
         raise NotImplementedError(
             "the hung-step watchdog under a mesh (its checkpoint needs "
-            "every rank) is not ported (ROADMAP Queue 1 item 7)")
+            "every rank) is not ported (ROADMAP Queue 1 item 7 (f))")
     step_fn = make_train_step(cfg, mesh=mesh, device=device, **step_kwargs)
     dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
     calc = MicrobatchCalculator(

@@ -8,25 +8,60 @@ at the exact batch the interrupted run would have taken next), the batch
 iterators over the family's dict samples, and the divergence-rollback
 hooks: only checkpoints this run writes are rollback targets, and the data
 stream is rebuilt at the checkpoint's exact position (the loop quarantines
-the poison window; the order is never re-seeded). These families' steps
-have no mesh yet: tensor parallelism or more than one rank raises (ROADMAP
-Queue 1 item 7).
+the poison window; the order is never re-seeded).
+
+Under torchrun the entry points train sharded over the (dp, tp) mesh of
+the ranks (`launch`): every rank builds the same global batches, rank 0
+builds the datasets' index caches first (`rank0_first`), the family's
+module is built on the mesh, and its checkpoints are the unsharded
+format (training/checkpointing.py).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
+
+import torch.distributed as dist
 
 from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
+def launch(argv, extra_args=None, device: DeviceLike = None) -> tuple:
+    """The flags and the ranks of an entry point -> (cfg, args, device,
+    mesh): dp derived from torchrun's world, the process group joined
+    (`--distributed_backend`), and the mesh built when there is more than
+    one rank (None otherwise)."""
+    from megatron_tpu_torch.arguments import parse_cli
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.parallel.multihost import (
+        initialize_distributed, world_size)
+    world = world_size()
+    cfg, args = parse_cli(argv, extra_args, n_devices=world)
+    device = initialize_distributed(device, args.distributed_backend)
+    mesh = build_mesh(cfg.parallel) if world > 1 else None
+    return cfg, args, device, mesh
+
+
+@contextlib.contextmanager
+def rank0_first(mesh):
+    """Rank 0 runs the block (which builds the datasets' index caches)
+    before the other ranks do."""
+    if mesh is not None and mesh.rank != 0:
+        dist.barrier()
+    yield
+    if mesh is not None and mesh.rank == 0:
+        dist.barrier()
+
+
 def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
                  loss_fn: Callable, valid_dataset=None,
-                 device: DeviceLike = None) -> int:
+                 device: DeviceLike = None, mesh=None) -> int:
     """Train on `dataset` on `device` (the current CUDA device when None;
     raises without one). `init_params_fn()` returns the family's fresh
-    module on that device, `loss_fn(model, mb, generator)` the loss of one
-    microbatch (make_train_step's contract). Returns 0."""
+    module on that device (built on `mesh` when one is given),
+    `loss_fn(model, mb, generator)` the loss of one microbatch
+    (make_train_step's contract). Returns 0."""
     from megatron_tpu_torch.data.samplers import (DictBatchIterator,
                                                   restore_data_state)
     from megatron_tpu_torch.training import checkpointing as ckpt
@@ -34,18 +69,18 @@ def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
     from megatron_tpu_torch.training.train_step import state_from_params
     from megatron_tpu_torch.utils.logging import print_rank_0
 
-    from megatron_tpu_torch.parallel.multihost import world_size
-    if cfg.parallel.tensor_parallel > 1 or world_size() > 1:
-        raise NotImplementedError(
-            "the BERT, T5 and ICT steps under a mesh (tensor parallelism or "
-            "more than one rank) are not ported (ROADMAP Queue 1 item 7)")
     device = resolve_device(device)
+    dp = 1 if mesh is None else mesh.shape["dp"]
     tr = cfg.training
     if cfg.data.test_data_path:
         print_rank_0("warning: --test_data_path is ignored by the "
                      "BERT/T5 pretrain entry points (no test phase)")
 
-    state = state_from_params(init_params_fn(), cfg)
+    model = init_params_fn()
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("run_pretrain: init_params_fn built its model on "
+                         "another mesh than the one given")
+    state = state_from_params(model, cfg)
     start_iteration, consumed = 0, 0
     data_state, quarantine = None, []
     load_dir = tr.load_dir or tr.checkpoint_dir
@@ -58,7 +93,7 @@ def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
 
     def make_train_it(consumed_samples, data_state=None):
         it = DictBatchIterator(
-            dataset, tr.micro_batch_size, 1, cfg.num_microbatches,
+            dataset, tr.micro_batch_size, dp, cfg.num_microbatches,
             consumed_samples=consumed_samples,
             dataloader_type=cfg.data.dataloader_type, seed=tr.seed)
         restore_data_state(it, data_state)
@@ -66,7 +101,7 @@ def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
 
     valid_it = None
     if valid_dataset is not None:
-        valid_it = DictBatchIterator(valid_dataset, tr.micro_batch_size, 1,
+        valid_it = DictBatchIterator(valid_dataset, tr.micro_batch_size, dp,
                                      cfg.num_microbatches, seed=tr.seed)
 
     save_fn = load_fn = None

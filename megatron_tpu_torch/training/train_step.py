@@ -26,34 +26,40 @@ whose parameters carry the JAX tree's names (models/bert.py BertModel,
 models/t5.py T5Model), and the weight-decay mask comes from that module:
 its `stacked_prefixes` name the stacked [L, ...] leaves.
 
-`make_train_step(cfg, mesh=...)` runs the step of a decoder LM (GPT,
-Llama, Falcon; dense) sharded over the (dp, tp) mesh (parallel/), on a
-state whose model was built on that mesh (`init_train_state(cfg,
-mesh=...)`): each rank holds its tp parts of the weights and takes its dp
-rows of the global batch, which every rank is handed alike
-(parallel/multihost.py `make_global_batch`). The step writes by hand the
-collectives that GSPMD derives for the reference
-(megatron_tpu/training/train_step.py):
-- each microbatch's masked-mean loss divides by the whole microbatch's
-  mask count, so the dp ranks' losses sum to the unsharded one;
+`make_train_step(cfg, mesh=...)` runs the step sharded over the (dp, cp,
+tp) mesh (parallel/), on a state whose model was built on that mesh
+(`init_train_state(cfg, mesh=...)`, or a BERT, T5 or biencoder module
+built with `mesh=`): each rank holds its parts of the weights and takes
+its dp rows of the global batch, which every rank is handed alike
+(parallel/multihost.py `make_global_batch`), and its cp chunk of the
+sequence. The step writes by hand the collectives that GSPMD derives for
+the reference (megatron_tpu/training/train_step.py):
+- each microbatch's masked-mean LM loss divides by the whole microbatch's
+  mask count, so the (dp, cp) ranks' losses sum to the unsharded one. A
+  custom `loss_fn` under a mesh returns the same kind of share: the
+  rank's part of the global microbatch's loss (models/bert.py, t5.py,
+  biencoder.py compute it so), and the loss is summed over dp and cp;
 - the grads of replicated leaves whose grads are partial over tp (every
   replicated leaf under sequence parallelism: the norms, the row-parallel
-  biases, the position embeddings; the replicated kv leaves when tp > nkv)
-  are all-reduced over tp;
-- every grad is all-reduced over dp, or with the distributed optimizer
-  (ZeRO-1) reduce-scattered on its ZeRO dim (parallel/sharding.py
+  biases, the position embeddings; the replicated kv leaves when tp > nkv;
+  the MoE router when the experts are cut over tp) are all-reduced over
+  tp;
+- every grad is all-reduced over cp, whose ranks hold the same weights,
+  and over dp, or with the distributed optimizer (ZeRO-1)
+  reduce-scattered on its ZeRO dim (parallel/sharding.py
   `distributed_opt_dim`): that rank updates its dp share of the leaf with
   its share of the fp32 moments, and the shares are all-gathered back
-  into the parameter. A leaf with no ZeRO dim keeps whole moments;
+  into the parameter. A leaf with no ZeRO dim keeps whole moments. An
+  expert bank cut over dp holds whole grads of its own experts, which are
+  neither reduced over dp nor cut again;
 - the grad norm, found_inf and the zero count are taken over the world
-  (training/optimizer.py `GradShards`), and lm_loss is summed over dp, so
-  every rank reports and decides the same.
+  (training/optimizer.py `GradShards`), and lm_loss is summed over dp and
+  cp, so every rank reports and decides the same.
 Dropout draws the unsharded step's masks from the same generator and
 keeps the rank's slice (models/transformer.py), so with one generator the
 sharded step equals the unsharded one up to the order of the sums.
-Recompute runs under the mesh as without it. A custom `loss_fn` (BERT,
-T5, ICT), the pipelined steps and experts under a mesh raise (ROADMAP
-Queue 1 item 7).
+Recompute runs under the mesh as without it. The pipelined steps raise
+(ROADMAP Queue 1 item 7 (c)).
 """
 from __future__ import annotations
 
@@ -67,7 +73,8 @@ from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.models import language_model as lm
 from megatron_tpu_torch.parallel import collectives
 from megatron_tpu_torch.parallel import sharding as shd
-from megatron_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, Mesh
+from megatron_tpu_torch.parallel.mesh import (CONTEXT_AXIS, DATA_AXIS,
+                                              TENSOR_AXIS, Mesh)
 from megatron_tpu_torch.parallel.multihost import make_global_batch
 from megatron_tpu_torch.training import optimizer as opt
 from megatron_tpu_torch.training import scheduler
@@ -106,33 +113,43 @@ def weight_decay_mask(model: torch.nn.Module) -> dict:
 @dataclass(frozen=True)
 class LeafLayout:
     """Where one leaf of a sharded model lies: its logical axes (the
-    reference's, `model_axes`), whether its tp part is a cut (`tp_cut`)
-    and whether its grads are partial sums over tp (`tp_partial`), its
-    ZeRO-1 dim, and whether this rank counts its grad in the norm
+    reference's, the model's `param_axes`), whether its tp part is a cut
+    (`tp_cut`), whether its grads are partial sums over tp
+    (`tp_partial`), whether it is cut over dp (`dp_cut`, an expert bank on
+    dp), its ZeRO-1 dim, and whether this rank counts its grad in the norm
     (`owned`, optimizer.GradShards)."""
     axes: tuple
     tp_cut: bool
     tp_partial: bool
     zero_dim: Optional[int]
     owned: bool
+    dp_cut: bool = False
 
 
 def state_layout(model: torch.nn.Module) -> dict:
-    """name -> LeafLayout of a LanguageModel built on a mesh."""
+    """name -> LeafLayout of a model built on a mesh (a LanguageModel, or
+    another family's module with its `param_axes`)."""
     mesh, cfg = model.mesh, model.cfg
     nkv = cfg.num_kv_heads
+    tp = mesh.shape[TENSOR_AXIS]
+    experts_on_tp = mesh.parallel.expert_axis == "tp"
     out = {}
-    for name, ax in lm.flat_axes(lm.model_axes(cfg)).items():
+    for name, ax in lm.flat_axes(model.param_axes()).items():
         p = model.get_parameter(name)
         cut = shd.tp_sharded(ax, mesh, nkv)
+        dp_cut = bool(shd.dp_dims(ax, mesh))
         zero = shd.distributed_opt_dim(ax, tuple(p.shape), mesh)
+        router = name.endswith("mlp.router") and cfg.num_experts > 1
         out[name] = LeafLayout(
-            axes=ax, tp_cut=cut,
-            tp_partial=(not cut and mesh.shape[TENSOR_AXIS] > 1
-                        and (mesh.sequence_parallel or "kv_heads" in ax)),
+            axes=ax, tp_cut=cut, dp_cut=dp_cut,
+            tp_partial=(not cut and tp > 1
+                        and (mesh.sequence_parallel or "kv_heads" in ax
+                             or (router and experts_on_tp))),
             zero_dim=zero,
             owned=((cut or mesh.coords[TENSOR_AXIS] == 0)
-                   and (zero is not None or mesh.coords[DATA_AXIS] == 0)))
+                   and (zero is not None or dp_cut
+                        or mesh.coords[DATA_AXIS] == 0)
+                   and mesh.coords[CONTEXT_AXIS] == 0))
     return out
 
 
@@ -143,6 +160,13 @@ def zero_share(t: torch.Tensor, leaf: LeafLayout, mesh: Mesh
     if leaf.zero_dim is None:
         return t
     return shd.shard_dp(t, leaf.zero_dim, mesh)
+
+
+def sum_loss(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A rank's share of a loss summed over the ranks that split the
+    batch: dp and cp."""
+    return collectives.all_reduce(collectives.all_reduce(t, mesh, DATA_AXIS),
+                                  mesh, CONTEXT_AXIS)
 
 
 def shard_lm_batch(batch: dict, mesh: Mesh) -> tuple:
@@ -241,7 +265,10 @@ def train_step(state: TrainState, batch: dict,
     mesh = getattr(model, "mesh", None)
     counts = None
     if mesh is not None:
-        batch, counts = shard_lm_batch(batch, mesh)
+        if loss_fn is None:
+            batch, counts = shard_lm_batch(batch, mesh)
+        else:
+            batch = make_global_batch(batch, mesh)
     # any entry's leading dim is the microbatch count (T5's batch has no
     # "tokens")
     n_micro = next(iter(batch.values())).shape[0]
@@ -290,7 +317,7 @@ def train_step(state: TrainState, batch: dict,
                 else torch.zeros_like(p, dtype=torch.float32))
     grads = {k: grad(k, p) for k, p in params.items()}
     if mesh is not None:
-        loss_sum = collectives.all_reduce(loss_sum, mesh, DATA_AXIS)
+        loss_sum = sum_loss(loss_sum, mesh)
         grads = _reduce_grads(grads, layout, mesh)
     with record_function(SPAN_OPTIMIZER):
         out = _finish_step(state, grads, loss_sum / n_micro, cfg, wd_mask,
@@ -302,14 +329,18 @@ def train_step(state: TrainState, batch: dict,
 
 def _reduce_grads(grads: dict, layout: dict, mesh: Mesh) -> dict:
     """A sharded step's local grads -> what this rank's optimizer takes:
-    partial sums over tp all-reduced, then every grad all-reduced over dp,
-    or reduce-scattered to the rank's share on its ZeRO dim."""
+    partial sums over tp all-reduced, every grad all-reduced over cp, then
+    over dp (an expert bank on dp excepted), or reduce-scattered to the
+    rank's share on its ZeRO dim."""
     out = {}
     for k, g in grads.items():
         leaf = layout[k]
         if leaf.tp_partial:
             g = collectives.all_reduce(g, mesh, TENSOR_AXIS)
-        if leaf.zero_dim is None:
+        g = collectives.all_reduce(g, mesh, CONTEXT_AXIS)
+        if leaf.dp_cut:
+            pass
+        elif leaf.zero_dim is None:
             g = collectives.all_reduce(g, mesh, DATA_AXIS)
         else:
             g = collectives.reduce_scatter(g, mesh, DATA_AXIS,
@@ -353,20 +384,23 @@ def _finish_step(state: TrainState, grads: dict, loss: torch.Tensor,
             if shards is None:
                 metrics["params_norm"] = opt.global_grad_norm(params)
             else:
-                # the parameters are whole over dp: one replica of each tp
-                # part, summed over tp
+                # one replica of each part: the tp parts, and the dp parts
+                # of an expert bank on dp, summed over the world
                 metrics["params_norm"] = opt.sharded_grad_norm(
                     params, opt.GradShards(
-                        owned={k: leaf.tp_cut
-                               or mesh.coords[TENSOR_AXIS] == 0
+                        owned={k: ((leaf.tp_cut
+                                    or mesh.coords[TENSOR_AXIS] == 0)
+                                   and (leaf.dp_cut
+                                        or mesh.coords[DATA_AXIS] == 0)
+                                   and mesh.coords[CONTEXT_AXIS] == 0)
                                for k, leaf in layout.items()},
-                        sum_world=lambda t: collectives.all_reduce(
-                            t, mesh, TENSOR_AXIS)))[0]
+                        sum_world=lambda t: collectives.sum_world(
+                            t, mesh)))[0]
     return state, metrics
 
 
 def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
-                    init_params_fn=None, pipelined_spec=None,
+                    init_params_fn=None, axes_fn=None, pipelined_spec=None,
                     pipelined_loss_fn=None, device: DeviceLike = None):
     """The training step of `cfg` on `device` (the current CUDA device when
     None; raises without one): `step(state, batch, generator=None) ->
@@ -374,29 +408,34 @@ def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
     generator)` replaces the LM loss (see the module's note). With a
     `mesh` (parallel/mesh.py `build_mesh`) the step is the sharded one of
     the module's note, on a state built on that mesh. The reference's
-    `init_params_fn` gives its weight-decay mask the model's tree; the
-    port reads the mask off the state's module, so the keyword is
-    accepted, for the reference's signature, and ignored."""
-    del init_params_fn
+    `init_params_fn` and `axes_fn` give its weight-decay mask and its
+    shardings the model's tree; the port reads both off the state's module
+    (`stacked_prefixes`, `param_axes`), so the keywords are accepted, for
+    the reference's signature, and ignored."""
+    del init_params_fn, axes_fn
     if pipelined_spec is not None or pipelined_loss_fn is not None:
-        raise NotImplementedError("make_train_step: the pipelined steps "
-                                  "are not ported (ROADMAP Queue 1 item 7)")
-    if mesh is not None and loss_fn is not None:
         raise NotImplementedError(
-            "make_train_step: a custom loss_fn (BERT, T5, ICT) under a mesh "
-            "is not ported (ROADMAP Queue 1 item 7)")
-    if mesh is not None and cfg.model.num_experts > 1:
-        raise NotImplementedError("make_train_step: experts under a mesh "
-                                  "are not ported (ROADMAP Queue 1 item 7)")
+            "make_train_step: the pipelined steps are not ported (ROADMAP "
+            "Queue 1 item 7 (c))")
     par = cfg.parallel
-    asked = (par.tensor_parallel, par.sequence_parallel,
-             par.use_distributed_optimizer)
-    if mesh is None and par.tensor_parallel > 1:
+    asked = (par.tensor_parallel, par.context_parallel,
+             par.sequence_parallel, par.use_distributed_optimizer,
+             par.expert_axis)
+    if mesh is None and (par.tensor_parallel > 1
+                         or par.context_parallel > 1):
         raise ValueError(f"make_train_step: cfg asks for tp "
-                         f"{par.tensor_parallel} and no mesh was given")
+                         f"{par.tensor_parallel} x cp "
+                         f"{par.context_parallel} and no mesh was given")
+    if mesh is not None and loss_fn is not None \
+            and mesh.shape[CONTEXT_AXIS] > 1:
+        raise NotImplementedError(
+            "make_train_step: a custom loss_fn (BERT, T5, ICT) under "
+            "context parallelism is not ported (ROADMAP Queue 1 item 7 "
+            "(g))")
     if mesh is not None and asked != (
-            mesh.shape[TENSOR_AXIS], mesh.parallel.sequence_parallel,
-            mesh.use_distributed_optimizer):
+            mesh.shape[TENSOR_AXIS], mesh.shape[CONTEXT_AXIS],
+            mesh.parallel.sequence_parallel, mesh.use_distributed_optimizer,
+            mesh.parallel.expert_axis):
         raise ValueError("make_train_step: the mesh was built for another "
                          "parallel config than cfg's")
     device = resolve_device(device)

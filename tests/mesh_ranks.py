@@ -17,12 +17,39 @@ from megatron_tpu_torch.training import checkpointing as ckpt
 ts = importlib.import_module("megatron_tpu_torch.training.train_step")
 
 
-def model_on(cfg, weights: dict, mesh=None) -> lm.LanguageModel:
-    """A trainable LanguageModel holding `weights` (the whole tree under
-    the port's names); on a mesh, this rank's parts of them."""
-    model = lm.LanguageModel(cfg.model, device="cpu", trainable=True,
-                             mesh=mesh)
-    axes = lm.flat_axes(lm.model_axes(cfg.model))
+def family_model(family: str, cfg, mesh=None, **options):
+    """A trainable model of `family` ("lm", "bert", "t5", "biencoder") on
+    the CPU, on `mesh` when given."""
+    from megatron_tpu_torch.models import bert, biencoder, t5
+    build = {"lm": lm.LanguageModel, "bert": bert.BertModel,
+             "t5": t5.T5Model, "biencoder": biencoder.BiencoderModel}
+    return build[family](cfg.model, device="cpu", trainable=True, mesh=mesh,
+                         **options)
+
+
+def family_loss(family: str, cfg):
+    """make_train_step's `loss_fn` of a family (None for the LM)."""
+    from megatron_tpu_torch.models import bert, biencoder, t5
+    mcfg = cfg.model
+    det = mcfg.hidden_dropout == 0.0
+    if family == "bert":
+        return lambda m, mb, g: bert.bert_loss(m, mb, mcfg, generator=g,
+                                               deterministic=det)
+    if family == "t5":
+        return lambda m, mb, g: t5.t5_loss(m, mb, mcfg, generator=g,
+                                           deterministic=det)
+    if family == "biencoder":
+        return lambda m, mb, g: biencoder.retrieval_loss(
+            m, mb, mcfg, generator=g, deterministic=det)[0]
+    return None
+
+
+def model_on(cfg, weights: dict, mesh=None, family: str = "lm",
+             **options):
+    """A trainable model of `family` holding `weights` (the whole tree
+    under the port's names); on a mesh, this rank's parts of them."""
+    model = family_model(family, cfg, mesh, **options)
+    axes = lm.flat_axes(model.param_axes())
     with torch.no_grad():
         for k, p in model.named_parameters():
             whole = torch.from_numpy(np.array(weights[k]))
@@ -47,16 +74,20 @@ def whole_state(state) -> dict:
     return out
 
 
-def train(cfg, weights: dict, batches: list, seeds=None, sharded=True
-          ) -> dict:
+def train(cfg, weights: dict, batches: list, seeds=None, sharded=True,
+          family: str = "lm", options=None, save_dir=None) -> dict:
     """`len(batches)` steps of make_train_step from `weights` (a sharded
     step on a mesh over the process group when `sharded`), each batch the
     global one ({name: numpy}), step i's generator seeded with seeds[i]
-    (None: no generator). Returns {"metrics": [{name: float}], "params",
-    "mu", "nu": whole leaves, "bytes": the transport's count}."""
+    (None: no generator); a `family` other than the LM trains with its
+    loss_fn and model `options`, and `save_dir` saves the final state
+    there. Returns {"metrics": [{name: float}], "params", "mu", "nu":
+    whole leaves, "bytes": the transport's count}."""
     mesh = build_mesh(cfg.parallel) if sharded else None
-    state = ts.state_from_params(model_on(cfg, weights, mesh), cfg)
-    step = ts.make_train_step(cfg, mesh=mesh, device="cpu")
+    state = ts.state_from_params(
+        model_on(cfg, weights, mesh, family, **(options or {})), cfg)
+    step = ts.make_train_step(cfg, mesh=mesh, device="cpu",
+                              loss_fn=family_loss(family, cfg))
     metrics = []
     for i, batch in enumerate(batches):
         gen = (None if seeds is None
@@ -64,6 +95,8 @@ def train(cfg, weights: dict, batches: list, seeds=None, sharded=True
         state, m = step(state, {k: torch.from_numpy(np.array(v))
                                 for k, v in batch.items()}, gen)
         metrics.append({k: float(v) for k, v in m.items()})
+    if save_dir is not None:
+        ckpt.save_checkpoint(save_dir, state, cfg, len(batches))
     out = whole_state(state)
     out["metrics"] = metrics
     out["bytes"] = 0 if mesh is None or mesh.transport is None \
@@ -183,3 +216,88 @@ def any_rank_flags(parallel) -> list:
     mesh = build_mesh(parallel)
     return [collectives.any_rank(False, mesh),
             collectives.any_rank(mesh.rank == 1, mesh)]
+
+
+def cp_attention(algo: str, q, k, v, cp: int, causal: bool,
+                 layout: str = "auto", impl: str = "flash") -> dict:
+    """Ring ("ring") or Ulysses attention of this cp rank's contiguous
+    chunk of q, k, v ([b, S, n, d] numpy, whole): its rows of the output,
+    and the grads of sum(tanh(out)) summed over the ranks, for its chunk
+    of q, k and v. A ValueError comes back as its message."""
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.parallel.ring_attention import ring_attention
+    from megatron_tpu_torch.parallel.ulysses import ulysses_attention
+    mesh = build_mesh(ParallelConfig(context_parallel=cp))
+    c, per = mesh.coords["cp"], q.shape[1] // cp
+    ts = [torch.tensor(x[:, c * per:(c + 1) * per], requires_grad=True)
+          for x in (q, k, v)]
+    try:
+        if algo == "ring":
+            out = ring_attention(*ts, mesh, causal=causal, layout=layout,
+                                 impl=impl)
+        else:
+            out = ulysses_attention(*ts, mesh, causal=causal)
+    except ValueError as e:
+        return {"error": str(e)}
+    torch.tanh(out).sum().backward()
+    return {"out": out.detach().numpy(),
+            "grads": [t.grad.numpy() for t in ts]}
+
+
+def cp_attention_layer(cfg, params: dict, x, segment_ids, cp: int,
+                       seed) -> dict:
+    """models/attention.py's attention_apply on this cp rank's chunk of x
+    ([b, S, h] numpy) with segment ids and, with a `seed`, attention
+    dropout from a generator seeded so (cp=1: the unsharded call on the
+    whole x): the output rows and the grads of sum(tanh(out)) for x and
+    every weight (this rank's part of the sums over the rows)."""
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.models.attention import attention_apply
+    mesh = (build_mesh(ParallelConfig(context_parallel=cp)) if cp > 1
+            else None)
+    c = 0 if mesh is None else mesh.coords["cp"]
+    per = x.shape[1] // cp
+    xt = torch.tensor(x[:, c * per:(c + 1) * per], requires_grad=True)
+    pt = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    seg = None if segment_ids is None else torch.from_numpy(
+        segment_ids[:, c * per:(c + 1) * per])
+    out, _ = attention_apply(pt, xt, cfg.model, segment_ids=seg,
+                             deterministic=seed is None, generator=gen,
+                             mesh=mesh)
+    torch.tanh(out).sum().backward()
+    return {"out": out.detach().numpy(), "dx": xt.grad.numpy(),
+            "dw": {k: v.grad.numpy() for k, v in pt.items()}}
+
+
+def train_without_data_zigzag(cfg, weights: dict, batches: list) -> dict:
+    """`train` with the LM loss's zigzag pre-permutation turned off: the
+    ring then takes the contiguous split of the sequence. "zigzag" holds
+    what the loss was told."""
+    told = []
+    real = lm.data_zigzag_cp
+
+    def off(*args, **kwargs):
+        told.append(real(*args, **kwargs))
+        return 0
+    lm.data_zigzag_cp = off
+    try:
+        out = train(cfg, weights, batches)
+    finally:
+        lm.data_zigzag_cp = real
+    out["zigzag"] = told
+    return out
+
+
+def load_whole(cfg, save_dir: str, sharded: bool = True) -> dict:
+    """A fresh state of cfg's model (on a mesh over the process group when
+    `sharded`) loaded from the checkpoint under `save_dir`: its whole
+    leaves (`whole_state`) and the iteration."""
+    mesh = build_mesh(cfg.parallel) if sharded else None
+    state = ts.state_from_params(
+        lm.LanguageModel(cfg.model, device="cpu", trainable=True, mesh=mesh),
+        cfg)
+    loaded = ckpt.load_checkpoint(save_dir, state)
+    out = whole_state(state)
+    out["iteration"] = loaded.iteration
+    return out

@@ -173,6 +173,7 @@ ZERO_SHOT = ("tasks/zeroshot_gpt/detokenizer.py",
 # the mesh: tensor and sequence parallelism, data parallelism and ZeRO-1
 MESH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
         "parallel/collectives.py", "parallel/sharding.py",
+        "parallel/ring_attention.py", "parallel/ulysses.py",
         "training/train_step.py", "training/optimizer.py",
         "training/checkpointing.py", "training/loop.py",
         "training/pretrain.py", "finetune.py", "arguments.py")

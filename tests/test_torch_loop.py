@@ -391,13 +391,14 @@ def test_exit_interval_and_sigterm_match_jax(corpus, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--pipeline_model_parallel_size", "2"],
-    ["--context_parallel_size", "2"],
+    ["--context_parallel_size", "2", "--pipeline_model_parallel_size", "2"],
     ["--num_layers_per_virtual_pipeline_stage", "1"],
-    ["--expert_axis", "dp"]])
+    ["--expert_axis", "dp", "--pipeline_model_parallel_size", "2"]])
 def test_unported_flags_raise(corpus, flags):
-    """The flags of the mesh parts not ported yet; tensor and sequence
-    parallelism and the distributed optimizer run (test_torch_mesh_train.py
-    drives them under two ranks)."""
+    """The flags of the mesh parts not ported yet: the pipeline, alone or
+    beside context parallelism or experts on dp. Tensor, sequence and
+    context parallelism, the experts' axis and the distributed optimizer
+    run (test_torch_mesh_train.py drives them under torchrun's ranks)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         finetune.main(_argv(corpus, *flags), device="cpu")
 

@@ -11,6 +11,7 @@ another order; read: at most 5.1e-8 on the loss, 2.7e-7 on the grads); the flash
 unsharded plain call bit for bit, and the unsharded plain call equals the
 Pallas kernel in interpret mode at test_torch_flash_backward.py's 1e-5.
 """
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -301,20 +302,33 @@ def test_validate_checks_the_mesh_against_the_model():
                  sequence_parallel=True), 4, "seq_length"),
             (cfg(dict(make_vocab_size_divisible_by=2), tensor_parallel=4), 4,
              "padded vocab"),
-            (cfg(tensor_parallel=2), 3, "world size")):
+            (cfg(tensor_parallel=2), 3, "world size"),
+            (cfg(dict(seq_length=18), context_parallel=4), 4,
+             "context parallel"),
+            (cfg(context_parallel=2, tensor_parallel=2), 3, "world size")):
         with pytest.raises(ValueError, match=what):
             bad.validate(n_devices=n)
-    for field in (dict(pipeline_parallel=2), dict(context_parallel=2),
-                  dict(virtual_pipeline_chunks=2),
+    # the pipeline fields still raise; cp and the expert axis run
+    for field in (dict(pipeline_parallel=2), dict(virtual_pipeline_chunks=2),
                   dict(pipeline_schedule="gpipe"),
-                  dict(pipeline_store_activations=True),
-                  dict(expert_axis="dp")):
+                  dict(pipeline_store_activations=True)):
         with pytest.raises(NotImplementedError, match="item 7"):
             cfg(**field).validate(n_devices=2)
-    moe = tc.MegatronConfig(model=tc.mixtral_config("tiny", **SMALL),
-                            parallel=tc.ParallelConfig(tensor_parallel=2))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        moe.validate(n_devices=2)
+    cp = cfg(context_parallel=2, tensor_parallel=2).validate(n_devices=8)
+    assert cp.parallel.data_parallel == 2
+    # 4 experts over 2 ranks of their axis, and not over 8 or 6
+    for axis, ok, bad in (("tp", dict(tensor_parallel=2), (8, 8)),
+                          ("dp", dict(expert_axis="dp"), (1, 6))):
+        def moe(**par):
+            return tc.MegatronConfig(
+                model=tc.mixtral_config("tiny", **SMALL),
+                parallel=tc.ParallelConfig(**par))
+        got = moe(**ok).validate(n_devices=2).parallel
+        assert got.expert_axis == axis and got.data_parallel == (
+            1 if axis == "tp" else 2)
+        with pytest.raises(ValueError, match="num_experts"):
+            moe(tensor_parallel=bad[0], expert_axis=axis).validate(
+                n_devices=bad[1])
 
 
 def test_step_refuses_a_config_its_mesh_was_not_built_for():
@@ -330,10 +344,24 @@ def test_step_refuses_a_config_its_mesh_was_not_built_for():
 
 
 def test_bert_t5_ict_steps_under_a_mesh_raise():
-    """Their entry points share run_pretrain, which refuses tensor
-    parallelism (and more than one rank) before it builds anything."""
+    """Their steps run under (dp, tp) (tests/test_torch_mesh_bert_t5.py).
+    Under context parallelism make_train_step refuses a custom loss, and
+    run_pretrain refuses a model built on another mesh than the one it is
+    given, before it builds anything."""
+    import importlib
+    from megatron_tpu_torch.models.bert import BertModel, bert_config
+    from megatron_tpu_torch.parallel.mesh import single_device_mesh
     from megatron_tpu_torch.training.pretrain import run_pretrain
-    cfg = tc.MegatronConfig(parallel=tc.ParallelConfig(tensor_parallel=2))
+    ts = importlib.import_module("megatron_tpu_torch.training.train_step")
+    cfg = tc.MegatronConfig()
+    bert = bert_config(num_layers=2, hidden_size=64, num_attention_heads=4,
+                       vocab_size=256, seq_length=16)
+    with pytest.raises(ValueError, match="another mesh"):
+        run_pretrain(cfg, None, init_params_fn=lambda: BertModel(
+            bert, device="cpu"), loss_fn=None, device="cpu",
+            mesh=single_device_mesh())
+    cp_mesh = dataclasses.replace(single_device_mesh(),
+                                  shape=dict(dp=1, pp=1, cp=2, tp=1))
     with pytest.raises(NotImplementedError, match="item 7"):
-        run_pretrain(cfg, None, init_params_fn=None, loss_fn=None,
-                     device="cpu")
+        ts.make_train_step(cfg, mesh=cp_mesh, loss_fn=lambda *a: 0.0,
+                           device="cpu")

@@ -363,8 +363,12 @@ def test_moe_flags_parse_to_jax_model_config():
             want.model.moe_capacity_factor == cap
         assert got.model == tconfig.ModelConfig(**{
             f: getattr(want.model, f) for f in fields})
+    # --expert_axis parses as the reference's; the pipeline still raises
+    argv = ["--num_experts", "4", "--expert_axis", "dp"]
+    assert targs.parse_cli(argv)[0].parallel.expert_axis == \
+        jargs.parse_cli(argv)[0].parallel.expert_axis == "dp"
     with pytest.raises(NotImplementedError, match="item 7"):
-        targs.parse_cli(["--num_experts", "4", "--expert_axis", "dp"])
+        targs.parse_cli(argv + ["--pipeline_model_parallel_size", "2"])
 
 
 @pytest.mark.parametrize("bad,match", [(dict(moe_top_k=5), "moe_top_k"),

@@ -417,21 +417,25 @@ def test_training_entry_points_raise_without_gpu_and_device(monkeypatch):
 
 
 def test_what_the_slice_leaves_out_raises():
-    """A custom loss (BERT, T5, ICT) or experts under a mesh, and the
-    pipelined steps, still raise; a custom loss, bf16 and fp16 master
-    weights, activation recompute, hidden dropout, drop-path and the dot
-    path's attention dropout run."""
+    """A custom loss (BERT, T5, ICT) under context parallelism and the
+    pipelined steps still raise; a custom loss and experts under a mesh,
+    bf16 and fp16 master weights, activation recompute, hidden dropout,
+    drop-path and the dot path's attention dropout run."""
+    import dataclasses
     from megatron_tpu_torch.parallel.mesh import single_device_mesh
     _, tcfg = _train_configs()
     moe = tc.MegatronConfig(model=tc.mixtral_config("tiny", **SMALL))
-    for cfg, kw in ((tcfg, dict(mesh=single_device_mesh(),
-                                loss_fn=lambda *a: 0.0)),
-                    (moe, dict(mesh=single_device_mesh())),
+    cp_mesh = dataclasses.replace(single_device_mesh(),
+                                  shape=dict(dp=1, pp=1, cp=2, tp=1))
+    for cfg, kw in ((tcfg, dict(mesh=cp_mesh, loss_fn=lambda *a: 0.0)),
                     (tcfg, dict(pipelined_spec=object())),
                     (tcfg, dict(pipelined_loss_fn=object()))):
         with pytest.raises(NotImplementedError, match="item 7"):
             tts.make_train_step(cfg, device="cpu", **kw)
     tts.make_train_step(tcfg, device="cpu", loss_fn=lambda *a: 0.0)
+    tts.make_train_step(tcfg, device="cpu", mesh=single_device_mesh(),
+                        loss_fn=lambda *a: 0.0)
+    tts.make_train_step(moe, device="cpu", mesh=single_device_mesh())
     toks = torch.zeros(2, 1, 9, dtype=torch.long)
     for dtype in ("bfloat16", "float16"):
         cfg = tc.MegatronConfig(model=tc.llama2_config(
