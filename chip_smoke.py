@@ -391,7 +391,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    with sequence parallelism and the distributed optimizer, saving; the
    unsharded port reloads the checkpoint byte for byte.
 22. Context parallelism, experts and the BERT, T5 and ICT steps under the
-   mesh (`phase_mesh_cp_experts`, last in LANE_A; the note above
+   mesh (`phase_mesh_cp_experts`, in LANE_A before 23; the note above
    CP_LAYERS says each part in full). Two rank processes on the card over
    gloo (the runner of phase 21 (b)), held to one-rank steps run first:
    (a) at Llama-2-7B's attention widths (s 8,192 split over cp 2, bf16),
@@ -405,9 +405,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    (e) torchrun --nproc_per_node 2 -m megatron_tpu_torch.pretrain_bert
    over gloo at tp 2, its save reloaded by the unsharded port byte for
    byte.
+23. Pipeline parallelism (`phase_pipeline`, last in LANE_A; the note above
+   PP_LAYERS says each part in full). Two rank processes on the card over
+   gloo are the two stages of pp 2, held to one-rank steps run first, each
+   rank's flash launches equal to what the timetable predicts: (a)
+   Llama-2-7B's width, 4 layers, s 4,096, 4 microbatches, fp32: 1F1B in
+   recompute and store mode, vpp 2, gpipe, and dropout 0.1 at vpp 2; the
+   flash kernels against their plain versions on stage 1's live q, k, v,
+   dO; (b) the 1F1B memory bound: from 4 to 8 microbatches the store
+   mode's peak grows by less than one microbatch's chunk residuals,
+   gpipe's by about four; (c) BERT-base and T5-base at pp 2; (d)
+   tools/bench_head at Llama-2-7B's widths.
 
 Phases 1-3b run alone on the card, so that the kernels' times are the
-card's own. Then phases 4-22 run in two lanes at once, each phase in the
+card's own. Then phases 4-23 run in two lanes at once, each phase in the
 order above within its lane: this process runs LANE_A, and a second
 process (`chip_smoke.py --lane ...`, started here and stopped with its own
 processes however the run ends) runs LANE_B, whose lines come through here
@@ -425,7 +436,8 @@ too, the block kernel's on phases 9, 11-16 and 19 too, its verify rounds
 at w 5 on phases 11, 13 and 14; phase 15's counts are the replica
 processes' whole lives, phase 19's the parts in its own process, phase
 21's its rank processes' sharded steps and its in-process mesh steps,
-phase 22's its rank processes' sharded steps) and, last, {"ok": true,
+phases 22's and 23's their rank processes' sharded steps) and, last,
+{"ok": true,
 "device": ...}.
 Without a CUDA device, or away from a checkout, it exits non-zero and
 prints no result.
@@ -445,6 +457,7 @@ import ast
 import contextlib
 import dataclasses
 import functools
+import importlib
 import io
 import json
 import math
@@ -468,8 +481,11 @@ PEAK_BYTES = 3.35e12
 # §6: lane A 495.7 s, lane B 869.7 s on an H100 80GB HBM3 at 700 W). The
 # light 11, 14 and 17 moved to LANE_A (~600 s against ~770 s); 19 stays in
 # LANE_B: beside phase 21's ranks its tasks.main ran the card out of memory.
-# Phase 22 ends the shorter LANE_A; it waits for M22_FREE_BYTES of the card
-LANE_A = ("4", "5", "6", "8", "9", "12", "13", "14", "17", "11", "22")
+# Phase 22 follows in LANE_A, waiting for M22_FREE_BYTES of the card, and
+# phase 23 ends it (lane A was the shorter by 37 s before it, PERF.md §6),
+# waiting for PP_FREE_BYTES
+LANE_A = ("4", "5", "6", "8", "9", "12", "13", "14", "17", "11", "22",
+          "23")
 LANE_B = ("15", "16", "7", "20", "21", "10", "18", "19")
 # the most a phase waits for the other lane to give back card memory
 LANE_MEMORY_WAIT_S = 900.0
@@ -11299,7 +11315,8 @@ MESH_ZERO_GRAD = ("context_model.ict_head.b",)
 MESH_SAMPLE = 1 << 16
 # arm -> (family, parallel config, attention_impl); the one-rank step of a
 # family (`mesh_reference`) serves each of its arms. Phase 21 (b) runs the
-# "llama" arms, phase 22 (b)-(d) the others
+# "llama" arms, phase 23 the pipeline's ("pp2_"), phase 22 (b)-(d) the
+# others
 MESH_ARMS = {
     "tp2_sp": ("llama", dict(tensor_parallel=2, sequence_parallel=True),
                "flash"),
@@ -11315,9 +11332,24 @@ MESH_ARMS = {
     "t5_tp2_sp": ("t5", dict(tensor_parallel=2, sequence_parallel=True),
                   "flash"),
     "ict_dp2": ("ict", {}, "flash"),
+    "pp2_1f1b": ("pp", dict(pipeline_parallel=2), "flash"),
+    "pp2_store": ("pp", dict(pipeline_parallel=2,
+                             pipeline_store_activations=True), "flash"),
+    "pp2_vpp2": ("pp", dict(pipeline_parallel=2, virtual_pipeline_chunks=2),
+                 "flash"),
+    "pp2_gpipe": ("pp", dict(pipeline_parallel=2,
+                             pipeline_schedule="gpipe"), "flash"),
+    "pp2_dropout": ("pp_drop", dict(pipeline_parallel=2,
+                                    virtual_pipeline_chunks=2,
+                                    pipeline_store_activations=True),
+                    "flash"),
+    "pp2_bert": ("bert_pp", dict(pipeline_parallel=2), "flash"),
+    "pp2_t5": ("t5_pp", dict(pipeline_parallel=2), "flash"),
 }
 MESH21_ARMS = ("tp2_sp", "dp2_zero1")
-MESH22_ARMS = tuple(a for a in MESH_ARMS if a not in MESH21_ARMS)
+MESH23_ARMS = tuple(a for a in MESH_ARMS if a.startswith("pp2_"))
+MESH22_ARMS = tuple(a for a in MESH_ARMS
+                    if a not in MESH21_ARMS + MESH23_ARMS)
 # the arm of phase 22 (a): the ring's and Ulysses' kernels on live state
 MESH_ATTENTION = "attention"
 MESH_RANK_TIMEOUT_S = 600
@@ -11334,7 +11366,10 @@ def mesh_config(family: str, parallel: dict, world: int,
     "llama" Llama-2-7B's width at MESH_LAYERS layers with dropout, computing
     in `dtype`; the others fp32: "lm" Llama-2-7B's at CP_LAYERS layers and
     s CP_SEQ, "moe" Mixtral-8x7B's, "bert", "t5" and "ict" the base
-    models (see the notes above MESH_LAYERS and CP_LAYERS)."""
+    models; phase 23's "pp" Llama-2-7B's at PP_LAYERS layers, s PP_SEQ,
+    PP_MICRO microbatches of one row ("pp_drop" with dropout), "bert_pp"
+    and "t5_pp" the base models in PP_FAM_MICRO microbatches (see the notes
+    above MESH_LAYERS, CP_LAYERS and PP_LAYERS)."""
     from megatron_tpu_torch import config as tc
     from megatron_tpu_torch.models.bert import bert_config
     from megatron_tpu_torch.models.t5 import t5_config
@@ -11357,31 +11392,44 @@ def mesh_config(family: str, parallel: dict, world: int,
                                   moe_capacity_factor=MOE22_CAPACITY,
                                   **fp32)
         rows = 2
+    elif family in ("pp", "pp_drop"):
+        rate = MESH_DROPOUT if family == "pp_drop" else 0.0
+        model = tc.llama2_config("7b", num_layers=PP_LAYERS,
+                                 seq_length=PP_SEQ, hidden_dropout=rate,
+                                 attention_dropout=rate, **fp32)
+        rows = PP_MICRO
     else:
-        make = t5_config if family == "t5" else bert_config
+        make = t5_config if family.startswith("t5") else bert_config
         model = make(seq_length=FAM_SEQ, max_position_embeddings=FAM_SEQ,
                      attention_impl="flash", **fp32)
         rows = FAM_ROWS
+    # the microbatches a step: rows of one row each ("pp"), two of half
+    # the rows (the pipelined families), else one of all of them
+    n_micro = (rows if family in ("pp", "pp_drop")
+               else PP_FAM_MICRO if family.endswith("_pp") else 1)
     tp = parallel.get("tensor_parallel", 1)
     cp = parallel.get("context_parallel", 1)
-    dp = world // (tp * cp)
+    dp = world // (tp * cp * parallel.get("pipeline_parallel", 1))
     return tc.MegatronConfig(
         model=model, parallel=tc.ParallelConfig(**parallel),
         optimizer=tc.OptimizerConfig(lr=MESH_LR, optimizer="sgd",
                                      sgd_momentum=0.0, clip_grad=1.0,
                                      lr_decay_style="constant"),
-        training=tc.TrainingConfig(micro_batch_size=rows // dp,
+        training=tc.TrainingConfig(micro_batch_size=rows // n_micro // dp,
                                    global_batch_size=rows),
     ).validate(n_devices=world)
 
 
 def mesh_batch(family: str, cfg, i: int) -> dict:
-    """Step i's global batch of one microbatch, on the card."""
+    """Step i's global batch, its rows cut into the config's microbatches,
+    on the card."""
     import numpy as np
     import torch
     rs = np.random.RandomState(MESH_SEED + i)
     rows = cfg.training.global_batch_size
+    n_micro = cfg.num_microbatches
     s, v = cfg.model.seq_length, cfg.model.vocab_size
+    family = MESH_BASE.get(family, family)
 
     def pads(lo):
         return (np.arange(s)[None] < rs.randint(lo, s + 1, (rows, 1))
@@ -11408,7 +11456,9 @@ def mesh_batch(family: str, cfg, i: int) -> dict:
         b = {"query_tokens": rs.randint(0, v, (rows, s)),
              "context_tokens": rs.randint(0, v, (rows, s)),
              "query_pad_mask": pads(32), "context_pad_mask": pads(256)}
-    return {k: torch.from_numpy(x[None]).cuda() for k, x in b.items()}
+    return {k: torch.from_numpy(x.reshape(n_micro, rows // n_micro,
+                                          *x.shape[1:])).cuda()
+            for k, x in b.items()}
 
 
 def mesh_state(family: str, cfg, mesh=None):
@@ -11418,6 +11468,7 @@ def mesh_state(family: str, cfg, mesh=None):
     from megatron_tpu_torch.training import init_train_state
     from megatron_tpu_torch.training.train_step import state_from_params
     m = cfg.model
+    family = MESH_BASE.get(family, family)
     if family in ("llama", "lm", "moe"):
         return init_train_state(cfg, seed=MESH_SEED, mesh=mesh), None
     kw = dict(seed=MESH_SEED, trainable=True, mesh=mesh)
@@ -11455,7 +11506,8 @@ def mesh_steps(family: str, cfg, state, loss=None, mesh=None) -> list:
     import torch
     from megatron_tpu_torch.ops import flash_attention_cuda as fc
     from megatron_tpu_torch.training import make_train_step
-    step = make_train_step(cfg, mesh=mesh, loss_fn=loss)
+    step = make_train_step(cfg, mesh=mesh, loss_fn=loss,
+                           **mesh_pipelined(family, cfg))
     out = []
     for i in range(MESH_STEPS):
         batch = mesh_batch(family, cfg, i)
@@ -11471,6 +11523,63 @@ def mesh_steps(family: str, cfg, state, loss=None, mesh=None) -> list:
     return out
 
 
+def mesh_pipelined(family: str, cfg) -> dict:
+    """make_train_step's pipelined keyword of a family under pp > 1: BERT's
+    spec, T5's pipelined loss (none for the LM, or at pp 1)."""
+    from megatron_tpu_torch.models import bert, t5
+    if cfg.parallel.pipeline_parallel == 1:
+        return {}
+    family = MESH_BASE.get(family, family)
+    if family == "bert":
+        return dict(pipelined_spec=bert.bert_1f1b_fns)
+    if family == "t5":
+        def pipelined_loss_fn(model, batch, seeds, cotangent):
+            return t5.t5_pipeline_loss_fn(
+                model, batch, cfg.model,
+                vpp=cfg.parallel.virtual_pipeline_chunks, seeds=seeds,
+                cotangent=cotangent)
+        return dict(pipelined_loss_fn=pipelined_loss_fn)
+    return {}
+
+
+def pp_sequential_steps(cfg, state) -> list:
+    """"pp_drop"'s one-rank steps: the schedule's functions on one stage of
+    the whole model (microbatch after microbatch, every layer one chunk),
+    under the seeds the pipelined step draws from the same generator, then
+    the optimizer; as mesh_steps reports them."""
+    import torch
+    from megatron_tpu_torch.models import language_model as lm
+    from megatron_tpu_torch.ops.dropout import draw_seeds
+    from megatron_tpu_torch.parallel import pipeline as pl
+    ts = importlib.import_module("megatron_tpu_torch.training.train_step")
+    m = cfg.model
+    model = state.params
+    rope = lm.make_rope(m, device=model.device)
+    intake, chunk, head = pl.gpt_1f1b_fns(m, rope, deterministic=False)
+    wd_mask = ts.weight_decay_mask(model)
+    out = []
+    for i in range(MESH_STEPS):
+        batch = mesh_batch("pp_drop", cfg, i)
+        gen = torch.Generator().manual_seed(MESH_SEED + i)
+        n = batch["tokens"].shape[0]
+        streams = pl.gpt_1f1b_streams(batch["tokens"], m,
+                                      loss_mask=batch["loss_mask"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, _ = pl.run_pipeline(
+            model, streams, m, None, intake=intake, chunk=chunk, head=head,
+            act_shape=(batch["tokens"].shape[1], m.seq_length,
+                       m.hidden_size),
+            seeds=draw_seeds(gen, n))
+        for p in model.parameters():
+            p.grad = None
+        state, metrics = ts._finish_step(state, grads, loss, cfg, wd_mask)
+        torch.cuda.synchronize()
+        out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                        **{k: float(v) for k, v in metrics.items()}))
+    return out
+
+
 def mesh_reference(family: str, root: str) -> dict:
     """A family's one-rank steps: their metrics, and root/ref_<family>.pt
     (each leaf after the run, `mesh_sample`, and its largest update), which
@@ -11483,7 +11592,8 @@ def mesh_reference(family: str, root: str) -> dict:
     first = {k: mesh_sample(family, k, p) for k, p in
              state.params.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
-    steps = mesh_steps(family, cfg, state, loss)
+    steps = (pp_sequential_steps(cfg, state) if family == "pp_drop"
+             else mesh_steps(family, cfg, state, loss))
     final = {k: mesh_sample(family, k, p) for k, p in
              state.params.named_parameters()}
     torch.save(dict(final=final, update={
@@ -11512,10 +11622,22 @@ def mesh_rank_arm(arm: str, root: str) -> dict:
     mesh = build_mesh(cfg.parallel)
     state, loss = mesh_state(family, cfg, mesh)
     torch.cuda.reset_peak_memory_stats()
-    steps = mesh_steps(family, cfg, state, loss, mesh)
+    live = (PipelineCapture() if arm == PP_LIVE_ARM and mesh.rank == 1
+            else contextlib.nullcontext())
+    with live:
+        steps = mesh_steps(family, cfg, state, loss, mesh)
     out = dict(arm=arm, rank=mesh.rank, steps=steps,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                collective_bytes=mesh.transport.bytes)
+    if arm in MESH23_ARMS:
+        want = pp_launches(family, cfg)
+        for i, st in enumerate(steps):
+            check(st["launches"] == want, f"{arm} rank {mesh.rank} step "
+                  f"{i}: flash launches {st['launches']}, the timetable "
+                  f"predicts {want}")
+        out["predicted_launches"] = want
+    if isinstance(live, PipelineCapture):
+        out["live_kernels"] = live.check()
     placed = ckpt.sharded_leaves(state)
     ref = (torch.load(os.path.join(root, f"ref_{family}.pt"))
            if mesh.rank == 0 else None)
@@ -11552,8 +11674,8 @@ def mesh_rank_arm(arm: str, root: str) -> dict:
 
 def mesh_rank(rank: int, port: int, root: str, arms: list) -> int:
     """`--mesh-rank`: one of two ranks over gloo running `arms` of
-    MESH_ARMS (and MESH_ATTENTION, phase 22 (a)) in order in one process
-    group, which writes root/rank<r>.json; or, for [MESH_NCCL_PAIR], one of
+    MESH_ARMS (and MESH_ATTENTION, phase 22 (a), and PP_MEMORY, phase 23
+    (b)) in order in one process group, which writes root/rank<r>.json; or, for [MESH_NCCL_PAIR], one of
     two NCCL ranks on the one card, whose first all-reduce NCCL refuses
     (the process then fails)."""
     import os
@@ -11584,6 +11706,8 @@ def mesh_rank(rank: int, port: int, root: str, arms: list) -> int:
             if arm == MESH_ATTENTION:
                 rec = mesh_attention_check(
                     build_mesh(ParallelConfig(context_parallel=2)))
+            elif arm == PP_MEMORY:
+                rec = pp_memory()
             else:
                 rec = mesh_rank_arm(arm, root)
             rec["seconds"] = time.perf_counter() - t0
@@ -11774,9 +11898,9 @@ def mesh_run_ranks(label: str, arms, root: str, smi: str, references: dict,
     out = {}
     for arm in arms:
         ranks = [rec["arms"][arm] for rec in recs]
-        if arm == MESH_ATTENTION:
+        if arm in (MESH_ATTENTION, PP_MEMORY):
             out[arm] = ranks
-            log(f"{label} (a): {json.dumps(ranks)}")
+            log(f"{label} {arm}: {json.dumps(ranks)}")
             continue
         want = references[MESH_ARMS[arm][0]]["steps"]
         for st, w in zip(ranks[0]["steps"], want):
@@ -12217,6 +12341,247 @@ def phase_mesh_cp_experts(smi: str) -> dict:
     return stats
 
 
+# Phase 23: pipeline parallelism (parallel/pipeline.py) on one card. Two
+# rank processes (`--mesh-rank`, the runner of phases 21 (b) and 22) over
+# gloo (NCCL refuses two ranks on one card, phase 21 (b)) are the two
+# stages of pp 2; each arm of MESH23_ARMS is held to the one-rank step of
+# the same configuration, run first here and freed, by `mesh_rank_arm` and
+# `mesh_run_ranks` (lm_loss and grad_norm within MESH_METRIC_RTOL; each
+# leaf, read on MESH_SAMPLE elements drawn alike on both sides, within
+# MESH_PARAM_REL of its largest update over MESH_STEPS SGD steps at lr 1);
+# each rank prints its step ms, peak GiB and the bytes its transport handed
+# to gloo, and each rank's flash launches of every step must equal what
+# the timetable predicts for its stage (`pp_launches`: a layer's forward
+# twice a microbatch under 1F1B's recompute, once in store mode and gpipe,
+# its dQ and dK/dV once; T5's decoder layers twice, self and cross).
+# (a) Llama-2-7B's widths at PP_LAYERS layers, s PP_SEQ, PP_MICRO
+#     microbatches of one row, fp32 with TF32 off: 1F1B in recompute mode,
+#     1F1B in store mode, vpp 2 (interleaved, recompute), gpipe; and
+#     dropout 0.1 (hidden and attention) at vpp 2 in store mode, whose
+#     one-rank step runs the schedule's functions on one stage under the
+#     same per-microbatch seeds (`pp_sequential_steps`: the pipelined
+#     masks are not the unpipelined step's). On stage 1 of PP_LIVE_ARM the
+#     first dQ launch's q, k, v and dO are kept (`PipelineCapture`), and
+#     the forward, dQ and dK/dV kernels run on them against their plain
+#     versions (not counted).
+# (b) the 1F1B memory bound, in the ranks (`pp_memory`): one microbatch's
+#     chunk residuals (what a stage's chunk holds for its backward, read
+#     as the memory a forward with its graph kept allocates), then each
+#     rank's peak over a forward and backward in store mode and in gpipe
+#     at PP_MEMORY_MICRO microbatches: from 4 to 8 the store mode's peak
+#     must grow by less than one residual set, gpipe's by 3.5 to 5 of them
+#     (it keeps every microbatch; about four).
+# (c) BERT-base and T5-base (12 + 12 layers) at pp 2 (6 layers a stage),
+#     s FAM_SEQ (T5's decoder FAM_DEC_SEQ), FAM_ROWS rows in PP_FAM_MICRO
+#     microbatches, fp32: BERT through `bert_1f1b_fns` (1F1B, recompute),
+#     T5 through `t5_pipeline_loss_fn` (gpipe, the encoder's output
+#     broadcast over pp).
+# (d) tools/bench_head at Llama-2-7B's widths, PP_HEAD_ITERS iterations:
+#     one layer's and the head's forward and backward, and the head's share
+#     of the last stage at the BASELINE (pp, L) points.
+PP_LAYERS = 4
+PP_SEQ = 4096
+PP_MICRO = 4
+PP_FAM_MICRO = 2
+PP_LIVE_ARM = "pp2_1f1b"
+PP_MEMORY = "pp_memory"
+PP_MEMORY_MICRO = (4, 8)
+PP_HEAD_ITERS = 3
+PP_RANK_TIMEOUT_S = 900
+# the card memory the one-rank steps and then the two ranks need free:
+# gpipe at 8 microbatches keeps 8 sets of 2 layers' residuals a rank
+PP_FREE_BYTES = 56 * 2 ** 30
+# a family of MESH_ARMS -> the family whose batch, model and loss it takes
+MESH_BASE = {"pp": "llama", "pp_drop": "llama", "bert_pp": "bert",
+             "t5_pp": "t5"}
+
+
+def pp_launches(family: str, cfg) -> dict:
+    """The flash launches of one pipelined step on one stage (see the
+    note above PP_LAYERS)."""
+    par, m = cfg.parallel, cfg.model
+    pp, n = par.pipeline_parallel, cfg.num_microbatches
+    t5 = MESH_BASE.get(family) == "t5"
+    calls = (m.num_layers // pp) * (3 if t5 else 1)
+    store = (par.pipeline_store_activations or t5
+             or par.pipeline_schedule == "gpipe")
+    again = not store or m.recompute_granularity != "none"
+    return {"flash_fwd_cuda": calls * n * (2 if again else 1),
+            "flash_bwd_dq_cuda": calls * n, "flash_bwd_dkv_cuda": calls * n}
+
+
+class PipelineCapture:
+    """Phase 23 (a)'s live check (the note above PP_LAYERS): while entered,
+    the first dQ launch's q, k, v and dO are kept; `check` then runs the
+    three kernels on them against their plain versions."""
+
+    def __enter__(self):
+        from megatron_tpu_torch.ops import flash_attention_cuda as fc
+        self.fc, self.orig, self.seen = fc, fc.flash_bwd_dq_cuda, None
+
+        def capture(q, k, v, dout, lse, delta, **kw):
+            if self.seen is None:
+                self.seen = ([t.detach().clone() for t in (q, k, v, dout)],
+                             {a: b for a, b in kw.items() if a != "dlse"})
+                fc.flash_bwd_dq_cuda = self.orig
+            return self.orig(q, k, v, dout, lse, delta, **kw)
+        fc.flash_bwd_dq_cuda = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.fc.flash_bwd_dq_cuda = self.orig
+
+    def check(self) -> dict:
+        from megatron_tpu_torch.ops import flash_attention as fa
+        check(self.seen is not None, "phase 23 (a): no dQ launch was seen")
+        (q, k, v, dout), kw = self.seen
+        fc, dtype = self.fc, str(q.dtype).split(".")[-1]
+        out, lse = fc.flash_fwd_cuda(q, k, v, **kw)
+        ref_out, ref_lse = fa.blockwise_attention(q, k, v, **kw)
+        errs = dict(out=(out - ref_out).abs().max().item(),
+                    lse=(lse - ref_lse).abs().max().item())
+        tol_out, tol_lse = TOL[dtype]
+        check(errs["out"] <= tol_out and errs["lse"] <= tol_lse,
+              f"phase 23 (a) live forward vs plain: {errs} (tol "
+              f"{tol_out}, {tol_lse})")
+        delta = fa.attention_delta(ref_out, dout)
+        got = [fc.flash_bwd_dq_cuda(q, k, v, dout, ref_lse, delta, **kw),
+               *fc.flash_bwd_dkv_cuda(q, k, v, dout, ref_lse, delta, **kw)]
+        want = fa.blockwise_attention_bwd(q, k, v, dout, ref_lse, delta,
+                                          **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = (g.float() - w.float()).abs().max().item()
+            tol = GRAD_TOL[dtype] * w.float().abs().max().item()
+            check(errs[name] <= tol, f"phase 23 (a) live {name} vs plain "
+                  f"err {errs[name]} (tol {tol})")
+        out = dict(shape=list(q.shape), dtype=dtype,
+                   dropout=kw.get("dropout_rate", 0.0), max_abs_err=errs)
+        log(f"pp (a) live kernels: {json.dumps(out)}")
+        return out
+
+
+def pp_memory() -> dict:
+    """(b), on each rank: see the note above PP_LAYERS."""
+    import torch
+    from megatron_tpu_torch.models import language_model as lm
+    from megatron_tpu_torch.parallel import pipeline as pl
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    ts = importlib.import_module("megatron_tpu_torch.training.train_step")
+    cfg = mesh_config("pp", dict(pipeline_parallel=2), 2)
+    m = cfg.model
+    mesh = build_mesh(cfg.parallel)
+    model = lm.LanguageModel(m, seed=MESH_SEED, trainable=True, mesh=mesh)
+    _, chunk, _ = pl.gpt_1f1b_fns(m, lm.make_rope(m, device="cuda"),
+                                  mesh=mesh)
+    grads = pl.StageGrads(model, ("transformer",), 1)
+    x = torch.randn(1, PP_SEQ, m.hidden_size, device="cuda",
+                    requires_grad=True)
+    sl = {"position_ids": torch.arange(PP_SEQ, device="cuda")[None]}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        h, _ = chunk(grads.chunk("transformer", 0), x, sl, 0, None)
+    torch.cuda.synchronize()
+    residual = torch.cuda.memory_allocated() - before
+    del h, x
+    grads.close()
+    gc_cuda()
+    peaks = {}
+    for schedule in ("1f1b", "gpipe"):
+        for n in PP_MEMORY_MICRO:
+            tokens = torch.randint(0, m.vocab_size, (n, 1, PP_SEQ + 1),
+                                   generator=torch.Generator().manual_seed(n)
+                                   ).cuda()
+            gc_cuda()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, out = ts.pipelined_lm_grads(model, {"tokens": tokens},
+                                              None, cfg, schedule=schedule,
+                                              store=True)
+            torch.cuda.synchronize()
+            peaks[f"{schedule}_{n}"] = (torch.cuda.max_memory_allocated()
+                                        - base)
+            del loss, out
+    lo, hi = PP_MEMORY_MICRO
+    growth = {s_: (peaks[f"{s_}_{hi}"] - peaks[f"{s_}_{lo}"]) / residual
+              for s_ in ("1f1b", "gpipe")}
+    rec = dict(rank=mesh.rank, stage=mesh.stage, residual_bytes=residual,
+               peak_bytes=peaks, growth_in_residuals=growth)
+    log(f"pp (b) rank {mesh.rank}: {json.dumps(rec)}")
+    check(growth["1f1b"] < 1.0, f"pp (b): the 1F1B store mode's peak grew "
+          f"by {growth['1f1b']:.3f} residual sets from {lo} to {hi} "
+          "microbatches")
+    check(3.5 <= growth["gpipe"] <= 5.0, f"pp (b): gpipe's peak grew by "
+          f"{growth['gpipe']:.3f} residual sets from {lo} to {hi} "
+          "microbatches, not about four")
+    del model, grads
+    gc_cuda()
+    return rec
+
+
+def pp_bench_head(smi: str) -> dict:
+    """(d): see the note above PP_LAYERS."""
+    import torch
+    from megatron_tpu_torch.tools import bench_head
+    rec = bench_head.measure(bench_head.parse(
+        ["--iters", str(PP_HEAD_ITERS)]), torch.device("cuda"))
+    for line in rec.pop("lines"):
+        log(f"pp (d) bench_head: {line} ({smi})")
+    gc_cuda()
+    return rec
+
+
+def phase_pipeline(smi: str) -> dict:
+    """Phase 23: pipeline parallelism, parts (a)-(d) (see the note above
+    PP_LAYERS). The launch counts are the ranks' pipelined steps'."""
+    import shutil
+    import tempfile
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc_cuda()
+    deadline = time.monotonic() + LANE_MEMORY_WAIT_S
+    while (free := torch.cuda.mem_get_info()[0]) < PP_FREE_BYTES:
+        check(time.monotonic() < deadline, f"the card holds only "
+              f"{free / 2 ** 30:.1f} GiB free before phase 23")
+        time.sleep(1.0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    stats = dict(card=smi, references={})
+    try:
+        t0 = time.perf_counter()
+        for family in ("pp", "pp_drop", "bert_pp", "t5_pp"):
+            stats["references"][family] = ref = mesh_reference(family, root)
+            log(f"pp one rank {family}: {ref['parameters']} parameters, "
+                f"step ms {[round(s_['ms'], 1) for s_ in ref['steps']]}, "
+                f"peak {ref['peak_gib']:.2f} GiB ({smi})")
+        stats["references_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["arms"] = mesh_run_ranks(
+            "pp", MESH23_ARMS + (PP_MEMORY,), root, smi,
+            stats["references"], PP_RANK_TIMEOUT_S)
+        stats["memory"] = stats["arms"].pop(PP_MEMORY)
+        stats["live_kernels"] = stats["arms"][PP_LIVE_ARM]["ranks"][1][
+            "live_kernels"]
+        log(f"pp (a) live kernels on stage 1: "
+            f"{json.dumps(stats['live_kernels'])} ({smi})")
+        stats["ranks_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["bench_head"] = pp_bench_head(smi)
+        stats["bench_head"]["part_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counted = [st["launches"] for arm in stats["arms"].values()
+               for rec in arm["ranks"] for st in rec["steps"]]
+    stats["launches"] = {k: sum(c[k] for c in counted) for k in counted[0]}
+    check(all(stats["launches"][k] > 0 for k in
+              ("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda")),
+          f"phase 23: a flash kernel never launched: {stats['launches']}")
+    log(f"phase 23: launches {stats['launches']}")
+    return stats
+
+
 PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "7": phase_training, "8": phase_pretrain, "9": phase_toolchain,
           "10": phase_window_supervisor, "11": phase_engine_features,
@@ -12225,7 +12590,7 @@ PHASES = {"4": phase_main_path, "5": phase_engine, "6": phase_int8,
           "16": phase_moe, "17": phase_bert_t5,
           "18": phase_retrieval_tasks, "19": phase_zeroshot_msdp_bench,
           "20": phase_remat_master, "21": phase_mesh,
-          "22": phase_mesh_cp_experts}
+          "22": phase_mesh_cp_experts, "23": phase_pipeline}
 
 
 class Lane:
@@ -12335,8 +12700,8 @@ def main(argv=None) -> int:
     parser.add_argument("--smi", help="--lane: the card's nvidia-smi line")
     parser.add_argument(
         "--mesh-rank", metavar="RANK,PORT,ARM[+ARM...],DIR",
-        help="run one rank of these arms of phase 21 (b) or 22 (a)-(d) "
-             "(the smoke run starts two)")
+        help="run one rank of these arms of phase 21 (b), 22 (a)-(d) or "
+             "23 (a)-(c) (the smoke run starts two)")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -12415,8 +12780,8 @@ def main(argv=None) -> int:
     (main_stats, engine_stats, int8_stats, train_stats, pretrain_stats,
      toolchain_stats, window_stats, feature_stats, front_stats, lora_stats,
      struct_stats, fleet_stats, moe_stats, bt_stats, rt_stats, zs_stats,
-     remat_stats, mesh_stats, cpx_stats) = (stats[str(n)]
-                                            for n in range(4, 23))
+     remat_stats, mesh_stats, cpx_stats, pp_stats) = (
+        stats[str(n)] for n in range(4, 24))
     serving_case = next(c for c in cases if c["shape"] == MAIN_SHAPE)
     window_case = next(c for c in cases if c["shape"] == WINDOW_SHAPE)
     train_case = next(c for c in train_cases
@@ -12461,6 +12826,9 @@ def main(argv=None) -> int:
     # phase 22's sharded steps in its two rank processes, each step
     # counted from zero
     cpx_counts = cpx_stats["launches"]
+    # phase 23's pipelined steps in its two rank processes, each step
+    # counted from zero
+    pp_counts = pp_stats["launches"]
 
     def entry(name, source, replaces, launches, part, extra):
         main = train_case[part]
@@ -12497,7 +12865,8 @@ def main(argv=None) -> int:
               + zs_counts_["flash_fwd_cuda"]
               + remat_counts["flash_fwd_cuda"]
               + mesh_counts["flash_fwd_cuda"]
-              + cpx_counts["flash_fwd_cuda"], "fwd",
+              + cpx_counts["flash_fwd_cuda"]
+              + pp_counts["flash_fwd_cuda"], "fwd",
               dict(cuda_kernels=["flash_fwd_wgmma_kernel (bf16: TMA ring, "
                                  "warp-specialised wgmma)",
                                  "flash_fwd_fma_kernel (fp32)"],
@@ -12525,6 +12894,7 @@ def main(argv=None) -> int:
                   remat_master=remat_counts["flash_fwd_cuda"],
                   mesh=mesh_counts["flash_fwd_cuda"],
                   mesh_cp_experts=cpx_counts["flash_fwd_cuda"],
+                  pipeline=pp_counts["flash_fwd_cuda"],
                   fleet_by_replica={
                       name: c["flash_fwd_cuda"] for name, c in
                       fleet_stats["replica_launches"].items()}),
@@ -12556,7 +12926,8 @@ def main(argv=None) -> int:
               + zs_counts_["flash_bwd_dq_cuda"]
               + remat_counts["flash_bwd_dq_cuda"]
               + mesh_counts["flash_bwd_dq_cuda"]
-              + cpx_counts["flash_bwd_dq_cuda"], "dq",
+              + cpx_counts["flash_bwd_dq_cuda"]
+              + pp_counts["flash_bwd_dq_cuda"], "dq",
               dict(cuda_kernels=["flash_bwd_dq_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma)",
                                  "flash_bwd_dq_fma_kernel (fp32)"],
@@ -12573,7 +12944,8 @@ def main(argv=None) -> int:
                            "flash_bwd_dq_cuda"],
                        remat_master=remat_counts["flash_bwd_dq_cuda"],
                        mesh=mesh_counts["flash_bwd_dq_cuda"],
-                       mesh_cp_experts=cpx_counts["flash_bwd_dq_cuda"]),
+                       mesh_cp_experts=cpx_counts["flash_bwd_dq_cuda"],
+                       pipeline=pp_counts["flash_bwd_dq_cuda"]),
                    long_context=dict(shape=long_context["shape"],
                                      **long_context["dq"]),
                    mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["dq"],
@@ -12590,7 +12962,8 @@ def main(argv=None) -> int:
               + zs_counts_["flash_bwd_dkv_cuda"]
               + remat_counts["flash_bwd_dkv_cuda"]
               + mesh_counts["flash_bwd_dkv_cuda"]
-              + cpx_counts["flash_bwd_dkv_cuda"], "dkv",
+              + cpx_counts["flash_bwd_dkv_cuda"]
+              + pp_counts["flash_bwd_dkv_cuda"], "dkv",
               dict(cuda_kernels=["flash_bwd_dkv_wgmma_kernel (bf16: TMA "
                                  "ring, warp-specialised wgmma, q-head "
                                  "chunks)",
@@ -12610,7 +12983,8 @@ def main(argv=None) -> int:
                            "flash_bwd_dkv_cuda"],
                        remat_master=remat_counts["flash_bwd_dkv_cuda"],
                        mesh=mesh_counts["flash_bwd_dkv_cuda"],
-                       mesh_cp_experts=cpx_counts["flash_bwd_dkv_cuda"]),
+                       mesh_cp_experts=cpx_counts["flash_bwd_dkv_cuda"],
+                       pipeline=pp_counts["flash_bwd_dkv_cuda"]),
                    long_context=dict(shape=long_context["shape"],
                                      **long_context["dkv"]),
                    mesh_shape=dict(ms=mesh_stats["kernels"]["ms"]["dkv"],

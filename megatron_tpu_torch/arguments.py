@@ -4,13 +4,16 @@
 The flags keep the reference's names and defaults, so a launch line of
 `finetune.py` runs `python -m megatron_tpu_torch.finetune` unchanged. The
 port parses the model, training, optimizer, data and resilience groups and
-the reference-compat aliases of this path. A flag whose feature the port
-does not run yet raises NotImplementedError naming its ROADMAP item: the
-pipeline and the interleaved pipeline (Queue 1 item 7).
-`--tensor_model_parallel_size`, `--context_parallel_size`,
-`--sequence_parallel`, `--use_distributed_optimizer` and `--expert_axis`
-shard the step over a (dp, cp, tp) mesh of the ranks that torchrun starts
+the reference-compat aliases of this path.
+`--tensor_model_parallel_size`, `--pipeline_model_parallel_size`,
+`--context_parallel_size`, `--sequence_parallel`,
+`--use_distributed_optimizer` and `--expert_axis` shard the step over a
+(dp, pp, cp, tp) mesh of the ranks that torchrun starts
 (`parse_cli(n_devices=...)` derives dp from their count);
+`--num_layers_per_virtual_pipeline_stage` sets the virtual chunks (a
+stage's layers over it, as the reference derives them),
+`--pipeline_schedule` 1f1b or gpipe and `--pipeline_store_activations`
+the 1F1B's store mode;
 `--context_parallel_algo` picks ring or Ulysses attention for cp > 1, and
 `--distributed_backend` names the process group's backend (nccl on CUDA
 devices by default, gloo).
@@ -113,6 +116,9 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    dest="context_parallel")
     g.add_argument("--num_layers_per_virtual_pipeline_stage", type=int,
                    default=None)
+    g.add_argument("--pipeline_schedule", type=str, default="1f1b",
+                   choices=["1f1b", "gpipe"])
+    g.add_argument("--pipeline_store_activations", action="store_true")
     g.add_argument("--sequence_parallel", action="store_true")
     g.add_argument("--use_distributed_optimizer", action="store_true")
     g.add_argument("--expert_axis", type=str, default="tp",
@@ -295,29 +301,14 @@ _NOOP_FLAGS = [
     "--use_cpu_initialization", "--use_ring_exchange_p2p",
 ]
 
-# flags (attribute, value that means "not asked for") whose feature the
-# port does not run yet, with its ROADMAP item
-_UNPORTED = (
-    ("pipeline_parallel", 1,
-     "pipeline parallelism (ROADMAP Queue 1 item 7 (c))"),
-    ("num_layers_per_virtual_pipeline_stage", None,
-     "the interleaved pipeline (ROADMAP Queue 1 item 7 (c))"),
-)
-
-
 def _pick(ns: argparse.Namespace, cls) -> dict:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in vars(ns).items() if k in names}
 
 
 def _apply_compat(args: argparse.Namespace) -> None:
-    """Reference-compat aliases -> the native flags; raise on an unported
-    feature; note the accepted no-op flags. Idempotent."""
-    for attr, off, what in _UNPORTED:
-        if getattr(args, attr) != off:
-            raise NotImplementedError(
-                f"--{attr}={getattr(args, attr)!r}: {what} is not ported "
-                "to megatron_tpu_torch yet")
+    """Reference-compat aliases -> the native flags; note the accepted
+    no-op flags. Idempotent."""
     if not hasattr(args, "_num_layers_defaulted"):
         args._num_layers_defaulted = False
         if args.num_layers is None:
@@ -404,13 +395,21 @@ def config_from_args(args: argparse.Namespace,
         # ring or Ulysses (both run the flash kernels inside)
         model = dataclasses.replace(
             model, attention_impl=args.context_parallel_algo)
+    vpp = 1
+    if args.num_layers_per_virtual_pipeline_stage:
+        per_stage = model.num_layers // max(args.pipeline_parallel, 1)
+        vpp = per_stage // args.num_layers_per_virtual_pipeline_stage
     cfg = MegatronConfig(
         model=model,
         parallel=ParallelConfig(
             tensor_parallel=args.tensor_parallel,
+            pipeline_parallel=args.pipeline_parallel,
             context_parallel=args.context_parallel,
             expert_axis=args.expert_axis,
             sequence_parallel=args.sequence_parallel,
+            virtual_pipeline_chunks=vpp,
+            pipeline_schedule=args.pipeline_schedule,
+            pipeline_store_activations=args.pipeline_store_activations,
             use_distributed_optimizer=args.use_distributed_optimizer),
         optimizer=OptimizerConfig(**_pick(args, OptimizerConfig)),
         training=TrainingConfig(**{

@@ -13,12 +13,13 @@ checkpoint's `config.json` under the reference's names; its serving
 section is ignored here. `num_microbatches` is global_batch_size /
 (micro_batch_size * dp).
 
-The port runs the (dp, cp, tp) mesh: the decoder LM with sequence and
-context parallelism (ring or Ulysses attention), experts sharded over tp
-or dp (`expert_axis`), the BERT, T5 and ICT steps over (dp, tp), and the
-ZeRO-1 optimizer (parallel/, training/train_step.py).
-`MegatronConfig.validate` raises on the mesh fields it does not run yet
-(the pipeline and its schedules), citing ROADMAP Queue 1 item 7.
+The port runs the whole (dp, pp, cp, tp) mesh: the decoder LM with
+sequence and context parallelism (ring or Ulysses attention), experts
+sharded over tp or dp (`expert_axis`), the BERT, T5 and ICT steps over
+(dp, tp), the ZeRO-1 optimizer, and pipeline parallelism (1F1B,
+interleaved 1F1B and gpipe) for the LM, BERT and T5 steps (parallel/,
+training/train_step.py). `MegatronConfig.validate` checks the pipeline
+fields as the reference does.
 """
 from __future__ import annotations
 
@@ -170,16 +171,6 @@ class ParallelConfig:
             raise ValueError(f"world size {n_devices} not divisible by "
                              f"tp*pp*cp={denom}")
         return n_devices // denom
-
-
-# ParallelConfig fields (name, value that means "not asked for") whose
-# feature the port does not run yet
-_LATER_PARALLEL = (
-    ("pipeline_parallel", 1, "pipeline parallelism"),
-    ("virtual_pipeline_chunks", 1, "the interleaved pipeline"),
-    ("pipeline_schedule", "1f1b", "the pipeline schedules"),
-    ("pipeline_store_activations", False, "the pipeline schedules"),
-)
 
 
 @dataclass(frozen=True)
@@ -719,16 +710,10 @@ class MegatronConfig:
         against the model as the reference does (megatron_tpu/config.py
         validate): heads, kv heads, ffn and padded vocab over tp, the
         sequence over tp under SP, the global batch over micro batch x dp;
-        then the MoE routing and the resilience knobs. Mesh fields the port
-        does not run yet raise NotImplementedError."""
+        then the MoE routing (experts unsplit under pp), the pipeline
+        fields and the resilience knobs."""
         model = self.model.derived()
         par = self.parallel
-        for name, off, what in _LATER_PARALLEL:
-            if getattr(par, name) != off:
-                raise NotImplementedError(
-                    f"ParallelConfig.{name}={getattr(par, name)!r}: {what} "
-                    "is not ported to megatron_tpu_torch yet (ROADMAP "
-                    "Queue 1 item 7)")
         if n_devices is not None and par.data_parallel is None:
             par = dataclasses.replace(par,
                                       data_parallel=par.derive_dp(n_devices))
@@ -776,15 +761,60 @@ class MegatronConfig:
             if par.expert_axis not in ("tp", "dp"):
                 raise ValueError(f"expert_axis={par.expert_axis!r} "
                                  "(expected 'tp' or 'dp')")
-            ep = tp if par.expert_axis == "tp" else dp
+            ep = tp if par.expert_axis == "tp" else par.data_parallel
+            if ep is None and par.pipeline_parallel > 1:
+                raise ValueError(
+                    "expert_axis='dp' with pipeline_parallel>1 needs dp "
+                    "known at validate time — pass n_devices to "
+                    "validate() or set ParallelConfig.data_parallel")
+            ep = ep or 1
             if model.num_experts % ep:
                 raise ValueError(
                     f"num_experts={model.num_experts} must shard evenly "
                     f"over the '{par.expert_axis}' mesh axis (size {ep}) "
                     "— parallel/sharding.py 'experts' rule")
+            if par.pipeline_parallel > 1 and ep != 1:
+                raise ValueError(
+                    f"MoE with pipeline_parallel={par.pipeline_parallel} "
+                    "requires the expert mesh axis be unsplit (got "
+                    f"'{par.expert_axis}' size {ep}), as the reference "
+                    "does. Use pp=1 for expert parallelism, or pp>1 with "
+                    "tensor_parallel=1 / expert_axis='tp'-on-tp1")
+        par = self._check_pipeline(model, par)
         self.resilience.validate()
         return dataclasses.replace(self, model=model, parallel=par,
                                    training=tr)
+
+    @staticmethod
+    def _check_pipeline(model: "ModelConfig",
+                        par: ParallelConfig) -> ParallelConfig:
+        """The reference's pipeline checks: the stages split the layers,
+        the virtual chunks a stage's, the schedule is known; store mode
+        under gpipe is dropped with a warning."""
+        pp, vpp = par.pipeline_parallel, par.virtual_pipeline_chunks
+        if pp < 1 or vpp < 1:
+            raise ValueError(f"pipeline_parallel={pp} and "
+                             f"virtual_pipeline_chunks={vpp} must be >= 1")
+        if model.num_layers % pp:
+            raise ValueError(f"num_layers {model.num_layers} must divide "
+                             f"evenly into pp={pp} stages")
+        if vpp > 1 and (model.num_layers // pp) % vpp:
+            raise ValueError(f"a stage's {model.num_layers // pp} layers "
+                             f"must divide evenly into {vpp} virtual "
+                             "chunks")
+        if par.pipeline_schedule not in ("1f1b", "gpipe"):
+            raise ValueError(
+                f"unknown pipeline_schedule {par.pipeline_schedule!r}")
+        if par.pipeline_store_activations and \
+                par.pipeline_schedule != "1f1b":
+            from megatron_tpu_torch.utils.logging import print_rank_0
+            print_rank_0(
+                "warning: --pipeline_store_activations only applies to "
+                "the 1f1b schedule; ignoring it for "
+                f"pipeline_schedule={par.pipeline_schedule!r}")
+            par = dataclasses.replace(par,
+                                      pipeline_store_activations=False)
+        return par
 
     @staticmethod
     def _check_context_parallel(model: "ModelConfig",

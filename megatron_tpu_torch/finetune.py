@@ -18,16 +18,18 @@ best-effort checkpoint and exits with `--watchdog_exit_code` (43). A
 `FaultInjector.from_env`, e.g. `delay@3:30`) is active for the run: the
 chaos drills of the resilience path run through this entry point.
 
-Under torchrun it trains one decoder LM sharded over the (dp, cp, tp) mesh
-of its ranks (parallel/, training/train_step.py), its experts on tp or dp
-(`--expert_axis`), ring or Ulysses attention over cp
-(`--context_parallel_algo`):
+Under torchrun it trains one decoder LM sharded over the (dp, pp, cp, tp)
+mesh of its ranks (parallel/, training/train_step.py), its experts on tp or
+dp (`--expert_axis`), ring or Ulysses attention over cp
+(`--context_parallel_algo`), the stack pipelined over pp
+(`--pipeline_model_parallel_size`, `--num_layers_per_virtual_pipeline_stage`,
+`--pipeline_schedule`, `--pipeline_store_activations`):
 
   torchrun --nproc_per_node 8 -m megatron_tpu_torch.finetune \\
-      --tensor_model_parallel_size 4 --sequence_parallel \\
-      --use_distributed_optimizer ...
+      --tensor_model_parallel_size 2 --pipeline_model_parallel_size 2 \\
+      --sequence_parallel --use_distributed_optimizer ...
 
-dp is the rank count over tp x cp. Each rank runs on CUDA device LOCAL_RANK
+dp is the rank count over tp x pp x cp. Each rank runs on CUDA device LOCAL_RANK
 over NCCL; `--distributed_backend gloo` takes gloo instead (host copies).
 Every rank builds the same global batches and keeps its dp rows; rank 0
 builds the datasets' index caches first, logs, writes the metrics and
@@ -128,7 +130,8 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
                  f"{cfg.model.seq_length}, attention "
                  f"{cfg.model.attention_impl}"
                  + ("" if mesh is None else
-                    f" | mesh dp {mesh.shape['dp']} x cp {mesh.shape['cp']}"
+                    f" | mesh dp {mesh.shape['dp']} x pp {mesh.shape['pp']}"
+                    f" x cp {mesh.shape['cp']}"
                     f" x tp {mesh.shape['tp']}, sequence parallel "
                     f"{mesh.sequence_parallel}, experts on "
                     f"{mesh.parallel.expert_axis}, "

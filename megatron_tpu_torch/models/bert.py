@@ -31,7 +31,10 @@ output reaches the other tp ranks through `collectives.from_tp_rank0`.
 loss: its masked sum over the whole microbatch's mask count, and its NSP
 sum over the whole microbatch's rows.
 
-The pipelined BERT step (`bert_1f1b_fns`) is not ported yet.
+`bert_1f1b_fns` is BERT's spec for the pipelined step
+(parallel/pipeline.py): the embedding intake (`bert_embed`: rows, norm,
+dropout), a chunk of the stack over the pad segments, and the MLM + NSP
+head loss (`bert_head_loss`, the tail `bert_loss` runs too).
 """
 from __future__ import annotations
 
@@ -197,6 +200,24 @@ def bert_encode(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     stack's dropout. On a `mesh` (the weights this rank's parts, tokens
     its dp rows) hidden is [b, s/tp, h] under sequence parallelism, and
     pooled is tp rank 0's there (see the module's note)."""
+    x = bert_embed(params, tokens, cfg, tokentype_ids=tokentype_ids,
+                   generator=generator, deterministic=deterministic,
+                   mesh=mesh)
+    if deterministic:
+        generator = None
+    seg = None if padding_mask is None else bert_pad_segments(padding_mask)
+    x, _, _ = tfm.stack_apply(params["transformer"], x, cfg, causal=False,
+                              segment_ids=seg, generator=generator,
+                              deterministic=deterministic, mesh=mesh)
+    return x, bert_pool(params, x, as_dtype(cfg.compute_dtype))
+
+
+def bert_embed(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+               tokentype_ids=None,
+               generator: Optional[torch.Generator] = None,
+               deterministic: bool = True, mesh=None) -> torch.Tensor:
+    """The embedding half of `bert_encode`: word + position + token-type
+    rows, the embedding norm, the hidden dropout."""
     if cfg.num_experts != 1:
         raise ValueError("MoE's router loss is only wired into the GPT loss")
     compute_dtype = as_dtype(cfg.compute_dtype)
@@ -216,14 +237,11 @@ def bert_encode(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    cfg.norm_epsilon)
     if deterministic:
         generator = None
-    x = dropout(generator, x, cfg.hidden_dropout,
-                None if mesh is None
-                else activation_region(mesh, tuple(x.shape)))
-    seg = None if padding_mask is None else bert_pad_segments(padding_mask)
-    x, _, _ = tfm.stack_apply(params["transformer"], x, cfg, causal=False,
-                              segment_ids=seg, generator=generator,
-                              deterministic=deterministic, mesh=mesh)
-    return x, bert_pool(params, x, compute_dtype)
+    if deterministic:
+        return x
+    return dropout(generator, x, cfg.hidden_dropout,
+                   None if mesh is None
+                   else activation_region(mesh, tuple(x.shape)))
 
 
 def bert_pool(params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -291,21 +309,66 @@ def bert_loss(params, batch: dict, cfg: ModelConfig, *,
     optionally tokentype_ids, padding_mask [b, s] and is_random [b]. On a
     mesh, the rank's share (see the module's note)."""
     mesh = getattr(params, "mesh", None)
-    lm_logits, nsp_logits = bert_forward(
-        params, batch["tokens"], cfg,
-        tokentype_ids=batch.get("tokentype_ids"),
-        padding_mask=batch.get("padding_mask"), generator=generator,
-        deterministic=deterministic)
-    losses = mesh_cross_entropy(lm_logits, batch["labels"], mesh,
-                                vocab_size=cfg.vocab_size)
+    x, _ = bert_encode(params, batch["tokens"], cfg,
+                       tokentype_ids=batch.get("tokentype_ids"),
+                       padding_mask=batch.get("padding_mask"),
+                       generator=generator, deterministic=deterministic,
+                       mesh=mesh)
+    return bert_head_loss(params, x, batch, cfg, mesh)
+
+
+def bert_head_loss(params, x: torch.Tensor, batch: dict, cfg: ModelConfig,
+                   mesh=None) -> torch.Tensor:
+    """`bert_loss` from the encoder's output x: the MLM head's masked mean
+    plus, with "is_random", the NSP head's mean over the pooled [CLS]; on
+    a mesh the rank's share."""
+    compute_dtype = as_dtype(cfg.compute_dtype)
+    losses = mesh_cross_entropy(
+        bert_lm_logits(params, x, cfg, compute_dtype, mesh),
+        batch["labels"], mesh, vocab_size=cfg.vocab_size)
     mask = batch["loss_mask"].float()
     total = (losses * mask).sum() / torch.clamp(
         global_sum(mask.sum(), mesh), min=1.0)
     if "is_random" in batch:
+        nsp_logits = pooled_everywhere(bert_nsp_logits(
+            params, bert_pool(params, x, compute_dtype), compute_dtype),
+            mesh)
         nsp = cross_entropy_loss(nsp_logits, batch["is_random"])
         total = total + (nsp.mean() if mesh is None else
                          nsp.sum() / global_rows(nsp.shape[0], mesh))
     return total
+
+
+def bert_1f1b_fns(cfg: ModelConfig, deterministic: bool = True,
+                  mesh=None) -> tuple:
+    """(intake, chunk, head_loss) pipelining BERT through the 1F1B core
+    (parallel/pipeline.py): the batch's entries are the streams. Dropout
+    seeds as the GPT spec's: the intake's generator from fold_seed(seed,
+    0), the layers' from fold_seed(seed, 1)."""
+    from megatron_tpu_torch.ops.dropout import fold_seed, seeded
+    if cfg.num_experts != 1:
+        raise ValueError("BERT pipeline spec has no MoE router-aux "
+                         "threading")
+
+    def intake(model, sl, seed):
+        return bert_embed(
+            model, sl["tokens"], cfg, tokentype_ids=sl.get("tokentype_ids"),
+            generator=None if seed is None else seeded(fold_seed(seed, 0)),
+            deterministic=deterministic or seed is None, mesh=mesh)
+
+    def chunk(cp, h, sl, offset, seed, remat=True):
+        seg = (bert_pad_segments(sl["padding_mask"])
+               if "padding_mask" in sl else None)
+        return tfm.stack_apply(
+            cp, h, cfg, causal=False, segment_ids=seg,
+            deterministic=deterministic or seed is None,
+            layer_seed=None if seed is None else fold_seed(seed, 1),
+            layer_offset=offset, mesh=mesh, remat=remat)[0]
+
+    def head_loss(model, h, sl, seed):
+        return bert_head_loss(model, h, sl, cfg, mesh)
+
+    return intake, chunk, head_loss
 
 
 def global_sum(t: torch.Tensor, mesh) -> torch.Tensor:

@@ -17,7 +17,11 @@ read zeros; the partial sums are all-reduced, or reduce-scattered to the
 rank's [b, s/tp, h] under sequence parallelism, learned positions added
 after that, on the rank's positions), the sharded stack, and the
 column-parallel LM head whose logits stay vocab-sharded, fed to the
-vocab-parallel cross-entropy (ops/cross_entropy.py). With cp > 1 `loss_fn`
+vocab-parallel cross-entropy (ops/cross_entropy.py). Built on a mesh with
+pp > 1 the model holds its stage's layers of the stack and the whole of
+every other leaf; it runs through parallel/pipeline.py, whose GPT spec
+takes `model_forward`'s pieces apart: `lm_intake` (embedding), the stack,
+`head_logits`. With cp > 1 `loss_fn`
 gives each cp rank its chunk of the sequence: in the ring's zigzag order
 when `data_zigzag_cp` says the ring runs (tokens, labels, mask and
 position ids ride one permutation, so RoPE and learned positions see the
@@ -42,7 +46,8 @@ from megatron_tpu_torch.models.rope import precompute_freqs
 from megatron_tpu_torch.ops.cross_entropy import mesh_cross_entropy
 from megatron_tpu_torch.ops.dropout import dropout
 from megatron_tpu_torch.parallel import collectives
-from megatron_tpu_torch.parallel.mesh import CONTEXT_AXIS, TENSOR_AXIS
+from megatron_tpu_torch.parallel.mesh import (CONTEXT_AXIS, PIPELINE_AXIS,
+                                              TENSOR_AXIS)
 from megatron_tpu_torch.parallel.ring_attention import (data_zigzag_cp,
                                                         zigzag_permutation)
 from megatron_tpu_torch.parallel.sharding import (activation_region,
@@ -297,17 +302,58 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     order with `cp_pre_zigzag`), and the logits its vocab columns."""
     mesh = params.mesh if isinstance(params, LanguageModel) else None
     params = _tree(params)
-    compute_dtype = as_dtype(cfg.compute_dtype)
-    emb = params["embedding"]["word_embeddings"]
-    if mesh is None:
-        x = emb[tokens].to(compute_dtype)
-    else:
+    if mesh is not None:
         if (kv_caches is not None or head_positions is not None
                 or adapters is not None):
             raise NotImplementedError(
                 "a sharded model runs the training forward; caches, head "
                 "positions and adapters are not ported under a mesh "
                 "(ROADMAP Queue 1 item 7)")
+        if mesh.shape[PIPELINE_AXIS] > 1:
+            raise ValueError("a model built on a pipeline mesh holds one "
+                             "stage's layers: run it through "
+                             "parallel/pipeline.py")
+    x, position_ids = lm_intake(params, tokens, cfg,
+                                position_ids=position_ids,
+                                kv_caches=kv_caches,
+                                deterministic=deterministic,
+                                generator=generator, mesh=mesh,
+                                cp_pre_zigzag=cp_pre_zigzag)
+    if rope is None:
+        rope = make_rope(cfg, device=tokens.device)
+    x, kv_caches, aux = tfm.stack_apply(
+        params["transformer"], x, cfg,
+        rope_cos=rope.cos if rope else None,
+        rope_sin=rope.sin if rope else None,
+        position_ids=position_ids, kv_caches=kv_caches,
+        segment_ids=segment_ids, deterministic=deterministic,
+        generator=generator, adapters=adapters, mesh=mesh,
+        cp_pre_zigzag=cp_pre_zigzag)
+    if head_positions is not None:
+        x = x[torch.arange(x.shape[0], device=x.device),
+              head_positions.long()][:, None]
+    logits = head_logits(params, x, cfg, logits_dtype=logits_dtype,
+                         mesh=mesh)
+    if return_aux:
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, kv_caches, aux
+    return logits, kv_caches
+
+
+def lm_intake(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+              position_ids=None, kv_caches=None, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None, mesh=None,
+              cp_pre_zigzag: bool = False) -> tuple:
+    """The embedding half of `model_forward` (a pipeline's stage-0
+    intake): the token rows (vocab-parallel on a `mesh`), the learned
+    positions, the embedding dropout. Returns (x, position_ids), the
+    latter made for the rank's cp chunk when cp > 1 leaves it None."""
+    compute_dtype = as_dtype(cfg.compute_dtype)
+    emb = params["embedding"]["word_embeddings"]
+    if mesh is None:
+        x = emb[tokens].to(compute_dtype)
+    else:
         x = vocab_parallel_embedding(emb, tokens, mesh, compute_dtype)
         if position_ids is None and mesh.shape[CONTEXT_AXIS] > 1:
             s = tokens.shape[1]
@@ -330,31 +376,12 @@ def model_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             pos = pos[:, t * s:(t + 1) * s]
         x = x + params["embedding"]["position_embeddings"][pos].to(
             compute_dtype)
-    if rope is None:
-        rope = make_rope(cfg, device=tokens.device)
     if not deterministic:
         x = dropout(generator, x, cfg.hidden_dropout,
                     None if mesh is None
                     else activation_region(mesh, tuple(x.shape),
                                            zigzag=cp_pre_zigzag))
-    x, kv_caches, aux = tfm.stack_apply(
-        params["transformer"], x, cfg,
-        rope_cos=rope.cos if rope else None,
-        rope_sin=rope.sin if rope else None,
-        position_ids=position_ids, kv_caches=kv_caches,
-        segment_ids=segment_ids, deterministic=deterministic,
-        generator=generator, adapters=adapters, mesh=mesh,
-        cp_pre_zigzag=cp_pre_zigzag)
-    if head_positions is not None:
-        x = x[torch.arange(x.shape[0], device=x.device),
-              head_positions.long()][:, None]
-    logits = head_logits(params, x, cfg, logits_dtype=logits_dtype,
-                         mesh=mesh)
-    if return_aux:
-        if not isinstance(aux, torch.Tensor):
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return logits, kv_caches, aux
-    return logits, kv_caches
+    return x, position_ids
 
 
 def vocab_parallel_embedding(emb: torch.Tensor, tokens: torch.Tensor, mesh,

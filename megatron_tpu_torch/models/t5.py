@@ -18,8 +18,16 @@ stacks, the decoder's cross-attention over the encoder output entered
 through `tp_region_in` (sequence-gathered under sequence parallelism), and
 the tied head with its vocab-sharded bias into the vocab-parallel
 cross-entropy; `t5_loss` returns the rank's share of the global
-microbatch's loss. The pipelined T5 loss (`t5_pipeline_loss_fn`) is not
-ported yet.
+microbatch's loss.
+
+`t5_pipeline_loss_fn` pipelines both stacks over pp (the reference's two
+`pipeline_apply` passes over the same axis, each stage holding its
+chunks of the encoder and of the decoder): a gpipe forward of the
+encoder, whose last stage norms the outputs and broadcasts them to every
+stage; the decoder's gpipe pass with the head on its last stage, each
+stage's cross-attention reading the broadcast tensor; the tensor's grads
+summed over pp and taken back through the norm on the last stage; then
+the encoder's gpipe backward.
 """
 from __future__ import annotations
 
@@ -187,3 +195,110 @@ def t5_loss(params, batch: dict, cfg: ModelConfig, *,
     mask = batch["loss_mask"].float()
     return (losses * mask).sum() / torch.clamp(
         global_sum(mask.sum(), mesh), min=1.0)
+
+
+def t5_pipeline_loss_fn(model, batch: dict, cfg: ModelConfig, *,
+                        vpp: int = 1, seeds: Optional[list] = None,
+                        deterministic: bool = True,
+                        cotangent=None) -> tuple:
+    """T5's loss with both stacks pipelined over the pp axis of the model's
+    mesh (see the module's note), from the batch's [n_micro, ...] entries
+    (the rank's dp rows): the mean over microbatches of each one's
+    masked mean, on every rank. With a `cotangent` (the loss scale) the
+    backward runs too: returns (loss, {name: fp32 grad} of cotangent times
+    the loss, the shared leaves' summed over pp), else (loss, None).
+    `seeds` are the microbatches' dropout seeds (the encoder's layers from
+    fold_seed(seed, 1), the decoder's from fold_seed(seed, 2))."""
+    from megatron_tpu_torch.ops.dropout import fold_seed
+    from megatron_tpu_torch.parallel import pipeline as pl
+    from megatron_tpu_torch.parallel.mesh import PIPELINE_AXIS
+    if cfg.num_experts != 1:
+        raise ValueError("T5 pipeline path has no MoE router-aux threading")
+    mesh = model.mesh
+    pp, stage = mesh.shape[PIPELINE_AXIS], mesh.coords[PIPELINE_AXIS]
+    last = stage == pp - 1
+    train = cotangent is not None
+    compute_dtype = as_dtype(cfg.compute_dtype)
+    n_micro, b, s_enc = batch["text_enc"].shape
+    s_dec = batch["text_dec"].shape[-1]
+    det = deterministic or seeds is None
+
+    def intake(key):
+        def fn(m, sl, seed):
+            return _embed(m, sl[key], compute_dtype, mesh)
+        return fn
+
+    def enc_chunk(cp, h, sl, offset, seed, remat=True):
+        seg = (bert_pad_segments(sl["enc_mask"]) if "enc_mask" in sl
+               else None)
+        return tfm.stack_apply(
+            cp, h, cfg, causal=False, segment_ids=seg, deterministic=det,
+            layer_seed=None if det else fold_seed(seed, 1),
+            layer_offset=offset, mesh=mesh, remat=remat)[0]
+
+    def dec_chunk(cp, h, sl, offset, seed, remat=True):
+        return tfm.stack_apply(
+            cp, h, cfg, causal=True, encoder_output=sl["enc"],
+            deterministic=det,
+            layer_seed=None if det else fold_seed(seed, 2),
+            layer_offset=offset, mesh=mesh, remat=remat)[0]
+
+    def head(m, h, sl, seed):
+        losses = mesh_cross_entropy(
+            t5_lm_logits(m, h, cfg, compute_dtype, mesh), sl["labels"],
+            mesh, vocab_size=cfg.vocab_size)
+        mask = sl["loss_mask"].float()
+        return (losses * mask).sum() / torch.clamp(
+            global_sum(mask.sum(), mesh), min=1.0)
+
+    grads = (pl.StageGrads(model, ("encoder", "decoder"), vpp) if train
+             else None)
+
+    def stack_kw(stack, seq):
+        return dict(act_shape=pl.boundary_shape(mesh, b, seq,
+                                                cfg.hidden_size),
+                    vpp=vpp, seeds=None if det else seeds, grads=grads,
+                    stacked=stack)
+
+    try:
+        with torch.set_grad_enabled(train):
+            enc_run = pl.pipeline_apply(
+                model, {"text_enc": batch["text_enc"],
+                        "enc_mask": batch.get("enc_mask")}, cfg, mesh,
+                intake_fn=intake("text_enc"), chunk_fn=enc_chunk,
+                **stack_kw("encoder", s_enc))
+            if last:
+                outs = [enc_run.outputs[m].requires_grad_(train)
+                        for m in range(n_micro)]
+                normed = apply_norm(cfg.norm_type, model["encoder_norm"],
+                                    torch.stack(outs), cfg.norm_epsilon)
+                enc = normed.detach()
+            else:
+                enc = torch.empty((n_micro, *enc_run.act_shape),
+                                  dtype=compute_dtype, device=model.device)
+            enc = collectives.broadcast(enc, mesh, PIPELINE_AXIS, pp - 1)
+            enc.requires_grad_(train)
+            dec_run = pl.make_stage_run(
+                model, {"text_dec": batch["text_dec"],
+                        "labels": batch["labels"],
+                        "loss_mask": batch["loss_mask"], "enc": enc}, cfg,
+                mesh, intake=intake("text_dec"), chunk=dec_chunk, head=head,
+                cotangent_seed=1.0 if cotangent is None else cotangent,
+                **stack_kw("decoder", s_dec))
+            dec_run.run(pl.stage_ticks(dec_run, "gpipe",
+                                       "both" if train else "fwd"))
+            if train:
+                d_enc = (enc.grad if enc.grad is not None
+                         else torch.zeros_like(enc))
+                d_enc = collectives.all_reduce(d_enc, mesh, PIPELINE_AXIS)
+                if last:
+                    torch.autograd.backward(normed, d_enc.to(normed.dtype))
+                    enc_run.top = {m: o.grad for m, o in enumerate(outs)}
+                pl.pipeline_backward(enc_run)
+    finally:
+        out = grads.close() if train else None
+    loss = collectives.all_reduce(dec_run.loss, mesh,
+                                  PIPELINE_AXIS) / n_micro
+    if train:
+        out = pl.reduce_shared(out, ("encoder", "decoder"), mesh)
+    return loss, out

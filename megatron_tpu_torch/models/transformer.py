@@ -72,7 +72,8 @@ from megatron_tpu_torch.models.attention import (BlockKVCache, KVCache,
 from megatron_tpu_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
 from megatron_tpu_torch.models.moe import moe_apply, moe_axes, moe_init
 from megatron_tpu_torch.models.norms import apply_norm, norm_axes, norm_init
-from megatron_tpu_torch.ops.dropout import drop_path, dropout
+from megatron_tpu_torch.ops.dropout import (drop_path, dropout, fold_seed,
+                                            seeded)
 from megatron_tpu_torch.ops.quantized import W8, GemmTape
 from megatron_tpu_torch.parallel.sharding import activation_region
 
@@ -298,9 +299,17 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
                 segment_ids=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
                 adapters=None, causal: bool = True, encoder_output=None,
-                mesh=None, cp_pre_zigzag: bool = False):
+                mesh=None, cp_pre_zigzag: bool = False,
+                layer_offset: int = 0, layer_seed: Optional[int] = None,
+                remat: bool = True):
     """Apply every layer in order, each at its hidden-dropout and drop-path
-    rate (`dropout_rates`). `kv_caches` is a KVCache of
+    rate (`dropout_rates`). The stack's first layer is the model's layer
+    `layer_offset` (a pipeline stage's chunk, parallel/pipeline.py): the
+    rates are that layer's on, and with a `layer_seed` each layer draws
+    its dropout from a generator of its own, seeded with
+    `fold_seed(layer_seed, absolute layer id)`, in place of `generator`.
+    `remat` False turns the layer recompute off (a pipeline chunk whose
+    forward the schedule already recomputes). `kv_caches` is a KVCache of
     [L, b, T, nkv, hd] tensors or a BlockKVCache of [L, total_blocks, B,
     nkv, hd] arenas; either way one offset (host int or per-row tensor)
     and, for the arena, one block map serve all layers. Each layer gets
@@ -315,11 +324,14 @@ def stack_apply(stacked_params, x: torch.Tensor, cfg: ModelConfig, *,
         lora = [(lw, aidx) for lw in stacked.layers()]
     aux = 0.0
     layers = unstack_layers(stacked_params)
-    hidden, paths = dropout_rates(cfg, len(layers))
-    remat = (cfg.recompute_granularity != "none" and kv_caches is None
-             and torch.is_grad_enabled())
+    hidden, paths = dropout_rates(cfg, layer_offset + len(layers))
+    hidden, paths = hidden[layer_offset:], paths[layer_offset:]
+    remat = (remat and cfg.recompute_granularity != "none"
+             and kv_caches is None and torch.is_grad_enabled())
     gen = None if deterministic else generator
     for i, layer in enumerate(layers):
+        if layer_seed is not None and not deterministic:
+            gen = seeded(fold_seed(layer_seed, layer_offset + i))
         cache = None if kv_caches is None else kv_caches.layer(i)
 
         def apply(h, g, layer=layer, cache=cache, i=i):

@@ -13,6 +13,12 @@ device with one draw, which makes no host sync.
 parallel/sharding.py `activation_region`): the mask is drawn for the whole
 shape and cut at the index, so a rank keeps exactly its slice of the mask
 that the unsharded step draws from the same generator.
+
+`fold_seed` derives a seed from another and a few integers, as the
+reference's `jax.random.fold_in` derives a key: the pipelined steps
+(parallel/pipeline.py) draw one seed per microbatch and seed each layer's
+generator from it and the layer's absolute id, so the masks do not depend
+on the order in which a stage meets its layers.
 """
 from __future__ import annotations
 
@@ -22,6 +28,36 @@ import torch
 
 # the seed drawn for a generator on another device lies below this bound
 _SEED_BOUND = 1 << 62
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finaliser."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A seed in [0, _SEED_BOUND) derived from `seed` and `data` in turn."""
+    x = int(seed) & _MASK64
+    for d in data:
+        x = _mix64(x ^ _mix64(int(d) & _MASK64))
+    return x % _SEED_BOUND
+
+
+def draw_seeds(generator: torch.Generator, n: int) -> list:
+    """`n` seeds in [0, _SEED_BOUND) drawn in order from `generator`."""
+    return torch.randint(0, _SEED_BOUND, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def seeded(seed: Optional[int]) -> Optional[torch.Generator]:
+    """A CPU generator seeded with `seed`; None for None."""
+    return None if seed is None else torch.Generator().manual_seed(seed)
 
 
 def _on_device(generator: torch.Generator,

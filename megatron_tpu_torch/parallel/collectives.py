@@ -36,6 +36,16 @@ Context parallelism and the expert layouts add mappings over any axis:
   token fractions);
 - `scale_grad`: the identity forward, the grad times a constant backward.
 
+The pipeline (parallel/pipeline.py) adds point-to-point traffic over pp:
+
+- `exchange`: one tick's sends to and receives from other stages, posted
+  as one `batch_isend_irecv` (the reference's one `ppermute` per
+  direction per tick); 2-byte floats travel as their int16 bits, which
+  every backend moves;
+- `broadcast`: a tensor of one stage on every stage (T5's encoder output);
+- an all-reduce over pp (the shared leaves' grads, the loss) is
+  `all_reduce` over the axis.
+
 `Transport` moves the bytes for one backend, chosen by the backend named at
 init (`transport_for`): NCCL takes the tensors where they lie; gloo takes
 host copies, because torch's gloo backend runs only `broadcast` and
@@ -57,6 +67,9 @@ class Transport:
         # gloo runs the collectives on host tensors only
         self.host = backend == "gloo"
         self.bytes = 0
+        # whether a group has met before its first point-to-point batch
+        # (parallel/pipeline.py `warm_p2p`)
+        self.p2p_ready = False
 
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         """A contiguous private copy of `t` where the backend reads it."""
@@ -121,6 +134,32 @@ class Transport:
             req.wait()
         return self._unstage(out, t)
 
+    def exchange(self, sends: list, recvs: list, group) -> list:
+        """One batch of point-to-point operations: `sends` [(tensor,
+        global rank)], `recvs` [(shape, dtype, device, global rank)], in
+        the order both peers list them. Returns the received tensors, in
+        `recvs`' order, on their devices."""
+        ops, outs = [], []
+        for t, peer in sends:
+            ops.append(dist.P2POp(dist.isend, _bits(self._stage(t)), peer,
+                                  group))
+        for shape, dtype, device, peer in recvs:
+            buf = torch.empty(shape, dtype=dtype,
+                              device="cpu" if self.host else device)
+            outs.append((buf, device))
+            ops.append(dist.P2POp(dist.irecv, _bits(buf), peer, group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [buf.to(device) if self.host else buf for buf, device in outs]
+
+    def broadcast(self, t: torch.Tensor, group, src: int) -> torch.Tensor:
+        """Global rank `src`'s `t` on every rank of the group (the others
+        pass a tensor of its shape and dtype)."""
+        buf = self._stage(t)
+        dist.broadcast(_bits(buf), src, group=group)
+        return self._unstage(buf, t)
+
     def reduce_scatter(self, t: torch.Tensor, group, dim: int
                        ) -> torch.Tensor:
         """The sum over the group, cut along `dim` into equal parts in rank
@@ -133,6 +172,13 @@ class Transport:
         out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
         return self._unstage(out, t).movedim(0, dim).contiguous()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A 2-byte float tensor as its int16 bits (a view), else itself."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.view(torch.int16)
+    return t
 
 
 def transport_for(backend: str) -> Transport:
@@ -176,6 +222,22 @@ def shift(t: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return t
     return mesh.transport.shift(t, mesh.groups[axis], step)
+
+
+def exchange(mesh, sends: list, recvs: list) -> list:
+    """`Transport.exchange` over the mesh's pp group (pp > 1); peers are
+    global ranks."""
+    return mesh.transport.exchange(sends, recvs, mesh.groups["pp"])
+
+
+def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """The tensor of the rank at coordinate `src` of the axis, on every
+    rank of the axis (the others pass one of its shape and dtype)."""
+    if mesh.shape[axis] == 1:
+        return t
+    group = mesh.groups[axis]
+    return mesh.transport.broadcast(t, group,
+                                    dist.get_global_rank(group, src))
 
 
 def sum_world(t: torch.Tensor, mesh) -> torch.Tensor:

@@ -6,8 +6,11 @@ axis rides the fastest links (upstream Megatron's rank order). The port
 lays the ranks of the default process group out the same way: rank r sits
 where r sits in `arange(world).reshape(dp, pp, cp, tp)` (`rank_grid`), and
 every axis of size > 1 gets the process groups of the ranks that differ
-only along it. The port runs dp, cp and tp; pp is 1 (config.py
-`MegatronConfig.validate`).
+only along it. Under pipeline parallelism (pp > 1) the pp group of a
+rank is its line of stages at its (dp, cp, tp) coordinate: the shared
+leaves' grads are all-reduced over it, and `pp_ranks` names the global
+rank of each of its stages, in stage order, for the schedule's sends
+(`stage_rank`, parallel/pipeline.py).
 
 A `Mesh` is what the sharded model, the train step and the checkpoint
 code share: the axis sizes, this rank's coordinates, the groups, the
@@ -45,6 +48,8 @@ class Mesh:
     # the world's group for host-side agreement (CPU tensors): the default
     # group under gloo, a gloo group of every rank under NCCL
     host_group: Optional[object] = None
+    # the global ranks of this rank's pp line, in stage order
+    pp_ranks: tuple = (0,)
 
     @property
     def world_size(self) -> int:
@@ -57,6 +62,15 @@ class Mesh:
     @property
     def use_distributed_optimizer(self) -> bool:
         return self.parallel.use_distributed_optimizer
+
+    @property
+    def stage(self) -> int:
+        return self.coords[PIPELINE_AXIS]
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of `stage` on this rank's pp line (taken mod
+        pp, so stage - 1 of stage 0 is the last)."""
+        return self.pp_ranks[stage % len(self.pp_ranks)]
 
 
 def _dims(parallel: ParallelConfig, world_size: int) -> dict:
@@ -106,6 +120,9 @@ def build_mesh(parallel: ParallelConfig,
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis] = group
+    pp_line = np.moveaxis(grid, 1, -1).reshape(-1, shape[PIPELINE_AXIS])
+    pp_ranks = tuple(int(r) for r in
+                     pp_line[(pp_line == rank).any(axis=1)][0])
     host_group = None
     if world > 1 and backend != "gloo":
         host_group = dist.new_group(backend="gloo")
@@ -113,7 +130,8 @@ def build_mesh(parallel: ParallelConfig,
                                    data_parallel=shape[DATA_AXIS])
     return Mesh(shape=shape, coords=coords, rank=rank, groups=groups,
                 transport=transport_for(backend) if world > 1 else None,
-                parallel=parallel, host_group=host_group)
+                parallel=parallel, host_group=host_group,
+                pp_ranks=pp_ranks)
 
 
 def single_device_mesh() -> Mesh:

@@ -24,11 +24,18 @@ rank holds its dp coordinate's experts, and `shard_leaf`/`gather_leaf` cut
 and join that dim over dp as the others over tp. Every leaf is whole over
 cp, whose ranks hold the same weights.
 
+Under pipeline parallelism the rules map a stacked leaf's "layers" dim to
+pp: a rank holds its stage's layers (`stage_layers`), contiguous for one
+virtual chunk and in the interleaved order for vpp > 1 (chunk c of stage
+s holds layers (c*pp + s)*Lc onwards, the reference's
+`stage_params_chunked`), and `gather_leaf` puts them back in layer order.
+
 `distributed_opt_dim` is the reference's ZeRO-1 dim rule
 (`distributed_opt_sharding`): a leaf's fp32 moments are cut over dp on
 its first dim that the rules leave unsharded and dp divides; a leaf
 without one keeps them whole, and a leaf the rules already cut over dp
-(an expert bank on dp) is left as it is.
+(an expert bank on dp) is left as it is. Under pp > 1 only the stacked
+leaves are cut (the reference's `pipelined=True`).
 
 `activation_region` places a rank's residual-stream activation in the
 whole step's: its dp rows, and along the sequence its cp chunk (the zigzag
@@ -105,6 +112,46 @@ def dp_dims(axes: tuple, mesh: Mesh) -> list:
     return [d for d, ax in enumerate(spec) if ax == DATA_AXIS]
 
 
+def pp_dims(axes: tuple, mesh: Mesh) -> list:
+    """The dims of a leaf that the rules cut over pp (a stacked leaf's
+    layers); none when pp is 1."""
+    if mesh.shape[PIPELINE_AXIS] == 1:
+        return []
+    spec = logical_to_spec(axes, _rules(mesh))
+    return [d for d, ax in enumerate(spec) if ax == PIPELINE_AXIS]
+
+
+def stage_layers(num_layers: int, pp: int, vpp: int, stage: int) -> list:
+    """The layers `stage` holds, in its order: chunk by chunk, chunk c
+    being layers (c*pp + stage)*Lc .. + Lc, Lc = L / (pp*vpp)."""
+    if num_layers % (pp * vpp):
+        raise ValueError(f"num_layers {num_layers} not divisible by "
+                         f"pp*vpp {pp}x{vpp}")
+    lc = num_layers // (pp * vpp)
+    return [(c * pp + stage) * lc + i for c in range(vpp) for i in range(lc)]
+
+
+def shard_pp(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This stage's layers of `t` along its layers `dim`."""
+    rows = stage_layers(t.shape[dim], mesh.shape[PIPELINE_AXIS],
+                        mesh.parallel.virtual_pipeline_chunks,
+                        mesh.coords[PIPELINE_AXIS])
+    return t.index_select(dim, torch.tensor(rows, device=t.device))
+
+
+def gather_pp(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """The whole layers dim in layer order from every stage's part."""
+    pp = mesh.shape[PIPELINE_AXIS]
+    whole = collectives.all_gather(t, mesh, PIPELINE_AXIS, dim)
+    n = whole.shape[dim]
+    order = [r for s in range(pp)
+             for r in stage_layers(n, pp,
+                                   mesh.parallel.virtual_pipeline_chunks, s)]
+    inv = torch.empty(n, dtype=torch.long)
+    inv[torch.tensor(order)] = torch.arange(n)
+    return whole.index_select(dim, inv.to(whole.device))
+
+
 def _kv_view(t: torch.Tensor, dim: int, kv_heads: int) -> torch.Tensor:
     """The fused kv dim of `t` viewed as [2, nkv, hd]."""
     return t.reshape(*t.shape[:dim], 2, kv_heads, -1, *t.shape[dim + 1:])
@@ -136,14 +183,16 @@ def tp_sharded(axes: tuple, mesh: Mesh,
 
 def shard_leaf(full: torch.Tensor, axes: tuple, mesh: Mesh,
                kv_heads: Optional[int] = None) -> torch.Tensor:
-    """This rank's part of a whole leaf: its tp coordinate's equal share
-    of every dim the rules map to tp, and its dp coordinate's of a dim
-    they map to dp. A "kv_heads" dim is cut on the nkv dim of its
+    """This rank's part of a whole leaf: its stage's layers of a dim the
+    rules map to pp, its tp coordinate's equal share of every dim they map
+    to tp, and its dp coordinate's of a dim they map to dp. A "kv_heads" dim is cut on the nkv dim of its
     [2, nkv, hd] view (`kv_heads` = nkv), and left whole when tp does not
     divide nkv. Returns a contiguous tensor (the leaf itself where nothing
     is cut)."""
     tp, t = mesh.shape[TENSOR_AXIS], mesh.coords[TENSOR_AXIS]
     out = full
+    for d in pp_dims(axes, mesh):
+        out = shard_pp(out, d, mesh)
     for d in dp_dims(axes, mesh):
         out = shard_dp(out, d, mesh)
     for d in cut_dims(axes, mesh, kv_heads):
@@ -163,8 +212,8 @@ def shard_leaf(full: torch.Tensor, axes: tuple, mesh: Mesh,
 
 def gather_leaf(local: torch.Tensor, axes: tuple, mesh: Mesh,
                 kv_heads: Optional[int] = None) -> torch.Tensor:
-    """The whole leaf from every tp rank's part (`shard_leaf`'s inverse);
-    every rank of the tp group must call it."""
+    """The whole leaf from every rank's part (`shard_leaf`'s inverse);
+    every rank of the tp, dp and pp groups must call it."""
     out = local
     for d in reversed(cut_dims(axes, mesh, kv_heads)):
         if axes[d] == "kv_heads":
@@ -176,6 +225,8 @@ def gather_leaf(local: torch.Tensor, axes: tuple, mesh: Mesh,
             out = collectives.all_gather(out, mesh, TENSOR_AXIS, d)
     for d in dp_dims(axes, mesh):
         out = gather_dp(out, d, mesh)
+    for d in pp_dims(axes, mesh):
+        out = gather_pp(out, d, mesh)
     return out
 
 
@@ -184,11 +235,15 @@ def distributed_opt_dim(axes: tuple, shape: tuple,
     """The dim that ZeRO-1 cuts a leaf's moments on over dp
     (`distributed_opt_sharding`'s rule): the first dim whose logical axis
     the rules map to no mesh axis and whose size dp divides; None when dp
-    is 1, the distributed optimizer is off, or no dim qualifies."""
+    is 1, the distributed optimizer is off, no dim qualifies, or pp > 1
+    and the leaf is not stacked."""
     dp = mesh.shape[DATA_AXIS]
     if dp == 1 or not mesh.use_distributed_optimizer:
         return None
     spec = list(logical_to_spec(axes, _rules(mesh)))
+    if mesh.shape[PIPELINE_AXIS] > 1 and PIPELINE_AXIS not in spec:
+        # the shared leaves under pp (the reference's pipelined=True)
+        return None
     if DATA_AXIS in spec:
         # an expert bank on dp: its moments are cut with it already
         return None

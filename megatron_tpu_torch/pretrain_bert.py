@@ -13,10 +13,12 @@ positions, two token types, GELU, biases, a tied MLM decode), with fp32
 master weights whatever `--bf16` asks of the compute. It trains on the
 current CUDA device; `main(argv, device="cpu")` runs it on the CPU, as the
 tests do, and without a GPU and a `device` it raises. Under torchrun it
-trains sharded over the (dp, tp) mesh of its ranks
-(`--tensor_model_parallel_size`, `--sequence_parallel`,
-`--use_distributed_optimizer`; training/pretrain.py `launch`), as
-pretrain_t5.py and pretrain_ict.py do. `--save` writes npz
+trains sharded over the (dp, pp, tp) mesh of its ranks
+(`--tensor_model_parallel_size`, `--pipeline_model_parallel_size`,
+`--sequence_parallel`, `--use_distributed_optimizer`;
+training/pretrain.py `launch`), pipelined through `bert_1f1b_fns` when
+pp > 1, as pretrain_t5.py does through `t5_pipeline_loss_fn`
+(pretrain_ict.py runs (dp, tp)). `--save` writes npz
 checkpoints that the JAX package reads, and `--load` resumes from one
 either package wrote, at the exact batch the interrupted run would have
 taken next.
@@ -94,9 +96,10 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         return bert.bert_loss(model, mb, mcfg, generator=generator,
                               deterministic=mcfg.hidden_dropout == 0.0)
 
+    # pp > 1: MLM and NSP pipelined through the 1F1B core
     return run_pretrain(cfg, dataset, init_params_fn=init_params,
                         loss_fn=loss_fn, valid_dataset=valid, device=device,
-                        mesh=mesh)
+                        mesh=mesh, pipelined_spec=bert.bert_1f1b_fns)
 
 
 if __name__ == "__main__":

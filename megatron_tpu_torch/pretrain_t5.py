@@ -82,9 +82,18 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         return t5.t5_loss(model, mb, mcfg, generator=generator,
                           deterministic=mcfg.hidden_dropout == 0.0)
 
+    pipelined_loss_fn = None
+    if mesh is not None and cfg.parallel.pipeline_parallel > 1:
+        # pp > 1: both stacks pipelined over pp
+        def pipelined_loss_fn(model, batch, seeds, cotangent):
+            return t5.t5_pipeline_loss_fn(
+                model, batch, mcfg, vpp=cfg.parallel.virtual_pipeline_chunks,
+                seeds=seeds, deterministic=mcfg.hidden_dropout == 0.0,
+                cotangent=cotangent)
+
     return run_pretrain(cfg, dataset, init_params_fn=init_params,
                         loss_fn=loss_fn, valid_dataset=valid, device=device,
-                        mesh=mesh)
+                        mesh=mesh, pipelined_loss_fn=pipelined_loss_fn)
 
 
 if __name__ == "__main__":

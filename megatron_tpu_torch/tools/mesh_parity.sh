@@ -12,12 +12,20 @@
 # log lands in OUT_DIR (default build/mesh_parity) and its iteration lines
 # (lm loss, grad norm, ms, tokens/s) and memory line are printed, to be
 # read side by side.
+# The pipeline part: Llama-2-7B's width at 4 layers trains on one GPU, then
+# at (pp 2 x tp 2, sequence parallel), (pp 4) and (pp 2 with 2 virtual
+# chunks x dp 2), a global batch of 4 one-row microbatches (two a dp rank
+# at dp 2); then tools/bench_bubble times the 1F1B step at pp 4 over
+# n_micro 4-32, vpp 1 and 2.
+# PARTS (default all) picks "mesh" (the runs above the pipeline's) or
+# "pipeline".
 #
-#   megatron_tpu_torch/tools/mesh_parity.sh [OUT_DIR]
+#   megatron_tpu_torch/tools/mesh_parity.sh [OUT_DIR] [all|mesh|pipeline]
 set -euo pipefail
 root="$(cd "$(dirname "$0")/../.." && pwd)"
 export PYTHONPATH="${root}${PYTHONPATH:+:${PYTHONPATH}}"
 out=${1:-build/mesh_parity}
+parts=${2:-all}
 mkdir -p "${out}"
 
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -43,6 +51,7 @@ moe=(--num_layers 1 --hidden_size 4096 --num_attention_heads 32
      --moe_top_k 2 "${common[@]}")
 show() { grep "iteration\|memory\|mesh" "$1"; }
 
+if [[ "${parts}" != "pipeline" ]]; then
 echo "=== one GPU"
 python -m megatron_tpu_torch.finetune "${args[@]}" --micro_batch_size 2 \
     > "${out}/mesh_parity_one.log" 2>&1
@@ -85,3 +94,36 @@ torchrun --standalone --nproc_per_node 4 -m megatron_tpu_torch.finetune \
     --expert_axis dp --use_distributed_optimizer \
     > "${out}/mesh_parity_moe_dp2.log" 2>&1
 show "${out}/mesh_parity_moe_dp2.log"
+fi
+
+if [[ "${parts}" != "mesh" ]]; then
+pipe=(--num_layers 4 --hidden_size 4096 --num_attention_heads 32
+      --ffn_hidden_size 11008 --micro_batch_size 1 "${common[@]}")
+echo "=== pipeline: one GPU, 4 layers"
+python -m megatron_tpu_torch.finetune "${pipe[@]}" \
+    > "${out}/mesh_parity_pp_one.log" 2>&1
+show "${out}/mesh_parity_pp_one.log"
+echo "=== 4 GPUs: pp 2 x tp 2, sequence parallel"
+torchrun --standalone --nproc_per_node 4 -m megatron_tpu_torch.finetune \
+    "${pipe[@]}" --pipeline_model_parallel_size 2 \
+    --tensor_model_parallel_size 2 --sequence_parallel \
+    > "${out}/mesh_parity_pp2tp2.log" 2>&1
+show "${out}/mesh_parity_pp2tp2.log"
+echo "=== 4 GPUs: pp 4"
+torchrun --standalone --nproc_per_node 4 -m megatron_tpu_torch.finetune \
+    "${pipe[@]}" --pipeline_model_parallel_size 4 \
+    > "${out}/mesh_parity_pp4.log" 2>&1
+show "${out}/mesh_parity_pp4.log"
+echo "=== 4 GPUs: pp 2, vpp 2 x dp 2"
+torchrun --standalone --nproc_per_node 4 -m megatron_tpu_torch.finetune \
+    "${pipe[@]}" --pipeline_model_parallel_size 2 \
+    --num_layers_per_virtual_pipeline_stage 1 \
+    > "${out}/mesh_parity_pp2vpp2dp2.log" 2>&1
+show "${out}/mesh_parity_pp2vpp2dp2.log"
+echo "=== 4 GPUs: bench_bubble at pp 4"
+torchrun --standalone --nproc_per_node 4 \
+    -m megatron_tpu_torch.tools.bench_bubble --n_micro 4 8 16 32 \
+    --vpp 1 2 --out "${out}/bench_bubble_pp4.log" \
+    > "${out}/bench_bubble_pp4.stdout" 2>&1
+grep "bubble" "${out}/bench_bubble_pp4.log"
+fi

@@ -39,15 +39,16 @@ the optimizer state (the live-weight swap's staging, serving/weights.py).
 `load_pretrained_params` copies a checkpoint's weights into the leaves of
 another model that share their names (a task head keeps its fresh values).
 
-A state sharded over a (dp, cp, tp) mesh (training/train_step.py) saves
-the same unsharded files: every rank gathers every leaf whole (the tp
-parts, an expert bank's dp parts under expert_axis "dp", and each ZeRO-1
-moment's dp shares), one leaf at a time, rank 0 keeps a
+A state sharded over a (dp, pp, cp, tp) mesh (training/train_step.py)
+saves the same unsharded files: every rank gathers every leaf whole (the
+tp parts, an expert bank's dp parts under expert_axis "dp", each ZeRO-1
+moment's dp shares, and the stages' layers of a stacked leaf, put back in
+layer order whatever the virtual chunks), one leaf at a time, rank 0 keeps a
 host copy of each and writes them once and publishes, and the other ranks
 write nothing and wait at a barrier until it has. Such a save holds the
 whole state in rank 0's host memory while it runs.
 A load into a sharded state reads the whole leaves on every rank and keeps
-each rank's parts, so a checkpoint loads at any (dp, cp, tp) and
+each rank's parts, so a checkpoint loads at any (dp, pp, vpp, cp, tp) and
 expert_axis, and into the unsharded port alike.
 
 Orbax checkpoints (`format_version` 2, a `state/` directory) exist only with
@@ -71,7 +72,8 @@ import torch.distributed as dist
 from megatron_tpu_torch.config import MegatronConfig, ResilienceConfig
 from megatron_tpu_torch.ops.quantized import W8
 from megatron_tpu_torch.parallel import sharding as shd
-from megatron_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
+from megatron_tpu_torch.parallel.mesh import (DATA_AXIS, PIPELINE_AXIS,
+                                              TENSOR_AXIS)
 from megatron_tpu_torch.resilience import integrity
 from megatron_tpu_torch.resilience.faults import fault_point
 from megatron_tpu_torch.resilience.retry import RetryPolicy, policy_from, retry
@@ -263,7 +265,8 @@ class _MeshLeaves:
 
     def whole_shape(self, key: str, shape: tuple) -> tuple:
         """The whole leaf's shape from this rank's part's: the ZeRO-1 dim
-        and a dim cut over dp times dp, every dim cut over tp times tp."""
+        and a dim cut over dp times dp, every dim cut over tp times tp, a
+        layers dim cut over pp times pp."""
         leaf, moment = self._leaf(key)
         out = list(shape)
         if leaf is None:
@@ -274,6 +277,8 @@ class _MeshLeaves:
             out[d] *= self.mesh.shape[DATA_AXIS]
         for d in shd.cut_dims(leaf.axes, self.mesh, self.kv_heads):
             out[d] *= self.mesh.shape[TENSOR_AXIS]
+        for d in shd.pp_dims(leaf.axes, self.mesh):
+            out[d] *= self.mesh.shape[PIPELINE_AXIS]
         return tuple(out)
 
 

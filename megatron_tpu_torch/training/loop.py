@@ -38,7 +38,8 @@
   step (the reference's run-ahead rule). Evaluation and saves suspend it.
 - On a state sharded over a mesh (training/train_step.py) every rank runs
   the loop in step: each is handed the same global batches, the metrics
-  are the global ones on every rank, and the exit decisions that read a
+  are the global ones on every rank (under pp the loss reaches every
+  stage, and the evaluation runs the pipelined forward), and the exit decisions that read a
   rank's own clock or signals (SIGTERM, `exit_duration_in_mins`) are
   summed over the world first, on the host (`collectives.any_rank`), so
   the ranks stop at the same iteration.
@@ -217,7 +218,8 @@ def training_log(metrics: dict, iteration: int, consumed_samples: int,
 
 
 def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
-                    loss_fn=None, mesh=None):
+                    loss_fn=None, mesh=None, pipelined_spec=None,
+                    pipelined_loss_fn=None):
     """The evaluation loss of a batch, as the reference's eval step: the
     mean over microbatches of the masked-mean lm loss, deterministic, with
     no position or segment ids; or of `loss_fn(params, mb, None)` (the
@@ -225,12 +227,44 @@ def _make_eval_step(cfg: MegatronConfig, device: DeviceLike = None,
     each rank takes its dp rows of the global batch (and the LM loss its
     cp chunk), divides by the whole microbatch's mask count, or returns
     its share of a custom loss, and the sum goes over dp and cp, as in the
-    step."""
+    step. On a pipeline mesh the loss is the pipelined forward's: the LM's
+    `pipeline_loss_fn`, a custom loss's `pipelined_spec` or
+    `pipelined_loss_fn` (make_train_step's), every rank getting it."""
+    from megatron_tpu_torch.parallel import pipeline as pl
     device = resolve_device(device)
     rope = lm.make_rope(cfg.model, device=device)
+    pipelined = mesh is not None and mesh.shape["pp"] > 1
+
+    def pipelined_custom(params, batch: dict) -> torch.Tensor:
+        if pipelined_loss_fn is not None:
+            return pipelined_loss_fn(params, batch, None, None)[0]
+        if pipelined_spec is None:
+            raise ValueError("evaluation under pp > 1 with a custom loss "
+                             "needs pipelined_spec or pipelined_loss_fn")
+        intake, chunk, head = pipelined_spec(cfg.model, True, mesh)
+        tokens = batch["tokens"]
+        return pl.pipeline_eval_loss(
+            params, batch, cfg.model, mesh, intake_fn=intake,
+            chunk_fn=chunk, head_loss_fn=head, act_shape=pl.boundary_shape(
+                mesh, tokens.shape[1], tokens.shape[2],
+                cfg.model.hidden_size),
+            vpp=cfg.parallel.virtual_pipeline_chunks)
 
     @torch.no_grad()
     def eval_step(params, batch: dict) -> torch.Tensor:
+        if pipelined:
+            if loss_fn is not None or pipelined_spec is not None \
+                    or pipelined_loss_fn is not None:
+                total = pipelined_custom(params,
+                                         make_global_batch(batch, mesh))
+            else:
+                batch, counts = shard_lm_batch(batch, mesh)
+                total = pl.pipeline_loss_fn(
+                    params, batch["tokens"], cfg.model, mesh,
+                    vpp=cfg.parallel.virtual_pipeline_chunks,
+                    loss_mask=batch.get("loss_mask"), rope=rope,
+                    counts=counts)
+            return sum_loss(total, mesh)
         if loss_fn is not None:
             if mesh is not None:
                 batch = make_global_batch(batch, mesh)
@@ -650,7 +684,10 @@ def train(cfg: MegatronConfig, train_iterator: Iterator[dict],
                 if eval_step_fn is None:
                     eval_step_fn = _make_eval_step(
                         cfg, device, loss_fn=step_kwargs.get("loss_fn"),
-                        mesh=mesh)
+                        mesh=mesh,
+                        pipelined_spec=step_kwargs.get("pipelined_spec"),
+                        pipelined_loss_fn=step_kwargs.get(
+                            "pipelined_loss_fn"))
                 with (watchdog.suspend() if watchdog is not None
                       else contextlib.nullcontext()):
                     results = evaluate(state, valid_iterator, eval_step_fn,

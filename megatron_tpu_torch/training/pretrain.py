@@ -10,8 +10,9 @@ hooks: only checkpoints this run writes are rollback targets, and the data
 stream is rebuilt at the checkpoint's exact position (the loop quarantines
 the poison window; the order is never re-seeded).
 
-Under torchrun the entry points train sharded over the (dp, tp) mesh of
-the ranks (`launch`): every rank builds the same global batches, rank 0
+Under torchrun the entry points train sharded over the (dp, pp, tp) mesh
+of the ranks (`launch`), pipelined through BERT's spec or T5's pipelined
+loss when pp > 1: every rank builds the same global batches, rank 0
 builds the datasets' index caches first (`rank0_first`), the family's
 module is built on the mesh, and its checkpoints are the unsharded
 format (training/checkpointing.py).
@@ -19,7 +20,7 @@ format (training/checkpointing.py).
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch.distributed as dist
 
@@ -56,12 +57,16 @@ def rank0_first(mesh):
 
 def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
                  loss_fn: Callable, valid_dataset=None,
-                 device: DeviceLike = None, mesh=None) -> int:
+                 device: DeviceLike = None, mesh=None,
+                 pipelined_spec: Optional[Callable] = None,
+                 pipelined_loss_fn: Optional[Callable] = None) -> int:
     """Train on `dataset` on `device` (the current CUDA device when None;
     raises without one). `init_params_fn()` returns the family's fresh
     module on that device (built on `mesh` when one is given),
     `loss_fn(model, mb, generator)` the loss of one microbatch
-    (make_train_step's contract). Returns 0."""
+    (make_train_step's contract); on a pipeline mesh the step and the
+    evaluation run `pipelined_spec` or `pipelined_loss_fn` instead
+    (make_train_step's). Returns 0."""
     from megatron_tpu_torch.data.samplers import (DictBatchIterator,
                                                   restore_data_state)
     from megatron_tpu_torch.training import checkpointing as ckpt
@@ -124,7 +129,8 @@ def run_pretrain(cfg: MegatronConfig, dataset, *, init_params_fn: Callable,
         start_iteration=start_iteration, consumed_samples=consumed,
         save_fn=save_fn, load_fn=load_fn, reset_data_fn=reset_data_fn,
         quarantine_log=quarantine,
-        step_kwargs={"loss_fn": loss_fn},
+        step_kwargs={"loss_fn": loss_fn, "pipelined_spec": pipelined_spec,
+                     "pipelined_loss_fn": pipelined_loss_fn},
         device=device)
     print_rank_0(f"pretraining done at consumed_samples={consumed}")
     return 0

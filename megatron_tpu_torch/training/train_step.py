@@ -58,8 +58,26 @@ the reference (megatron_tpu/training/train_step.py):
 Dropout draws the unsharded step's masks from the same generator and
 keeps the rank's slice (models/transformer.py), so with one generator the
 sharded step equals the unsharded one up to the order of the sums.
-Recompute runs under the mesh as without it. The pipelined steps raise
-(ROADMAP Queue 1 item 7 (c)).
+Recompute runs under the mesh as without it.
+
+On a mesh with pp > 1 the step is pipelined (parallel/pipeline.py), as
+the reference's `make_train_step` dispatches it:
+- the LM (`pipelined_train_step`): the 1F1B schedule (interleaved for
+  vpp > 1, store or recompute mode) or gpipe, on the streams of the
+  rank's dp rows and cp chunk (zigzag-permuted when the ring runs);
+- a custom loss with a `pipelined_spec` (`custom_pipelined_train_step`,
+  BERT's `bert_1f1b_fns`): the 1F1B core on the batch's streams; gpipe
+  raises, as in the reference;
+- a custom loss with a `pipelined_loss_fn` (`derived_pipelined_train_step`,
+  T5's `t5_pipeline_loss_fn`), which runs its own passes and backward;
+- a custom `loss_fn` with neither raises.
+The shared leaves' grads are summed over pp (the schedule does it), the
+norm counts each shared leaf once (pp coordinate 0) and each stage's
+layers on their stage, ZeRO-1 cuts only the stacked leaves (the
+reference's `pipelined=True`), and the loss reaches every rank. Dropout
+draws one seed per microbatch from the generator and seeds each layer
+from it (parallel/pipeline.py), so a pipelined step's masks are the same
+at any (pp, vpp) and schedule, but not those of the unpipelined step.
 """
 from __future__ import annotations
 
@@ -71,10 +89,12 @@ from torch.profiler import record_function
 
 from megatron_tpu_torch.config import MegatronConfig
 from megatron_tpu_torch.models import language_model as lm
+from megatron_tpu_torch.ops.dropout import draw_seeds
 from megatron_tpu_torch.parallel import collectives
 from megatron_tpu_torch.parallel import sharding as shd
 from megatron_tpu_torch.parallel.mesh import (CONTEXT_AXIS, DATA_AXIS,
-                                              TENSOR_AXIS, Mesh)
+                                              PIPELINE_AXIS, TENSOR_AXIS,
+                                              Mesh)
 from megatron_tpu_torch.parallel.multihost import make_global_batch
 from megatron_tpu_torch.training import optimizer as opt
 from megatron_tpu_torch.training import scheduler
@@ -116,14 +136,16 @@ class LeafLayout:
     reference's, the model's `param_axes`), whether its tp part is a cut
     (`tp_cut`), whether its grads are partial sums over tp
     (`tp_partial`), whether it is cut over dp (`dp_cut`, an expert bank on
-    dp), its ZeRO-1 dim, and whether this rank counts its grad in the norm
-    (`owned`, optimizer.GradShards)."""
+    dp), its ZeRO-1 dim, whether this rank counts its grad in the norm
+    (`owned`, optimizer.GradShards), and whether it is cut over pp
+    (`pp_cut`, a stacked leaf under the pipeline)."""
     axes: tuple
     tp_cut: bool
     tp_partial: bool
     zero_dim: Optional[int]
     owned: bool
     dp_cut: bool = False
+    pp_cut: bool = False
 
 
 def state_layout(model: torch.nn.Module) -> dict:
@@ -140,8 +162,9 @@ def state_layout(model: torch.nn.Module) -> dict:
         dp_cut = bool(shd.dp_dims(ax, mesh))
         zero = shd.distributed_opt_dim(ax, tuple(p.shape), mesh)
         router = name.endswith("mlp.router") and cfg.num_experts > 1
+        pp_cut = bool(shd.pp_dims(ax, mesh))
         out[name] = LeafLayout(
-            axes=ax, tp_cut=cut, dp_cut=dp_cut,
+            axes=ax, tp_cut=cut, dp_cut=dp_cut, pp_cut=pp_cut,
             tp_partial=(not cut and tp > 1
                         and (mesh.sequence_parallel or "kv_heads" in ax
                              or (router and experts_on_tp))),
@@ -149,8 +172,20 @@ def state_layout(model: torch.nn.Module) -> dict:
             owned=((cut or mesh.coords[TENSOR_AXIS] == 0)
                    and (zero is not None or dp_cut
                         or mesh.coords[DATA_AXIS] == 0)
+                   and (pp_cut or mesh.coords[PIPELINE_AXIS] == 0)
                    and mesh.coords[CONTEXT_AXIS] == 0))
     return out
+
+
+def replica_owned(layout: dict, mesh: Mesh) -> dict:
+    """name -> whether this rank counts its copy of the parameter: one
+    replica of each part (the tp parts, an expert bank's dp parts, each
+    stage's layers) over the world."""
+    return {k: ((leaf.tp_cut or mesh.coords[TENSOR_AXIS] == 0)
+                and (leaf.dp_cut or mesh.coords[DATA_AXIS] == 0)
+                and (leaf.pp_cut or mesh.coords[PIPELINE_AXIS] == 0)
+                and mesh.coords[CONTEXT_AXIS] == 0)
+            for k, leaf in layout.items()}
 
 
 def zero_share(t: torch.Tensor, leaf: LeafLayout, mesh: Mesh
@@ -327,6 +362,134 @@ def train_step(state: TrainState, batch: dict,
     return out
 
 
+def _deterministic(mcfg) -> bool:
+    return mcfg.hidden_dropout == 0.0 and mcfg.attention_dropout == 0.0
+
+
+def _microbatch_seeds(batch: dict, generator, mcfg) -> Optional[list]:
+    """One dropout seed per microbatch from the step's generator (None
+    when the model drops nothing)."""
+    if _deterministic(mcfg):
+        return None
+    if generator is None:
+        raise ValueError("train_step: dropout needs a generator")
+    return draw_seeds(generator, next(iter(batch.values())).shape[0])
+
+
+def _pipelined_finish(state: TrainState, loss, grads: dict,
+                      cfg: MegatronConfig, wd_mask, layout: dict):
+    mesh = state.params.mesh
+    for p in state.params.parameters():
+        p.grad = None
+    loss = sum_loss(loss, mesh)
+    grads = _reduce_grads(grads, layout, mesh)
+    with record_function(SPAN_OPTIMIZER):
+        return _finish_step(state, grads, loss, cfg, wd_mask, layout)
+
+
+def pipelined_train_step(state: TrainState, batch: dict,
+                         generator: Optional[torch.Generator] = None, *,
+                         cfg: MegatronConfig,
+                         rope: Optional[lm.RopeTables] = None,
+                         wd_mask: Optional[dict] = None,
+                         layout: Optional[dict] = None):
+    """The LM step with the stack pipelined over pp: the 1F1B schedule
+    (interleaved for vpp > 1) or, with pipeline_schedule "gpipe", the
+    lockstep one (see the module's note)."""
+    with record_function(SPAN_FORWARD_BACKWARD):
+        loss, grads = pipelined_lm_grads(
+            state.params, batch, generator, cfg, rope=rope,
+            cotangent=state.opt_state.scaler.scale)
+    return _pipelined_finish(state, loss, grads, cfg, wd_mask, layout)
+
+
+def pipelined_lm_grads(model, batch: dict, generator, cfg: MegatronConfig,
+                       *, rope: Optional[lm.RopeTables] = None,
+                       cotangent=1.0, schedule: Optional[str] = None,
+                       store: Optional[bool] = None) -> tuple:
+    """The forward and backward of `pipelined_train_step` on a model built
+    on a pipeline mesh, from the global batch: (loss, {name: fp32 grad})
+    before the reductions over dp, cp and tp, the shared leaves' summed
+    over pp. `schedule` and `store` override the config's."""
+    from megatron_tpu_torch.parallel import pipeline as pl
+    from megatron_tpu_torch.parallel.ring_attention import data_zigzag_cp
+    mcfg, par = cfg.model, cfg.parallel
+    mesh = model.mesh
+    batch, counts = shard_lm_batch(batch, mesh)
+    tokens = batch["tokens"]
+    if rope is None:
+        rope = lm.make_rope(mcfg, device=model.device)
+    zz = data_zigzag_cp(mcfg, tokens.shape[2] - 1, mesh,
+                        segment_ids=batch.get("segment_ids"))
+    intake, chunk, head = pl.gpt_1f1b_fns(
+        mcfg, rope, deterministic=_deterministic(mcfg),
+        cp_pre_zigzag=zz > 0, mesh=mesh)
+    streams = pl.gpt_1f1b_streams(
+        tokens, mcfg, loss_mask=batch.get("loss_mask"),
+        position_ids=batch.get("position_ids"),
+        segment_ids=batch.get("segment_ids"), zigzag_cp=zz, mesh=mesh,
+        counts=counts)
+    return pl.pipeline_train_1f1b(
+        model, streams, mcfg, mesh, intake_fn=intake, chunk_fn=chunk,
+        head_loss_fn=head,
+        act_shape=pl.boundary_shape(mesh, tokens.shape[1],
+                                    streams["inputs"].shape[-1],
+                                    mcfg.hidden_size),
+        seeds=_microbatch_seeds(batch, generator, mcfg),
+        cotangent_seed=cotangent,
+        store_activations=(par.pipeline_store_activations if store is None
+                           else store),
+        vpp=par.virtual_pipeline_chunks,
+        schedule=schedule or par.pipeline_schedule)
+
+
+def custom_pipelined_train_step(state: TrainState, batch: dict,
+                                generator: Optional[torch.Generator] = None,
+                                *, cfg: MegatronConfig, spec,
+                                wd_mask: Optional[dict] = None,
+                                layout: Optional[dict] = None):
+    """A custom-loss model (BERT) pipelined through the 1F1B core:
+    `spec(model_cfg, deterministic, mesh)` -> (intake, chunk, head_loss);
+    the batch's [n_micro, ...] entries, the rank's dp rows of them, are
+    the streams."""
+    from megatron_tpu_torch.parallel import pipeline as pl
+    mcfg, par = cfg.model, cfg.parallel
+    model = state.params
+    mesh = model.mesh
+    batch = make_global_batch(batch, mesh)
+    intake, chunk, head = spec(mcfg, _deterministic(mcfg), mesh)
+    tokens = batch["tokens"]
+    with record_function(SPAN_FORWARD_BACKWARD):
+        loss, grads = pl.pipeline_train_1f1b(
+            model, batch, mcfg, mesh, intake_fn=intake, chunk_fn=chunk,
+            head_loss_fn=head,
+            act_shape=pl.boundary_shape(mesh, tokens.shape[1],
+                                        tokens.shape[2], mcfg.hidden_size),
+            seeds=_microbatch_seeds(batch, generator, mcfg),
+            cotangent_seed=state.opt_state.scaler.scale,
+            store_activations=par.pipeline_store_activations,
+            vpp=par.virtual_pipeline_chunks)
+    return _pipelined_finish(state, loss, grads, cfg, wd_mask, layout)
+
+
+def derived_pipelined_train_step(state: TrainState, batch: dict,
+                                 generator: Optional[torch.Generator] = None,
+                                 *, cfg: MegatronConfig, pipelined_loss_fn,
+                                 wd_mask: Optional[dict] = None,
+                                 layout: Optional[dict] = None):
+    """A model that pipelines inside its own loss (T5's two passes):
+    `pipelined_loss_fn(model, batch, seeds, cotangent)` -> (loss, grads),
+    the grads those of `cotangent` times the loss with the shared leaves'
+    summed over pp (models/t5.py `t5_pipeline_loss_fn`)."""
+    model = state.params
+    batch = make_global_batch(batch, model.mesh)
+    with record_function(SPAN_FORWARD_BACKWARD):
+        loss, grads = pipelined_loss_fn(
+            model, batch, _microbatch_seeds(batch, generator, cfg.model),
+            state.opt_state.scaler.scale)
+    return _pipelined_finish(state, loss, grads, cfg, wd_mask, layout)
+
+
 def _reduce_grads(grads: dict, layout: dict, mesh: Mesh) -> dict:
     """A sharded step's local grads -> what this rank's optimizer takes:
     partial sums over tp all-reduced, every grad all-reduced over cp, then
@@ -384,16 +547,9 @@ def _finish_step(state: TrainState, grads: dict, loss: torch.Tensor,
             if shards is None:
                 metrics["params_norm"] = opt.global_grad_norm(params)
             else:
-                # one replica of each part: the tp parts, and the dp parts
-                # of an expert bank on dp, summed over the world
                 metrics["params_norm"] = opt.sharded_grad_norm(
                     params, opt.GradShards(
-                        owned={k: ((leaf.tp_cut
-                                    or mesh.coords[TENSOR_AXIS] == 0)
-                                   and (leaf.dp_cut
-                                        or mesh.coords[DATA_AXIS] == 0)
-                                   and mesh.coords[CONTEXT_AXIS] == 0)
-                               for k, leaf in layout.items()},
+                        owned=replica_owned(layout, mesh),
                         sum_world=lambda t: collectives.sum_world(
                             t, mesh)))[0]
     return state, metrics
@@ -407,40 +563,53 @@ def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
     (state, metrics)`, updating the state in place. `loss_fn(model, mb,
     generator)` replaces the LM loss (see the module's note). With a
     `mesh` (parallel/mesh.py `build_mesh`) the step is the sharded one of
-    the module's note, on a state built on that mesh. The reference's
+    the module's note, on a state built on that mesh; with pp > 1 it is
+    pipelined, a custom loss through `pipelined_spec(model_cfg,
+    deterministic, mesh)` (BERT's `bert_1f1b_fns`) or
+    `pipelined_loss_fn(model, batch, seeds, cotangent)` (T5's). The
+    reference's
     `init_params_fn` and `axes_fn` give its weight-decay mask and its
     shardings the model's tree; the port reads both off the state's module
     (`stacked_prefixes`, `param_axes`), so the keywords are accepted, for
     the reference's signature, and ignored."""
     del init_params_fn, axes_fn
-    if pipelined_spec is not None or pipelined_loss_fn is not None:
-        raise NotImplementedError(
-            "make_train_step: the pipelined steps are not ported (ROADMAP "
-            "Queue 1 item 7 (c))")
     par = cfg.parallel
-    asked = (par.tensor_parallel, par.context_parallel,
-             par.sequence_parallel, par.use_distributed_optimizer,
-             par.expert_axis)
-    if mesh is None and (par.tensor_parallel > 1
+    asked = (par.tensor_parallel, par.pipeline_parallel,
+             par.context_parallel, par.sequence_parallel,
+             par.use_distributed_optimizer, par.expert_axis)
+    if mesh is None and (par.tensor_parallel > 1 or par.pipeline_parallel > 1
                          or par.context_parallel > 1):
         raise ValueError(f"make_train_step: cfg asks for tp "
-                         f"{par.tensor_parallel} x cp "
+                         f"{par.tensor_parallel} x pp "
+                         f"{par.pipeline_parallel} x cp "
                          f"{par.context_parallel} and no mesh was given")
-    if mesh is not None and loss_fn is not None \
-            and mesh.shape[CONTEXT_AXIS] > 1:
+    custom = (loss_fn is not None or pipelined_spec is not None
+              or pipelined_loss_fn is not None)
+    if mesh is not None and custom and mesh.shape[CONTEXT_AXIS] > 1:
         raise NotImplementedError(
             "make_train_step: a custom loss_fn (BERT, T5, ICT) under "
             "context parallelism is not ported (ROADMAP Queue 1 item 7 "
             "(g))")
     if mesh is not None and asked != (
-            mesh.shape[TENSOR_AXIS], mesh.shape[CONTEXT_AXIS],
-            mesh.parallel.sequence_parallel, mesh.use_distributed_optimizer,
-            mesh.parallel.expert_axis):
+            mesh.shape[TENSOR_AXIS], mesh.shape[PIPELINE_AXIS],
+            mesh.shape[CONTEXT_AXIS], mesh.parallel.sequence_parallel,
+            mesh.use_distributed_optimizer, mesh.parallel.expert_axis):
         raise ValueError("make_train_step: the mesh was built for another "
                          "parallel config than cfg's")
+    pipelined = mesh is not None and mesh.shape[PIPELINE_AXIS] > 1
+    if pipelined:
+        if pipelined_spec is not None:
+            if par.pipeline_schedule != "1f1b":
+                raise ValueError("pipelined_spec models run the 1F1B core "
+                                 "only; drop --pipeline_schedule gpipe")
+        elif pipelined_loss_fn is None and loss_fn is not None:
+            raise ValueError(
+                "pp>1 with a custom loss needs pipelined_spec (single-stack "
+                "models, see models/bert.py bert_1f1b_fns) or "
+                "pipelined_loss_fn (encoder-decoder, see models/t5.py "
+                "t5_pipeline_loss_fn)")
     device = resolve_device(device)
-    rope = (None if loss_fn is not None
-            else lm.make_rope(cfg.model, device=device))
+    rope = (None if custom else lm.make_rope(cfg.model, device=device))
     masks: dict = {}
     layouts: list = []  # the sharded state's, made at the first step
 
@@ -461,8 +630,18 @@ def make_train_step(cfg: MegatronConfig, mesh=None, *, loss_fn=None,
             if not layouts:
                 layouts.append(state_layout(state.params))
             layout = layouts[0]
-        return train_step(state, batch, generator, cfg=cfg, rope=rope,
-                          wd_mask=masks[family], loss_fn=loss_fn,
-                          layout=layout)
+        common = dict(cfg=cfg, wd_mask=masks[family], layout=layout)
+        if not pipelined:
+            return train_step(state, batch, generator, rope=rope,
+                              loss_fn=loss_fn, **common)
+        if pipelined_spec is not None:
+            return custom_pipelined_train_step(
+                state, batch, generator, spec=pipelined_spec, **common)
+        if pipelined_loss_fn is not None:
+            return derived_pipelined_train_step(
+                state, batch, generator,
+                pipelined_loss_fn=pipelined_loss_fn, **common)
+        return pipelined_train_step(state, batch, generator, rope=rope,
+                                    **common)
 
     return step

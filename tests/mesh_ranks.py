@@ -44,6 +44,26 @@ def family_loss(family: str, cfg):
     return None
 
 
+def family_pipelined(family: str, cfg) -> dict:
+    """make_train_step's pipelined keyword of a family under pp > 1: BERT's
+    spec, T5's pipelined loss (nothing for the LM or pp 1)."""
+    from megatron_tpu_torch.models import bert, t5
+    if cfg.parallel.pipeline_parallel == 1:
+        return {}
+    if family == "bert":
+        return {"pipelined_spec": bert.bert_1f1b_fns}
+    if family == "t5":
+        mcfg = cfg.model
+
+        def pipelined_loss_fn(model, batch, seeds, cotangent):
+            return t5.t5_pipeline_loss_fn(
+                model, batch, mcfg, vpp=cfg.parallel.virtual_pipeline_chunks,
+                seeds=seeds, deterministic=mcfg.hidden_dropout == 0.0,
+                cotangent=cotangent)
+        return {"pipelined_loss_fn": pipelined_loss_fn}
+    return {}
+
+
 def model_on(cfg, weights: dict, mesh=None, family: str = "lm",
              **options):
     """A trainable model of `family` holding `weights` (the whole tree
@@ -87,7 +107,8 @@ def train(cfg, weights: dict, batches: list, seeds=None, sharded=True,
     state = ts.state_from_params(
         model_on(cfg, weights, mesh, family, **(options or {})), cfg)
     step = ts.make_train_step(cfg, mesh=mesh, device="cpu",
-                              loss_fn=family_loss(family, cfg))
+                              loss_fn=family_loss(family, cfg),
+                              **family_pipelined(family, cfg))
     metrics = []
     for i, batch in enumerate(batches):
         gen = (None if seeds is None
@@ -301,3 +322,84 @@ def load_whole(cfg, save_dir: str, sharded: bool = True) -> dict:
     out = whole_state(state)
     out["iteration"] = loaded.iteration
     return out
+
+
+def pipeline_grads(cfg, weights: dict, batch: dict, seed=None,
+                   schedule=None, store=None, cotangent=1.0) -> dict:
+    """The pipelined LM step's forward and backward on this rank's mesh
+    (train_step.pipelined_lm_grads) from `weights`: the global loss, every
+    grad reduced over the mesh and gathered whole, the transport's bytes
+    and the deepest stash a chunk held."""
+    import dataclasses
+    from megatron_tpu_torch.parallel import pipeline as pl
+    mesh = build_mesh(cfg.parallel)
+    model = model_on(cfg, weights, mesh)
+    gen = None if seed is None else torch.Generator().manual_seed(int(seed))
+    peaks = []
+    run_pipeline = pl.run_pipeline
+
+    def recording(*a, **k):
+        out = run_pipeline(*a, **k)
+        peaks.append(out[2].peak_stash)
+        return out
+    pl.run_pipeline = recording
+    try:
+        loss, grads = ts.pipelined_lm_grads(
+            model, {k: torch.from_numpy(np.array(v)) for k, v in
+                    batch.items()}, gen, cfg, schedule=schedule,
+            store=store, cotangent=cotangent)
+    finally:
+        pl.run_pipeline = run_pipeline
+    layout = {k: dataclasses.replace(v, zero_dim=None)
+              for k, v in ts.state_layout(model).items()}
+    grads = ts._reduce_grads(grads, layout, mesh)
+    axes = lm.flat_axes(model.param_axes())
+    nkv = cfg.model.num_kv_heads
+    return {"loss": float(ts.sum_loss(loss, mesh)),
+            "grads": {k: shd.gather_leaf(g, axes[k], mesh, nkv).numpy()
+                      for k, g in grads.items()},
+            "bytes": 0 if mesh.transport is None else mesh.transport.bytes,
+            "peak": peaks[0]}
+
+
+def pipeline_eval(cfg, weights: dict, batch: dict) -> float:
+    """The LM evaluation loss of the training loop's eval step on this
+    rank's mesh (the pipelined forward under pp)."""
+    from megatron_tpu_torch.training import loop
+    mesh = build_mesh(cfg.parallel)
+    model = model_on(cfg, weights, mesh)
+    step = loop._make_eval_step(cfg, "cpu", mesh=mesh)
+    return float(step(model, {k: torch.from_numpy(np.array(v))
+                              for k, v in batch.items()}))
+
+
+def family_eval(cfg, weights: dict, batch: dict, family: str) -> float:
+    """A family's evaluation loss through the training loop's eval step on
+    this rank's mesh (its pipelined keyword under pp)."""
+    from megatron_tpu_torch.training import loop
+    mesh = build_mesh(cfg.parallel)
+    model = model_on(cfg, weights, mesh, family)
+    step = loop._make_eval_step(cfg, "cpu", loss_fn=family_loss(family, cfg),
+                                mesh=mesh, **family_pipelined(family, cfg))
+    return float(step(model, {k: torch.from_numpy(np.array(v))
+                              for k, v in batch.items()}))
+
+
+def load_state(cfg, root: str, family: str = "lm") -> dict:
+    """A fresh state of `family` built on this rank's mesh, loaded from the
+    checkpoint under `root`: its whole leaves (`whole_state`) and the
+    iteration."""
+    mesh = build_mesh(cfg.parallel)
+    state = ts.state_from_params(family_model(family, cfg, mesh), cfg)
+    loaded = ckpt.load_checkpoint(root, state)
+    out = whole_state(state)
+    out["iteration"] = loaded.iteration
+    return out
+
+
+def bubble_record(argv: list) -> dict:
+    """tools/bench_bubble's measurement on this rank (the pool's gloo
+    group is the pipeline's), on the CPU."""
+    from megatron_tpu_torch.tools import bench_bubble
+    return bench_bubble.measure(bench_bubble.parse(argv),
+                                torch.device("cpu"))

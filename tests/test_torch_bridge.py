@@ -170,13 +170,15 @@ ZERO_SHOT = ("tasks/zeroshot_gpt/detokenizer.py",
              "tools/bench_block_attn.py", "tools/bench_spec.py",
              "tools/bench_prefix.py", "tools/bench_sync.py")
 
-# the mesh: tensor and sequence parallelism, data parallelism and ZeRO-1
+# the mesh: tensor and sequence parallelism, data parallelism and ZeRO-1,
+# and the pipeline with its two tools
 MESH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
         "parallel/collectives.py", "parallel/sharding.py",
         "parallel/ring_attention.py", "parallel/ulysses.py",
-        "training/train_step.py", "training/optimizer.py",
-        "training/checkpointing.py", "training/loop.py",
-        "training/pretrain.py", "finetune.py", "arguments.py")
+        "parallel/pipeline.py", "training/train_step.py",
+        "training/optimizer.py", "training/checkpointing.py",
+        "training/loop.py", "training/pretrain.py", "finetune.py",
+        "arguments.py", "tools/bench_bubble.py", "tools/bench_head.py")
 
 FRONT_DOOR = ("serving/host_tier.py", "serving/router.py",
               "serving/request.py", "serving/metrics.py",

@@ -395,12 +395,35 @@ def test_exit_interval_and_sigterm_match_jax(corpus, monkeypatch, tmp_path):
     ["--num_layers_per_virtual_pipeline_stage", "1"],
     ["--expert_axis", "dp", "--pipeline_model_parallel_size", "2"]])
 def test_unported_flags_raise(corpus, flags):
-    """The flags of the mesh parts not ported yet: the pipeline, alone or
-    beside context parallelism or experts on dp. Tensor, sequence and
-    context parallelism, the experts' axis and the distributed optimizer
-    run (test_torch_mesh_train.py drives them under torchrun's ranks)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        finetune.main(_argv(corpus, *flags), device="cpu")
+    """The pipeline's flags, alone or beside context parallelism or experts
+    on dp, reach ParallelConfig as the reference maps them (the virtual
+    chunks from the layers a virtual stage holds), dp derived from the
+    ranks; with experts on a split dp axis under pp (or dp not known at
+    validation) both packages refuse, the port with the reference's
+    reason. finetune.main trains the pipeline under torchrun's ranks
+    (test_torch_pipeline_train.py)."""
+    from megatron_tpu.arguments import parse_cli as j_parse
+    from megatron_tpu_torch.arguments import parse_cli as t_parse
+    argv = _argv(corpus, *flags)
+
+    def flag(name):
+        return int(flags[flags.index(name) + 1]) if name in flags else 1
+    n = flag("--pipeline_model_parallel_size") * flag(
+        "--context_parallel_size")
+    fields = ("pipeline_parallel", "virtual_pipeline_chunks",
+              "pipeline_schedule", "pipeline_store_activations",
+              "context_parallel", "data_parallel", "expert_axis")
+    want = j_parse(argv, n_devices=n)[0].parallel
+    got = t_parse(argv, n_devices=n)[0].parallel
+    assert [getattr(got, f) for f in fields] == \
+        [getattr(want, f) for f in fields]
+    if "dp" in flags:
+        for devices in (None, 2 * n):
+            moe = argv + ["--num_experts", "4"]
+            with pytest.raises(AssertionError):
+                j_parse(moe, n_devices=devices)
+            with pytest.raises(ValueError, match="pipeline_parallel"):
+                t_parse(moe, n_devices=devices)
 
 
 @pytest.mark.parametrize("flags,granularity", [

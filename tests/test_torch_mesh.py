@@ -308,12 +308,21 @@ def test_validate_checks_the_mesh_against_the_model():
             (cfg(context_parallel=2, tensor_parallel=2), 3, "world size")):
         with pytest.raises(ValueError, match=what):
             bad.validate(n_devices=n)
-    # the pipeline fields still raise; cp and the expert axis run
+    # the pipeline fields validate as the reference's: the stages and
+    # virtual chunks must split the layers, the schedule be known; cp and
+    # the expert axis run
     for field in (dict(pipeline_parallel=2), dict(virtual_pipeline_chunks=2),
                   dict(pipeline_schedule="gpipe"),
                   dict(pipeline_store_activations=True)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            cfg(**field).validate(n_devices=2)
+        got = cfg(**field).validate(n_devices=2).parallel
+        for k, v in field.items():
+            assert getattr(got, k) == v
+        assert got.data_parallel == 2 // got.pipeline_parallel
+    for field, what in ((dict(pipeline_parallel=4), "num_layers"),
+                        (dict(virtual_pipeline_chunks=3), "virtual"),
+                        (dict(pipeline_schedule="zigzag"), "schedule")):
+        with pytest.raises(ValueError, match=what):
+            cfg(**field).validate(n_devices=4)
     cp = cfg(context_parallel=2, tensor_parallel=2).validate(n_devices=8)
     assert cp.parallel.data_parallel == 2
     # 4 experts over 2 ranks of their axis, and not over 8 or 6

@@ -363,11 +363,14 @@ def test_moe_flags_parse_to_jax_model_config():
             want.model.moe_capacity_factor == cap
         assert got.model == tconfig.ModelConfig(**{
             f: getattr(want.model, f) for f in fields})
-    # --expert_axis parses as the reference's; the pipeline still raises
+    # --expert_axis parses as the reference's; experts on dp under the
+    # pipeline are refused by both, the port with the reference's reason
     argv = ["--num_experts", "4", "--expert_axis", "dp"]
     assert targs.parse_cli(argv)[0].parallel.expert_axis == \
         jargs.parse_cli(argv)[0].parallel.expert_axis == "dp"
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(AssertionError):
+        jargs.parse_cli(argv + ["--pipeline_model_parallel_size", "2"])
+    with pytest.raises(ValueError, match="pipeline_parallel"):
         targs.parse_cli(argv + ["--pipeline_model_parallel_size", "2"])
 
 

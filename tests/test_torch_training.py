@@ -417,21 +417,39 @@ def test_training_entry_points_raise_without_gpu_and_device(monkeypatch):
 
 
 def test_what_the_slice_leaves_out_raises():
-    """A custom loss (BERT, T5, ICT) under context parallelism and the
-    pipelined steps still raise; a custom loss and experts under a mesh,
-    bf16 and fp16 master weights, activation recompute, hidden dropout,
-    drop-path and the dot path's attention dropout run."""
+    """A custom loss (BERT, T5, ICT) under context parallelism still
+    raises (ROADMAP item 7 (g)), with or without a pipelined spec; the
+    pipelined keywords dispatch as the reference's do: ignored without a
+    pipeline mesh, and on one a pipelined_spec under gpipe and a custom
+    loss_fn with neither keyword are refused; a custom loss and experts
+    under a mesh, bf16 and fp16 master weights, activation recompute,
+    hidden dropout, drop-path and the dot path's attention dropout run."""
     import dataclasses
     from megatron_tpu_torch.parallel.mesh import single_device_mesh
     _, tcfg = _train_configs()
     moe = tc.MegatronConfig(model=tc.mixtral_config("tiny", **SMALL))
     cp_mesh = dataclasses.replace(single_device_mesh(),
                                   shape=dict(dp=1, pp=1, cp=2, tp=1))
-    for cfg, kw in ((tcfg, dict(mesh=cp_mesh, loss_fn=lambda *a: 0.0)),
-                    (tcfg, dict(pipelined_spec=object())),
-                    (tcfg, dict(pipelined_loss_fn=object()))):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tts.make_train_step(cfg, device="cpu", **kw)
+    for kw in (dict(loss_fn=lambda *a: 0.0), dict(pipelined_spec=object()),
+               dict(pipelined_loss_fn=object())):
+        with pytest.raises(NotImplementedError, match="item 7 \\(g\\)"):
+            tts.make_train_step(tcfg, device="cpu", mesh=cp_mesh, **kw)
+        tts.make_train_step(tcfg, device="cpu", **kw)
+    for schedule, kw, ok in (("1f1b", dict(pipelined_spec=object()), True),
+                             ("gpipe", dict(pipelined_spec=object()), False),
+                             ("gpipe", dict(pipelined_loss_fn=object()),
+                              True),
+                             ("1f1b", dict(loss_fn=lambda *a: 0.0), False)):
+        par = tc.ParallelConfig(pipeline_parallel=2,
+                                pipeline_schedule=schedule)
+        cfg = dataclasses.replace(tcfg, parallel=par)
+        pp_mesh = dataclasses.replace(single_device_mesh(), parallel=par,
+                                      shape=dict(dp=1, pp=2, cp=1, tp=1))
+        if ok:
+            tts.make_train_step(cfg, device="cpu", mesh=pp_mesh, **kw)
+        else:
+            with pytest.raises(ValueError, match="pipelined_spec"):
+                tts.make_train_step(cfg, device="cpu", mesh=pp_mesh, **kw)
     tts.make_train_step(tcfg, device="cpu", loss_fn=lambda *a: 0.0)
     tts.make_train_step(tcfg, device="cpu", mesh=single_device_mesh(),
                         loss_fn=lambda *a: 0.0)
